@@ -1,0 +1,9 @@
+"""Core ANN library: configs, index containers, build and search stages."""
+from repro_torch.core.types import (  # noqa: F401
+    BruteForceConfig,
+    FakeWordsConfig,
+    FakeWordsIndex,
+    FlatIndex,
+    SearchParams,
+)
+from repro_torch.core.index import AnnIndex, index_from_numpy  # noqa: F401

@@ -1,0 +1,139 @@
+"""Staged retrieval pipeline (port of ``repro/core/pipeline.py``):
+
+    encode query -> match candidates -> optional exact rerank
+
+Stages are frozen dataclasses taking the index as an explicit argument.
+Every matcher streams through the fused top-k kernel: on a CUDA index the
+CUDA kernel, on a CPU index its plain version.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple, Union
+
+import torch
+
+from repro_torch.core import bruteforce, fakewords
+from repro_torch.core.types import BruteForceConfig, FakeWordsConfig, SearchParams
+from repro_torch.kernels.fused_topk import ops as fused
+
+AnyConfig = Union[FakeWordsConfig, BruteForceConfig]
+
+
+# --------------------------------------------------------------------------
+# Query encoders
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TfRowEncoder:
+    """Fake words: sign-split quantized term-frequency row (B, 2m) int32."""
+
+    config: FakeWordsConfig
+
+    def __call__(self, index, q_norm: torch.Tensor) -> torch.Tensor:
+        return fakewords.encode_queries(q_norm, self.config, normalized=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentityEncoder:
+    """Brute force: the unit-normalized query itself."""
+
+    def __call__(self, index, q_norm: torch.Tensor) -> torch.Tensor:
+        return q_norm
+
+
+# --------------------------------------------------------------------------
+# Matchers
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FakeWordsMatcher:
+    """Classic (tf-idf, bf16 x bf16 -> f32) or dot (int8 x int8 -> int32)
+    scoring over the stored matrix, df-prune keep-mask folded into the query."""
+
+    scoring: str = "classic"
+    df_max_ratio: float = 1.0
+
+    def __call__(
+        self, index, q_tf: torch.Tensor, depth: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        d = min(depth, index.num_docs)
+        topk = fused.classic_topk if self.scoring == "classic" else fused.dot_topk
+        return topk(index, q_tf, d, self.df_max_ratio)
+
+
+@dataclasses.dataclass(frozen=True)
+class CosineMatcher:
+    """Exact cosine over the stored unit vectors (brute-force oracle)."""
+
+    def __call__(
+        self, index, q_norm: torch.Tensor, depth: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        d = min(depth, index.num_docs)
+        return fused.cosine_topk(index.vectors, q_norm.contiguous(), d)
+
+
+# --------------------------------------------------------------------------
+# Rerankers
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ExactCosineReranker:
+    """Gather the depth-d candidates' original vectors, exact cosine, top-k
+    (id -1 = padding, masked to -inf)."""
+
+    def __call__(
+        self, index, queries: torch.Tensor, cand_ids: torch.Tensor, k: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if index.vectors is None:
+            raise ValueError("rerank requires the index to keep original vectors "
+                             "(build with rerank_store='exact')")
+        return bruteforce.rerank_exact(index.vectors, queries, cand_ids, k, normalized=True)
+
+
+# --------------------------------------------------------------------------
+# The pipeline
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchPipeline:
+    """encode -> match -> optional exact rerank."""
+
+    encoder: Any
+    matcher: Any
+    reranker: Any = ExactCosineReranker()
+
+    def search(
+        self, index, queries: torch.Tensor, params: SearchParams = SearchParams()
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """End-to-end staged search."""
+        q_norm = bruteforce.l2_normalize(queries)
+        q_rep = self.encoder(index, q_norm)
+        d_s, d_i = self.matcher(index, q_rep, params.depth)
+        if not params.rerank:
+            return d_s[:, : params.k], d_i[:, : params.k]
+        return self.reranker(index, q_norm, d_i, params.k)
+
+
+def make_encoder(config: AnyConfig):
+    if isinstance(config, FakeWordsConfig):
+        return TfRowEncoder(config)
+    if isinstance(config, BruteForceConfig):
+        return IdentityEncoder()
+    raise TypeError(f"config {type(config).__name__} is not ported yet (ROADMAP.md, queue A)")
+
+
+def make_matcher(config: AnyConfig):
+    if isinstance(config, FakeWordsConfig):
+        return FakeWordsMatcher(scoring=config.scoring, df_max_ratio=config.df_max_ratio)
+    if isinstance(config, BruteForceConfig):
+        return CosineMatcher()
+    raise TypeError(f"config {type(config).__name__} is not ported yet (ROADMAP.md, queue A)")
+
+
+def build_pipeline(config: AnyConfig) -> SearchPipeline:
+    return SearchPipeline(encoder=make_encoder(config), matcher=make_matcher(config))

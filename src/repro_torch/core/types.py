@@ -1,0 +1,114 @@
+"""Typed configuration and index containers (port of ``repro/core/types.py``).
+
+Only what the fake-words and brute-force paths need.  Configs are frozen
+dataclasses; index containers hold tensors on one device.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class FakeWordsConfig:
+    """Fake-words encoding (Amato et al. 2016, as used in the paper).
+
+    quantization: Q; tf(tau_i, d) = round(Q * w_i) for the sign-split feature.
+    df_max_ratio: query terms with df > df_max_ratio * N are dropped; 1.0 = off.
+    scoring: "classic" (Lucene ClassicSimilarity) or "dot" (quantized inner
+        product).
+    store_dtype: dtype of the stored term-frequency matrix: int8 (the
+        kernel's integer operand), given as ``torch.int8`` or ``"int8"`` (as
+        the reference's ``config.json`` writes it).
+    signed_store: the reference's half-width signed dot store; not ported.
+    """
+
+    quantization: int = 50
+    df_max_ratio: float = 1.0
+    scoring: str = "classic"
+    store_dtype: Any = torch.int8
+    signed_store: bool = False
+
+    def __post_init__(self) -> None:
+        if not (1 <= self.quantization <= 127):
+            raise ValueError(f"quantization must be in [1,127], got {self.quantization}")
+        if self.scoring not in ("classic", "dot"):
+            raise ValueError(f"scoring must be 'classic' or 'dot', got {self.scoring}")
+        if self.signed_store:
+            raise NotImplementedError(
+                "signed_store is not ported yet (ROADMAP.md, queue A: "
+                "FakeWordsMatcher signed_store)"
+            )
+        if self.store_dtype not in (torch.int8, "int8"):
+            raise ValueError(f"store_dtype must be int8, got {self.store_dtype!r}")
+        object.__setattr__(self, "store_dtype", torch.int8)
+
+
+@dataclasses.dataclass(frozen=True)
+class BruteForceConfig:
+    """Exact cosine scan over the stored unit vectors (the ground truth as a
+    method)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchParams:
+    """Retrieve ``depth`` candidates, optionally exact-rerank them to ``k``."""
+
+    k: int = 10
+    depth: int = 100
+    rerank: bool = False
+
+
+def _nbytes(*tensors: Optional[torch.Tensor]) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+@dataclasses.dataclass(frozen=True)
+class FakeWordsIndex:
+    """Sign-split quantized term-frequency index.
+
+    tf:      (N, 2m) integer term frequencies (round(Q*relu(w)) | round(Q*relu(-w))).
+    idf:     (2m,) float32, 1 + ln(N / (df + 1)).
+    norm:    (N,) float32, 1 / sqrt(doc_len).
+    df:      (2m,) int32 document frequency per fake term.
+    scored:  (N, 2m) bfloat16 sqrt(tf) * idf^2 * norm (classic mode), or None.
+    vectors: (N, dim) float32 unit originals for exact rerank, or None.
+    """
+
+    tf: torch.Tensor
+    idf: torch.Tensor
+    norm: torch.Tensor
+    df: torch.Tensor
+    scored: Optional[torch.Tensor] = None
+    vectors: Optional[torch.Tensor] = None
+
+    @property
+    def num_docs(self) -> int:
+        return self.norm.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.norm.device
+
+    def nbytes(self) -> int:
+        return _nbytes(self.tf, self.idf, self.norm, self.df, self.scored, self.vectors)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatIndex:
+    """Brute-force index: the unit-normalized float32 vectors (N, dim)."""
+
+    vectors: torch.Tensor
+
+    @property
+    def num_docs(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vectors.device
+
+    def nbytes(self) -> int:
+        return _nbytes(self.vectors)

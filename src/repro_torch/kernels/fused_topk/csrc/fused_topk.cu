@@ -1,0 +1,490 @@
+// Fused streaming score -> top-k for Hopper (sm_90a), CUDA C++ with a plain C
+// interface (bound with ctypes by ../kernel.py).
+//
+// Replaces the TPU kernel repro/kernels/fused_topk/kernel.py::fused_topk (the
+// Pallas body _fused_topk_kernel): top-`depth` of q @ docs.T ("gemm": f32,
+// bf16 -> f32 accumulate, int8 -> int32 accumulate) or of MinHash collision
+// counts ("lsh", uint32, query slots equal to 0xFFFFFFFF never count), masked
+// by an optional keep bitmap `filt` ((N,) shared or (B, N) per query) and by
+// the logical row count `n_docs`.  The (B, N) score matrix never exists in
+// device memory.  Output contract: f32 scores (B, depth) sorted descending,
+// int32 ids, ties to the LOWEST doc id, empty / masked slots (-inf, -1).
+//
+// Bound on an H100 SXM (3.35 TB/s, data sheet) at the ann-word2vec cell
+// (N = 2,999,808, T = 600 fake terms, B = 256, depth 100):
+//   * classic (bf16): 3.6 GB of `scored` to read -> ~1.07 ms; the product is
+//     9.2e11 FLOP, 0.93 ms on bf16 tensor cores (989 TFLOP/s): bytes bound it.
+//   * dot (int8): 1.8 GB of tf -> ~0.54 ms.
+//   * f32 ground truth (T = 300): 3.6 GB, but 4.6e11 FLOP on fp32 CUDA cores
+//     (67 TFLOP/s) -> ~6.9 ms: operations bound it.
+//
+// What this simple design does about that bound: it uses no tensor cores
+// (no wgmma, no TMA yet).  Products run on CUDA cores in f32 (bf16 operands
+// are widened to f32 when staged in shared memory; the products are exact),
+// int8 uses __dp4a, lsh an equality count.  So classic runs at CUDA-core
+// rate, far above its byte bound, and f32 at best reaches its operation
+// bound.  Pass 1 runs a grid of (query tiles x N-splits); every query tile
+// re-reads the whole store, i.e. ceil(B / BQ) = 8 passes over `scored` at
+// B = 256 (28.8 GB requested).  Blocks of one split are adjacent in launch
+// order, so the re-reads of a doc tile mostly hit L2; the device-memory bytes
+// really moved are not measured.
+//
+// Design:
+//   Pass 1 (fused_topk_partial): a block of 256 threads owns BQ queries and a
+//   contiguous range of 256-doc tiles.  It walks (tile, 32-word reduce chunk)
+//   steps; the next step's query and doc chunks are loaded from device memory
+//   into registers (16-byte loads where rows are 16-byte aligned) while the
+//   current chunk, staged in shared memory, is multiplied.  Each warp owns
+//   BQ/8 query rows and each lane 8 doc columns (lane + 32 j), so the score
+//   tile lives in registers.  After a tile's last chunk the warp merges its
+//   rows straight from registers into a sorted running top-K list per query
+//   in shared memory: lanes whose candidate beats the list's K-th entry raise
+//   a ballot, and the warp inserts them one at a time.  The comparator is
+//   (score desc, id asc) throughout, so ties keep the lowest id in any
+//   insertion order; a candidate that does not beat the K-th entry is
+//   skipped (the tile skip of the reference's _merge_if_improves, per
+//   candidate).
+//   Pass 2 (fused_topk_merge): one warp per query merges the splits' sorted
+//   partial lists under the same comparator and writes the first `depth`
+//   entries, -inf slots as id -1.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBN = 256;           // docs per tile
+constexpr int kTN = kBN / 32;      // doc columns per lane
+constexpr int kBK = 32;            // shared-memory words per reduce chunk
+constexpr int kSkew = kBK + 1;     // doc row stride in words: conflict-free column reads
+constexpr int kBigId = 1 << 30;
+constexpr uint32_t kLshSentinel = 0xFFFFFFFFu;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr size_t kMaxSmem = 227 * 1024;     // opt-in dynamic shared memory per block
+constexpr size_t kWideSmem = 100 * 1024;    // above this, 32-query blocks drop to 8
+constexpr int kBlocksPerSm = 4;             // pass-1 blocks to aim for per SM
+
+// Dynamic shared memory of a pass-1 block: the staged query and doc chunks
+// (4-byte words in every mode) and BQ running lists of K (score, id) pairs.
+constexpr size_t partial_smem(int bq, int K) {
+  return (size_t)(kBK * bq + kBN * kSkew) * 4 + (size_t)bq * K * (sizeof(float) + sizeof(int));
+}
+
+enum Mode { kF32 = 0, kBF16 = 1, kI8 = 2, kLSH = 3 };
+
+// Raw: element type in device memory; Word: 32-bit shared-memory word;
+// kPerWord: elements per word (four int8 packed for __dp4a).
+template <int M> struct Traits;
+template <> struct Traits<kF32> {
+  using Raw = float; using Word = float; using Acc = float;
+  static constexpr int kPerWord = 1;
+};
+template <> struct Traits<kBF16> {
+  using Raw = uint16_t; using Word = float; using Acc = float;
+  static constexpr int kPerWord = 1;
+};
+template <> struct Traits<kI8> {
+  using Raw = int8_t; using Word = int; using Acc = int;
+  static constexpr int kPerWord = 4;
+};
+template <> struct Traits<kLSH> {
+  using Raw = uint32_t; using Word = uint32_t; using Acc = int;
+  static constexpr int kPerWord = 1;
+};
+
+template <int M> struct Vec {
+  using Raw = typename Traits<M>::Raw;
+  static constexpr int kElems = 16 / sizeof(Raw);                // per 16-byte load
+  static constexpr int kWords = kElems / Traits<M>::kPerWord;    // shared words it fills
+  static constexpr int kPerRow = kBK / kWords;                   // loads per row and chunk
+  union Pack { uint4 u; Raw e[kElems]; };
+};
+
+// Padding that contributes nothing: 0 for products; on the lsh query side the
+// sentinel (never counts).
+template <int M> __device__ __forceinline__ typename Traits<M>::Raw pad_raw(bool query) {
+  if constexpr (M == kLSH) return query ? kLshSentinel : 0u;
+  else return typename Traits<M>::Raw(0);
+}
+
+// Elements [e0, e0 + kElems) of a row of `t` elements as one 16-byte pack;
+// elements past the end, and rows that do not exist, are padding.
+template <int M>
+__device__ __forceinline__ uint4 load_pack(const typename Traits<M>::Raw* row, bool row_ok,
+                                           int e0, int t, bool aligned, bool query) {
+  using V = Vec<M>;
+  typename V::Pack p;
+  if (row_ok && aligned && e0 + V::kElems <= t) {
+    p.u = *reinterpret_cast<const uint4*>(row + e0);
+  } else {
+    const typename Traits<M>::Raw pad = pad_raw<M>(query);
+#pragma unroll
+    for (int s = 0; s < V::kElems; ++s) p.e[s] = (row_ok && e0 + s < t) ? row[e0 + s] : pad;
+  }
+  return p.u;
+}
+
+template <int M> __device__ __forceinline__ typename Traits<M>::Word from_bits(uint32_t b) {
+  if constexpr (M == kF32) return __uint_as_float(b);
+  else if constexpr (M == kI8) return static_cast<int>(b);
+  else return b;  // kLSH; kBF16 widens in store_pack
+}
+
+// Write a pack's kWords shared-memory words to dst[0], dst[stride], ...
+template <int M>
+__device__ __forceinline__ void store_pack(typename Traits<M>::Word* dst, int stride, uint4 raw) {
+  using V = Vec<M>;
+  typename V::Pack p;
+  p.u = raw;
+  if constexpr (M == kBF16) {
+#pragma unroll
+    for (int w = 0; w < V::kWords; ++w)  // bf16 is the top half of an f32: exact
+      dst[w * stride] = __uint_as_float(static_cast<uint32_t>(p.e[w]) << 16);
+  } else {
+    dst[0] = from_bits<M>(raw.x);
+    dst[stride] = from_bits<M>(raw.y);
+    dst[2 * stride] = from_bits<M>(raw.z);
+    dst[3 * stride] = from_bits<M>(raw.w);
+  }
+}
+
+template <int M>
+__device__ __forceinline__ typename Traits<M>::Acc mac(
+    typename Traits<M>::Acc acc, typename Traits<M>::Word a, typename Traits<M>::Word b) {
+  if constexpr (M == kI8) return __dp4a(a, b, acc);
+  else if constexpr (M == kLSH) return acc + ((a == b) & (a != kLshSentinel));
+  else return fmaf(a, b, acc);
+}
+
+// (as, ai) comes before (bs, bi) in the output order: score desc, id asc.
+__device__ __forceinline__ bool precedes(float as, int ai, float bs, int bi) {
+  return as > bs || (as == bs && ai < bi);
+}
+
+// Insert (cs, cid) into the sorted list (rs, ri) of K entries (K a multiple
+// of 32), dropping the last entry.  The caller has checked that the
+// candidate precedes the last entry.  All 32 lanes of the warp take part.
+__device__ __forceinline__ void warp_insert(float* rs, int* ri, int K, float cs, int cid,
+                                            int lane) {
+  int cnt = 0;
+  for (int c = lane; c < K; c += 32) cnt += precedes(rs[c], ri[c], cs, cid) ? 1 : 0;
+  const int pos = static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(cnt)));
+  // Shift [pos, K-2] up by one, the top chunk first, so a chunk is read
+  // before the chunk below it writes into its first slot.
+  for (int base = ((K - 2) / 32) * 32; base >= (pos / 32) * 32; base -= 32) {
+    const int c = base + lane;
+    const bool mv = c >= pos && c <= K - 2;
+    float v = 0.f;
+    int vi = 0;
+    if (mv) { v = rs[c]; vi = ri[c]; }
+    __syncwarp();
+    if (mv) { rs[c + 1] = v; ri[c + 1] = vi; }
+    __syncwarp();
+  }
+  if (lane == 0) { rs[pos] = cs; ri[pos] = cid; }
+  __syncwarp();
+}
+
+// Blocks per SM that ptxas budgets registers for: 2 caps a thread at 128
+// registers.  The 32-query bf16 and int8 instances run faster with one block
+// and no register cap (measured on an H100); f32, lsh and the 8-query
+// instances run faster with two.
+template <int M, int BQ>
+constexpr int kMinBlocks = (BQ == 32 && (M == kBF16 || M == kI8)) ? 1 : 2;
+
+template <int M, int BQ>
+__global__ void __launch_bounds__(kThreads, (kMinBlocks<M, BQ>)) fused_topk_partial(
+    const typename Traits<M>::Raw* __restrict__ q,     // (B, T)
+    const typename Traits<M>::Raw* __restrict__ docs,  // (N, T), rows >= n_docs unread
+    const uint8_t* __restrict__ filt,                   // nullptr | (N,) | (B, N)
+    long long filt_stride,                              // 0 for (N,), N for (B, N)
+    int B, int n_docs, int T, int K, int tiles_per_split,
+    bool q_aligned, bool d_aligned,                     // rows 16-byte aligned
+    float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
+  using Tr = Traits<M>;
+  using V = Vec<M>;
+  using Word = typename Tr::Word;
+  using Acc = typename Tr::Acc;
+  constexpr int TM = BQ / kWarps;  // query rows per warp
+  constexpr int kDLoads = kBN * V::kPerRow / kThreads;
+  constexpr int kQPacks = BQ * V::kPerRow;
+  constexpr int kQLoads = (kQPacks + kThreads - 1) / kThreads;
+  static_assert(kDLoads * kThreads == kBN * V::kPerRow, "doc chunk must split evenly");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  Word* qs = reinterpret_cast<Word*>(smem);                // kBK x BQ, k-major
+  Word* ds = qs + kBK * BQ;                                 // kBN x kSkew, row-major
+  float* ls = reinterpret_cast<float*>(ds + kBN * kSkew);   // BQ x K running scores
+  int* li = reinterpret_cast<int*>(ls + BQ * K);            // BQ x K running ids
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * BQ, split = blockIdx.y;
+  const int n_chunks = ((T + Tr::kPerWord - 1) / Tr::kPerWord + kBK - 1) / kBK;
+  const int n_tiles = (n_docs + kBN - 1) / kBN;
+  const int tile_begin = split * tiles_per_split;
+  const int n_steps = max(0, min(tile_begin + tiles_per_split, n_tiles) - tile_begin) * n_chunks;
+
+  for (int e = tid; e < BQ * K; e += kThreads) { ls[e] = -INFINITY; li[e] = kBigId; }
+
+  uint4 dst[kDLoads], qst[kQLoads];
+  auto load_step = [&](int step) {
+    const int d0 = (tile_begin + step / n_chunks) * kBN;
+    const int w0 = (step % n_chunks) * kBK;
+#pragma unroll
+    for (int i = 0; i < kDLoads; ++i) {
+      const int v = tid + i * kThreads, r = v / V::kPerRow, c = v % V::kPerRow;
+      const int di = d0 + r;
+      dst[i] = load_pack<M>(docs + (size_t)di * T, di < n_docs,
+                            (w0 + c * V::kWords) * Tr::kPerWord, T, d_aligned, false);
+    }
+#pragma unroll
+    for (int i = 0; i < kQLoads; ++i) {
+      const int v = tid + i * kThreads, r = v % BQ, c = v / BQ;
+      const int qi = q0 + r;
+      if (v < kQPacks)
+        qst[i] = load_pack<M>(q + (size_t)qi * T, qi < B,
+                              (w0 + c * V::kWords) * Tr::kPerWord, T, q_aligned, true);
+    }
+  };
+
+  Acc acc[TM][kTN];
+  if (n_steps > 0) load_step(0);
+  for (int step = 0; step < n_steps; ++step) {
+    const int chunk = step % n_chunks;
+    const int d0 = (tile_begin + step / n_chunks) * kBN;
+    if (chunk == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = Acc(0);
+    }
+    __syncthreads();  // every warp is done with the previous chunk
+#pragma unroll
+    for (int i = 0; i < kDLoads; ++i) {
+      const int v = tid + i * kThreads, r = v / V::kPerRow, c = v % V::kPerRow;
+      store_pack<M>(ds + r * kSkew + c * V::kWords, 1, dst[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kQLoads; ++i) {
+      const int v = tid + i * kThreads, r = v % BQ, c = v / BQ;
+      if (v < kQPacks) store_pack<M>(qs + c * V::kWords * BQ + r, BQ, qst[i]);
+    }
+    __syncthreads();
+    if (step + 1 < n_steps) load_step(step + 1);  // in flight during the products
+
+#pragma unroll 8
+    for (int kk = 0; kk < kBK; ++kk) {
+      Word a[TM], b[kTN];
+      if constexpr (TM % 4 == 0) {  // one broadcast 16-byte read per 4 rows
+#pragma unroll
+        for (int g = 0; g < TM / 4; ++g) {
+          const uint4 av = *reinterpret_cast<const uint4*>(qs + kk * BQ + warp * TM + 4 * g);
+          a[4 * g + 0] = from_bits<(M == kBF16 ? kF32 : M)>(av.x);
+          a[4 * g + 1] = from_bits<(M == kBF16 ? kF32 : M)>(av.y);
+          a[4 * g + 2] = from_bits<(M == kBF16 ? kF32 : M)>(av.z);
+          a[4 * g + 3] = from_bits<(M == kBF16 ? kF32 : M)>(av.w);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = qs[kk * BQ + warp * TM + i];
+      }
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) b[j] = ds[(lane + 32 * j) * kSkew + kk];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = mac<M>(acc[i][j], a[i], b[j]);
+    }
+
+    if (chunk != n_chunks - 1) continue;
+    // Merge this warp's rows of the finished tile into their running lists.
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = warp * TM + i, qi = q0 + r;
+      if (qi >= B) continue;  // warp-uniform
+      float* rs = ls + r * K;
+      int* ri = li + r * K;
+      const uint8_t* f = filt ? filt + qi * filt_stride : nullptr;
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const int id = d0 + 32 * j + lane;
+        const float s = static_cast<float>(acc[i][j]);
+        const bool valid = id < n_docs && (f == nullptr || f[id] != 0);
+        unsigned mask = __ballot_sync(kFull, valid && precedes(s, id, rs[K - 1], ri[K - 1]));
+        while (mask) {
+          const int src = __ffs(mask) - 1;
+          mask &= mask - 1;
+          const float cs = __shfl_sync(kFull, s, src);
+          const int cid = d0 + 32 * j + src;
+          if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
+        }
+      }
+    }
+  }
+
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = warp * TM + i, qi = q0 + r;
+    if (qi >= B) continue;
+    const size_t out = ((size_t)split * B + qi) * K;
+    for (int c = lane; c < K; c += 32) {
+      part_s[out + c] = ls[r * K + c];
+      part_i[out + c] = li[r * K + c];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) fused_topk_merge(
+    const float* __restrict__ part_s, const int* __restrict__ part_i,  // (splits, B, K)
+    int splits, int B, int K, int depth,
+    float* __restrict__ out_s, int* __restrict__ out_i) {              // (B, depth)
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* rs = reinterpret_cast<float*>(smem) + warp * K;
+  int* ri = reinterpret_cast<int*>(reinterpret_cast<float*>(smem) + kWarps * K) + warp * K;
+  const int qi = blockIdx.x * kWarps + warp;
+  if (qi >= B) return;  // warp-uniform; no block-wide barrier follows
+
+  for (int c = lane; c < K; c += 32) { rs[c] = -INFINITY; ri[c] = kBigId; }
+  __syncwarp();
+  for (int s = 0; s < splits; ++s) {
+    const float* ps = part_s + ((size_t)s * B + qi) * K;
+    const int* pi = part_i + ((size_t)s * B + qi) * K;
+    for (int c0 = 0; c0 < K; c0 += 32) {
+      const float v = ps[c0 + lane];
+      const int vi = pi[c0 + lane];
+      const unsigned pass = __ballot_sync(kFull, precedes(v, vi, rs[K - 1], ri[K - 1]));
+      unsigned mask = pass;
+      while (mask) {
+        const int src = __ffs(mask) - 1;
+        mask &= mask - 1;
+        const float cs = __shfl_sync(kFull, v, src);
+        const int cid = __shfl_sync(kFull, vi, src);
+        if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
+      }
+      // The partial list is sorted: once an entry fails, every later one does.
+      if (pass != kFull) break;
+    }
+  }
+  for (int c = lane; c < depth; c += 32) {
+    const float v = rs[c];
+    out_s[(size_t)qi * depth + c] = v;
+    out_i[(size_t)qi * depth + c] = v == -INFINITY ? -1 : ri[c];
+  }
+}
+
+template <int M, int BQ>
+cudaError_t launch_partial(const void* q, const void* docs, const uint8_t* filt,
+                           long long filt_stride, int B, int n_docs, int T, int K,
+                           int splits, int tiles_per_split, int aligned, float* part_s,
+                           int* part_i, cudaStream_t stream) {
+  using Raw = typename Traits<M>::Raw;
+  static_assert(sizeof(typename Traits<M>::Word) == 4, "partial_smem counts 4-byte words");
+  const size_t smem = partial_smem(BQ, K);
+  auto kernel = fused_topk_partial<M, BQ>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + BQ - 1) / BQ, splits);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const Raw*>(q), static_cast<const Raw*>(docs), filt, filt_stride, B, n_docs,
+      T, K, tiles_per_split, (aligned & 1) != 0, (aligned & 2) != 0, part_s, part_i);
+  return cudaGetLastError();
+}
+
+template <int M>
+cudaError_t launch_partial_bq(int bq, const void* q, const void* docs, const uint8_t* filt,
+                              long long filt_stride, int B, int n_docs, int T, int K,
+                              int splits, int tiles_per_split, int aligned, float* part_s,
+                              int* part_i, cudaStream_t stream) {
+  if (bq == 32)
+    return launch_partial<M, 32>(q, docs, filt, filt_stride, B, n_docs, T, K, splits,
+                                 tiles_per_split, aligned, part_s, part_i, stream);
+  if (bq == 8)
+    return launch_partial<M, 8>(q, docs, filt, filt_stride, B, n_docs, T, K, splits,
+                                tiles_per_split, aligned, part_s, part_i, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launch plan for B queries over n_docs rows at `depth` on sm_count SMs:
+// plan[0] queries per block (32, or 8 when B <= 8 or the lists are wide),
+// plan[1] running-list width K (depth rounded up to 32), plan[2] N-splits,
+// plan[3] doc tiles per split.  Splits are chosen so that query tiles x
+// splits covers kBlocksPerSm blocks per SM, at B = 256 and at B = 1 alike.
+// Returns cudaErrorInvalidValue if the running lists do not fit in shared
+// memory, else 0.
+int fused_topk_plan(int B, int n_docs, int depth, int sm_count, int* plan) {
+  if (B <= 0 || n_docs <= 0 || depth <= 0 || sm_count <= 0) return (int)cudaErrorInvalidValue;
+  const int K = (depth + 31) / 32 * 32;
+  const int bq = (B > 8 && partial_smem(32, K) <= kWideSmem) ? 32 : 8;
+  if (partial_smem(bq, K) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (n_docs + kBN - 1) / kBN;
+  const int q_tiles = (B + bq - 1) / bq;
+  const int want = (kBlocksPerSm * sm_count + q_tiles - 1) / q_tiles;
+  const int splits = want < 1 ? 1 : (want < n_tiles ? want : n_tiles);
+  const int tiles_per_split = (n_tiles + splits - 1) / splits;
+  plan[0] = bq;
+  plan[1] = K;
+  plan[2] = (n_tiles + tiles_per_split - 1) / tiles_per_split;  // no empty split
+  plan[3] = tiles_per_split;
+  return 0;
+}
+
+// Both passes on `stream`, with the plan of fused_topk_plan; returns the
+// first cudaError_t (0 = launched).  mode: 0 f32, 1 bf16, 2 int8, 3 lsh.
+// aligned: bit 0 set if every q row starts 16-byte aligned, bit 1 the same
+// for docs.
+int fused_topk_launch(int mode, int bq, const void* q, const void* docs, const void* filt,
+                      long long filt_stride, int B, int n_docs, int T, int depth, int K,
+                      int splits, int tiles_per_split, int aligned, void* part_s,
+                      void* part_i, void* out_s, void* out_i, void* stream) {
+  if (K % 32 != 0 || depth > K || B <= 0 || n_docs <= 0 || T <= 0 || splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint8_t* f = static_cast<const uint8_t*>(filt);
+  float* ps = static_cast<float*>(part_s);
+  int* pi = static_cast<int*>(part_i);
+  cudaError_t err;
+  switch (mode) {
+    case kF32:
+      err = launch_partial_bq<kF32>(bq, q, docs, f, filt_stride, B, n_docs, T, K, splits,
+                                    tiles_per_split, aligned, ps, pi, st);
+      break;
+    case kBF16:
+      err = launch_partial_bq<kBF16>(bq, q, docs, f, filt_stride, B, n_docs, T, K, splits,
+                                     tiles_per_split, aligned, ps, pi, st);
+      break;
+    case kI8:
+      err = launch_partial_bq<kI8>(bq, q, docs, f, filt_stride, B, n_docs, T, K, splits,
+                                   tiles_per_split, aligned, ps, pi, st);
+      break;
+    case kLSH:
+      err = launch_partial_bq<kLSH>(bq, q, docs, f, filt_stride, B, n_docs, T, K, splits,
+                                    tiles_per_split, aligned, ps, pi, st);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const size_t smem = (size_t)kWarps * K * (sizeof(float) + sizeof(int));
+  err = cudaFuncSetAttribute(fused_topk_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_topk_merge<<<(B + kWarps - 1) / kWarps, kThreads, smem, st>>>(
+      ps, pi, splits, B, K, depth, static_cast<float*>(out_s), static_cast<int*>(out_i));
+  return (int)cudaGetLastError();
+}
+
+const char* fused_topk_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,54 @@
+"""Search hot paths on the fused top-k kernel (port of
+``repro/kernels/fused_topk/ops.py``).
+
+Each wrapper prepares the query operand exactly like its ``core/`` path
+(df-prune keep-mask folded into the query, [u; -u] int8 lift for dot mode)
+and streams the stored index through :func:`.kernel.fused_topk`.
+``repro_torch.core`` modules are imported lazily to avoid an import cycle.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels.fused_topk.kernel import fused_topk
+
+
+def classic_topk(
+    index, q_tf: torch.Tensor, depth: int, df_max_ratio: float = 1.0,
+    filt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ClassicSimilarity top-depth: bf16 query against the bf16 ``scored``
+    matrix, f32 accumulate."""
+    from repro_torch.core import fakewords
+
+    qv = fakewords.classic_query(index, q_tf, df_max_ratio)
+    return fused_topk(qv, index.scored, depth, filt=filt)
+
+
+def dot_topk(
+    index, q_tf: torch.Tensor, depth: int, df_max_ratio: float = 1.0,
+    filt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Integer-dot top-depth: int8 [u; -u] query against the int8 tf."""
+    from repro_torch.core import fakewords
+
+    qv = fakewords.dot_query(index, q_tf, df_max_ratio, dtype=torch.int8)
+    return fused_topk(qv, index.tf, depth, filt=filt)
+
+
+def cosine_topk(
+    corpus: torch.Tensor, queries: torch.Tensor, depth: int,
+    filt: Optional[torch.Tensor] = None, n_docs: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact-cosine top-depth in f32 (operands must be unit-normalized)."""
+    return fused_topk(queries, corpus, depth, filt=filt, n_docs=n_docs)
+
+
+def lsh_topk(
+    sig_q: torch.Tensor, sig_d: torch.Tensor, depth: int,
+    filt: Optional[torch.Tensor] = None, n_docs: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MinHash collision-count top-depth."""
+    return fused_topk(sig_q, sig_d, depth, mode="lsh", filt=filt, n_docs=n_docs)

@@ -18,6 +18,11 @@ if _REPO_ROOT not in sys.path:
 from tools.reprolint.trace_audit import trace_audit  # noqa: E402,F401
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the port's kernels); skips without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
