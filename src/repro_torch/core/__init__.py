@@ -4,6 +4,8 @@ from repro_torch.core.types import (  # noqa: F401
     FakeWordsConfig,
     FakeWordsIndex,
     FlatIndex,
+    LexicalLshConfig,
+    LshIndex,
     SearchParams,
 )
 from repro_torch.core.index import AnnIndex, index_from_numpy  # noqa: F401

@@ -1,6 +1,6 @@
 """Staged index construction (port of ``repro/core/builder.py``):
 
-    normalize rows -> transform vectors (tf rows / identity)
+    normalize rows -> transform vectors (tf rows / MinHash signatures / identity)
                    -> assemble postings (index container + global stats)
                    -> attach rerank store (fp32 originals / none)
 
@@ -15,15 +15,17 @@ from typing import Any, Optional, Union
 
 import torch
 
-from repro_torch.core import bruteforce, fakewords
+from repro_torch.core import bruteforce, fakewords, lexical_lsh
 from repro_torch.core.types import (
     BruteForceConfig,
     FakeWordsConfig,
     FakeWordsIndex,
     FlatIndex,
+    LexicalLshConfig,
+    LshIndex,
 )
 
-AnyConfig = Union[FakeWordsConfig, BruteForceConfig]
+AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, BruteForceConfig]
 
 RERANK_STORES = ("exact", "int8", "none")
 PRIMARY_POSTINGS = ("fp32", "int8", "int4")
@@ -42,6 +44,16 @@ class TfTransform:
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return fakewords.encode(v, self.config.quantization, self.config.store_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class MinHashTransform:
+    """Lexical LSH: MinHash signatures (row-local)."""
+
+    config: LexicalLshConfig
+
+    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        return lexical_lsh.encode(v, self.config)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +103,15 @@ class FakeWordsPostings:
         norm = torch.rsqrt(torch.clamp_min(doc_len, 1.0))
         scored = classic_scored(tf, idf, norm) if self.config.scoring == "classic" else None
         return FakeWordsIndex(tf=tf, idf=idf, norm=norm, df=df, scored=scored, **store)
+
+
+@dataclasses.dataclass(frozen=True)
+class LshPostings:
+    """Signatures carry their own statistics: pure container assembly."""
+
+    def __call__(self, sig: torch.Tensor, v: torch.Tensor, store: dict,
+                 n_total: int) -> LshIndex:
+        return LshIndex(sig=sig, **store)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,6 +187,8 @@ def make_build_pipeline(
     store = _STORES[rerank_store]
     if isinstance(config, FakeWordsConfig):
         return BuildPipeline(config, TfTransform(config), FakeWordsPostings(config), store)
+    if isinstance(config, LexicalLshConfig):
+        return BuildPipeline(config, MinHashTransform(config), LshPostings(), store)
     if isinstance(config, BruteForceConfig):
         return BuildPipeline(config, IdentityTransform(), FlatPostings(), store)
     raise TypeError(f"config {type(config).__name__} is not ported yet (ROADMAP.md, queue A)")

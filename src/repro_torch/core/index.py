@@ -3,6 +3,10 @@
     idx = AnnIndex.build(vectors, FakeWordsConfig(quantization=50))  # on "cuda"
     scores, ids = idx.search(queries, k=10, depth=100, rerank=True)
 
+``blockmax_keep`` (with ``blockmax_block_size``) turns on two-stage blockmax
+pruning for fake-words and LSH indexes: only the ``blockmax_keep`` blocks
+with the best upper bounds are scored (:mod:`repro_torch.core.blockmax`).
+
 :func:`index_from_numpy` takes the arrays and dtypes that the reference's
 ``AnnIndex.save`` writes (``index.npz`` + ``config.json``), so an index the
 JAX package built searches identically here.
@@ -17,18 +21,22 @@ import torch
 
 from repro_torch.core import builder
 from repro_torch.core import pipeline as pl
+from repro_torch.core.blockmax import BlockMaxIndex, build_blockmax
 from repro_torch.core.types import (
     BruteForceConfig,
     FakeWordsConfig,
     FakeWordsIndex,
     FlatIndex,
+    LexicalLshConfig,
+    LshIndex,
     SearchParams,
 )
 
-AnyConfig = Union[FakeWordsConfig, BruteForceConfig]
-AnyIndex = Union[FakeWordsIndex, FlatIndex]
+AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, BruteForceConfig]
+AnyIndex = Union[FakeWordsIndex, LshIndex, FlatIndex]
 
-_METHOD_BY_INDEX = {FakeWordsIndex: "fake-words", FlatIndex: "bruteforce"}
+_METHOD_BY_INDEX = {FakeWordsIndex: "fake-words", LshIndex: "lexical-lsh",
+                    FlatIndex: "bruteforce"}
 
 
 def _check_device(device) -> torch.device:
@@ -41,13 +49,27 @@ def _check_device(device) -> torch.device:
 @dataclasses.dataclass
 class AnnIndex:
     """One retrieval architecture for the ported encodings: owns the method
-    config, the index container and its staged search pipeline."""
+    config, the index container and its staged search pipeline.
+    ``blockmax_keep`` / ``blockmax_block_size`` switch on blockmax pruning
+    (fake-words and LSH indexes); ``bm`` is built from the index when not
+    given."""
 
     config: AnyConfig
     index: AnyIndex
+    blockmax_keep: Optional[int] = None
+    blockmax_block_size: int = 256
+    bm: Optional[BlockMaxIndex] = None
 
     def __post_init__(self):
         self.pipeline: pl.SearchPipeline = pl.build_pipeline(self.config)
+        if self.blockmax_keep is None:
+            return
+        if self.bm is None:
+            if not isinstance(self.index, (FakeWordsIndex, LshIndex)):
+                raise ValueError(f"blockmax pruning is not supported for {self.method}")
+            self.bm = build_blockmax(self.index, self.blockmax_block_size)
+        self.pipeline = dataclasses.replace(
+            self.pipeline, matcher=pl.BlockMaxMatcher(self.blockmax_keep, self.bm))
 
     @classmethod
     def build(
@@ -55,6 +77,8 @@ class AnnIndex:
         vectors,
         config: AnyConfig,
         keep_vectors: bool = True,
+        blockmax_keep: Optional[int] = None,
+        blockmax_block_size: int = 256,
         device="cuda",
     ) -> "AnnIndex":
         """Build through :class:`repro_torch.core.builder.BuildPipeline` on
@@ -64,7 +88,8 @@ class AnnIndex:
         dev = _check_device(device)
         v = torch.as_tensor(vectors, device=dev)
         bp = builder.make_build_pipeline(config, "exact" if keep_vectors else "none")
-        return cls(config=config, index=bp.build_local(v))
+        return cls(config=config, index=bp.build_local(v), blockmax_keep=blockmax_keep,
+                   blockmax_block_size=blockmax_block_size)
 
     @property
     def method(self) -> str:
@@ -89,9 +114,9 @@ class AnnIndex:
         rerank: bool = False,
         params: Optional[SearchParams] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """encode -> match -> optional rerank.  ``params`` takes precedence
-        over ``k`` / ``depth`` / ``rerank``.  ``queries`` (B, dim) numpy or
-        tensor; it is moved to the index's device."""
+        """encode -> match [-> prune] -> optional rerank.  ``params`` takes
+        precedence over ``k`` / ``depth`` / ``rerank``.  ``queries`` (B, dim)
+        numpy or tensor; it is moved to the index's device."""
         p = params if params is not None else SearchParams(k=k, depth=depth, rerank=rerank)
         q = torch.as_tensor(queries, device=self.device)
         return self.pipeline.search(self.index, q, p)
@@ -112,11 +137,15 @@ def index_from_numpy(
     arrays: Dict[str, np.ndarray],
     dtypes: Dict[str, str],
     device="cuda",
+    blockmax_keep: Optional[int] = None,
+    blockmax_block_size: int = 256,
 ) -> AnnIndex:
     """The port's index from the reference's persisted form: ``method`` and
     ``config`` as in ``config.json``, ``arrays`` the ``index.npz`` members
-    (dotted names), ``dtypes`` their recorded dtype names.  Covers
-    "fake-words" and "bruteforce"."""
+    (dotted names), ``dtypes`` their recorded dtype names, and the blockmax
+    knobs as ``config.json`` records them (the block bounds are rebuilt
+    from the arrays, as the reference's ``load`` does).  Covers
+    "fake-words", "lexical-lsh" and "bruteforce"."""
     dev = _check_device(device)
     unported = sorted(n for n in arrays if n.startswith(("vq.", "pq.", "metadata.")))
     if unported:
@@ -129,9 +158,13 @@ def index_from_numpy(
         index = FakeWordsIndex(
             tf=t["tf"], idf=t["idf"], norm=t["norm"], df=t["df"],
             scored=t.get("scored"), vectors=t.get("vectors"))
+    elif method == "lexical-lsh":
+        cfg = LexicalLshConfig(**config)
+        index = LshIndex(sig=t["sig"], vectors=t.get("vectors"))
     elif method == "bruteforce":
         cfg = BruteForceConfig(**config)
         index = FlatIndex(vectors=t["vectors"])
     else:
         raise NotImplementedError(f"method {method!r} is not ported yet (ROADMAP.md, queue A)")
-    return AnnIndex(config=cfg, index=index)
+    return AnnIndex(config=cfg, index=index, blockmax_keep=blockmax_keep,
+                    blockmax_block_size=blockmax_block_size)

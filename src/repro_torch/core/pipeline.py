@@ -1,9 +1,9 @@
 """Staged retrieval pipeline (port of ``repro/core/pipeline.py``):
 
-    encode query -> match candidates -> optional exact rerank
+    encode query -> match candidates [-> blockmax prune] -> optional exact rerank
 
 Stages are frozen dataclasses taking the index as an explicit argument.
-Every matcher streams through the fused top-k kernel: on a CUDA index the
+Every matcher streams through a fused top-k kernel: on a CUDA index the
 CUDA kernel, on a CPU index its plain version.
 """
 from __future__ import annotations
@@ -13,11 +13,16 @@ from typing import Any, Tuple, Union
 
 import torch
 
-from repro_torch.core import bruteforce, fakewords
-from repro_torch.core.types import BruteForceConfig, FakeWordsConfig, SearchParams
+from repro_torch.core import blockmax, bruteforce, fakewords, lexical_lsh
+from repro_torch.core.types import (
+    BruteForceConfig,
+    FakeWordsConfig,
+    LexicalLshConfig,
+    SearchParams,
+)
 from repro_torch.kernels.fused_topk import ops as fused
 
-AnyConfig = Union[FakeWordsConfig, BruteForceConfig]
+AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, BruteForceConfig]
 
 
 # --------------------------------------------------------------------------
@@ -33,6 +38,16 @@ class TfRowEncoder:
 
     def __call__(self, index, q_norm: torch.Tensor) -> torch.Tensor:
         return fakewords.encode_queries(q_norm, self.config, normalized=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class MinHashEncoder:
+    """Lexical LSH: MinHash signature (B, h*b) uint32."""
+
+    config: LexicalLshConfig
+
+    def __call__(self, index, q_norm: torch.Tensor) -> torch.Tensor:
+        return lexical_lsh.encode(q_norm, self.config)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +80,17 @@ class FakeWordsMatcher:
 
 
 @dataclasses.dataclass(frozen=True)
+class LshMatcher:
+    """MinHash signature-collision counting (K1's lsh mode)."""
+
+    def __call__(
+        self, index, sig_q: torch.Tensor, depth: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        d = min(depth, index.num_docs)
+        return fused.lsh_topk(sig_q, index.sig, d)
+
+
+@dataclasses.dataclass(frozen=True)
 class CosineMatcher:
     """Exact cosine over the stored unit vectors (brute-force oracle)."""
 
@@ -73,6 +99,22 @@ class CosineMatcher:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         d = min(depth, index.num_docs)
         return fused.cosine_topk(index.vectors, q_norm.contiguous(), d)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockMaxMatcher:
+    """Two-stage blockmax pruning as a matcher stage: block-bound pass ->
+    keep ``n_keep`` blocks -> exact scoring of their rows through the
+    gathered fused top-k kernel.  The mode (classic / dot / lsh) travels
+    with ``bm``."""
+
+    n_keep: int
+    bm: blockmax.BlockMaxIndex
+
+    def __call__(
+        self, index, q_rep: torch.Tensor, depth: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return blockmax.pruned_search(index, self.bm, q_rep, self.n_keep, depth)
 
 
 # --------------------------------------------------------------------------
@@ -101,7 +143,7 @@ class ExactCosineReranker:
 
 @dataclasses.dataclass(frozen=True)
 class SearchPipeline:
-    """encode -> match -> optional exact rerank."""
+    """encode -> match [-> blockmax prune] -> optional exact rerank."""
 
     encoder: Any
     matcher: Any
@@ -122,6 +164,8 @@ class SearchPipeline:
 def make_encoder(config: AnyConfig):
     if isinstance(config, FakeWordsConfig):
         return TfRowEncoder(config)
+    if isinstance(config, LexicalLshConfig):
+        return MinHashEncoder(config)
     if isinstance(config, BruteForceConfig):
         return IdentityEncoder()
     raise TypeError(f"config {type(config).__name__} is not ported yet (ROADMAP.md, queue A)")
@@ -130,6 +174,8 @@ def make_encoder(config: AnyConfig):
 def make_matcher(config: AnyConfig):
     if isinstance(config, FakeWordsConfig):
         return FakeWordsMatcher(scoring=config.scoring, df_max_ratio=config.df_max_ratio)
+    if isinstance(config, LexicalLshConfig):
+        return LshMatcher()
     if isinstance(config, BruteForceConfig):
         return CosineMatcher()
     raise TypeError(f"config {type(config).__name__} is not ported yet (ROADMAP.md, queue A)")

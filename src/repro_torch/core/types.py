@@ -1,6 +1,6 @@
 """Typed configuration and index containers (port of ``repro/core/types.py``).
 
-Only what the fake-words and brute-force paths need.  Configs are frozen
+Only what the fake-words, lexical-LSH and brute-force paths need.  Configs are frozen
 dataclasses; index containers hold tensors on one device.
 """
 from __future__ import annotations
@@ -44,6 +44,30 @@ class FakeWordsConfig:
         if self.store_dtype not in (torch.int8, "int8"):
             raise ValueError(f"store_dtype must be int8, got {self.store_dtype!r}")
         object.__setattr__(self, "store_dtype", torch.int8)
+
+
+@dataclasses.dataclass(frozen=True)
+class LexicalLshConfig:
+    """Lexical LSH encoding (paper §2).
+
+    Each feature is rounded to ``decimals`` decimal places and tagged with
+    its feature index (``2_0.4``), optionally aggregated into ``ngram``-grams,
+    then MinHashed with ``hashes`` hash functions into ``buckets`` buckets
+    (Lucene's MinHashFilter).  The paper's settings: (b=300, h=1) and
+    (b=50, h=30), with n in {1, 2}.
+    """
+
+    buckets: int = 300
+    hashes: int = 1
+    ngram: int = 1
+    decimals: int = 1
+    seed: int = 0x5EED
+
+    def __post_init__(self) -> None:
+        if self.ngram not in (1, 2, 3):
+            raise ValueError("ngram in {1,2,3} supported")
+        if self.buckets < 1 or self.hashes < 1:
+            raise ValueError("buckets and hashes must be >= 1")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +118,29 @@ class FakeWordsIndex:
 
     def nbytes(self) -> int:
         return _nbytes(self.tf, self.idf, self.norm, self.df, self.scored, self.vectors)
+
+
+@dataclasses.dataclass(frozen=True)
+class LshIndex:
+    """MinHash signature index.
+
+    sig:     (N, h*b) uint32 signatures; 0xFFFFFFFF marks empty buckets.
+    vectors: (N, dim) float32 unit originals for exact rerank, or None.
+    """
+
+    sig: torch.Tensor
+    vectors: Optional[torch.Tensor] = None
+
+    @property
+    def num_docs(self) -> int:
+        return self.sig.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.sig.device
+
+    def nbytes(self) -> int:
+        return _nbytes(self.sig, self.vectors)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -47,6 +47,35 @@
 //   Pass 2 (fused_topk_merge): one warp per query merges the splits' sorted
 //   partial lists under the same comparator and writes the first `depth`
 //   entries, -inf slots as id -1.
+//
+// K3, the gathered variant (fused_topk_gathered_partial + the same merge),
+// replaces repro/kernels/fused_topk/kernel.py::fused_topk_gathered (def 433,
+// pallas_call 485): per query b, the top-`depth` of score(q[b], store[id])
+// over the ids in row_ids[b, :R] (blockmax stage 2: each query scores only
+// the rows of the blocks it kept), in the same four score modes.  Ties go to
+// the lowest GLOBAL id; ids outside [0, n_docs) never rank and are never
+// read.  The TPU kernel takes rows already gathered into a (B, R, T) tensor;
+// at the ann-word2vec shapes with 10% of the 256-row blocks kept (R =
+// 299,776, T = 600 bf16) that tensor is 360 MB per query, 92 GB at B = 256.
+// So this kernel gathers the rows itself, by id, from the stored (N, T)
+// matrix, and the (B, R, T) tensor never exists.
+//
+// Bound: a batched GEMV with no reuse across queries (each has its own
+// rows), so bytes bound it: B * R * (T * elem + 4).  At B = 8 that is
+// 2.88 GB, 0.86 ms at 3.35 TB/s; at B = 1, 0.107 ms.
+//
+// Design: grid (B, row splits), one query per block, splits chosen so that
+// B x splits fills the SMs at B = 1 (fused_topk_gathered_plan).  The query
+// row sits in shared memory.  A warp scores 32 rows at a time, reading each
+// row whole and contiguously (lane l loads 16-byte packs l, l + 32, ...;
+// 8-byte or element loads where rows are not 16-byte aligned), with
+// kGatherRows rows' loads in flight, and reduces each row across the warp.
+// Ids arrive in any order, so the check against the K-th entry must let a
+// tied score with a lower id in (the reference's strict=False): it uses the
+// full (score desc, id asc) comparator, as K1's does.  Each warp keeps its
+// own sorted list; warp 0 merges the block's eight lists, and the K1 merge
+// pass merges the splits.  No tensor cores, no TMA, no sharing of a kept
+// block between the queries that keep it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -338,6 +367,27 @@ __global__ void __launch_bounds__(kThreads, (kMinBlocks<M, BQ>)) fused_topk_part
   }
 }
 
+// Merge the sorted list (ss, si) of K entries into the sorted running list
+// (rs, ri) of K entries, under (score desc, id asc).  All 32 lanes take part.
+__device__ __forceinline__ void merge_sorted(float* rs, int* ri, const float* ss, const int* si,
+                                             int K, int lane) {
+  for (int c0 = 0; c0 < K; c0 += 32) {
+    const float v = ss[c0 + lane];
+    const int vi = si[c0 + lane];
+    const unsigned pass = __ballot_sync(kFull, precedes(v, vi, rs[K - 1], ri[K - 1]));
+    unsigned mask = pass;
+    while (mask) {
+      const int src = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const float cs = __shfl_sync(kFull, v, src);
+      const int cid = __shfl_sync(kFull, vi, src);
+      if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
+    }
+    // The source list is sorted: once an entry fails, every later one does.
+    if (pass != kFull) break;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) fused_topk_merge(
     const float* __restrict__ part_s, const int* __restrict__ part_i,  // (splits, B, K)
     int splits, int B, int K, int depth,
@@ -351,25 +401,9 @@ __global__ void __launch_bounds__(kThreads) fused_topk_merge(
 
   for (int c = lane; c < K; c += 32) { rs[c] = -INFINITY; ri[c] = kBigId; }
   __syncwarp();
-  for (int s = 0; s < splits; ++s) {
-    const float* ps = part_s + ((size_t)s * B + qi) * K;
-    const int* pi = part_i + ((size_t)s * B + qi) * K;
-    for (int c0 = 0; c0 < K; c0 += 32) {
-      const float v = ps[c0 + lane];
-      const int vi = pi[c0 + lane];
-      const unsigned pass = __ballot_sync(kFull, precedes(v, vi, rs[K - 1], ri[K - 1]));
-      unsigned mask = pass;
-      while (mask) {
-        const int src = __ffs(mask) - 1;
-        mask &= mask - 1;
-        const float cs = __shfl_sync(kFull, v, src);
-        const int cid = __shfl_sync(kFull, vi, src);
-        if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
-      }
-      // The partial list is sorted: once an entry fails, every later one does.
-      if (pass != kFull) break;
-    }
-  }
+  for (int s = 0; s < splits; ++s)
+    merge_sorted(rs, ri, part_s + ((size_t)s * B + qi) * K, part_i + ((size_t)s * B + qi) * K,
+                 K, lane);
   for (int c = lane; c < depth; c += 32) {
     const float v = rs[c];
     out_s[(size_t)qi * depth + c] = v;
@@ -409,6 +443,201 @@ cudaError_t launch_partial_bq(int bq, const void* q, const void* docs, const uin
                                 tiles_per_split, aligned, part_s, part_i, stream);
   return cudaErrorInvalidValue;
 }
+
+// ---------------------------------------------------------------------------
+// K3: top-`depth` over per-query gathered rows (fused_topk_gathered_partial).
+// ---------------------------------------------------------------------------
+
+constexpr int kGatherRows = 8;        // rows a warp scores at once (loads in flight)
+constexpr int kGatherBlocksPerSm = 2; // pass-1 blocks to aim for per SM
+
+// Dynamic shared memory of a gathered pass-1 block: the query row, padded to
+// whole 32-lane rounds of 16-byte packs, then one running list of K (score,
+// id) pairs per warp.
+__host__ __device__ constexpr size_t gathered_query_bytes(int t, int elem) {
+  return (size_t)((t * elem + 511) / 512) * 512;
+}
+constexpr size_t gathered_smem(int t, int elem, int K) {
+  return gathered_query_bytes(t, elem) + (size_t)kWarps * K * (sizeof(float) + sizeof(int));
+}
+
+// Elements [e0, e0 + kElems) of a stored row as one 16-byte pack: one 16-byte
+// load where rows are 16-byte aligned, two 8-byte loads where they are 8-byte
+// aligned (int8 rows of 600 bytes), else element by element.  Elements past
+// the end of the row are 0.
+template <int M>
+__device__ __forceinline__ uint4 load_row_pack(const typename Traits<M>::Raw* row, int e0, int t,
+                                               int align) {
+  using V = Vec<M>;
+  typename V::Pack p;
+  if (e0 + V::kElems <= t) {
+    if (align >= 16) return *reinterpret_cast<const uint4*>(row + e0);
+    if (align >= 8) {
+      const uint2 a = *reinterpret_cast<const uint2*>(row + e0);
+      const uint2 b = *reinterpret_cast<const uint2*>(row + e0 + V::kElems / 2);
+      return make_uint4(a.x, a.y, b.x, b.y);
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < V::kElems; ++s)
+    p.e[s] = e0 + s < t ? row[e0 + s] : typename Traits<M>::Raw(0);
+  return p.u;
+}
+
+// acc + <query pack, row pack> in the mode's arithmetic: bf16 widened to f32
+// (exact products), int8 by __dp4a, lsh as sentinel-aware equality counts.
+template <int M>
+__device__ __forceinline__ typename Traits<M>::Acc dot_pack(typename Traits<M>::Acc acc,
+                                                            uint4 qa, uint4 da) {
+  const uint32_t qw[4] = {qa.x, qa.y, qa.z, qa.w};
+  const uint32_t dw[4] = {da.x, da.y, da.z, da.w};
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    if constexpr (M == kBF16) {
+      acc = fmaf(__uint_as_float(qw[w] << 16), __uint_as_float(dw[w] << 16), acc);
+      acc = fmaf(__uint_as_float(qw[w] & 0xFFFF0000u), __uint_as_float(dw[w] & 0xFFFF0000u), acc);
+    } else {
+      acc = mac<M>(acc, from_bits<M>(qw[w]), from_bits<M>(dw[w]));
+    }
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(kFull, v, m);
+  return v;  // every lane holds the same sum: each step adds the same pair
+}
+__device__ __forceinline__ int warp_sum(int v) {
+  return static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(v)));
+}
+
+// Grid (B, splits): block (b, split) owns rows [split * rows_per_split, ...)
+// of query b's R gathered rows.  Each warp takes 32-row groups in turn; its
+// lanes read a row together (lane l the packs l, l + 32, ...), kGatherRows
+// rows at a time, reduce each row's sum across the warp, and lane r keeps row
+// r's score.  The warp then merges its 32 candidates into its own running
+// list; at the end warp 0 merges the other warps' lists into its own and
+// writes the block's sorted list.  A row whose id is outside [0, n_docs) is
+// never read and never ranks.
+template <int M>
+__global__ void __launch_bounds__(kThreads, 2) fused_topk_gathered_partial(
+    const typename Traits<M>::Raw* __restrict__ q,      // (B, T)
+    const typename Traits<M>::Raw* __restrict__ store,  // (N, T)
+    const int* __restrict__ row_ids,                     // (B, R)
+    int B, int R, int n_docs, int T, int K, int rows_per_split, int align,
+    float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
+  using Tr = Traits<M>;
+  using V = Vec<M>;
+  using Raw = typename Tr::Raw;
+  using Acc = typename Tr::Acc;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t q_bytes = gathered_query_bytes(T, sizeof(Raw));
+  Raw* qs = reinterpret_cast<Raw*>(smem);
+  float* ls = reinterpret_cast<float*>(smem + q_bytes);  // kWarps x K running scores
+  int* li = reinterpret_cast<int*>(ls + kWarps * K);      // kWarps x K running ids
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x, split = blockIdx.y;
+  const int row0 = split * rows_per_split;
+  const int row1 = min(R, row0 + rows_per_split);
+  const int n_groups = (max(0, row1 - row0) + 31) / 32;
+  const int n_rounds = (T + 32 * V::kElems - 1) / (32 * V::kElems);
+
+  const Raw pad = pad_raw<M>(true);
+  for (int e = tid; e < (int)(q_bytes / sizeof(Raw)); e += kThreads)
+    qs[e] = e < T ? q[(size_t)b * T + e] : pad;
+  float* rs = ls + warp * K;
+  int* ri = li + warp * K;
+  for (int c = lane; c < K; c += 32) { rs[c] = -INFINITY; ri[c] = kBigId; }
+  __syncthreads();
+
+  const int* ids = row_ids + (size_t)b * R;
+  for (int g = warp; g < n_groups; g += kWarps) {
+    const int r = row0 + g * 32 + lane;
+    const int my_id = r < row1 ? ids[r] : kBigId;
+    const bool my_ok = static_cast<unsigned>(my_id) < static_cast<unsigned>(n_docs);
+    float my_s = -INFINITY;
+#pragma unroll 1
+    for (int u0 = 0; u0 < 32; u0 += kGatherRows) {
+      const Raw* rows[kGatherRows];
+      bool ok[kGatherRows];
+      Acc acc[kGatherRows];
+#pragma unroll
+      for (int u = 0; u < kGatherRows; ++u) {
+        const int id = __shfl_sync(kFull, my_id, u0 + u);
+        ok[u] = static_cast<unsigned>(id) < static_cast<unsigned>(n_docs);
+        rows[u] = store + (size_t)(ok[u] ? id : 0) * T;  // an id out of range is never read
+        acc[u] = Acc(0);
+      }
+      for (int j = 0; j < n_rounds; ++j) {
+        const int e0 = (lane + 32 * j) * V::kElems;
+        if (e0 >= T) break;
+        const uint4 qv = *reinterpret_cast<const uint4*>(qs + e0);
+        uint4 dv[kGatherRows];
+#pragma unroll
+        for (int u = 0; u < kGatherRows; ++u)
+          dv[u] = ok[u] ? load_row_pack<M>(rows[u], e0, T, align) : make_uint4(0, 0, 0, 0);
+#pragma unroll
+        for (int u = 0; u < kGatherRows; ++u) acc[u] = dot_pack<M>(acc[u], qv, dv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kGatherRows; ++u) {
+        const Acc tot = warp_sum(acc[u]);
+        if (lane == u0 + u) my_s = static_cast<float>(tot);
+      }
+    }
+    // Ids arrive in any order, so the check against the K-th entry uses the
+    // full comparator: a tied score with a lower id still enters.
+    unsigned mask = __ballot_sync(kFull, my_ok && precedes(my_s, my_id, rs[K - 1], ri[K - 1]));
+    while (mask) {
+      const int src = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const float cs = __shfl_sync(kFull, my_s, src);
+      const int cid = __shfl_sync(kFull, my_id, src);
+      if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
+    }
+  }
+
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < kWarps; ++w) merge_sorted(rs, ri, ls + w * K, li + w * K, K, lane);
+  const size_t out = ((size_t)split * B + b) * K;
+  for (int c = lane; c < K; c += 32) {
+    part_s[out + c] = rs[c];
+    part_i[out + c] = ri[c];
+  }
+}
+
+template <int M>
+cudaError_t launch_gathered(const void* q, const void* store, const int* row_ids, int B, int R,
+                            int n_docs, int T, int K, int splits, int rows_per_split, int align,
+                            float* part_s, int* part_i, cudaStream_t stream) {
+  using Raw = typename Traits<M>::Raw;
+  const size_t smem = gathered_smem(T, sizeof(Raw), K);
+  auto kernel = fused_topk_gathered_partial<M>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B, splits), kThreads, smem, stream>>>(
+      static_cast<const Raw*>(q), static_cast<const Raw*>(store), row_ids, B, R, n_docs, T, K,
+      rows_per_split, align, part_s, part_i);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_merge(const float* part_s, const int* part_i, int splits, int B, int K,
+                         int depth, void* out_s, void* out_i, cudaStream_t stream) {
+  const size_t smem = (size_t)kWarps * K * (sizeof(float) + sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(fused_topk_merge,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fused_topk_merge<<<(B + kWarps - 1) / kWarps, kThreads, smem, stream>>>(
+      part_s, part_i, splits, B, K, depth, static_cast<float*>(out_s), static_cast<int*>(out_i));
+  return cudaGetLastError();
+}
+
+int elem_size(int mode) { return mode == kBF16 ? 2 : (mode == kI8 ? 1 : 4); }
 
 }  // namespace
 
@@ -474,13 +703,70 @@ int fused_topk_launch(int mode, int bq, const void* q, const void* docs, const v
       return (int)cudaErrorInvalidValue;
   }
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = (size_t)kWarps * K * (sizeof(float) + sizeof(int));
-  err = cudaFuncSetAttribute(fused_topk_merge, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  return (int)launch_merge(ps, pi, splits, B, K, depth, out_s, out_i, st);
+}
+
+// Launch plan of fused_topk_gathered for B queries of R gathered rows of T
+// elements in `mode` at `depth` on sm_count SMs: plan[0] running-list width K
+// (depth rounded up to 32), plan[1] row splits per query, plan[2] rows per
+// split (a multiple of 32).  Splits are chosen so that B x splits covers
+// kGatherBlocksPerSm blocks per SM (at B = 1 as at B = 256), but no split has
+// fewer than 256 rows.  Returns cudaErrorInvalidValue if the query row and
+// the per-warp lists do not fit in shared memory, else 0.
+int fused_topk_gathered_plan(int mode, int B, int R, int T, int depth, int sm_count, int* plan) {
+  if (mode < kF32 || mode > kLSH || B <= 0 || R <= 0 || T <= 0 || depth <= 0 || depth > R ||
+      sm_count <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int K = (depth + 31) / 32 * 32;
+  if (gathered_smem(T, elem_size(mode), K) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int want = (kGatherBlocksPerSm * sm_count + B - 1) / B;
+  const int most = (R + kThreads - 1) / kThreads;
+  const int splits = want < most ? want : most;
+  const int rows_per_split = ((R + splits - 1) / splits + 31) / 32 * 32;
+  plan[0] = K;
+  plan[1] = (R + rows_per_split - 1) / rows_per_split;  // no empty split
+  plan[2] = rows_per_split;
+  return 0;
+}
+
+// Both passes of fused_topk_gathered on `stream`, with the plan of
+// fused_topk_gathered_plan; returns the first cudaError_t (0 = launched).
+// mode: 0 f32, 1 bf16, 2 int8, 3 lsh.  align: the byte alignment every
+// stored row starts at (16, 8, or less).
+int fused_topk_gathered_launch(int mode, const void* q, const void* store, const void* row_ids,
+                               int B, int R, int n_docs, int T, int depth, int K, int splits,
+                               int rows_per_split, int align, void* part_s, void* part_i,
+                               void* out_s, void* out_i, void* stream) {
+  if (K % 32 != 0 || depth > K || depth > R || B <= 0 || R <= 0 || n_docs <= 0 || T <= 0 ||
+      splits <= 0 || rows_per_split % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* rid = static_cast<const int*>(row_ids);
+  float* ps = static_cast<float*>(part_s);
+  int* pi = static_cast<int*>(part_i);
+  cudaError_t err;
+  switch (mode) {
+    case kF32:
+      err = launch_gathered<kF32>(q, store, rid, B, R, n_docs, T, K, splits, rows_per_split,
+                                  align, ps, pi, st);
+      break;
+    case kBF16:
+      err = launch_gathered<kBF16>(q, store, rid, B, R, n_docs, T, K, splits, rows_per_split,
+                                   align, ps, pi, st);
+      break;
+    case kI8:
+      err = launch_gathered<kI8>(q, store, rid, B, R, n_docs, T, K, splits, rows_per_split,
+                                 align, ps, pi, st);
+      break;
+    case kLSH:
+      err = launch_gathered<kLSH>(q, store, rid, B, R, n_docs, T, K, splits, rows_per_split,
+                                  align, ps, pi, st);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   if (err != cudaSuccess) return (int)err;
-  fused_topk_merge<<<(B + kWarps - 1) / kWarps, kThreads, smem, st>>>(
-      ps, pi, splits, B, K, depth, static_cast<float*>(out_s), static_cast<int*>(out_i));
-  return (int)cudaGetLastError();
+  return (int)launch_merge(ps, pi, splits, B, K, depth, out_s, out_i, st);
 }
 
 const char* fused_topk_error_string(int err) {

@@ -1,12 +1,14 @@
-"""Wrapper of the fused streaming score -> top-k CUDA kernel
-(``csrc/fused_topk.cu``; replaces ``repro/kernels/fused_topk/kernel.py::
-fused_topk``).
+"""Wrappers of the fused streaming score -> top-k CUDA kernels
+(``csrc/fused_topk.cu``): :func:`fused_topk` replaces
+``repro/kernels/fused_topk/kernel.py::fused_topk`` (K1, and K2 in lsh mode),
+:func:`fused_topk_gathered` replaces ``fused_topk_gathered`` (K3).
 
 Routing follows the tensors' device: on the CPU the plain version
-(:func:`.ref.fused_topk_ref`) runs; on a CUDA device the kernel launches on
-the current stream, or the call raises.  ``fused_topk.launches`` counts the
-calls that launched on the card; each such call launches two CUDA kernels,
-pass 1 (``fused_topk_partial``) and the merge (``fused_topk_merge``).
+(:mod:`.ref`) runs; on a CUDA device the kernel launches on the current
+stream, or the call raises.  Each wrapper's ``launches`` counts the calls
+that launched on the card; each such call launches two CUDA kernels, pass 1
+(``fused_topk_partial`` / ``fused_topk_gathered_partial``) and the merge
+(``fused_topk_merge``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,11 @@ def _lib() -> ctypes.CDLL:
     lib.fused_topk_launch.argtypes = [
         i, i, p, p, p, ll, i, i, i, i, i, i, i, i, p, p, p, p, p]
     lib.fused_topk_launch.restype = i
+    lib.fused_topk_gathered_plan.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
+    lib.fused_topk_gathered_plan.restype = i
+    lib.fused_topk_gathered_launch.argtypes = [
+        i, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
+    lib.fused_topk_gathered_launch.restype = i
     lib.fused_topk_error_string.argtypes = [i]
     lib.fused_topk_error_string.restype = ctypes.c_char_p
     return lib
@@ -46,9 +53,26 @@ def plan(b: int, n_docs: int, depth: int, sm_count: int) -> Tuple[int, int, int,
     return tuple(out)
 
 
-def _aligned(x: torch.Tensor) -> int:
-    """1 if every row of the contiguous 2-D ``x`` starts 16-byte aligned."""
-    return int(x.data_ptr() % 16 == 0 and x.shape[1] * x.element_size() % 16 == 0)
+def gathered_plan(code: int, b: int, r: int, t: int, depth: int,
+                  sm_count: int) -> Tuple[int, int, int]:
+    """The source's launch shape for :func:`fused_topk_gathered`
+    (``fused_topk_gathered_plan``): (running-list width K, row splits per
+    query, rows per split)."""
+    out = (ctypes.c_int * 3)()
+    if _lib().fused_topk_gathered_plan(code, b, r, t, depth, sm_count, out) != 0:
+        raise ValueError(f"depth {depth}, T {t}: the query row and running lists "
+                         "do not fit in shared memory")
+    return tuple(out)
+
+
+def _row_alignment(x: torch.Tensor) -> int:
+    """The byte alignment (16, 8, or 1) every row of the contiguous 2-D
+    ``x`` starts at."""
+    row = x.shape[1] * x.element_size()
+    for a in (16, 8):
+        if x.data_ptr() % a == 0 and row % a == 0:
+            return a
+    return 1
 
 
 def _mode_code(q: torch.Tensor, docs: torch.Tensor, mode: str) -> int:
@@ -117,7 +141,8 @@ def fused_topk(
         lib = _lib()
         err = lib.fused_topk_launch(
             code, bq, q.data_ptr(), docs.data_ptr(), f_ptr, f_stride, b, n_docs, t, depth,
-            k, splits, tiles_per_split, _aligned(q) | _aligned(docs) << 1,
+            k, splits, tiles_per_split,
+            int(_row_alignment(q) == 16) | int(_row_alignment(docs) == 16) << 1,
             part_s.data_ptr(), part_i.data_ptr(),
             out_s.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -128,3 +153,76 @@ def fused_topk(
 
 
 fused_topk.launches = 0  # type: ignore[attr-defined]
+
+
+def fused_topk_gathered(
+    q: torch.Tensor,          # (B, T) f32 / bf16 / int8 (gemm), uint32 (lsh)
+    store: torch.Tensor,      # (N, T) same dtype as q
+    row_ids: torch.Tensor,    # (B, R) int32 global ids; outside [0, n_docs) = padding
+    depth: int,
+    n_docs: int,
+    mode: str = "gemm",
+    filt: Optional[torch.Tensor] = None,  # (B, R) keep bitmap aligned with row_ids
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query top-``depth`` of ``score(q[b], store[row_ids[b, r]])`` over
+    r (blockmax stage 2).
+
+    Returns (scores f32 (B, depth), ids int32 (B, depth)) sorted descending,
+    ties to the lowest GLOBAL id; padding and -inf slots are (-inf, -1).
+    Unlike the reference, which takes the rows already gathered, this takes
+    the stored matrix and the ids: on the card the kernel reads each row by
+    id, so neither the (B, R, T) rows nor the (B, R) scores ever exist."""
+    if mode not in ("gemm", "lsh"):
+        raise ValueError(f"mode must be 'gemm' or 'lsh', got {mode!r}")
+    if (q.dim() != 2 or store.dim() != 2 or row_ids.dim() != 2
+            or q.shape[1] != store.shape[1] or row_ids.shape[0] != q.shape[0]):
+        raise ValueError(f"want q (B, T), store (N, T), row_ids (B, R), got {tuple(q.shape)}, "
+                         f"{tuple(store.shape)}, {tuple(row_ids.shape)}")
+    b, t = q.shape
+    r = row_ids.shape[1]
+    if not 0 < n_docs <= store.shape[0]:
+        raise ValueError(f"n_docs {n_docs} outside (0, {store.shape[0]}]")
+    if not 0 < depth <= r:
+        raise ValueError(f"depth {depth} outside (0, {r}] (the candidate count)")
+    if filt is not None and tuple(filt.shape) != (b, r):
+        raise ValueError(f"filt must be ({b}, {r}), got {tuple(filt.shape)}")
+    tensors = (q, store, row_ids) + ((filt,) if filt is not None else ())
+    devices = {x.device for x in tensors}
+    if devices == {torch.device("cpu")}:
+        rows = ref.gather_rows(store, row_ids, n_docs)
+        return ref.gathered_topk_ref(q, rows, row_ids, depth, n_docs, mode, filt)
+    if len(devices) != 1 or q.device.type != "cuda":
+        raise ValueError(f"operands must all lie on the CPU or on one CUDA device, got {devices}")
+
+    code = _mode_code(q, store, mode)
+    if not (q.is_contiguous() and store.is_contiguous()):
+        raise ValueError("q and store must be contiguous")
+    if row_ids.dtype != torch.int32:
+        raise TypeError(f"row_ids must be int32, got {row_ids.dtype}")
+    if n_docs >= common.BIG_ID:
+        raise ValueError(f"n_docs {n_docs} >= {common.BIG_ID}, the padding id")
+    if filt is not None:  # filtered rows take the id the kernel's range check drops
+        row_ids = torch.where(filt != 0, row_ids, common.BIG_ID)
+    row_ids = row_ids.contiguous()
+
+    sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
+    k, splits, rows_per_split = gathered_plan(code, b, r, t, depth, sm_count)
+    with torch.cuda.device(q.device):
+        part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
+        part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
+        out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
+        out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
+        lib = _lib()
+        err = lib.fused_topk_gathered_launch(
+            code, q.data_ptr(), store.data_ptr(), row_ids.data_ptr(), b, r, n_docs, t, depth,
+            k, splits, rows_per_split, _row_alignment(store), part_s.data_ptr(),
+            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.fused_topk_error_string(err).decode()
+        raise RuntimeError(f"fused_topk_gathered launch failed: cudaError {err} ({msg})")
+    fused_topk_gathered.launches += 1
+    return out_s, out_i
+
+
+fused_topk_gathered.launches = 0  # type: ignore[attr-defined]

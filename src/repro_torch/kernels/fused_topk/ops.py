@@ -3,7 +3,9 @@
 
 Each wrapper prepares the query operand exactly like its ``core/`` path
 (df-prune keep-mask folded into the query, [u; -u] int8 lift for dot mode)
-and streams the stored index through :func:`.kernel.fused_topk`.
+and streams the stored index through :func:`.kernel.fused_topk`;
+:func:`.kernel.fused_topk_gathered` (blockmax stage 2) is re-exported here,
+as the reference's ops module does.
 ``repro_torch.core`` modules are imported lazily to avoid an import cycle.
 """
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.fused_topk.kernel import fused_topk
+from repro_torch.kernels.fused_topk.kernel import fused_topk, fused_topk_gathered  # noqa: F401
 
 
 def classic_topk(

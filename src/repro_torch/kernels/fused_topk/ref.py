@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the fused streaming top-k (the computation the
-CUDA kernel replaces; these DO materialize the (B, N) score matrix).
+"""Plain PyTorch versions of the fused streaming top-k kernels (the
+computation each CUDA kernel replaces; these DO materialize the (B, N) or
+(B, R) score matrix, and the gathered ones the (B, R, T) rows).
 
 ``fused_topk_ref`` is what :func:`..kernel.fused_topk` runs for tensors on
-the CPU, and what the kernel is held against on the card.
+the CPU, ``gathered_topk_ref`` what :func:`..kernel.fused_topk_gathered`
+runs there; the card's kernels are held against them.
 """
 from __future__ import annotations
 
@@ -10,7 +12,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels.common import BIG_ID
+
 LSH_SENTINEL = 0xFFFFFFFF
+_LSH_TILE_ELEMS = 2**27  # bound on the (B, tile, S) compare of the lsh mode
 _INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
 
 
@@ -30,16 +35,25 @@ def scores_ref(q: torch.Tensor, docs: torch.Tensor, mode: str = "gemm") -> torch
     stays fp32.  lsh: sentinel-aware collision counts."""
     if mode == "lsh":
         qb, db = _lsh_bits(q), _lsh_bits(docs)
-        eq = (qb[:, None, :] == db[None, :, :]) & (qb[:, None, :] != -1)
-        return eq.sum(-1, dtype=torch.int32).float()
-    if q.dtype in _INT_DTYPES:
-        return (q.double() @ docs.double().T).float()
-    if not q.is_cuda:
-        return q.float() @ docs.float().T
+        valid = (qb != -1)[:, None, :]
+        tile = max(1, _LSH_TILE_ELEMS // max(1, qb.numel()))
+        return torch.cat([
+            ((qb[:, None, :] == db[None, i:i + tile, :]) & valid).sum(-1, dtype=torch.int32)
+            for i in range(0, db.shape[0], tile)], dim=1).float()
+    return _product(q, docs.T)
+
+
+def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (batched or not) in f32: integer operands exactly (in
+    float64), float operands widened to f32, with TF32 off on the card."""
+    if a.dtype in _INT_DTYPES:
+        return (a.double() @ b.double()).float()
+    if not a.is_cuda:
+        return a.float() @ b.float()
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return q.float() @ docs.float().T
+        return a.float() @ b.float()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
@@ -67,3 +81,49 @@ def fused_topk_ref(
     s, i = torch.sort(scores, dim=-1, descending=True, stable=True)
     s, i = s[:, :depth], i[:, :depth].to(torch.int32)
     return s, torch.where(s == -torch.inf, torch.full_like(i, -1), i)
+
+
+def gather_rows(store: torch.Tensor, row_ids: torch.Tensor, n_docs: int) -> torch.Tensor:
+    """``store[clamp(row_ids, 0, n_docs - 1)]``: the (B, R, T) rows the plain
+    gathered version scores (uint32 rows through their int32 bits: CUDA has
+    no uint32 indexing)."""
+    idx = row_ids.long().clamp(0, n_docs - 1)
+    if store.dtype == torch.uint32:
+        return store.view(torch.int32)[idx].view(torch.uint32)
+    return store[idx]
+
+
+def gathered_scores_ref(q: torch.Tensor, rows: torch.Tensor, mode: str = "gemm") -> torch.Tensor:
+    """Dense (B, R) f32 scores of each query against its own gathered rows
+    (B, R, T), in :func:`scores_ref`'s arithmetic."""
+    if mode == "lsh":
+        qb, rb = _lsh_bits(q)[:, None, :], _lsh_bits(rows)
+        return ((qb == rb) & (qb != -1)).sum(-1, dtype=torch.int32).float()
+    return _product(rows, q[:, :, None])[:, :, 0]
+
+
+def topk_by_id_ref(
+    scores: torch.Tensor, ids: torch.Tensor, depth: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top ``depth`` by (score desc, id asc): a stable sort on the id, then a
+    stable descending sort on the score.  -inf slots get id -1."""
+    by_id, pos = torch.sort(ids.to(torch.int32), dim=-1, stable=True)
+    s, order = torch.sort(torch.gather(scores, 1, pos), dim=-1, descending=True, stable=True)
+    s, i = s[:, :depth], torch.gather(by_id, 1, order[:, :depth])
+    return s, torch.where(s == -torch.inf, torch.full_like(i, -1), i)
+
+
+def gathered_topk_ref(
+    q: torch.Tensor, rows: torch.Tensor, row_ids: torch.Tensor, depth: int, n_docs: int,
+    mode: str = "gemm", filt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blockmax stage 2 unfused: scores of the gathered rows (B, R, T), then
+    the top ``depth`` with ties to the lowest GLOBAL id.  Rows whose id is
+    outside [0, n_docs), or whose (B, R) ``filt`` bit is 0, score -inf and
+    carry ``BIG_ID``."""
+    valid = (row_ids >= 0) & (row_ids < n_docs)
+    if filt is not None:
+        valid = valid & (filt != 0)
+    scores = torch.where(valid, gathered_scores_ref(q, rows, mode), -torch.inf)
+    ids = torch.where(valid, row_ids, torch.full_like(row_ids, BIG_ID))
+    return topk_by_id_ref(scores, ids, depth)

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the fused top-k kernel against its plain
-version, and the search on the card against the port's CPU route.  Every
+"""The port on a CUDA card: the fused top-k kernels (K1/K2 and the gathered
+K3) against their plain versions, and the searches on the card (dense,
+blockmax, lexical LSH) against the port's CPU route.  Every
 test carries the ``gpu`` marker and skips without a card; this file imports
 no JAX, so it runs where only PyTorch is installed:
 
@@ -12,9 +13,14 @@ from torch_parity import assert_topk_match, cuda_device
 
 from repro_torch.core import eval as ev
 from repro_torch.core.index import AnnIndex
-from repro_torch.core.types import BruteForceConfig, FakeWordsConfig
+from repro_torch.core.types import BruteForceConfig, FakeWordsConfig, LexicalLshConfig
 from repro_torch.kernels.fused_topk import ref
-from repro_torch.kernels.fused_topk.kernel import fused_topk, plan
+from repro_torch.kernels.fused_topk.kernel import (
+    fused_topk,
+    fused_topk_gathered,
+    gathered_plan,
+    plan,
+)
 
 
 def _operands(kind: str, b: int, n: int, t: int, dev: torch.device):
@@ -35,20 +41,34 @@ def _operands(kind: str, b: int, n: int, t: int, dev: torch.device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["bf16", "f32", "int8", "lsh", "ties"])
-def test_cuda_kernel_matches_plain_version(kind):
+@pytest.mark.parametrize("kernel", ["fused_topk", "fused_topk_gathered"])
+def test_cuda_kernel_matches_plain_version(kernel, kind):
     dev = cuda_device()
     b, n, t, depth = (9, 1000, 16, 1000) if kind == "ties" else (37, 3000, 257, 100)
     q, d = _operands(kind, b, n, t, dev)
     mode = "lsh" if kind == "lsh" else "gemm"
-    filt = torch.rand((b, n), generator=torch.Generator(device=dev).manual_seed(0),
-                      device=dev) < 0.5
-    before = fused_topk.launches
-    got = fused_topk(q, d, depth, mode=mode, filt=filt)
-    torch.cuda.synchronize()
-    assert fused_topk.launches == before + 1
-    want = ref.fused_topk_ref(q, d, min(depth + 1, n), mode=mode, filt=filt)
-    assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want],
-                      exact=kind in ("int8", "lsh", "ties"))
+    g = torch.Generator(device=dev).manual_seed(0)
+    exact = kind in ("int8", "lsh", "ties")
+    if kernel == "fused_topk":
+        filt = torch.rand((b, n), generator=g, device=dev) < 0.5
+        before = fused_topk.launches
+        got = fused_topk(q, d, depth, mode=mode, filt=filt)
+        torch.cuda.synchronize()
+        assert fused_topk.launches == before + 1
+        want = ref.fused_topk_ref(q, d, min(depth + 1, n), mode=mode, filt=filt)
+    else:  # ids in random order, some >= n_docs, and a (B, R) filt
+        r, n_docs = n, n - 100
+        ids = torch.stack([torch.randperm(n, generator=g, device=dev) for _ in range(b)])
+        ids = ids.to(torch.int32)
+        filt = torch.rand((b, r), generator=g, device=dev) < 0.5
+        before = fused_topk_gathered.launches
+        got = fused_topk_gathered(q, d, ids, min(depth, n_docs), n_docs, mode=mode, filt=filt)
+        torch.cuda.synchronize()
+        assert fused_topk_gathered.launches == before + 1
+        rows = ref.gather_rows(d, ids, n_docs)
+        want = ref.gathered_topk_ref(q, rows, ids, min(depth + 1, n_docs), n_docs, mode=mode,
+                                     filt=filt)
+    assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=exact)
 
 
 @pytest.mark.gpu
@@ -64,18 +84,30 @@ def test_launch_plan_fills_the_card_at_both_batch_sizes():
     assert plan(1, 5000, 3072, 132)[1] == 3072
     with pytest.raises(ValueError, match="shared memory"):
         plan(1, 5000, 3073, 132)
+    # the gathered kernel: B x splits covers the SMs; >= 256 rows a split
+    r = 1171 * 256
+    for b in (1, 8, 256):
+        k, splits, per = gathered_plan(1, b, r, 600, 100, sm_count=132)
+        assert k == 128 and per % 32 == 0 and (splits - 1) * per < r <= splits * per
+        assert b * splits >= 132 and per >= 256
+    with pytest.raises(ValueError, match="shared memory"):
+        gathered_plan(1, 1, 10_000, 600, 3700, sm_count=132)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("method", ["classic", "dot", "bruteforce"])
+@pytest.mark.parametrize("method", ["classic", "dot", "bruteforce", "lsh", "blockmax-classic",
+                                    "blockmax-dot", "blockmax-lsh"])
 def test_cuda_search_matches_cpu_port(method):
     cuda_device()
     rng = np.random.default_rng(0)
     x = rng.normal(size=(2000, 64)).astype(np.float32)
     q = x[:24] + 0.05 * rng.normal(size=(24, 64)).astype(np.float32)
-    cfg = BruteForceConfig() if method == "bruteforce" else FakeWordsConfig(scoring=method)
-    cpu = AnnIndex.build(x, cfg, device="cpu")
-    gpu = AnnIndex.build(x, cfg)
+    kind = method.split("-")[-1]
+    cfg = {"bruteforce": BruteForceConfig(), "lsh": LexicalLshConfig(buckets=64, hashes=2)}.get(
+        kind) or FakeWordsConfig(scoring=kind)
+    keep = 3 if method.startswith("blockmax") else None
+    cpu = AnnIndex.build(x, cfg, blockmax_keep=keep, blockmax_block_size=128, device="cpu")
+    gpu = AnnIndex.build(x, cfg, blockmax_keep=keep, blockmax_block_size=128)
     assert gpu.device.type == "cuda"
     for rerank in (False, True):
         want = cpu.search(q, k=10, depth=100, rerank=rerank)

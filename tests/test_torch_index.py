@@ -102,7 +102,7 @@ def test_index_from_numpy_rejects_unported_stores(tmp_path):
         index_from_numpy(meta["method"], meta["config"], extra,
                          dict(meta["dtypes"], **{"vq.q": "int8"}), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        index_from_numpy("lexical-lsh", {}, {}, {}, device="cpu")
+        index_from_numpy("kd-tree", {}, {}, {}, device="cpu")
 
 
 def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
