@@ -11,18 +11,31 @@
 3. Holds the gathered fused top-k kernel (K3) against its plain version the
    same way, with row ids in random order and in 256-row blocks, padding
    ids, ``filt``, and B = 1 over ~300k rows.
-4. Runs the ann-word2vec deployment (2,999,808 x 300, classic fake words,
+4. Holds the quantized kernels (K4 ``fused_topk_quantized``, K5
+   ``fused_topk_gathered_quantized``) against their plain versions: int8
+   and int4 (groups 32 and 64), bf16 and f32 queries, T = 600 and 100,
+   ragged ``n_docs``, ``filt``, 0/1 ties, ids in any order and >= n_docs,
+   depth up to the plan's limit, B = 1 over ~300k kept rows.
+5. Runs the ann-word2vec deployment (2,999,808 x 300, classic fake words,
    B = 256, depth 100, k 10) end to end through ``AnnIndex.build`` /
    ``search`` on the card, with the exact-cosine ground truth, and checks
    recall, the rerank identity and that the kernel carried the path.
-5. Runs blockmax pruning on that index (10% and 25% of the 256-row blocks
+6. Runs blockmax pruning on that index (10% and 25% of the 256-row blocks
    kept) through the facade, with recalls, and at every block kept holds
    classic, dot and lsh blockmax against the dense searches.
-6. Builds the lexical-LSH index (b = 300, h = 1) of the same corpus and
+7. Builds the lexical-LSH index (b = 300, h = 1) of the same corpus and
    searches it at B = 256 on K1's lsh mode (K2), with recall.
-7. Times build, searches (B = 256, 8 and 1), and each kernel beside its
+8. Times build, searches (B = 256, 8 and 1), and each kernel beside its
    bound, its plain version and a library yardstick, with CUDA events
    (median of 10 runs after a warm-up).
+9. Frees those indexes and runs the quantized read path on the same corpus:
+   classic with int8 and with int4 (group 32) postings and the int8 rerank
+   store (K4), held to the reference's recall property (reranked R@10
+   within 0.02 of fp32 postings reranked from the same int8 store);
+   blockmax on the int4 index (K5) at 10% of the blocks, and at every block
+   kept, classic and dot x int8 and int4, against the dense quantized
+   search; brute force with int8 postings (K4 with an f32 query); and the
+   times of all of these.
 
 Exits non-zero on any failure, or when no CUDA device is available.  The
 last two lines are a JSON object of per-kernel numbers and the JSON status
@@ -33,6 +46,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -56,6 +70,8 @@ TOL = 1e-5  # rtol = atol for float scores
 RUNS = 10
 BLOCK = 256  # blockmax block size
 KEEP_FRACTIONS = (0.10, 0.25)  # of the blocks: 1171 and 2929 of 11,718 at full size
+RECALL_SLACK = 0.02  # quantized vs fp32 postings, same int8 rerank store (memory_budget.py)
+GROUP = 32  # the int4 scale group of the quantized main path
 
 
 def gpu_line() -> str:
@@ -115,6 +131,34 @@ def gathered_bound_ms(q, store, row_ids, n_docs: int, depth: int, kind: str):
     return (*_bound(nbytes, 2.0 * pairs * t, kind), distinct)
 
 
+def _packed_row_bytes(docs, scale) -> int:
+    """Bytes one packed row and its scales take."""
+    return docs.shape[1] * docs.element_size() + scale.shape[1] * 4
+
+
+def quantized_bound_ms(q, docs, scale, n_docs: int, depth: int, kind: str):
+    """Bound of one K4 call: the query, each of the n_docs packed rows and
+    its scales read once, the output written once; 2*B*N*T operations at
+    the query dtype's peak (the dequantized operand is in that dtype)."""
+    b, t = q.shape
+    nbytes = q.numel() * q.element_size() + n_docs * _packed_row_bytes(docs, scale) + b * depth * 8
+    return _bound(nbytes, 2.0 * b * n_docs * t, kind)
+
+
+def gathered_quantized_bound_ms(q, docs, scale, row_ids, n_docs: int, depth: int, kind: str):
+    """Bound of one K5 call on this run's data, as for K3: the query, the
+    ids, each distinct in-range packed row and its scales once, the output
+    once; 2*T operations for each (query, in-range row) pair.  Returns (ms,
+    bound_by, distinct rows)."""
+    b, t = q.shape
+    valid = (row_ids >= 0) & (row_ids < n_docs)
+    pairs = int(valid.sum())
+    distinct = int(torch.unique(row_ids[valid]).numel())
+    nbytes = (q.numel() * q.element_size() + row_ids.numel() * 4
+              + distinct * _packed_row_bytes(docs, scale) + b * depth * 8)
+    return (*_bound(nbytes, 2.0 * pairs * t, kind), distinct)
+
+
 def compare(name, got, want, exact: bool) -> float:
     """Hold the kernel's (scores, ids) against the plain version's.  Exact
     modes: bit-equal.  Float modes: scores within rtol = atol = 1e-5, and
@@ -148,6 +192,17 @@ def compare(name, got, want, exact: bool) -> float:
     return err
 
 
+def _instance(mangled: str) -> str:
+    """``fused_topk_quantized_partial<1, 4, 32>`` from a mangled kernel name:
+    the kernel's name and its integer template arguments."""
+    m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_partial|gathered_partial"
+                  r"|partial|merge))(?:I((?:Li-?\d+E)+)E)?", mangled)
+    if m is None:
+        return mangled.strip()[:72]
+    args = re.findall(r"Li(-?\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{', '.join(args)}>" if args else "")
+
+
 def build_kernels() -> float:
     from repro_torch.kernels import common
 
@@ -157,7 +212,7 @@ def build_kernels() -> float:
     for name, log in logs.items():
         for line in log.splitlines():
             if "Function properties for" in line:  # names the instance the next lines report
-                print(f"  nvcc[{name}] {line.split('Function properties for')[1].strip()[:72]}")
+                print(f"  nvcc[{name}] {_instance(line.split('Function properties for')[1])}")
             elif "registers" in line or "spill" in line or "error" in line:
                 print(f"  nvcc[{name}] {line.strip()}")
     print(f"kernel build: {seconds:.1f} s for {sorted(logs)} (nvcc, sm_90a)")
@@ -293,6 +348,119 @@ def check_gathered(dev) -> dict:
     return worst
 
 
+def _quantized_inputs(kind: str, bits: int, group: int, qdtype: str, b: int, n: int, t: int,
+                      gen: torch.Generator, dev):
+    """(q, packed docs, scales).  "float": a random matrix of mixed row
+    magnitudes packed by the port's builder, a unit-scale float query.
+    "int": integer values with unit scales (int8 in [-50, 50], every int4
+    nibble) and an integer query in [-20, 20], so every sum is exact.
+    "ties": 0/1 values and query, so scores tie constantly."""
+    from repro_torch.core import builder
+    from repro_torch.kernels.common import round_up
+
+    dtype = torch.bfloat16 if qdtype == "bf16" else torch.float32
+    if kind == "float":
+        m = torch.randn((n, t), generator=gen, device=dev)
+        m *= 10 * torch.rand((n, 1), generator=gen, device=dev) + 0.01
+        pq = builder.quantize_postings(m, bits, group or GROUP)
+        return (torch.randn((b, t), generator=gen, device=dev) / t**0.5).to(dtype), pq.q, pq.scale
+    lo, hi = (-20, 21) if kind == "int" else (0, 2)
+    q = torch.randint(lo, hi, (b, t), generator=gen, device=dev).to(dtype)
+    if bits == 8:
+        lo, hi = (-50, 51) if kind == "int" else (0, 2)
+        docs = torch.randint(lo, hi, (n, t), generator=gen, device=dev, dtype=torch.int8)
+        return q, docs, torch.ones((n, 1), device=dev)
+    tg = round_up(t, group)
+    lo, hi = (0, 16) if kind == "int" else (8, 10)
+    nib = torch.randint(lo, hi, (n, tg), generator=gen, device=dev, dtype=torch.uint8)
+    nib[:, t:] = 8  # pad columns hold the value 0, as the builder writes them
+    return q, nib[:, 0::2] | (nib[:, 1::2] << 4), torch.ones((n, tg // group), device=dev)
+
+
+def quantized_cases():
+    """K4: (kind, bits, group, query dtype, B, N, T, depth, filt, n_docs);
+    K5: (kind, bits, group, query dtype, B, N, R, T, depth, ids, filt, n_docs)."""
+    k4 = [
+        ("float", 8, 0, "bf16", 4, 3000, 600, 100, None, None),
+        ("float", 4, 32, "bf16", 40, 3000, 600, 100, None, None),     # 32-query tiles
+        ("float", 4, 64, "bf16", 37, 2000, 100, 60, "per-query", 1800),
+        ("float", 8, 0, "f32", 5, 2000, 300, 50, "shared", None),
+        ("float", 4, 32, "f32", 3, 2000, 100, 37, None, 1900),         # ragged n_docs
+        ("float", 4, 64, "f32", 33, 3000, 600, 100, None, None),
+        ("float", 4, 32, "bf16", 1, 200_000, 600, 100, None, None),    # B = 1: many N-splits
+        ("int", 8, 0, "bf16", 40, 3000, 600, 100, None, None),
+        ("int", 8, 0, "f32", 7, 2000, 300, 64, "per-query", None),
+        ("int", 4, 32, "bf16", 6, 2000, 100, 60, "shared", 1900),
+        ("int", 4, 64, "bf16", 300, 20_000, 600, 100, None, None),     # several query tiles
+        ("ties", 8, 0, "bf16", 3, 130, 16, 130, None, None),           # depth = N
+        ("ties", 4, 32, "bf16", 9, 1000, 64, 1000, "shared", None),
+        ("ties", 4, 64, "bf16", 1, 5000, 64, 3072, None, None),        # the plan's depth limit
+    ]
+    k5 = [
+        ("float", 8, 0, "bf16", 4, 3000, 1024, 600, 32, "random", False, None),
+        ("float", 4, 32, "bf16", 3, 2000, 700, 600, 37, "random", False, 1800),
+        ("float", 4, 64, "bf16", 5, 20_000, 2560, 100, 100, "blocks", False, None),
+        ("float", 8, 0, "f32", 6, 3000, 900, 300, 60, "random", True, None),
+        ("float", 4, 32, "f32", 2, 3000, 900, 100, 60, "random", True, None),
+        ("int", 8, 0, "bf16", 4, 5000, 1280, 600, 100, "blocks", False, None),  # 8-byte rows
+        ("int", 4, 64, "bf16", 3, 2000, 700, 100, 100, "random", True, 1800),
+        ("ties", 4, 32, "bf16", 3, 500, 300, 64, 300, "permutation", False, None),  # depth = R
+        ("ties", 8, 0, "bf16", 2, 2048, 1024, 16, 1024, "blocks", True, None),
+        ("float", 4, 32, "bf16", 1, 400_000, 299_776, 600, 100, "blocks", False, None),  # B = 1
+    ]
+    return k4, k5
+
+
+def check_quantized(dev) -> dict:
+    """K4 and K5 against their plain versions on the card."""
+    from repro_torch.kernels.fused_topk import ref
+    from repro_torch.kernels.fused_topk.kernel import (
+        fused_topk_gathered_quantized,
+        fused_topk_quantized,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    k4, k5 = quantized_cases()
+    worst = {}
+    for kind, bits, group, qdt, b, n, t, depth, filt_kind, n_docs in k4:
+        q, docs, scale = _quantized_inputs(kind, bits, group, qdt, b, n, t, gen, dev)
+        filt = None
+        if filt_kind == "shared":
+            filt = torch.rand((n,), generator=gen, device=dev) < 0.3
+        elif filt_kind == "per-query":
+            filt = torch.rand((b, n), generator=gen, device=dev) < 0.05
+        got = fused_topk_quantized(q, docs, scale, depth, bits, group, filt=filt, n_docs=n_docs)
+        torch.cuda.synchronize()
+        nd = n if n_docs is None else n_docs
+        want = ref.quantized_topk_ref(q, docs, scale, min(depth + 1, nd), bits, group, filt,
+                                      n_docs)
+        name = (f"K4 {kind} int{bits} g{group} {qdt} B={b} N={n} T={t} depth={depth} "
+                f"filt={filt_kind} n_docs={n_docs}")
+        err = compare(name, got, want, exact=kind != "float")
+        key = f"K4 {kind}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        print(f"  ok  {name}  max_abs_err={err:.3g}")
+    for kind, bits, group, qdt, b, n, r, t, depth, how, with_filt, n_docs in k5:
+        q, docs, scale = _quantized_inputs(kind, bits, group, qdt, b, n, t, gen, dev)
+        ids = _row_ids(how, b, n, r, gen, dev)
+        filt = torch.rand((b, r), generator=gen, device=dev) < 0.5 if with_filt else None
+        nd = n if n_docs is None else n_docs
+        got = fused_topk_gathered_quantized(q, docs, scale, ids, depth, nd, bits, group,
+                                            filt=filt)
+        torch.cuda.synchronize()
+        want = ref.quantized_gathered_topk_ref(q, docs, scale, ids, min(depth + 1, r), nd, bits,
+                                               group, filt)
+        name = (f"K5 {kind} int{bits} g{group} {qdt} B={b} N={n} R={r} T={t} depth={depth} "
+                f"ids={how} filt={with_filt} n_docs={n_docs}")
+        err = compare(name, got, want, exact=kind != "float")
+        key = f"K5 {kind}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        print(f"  ok  {name}  max_abs_err={err:.3g}")
+    print(f"quantized kernels vs plain on the card: {len(k4)} K4 and {len(k5)} K5 cases, "
+          f"worst {worst}")
+    return worst
+
+
 def _checked(name: str, s, i, b: int, width: int, n: int, finite: bool = True) -> None:
     if s.shape != (b, width) or (finite and not bool(torch.isfinite(s).all())):
         raise AssertionError(f"{name}: bad shape {tuple(s.shape)} or non-finite scores")
@@ -301,10 +469,28 @@ def _checked(name: str, s, i, b: int, width: int, n: int, finite: bool = True) -
 
 
 def _reset_launches() -> None:
-    from repro_torch.kernels.fused_topk.kernel import fused_topk, fused_topk_gathered
+    from repro_torch.kernels.fused_topk import kernel
 
-    fused_topk.launches = 0
-    fused_topk_gathered.launches = 0
+    for fn in (kernel.fused_topk, kernel.fused_topk_gathered, kernel.fused_topk_quantized,
+               kernel.fused_topk_gathered_quantized):
+        fn.launches = 0
+
+
+def _launches() -> dict:
+    from repro_torch.kernels.fused_topk import kernel
+
+    return {fn.__name__: fn.launches for fn in (
+        kernel.fused_topk, kernel.fused_topk_gathered, kernel.fused_topk_quantized,
+        kernel.fused_topk_gathered_quantized)}
+
+
+def _only(path: str, kernel_name: str) -> int:
+    """The launches of ``kernel_name`` since the last reset; raises unless
+    it launched and no other kernel did."""
+    counts = _launches()
+    if counts[kernel_name] <= 0 or any(v for k, v in counts.items() if k != kernel_name):
+        raise AssertionError(f"{path} did not run through {kernel_name} alone: {counts}")
+    return counts[kernel_name]
 
 
 def main() -> int:
@@ -318,11 +504,15 @@ def main() -> int:
     build_kernels()
     check_kernels(dev)
     check_gathered(dev)
+    check_quantized(dev)
     from repro_torch.configs import ann_word2vec
 
     cell = ann_word2vec.ARCH.cell("ann_search")
-    kernels = drive(dev, card, cell.get("n_docs"), cell.batch, cell.get("depth"), cell.get("k"),
-                    ann_word2vec.ARCH.make_model(cell))
+    config = ann_word2vec.ARCH.make_model(cell)
+    x, qx = make_inputs(dev, cell.get("n_docs"), cell.batch)
+    kernels, gt_i = drive(dev, card, x, qx, cell.get("depth"), cell.get("k"), config)
+    torch.cuda.empty_cache()  # drive's indexes are gone: the quantized builds get the room
+    kernels += drive_quantized(dev, card, x, qx, gt_i, cell.get("depth"), cell.get("k"), config)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -332,25 +522,30 @@ def main() -> int:
     return 0
 
 
-def drive(dev, card: str, n: int, b: int, depth: int, k: int, config) -> list:
-    """Every main path at (n docs, B queries, depth, k) on ``dev``; returns
-    the per-kernel JSON entries."""
-    from repro_torch.core import blockmax, bruteforce, eval as ev, fakewords, lexical_lsh
-    from repro_torch.core import pipeline as pl
-    from repro_torch.core.index import AnnIndex
-    from repro_torch.core.types import LexicalLshConfig
+def make_inputs(dev, n: int, b: int):
+    """The ann-word2vec corpus (n x 300) and B queries, on ``dev``."""
     from repro_torch.data.embeddings import WORD2VEC_LIKE, make_corpus, make_queries
-    from repro_torch.kernels.fused_topk import ops, ref
-    from repro_torch.kernels.fused_topk.kernel import fused_topk, fused_topk_gathered
 
     t0 = time.perf_counter()
     corpus = make_corpus(dataclasses.replace(WORD2VEC_LIKE, n_vectors=n))
     queries, _ = make_queries(corpus, b, seed=1)
     print(f"corpus {corpus.shape} {corpus.dtype} made on the host in "
           f"{time.perf_counter() - t0:.1f} s (seed {WORD2VEC_LIKE.seed})")
-    x = torch.from_numpy(corpus).to(dev)
-    qx = torch.from_numpy(queries).to(dev)
-    del corpus
+    return torch.from_numpy(corpus).to(dev), torch.from_numpy(queries).to(dev)
+
+
+def drive(dev, card: str, x, qx, depth: int, k: int, config):
+    """Every fp32-postings main path over the corpus ``x`` (n docs) with the
+    B queries ``qx`` on ``dev``; returns the per-kernel JSON entries and the
+    exact top-k ids."""
+    from repro_torch.core import blockmax, bruteforce, eval as ev, fakewords, lexical_lsh
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.types import LexicalLshConfig
+    from repro_torch.kernels.fused_topk import ops, ref
+    from repro_torch.kernels.fused_topk.kernel import fused_topk, fused_topk_gathered
+
+    n, b = x.shape[0], qx.shape[0]
 
     # ---- main path 1: classic fake words, dense -------------------------
     _reset_launches()
@@ -576,6 +771,243 @@ def drive(dev, card: str, n: int, b: int, depth: int, k: int, config) -> list:
         "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",
         "replaces": "src/repro/kernels/fused_topk/kernel.py:433",
         "launches": k3_launches[keep], "max_abs_err": k3_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+    })
+    return kernels, gt_i
+
+
+def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> list:
+    """The quantized read path over the corpus ``x`` with the queries ``qx``
+    (ground truth ``gt_i``); returns the K4 and K5 JSON entries."""
+    from repro_torch.core import blockmax, bruteforce, eval as ev, fakewords
+    from repro_torch.core import memory_budget as mb
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.types import BruteForceConfig
+    from repro_torch.kernels.common import dequant_int4
+    from repro_torch.kernels.fused_topk import ref
+    from repro_torch.kernels.fused_topk.kernel import (
+        fused_topk_gathered_quantized,
+        fused_topk_quantized,
+    )
+
+    n, dim = x.shape
+    b = qx.shape[0]
+    qn = bruteforce.l2_normalize(qx)
+    q_tf = fakewords.encode_queries(qn, config, normalized=True)
+
+    def recalls(i_match, i_rr):
+        return (float(ev.recall_at(gt_i, i_match[:, :k])), float(ev.recall_at(gt_i, i_match)),
+                float(ev.recall_at(gt_i, i_rr)))
+
+    # ---- the yardstick: fp32 postings reranked from the same int8 store ----
+    fidx = AnnIndex.build(x, config, rerank_store="int8", device=dev)
+    f_i = fidx.search(qx, k=depth, depth=depth)[1]
+    f_rr = fidx.search(qx, k=k, depth=depth, rerank=True)[1]
+    r_f = recalls(f_i, f_rr)
+    print(f"fp32 postings + int8 rerank store: index {fidx.nbytes() / 1e9:.2f} GB; "
+          f"R@(10,10) {r_f[0]:.4f}  R@(10,100) {r_f[1]:.4f}  reranked R@10 {r_f[2]:.4f}")
+    del fidx, f_i, f_rr
+    torch.cuda.empty_cache()
+
+    # ---- main path 4: classic with int8 / int4 postings (K4) ----------------
+    quant = {}
+    for pp in ("int8", "int4"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qidx = AnnIndex.build(x, config, primary_postings=pp, postings_group=GROUP,
+                              rerank_store="int8", device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        _reset_launches()
+        s100, i100 = qidx.search(qx, k=depth, depth=depth)
+        rr_s, rr_i = qidx.search(qx, k=k, depth=depth, rerank=True)
+        torch.cuda.synchronize()
+        launches = _only(f"the {pp} classic search", "fused_topk_quantized")
+        _checked(f"{pp} match", s100, i100, b, depth, n)
+        _checked(f"{pp} rerank", rr_s, rr_i, b, k, n)
+        pq = qidx.index.pq
+        per_doc = (mb.postings_bytes_per_doc(config, dim, pp, GROUP)
+                   + mb.rerank_bytes_per_doc(dim, "int8"))
+        r = recalls(i100, rr_i)
+        # The B = 256 call against the plain version on its first 8 queries.
+        qv = fakewords.classic_query(qidx.index, q_tf)
+        err = compare(f"classic {pp} match, first 8 queries", (s100[:8], i100[:8]),
+                      ref.quantized_topk_ref(qv[:8], pq.q, pq.scale, depth + 1, pq.bits,
+                                             pq.group), exact=False)
+        print(f"quantized classic, {pp} postings (group {pq.group}) + int8 rerank store: build "
+              f"{build_s:.2f} s (first call); index {qidx.nbytes() / 1e9:.3f} GB, planner "
+              f"{per_doc} B/doc x N = {per_doc * n / 1e9:.3f} GB; R@(10,10) {r[0]:.4f}  "
+              f"R@(10,100) {r[1]:.4f}  reranked R@10 {r[2]:.4f} (fp32 postings {r_f[2]:.4f}); "
+              f"fused_topk_quantized launches {launches}; K4 vs plain on 8 queries "
+              f"max_abs_err {err:.3g}")
+        if r_f[2] - r[2] > RECALL_SLACK:
+            raise AssertionError(f"{pp} postings: reranked R@10 {r[2]:.4f} is more than "
+                                 f"{RECALL_SLACK} below fp32 postings' {r_f[2]:.4f}")
+        quant[pp] = (qidx, qv, launches, err)
+
+    # ---- main path 5: blockmax on the int4 index (K5) -----------------------
+    n_blocks = -(-n // BLOCK)
+    keep = int(KEEP_FRACTIONS[0] * n_blocks)
+    q4 = quant["int4"][0]
+    pq4 = q4.index.pq
+    bm4 = blockmax.build_blockmax(q4.index, BLOCK)
+    pidx = AnnIndex(config=config, index=q4.index, blockmax_keep=keep, blockmax_block_size=BLOCK,
+                    bm=bm4)
+    _reset_launches()
+    ps, pi = pidx.search(qx, k=depth, depth=depth)
+    prs, pri = pidx.search(qx, k=k, depth=depth, rerank=True)
+    torch.cuda.synchronize()
+    k5_launches = _only("blockmax on the int4 index", "fused_topk_gathered_quantized")
+    _checked(f"blockmax int4 n_keep={keep}", ps, pi, b, depth, n)
+    _checked(f"blockmax int4 n_keep={keep} rerank", prs, pri, b, k, n)
+    rows8 = blockmax.kept_rows(bm4, q_tf[:8], keep)
+    qv8 = q_tf[:8].to(torch.bfloat16)
+    k5_err = compare(f"blockmax classic int4 B={b} n_keep={keep}, first 8 queries",
+                     (ps[:8], pi[:8]),
+                     ref.quantized_gathered_topk_ref(qv8, pq4.q, pq4.scale, rows8, depth + 1, n,
+                                                     4, GROUP), exact=False)
+    r = recalls(pi, pri)
+    print(f"blockmax classic int4 n_keep={keep}: R@(10,10) {r[0]:.4f}  R@(10,100) {r[1]:.4f}  "
+          f"reranked R@10 {r[2]:.4f}; fused_topk_gathered_quantized launches {k5_launches}; "
+          f"K5 vs plain on 8 queries max_abs_err {k5_err:.3g}")
+
+    # ---- every block kept, 8 queries: blockmax equals the dense search -----
+    q8 = qx[:8]
+    for pp, (qidx, *_) in quant.items():
+        every = AnnIndex(config=config, index=qidx.index, blockmax_keep=n_blocks,
+                         blockmax_block_size=BLOCK)
+        compare(f"blockmax classic {pp}, every block, 8 queries",
+                every.search(q8, k=depth, depth=depth),
+                qidx.search(q8, k=depth + 1, depth=depth + 1), exact=False)
+        del every
+    dot = dataclasses.replace(config, scoring="dot")
+    for pp in ("int8", "int4"):
+        didx = AnnIndex.build(x, dot, primary_postings=pp, postings_group=GROUP,
+                              rerank_store="none", device=dev)
+        bm = blockmax.build_blockmax(didx.index, BLOCK)
+        compare(f"blockmax dot {pp}, every block, 8 queries",
+                pl.BlockMaxMatcher(n_blocks, bm)(didx.index, q_tf[:8], depth),
+                didx.pipeline.matcher(didx.index, q_tf[:8], depth + 1),
+                exact=didx.index.pq is None)
+        del didx, bm
+    print("quantized blockmax at every block kept equals the dense quantized search: classic "
+          "and dot x int8 and int4 (dot int8, the int8 tf through K3, exact; the rest under "
+          "the near-tie rule)")
+
+    # ---- main path 6: brute force with int8 postings (K4, f32 query) -------
+    bidx = AnnIndex.build(x, BruteForceConfig(), primary_postings="int8", rerank_store="int8",
+                          device=dev)
+    _reset_launches()
+    bs, bi = bidx.search(qx, k=depth, depth=depth)
+    brs, bri = bidx.search(qx, k=k, depth=depth, rerank=True)
+    torch.cuda.synchronize()
+    bf_launches = _only("brute force over int8 postings", "fused_topk_quantized")
+    _checked("brute force int8 match", bs, bi, b, depth, n)
+    bpq = bidx.index.pq
+    bf_err = compare("brute force int8 match, first 8 queries", (bs[:8], bi[:8]),
+                     ref.quantized_topk_ref(qn[:8], bpq.q, bpq.scale, depth + 1, 8, 0),
+                     exact=False)
+    r = recalls(bi, bri)
+    print(f"brute force, int8 postings + int8 rerank store: index {bidx.nbytes() / 1e9:.3f} GB; "
+          f"R@(10,10) {r[0]:.4f}  R@(10,100) {r[1]:.4f}  reranked R@10 {r[2]:.4f}; "
+          f"fused_topk_quantized (f32 query) launches {bf_launches}; vs plain on 8 queries "
+          f"max_abs_err {bf_err:.3g}")
+
+    # ---- times ---------------------------------------------------------------
+    for pp, (qidx, *_) in quant.items():
+        line = []
+        for bb in (b, 8, 1):
+            qb = qx[:bb]
+            plain = cuda_ms(lambda: qidx.search(qb, k=k, depth=depth))
+            rr = cuda_ms(lambda: qidx.search(qb, k=k, depth=depth, rerank=True))
+            cand = qidx.search(qb, k=depth, depth=depth)[1]
+            alone = cuda_ms(lambda: qidx.pipeline.reranker(qidx.index, qn[:bb], cand, k))
+            line.append(f"B={bb} {plain:.3f} ms, with rerank {rr:.3f} ms, int8 rerank alone "
+                        f"{alone:.3f} ms")
+        print(f"quantized classic {pp} search (median of {RUNS}, CUDA events) on {card}: "
+              f"{'; '.join(line)}")
+    line = []
+    for bb in (1, 8):
+        line.append(f"B={bb} {cuda_ms(lambda: pidx.search(qx[:bb], k=k, depth=depth)):.3f} ms")
+    t_256 = cuda_ms(lambda: pidx.search(qx, k=k, depth=depth), runs=3, warmup=1)
+    print(f"blockmax classic int4 n_keep={keep} search: {'; '.join(line)}; "
+          f"B={b} {t_256:.2f} ms (median of 3)")
+
+    kernels = []
+    t = q_tf.shape[1]
+    for name, qidx_pq, qop, kind, launches, err, lib_label in (
+            ("fused_topk_quantized", quant["int8"][0].index.pq, quant["int8"][1], "bf16",
+             quant["int8"][2], quant["int8"][3], "torch.topk(matmul(q, pq.q.to(bf16).T) * scale)"),
+            ("fused_topk_quantized/int4", pq4, quant["int4"][1], "bf16", quant["int4"][2],
+             quant["int4"][3], "torch.topk(matmul(q, dequant_int4(store).T)), whole-store dequant"),
+            ("fused_topk_quantized/f32-int8", bpq, qn, "f32", bf_launches, bf_err,
+             "torch.topk(matmul(q, pq.q.float().T) * scale)")):
+        pq, tq = qidx_pq, qop.shape[1]
+
+        def library(qo=qop, pq=pq, tq=tq):
+            if pq.bits == 8:
+                return torch.topk(torch.matmul(qo, pq.q.to(qo.dtype).T) * pq.scale.T, depth)
+            return torch.topk(torch.matmul(
+                qo, dequant_int4(pq.q, pq.scale, pq.group, qo.dtype)[:, :tq].T), depth)
+
+        def kern(qo):
+            return fused_topk_quantized(qo, pq.q, pq.scale, depth, pq.bits, pq.group)
+
+        ms = cuda_ms(lambda: kern(qop))
+        ms_8 = cuda_ms(lambda: kern(qop[:8]))
+        ms_1 = cuda_ms(lambda: kern(qop[:1]))
+        plain_ms = cuda_ms(lambda: ref.quantized_topk_ref(qop, pq.q, pq.scale, depth, pq.bits,
+                                                          pq.group), runs=3, warmup=1)
+        lib_ms = cuda_ms(library, runs=3, warmup=1)
+        bound, bound_by = quantized_bound_ms(qop, pq.q, pq.scale, n, depth, kind)
+        bound_1, by_1 = quantized_bound_ms(qop[:1], pq.q, pq.scale, n, depth, kind)
+        print(f"{name} ({kind} query, int{pq.bits}, B={b}, N={n}, T={tq}, depth={depth}): "
+              f"kernel {ms:.3f} ms, bound {bound:.3f} ms ({bound_by}); B=8 {ms_8:.3f} ms; "
+              f"B=1 {ms_1:.3f} ms, bound {bound_1:.3f} ms ({by_1}); plain {plain_ms:.3f} ms "
+              f"(median of 3); {lib_label} {lib_ms:.3f} ms (median of 3)")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk_quantized.cu",
+            "replaces": "src/repro/kernels/fused_topk/kernel.py:632",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+        })
+
+    # K5 alone at B = 1 and B = 8 on the int4 index, 10% of the blocks.
+    rows8 = blockmax.kept_rows(bm4, q_tf[:8], keep)
+    k5 = {}
+    for bb in (1, 8):
+        qb, rb = qv8[:bb], rows8[:bb]
+        ms = cuda_ms(lambda: fused_topk_gathered_quantized(qb, pq4.q, pq4.scale, rb, depth, n, 4,
+                                                           GROUP))
+        plain_ms = cuda_ms(lambda: ref.quantized_gathered_topk_ref(qb, pq4.q, pq4.scale, rb, depth,
+                                                                   n, 4, GROUP))
+        lib_ms = cuda_ms(lambda: torch.topk(torch.einsum("bt,brt->br", qb, dequant_int4(
+            pq4.q[rb.long()], pq4.scale[rb.long()], GROUP, qb.dtype)[..., :t]), depth))
+        bound, bound_by, distinct = gathered_quantized_bound_ms(qb, pq4.q, pq4.scale, rb, n, depth,
+                                                                "bf16")
+        k5[bb] = (ms, plain_ms, lib_ms, bound, bound_by)
+        print(f"fused_topk_gathered_quantized (bf16 query, int4 g{GROUP}, B={bb}, "
+              f"R={rb.shape[1]}, T={t}, depth={depth}, {distinct} distinct rows): kernel "
+              f"{ms:.3f} ms, bound {bound:.3f} ms ({bound_by}); plain {plain_ms:.3f} ms; "
+              f"torch.topk(einsum(q, dequant_int4(store[row_ids]))) {lib_ms:.3f} ms")
+    # K5 alone at the B = 256 blockmax search's shape (no plain version: its
+    # gathered rows would take 23 GB packed, and more dequantized).
+    rows_256 = blockmax.kept_rows(bm4, q_tf, keep)
+    q256 = q_tf.to(torch.bfloat16)
+    ms_256 = cuda_ms(lambda: fused_topk_gathered_quantized(q256, pq4.q, pq4.scale, rows_256, depth,
+                                                           n, 4, GROUP), runs=3, warmup=1)
+    bound, bound_by, distinct = gathered_quantized_bound_ms(q256, pq4.q, pq4.scale, rows_256, n,
+                                                            depth, "bf16")
+    print(f"fused_topk_gathered_quantized (B={b}, R={rows_256.shape[1]}, {distinct} distinct "
+          f"rows): kernel {ms_256:.3f} ms (median of 3), bound {bound:.3f} ms ({bound_by})")
+    ms, plain_ms, lib_ms, bound, bound_by = k5[8]
+    kernels.append({
+        "name": "fused_topk_gathered_quantized", "route": "cuda",
+        "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk_quantized.cu",
+        "replaces": "src/repro/kernels/fused_topk/kernel.py:765",
+        "launches": k5_launches, "max_abs_err": k5_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
     })
     return kernels

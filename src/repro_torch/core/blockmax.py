@@ -23,10 +23,15 @@ Bounds per scoring mode:
     MinHash value v in slot s; the bound counts the query slots whose bit
     is present (a superset test, admissible).
 
+With packed int8 / int4 postings (``pq``) the classic and dot bounds are
+block maxima of the DEQUANTIZED values (per-doc and per-group scales vary
+inside a block, so the max does not commute with the dequant), and stage 2
+scores the kept rows through the quantized gathered kernel
+(:func:`repro_torch.kernels.fused_topk.fused_topk_gathered_quantized`).
+
 Classic stage 2 scores the query as ``q_tf`` in bf16 WITHOUT the df-prune
 keep mask, as the reference does; it agrees with the dense classic match
-at ``df_max_ratio = 1.0`` (ROADMAP.md §C).  Quantized postings (``pq``) are
-not ported (ROADMAP.md, queue A item 6).
+at ``df_max_ratio = 1.0`` (ROADMAP.md §C).
 """
 from __future__ import annotations
 
@@ -36,8 +41,9 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.core import fakewords, lexical_lsh
-from repro_torch.core.types import FakeWordsIndex, LshIndex
-from repro_torch.kernels.fused_topk.kernel import fused_topk_gathered
+from repro_torch.core.types import FakeWordsIndex, LshIndex, QuantizedPostings
+from repro_torch.kernels import common
+from repro_torch.kernels.fused_topk import ops
 
 AnyBlockIndex = Union[FakeWordsIndex, LshIndex]
 
@@ -54,12 +60,15 @@ class BlockMaxIndex:
     lsh:     (n_blocks, S) uint32 per-slot presence bitmaps.
 
     The classic and dot maxima are held widened to f32 (exact: they are
-    bf16 and int8 values), the stage-1 product's operand.
+    bf16 and int8 values), the stage-1 product's operand.  ``dequantized``
+    marks maxima of a packed store's dequantized f32 values: dot bounds are
+    then not integers.
     """
 
     ub: torch.Tensor
     block_size: int
     mode: str = "classic"
+    dequantized: bool = False
 
     @property
     def num_blocks(self) -> int:
@@ -72,6 +81,16 @@ def _block_reduce_max(x: torch.Tensor, block_size: int, pad_value=0) -> torch.Te
     if n_pad:
         x = torch.cat([x, torch.full((n_pad, t), pad_value, dtype=x.dtype, device=x.device)])
     return torch.amax(x.reshape(-1, block_size, t), dim=1)
+
+
+def _dequantized_f32(pq: QuantizedPostings) -> torch.Tensor:
+    """The f32 values the score stage multiplies, per element: int8 ``q *
+    scale`` (an exact f32 product); int4 the canonical dequant cast to bf16
+    (the kernel's operand), widened to f32.  Block maxima of these bound the
+    quantized scores."""
+    if pq.bits == 8:
+        return pq.q.to(torch.float32) * pq.scale
+    return common.dequant_int4(pq.q, pq.scale, pq.group, torch.bfloat16)[:, : pq.cols].float()
 
 
 def _or_reduce_rows(x: torch.Tensor) -> torch.Tensor:
@@ -106,22 +125,33 @@ def build_blockmax(
 ) -> BlockMaxIndex:
     """Per-block upper bounds for a fake-words or LSH index.  ``mode``
     defaults to "lsh" for an LshIndex, else "classic" when the index carries
-    a ``scored`` matrix and "dot" otherwise."""
+    a ``scored`` matrix, or a packed store beside ``tf`` (dot int4 drops
+    ``tf``; dot int8 has no packed store), and "dot" otherwise."""
     if isinstance(index, LshIndex) or mode == "lsh":
         return BlockMaxIndex(_lsh_block_bitmap(index.sig, block_size), block_size, "lsh")
+    pq = index.pq
     if mode is None:
-        mode = "classic" if index.scored is not None else "dot"
+        classic = index.scored is not None or (pq is not None and index.tf is not None)
+        mode = "classic" if classic else "dot"
     if mode == "classic":
+        if pq is not None:
+            ub = _block_reduce_max(_dequantized_f32(pq), block_size)
+            return BlockMaxIndex(ub, block_size, "classic", dequantized=True)
         if index.scored is None:
             raise ValueError("classic blockmax requires the scored matrix")
         ub = _block_reduce_max(index.scored, block_size)
         return BlockMaxIndex(ub.to(torch.float32), block_size, "classic")
     if mode != "dot":
         raise ValueError(f"unknown blockmax mode {mode!r}")
-    m = index.tf.shape[1] // 2
-    s = (index.tf[:, :m].to(torch.int32) - index.tf[:, m:].to(torch.int32)).to(torch.int8)
+    if pq is not None:
+        deq = _dequantized_f32(pq)
+        m = deq.shape[1] // 2
+        s = deq[:, :m] - deq[:, m:]
+    else:
+        m = index.tf.shape[1] // 2
+        s = (index.tf[:, :m].to(torch.int32) - index.tf[:, m:].to(torch.int32)).to(torch.int8)
     ub = torch.cat([_block_reduce_max(s, block_size), _block_reduce_max(-s, block_size)], dim=-1)
-    return BlockMaxIndex(ub.to(torch.float32), block_size, "dot")
+    return BlockMaxIndex(ub.to(torch.float32), block_size, "dot", dequantized=pq is not None)
 
 
 def _f32_product(q: torch.Tensor, ub: torch.Tensor) -> torch.Tensor:
@@ -143,12 +173,13 @@ def block_bounds(bm: BlockMaxIndex, q: torch.Tensor) -> torch.Tensor:
 
     Classic and dot are f32 products with TF32 off (the classic query is
     rounded to bf16 first, as stage 2 scores it: exact products).  Dot
-    bounds are integers, exact in f32 while every partial sum stays below
-    2**24."""
+    bounds of an int8 ``tf`` are integers, exact in f32 while every partial
+    sum stays below 2**24; dequantized dot bounds are f32 sums, as in the
+    reference."""
     if bm.mode == "classic":
         return _f32_product(q.to(torch.bfloat16), bm.ub)
     if bm.mode == "dot":
-        if bm.ub.shape[1] * 127 * 127 >= 2**24:
+        if not bm.dequantized and bm.ub.shape[1] * 127 * 127 >= 2**24:
             raise ValueError(f"T = {bm.ub.shape[1]}: dot bounds would not be exact in f32")
         return _f32_product(q, bm.ub)
     qb = q.view(torch.int32)
@@ -164,13 +195,22 @@ def block_bounds(bm: BlockMaxIndex, q: torch.Tensor) -> torch.Tensor:
 
 def _stage2_operands(
     index: AnyBlockIndex, bm: BlockMaxIndex, q: torch.Tensor
-) -> Tuple[torch.Tensor, torch.Tensor, str]:
-    """(query operand, stored matrix to gather from, kernel mode)."""
+) -> Tuple[torch.Tensor, Union[torch.Tensor, QuantizedPostings], str]:
+    """(query operand, stored matrix to gather from, kernel mode).  With a
+    packed store the matrix slot holds the :class:`QuantizedPostings` and
+    the mode is "quantized": stage 2 reads packed rows and their scales and
+    dequantizes in the score stage, with a bf16 query."""
+    pq = getattr(index, "pq", None)
     if bm.mode == "classic":
+        if pq is not None:
+            return q.to(torch.bfloat16), pq, "quantized"
         return q.to(torch.bfloat16), index.scored, "gemm"
     if bm.mode == "dot":
         u = fakewords.signed_query(q)
-        return torch.cat([u, -u], dim=-1).to(torch.int8), index.tf, "gemm"
+        lifted = torch.cat([u, -u], dim=-1)
+        if pq is not None:
+            return lifted.to(torch.bfloat16), pq, "quantized"
+        return lifted.to(torch.int8), index.tf, "gemm"
     return q, index.sig, "lsh"
 
 
@@ -199,8 +239,13 @@ def pruned_search(
     eff_depth = min(depth, n_keep * bm.block_size)
     b = q.shape[0]
     qv, mat, mode = _stage2_operands(index, bm, q)
-    d_s, d_i = fused_topk_gathered(qv.contiguous(), mat, kept_rows(bm, q, n_keep), eff_depth,
-                                   index.num_docs, mode=mode)
+    rows = kept_rows(bm, q, n_keep)
+    if mode == "quantized":
+        d_s, d_i = ops.postings_topk_gathered(mat, qv.contiguous(), rows, eff_depth,
+                                              index.num_docs)
+    else:
+        d_s, d_i = ops.fused_topk_gathered(qv.contiguous(), mat, rows, eff_depth,
+                                           index.num_docs, mode=mode)
     if eff_depth < depth:
         pad = depth - eff_depth
         d_s = torch.cat([d_s, d_s.new_full((b, pad), -torch.inf)], dim=-1)

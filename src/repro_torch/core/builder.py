@@ -1,12 +1,14 @@
 """Staged index construction (port of ``repro/core/builder.py``):
 
     normalize rows -> transform vectors (tf rows / MinHash signatures / identity)
-                   -> assemble postings (index container + global stats)
-                   -> attach rerank store (fp32 originals / none)
+                   -> assemble postings (index container + global stats,
+                                         optionally packed int8 / int4)
+                   -> attach rerank store (fp32 originals / int8 + scale / none)
 
 Each stage is a frozen dataclass; :class:`BuildPipeline` runs them on the
-device of the vectors it is given.  Only fp32 primary postings and the
-exact / no rerank stores are ported.
+device of the vectors it is given.  The quantized arrays are bit-equal to
+the reference's: ``torch.round`` rounds half to even like ``jnp.round``,
+and every division stays a division.
 """
 from __future__ import annotations
 
@@ -23,12 +25,22 @@ from repro_torch.core.types import (
     FlatIndex,
     LexicalLshConfig,
     LshIndex,
+    QuantizedPostings,
+    QuantizedStore,
 )
+from repro_torch.kernels import common
 
 AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, BruteForceConfig]
 
 RERANK_STORES = ("exact", "int8", "none")
 PRIMARY_POSTINGS = ("fp32", "int8", "int4")
+POSTINGS_GROUPS = (32, 64)
+
+_QUANT_POSTINGS_MSG = (
+    "quantized primary postings support fake-words (classic/dot) and brute "
+    "force; the LSH signature store is categorical (uint32 MinHash buckets: "
+    "scaling them is meaningless), use rerank_store='int8' for its memory knob"
+)
 
 
 # --------------------------------------------------------------------------
@@ -65,6 +77,63 @@ class IdentityTransform:
 
 
 # --------------------------------------------------------------------------
+# Primary-postings quantization
+# --------------------------------------------------------------------------
+
+
+def quantize_postings(mat: torch.Tensor, bits: int = 8, group: int = 32) -> QuantizedPostings:
+    """Quantize a posting matrix row by row.
+
+    bits=8: per-doc scale = max|row| / 127, q = round(mat / scale) int8.
+    bits=4: the columns are zero-padded to a multiple of ``group``; per-group
+    scale = max|group| / 7, nibble = clip(round(v / scale), -8, 7) + 8, and
+    column pairs packed low | high << 4 into one uint8.  Zero pad columns
+    encode as nibble 8 and dequantize to exactly 0; the per-element error is
+    at most scale / 2."""
+    m = mat.to(torch.float32)
+    n, t = m.shape
+    if bits == 8:
+        amax = m.abs().amax(dim=-1, keepdim=True)
+        scale = torch.clamp_min(amax, 1e-12) / 127.0
+        q = torch.round(m / scale).to(torch.int8)
+        return QuantizedPostings(q=q, scale=scale, bits=8, group=0, cols=t)
+    if bits != 4:
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    tg = common.round_up(t, group)
+    if tg != t:
+        m = torch.nn.functional.pad(m, (0, tg - t))
+    grouped = m.reshape(n, tg // group, group)
+    amax = grouped.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax, 1e-12) / 7.0  # (n, tg / group)
+    nib = torch.clamp(torch.round(grouped / scale[:, :, None]), -8, 7) + 8
+    nib = nib.reshape(n, tg).to(torch.uint8)
+    packed = nib[:, 0::2] | (nib[:, 1::2] << 4)
+    return QuantizedPostings(q=packed, scale=scale, bits=4, group=group, cols=t)
+
+
+def dequantize_postings(pq: QuantizedPostings, dtype=torch.float32) -> torch.Tensor:
+    """The (N, cols) posting matrix in ``dtype``, in the canonical dequant
+    order (f32 value * scale, then one cast).  It materializes the whole
+    matrix: for bounds, tests and error analysis, never the read path."""
+    if pq.bits == 8:
+        return (pq.q.to(torch.float32) * pq.scale).to(dtype)
+    return common.dequant_int4(pq.q, pq.scale, pq.group, dtype)[:, : pq.cols]
+
+
+@dataclasses.dataclass(frozen=True)
+class PostingsQuantizer:
+    """Build stage that packs the method's match-stage matrix (classic
+    ``scored``, dot ``tf``, brute-force vectors) into
+    :class:`QuantizedPostings`."""
+
+    bits: int = 8
+    group: int = 32
+
+    def __call__(self, mat: torch.Tensor) -> QuantizedPostings:
+        return quantize_postings(mat, self.bits, self.group)
+
+
+# --------------------------------------------------------------------------
 # Postings assembly
 # --------------------------------------------------------------------------
 
@@ -91,9 +160,15 @@ def classic_scored(tf: torch.Tensor, idf: torch.Tensor, norm: torch.Tensor) -> t
 
 @dataclasses.dataclass(frozen=True)
 class FakeWordsPostings:
-    """df / idf / norm statistics + the precomputed classic scoring matrix."""
+    """df / idf / norm statistics + the precomputed classic scoring matrix.
+
+    With a ``quantizer`` the match-stage store is packed after the
+    statistics: classic packs ``scored`` and drops it (``tf`` stays); dot
+    int8 is a no-op (the int8 ``tf`` is the int8 store); dot int4 packs
+    ``tf`` and drops it."""
 
     config: FakeWordsConfig
+    quantizer: Optional[PostingsQuantizer] = None
 
     def __call__(self, tf: torch.Tensor, v: torch.Tensor, store: dict,
                  n_total: int) -> FakeWordsIndex:
@@ -101,8 +176,14 @@ class FakeWordsPostings:
         idf = idf_from_df(df, n_total)
         doc_len = tf.to(torch.float32).sum(-1)
         norm = torch.rsqrt(torch.clamp_min(doc_len, 1.0))
-        scored = classic_scored(tf, idf, norm) if self.config.scoring == "classic" else None
-        return FakeWordsIndex(tf=tf, idf=idf, norm=norm, df=df, scored=scored, **store)
+        scored = pq = None
+        if self.config.scoring == "classic":
+            scored = classic_scored(tf, idf, norm)
+            if self.quantizer is not None:
+                pq, scored = self.quantizer(scored), None
+        elif self.quantizer is not None and self.quantizer.bits == 4:
+            pq, tf = self.quantizer(tf), None
+        return FakeWordsIndex(tf=tf, idf=idf, norm=norm, df=df, scored=scored, pq=pq, **store)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,11 +197,17 @@ class LshPostings:
 
 @dataclasses.dataclass(frozen=True)
 class FlatPostings:
-    """Brute force: the normalized rows are the match operand."""
+    """Brute force: the normalized rows are the match operand and are kept
+    whatever the rerank store, unless a ``quantizer`` packs them into int8 /
+    int4 postings; then they are kept only if the rerank store keeps them."""
+
+    quantizer: Optional[PostingsQuantizer] = None
 
     def __call__(self, rep: torch.Tensor, v: torch.Tensor, store: dict,
                  n_total: int) -> FlatIndex:
-        return FlatIndex(vectors=v)
+        if self.quantizer is None:
+            return FlatIndex(vectors=v, vq=store["vq"])
+        return FlatIndex(vectors=store["vectors"], vq=store["vq"], pq=self.quantizer(v))
 
 
 # --------------------------------------------------------------------------
@@ -128,12 +215,30 @@ class FlatPostings:
 # --------------------------------------------------------------------------
 
 
+def quantize_store(v: torch.Tensor) -> QuantizedStore:
+    """Symmetric per-doc int8 quantization: scale = max|v_row| / 127,
+    q = round(v / scale)."""
+    amax = v.to(torch.float32).abs().amax(dim=-1)
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    q = torch.round(v / scale[:, None]).to(torch.int8)
+    return QuantizedStore(q=q, scale=scale.to(torch.float32))
+
+
 @dataclasses.dataclass(frozen=True)
 class ExactRerankStore:
     """Keep the fp32 unit-normalized originals."""
 
     def __call__(self, v: torch.Tensor) -> dict:
-        return {"vectors": v}
+        return {"vectors": v, "vq": None}
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedRerankStore:
+    """int8 + per-doc scale instead of the fp32 originals: ~4x fewer rerank
+    gather bytes at a bounded score error."""
+
+    def __call__(self, v: torch.Tensor) -> dict:
+        return {"vectors": None, "vq": quantize_store(v)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,10 +246,11 @@ class NoRerankStore:
     """No rerank operand (rerank=True will fail)."""
 
     def __call__(self, v: torch.Tensor) -> dict:
-        return {"vectors": None}
+        return {"vectors": None, "vq": None}
 
 
-_STORES = {"exact": ExactRerankStore(), "none": NoRerankStore()}
+_STORES = {"exact": ExactRerankStore(), "int8": QuantizedRerankStore(),
+           "none": NoRerankStore()}
 
 
 # --------------------------------------------------------------------------
@@ -171,24 +277,32 @@ def make_build_pipeline(
     config: AnyConfig,
     rerank_store: str = "exact",
     primary_postings: str = "fp32",
+    postings_group: int = 32,
 ) -> BuildPipeline:
     """Every method is a stage configuration.  ``rerank_store``: "exact" |
-    "none" ("int8" is not ported yet); ``primary_postings``: "fp32" ("int8"
-    and "int4" are not ported yet)."""
+    "int8" | "none"; ``primary_postings``: "fp32" (the match operand as
+    built) | "int8" (per-doc scale) | "int4" (one scale per
+    ``postings_group`` columns, 32 or 64)."""
     if rerank_store not in RERANK_STORES:
         raise ValueError(f"rerank_store must be one of {RERANK_STORES}, got {rerank_store!r}")
     if primary_postings not in PRIMARY_POSTINGS:
         raise ValueError(
             f"primary_postings must be one of {PRIMARY_POSTINGS}, got {primary_postings!r}")
-    if rerank_store == "int8" or primary_postings != "fp32":
-        raise NotImplementedError(
-            "quantized postings and the int8 rerank store are not ported yet "
-            "(ROADMAP.md, queue A: quantized read path)")
     store = _STORES[rerank_store]
+    quantizer = None
+    if primary_postings != "fp32":
+        if isinstance(config, LexicalLshConfig):
+            raise ValueError(_QUANT_POSTINGS_MSG)
+        if postings_group not in POSTINGS_GROUPS:
+            raise ValueError(
+                f"postings_group must be one of {POSTINGS_GROUPS}, got {postings_group}")
+        quantizer = PostingsQuantizer(bits=8 if primary_postings == "int8" else 4,
+                                      group=postings_group)
     if isinstance(config, FakeWordsConfig):
-        return BuildPipeline(config, TfTransform(config), FakeWordsPostings(config), store)
+        return BuildPipeline(config, TfTransform(config), FakeWordsPostings(config, quantizer),
+                             store)
     if isinstance(config, LexicalLshConfig):
         return BuildPipeline(config, MinHashTransform(config), LshPostings(), store)
     if isinstance(config, BruteForceConfig):
-        return BuildPipeline(config, IdentityTransform(), FlatPostings(), store)
+        return BuildPipeline(config, IdentityTransform(), FlatPostings(quantizer), store)
     raise TypeError(f"config {type(config).__name__} is not ported yet (ROADMAP.md, queue A)")

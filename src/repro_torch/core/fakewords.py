@@ -45,8 +45,9 @@ def df_prune_mask(df: torch.Tensor, num_docs: int, df_max_ratio: float) -> torch
 def classic_query(
     index: FakeWordsIndex, q_tf: torch.Tensor, df_max_ratio: float = 1.0
 ) -> torch.Tensor:
-    """bf16 classic-mode query operand with the df-prune keep-mask folded in."""
-    if index.scored is None:
+    """bf16 classic-mode query operand with the df-prune keep-mask folded in
+    (for the bf16 ``scored`` matrix and for its packed ``pq`` store alike)."""
+    if index.scored is None and index.pq is None:
         raise ValueError("index was built with scoring='dot'")
     keep = df_prune_mask(index.df, index.num_docs, df_max_ratio)
     return (q_tf * keep).to(torch.bfloat16)

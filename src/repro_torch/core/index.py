@@ -6,6 +6,8 @@
 ``blockmax_keep`` (with ``blockmax_block_size``) turns on two-stage blockmax
 pruning for fake-words and LSH indexes: only the ``blockmax_keep`` blocks
 with the best upper bounds are scored (:mod:`repro_torch.core.blockmax`).
+``primary_postings`` / ``rerank_store`` / ``memory_budget_bytes`` choose the
+quantized read path (int8 / int4 postings, the int8 rerank store).
 
 :func:`index_from_numpy` takes the arrays and dtypes that the reference's
 ``AnnIndex.save`` writes (``index.npz`` + ``config.json``), so an index the
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import builder
+from repro_torch.core import memory_budget as mb
 from repro_torch.core import pipeline as pl
 from repro_torch.core.blockmax import BlockMaxIndex, build_blockmax
 from repro_torch.core.types import (
@@ -29,6 +32,8 @@ from repro_torch.core.types import (
     FlatIndex,
     LexicalLshConfig,
     LshIndex,
+    QuantizedPostings,
+    QuantizedStore,
     SearchParams,
 )
 
@@ -52,16 +57,30 @@ class AnnIndex:
     config, the index container and its staged search pipeline.
     ``blockmax_keep`` / ``blockmax_block_size`` switch on blockmax pruning
     (fake-words and LSH indexes); ``bm`` is built from the index when not
-    given."""
+    given.  ``quantized_rerank`` reranks from the int8 store (``index.vq``)
+    instead of the fp32 originals; None = auto: quantized iff the index
+    carries the int8 store and no originals."""
 
     config: AnyConfig
     index: AnyIndex
     blockmax_keep: Optional[int] = None
     blockmax_block_size: int = 256
     bm: Optional[BlockMaxIndex] = None
+    quantized_rerank: Optional[bool] = None
 
     def __post_init__(self):
         self.pipeline: pl.SearchPipeline = pl.build_pipeline(self.config)
+        if self.quantized_rerank is None:
+            reranker = pl.default_reranker(self.index)
+        elif self.quantized_rerank:
+            if self.index.vq is None:
+                raise ValueError("quantized_rerank=True but the index has no int8 store "
+                                 "(build with rerank_store='int8')")
+            reranker = pl.QuantizedCosineReranker()
+        else:
+            reranker = pl.ExactCosineReranker()
+        self.quantized_rerank = isinstance(reranker, pl.QuantizedCosineReranker)
+        self.pipeline = dataclasses.replace(self.pipeline, reranker=reranker)
         if self.blockmax_keep is None:
             return
         if self.bm is None:
@@ -79,17 +98,46 @@ class AnnIndex:
         keep_vectors: bool = True,
         blockmax_keep: Optional[int] = None,
         blockmax_block_size: int = 256,
+        rerank_store: Optional[str] = None,
+        primary_postings: Optional[str] = None,
+        postings_group: int = 32,
+        memory_budget_bytes: Optional[int] = None,
         device="cuda",
     ) -> "AnnIndex":
         """Build through :class:`repro_torch.core.builder.BuildPipeline` on
         ``device``.  ``vectors``: (N, dim) numpy array or tensor (moved to
-        ``device``); ``keep_vectors`` keeps the fp32 originals for rerank.
-        Raises when ``device`` is a CUDA device and none is available."""
+        ``device``).  Raises when ``device`` is a CUDA device and none is
+        available.
+
+        ``rerank_store``: "exact" (fp32 originals), "int8" (quantized store
+        + per-doc scale, reranked from it) or "none"; unset, it is "exact"
+        if ``keep_vectors`` else "none".  ``primary_postings``: "fp32"
+        (default) | "int8" | "int4", the packed match-stage store,
+        dequantized in the score stage; ``postings_group`` is the int4
+        scale group (32 or 64).  ``memory_budget_bytes`` picks postings x
+        rerank store x blockmax keep-fraction from the recall-ordered
+        frontier (:mod:`repro_torch.core.memory_budget`); knobs given with
+        it are pinned, and it fills only the unset ones."""
         dev = _check_device(device)
         v = torch.as_tensor(vectors, device=dev)
-        bp = builder.make_build_pipeline(config, "exact" if keep_vectors else "none")
+        if memory_budget_bytes is not None:
+            n, dim = v.shape
+            plan = mb.plan_for_budget(
+                config, n, dim, memory_budget_bytes, primary_postings=primary_postings,
+                rerank_store=rerank_store if rerank_store is not None
+                else (None if keep_vectors else "none"),
+                group=postings_group)
+            primary_postings, rerank_store = plan["primary_postings"], plan["rerank_store"]
+            if (blockmax_keep is None and plan["keep_frac"] < 1.0
+                    and isinstance(config, (FakeWordsConfig, LexicalLshConfig))):
+                blockmax_keep = max(1, int(plan["keep_frac"] * -(-n // blockmax_block_size)))
+        if rerank_store is None:
+            rerank_store = "exact" if keep_vectors else "none"
+        bp = builder.make_build_pipeline(config, rerank_store, primary_postings or "fp32",
+                                         postings_group)
         return cls(config=config, index=bp.build_local(v), blockmax_keep=blockmax_keep,
-                   blockmax_block_size=blockmax_block_size)
+                   blockmax_block_size=blockmax_block_size,
+                   quantized_rerank=rerank_store == "int8")
 
     @property
     def method(self) -> str:
@@ -131,6 +179,14 @@ def _tensor(a: np.ndarray, dtype_name: str, device: torch.device) -> torch.Tenso
     return torch.from_numpy(np.array(a)).to(device)
 
 
+_STORE_ARRAYS = ("vq.q", "vq.scale", "pq.q", "pq.scale")
+_ARRAYS_BY_METHOD = {
+    "fake-words": ("tf", "idf", "norm", "df", "scored", "vectors") + _STORE_ARRAYS,
+    "lexical-lsh": ("sig", "vectors", "vq.q", "vq.scale"),
+    "bruteforce": ("vectors",) + _STORE_ARRAYS,
+}
+
+
 def index_from_numpy(
     method: str,
     config: dict,
@@ -139,32 +195,44 @@ def index_from_numpy(
     device="cuda",
     blockmax_keep: Optional[int] = None,
     blockmax_block_size: int = 256,
+    pq: Optional[dict] = None,
+    quantized_rerank: Optional[bool] = None,
 ) -> AnnIndex:
     """The port's index from the reference's persisted form: ``method`` and
     ``config`` as in ``config.json``, ``arrays`` the ``index.npz`` members
-    (dotted names), ``dtypes`` their recorded dtype names, and the blockmax
-    knobs as ``config.json`` records them (the block bounds are rebuilt
-    from the arrays, as the reference's ``load`` does).  Covers
-    "fake-words", "lexical-lsh" and "bruteforce"."""
+    (dotted names), ``dtypes`` their recorded dtype names, and the knobs as
+    ``config.json`` records them: ``blockmax_keep`` / ``blockmax_block_size``
+    (the block bounds are rebuilt from the arrays, as the reference's
+    ``load`` does), ``pq`` (the packed store's {"bits", "group", "cols"})
+    and ``quantized_rerank``.  Covers "fake-words", "lexical-lsh" and
+    "bruteforce" with their int8 / int4 packed postings (``pq.*``) and int8
+    rerank store (``vq.*``)."""
     dev = _check_device(device)
-    unported = sorted(n for n in arrays if n.startswith(("vq.", "pq.", "metadata.")))
+    if method not in _ARRAYS_BY_METHOD:
+        raise NotImplementedError(f"method {method!r} is not ported yet (ROADMAP.md, queue A)")
+    unported = sorted(set(arrays) - set(_ARRAYS_BY_METHOD[method]))
     if unported:
         raise NotImplementedError(
             f"arrays {unported} belong to stores not ported yet "
-            "(ROADMAP.md, queue A: quantized read path, filtering)")
+            "(ROADMAP.md, queue A: filtering and the other methods)")
     t = {name: _tensor(a, dtypes[name], dev) for name, a in arrays.items()}
+    vq = QuantizedStore(q=t["vq.q"], scale=t["vq.scale"]) if "vq.q" in t else None
+    packed = None
+    if "pq.q" in t:
+        if pq is None:
+            raise ValueError("packed postings arrays (pq.*) without their pq metadata")
+        packed = QuantizedPostings(q=t["pq.q"], scale=t["pq.scale"], bits=int(pq["bits"]),
+                                   group=int(pq["group"]), cols=int(pq["cols"]))
     if method == "fake-words":
         cfg = FakeWordsConfig(**config)
         index = FakeWordsIndex(
-            tf=t["tf"], idf=t["idf"], norm=t["norm"], df=t["df"],
-            scored=t.get("scored"), vectors=t.get("vectors"))
+            tf=t.get("tf"), idf=t["idf"], norm=t["norm"], df=t["df"],
+            scored=t.get("scored"), vectors=t.get("vectors"), vq=vq, pq=packed)
     elif method == "lexical-lsh":
         cfg = LexicalLshConfig(**config)
-        index = LshIndex(sig=t["sig"], vectors=t.get("vectors"))
-    elif method == "bruteforce":
-        cfg = BruteForceConfig(**config)
-        index = FlatIndex(vectors=t["vectors"])
+        index = LshIndex(sig=t["sig"], vectors=t.get("vectors"), vq=vq)
     else:
-        raise NotImplementedError(f"method {method!r} is not ported yet (ROADMAP.md, queue A)")
+        cfg = BruteForceConfig(**config)
+        index = FlatIndex(vectors=t.get("vectors"), vq=vq, pq=packed)
     return AnnIndex(config=cfg, index=index, blockmax_keep=blockmax_keep,
-                    blockmax_block_size=blockmax_block_size)
+                    blockmax_block_size=blockmax_block_size, quantized_rerank=quantized_rerank)

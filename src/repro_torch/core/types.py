@@ -1,7 +1,9 @@
 """Typed configuration and index containers (port of ``repro/core/types.py``).
 
-Only what the fake-words, lexical-LSH and brute-force paths need.  Configs are frozen
-dataclasses; index containers hold tensors on one device.
+Only what the fake-words, lexical-LSH and brute-force paths need, with the
+quantized stores of the read path (int8/int4 primary postings, the int8
+rerank store).  Configs are frozen dataclasses; index containers hold
+tensors on one device.
 """
 from __future__ import annotations
 
@@ -85,28 +87,93 @@ class SearchParams:
     rerank: bool = False
 
 
-def _nbytes(*tensors: Optional[torch.Tensor]) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+@dataclasses.dataclass(frozen=True)
+class QuantizedStore:
+    """int8 symmetric per-doc quantized rerank store.
+
+    q:     (N, dim) int8, q[d] = round(v[d] / scale[d]).
+    scale: (N,) float32, max_i |v[d, i]| / 127.
+
+    A unit query's rerank score error is at most ``||q||_1 * scale[d] / 2``;
+    the rerank gather moves ~4x fewer bytes than the fp32 originals.
+    """
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def num_docs(self) -> int:
+        return self.q.shape[0]
+
+    def nbytes(self) -> int:
+        return _nbytes(self.q, self.scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedPostings:
+    """Packed int8/int4 primary postings + dequantization scales.
+
+    bits == 8 (per-doc scale):
+      q:     (N, T) int8, round(mat[d, t] / scale[d]).
+      scale: (N, 1) float32, max_t |mat[d, t]| / 127.  It factors out of
+             the dot: scores are (query @ q.T) * scale, one multiply per
+             (query, doc) after the sum.
+    bits == 4 (one scale per ``group`` columns):
+      q:     (N, Tg/2) uint8, column pairs packed low | high << 4, with
+             Tg = round_up(T, group); nibble = clip(round(mat / gs), -8, 7)
+             + 8, so the zero pad columns encode as nibble 8 and dequantize
+             to 0.
+      scale: (N, Tg/group) float32, max |group| / 7.
+
+    ``cols`` is the logical column count T.
+    """
+
+    q: torch.Tensor
+    scale: torch.Tensor
+    bits: int
+    group: int = 0
+    cols: int = 0
+
+    @property
+    def num_docs(self) -> int:
+        return self.q.shape[0]
+
+    def nbytes(self) -> int:
+        return _nbytes(self.q, self.scale)
+
+
+def _nbytes(*parts) -> int:
+    """Bytes of the given tensors and quantized stores (None skipped)."""
+    return sum(p.nbytes() if isinstance(p, (QuantizedStore, QuantizedPostings))
+               else p.numel() * p.element_size() for p in parts if p is not None)
 
 
 @dataclasses.dataclass(frozen=True)
 class FakeWordsIndex:
     """Sign-split quantized term-frequency index.
 
-    tf:      (N, 2m) integer term frequencies (round(Q*relu(w)) | round(Q*relu(-w))).
+    tf:      (N, 2m) integer term frequencies (round(Q*relu(w)) | round(Q*relu(-w))),
+             or None when ``pq`` holds the dot-mode int4 store.
     idf:     (2m,) float32, 1 + ln(N / (df + 1)).
     norm:    (N,) float32, 1 / sqrt(doc_len).
     df:      (2m,) int32 document frequency per fake term.
-    scored:  (N, 2m) bfloat16 sqrt(tf) * idf^2 * norm (classic mode), or None.
+    scored:  (N, 2m) bfloat16 sqrt(tf) * idf^2 * norm (classic mode), or None
+             (dot mode, or classic with the matrix stored quantized in ``pq``).
     vectors: (N, dim) float32 unit originals for exact rerank, or None.
+    vq:      int8 :class:`QuantizedStore` rerank store, or None.
+    pq:      :class:`QuantizedPostings`, or None: classic packs ``scored``
+             (then dropped); dot int4 packs ``tf`` (then dropped); dot int8
+             needs none, the int8 ``tf`` is its own int8 store.
     """
 
-    tf: torch.Tensor
+    tf: Optional[torch.Tensor]
     idf: torch.Tensor
     norm: torch.Tensor
     df: torch.Tensor
     scored: Optional[torch.Tensor] = None
     vectors: Optional[torch.Tensor] = None
+    vq: Optional[QuantizedStore] = None
+    pq: Optional[QuantizedPostings] = None
 
     @property
     def num_docs(self) -> int:
@@ -117,7 +184,8 @@ class FakeWordsIndex:
         return self.norm.device
 
     def nbytes(self) -> int:
-        return _nbytes(self.tf, self.idf, self.norm, self.df, self.scored, self.vectors)
+        return _nbytes(self.tf, self.idf, self.norm, self.df, self.scored, self.vectors,
+                       self.vq, self.pq)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -126,10 +194,12 @@ class LshIndex:
 
     sig:     (N, h*b) uint32 signatures; 0xFFFFFFFF marks empty buckets.
     vectors: (N, dim) float32 unit originals for exact rerank, or None.
+    vq:      int8 :class:`QuantizedStore` rerank store, or None.
     """
 
     sig: torch.Tensor
     vectors: Optional[torch.Tensor] = None
+    vq: Optional[QuantizedStore] = None
 
     @property
     def num_docs(self) -> int:
@@ -140,22 +210,27 @@ class LshIndex:
         return self.sig.device
 
     def nbytes(self) -> int:
-        return _nbytes(self.sig, self.vectors)
+        return _nbytes(self.sig, self.vectors, self.vq)
 
 
 @dataclasses.dataclass(frozen=True)
 class FlatIndex:
-    """Brute-force index: the unit-normalized float32 vectors (N, dim)."""
+    """Brute-force index: the unit-normalized float32 vectors (N, dim) are
+    the match operand, unless ``pq`` holds int8/int4 packed postings; then
+    ``vectors`` is kept only if the rerank store keeps it.  ``vq`` is the
+    int8 rerank store, or None."""
 
-    vectors: torch.Tensor
+    vectors: Optional[torch.Tensor]
+    vq: Optional[QuantizedStore] = None
+    pq: Optional[QuantizedPostings] = None
 
     @property
     def num_docs(self) -> int:
-        return self.vectors.shape[0]
+        return (self.vectors if self.vectors is not None else self.pq.q).shape[0]
 
     @property
     def device(self) -> torch.device:
-        return self.vectors.device
+        return (self.vectors if self.vectors is not None else self.pq.q).device
 
     def nbytes(self) -> int:
-        return _nbytes(self.vectors)
+        return _nbytes(self.vectors, self.vq, self.pq)

@@ -1,10 +1,12 @@
-"""Shared kernel utilities: tiling helpers and the CUDA build.
+"""Shared kernel utilities: tiling helpers, the canonical int4 dequant, and
+the CUDA build.
 
 Each kernel source under ``kernels/<name>/csrc/`` has a plain C interface and
 is compiled by ``nvcc`` for ``sm_90a`` into a shared library on first use,
 then bound with ``ctypes``.  Libraries go to ``<repo>/build/kernels/`` (listed
-in ``.gitignore``), named by a hash of the source and flags, so an edited
-source is rebuilt and an unchanged one is reused within a checkout.
+in ``.gitignore``), named by a hash of every file in the source's ``csrc/``
+directory (headers included) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused within a checkout.
 """
 from __future__ import annotations
 
@@ -15,7 +17,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Any, Dict, Iterable, Optional
+
+import torch
 
 # Sentinel id of empty running top-k slots (reported as -1).
 BIG_ID = 2**30
@@ -25,7 +29,11 @@ BUILD_DIR = _KERNELS_DIR.parents[2] / "build" / "kernels"
 
 SOURCES: Dict[str, Path] = {
     "fused_topk": _KERNELS_DIR / "fused_topk" / "csrc" / "fused_topk.cu",
+    "fused_topk_quantized": _KERNELS_DIR / "fused_topk" / "csrc" / "fused_topk_quantized.cu",
 }
+
+# Packed int4 padding byte: nibble 8 in both halves, which dequantizes to 0.
+INT4_PAD_BYTE = 0x88
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,6 +50,40 @@ def next_pow2(x: int) -> int:
     return 1 << max(0, (x - 1).bit_length())
 
 
+# --------------------------------------------------------------------------
+# Canonical int4 nibble unpack / grouped-scale dequantization (port of
+# ``repro/kernels/common.py``).  The build-time quantizer, the plain scoring
+# versions and the blockmax bounds all run this one sequence, so their
+# dequantized operands are equal bit for bit; the CUDA kernels repeat it per
+# element.
+# --------------------------------------------------------------------------
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 nibble pairs (..., C) -> interleaved nibble columns (..., 2C)
+    uint8: the low nibble is the even column, the high nibble the odd one.
+    The shift stays on uint8, where it is logical (on int8 it would
+    sign-fill the high nibble)."""
+    if packed.dtype != torch.uint8:
+        raise TypeError(f"packed int4 data must be uint8, got {packed.dtype}")
+    lo = packed & 0xF
+    hi = packed >> 4
+    return torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], 2 * packed.shape[-1])
+
+
+def expand_group_scale(scale: torch.Tensor, group: int) -> torch.Tensor:
+    """(..., G) per-group scales -> (..., G * group) per-column."""
+    return scale.repeat_interleave(group, dim=-1)
+
+
+def dequant_int4(packed: torch.Tensor, scale: torch.Tensor, group: int, dtype: Any) -> torch.Tensor:
+    """THE canonical int4 dequant order: f32 (nibble - 8) * group_scale, then
+    ONE cast to ``dtype``.  (..., C) packed + (..., 2C/group) scales ->
+    (..., 2C) values."""
+    nib = unpack_int4(packed).to(torch.float32) - 8.0
+    return (nib * expand_group_scale(scale, group)).to(dtype)
+
+
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
@@ -50,9 +92,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The built library of source ``name``, keyed by a hash of the flags
+    and of every file in the source's ``csrc/`` directory (a header the
+    source includes counts as much as the source)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(p for p in SOURCES[name].parent.rglob("*") if p.is_file()):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:

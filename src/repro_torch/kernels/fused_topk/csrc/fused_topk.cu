@@ -46,7 +46,9 @@
 //   candidate).
 //   Pass 2 (fused_topk_merge): one warp per query merges the splits' sorted
 //   partial lists under the same comparator and writes the first `depth`
-//   entries, -inf slots as id -1.
+//   entries, -inf slots as id -1.  The tile shape, both launch plans, the
+//   sorted insert, the list merge and pass 2 live in topk_merge.cuh, shared
+//   with fused_topk_quantized.cu.
 //
 // K3, the gathered variant (fused_topk_gathered_partial + the same merge),
 // replaces repro/kernels/fused_topk/kernel.py::fused_topk_gathered (def 433,
@@ -77,30 +79,11 @@
 // pass merges the splits.  No tensor cores, no TMA, no sharing of a kept
 // block between the queries that keep it.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "topk_merge.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 256;           // docs per tile
-constexpr int kTN = kBN / 32;      // doc columns per lane
-constexpr int kBK = 32;            // shared-memory words per reduce chunk
-constexpr int kSkew = kBK + 1;     // doc row stride in words: conflict-free column reads
-constexpr int kBigId = 1 << 30;
 constexpr uint32_t kLshSentinel = 0xFFFFFFFFu;
-constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr size_t kMaxSmem = 227 * 1024;     // opt-in dynamic shared memory per block
-constexpr size_t kWideSmem = 100 * 1024;    // above this, 32-query blocks drop to 8
-constexpr int kBlocksPerSm = 4;             // pass-1 blocks to aim for per SM
-
-// Dynamic shared memory of a pass-1 block: the staged query and doc chunks
-// (4-byte words in every mode) and BQ running lists of K (score, id) pairs.
-constexpr size_t partial_smem(int bq, int K) {
-  return (size_t)(kBK * bq + kBN * kSkew) * 4 + (size_t)bq * K * (sizeof(float) + sizeof(int));
-}
 
 enum Mode { kF32 = 0, kBF16 = 1, kI8 = 2, kLSH = 3 };
 
@@ -186,35 +169,6 @@ __device__ __forceinline__ typename Traits<M>::Acc mac(
   if constexpr (M == kI8) return __dp4a(a, b, acc);
   else if constexpr (M == kLSH) return acc + ((a == b) & (a != kLshSentinel));
   else return fmaf(a, b, acc);
-}
-
-// (as, ai) comes before (bs, bi) in the output order: score desc, id asc.
-__device__ __forceinline__ bool precedes(float as, int ai, float bs, int bi) {
-  return as > bs || (as == bs && ai < bi);
-}
-
-// Insert (cs, cid) into the sorted list (rs, ri) of K entries (K a multiple
-// of 32), dropping the last entry.  The caller has checked that the
-// candidate precedes the last entry.  All 32 lanes of the warp take part.
-__device__ __forceinline__ void warp_insert(float* rs, int* ri, int K, float cs, int cid,
-                                            int lane) {
-  int cnt = 0;
-  for (int c = lane; c < K; c += 32) cnt += precedes(rs[c], ri[c], cs, cid) ? 1 : 0;
-  const int pos = static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(cnt)));
-  // Shift [pos, K-2] up by one, the top chunk first, so a chunk is read
-  // before the chunk below it writes into its first slot.
-  for (int base = ((K - 2) / 32) * 32; base >= (pos / 32) * 32; base -= 32) {
-    const int c = base + lane;
-    const bool mv = c >= pos && c <= K - 2;
-    float v = 0.f;
-    int vi = 0;
-    if (mv) { v = rs[c]; vi = ri[c]; }
-    __syncwarp();
-    if (mv) { rs[c + 1] = v; ri[c + 1] = vi; }
-    __syncwarp();
-  }
-  if (lane == 0) { rs[pos] = cs; ri[pos] = cid; }
-  __syncwarp();
 }
 
 // Blocks per SM that ptxas budgets registers for: 2 caps a thread at 128
@@ -367,50 +321,6 @@ __global__ void __launch_bounds__(kThreads, (kMinBlocks<M, BQ>)) fused_topk_part
   }
 }
 
-// Merge the sorted list (ss, si) of K entries into the sorted running list
-// (rs, ri) of K entries, under (score desc, id asc).  All 32 lanes take part.
-__device__ __forceinline__ void merge_sorted(float* rs, int* ri, const float* ss, const int* si,
-                                             int K, int lane) {
-  for (int c0 = 0; c0 < K; c0 += 32) {
-    const float v = ss[c0 + lane];
-    const int vi = si[c0 + lane];
-    const unsigned pass = __ballot_sync(kFull, precedes(v, vi, rs[K - 1], ri[K - 1]));
-    unsigned mask = pass;
-    while (mask) {
-      const int src = __ffs(mask) - 1;
-      mask &= mask - 1;
-      const float cs = __shfl_sync(kFull, v, src);
-      const int cid = __shfl_sync(kFull, vi, src);
-      if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
-    }
-    // The source list is sorted: once an entry fails, every later one does.
-    if (pass != kFull) break;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) fused_topk_merge(
-    const float* __restrict__ part_s, const int* __restrict__ part_i,  // (splits, B, K)
-    int splits, int B, int K, int depth,
-    float* __restrict__ out_s, int* __restrict__ out_i) {              // (B, depth)
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* rs = reinterpret_cast<float*>(smem) + warp * K;
-  int* ri = reinterpret_cast<int*>(reinterpret_cast<float*>(smem) + kWarps * K) + warp * K;
-  const int qi = blockIdx.x * kWarps + warp;
-  if (qi >= B) return;  // warp-uniform; no block-wide barrier follows
-
-  for (int c = lane; c < K; c += 32) { rs[c] = -INFINITY; ri[c] = kBigId; }
-  __syncwarp();
-  for (int s = 0; s < splits; ++s)
-    merge_sorted(rs, ri, part_s + ((size_t)s * B + qi) * K, part_i + ((size_t)s * B + qi) * K,
-                 K, lane);
-  for (int c = lane; c < depth; c += 32) {
-    const float v = rs[c];
-    out_s[(size_t)qi * depth + c] = v;
-    out_i[(size_t)qi * depth + c] = v == -INFINITY ? -1 : ri[c];
-  }
-}
-
 template <int M, int BQ>
 cudaError_t launch_partial(const void* q, const void* docs, const uint8_t* filt,
                            long long filt_stride, int B, int n_docs, int T, int K,
@@ -447,9 +357,6 @@ cudaError_t launch_partial_bq(int bq, const void* q, const void* docs, const uin
 // ---------------------------------------------------------------------------
 // K3: top-`depth` over per-query gathered rows (fused_topk_gathered_partial).
 // ---------------------------------------------------------------------------
-
-constexpr int kGatherRows = 8;        // rows a warp scores at once (loads in flight)
-constexpr int kGatherBlocksPerSm = 2; // pass-1 blocks to aim for per SM
 
 // Dynamic shared memory of a gathered pass-1 block: the query row, padded to
 // whole 32-lane rounds of 16-byte packs, then one running list of K (score,
@@ -501,15 +408,6 @@ __device__ __forceinline__ typename Traits<M>::Acc dot_pack(typename Traits<M>::
     }
   }
   return acc;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(kFull, v, m);
-  return v;  // every lane holds the same sum: each step adds the same pair
-}
-__device__ __forceinline__ int warp_sum(int v) {
-  return static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(v)));
 }
 
 // Grid (B, splits): block (b, split) owns rows [split * rows_per_split, ...)
@@ -626,45 +524,15 @@ cudaError_t launch_gathered(const void* q, const void* store, const int* row_ids
   return cudaGetLastError();
 }
 
-cudaError_t launch_merge(const float* part_s, const int* part_i, int splits, int B, int K,
-                         int depth, void* out_s, void* out_i, cudaStream_t stream) {
-  const size_t smem = (size_t)kWarps * K * (sizeof(float) + sizeof(int));
-  cudaError_t err = cudaFuncSetAttribute(fused_topk_merge,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  fused_topk_merge<<<(B + kWarps - 1) / kWarps, kThreads, smem, stream>>>(
-      part_s, part_i, splits, B, K, depth, static_cast<float*>(out_s), static_cast<int*>(out_i));
-  return cudaGetLastError();
-}
-
 int elem_size(int mode) { return mode == kBF16 ? 2 : (mode == kI8 ? 1 : 4); }
 
 }  // namespace
 
 extern "C" {
 
-// Launch plan for B queries over n_docs rows at `depth` on sm_count SMs:
-// plan[0] queries per block (32, or 8 when B <= 8 or the lists are wide),
-// plan[1] running-list width K (depth rounded up to 32), plan[2] N-splits,
-// plan[3] doc tiles per split.  Splits are chosen so that query tiles x
-// splits covers kBlocksPerSm blocks per SM, at B = 256 and at B = 1 alike.
-// Returns cudaErrorInvalidValue if the running lists do not fit in shared
-// memory, else 0.
+// K1's launch plan: streaming_plan (topk_merge.cuh).
 int fused_topk_plan(int B, int n_docs, int depth, int sm_count, int* plan) {
-  if (B <= 0 || n_docs <= 0 || depth <= 0 || sm_count <= 0) return (int)cudaErrorInvalidValue;
-  const int K = (depth + 31) / 32 * 32;
-  const int bq = (B > 8 && partial_smem(32, K) <= kWideSmem) ? 32 : 8;
-  if (partial_smem(bq, K) > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const int n_tiles = (n_docs + kBN - 1) / kBN;
-  const int q_tiles = (B + bq - 1) / bq;
-  const int want = (kBlocksPerSm * sm_count + q_tiles - 1) / q_tiles;
-  const int splits = want < 1 ? 1 : (want < n_tiles ? want : n_tiles);
-  const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  plan[0] = bq;
-  plan[1] = K;
-  plan[2] = (n_tiles + tiles_per_split - 1) / tiles_per_split;  // no empty split
-  plan[3] = tiles_per_split;
-  return 0;
+  return streaming_plan(B, n_docs, depth, sm_count, plan);
 }
 
 // Both passes on `stream`, with the plan of fused_topk_plan; returns the
@@ -706,27 +574,11 @@ int fused_topk_launch(int mode, int bq, const void* q, const void* docs, const v
   return (int)launch_merge(ps, pi, splits, B, K, depth, out_s, out_i, st);
 }
 
-// Launch plan of fused_topk_gathered for B queries of R gathered rows of T
-// elements in `mode` at `depth` on sm_count SMs: plan[0] running-list width K
-// (depth rounded up to 32), plan[1] row splits per query, plan[2] rows per
-// split (a multiple of 32).  Splits are chosen so that B x splits covers
-// kGatherBlocksPerSm blocks per SM (at B = 1 as at B = 256), but no split has
-// fewer than 256 rows.  Returns cudaErrorInvalidValue if the query row and
-// the per-warp lists do not fit in shared memory, else 0.
+// K3's launch plan for R gathered rows of T elements in `mode`:
+// gathered_plan (topk_merge.cuh) with the query row's shared memory.
 int fused_topk_gathered_plan(int mode, int B, int R, int T, int depth, int sm_count, int* plan) {
-  if (mode < kF32 || mode > kLSH || B <= 0 || R <= 0 || T <= 0 || depth <= 0 || depth > R ||
-      sm_count <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int K = (depth + 31) / 32 * 32;
-  if (gathered_smem(T, elem_size(mode), K) > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const int want = (kGatherBlocksPerSm * sm_count + B - 1) / B;
-  const int most = (R + kThreads - 1) / kThreads;
-  const int splits = want < most ? want : most;
-  const int rows_per_split = ((R + splits - 1) / splits + 31) / 32 * 32;
-  plan[0] = K;
-  plan[1] = (R + rows_per_split - 1) / rows_per_split;  // no empty split
-  plan[2] = rows_per_split;
-  return 0;
+  if (mode < kF32 || mode > kLSH || T <= 0) return (int)cudaErrorInvalidValue;
+  return gathered_plan(B, R, depth, gathered_query_bytes(T, elem_size(mode)), sm_count, plan);
 }
 
 // Both passes of fused_topk_gathered on `stream`, with the plan of

@@ -1,0 +1,590 @@
+// Fused streaming score -> top-k over packed int8 / int4 postings, for Hopper
+// (sm_90a), CUDA C++ with a plain C interface (bound with ctypes by
+// ../kernel.py).
+//
+// K4 (fused_topk_quantized_partial + the shared merge pass) replaces the TPU
+// kernel repro/kernels/fused_topk/kernel.py::fused_topk_quantized (def 632,
+// pallas_call 689): the top-`depth` of q @ dequant(docs, scale).T, with the
+// dequantization fused into the score stage, so only the packed store and
+// its scales are read and the dequantized matrix never exists in device
+// memory.  K5 (fused_topk_gathered_quantized_partial + the same merge)
+// replaces fused_topk_gathered_quantized (def 765, pallas_call 818): the same
+// over the rows each query kept in blockmax stage 1, read by id.
+//
+// The dequant order is the reference's, element by element:
+//   * int8 (docs (N, T) int8, scale (N, 1) f32): the stored value widened to
+//     the query dtype (exact: |v| <= 127), the products summed in f32 over
+//     the whole row, and the sum multiplied by scale[n] ONCE.
+//   * int4 (docs (N, Tg/2) uint8, Tg = round_up(T, group), scale (N, Tg /
+//     group) f32): column 2c is the low nibble of byte c, column 2c + 1 the
+//     high one; value = (float)(nibble - 8) * scale[n, col / group] in f32,
+//     rounded once to bf16 for a bf16 query (kept in f32 for an f32 query),
+//     then multiplied with the query in f32.
+// A bf16 x bf16 product is exact in f32, so with a bf16 query only the order
+// of the f32 sum differs from the reference.  The query has T columns: it is
+// never read past T, and the pad columns [T, Tg) count as query 0.
+//
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16; data sheet) at the
+// ann-word2vec cell (N = 2,999,808, classic T = 600, depth 100): the bytes
+// are N * (600 + 4) = 1.81 GB for int8 (0.541 ms) and N * (304 + 76) =
+// 1.14 GB for int4 at group 32 (0.340 ms); at B = 256 the 2 * B * N * T =
+// 9.2e11 operations take 0.932 ms on bf16 tensor cores, so operations bound
+// both widths there and bytes bound them at B = 1.
+//
+// What this first, simple design does about that bound: no tensor cores, no
+// TMA.  K4 is K1's pass 1 (fused_topk.cu) with another doc loader: a block of
+// 256 threads owns BQ queries and a range of 256-doc tiles; each thread reads
+// one doc row's packed bytes for the next 32-column chunk (and, for int4,
+// that chunk's group scale) into registers while the current chunk is
+// multiplied, then dequantizes it into shared memory as f32 words, so the
+// dequant is done once per doc and query tile and the products run on CUDA
+// cores in f32 as in K1's bf16 mode.  Ids ascend within a split, so a
+// candidate that does not precede the K-th entry is skipped (the strict tile
+// skip).  K5 is K3's pass 1 (one query per block, a row-split plan that fills
+// the SMs at B = 1, a warp reading whole rows by id with 8 rows' loads in
+// flight, ids outside [0, n_docs) never read, the full comparator since ids
+// arrive in any order) over packed rows: each lane dequantizes its 16-byte
+// packs in registers against the query, held in shared memory as f32 in a
+// lane-interleaved layout (one conflict-free 16-byte read per 4 columns).
+// The sorted insert, the list merge and pass 2 are topk_merge.cuh's.
+
+#include <cuda_bf16.h>
+
+#include "topk_merge.cuh"
+
+namespace {
+
+// K4 takes topk_merge.cuh's streaming tile: kBN = kThreads docs (one doc row
+// per thread), kBK = 32 columns a chunk (one int4 group, or half of one).
+constexpr uint8_t kInt4Pad = 0x88;  // nibble 8 in both halves: value 0
+
+enum QueryDtype { kQF32 = 0, kQBF16 = 1 };
+
+template <int QT> struct Query;
+template <> struct Query<kQF32> { using Raw = float; };
+template <> struct Query<kQBF16> { using Raw = uint16_t; };
+
+template <int QT> __device__ __forceinline__ float widen(typename Query<QT>::Raw x) {
+  if constexpr (QT == kQBF16) return __uint_as_float(static_cast<uint32_t>(x) << 16);  // exact
+  else return x;
+}
+
+// An int4 value in the query dtype, as an f32: (nibble - 8) * group scale in
+// f32, rounded once to bf16 for a bf16 query.  nibble - 8 comes exactly from
+// the float 2^23 + nibble.
+template <int QT> __device__ __forceinline__ float int4_value(uint32_t nib, float gscale) {
+  const float v = (__uint_as_float(0x4B000000u | nib) - 8388616.0f) * gscale;
+  if constexpr (QT == kQBF16) return __bfloat162float(__float2bfloat16_rn(v));
+  else return v;
+}
+
+// A stored int8 byte as an exact f32 (2^23 + the byte with its sign bit
+// flipped, minus 2^23 + 128).
+__device__ __forceinline__ float int8_value(uint32_t byte) {
+  return __uint_as_float(0x4B000000u | (byte ^ 0x80u)) - 8388736.0f;
+}
+
+union Pack16 { uint4 u; uint8_t b[16]; };
+
+// Bytes [b0, b0 + 16 * NV) of a row of `len` bytes: 16-byte loads where the
+// row is 16-byte aligned, 8-byte loads where it is 8-byte aligned (int8 rows
+// of 600 bytes), byte loads at the row's end or otherwise; bytes past `len`
+// are `pad`.  b0 is a multiple of 16.
+template <int NV>
+__device__ __forceinline__ void load_bytes(const uint8_t* row, int b0, int len, int align,
+                                           uint8_t pad, Pack16 (&out)[NV]) {
+  if (b0 + 16 * NV <= len && align >= 8) {
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      if (align >= 16) {
+        out[v].u = *reinterpret_cast<const uint4*>(row + b0 + 16 * v);
+      } else {
+        const uint2 lo = *reinterpret_cast<const uint2*>(row + b0 + 16 * v);
+        const uint2 hi = *reinterpret_cast<const uint2*>(row + b0 + 16 * v + 8);
+        out[v].u = make_uint4(lo.x, lo.y, hi.x, hi.y);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int v = 0; v < NV; ++v)
+#pragma unroll
+    for (int s = 0; s < 16; ++s) {
+      const int e = b0 + 16 * v + s;
+      out[v].b[s] = e < len ? row[e] : pad;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K4: pass 1 over packed postings (fused_topk_quantized_partial).
+// ---------------------------------------------------------------------------
+
+// Raw bytes of one doc row's 32-column chunk: 32 int8 bytes, or 16 packed
+// int4 bytes and the chunk's group scale.
+template <int BITS> struct DocChunk {
+  static constexpr int kPacks = BITS == 8 ? 2 : 1;
+  Pack16 p[kPacks];
+  float gscale;
+};
+
+template <int QT, int BITS, int BQ>
+__global__ void __launch_bounds__(kThreads, 2) fused_topk_quantized_partial(
+    const typename Query<QT>::Raw* __restrict__ q,  // (B, T)
+    const uint8_t* __restrict__ docs,               // (N, row_bytes) int8 or packed int4
+    const float* __restrict__ scale,                // (N, n_groups); int8: n_groups = 1
+    const uint8_t* __restrict__ filt,               // nullptr | (N,) | (B, N)
+    long long filt_stride,                          // 0 for (N,), N for (B, N)
+    int B, int n_docs, int T, int row_bytes, int group, int n_groups, int K,
+    int tiles_per_split, int d_align,
+    float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
+  constexpr int TM = BQ / kWarps;  // query rows per warp
+  constexpr int kQLoads = BQ * kBK / kThreads;
+  static_assert(kQLoads * kThreads == BQ * kBK, "query chunk must split evenly");
+  static_assert(kBN == kThreads, "one doc row per thread");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);   // kBK x BQ, column-major
+  float* ds = qs + kBK * BQ;                    // kBN x kSkew, row-major
+  float* ls = ds + kBN * kSkew;                 // BQ x K running scores
+  int* li = reinterpret_cast<int*>(ls + BQ * K);  // BQ x K running ids
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.x * BQ, split = blockIdx.y;
+  const int n_chunks = (T + kBK - 1) / kBK;
+  const int n_tiles = (n_docs + kBN - 1) / kBN;
+  const int tile_begin = split * tiles_per_split;
+  const int n_steps = max(0, min(tile_begin + tiles_per_split, n_tiles) - tile_begin) * n_chunks;
+
+  for (int e = tid; e < BQ * K; e += kThreads) { ls[e] = -INFINITY; li[e] = kBigId; }
+
+  DocChunk<BITS> dn;
+  float qn[kQLoads];
+  auto load_step = [&](int step) {
+    const int di = (tile_begin + step / n_chunks) * kBN + tid;
+    const int w0 = (step % n_chunks) * kBK;
+    if (di < n_docs) {
+      const uint8_t* row = docs + (size_t)di * row_bytes;
+      if constexpr (BITS == 8) {
+        load_bytes<2>(row, w0, row_bytes, d_align, 0, dn.p);
+      } else {
+        load_bytes<1>(row, w0 / 2, row_bytes, d_align, kInt4Pad, dn.p);
+        dn.gscale = scale[(size_t)di * n_groups + w0 / group];
+      }
+    } else {  // a row that does not exist is not read; it never ranks
+#pragma unroll
+      for (int v = 0; v < DocChunk<BITS>::kPacks; ++v) dn.p[v].u = make_uint4(0, 0, 0, 0);
+      dn.gscale = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kQLoads; ++i) {
+      const int v = tid + i * kThreads, r = v % BQ, c = w0 + v / BQ;
+      qn[i] = (q0 + r < B && c < T) ? widen<QT>(q[(size_t)(q0 + r) * T + c]) : 0.f;
+    }
+  };
+
+  float acc[TM][kTN];
+  if (n_steps > 0) load_step(0);
+  for (int step = 0; step < n_steps; ++step) {
+    const int chunk = step % n_chunks;
+    const int d0 = (tile_begin + step / n_chunks) * kBN;
+    if (chunk == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+    }
+    __syncthreads();  // every warp is done with the previous chunk
+    float* drow = ds + tid * kSkew;
+    if constexpr (BITS == 8) {
+#pragma unroll
+      for (int c = 0; c < kBK; ++c) drow[c] = int8_value(dn.p[c / 16].b[c % 16]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < kBK; c += 2) {
+        const uint32_t byte = dn.p[0].b[c / 2];
+        drow[c] = int4_value<QT>(byte & 0xFu, dn.gscale);
+        drow[c + 1] = int4_value<QT>(byte >> 4, dn.gscale);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kQLoads; ++i) qs[tid + i * kThreads] = qn[i];  // column v / BQ, row v % BQ
+    __syncthreads();
+    if (step + 1 < n_steps) load_step(step + 1);  // in flight during the products
+
+#pragma unroll 8
+    for (int kk = 0; kk < kBK; ++kk) {
+      float a[TM], b[kTN];
+      if constexpr (TM % 4 == 0) {  // one broadcast 16-byte read per 4 rows
+#pragma unroll
+        for (int g = 0; g < TM / 4; ++g) {
+          const float4 av = *reinterpret_cast<const float4*>(qs + kk * BQ + warp * TM + 4 * g);
+          a[4 * g + 0] = av.x;
+          a[4 * g + 1] = av.y;
+          a[4 * g + 2] = av.z;
+          a[4 * g + 3] = av.w;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = qs[kk * BQ + warp * TM + i];
+      }
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) b[j] = ds[(lane + 32 * j) * kSkew + kk];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+
+    if (chunk != n_chunks - 1) continue;
+    // The int8 per-doc scale, applied once after the whole row's sum.
+    float dscale[kTN];
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int id = d0 + 32 * j + lane;
+      dscale[j] = (BITS == 8 && id < n_docs) ? scale[id] : 1.f;
+    }
+    // Merge this warp's rows of the finished tile into their running lists.
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int r = warp * TM + i, qi = q0 + r;
+      if (qi >= B) continue;  // warp-uniform
+      float* rs = ls + r * K;
+      int* ri = li + r * K;
+      const uint8_t* f = filt ? filt + qi * filt_stride : nullptr;
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const int id = d0 + 32 * j + lane;
+        const float s = BITS == 8 ? acc[i][j] * dscale[j] : acc[i][j];
+        const bool valid = id < n_docs && (f == nullptr || f[id] != 0);
+        unsigned mask = __ballot_sync(kFull, valid && precedes(s, id, rs[K - 1], ri[K - 1]));
+        while (mask) {
+          const int src = __ffs(mask) - 1;
+          mask &= mask - 1;
+          const float cs = __shfl_sync(kFull, s, src);
+          const int cid = d0 + 32 * j + src;
+          if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
+        }
+      }
+    }
+  }
+
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = warp * TM + i, qi = q0 + r;
+    if (qi >= B) continue;
+    const size_t out = ((size_t)split * B + qi) * K;
+    for (int c = lane; c < K; c += 32) {
+      part_s[out + c] = ls[r * K + c];
+      part_i[out + c] = li[r * K + c];
+    }
+  }
+}
+
+template <int QT, int BITS, int BQ>
+cudaError_t launch_partial(const void* q, const void* docs, const float* scale,
+                           const uint8_t* filt, long long filt_stride, int B, int n_docs, int T,
+                           int row_bytes, int group, int n_groups, int K, int splits,
+                           int tiles_per_split, int d_align, float* part_s, int* part_i,
+                           cudaStream_t stream) {
+  const size_t smem = partial_smem(BQ, K);
+  auto kernel = fused_topk_quantized_partial<QT, BITS, BQ>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((B + BQ - 1) / BQ, splits), kThreads, smem, stream>>>(
+      static_cast<const typename Query<QT>::Raw*>(q), static_cast<const uint8_t*>(docs), scale,
+      filt, filt_stride, B, n_docs, T, row_bytes, group, n_groups, K, tiles_per_split, d_align,
+      part_s, part_i);
+  return cudaGetLastError();
+}
+
+template <int QT, int BITS>
+cudaError_t launch_partial_bq(int bq, const void* q, const void* docs, const float* scale,
+                              const uint8_t* filt, long long filt_stride, int B, int n_docs,
+                              int T, int row_bytes, int group, int n_groups, int K, int splits,
+                              int tiles_per_split, int d_align, float* part_s, int* part_i,
+                              cudaStream_t stream) {
+  if (bq == 32)
+    return launch_partial<QT, BITS, 32>(q, docs, scale, filt, filt_stride, B, n_docs, T,
+                                        row_bytes, group, n_groups, K, splits, tiles_per_split,
+                                        d_align, part_s, part_i, stream);
+  if (bq == 8)
+    return launch_partial<QT, BITS, 8>(q, docs, scale, filt, filt_stride, B, n_docs, T,
+                                       row_bytes, group, n_groups, K, splits, tiles_per_split,
+                                       d_align, part_s, part_i, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// K5: pass 1 over gathered packed rows (fused_topk_gathered_quantized_partial).
+// ---------------------------------------------------------------------------
+
+// Columns one lane's 16-byte pack covers: 16 int8 values or 32 nibbles.
+template <int BITS> constexpr int kPackCols = BITS == 8 ? 16 : 32;
+
+// The f32 query of a K5 block in shared memory, padded to whole rounds of 32
+// packs: pack p = lane + 32 * j, columns [p * kPackCols, ...).  Column
+// 4 * k4 + e of pack p sits at float4 (j * kPackCols / 4 + k4) * 32 + lane,
+// component e, so the 32 lanes read 32 consecutive float4s.
+__host__ __device__ constexpr int gathered_rounds(int t, int pack_cols) {
+  return (t + 32 * pack_cols - 1) / (32 * pack_cols);
+}
+constexpr size_t gathered_query_bytes(int t, int pack_cols) {
+  return (size_t)gathered_rounds(t, pack_cols) * 32 * pack_cols * sizeof(float);
+}
+
+// Grid (B, splits): block (b, split) owns rows [split * rows_per_split, ...)
+// of query b's R kept rows.  Each warp takes 32-row groups in turn; its lanes
+// read a row together (lane l the 16-byte packs l, l + 32, ...), kGatherRows
+// rows at a time, dequantize each pack in registers, reduce each row's sum
+// across the warp, and lane r keeps row r's score.  The warp merges its 32
+// candidates into its own running list; at the end warp 0 merges the other
+// warps' lists and writes the block's sorted list.  A row whose id is outside
+// [0, n_docs) is never read and never ranks.
+template <int QT, int BITS>
+__global__ void __launch_bounds__(kThreads, 2) fused_topk_gathered_quantized_partial(
+    const typename Query<QT>::Raw* __restrict__ q,  // (B, T)
+    const uint8_t* __restrict__ store,              // (N, row_bytes)
+    const float* __restrict__ scale,                // (N, n_groups)
+    const int* __restrict__ row_ids,                // (B, R)
+    int B, int R, int n_docs, int T, int row_bytes, int group, int n_groups, int K,
+    int rows_per_split, int align,
+    float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
+  constexpr int kCols = kPackCols<BITS>;
+  constexpr int kQuads = kCols / 4;  // float4s of query per pack
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_rounds = gathered_rounds(T, kCols);
+  float4* qs = reinterpret_cast<float4*>(smem);  // n_rounds x kQuads x 32
+  float* ls = reinterpret_cast<float*>(qs + n_rounds * kQuads * 32);  // kWarps x K scores
+  int* li = reinterpret_cast<int*>(ls + kWarps * K);                  // kWarps x K ids
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x, split = blockIdx.y;
+  const int row0 = split * rows_per_split;
+  const int row1 = min(R, row0 + rows_per_split);
+  const int n_groups_rows = (max(0, row1 - row0) + 31) / 32;
+
+  float* qf = reinterpret_cast<float*>(qs);
+  for (int col = tid; col < n_rounds * 32 * kCols; col += kThreads) {
+    const int p = col / kCols, within = col % kCols;
+    const int slot = ((p / 32) * kQuads + within / 4) * 32 + p % 32;
+    qf[slot * 4 + within % 4] = col < T ? widen<QT>(q[(size_t)b * T + col]) : 0.f;
+  }
+  float* rs = ls + warp * K;
+  int* ri = li + warp * K;
+  for (int c = lane; c < K; c += 32) { rs[c] = -INFINITY; ri[c] = kBigId; }
+  __syncthreads();
+
+  const int* ids = row_ids + (size_t)b * R;
+  for (int g = warp; g < n_groups_rows; g += kWarps) {
+    const int r = row0 + g * 32 + lane;
+    const int my_id = r < row1 ? ids[r] : kBigId;
+    const bool my_ok = static_cast<unsigned>(my_id) < static_cast<unsigned>(n_docs);
+    float my_s = -INFINITY;
+#pragma unroll 1
+    for (int u0 = 0; u0 < 32; u0 += kGatherRows) {
+      int id[kGatherRows];
+      float acc[kGatherRows];
+#pragma unroll
+      for (int u = 0; u < kGatherRows; ++u) {
+        id[u] = __shfl_sync(kFull, my_id, u0 + u);
+        acc[u] = 0.f;
+      }
+      for (int j = 0; j < n_rounds; ++j) {
+        const int e0 = (lane + 32 * j) * kCols;
+        if (e0 >= T) break;
+        Pack16 dv[kGatherRows][1];
+        float gs[kGatherRows];
+#pragma unroll
+        for (int u = 0; u < kGatherRows; ++u) {
+          const bool ok = static_cast<unsigned>(id[u]) < static_cast<unsigned>(n_docs);
+          gs[u] = 0.f;
+          if (!ok) {  // an id out of range is never read
+            dv[u][0].u = make_uint4(0, 0, 0, 0);
+          } else if constexpr (BITS == 8) {
+            load_bytes<1>(store + (size_t)id[u] * row_bytes, e0, row_bytes, align, 0, dv[u]);
+          } else {
+            load_bytes<1>(store + (size_t)id[u] * row_bytes, e0 / 2, row_bytes, align, kInt4Pad,
+                          dv[u]);
+            gs[u] = scale[(size_t)id[u] * n_groups + e0 / group];
+          }
+        }
+#pragma unroll
+        for (int k4 = 0; k4 < kQuads; ++k4) {
+          const float4 qv = qs[(j * kQuads + k4) * 32 + lane];
+          const float qe[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+          for (int u = 0; u < kGatherRows; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int c = 4 * k4 + e;
+              float v;
+              if constexpr (BITS == 8) {
+                v = int8_value(dv[u][0].b[c]);
+              } else {
+                const uint32_t byte = dv[u][0].b[c / 2];
+                v = int4_value<QT>((c & 1) ? byte >> 4 : byte & 0xFu, gs[u]);
+              }
+              acc[u] = fmaf(qe[e], v, acc[u]);
+            }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kGatherRows; ++u) {
+        const float tot = warp_sum(acc[u]);
+        if (lane == u0 + u) my_s = tot;
+      }
+    }
+    if (BITS == 8 && my_ok) my_s *= scale[my_id];  // the per-doc scale, once after the sum
+    // Ids arrive in any order, so the check against the K-th entry uses the
+    // full comparator: a tied score with a lower id still enters.
+    unsigned mask = __ballot_sync(kFull, my_ok && precedes(my_s, my_id, rs[K - 1], ri[K - 1]));
+    while (mask) {
+      const int src = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const float cs = __shfl_sync(kFull, my_s, src);
+      const int cid = __shfl_sync(kFull, my_id, src);
+      if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
+    }
+  }
+
+  __syncthreads();
+  if (warp != 0) return;
+  for (int w = 1; w < kWarps; ++w) merge_sorted(rs, ri, ls + w * K, li + w * K, K, lane);
+  const size_t out = ((size_t)split * B + b) * K;
+  for (int c = lane; c < K; c += 32) {
+    part_s[out + c] = rs[c];
+    part_i[out + c] = ri[c];
+  }
+}
+
+template <int QT, int BITS>
+cudaError_t launch_gathered(const void* q, const void* store, const float* scale,
+                            const int* row_ids, int B, int R, int n_docs, int T, int row_bytes,
+                            int group, int n_groups, int K, int splits, int rows_per_split,
+                            int align, float* part_s, int* part_i, cudaStream_t stream) {
+  const size_t smem =
+      gathered_query_bytes(T, kPackCols<BITS>) + (size_t)kWarps * K * (sizeof(float) + sizeof(int));
+  auto kernel = fused_topk_gathered_quantized_partial<QT, BITS>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B, splits), kThreads, smem, stream>>>(
+      static_cast<const typename Query<QT>::Raw*>(q), static_cast<const uint8_t*>(store), scale,
+      row_ids, B, R, n_docs, T, row_bytes, group, n_groups, K, rows_per_split, align, part_s,
+      part_i);
+  return cudaGetLastError();
+}
+
+// The operands every entry checks: a query dtype, a width, and for int4 a
+// group that is a multiple of the 32-column chunk (so a chunk or a pack never
+// straddles two groups) with its packed row and scale widths.
+bool operands_ok(int qdtype, int bits, int T, int row_bytes, int group, int n_groups) {
+  if ((qdtype != kQF32 && qdtype != kQBF16) || T <= 0) return false;
+  if (bits == 8) return row_bytes == T && n_groups == 1;
+  if (bits != 4 || group <= 0 || group % 32 != 0) return false;
+  const int tg = (T + group - 1) / group * group;
+  return row_bytes * 2 == tg && n_groups * group == tg;
+}
+
+}  // namespace
+
+extern "C" {
+
+// K4's launch plan: streaming_plan (topk_merge.cuh), as K1's; the pass-1
+// blocks' shared-memory layout is the same.
+int fused_topk_quantized_plan(int B, int n_docs, int depth, int sm_count, int* plan) {
+  return streaming_plan(B, n_docs, depth, sm_count, plan);
+}
+
+// Both passes of K4 on `stream`, with the plan of fused_topk_quantized_plan;
+// returns the first cudaError_t (0 = launched).  qdtype: 0 f32, 1 bf16.
+// bits 8: docs (N, T) int8, scale (N, 1); bits 4: docs (N, row_bytes) packed,
+// row_bytes = Tg / 2, scale (N, n_groups), n_groups = Tg / group.  d_align:
+// the byte alignment every doc row starts at (16, 8, or less).
+int fused_topk_quantized_launch(int qdtype, int bits, int bq, const void* q, const void* docs,
+                                const void* scale, const void* filt, long long filt_stride,
+                                int B, int n_docs, int T, int row_bytes, int group,
+                                int n_groups, int depth, int K, int splits, int tiles_per_split,
+                                int d_align, void* part_s, void* part_i, void* out_s,
+                                void* out_i, void* stream) {
+  if (!operands_ok(qdtype, bits, T, row_bytes, group, n_groups) || K % 32 != 0 || depth > K ||
+      B <= 0 || n_docs <= 0 || splits <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const uint8_t* f = static_cast<const uint8_t*>(filt);
+  float* ps = static_cast<float*>(part_s);
+  int* pi = static_cast<int*>(part_i);
+  cudaError_t err;
+  if (qdtype == kQBF16 && bits == 8)
+    err = launch_partial_bq<kQBF16, 8>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes,
+                                       group, n_groups, K, splits, tiles_per_split, d_align, ps,
+                                       pi, st);
+  else if (qdtype == kQBF16)
+    err = launch_partial_bq<kQBF16, 4>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes,
+                                       group, n_groups, K, splits, tiles_per_split, d_align, ps,
+                                       pi, st);
+  else if (bits == 8)
+    err = launch_partial_bq<kQF32, 8>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes,
+                                      group, n_groups, K, splits, tiles_per_split, d_align, ps,
+                                      pi, st);
+  else
+    err = launch_partial_bq<kQF32, 4>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes,
+                                      group, n_groups, K, splits, tiles_per_split, d_align, ps,
+                                      pi, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_merge(ps, pi, splits, B, K, depth, out_s, out_i, st);
+}
+
+// K5's launch plan for R kept rows of T columns: gathered_plan
+// (topk_merge.cuh) with the f32 query's shared memory.
+int fused_topk_gathered_quantized_plan(int bits, int B, int R, int T, int depth, int sm_count,
+                                       int* plan) {
+  if ((bits != 8 && bits != 4) || T <= 0) return (int)cudaErrorInvalidValue;
+  const size_t query_bytes = gathered_query_bytes(T, bits == 8 ? kPackCols<8> : kPackCols<4>);
+  return gathered_plan(B, R, depth, query_bytes, sm_count, plan);
+}
+
+// Both passes of K5 on `stream`, with the plan of
+// fused_topk_gathered_quantized_plan; returns the first cudaError_t (0 =
+// launched).  Operands as for fused_topk_quantized_launch, with the (B, R)
+// int32 row ids; align: the byte alignment every stored row starts at.
+int fused_topk_gathered_quantized_launch(int qdtype, int bits, const void* q, const void* store,
+                                         const void* scale, const void* row_ids, int B, int R,
+                                         int n_docs, int T, int row_bytes, int group,
+                                         int n_groups, int depth, int K, int splits,
+                                         int rows_per_split, int align, void* part_s,
+                                         void* part_i, void* out_s, void* out_i, void* stream) {
+  if (!operands_ok(qdtype, bits, T, row_bytes, group, n_groups) || K % 32 != 0 || depth > K ||
+      depth > R || B <= 0 || R <= 0 || n_docs <= 0 || splits <= 0 || rows_per_split % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const int* rid = static_cast<const int*>(row_ids);
+  float* ps = static_cast<float*>(part_s);
+  int* pi = static_cast<int*>(part_i);
+  cudaError_t err;
+  if (qdtype == kQBF16 && bits == 8)
+    err = launch_gathered<kQBF16, 8>(q, store, sc, rid, B, R, n_docs, T, row_bytes, group,
+                                     n_groups, K, splits, rows_per_split, align, ps, pi, st);
+  else if (qdtype == kQBF16)
+    err = launch_gathered<kQBF16, 4>(q, store, sc, rid, B, R, n_docs, T, row_bytes, group,
+                                     n_groups, K, splits, rows_per_split, align, ps, pi, st);
+  else if (bits == 8)
+    err = launch_gathered<kQF32, 8>(q, store, sc, rid, B, R, n_docs, T, row_bytes, group,
+                                    n_groups, K, splits, rows_per_split, align, ps, pi, st);
+  else
+    err = launch_gathered<kQF32, 4>(q, store, sc, rid, B, R, n_docs, T, row_bytes, group,
+                                    n_groups, K, splits, rows_per_split, align, ps, pi, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_merge(ps, pi, splits, B, K, depth, out_s, out_i, st);
+}
+
+const char* fused_topk_quantized_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,0 +1,181 @@
+// What the fused top-k kernels share (fused_topk.cu: K1-K3;
+// fused_topk_quantized.cu: K4-K5): the streaming pass 1's tile shape and
+// both pass-1 launch plans (how N or R is split so that B = 1 fills the
+// SMs), the (score desc, id asc) order, the warp-wide sorted insert, the
+// merge of two sorted lists, and pass 2 (fused_topk_merge), which merges
+// the splits' sorted partial lists of every query and writes the first
+// `depth` entries.  Each source is its own shared library, so the
+// definitions live in an anonymous namespace and each library carries its
+// own copy.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBigId = 1 << 30;                 // id of an empty list slot
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr size_t kMaxSmem = 227 * 1024;         // opt-in dynamic shared memory per block
+
+// Streaming pass 1 (K1, K4): a block of kThreads owns BQ queries and a
+// contiguous range of kBN-doc tiles, reduced kBK 4-byte words at a time.
+constexpr int kBN = 256;                  // docs per tile
+constexpr int kTN = kBN / 32;             // doc columns per lane
+constexpr int kBK = 32;                   // shared-memory words per reduce chunk
+constexpr int kSkew = kBK + 1;            // doc row stride in words: conflict-free column reads
+constexpr size_t kWideSmem = 100 * 1024;  // above this, 32-query blocks drop to 8
+constexpr int kBlocksPerSm = 4;           // streaming pass-1 blocks to aim for per SM
+// Gathered pass 1 (K3, K5): one query per block, each warp scoring rows by id.
+constexpr int kGatherRows = 8;            // rows a warp scores at once (loads in flight)
+constexpr int kGatherBlocksPerSm = 2;     // gathered pass-1 blocks to aim for per SM
+
+// Dynamic shared memory of a streaming pass-1 block: the staged query and doc
+// chunks (4-byte words) and BQ running lists of K (score, id) pairs.
+constexpr size_t partial_smem(int bq, int K) {
+  return (size_t)(kBK * bq + kBN * kSkew) * 4 + (size_t)bq * K * (sizeof(float) + sizeof(int));
+}
+
+// Streaming launch plan for B queries over n_docs rows at `depth` on sm_count
+// SMs: plan[0] queries per block (32, or 8 when B <= 8 or the lists are
+// wide), plan[1] running-list width K (depth rounded up to 32), plan[2]
+// N-splits, plan[3] doc tiles per split, so that query tiles x splits covers
+// kBlocksPerSm blocks per SM, at B = 256 and at B = 1 alike.  Returns
+// cudaErrorInvalidValue if the running lists do not fit in shared memory.
+inline int streaming_plan(int B, int n_docs, int depth, int sm_count, int* plan) {
+  if (B <= 0 || n_docs <= 0 || depth <= 0 || sm_count <= 0) return (int)cudaErrorInvalidValue;
+  const int K = (depth + 31) / 32 * 32;
+  const int bq = (B > 8 && partial_smem(32, K) <= kWideSmem) ? 32 : 8;
+  if (partial_smem(bq, K) > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (n_docs + kBN - 1) / kBN;
+  const int q_tiles = (B + bq - 1) / bq;
+  const int want = (kBlocksPerSm * sm_count + q_tiles - 1) / q_tiles;
+  const int splits = want < 1 ? 1 : (want < n_tiles ? want : n_tiles);
+  const int tiles_per_split = (n_tiles + splits - 1) / splits;
+  plan[0] = bq;
+  plan[1] = K;
+  plan[2] = (n_tiles + tiles_per_split - 1) / tiles_per_split;  // no empty split
+  plan[3] = tiles_per_split;
+  return 0;
+}
+
+// Gathered launch plan for B queries of R rows at `depth`, with a block's
+// query taking query_bytes of shared memory: plan[0] K (depth rounded up to
+// 32), plan[1] row splits per query, plan[2] rows per split (a multiple of
+// 32), so that B x splits covers kGatherBlocksPerSm blocks per SM (at B = 1
+// as at B = 256) with no split under kThreads rows.  Returns
+// cudaErrorInvalidValue if the query and the per-warp lists do not fit in
+// shared memory.
+inline int gathered_plan(int B, int R, int depth, size_t query_bytes, int sm_count, int* plan) {
+  if (B <= 0 || R <= 0 || depth <= 0 || depth > R || sm_count <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int K = (depth + 31) / 32 * 32;
+  if (query_bytes + (size_t)kWarps * K * (sizeof(float) + sizeof(int)) > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  const int want = (kGatherBlocksPerSm * sm_count + B - 1) / B;
+  const int most = (R + kThreads - 1) / kThreads;
+  const int splits = want < most ? want : most;
+  const int rows_per_split = ((R + splits - 1) / splits + 31) / 32 * 32;
+  plan[0] = K;
+  plan[1] = (R + rows_per_split - 1) / rows_per_split;  // no empty split
+  plan[2] = rows_per_split;
+  return 0;
+}
+
+// (as, ai) comes before (bs, bi) in the output order: score desc, id asc.
+__device__ __forceinline__ bool precedes(float as, int ai, float bs, int bi) {
+  return as > bs || (as == bs && ai < bi);
+}
+
+// Insert (cs, cid) into the sorted list (rs, ri) of K entries (K a multiple
+// of 32), dropping the last entry.  The caller has checked that the
+// candidate precedes the last entry.  All 32 lanes of the warp take part.
+__device__ __forceinline__ void warp_insert(float* rs, int* ri, int K, float cs, int cid,
+                                            int lane) {
+  int cnt = 0;
+  for (int c = lane; c < K; c += 32) cnt += precedes(rs[c], ri[c], cs, cid) ? 1 : 0;
+  const int pos = static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(cnt)));
+  // Shift [pos, K-2] up by one, the top chunk first, so a chunk is read
+  // before the chunk below it writes into its first slot.
+  for (int base = ((K - 2) / 32) * 32; base >= (pos / 32) * 32; base -= 32) {
+    const int c = base + lane;
+    const bool mv = c >= pos && c <= K - 2;
+    float v = 0.f;
+    int vi = 0;
+    if (mv) { v = rs[c]; vi = ri[c]; }
+    __syncwarp();
+    if (mv) { rs[c + 1] = v; ri[c + 1] = vi; }
+    __syncwarp();
+  }
+  if (lane == 0) { rs[pos] = cs; ri[pos] = cid; }
+  __syncwarp();
+}
+
+// Merge the sorted list (ss, si) of K entries into the sorted running list
+// (rs, ri) of K entries, under (score desc, id asc).  All 32 lanes take part.
+__device__ __forceinline__ void merge_sorted(float* rs, int* ri, const float* ss, const int* si,
+                                             int K, int lane) {
+  for (int c0 = 0; c0 < K; c0 += 32) {
+    const float v = ss[c0 + lane];
+    const int vi = si[c0 + lane];
+    const unsigned pass = __ballot_sync(kFull, precedes(v, vi, rs[K - 1], ri[K - 1]));
+    unsigned mask = pass;
+    while (mask) {
+      const int src = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const float cs = __shfl_sync(kFull, v, src);
+      const int cid = __shfl_sync(kFull, vi, src);
+      if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
+    }
+    // The source list is sorted: once an entry fails, every later one does.
+    if (pass != kFull) break;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) fused_topk_merge(
+    const float* __restrict__ part_s, const int* __restrict__ part_i,  // (splits, B, K)
+    int splits, int B, int K, int depth,
+    float* __restrict__ out_s, int* __restrict__ out_i) {              // (B, depth)
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* rs = reinterpret_cast<float*>(smem) + warp * K;
+  int* ri = reinterpret_cast<int*>(reinterpret_cast<float*>(smem) + kWarps * K) + warp * K;
+  const int qi = blockIdx.x * kWarps + warp;
+  if (qi >= B) return;  // warp-uniform; no block-wide barrier follows
+
+  for (int c = lane; c < K; c += 32) { rs[c] = -INFINITY; ri[c] = kBigId; }
+  __syncwarp();
+  for (int s = 0; s < splits; ++s)
+    merge_sorted(rs, ri, part_s + ((size_t)s * B + qi) * K, part_i + ((size_t)s * B + qi) * K,
+                 K, lane);
+  for (int c = lane; c < depth; c += 32) {
+    const float v = rs[c];
+    out_s[(size_t)qi * depth + c] = v;
+    out_i[(size_t)qi * depth + c] = v == -INFINITY ? -1 : ri[c];
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(kFull, v, m);
+  return v;  // every lane holds the same sum: each step adds the same pair
+}
+__device__ __forceinline__ int warp_sum(int v) {
+  return static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(v)));
+}
+
+cudaError_t launch_merge(const float* part_s, const int* part_i, int splits, int B, int K,
+                         int depth, void* out_s, void* out_i, cudaStream_t stream) {
+  const size_t smem = (size_t)kWarps * K * (sizeof(float) + sizeof(int));
+  cudaError_t err = cudaFuncSetAttribute(fused_topk_merge,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  fused_topk_merge<<<(B + kWarps - 1) / kWarps, kThreads, smem, stream>>>(
+      part_s, part_i, splits, B, K, depth, static_cast<float*>(out_s), static_cast<int*>(out_i));
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -1,14 +1,18 @@
-"""Wrappers of the fused streaming score -> top-k CUDA kernels
-(``csrc/fused_topk.cu``): :func:`fused_topk` replaces
-``repro/kernels/fused_topk/kernel.py::fused_topk`` (K1, and K2 in lsh mode),
-:func:`fused_topk_gathered` replaces ``fused_topk_gathered`` (K3).
+"""Wrappers of the fused streaming score -> top-k CUDA kernels:
+:func:`fused_topk` replaces ``repro/kernels/fused_topk/kernel.py::fused_topk``
+(K1, and K2 in lsh mode) and :func:`fused_topk_gathered` replaces
+``fused_topk_gathered`` (K3), both in ``csrc/fused_topk.cu``;
+:func:`fused_topk_quantized` (K4) and :func:`fused_topk_gathered_quantized`
+(K5) replace the reference's quantized-postings variants, in
+``csrc/fused_topk_quantized.cu``.
 
 Routing follows the tensors' device: on the CPU the plain version
 (:mod:`.ref`) runs; on a CUDA device the kernel launches on the current
 stream, or the call raises.  Each wrapper's ``launches`` counts the calls
 that launched on the card; each such call launches two CUDA kernels, pass 1
-(``fused_topk_partial`` / ``fused_topk_gathered_partial``) and the merge
-(``fused_topk_merge``).
+(``fused_topk_partial``, ``fused_topk_gathered_partial``,
+``fused_topk_quantized_partial`` or ``fused_topk_gathered_quantized_partial``)
+and the merge (``fused_topk_merge``).
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from repro_torch.kernels.fused_topk import ref
 
 _GEMM_MODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _LSH_MODE = 3
+_QUERY_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the quantized kernels' queries
 
 
 @functools.lru_cache(maxsize=None)
@@ -226,3 +231,214 @@ def fused_topk_gathered(
 
 
 fused_topk_gathered.launches = 0  # type: ignore[attr-defined]
+
+
+# --------------------------------------------------------------------------
+# K4 / K5: packed int8 / int4 postings, dequantized in the score stage.
+# --------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _qlib() -> ctypes.CDLL:
+    lib = common.load_library("fused_topk_quantized")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.fused_topk_quantized_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.fused_topk_quantized_plan.restype = i
+    lib.fused_topk_quantized_launch.argtypes = [
+        i, i, i, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
+    lib.fused_topk_quantized_launch.restype = i
+    lib.fused_topk_gathered_quantized_plan.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
+    lib.fused_topk_gathered_quantized_plan.restype = i
+    lib.fused_topk_gathered_quantized_launch.argtypes = [
+        i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
+    lib.fused_topk_gathered_quantized_launch.restype = i
+    lib.fused_topk_quantized_error_string.argtypes = [i]
+    lib.fused_topk_quantized_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def quantized_plan(b: int, n_docs: int, depth: int, sm_count: int) -> Tuple[int, int, int, int]:
+    """K4's launch shape (``fused_topk_quantized_plan``): (queries per
+    block, running-list width K, N-splits, doc tiles per split)."""
+    out = (ctypes.c_int * 4)()
+    if _qlib().fused_topk_quantized_plan(b, n_docs, depth, sm_count, out) != 0:
+        raise ValueError(f"depth {depth}: the running lists do not fit in shared memory")
+    return tuple(out)
+
+
+def gathered_quantized_plan(bits: int, b: int, r: int, t: int, depth: int,
+                            sm_count: int) -> Tuple[int, int, int]:
+    """K5's launch shape (``fused_topk_gathered_quantized_plan``): (running-
+    list width K, row splits per query, rows per split)."""
+    out = (ctypes.c_int * 3)()
+    if _qlib().fused_topk_gathered_quantized_plan(bits, b, r, t, depth, sm_count, out) != 0:
+        raise ValueError(f"depth {depth}, T {t}: the query row and running lists "
+                         "do not fit in shared memory")
+    return tuple(out)
+
+
+def _packed_shape(t: int, bits: int, group: int) -> Tuple[int, int, torch.dtype]:
+    """(row width, scales per row, dtype) of a packed store whose logical
+    width is ``t``: int8 (T, 1, int8); int4 (Tg / 2, Tg / group, uint8)."""
+    if bits == 8:
+        return t, 1, torch.int8
+    if bits != 4:
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    if group <= 0 or group % 32:
+        raise ValueError(f"int4 group must be a positive multiple of 32, got {group}")
+    tg = common.round_up(t, group)
+    return tg // 2, tg // group, torch.uint8
+
+
+def _check_packed(q: torch.Tensor, docs: torch.Tensor, scale: torch.Tensor, bits: int,
+                  group: int, lead: Tuple[int, ...]) -> None:
+    """Shapes and dtypes of a query (B, T) against a packed store
+    ``lead + (C,)`` and its scales ``lead + (S,)``."""
+    if q.dim() != 2:
+        raise ValueError(f"want q (B, T), got {tuple(q.shape)}")
+    width, n_scales, dtype = _packed_shape(q.shape[1], bits, group)
+    if tuple(docs.shape) != lead + (width,) or tuple(scale.shape) != lead + (n_scales,):
+        raise ValueError(f"T {q.shape[1]}, bits {bits}, group {group}: want docs "
+                         f"{lead + (width,)} and scale {lead + (n_scales,)}, got "
+                         f"{tuple(docs.shape)} and {tuple(scale.shape)}")
+    if docs.dtype != dtype or scale.dtype != torch.float32:
+        raise TypeError(f"bits {bits}: want {dtype} docs and float32 scales, got "
+                        f"{docs.dtype} and {scale.dtype}")
+    if q.dtype not in _QUERY_DTYPES:
+        raise TypeError(f"q must be one of {list(_QUERY_DTYPES)}, got {q.dtype}")
+
+
+def fused_topk_quantized(
+    q: torch.Tensor,          # (B, T) bf16 / f32
+    docs: torch.Tensor,       # (N, T) int8 | (N, Tg/2) uint8 packed nibbles
+    scale: torch.Tensor,      # (N, 1) | (N, Tg/group) f32
+    depth: int,
+    bits: int,
+    group: int,
+    filt: Optional[torch.Tensor] = None,  # (N,) | (B, N) keep bitmap
+    n_docs: Optional[int] = None,         # rows >= n_docs never rank
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Streaming top-``depth`` of ``q @ dequant(docs, scale).T`` (K4): the
+    dequantization is fused into the score stage, so on the card only the
+    packed store and its scales are read.  Same output contract, ``filt``
+    and ``n_docs`` as :func:`fused_topk`."""
+    _check_packed(q, docs, scale, bits, group, (docs.shape[0],))
+    b, t = q.shape
+    n = docs.shape[0]
+    n_docs = n if n_docs is None else n_docs
+    if not 0 < n_docs <= n:
+        raise ValueError(f"n_docs {n_docs} outside (0, {n}]")
+    if not 0 < depth <= n_docs:
+        raise ValueError(f"depth {depth} outside (0, {n_docs}]")
+    if filt is not None and tuple(filt.shape) not in ((n,), (b, n)):
+        raise ValueError(f"filt must be ({n},) or ({b}, {n}), got {tuple(filt.shape)}")
+    tensors = (q, docs, scale) + ((filt,) if filt is not None else ())
+    devices = {x.device for x in tensors}
+    if devices == {torch.device("cpu")}:
+        return ref.quantized_topk_ref(q, docs, scale, depth, bits, group, filt, n_docs)
+    if len(devices) != 1 or q.device.type != "cuda":
+        raise ValueError(f"operands must all lie on the CPU or on one CUDA device, got {devices}")
+
+    if not (q.is_contiguous() and docs.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("q, docs and scale must be contiguous")
+    if n_docs >= common.BIG_ID:
+        raise ValueError(f"n_docs {n_docs} >= {common.BIG_ID}, the empty-slot id")
+    f_ptr, f_stride = None, 0
+    if filt is not None:
+        if filt.dtype not in (torch.bool, torch.uint8) or not filt.is_contiguous():
+            raise TypeError("filt must be a contiguous bool or uint8 tensor")
+        filt = filt.view(torch.uint8)
+        f_ptr, f_stride = filt.data_ptr(), (n if filt.dim() == 2 else 0)
+
+    sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
+    bq, k, splits, tiles_per_split = quantized_plan(b, n_docs, depth, sm_count)
+    with torch.cuda.device(q.device):
+        part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
+        part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
+        out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
+        out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
+        lib = _qlib()
+        err = lib.fused_topk_quantized_launch(
+            _QUERY_DTYPES[q.dtype], bits, bq, q.data_ptr(), docs.data_ptr(), scale.data_ptr(),
+            f_ptr, f_stride, b, n_docs, t, docs.shape[1], group, scale.shape[1], depth, k,
+            splits, tiles_per_split, _row_alignment(docs), part_s.data_ptr(),
+            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.fused_topk_quantized_error_string(err).decode()
+        raise RuntimeError(f"fused_topk_quantized launch failed: cudaError {err} ({msg})")
+    fused_topk_quantized.launches += 1
+    return out_s, out_i
+
+
+fused_topk_quantized.launches = 0  # type: ignore[attr-defined]
+
+
+def fused_topk_gathered_quantized(
+    q: torch.Tensor,          # (B, T) bf16 / f32
+    store: torch.Tensor,      # (N, T) int8 | (N, Tg/2) uint8 packed nibbles
+    scale: torch.Tensor,      # (N, 1) | (N, Tg/group) f32
+    row_ids: torch.Tensor,    # (B, R) int32 global ids; outside [0, n_docs) = padding
+    depth: int,
+    n_docs: int,
+    bits: int,
+    group: int,
+    filt: Optional[torch.Tensor] = None,  # (B, R) keep bitmap aligned with row_ids
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-query top-``depth`` of ``q[b] . dequant(store[row_ids[b, r]])``
+    over r (K5, quantized blockmax stage 2), ties to the lowest GLOBAL id;
+    padding and -inf slots are (-inf, -1).  Like :func:`fused_topk_gathered`
+    it takes the whole packed store and the ids, and on the card reads each
+    row and its scales by id: no (B, R, ·) tensor exists."""
+    _check_packed(q, store, scale, bits, group, (store.shape[0],))
+    if row_ids.dim() != 2 or row_ids.shape[0] != q.shape[0]:
+        raise ValueError(f"want row_ids (B, R), got {tuple(row_ids.shape)}")
+    b, t = q.shape
+    r = row_ids.shape[1]
+    if not 0 < n_docs <= store.shape[0]:
+        raise ValueError(f"n_docs {n_docs} outside (0, {store.shape[0]}]")
+    if not 0 < depth <= r:
+        raise ValueError(f"depth {depth} outside (0, {r}] (the candidate count)")
+    if filt is not None and tuple(filt.shape) != (b, r):
+        raise ValueError(f"filt must be ({b}, {r}), got {tuple(filt.shape)}")
+    tensors = (q, store, scale, row_ids) + ((filt,) if filt is not None else ())
+    devices = {x.device for x in tensors}
+    if devices == {torch.device("cpu")}:
+        return ref.quantized_gathered_topk_ref(q, store, scale, row_ids, depth, n_docs, bits,
+                                               group, filt)
+    if len(devices) != 1 or q.device.type != "cuda":
+        raise ValueError(f"operands must all lie on the CPU or on one CUDA device, got {devices}")
+
+    if not (q.is_contiguous() and store.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("q, store and scale must be contiguous")
+    if row_ids.dtype != torch.int32:
+        raise TypeError(f"row_ids must be int32, got {row_ids.dtype}")
+    if n_docs >= common.BIG_ID:
+        raise ValueError(f"n_docs {n_docs} >= {common.BIG_ID}, the padding id")
+    if filt is not None:  # filtered rows take the id the kernel's range check drops
+        row_ids = torch.where(filt != 0, row_ids, common.BIG_ID)
+    row_ids = row_ids.contiguous()
+
+    sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
+    k, splits, rows_per_split = gathered_quantized_plan(bits, b, r, t, depth, sm_count)
+    with torch.cuda.device(q.device):
+        part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
+        part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
+        out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
+        out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
+        lib = _qlib()
+        err = lib.fused_topk_gathered_quantized_launch(
+            _QUERY_DTYPES[q.dtype], bits, q.data_ptr(), store.data_ptr(), scale.data_ptr(),
+            row_ids.data_ptr(), b, r, n_docs, t, store.shape[1], group, scale.shape[1], depth,
+            k, splits, rows_per_split, _row_alignment(store), part_s.data_ptr(),
+            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        msg = lib.fused_topk_quantized_error_string(err).decode()
+        raise RuntimeError(f"fused_topk_gathered_quantized launch failed: cudaError {err} "
+                           f"({msg})")
+    fused_topk_gathered_quantized.launches += 1
+    return out_s, out_i
+
+
+fused_topk_gathered_quantized.launches = 0  # type: ignore[attr-defined]

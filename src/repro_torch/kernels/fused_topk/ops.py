@@ -3,7 +3,8 @@
 
 Each wrapper prepares the query operand exactly like its ``core/`` path
 (df-prune keep-mask folded into the query, [u; -u] int8 lift for dot mode)
-and streams the stored index through :func:`.kernel.fused_topk`;
+and streams the stored index through :func:`.kernel.fused_topk`, or a
+packed int8 / int4 store through :func:`.kernel.fused_topk_quantized`;
 :func:`.kernel.fused_topk_gathered` (blockmax stage 2) is re-exported here,
 as the reference's ops module does.
 ``repro_torch.core`` modules are imported lazily to avoid an import cycle.
@@ -14,7 +15,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.fused_topk.kernel import fused_topk, fused_topk_gathered  # noqa: F401
+from repro_torch.kernels.fused_topk.kernel import fused_topk_gathered  # noqa: F401
+from repro_torch.kernels.fused_topk.kernel import (
+    fused_topk,
+    fused_topk_gathered_quantized,
+    fused_topk_quantized,
+)
 
 
 def classic_topk(
@@ -54,3 +60,24 @@ def lsh_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """MinHash collision-count top-depth."""
     return fused_topk(sig_q, sig_d, depth, mode="lsh", filt=filt, n_docs=n_docs)
+
+
+def postings_topk(
+    pq, qv: torch.Tensor, depth: int, filt: Optional[torch.Tensor] = None,
+    n_docs: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-depth over a packed :class:`repro_torch.core.types.
+    QuantizedPostings` store, dequantized in the score stage (K4).  ``qv``
+    is the mode's float query operand."""
+    return fused_topk_quantized(qv, pq.q, pq.scale, depth, pq.bits, pq.group, filt=filt,
+                                n_docs=n_docs)
+
+
+def postings_topk_gathered(
+    pq, qv: torch.Tensor, row_ids: torch.Tensor, depth: int, n_docs: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-depth over the rows ``row_ids`` (B, R) of a packed store
+    (quantized blockmax stage 2, K5).  The whole store and the ids go to the
+    kernel, which reads each row by id; nothing is gathered here."""
+    return fused_topk_gathered_quantized(qv, pq.q, pq.scale, row_ids, depth, n_docs, pq.bits,
+                                         pq.group)

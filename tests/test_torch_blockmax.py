@@ -194,8 +194,9 @@ def test_index_from_numpy_keeps_blockmax_knobs(tmp_path):
 
 
 def test_unported_blockmax_variants_raise(tmp_path):
-    """A signed store or a quantized (pq) store never reaches blockmax: the
-    config refuses the one, the loader the other's arrays."""
+    """A signed store never reaches blockmax: the config refuses it; nor do
+    arrays of an unknown store: the loader refuses them (quantized blockmax
+    is in test_torch_quantized.py)."""
     x, _ = _data(n=300)
     with pytest.raises(NotImplementedError, match="signed_store"):
         FakeWordsConfig(scoring="dot", signed_store=True)

@@ -194,12 +194,15 @@ def test_configs_and_unported_options():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FakeWordsConfig(scoring="dot", signed_store=True)
     cfg = FakeWordsConfig()
+    # the quantized read path is ported: its options build (parity in
+    # test_torch_quantized.py); bad values still raise
     for kwargs in (dict(primary_postings="int8"), dict(primary_postings="int4"),
                    dict(rerank_store="int8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        assert builder.make_build_pipeline(cfg, **kwargs) is not None
+    for kwargs in (dict(rerank_store="fp16"), dict(primary_postings="int2"),
+                   dict(primary_postings="int4", postings_group=48)):
+        with pytest.raises(ValueError):
             builder.make_build_pipeline(cfg, **kwargs)
-    with pytest.raises(ValueError):
-        builder.make_build_pipeline(cfg, rerank_store="fp16")
     _, v = _unit_vectors(n=50)
     idx = builder.make_build_pipeline(cfg, "none").build_local(torch.from_numpy(v))
     assert idx.vectors is None and idx.scored is not None

@@ -1,16 +1,19 @@
-"""The port on a CUDA card: the fused top-k kernels (K1/K2 and the gathered
-K3) against their plain versions, and the searches on the card (dense,
-blockmax, lexical LSH) against the port's CPU route.  Every
-test carries the ``gpu`` marker and skips without a card; this file imports
-no JAX, so it runs where only PyTorch is installed:
+"""The port on a CUDA card: the fused top-k kernels (K1/K2, the gathered K3,
+and the quantized K4/K5) against their plain versions, and the searches on
+the card (dense, blockmax, lexical LSH, the quantized read path) against the
+port's CPU route.  Every test carries the ``gpu`` marker and skips without a
+card; this file imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 from torch_parity import assert_topk_match, cuda_device
 
+from repro_torch.core import builder, bruteforce
 from repro_torch.core import eval as ev
 from repro_torch.core.index import AnnIndex
 from repro_torch.core.types import BruteForceConfig, FakeWordsConfig, LexicalLshConfig
@@ -18,6 +21,8 @@ from repro_torch.kernels.fused_topk import ref
 from repro_torch.kernels.fused_topk.kernel import (
     fused_topk,
     fused_topk_gathered,
+    fused_topk_gathered_quantized,
+    fused_topk_quantized,
     gathered_plan,
     plan,
 )
@@ -113,3 +118,93 @@ def test_cuda_search_matches_cpu_port(method):
         want = cpu.search(q, k=10, depth=100, rerank=rerank)
         got = gpu.search(q, k=10, depth=100, rerank=rerank)
         assert float(ev.overlap(want[1], got[1].cpu())) >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qdtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bits,group", [(8, 0), (4, 32), (4, 64)])
+@pytest.mark.parametrize("kernel", ["fused_topk_quantized", "fused_topk_gathered_quantized"])
+def test_cuda_quantized_kernel_matches_plain_version(kernel, bits, group, qdtype):
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(43)
+    b, n, t, depth = 37, 3000, 600, 100
+    pq = builder.quantize_postings(torch.randn((n, t), generator=g, device=dev), bits, group or 32)
+    q = (torch.randn((b, t), generator=g, device=dev) / t**0.5).to(qdtype)
+    if kernel == "fused_topk_quantized":
+        filt = torch.rand((b, n), generator=g, device=dev) < 0.5
+        before = fused_topk_quantized.launches
+        got = fused_topk_quantized(q, pq.q, pq.scale, depth, bits, group, filt=filt,
+                                   n_docs=n - 100)
+        torch.cuda.synchronize()
+        assert fused_topk_quantized.launches == before + 1
+        want = ref.quantized_topk_ref(q, pq.q, pq.scale, depth + 1, bits, group, filt, n - 100)
+    else:  # ids in random order, some >= n_docs, and a (B, R) filt
+        n_docs = n - 100
+        ids = torch.stack([torch.randperm(n, generator=g, device=dev) for _ in range(b)])
+        ids = ids.to(torch.int32)
+        filt = torch.rand((b, n), generator=g, device=dev) < 0.5
+        before = fused_topk_gathered_quantized.launches
+        got = fused_topk_gathered_quantized(q, pq.q, pq.scale, ids, depth, n_docs, bits, group,
+                                            filt=filt)
+        torch.cuda.synchronize()
+        assert fused_topk_gathered_quantized.launches == before + 1
+        want = ref.quantized_gathered_topk_ref(q, pq.q, pq.scale, ids, depth + 1, n_docs, bits,
+                                               group, filt)
+    assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=False)
+
+
+@pytest.mark.gpu
+def test_quantized_kernels_raise_on_a_device_mix():
+    dev = cuda_device()
+    pq = builder.quantize_postings(torch.randn((300, 100), device=dev), 4, 32)
+    q = torch.randn((3, 100), device=dev).to(torch.bfloat16)
+    ids = torch.zeros((3, 64), dtype=torch.int32, device=dev)
+    before = (fused_topk_quantized.launches, fused_topk_gathered_quantized.launches)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_topk_quantized(q.cpu(), pq.q, pq.scale, 10, 4, 32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_topk_quantized(q, pq.q, pq.scale.cpu(), 10, 4, 32)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fused_topk_gathered_quantized(q, pq.q, pq.scale, ids.cpu(), 10, 300, 4, 32)
+    assert (fused_topk_quantized.launches, fused_topk_gathered_quantized.launches) == before
+
+
+def _on(index, dev):
+    """The index container (and its quantized stores) with every tensor on
+    ``dev``: the card searches the very arrays the CPU built."""
+    return type(index)(**{
+        f.name: (v.to(dev) if isinstance(v, torch.Tensor)
+                 else _on(v, dev) if dataclasses.is_dataclass(v) else v)
+        for f in dataclasses.fields(index) for v in [getattr(index, f.name)]})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pp", ["int8", "int4"])
+@pytest.mark.parametrize("method", ["classic", "dot", "bruteforce", "blockmax-classic",
+                                    "blockmax-dot"])
+def test_cuda_quantized_search_matches_cpu_port(method, pp):
+    dev = cuda_device()
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2000, 64)).astype(np.float32)
+    q = x[:24] + 0.05 * rng.normal(size=(24, 64)).astype(np.float32)
+    kind = method.split("-")[-1]
+    cfg = BruteForceConfig() if kind == "bruteforce" else FakeWordsConfig(scoring=kind)
+    keep = 3 if method.startswith("blockmax") else None
+    cpu = AnnIndex.build(x, cfg, blockmax_keep=keep, blockmax_block_size=128,
+                         primary_postings=pp, rerank_store="int8", device="cpu")
+    gpu = AnnIndex(config=cfg, index=_on(cpu.index, dev), blockmax_keep=keep,
+                   blockmax_block_size=128)
+    assert gpu.device.type == "cuda" and gpu.quantized_rerank
+    # The same arrays and the same query operand on both devices: f32 sums
+    # in another order may only swap near-ties (torch_parity).
+    qn = bruteforce.l2_normalize(torch.from_numpy(q))
+    rep = cpu.pipeline.encoder(cpu.index, qn)
+    got = gpu.pipeline.matcher(gpu.index, rep.to(dev), 100)
+    want = cpu.pipeline.matcher(cpu.index, rep, 101)
+    assert_topk_match([a.cpu() for a in got], want, exact=False)
+    # the int8 rerank of the card's candidates, on the card and on the CPU
+    got_rr = gpu.pipeline.reranker(gpu.index, qn.to(dev), got[1], 10)
+    want_rr = cpu.pipeline.reranker(cpu.index, qn, got[1].cpu(), 11)
+    assert_topk_match([a.cpu() for a in got_rr], want_rr, exact=False)
+    s, i = gpu.search(q, k=10, depth=100, rerank=True)
+    assert i.shape == (24, 10) and bool(torch.isfinite(s).all())

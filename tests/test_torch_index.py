@@ -95,12 +95,21 @@ def test_index_from_numpy_searches_a_jax_built_index_identically(tmp_path, metho
 
 
 def test_index_from_numpy_rejects_unported_stores(tmp_path):
+    """The metadata store (filtering, ROADMAP queue A item 7) is not ported;
+    the int8 / int4 stores are (test_torch_quantized.py), but packed arrays
+    need the ``pq`` metadata that ``config.json`` records."""
     x, _ = _data(n=300)
     _, meta, arrays = _saved(tmp_path, "classic", x)
-    extra = dict(arrays, **{"vq.q": np.zeros((300, 64), np.int8)})
+    extra = dict(arrays, **{"metadata.values": np.zeros((300, 2), np.int32)})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         index_from_numpy(meta["method"], meta["config"], extra,
-                         dict(meta["dtypes"], **{"vq.q": "int8"}), device="cpu")
+                         dict(meta["dtypes"], **{"metadata.values": "int32"}), device="cpu")
+    packed = dict(arrays, **{"pq.q": np.zeros((300, 128), np.int8),
+                             "pq.scale": np.ones((300, 1), np.float32)})
+    with pytest.raises(ValueError, match="pq metadata"):
+        index_from_numpy(meta["method"], meta["config"], packed,
+                         dict(meta["dtypes"], **{"pq.q": "int8", "pq.scale": "float32"}),
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         index_from_numpy("kd-tree", {}, {}, {}, device="cpu")
 
