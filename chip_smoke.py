@@ -28,7 +28,22 @@
 8. Times build, searches (B = 256, 8 and 1), and each kernel beside its
    bound, its plain version and a library yardstick, with CUDA events
    (median of 10 runs after a warm-up).
-9. Frees those indexes and runs the quantized read path on the same corpus:
+9. Holds the dense score kernels (K6 ``cosine_scores``, K7 ``score_matmul``,
+   K8 ``lsh_match_scores``) and the flash attention kernel (K9) against
+   their plain versions: unaligned B / N / T, B = 1 and N = 1, int8 over its
+   whole range and at -128 / 127, sentinels on both sides of K8; K9 at every
+   head width (32, 64, 96, 128), S = 1, 130 and 4096, f32 and bf16, MHA /
+   GQA / MQA, and deepseek-coder-33b's 56 / 8 heads at S = 4096.
+10. With the corpus and its fp32 and LSH indexes still on the card, drives
+   the dense-score and attention entry points at full width: ``classic_scores`` and
+   ``dot_scores`` at B = 256 (K7), ``cosine_topk`` over the raw corpus (K6),
+   ``lsh_topk`` over the (b = 300, h = 1) signatures (K8), and
+   ``causal_attention`` for one attention layer of deepseek-coder-33b
+   (56 / 8 heads, D 128, bf16) at S = 32,768 and of phi3-mini (32 / 32, D
+   96) at S = 4,096, batch 1 (K9); holds their top-k against K1 / K2 and
+   the plain versions, and times each kernel beside its bound, its plain
+   version and its library yardstick.
+11. Frees those indexes and runs the quantized read path on the same corpus:
    classic with int8 and with int4 (group 32) postings and the int8 rerank
    store (K4), held to the reference's recall property (reranked R@10
    within 0.02 of fp32 postings reranked from the same int8 store);
@@ -196,18 +211,20 @@ def _instance(mangled: str) -> str:
     """``fused_topk_quantized_partial<1, 4, 32>`` from a mangled kernel name:
     the kernel's name and its integer template arguments."""
     m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_partial|gathered_partial"
-                  r"|partial|merge))(?:I((?:Li-?\d+E)+)E)?", mangled)
+                  r"|partial|merge)|dense_scores|flash_attention_fwd)(?:I((?:Li-?\d+E|[ft])+)E)?",
+                  mangled)
     if m is None:
         return mangled.strip()[:72]
-    args = re.findall(r"Li(-?\d+)E", m.group(2) or "")
+    args = [num or {"f": "float", "t": "bf16"}[typ]
+            for num, typ in re.findall(r"Li(-?\d+)E|([ft])", m.group(2) or "")]
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
-def build_kernels() -> float:
+def build_kernels(names=None) -> float:
     from repro_torch.kernels import common
 
     t0 = time.perf_counter()
-    logs = common.build()
+    logs = common.build(names)
     seconds = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
@@ -461,6 +478,152 @@ def check_quantized(dev) -> dict:
     return worst
 
 
+def compare_dense(name, got, want, exact: bool, tol: float = TOL) -> float:
+    """Hold a kernel's dense output against the plain version's.  Exact:
+    bit-equal.  Else, row by row (the last dimension: a query's scores, or
+    one attention output row), so that a row of small values is held to its
+    own scale and not to the largest in the output: each element within
+    rtol = ``tol`` and atol = ``tol`` times the row's largest |want|, and
+    the row's error norm within ``tol / 2`` of its norm (a whole row a few
+    ``tol`` off).  Returns the largest difference."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype}, want "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if not got.numel():
+        return 0.0
+    g, w = got.float(), want.float()
+    diff = (g - w).abs_()
+    err = float(diff.max())
+    if exact:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: not bit-exact (max err {err})")
+        return err
+    rows = float((torch.linalg.vector_norm(diff, dim=-1)
+                  - tol / 2 * torch.linalg.vector_norm(w, dim=-1)).max())
+    allowed = w.abs().mul_(tol).add_(tol * w.abs().amax(dim=-1, keepdim=True))
+    excess = float(diff.sub_(allowed).max())  # NaN where either side is NaN
+    if not (excess <= 0 and rows <= 0):
+        raise AssertionError(f"{name}: differs by up to {err}, {excess:.3g} past an element's "
+                             f"limit, a row's error norm {rows:.3g} past its limit (tol {tol})")
+    return err
+
+
+def dense_cases():
+    """(kernel, kind, B, N, T) for check_dense: every kernel at aligned and
+    unaligned B / N / T, B = 1 and N = 1, several query tiles; int8 over
+    its whole range and at its extremes; lsh with sentinels on both sides."""
+    cases = []
+    for b, n, t in ((4, 64, 32), (3, 513, 257), (8, 300, 100), (70, 1000, 600), (1, 1, 600),
+                    (1, 3000, 300), (300, 2000, 64), (65, 129, 601)):
+        cases += [("score_matmul", "bf16", b, n, t), ("score_matmul", "int8", b, n, t),
+                  ("score_matmul", "int8/int32", b, n, t), ("cosine_scores", "f32", b, n, t),
+                  ("lsh_match_scores", "lsh", b, n, t)]
+    cases += [("score_matmul", "int8-extremes", 5, 700, 600),
+              ("score_matmul", "int8-extremes/int32", 67, 300, 603),
+              ("lsh_match_scores", "lsh-sentinels", 6, 700, 300)]
+    return cases
+
+
+def _dense_inputs(kind: str, b: int, n: int, t: int, gen, dev):
+    """Operands of one dense case (cosine: unit queries, raw rows and their
+    inverse norms as the third)."""
+    if kind.startswith("int8"):
+        if "extremes" in kind:  # -128 and 127 everywhere: sums up to T * 2**14
+            q = torch.where(torch.rand((b, t), generator=gen, device=dev) < 0.5, -128, 127)
+            d = torch.where(torch.rand((n, t), generator=gen, device=dev) < 0.5, -128, 127)
+            return q.to(torch.int8), d.to(torch.int8), None
+        return tuple(torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                     for shape in ((b, t), (n, t))) + (None,)
+    if kind.startswith("lsh"):
+        q, d = _inputs("lsh", b, n, t, gen, dev)
+        if kind == "lsh-sentinels":  # doc sentinels, some where the query's are, and sentinel - 1
+            d.view(torch.int32)[:, ::3] = -1
+            d.view(torch.int32)[:, 1::7] = -2
+        return q, d, None
+    if kind == "bf16":
+        return _inputs("bf16", b, n, t, gen, dev) + (None,)
+    q = torch.randn((b, t), generator=gen, device=dev)
+    q /= q.norm(dim=1, keepdim=True)
+    d = torch.randn((n, t), generator=gen, device=dev)
+    d *= 10 * torch.rand((n, 1), generator=gen, device=dev) + 0.01
+    return q, d, 1.0 / d.norm(dim=1)
+
+
+def check_dense(dev) -> dict:
+    """K6 ``cosine_scores``, K7 ``score_matmul`` and K8 ``lsh_match_scores``
+    against their plain versions on the card."""
+    from repro_torch.kernels.cosine_score import ref as cosine_ref
+    from repro_torch.kernels.cosine_score.kernel import cosine_scores
+    from repro_torch.kernels.fakewords_score import ref as fw_ref
+    from repro_torch.kernels.fakewords_score.kernel import score_matmul
+    from repro_torch.kernels.lsh_match import ref as lsh_ref
+    from repro_torch.kernels.lsh_match.kernel import lsh_match_scores
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = dense_cases()
+    worst = {}
+    for kernel, kind, b, n, t in cases:
+        q, d, inv = _dense_inputs(kind, b, n, t, gen, dev)
+        if kernel == "score_matmul":
+            out = torch.int32 if kind.endswith("/int32") else torch.float32
+            got, want = score_matmul(q, d, out), fw_ref.score_matmul_ref(q, d, out)
+        elif kernel == "cosine_scores":
+            got, want = cosine_scores(q, d, inv), cosine_ref.cosine_scores_ref(q, d, inv)
+        else:
+            got, want = lsh_match_scores(q, d), lsh_ref.lsh_match_scores_ref(q, d)
+        torch.cuda.synchronize()
+        name = f"{kernel} {kind} B={b} N={n} T={t}"
+        err = compare_dense(name, got, want, exact=kind not in ("bf16", "f32"))
+        key = f"{kernel} {kind}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        print(f"  ok  {name}  max_abs_err={err:.3g}")
+    print(f"dense score kernels vs plain on the card: {len(cases)} cases, worst {worst}")
+    return worst
+
+
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def attention_cases():
+    """(dtype, B, Hq, Hkv, S, D) for check_attention: every head width at
+    S = 1, 130 and 4096 in both dtypes, MHA, GQA group 2 and MQA in turn,
+    and deepseek-coder-33b's 56 / 8 heads at S = 4096."""
+    heads = ((4, 4), (4, 2), (8, 1))
+    cases = []
+    for d in (32, 64, 96, 128):
+        for s in (1, 130, 4096):
+            for dtype in (torch.float32, torch.bfloat16):
+                hq, hkv = heads[len(cases) % 3]
+                cases.append((dtype, 2 if s == 130 else 1, hq, hkv, s, d))
+    cases.append((torch.bfloat16, 1, 56, 8, 4096, 128))
+    return cases
+
+
+def _qkv(dtype, b: int, hq: int, hkv: int, s: int, d: int, gen, dev):
+    return tuple(torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+                 for h in (hq, hkv, hkv))
+
+
+def check_attention(dev) -> dict:
+    """K9 ``flash_attention`` against its plain version on the card."""
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = attention_cases()
+    worst = {}
+    for dtype, b, hq, hkv, s, d in cases:
+        q, k, v = _qkv(dtype, b, hq, hkv, s, d, gen, dev)
+        got = flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        name = f"flash_attention {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} S={s} D={d}"
+        err = compare_dense(name, got, ref.attention_ref(q, k, v), exact=False, tol=ATTN_TOL[dtype])
+        worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0.0), err)
+        print(f"  ok  {name}  max_abs_err={err:.3g}")
+    print(f"flash_attention vs plain on the card: {len(cases)} cases, worst {worst}")
+    return worst
+
+
 def _checked(name: str, s, i, b: int, width: int, n: int, finite: bool = True) -> None:
     if s.shape != (b, width) or (finite and not bool(torch.isfinite(s).all())):
         raise AssertionError(f"{name}: bad shape {tuple(s.shape)} or non-finite scores")
@@ -468,20 +631,26 @@ def _checked(name: str, s, i, b: int, width: int, n: int, finite: bool = True) -
         raise AssertionError(f"{name}: ids outside [0, {n})")
 
 
-def _reset_launches() -> None:
+def _wrappers() -> tuple:
+    """Every kernel wrapper of the port (each counts its launches)."""
+    from repro_torch.kernels.cosine_score.kernel import cosine_scores
+    from repro_torch.kernels.fakewords_score.kernel import score_matmul
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.fused_topk import kernel
+    from repro_torch.kernels.lsh_match.kernel import lsh_match_scores
 
-    for fn in (kernel.fused_topk, kernel.fused_topk_gathered, kernel.fused_topk_quantized,
-               kernel.fused_topk_gathered_quantized):
+    return (kernel.fused_topk, kernel.fused_topk_gathered, kernel.fused_topk_quantized,
+            kernel.fused_topk_gathered_quantized, cosine_scores, score_matmul, lsh_match_scores,
+            flash_attention)
+
+
+def _reset_launches() -> None:
+    for fn in _wrappers():
         fn.launches = 0
 
 
 def _launches() -> dict:
-    from repro_torch.kernels.fused_topk import kernel
-
-    return {fn.__name__: fn.launches for fn in (
-        kernel.fused_topk, kernel.fused_topk_gathered, kernel.fused_topk_quantized,
-        kernel.fused_topk_gathered_quantized)}
+    return {fn.__name__: fn.launches for fn in _wrappers()}
 
 
 def _only(path: str, kernel_name: str) -> int:
@@ -505,13 +674,18 @@ def main() -> int:
     check_kernels(dev)
     check_gathered(dev)
     check_quantized(dev)
+    check_dense(dev)
+    check_attention(dev)
     from repro_torch.configs import ann_word2vec
 
     cell = ann_word2vec.ARCH.cell("ann_search")
     config = ann_word2vec.ARCH.make_model(cell)
     x, qx = make_inputs(dev, cell.get("n_docs"), cell.batch)
-    kernels, gt_i = drive(dev, card, x, qx, cell.get("depth"), cell.get("k"), config)
-    torch.cuda.empty_cache()  # drive's indexes are gone: the quantized builds get the room
+    kernels, gt_i, idx, lidx = drive(dev, card, x, qx, cell.get("depth"), cell.get("k"), config)
+    kernels += drive_dense(dev, card, x, qx, gt_i, idx, lidx, cell.get("depth"), cell.get("k"),
+                           config)
+    del idx, lidx
+    torch.cuda.empty_cache()  # the fp32 indexes are gone: the quantized builds get the room
     kernels += drive_quantized(dev, card, x, qx, gt_i, cell.get("depth"), cell.get("k"), config)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     print(card)
@@ -773,7 +947,196 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
         "launches": k3_launches[keep], "max_abs_err": k3_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
     })
-    return kernels, gt_i
+    return kernels, gt_i, idx, lidx
+
+
+def timed(fn):
+    """(median ms, runs) of ``fn`` with CUDA events: RUNS runs after a
+    warm-up run, or 3 where the warm-up took more than a second."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    runs = RUNS if start.elapsed_time(end) <= 1000 else 3
+    return cuda_ms(fn, runs=runs, warmup=0), runs
+
+
+def dense_bound_ms(q, docs, extra_bytes: int, ops_per_pair: float, kind: str):
+    """Bound of one dense (B, N) score call: the query, the store and
+    ``extra_bytes`` read once, the 4-byte (B, N) output written once;
+    ``ops_per_pair`` * T operations per (query, doc) pair."""
+    b, t = q.shape
+    n = docs.shape[0]
+    nbytes = (q.numel() * q.element_size() + docs.numel() * docs.element_size() + extra_bytes
+              + b * n * 4)
+    return _bound(nbytes, ops_per_pair * b * n * t, kind)
+
+
+def attention_bound_ms(q, k, v, kind: str):
+    """Bound of one causal attention call: q, k, v read once, the output
+    written once; 4 * D operations (two products) per unmasked (query, key)
+    pair, S (S + 1) / 2 of them per head."""
+    b, hq, s, d = q.shape
+    nbytes = 2 * q.numel() * q.element_size() + (k.numel() + v.numel()) * k.element_size()
+    return _bound(nbytes, 4.0 * b * hq * d * s * (s + 1) / 2, kind)
+
+
+# One attention layer of each model at its cell's sequence, batch cut to 1:
+# (name, Hq, Hkv, S, D) from src/repro/configs/{deepseek_coder_33b,
+# phi3_mini_3_8b}.py and the prefill_32k / train_4k cells.
+ATTENTION_LAYERS = (("deepseek-coder-33b prefill_32k", 56, 8, 32768, 128),
+                    ("phi3-mini-3.8b train_4k", 32, 32, 4096, 96))
+
+
+def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, config) -> list:
+    """The dense-score and attention entry points at full width, with the corpus
+    ``x``, its fp32 fake-words index ``idx`` and lexical-LSH index ``lidx``
+    on the card: ``fakewords_score.ops.classic_scores`` / ``dot_scores``
+    (K7), ``cosine_score.ops.cosine_topk`` over the raw corpus (K6),
+    ``lsh_match.ops.lsh_topk`` (K8), and ``flash_attention.ops.
+    causal_attention`` (K9) for one attention layer of each model in
+    ATTENTION_LAYERS.  Returns the kernels' JSON entries (K7 classic and
+    dot, K6, K8, and K9 for each layer)."""
+    from repro_torch.core import bruteforce, eval as ev, fakewords, lexical_lsh
+    from repro_torch.kernels.common import stable_topk
+    from repro_torch.kernels.cosine_score import ops as cos_ops, ref as cos_ref
+    from repro_torch.kernels.cosine_score.kernel import cosine_scores
+    from repro_torch.kernels.fakewords_score import ops as fw_ops, ref as fw_ref
+    from repro_torch.kernels.fakewords_score.kernel import score_matmul
+    from repro_torch.kernels.flash_attention import ops as fa_ops, ref as fa_ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.fused_topk import ops as topk_ops
+    from repro_torch.kernels.fused_topk.kernel import fused_topk
+    from repro_torch.kernels.lsh_match import ops as lsh_ops, ref as lsh_ref
+    from repro_torch.kernels.lsh_match.kernel import lsh_match_scores
+
+    n, b = x.shape[0], qx.shape[0]
+    qn = bruteforce.l2_normalize(qx)
+    q_tf = fakewords.encode_queries(qn, config, normalized=True)
+    sig_q = lexical_lsh.encode(qn, lidx.config)
+    index = idx.index
+    gen = torch.Generator(device=dev).manual_seed(5)
+    layers = {name: _qkv(torch.bfloat16, 1, hq, hkv, s, d, gen, dev)
+              for name, hq, hkv, s, d in ATTENTION_LAYERS}
+    # The fused top-k kernels' answers to the same queries, for the checks.
+    k1_classic = topk_ops.classic_topk(index, q_tf, depth)
+    k1_dot = topk_ops.dot_topk(index, q_tf, depth)
+    k2_lsh = fused_topk(sig_q, lidx.index.sig, depth, mode="lsh")
+
+    # ---- main path 7: the dense-score and attention entry points ----------
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    top_classic = stable_topk(fw_ops.classic_scores(index, q_tf), depth + 1)
+    top_dot = stable_topk(fw_ops.dot_scores(index, q_tf), depth)
+    top_cos = cos_ops.cosine_topk(qx, x, k)
+    top_lsh = lsh_ops.lsh_topk(lidx.index, sig_q, depth)
+    attn = {name: fa_ops.causal_attention(*qkv) for name, qkv in layers.items()}
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    counts = _launches()
+    print(f"dense-score and attention entry points: {path_s:.2f} s (first calls); "
+          f"launches {counts}")
+    for fn in (score_matmul, cosine_scores, lsh_match_scores, flash_attention):
+        if counts[fn.__name__] <= 0:
+            raise AssertionError(f"the entry points never launched {fn.__name__}: {counts}")
+    if any(counts[name] for name in ("fused_topk", "fused_topk_gathered", "fused_topk_quantized",
+                                     "fused_topk_gathered_quantized")):
+        raise AssertionError(f"the entry points ran a fused top-k kernel: {counts}")
+
+    # What came out, against the fused top-k kernels and the plain versions.
+    compare("classic_scores top-100 vs K1 classic search", k1_classic, top_classic, exact=False)
+    compare("dot_scores top-100 vs K1 dot search", k1_dot, top_dot, exact=True)
+    compare("lsh_topk vs K2", k2_lsh, top_lsh, exact=True)
+    q_unit = qx / torch.clamp(torch.linalg.vector_norm(qx, dim=-1, keepdim=True), min=1e-12)
+    inv = 1.0 / torch.clamp(torch.linalg.vector_norm(x, dim=-1), min=1e-12)
+    compare("cosine_topk vs plain", top_cos,
+            stable_topk(cos_ref.cosine_scores_ref(q_unit, x, inv), k + 1), exact=False)
+    r_cos = float(ev.recall_at(gt_i, top_cos[1]))
+    attn_err = {name: compare_dense(f"causal_attention {name}", attn[name],
+                                    fa_ref.attention_ref(*layers[name]), exact=False,
+                                    tol=ATTN_TOL[torch.bfloat16])
+                for name in layers}
+    print(f"entry-point outputs: classic / dot top-100 equal K1's (near-tie rule / exact), "
+          f"lsh_topk equals K2, cosine_topk R@10 {r_cos:.4f} against the K1 ground truth; causal_attention "
+          f"vs plain max_abs_err {attn_err}")
+    if r_cos < 0.99:
+        raise AssertionError(f"cosine_topk R@10 {r_cos:.4f}: not the exact cosine top-10")
+    del top_classic, top_dot, top_cos, top_lsh, attn
+
+    # ---- each kernel at its main-path shape: check and times ---------------
+    kernels = []
+
+    def entry(name, fn, plain, library, lib_label, bound, launches, exact, source, replaces,
+              tol=TOL):
+        got = fn()
+        torch.cuda.synchronize()
+        want = plain()
+        err = compare_dense(name, got, want, exact=exact, tol=tol)
+        del got, want
+        ms, runs = timed(fn)
+        plain_ms, plain_runs = timed(plain)
+        lib_ms = timed(library)[0] if library is not None else None
+        print(f"{name}: kernel {ms:.3f} ms (median of {runs}), bound {bound[0]:.3f} ms "
+              f"({bound[1]}); plain {plain_ms:.3f} ms (median of {plain_runs}); "
+              + (f"{lib_label} {lib_ms:.3f} ms" if library is not None else f"library: {lib_label}")
+              + f"; vs plain max_abs_err {err:.3g}")
+        kernels.append({
+            "name": name.split(" (")[0], "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib_ms,
+        })
+        torch.cuda.empty_cache()
+
+    fw_src = "src/repro_torch/kernels/fakewords_score/csrc/fakewords_score.cu"
+    fw_rep = "src/repro/kernels/fakewords_score/kernel.py:48"
+    qv = fakewords.classic_query(index, q_tf)
+    scored = index.scored
+    entry(f"score_matmul (classic, bf16, B={b}, N={n}, T={qv.shape[1]})",
+          lambda: score_matmul(qv, scored), lambda: fw_ref.score_matmul_ref(qv, scored),
+          lambda: torch.mm(qv, scored.T, out_dtype=torch.float32),
+          "torch.mm(q, scored.T, out_dtype=f32)", dense_bound_ms(qv, scored, 0, 2.0, "bf16"),
+          counts["score_matmul"], False, fw_src, fw_rep)
+    q_dot = fakewords.dot_query(index, q_tf, dtype=torch.int8)
+    tf = index.tf
+    entry(f"score_matmul/dot (int8, B={b}, N={n}, T={q_dot.shape[1]})",
+          lambda: score_matmul(q_dot, tf), lambda: fw_ref.score_matmul_ref(q_dot, tf),
+          lambda: torch._int_mm(q_dot, tf.T), "torch._int_mm(q, tf.T) (int32 out)",
+          dense_bound_ms(q_dot, tf, 0, 2.0, "int8"), counts["score_matmul"], True, fw_src, fw_rep)
+    entry(f"cosine_scores (f32, B={b}, N={n}, T={x.shape[1]})",
+          lambda: cosine_scores(q_unit, x, inv), lambda: cos_ref.cosine_scores_ref(q_unit, x, inv),
+          lambda: torch.matmul(q_unit, x.T) * inv, "torch.matmul(q, x.T) * inv_norm",
+          dense_bound_ms(q_unit, x, inv.numel() * 4, 2.0, "f32"), counts["cosine_scores"], False,
+          "src/repro_torch/kernels/cosine_score/csrc/cosine_score.cu",
+          "src/repro/kernels/cosine_score/kernel.py:36")
+    sig = lidx.index.sig
+    entry(f"lsh_match_scores (uint32, B={b}, N={n}, S={sig.shape[1]})",
+          lambda: lsh_match_scores(sig_q, sig), lambda: lsh_ref.lsh_match_scores_ref(sig_q, sig),
+          None, "none: no PyTorch call counts sentinel-aware collisions",
+          dense_bound_ms(sig_q, sig, 0, 1.0, "int32"), counts["lsh_match_scores"], True,
+          "src/repro_torch/kernels/lsh_match/csrc/lsh_match.cu",
+          "src/repro/kernels/lsh_match/kernel.py:41")
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa(q, kk, vv):  # the flash backend: it raises where it cannot run, never falls back
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(q, kk, vv, is_causal=True,
+                                                                    enable_gqa=True)
+
+    for i, (name, hq, hkv, s, d) in enumerate(ATTENTION_LAYERS):
+        q, kk, vv = layers[name]
+        entry(f"flash_attention{'' if i == 0 else '/' + name.split()[0]} ({name}, bf16, B=1, "
+              f"Hq={hq}, Hkv={hkv}, S={s}, D={d})",
+              lambda: flash_attention(q, kk, vv), lambda: fa_ref.attention_ref(q, kk, vv),
+              lambda: sdpa(q, kk, vv),
+              "scaled_dot_product_attention(is_causal=True, enable_gqa=True), flash backend",
+              attention_bound_ms(q, kk, vv, "bf16"), counts["flash_attention"], False,
+              "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+              "src/repro/kernels/flash_attention/kernel.py:74", tol=ATTN_TOL[torch.bfloat16])
+    print(f"times on {card}")
+    return kernels
 
 
 def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> list:

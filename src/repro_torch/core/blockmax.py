@@ -154,19 +154,6 @@ def build_blockmax(
     return BlockMaxIndex(ub.to(torch.float32), block_size, "dot", dequantized=pq is not None)
 
 
-def _f32_product(q: torch.Tensor, ub: torch.Tensor) -> torch.Tensor:
-    """``q @ ub.T`` in full f32: TF32 is switched off for this product
-    where the caller has it on (and restored)."""
-    q = q.to(torch.float32)
-    if not (q.is_cuda and torch.backends.cuda.matmul.allow_tf32):
-        return q @ ub.T
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return q @ ub.T
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = True
-
-
 def block_bounds(bm: BlockMaxIndex, q: torch.Tensor) -> torch.Tensor:
     """Stage 1: (B, n_blocks) f32 optimistic block scores.  ``q`` is the
     (B, 2m) tf row for classic and dot, the (B, S) uint32 signature for lsh.
@@ -177,11 +164,11 @@ def block_bounds(bm: BlockMaxIndex, q: torch.Tensor) -> torch.Tensor:
     sum stays below 2**24; dequantized dot bounds are f32 sums, as in the
     reference."""
     if bm.mode == "classic":
-        return _f32_product(q.to(torch.bfloat16), bm.ub)
+        return common.f32_matmul(q.to(torch.bfloat16), bm.ub.T)
     if bm.mode == "dot":
         if not bm.dequantized and bm.ub.shape[1] * 127 * 127 >= 2**24:
             raise ValueError(f"T = {bm.ub.shape[1]}: dot bounds would not be exact in f32")
-        return _f32_product(q, bm.ub)
+        return common.f32_matmul(q, bm.ub.T)
     qb = q.view(torch.int32)
     shift = (qb & 31)[:, None, :]
     valid = (qb != -1)[:, None, :]

@@ -83,93 +83,11 @@
 
 namespace {
 
-constexpr uint32_t kLshSentinel = 0xFFFFFFFFu;
-
-enum Mode { kF32 = 0, kBF16 = 1, kI8 = 2, kLSH = 3 };
-
-// Raw: element type in device memory; Word: 32-bit shared-memory word;
-// kPerWord: elements per word (four int8 packed for __dp4a).
-template <int M> struct Traits;
-template <> struct Traits<kF32> {
-  using Raw = float; using Word = float; using Acc = float;
-  static constexpr int kPerWord = 1;
-};
-template <> struct Traits<kBF16> {
-  using Raw = uint16_t; using Word = float; using Acc = float;
-  static constexpr int kPerWord = 1;
-};
-template <> struct Traits<kI8> {
-  using Raw = int8_t; using Word = int; using Acc = int;
-  static constexpr int kPerWord = 4;
-};
-template <> struct Traits<kLSH> {
-  using Raw = uint32_t; using Word = uint32_t; using Acc = int;
-  static constexpr int kPerWord = 1;
-};
-
-template <int M> struct Vec {
-  using Raw = typename Traits<M>::Raw;
-  static constexpr int kElems = 16 / sizeof(Raw);                // per 16-byte load
-  static constexpr int kWords = kElems / Traits<M>::kPerWord;    // shared words it fills
-  static constexpr int kPerRow = kBK / kWords;                   // loads per row and chunk
-  union Pack { uint4 u; Raw e[kElems]; };
-};
-
-// Padding that contributes nothing: 0 for products; on the lsh query side the
-// sentinel (never counts).
-template <int M> __device__ __forceinline__ typename Traits<M>::Raw pad_raw(bool query) {
-  if constexpr (M == kLSH) return query ? kLshSentinel : 0u;
-  else return typename Traits<M>::Raw(0);
-}
-
-// Elements [e0, e0 + kElems) of a row of `t` elements as one 16-byte pack;
-// elements past the end, and rows that do not exist, are padding.
-template <int M>
-__device__ __forceinline__ uint4 load_pack(const typename Traits<M>::Raw* row, bool row_ok,
-                                           int e0, int t, bool aligned, bool query) {
-  using V = Vec<M>;
-  typename V::Pack p;
-  if (row_ok && aligned && e0 + V::kElems <= t) {
-    p.u = *reinterpret_cast<const uint4*>(row + e0);
-  } else {
-    const typename Traits<M>::Raw pad = pad_raw<M>(query);
-#pragma unroll
-    for (int s = 0; s < V::kElems; ++s) p.e[s] = (row_ok && e0 + s < t) ? row[e0 + s] : pad;
-  }
-  return p.u;
-}
-
-template <int M> __device__ __forceinline__ typename Traits<M>::Word from_bits(uint32_t b) {
-  if constexpr (M == kF32) return __uint_as_float(b);
-  else if constexpr (M == kI8) return static_cast<int>(b);
-  else return b;  // kLSH; kBF16 widens in store_pack
-}
-
-// Write a pack's kWords shared-memory words to dst[0], dst[stride], ...
-template <int M>
-__device__ __forceinline__ void store_pack(typename Traits<M>::Word* dst, int stride, uint4 raw) {
-  using V = Vec<M>;
-  typename V::Pack p;
-  p.u = raw;
-  if constexpr (M == kBF16) {
-#pragma unroll
-    for (int w = 0; w < V::kWords; ++w)  // bf16 is the top half of an f32: exact
-      dst[w * stride] = __uint_as_float(static_cast<uint32_t>(p.e[w]) << 16);
-  } else {
-    dst[0] = from_bits<M>(raw.x);
-    dst[stride] = from_bits<M>(raw.y);
-    dst[2 * stride] = from_bits<M>(raw.z);
-    dst[3 * stride] = from_bits<M>(raw.w);
-  }
-}
-
-template <int M>
-__device__ __forceinline__ typename Traits<M>::Acc mac(
-    typename Traits<M>::Acc acc, typename Traits<M>::Word a, typename Traits<M>::Word b) {
-  if constexpr (M == kI8) return __dp4a(a, b, acc);
-  else if constexpr (M == kLSH) return acc + ((a == b) & (a != kLshSentinel));
-  else return fmaf(a, b, acc);
-}
+// The score modes (Mode, Traits, Vec, load_pack, store_pack, mac) are in
+// score_operands.cuh, shared with the dense score kernels K6-K8.  Pass 1
+// reads its rows with 16-byte loads or element by element (load_pack<M,
+// false>): with the 8-byte branch compiled in, its f32 and lsh instances
+// spilled more at the 128-register cap and ran 1-2% slower on an H100.
 
 // Blocks per SM that ptxas budgets registers for: 2 caps a thread at 128
 // registers.  The 32-query bf16 and int8 instances run faster with one block
@@ -220,16 +138,18 @@ __global__ void __launch_bounds__(kThreads, (kMinBlocks<M, BQ>)) fused_topk_part
     for (int i = 0; i < kDLoads; ++i) {
       const int v = tid + i * kThreads, r = v / V::kPerRow, c = v % V::kPerRow;
       const int di = d0 + r;
-      dst[i] = load_pack<M>(docs + (size_t)di * T, di < n_docs,
-                            (w0 + c * V::kWords) * Tr::kPerWord, T, d_aligned, false);
+      dst[i] = load_pack<M, false>(docs + (size_t)di * T, di < n_docs,
+                                   (w0 + c * V::kWords) * Tr::kPerWord, T, d_aligned ? 16 : 1,
+                                   false);
     }
 #pragma unroll
     for (int i = 0; i < kQLoads; ++i) {
       const int v = tid + i * kThreads, r = v % BQ, c = v / BQ;
       const int qi = q0 + r;
       if (v < kQPacks)
-        qst[i] = load_pack<M>(q + (size_t)qi * T, qi < B,
-                              (w0 + c * V::kWords) * Tr::kPerWord, T, q_aligned, true);
+        qst[i] = load_pack<M, false>(q + (size_t)qi * T, qi < B,
+                                     (w0 + c * V::kWords) * Tr::kPerWord, T, q_aligned ? 16 : 1,
+                                     true);
     }
   };
 
@@ -265,10 +185,10 @@ __global__ void __launch_bounds__(kThreads, (kMinBlocks<M, BQ>)) fused_topk_part
 #pragma unroll
         for (int g = 0; g < TM / 4; ++g) {
           const uint4 av = *reinterpret_cast<const uint4*>(qs + kk * BQ + warp * TM + 4 * g);
-          a[4 * g + 0] = from_bits<(M == kBF16 ? kF32 : M)>(av.x);
-          a[4 * g + 1] = from_bits<(M == kBF16 ? kF32 : M)>(av.y);
-          a[4 * g + 2] = from_bits<(M == kBF16 ? kF32 : M)>(av.z);
-          a[4 * g + 3] = from_bits<(M == kBF16 ? kF32 : M)>(av.w);
+          a[4 * g + 0] = from_bits<M>(av.x);
+          a[4 * g + 1] = from_bits<M>(av.y);
+          a[4 * g + 2] = from_bits<M>(av.z);
+          a[4 * g + 3] = from_bits<M>(av.w);
         }
       } else {
 #pragma unroll
@@ -368,29 +288,6 @@ constexpr size_t gathered_smem(int t, int elem, int K) {
   return gathered_query_bytes(t, elem) + (size_t)kWarps * K * (sizeof(float) + sizeof(int));
 }
 
-// Elements [e0, e0 + kElems) of a stored row as one 16-byte pack: one 16-byte
-// load where rows are 16-byte aligned, two 8-byte loads where they are 8-byte
-// aligned (int8 rows of 600 bytes), else element by element.  Elements past
-// the end of the row are 0.
-template <int M>
-__device__ __forceinline__ uint4 load_row_pack(const typename Traits<M>::Raw* row, int e0, int t,
-                                               int align) {
-  using V = Vec<M>;
-  typename V::Pack p;
-  if (e0 + V::kElems <= t) {
-    if (align >= 16) return *reinterpret_cast<const uint4*>(row + e0);
-    if (align >= 8) {
-      const uint2 a = *reinterpret_cast<const uint2*>(row + e0);
-      const uint2 b = *reinterpret_cast<const uint2*>(row + e0 + V::kElems / 2);
-      return make_uint4(a.x, a.y, b.x, b.y);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < V::kElems; ++s)
-    p.e[s] = e0 + s < t ? row[e0 + s] : typename Traits<M>::Raw(0);
-  return p.u;
-}
-
 // acc + <query pack, row pack> in the mode's arithmetic: bf16 widened to f32
 // (exact products), int8 by __dp4a, lsh as sentinel-aware equality counts.
 template <int M>
@@ -476,7 +373,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_topk_gathered_partial(
         uint4 dv[kGatherRows];
 #pragma unroll
         for (int u = 0; u < kGatherRows; ++u)
-          dv[u] = ok[u] ? load_row_pack<M>(rows[u], e0, T, align) : make_uint4(0, 0, 0, 0);
+          dv[u] = ok[u] ? load_pack<M>(rows[u], true, e0, T, align, false)
+                        : make_uint4(0, 0, 0, 0);
 #pragma unroll
         for (int u = 0; u < kGatherRows; ++u) acc[u] = dot_pack<M>(acc[u], qv, dv[u]);
       }

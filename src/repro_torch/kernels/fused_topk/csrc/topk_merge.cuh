@@ -13,6 +13,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "score_operands.cuh"  // kBK, kSkew; the score modes of K1-K3
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -22,11 +24,10 @@ constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr size_t kMaxSmem = 227 * 1024;         // opt-in dynamic shared memory per block
 
 // Streaming pass 1 (K1, K4): a block of kThreads owns BQ queries and a
-// contiguous range of kBN-doc tiles, reduced kBK 4-byte words at a time.
+// contiguous range of kBN-doc tiles, reduced kBK 4-byte words at a time
+// (kBK and kSkew: score_operands.cuh).
 constexpr int kBN = 256;                  // docs per tile
 constexpr int kTN = kBN / 32;             // doc columns per lane
-constexpr int kBK = 32;                   // shared-memory words per reduce chunk
-constexpr int kSkew = kBK + 1;            // doc row stride in words: conflict-free column reads
 constexpr size_t kWideSmem = 100 * 1024;  // above this, 32-query blocks drop to 8
 constexpr int kBlocksPerSm = 4;           // streaming pass-1 blocks to aim for per SM
 // Gathered pass 1 (K3, K5): one query per block, each warp scoring rows by id.

@@ -32,21 +32,12 @@ _QUERY_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the quantized kernels' 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = common.load_library("fused_topk")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_topk_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
-    lib.fused_topk_plan.restype = i
-    lib.fused_topk_launch.argtypes = [
-        i, i, p, p, p, ll, i, i, i, i, i, i, i, i, p, p, p, p, p]
-    lib.fused_topk_launch.restype = i
-    lib.fused_topk_gathered_plan.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
-    lib.fused_topk_gathered_plan.restype = i
-    lib.fused_topk_gathered_launch.argtypes = [
-        i, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
-    lib.fused_topk_gathered_launch.restype = i
-    lib.fused_topk_error_string.argtypes = [i]
-    lib.fused_topk_error_string.restype = ctypes.c_char_p
-    return lib
+    p, i, ll, pi = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
+    return common.bind(
+        "fused_topk", fused_topk_plan=[i, i, i, i, pi],
+        fused_topk_launch=[i, i, p, p, p, ll, i, i, i, i, i, i, i, i, p, p, p, p, p],
+        fused_topk_gathered_plan=[i, i, i, i, i, i, pi],
+        fused_topk_gathered_launch=[i, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p])
 
 
 def plan(b: int, n_docs: int, depth: int, sm_count: int) -> Tuple[int, int, int, int]:
@@ -68,16 +59,6 @@ def gathered_plan(code: int, b: int, r: int, t: int, depth: int,
         raise ValueError(f"depth {depth}, T {t}: the query row and running lists "
                          "do not fit in shared memory")
     return tuple(out)
-
-
-def _row_alignment(x: torch.Tensor) -> int:
-    """The byte alignment (16, 8, or 1) every row of the contiguous 2-D
-    ``x`` starts at."""
-    row = x.shape[1] * x.element_size()
-    for a in (16, 8):
-        if x.data_ptr() % a == 0 and row % a == 0:
-            return a
-    return 1
 
 
 def _mode_code(q: torch.Tensor, docs: torch.Tensor, mode: str) -> int:
@@ -118,11 +99,8 @@ def fused_topk(
         raise ValueError(f"depth {depth} outside (0, {n_docs}]")
     if filt is not None and tuple(filt.shape) not in ((n,), (b, n)):
         raise ValueError(f"filt must be ({n},) or ({b}, {n}), got {tuple(filt.shape)}")
-    devices = {q.device, docs.device} | ({filt.device} if filt is not None else set())
-    if devices == {torch.device("cpu")}:
+    if common.on_cpu(q, docs, filt):
         return ref.fused_topk_ref(q, docs, depth, mode, filt, n_docs)
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise ValueError(f"operands must all lie on the CPU or on one CUDA device, got {devices}")
 
     code = _mode_code(q, docs, mode)
     if not (q.is_contiguous() and docs.is_contiguous()):
@@ -138,21 +116,15 @@ def fused_topk(
 
     sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
     bq, k, splits, tiles_per_split = plan(b, n_docs, depth, sm_count)
-    with torch.cuda.device(q.device):
-        part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
-        part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
-        out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
-        out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
-        lib = _lib()
-        err = lib.fused_topk_launch(
-            code, bq, q.data_ptr(), docs.data_ptr(), f_ptr, f_stride, b, n_docs, t, depth,
-            k, splits, tiles_per_split,
-            int(_row_alignment(q) == 16) | int(_row_alignment(docs) == 16) << 1,
-            part_s.data_ptr(), part_i.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        msg = lib.fused_topk_error_string(err).decode()
-        raise RuntimeError(f"fused_topk launch failed: cudaError {err} ({msg})")
+    part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
+    out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
+    common.launch(
+        _lib(), "fused_topk_launch", q.device, code, bq, q.data_ptr(), docs.data_ptr(), f_ptr,
+        f_stride, b, n_docs, t, depth, k, splits, tiles_per_split,
+        int(common.row_alignment(q) == 16) | int(common.row_alignment(docs) == 16) << 1,
+        part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr())
     fused_topk.launches += 1
     return out_s, out_i
 
@@ -191,13 +163,9 @@ def fused_topk_gathered(
         raise ValueError(f"depth {depth} outside (0, {r}] (the candidate count)")
     if filt is not None and tuple(filt.shape) != (b, r):
         raise ValueError(f"filt must be ({b}, {r}), got {tuple(filt.shape)}")
-    tensors = (q, store, row_ids) + ((filt,) if filt is not None else ())
-    devices = {x.device for x in tensors}
-    if devices == {torch.device("cpu")}:
+    if common.on_cpu(q, store, row_ids, filt):
         rows = ref.gather_rows(store, row_ids, n_docs)
         return ref.gathered_topk_ref(q, rows, row_ids, depth, n_docs, mode, filt)
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise ValueError(f"operands must all lie on the CPU or on one CUDA device, got {devices}")
 
     code = _mode_code(q, store, mode)
     if not (q.is_contiguous() and store.is_contiguous()):
@@ -212,20 +180,15 @@ def fused_topk_gathered(
 
     sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
     k, splits, rows_per_split = gathered_plan(code, b, r, t, depth, sm_count)
-    with torch.cuda.device(q.device):
-        part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
-        part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
-        out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
-        out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
-        lib = _lib()
-        err = lib.fused_topk_gathered_launch(
-            code, q.data_ptr(), store.data_ptr(), row_ids.data_ptr(), b, r, n_docs, t, depth,
-            k, splits, rows_per_split, _row_alignment(store), part_s.data_ptr(),
-            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        msg = lib.fused_topk_error_string(err).decode()
-        raise RuntimeError(f"fused_topk_gathered launch failed: cudaError {err} ({msg})")
+    part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
+    out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
+    common.launch(
+        _lib(), "fused_topk_gathered_launch", q.device, code, q.data_ptr(), store.data_ptr(),
+        row_ids.data_ptr(), b, r, n_docs, t, depth, k, splits, rows_per_split,
+        common.row_alignment(store), part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr())
     fused_topk_gathered.launches += 1
     return out_s, out_i
 
@@ -240,21 +203,14 @@ fused_topk_gathered.launches = 0  # type: ignore[attr-defined]
 
 @functools.lru_cache(maxsize=None)
 def _qlib() -> ctypes.CDLL:
-    lib = common.load_library("fused_topk_quantized")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_topk_quantized_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
-    lib.fused_topk_quantized_plan.restype = i
-    lib.fused_topk_quantized_launch.argtypes = [
-        i, i, i, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
-    lib.fused_topk_quantized_launch.restype = i
-    lib.fused_topk_gathered_quantized_plan.argtypes = [i, i, i, i, i, i, ctypes.POINTER(i)]
-    lib.fused_topk_gathered_quantized_plan.restype = i
-    lib.fused_topk_gathered_quantized_launch.argtypes = [
-        i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p]
-    lib.fused_topk_gathered_quantized_launch.restype = i
-    lib.fused_topk_quantized_error_string.argtypes = [i]
-    lib.fused_topk_quantized_error_string.restype = ctypes.c_char_p
-    return lib
+    p, i, ll, pi = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
+    return common.bind(
+        "fused_topk_quantized", fused_topk_quantized_plan=[i, i, i, i, pi],
+        fused_topk_quantized_launch=[
+            i, i, i, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p],
+        fused_topk_gathered_quantized_plan=[i, i, i, i, i, i, pi],
+        fused_topk_gathered_quantized_launch=[
+            i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p])
 
 
 def quantized_plan(b: int, n_docs: int, depth: int, sm_count: int) -> Tuple[int, int, int, int]:
@@ -332,12 +288,8 @@ def fused_topk_quantized(
         raise ValueError(f"depth {depth} outside (0, {n_docs}]")
     if filt is not None and tuple(filt.shape) not in ((n,), (b, n)):
         raise ValueError(f"filt must be ({n},) or ({b}, {n}), got {tuple(filt.shape)}")
-    tensors = (q, docs, scale) + ((filt,) if filt is not None else ())
-    devices = {x.device for x in tensors}
-    if devices == {torch.device("cpu")}:
+    if common.on_cpu(q, docs, scale, filt):
         return ref.quantized_topk_ref(q, docs, scale, depth, bits, group, filt, n_docs)
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise ValueError(f"operands must all lie on the CPU or on one CUDA device, got {devices}")
 
     if not (q.is_contiguous() and docs.is_contiguous() and scale.is_contiguous()):
         raise ValueError("q, docs and scale must be contiguous")
@@ -352,21 +304,16 @@ def fused_topk_quantized(
 
     sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
     bq, k, splits, tiles_per_split = quantized_plan(b, n_docs, depth, sm_count)
-    with torch.cuda.device(q.device):
-        part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
-        part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
-        out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
-        out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
-        lib = _qlib()
-        err = lib.fused_topk_quantized_launch(
-            _QUERY_DTYPES[q.dtype], bits, bq, q.data_ptr(), docs.data_ptr(), scale.data_ptr(),
-            f_ptr, f_stride, b, n_docs, t, docs.shape[1], group, scale.shape[1], depth, k,
-            splits, tiles_per_split, _row_alignment(docs), part_s.data_ptr(),
-            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        msg = lib.fused_topk_quantized_error_string(err).decode()
-        raise RuntimeError(f"fused_topk_quantized launch failed: cudaError {err} ({msg})")
+    part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
+    out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
+    common.launch(
+        _qlib(), "fused_topk_quantized_launch", q.device, _QUERY_DTYPES[q.dtype], bits, bq,
+        q.data_ptr(), docs.data_ptr(), scale.data_ptr(), f_ptr, f_stride, b, n_docs, t,
+        docs.shape[1], group, scale.shape[1], depth, k, splits, tiles_per_split,
+        common.row_alignment(docs), part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr())
     fused_topk_quantized.launches += 1
     return out_s, out_i
 
@@ -401,13 +348,9 @@ def fused_topk_gathered_quantized(
         raise ValueError(f"depth {depth} outside (0, {r}] (the candidate count)")
     if filt is not None and tuple(filt.shape) != (b, r):
         raise ValueError(f"filt must be ({b}, {r}), got {tuple(filt.shape)}")
-    tensors = (q, store, scale, row_ids) + ((filt,) if filt is not None else ())
-    devices = {x.device for x in tensors}
-    if devices == {torch.device("cpu")}:
+    if common.on_cpu(q, store, scale, row_ids, filt):
         return ref.quantized_gathered_topk_ref(q, store, scale, row_ids, depth, n_docs, bits,
                                                group, filt)
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise ValueError(f"operands must all lie on the CPU or on one CUDA device, got {devices}")
 
     if not (q.is_contiguous() and store.is_contiguous() and scale.is_contiguous()):
         raise ValueError("q, store and scale must be contiguous")
@@ -421,22 +364,16 @@ def fused_topk_gathered_quantized(
 
     sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
     k, splits, rows_per_split = gathered_quantized_plan(bits, b, r, t, depth, sm_count)
-    with torch.cuda.device(q.device):
-        part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
-        part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
-        out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
-        out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
-        lib = _qlib()
-        err = lib.fused_topk_gathered_quantized_launch(
-            _QUERY_DTYPES[q.dtype], bits, q.data_ptr(), store.data_ptr(), scale.data_ptr(),
-            row_ids.data_ptr(), b, r, n_docs, t, store.shape[1], group, scale.shape[1], depth,
-            k, splits, rows_per_split, _row_alignment(store), part_s.data_ptr(),
-            part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        msg = lib.fused_topk_quantized_error_string(err).decode()
-        raise RuntimeError(f"fused_topk_gathered_quantized launch failed: cudaError {err} "
-                           f"({msg})")
+    part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
+    part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
+    out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
+    common.launch(
+        _qlib(), "fused_topk_gathered_quantized_launch", q.device, _QUERY_DTYPES[q.dtype], bits,
+        q.data_ptr(), store.data_ptr(), scale.data_ptr(), row_ids.data_ptr(), b, r, n_docs, t,
+        store.shape[1], group, scale.shape[1], depth, k, splits, rows_per_split,
+        common.row_alignment(store), part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
+        out_i.data_ptr())
     fused_topk_gathered_quantized.launches += 1
     return out_s, out_i
 

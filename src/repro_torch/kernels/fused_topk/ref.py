@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.common import BIG_ID, dequant_int4
+from repro_torch.kernels.common import BIG_ID, dequant_int4, f32_matmul
 
 LSH_SENTINEL = 0xFFFFFFFF
 _LSH_TILE_ELEMS = 2**27  # bound on the (B, tile, S) compare of the lsh mode
@@ -51,14 +51,7 @@ def _product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     float64), float operands widened to f32, with TF32 off on the card."""
     if a.dtype in _INT_DTYPES:
         return (a.double() @ b.double()).float()
-    if not a.is_cuda:
-        return a.float() @ b.float()
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return a.float() @ b.float()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return f32_matmul(a, b)
 
 
 def apply_filt(scores: torch.Tensor, filt: Optional[torch.Tensor]) -> torch.Tensor:

@@ -1,0 +1,76 @@
+"""The port's causal GQA flash attention (K9, ``flash_attention`` and
+``causal_attention``) against the JAX package's.
+
+The same numpy inputs go to both packages.  The port runs its CPU route
+(the plain ``attention_ref``); the JAX side runs its Pallas kernel with
+``interpret=True`` and its ``ref.attention_ref``.  f32 outputs must agree
+within 1e-4, bf16 outputs within 1e-2, both relative to each output row's
+scale (rtol = tol, atol = tol x the largest |output| of the row).
+Interpret-mode JAX attention is slow, so S stays at most 256.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch_parity import assert_rows_close, to_torch
+
+from repro.kernels.flash_attention.kernel import flash_attention as jflash_attention
+from repro.kernels.flash_attention.ops import causal_attention as jcausal_attention
+from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
+from repro_torch.kernels.flash_attention import causal_attention, flash_attention, ref
+
+TOL = {"f32": 1e-4, "bf16": 1e-2}
+
+
+def _qkv(b, hq, hkv, s, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
+    return [jnp.asarray(rng.normal(size=(b, h, s, d)), jdt) for h in (hq, hkv, hkv)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (1, 4, 4, 1, 32),     # MHA, one position
+    (1, 4, 2, 130, 64),   # GQA group 2, unaligned S
+    (1, 4, 1, 256, 96),   # MQA, phi3-mini's head width
+    (2, 2, 2, 130, 96),   # MHA, B = 2
+    (1, 8, 4, 256, 32),   # GQA group 2
+    (1, 4, 1, 130, 32),   # MQA, unaligned S
+])
+def test_flash_attention_matches_jax(b, hq, hkv, s, d, dtype):
+    jq, jk, jv = _qkv(b, hq, hkv, s, d, dtype, seed=hq * s + d)
+    got = flash_attention(to_torch(jq), to_torch(jk), to_torch(jv))
+    assert got.dtype == (torch.float32 if dtype == "f32" else torch.bfloat16)
+    assert got.shape == (b, hq, s, d)
+    assert_rows_close(got, jflash_attention(jq, jk, jv, interpret=True), TOL[dtype])
+    assert_rows_close(got, jattention_ref(jq, jk, jv), TOL[dtype])
+
+
+def test_causal_attention_is_the_reference_entry_point():
+    jq, jk, jv = _qkv(2, 6, 2, 70, 64, "f32", seed=5)
+    got = causal_attention(to_torch(jq), to_torch(jk), to_torch(jv))
+    assert_rows_close(got, jcausal_attention(jq, jk, jv, use_kernel=False), TOL["f32"])
+
+
+def test_plain_version_in_blocks_equals_one_block(monkeypatch):
+    """The plain version forms the logits a block of heads and rows at a
+    time; the blocks change no more than the last bits of the products
+    (the matmuls of other shapes sum in another order)."""
+    q, k, v = (to_torch(a) for a in _qkv(1, 4, 2, 130, 32, "f32", seed=6))
+    whole = ref.attention_ref(q, k, v)
+    monkeypatch.setattr(ref, "_TILE_ELEMS", 3 * 130)  # one head, three rows a block
+    torch.testing.assert_close(ref.attention_ref(q, k, v), whole, rtol=1e-6, atol=1e-6)
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros((1, 4, 8, 64))
+    with pytest.raises(ValueError):  # head width without an instance
+        flash_attention(*(torch.zeros((1, 4, 8, 48)),) * 3)
+    with pytest.raises(ValueError):  # Hq not a multiple of Hkv
+        flash_attention(x, torch.zeros((1, 3, 8, 64)), torch.zeros((1, 3, 8, 64)))
+    with pytest.raises(TypeError):
+        flash_attention(x, x.bfloat16(), x)
+    with pytest.raises(TypeError):
+        flash_attention(*(x.half(),) * 3)
+    with pytest.raises(ValueError):  # operands on two devices
+        flash_attention(x, x.to("meta"), x)

@@ -11,7 +11,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_topk_match, cuda_device
+from torch_parity import assert_rows_close, assert_topk_match, cuda_device
 
 from repro_torch.core import builder, bruteforce
 from repro_torch.core import eval as ev
@@ -208,3 +208,171 @@ def test_cuda_quantized_search_matches_cpu_port(method, pp):
     assert_topk_match([a.cpu() for a in got_rr], want_rr, exact=False)
     s, i = gpu.search(q, k=10, depth=100, rerank=True)
     assert i.shape == (24, 10) and bool(torch.isfinite(s).all())
+
+
+# ---- K6, K7, K8 (dense score matrices) and K9 (flash attention) ------------
+
+
+def _dense_operands(kind: str, b: int, n: int, t: int, dev: torch.device):
+    """Operands of one dense score kernel; cosine's third is the docs'
+    inverse norms."""
+    g = torch.Generator(device=dev).manual_seed(43)
+    if kind == "lsh":
+        q, d = _operands("lsh", b, n, t, dev)
+        d.view(torch.int32)[:, ::3] = -1  # doc sentinels too, some where the query's are
+        return q, d, None
+    if kind.startswith("int8"):
+        return tuple(torch.randint(-128, 128, s, generator=g, device=dev, dtype=torch.int8)
+                     for s in ((b, t), (n, t))) + (None,)
+    if kind == "bf16":
+        return _operands("bf16", b, n, t, dev) + (None,)
+    q = torch.randn((b, t), generator=g, device=dev)
+    d = torch.randn((n, t), generator=g, device=dev) * 3
+    return q / q.norm(dim=1, keepdim=True), d, 1.0 / d.norm(dim=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,t", [(37, 3000, 257), (1, 1, 600), (70, 1000, 600)])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int8/int32", "f32", "lsh"])
+def test_cuda_dense_kernel_matches_plain_version(kind, b, n, t):
+    from repro_torch.kernels.cosine_score import kernel as cos_kernel, ref as cos_ref
+    from repro_torch.kernels.fakewords_score import kernel as fw_kernel, ref as fw_ref
+    from repro_torch.kernels.lsh_match import kernel as lsh_kernel, ref as lsh_ref
+
+    dev = cuda_device()
+    q, d, inv = _dense_operands(kind, b, n, t, dev)
+    if kind == "f32":
+        fn, before = cos_kernel.cosine_scores, cos_kernel.cosine_scores.launches
+        got, want = fn(q, d, inv), cos_ref.cosine_scores_ref(q, d, inv)
+    elif kind == "lsh":
+        fn, before = lsh_kernel.lsh_match_scores, lsh_kernel.lsh_match_scores.launches
+        got, want = fn(q, d), lsh_ref.lsh_match_scores_ref(q, d)
+    else:
+        out = torch.int32 if kind == "int8/int32" else torch.float32
+        fn, before = fw_kernel.score_matmul, fw_kernel.score_matmul.launches
+        got, want = fn(q, d, out), fw_ref.score_matmul_ref(q, d, out)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.dtype == want.dtype and got.shape == (b, n)
+    if kind in ("bf16", "f32"):
+        assert_rows_close(got, want, 1e-5)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,s", [(4, 4, 1), (4, 2, 130), (8, 1, 300)])
+def test_cuda_flash_attention_matches_plain_version(hq, hkv, s, dtype, d):
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v = (torch.randn((2, h, s, d), generator=g, device=dev).to(dtype)
+               for h in (hq, hkv, hkv))
+    before = kernel.flash_attention.launches
+    got = kernel.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert kernel.flash_attention.launches == before + 1
+    want = ref.attention_ref(q, k, v)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    assert_rows_close(got, want, tol)
+
+
+# Faults planted in copies of the attention kernel that only rows past 2,048
+# see (the blocks with more than 64 KV tiles): one KV tile skipped, one
+# rescale of the running output left out, the denominator 3% off.  Each
+# changes a late row by much less than the largest |output|, which sits in
+# the first rows.
+ATTENTION_FAULTS = {
+    "skip_middle_kv_tile": (
+        "    const int k0 = t * kBK;\n",
+        "    const int k0 = t * kBK;\n    if (n_tiles > 64 && t == n_tiles / 2) continue;\n"),
+    "skip_one_rescale": (
+        "      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;\n",
+        "      for (int c = 0; c < kCols; ++c)\n"
+        "        acc[i][c] *= (n_tiles > 64 && t == n_tiles / 2) ? 1.f : alpha;\n"),
+    "denominator_3pct_off": (
+        "    const float denom = fmaxf(l[i], 1e-30f);\n",
+        "    const float denom = fmaxf(l[i], 1e-30f) * (row >= 2048 ? 1.03f : 1.f);\n"),
+}
+
+
+@pytest.mark.gpu
+def test_cuda_attention_check_catches_planted_faults(tmp_path, monkeypatch):
+    """The row-scaled comparison that holds K9 to its plain version (here
+    and in chip_smoke.compare_dense) passes the kernel and fails each of
+    ATTENTION_FAULTS, built from a copy of the source under ``tmp_path``,
+    on a bf16 GQA layer at S = 4096."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    dev = cuda_device()
+    src = common.SOURCES["flash_attention"]
+    text = src.read_text()
+    monkeypatch.setattr(common, "BUILD_DIR", tmp_path / "build")
+    for name, (old, new) in ATTENTION_FAULTS.items():
+        assert text.count(old) == 1, name
+        (tmp_path / name).mkdir()
+        (tmp_path / name / src.name).write_text(text.replace(old, new))
+        monkeypatch.setitem(common.SOURCES, name, tmp_path / name / src.name)
+    common.build(["flash_attention", *ATTENTION_FAULTS])  # one nvcc each, in parallel
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = (torch.randn((1, h, 4096, 128), generator=g, device=dev).bfloat16()
+               for h in (8, 2, 2))
+    want = ref.attention_ref(q, k, v)
+    try:
+        for name in ("flash_attention", *ATTENTION_FAULTS):
+            monkeypatch.setitem(common.SOURCES, "flash_attention", common.SOURCES[name])
+            common.load_library.cache_clear()
+            kernel._lib.cache_clear()
+            got = kernel.flash_attention(q, k, v)
+            if name == "flash_attention":
+                assert_rows_close(got, want, 1e-2)
+                continue
+            with pytest.raises(AssertionError) as fault:
+                assert_rows_close(got, want, 1e-2)
+            print(f"{name}: {fault.value}")
+    finally:  # the next call loads the unchanged library again
+        common.load_library.cache_clear()
+        kernel._lib.cache_clear()
+
+
+@pytest.mark.gpu
+def test_cuda_dense_score_and_attention_entry_points_match_cpu_port():
+    """cosine_topk, classic_scores / dot_scores, lsh_topk and
+    causal_attention on the card against the same calls on the CPU."""
+    from repro_torch.core import fakewords, lexical_lsh
+    from repro_torch.kernels.cosine_score import cosine_topk
+    from repro_torch.kernels.fakewords_score import classic_scores, dot_scores
+    from repro_torch.kernels.flash_attention import causal_attention
+    from repro_torch.kernels.lsh_match import lsh_topk
+
+    dev = cuda_device()
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(2000, 64)).astype(np.float32))
+    q = x[:24] + 0.05
+    assert_topk_match([a.cpu() for a in cosine_topk(q.to(dev), x.to(dev), 10)],
+                      cosine_topk(q, x, 11), exact=False)
+    for scoring in ("classic", "dot"):
+        cfg = FakeWordsConfig(scoring=scoring)
+        cpu = AnnIndex.build(x, cfg, device="cpu")
+        gpu = AnnIndex(config=cfg, index=_on(cpu.index, dev))
+        q_tf = fakewords.encode_queries(q, cfg)
+        fn = classic_scores if scoring == "classic" else dot_scores
+        got, want = fn(gpu.index, q_tf.to(dev)).cpu(), fn(cpu.index, q_tf)
+        if scoring == "dot":
+            assert torch.equal(got, want)
+        else:
+            assert_rows_close(got, want, 1e-5)
+    lcfg = LexicalLshConfig(buckets=64, hashes=2)
+    lidx = AnnIndex.build(x, lcfg, device="cpu")
+    sig_q = lexical_lsh.encode(q, lcfg)
+    got = lsh_topk(_on(lidx.index, dev), sig_q.to(dev), 50)
+    want = lsh_topk(lidx.index, sig_q, 50)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    t = [torch.from_numpy(rng.normal(size=(1, h, 200, 96)).astype(np.float32)) for h in (8, 2, 2)]
+    got = causal_attention(*(a.to(dev).bfloat16() for a in t)).float().cpu()
+    want = causal_attention(*(a.bfloat16() for a in t)).float()
+    assert_rows_close(got, want, 1e-2)

@@ -40,6 +40,31 @@ def assert_topk_match(got, want, exact: bool, rtol: float = 1e-5, atol: float = 
     np.testing.assert_array_equal(gi[lone], wi[:, :d][lone])
 
 
+def assert_rows_close(got, want, tol: float) -> None:
+    """Hold dense float output ``got`` against ``want`` (tensors, numpy or
+    JAX arrays) row by row (the last dimension: a query's scores, or one
+    attention output row), so that a row of small values is held to its own
+    scale and not to the largest value in the whole output: each element
+    within rtol = ``tol`` and atol = ``tol`` times the row's largest |want|,
+    and the row's error norm within ``tol / 2`` of its norm."""
+    g, w = (x.detach().float().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x, np.float32) for x in (got, want))
+    assert g.shape == w.shape, (g.shape, w.shape)
+    if not w.size:
+        return
+    with np.errstate(invalid="ignore"):
+        diff = np.abs(g - w)
+        excess = diff - tol * (np.abs(w) + np.abs(w).max(axis=-1, keepdims=True))
+        bad = ~(excess <= 0)  # NaN on either side counts as bad
+        rows = np.linalg.norm(diff, axis=-1) - tol / 2 * np.linalg.norm(w, axis=-1)
+        bad_rows = ~(rows <= 0)
+    assert not bad.any(), (f"{int(bad.sum())} of {bad.size} elements past rtol = atol = {tol} "
+                           f"of their row's scale, worst by {np.nanmax(excess)}; first at "
+                           f"{np.argwhere(bad)[0].tolist()}")
+    assert not bad_rows.any(), (f"{int(bad_rows.sum())} of {bad_rows.size} rows' error norms "
+                                f"past {tol / 2} of their norms, worst by {np.nanmax(rows)}")
+
+
 def cuda_device() -> torch.device:
     """The first CUDA device; skips the calling test where there is none."""
     if not torch.cuda.is_available():
