@@ -2,12 +2,19 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --pair-parent DIR   # K1 against the tree in DIR, then stop
+    python3 chip_smoke.py --ablate-k1         # K1 classic with parts cut out, then stop
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc
-   (sm_90a) and prints the build time and the compiler's register report.
+   (sm_90a) and prints the build time and the compiler's register report,
+   and the count of tensor-core (HMMA) instructions in each instance of
+   K1's bf16 pass 1 (``cuobjdump -sass``; none fails the run).
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
-   shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``.
+   shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
+   for bf16 also 0/1 operands, scores that rise or fall with the doc id
+   (every tile, or only the first, feeds the running lists; ids must be
+   bit-equal), depth 3,072 at B = 1 and B = 65.
 3. Holds the gathered fused top-k kernel (K3) against its plain version the
    same way, with row ids in random order and in 256-row blocks, padding
    ids, ``filt``, and B = 1 over ~300k rows.
@@ -27,7 +34,8 @@
    searches it at B = 256 on K1's lsh mode (K2), with recall.
 8. Times build, searches (B = 256, 8 and 1), and each kernel beside its
    bound, its plain version and a library yardstick, with CUDA events
-   (median of 10 runs after a warm-up).
+   (median of 10 runs after a warm-up); traces five classic searches at
+   B = 256 with torch.profiler (device time per CUDA kernel, idle share).
 9. Holds the dense score kernels (K6 ``cosine_scores``, K7 ``score_matmul``,
    K8 ``lsh_match_scores``) and the flash attention kernel (K9) against
    their plain versions: unaligned B / N / T, B = 1 and N = 1, int8 over its
@@ -55,6 +63,14 @@
 Exits non-zero on any failure, or when no CUDA device is available.  The
 last two lines are a JSON object of per-kernel numbers and the JSON status
 line ``{"ok": true, "device": {...}}``.
+
+With ``--pair-parent DIR`` (DIR an earlier commit of this repository,
+unpacked, e.g. by ``git archive``), it builds that tree's ``fused_topk.cu``
+beside this one's and times both on the ann-word2vec inputs in turns
+(parent, this, this, parent): K1 classic at B = 256 and B = 1, K1 f32 at
+B = 256.  With ``--ablate-k1`` it times K1 classic's bf16 pass 1 against
+copies of it with the running top-k, and then the products too, cut out
+(K1_ABLATIONS), on random operands at the cell's shapes.
 """
 from __future__ import annotations
 
@@ -62,6 +78,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -209,14 +226,15 @@ def compare(name, got, want, exact: bool) -> float:
 
 def _instance(mangled: str) -> str:
     """``fused_topk_quantized_partial<1, 4, 32>`` from a mangled kernel name:
-    the kernel's name and its integer template arguments."""
+    the kernel's name and its integer, bool and type template arguments."""
     m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_partial|gathered_partial"
-                  r"|partial|merge)|dense_scores|flash_attention_fwd)(?:I((?:Li-?\d+E|[ft])+)E)?",
+                  r"|bf16_partial|partial|merge)|dense_scores|flash_attention_fwd)"
+                  r"(?:I((?:Li-?\d+E|Lb[01]E|[ft])+)E)?",
                   mangled)
     if m is None:
         return mangled.strip()[:72]
-    args = [num or {"f": "float", "t": "bf16"}[typ]
-            for num, typ in re.findall(r"Li(-?\d+)E|([ft])", m.group(2) or "")]
+    args = [num or {"0": "false", "1": "true"}.get(flag) or {"f": "float", "t": "bf16"}[typ]
+            for num, flag, typ in re.findall(r"Li(-?\d+)E|Lb([01])E|([ft])", m.group(2) or "")]
     return m.group(1) + (f"<{', '.join(args)}>" if args else "")
 
 
@@ -236,6 +254,40 @@ def build_kernels(names=None) -> float:
     return seconds
 
 
+def sass_hmma(name: str = "fused_topk"):
+    """Tensor-core (HMMA) instructions per kernel instance in the SASS of
+    library ``name`` (``cuobjdump -sass``), or None where the toolkit has no
+    cuobjdump."""
+    from repro_torch.kernels import common
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(common.library_path(name))], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = _instance(line.split("Function :")[1])
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def check_tensor_cores() -> None:
+    """Every instance of K1's bf16 pass 1 holds HMMA instructions."""
+    counts = sass_hmma()
+    if counts is None:
+        print("HMMA count: no cuobjdump in the CUDA toolkit")
+        return
+    bf16 = {k: v for k, v in counts.items() if k.startswith("fused_topk_bf16_partial")}
+    print(f"HMMA instructions in the SASS (cuobjdump -sass): {bf16}; every other fused_topk "
+          f"kernel: {sum(v for k, v in counts.items() if k not in bf16)}")
+    if not bf16 or not all(bf16.values()):
+        raise AssertionError(f"K1's bf16 pass 1 has no tensor-core instructions: {bf16}")
+
+
 def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
     if kind == "int8":
         q = torch.randint(-50, 50, (b, t), generator=gen, device=dev, dtype=torch.int8)
@@ -243,6 +295,18 @@ def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
     elif kind == "ties":  # 0/1 operands: scores tie constantly
         q = torch.randint(0, 2, (b, t), generator=gen, device=dev, dtype=torch.int8)
         d = torch.randint(0, 2, (n, t), generator=gen, device=dev, dtype=torch.int8)
+    elif kind == "ties-bf16":  # 0/1 bf16 operands: small integer scores, tied constantly
+        q = torch.randint(0, 2, (b, t), generator=gen, device=dev).to(torch.bfloat16)
+        d = torch.randint(0, 2, (n, t), generator=gen, device=dev).to(torch.bfloat16)
+    elif kind in ("rising", "falling"):  # bf16, exact scores 4 id + (0..3): monotone in the id
+        ids = torch.arange(n, device=dev)
+        d = torch.randint(-3, 4, (n, t), generator=gen, device=dev)
+        d[:, 0], d[:, 1] = ids // 256, ids % 256
+        d[:, 2] = torch.randint(0, 4, (n,), generator=gen, device=dev)
+        q = torch.zeros((b, t), device=dev)
+        q[:, 0], q[:, 1] = 1024, 4
+        q[:, 2] = torch.randint(0, 2, (b,), generator=gen, device=dev)
+        q, d = (q if kind == "rising" else -q).to(torch.bfloat16), d.to(torch.bfloat16)
     elif kind == "lsh":
         d = torch.randint(0, 7, (n, t), generator=gen, device=dev, dtype=torch.int32)
         q = d[torch.randint(0, n, (b,), generator=gen, device=dev)].clone()
@@ -253,6 +317,9 @@ def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
         q = (torch.randn((b, t), generator=gen, device=dev) / t**0.5).to(dtype)
         d = torch.randn((n, t), generator=gen, device=dev).to(dtype)
     return q, d
+
+
+EXACT_KINDS = ("int8", "lsh", "ties", "ties-bf16", "rising", "falling")  # integer scores
 
 
 def check_kernels(dev) -> dict:
@@ -277,6 +344,18 @@ def check_kernels(dev) -> dict:
         ("ties", 9, 1000, 16, 1000, "shared", None),
         ("f32", 1, 200_000, 300, 100, None, None),    # B = 1: many N-splits
         ("bf16", 300, 20_000, 600, 100, None, None),  # several query tiles
+        # The tensor-core bf16 pass 1 where its running top-k must be exact:
+        # integer scores, so ids are bit-equal to the plain version's.
+        ("ties-bf16", 3, 130, 16, 130, None, None),   # depth = N, massive ties
+        ("ties-bf16", 33, 300, 16, 300, None, None),
+        ("ties-bf16", 9, 1000, 16, 1000, "shared", None),
+        ("ties-bf16", 1, 5000, 64, 3072, None, None),  # the widest lists: merge by insert
+        ("rising", 65, 20_000, 37, 100, None, None),   # every tile flushes
+        ("rising", 1, 20_000, 600, 100, None, 19_000),
+        ("falling", 65, 20_000, 600, 100, "per-query", None),  # only the first tiles flush
+        ("falling", 5, 20_000, 257, 100, None, None),
+        ("bf16", 1, 20_000, 600, 3072, None, None),    # depth 3,072 at B = 1
+        ("bf16", 65, 20_000, 600, 100, None, None),    # B = 65 at T = 600
     ]
     worst = {}
     for kind, b, n, t, depth, filt_kind, n_docs in cases:
@@ -292,7 +371,7 @@ def check_kernels(dev) -> dict:
         nd = n if n_docs is None else n_docs
         want = ref.fused_topk_ref(q, d, min(depth + 1, nd), mode=mode, filt=filt, n_docs=n_docs)
         name = f"{kind} B={b} N={n} T={t} depth={depth} filt={filt_kind} n_docs={n_docs}"
-        err = compare(name, got, want, exact=kind in ("int8", "lsh", "ties"))
+        err = compare(name, got, want, exact=kind in EXACT_KINDS)
         worst[kind] = max(worst.get(kind, 0.0), err)
         print(f"  ok  {name}  max_abs_err={err:.3g}")
     print(f"fused_topk vs plain on the card: {len(cases)} cases, worst {worst}")
@@ -662,7 +741,7 @@ def _only(path: str, kernel_name: str) -> int:
     return counts[kernel_name]
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -670,7 +749,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = gpu_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if argv[:1] == ["--pair-parent"]:  # K1 against an earlier tree's, then stop
+        pair_parent(dev, card, argv[1])
+        return 0
+    if argv[:1] == ["--ablate-k1"]:  # K1 classic with parts cut out, then stop
+        build_kernels(["fused_topk"])
+        ablate_k1(dev, card)
+        return 0
     build_kernels()
+    check_tensor_cores()
     check_kernels(dev)
     check_gathered(dev)
     check_quantized(dev)
@@ -694,6 +781,129 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _k1_from(kdir: str, out: str, edits=(), mode_plan: bool = True):
+    """K1 (``fused_topk``, gemm mode, no filt) built with nvcc from the
+    kernels directory ``kdir`` of some tree (its fused_topk.cu, with the text
+    ``edits`` applied to a copy beside ``out``) into the library ``out``,
+    and called through its C entry points with that tree's launch plan:
+    ``fused_topk_plan(mode, B, n_docs, depth, sm_count, plan[5])``, or
+    without the mode and plan[4] where ``mode_plan`` is False (the trees
+    before the tensor-core bf16 pass 1)."""
+    import ctypes
+
+    from repro_torch.kernels import common
+
+    src = os.path.join(kdir, "fused_topk", "csrc", "fused_topk.cu")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    if edits:
+        text = open(src).read()
+        for old, new in edits:
+            if old not in text:
+                raise ValueError(f"{src} has no {old!r}")
+            text = text.replace(old, new)
+        shutil.copytree(os.path.dirname(src), os.path.dirname(out) + "/csrc", dirs_exist_ok=True)
+        src = os.path.dirname(out) + "/csrc/fused_topk.cu"
+        with open(src, "w") as f:
+            f.write(text)
+    subprocess.run([common._nvcc(), *common.NVCC_FLAGS, "-I", os.path.join(kdir, "csrc"),
+                    "-o", out, src], check=True, capture_output=True)
+    lib = ctypes.CDLL(out)
+    p, i, ll, pi = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
+    lib.fused_topk_plan.argtypes = [i] * (5 if mode_plan else 4) + [pi]
+    lib.fused_topk_plan.restype = i
+    lib.fused_topk_launch.argtypes = [i, i, p, p, p, ll] + [i] * 8 + [p] * 5
+    lib.fused_topk_launch.restype = i
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+
+    def topk(q, docs, depth):
+        b, t = q.shape
+        sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+        plan = (ctypes.c_int * 5)()
+        args = ((codes[q.dtype],) if mode_plan else ()) + (b, docs.shape[0], depth, sm, plan)
+        if lib.fused_topk_plan(*args) != 0:
+            raise ValueError(f"{out}: the plan refused the call")
+        bq, k, splits, per = plan[:4]
+        part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
+        part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
+        out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
+        out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
+        err = lib.fused_topk_launch(
+            codes[q.dtype], bq, q.data_ptr(), docs.data_ptr(), None, 0, b, docs.shape[0], t,
+            depth, k, splits, per, int(common.row_alignment(q) == 16)
+            | int(common.row_alignment(docs) == 16) << 1, part_s.data_ptr(), part_i.data_ptr(),
+            out_s.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{out}: fused_topk_launch failed: cudaError {err}")
+        return out_s, out_i
+
+    return topk
+
+
+# Copies of K1's bf16 pass 1 with a part cut out, for timing only (their
+# results are wrong): without the running top-k (no candidate ever leaves
+# the accumulators), and without the products too (the loads alone).
+_NO_TOPK = ("    if (chunk != n_chunks - 1) continue;\n",
+            "    if (chunk != n_chunks - 1 || n_chunks > 0) continue;\n")
+K1_ABLATIONS = {
+    "without the running top-k": [_NO_TOPK],
+    "loads only": [_NO_TOPK, ("for (int ks = 0; ks < kMmaBK / 16; ++ks) {",
+                              "for (int ks = 0; ks < 0; ++ks) {")],
+}
+
+
+def ablate_k1(dev, card: str) -> None:
+    """K1 classic's bf16 pass 1 and its ablations (K1_ABLATIONS) on random
+    bf16 operands at the cell's shapes (2,999,808 x 600, depth 100; B = 256
+    and B = 1), timed in turns: full, each ablation, full."""
+    from repro_torch.kernels.fused_topk.kernel import fused_topk
+
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    cut = {name: _k1_from(kdir, os.path.join(ROOT, "build", "ablate", str(j), "libfused_topk.so"),
+                          edits) for j, (name, edits) in enumerate(K1_ABLATIONS.items())}
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, t = 2_999_808, 600
+    docs = torch.randn((n, t), generator=gen, device=dev).to(torch.bfloat16)
+    q = (torch.randn((256, t), generator=gen, device=dev) / t**0.5).to(torch.bfloat16)
+    for b in (256, 1):
+        qb = q[:b]
+        line = [f"full {cuda_ms(lambda: fused_topk(qb, docs, 100)):.3f} ms"]
+        line += [f"{name} {cuda_ms(lambda: fn(qb, docs, 100)):.3f} ms" for name, fn in cut.items()]
+        line.append(f"full {cuda_ms(lambda: fused_topk(qb, docs, 100)):.3f} ms")
+        print(f"K1 classic ablation, random bf16, B={b}, N={n}, T={t}, depth 100, on {card}: "
+              + "; ".join(line))
+
+
+def pair_parent(dev, card: str, parent: str) -> None:
+    """K1 classic (bf16, the main path's call) at B = 256 and B = 1, and K1
+    f32 (the ground truth's call) at B = 256, of the tree ``parent`` and of
+    this tree on the same inputs in one process, timed in turns (parent,
+    this, this, parent; median of RUNS each), with the ids held equal."""
+    from repro_torch.configs import ann_word2vec
+    from repro_torch.core import bruteforce, fakewords
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.kernels.fused_topk.kernel import fused_topk
+
+    build_kernels(["fused_topk"])
+    old = _k1_from(os.path.join(os.path.abspath(parent), "src", "repro_torch", "kernels"),
+                   os.path.join(ROOT, "build", "parent", "libfused_topk.so"), mode_plan=False)
+    cell = ann_word2vec.ARCH.cell("ann_search")
+    config = ann_word2vec.ARCH.make_model(cell)
+    x, qx = make_inputs(dev, cell.get("n_docs"), cell.batch)
+    idx = AnnIndex.build(x, config, device=dev)
+    qn = bruteforce.l2_normalize(qx)
+    qv = fakewords.classic_query(idx.index, fakewords.encode_queries(qn, config, normalized=True))
+    depth, k = cell.get("depth"), cell.get("k")
+    for name, q, docs, d in (("K1 classic bf16 B=256", qv, idx.index.scored, depth),
+                             ("K1 classic bf16 B=1", qv[:1], idx.index.scored, depth),
+                             ("K1 f32 B=256", qn, idx.index.vectors, k)):
+        compare(f"{name}: this tree vs the parent", fused_topk(q, docs, d), old(q, docs, d + 1),
+                exact=False)
+        times = [cuda_ms(lambda: (old if i in (0, 3) else fused_topk)(q, docs, d))
+                 for i in range(4)]
+        print(f"pairing {name} on {card}: parent {times[0]:.3f} ms, this tree {times[1]:.3f} ms, "
+              f"this tree {times[2]:.3f} ms, parent {times[3]:.3f} ms")
 
 
 def make_inputs(dev, n: int, b: int):
@@ -878,6 +1088,7 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
         t_256 = cuda_ms(lambda: pidx.search(qx, k=k, depth=depth), runs=3, warmup=1)
         print(f"blockmax classic n_keep={n_keep} search: {'; '.join(line)}; "
               f"B={b} {t_256:.2f} ms (median of 3)")
+    profile_search(idx, qx, k, depth, card)
     t_lsh = cuda_ms(lambda: lidx.search(qx, k=k, depth=depth))
     t_lsh_1 = cuda_ms(lambda: lidx.search(qx[:1], k=k, depth=depth))
     print(f"lexical LSH search: B={b} {t_lsh:.2f} ms; B=1 {t_lsh_1:.3f} ms")
@@ -948,6 +1159,49 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
         "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
     })
     return kernels, gt_i, idx, lidx
+
+
+def profile_search(idx, qx, k: int, depth: int, card: str, runs: int = 5) -> None:
+    """A torch.profiler trace of ``runs`` back-to-back main-path classic
+    searches: device time per CUDA kernel (pass 1, merge, the encoder's
+    kernels) and the device's idle share between the first kernel's start
+    and the last one's end.  Where the trace holds no device time, the
+    search and its K1 call are timed with CUDA events instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    idx.search(qx, k=k, depth=depth)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            idx.search(qx, k=k, depth=depth)
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+    if not spans:
+        from repro_torch.core import fakewords
+        from repro_torch.kernels.fused_topk.kernel import fused_topk
+
+        qv = fakewords.classic_query(idx.index, fakewords.encode_queries(qx, idx.config))
+        print(f"profile: torch.profiler recorded no device time; CUDA events on {card}: search "
+              f"B={qx.shape[0]} {cuda_ms(lambda: idx.search(qx, k=k, depth=depth)):.3f} ms, its "
+              f"K1 call {cuda_ms(lambda: fused_topk(qv, idx.index.scored, depth)):.3f} ms")
+        return
+    per, busy, end = {}, 0.0, spans[0][0]
+    for a, b, name in spans:
+        key = _instance(name) if "fused_topk" in name else name[:60]
+        n, t = per.get(key, (0, 0.0))
+        per[key] = (n + 1, t + (b - a) / 1e3)
+        busy += max(0.0, b - max(a, end))  # the union of the device intervals
+        end = max(end, b)
+    window = (end - spans[0][0]) / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1][1])
+    rest = sum(t for _, (_, t) in top[8:])
+    print(f"profile (torch.profiler, {runs} classic searches of B={qx.shape[0]}, k {k}, depth "
+          f"{depth}) on {card}: device window {window:.3f} ms, busy {busy / 1e3:.3f} ms, idle "
+          f"share {1 - busy / 1e3 / window:.4f}; per search: "
+          + "; ".join(f"{name} {t / runs:.4f} ms ({n // runs} a search)" for name, (n, t) in top[:8])
+          + f"; the other {max(0, len(top) - 8)} kernels {rest / runs:.4f} ms")
 
 
 def timed(fn):
@@ -1377,4 +1631,4 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

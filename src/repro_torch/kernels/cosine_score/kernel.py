@@ -26,17 +26,19 @@ def _lib() -> ctypes.CDLL:
 
 def cosine_scores(q: torch.Tensor, docs: torch.Tensor, inv_norm: torch.Tensor) -> torch.Tensor:
     """(B, N) f32 ``(q @ docs.T) * inv_norm`` for unit queries q (B, dim),
-    raw documents docs (N, dim) and their inverse norms (N,), all f32; the
-    norms are applied in the kernel's epilogue."""
+    raw documents docs (N, dim) and their inverse norms (N,); the norms are
+    applied in the kernel's epilogue.  The kernel takes f32 only; on the CPU
+    the plain version also takes bf16, products summed in f32."""
     if (q.dim() != 2 or docs.dim() != 2 or q.shape[1] != docs.shape[1]
             or tuple(inv_norm.shape) != (docs.shape[0],)):
         raise ValueError(f"want q (B, dim), docs (N, dim), inv_norm (N,), got {tuple(q.shape)}, "
                          f"{tuple(docs.shape)}, {tuple(inv_norm.shape)}")
+    # The plain version sums any dtype in f32, as the reference does.
+    if common.on_cpu(q, docs, inv_norm):
+        return ref.cosine_scores_ref(q, docs, inv_norm)
     if {q.dtype, docs.dtype, inv_norm.dtype} != {torch.float32}:
         raise TypeError(f"q, docs and inv_norm must be float32, got {q.dtype}, {docs.dtype}, "
                         f"{inv_norm.dtype}")
-    if common.on_cpu(q, docs, inv_norm):
-        return ref.cosine_scores_ref(q, docs, inv_norm)
     if not (q.is_contiguous() and docs.is_contiguous() and inv_norm.is_contiguous()):
         raise ValueError("q, docs and inv_norm must be contiguous")
     b, dim = q.shape

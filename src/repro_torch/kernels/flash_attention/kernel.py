@@ -29,9 +29,10 @@ def _lib() -> ctypes.CDLL:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Causal GQA attention, forward only: q (B, Hq, S, D), k and v
-    (B, Hkv, S, D), Hq a multiple of Hkv, f32 or bf16, D in
-    :data:`HEAD_DIMS`; query head h reads KV head h // (Hq // Hkv).  Returns
-    (B, Hq, S, D) in q's dtype; statistics and products are f32."""
+    (B, Hkv, S, D), Hq a multiple of Hkv; query head h reads KV head
+    h // (Hq // Hkv).  Returns (B, Hq, S, D) in q's dtype; statistics and
+    products are f32.  The kernel takes f32 or bf16 and D in
+    :data:`HEAD_DIMS`; on the CPU the plain version takes any D and dtype."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"want q (B, Hq, S, D), k and v (B, Hkv, S, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -40,13 +41,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     if (k.shape[0], k.shape[2], k.shape[3]) != (b, s, d) or hkv == 0 or hq % hkv:
         raise ValueError(f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)} "
                          "(same B, S, D; Hq a multiple of Hkv)")
+    # The plain version takes any head dim and dtype, as the reference does.
+    if common.on_cpu(q, k, v):
+        return ref.attention_ref(q, k, v)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must all be float32 or all bfloat16, got {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
-    if common.on_cpu(q, k, v):
-        return ref.attention_ref(q, k, v)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
     out = torch.empty_like(q)

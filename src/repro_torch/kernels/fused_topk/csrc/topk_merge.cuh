@@ -1,9 +1,10 @@
 // What the fused top-k kernels share (fused_topk.cu: K1-K3;
-// fused_topk_quantized.cu: K4-K5): the streaming pass 1's tile shape and
-// both pass-1 launch plans (how N or R is split so that B = 1 fills the
-// SMs), the (score desc, id asc) order, the warp-wide sorted insert, the
-// merge of two sorted lists, and pass 2 (fused_topk_merge), which merges
-// the splits' sorted partial lists of every query and writes the first
+// fused_topk_quantized.cu: K4-K5): the CUDA-core streaming pass 1's tile
+// shape and both pass-1 launch plans (how N or R is split so that B = 1
+// fills the SMs; K1's bf16 pass 1 on tensor cores has its own plan, in
+// fused_topk.cu), the (score desc, id asc) order, the warp-wide sorted
+// insert, the merge of two sorted lists, and pass 2 (fused_topk_merge),
+// which merges the splits' sorted partial lists of every query and writes the first
 // `depth` entries.  Each source is its own shared library, so the
 // definitions live in an anonymous namespace and each library carries its
 // own copy.

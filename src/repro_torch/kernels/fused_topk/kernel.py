@@ -10,7 +10,8 @@ Routing follows the tensors' device: on the CPU the plain version
 (:mod:`.ref`) runs; on a CUDA device the kernel launches on the current
 stream, or the call raises.  Each wrapper's ``launches`` counts the calls
 that launched on the card; each such call launches two CUDA kernels, pass 1
-(``fused_topk_partial``, ``fused_topk_gathered_partial``,
+(``fused_topk_bf16_partial`` for bf16 operands, ``fused_topk_partial`` for
+the other modes, ``fused_topk_gathered_partial``,
 ``fused_topk_quantized_partial`` or ``fused_topk_gathered_quantized_partial``)
 and the merge (``fused_topk_merge``).
 """
@@ -34,17 +35,19 @@ _QUERY_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # the quantized kernels' 
 def _lib() -> ctypes.CDLL:
     p, i, ll, pi = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
     return common.bind(
-        "fused_topk", fused_topk_plan=[i, i, i, i, pi],
+        "fused_topk", fused_topk_plan=[i, i, i, i, i, pi],
         fused_topk_launch=[i, i, p, p, p, ll, i, i, i, i, i, i, i, i, p, p, p, p, p],
         fused_topk_gathered_plan=[i, i, i, i, i, i, pi],
         fused_topk_gathered_launch=[i, p, p, p, i, i, i, i, i, i, i, i, i, p, p, p, p, p])
 
 
-def plan(b: int, n_docs: int, depth: int, sm_count: int) -> Tuple[int, int, int, int]:
-    """The source's launch shape (``fused_topk_plan``): (queries per block,
-    running-list width K, N-splits, doc tiles per split)."""
-    out = (ctypes.c_int * 4)()
-    if _lib().fused_topk_plan(b, n_docs, depth, sm_count, out) != 0:
+def plan(code: int, b: int, n_docs: int, depth: int,
+         sm_count: int) -> Tuple[int, int, int, int, int]:
+    """The source's launch shape in score mode ``code`` (``fused_topk_plan``;
+    bf16 has a tensor-core pass 1 of its own): (queries per block,
+    running-list width K, N-splits, doc tiles per split, docs per tile)."""
+    out = (ctypes.c_int * 5)()
+    if _lib().fused_topk_plan(code, b, n_docs, depth, sm_count, out) != 0:
         raise ValueError(f"depth {depth}: the running lists do not fit in shared memory")
     return tuple(out)
 
@@ -115,7 +118,7 @@ def fused_topk(
         f_ptr, f_stride = filt.data_ptr(), (n if filt.dim() == 2 else 0)
 
     sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
-    bq, k, splits, tiles_per_split = plan(b, n_docs, depth, sm_count)
+    bq, k, splits, tiles_per_split, _ = plan(code, b, n_docs, depth, sm_count)
     part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
     part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
     out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)

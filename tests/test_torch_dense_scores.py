@@ -90,6 +90,22 @@ def test_cosine_scores_matches_jax(b, n, dim):
     _close(got, jcosine_ref(*jargs))
 
 
+@pytest.mark.parametrize("b,n,dim", [(4, 128, 64), (3, 513, 257)])
+def test_cosine_scores_bf16_cpu_route_matches_jax(b, n, dim):
+    """bf16 queries and documents: the kernel takes f32 only, the CPU route
+    sums the exact bf16 products in f32, as the reference does."""
+    rng = np.random.default_rng(dim + 1)
+    q = rng.normal(size=(b, dim))
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    docs = rng.normal(size=(n, dim)) * rng.uniform(0.1, 10, (n, 1))
+    jq, jd = jnp.asarray(q, jnp.bfloat16), jnp.asarray(docs, jnp.bfloat16)
+    inv = (1.0 / np.linalg.norm(np.asarray(jd, np.float32), axis=-1)).astype(np.float32)
+    got = cosine_scores(to_torch(jq), to_torch(jd), torch.from_numpy(inv))
+    assert got.dtype == torch.float32 and got.shape == (b, n)
+    _close(got, jcosine_scores(jq, jd, jnp.asarray(inv), interpret=True))
+    _close(got, jcosine_ref(jq, jd, jnp.asarray(inv)))
+
+
 def _signatures(b: int, n: int, s: int, seed: int):
     """uint32 signatures with few distinct values (many collisions), query
     sentinels, doc sentinels (some where the query's are) and doc slots at
@@ -203,7 +219,7 @@ def test_stable_topk_is_lax_top_k_order():
         np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
 
 
-def test_wrappers_refuse_what_the_kernels_do_not_take():
+def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
     i8 = torch.zeros((2, 8), dtype=torch.int8)
     bf = torch.zeros((2, 8), dtype=torch.bfloat16)
     f32 = torch.zeros((2, 8))
@@ -215,8 +231,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         score_matmul(i8, bf)
     with pytest.raises(ValueError):
         score_matmul(i8, torch.zeros((3, 7), dtype=torch.int8))
-    with pytest.raises(TypeError):
-        cosine_scores(bf, bf, torch.ones(2))  # K6 takes f32 only
     with pytest.raises(ValueError):
         cosine_scores(f32, f32, torch.ones(3))
     with pytest.raises(TypeError):
@@ -225,3 +239,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         score_matmul(i8, i8.to("meta"))
     with pytest.raises(ValueError):
         lsh_match_scores(*(torch.zeros((2, 4), dtype=torch.uint32, device="meta"),) * 2)
+    # K6's kernel route (the operands taken as lying on one card) takes f32
+    # only; its CPU route also computes bf16, as the reference does.
+    monkeypatch.setattr(common, "on_cpu", lambda *tensors: False)
+    with pytest.raises(TypeError):
+        cosine_scores(bf, bf, torch.ones(2))

@@ -17,6 +17,7 @@ from torch_parity import assert_rows_close, to_torch
 from repro.kernels.flash_attention.kernel import flash_attention as jflash_attention
 from repro.kernels.flash_attention.ops import causal_attention as jcausal_attention
 from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
+from repro_torch.kernels import common
 from repro_torch.kernels.flash_attention import causal_attention, flash_attention, ref
 
 TOL = {"f32": 1e-4, "bf16": 1e-2}
@@ -46,6 +47,18 @@ def test_flash_attention_matches_jax(b, hq, hkv, s, d, dtype):
     assert_rows_close(got, jattention_ref(jq, jk, jv), TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("b,hq,hkv,s", [(1, 4, 2, 130), (2, 2, 1, 64)])
+def test_flash_attention_cpu_route_takes_any_head_dim(b, hq, hkv, s, dtype):
+    """D = 16 has no kernel instance; the CPU route computes it, as the
+    reference does for any D."""
+    jq, jk, jv = _qkv(b, hq, hkv, s, 16, dtype, seed=hq * s + 16)
+    got = flash_attention(to_torch(jq), to_torch(jk), to_torch(jv))
+    assert got.shape == (b, hq, s, 16)
+    assert_rows_close(got, jflash_attention(jq, jk, jv, interpret=True), TOL[dtype])
+    assert_rows_close(got, jattention_ref(jq, jk, jv), TOL[dtype])
+
+
 def test_causal_attention_is_the_reference_entry_point():
     jq, jk, jv = _qkv(2, 6, 2, 70, 64, "f32", seed=5)
     got = causal_attention(to_torch(jq), to_torch(jk), to_torch(jv))
@@ -62,15 +75,20 @@ def test_plain_version_in_blocks_equals_one_block(monkeypatch):
     torch.testing.assert_close(ref.attention_ref(q, k, v), whole, rtol=1e-6, atol=1e-6)
 
 
-def test_flash_attention_refuses_what_the_kernel_does_not_take():
+def test_flash_attention_refuses_what_the_kernel_does_not_take(monkeypatch):
     x = torch.zeros((1, 4, 8, 64))
+    with pytest.raises(ValueError):  # Hq not a multiple of Hkv, on either route
+        flash_attention(x, torch.zeros((1, 3, 8, 64)), torch.zeros((1, 3, 8, 64)))
+    with pytest.raises(ValueError):  # operands on two devices
+        flash_attention(x, x.to("meta"), x)
+    # The kernel's route (the operands taken as lying on one card) refuses
+    # what the kernel has no instance for; the CPU route computes it.
+    monkeypatch.setattr(common, "on_cpu", lambda *tensors: False)
     with pytest.raises(ValueError):  # head width without an instance
         flash_attention(*(torch.zeros((1, 4, 8, 48)),) * 3)
-    with pytest.raises(ValueError):  # Hq not a multiple of Hkv
-        flash_attention(x, torch.zeros((1, 3, 8, 64)), torch.zeros((1, 3, 8, 64)))
+    with pytest.raises(ValueError):
+        flash_attention(*(torch.zeros((1, 4, 8, 16)),) * 3)
     with pytest.raises(TypeError):
         flash_attention(x, x.bfloat16(), x)
     with pytest.raises(TypeError):
         flash_attention(*(x.half(),) * 3)
-    with pytest.raises(ValueError):  # operands on two devices
-        flash_attention(x, x.to("meta"), x)

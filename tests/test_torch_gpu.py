@@ -76,19 +76,68 @@ def test_cuda_kernel_matches_plain_version(kernel, kind):
     assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=exact)
 
 
+def _bf16_operands(kind: str, b: int, n: int, t: int, dev: torch.device):
+    """bf16 operands whose scores are small integers, exact in f32: 0/1
+    values ("ties"), or scores 4 * id + (0..3) that rise ("rising") or fall
+    ("falling") with the doc id, so that every tile (rising) or only the
+    first (falling) sends candidates to the running lists."""
+    g = torch.Generator(device=dev).manual_seed(47)
+    if kind == "ties":
+        return tuple(torch.randint(0, 2, shape, generator=g, device=dev).to(torch.bfloat16)
+                     for shape in ((b, t), (n, t)))
+    ids = torch.arange(n, device=dev)
+    d = torch.randint(-3, 4, (n, t), generator=g, device=dev)
+    d[:, 0], d[:, 1] = ids // 256, ids % 256
+    d[:, 2] = torch.randint(0, 4, (n,), generator=g, device=dev)
+    q = torch.zeros((b, t), device=dev)
+    q[:, 0], q[:, 1] = 1024, 4
+    q[:, 2] = torch.randint(0, 2, (b,), generator=g, device=dev)
+    return (q if kind == "rising" else -q).to(torch.bfloat16), d.to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,b,n,t,depth", [
+    ("ties", 9, 1000, 16, 1000),      # depth = N, ties everywhere
+    ("ties", 33, 300, 16, 300),       # 64-query tile, ragged B
+    ("rising", 65, 20_000, 37, 100),  # every tile flushes; two query tiles, ragged T
+    ("falling", 65, 20_000, 37, 100),
+    ("rising", 1, 20_000, 600, 100),  # 8-query tiles
+    ("wide", 1, 5000, 64, 3072),      # the widest list: one stage, merge by insert
+])
+def test_cuda_bf16_topk_ties_order_and_wide_lists(kind, b, n, t, depth):
+    """The tensor-core bf16 pass 1 where its running top-k must be exact:
+    integer scores make ids bit-equal to the plain version's."""
+    dev = cuda_device()
+    if kind == "wide":
+        q, d = _operands("bf16", b, n, t, dev)
+    else:
+        q, d = _bf16_operands(kind, b, n, t, dev)
+    got = fused_topk(q, d, depth)
+    torch.cuda.synchronize()
+    want = ref.fused_topk_ref(q, d, min(depth + 1, n))
+    assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=kind != "wide")
+
+
 @pytest.mark.gpu
 def test_launch_plan_fills_the_card_at_both_batch_sizes():
     cuda_device()
-    n_tiles = -(-2_999_808 // 256)  # 256-doc tiles
-    for b, bq_want in ((256, 32), (1, 8)):
-        bq, k, splits, per = plan(b, 2_999_808, 100, sm_count=132)
-        assert (bq, k) == (bq_want, 128)
-        assert -(-b // bq) * splits >= 132
-        assert (splits - 1) * per < n_tiles <= splits * per  # no empty split
-    assert plan(256, 5000, 1000, 132)[0] == 8  # wide lists: 8-query blocks
-    assert plan(1, 5000, 3072, 132)[1] == 3072
+    n = 2_999_808
+    for code, bq_256 in ((0, 32), (1, 64)):  # f32 on CUDA cores, bf16 on tensor cores
+        for b, bq_want in ((256, bq_256), (1, 8)):
+            bq, k, splits, per, tile = plan(code, b, n, 100, sm_count=132)
+            n_tiles = -(-n // tile)
+            assert (bq, k) == (bq_want, 128)
+            assert -(-b // bq) * splits >= 132
+            assert (splits - 1) * per < n_tiles <= splits * per  # no empty split
+    for code in (0, 1):
+        assert plan(code, 256, 5000, 1000, 132)[0] == 8  # wide lists: 8-query blocks
+        assert plan(code, 1, 5000, 3072, 132)[1] == 3072
     with pytest.raises(ValueError, match="shared memory"):
-        plan(1, 5000, 3073, 132)
+        plan(0, 1, 5000, 3073, 132)
+    # bf16 at 8-query tiles drops to one stage of 128 docs for wide lists
+    assert plan(1, 1, 5000, 3136, 132)[1:] == (3136, 40, 1, 128)
+    with pytest.raises(ValueError, match="shared memory"):
+        plan(1, 1, 5000, 3137, 132)
     # the gathered kernel: B x splits covers the SMs; >= 256 rows a split
     r = 1171 * 256
     for b in (1, 8, 256):
