@@ -2,13 +2,14 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --pair-parent DIR   # K1 against the tree in DIR, then stop
-    python3 chip_smoke.py --ablate-k1         # K1 classic with parts cut out, then stop
+    python3 chip_smoke.py --pair-parent DIR   # K1 and K4 against the tree in DIR, then stop
+    python3 chip_smoke.py --ablate            # the tensor-core pass 1 with parts cut out
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc
    (sm_90a) and prints the build time and the compiler's register report,
    and the count of tensor-core (HMMA) instructions in each instance of
-   K1's bf16 pass 1 (``cuobjdump -sass``; none fails the run).
+   the tensor-core pass 1 (``csrc/mma_topk.cuh``: K1 classic's and K4's
+   with a bf16 query; ``cuobjdump -sass``; none fails the run).
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
    shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
@@ -20,13 +21,17 @@
    ids, ``filt``, and B = 1 over ~300k rows.
 4. Holds the quantized kernels (K4 ``fused_topk_quantized``, K5
    ``fused_topk_gathered_quantized``) against their plain versions: int8
-   and int4 (groups 32 and 64), bf16 and f32 queries, T = 600 and 100,
+   and int4 (groups 32 and 64), bf16 and f32 queries, T = 600, 100 and 37,
    ragged ``n_docs``, ``filt``, 0/1 ties, ids in any order and >= n_docs,
-   depth up to the plan's limit, B = 1 over ~300k kept rows.
+   depth up to the plan's limit, B = 1 over ~300k kept rows; for K4 with a
+   bf16 query also integer scores that rise or fall with the doc id (ids
+   bit-equal), int4 at T = 600 whose last chunk reaches past the last
+   group, depth 3,072 at B = 1 and 65, and a dot query.
 5. Runs the ann-word2vec deployment (2,999,808 x 300, classic fake words,
    B = 256, depth 100, k 10) end to end through ``AnnIndex.build`` /
    ``search`` on the card, with the exact-cosine ground truth, and checks
-   recall, the rerank identity and that the kernel carried the path.
+   recall, the rerank identity and that the kernel carried the path; then
+   dot scoring over the same index (K1 int8).
 6. Runs blockmax pruning on that index (10% and 25% of the 256-row blocks
    kept) through the facade, with recalls, and at every block kept holds
    classic, dot and lsh blockmax against the dense searches.
@@ -57,8 +62,9 @@
    within 0.02 of fp32 postings reranked from the same int8 store);
    blockmax on the int4 index (K5) at 10% of the blocks, and at every block
    kept, classic and dot x int8 and int4, against the dense quantized
-   search; brute force with int8 postings (K4 with an f32 query); and the
-   times of all of these.
+   search; brute force with int8 postings (K4 with an f32 query); a
+   torch.profiler trace of the int8 classic search at B = 256; and the
+   times of all of these (K4 at B = 256, 8 and 1).
 
 Exits non-zero on any failure, or when no CUDA device is available.  The
 last two lines are a JSON object of per-kernel numbers and the JSON status
@@ -66,11 +72,15 @@ line ``{"ok": true, "device": {...}}``.
 
 With ``--pair-parent DIR`` (DIR an earlier commit of this repository,
 unpacked, e.g. by ``git archive``), it builds that tree's ``fused_topk.cu``
-beside this one's and times both on the ann-word2vec inputs in turns
-(parent, this, this, parent): K1 classic at B = 256 and B = 1, K1 f32 at
-B = 256.  With ``--ablate-k1`` it times K1 classic's bf16 pass 1 against
-copies of it with the running top-k, and then the products too, cut out
-(K1_ABLATIONS), on random operands at the cell's shapes.
+and ``fused_topk_quantized.cu`` beside this one's, calls them through the C
+signatures of that tree's own sources, and times both on the ann-word2vec
+inputs in turns (parent, this, this, parent), their results held to each
+other: K1 classic at B = 256 and B = 1, K1 f32 at B = 256, K4 with a bf16
+query over int8 and int4 postings at B = 256, 8 and 1, and K4 with an f32
+query at B = 256.  With ``--ablate`` it times the tensor-core pass 1 (K1
+classic, K4 int8 and int4) against copies of it with the running top-k,
+the widening and the products cut out (ABLATIONS), on random operands at
+the cell's shapes.
 """
 from __future__ import annotations
 
@@ -83,6 +93,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -227,8 +238,9 @@ def compare(name, got, want, exact: bool) -> float:
 def _instance(mangled: str) -> str:
     """``fused_topk_quantized_partial<1, 4, 32>`` from a mangled kernel name:
     the kernel's name and its integer, bool and type template arguments."""
-    m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_partial|gathered_partial"
-                  r"|bf16_partial|partial|merge)|dense_scores|flash_attention_fwd)"
+    m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_bf16_partial"
+                  r"|quantized_partial|gathered_partial|bf16_partial|partial|merge)|dense_scores"
+                  r"|flash_attention_fwd)"
                   r"(?:I((?:Li-?\d+E|Lb[01]E|[ft])+)E)?",
                   mangled)
     if m is None:
@@ -275,17 +287,24 @@ def sass_hmma(name: str = "fused_topk"):
     return counts
 
 
+# The tensor-core pass 1 (mma_topk.cuh) in each library: K1 classic's
+# instances, and K4's with a bf16 query.
+TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial"),
+                       ("fused_topk_quantized", "fused_topk_quantized_bf16_partial"))
+
+
 def check_tensor_cores() -> None:
-    """Every instance of K1's bf16 pass 1 holds HMMA instructions."""
-    counts = sass_hmma()
-    if counts is None:
-        print("HMMA count: no cuobjdump in the CUDA toolkit")
-        return
-    bf16 = {k: v for k, v in counts.items() if k.startswith("fused_topk_bf16_partial")}
-    print(f"HMMA instructions in the SASS (cuobjdump -sass): {bf16}; every other fused_topk "
-          f"kernel: {sum(v for k, v in counts.items() if k not in bf16)}")
-    if not bf16 or not all(bf16.values()):
-        raise AssertionError(f"K1's bf16 pass 1 has no tensor-core instructions: {bf16}")
+    """Every instance of the tensor-core pass 1 holds HMMA instructions."""
+    for lib, kernel in TENSOR_CORE_KERNELS:
+        counts = sass_hmma(lib)
+        if counts is None:
+            print("HMMA count: no cuobjdump in the CUDA toolkit")
+            return
+        mma = {k: v for k, v in counts.items() if k.startswith(kernel)}
+        print(f"HMMA instructions in the SASS of {lib} (cuobjdump -sass): {mma}; every other "
+              f"kernel there: {sum(v for k, v in counts.items() if k not in mma)}")
+        if not mma or not all(mma.values()):
+            raise AssertionError(f"{kernel} has an instance without tensor-core instructions: {mma}")
 
 
 def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
@@ -450,11 +469,45 @@ def _quantized_inputs(kind: str, bits: int, group: int, qdtype: str, b: int, n: 
     magnitudes packed by the port's builder, a unit-scale float query.
     "int": integer values with unit scales (int8 in [-50, 50], every int4
     nibble) and an integer query in [-20, 20], so every sum is exact.
-    "ties": 0/1 values and query, so scores tie constantly."""
+    "ties": 0/1 values and query, so scores tie constantly.  "rising" /
+    "falling" (unit scales): scores 4 id + (0..3) minus a constant, exact,
+    that rise or fall with the doc id (every tile, or only the first, feeds
+    the running lists), from int8 columns id // 128 - 100 and id % 128, or
+    from the four base-16 digits of the id as int4 values.  "dot": a dot
+    query ([u; -u], integers) over int8 postings packed by the port's
+    builder from term counts in [0, 50] with a 127 in every row (scale 1)."""
     from repro_torch.core import builder
     from repro_torch.kernels.common import round_up
 
     dtype = torch.bfloat16 if qdtype == "bf16" else torch.float32
+    if kind in ("rising", "falling"):
+        ids = torch.arange(n, device=dev)
+        q = torch.zeros((b, t), device=dev)
+        if bits == 8:
+            docs = torch.randint(-3, 4, (n, t), generator=gen, device=dev)
+            docs[:, 0], docs[:, 1] = ids // 128 - 100, ids % 128
+            docs[:, 2] = torch.randint(0, 4, (n,), generator=gen, device=dev)
+            q[:, 0], q[:, 1] = 512, 4
+            scale = torch.ones((n, 1), device=dev)
+        else:
+            tg = round_up(t, group)
+            nib = torch.randint(0, 16, (n, tg), generator=gen, device=dev)
+            for c, w in enumerate((4096, 256, 16, 1)):
+                nib[:, c] = ids // w % 16
+                q[:, c] = 4 * w
+            nib[:, 4] = torch.randint(8, 12, (n,), generator=gen, device=dev)
+            nib[:, t:] = 8
+            docs = nib[:, 0::2] | (nib[:, 1::2] << 4)
+            scale = torch.ones((n, tg // group), device=dev)
+        q[:, 2 if bits == 8 else 4] = torch.randint(0, 2, (b,), generator=gen, device=dev)
+        q = q if kind == "rising" else -q
+        return q.to(dtype), docs.to(torch.int8 if bits == 8 else torch.uint8), scale
+    if kind == "dot":
+        tf = torch.randint(0, 51, (n, t), generator=gen, device=dev)
+        tf[:, 0] = 127
+        u = torch.randint(-20, 21, (b, t // 2), generator=gen, device=dev)
+        pq = builder.quantize_postings(tf.float(), 8)
+        return torch.cat([u, -u], 1).to(dtype), pq.q, pq.scale
     if kind == "float":
         m = torch.randn((n, t), generator=gen, device=dev)
         m *= 10 * torch.rand((n, 1), generator=gen, device=dev) + 0.01
@@ -491,6 +544,26 @@ def quantized_cases():
         ("ties", 8, 0, "bf16", 3, 130, 16, 130, None, None),           # depth = N
         ("ties", 4, 32, "bf16", 9, 1000, 64, 1000, "shared", None),
         ("ties", 4, 64, "bf16", 1, 5000, 64, 3072, None, None),        # the plan's depth limit
+        # The tensor-core pass 1 (bf16 query) where its running top-k must be
+        # exact: integer scores rising or falling with the id, ids bit-equal.
+        ("rising", 8, 0, "bf16", 65, 20_000, 600, 100, None, None),    # every tile flushes
+        ("falling", 8, 0, "bf16", 65, 20_000, 600, 100, "per-query", None),  # only the first
+        ("rising", 8, 0, "bf16", 1, 20_000, 600, 100, None, 19_000),
+        ("falling", 4, 32, "bf16", 65, 20_000, 600, 100, None, None),
+        ("rising", 4, 32, "bf16", 65, 20_000, 100, 100, "shared", None),
+        ("rising", 4, 64, "bf16", 1, 20_000, 600, 100, None, None),
+        ("falling", 4, 32, "bf16", 1, 20_000, 600, 100, None, 19_001),
+        # The packed staging's edges: int8 rows of 37 bytes (not 8-byte
+        # aligned); int4 g32 at T = 600 (Tg 608: the last chunk's second
+        # half lies past the 19th, last group) with ragged n_docs.
+        ("int", 8, 0, "bf16", 5, 2000, 37, 60, None, None),
+        ("float", 8, 0, "bf16", 70, 2000, 37, 60, "per-query", 1999),
+        ("int", 4, 32, "bf16", 7, 3000, 600, 100, None, 2999),
+        ("float", 4, 32, "bf16", 66, 3000, 600, 100, None, 2901),
+        ("ties", 8, 0, "bf16", 1, 5000, 64, 3072, None, None),         # depth 3,072 at B = 1
+        ("int", 8, 0, "bf16", 65, 5000, 600, 3072, None, None),        # and at B = 65
+        ("int", 4, 32, "bf16", 65, 5000, 600, 3072, "shared", 4900),
+        ("dot", 8, 0, "bf16", 40, 3000, 600, 100, None, None),         # dot query over int8 pq
     ]
     k5 = [
         ("float", 8, 0, "bf16", 4, 3000, 1024, 600, 32, "random", False, None),
@@ -752,9 +825,9 @@ def main(argv) -> int:
     if argv[:1] == ["--pair-parent"]:  # K1 against an earlier tree's, then stop
         pair_parent(dev, card, argv[1])
         return 0
-    if argv[:1] == ["--ablate-k1"]:  # K1 classic with parts cut out, then stop
-        build_kernels(["fused_topk"])
-        ablate_k1(dev, card)
+    if argv[:1] == ["--ablate"]:  # the tensor-core pass 1 with parts cut out, then stop
+        build_kernels(["fused_topk", "fused_topk_quantized"])
+        ablate(dev, card)
         return 0
     build_kernels()
     check_tensor_cores()
@@ -783,127 +856,261 @@ def main(argv) -> int:
     return 0
 
 
-def _k1_from(kdir: str, out: str, edits=(), mode_plan: bool = True):
-    """K1 (``fused_topk``, gemm mode, no filt) built with nvcc from the
-    kernels directory ``kdir`` of some tree (its fused_topk.cu, with the text
-    ``edits`` applied to a copy beside ``out``) into the library ``out``,
-    and called through its C entry points with that tree's launch plan:
-    ``fused_topk_plan(mode, B, n_docs, depth, sm_count, plan[5])``, or
-    without the mode and plan[4] where ``mode_plan`` is False (the trees
-    before the tensor-core bf16 pass 1)."""
+def _c_entry(lib, source: str, name: str):
+    """The C entry ``name`` of ``lib``, bound with the parameter types its
+    definition in ``source`` (the text of the .cu it was built from) gives,
+    and called with keyword arguments named as there (extra ones are
+    ignored): a tree's own signature, whatever it is."""
+    import ctypes
+
+    m = re.search(rf"^int\s+{name}\(([^)]*)\)", source, re.M)
+    if m is None:
+        raise ValueError(f"no definition of {name} in the source")
+    names, types = [], []
+    for param in m.group(1).split(","):
+        typ, _, pname = " ".join(param.split()).rpartition(" ")
+        typ, pname = typ + "*" * pname.count("*"), pname.lstrip("*")
+        names.append(pname)
+        types.append({"int": ctypes.c_int, "long long": ctypes.c_longlong,
+                      "int*": ctypes.POINTER(ctypes.c_int)}.get(typ, ctypes.c_void_p))
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = types, ctypes.c_int
+    return lambda **kw: fn(*(kw[n] for n in names))
+
+
+def _tree_kernels(kdir: str, out_dir: str, names=("fused_topk", "fused_topk_quantized"),
+                  edits=()) -> dict:
+    """K1 (``fused_topk``, gemm mode) and K4 (``fused_topk_quantized``),
+    no filt, built with nvcc (in parallel) from the kernels directory
+    ``kdir`` of some tree into ``out_dir`` (with the text ``edits`` applied
+    to a copy of its ``fused_topk/csrc``, in every file that holds it), and
+    called through their C entry points with that tree's launch plan and
+    signatures (``_c_entry``).  Returns {name: topk}: K1's ``topk(q, docs,
+    depth)``, K4's ``topk(q, pq, depth)``."""
     import ctypes
 
     from repro_torch.kernels import common
 
-    src = os.path.join(kdir, "fused_topk", "csrc", "fused_topk.cu")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
+    csrc = os.path.join(kdir, "fused_topk", "csrc")
+    os.makedirs(out_dir, exist_ok=True)
     if edits:
-        text = open(src).read()
+        copy = os.path.join(out_dir, "csrc")
+        shutil.copytree(csrc, copy, dirs_exist_ok=True)
         for old, new in edits:
-            if old not in text:
-                raise ValueError(f"{src} has no {old!r}")
-            text = text.replace(old, new)
-        shutil.copytree(os.path.dirname(src), os.path.dirname(out) + "/csrc", dirs_exist_ok=True)
-        src = os.path.dirname(out) + "/csrc/fused_topk.cu"
-        with open(src, "w") as f:
-            f.write(text)
-    subprocess.run([common._nvcc(), *common.NVCC_FLAGS, "-I", os.path.join(kdir, "csrc"),
-                    "-o", out, src], check=True, capture_output=True)
-    lib = ctypes.CDLL(out)
-    p, i, ll, pi = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
-    lib.fused_topk_plan.argtypes = [i] * (5 if mode_plan else 4) + [pi]
-    lib.fused_topk_plan.restype = i
-    lib.fused_topk_launch.argtypes = [i, i, p, p, p, ll] + [i] * 8 + [p] * 5
-    lib.fused_topk_launch.restype = i
+            hits = [os.path.join(copy, f) for f in sorted(os.listdir(copy))
+                    if old in open(os.path.join(copy, f)).read()]
+            if not hits:
+                raise ValueError(f"{csrc} has no {old!r}")
+            for path in hits:
+                text = open(path).read().replace(old, new)
+                with open(path, "w") as f:
+                    f.write(text)
+        csrc = copy
+    procs = {name: subprocess.Popen(
+        [common._nvcc(), *common.NVCC_FLAGS, "-I", os.path.join(kdir, "csrc"),
+         "-o", os.path.join(out_dir, f"lib{name}.so"), os.path.join(csrc, f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in names}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name} of {kdir}:\n{log}")
+
+    def entry_points(name):
+        lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
+        text = open(os.path.join(csrc, f"{name}.cu")).read()
+        return _c_entry(lib, text, f"{name}_plan"), _c_entry(lib, text, f"{name}_launch")
+
+    def caller(name):
+        plan_fn, launch_fn = entry_points(name)
+
+        def run(q, docs, depth, **args):
+            b, t = q.shape
+            plan = (ctypes.c_int * 5)()
+            args.update(B=b, n_docs=docs.shape[0], depth=depth, T=t, plan=plan, filt=None,
+                        filt_stride=0, q=q.data_ptr(), docs=docs.data_ptr(),
+                        sm_count=torch.cuda.get_device_properties(q.device).multi_processor_count,
+                        stream=torch.cuda.current_stream().cuda_stream)
+            if plan_fn(**args) != 0:
+                raise ValueError(f"{name} of {kdir}: the plan refused the call")
+            bq, k, splits, per = plan[:4]
+            part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
+            part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
+            out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
+            out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
+            err = launch_fn(**args, bq=bq, K=k, splits=splits, tiles_per_split=per,
+                            part_s=part_s.data_ptr(), part_i=part_i.data_ptr(),
+                            out_s=out_s.data_ptr(), out_i=out_i.data_ptr())
+            if err != 0:
+                raise RuntimeError(f"{name}_launch of {kdir} failed: cudaError {err}")
+            return out_s, out_i
+
+        return run
+
+    out = {}
     codes = {torch.float32: 0, torch.bfloat16: 1}
-
-    def topk(q, docs, depth):
-        b, t = q.shape
-        sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-        plan = (ctypes.c_int * 5)()
-        args = ((codes[q.dtype],) if mode_plan else ()) + (b, docs.shape[0], depth, sm, plan)
-        if lib.fused_topk_plan(*args) != 0:
-            raise ValueError(f"{out}: the plan refused the call")
-        bq, k, splits, per = plan[:4]
-        part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
-        part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
-        out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
-        out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
-        err = lib.fused_topk_launch(
-            codes[q.dtype], bq, q.data_ptr(), docs.data_ptr(), None, 0, b, docs.shape[0], t,
-            depth, k, splits, per, int(common.row_alignment(q) == 16)
-            | int(common.row_alignment(docs) == 16) << 1, part_s.data_ptr(), part_i.data_ptr(),
-            out_s.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{out}: fused_topk_launch failed: cudaError {err}")
-        return out_s, out_i
-
-    return topk
+    if "fused_topk" in names:
+        k1 = caller("fused_topk")
+        out["fused_topk"] = lambda q, docs, depth: k1(
+            q, docs, depth, mode=codes[q.dtype],
+            aligned=int(common.row_alignment(q) == 16) | int(common.row_alignment(docs) == 16) << 1)
+    if "fused_topk_quantized" in names:
+        k4 = caller("fused_topk_quantized")
+        out["fused_topk_quantized"] = lambda q, pq, depth: k4(
+            q, pq.q, depth, qdtype=codes[q.dtype], bits=pq.bits, scale=pq.scale.data_ptr(),
+            row_bytes=pq.q.shape[1], group=pq.group, n_groups=pq.scale.shape[1],
+            d_align=common.row_alignment(pq.q), q_align=common.row_alignment(q))
+    return out
 
 
-# Copies of K1's bf16 pass 1 with a part cut out, for timing only (their
+# Copies of the tensor-core pass 1 (csrc/mma_topk.cuh, so K1 classic's and
+# K4's with a bf16 query alike) with a part cut out, for timing only (their
 # results are wrong): without the running top-k (no candidate ever leaves
-# the accumulators), and without the products too (the loads alone).
+# the accumulators); without the widening of packed units too (the raw
+# words are stored as they came, by either loader; K4 only: bf16 units are
+# stored as they are anyway); and the loads alone (no products, no top-k).
 _NO_TOPK = ("    if (chunk != n_chunks - 1) continue;\n",
             "    if (chunk != n_chunks - 1 || n_chunks > 0) continue;\n")
-K1_ABLATIONS = {
+_NO_WIDEN = ("rows.widen(dst[i]);", "make_uint4(reinterpret_cast<const uint32_t*>(&dst[i])[0], "
+             "reinterpret_cast<const uint32_t*>(&dst[i])[sizeof(dst[i]) / 4 - 1], 0, 0);")
+_NO_WIDEN_RING = ("rows.widen(rows.read_raw(rd + (i * kThreads + tid) * 2));",
+                  "make_uint4(rd[(i * kThreads + tid) * 2], rd[(i * kThreads + tid) * 2 + 1], 0, 0);")
+_NO_PRODUCTS = ("for (int ks = 0; ks < kMmaBK / 16; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {")
+ABLATIONS = {
     "without the running top-k": [_NO_TOPK],
-    "loads only": [_NO_TOPK, ("for (int ks = 0; ks < kMmaBK / 16; ++ks) {",
-                              "for (int ks = 0; ks < 0; ++ks) {")],
+    "without the top-k and the widening": [_NO_TOPK, _NO_WIDEN, _NO_WIDEN_RING],
+    "loads only": [_NO_TOPK, _NO_PRODUCTS],
+}
+# Copies of K4 with the other loader for every packed row (whole kernels,
+# results checked): the raw-unit cp.async ring for int8 at 64-query tiles
+# too, or registers everywhere; fused_topk_quantized.cu picks per instance.
+LOADERS = {
+    "raw ring everywhere": [("    if constexpr (BITS == 4) {\n      if (ring)",
+                             "    if constexpr (true) {\n      if (ring)")],
+    "registers everywhere": [("  const bool ring = d_align >= 8 && q_aligned;",
+                              "  const bool ring = false;")],
 }
 
 
-def ablate_k1(dev, card: str) -> None:
-    """K1 classic's bf16 pass 1 and its ablations (K1_ABLATIONS) on random
-    bf16 operands at the cell's shapes (2,999,808 x 600, depth 100; B = 256
-    and B = 1), timed in turns: full, each ablation, full."""
-    from repro_torch.kernels.fused_topk.kernel import fused_topk
+def ablate(dev, card: str) -> None:
+    """The tensor-core pass 1 and its ablations (ABLATIONS) at the cell's
+    shapes (2,999,808 x 600, depth 100; B = 256 and B = 1, and B = 8 for
+    K4), timed in turns (full, each copy, full): K1 classic on random bf16
+    operands, and K4 with a bf16 query on random int8 and int4 (group 32)
+    stores, K4 also against its two loaders (LOADERS, results held to the
+    kernel's)."""
+    import types
+
+    from repro_torch.kernels.fused_topk.kernel import fused_topk, fused_topk_quantized
 
     kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
-    cut = {name: _k1_from(kdir, os.path.join(ROOT, "build", "ablate", str(j), "libfused_topk.so"),
-                          edits) for j, (name, edits) in enumerate(K1_ABLATIONS.items())}
+    copies = {**ABLATIONS, **LOADERS}
+    with ThreadPoolExecutor() as pool:  # every copy's nvcc at once
+        cut = dict(zip(copies, pool.map(
+            lambda j, edits: _tree_kernels(kdir, os.path.join(ROOT, "build", "ablate", str(j)),
+                                           edits=edits),
+            range(len(copies)), copies.values())))
     gen = torch.Generator(device=dev).manual_seed(6)
     n, t = 2_999_808, 600
-    docs = torch.randn((n, t), generator=gen, device=dev).to(torch.bfloat16)
     q = (torch.randn((256, t), generator=gen, device=dev) / t**0.5).to(torch.bfloat16)
-    for b in (256, 1):
-        qb = q[:b]
-        line = [f"full {cuda_ms(lambda: fused_topk(qb, docs, 100)):.3f} ms"]
-        line += [f"{name} {cuda_ms(lambda: fn(qb, docs, 100)):.3f} ms" for name, fn in cut.items()]
-        line.append(f"full {cuda_ms(lambda: fused_topk(qb, docs, 100)):.3f} ms")
-        print(f"K1 classic ablation, random bf16, B={b}, N={n}, T={t}, depth 100, on {card}: "
-              + "; ".join(line))
+    docs = torch.randn((n, t), generator=gen, device=dev).to(torch.bfloat16)
+    stores = {
+        "K1 classic, random bf16": (None, docs),
+        "K4 int8, random bytes": (8, types.SimpleNamespace(
+            bits=8, group=0, scale=torch.rand((n, 1), generator=gen, device=dev),
+            q=torch.randint(-127, 128, (n, t), generator=gen, device=dev, dtype=torch.int8))),
+        "K4 int4 g32, random nibbles": (4, types.SimpleNamespace(
+            bits=4, group=GROUP, scale=torch.rand((n, -(-t // GROUP)), generator=gen, device=dev),
+            q=torch.randint(0, 256, (n, -(-t // GROUP) * GROUP // 2), generator=gen, device=dev,
+                            dtype=torch.uint8))),
+    }
+    for label, (bits, store) in stores.items():
+        for b in ((256, 1) if bits is None else (256, 8, 1)):
+            qb = q[:b]
+            if bits is None:
+                def full():
+                    return fused_topk(qb, store, 100)
+                runs = {name: (lambda fn=fns["fused_topk"]: fn(qb, store, 100))
+                        for name, fns in cut.items() if name in ABLATIONS and "widen" not in name}
+            else:
+                def full():
+                    return fused_topk_quantized(qb, store.q, store.scale, 100, bits, store.group)
+                runs = {name: (lambda fn=fns["fused_topk_quantized"]: fn(qb, store, 100))
+                        for name, fns in cut.items()}
+                for name in LOADERS:
+                    compare(f"{label} B={b}: {name}", runs[name](),
+                            fused_topk_quantized(qb, store.q, store.scale, 101, bits, store.group),
+                            exact=False)
+            line = [f"full {cuda_ms(full):.3f} ms"]
+            line += [f"{name} {cuda_ms(fn):.3f} ms" for name, fn in runs.items()]
+            line.append(f"full {cuda_ms(full):.3f} ms")
+            print(f"pass-1 ablation, {label}, B={b}, N={n}, T={t}, depth 100, on {card}: "
+                  + "; ".join(line))
+        del store
+    print(f"ablations on {card}")
 
 
 def pair_parent(dev, card: str, parent: str) -> None:
-    """K1 classic (bf16, the main path's call) at B = 256 and B = 1, and K1
-    f32 (the ground truth's call) at B = 256, of the tree ``parent`` and of
-    this tree on the same inputs in one process, timed in turns (parent,
-    this, this, parent; median of RUNS each), with the ids held equal."""
+    """K1 and K4 of the tree ``parent`` (its own sources, plans and C
+    signatures, ``_tree_kernels``) and of this tree on the same ann-word2vec
+    inputs in one process, timed in turns (parent, this, this, parent;
+    median of RUNS each), with the results
+    held to each other (ids equal away from near-ties): K1 classic (bf16,
+    the main path's call) at B = 256 and B = 1 and K1 f32 (the ground
+    truth's call) at B = 256 over the fp32 index; K4 with a bf16 query over
+    int8 and int4 (group 32) postings at B = 256, 8 and 1 (the quantized
+    classic search's call), and K4 with an f32 query over int8 postings at
+    B = 256 (brute force's call)."""
     from repro_torch.configs import ann_word2vec
     from repro_torch.core import bruteforce, fakewords
     from repro_torch.core.index import AnnIndex
-    from repro_torch.kernels.fused_topk.kernel import fused_topk
+    from repro_torch.core.types import BruteForceConfig
+    from repro_torch.kernels.fused_topk.kernel import fused_topk, fused_topk_quantized
 
-    build_kernels(["fused_topk"])
-    old = _k1_from(os.path.join(os.path.abspath(parent), "src", "repro_torch", "kernels"),
-                   os.path.join(ROOT, "build", "parent", "libfused_topk.so"), mode_plan=False)
+    with ThreadPoolExecutor() as pool:  # the parent's nvcc beside this tree's
+        parent_build = pool.submit(
+            _tree_kernels, os.path.join(os.path.abspath(parent), "src", "repro_torch", "kernels"),
+            os.path.join(ROOT, "build", "pair"))
+        build_kernels(["fused_topk", "fused_topk_quantized"])
+        old = parent_build.result()
     cell = ann_word2vec.ARCH.cell("ann_search")
     config = ann_word2vec.ARCH.make_model(cell)
     x, qx = make_inputs(dev, cell.get("n_docs"), cell.batch)
-    idx = AnnIndex.build(x, config, device=dev)
-    qn = bruteforce.l2_normalize(qx)
-    qv = fakewords.classic_query(idx.index, fakewords.encode_queries(qn, config, normalized=True))
     depth, k = cell.get("depth"), cell.get("k")
+    qn = bruteforce.l2_normalize(qx)
+
+    def pair(name, new, parent_fn, args, d):
+        compare(f"{name}: this tree vs the parent", new(*args, d), parent_fn(*args, d + 1),
+                exact=False)
+        times = [cuda_ms(lambda: (parent_fn if i in (0, 3) else new)(*args, d)) for i in range(4)]
+        print(f"pairing {name} on {card}: parent {times[0]:.3f} ms, this tree {times[1]:.3f} ms, "
+              f"this tree {times[2]:.3f} ms, parent {times[3]:.3f} ms")
+
+    idx = AnnIndex.build(x, config, device=dev)
+    q_tf = fakewords.encode_queries(qn, config, normalized=True)
+    qv = fakewords.classic_query(idx.index, q_tf)
     for name, q, docs, d in (("K1 classic bf16 B=256", qv, idx.index.scored, depth),
                              ("K1 classic bf16 B=1", qv[:1], idx.index.scored, depth),
                              ("K1 f32 B=256", qn, idx.index.vectors, k)):
-        compare(f"{name}: this tree vs the parent", fused_topk(q, docs, d), old(q, docs, d + 1),
-                exact=False)
-        times = [cuda_ms(lambda: (old if i in (0, 3) else fused_topk)(q, docs, d))
-                 for i in range(4)]
-        print(f"pairing {name} on {card}: parent {times[0]:.3f} ms, this tree {times[1]:.3f} ms, "
-              f"this tree {times[2]:.3f} ms, parent {times[3]:.3f} ms")
+        pair(name, fused_topk, old["fused_topk"], (q, docs), d)
+    del idx, qv
+    torch.cuda.empty_cache()
+
+    def k4_new(q, pq, d):
+        return fused_topk_quantized(q, pq.q, pq.scale, d, pq.bits, pq.group)
+
+    for pp in ("int8", "int4"):
+        qidx = AnnIndex.build(x, config, primary_postings=pp, postings_group=GROUP,
+                              rerank_store="none", device=dev)
+        qv = fakewords.classic_query(qidx.index, q_tf)
+        for bb in (256, 8, 1):
+            pair(f"K4 {pp} bf16 query B={bb}", k4_new, old["fused_topk_quantized"],
+                 (qv[:bb], qidx.index.pq), depth)
+        del qidx, qv
+        torch.cuda.empty_cache()
+    bidx = AnnIndex.build(x, BruteForceConfig(), primary_postings="int8", rerank_store="none",
+                          device=dev)
+    pair("K4 int8 f32 query B=256", k4_new, old["fused_topk_quantized"], (qn, bidx.index.pq),
+         depth)
 
 
 def make_inputs(dev, n: int, b: int):
@@ -972,6 +1179,20 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
                       ref.fused_topk_ref(qn[:32], vectors, k + 1), exact=False)
     print(f"main-path kernel calls vs plain: classic max_abs_err {err_classic:.3g}, "
           f"f32 max_abs_err {err_f32:.3g}")
+
+    # ---- main path 1b: dot scoring over the same index (K1 int8) ----------
+    dot_idx = AnnIndex(config=dataclasses.replace(config, scoring="dot"), index=idx.index)
+    _reset_launches()
+    dot_s, dot_i = dot_idx.search(qx, k=depth, depth=depth)
+    torch.cuda.synchronize()
+    dot_launches = _only("the dot search", "fused_topk")
+    _checked("dot match", dot_s, dot_i, b, depth, n)
+    q_dot = fakewords.dot_query(idx.index, q_tf, dtype=torch.int8)
+    tf = idx.index.tf
+    err_dot = compare("dot match, 32 queries", (dot_s[:32], dot_i[:32]),
+                      ref.fused_topk_ref(q_dot[:32], tf, depth), exact=True)
+    print(f"dot search (int8 tf, K1 int8): R@(10,100) {float(ev.recall_at(gt_i, dot_i)):.4f}; "
+          f"fused_topk launches {dot_launches}; vs plain on 32 queries max_abs_err {err_dot:.3g}")
 
     # ---- main path 2: blockmax classic ----------------------------------
     n_blocks = -(-n // BLOCK)
@@ -1094,19 +1315,24 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
     print(f"lexical LSH search: B={b} {t_lsh:.2f} ms; B=1 {t_lsh_1:.3f} ms")
 
     kernels = []
-    for name, qop, docs, d, kind, launches, err in (
-            ("fused_topk", qv, scored, depth, "bf16", search_launches, err_classic),
-            ("fused_topk/f32-exact", qn, vectors, k, "f32", gt_launches, err_f32)):
+    for name, qop, docs, d, kind, launches, err, library, lib_label in (
+            ("fused_topk", qv, scored, depth, "bf16", search_launches, err_classic,
+             lambda: torch.topk(torch.matmul(qv, scored.T), depth), "torch.topk(matmul)"),
+            ("fused_topk/f32-exact", qn, vectors, k, "f32", gt_launches, err_f32,
+             lambda: torch.topk(torch.matmul(qn, vectors.T), k), "torch.topk(matmul)"),
+            ("fused_topk/int8", q_dot, tf, depth, "int8", dot_launches, err_dot,
+             lambda: torch.topk(torch._int_mm(q_dot, tf.T).float(), depth),
+             "torch.topk(torch._int_mm(q, tf.T).float())")):
         ms = cuda_ms(lambda: fused_topk(qop, docs, d))
         ms_1 = cuda_ms(lambda: fused_topk(qop[:1], docs, d))
         plain_ms = cuda_ms(lambda: ref.fused_topk_ref(qop, docs, d))
-        lib_ms = cuda_ms(lambda: torch.topk(torch.matmul(qop, docs.T), d))
+        lib_ms = cuda_ms(library)
         bound, bound_by = bound_ms(qop, docs, n, d, kind)
         bound_1, _ = bound_ms(qop[:1], docs, n, d, kind)
         print(f"{name} ({kind}, B={qop.shape[0]}, N={n}, T={qop.shape[1]}, depth={d}): "
               f"kernel {ms:.3f} ms, bound {bound:.3f} ms ({bound_by}); "
               f"B=1 kernel {ms_1:.3f} ms, bound {bound_1:.3f} ms; "
-              f"plain {plain_ms:.3f} ms; torch.topk(matmul) {lib_ms:.3f} ms")
+              f"plain {plain_ms:.3f} ms; {lib_label} {lib_ms:.3f} ms")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",
@@ -1161,12 +1387,13 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
     return kernels, gt_i, idx, lidx
 
 
-def profile_search(idx, qx, k: int, depth: int, card: str, runs: int = 5) -> None:
-    """A torch.profiler trace of ``runs`` back-to-back main-path classic
-    searches: device time per CUDA kernel (pass 1, merge, the encoder's
-    kernels) and the device's idle share between the first kernel's start
-    and the last one's end.  Where the trace holds no device time, the
-    search and its K1 call are timed with CUDA events instead."""
+def profile_search(idx, qx, k: int, depth: int, card: str, label: str = "classic",
+                   runs: int = 5) -> None:
+    """A torch.profiler trace of ``runs`` back-to-back main-path searches of
+    ``idx`` (``label`` names them): device time per CUDA kernel (pass 1,
+    merge, the encoder's kernels) and the device's idle share between the
+    first kernel's start and the last one's end.  Where the trace holds no
+    device time, the search is timed with CUDA events instead."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1179,13 +1406,8 @@ def profile_search(idx, qx, k: int, depth: int, card: str, runs: int = 5) -> Non
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
     if not spans:
-        from repro_torch.core import fakewords
-        from repro_torch.kernels.fused_topk.kernel import fused_topk
-
-        qv = fakewords.classic_query(idx.index, fakewords.encode_queries(qx, idx.config))
-        print(f"profile: torch.profiler recorded no device time; CUDA events on {card}: search "
-              f"B={qx.shape[0]} {cuda_ms(lambda: idx.search(qx, k=k, depth=depth)):.3f} ms, its "
-              f"K1 call {cuda_ms(lambda: fused_topk(qv, idx.index.scored, depth)):.3f} ms")
+        print(f"profile: torch.profiler recorded no device time; CUDA events on {card}: {label} "
+              f"search B={qx.shape[0]} {cuda_ms(lambda: idx.search(qx, k=k, depth=depth)):.3f} ms")
         return
     per, busy, end = {}, 0.0, spans[0][0]
     for a, b, name in spans:
@@ -1197,7 +1419,7 @@ def profile_search(idx, qx, k: int, depth: int, card: str, runs: int = 5) -> Non
     window = (end - spans[0][0]) / 1e3
     top = sorted(per.items(), key=lambda kv: -kv[1][1])
     rest = sum(t for _, (_, t) in top[8:])
-    print(f"profile (torch.profiler, {runs} classic searches of B={qx.shape[0]}, k {k}, depth "
+    print(f"profile (torch.profiler, {runs} {label} searches of B={qx.shape[0]}, k {k}, depth "
           f"{depth}) on {card}: device window {window:.3f} ms, busy {busy / 1e3:.3f} ms, idle "
           f"share {1 - busy / 1e3 / window:.4f}; per search: "
           + "; ".join(f"{name} {t / runs:.4f} ms ({n // runs} a search)" for name, (n, t) in top[:8])
@@ -1532,6 +1754,7 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
           f"max_abs_err {bf_err:.3g}")
 
     # ---- times ---------------------------------------------------------------
+    profile_search(quant["int8"][0], qx, k, depth, card, label="int8 quantized classic")
     for pp, (qidx, *_) in quant.items():
         line = []
         for bb in (b, 8, 1):
@@ -1562,27 +1785,26 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
              "torch.topk(matmul(q, pq.q.float().T) * scale)")):
         pq, tq = qidx_pq, qop.shape[1]
 
-        def library(qo=qop, pq=pq, tq=tq):
+        def library(qo, pq=pq, tq=tq):
             if pq.bits == 8:
                 return torch.topk(torch.matmul(qo, pq.q.to(qo.dtype).T) * pq.scale.T, depth)
             return torch.topk(torch.matmul(
                 qo, dequant_int4(pq.q, pq.scale, pq.group, qo.dtype)[:, :tq].T), depth)
 
-        def kern(qo):
-            return fused_topk_quantized(qo, pq.q, pq.scale, depth, pq.bits, pq.group)
-
-        ms = cuda_ms(lambda: kern(qop))
-        ms_8 = cuda_ms(lambda: kern(qop[:8]))
-        ms_1 = cuda_ms(lambda: kern(qop[:1]))
-        plain_ms = cuda_ms(lambda: ref.quantized_topk_ref(qop, pq.q, pq.scale, depth, pq.bits,
-                                                          pq.group), runs=3, warmup=1)
-        lib_ms = cuda_ms(library, runs=3, warmup=1)
-        bound, bound_by = quantized_bound_ms(qop, pq.q, pq.scale, n, depth, kind)
-        bound_1, by_1 = quantized_bound_ms(qop[:1], pq.q, pq.scale, n, depth, kind)
-        print(f"{name} ({kind} query, int{pq.bits}, B={b}, N={n}, T={tq}, depth={depth}): "
-              f"kernel {ms:.3f} ms, bound {bound:.3f} ms ({bound_by}); B=8 {ms_8:.3f} ms; "
-              f"B=1 {ms_1:.3f} ms, bound {bound_1:.3f} ms ({by_1}); plain {plain_ms:.3f} ms "
-              f"(median of 3); {lib_label} {lib_ms:.3f} ms (median of 3)")
+        at = {}  # B -> (kernel, plain, library, bound, bound_by) at the first B queries
+        for bb in (b, 8, 1):
+            qb = qop[:bb]
+            at[bb] = (cuda_ms(lambda: fused_topk_quantized(qb, pq.q, pq.scale, depth, pq.bits,
+                                                            pq.group)),
+                      cuda_ms(lambda: ref.quantized_topk_ref(qb, pq.q, pq.scale, depth, pq.bits,
+                                                             pq.group), runs=3, warmup=1),
+                      cuda_ms(lambda: library(qb), runs=3, warmup=1),
+                      *quantized_bound_ms(qb, pq.q, pq.scale, n, depth, kind))
+        print(f"{name} ({kind} query, int{pq.bits}, N={n}, T={tq}, depth={depth}): "
+              + "; ".join(f"B={bb} kernel {v[0]:.3f} ms, bound {v[3]:.3f} ms ({v[4]}), plain "
+                          f"{v[1]:.3f} ms, library {v[2]:.3f} ms" for bb, v in at.items())
+              + f" (plain and library: median of 3; library: {lib_label})")
+        ms, plain_ms, lib_ms, bound, bound_by = at[b]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk_quantized.cu",

@@ -2,8 +2,9 @@
 // (sm_90a), CUDA C++ with a plain C interface (bound with ctypes by
 // ../kernel.py).
 //
-// K4 (fused_topk_quantized_partial + the shared merge pass) replaces the TPU
-// kernel repro/kernels/fused_topk/kernel.py::fused_topk_quantized (def 632,
+// K4 (fused_topk_quantized_bf16_partial for a bf16 query,
+// fused_topk_quantized_partial for an f32 one, + the shared merge pass)
+// replaces the TPU kernel repro/kernels/fused_topk/kernel.py::fused_topk_quantized (def 632,
 // pallas_call 689): the top-`depth` of q @ dequant(docs, scale).T, with the
 // dequantization fused into the score stage, so only the packed store and
 // its scales are read and the dequantized matrix never exists in device
@@ -31,16 +32,38 @@
 // 9.2e11 operations take 0.932 ms on bf16 tensor cores, so operations bound
 // both widths there and bytes bound them at B = 1.
 //
-// What this first, simple design does about that bound: no tensor cores, no
-// TMA.  K4 is K1's pass 1 (fused_topk.cu) with another doc loader: a block of
-// 256 threads owns BQ queries and a range of 256-doc tiles; each thread reads
-// one doc row's packed bytes for the next 32-column chunk (and, for int4,
-// that chunk's group scale) into registers while the current chunk is
-// multiplied, then dequantizes it into shared memory as f32 words, so the
-// dequant is done once per doc and query tile and the products run on CUDA
-// cores in f32 as in K1's bf16 mode.  Ids ascend within a split, so a
-// candidate that does not precede the K-th entry is skipped (the strict tile
-// skip).  K5 is K3's pass 1 (one query per block, a row-split plan that fills
+// K4 with a bf16 query (the classic and dot fake-words paths over packed
+// postings): fused_topk_quantized_bf16_partial, the tensor-core pass 1 of
+// mma_topk.cuh that K1 classic runs (fused_topk.cu), over packed rows
+// (Int8Rows, Int4Rows).  A row's 64-column chunk is 8-column units: int8
+// units of 8 bytes (rows of 600 bytes start only 8-byte aligned), int4
+// units of 4 bytes and their group's scale.  Each thread widens its units
+// to bf16 as it stores them into the bf16 stage, with the reference's
+// expressions: an int8 byte exactly, an int4 nibble as bf16(f32(nibble - 8)
+// * group scale).  ldmatrix, mma.sync m16n8k16 and the running top-k are
+// K1's; the int8 per-row scale multiplies each finished sum before the
+// threshold test.  So the products run on tensor cores, each packed row is
+// read once per query tile, and the dequantized chunk exists only in shared
+// memory.  The units arrive one of two ways: a cp.async ring of raw units in
+// per-thread slots, three stages (two chunks in flight; 218,880 bytes of
+// shared memory at 64 queries and depth 100, 118,240 at 8), widened by the
+// thread that copied them between two barriers; or through registers one
+// chunk ahead (two bf16 stages, 203,520 / 104,800 bytes), for rows the ring
+// cannot copy and for int8 at 64-query tiles, where it measured faster.
+// The loads, not the products, set the pace (PERF.md: `chip_smoke.py --ablate`).
+//
+// K4 with an f32 query (brute force over int8 postings):
+// fused_topk_quantized_partial on CUDA cores, K1's CUDA-core pass 1
+// (fused_topk.cu) with another doc loader: a block of 256 threads owns BQ
+// queries and a range of 256-doc tiles; each thread reads one doc row's
+// packed bytes for the next 32-column chunk (and, for int4, that chunk's
+// group scale) into registers while the current chunk is multiplied, then
+// dequantizes it into shared memory as f32 words, so the dequant is done once
+// per doc and query tile and the products run in f32 FMAs.  Ids ascend within
+// a split, so a candidate that does not precede the K-th entry is skipped
+// (the strict tile skip).
+//
+// K5 is K3's pass 1 (one query per block, a row-split plan that fills
 // the SMs at B = 1, a warp reading whole rows by id with 8 rows' loads in
 // flight, ids outside [0, n_docs) never read, the full comparator since ids
 // arrive in any order) over packed rows: each lane dequantizes its 16-byte
@@ -50,12 +73,13 @@
 
 #include <cuda_bf16.h>
 
-#include "topk_merge.cuh"
+#include "mma_topk.cuh"  // the tensor-core pass 1; includes topk_merge.cuh
 
 namespace {
 
-// K4 takes topk_merge.cuh's streaming tile: kBN = kThreads docs (one doc row
-// per thread), kBK = 32 columns a chunk (one int4 group, or half of one).
+// The f32-query K4 takes topk_merge.cuh's streaming tile: kBN = kThreads
+// docs (one doc row per thread), kBK = 32 columns a chunk (one int4 group,
+// or half of one).
 constexpr uint8_t kInt4Pad = 0x88;  // nibble 8 in both halves: value 0
 
 enum QueryDtype { kQF32 = 0, kQBF16 = 1 };
@@ -116,7 +140,7 @@ __device__ __forceinline__ void load_bytes(const uint8_t* row, int b0, int len, 
 }
 
 // ---------------------------------------------------------------------------
-// K4: pass 1 over packed postings (fused_topk_quantized_partial).
+// K4 with an f32 query: pass 1 on CUDA cores (fused_topk_quantized_partial).
 // ---------------------------------------------------------------------------
 
 // Raw bytes of one doc row's 32-column chunk: 32 int8 bytes, or 16 packed
@@ -127,9 +151,9 @@ template <int BITS> struct DocChunk {
   float gscale;
 };
 
-template <int QT, int BITS, int BQ>
+template <int BITS, int BQ>
 __global__ void __launch_bounds__(kThreads, 2) fused_topk_quantized_partial(
-    const typename Query<QT>::Raw* __restrict__ q,  // (B, T)
+    const float* __restrict__ q,                    // (B, T)
     const uint8_t* __restrict__ docs,               // (N, row_bytes) int8 or packed int4
     const float* __restrict__ scale,                // (N, n_groups); int8: n_groups = 1
     const uint8_t* __restrict__ filt,               // nullptr | (N,) | (B, N)
@@ -178,7 +202,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_topk_quantized_partial(
 #pragma unroll
     for (int i = 0; i < kQLoads; ++i) {
       const int v = tid + i * kThreads, r = v % BQ, c = w0 + v / BQ;
-      qn[i] = (q0 + r < B && c < T) ? widen<QT>(q[(size_t)(q0 + r) * T + c]) : 0.f;
+      qn[i] = (q0 + r < B && c < T) ? q[(size_t)(q0 + r) * T + c] : 0.f;
     }
   };
 
@@ -202,8 +226,8 @@ __global__ void __launch_bounds__(kThreads, 2) fused_topk_quantized_partial(
 #pragma unroll
       for (int c = 0; c < kBK; c += 2) {
         const uint32_t byte = dn.p[0].b[c / 2];
-        drow[c] = int4_value<QT>(byte & 0xFu, dn.gscale);
-        drow[c + 1] = int4_value<QT>(byte >> 4, dn.gscale);
+        drow[c] = int4_value<kQF32>(byte & 0xFu, dn.gscale);
+        drow[c + 1] = int4_value<kQF32>(byte >> 4, dn.gscale);
       }
     }
 #pragma unroll
@@ -281,39 +305,239 @@ __global__ void __launch_bounds__(kThreads, 2) fused_topk_quantized_partial(
   }
 }
 
-template <int QT, int BITS, int BQ>
+template <int BITS, int BQ>
 cudaError_t launch_partial(const void* q, const void* docs, const float* scale,
                            const uint8_t* filt, long long filt_stride, int B, int n_docs, int T,
                            int row_bytes, int group, int n_groups, int K, int splits,
                            int tiles_per_split, int d_align, float* part_s, int* part_i,
                            cudaStream_t stream) {
   const size_t smem = partial_smem(BQ, K);
-  auto kernel = fused_topk_quantized_partial<QT, BITS, BQ>;
+  auto kernel = fused_topk_quantized_partial<BITS, BQ>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((B + BQ - 1) / BQ, splits), kThreads, smem, stream>>>(
-      static_cast<const typename Query<QT>::Raw*>(q), static_cast<const uint8_t*>(docs), scale,
+      static_cast<const float*>(q), static_cast<const uint8_t*>(docs), scale,
       filt, filt_stride, B, n_docs, T, row_bytes, group, n_groups, K, tiles_per_split, d_align,
       part_s, part_i);
   return cudaGetLastError();
 }
 
-template <int QT, int BITS>
+template <int BITS>
 cudaError_t launch_partial_bq(int bq, const void* q, const void* docs, const float* scale,
                               const uint8_t* filt, long long filt_stride, int B, int n_docs,
                               int T, int row_bytes, int group, int n_groups, int K, int splits,
                               int tiles_per_split, int d_align, float* part_s, int* part_i,
                               cudaStream_t stream) {
   if (bq == 32)
-    return launch_partial<QT, BITS, 32>(q, docs, scale, filt, filt_stride, B, n_docs, T,
+    return launch_partial<BITS, 32>(q, docs, scale, filt, filt_stride, B, n_docs, T,
                                         row_bytes, group, n_groups, K, splits, tiles_per_split,
                                         d_align, part_s, part_i, stream);
   if (bq == 8)
-    return launch_partial<QT, BITS, 8>(q, docs, scale, filt, filt_stride, B, n_docs, T,
+    return launch_partial<BITS, 8>(q, docs, scale, filt, filt_stride, B, n_docs, T,
                                        row_bytes, group, n_groups, K, splits, tiles_per_split,
                                        d_align, part_s, part_i, stream);
   return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// K4 with a bf16 query: the tensor-core pass 1 of mma_topk.cuh over packed
+// rows (fused_topk_quantized_bf16_partial).
+// ---------------------------------------------------------------------------
+
+// Two f32 values whose low 16 bits are 0 (exact bf16 values) as a bf16 pair:
+// lo in the low half (the lower column), hi in the high half.
+__device__ __forceinline__ uint32_t bf16x2_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+// Two f32 values rounded to bf16 (round to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t bf16x2_rn(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Byte b of w as 2^23 + byte, an f32 whose low byte is the byte.
+__device__ __forceinline__ float magic_byte(uint32_t w, int b) {
+  return __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7440 | b));
+}
+
+// int8 rows (N, T): a unit is 8 bytes, one 8-byte load where the row is at
+// least 8-byte aligned and holds all 8 (int8 rows of 600 bytes), else byte
+// loads; bytes past T, and rows that do not exist, are 0.  Each byte widens
+// exactly to bf16 (|v| <= 128), and the sum is multiplied by scale[id] once.
+struct Int8Rows {
+  using Unit = uint2;
+  static constexpr bool kAsync = true;  // through a ring of raw units
+  static constexpr bool kRaw = true;
+  static constexpr bool kRowScale = true;
+  const uint8_t* __restrict__ docs;
+  const float* __restrict__ scale;  // (N, 1)
+  int T, align;
+
+  __device__ __forceinline__ Unit load(int di, bool ok, int e) const {
+    const uint8_t* row = docs + (size_t)di * T;
+    if (ok && e + 8 <= T && align >= 8) return *reinterpret_cast<const uint2*>(row + e);
+    union { uint2 u; uint8_t b[8]; } p;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) p.b[s] = (ok && e + s < T) ? row[e + s] : 0;
+    return p.u;
+  }
+  // The unit's bytes into an 8-byte slot by cp.async (rows 8-byte aligned):
+  // bytes past T, and rows that do not exist, zero-filled and not read.
+  __device__ __forceinline__ void copy_raw(uint32_t* slot, int di, bool ok, int e) const {
+    const int n = ok ? min(max(T - e, 0), 8) : 0;
+    cp_async8(slot, n ? docs + (size_t)di * T + e : docs, n);
+  }
+  __device__ __forceinline__ Unit read_raw(const uint32_t* slot) const {
+    return *reinterpret_cast<const uint2*>(slot);
+  }
+  // int8 byte c as an exact f32: 2^23 + (c ^ 0x80) - (2^23 + 128).
+  __device__ __forceinline__ uint4 widen(Unit u) const {
+    const uint32_t w[2] = {u.x ^ 0x80808080u, u.y ^ 0x80808080u};
+    uint32_t out[4];
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        out[2 * k + c] = bf16x2_exact(magic_byte(w[k], 2 * c) - 8388736.0f,
+                                      magic_byte(w[k], 2 * c + 1) - 8388736.0f);
+    return make_uint4(out[0], out[1], out[2], out[3]);
+  }
+  __device__ __forceinline__ float row_scale(int id) const { return scale[id]; }
+};
+
+// Packed int4 rows (N, row_bytes = Tg / 2): a unit is 4 bytes (8 nibbles:
+// column 2c the low nibble of byte c, 2c + 1 the high one) and its group's
+// scale.  A unit lies in one group (group is a multiple of 32); a group
+// index >= n_groups (the last chunk's columns past Tg) reads scale 0 and is
+// never loaded, bytes past the row read 0x88 (nibbles 8: value 0), and rows
+// that do not exist are never read.  Each nibble widens as the reference's
+// int4_value<kQBF16>: bf16(f32(nibble - 8) * scale).
+struct Int4Rows {
+  struct Unit {
+    uint32_t bits;
+    float gscale;
+  };
+  static constexpr bool kAsync = true;  // through a ring of raw units
+  static constexpr bool kRaw = true;
+  static constexpr bool kRowScale = false;
+  const uint8_t* __restrict__ docs;
+  const float* __restrict__ scale;  // (N, n_groups)
+  int row_bytes, group, n_groups, align;
+
+  __device__ __forceinline__ Unit load(int di, bool ok, int e) const {
+    const uint8_t* row = docs + (size_t)di * row_bytes;
+    const int b0 = e / 2, g = e / group;
+    Unit u;
+    u.gscale = (ok && g < n_groups) ? scale[(size_t)di * n_groups + g] : 0.f;
+    if (ok && b0 + 4 <= row_bytes && align >= 8) {
+      u.bits = *reinterpret_cast<const uint32_t*>(row + b0);
+    } else {
+      u.bits = 0;
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        u.bits |= (uint32_t)((ok && b0 + s < row_bytes) ? row[b0 + s] : kInt4Pad) << (8 * s);
+    }
+    return u;
+  }
+  // The unit's 4 bytes and its group's scale into an 8-byte slot by
+  // cp.async (rows at least 4-byte aligned).  Bytes past the row are
+  // zero-filled instead of 0x88: their group is past n_groups, so the scale
+  // (zero-filled, not read) makes every value 0 all the same.
+  __device__ __forceinline__ void copy_raw(uint32_t* slot, int di, bool ok, int e) const {
+    const int b0 = e / 2, g = e / group;
+    const bool ok_b = ok && b0 < row_bytes, ok_s = ok && g < n_groups;
+    cp_async4(slot, ok_b ? docs + (size_t)di * row_bytes + b0 : docs, ok_b ? 4 : 0);
+    cp_async4(slot + 1, ok_s ? scale + (size_t)di * n_groups + g : scale, ok_s ? 4 : 0);
+  }
+  __device__ __forceinline__ Unit read_raw(const uint32_t* slot) const {
+    return Unit{slot[0], __uint_as_float(slot[1])};
+  }
+  // nibble n as (2^23 + n) - (2^23 + 8), times the group scale in f32, then
+  // rounded once to bf16.
+  __device__ __forceinline__ uint4 widen(Unit u) const {
+    const uint32_t lo = u.bits & 0x0F0F0F0Fu, hi = (u.bits >> 4) & 0x0F0F0F0Fu;
+    uint32_t out[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      out[c] = bf16x2_rn((magic_byte(lo, c) - 8388616.0f) * u.gscale,
+                         (magic_byte(hi, c) - 8388616.0f) * u.gscale);
+    return make_uint4(out[0], out[1], out[2], out[3]);
+  }
+  __device__ __forceinline__ float row_scale(int) const { return 1.f; }
+};
+
+template <int BITS, int BQ, int BN, int NS, bool RING>
+__global__ void __launch_bounds__(kThreads, 1) fused_topk_quantized_bf16_partial(
+    const uint16_t* __restrict__ q,     // (B, T) bf16 bits
+    const uint8_t* __restrict__ docs,   // (N, row_bytes) int8 or packed int4
+    const float* __restrict__ scale,    // (N, n_groups); int8: n_groups = 1
+    const uint8_t* __restrict__ filt,   // nullptr | (N,) | (B, N)
+    long long filt_stride,              // 0 for (N,), N for (B, N)
+    int B, int n_docs, int T, int row_bytes, int group, int n_groups, int depth, int K,
+    int tiles_per_split, bool q_aligned, int d_align,
+    float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
+  if constexpr (BITS == 8) {
+    const Int8Rows rows{docs, scale, T, d_align};
+    mma_topk_pass1<Int8Rows, BQ, BN, NS, RING>(q, rows, filt, filt_stride, B, n_docs, T, depth,
+                                              K, tiles_per_split, q_aligned, part_s, part_i);
+  } else {
+    const Int4Rows rows{docs, scale, row_bytes, group, n_groups, d_align};
+    mma_topk_pass1<Int4Rows, BQ, BN, NS, RING>(q, rows, filt, filt_stride, B, n_docs, T, depth,
+                                              K, tiles_per_split, q_aligned, part_s, part_i);
+  }
+}
+
+template <int BITS, int BQ, int BN, int NS, bool RING>
+cudaError_t launch_mma_instance(const void* q, const void* docs, const float* scale,
+                                const uint8_t* filt, long long filt_stride, int B, int n_docs,
+                                int T, int row_bytes, int group, int n_groups, int depth, int K,
+                                int splits, int tiles_per_split, bool q_aligned, int d_align,
+                                float* part_s, int* part_i, cudaStream_t stream) {
+  const size_t smem = bf16_smem(BQ, BN, NS, K, RING);
+  auto kernel = fused_topk_quantized_bf16_partial<BITS, BQ, BN, NS, RING>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((B + BQ - 1) / BQ, splits), kThreads, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint8_t*>(docs), scale, filt,
+      filt_stride, B, n_docs, T, row_bytes, group, n_groups, depth, K, tiles_per_split,
+      q_aligned, d_align, part_s, part_i);
+  return cudaGetLastError();
+}
+
+// The tensor-core pass 1 for the plan's bq; the tile and stages follow from
+// (bq, K) as in bf16_plan with the register-staged loader's two stages.
+template <int BITS>
+cudaError_t launch_mma(int bq, const void* q, const void* docs, const float* scale,
+                       const uint8_t* filt, long long filt_stride, int B, int n_docs, int T,
+                       int row_bytes, int group, int n_groups, int depth, int K, int splits,
+                       int tiles_per_split, bool q_aligned, int d_align, float* part_s,
+                       int* part_i, cudaStream_t stream) {
+  int bn = 0, stages = 0;
+  if (!bf16_shape(bq, K, kStages, &bn, &stages, true)) return cudaErrorInvalidValue;
+#define FUSED_TOPK_QUANTIZED_MMA(BQ, BN, NS, RING)                                              \
+  return launch_mma_instance<BITS, BQ, BN, NS, RING>(q, docs, scale, filt, filt_stride, B,      \
+                                                     n_docs, T, row_bytes, group, n_groups,     \
+                                                     depth, K, splits, tiles_per_split,         \
+                                                     q_aligned, d_align, part_s, part_i, stream)
+  // The raw ring copies 8-byte int8 units, 4-byte int4 words and their
+  // scales, and 16-byte query packs, so it takes aligned rows.  It is the
+  // faster loader on an H100 except for int8 at 64-query tiles, where the
+  // widening is cheap and its second barrier a step costs more than it
+  // saves (PERF.md: the loader copies of `chip_smoke.py --ablate`).
+  const bool ring = d_align >= 8 && q_aligned;
+  if (stages == 1) FUSED_TOPK_QUANTIZED_MMA(8, 128, 1, false);
+  if (bq == 64) {
+    if constexpr (BITS == 4) {
+      if (ring) FUSED_TOPK_QUANTIZED_MMA(64, 128, kStages, true);
+    }
+    FUSED_TOPK_QUANTIZED_MMA(64, 128, kRegStages, false);
+  }
+  if (ring) FUSED_TOPK_QUANTIZED_MMA(8, 256, kStages, true);
+  FUSED_TOPK_QUANTIZED_MMA(8, 256, kRegStages, false);
+#undef FUSED_TOPK_QUANTIZED_MMA
 }
 
 // ---------------------------------------------------------------------------
@@ -493,23 +717,31 @@ bool operands_ok(int qdtype, int bits, int T, int row_bytes, int group, int n_gr
 
 extern "C" {
 
-// K4's launch plan: streaming_plan (topk_merge.cuh), as K1's; the pass-1
-// blocks' shared-memory layout is the same.
-int fused_topk_quantized_plan(int B, int n_docs, int depth, int sm_count, int* plan) {
+// K4's launch plan for a query of `qdtype` (0 f32, 1 bf16) over packed rows
+// of `bits` (8 or 4): with a bf16 query bf16_plan (mma_topk.cuh) for the
+// register-staged loader; with an f32 query streaming_plan (topk_merge.cuh),
+// as K1's CUDA-core modes, with plan[4] = kBN docs a tile.
+int fused_topk_quantized_plan(int qdtype, int bits, int B, int n_docs, int depth, int sm_count,
+                              int* plan) {
+  if ((qdtype != kQF32 && qdtype != kQBF16) || (bits != 8 && bits != 4))
+    return (int)cudaErrorInvalidValue;
+  if (qdtype == kQBF16) return bf16_plan(B, n_docs, depth, sm_count, kStages, plan, true);
+  plan[4] = kBN;
   return streaming_plan(B, n_docs, depth, sm_count, plan);
 }
 
 // Both passes of K4 on `stream`, with the plan of fused_topk_quantized_plan;
-// returns the first cudaError_t (0 = launched).  qdtype: 0 f32, 1 bf16.
-// bits 8: docs (N, T) int8, scale (N, 1); bits 4: docs (N, row_bytes) packed,
-// row_bytes = Tg / 2, scale (N, n_groups), n_groups = Tg / group.  d_align:
-// the byte alignment every doc row starts at (16, 8, or less).
+// returns the first cudaError_t (0 = launched).  qdtype: 0 f32 (CUDA cores),
+// 1 bf16 (tensor cores).  bits 8: docs (N, T) int8, scale (N, 1); bits 4:
+// docs (N, row_bytes) packed, row_bytes = Tg / 2, scale (N, n_groups),
+// n_groups = Tg / group.  d_align, q_align: the byte alignment every doc /
+// query row starts at (16, 8, or less).
 int fused_topk_quantized_launch(int qdtype, int bits, int bq, const void* q, const void* docs,
                                 const void* scale, const void* filt, long long filt_stride,
                                 int B, int n_docs, int T, int row_bytes, int group,
                                 int n_groups, int depth, int K, int splits, int tiles_per_split,
-                                int d_align, void* part_s, void* part_i, void* out_s,
-                                void* out_i, void* stream) {
+                                int d_align, int q_align, void* part_s, void* part_i,
+                                void* out_s, void* out_i, void* stream) {
   if (!operands_ok(qdtype, bits, T, row_bytes, group, n_groups) || K % 32 != 0 || depth > K ||
       B <= 0 || n_docs <= 0 || splits <= 0)
     return (int)cudaErrorInvalidValue;
@@ -518,23 +750,22 @@ int fused_topk_quantized_launch(int qdtype, int bits, int bq, const void* q, con
   const uint8_t* f = static_cast<const uint8_t*>(filt);
   float* ps = static_cast<float*>(part_s);
   int* pi = static_cast<int*>(part_i);
+  const bool q_aligned = q_align == 16;
   cudaError_t err;
   if (qdtype == kQBF16 && bits == 8)
-    err = launch_partial_bq<kQBF16, 8>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes,
-                                       group, n_groups, K, splits, tiles_per_split, d_align, ps,
-                                       pi, st);
+    err = launch_mma<8>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes, group,
+                        n_groups, depth, K, splits, tiles_per_split, q_aligned, d_align, ps, pi,
+                        st);
   else if (qdtype == kQBF16)
-    err = launch_partial_bq<kQBF16, 4>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes,
-                                       group, n_groups, K, splits, tiles_per_split, d_align, ps,
-                                       pi, st);
+    err = launch_mma<4>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes, group,
+                        n_groups, depth, K, splits, tiles_per_split, q_aligned, d_align, ps, pi,
+                        st);
   else if (bits == 8)
-    err = launch_partial_bq<kQF32, 8>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes,
-                                      group, n_groups, K, splits, tiles_per_split, d_align, ps,
-                                      pi, st);
+    err = launch_partial_bq<8>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes, group,
+                               n_groups, K, splits, tiles_per_split, d_align, ps, pi, st);
   else
-    err = launch_partial_bq<kQF32, 4>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes,
-                                      group, n_groups, K, splits, tiles_per_split, d_align, ps,
-                                      pi, st);
+    err = launch_partial_bq<4>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes, group,
+                               n_groups, K, splits, tiles_per_split, d_align, ps, pi, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(ps, pi, splits, B, K, depth, out_s, out_i, st);
 }

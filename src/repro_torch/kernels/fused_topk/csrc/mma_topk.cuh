@@ -1,0 +1,564 @@
+// The tensor-core pass 1 of the streaming fused top-k, shared by K1 classic
+// (fused_topk_bf16_partial in fused_topk.cu, bf16 rows) and K4 with a bf16
+// query (fused_topk_quantized_bf16_partial in fused_topk_quantized.cu, int8
+// or packed int4 rows): the mma.sync / ldmatrix / cp.async helpers, the
+// counting merge of a candidate buffer into a running list, the block's
+// shared-memory layout and launch plan (bf16_smem / bf16_shape / bf16_plan),
+// and the body (mma_topk_pass1), templated on a doc-operand policy.
+//
+// A policy (Rows) says where a doc row's 8-column unit comes from and what
+// a finished sum becomes:
+//   using Unit;                      // what a thread holds of one unit in registers
+//   static constexpr bool kAsync;    // rows may go through a cp.async ring:
+//   static constexpr bool kRaw;      //   of raw units (packed rows), or straight
+//                                    //   into the bf16 stages (bf16 rows)
+//   static constexpr bool kRowScale; // the sum is multiplied by a per-row scale
+//   Unit load(int di, bool ok, int e) const;  // row di, columns [e, e + 8);
+//                                             // !ok: a row >= n_docs, never read
+//   uint4 widen(Unit) const;         // the unit as 8 bf16, exactly as the
+//                                    // reference dequantizes it
+//   float row_scale(int id) const;   // only where kRowScale
+//   void copy_raw(uint32_t* slot, int di, bool ok, int e) const;  // the unit
+//   Unit read_raw(const uint32_t* slot) const;  // into / from an 8-byte slot (kRaw)
+//   const uint16_t* docs;            // bf16 rows (kAsync, not kRaw)
+// The query is bf16 (B, T) in every instance, and every column past T reads
+// as 0 on both sides, so a unit that straddles T only needs its doc values
+// to be finite.
+//
+// Design (measured on an H100 in PERF.md; K1's numbers there):
+//   * Products: doc and query chunks of kMmaBK = 64 bf16 columns are staged
+//     in shared memory as bf16 (row stride 72 elements = 144 bytes, so the
+//     eight rows an ldmatrix phase reads fall on distinct banks) and
+//     multiplied by mma.sync m16n8k16 (bf16 x bf16 -> f32).  Docs are the M
+//     side (16-row fragments of doc rows), queries the N side (8-column
+//     fragments of query rows), so one kernel serves every B: the plan takes
+//     64-query tiles above B = 8 (128 docs a tile, 8 warps as 4 x 2, each
+//     32 docs x 32 queries) and 8-query tiles up to it (256 docs a tile,
+//     each warp 32 docs x 8 queries).  bf16 products are exact in f32; only
+//     the order of the f32 sums differs from the plain version.
+//   * Loads: where every row is bf16 and 16-byte aligned, a ring of stages
+//     filled by cp.async (two chunks in flight; a pack past T or a row >=
+//     n_docs / >= B is zero-filled and not read).  Packed rows may take a
+//     ring of their raw units instead (two chunks in flight): each thread
+//     copies its units into slots of its own and, a barrier after the
+//     previous chunk's products, widens them into the one bf16 doc stage;
+//     a second barrier publishes it.  Other rows go through registers one
+//     chunk ahead, and the policy widens each unit to bf16 as it is stored
+//     into one of two stages.  Either way a packed row is read once per
+//     query tile, and its dequantized chunk exists only in shared memory.
+//   * Running top-k: after a tile's last chunk every thread tests its
+//     accumulators (times the row's scale where the policy has one, the
+//     reference's order) against its query's depth-th entry with the full
+//     comparator and appends those that pass to the query's candidate
+//     buffer (a shared-memory atomicAdd on the query's count).  A buffer is
+//     merged only once it holds more than BN / 4 candidates, or after the
+//     block's last tile; until then a stale threshold only lets more in,
+//     and the buffer (BN + BN / 4 entries) has room for the next tile.  The
+//     merge (one warp per query, merge_counted) does not sort; lists wider
+//     than kRegMergeK take one warp_insert per candidate that still ranks.
+//     The list's entries past depth may go stale, but its first depth
+//     entries are the split's exact top-depth, and pass 2 keeps only those.
+#pragma once
+
+#include "topk_merge.cuh"
+
+namespace {
+
+constexpr int kMmaBK = 64;                  // bf16 per reduce chunk: 4 mma k-steps
+constexpr int kMmaStride = kMmaBK + 8;      // staged row stride in bf16 (144 bytes)
+constexpr int kMmaPacks = kMmaBK / 8;       // 8-column units per staged row and chunk
+constexpr int kRegMergeK = 256;             // widest running list merged by counting
+constexpr int kStages = 3;                  // cp.async ring: two chunks in flight
+constexpr int kRegStages = 2;               // stages of the register-staged loader
+constexpr size_t kSmemPerSm = 228 * 1024;   // shared memory of an SM
+constexpr size_t kSmemPerBlock = 1024;      // what the card reserves per resident block
+
+// A query's candidates wait in its buffer until more than bn / 4 have
+// gathered (or the block's last tile is done); the buffer holds that many
+// plus one tile's worth.
+__host__ __device__ constexpr int flush_at(int bn) { return bn / 4; }
+__host__ __device__ constexpr int cand_cap(int bn) { return bn + flush_at(bn); }
+
+// Dynamic shared memory of a pass-1 block of bq queries and bn-doc tiles
+// with `stages` staged chunks: the stages (bn doc rows, then bq query rows,
+// each kMmaStride bf16; for a ring of raw packed rows, one bf16 doc stage,
+// then `stages` query stages and `stages` raw stages of 8 bytes a unit),
+// bq running lists of K (score, id) pairs, bq candidate buffers of
+// cand_cap(bn) pairs, and each query's threshold and count.
+constexpr size_t bf16_smem(int bq, int bn, int stages, int K, bool raw = false) {
+  return (raw && stages > 1
+              ? (size_t)bn * kMmaStride * 2 + (size_t)stages * (bq * kMmaStride * 2 + bn * kMmaPacks * 8)
+              : (size_t)stages * (bn + bq) * kMmaStride * 2) +
+         (size_t)bq * K * 8 + (size_t)bq * cand_cap(bn) * 8 + (size_t)bq * 12;
+}
+
+// The doc tile and stage count of the instance for bq queries (64 or 8) at
+// list width K, where the loader holds up to `ring` stages (kStages for a
+// cp.async ring, of bf16 rows or, `raw`, of packed ones): 128 docs at 64
+// queries, 256 at 8; or, at 8 queries where the lists are too wide for
+// that, 128 docs and one register-staged stage.  False if the instance does
+// not fit in shared memory.
+inline bool bf16_shape(int bq, int K, int ring, int* bn, int* stages, bool raw = false) {
+  if (bq != 64 && bq != 8) return false;
+  *bn = bq == 8 ? 256 : 128;
+  *stages = ring;
+  if (bq == 8 && bf16_smem(8, 256, ring, K, raw) > kMaxSmem) {
+    *bn = 128;
+    *stages = 1;
+  }
+  return bf16_smem(bq, *bn, *stages, K, raw) <= kMaxSmem;
+}
+
+// The launch plan for B queries over n_docs rows at `depth` on sm_count SMs
+// with a loader of up to `ring` stages: plan[0] queries per block (64 above
+// 8 queries, else 8; 8 where the lists do not fit at 64), plan[1] K (depth
+// rounded up to 32), plan[2] N-splits, plan[3] doc tiles per split, plan[4]
+// docs per tile, so that query tiles x splits cover every SM's resident
+// blocks, at B = 256 and at B = 1 alike.  Returns cudaErrorInvalidValue if
+// no instance fits.
+inline int bf16_plan(int B, int n_docs, int depth, int sm_count, int ring, int* plan,
+                     bool raw = false) {
+  if (B <= 0 || n_docs <= 0 || depth <= 0 || sm_count <= 0) return (int)cudaErrorInvalidValue;
+  const int K = (depth + 31) / 32 * 32;
+  int bq = B > 8 ? 64 : 8, bn = 0, stages = 0;
+  if (!bf16_shape(bq, K, ring, &bn, &stages, raw)) bq = 8;
+  if (!bf16_shape(bq, K, ring, &bn, &stages, raw)) return (int)cudaErrorInvalidValue;
+  const size_t per_block = bf16_smem(bq, bn, stages, K, raw) + kSmemPerBlock;
+  const int resident = kSmemPerSm / per_block > 1 ? (int)(kSmemPerSm / per_block) : 1;
+  const int n_tiles = (n_docs + bn - 1) / bn;
+  const int q_tiles = (B + bq - 1) / bq;
+  const int want = (resident * sm_count + q_tiles - 1) / q_tiles;
+  const int splits = want < 1 ? 1 : (want < n_tiles ? want : n_tiles);
+  const int tiles_per_split = (n_tiles + splits - 1) / splits;
+  plan[0] = bq;
+  plan[1] = K;
+  plan[2] = (n_tiles + tiles_per_split - 1) / tiles_per_split;  // no empty split
+  plan[3] = tiles_per_split;
+  plan[4] = bn;
+  return 0;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// Two 8x8 bf16 matrices; lanes 0-15 give the addresses.
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 sums.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes from device to shared memory, asynchronously; src_bytes = 0
+// writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 8 or 4 bytes, cached in L1 on the way (cp.async.ca): the first src_bytes
+// are read, the rest zero-filled.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's newest copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// How many of the sorted entries (ls, li)[0, n) come before (s, id).
+__device__ __forceinline__ int rank_in(const float* ls, const int* li, int n, float s, int id) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (precedes(ls[mid], li[mid], s, id)) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// Merge the n unsorted candidates (cs, ci) (n <= 32 kCandPer) into the
+// sorted running list (rs, ri) of K <= 32 kPer entries in one pass,
+// without sorting them: an entry's new slot is the number of entries of
+// both lists that come before it.  For a list entry that is its index plus
+// the candidates before it, counted in one sweep over the candidates; for
+// a candidate, the candidates before it (the same sweep) plus its rank in
+// the list (binary search).  Slots >= K drop.  No two entries share a slot,
+// as no two share an id.  All 32 lanes take part; each holds its entries
+// in registers until every slot is known.
+template <int kCandPer, int kPer>
+__device__ __forceinline__ void merge_counted(float* rs, int* ri, int K, const float* cs,
+                                              const int* ci, int n, int lane) {
+  float ls_[kPer], cs_[kCandPer];
+  int li_[kPer], ci_[kCandPer], lslot[kPer], cslot[kCandPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int c = lane + 32 * u;
+    lslot[u] = c < K ? c : K;
+    ls_[u] = c < K ? rs[c] : -INFINITY;
+    li_[u] = c < K ? ri[c] : kBigId;
+  }
+#pragma unroll
+  for (int u = 0; u < kCandPer; ++u) {
+    const int c = lane + 32 * u;
+    cs_[u] = c < n ? cs[c] : -INFINITY;
+    ci_[u] = c < n ? ci[c] : kBigId;
+    cslot[u] = c < n ? rank_in(rs, ri, K, cs_[u], ci_[u]) : K;
+  }
+  for (int j = 0; j < n; ++j) {
+    const float s = cs[j];
+    const int id = ci[j];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) lslot[u] += precedes(s, id, ls_[u], li_[u]) ? 1 : 0;
+#pragma unroll
+    for (int u = 0; u < kCandPer; ++u) cslot[u] += precedes(s, id, cs_[u], ci_[u]) ? 1 : 0;
+  }
+  __syncwarp();
+#pragma unroll
+  for (int u = 0; u < kPer; ++u)
+    if (lane + 32 * u < K && lslot[u] < K) { rs[lslot[u]] = ls_[u]; ri[lslot[u]] = li_[u]; }
+#pragma unroll
+  for (int u = 0; u < kCandPer; ++u)
+    if (lane + 32 * u < n && cslot[u] < K) { rs[cslot[u]] = cs_[u]; ri[cslot[u]] = ci_[u]; }
+  __syncwarp();
+}
+
+// The body of a pass-1 block on a grid of (query tiles of BQ, splits): block
+// (x, split) owns queries [x * BQ, x * BQ + BQ) and doc tiles [split *
+// tiles_per_split, ...) of BN docs.  8 warps as kWarpsM (docs) x kWarpsN
+// (queries); a warp owns WM 16-doc by WN 8-query mma tiles, accumulated in
+// registers over the tile's chunks of kMmaBK columns, staged in NS
+// shared-memory stages: a cp.async ring (ASYNC: bf16 rows, every row
+// 16-byte aligned, so a 16-byte pack lies wholly inside or wholly past its
+// row) or, for other rows, units loaded through registers one chunk ahead
+// and widened by the policy as they are stored.  Writes each query's sorted
+// list of K to part_s / part_i (splits, B, K).
+template <class Rows, int BQ, int BN, int NS, bool ASYNC>
+__device__ __forceinline__ void mma_topk_pass1(
+    const uint16_t* __restrict__ q,     // (B, T) bf16 bits
+    const Rows& rows,                   // the doc operand, rows >= n_docs unread
+    const uint8_t* __restrict__ filt,   // nullptr | (N,) | (B, N)
+    long long filt_stride,              // 0 for (N,), N for (B, N)
+    int B, int n_docs, int T, int depth, int K, int tiles_per_split,
+    bool q_aligned,                     // q rows 16-byte aligned
+    float* __restrict__ part_s, int* __restrict__ part_i) {
+  constexpr int kWarpsN = BQ >= 32 ? BQ / 32 : 1;
+  constexpr int kWarpsM = kWarps / kWarpsN;
+  constexpr int WN = BQ / (8 * kWarpsN);   // 8-query mma columns per warp
+  constexpr int WM = BN / (16 * kWarpsM);  // 16-doc mma rows per warp
+  static_assert(kWarpsM * WM * 16 == BN && kWarpsN * WN * 8 == BQ, "warps must tile the block");
+  static_assert(WN == 1 || WN % 2 == 0, "query fragments load in pairs");
+  static_assert(ASYNC ? NS >= 2 : NS <= kRegStages,
+                "a ring of stages, or at most two through registers");
+  static_assert(!ASYNC || Rows::kAsync, "these rows have no cp.async ring");
+  // ASYNC over packed rows: a ring of their raw units (each thread copies
+  // and later widens its own units, so only the widened stage needs the
+  // block's barrier) and of bf16 query chunks, and one bf16 doc stage.
+  constexpr bool kRawRing = ASYNC && Rows::kRaw;
+  constexpr int kCap = cand_cap(BN), kFlushAt = flush_at(BN);
+  static_assert(kCap % 32 == 0, "candidate buffers fill whole lanes");
+  constexpr int kDLoads = BN * kMmaPacks / kThreads;
+  constexpr int kQPacks = BQ * kMmaPacks;
+  constexpr int kQLoads = (kQPacks + kThreads - 1) / kThreads;
+  static_assert(kDLoads * kThreads == BN * kMmaPacks, "doc chunk must split evenly");
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint16_t* stages = reinterpret_cast<uint16_t*>(smem);  // NS x (BN + BQ) rows
+  constexpr int kStageElems = kRawRing
+      ? BN * kMmaStride + NS * (BQ * kMmaStride + BN * kMmaPacks * 4)
+      : NS * (BN + BQ) * kMmaStride;
+  uint16_t* raw_q = stages + BN * kMmaStride;  // the raw ring's query stages
+  uint32_t* raw_d = reinterpret_cast<uint32_t*>(raw_q + NS * BQ * kMmaStride);  // and raw units
+  float* ls = reinterpret_cast<float*>(stages + kStageElems);  // BQ x K
+  int* li = reinterpret_cast<int*>(ls + BQ * K);
+  float* cs = reinterpret_cast<float*>(li + BQ * K);  // BQ x kCap candidates
+  int* ci = reinterpret_cast<int*>(cs + BQ * kCap);
+  float* ts = reinterpret_cast<float*>(ci + BQ * kCap);  // each list's depth-th entry
+  int* ti = reinterpret_cast<int*>(ts + BQ);
+  int* cnt = ti + BQ;                                  // candidates per query
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm0 = (warp % kWarpsM) * WM * 16, wn0 = (warp / kWarpsM) * WN * 8;
+  const int q0 = blockIdx.x * BQ, split = blockIdx.y;
+  const int n_chunks = (T + kMmaBK - 1) / kMmaBK;
+  const int n_tiles = (n_docs + BN - 1) / BN;
+  const int tile_begin = split * tiles_per_split;
+  const int n_steps = max(0, min(tile_begin + tiles_per_split, n_tiles) - tile_begin) * n_chunks;
+
+  for (int e = tid; e < BQ * K; e += kThreads) { ls[e] = -INFINITY; li[e] = kBigId; }
+  for (int r = tid; r < BQ; r += kThreads) { ts[r] = -INFINITY; ti[r] = kBigId; cnt[r] = 0; }
+
+  typename Rows::Unit dst[kDLoads];
+  uint4 qst[kQLoads];
+  auto load_step = [&](int step) {
+    const int d0 = (tile_begin + step / n_chunks) * BN;
+    const int e0 = (step % n_chunks) * kMmaBK;
+#pragma unroll
+    for (int i = 0; i < kDLoads; ++i) {
+      const int v = tid + i * kThreads, di = d0 + v / kMmaPacks;
+      dst[i] = rows.load(di, di < n_docs, e0 + (v % kMmaPacks) * 8);
+    }
+#pragma unroll
+    for (int i = 0; i < kQLoads; ++i) {
+      const int v = tid + i * kThreads, qi = q0 + v / kMmaPacks;
+      if (v < kQPacks)
+        qst[i] = load_pack<kBF16, false>(q + (size_t)qi * T, qi < B, e0 + (v % kMmaPacks) * 8, T,
+                                          q_aligned ? 16 : 1, true);
+    }
+  };
+
+  auto copy_step = [&](int step) {  // chunk `step` into its stage of the ring
+    if constexpr (kRawRing) {
+      const int d0 = (tile_begin + step / n_chunks) * BN;
+      const int e0 = (step % n_chunks) * kMmaBK;
+      uint32_t* rd = raw_d + (step % NS) * BN * kMmaPacks * 2;
+      uint16_t* qs = raw_q + (step % NS) * BQ * kMmaStride;
+#pragma unroll
+      for (int i = 0; i < kDLoads; ++i) {
+        const int v = tid + i * kThreads, di = d0 + v / kMmaPacks;
+        rows.copy_raw(rd + (i * kThreads + tid) * 2, di, di < n_docs, e0 + (v % kMmaPacks) * 8);
+      }
+#pragma unroll
+      for (int i = 0; i < kQLoads; ++i) {
+        const int v = tid + i * kThreads, qi = q0 + v / kMmaPacks, e = e0 + (v % kMmaPacks) * 8;
+        const bool ok = qi < B && e < T;
+        if (v < kQPacks)
+          cp_async16(qs + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8,
+                     q + (ok ? (size_t)qi * T + e : 0), ok ? 16 : 0);
+      }
+    } else if constexpr (ASYNC) {
+      uint16_t* ds = stages + (step % NS) * (BN + BQ) * kMmaStride;
+      uint16_t* qs = ds + BN * kMmaStride;
+      const int d0 = (tile_begin + step / n_chunks) * BN;
+      const int e0 = (step % n_chunks) * kMmaBK;
+#pragma unroll
+      for (int i = 0; i < kDLoads; ++i) {
+        const int v = tid + i * kThreads, di = d0 + v / kMmaPacks, e = e0 + (v % kMmaPacks) * 8;
+        const bool ok = di < n_docs && e < T;
+        cp_async16(ds + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8,
+                   rows.docs + (ok ? (size_t)di * T + e : 0), ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < kQLoads; ++i) {
+        const int v = tid + i * kThreads, qi = q0 + v / kMmaPacks, e = e0 + (v % kMmaPacks) * 8;
+        const bool ok = qi < B && e < T;
+        if (v < kQPacks)
+          cp_async16(qs + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8,
+                     q + (ok ? (size_t)qi * T + e : 0), ok ? 16 : 0);
+      }
+    }
+  };
+
+  float acc[WM][WN][4];
+  float rsc[Rows::kRowScale ? WM : 1][2];  // the scales of this thread's docs in the tile
+  if constexpr (ASYNC) {
+#pragma unroll
+    for (int s0 = 0; s0 < NS - 1; ++s0) {
+      if (s0 < n_steps) copy_step(s0);
+      cp_async_commit();
+    }
+  } else {
+    if (n_steps > 0) load_step(0);
+  }
+  for (int step = 0; step < n_steps; ++step) {
+    const int chunk = step % n_chunks;
+    uint16_t* ds = kRawRing ? stages : stages + (step % NS) * (BN + BQ) * kMmaStride;
+    uint16_t* qs = kRawRing ? raw_q + (step % NS) * BQ * kMmaStride : ds + BN * kMmaStride;
+    if (chunk == 0) {
+#pragma unroll
+      for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < WN; ++ni)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+    }
+    if constexpr (Rows::kRowScale) {
+      if (chunk == n_chunks - 1) {  // in flight during the tile's last products
+        const int d0 = (tile_begin + step / n_chunks) * BN;
+#pragma unroll
+        for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+          for (int g = 0; g < 2; ++g) {
+            const int id = d0 + wm0 + mi * 16 + g * 8 + (lane >> 2);
+            rsc[mi][g] = id < n_docs ? rows.row_scale(id) : 0.f;
+          }
+      }
+    }
+    if constexpr (kRawRing) {
+      // This thread's units of the chunk and its query packs have landed;
+      // after the barrier every warp is done with the doc stage and with the
+      // query stage of the previous step, which the chunk NS - 1 ahead fills
+      // (its raw units' slots are this thread's, widened a step ago).
+      cp_async_wait<NS - 2>();
+      __syncthreads();
+      const uint32_t* rd = raw_d + (step % NS) * BN * kMmaPacks * 2;
+#pragma unroll
+      for (int i = 0; i < kDLoads; ++i) {
+        const int v = tid + i * kThreads;
+        *reinterpret_cast<uint4*>(ds + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8) =
+            rows.widen(rows.read_raw(rd + (i * kThreads + tid) * 2));
+      }
+      if (step + NS - 1 < n_steps) copy_step(step + NS - 1);
+      cp_async_commit();
+      __syncthreads();
+    } else if constexpr (ASYNC) {
+      // This chunk has landed; after the barrier, every warp is done with
+      // the stage of the previous step, which the chunk NS - 1 ahead fills.
+      cp_async_wait<NS - 2>();
+      __syncthreads();
+      if (step + NS - 1 < n_steps) copy_step(step + NS - 1);
+      cp_async_commit();
+    } else {
+      // With two stages, the stage written here was last read two steps
+      // ago, before the barrier of the previous step.
+      if (NS == 1) __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kDLoads; ++i) {
+        const int v = tid + i * kThreads;
+        *reinterpret_cast<uint4*>(ds + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8) =
+            rows.widen(dst[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < kQLoads; ++i) {
+        const int v = tid + i * kThreads;
+        if (v < kQPacks)
+          *reinterpret_cast<uint4*>(qs + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8) =
+              qst[i];
+      }
+      __syncthreads();
+      if (step + 1 < n_steps) load_step(step + 1);  // in flight during the products
+    }
+
+#pragma unroll
+    for (int ks = 0; ks < kMmaBK / 16; ++ks) {
+      unsigned a[WM][4], b[WN][2];
+#pragma unroll
+      for (int mi = 0; mi < WM; ++mi)
+        ldmatrix_x4(a[mi], smem_addr(ds + (wm0 + mi * 16 + (lane & 15)) * kMmaStride + ks * 16 +
+                                     (lane >> 4) * 8));
+      if constexpr (WN == 1) {
+        ldmatrix_x2(b[0], smem_addr(qs + (wn0 + (lane & 7)) * kMmaStride + ks * 16 +
+                                    ((lane >> 3) & 1) * 8));
+      } else {
+#pragma unroll
+        for (int nj = 0; nj < WN; nj += 2) {
+          unsigned r[4];
+          ldmatrix_x4(r, smem_addr(qs + (wn0 + nj * 8 + (lane >> 4) * 8 + (lane & 7)) * kMmaStride +
+                                   ks * 16 + ((lane >> 3) & 1) * 8));
+          b[nj][0] = r[0];
+          b[nj][1] = r[1];
+          b[nj + 1][0] = r[2];
+          b[nj + 1][1] = r[3];
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < WN; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+    }
+
+    if (chunk != n_chunks - 1) continue;
+    // The tile is done.  acc[mi][ni][2 g + h] is the sum of doc
+    // wm0 + 16 mi + 8 g + lane / 4 for query wn0 + 8 ni + 2 (lane % 4) + h.
+    // Candidates that precede their query's depth-th entry go to its buffer.
+    const int d0 = (tile_begin + step / n_chunks) * BN;
+    bool full = false;  // a buffer this thread appended to holds more than kFlushAt
+#pragma unroll
+    for (int ni = 0; ni < WN; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wn0 + ni * 8 + 2 * (lane & 3) + h, qi = q0 + r;
+        if (qi >= B) continue;
+        const float t_s = ts[r];
+        const int t_i = ti[r];
+        const uint8_t* f = filt ? filt + qi * filt_stride : nullptr;
+#pragma unroll
+        for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+          for (int g = 0; g < 2; ++g) {
+            const int id = d0 + wm0 + mi * 16 + g * 8 + (lane >> 2);
+            float s = acc[mi][ni][2 * g + h];
+            if constexpr (Rows::kRowScale) s *= rsc[mi][g];  // once, after the whole sum
+            if (id < n_docs && precedes(s, id, t_s, t_i) && (f == nullptr || f[id] != 0)) {
+              const int c = atomicAdd(&cnt[r], 1);
+              cs[r * kCap + c] = s;
+              ci[r * kCap + c] = id;
+              full |= c == kFlushAt;
+            }
+          }
+      }
+    // Buffers with more than kFlushAt candidates (all of them after the
+    // block's last tile) merge into their lists, one warp per query, and
+    // refresh the threshold.  The others wait: a buffer of at most kFlushAt
+    // has room for the next tile, and a stale threshold only lets more in.
+    const bool last = step + 1 == n_steps;
+    if (!__syncthreads_or(full) && !last) continue;
+    for (int r = warp; r < BQ; r += kWarps) {
+      const int n = cnt[r];
+      if (n == 0 || (n <= kFlushAt && !last)) continue;  // warp-uniform
+      float* rs = ls + r * K;
+      int* ri = li + r * K;
+      const float* rcs = cs + r * kCap;
+      const int* rci = ci + r * kCap;
+      if (K <= 128) {
+        merge_counted<kCap / 32, 4>(rs, ri, K, rcs, rci, n, lane);
+      } else if (K <= kRegMergeK) {
+        merge_counted<kCap / 32, kRegMergeK / 32>(rs, ri, K, rcs, rci, n, lane);
+      } else {  // wide lists: one sorted insert per candidate that still ranks
+        for (int j = 0; j < n; ++j)
+          if (precedes(rcs[j], rci[j], rs[depth - 1], ri[depth - 1]))
+            warp_insert(rs, ri, K, rcs[j], rci[j], lane);
+      }
+      if (lane == 0) { ts[r] = rs[depth - 1]; ti[r] = ri[depth - 1]; cnt[r] = 0; }
+      __syncwarp();
+    }
+    __syncthreads();
+  }
+
+  __syncthreads();
+  for (int r = warp; r < BQ; r += kWarps) {
+    const int qi = q0 + r;
+    if (qi >= B) continue;
+    const size_t out = ((size_t)split * B + qi) * K;
+    for (int c = lane; c < K; c += 32) {
+      part_s[out + c] = ls[r * K + c];
+      part_i[out + c] = li[r * K + c];
+    }
+  }
+}
+
+}  // namespace

@@ -12,8 +12,11 @@ stream, or the call raises.  Each wrapper's ``launches`` counts the calls
 that launched on the card; each such call launches two CUDA kernels, pass 1
 (``fused_topk_bf16_partial`` for bf16 operands, ``fused_topk_partial`` for
 the other modes, ``fused_topk_gathered_partial``,
-``fused_topk_quantized_partial`` or ``fused_topk_gathered_quantized_partial``)
-and the merge (``fused_topk_merge``).
+``fused_topk_quantized_bf16_partial`` for a bf16 query over packed rows,
+``fused_topk_quantized_partial`` for an f32 one, or
+``fused_topk_gathered_quantized_partial``) and the merge
+(``fused_topk_merge``).  K1 classic and K4 with a bf16 query share one
+tensor-core pass 1 (``csrc/mma_topk.cuh``).
 """
 from __future__ import annotations
 
@@ -208,19 +211,25 @@ fused_topk_gathered.launches = 0  # type: ignore[attr-defined]
 def _qlib() -> ctypes.CDLL:
     p, i, ll, pi = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)
     return common.bind(
-        "fused_topk_quantized", fused_topk_quantized_plan=[i, i, i, i, pi],
+        "fused_topk_quantized", fused_topk_quantized_plan=[i, i, i, i, i, i, pi],
         fused_topk_quantized_launch=[
-            i, i, i, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p],
+            i, i, i, p, p, p, p, ll, i, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p],
         fused_topk_gathered_quantized_plan=[i, i, i, i, i, i, pi],
         fused_topk_gathered_quantized_launch=[
             i, i, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, i, p, p, p, p, p])
 
 
-def quantized_plan(b: int, n_docs: int, depth: int, sm_count: int) -> Tuple[int, int, int, int]:
-    """K4's launch shape (``fused_topk_quantized_plan``): (queries per
-    block, running-list width K, N-splits, doc tiles per split)."""
-    out = (ctypes.c_int * 4)()
-    if _qlib().fused_topk_quantized_plan(b, n_docs, depth, sm_count, out) != 0:
+def quantized_plan(dtype: torch.dtype, bits: int, b: int, n_docs: int, depth: int,
+                   sm_count: int) -> Tuple[int, int, int, int, int]:
+    """K4's launch shape for a query of ``dtype`` over packed rows of
+    ``bits`` (``fused_topk_quantized_plan``; a bf16 query has a tensor-core
+    pass 1 of its own): (queries per block, running-list width K, N-splits,
+    doc tiles per split, docs per tile)."""
+    if dtype not in _QUERY_DTYPES:
+        raise TypeError(f"q must be one of {list(_QUERY_DTYPES)}, got {dtype}")
+    out = (ctypes.c_int * 5)()
+    if _qlib().fused_topk_quantized_plan(_QUERY_DTYPES[dtype], bits, b, n_docs, depth, sm_count,
+                                         out) != 0:
         raise ValueError(f"depth {depth}: the running lists do not fit in shared memory")
     return tuple(out)
 
@@ -306,7 +315,7 @@ def fused_topk_quantized(
         f_ptr, f_stride = filt.data_ptr(), (n if filt.dim() == 2 else 0)
 
     sm_count = torch.cuda.get_device_properties(q.device).multi_processor_count
-    bq, k, splits, tiles_per_split = quantized_plan(b, n_docs, depth, sm_count)
+    bq, k, splits, tiles_per_split, _ = quantized_plan(q.dtype, bits, b, n_docs, depth, sm_count)
     part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
     part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
     out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
@@ -315,8 +324,8 @@ def fused_topk_quantized(
         _qlib(), "fused_topk_quantized_launch", q.device, _QUERY_DTYPES[q.dtype], bits, bq,
         q.data_ptr(), docs.data_ptr(), scale.data_ptr(), f_ptr, f_stride, b, n_docs, t,
         docs.shape[1], group, scale.shape[1], depth, k, splits, tiles_per_split,
-        common.row_alignment(docs), part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(),
-        out_i.data_ptr())
+        common.row_alignment(docs), common.row_alignment(q), part_s.data_ptr(),
+        part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr())
     fused_topk_quantized.launches += 1
     return out_s, out_i
 

@@ -18,6 +18,7 @@ from repro_torch.core import eval as ev
 from repro_torch.core.index import AnnIndex
 from repro_torch.core.types import BruteForceConfig, FakeWordsConfig, LexicalLshConfig
 from repro_torch.kernels.fused_topk import ref
+from repro_torch.kernels.common import round_up
 from repro_torch.kernels.fused_topk.kernel import (
     fused_topk,
     fused_topk_gathered,
@@ -25,6 +26,7 @@ from repro_torch.kernels.fused_topk.kernel import (
     fused_topk_quantized,
     gathered_plan,
     plan,
+    quantized_plan,
 )
 
 
@@ -200,6 +202,90 @@ def test_cuda_quantized_kernel_matches_plain_version(kernel, bits, group, qdtype
         want = ref.quantized_gathered_topk_ref(q, pq.q, pq.scale, ids, depth + 1, n_docs, bits,
                                                group, filt)
     assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=False)
+
+
+def _packed_operands(kind: str, bits: int, group: int, b: int, n: int, t: int,
+                     dev: torch.device):
+    """(bf16 query, packed store, scales) with unit scales and small integer
+    scores, exact in f32: 0/1 values ("ties"), or scores 4 * id + (0..3)
+    minus a constant that rise ("rising") or fall ("falling") with the doc
+    id, from int8 columns id // 128 - 100 and id % 128 or from the base-16
+    digits of the id as int4 values."""
+    g = torch.Generator(device=dev).manual_seed(53)
+    tg = round_up(t, group) if bits == 4 else t
+    if kind == "ties":
+        q = torch.randint(0, 2, (b, t), generator=g, device=dev)
+        vals = torch.randint(0, 2, (n, tg), generator=g, device=dev)
+    else:
+        ids = torch.arange(n, device=dev)
+        q = torch.zeros((b, t), device=dev)
+        vals = torch.randint(-3, 4, (n, tg), generator=g, device=dev)
+        if bits == 8:
+            vals[:, 0], vals[:, 1] = ids // 128 - 100, ids % 128
+            q[:, 0], q[:, 1] = 512, 4
+        else:
+            for c, w in enumerate((4096, 256, 16, 1)):
+                vals[:, c] = ids // w % 16 - 8
+                q[:, c] = 4 * w
+        vals[:, 4] = torch.randint(0, 4, (n,), generator=g, device=dev)
+        q[:, 4] = torch.randint(0, 2, (b,), generator=g, device=dev)
+        q = q if kind == "rising" else -q
+    if bits == 8:
+        return q.to(torch.bfloat16), vals.to(torch.int8), torch.ones((n, 1), device=dev)
+    nib = vals + 8
+    nib[:, t:] = 8  # pad columns hold the value 0, as the builder writes them
+    packed = (nib[:, 0::2] | (nib[:, 1::2] << 4)).to(torch.uint8)
+    return q.to(torch.bfloat16), packed, torch.ones((n, tg // group), device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,bits,group,b,n,t,depth", [
+    ("ties", 8, 0, 9, 1000, 16, 1000),        # depth = N, ties everywhere
+    ("ties", 4, 32, 33, 300, 64, 300),        # 64-query tile, ragged B
+    ("rising", 8, 0, 65, 20_000, 37, 100),    # every tile flushes; rows not 8-byte aligned
+    ("falling", 8, 0, 65, 20_000, 600, 100),  # only the first tiles flush
+    ("falling", 4, 32, 65, 20_000, 600, 100),  # T = 600: the last chunk past the last group
+    ("rising", 4, 64, 1, 20_000, 600, 100),   # 8-query tiles
+    ("wide", 8, 0, 1, 5000, 64, 3072),        # the widest list: one stage, merge by insert
+    ("wide", 4, 32, 65, 5000, 600, 3072),
+])
+def test_cuda_quantized_bf16_topk_ties_order_and_wide_lists(kind, bits, group, b, n, t, depth):
+    """K4's tensor-core pass 1 (a bf16 query) where its running top-k must
+    be exact: integer scores make ids bit-equal to the plain version's."""
+    dev = cuda_device()
+    if kind == "wide":
+        g = torch.Generator(device=dev).manual_seed(59)
+        pq = builder.quantize_postings(torch.randn((n, t), generator=g, device=dev), bits, group)
+        q = (torch.randn((b, t), generator=g, device=dev) / t**0.5).to(torch.bfloat16)
+        docs, scale = pq.q, pq.scale
+    else:
+        q, docs, scale = _packed_operands(kind, bits, group, b, n, t, dev)
+    before = fused_topk_quantized.launches
+    got = fused_topk_quantized(q, docs, scale, depth, bits, group)
+    torch.cuda.synchronize()
+    assert fused_topk_quantized.launches == before + 1
+    want = ref.quantized_topk_ref(q, docs, scale, min(depth + 1, n), bits, group)
+    assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=kind != "wide")
+
+
+@pytest.mark.gpu
+def test_quantized_launch_plan_fills_the_card_at_both_batch_sizes():
+    cuda_device()
+    n = 2_999_808
+    for bits in (8, 4):
+        # bf16 query: the tensor-core plan; f32 query: the CUDA-core one
+        for dtype, b, want in ((torch.bfloat16, 256, (64, 128)), (torch.bfloat16, 1, (8, 256)),
+                               (torch.float32, 256, (32, 256)), (torch.float32, 1, (8, 256))):
+            bq, k, splits, per, tile = quantized_plan(dtype, bits, b, n, 100, sm_count=132)
+            n_tiles = -(-n // tile)
+            assert (bq, tile, k) == want + (128,)
+            assert -(-b // bq) * splits >= 132
+            assert (splits - 1) * per < n_tiles <= splits * per  # no empty split
+        # wide lists: 8-query tiles, then one stage of 128 docs, up to depth 3,136
+        assert quantized_plan(torch.bfloat16, bits, 65, 5000, 3072, 132)[0] == 8
+        assert quantized_plan(torch.bfloat16, bits, 1, 5000, 3136, 132)[1:] == (3136, 40, 1, 128)
+        with pytest.raises(ValueError, match="shared memory"):
+            quantized_plan(torch.bfloat16, bits, 1, 5000, 3137, 132)
 
 
 @pytest.mark.gpu

@@ -209,6 +209,13 @@ K4_CASES = [
     ("int", 4, 32, "bf16", 100, "per-query", 270, 40),
     ("ties", 8, 0, "bf16", 100, None, None, 64),
     ("ties", 4, 64, "bf16", 100, "shared", None, 64),
+    # shapes the tensor-core K4's packed staging treats specially: int8 rows
+    # of 37 bytes (not 8-byte aligned), int4 g32 at T = 600 (the last 64-column
+    # chunk reaches past the 19th, last group) with ragged n_docs, and a
+    # per-query filt with a bf16 query
+    ("int", 8, 0, "bf16", 37, None, None, 40),
+    ("int", 4, 32, "bf16", 600, None, 270, 40),
+    ("float", 8, 0, "bf16", 100, "per-query", None, 40),
 ]
 
 
