@@ -7,15 +7,18 @@
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc
    (sm_90a) and prints the build time and the compiler's register report,
-   and the count of tensor-core (HMMA) instructions in each instance of
-   the tensor-core pass 1 (``csrc/mma_topk.cuh``: K1 classic's and K4's
-   with a bf16 query; ``cuobjdump -sass``; none fails the run).
+   and the count of tensor-core instructions in each instance of the
+   tensor-core pass 1 (``csrc/mma_topk.cuh``; ``cuobjdump -sass``): HMMA in
+   K1 classic's and K4's with a bf16 query, IMMA in K1 dot's (int8); an
+   instance without them fails the run.
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
    shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
-   for bf16 also 0/1 operands, scores that rise or fall with the doc id
-   (every tile, or only the first, feeds the running lists; ids must be
-   bit-equal), depth 3,072 at B = 1 and B = 65.
+   for bf16 and int8 also 0/1 operands, scores that rise or fall with the
+   doc id (every tile, or only the first, feeds the running lists; ids must
+   be bit-equal), depth 3,072 at B = 1 and B = 65; for int8 also the full
+   range, -128 / 127 only, and a ``[u; -u]`` dot query, at T = 600 (8-byte
+   rows), 256 (16-byte rows) and 37.
 3. Holds the gathered fused top-k kernel (K3) against its plain version the
    same way, with row ids in random order and in 256-row blocks, padding
    ids, ``filt``, and B = 1 over ~300k rows.
@@ -31,14 +34,15 @@
    B = 256, depth 100, k 10) end to end through ``AnnIndex.build`` /
    ``search`` on the card, with the exact-cosine ground truth, and checks
    recall, the rerank identity and that the kernel carried the path; then
-   dot scoring over the same index (K1 int8).
+   dot scoring over the same index (K1 int8, on int8 tensor cores).
 6. Runs blockmax pruning on that index (10% and 25% of the 256-row blocks
    kept) through the facade, with recalls, and at every block kept holds
    classic, dot and lsh blockmax against the dense searches.
 7. Builds the lexical-LSH index (b = 300, h = 1) of the same corpus and
    searches it at B = 256 on K1's lsh mode (K2), with recall.
-8. Times build, searches (B = 256, 8 and 1), and each kernel beside its
-   bound, its plain version and a library yardstick, with CUDA events
+8. Times build, searches (classic and dot at B = 256 and 1; blockmax at 8
+   and 1), and each kernel beside its bound, its plain version and a
+   library yardstick (K1 dot at B = 256, 8 and 1), with CUDA events
    (median of 10 runs after a warm-up); traces five classic searches at
    B = 256 with torch.profiler (device time per CUDA kernel, idle share).
 9. Holds the dense score kernels (K6 ``cosine_scores``, K7 ``score_matmul``,
@@ -75,12 +79,12 @@ unpacked, e.g. by ``git archive``), it builds that tree's ``fused_topk.cu``
 and ``fused_topk_quantized.cu`` beside this one's, calls them through the C
 signatures of that tree's own sources, and times both on the ann-word2vec
 inputs in turns (parent, this, this, parent), their results held to each
-other: K1 classic at B = 256 and B = 1, K1 f32 at B = 256, K4 with a bf16
-query over int8 and int4 postings at B = 256, 8 and 1, and K4 with an f32
-query at B = 256.  With ``--ablate`` it times the tensor-core pass 1 (K1
-classic, K4 int8 and int4) against copies of it with the running top-k,
-the widening and the products cut out (ABLATIONS), on random operands at
-the cell's shapes.
+other: K1 classic at B = 256 and B = 1, K1 f32 at B = 256, K1 dot at
+B = 256, 8 and 1 (bit for bit), K4 with a bf16 query over int8 and int4
+postings at B = 256, 8 and 1, and K4 with an f32 query at B = 256.  With
+``--ablate`` it times the tensor-core pass 1 (K1 classic, K1 dot, K4 int8
+and int4) against copies of it with the running top-k, the widening and the
+products cut out (ABLATIONS), on random operands at the cell's shapes.
 """
 from __future__ import annotations
 
@@ -239,7 +243,8 @@ def _instance(mangled: str) -> str:
     """``fused_topk_quantized_partial<1, 4, 32>`` from a mangled kernel name:
     the kernel's name and its integer, bool and type template arguments."""
     m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_bf16_partial"
-                  r"|quantized_partial|gathered_partial|bf16_partial|partial|merge)|dense_scores"
+                  r"|quantized_partial|gathered_partial|bf16_partial|int8_partial|partial|merge)"
+                  r"|dense_scores"
                   r"|flash_attention_fwd)"
                   r"(?:I((?:Li-?\d+E|Lb[01]E|[ft])+)E)?",
                   mangled)
@@ -266,10 +271,10 @@ def build_kernels(names=None) -> float:
     return seconds
 
 
-def sass_hmma(name: str = "fused_topk"):
-    """Tensor-core (HMMA) instructions per kernel instance in the SASS of
-    library ``name`` (``cuobjdump -sass``), or None where the toolkit has no
-    cuobjdump."""
+def sass_count(name: str, opcode: str):
+    """Instructions of ``opcode`` (HMMA: bf16 tensor-core products; IMMA:
+    int8 ones) per kernel instance in the SASS of library ``name``
+    (``cuobjdump -sass``), or None where the toolkit has no cuobjdump."""
     from repro_torch.kernels import common
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -282,29 +287,32 @@ def sass_hmma(name: str = "fused_topk"):
         if "Function :" in line:
             fn = _instance(line.split("Function :")[1])
             counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
+        elif fn is not None and opcode in line:
             counts[fn] += 1
     return counts
 
 
-# The tensor-core pass 1 (mma_topk.cuh) in each library: K1 classic's
-# instances, and K4's with a bf16 query.
-TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial"),
-                       ("fused_topk_quantized", "fused_topk_quantized_bf16_partial"))
+# The tensor-core pass 1 (mma_topk.cuh) in each library and the instruction
+# its products assemble to: K1 classic's instances and K4's with a bf16
+# query (mma.sync m16n8k16 bf16: HMMA), K1 dot's (m16n8k32 s8: IMMA).
+TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
+                       ("fused_topk", "fused_topk_int8_partial", "IMMA"),
+                       ("fused_topk_quantized", "fused_topk_quantized_bf16_partial", "HMMA"))
 
 
 def check_tensor_cores() -> None:
-    """Every instance of the tensor-core pass 1 holds HMMA instructions."""
-    for lib, kernel in TENSOR_CORE_KERNELS:
-        counts = sass_hmma(lib)
+    """Every instance of the tensor-core pass 1 holds its tensor-core
+    instructions (HMMA or IMMA)."""
+    for lib, kernel, opcode in TENSOR_CORE_KERNELS:
+        counts = sass_count(lib, opcode)
         if counts is None:
-            print("HMMA count: no cuobjdump in the CUDA toolkit")
+            print("tensor-core instruction count: no cuobjdump in the CUDA toolkit")
             return
         mma = {k: v for k, v in counts.items() if k.startswith(kernel)}
-        print(f"HMMA instructions in the SASS of {lib} (cuobjdump -sass): {mma}; every other "
+        print(f"{opcode} instructions in the SASS of {lib} (cuobjdump -sass): {mma}; every other "
               f"kernel there: {sum(v for k, v in counts.items() if k not in mma)}")
         if not mma or not all(mma.values()):
-            raise AssertionError(f"{kernel} has an instance without tensor-core instructions: {mma}")
+            raise AssertionError(f"{kernel} has an instance without {opcode} instructions: {mma}")
 
 
 def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
@@ -326,6 +334,31 @@ def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
         q[:, 0], q[:, 1] = 1024, 4
         q[:, 2] = torch.randint(0, 2, (b,), generator=gen, device=dev)
         q, d = (q if kind == "rising" else -q).to(torch.bfloat16), d.to(torch.bfloat16)
+    elif kind in ("rising-int8", "falling-int8"):
+        # int8, exact scores 4 id - 51,200 + (0..3), monotone in the id (T >= 7,
+        # N <= 29,184): doc columns 0-4 hold id // 128 - 100 against query
+        # weights 127 (four times) and 4, column 5 id % 128 against 4, column 6
+        # a random 0..3 against 0 or 1, the rest random in [-3, 3] against 0.
+        ids = torch.arange(n, device=dev)
+        d = torch.randint(-3, 4, (n, t), generator=gen, device=dev)
+        d[:, :5] = (ids // 128 - 100)[:, None]
+        d[:, 5] = ids % 128
+        d[:, 6] = torch.randint(0, 4, (n,), generator=gen, device=dev)
+        q = torch.zeros((b, t), dtype=torch.long, device=dev)
+        q[:, :4], q[:, 4], q[:, 5] = 127, 4, 4
+        q[:, 6] = torch.randint(0, 2, (b,), generator=gen, device=dev)
+        q, d = (q if kind == "rising-int8" else -q).to(torch.int8), d.to(torch.int8)
+    elif kind in ("int8-full", "int8-extremes"):  # every int8 value, or -128 and 127 only
+        if kind == "int8-full":
+            q, d = (torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+                    for shape in ((b, t), (n, t)))
+        else:
+            q, d = (torch.where(torch.rand(shape, generator=gen, device=dev) < 0.5, -128, 127)
+                    .to(torch.int8) for shape in ((b, t), (n, t)))
+    elif kind == "dot":  # the dot path's operands: [u; -u] over term counts 0..127
+        u = torch.randint(0, 128, (b, t // 2), generator=gen, device=dev)
+        q = torch.cat([u, -u], 1).to(torch.int8)
+        d = torch.randint(0, 128, (n, t), generator=gen, device=dev, dtype=torch.int8)
     elif kind == "lsh":
         d = torch.randint(0, 7, (n, t), generator=gen, device=dev, dtype=torch.int32)
         q = d[torch.randint(0, n, (b,), generator=gen, device=dev)].clone()
@@ -338,7 +371,8 @@ def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
     return q, d
 
 
-EXACT_KINDS = ("int8", "lsh", "ties", "ties-bf16", "rising", "falling")  # integer scores
+EXACT_KINDS = ("int8", "lsh", "ties", "ties-bf16", "rising", "falling", "rising-int8",
+               "falling-int8", "int8-full", "int8-extremes", "dot")  # integer scores
 
 
 def check_kernels(dev) -> dict:
@@ -375,6 +409,22 @@ def check_kernels(dev) -> dict:
         ("falling", 5, 20_000, 257, 100, None, None),
         ("bf16", 1, 20_000, 600, 3072, None, None),    # depth 3,072 at B = 1
         ("bf16", 65, 20_000, 600, 100, None, None),    # B = 65 at T = 600
+        # The tensor-core int8 pass 1 (K1 dot), exact: ids bit-equal.  Rows
+        # of 600 bytes take the ring of 8-byte copies, 256 and 16 bytes the
+        # 16-byte ring, 37 bytes registers; lists of 3,072 one register stage.
+        ("rising-int8", 65, 20_000, 600, 100, None, None),  # every tile flushes
+        ("falling-int8", 65, 20_000, 600, 100, "per-query", None),  # only the first
+        ("rising-int8", 1, 20_000, 600, 100, None, 19_000),
+        ("falling-int8", 5, 20_000, 37, 100, None, None),
+        ("rising-int8", 65, 20_000, 37, 100, "shared", None),
+        ("int8-full", 65, 20_000, 256, 100, None, None),
+        ("int8-full", 3, 20_000, 256, 100, None, 19_900),
+        ("int8-full", 3, 20_000, 600, 100, "shared", None),
+        ("int8-full", 1, 20_000, 256, 3072, None, None),   # depth 3,072 at B = 1
+        ("int8-extremes", 65, 5000, 600, 3072, None, None),  # and at B = 65
+        ("int8-extremes", 70, 20_000, 600, 100, None, 19_999),
+        ("ties", 65, 600, 600, 600, None, None),           # depth = N at T = 600
+        ("dot", 65, 20_000, 600, 100, None, None),
     ]
     worst = {}
     for kind, b, n, t, depth, filt_kind, n_docs in cases:
@@ -890,6 +940,7 @@ def _tree_kernels(kdir: str, out_dir: str, names=("fused_topk", "fused_topk_quan
     import ctypes
 
     from repro_torch.kernels import common
+    from repro_torch.kernels.fused_topk.kernel import alignment_bits
 
     csrc = os.path.join(kdir, "fused_topk", "csrc")
     os.makedirs(out_dir, exist_ok=True)
@@ -947,12 +998,13 @@ def _tree_kernels(kdir: str, out_dir: str, names=("fused_topk", "fused_topk_quan
         return run
 
     out = {}
-    codes = {torch.float32: 0, torch.bfloat16: 1}
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
     if "fused_topk" in names:
         k1 = caller("fused_topk")
+        # A tree that reads only the 16-byte bits of `aligned` (bits 0 and 1)
+        # sees 8-byte rows as unaligned, as it did before the 8-byte bits.
         out["fused_topk"] = lambda q, docs, depth: k1(
-            q, docs, depth, mode=codes[q.dtype],
-            aligned=int(common.row_alignment(q) == 16) | int(common.row_alignment(docs) == 16) << 1)
+            q, docs, depth, mode=codes[q.dtype], aligned=alignment_bits(q, docs))
     if "fused_topk_quantized" in names:
         k4 = caller("fused_topk_quantized")
         out["fused_topk_quantized"] = lambda q, pq, depth: k4(
@@ -962,8 +1014,8 @@ def _tree_kernels(kdir: str, out_dir: str, names=("fused_topk", "fused_topk_quan
     return out
 
 
-# Copies of the tensor-core pass 1 (csrc/mma_topk.cuh, so K1 classic's and
-# K4's with a bf16 query alike) with a part cut out, for timing only (their
+# Copies of the tensor-core pass 1 (csrc/mma_topk.cuh, so K1 classic's, K1
+# dot's and K4's with a bf16 query alike) with a part cut out, for timing only (their
 # results are wrong): without the running top-k (no candidate ever leaves
 # the accumulators); without the widening of packed units too (the raw
 # words are stored as they came, by either loader; K4 only: bf16 units are
@@ -974,30 +1026,34 @@ _NO_WIDEN = ("rows.widen(dst[i]);", "make_uint4(reinterpret_cast<const uint32_t*
              "reinterpret_cast<const uint32_t*>(&dst[i])[sizeof(dst[i]) / 4 - 1], 0, 0);")
 _NO_WIDEN_RING = ("rows.widen(rows.read_raw(rd + (i * kThreads + tid) * 2));",
                   "make_uint4(rd[(i * kThreads + tid) * 2], rd[(i * kThreads + tid) * 2 + 1], 0, 0);")
-_NO_PRODUCTS = ("for (int ks = 0; ks < kMmaBK / 16; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {")
+_NO_PRODUCTS = ("for (int ks = 0; ks < kKSteps; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {")
 ABLATIONS = {
     "without the running top-k": [_NO_TOPK],
     "without the top-k and the widening": [_NO_TOPK, _NO_WIDEN, _NO_WIDEN_RING],
     "loads only": [_NO_TOPK, _NO_PRODUCTS],
 }
-# Copies of K4 with the other loader for every packed row (whole kernels,
-# results checked): the raw-unit cp.async ring for int8 at 64-query tiles
-# too, or registers everywhere; fused_topk_quantized.cu picks per instance.
+# Copies of K4 and K1 dot with another loader (whole kernels, results
+# checked): for K4 the raw-unit cp.async ring for int8 at 64-query tiles
+# too, or registers everywhere (fused_topk_quantized.cu picks per
+# instance); for K1 dot registers in place of the ring of 8-byte copies.
 LOADERS = {
     "raw ring everywhere": [("    if constexpr (BITS == 4) {\n      if (ring)",
                              "    if constexpr (true) {\n      if (ring)")],
     "registers everywhere": [("  const bool ring = d_align >= 8 && q_aligned;",
-                              "  const bool ring = false;")],
+                              "  const bool ring = false;"),
+                             ("  const int ring = q_align < d_align ? q_align : d_align;",
+                              "  const int ring = 1;")],
 }
 
 
 def ablate(dev, card: str) -> None:
     """The tensor-core pass 1 and its ablations (ABLATIONS) at the cell's
     shapes (2,999,808 x 600, depth 100; B = 256 and B = 1, and B = 8 for
-    K4), timed in turns (full, each copy, full): K1 classic on random bf16
-    operands, and K4 with a bf16 query on random int8 and int4 (group 32)
-    stores, K4 also against its two loaders (LOADERS, results held to the
-    kernel's)."""
+    K1 dot and K4), timed in turns (full, each copy, full): K1 classic on
+    random bf16 operands, K1 dot on a random [u; -u] int8 query over random
+    term counts 0..127, and K4 with a bf16 query on random int8 and int4
+    (group 32) stores; K4 also against its two loaders and K1 dot against
+    registers (LOADERS, results held to the kernel's)."""
     import types
 
     from repro_torch.kernels.fused_topk.kernel import fused_topk, fused_topk_quantized
@@ -1013,8 +1069,12 @@ def ablate(dev, card: str) -> None:
     n, t = 2_999_808, 600
     q = (torch.randn((256, t), generator=gen, device=dev) / t**0.5).to(torch.bfloat16)
     docs = torch.randn((n, t), generator=gen, device=dev).to(torch.bfloat16)
+    u = torch.randint(0, 128, (256, t // 2), generator=gen, device=dev)
+    q_dot = torch.cat([u, -u], 1).to(torch.int8)
     stores = {
         "K1 classic, random bf16": (None, docs),
+        "K1 dot, random int8": ("dot", torch.randint(0, 128, (n, t), generator=gen, device=dev,
+                                                     dtype=torch.int8)),
         "K4 int8, random bytes": (8, types.SimpleNamespace(
             bits=8, group=0, scale=torch.rand((n, 1), generator=gen, device=dev),
             q=torch.randint(-127, 128, (n, t), generator=gen, device=dev, dtype=torch.int8))),
@@ -1025,12 +1085,17 @@ def ablate(dev, card: str) -> None:
     }
     for label, (bits, store) in stores.items():
         for b in ((256, 1) if bits is None else (256, 8, 1)):
-            qb = q[:b]
-            if bits is None:
+            qb = (q_dot if bits == "dot" else q)[:b]
+            if bits in (None, "dot"):
                 def full():
                     return fused_topk(qb, store, 100)
                 runs = {name: (lambda fn=fns["fused_topk"]: fn(qb, store, 100))
                         for name, fns in cut.items() if name in ABLATIONS and "widen" not in name}
+                if bits == "dot":
+                    name = "registers everywhere"
+                    runs[name] = lambda fn=cut[name]["fused_topk"]: fn(qb, store, 100)
+                    compare(f"{label} B={b}: {name}", runs[name](), fused_topk(qb, store, 101),
+                            exact=True)
             else:
                 def full():
                     return fused_topk_quantized(qb, store.q, store.scale, 100, bits, store.group)
@@ -1054,9 +1119,10 @@ def pair_parent(dev, card: str, parent: str) -> None:
     signatures, ``_tree_kernels``) and of this tree on the same ann-word2vec
     inputs in one process, timed in turns (parent, this, this, parent;
     median of RUNS each), with the results
-    held to each other (ids equal away from near-ties): K1 classic (bf16,
-    the main path's call) at B = 256 and B = 1 and K1 f32 (the ground
-    truth's call) at B = 256 over the fp32 index; K4 with a bf16 query over
+    held to each other (ids equal away from near-ties; K1 dot bit for bit):
+    K1 classic (bf16, the main path's call) at B = 256 and B = 1, K1 f32
+    (the ground truth's call) at B = 256 and K1 dot (the dot search's call)
+    at B = 256, 8 and 1 over the fp32 index; K4 with a bf16 query over
     int8 and int4 (group 32) postings at B = 256, 8 and 1 (the quantized
     classic search's call), and K4 with an f32 query over int8 postings at
     B = 256 (brute force's call)."""
@@ -1078,9 +1144,9 @@ def pair_parent(dev, card: str, parent: str) -> None:
     depth, k = cell.get("depth"), cell.get("k")
     qn = bruteforce.l2_normalize(qx)
 
-    def pair(name, new, parent_fn, args, d):
+    def pair(name, new, parent_fn, args, d, exact=False):
         compare(f"{name}: this tree vs the parent", new(*args, d), parent_fn(*args, d + 1),
-                exact=False)
+                exact=exact)
         times = [cuda_ms(lambda: (parent_fn if i in (0, 3) else new)(*args, d)) for i in range(4)]
         print(f"pairing {name} on {card}: parent {times[0]:.3f} ms, this tree {times[1]:.3f} ms, "
               f"this tree {times[2]:.3f} ms, parent {times[3]:.3f} ms")
@@ -1092,7 +1158,11 @@ def pair_parent(dev, card: str, parent: str) -> None:
                              ("K1 classic bf16 B=1", qv[:1], idx.index.scored, depth),
                              ("K1 f32 B=256", qn, idx.index.vectors, k)):
         pair(name, fused_topk, old["fused_topk"], (q, docs), d)
-    del idx, qv
+    q_dot = fakewords.dot_query(idx.index, q_tf, dtype=torch.int8)
+    for bb in (256, 8, 1):  # integer scores: bit for bit
+        pair(f"K1 dot int8 B={bb}", fused_topk, old["fused_topk"], (q_dot[:bb], idx.index.tf),
+             depth, exact=True)
+    del idx, qv, q_dot
     torch.cuda.empty_cache()
 
     def k4_new(q, pq, d):
@@ -1295,9 +1365,12 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
     t_search_rr = cuda_ms(lambda: idx.search(qx, k=k, depth=depth, rerank=True))
     t_search_1 = cuda_ms(lambda: idx.search(qx[:1], k=k, depth=depth))
     t_search_1_rr = cuda_ms(lambda: idx.search(qx[:1], k=k, depth=depth, rerank=True))
+    t_dot = cuda_ms(lambda: dot_idx.search(qx, k=k, depth=depth))
+    t_dot_1 = cuda_ms(lambda: dot_idx.search(qx[:1], k=k, depth=depth))
     print(f"times (median of {RUNS}, CUDA events) on {card}: build {t_build:.1f} ms; "
           f"search B={b} {t_search:.2f} ms, with rerank {t_search_rr:.2f} ms; "
-          f"B=1 {t_search_1:.2f} ms, with rerank {t_search_1_rr:.2f} ms")
+          f"B=1 {t_search_1:.2f} ms, with rerank {t_search_1_rr:.2f} ms; "
+          f"dot search B={b} {t_dot:.3f} ms, B=1 {t_dot_1:.3f} ms")
     for n_keep, pidx in pruned.items():
         line = []
         for bb in (1, 8):
@@ -1329,10 +1402,23 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
         lib_ms = cuda_ms(library)
         bound, bound_by = bound_ms(qop, docs, n, d, kind)
         bound_1, _ = bound_ms(qop[:1], docs, n, d, kind)
+        small = ""
+        if kind == "int8":
+            # B = 8 too.  _int_mm takes more than 16 rows, so at B = 8 and 1
+            # the yardstick runs on the query zero-padded to 32 rows.
+            q_pad = torch.zeros((32, qop.shape[1]), dtype=qop.dtype, device=dev)
+            for bb in (8, 1):
+                q_pad.zero_()
+                q_pad[:bb] = qop[:bb]
+                ms_b = cuda_ms(lambda: fused_topk(qop[:bb], docs, d))
+                lib_b = cuda_ms(lambda: torch.topk(torch._int_mm(q_pad, docs.T)[:bb].float(), d))
+                small += (f"; B={bb} kernel {ms_b:.3f} ms, bound "
+                          f"{bound_ms(qop[:bb], docs, n, d, kind)[0]:.3f} ms, {lib_label} on the "
+                          f"query zero-padded to 32 rows {lib_b:.3f} ms")
         print(f"{name} ({kind}, B={qop.shape[0]}, N={n}, T={qop.shape[1]}, depth={d}): "
               f"kernel {ms:.3f} ms, bound {bound:.3f} ms ({bound_by}); "
               f"B=1 kernel {ms_1:.3f} ms, bound {bound_1:.3f} ms; "
-              f"plain {plain_ms:.3f} ms; {lib_label} {lib_ms:.3f} ms")
+              f"plain {plain_ms:.3f} ms; {lib_label} {lib_ms:.3f} ms{small}")
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",

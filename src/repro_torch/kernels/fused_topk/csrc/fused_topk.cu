@@ -16,7 +16,8 @@
 //   * classic (bf16): 3.6 GB of `scored` to read -> 1.075 ms; the product is
 //     9.2e11 FLOP, 0.93 ms on bf16 tensor cores (989 TFLOP/s): bytes bound
 //     it.  At B = 1 the bytes bound it alone (1.075 ms).
-//   * dot (int8): 1.8 GB of tf -> ~0.54 ms.
+//   * dot (int8): 1.8 GB of tf -> 0.537 ms; the 9.2e11 int8 operations take
+//     0.47 ms on int8 tensor cores (1,979 TOPS): bytes bound it, at B = 1 too.
 //   * f32 ground truth (T = 300): 3.6 GB, but 4.6e11 FLOP on fp32 CUDA cores
 //     (67 TFLOP/s) -> ~6.9 ms: operations bound it.
 //
@@ -43,7 +44,7 @@
 //   * Shared memory at the cell (64 queries, K = 128, three stages): 82,944 B
 //     of stages, 65,536 of lists, 81,920 of candidate buffers and 768 of
 //     thresholds and counts = 231,168 B, one block per SM; the plan
-//     (bf16_plan) sizes the splits so that query tiles x splits cover the
+//     (mma_plan) sizes the splits so that query tiles x splits cover the
 //     resident blocks of all SMs (132 blocks at B = 256 and at B = 1).
 //   * What holds it back (on an H100, `chip_smoke.py --ablate` times
 //     copies of this kernel with parts cut out; numbers in PERF.md): at
@@ -56,15 +57,29 @@
 //     ring, and share a doc tile between the query tiles of a cluster (TMA
 //     multicast).
 //
-// f32, int8 (dot) and lsh: fused_topk_partial, on CUDA cores.  A block of
-// 256 threads owns BQ queries and a contiguous range of 256-doc tiles, walks
-// (tile, 32-word reduce chunk) steps with the next step's loads in flight,
-// and keeps the score tile in registers (each warp BQ/8 query rows, each
-// lane 8 doc columns); int8 uses __dp4a, lsh an equality count.  After a
-// tile's last chunk the warp merges its rows into the running lists: lanes
-// whose candidate beats the list's K-th entry raise a ballot, and the warp
-// inserts them one at a time (warp_insert).  So f32 at best reaches its
-// operation bound and dot runs at CUDA-core rate.
+// dot (int8): fused_topk_int8_partial, the same body over int8 rows
+// (I8Rows), which replaces the CUDA-core __dp4a pass 1 that ran this mode at
+// 54 ms (PERF.md).  A chunk is 128 int8 columns in the same 128 staged bytes
+// a row, multiplied by mma.sync m16n8k32 s8 x s8 -> s32 (IMMA) with the same
+// ldmatrix addresses, so T = 600 takes 5 chunks where bf16 takes 10; the sums
+// are exact int32, as the reference's, and become f32 once, at the threshold
+// test.  Rows are staged as they are, with no widening: a cp.async ring of
+// 16-byte copies where every q and doc row is 16-byte aligned, of two 8-byte
+// copies a pack where they are 8-byte aligned (the cell's 600-byte rows), and
+// registers one chunk ahead otherwise.  The plan and the shared memory are
+// K1 classic's (the staged bytes are the same).  What sets its pace is what
+// sets K1 classic's (above): the loads, four query tiles re-reading the
+// store from L2 (here through L1, cp.async.ca, at 8-byte copies), and the
+// running top-k; the products are half of K1 classic's instructions.
+//
+// f32 and lsh: fused_topk_partial, on CUDA cores.  A block of 256 threads
+// owns BQ queries and a contiguous range of 256-doc tiles, walks (tile,
+// 32-word reduce chunk) steps with the next step's loads in flight, and
+// keeps the score tile in registers (each warp BQ/8 query rows, each lane 8
+// doc columns); lsh is an equality count.  After a tile's last chunk the
+// warp merges its rows into the running lists: lanes whose candidate beats
+// the list's K-th entry raise a ballot, and the warp inserts them one at a
+// time (warp_insert).  So f32 at best reaches its operation bound.
 //
 // K3, the gathered variant (fused_topk_gathered_partial + the same merge),
 // replaces repro/kernels/fused_topk/kernel.py::fused_topk_gathered (def 433,
@@ -105,15 +120,9 @@ namespace {
 // false>): with the 8-byte branch compiled in, its f32 and lsh instances
 // spilled more at the 128-register cap and ran 1-2% slower on an H100.
 
-// Blocks per SM that ptxas budgets registers for: 2 caps a thread at 128
-// registers.  The 32-query int8 instance runs faster with one block and no
-// register cap (measured on an H100); f32, lsh and the 8-query instances run
-// faster with two.
+// Two blocks per SM: ptxas caps a thread at 128 registers.
 template <int M, int BQ>
-constexpr int kMinBlocks = (BQ == 32 && M == kI8) ? 1 : 2;
-
-template <int M, int BQ>
-__global__ void __launch_bounds__(kThreads, (kMinBlocks<M, BQ>)) fused_topk_partial(
+__global__ void __launch_bounds__(kThreads, 2) fused_topk_partial(
     const typename Traits<M>::Raw* __restrict__ q,     // (B, T)
     const typename Traits<M>::Raw* __restrict__ docs,  // (N, T), rows >= n_docs unread
     const uint8_t* __restrict__ filt,                   // nullptr | (N,) | (B, N)
@@ -291,13 +300,15 @@ cudaError_t launch_partial_bq(int bq, const void* q, const void* docs, const uin
 }
 
 // ---------------------------------------------------------------------------
-// K1 classic (bf16) pass 1 on tensor cores (fused_topk_bf16_partial): the
-// shared body of mma_topk.cuh over bf16 rows.
+// K1 classic (bf16) and dot (int8) pass 1 on tensor cores
+// (fused_topk_bf16_partial, fused_topk_int8_partial): the shared body of
+// mma_topk.cuh over bf16 or int8 rows.
 // ---------------------------------------------------------------------------
 
-// bf16 rows (N, T) as they are stored: an 8-column unit is one 16-byte pack
+// bf16 rows (N, T) as they are stored: an 8-column pack is one 16-byte load
 // (load_pack), or elements where rows are not 16-byte aligned.
 struct Bf16Rows {
+  using Op = MmaBf16;
   using Unit = uint4;
   static constexpr bool kAsync = true;   // straight into the bf16 stages
   static constexpr bool kRaw = false;
@@ -324,7 +335,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_bf16_partial(
     float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
   const Bf16Rows rows{docs, T, d_aligned};
   mma_topk_pass1<Bf16Rows, BQ, BN, NS, ASYNC>(q, rows, filt, filt_stride, B, n_docs, T, depth,
-                                              K, tiles_per_split, q_aligned, part_s, part_i);
+                                              K, tiles_per_split, q_aligned ? 16 : 1, part_s,
+                                              part_i);
 }
 
 template <int BQ, int BN, int NS, bool ASYNC>
@@ -332,7 +344,7 @@ cudaError_t launch_bf16_instance(const void* q, const void* docs, const uint8_t*
                                  long long filt_stride, int B, int n_docs, int T, int depth,
                                  int K, int splits, int tiles_per_split, int aligned,
                                  float* part_s, int* part_i, cudaStream_t stream) {
-  const size_t smem = bf16_smem(BQ, BN, NS, K);
+  const size_t smem = mma_smem(BQ, BN, NS, K);
   auto kernel = fused_topk_bf16_partial<BQ, BN, NS, ASYNC>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -346,18 +358,18 @@ cudaError_t launch_bf16_instance(const void* q, const void* docs, const uint8_t*
 }
 
 // The bf16 pass 1 for the plan's bq; the tile and stages follow from
-// (bq, K) as in bf16_plan, the loader from the rows' alignment.
+// (bq, K) as in mma_plan, the loader from the rows' alignment.
 cudaError_t launch_bf16(int bq, const void* q, const void* docs, const uint8_t* filt,
                         long long filt_stride, int B, int n_docs, int T, int depth, int K,
                         int splits, int tiles_per_split, int aligned, float* part_s,
                         int* part_i, cudaStream_t stream) {
   int bn = 0, stages = 0;
-  if (!bf16_shape(bq, K, kStages, &bn, &stages)) return cudaErrorInvalidValue;
+  if (!mma_shape(bq, K, kStages, &bn, &stages)) return cudaErrorInvalidValue;
 #define FUSED_TOPK_BF16(BQ, BN, NS, ASYNC)                                                   \
   return launch_bf16_instance<BQ, BN, NS, ASYNC>(q, docs, filt, filt_stride, B, n_docs, T,    \
                                                  depth, K, splits, tiles_per_split, aligned, \
                                                  part_s, part_i, stream)
-  const bool async = aligned == 3;
+  const bool async = (aligned & 3) == 3;
   if (stages == 1) FUSED_TOPK_BF16(8, 128, 1, false);
   if (bq == 64) {
     if (async) FUSED_TOPK_BF16(64, 128, kStages, true);
@@ -366,6 +378,87 @@ cudaError_t launch_bf16(int bq, const void* q, const void* docs, const uint8_t* 
   if (async) FUSED_TOPK_BF16(8, 256, kStages, true);
   FUSED_TOPK_BF16(8, 256, kRegStages, false);
 #undef FUSED_TOPK_BF16
+}
+
+// int8 rows (N, T) as they are stored (K1 dot: the index's tf), staged
+// without widening: a 16-column pack through registers is one 16-byte load,
+// two 8-byte loads, or bytes past the last whole pack and where rows are not
+// 8-byte aligned (load_pack).
+struct I8Rows {
+  using Op = MmaS8;
+  using Unit = uint4;
+  static constexpr bool kAsync = true;   // straight into the int8 stages
+  static constexpr bool kRaw = false;
+  static constexpr bool kRowScale = false;
+  const int8_t* __restrict__ docs;
+  int T, align;  // the byte alignment every row starts at: 16, 8 or 1
+
+  __device__ __forceinline__ Unit load(int di, bool ok, int e) const {
+    return load_pack<kI8>(docs + (size_t)di * T, ok, e, T, align, false);
+  }
+  __device__ __forceinline__ uint4 widen(Unit u) const { return u; }
+  __device__ __forceinline__ float row_scale(int) const { return 1.f; }
+};
+
+// RING: the bytes of one cp.async copy of the ring (16 or 8), or 0 for the
+// register-staged loader.
+template <int BQ, int BN, int NS, int RING>
+__global__ void __launch_bounds__(kThreads, 1) fused_topk_int8_partial(
+    const int8_t* __restrict__ q,       // (B, T)
+    const int8_t* __restrict__ docs,    // (N, T), rows >= n_docs unread
+    const uint8_t* __restrict__ filt,   // nullptr | (N,) | (B, N)
+    long long filt_stride,              // 0 for (N,), N for (B, N)
+    int B, int n_docs, int T, int depth, int K, int tiles_per_split,
+    int q_align, int d_align,           // the byte alignment every row starts at
+    float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
+  const I8Rows rows{docs, T, d_align};
+  mma_topk_pass1<I8Rows, BQ, BN, NS, RING != 0, RING != 0 ? RING : 16>(
+      q, rows, filt, filt_stride, B, n_docs, T, depth, K, tiles_per_split, q_align, part_s,
+      part_i);
+}
+
+template <int BQ, int BN, int NS, int RING>
+cudaError_t launch_int8_instance(const void* q, const void* docs, const uint8_t* filt,
+                                 long long filt_stride, int B, int n_docs, int T, int depth,
+                                 int K, int splits, int tiles_per_split, int q_align,
+                                 int d_align, float* part_s, int* part_i, cudaStream_t stream) {
+  const size_t smem = mma_smem(BQ, BN, NS, K);
+  auto kernel = fused_topk_int8_partial<BQ, BN, NS, RING>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + BQ - 1) / BQ, splits);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const int8_t*>(q), static_cast<const int8_t*>(docs), filt, filt_stride, B,
+      n_docs, T, depth, K, tiles_per_split, q_align, d_align, part_s, part_i);
+  return cudaGetLastError();
+}
+
+// The int8 pass 1 for the plan's bq, shaped as launch_bf16: the tile and
+// stages follow from (bq, K) as in mma_plan, the loader from the rows'
+// alignment, the lower of q's and the docs': a ring of 16-byte copies, of
+// 8-byte copies, or registers.
+cudaError_t launch_int8(int bq, const void* q, const void* docs, const uint8_t* filt,
+                        long long filt_stride, int B, int n_docs, int T, int depth, int K,
+                        int splits, int tiles_per_split, int q_align, int d_align,
+                        float* part_s, int* part_i, cudaStream_t stream) {
+  int bn = 0, stages = 0;
+  if (!mma_shape(bq, K, kStages, &bn, &stages)) return cudaErrorInvalidValue;
+#define FUSED_TOPK_INT8(BQ, BN, NS, RING)                                                     \
+  return launch_int8_instance<BQ, BN, NS, RING>(q, docs, filt, filt_stride, B, n_docs, T,      \
+                                                depth, K, splits, tiles_per_split, q_align,   \
+                                                d_align, part_s, part_i, stream)
+  const int ring = q_align < d_align ? q_align : d_align;
+  if (stages == 1) FUSED_TOPK_INT8(8, 128, 1, 0);
+  if (bq == 64) {
+    if (ring == 16) FUSED_TOPK_INT8(64, 128, kStages, 16);
+    if (ring == 8) FUSED_TOPK_INT8(64, 128, kStages, 8);
+    FUSED_TOPK_INT8(64, 128, kRegStages, 0);
+  }
+  if (ring == 16) FUSED_TOPK_INT8(8, 256, kStages, 16);
+  if (ring == 8) FUSED_TOPK_INT8(8, 256, kStages, 8);
+  FUSED_TOPK_INT8(8, 256, kRegStages, 0);
+#undef FUSED_TOPK_INT8
 }
 
 // ---------------------------------------------------------------------------
@@ -522,11 +615,12 @@ int elem_size(int mode) { return mode == kBF16 ? 2 : (mode == kI8 ? 1 : 4); }
 
 extern "C" {
 
-// K1's launch plan in `mode` (0 f32, 1 bf16, 2 int8, 3 lsh): bf16_plan for
-// bf16, else streaming_plan (topk_merge.cuh) with plan[4] = kBN docs a tile.
+// K1's launch plan in `mode` (0 f32, 1 bf16, 2 int8, 3 lsh): mma_plan for
+// bf16 and int8 (the tensor-core pass 1), else streaming_plan
+// (topk_merge.cuh) with plan[4] = kBN docs a tile.
 int fused_topk_plan(int mode, int B, int n_docs, int depth, int sm_count, int* plan) {
   if (mode < kF32 || mode > kLSH) return (int)cudaErrorInvalidValue;
-  if (mode == kBF16) return bf16_plan(B, n_docs, depth, sm_count, kStages, plan);
+  if (mode == kBF16 || mode == kI8) return mma_plan(B, n_docs, depth, sm_count, kStages, plan);
   plan[4] = kBN;
   return streaming_plan(B, n_docs, depth, sm_count, plan);
 }
@@ -534,7 +628,8 @@ int fused_topk_plan(int mode, int B, int n_docs, int depth, int sm_count, int* p
 // Both passes on `stream`, with the plan of fused_topk_plan in the same
 // mode; returns the first cudaError_t (0 = launched).  mode: 0 f32, 1 bf16, 2 int8, 3 lsh.
 // aligned: bit 0 set if every q row starts 16-byte aligned, bit 1 the same
-// for docs.
+// for docs; bit 2 if every q row starts 8-byte but not 16-byte aligned, bit
+// 3 the same for docs.
 int fused_topk_launch(int mode, int bq, const void* q, const void* docs, const void* filt,
                       long long filt_stride, int B, int n_docs, int T, int depth, int K,
                       int splits, int tiles_per_split, int aligned, void* part_s,
@@ -556,8 +651,9 @@ int fused_topk_launch(int mode, int bq, const void* q, const void* docs, const v
                         tiles_per_split, aligned, ps, pi, st);
       break;
     case kI8:
-      err = launch_partial_bq<kI8>(bq, q, docs, f, filt_stride, B, n_docs, T, K, splits,
-                                   tiles_per_split, aligned, ps, pi, st);
+      err = launch_int8(bq, q, docs, f, filt_stride, B, n_docs, T, depth, K, splits,
+                        tiles_per_split, aligned & 1 ? 16 : (aligned & 4 ? 8 : 1),
+                        aligned & 2 ? 16 : (aligned & 8 ? 8 : 1), ps, pi, st);
       break;
     case kLSH:
       err = launch_partial_bq<kLSH>(bq, q, docs, f, filt_stride, B, n_docs, T, K, splits,

@@ -367,6 +367,7 @@ __device__ __forceinline__ float magic_byte(uint32_t w, int b) {
 // loads; bytes past T, and rows that do not exist, are 0.  Each byte widens
 // exactly to bf16 (|v| <= 128), and the sum is multiplied by scale[id] once.
 struct Int8Rows {
+  using Op = MmaBf16;
   using Unit = uint2;
   static constexpr bool kAsync = true;  // through a ring of raw units
   static constexpr bool kRaw = true;
@@ -415,6 +416,7 @@ struct Int8Rows {
 // that do not exist are never read.  Each nibble widens as the reference's
 // int4_value<kQBF16>: bf16(f32(nibble - 8) * scale).
 struct Int4Rows {
+  using Op = MmaBf16;
   struct Unit {
     uint32_t bits;
     float gscale;
@@ -481,11 +483,13 @@ __global__ void __launch_bounds__(kThreads, 1) fused_topk_quantized_bf16_partial
   if constexpr (BITS == 8) {
     const Int8Rows rows{docs, scale, T, d_align};
     mma_topk_pass1<Int8Rows, BQ, BN, NS, RING>(q, rows, filt, filt_stride, B, n_docs, T, depth,
-                                              K, tiles_per_split, q_aligned, part_s, part_i);
+                                              K, tiles_per_split, q_aligned ? 16 : 1, part_s,
+                                              part_i);
   } else {
     const Int4Rows rows{docs, scale, row_bytes, group, n_groups, d_align};
     mma_topk_pass1<Int4Rows, BQ, BN, NS, RING>(q, rows, filt, filt_stride, B, n_docs, T, depth,
-                                              K, tiles_per_split, q_aligned, part_s, part_i);
+                                              K, tiles_per_split, q_aligned ? 16 : 1, part_s,
+                                              part_i);
   }
 }
 
@@ -495,7 +499,7 @@ cudaError_t launch_mma_instance(const void* q, const void* docs, const float* sc
                                 int T, int row_bytes, int group, int n_groups, int depth, int K,
                                 int splits, int tiles_per_split, bool q_aligned, int d_align,
                                 float* part_s, int* part_i, cudaStream_t stream) {
-  const size_t smem = bf16_smem(BQ, BN, NS, K, RING);
+  const size_t smem = mma_smem(BQ, BN, NS, K, RING);
   auto kernel = fused_topk_quantized_bf16_partial<BITS, BQ, BN, NS, RING>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -508,7 +512,7 @@ cudaError_t launch_mma_instance(const void* q, const void* docs, const float* sc
 }
 
 // The tensor-core pass 1 for the plan's bq; the tile and stages follow from
-// (bq, K) as in bf16_plan with the register-staged loader's two stages.
+// (bq, K) as in mma_plan with the register-staged loader's two stages.
 template <int BITS>
 cudaError_t launch_mma(int bq, const void* q, const void* docs, const float* scale,
                        const uint8_t* filt, long long filt_stride, int B, int n_docs, int T,
@@ -516,7 +520,7 @@ cudaError_t launch_mma(int bq, const void* q, const void* docs, const float* sca
                        int tiles_per_split, bool q_aligned, int d_align, float* part_s,
                        int* part_i, cudaStream_t stream) {
   int bn = 0, stages = 0;
-  if (!bf16_shape(bq, K, kStages, &bn, &stages, true)) return cudaErrorInvalidValue;
+  if (!mma_shape(bq, K, kStages, &bn, &stages, true)) return cudaErrorInvalidValue;
 #define FUSED_TOPK_QUANTIZED_MMA(BQ, BN, NS, RING)                                              \
   return launch_mma_instance<BITS, BQ, BN, NS, RING>(q, docs, scale, filt, filt_stride, B,      \
                                                      n_docs, T, row_bytes, group, n_groups,     \
@@ -718,14 +722,14 @@ bool operands_ok(int qdtype, int bits, int T, int row_bytes, int group, int n_gr
 extern "C" {
 
 // K4's launch plan for a query of `qdtype` (0 f32, 1 bf16) over packed rows
-// of `bits` (8 or 4): with a bf16 query bf16_plan (mma_topk.cuh) for the
+// of `bits` (8 or 4): with a bf16 query mma_plan (mma_topk.cuh) for the
 // register-staged loader; with an f32 query streaming_plan (topk_merge.cuh),
 // as K1's CUDA-core modes, with plan[4] = kBN docs a tile.
 int fused_topk_quantized_plan(int qdtype, int bits, int B, int n_docs, int depth, int sm_count,
                               int* plan) {
   if ((qdtype != kQF32 && qdtype != kQBF16) || (bits != 8 && bits != 4))
     return (int)cudaErrorInvalidValue;
-  if (qdtype == kQBF16) return bf16_plan(B, n_docs, depth, sm_count, kStages, plan, true);
+  if (qdtype == kQBF16) return mma_plan(B, n_docs, depth, sm_count, kStages, plan, true);
   plan[4] = kBN;
   return streaming_plan(B, n_docs, depth, sm_count, plan);
 }

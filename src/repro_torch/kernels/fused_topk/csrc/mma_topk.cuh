@@ -1,51 +1,64 @@
 // The tensor-core pass 1 of the streaming fused top-k, shared by K1 classic
-// (fused_topk_bf16_partial in fused_topk.cu, bf16 rows) and K4 with a bf16
-// query (fused_topk_quantized_bf16_partial in fused_topk_quantized.cu, int8
-// or packed int4 rows): the mma.sync / ldmatrix / cp.async helpers, the
-// counting merge of a candidate buffer into a running list, the block's
-// shared-memory layout and launch plan (bf16_smem / bf16_shape / bf16_plan),
-// and the body (mma_topk_pass1), templated on a doc-operand policy.
+// (fused_topk_bf16_partial in fused_topk.cu, bf16 rows), K1 dot
+// (fused_topk_int8_partial, same file, int8 rows) and K4 with a bf16 query
+// (fused_topk_quantized_bf16_partial in fused_topk_quantized.cu, int8 or
+// packed int4 rows widened to bf16): the mma.sync / ldmatrix / cp.async
+// helpers, the two product types (MmaBf16, MmaS8), the counting merge of a
+// candidate buffer into a running list, the block's shared-memory layout and
+// launch plan (mma_smem / mma_shape / mma_plan), and the body
+// (mma_topk_pass1), templated on a doc-operand policy.
 //
-// A policy (Rows) says where a doc row's 8-column unit comes from and what
-// a finished sum becomes:
-//   using Unit;                      // what a thread holds of one unit in registers
+// A policy (Rows) names its product type and says where a doc row's pack
+// (the columns of 16 staged bytes: 8 bf16 or 16 int8) comes from and what a
+// finished sum becomes:
+//   using Op;                        // MmaBf16 or MmaS8: q's element, the mma
+//                                    // instruction and its accumulator
+//   using Unit;                      // what a thread holds of one pack in registers
 //   static constexpr bool kAsync;    // rows may go through a cp.async ring:
 //   static constexpr bool kRaw;      //   of raw units (packed rows), or straight
-//                                    //   into the bf16 stages (bf16 rows)
+//                                    //   into the stages (bf16 or int8 rows)
 //   static constexpr bool kRowScale; // the sum is multiplied by a per-row scale
-//   Unit load(int di, bool ok, int e) const;  // row di, columns [e, e + 8);
+//   Unit load(int di, bool ok, int e) const;  // row di, the pack at column e;
 //                                             // !ok: a row >= n_docs, never read
-//   uint4 widen(Unit) const;         // the unit as 8 bf16, exactly as the
+//   uint4 widen(Unit) const;         // the pack as staged, exactly as the
 //                                    // reference dequantizes it
 //   float row_scale(int id) const;   // only where kRowScale
 //   void copy_raw(uint32_t* slot, int di, bool ok, int e) const;  // the unit
 //   Unit read_raw(const uint32_t* slot) const;  // into / from an 8-byte slot (kRaw)
-//   const uint16_t* docs;            // bf16 rows (kAsync, not kRaw)
-// The query is bf16 (B, T) in every instance, and every column past T reads
-// as 0 on both sides, so a unit that straddles T only needs its doc values
+//   const Op::Elem* docs;            // rows as staged (kAsync, not kRaw)
+// The query is (B, T) of Op's element type, and every column past T reads
+// as 0 on both sides, so a pack that straddles T only needs its doc values
 // to be finite.
 //
 // Design (measured on an H100 in PERF.md; K1's numbers there):
-//   * Products: doc and query chunks of kMmaBK = 64 bf16 columns are staged
-//     in shared memory as bf16 (row stride 72 elements = 144 bytes, so the
-//     eight rows an ldmatrix phase reads fall on distinct banks) and
-//     multiplied by mma.sync m16n8k16 (bf16 x bf16 -> f32).  Docs are the M
-//     side (16-row fragments of doc rows), queries the N side (8-column
+//   * Products: a chunk of every doc and query row, 128 bytes (64 bf16 or
+//     128 int8 columns), is staged in shared memory (row stride 144 bytes,
+//     so the eight rows an ldmatrix phase reads fall on distinct banks) and
+//     multiplied in four k-steps of 32 bytes by mma.sync: m16n8k16 bf16 x
+//     bf16 -> f32 (HMMA), or m16n8k32 s8 x s8 -> s32 (IMMA).  An m16n8k32
+//     .s8 fragment holds 4 bytes a register at the row and byte offsets
+//     where an m16n8k16 .bf16 one holds 2 bf16 (PTX ISA, the mma fragment
+//     figures), so ldmatrix loads both from the same addresses.  Docs are
+//     the M side (16-row fragments of doc rows), queries the N side (8-column
 //     fragments of query rows), so one kernel serves every B: the plan takes
 //     64-query tiles above B = 8 (128 docs a tile, 8 warps as 4 x 2, each
 //     32 docs x 32 queries) and 8-query tiles up to it (256 docs a tile,
 //     each warp 32 docs x 8 queries).  bf16 products are exact in f32; only
-//     the order of the f32 sums differs from the plain version.
-//   * Loads: where every row is bf16 and 16-byte aligned, a ring of stages
-//     filled by cp.async (two chunks in flight; a pack past T or a row >=
-//     n_docs / >= B is zero-filled and not read).  Packed rows may take a
-//     ring of their raw units instead (two chunks in flight): each thread
-//     copies its units into slots of its own and, a barrier after the
-//     previous chunk's products, widens them into the one bf16 doc stage;
-//     a second barrier publishes it.  Other rows go through registers one
-//     chunk ahead, and the policy widens each unit to bf16 as it is stored
-//     into one of two stages.  Either way a packed row is read once per
-//     query tile, and its dequantized chunk exists only in shared memory.
+//     the order of the f32 sums differs from the plain version.  int8 sums
+//     are exact int32, as the reference's, and become f32 once, at the
+//     threshold test.
+//   * Loads: where every row is bf16 or int8 and 16-byte aligned, a ring of
+//     stages filled by cp.async (two chunks in flight; a pack past T or a row
+//     >= n_docs / >= B is zero-filled and not read); int8 rows that are only
+//     8-byte aligned (600 bytes) take the same ring with two 8-byte copies a
+//     pack.  Packed rows may take a ring of their raw units instead (two
+//     chunks in flight): each thread copies its units into slots of its own
+//     and, a barrier after the previous chunk's products, widens them into
+//     the one bf16 doc stage; a second barrier publishes it.  Other rows go
+//     through registers one chunk ahead, and the policy widens each unit to
+//     bf16 as it is stored into one of two stages.  Either way a packed row
+//     is read once per query tile, and its dequantized chunk exists only in
+//     shared memory.
 //   * Running top-k: after a tile's last chunk every thread tests its
 //     accumulators (times the row's scale where the policy has one, the
 //     reference's order) against its query's depth-th entry with the full
@@ -58,15 +71,25 @@
 //     than kRegMergeK take one warp_insert per candidate that still ranks.
 //     The list's entries past depth may go stale, but its first depth
 //     entries are the split's exact top-depth, and pass 2 keeps only those.
+//
+// The int8 instances (K1 dot) replace a CUDA-core pass 1 that summed 4-byte
+// words with __dp4a.  At the ann-word2vec cell (N = 2,999,808, T = 600,
+// B = 256, depth 100) they are bound by bytes: 1.8 GB of int8 rows take
+// 0.537 ms at 3.35 TB/s, and the 9.2e11 int8 operations 0.47 ms at 1,979
+// TOPS.  What sets their pace on an H100 (PERF.md, `chip_smoke.py
+// --ablate`) is what sets K1 classic's: at B = 256 the loads (four query
+// tiles re-read the store, ~3.3 of ~7.3 ms) and the running top-k (~2.5
+// ms), not the products; at B <= 8 the loads, at ~2.3 TB/s.
 #pragma once
 
 #include "topk_merge.cuh"
 
 namespace {
 
-constexpr int kMmaBK = 64;                  // bf16 per reduce chunk: 4 mma k-steps
-constexpr int kMmaStride = kMmaBK + 8;      // staged row stride in bf16 (144 bytes)
-constexpr int kMmaPacks = kMmaBK / 8;       // 8-column units per staged row and chunk
+constexpr int kMmaChunk = 128;              // bytes of a row per reduce chunk
+constexpr int kKSteps = kMmaChunk / 32;     // mma k-steps of 32 bytes a chunk
+constexpr int kMmaStride = (kMmaChunk + 16) / 2;  // staged row stride in 16-bit lanes (144 B)
+constexpr int kMmaPacks = kMmaChunk / 16;   // 16-byte packs per staged row and chunk
 constexpr int kRegMergeK = 256;             // widest running list merged by counting
 constexpr int kStages = 3;                  // cp.async ring: two chunks in flight
 constexpr int kRegStages = 2;               // stages of the register-staged loader
@@ -81,11 +104,11 @@ __host__ __device__ constexpr int cand_cap(int bn) { return bn + flush_at(bn); }
 
 // Dynamic shared memory of a pass-1 block of bq queries and bn-doc tiles
 // with `stages` staged chunks: the stages (bn doc rows, then bq query rows,
-// each kMmaStride bf16; for a ring of raw packed rows, one bf16 doc stage,
+// each 144 bytes; for a ring of raw packed rows, one bf16 doc stage,
 // then `stages` query stages and `stages` raw stages of 8 bytes a unit),
 // bq running lists of K (score, id) pairs, bq candidate buffers of
 // cand_cap(bn) pairs, and each query's threshold and count.
-constexpr size_t bf16_smem(int bq, int bn, int stages, int K, bool raw = false) {
+constexpr size_t mma_smem(int bq, int bn, int stages, int K, bool raw = false) {
   return (raw && stages > 1
               ? (size_t)bn * kMmaStride * 2 + (size_t)stages * (bq * kMmaStride * 2 + bn * kMmaPacks * 8)
               : (size_t)stages * (bn + bq) * kMmaStride * 2) +
@@ -94,19 +117,19 @@ constexpr size_t bf16_smem(int bq, int bn, int stages, int K, bool raw = false) 
 
 // The doc tile and stage count of the instance for bq queries (64 or 8) at
 // list width K, where the loader holds up to `ring` stages (kStages for a
-// cp.async ring, of bf16 rows or, `raw`, of packed ones): 128 docs at 64
+// cp.async ring, of rows as staged or, `raw`, of packed ones): 128 docs at 64
 // queries, 256 at 8; or, at 8 queries where the lists are too wide for
 // that, 128 docs and one register-staged stage.  False if the instance does
 // not fit in shared memory.
-inline bool bf16_shape(int bq, int K, int ring, int* bn, int* stages, bool raw = false) {
+inline bool mma_shape(int bq, int K, int ring, int* bn, int* stages, bool raw = false) {
   if (bq != 64 && bq != 8) return false;
   *bn = bq == 8 ? 256 : 128;
   *stages = ring;
-  if (bq == 8 && bf16_smem(8, 256, ring, K, raw) > kMaxSmem) {
+  if (bq == 8 && mma_smem(8, 256, ring, K, raw) > kMaxSmem) {
     *bn = 128;
     *stages = 1;
   }
-  return bf16_smem(bq, *bn, *stages, K, raw) <= kMaxSmem;
+  return mma_smem(bq, *bn, *stages, K, raw) <= kMaxSmem;
 }
 
 // The launch plan for B queries over n_docs rows at `depth` on sm_count SMs
@@ -116,14 +139,14 @@ inline bool bf16_shape(int bq, int K, int ring, int* bn, int* stages, bool raw =
 // docs per tile, so that query tiles x splits cover every SM's resident
 // blocks, at B = 256 and at B = 1 alike.  Returns cudaErrorInvalidValue if
 // no instance fits.
-inline int bf16_plan(int B, int n_docs, int depth, int sm_count, int ring, int* plan,
-                     bool raw = false) {
+inline int mma_plan(int B, int n_docs, int depth, int sm_count, int ring, int* plan,
+                    bool raw = false) {
   if (B <= 0 || n_docs <= 0 || depth <= 0 || sm_count <= 0) return (int)cudaErrorInvalidValue;
   const int K = (depth + 31) / 32 * 32;
   int bq = B > 8 ? 64 : 8, bn = 0, stages = 0;
-  if (!bf16_shape(bq, K, ring, &bn, &stages, raw)) bq = 8;
-  if (!bf16_shape(bq, K, ring, &bn, &stages, raw)) return (int)cudaErrorInvalidValue;
-  const size_t per_block = bf16_smem(bq, bn, stages, K, raw) + kSmemPerBlock;
+  if (!mma_shape(bq, K, ring, &bn, &stages, raw)) bq = 8;
+  if (!mma_shape(bq, K, ring, &bn, &stages, raw)) return (int)cudaErrorInvalidValue;
+  const size_t per_block = mma_smem(bq, bn, stages, K, raw) + kSmemPerBlock;
   const int resident = kSmemPerSm / per_block > 1 ? (int)(kSmemPerSm / per_block) : 1;
   const int n_tiles = (n_docs + bn - 1) / bn;
   const int q_tiles = (B + bq - 1) / bq;
@@ -142,8 +165,8 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8.
+// Four 8x8 matrices of 16-bit lanes (bf16, or int8 pairs) from shared
+// memory; lane l gives the address of row l % 8 of matrix l / 8.
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -151,7 +174,7 @@ __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
                : "memory");
 }
 
-// Two 8x8 bf16 matrices; lanes 0-15 give the addresses.
+// Two 8x8 matrices of 16-bit lanes; lanes 0-15 give the addresses.
 __device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
@@ -168,6 +191,43 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+
+// c += a (16x32, row-major) * b (32x8, column-major), s8 in, s32 sums
+// (exact: no saturation is asked for, and |sum| < 2^31 for T < 2^17).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The product types of the pass 1: the element of q and of the staged rows
+// (and its score_operands.cuh mode, for the register loader of q), the
+// columns of a 128-byte chunk, the mma instruction and its accumulator.
+struct MmaBf16 {
+  using Elem = uint16_t;                 // bf16 bits
+  using Acc = float;
+  static constexpr int kMode = kBF16;
+  static constexpr bool kHalves = false;  // q packs by 16-byte or element loads
+  static constexpr int kCols = kMmaChunk / 2;
+  static __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                             const unsigned (&b)[2]) {
+    mma_bf16(c, a, b);
+  }
+};
+struct MmaS8 {
+  using Elem = int8_t;
+  using Acc = int;
+  static constexpr int kMode = kI8;
+  static constexpr bool kHalves = true;   // q rows of 600 bytes: 8-byte loads
+  static constexpr int kCols = kMmaChunk;
+  static __device__ __forceinline__ void mma(int (&c)[4], const unsigned (&a)[4],
+                                             const unsigned (&b)[2]) {
+    mma_s8(c, a, b);
+  }
+};
 
 // 16 bytes from device to shared memory, asynchronously; src_bytes = 0
 // writes zeros and reads nothing.
@@ -190,6 +250,27 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_by
                :
                : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
                : "memory");
+}
+// The 16-byte pack at column e of row `row` of the (rows, T) matrix `base`
+// into `dst` of a stage, by cp.async: one 16-byte copy (CP = 16: every row
+// 16-byte aligned) or two 8-byte ones (CP = 8: 8-byte aligned, each copy
+// wholly inside the row or wholly past T).  A copy past T, or of a row that
+// does not exist (!row_ok), is zero-filled and reads nothing.
+template <int CP, class E>
+__device__ __forceinline__ void copy_pack(uint16_t* dst, const E* base, int row, bool row_ok,
+                                          int e, int T) {
+  if constexpr (CP == 16) {
+    const bool ok = row_ok && e < T;
+    cp_async16(dst, base + (ok ? (size_t)row * T + e : 0), ok ? 16 : 0);
+  } else {
+    static_assert(CP == 8, "16- or 8-byte copies");
+    constexpr int kHalf = 8 / sizeof(E);  // columns of one copy
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool ok = row_ok && e + h * kHalf < T;
+      cp_async8(dst + 4 * h, base + (ok ? (size_t)row * T + e + h * kHalf : 0), ok ? 8 : 0);
+    }
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -261,21 +342,24 @@ __device__ __forceinline__ void merge_counted(float* rs, int* ri, int K, const f
 // (x, split) owns queries [x * BQ, x * BQ + BQ) and doc tiles [split *
 // tiles_per_split, ...) of BN docs.  8 warps as kWarpsM (docs) x kWarpsN
 // (queries); a warp owns WM 16-doc by WN 8-query mma tiles, accumulated in
-// registers over the tile's chunks of kMmaBK columns, staged in NS
-// shared-memory stages: a cp.async ring (ASYNC: bf16 rows, every row
-// 16-byte aligned, so a 16-byte pack lies wholly inside or wholly past its
-// row) or, for other rows, units loaded through registers one chunk ahead
-// and widened by the policy as they are stored.  Writes each query's sorted
-// list of K to part_s / part_i (splits, B, K).
-template <class Rows, int BQ, int BN, int NS, bool ASYNC>
+// registers over the tile's chunks of Op::kCols columns (128 bytes), staged
+// in NS shared-memory stages: a cp.async ring (ASYNC: rows as staged, every
+// q and doc row CP-byte aligned, so each CP-byte copy lies wholly inside or
+// wholly past its row) or, for other rows, packs loaded through registers
+// one chunk ahead and widened by the policy as they are stored.  Writes each
+// query's sorted list of K to part_s / part_i (splits, B, K).
+template <class Rows, int BQ, int BN, int NS, bool ASYNC, int CP = 16>
 __device__ __forceinline__ void mma_topk_pass1(
-    const uint16_t* __restrict__ q,     // (B, T) bf16 bits
+    const typename Rows::Op::Elem* __restrict__ q,  // (B, T)
     const Rows& rows,                   // the doc operand, rows >= n_docs unread
     const uint8_t* __restrict__ filt,   // nullptr | (N,) | (B, N)
     long long filt_stride,              // 0 for (N,), N for (B, N)
     int B, int n_docs, int T, int depth, int K, int tiles_per_split,
-    bool q_aligned,                     // q rows 16-byte aligned
+    int q_align,                        // the byte alignment every q row starts at
     float* __restrict__ part_s, int* __restrict__ part_i) {
+  using Op = typename Rows::Op;
+  using Acc = typename Op::Acc;
+  constexpr int kPackCols = Op::kCols / kMmaPacks;  // columns of a 16-byte pack
   constexpr int kWarpsN = BQ >= 32 ? BQ / 32 : 1;
   constexpr int kWarpsM = kWarps / kWarpsN;
   constexpr int WN = BQ / (8 * kWarpsN);   // 8-query mma columns per warp
@@ -285,6 +369,7 @@ __device__ __forceinline__ void mma_topk_pass1(
   static_assert(ASYNC ? NS >= 2 : NS <= kRegStages,
                 "a ring of stages, or at most two through registers");
   static_assert(!ASYNC || Rows::kAsync, "these rows have no cp.async ring");
+  static_assert(CP == 16 || !(ASYNC && Rows::kRaw), "the raw ring copies its own units");
   // ASYNC over packed rows: a ring of their raw units (each thread copies
   // and later widens its own units, so only the widened stage needs the
   // block's barrier) and of bf16 query chunks, and one bf16 doc stage.
@@ -314,7 +399,7 @@ __device__ __forceinline__ void mma_topk_pass1(
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm0 = (warp % kWarpsM) * WM * 16, wn0 = (warp / kWarpsM) * WN * 8;
   const int q0 = blockIdx.x * BQ, split = blockIdx.y;
-  const int n_chunks = (T + kMmaBK - 1) / kMmaBK;
+  const int n_chunks = (T + Op::kCols - 1) / Op::kCols;
   const int n_tiles = (n_docs + BN - 1) / BN;
   const int tile_begin = split * tiles_per_split;
   const int n_steps = max(0, min(tile_begin + tiles_per_split, n_tiles) - tile_begin) * n_chunks;
@@ -326,64 +411,63 @@ __device__ __forceinline__ void mma_topk_pass1(
   uint4 qst[kQLoads];
   auto load_step = [&](int step) {
     const int d0 = (tile_begin + step / n_chunks) * BN;
-    const int e0 = (step % n_chunks) * kMmaBK;
+    const int e0 = (step % n_chunks) * Op::kCols;
 #pragma unroll
     for (int i = 0; i < kDLoads; ++i) {
       const int v = tid + i * kThreads, di = d0 + v / kMmaPacks;
-      dst[i] = rows.load(di, di < n_docs, e0 + (v % kMmaPacks) * 8);
+      dst[i] = rows.load(di, di < n_docs, e0 + (v % kMmaPacks) * kPackCols);
     }
 #pragma unroll
     for (int i = 0; i < kQLoads; ++i) {
       const int v = tid + i * kThreads, qi = q0 + v / kMmaPacks;
       if (v < kQPacks)
-        qst[i] = load_pack<kBF16, false>(q + (size_t)qi * T, qi < B, e0 + (v % kMmaPacks) * 8, T,
-                                          q_aligned ? 16 : 1, true);
+        qst[i] = load_pack<Op::kMode, Op::kHalves>(q + (size_t)qi * T, qi < B,
+                                                   e0 + (v % kMmaPacks) * kPackCols, T, q_align,
+                                                   true);
     }
   };
 
   auto copy_step = [&](int step) {  // chunk `step` into its stage of the ring
     if constexpr (kRawRing) {
       const int d0 = (tile_begin + step / n_chunks) * BN;
-      const int e0 = (step % n_chunks) * kMmaBK;
+      const int e0 = (step % n_chunks) * Op::kCols;
       uint32_t* rd = raw_d + (step % NS) * BN * kMmaPacks * 2;
       uint16_t* qs = raw_q + (step % NS) * BQ * kMmaStride;
 #pragma unroll
       for (int i = 0; i < kDLoads; ++i) {
         const int v = tid + i * kThreads, di = d0 + v / kMmaPacks;
-        rows.copy_raw(rd + (i * kThreads + tid) * 2, di, di < n_docs, e0 + (v % kMmaPacks) * 8);
+        rows.copy_raw(rd + (i * kThreads + tid) * 2, di, di < n_docs,
+                      e0 + (v % kMmaPacks) * kPackCols);
       }
 #pragma unroll
       for (int i = 0; i < kQLoads; ++i) {
-        const int v = tid + i * kThreads, qi = q0 + v / kMmaPacks, e = e0 + (v % kMmaPacks) * 8;
-        const bool ok = qi < B && e < T;
+        const int v = tid + i * kThreads, qi = q0 + v / kMmaPacks;
         if (v < kQPacks)
-          cp_async16(qs + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8,
-                     q + (ok ? (size_t)qi * T + e : 0), ok ? 16 : 0);
+          copy_pack<16>(qs + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8, q, qi, qi < B,
+                        e0 + (v % kMmaPacks) * kPackCols, T);
       }
     } else if constexpr (ASYNC) {
       uint16_t* ds = stages + (step % NS) * (BN + BQ) * kMmaStride;
       uint16_t* qs = ds + BN * kMmaStride;
       const int d0 = (tile_begin + step / n_chunks) * BN;
-      const int e0 = (step % n_chunks) * kMmaBK;
+      const int e0 = (step % n_chunks) * Op::kCols;
 #pragma unroll
       for (int i = 0; i < kDLoads; ++i) {
-        const int v = tid + i * kThreads, di = d0 + v / kMmaPacks, e = e0 + (v % kMmaPacks) * 8;
-        const bool ok = di < n_docs && e < T;
-        cp_async16(ds + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8,
-                   rows.docs + (ok ? (size_t)di * T + e : 0), ok ? 16 : 0);
+        const int v = tid + i * kThreads, di = d0 + v / kMmaPacks;
+        copy_pack<CP>(ds + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8, rows.docs, di,
+                      di < n_docs, e0 + (v % kMmaPacks) * kPackCols, T);
       }
 #pragma unroll
       for (int i = 0; i < kQLoads; ++i) {
-        const int v = tid + i * kThreads, qi = q0 + v / kMmaPacks, e = e0 + (v % kMmaPacks) * 8;
-        const bool ok = qi < B && e < T;
+        const int v = tid + i * kThreads, qi = q0 + v / kMmaPacks;
         if (v < kQPacks)
-          cp_async16(qs + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8,
-                     q + (ok ? (size_t)qi * T + e : 0), ok ? 16 : 0);
+          copy_pack<CP>(qs + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8, q, qi, qi < B,
+                        e0 + (v % kMmaPacks) * kPackCols, T);
       }
     }
   };
 
-  float acc[WM][WN][4];
+  Acc acc[WM][WN][4];
   float rsc[Rows::kRowScale ? WM : 1][2];  // the scales of this thread's docs in the tile
   if constexpr (ASYNC) {
 #pragma unroll
@@ -404,7 +488,7 @@ __device__ __forceinline__ void mma_topk_pass1(
 #pragma unroll
         for (int ni = 0; ni < WN; ++ni)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+          for (int e = 0; e < 4; ++e) acc[mi][ni][e] = Acc(0);
     }
     if constexpr (Rows::kRowScale) {
       if (chunk == n_chunks - 1) {  // in flight during the tile's last products
@@ -464,7 +548,7 @@ __device__ __forceinline__ void mma_topk_pass1(
     }
 
 #pragma unroll
-    for (int ks = 0; ks < kMmaBK / 16; ++ks) {
+    for (int ks = 0; ks < kKSteps; ++ks) {
       unsigned a[WM][4], b[WN][2];
 #pragma unroll
       for (int mi = 0; mi < WM; ++mi)
@@ -488,7 +572,7 @@ __device__ __forceinline__ void mma_topk_pass1(
 #pragma unroll
       for (int mi = 0; mi < WM; ++mi)
 #pragma unroll
-        for (int ni = 0; ni < WN; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+        for (int ni = 0; ni < WN; ++ni) Op::mma(acc[mi][ni], a[mi], b[ni]);
     }
 
     if (chunk != n_chunks - 1) continue;
@@ -511,7 +595,7 @@ __device__ __forceinline__ void mma_topk_pass1(
 #pragma unroll
           for (int g = 0; g < 2; ++g) {
             const int id = d0 + wm0 + mi * 16 + g * 8 + (lane >> 2);
-            float s = acc[mi][ni][2 * g + h];
+            float s = static_cast<float>(acc[mi][ni][2 * g + h]);  // an int32 sum: once, here
             if constexpr (Rows::kRowScale) s *= rsc[mi][g];  // once, after the whole sum
             if (id < n_docs && precedes(s, id, t_s, t_i) && (f == nullptr || f[id] != 0)) {
               const int c = atomicAdd(&cnt[r], 1);

@@ -10,13 +10,14 @@ Routing follows the tensors' device: on the CPU the plain version
 (:mod:`.ref`) runs; on a CUDA device the kernel launches on the current
 stream, or the call raises.  Each wrapper's ``launches`` counts the calls
 that launched on the card; each such call launches two CUDA kernels, pass 1
-(``fused_topk_bf16_partial`` for bf16 operands, ``fused_topk_partial`` for
-the other modes, ``fused_topk_gathered_partial``,
+(``fused_topk_bf16_partial`` for bf16 operands, ``fused_topk_int8_partial``
+for int8 ones, ``fused_topk_partial`` for f32 and lsh,
+``fused_topk_gathered_partial``,
 ``fused_topk_quantized_bf16_partial`` for a bf16 query over packed rows,
 ``fused_topk_quantized_partial`` for an f32 one, or
 ``fused_topk_gathered_quantized_partial``) and the merge
-(``fused_topk_merge``).  K1 classic and K4 with a bf16 query share one
-tensor-core pass 1 (``csrc/mma_topk.cuh``).
+(``fused_topk_merge``).  K1 classic, K1 dot and K4 with a bf16 query share
+one tensor-core pass 1 (``csrc/mma_topk.cuh``).
 """
 from __future__ import annotations
 
@@ -47,8 +48,9 @@ def _lib() -> ctypes.CDLL:
 def plan(code: int, b: int, n_docs: int, depth: int,
          sm_count: int) -> Tuple[int, int, int, int, int]:
     """The source's launch shape in score mode ``code`` (``fused_topk_plan``;
-    bf16 has a tensor-core pass 1 of its own): (queries per block,
-    running-list width K, N-splits, doc tiles per split, docs per tile)."""
+    bf16 and int8 have a tensor-core pass 1 of their own): (queries per
+    block, running-list width K, N-splits, doc tiles per split, docs per
+    tile)."""
     out = (ctypes.c_int * 5)()
     if _lib().fused_topk_plan(code, b, n_docs, depth, sm_count, out) != 0:
         raise ValueError(f"depth {depth}: the running lists do not fit in shared memory")
@@ -65,6 +67,14 @@ def gathered_plan(code: int, b: int, r: int, t: int, depth: int,
         raise ValueError(f"depth {depth}, T {t}: the query row and running lists "
                          "do not fit in shared memory")
     return tuple(out)
+
+
+def alignment_bits(q: torch.Tensor, docs: torch.Tensor) -> int:
+    """``fused_topk_launch``'s ``aligned`` argument: bit 0 (q) and bit 1
+    (docs) where every row starts 16-byte aligned, bits 2 and 3 where it
+    starts 8-byte but not 16-byte aligned."""
+    bits = {16: 1, 8: 4}
+    return bits.get(common.row_alignment(q), 0) | bits.get(common.row_alignment(docs), 0) << 1
 
 
 def _mode_code(q: torch.Tensor, docs: torch.Tensor, mode: str) -> int:
@@ -128,8 +138,7 @@ def fused_topk(
     out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
     common.launch(
         _lib(), "fused_topk_launch", q.device, code, bq, q.data_ptr(), docs.data_ptr(), f_ptr,
-        f_stride, b, n_docs, t, depth, k, splits, tiles_per_split,
-        int(common.row_alignment(q) == 16) | int(common.row_alignment(docs) == 16) << 1,
+        f_stride, b, n_docs, t, depth, k, splits, tiles_per_split, alignment_bits(q, docs),
         part_s.data_ptr(), part_i.data_ptr(), out_s.data_ptr(), out_i.data_ptr())
     fused_topk.launches += 1
     return out_s, out_i

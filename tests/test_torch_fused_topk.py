@@ -31,6 +31,13 @@ def _operands(dtype: str, b: int, n: int, t: int, seed: int):
     if dtype == "int8":
         q = jnp.asarray(rng.integers(-50, 50, (b, t)), jnp.int8)
         d = jnp.asarray(rng.integers(-50, 50, (n, t)), jnp.int8)
+    elif dtype == "int8-full":  # every int8 value, -128 and 127 included
+        q = jnp.asarray(rng.integers(-128, 128, (b, t)), jnp.int8)
+        d = jnp.asarray(rng.integers(-128, 128, (n, t)), jnp.int8)
+    elif dtype == "int8-dot":  # the dot path's [u; -u] query over term counts 0..127
+        u = rng.integers(0, 128, (b, t // 2))
+        q = jnp.asarray(np.concatenate([u, -u], 1), jnp.int8)
+        d = jnp.asarray(rng.integers(0, 128, (n, t)), jnp.int8)
     elif dtype == "ties":
         q = jnp.asarray(rng.integers(0, 2, (b, t)), jnp.int8)
         d = jnp.asarray(rng.integers(0, 2, (n, t)), jnp.int8)
@@ -56,6 +63,12 @@ def _jax_topk(q, d, depth, mode="gemm", filt=None, n_docs=None):
         ("bf16", 3, 513, 257, 37),   # everything unaligned, ragged last tile
         ("int8", 3, 513, 257, 37),
         ("f32", 8, 300, 100, 100),   # depth == paper default
+        # The int8 (dot) operands of the tensor-core pass 1: the full range at
+        # 600-byte rows (8-byte copies) and 256-byte rows (16-byte copies),
+        # and the [u; -u] sign pattern at the cell's T.
+        ("int8-full", 3, 300, 600, 100),
+        ("int8-full", 5, 400, 256, 60),
+        ("int8-dot", 4, 300, 600, 100),
     ],
 )
 def test_fused_topk_matches_jax(dtype, b, n, t, depth):
@@ -63,7 +76,7 @@ def test_fused_topk_matches_jax(dtype, b, n, t, depth):
     want = _jax_topk(jq, jd, depth + 1)
     got = fused_topk(tq, td, depth)
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
-    assert_topk_match(got, want, exact=dtype == "int8")
+    assert_topk_match(got, want, exact=dtype.startswith("int8"))
 
 
 def test_lsh_topk_matches_jax():

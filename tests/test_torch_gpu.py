@@ -120,26 +120,81 @@ def test_cuda_bf16_topk_ties_order_and_wide_lists(kind, b, n, t, depth):
     assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=kind != "wide")
 
 
+def _int8_operands(kind: str, b: int, n: int, t: int, dev: torch.device):
+    """int8 operands with exact integer scores: 0/1 values ("ties"), -128
+    and 127 only ("extremes"), every int8 value ("full"), or scores
+    4 id - 51,200 + (0..3) that rise ("rising") or fall ("falling") with
+    the doc id (T >= 7, N <= 29,184)."""
+    g = torch.Generator(device=dev).manual_seed(53)
+    if kind == "ties":
+        return tuple(torch.randint(0, 2, shape, generator=g, device=dev, dtype=torch.int8)
+                     for shape in ((b, t), (n, t)))
+    if kind == "extremes":
+        return tuple(torch.where(torch.rand(shape, generator=g, device=dev) < 0.5, -128, 127)
+                     .to(torch.int8) for shape in ((b, t), (n, t)))
+    if kind == "full":
+        return tuple(torch.randint(-128, 128, shape, generator=g, device=dev, dtype=torch.int8)
+                     for shape in ((b, t), (n, t)))
+    ids = torch.arange(n, device=dev)
+    d = torch.randint(-3, 4, (n, t), generator=g, device=dev)
+    d[:, :5] = (ids // 128 - 100)[:, None]  # against 127 four times and 4: 512 (id // 128)
+    d[:, 5] = ids % 128                     # against 4
+    d[:, 6] = torch.randint(0, 4, (n,), generator=g, device=dev)
+    q = torch.zeros((b, t), dtype=torch.long, device=dev)
+    q[:, :4], q[:, 4], q[:, 5] = 127, 4, 4
+    q[:, 6] = torch.randint(0, 2, (b,), generator=g, device=dev)
+    return (q if kind == "rising" else -q).to(torch.int8), d.to(torch.int8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,b,n,t,depth,filt", [
+    ("ties", 9, 1000, 16, 1000, None),          # depth = N, ties everywhere (16-byte rows)
+    ("ties", 65, 600, 600, 600, None),          # depth = N at 600-byte rows (8-byte copies)
+    ("rising", 65, 20_000, 600, 100, None),     # every tile flushes; two query tiles
+    ("falling", 65, 20_000, 600, 100, "per-query"),  # only the first tiles flush
+    ("rising", 1, 20_000, 600, 100, None),      # 8-query tiles
+    ("falling", 5, 20_000, 37, 100, None),      # rows through registers
+    ("rising", 65, 20_000, 37, 100, "per-query"),
+    ("full", 65, 20_000, 256, 100, None),       # 16-byte rows
+    ("full", 1, 20_000, 256, 3072, None),       # depth 3,072 at B = 1
+    ("extremes", 65, 5000, 600, 3072, None),    # and at B = 65
+    ("extremes", 3, 20_000, 600, 100, "per-query"),
+])
+def test_cuda_int8_topk_ties_order_and_wide_lists(kind, b, n, t, depth, filt):
+    """The tensor-core int8 pass 1 (K1 dot): its sums are exact int32, so
+    scores and ids are bit-equal to the plain version's."""
+    dev = cuda_device()
+    q, d = _int8_operands(kind, b, n, t, dev)
+    g = torch.Generator(device=dev).manual_seed(59)
+    keep = torch.rand((b, n), generator=g, device=dev) < 0.3 if filt else None
+    got = fused_topk(q, d, depth, filt=keep)
+    torch.cuda.synchronize()
+    want = ref.fused_topk_ref(q, d, min(depth + 1, n), filt=keep)
+    assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=True)
+
+
 @pytest.mark.gpu
 def test_launch_plan_fills_the_card_at_both_batch_sizes():
     cuda_device()
     n = 2_999_808
-    for code, bq_256 in ((0, 32), (1, 64)):  # f32 on CUDA cores, bf16 on tensor cores
+    # f32 on CUDA cores, bf16 and int8 on tensor cores
+    for code, bq_256 in ((0, 32), (1, 64), (2, 64)):
         for b, bq_want in ((256, bq_256), (1, 8)):
             bq, k, splits, per, tile = plan(code, b, n, 100, sm_count=132)
             n_tiles = -(-n // tile)
             assert (bq, k) == (bq_want, 128)
             assert -(-b // bq) * splits >= 132
             assert (splits - 1) * per < n_tiles <= splits * per  # no empty split
-    for code in (0, 1):
+    for code in (0, 1, 2):
         assert plan(code, 256, 5000, 1000, 132)[0] == 8  # wide lists: 8-query blocks
         assert plan(code, 1, 5000, 3072, 132)[1] == 3072
     with pytest.raises(ValueError, match="shared memory"):
         plan(0, 1, 5000, 3073, 132)
-    # bf16 at 8-query tiles drops to one stage of 128 docs for wide lists
-    assert plan(1, 1, 5000, 3136, 132)[1:] == (3136, 40, 1, 128)
-    with pytest.raises(ValueError, match="shared memory"):
-        plan(1, 1, 5000, 3137, 132)
+    # bf16 and int8 at 8-query tiles drop to one stage of 128 docs for wide lists
+    for code in (1, 2):
+        assert plan(code, 1, 5000, 3136, 132)[1:] == (3136, 40, 1, 128)
+        with pytest.raises(ValueError, match="shared memory"):
+            plan(code, 1, 5000, 3137, 132)
     # the gathered kernel: B x splits covers the SMs; >= 256 rows a split
     r = 1171 * 256
     for b in (1, 8, 256):
