@@ -9,8 +9,9 @@
    (sm_90a) and prints the build time and the compiler's register report,
    and the count of tensor-core instructions in each instance of the
    tensor-core pass 1 (``csrc/mma_topk.cuh``; ``cuobjdump -sass``): HMMA in
-   K1 classic's and K4's with a bf16 query, IMMA in K1 dot's (int8); an
-   instance without them fails the run.
+   K1 classic's and K4's with a bf16 query, IMMA in K1 dot's (int8), TF32
+   HMMA in K4's with an f32 query over int8 rows; an instance without them
+   fails the run.
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
    shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
@@ -29,7 +30,10 @@
    depth up to the plan's limit, B = 1 over ~300k kept rows; for K4 with a
    bf16 query also integer scores that rise or fall with the doc id (ids
    bit-equal), int4 at T = 600 whose last chunk reaches past the last
-   group, depth 3,072 at B = 1 and 65, and a dot query.
+   group, depth 3,072 at B = 1 and 65, and a dot query; for K4 with an f32
+   query over int8 rows (split TF32) the same at T = 300, 37 and 600, and a
+   query of wide dynamic range that a copy of the kernel with only the
+   query's high tf32 part (built beside the others) must fail.
 5. Runs the ann-word2vec deployment (2,999,808 x 300, classic fake words,
    B = 256, depth 100, k 10) end to end through ``AnnIndex.build`` /
    ``search`` on the card, with the exact-cosine ground truth, and checks
@@ -66,7 +70,8 @@
    within 0.02 of fp32 postings reranked from the same int8 store);
    blockmax on the int4 index (K5) at 10% of the blocks, and at every block
    kept, classic and dot x int8 and int4, against the dense quantized
-   search; brute force with int8 postings (K4 with an f32 query); a
+   search; brute force with int8 postings (K4 with an f32 query, split TF32
+   on tensor cores) and with int4 postings (group 32, CUDA cores); a
    torch.profiler trace of the int8 classic search at B = 256; and the
    times of all of these (K4 at B = 256, 8 and 1).
 
@@ -81,10 +86,14 @@ signatures of that tree's own sources, and times both on the ann-word2vec
 inputs in turns (parent, this, this, parent), their results held to each
 other: K1 classic at B = 256 and B = 1, K1 f32 at B = 256, K1 dot at
 B = 256, 8 and 1 (bit for bit), K4 with a bf16 query over int8 and int4
-postings at B = 256, 8 and 1, and K4 with an f32 query at B = 256.  With
-``--ablate`` it times the tensor-core pass 1 (K1 classic, K1 dot, K4 int8
-and int4) against copies of it with the running top-k, the widening and the
-products cut out (ABLATIONS), on random operands at the cell's shapes.
+postings at B = 256, 8 and 1, and K4 with an f32 query over int8 postings
+at B = 256, 8 and 1.  With ``--ablate`` it times the tensor-core pass 1 (K1
+classic, K1 dot, K4 int8 and int4 with a bf16 query, K4 int8 with an f32
+one) against copies of it with the running top-k, the widening and the
+products cut out (ABLATIONS; for the f32 query also the fold, the query's
+split and its low tf32 part cut out, each also held to the plain version on
+a case with small scores in the list: TF32_ABLATIONS), and K4 against its
+loaders (LOADERS), on random operands at the cell's shapes.
 """
 from __future__ import annotations
 
@@ -108,7 +117,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # is the larger of bytes / memory rate and operations / peak rate.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {
-    "bf16": 989e12, "f32": 67e12, "int8": 1979e12,
+    "bf16": 989e12, "f32": 67e12, "int8": 1979e12, "tf32": 495e12,
     # INT32 (the lsh compare): 64 INT32 lanes per SM (Hopper architecture
     # white paper) x 132 SMs x 1.98 GHz boost clock.
     "int32": 16.7e12,
@@ -183,13 +192,15 @@ def _packed_row_bytes(docs, scale) -> int:
     return docs.shape[1] * docs.element_size() + scale.shape[1] * 4
 
 
-def quantized_bound_ms(q, docs, scale, n_docs: int, depth: int, kind: str):
+def quantized_bound_ms(q, docs, scale, n_docs: int, depth: int, kind: str, passes: int = 1):
     """Bound of one K4 call: the query, each of the n_docs packed rows and
-    its scales read once, the output written once; 2*B*N*T operations at
-    the query dtype's peak (the dequantized operand is in that dtype)."""
+    its scales read once, the output written once; ``passes`` x 2*B*N*T
+    operations at the peak of ``kind`` (the query dtype's: the dequantized
+    operand is in that dtype; "tf32" with 2 passes for the split-TF32
+    product of an f32 query, which takes two tf32 products per element)."""
     b, t = q.shape
     nbytes = q.numel() * q.element_size() + n_docs * _packed_row_bytes(docs, scale) + b * depth * 8
-    return _bound(nbytes, 2.0 * b * n_docs * t, kind)
+    return _bound(nbytes, passes * 2.0 * b * n_docs * t, kind)
 
 
 def gathered_quantized_bound_ms(q, docs, scale, row_ids, n_docs: int, depth: int, kind: str):
@@ -243,7 +254,8 @@ def _instance(mangled: str) -> str:
     """``fused_topk_quantized_partial<1, 4, 32>`` from a mangled kernel name:
     the kernel's name and its integer, bool and type template arguments."""
     m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_bf16_partial"
-                  r"|quantized_partial|gathered_partial|bf16_partial|int8_partial|partial|merge)"
+                  r"|quantized_tf32_partial|quantized_partial|gathered_partial|bf16_partial"
+                  r"|int8_partial|partial|merge)"
                   r"|dense_scores"
                   r"|flash_attention_fwd)"
                   r"(?:I((?:Li-?\d+E|Lb[01]E|[ft])+)E)?",
@@ -272,8 +284,9 @@ def build_kernels(names=None) -> float:
 
 
 def sass_count(name: str, opcode: str):
-    """Instructions of ``opcode`` (HMMA: bf16 tensor-core products; IMMA:
-    int8 ones) per kernel instance in the SASS of library ``name``
+    """Instructions matching the regular expression ``opcode`` (HMMA: bf16
+    or tf32 tensor-core products; IMMA: int8 ones; ``HMMA\\.\\S*TF32``: tf32
+    ones) per kernel instance in the SASS of library ``name``
     (``cuobjdump -sass``), or None where the toolkit has no cuobjdump."""
     from repro_torch.kernels import common
 
@@ -287,32 +300,36 @@ def sass_count(name: str, opcode: str):
         if "Function :" in line:
             fn = _instance(line.split("Function :")[1])
             counts[fn] = 0
-        elif fn is not None and opcode in line:
+        elif fn is not None and re.search(opcode, line):
             counts[fn] += 1
     return counts
 
 
 # The tensor-core pass 1 (mma_topk.cuh) in each library and the instruction
 # its products assemble to: K1 classic's instances and K4's with a bf16
-# query (mma.sync m16n8k16 bf16: HMMA), K1 dot's (m16n8k32 s8: IMMA).
+# query (mma.sync m16n8k16 bf16: HMMA), K1 dot's (m16n8k32 s8: IMMA), K4's
+# with an f32 query over int8 rows (m16n8k8 tf32: HMMA on TF32 operands).
 TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fused_topk", "fused_topk_int8_partial", "IMMA"),
-                       ("fused_topk_quantized", "fused_topk_quantized_bf16_partial", "HMMA"))
+                       ("fused_topk_quantized", "fused_topk_quantized_bf16_partial", "HMMA"),
+                       ("fused_topk_quantized", "fused_topk_quantized_tf32_partial",
+                        r"HMMA\.\S*TF32"))
 
 
 def check_tensor_cores() -> None:
     """Every instance of the tensor-core pass 1 holds its tensor-core
-    instructions (HMMA or IMMA)."""
+    instructions (HMMA, IMMA, or HMMA on TF32 operands)."""
     for lib, kernel, opcode in TENSOR_CORE_KERNELS:
         counts = sass_count(lib, opcode)
         if counts is None:
             print("tensor-core instruction count: no cuobjdump in the CUDA toolkit")
             return
+        label = "TF32 HMMA" if "TF32" in opcode else opcode
         mma = {k: v for k, v in counts.items() if k.startswith(kernel)}
-        print(f"{opcode} instructions in the SASS of {lib} (cuobjdump -sass): {mma}; every other "
+        print(f"{label} instructions in the SASS of {lib} (cuobjdump -sass): {mma}; every other "
               f"kernel there: {sum(v for k, v in counts.items() if k not in mma)}")
         if not mma or not all(mma.values()):
-            raise AssertionError(f"{kernel} has an instance without {opcode} instructions: {mma}")
+            raise AssertionError(f"{kernel} has an instance without {label} instructions: {mma}")
 
 
 def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
@@ -525,7 +542,10 @@ def _quantized_inputs(kind: str, bits: int, group: int, qdtype: str, b: int, n: 
     the running lists), from int8 columns id // 128 - 100 and id % 128, or
     from the four base-16 digits of the id as int4 values.  "dot": a dot
     query ([u; -u], integers) over int8 postings packed by the port's
-    builder from term counts in [0, 50] with a 127 in every row (scale 1)."""
+    builder from term counts in [0, 50] with a 127 in every row (scale 1).
+    "wide" (f32): a float store as "float" and a query of wide dynamic
+    range (|q| from 1e-3 to 1e3, random signs and mantissas), where one
+    tf32 pass of the query is far outside the near-tie rule."""
     from repro_torch.core import builder
     from repro_torch.kernels.common import round_up
 
@@ -558,11 +578,16 @@ def _quantized_inputs(kind: str, bits: int, group: int, qdtype: str, b: int, n: 
         u = torch.randint(-20, 21, (b, t // 2), generator=gen, device=dev)
         pq = builder.quantize_postings(tf.float(), 8)
         return torch.cat([u, -u], 1).to(dtype), pq.q, pq.scale
-    if kind == "float":
+    if kind in ("float", "wide"):
         m = torch.randn((n, t), generator=gen, device=dev)
         m *= 10 * torch.rand((n, 1), generator=gen, device=dev) + 0.01
         pq = builder.quantize_postings(m, bits, group or GROUP)
-        return (torch.randn((b, t), generator=gen, device=dev) / t**0.5).to(dtype), pq.q, pq.scale
+        if kind == "wide":
+            sign = torch.randint(0, 2, (b, t), generator=gen, device=dev) * 2 - 1
+            q = sign * 10.0 ** (6 * torch.rand((b, t), generator=gen, device=dev) - 3)
+        else:
+            q = torch.randn((b, t), generator=gen, device=dev) / t**0.5
+        return q.to(dtype), pq.q, pq.scale
     lo, hi = (-20, 21) if kind == "int" else (0, 2)
     q = torch.randint(lo, hi, (b, t), generator=gen, device=dev).to(dtype)
     if bits == 8:
@@ -614,6 +639,31 @@ def quantized_cases():
         ("int", 8, 0, "bf16", 65, 5000, 600, 3072, None, None),        # and at B = 65
         ("int", 4, 32, "bf16", 65, 5000, 600, 3072, "shared", 4900),
         ("dot", 8, 0, "bf16", 40, 3000, 600, 100, None, None),         # dot query over int8 pq
+        # The split-TF32 pass 1 (f32 query over int8 rows): rows of 300
+        # bytes (4-byte aligned: the ring of 4-byte units), 37 (registers)
+        # and 600 (8-byte); integer scores bit-exact in both tf32 parts
+        # (ties, rising / falling with the id, depth = N and 3,072); a
+        # query of wide range, which the hi-only copy must fail.
+        ("float", 8, 0, "f32", 70, 3000, 300, 100, None, 2999),        # 64-query tiles
+        ("float", 8, 0, "f32", 9, 2000, 37, 60, "per-query", 1999),
+        ("int", 8, 0, "f32", 66, 3000, 37, 60, "shared", None),
+        ("float", 8, 0, "f32", 40, 3000, 600, 100, "per-query", None),
+        ("int", 8, 0, "f32", 3, 2000, 600, 100, None, 1900),
+        ("ties", 8, 0, "f32", 3, 130, 16, 130, None, None),            # depth = N
+        ("ties", 8, 0, "f32", 70, 300, 300, 300, "shared", None),      # and at 64-query tiles
+        ("ties", 8, 0, "f32", 1, 5000, 64, 3072, None, None),          # depth 3,072 at B = 1
+        ("int", 8, 0, "f32", 65, 5000, 300, 3072, None, None),         # and at B = 65
+        ("rising", 8, 0, "f32", 65, 20_000, 300, 100, None, None),     # every tile flushes
+        ("falling", 8, 0, "f32", 65, 20_000, 300, 100, "per-query", None),  # only the first
+        ("rising", 8, 0, "f32", 1, 20_000, 300, 100, None, 19_000),
+        ("falling", 8, 0, "f32", 1, 20_000, 37, 100, None, None),
+        ("wide", 8, 0, "f32", 65, 3000, 300, 100, None, None),
+        ("wide", 8, 0, "f32", 8, 3000, 300, 100, None, None),
+        # Lists too wide for 256-doc tiles with the register loader but not
+        # with the ring of 4-byte units: 1-byte rows take registers.
+        ("int", 8, 0, "f32", 1, 5000, 37, 2200, None, None),
+        ("float", 8, 0, "f32", 65, 5000, 37, 2200, "per-query", 4900),
+        ("float", 8, 0, "f32", 1, 5000, 300, 2200, "shared", None),
     ]
     k5 = [
         ("float", 8, 0, "bf16", 4, 3000, 1024, 600, 32, "random", False, None),
@@ -630,8 +680,25 @@ def quantized_cases():
     return k4, k5
 
 
-def check_quantized(dev) -> dict:
-    """K4 and K5 against their plain versions on the card."""
+# The planted fault of check_quantized: the split-TF32 product without the
+# query's low tf32 part (one tf32 pass, ~1e-3 of q kept).
+HI_ONLY = ("    mma_tf32(c, a, b[2], b[3]);\n", "")
+
+
+def build_hi_only():
+    """K4 built from a copy of this tree's sources with HI_ONLY planted
+    (``_tree_kernels``), called as ``topk(q, pq, depth)``."""
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    return _tree_kernels(kdir, os.path.join(ROOT, "build", "hi_only"),
+                         names=("fused_topk_quantized",), edits=[HI_ONLY])["fused_topk_quantized"]
+
+
+def check_quantized(dev, hi_only=None) -> dict:
+    """K4 and K5 against their plain versions on the card; on each "wide"
+    case also the hi-only copy of K4 (``hi_only``, built here if not
+    given), which must fail the same comparison."""
+    import types
+
     from repro_torch.kernels.fused_topk import ref
     from repro_torch.kernels.fused_topk.kernel import (
         fused_topk_gathered_quantized,
@@ -640,6 +707,7 @@ def check_quantized(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(2)
     k4, k5 = quantized_cases()
+    hi_only = hi_only or build_hi_only()
     worst = {}
     for kind, bits, group, qdt, b, n, t, depth, filt_kind, n_docs in k4:
         q, docs, scale = _quantized_inputs(kind, bits, group, qdt, b, n, t, gen, dev)
@@ -655,10 +723,19 @@ def check_quantized(dev) -> dict:
                                       n_docs)
         name = (f"K4 {kind} int{bits} g{group} {qdt} B={b} N={n} T={t} depth={depth} "
                 f"filt={filt_kind} n_docs={n_docs}")
-        err = compare(name, got, want, exact=kind != "float")
+        err = compare(name, got, want, exact=kind not in ("float", "wide"))
         key = f"K4 {kind}"
         worst[key] = max(worst.get(key, 0.0), err)
         print(f"  ok  {name}  max_abs_err={err:.3g}")
+        if kind == "wide":
+            bad = hi_only(q, types.SimpleNamespace(q=docs, scale=scale, bits=bits, group=group),
+                          depth)
+            try:
+                compare(f"{name}, hi-only copy", bad, want, exact=False)
+            except AssertionError as fault:
+                print(f"  ok  the hi-only copy fails: {fault}")
+            else:
+                raise AssertionError(f"{name}: the hi-only copy passed the comparison")
     for kind, bits, group, qdt, b, n, r, t, depth, how, with_filt, n_docs in k5:
         q, docs, scale = _quantized_inputs(kind, bits, group, qdt, b, n, t, gen, dev)
         ids = _row_ids(how, b, n, r, gen, dev)
@@ -879,11 +956,14 @@ def main(argv) -> int:
         build_kernels(["fused_topk", "fused_topk_quantized"])
         ablate(dev, card)
         return 0
-    build_kernels()
+    with ThreadPoolExecutor() as pool:  # the planted copy's nvcc beside the others
+        planted = pool.submit(build_hi_only)
+        build_kernels()
+        hi_only = planted.result()
     check_tensor_cores()
     check_kernels(dev)
     check_gathered(dev)
-    check_quantized(dev)
+    check_quantized(dev, hi_only)
     check_dense(dev)
     check_attention(dev)
     from repro_torch.configs import ann_word2vec
@@ -1024,14 +1104,33 @@ _NO_TOPK = ("    if (chunk != n_chunks - 1) continue;\n",
             "    if (chunk != n_chunks - 1 || n_chunks > 0) continue;\n")
 _NO_WIDEN = ("rows.widen(dst[i]);", "make_uint4(reinterpret_cast<const uint32_t*>(&dst[i])[0], "
              "reinterpret_cast<const uint32_t*>(&dst[i])[sizeof(dst[i]) / 4 - 1], 0, 0);")
-_NO_WIDEN_RING = ("rows.widen(rows.read_raw(rd + (i * kThreads + tid) * 2));",
-                  "make_uint4(rd[(i * kThreads + tid) * 2], rd[(i * kThreads + tid) * 2 + 1], 0, 0);")
+_NO_WIDEN_RING = ("rows.widen(rows.read_raw(rd + (i * kThreads + tid) * kSlotWords));",
+                  "make_uint4(rd[(i * kThreads + tid) * kSlotWords], "
+                  "rd[(i * kThreads + tid) * kSlotWords + kSlotWords - 1], 0, 0);")
 _NO_PRODUCTS = ("for (int ks = 0; ks < kKSteps; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {")
 ABLATIONS = {
     "without the running top-k": [_NO_TOPK],
     "without the top-k and the widening": [_NO_TOPK, _NO_WIDEN, _NO_WIDEN_RING],
     "loads only": [_NO_TOPK, _NO_PRODUCTS],
 }
+# Copies of the split-TF32 product (K4 with an f32 query), each timed and
+# held to the plain version on TF32_ACCURACY_CASE (rows of magnitude up to
+# 10, small scores in the list): without the fold (the tensor cores' own
+# running sum, which drifts outside the near-tie rule), without the query's
+# split (the fragments go to both mma as loaded: what splitting as the query
+# is staged could gain at most), and without the low part's mma (HI_ONLY:
+# one tf32 pass).
+TF32_ABLATIONS = {
+    "no fold": [("  static constexpr bool kFold = true;", "  static constexpr bool kFold = false;")],
+    "without the query split": [("      b[r] &= kTf32Bits;\n"
+                                 "      b[2 + r] = __float_as_uint(x - __uint_as_float(b[r])) "
+                                 "& kTf32Bits;\n",
+                                 "      b[2 + r] = __float_as_uint(x);\n")],
+    "hi only (one tf32 pass)": [HI_ONLY],
+}
+# (kind, B, N, T, depth): float rows of magnitude up to 10 with more than
+# half of them in the list, so scores near 0 are held to ~1e-5.
+TF32_ACCURACY_CASE = ("float", 40, 150, 600, 100)
 # Copies of K4 and K1 dot with another loader (whole kernels, results
 # checked): for K4 the raw-unit cp.async ring for int8 at 64-query tiles
 # too, or registers everywhere (fused_topk_quantized.cu picks per
@@ -1040,6 +1139,8 @@ LOADERS = {
     "raw ring everywhere": [("    if constexpr (BITS == 4) {\n      if (ring)",
                              "    if constexpr (true) {\n      if (ring)")],
     "registers everywhere": [("  const bool ring = d_align >= 8 && q_aligned;",
+                              "  const bool ring = false;"),
+                             ("  const bool ring = d_align >= 4 && q_aligned;",
                               "  const bool ring = false;"),
                              ("  const int ring = q_align < d_align ? q_align : d_align;",
                               "  const int ring = 1;")],
@@ -1051,26 +1152,49 @@ def ablate(dev, card: str) -> None:
     shapes (2,999,808 x 600, depth 100; B = 256 and B = 1, and B = 8 for
     K1 dot and K4), timed in turns (full, each copy, full): K1 classic on
     random bf16 operands, K1 dot on a random [u; -u] int8 query over random
-    term counts 0..127, and K4 with a bf16 query on random int8 and int4
-    (group 32) stores; K4 also against its two loaders and K1 dot against
-    registers (LOADERS, results held to the kernel's)."""
+    term counts 0..127, K4 with a bf16 query on random int8 and int4
+    (group 32) stores, and K4 with an f32 query on a random int8 store at
+    the brute-force shapes (T = 300), also with TF32_ABLATIONS; K4 also
+    against its two loaders and K1 dot against registers (LOADERS, results
+    held to the kernel's)."""
     import types
 
     from repro_torch.kernels.fused_topk.kernel import fused_topk, fused_topk_quantized
 
+    from repro_torch.kernels.fused_topk import ref
+
     kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
-    copies = {**ABLATIONS, **LOADERS}
+    copies = {**ABLATIONS, **TF32_ABLATIONS, **LOADERS}
     with ThreadPoolExecutor() as pool:  # every copy's nvcc at once
         cut = dict(zip(copies, pool.map(
-            lambda j, edits: _tree_kernels(kdir, os.path.join(ROOT, "build", "ablate", str(j)),
-                                           edits=edits),
-            range(len(copies)), copies.values())))
+            lambda j, name: _tree_kernels(
+                kdir, os.path.join(ROOT, "build", "ablate", str(j)), edits=copies[name],
+                names=("fused_topk_quantized",) if name in TF32_ABLATIONS else
+                ("fused_topk", "fused_topk_quantized")),
+            range(len(copies)), copies)))
     gen = torch.Generator(device=dev).manual_seed(6)
+    kind, b, n_acc, t_acc, depth = TF32_ACCURACY_CASE
+    q_acc, d_acc, s_acc = _quantized_inputs(kind, 8, 0, "f32", b, n_acc, t_acc, gen, dev)
+    pq_acc = types.SimpleNamespace(q=d_acc, scale=s_acc, bits=8, group=0)
+    want = ref.quantized_topk_ref(q_acc, d_acc, s_acc, depth + 1, 8, 0)
+    for name, fns in {"full": None, **{k: cut[k] for k in TF32_ABLATIONS}}.items():
+        got = (fused_topk_quantized(q_acc, d_acc, s_acc, depth, 8, 0) if fns is None
+               else fns["fused_topk_quantized"](q_acc, pq_acc, depth))
+        err = float((got[0] - want[0][:, :depth]).abs().max())
+        try:
+            compare(name, got, want, exact=False)
+            verdict = "inside the near-tie rule"
+        except AssertionError as fault:
+            verdict = f"outside it ({fault})"
+        print(f"split-TF32 accuracy, {name}, {kind} B={b} N={n_acc} T={t_acc} depth={depth}: "
+              f"max |score - plain| {err:.3g}, {verdict}")
     n, t = 2_999_808, 600
     q = (torch.randn((256, t), generator=gen, device=dev) / t**0.5).to(torch.bfloat16)
     docs = torch.randn((n, t), generator=gen, device=dev).to(torch.bfloat16)
     u = torch.randint(0, 128, (256, t // 2), generator=gen, device=dev)
     q_dot = torch.cat([u, -u], 1).to(torch.int8)
+    t300 = 300
+    q_f32 = torch.randn((256, t300), generator=gen, device=dev) / t300**0.5
     stores = {
         "K1 classic, random bf16": (None, docs),
         "K1 dot, random int8": ("dot", torch.randint(0, 128, (n, t), generator=gen, device=dev,
@@ -1082,10 +1206,14 @@ def ablate(dev, card: str) -> None:
             bits=4, group=GROUP, scale=torch.rand((n, -(-t // GROUP)), generator=gen, device=dev),
             q=torch.randint(0, 256, (n, -(-t // GROUP) * GROUP // 2), generator=gen, device=dev,
                             dtype=torch.uint8))),
+        "K4 int8, f32 query, random bytes, T=300": (8, types.SimpleNamespace(
+            bits=8, group=0, scale=torch.rand((n, 1), generator=gen, device=dev),
+            q=torch.randint(-127, 128, (n, t300), generator=gen, device=dev, dtype=torch.int8))),
     }
     for label, (bits, store) in stores.items():
+        f32 = "f32 query" in label
         for b in ((256, 1) if bits is None else (256, 8, 1)):
-            qb = (q_dot if bits == "dot" else q)[:b]
+            qb = (q_dot if bits == "dot" else q_f32 if f32 else q)[:b]
             if bits in (None, "dot"):
                 def full():
                     return fused_topk(qb, store, 100)
@@ -1100,7 +1228,7 @@ def ablate(dev, card: str) -> None:
                 def full():
                     return fused_topk_quantized(qb, store.q, store.scale, 100, bits, store.group)
                 runs = {name: (lambda fn=fns["fused_topk_quantized"]: fn(qb, store, 100))
-                        for name, fns in cut.items()}
+                        for name, fns in cut.items() if f32 or name not in TF32_ABLATIONS}
                 for name in LOADERS:
                     compare(f"{label} B={b}: {name}", runs[name](),
                             fused_topk_quantized(qb, store.q, store.scale, 101, bits, store.group),
@@ -1108,8 +1236,8 @@ def ablate(dev, card: str) -> None:
             line = [f"full {cuda_ms(full):.3f} ms"]
             line += [f"{name} {cuda_ms(fn):.3f} ms" for name, fn in runs.items()]
             line.append(f"full {cuda_ms(full):.3f} ms")
-            print(f"pass-1 ablation, {label}, B={b}, N={n}, T={t}, depth 100, on {card}: "
-                  + "; ".join(line))
+            print(f"pass-1 ablation, {label}, B={b}, N={n}, T={store.q.shape[1] if f32 else t}, "
+                  f"depth 100, on {card}: " + "; ".join(line))
         del store
     print(f"ablations on {card}")
 
@@ -1125,7 +1253,8 @@ def pair_parent(dev, card: str, parent: str) -> None:
     at B = 256, 8 and 1 over the fp32 index; K4 with a bf16 query over
     int8 and int4 (group 32) postings at B = 256, 8 and 1 (the quantized
     classic search's call), and K4 with an f32 query over int8 postings at
-    B = 256 (brute force's call)."""
+    B = 256, 8 and 1 (brute force's call), also with an integer query and
+    unit scales (bit for bit)."""
     from repro_torch.configs import ann_word2vec
     from repro_torch.core import bruteforce, fakewords
     from repro_torch.core.index import AnnIndex
@@ -1179,8 +1308,15 @@ def pair_parent(dev, card: str, parent: str) -> None:
         torch.cuda.empty_cache()
     bidx = AnnIndex.build(x, BruteForceConfig(), primary_postings="int8", rerank_store="none",
                           device=dev)
-    pair("K4 int8 f32 query B=256", k4_new, old["fused_topk_quantized"], (qn, bidx.index.pq),
-         depth)
+    # and an integer query over the same rows with unit scales: exact sums
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q_int = torch.randint(-20, 21, qn.shape, generator=gen, device=dev).float()
+    unit = dataclasses.replace(bidx.index.pq, scale=torch.ones_like(bidx.index.pq.scale))
+    for bb in (256, 8, 1):
+        pair(f"K4 int8 f32 query B={bb}", k4_new, old["fused_topk_quantized"],
+             (qn[:bb], bidx.index.pq), depth)
+        pair(f"K4 int8 f32 integer query, unit scales B={bb}", k4_new,
+             old["fused_topk_quantized"], (q_int[:bb], unit), depth, exact=True)
 
 
 def make_inputs(dev, n: int, b: int):
@@ -1820,24 +1956,28 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
           "and dot x int8 and int4 (dot int8, the int8 tf through K3, exact; the rest under "
           "the near-tie rule)")
 
-    # ---- main path 6: brute force with int8 postings (K4, f32 query) -------
-    bidx = AnnIndex.build(x, BruteForceConfig(), primary_postings="int8", rerank_store="int8",
-                          device=dev)
-    _reset_launches()
-    bs, bi = bidx.search(qx, k=depth, depth=depth)
-    brs, bri = bidx.search(qx, k=k, depth=depth, rerank=True)
-    torch.cuda.synchronize()
-    bf_launches = _only("brute force over int8 postings", "fused_topk_quantized")
-    _checked("brute force int8 match", bs, bi, b, depth, n)
-    bpq = bidx.index.pq
-    bf_err = compare("brute force int8 match, first 8 queries", (bs[:8], bi[:8]),
-                     ref.quantized_topk_ref(qn[:8], bpq.q, bpq.scale, depth + 1, 8, 0),
-                     exact=False)
-    r = recalls(bi, bri)
-    print(f"brute force, int8 postings + int8 rerank store: index {bidx.nbytes() / 1e9:.3f} GB; "
-          f"R@(10,10) {r[0]:.4f}  R@(10,100) {r[1]:.4f}  reranked R@10 {r[2]:.4f}; "
-          f"fused_topk_quantized (f32 query) launches {bf_launches}; vs plain on 8 queries "
-          f"max_abs_err {bf_err:.3g}")
+    # ---- main path 6: brute force with int8 / int4 postings (K4, f32 query) -
+    brute = {}
+    for pp in ("int8", "int4"):
+        bidx = AnnIndex.build(x, BruteForceConfig(), primary_postings=pp, postings_group=GROUP,
+                              rerank_store="int8", device=dev)
+        _reset_launches()
+        bs, bi = bidx.search(qx, k=depth, depth=depth)
+        brs, bri = bidx.search(qx, k=k, depth=depth, rerank=True)
+        torch.cuda.synchronize()
+        bf_launches = _only(f"brute force over {pp} postings", "fused_topk_quantized")
+        _checked(f"brute force {pp} match", bs, bi, b, depth, n)
+        bpq = bidx.index.pq
+        bf_err = compare(f"brute force {pp} match, first 8 queries", (bs[:8], bi[:8]),
+                         ref.quantized_topk_ref(qn[:8], bpq.q, bpq.scale, depth + 1, bpq.bits,
+                                                bpq.group), exact=False)
+        r = recalls(bi, bri)
+        print(f"brute force, {pp} postings + int8 rerank store: index "
+              f"{bidx.nbytes() / 1e9:.3f} GB (postings {bpq.nbytes() / 1e9:.3f} GB); "
+              f"R@(10,10) {r[0]:.4f}  R@(10,100) {r[1]:.4f}  reranked R@10 {r[2]:.4f}; "
+              f"fused_topk_quantized (f32 query) launches {bf_launches}; vs plain on 8 "
+              f"queries max_abs_err {bf_err:.3g}")
+        brute[pp] = (bidx, bpq, bf_launches, bf_err)
 
     # ---- times ---------------------------------------------------------------
     profile_search(quant["int8"][0], qx, k, depth, card, label="int8 quantized classic")
@@ -1853,6 +1993,11 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
                         f"{alone:.3f} ms")
         print(f"quantized classic {pp} search (median of {RUNS}, CUDA events) on {card}: "
               f"{'; '.join(line)}")
+    for pp, (bidx, *_) in brute.items():
+        line = [f"B={bb} {cuda_ms(lambda: bidx.search(qx[:bb], k=k, depth=depth)):.3f} ms"
+                for bb in (b, 8, 1)]
+        print(f"brute force {pp} search (median of {RUNS}, CUDA events) on {card}: "
+              f"{'; '.join(line)}")
     line = []
     for bb in (1, 8):
         line.append(f"B={bb} {cuda_ms(lambda: pidx.search(qx[:bb], k=k, depth=depth)):.3f} ms")
@@ -1862,13 +2007,16 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
 
     kernels = []
     t = q_tf.shape[1]
+    f32_lib = f"f32 torch.matmul with allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
     for name, qidx_pq, qop, kind, launches, err, lib_label in (
             ("fused_topk_quantized", quant["int8"][0].index.pq, quant["int8"][1], "bf16",
              quant["int8"][2], quant["int8"][3], "torch.topk(matmul(q, pq.q.to(bf16).T) * scale)"),
             ("fused_topk_quantized/int4", pq4, quant["int4"][1], "bf16", quant["int4"][2],
              quant["int4"][3], "torch.topk(matmul(q, dequant_int4(store).T)), whole-store dequant"),
-            ("fused_topk_quantized/f32-int8", bpq, qn, "f32", bf_launches, bf_err,
-             "torch.topk(matmul(q, pq.q.float().T) * scale)")):
+            ("fused_topk_quantized/f32-int8", brute["int8"][1], qn, "tf32", *brute["int8"][2:],
+             f"torch.topk(matmul(q, pq.q.float().T) * scale), {f32_lib}"),
+            ("fused_topk_quantized/f32-int4", brute["int4"][1], qn, "f32", *brute["int4"][2:],
+             f"torch.topk(matmul(q, dequant_int4(store).T)), whole-store dequant, {f32_lib}")):
         pq, tq = qidx_pq, qop.shape[1]
 
         def library(qo, pq=pq, tq=tq):
@@ -1885,11 +2033,18 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
                       cuda_ms(lambda: ref.quantized_topk_ref(qb, pq.q, pq.scale, depth, pq.bits,
                                                              pq.group), runs=3, warmup=1),
                       cuda_ms(lambda: library(qb), runs=3, warmup=1),
-                      *quantized_bound_ms(qb, pq.q, pq.scale, n, depth, kind))
-        print(f"{name} ({kind} query, int{pq.bits}, N={n}, T={tq}, depth={depth}): "
-              + "; ".join(f"B={bb} kernel {v[0]:.3f} ms, bound {v[3]:.3f} ms ({v[4]}), plain "
-                          f"{v[1]:.3f} ms, library {v[2]:.3f} ms" for bb, v in at.items())
-              + f" (plain and library: median of 3; library: {lib_label})")
+                      *quantized_bound_ms(qb, pq.q, pq.scale, n, depth, kind,
+                                          passes=2 if kind == "tf32" else 1))
+        # The split-TF32 row's bound is its two tf32 passes; the f32 FMAs of
+        # the plain product bound the CUDA-core design it replaced.
+        fma = ("; f32-FMA bound " + ", ".join(
+            f"B={bb} {quantized_bound_ms(qop[:bb], pq.q, pq.scale, n, depth, 'f32')[0]:.3f} ms"
+            for bb in at) if kind == "tf32" else "")
+        print(f"{name} ({'f32' if kind == 'tf32' else kind} query, int{pq.bits}, N={n}, T={tq}, "
+              f"depth={depth}): "
+              + "; ".join(f"B={bb} kernel {v[0]:.3f} ms, bound {v[3]:.3f} ms ({v[4]}, {kind}), "
+                          f"plain {v[1]:.3f} ms, library {v[2]:.3f} ms" for bb, v in at.items())
+              + f"{fma} (plain and library: median of 3; library: {lib_label})")
         ms, plain_ms, lib_ms, bound, bound_by = at[b]
         kernels.append({
             "name": name, "route": "cuda",

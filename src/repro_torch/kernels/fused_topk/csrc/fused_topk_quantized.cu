@@ -3,7 +3,9 @@
 // ../kernel.py).
 //
 // K4 (fused_topk_quantized_bf16_partial for a bf16 query,
-// fused_topk_quantized_partial for an f32 one, + the shared merge pass)
+// fused_topk_quantized_tf32_partial for an f32 one over int8 rows,
+// fused_topk_quantized_partial for an f32 one over int4 rows, + the shared
+// merge pass)
 // replaces the TPU kernel repro/kernels/fused_topk/kernel.py::fused_topk_quantized (def 632,
 // pallas_call 689): the top-`depth` of q @ dequant(docs, scale).T, with the
 // dequantization fused into the score stage, so only the packed store and
@@ -52,16 +54,33 @@
 // cannot copy and for int8 at 64-query tiles, where it measured faster.
 // The loads, not the products, set the pace (PERF.md: `chip_smoke.py --ablate`).
 //
-// K4 with an f32 query (brute force over int8 postings):
-// fused_topk_quantized_partial on CUDA cores, K1's CUDA-core pass 1
-// (fused_topk.cu) with another doc loader: a block of 256 threads owns BQ
-// queries and a range of 256-doc tiles; each thread reads one doc row's
-// packed bytes for the next 32-column chunk (and, for int4, that chunk's
-// group scale) into registers while the current chunk is multiplied, then
-// dequantizes it into shared memory as f32 words, so the dequant is done once
-// per doc and query tile and the products run in f32 FMAs.  Ids ascend within
-// a split, so a candidate that does not precede the K-th entry is skipped
-// (the strict tile skip).
+// K4 with an f32 query over int8 rows (brute force over int8 postings):
+// fused_topk_quantized_tf32_partial, the same tensor-core pass 1 with the
+// split-TF32 product type (mma_topk.cuh, MmaTf32) over Int8RowsF32: a row's
+// 32-column chunk is 4-byte units (4 int8 columns, one 16-byte f32 pack
+// once widened; rows of 300 bytes start 4-byte aligned), widened exactly to
+// f32 by the thread that loaded them, and the query split into two tf32
+// parts as its fragments leave ldmatrix, so two m16n8k8 tf32 mma a k-step
+// give the f32 dot product up to the order of the sums.  The units come
+// through a cp.async ring of 4-byte copies into 4-byte slots where the rows
+// allow it (faster than registers at every B on an H100: PERF.md §6),
+// else through registers one chunk ahead.  Bound at the
+// ann-word2vec brute-force shapes (N = 2,999,808, T = 300, depth 100): the
+// bytes N * (300 + 4) = 0.912 GB take 0.272 ms at 3.35 TB/s; at B = 256 the
+// 2 x 2 * B * N * T = 9.2e11 tf32 operations (two passes) take 1.86 ms at
+// 495 TFLOP/s (the f32 FMAs of the plain product, 4.6e11 at 67 TFLOP/s,
+// 6.877 ms), so operations bound it there and bytes at B <= 8.
+//
+// K4 with an f32 query over int4 rows: fused_topk_quantized_partial on CUDA
+// cores (a nibble times its group scale is not exact in tf32), K1's
+// CUDA-core pass 1 (fused_topk.cu) with another doc loader: a block of 256
+// threads owns BQ queries and a range of 256-doc tiles; each thread reads
+// one doc row's 16 packed bytes for the next 32-column chunk and that
+// chunk's group scale into registers while the current chunk is multiplied,
+// then dequantizes it into shared memory as f32 words, so the dequant is
+// done once per doc and query tile and the products run in f32 FMAs.  Ids
+// ascend within a split, so a candidate that does not precede the K-th
+// entry is skipped (the strict tile skip).
 //
 // K5 is K3's pass 1 (one query per block, a row-split plan that fills
 // the SMs at B = 1, a warp reading whole rows by id with 8 rows' loads in
@@ -77,9 +96,9 @@
 
 namespace {
 
-// The f32-query K4 takes topk_merge.cuh's streaming tile: kBN = kThreads
-// docs (one doc row per thread), kBK = 32 columns a chunk (one int4 group,
-// or half of one).
+// The f32-query K4 over int4 rows takes topk_merge.cuh's streaming tile:
+// kBN = kThreads docs (one doc row per thread), kBK = 32 columns a chunk
+// (one int4 group, or half of one).
 constexpr uint8_t kInt4Pad = 0x88;  // nibble 8 in both halves: value 0
 
 enum QueryDtype { kQF32 = 0, kQBF16 = 1 };
@@ -140,22 +159,15 @@ __device__ __forceinline__ void load_bytes(const uint8_t* row, int b0, int len, 
 }
 
 // ---------------------------------------------------------------------------
-// K4 with an f32 query: pass 1 on CUDA cores (fused_topk_quantized_partial).
+// K4 with an f32 query over int4 rows: pass 1 on CUDA cores
+// (fused_topk_quantized_partial).
 // ---------------------------------------------------------------------------
 
-// Raw bytes of one doc row's 32-column chunk: 32 int8 bytes, or 16 packed
-// int4 bytes and the chunk's group scale.
-template <int BITS> struct DocChunk {
-  static constexpr int kPacks = BITS == 8 ? 2 : 1;
-  Pack16 p[kPacks];
-  float gscale;
-};
-
-template <int BITS, int BQ>
+template <int BQ>
 __global__ void __launch_bounds__(kThreads, 2) fused_topk_quantized_partial(
     const float* __restrict__ q,                    // (B, T)
-    const uint8_t* __restrict__ docs,               // (N, row_bytes) int8 or packed int4
-    const float* __restrict__ scale,                // (N, n_groups); int8: n_groups = 1
+    const uint8_t* __restrict__ docs,               // (N, row_bytes) packed int4
+    const float* __restrict__ scale,                // (N, n_groups)
     const uint8_t* __restrict__ filt,               // nullptr | (N,) | (B, N)
     long long filt_stride,                          // 0 for (N,), N for (B, N)
     int B, int n_docs, int T, int row_bytes, int group, int n_groups, int K,
@@ -181,23 +193,18 @@ __global__ void __launch_bounds__(kThreads, 2) fused_topk_quantized_partial(
 
   for (int e = tid; e < BQ * K; e += kThreads) { ls[e] = -INFINITY; li[e] = kBigId; }
 
-  DocChunk<BITS> dn;
+  Pack16 dn[1];  // one doc row's 16 packed bytes of the chunk
+  float gscale;  // and the chunk's group scale
   float qn[kQLoads];
   auto load_step = [&](int step) {
     const int di = (tile_begin + step / n_chunks) * kBN + tid;
     const int w0 = (step % n_chunks) * kBK;
     if (di < n_docs) {
-      const uint8_t* row = docs + (size_t)di * row_bytes;
-      if constexpr (BITS == 8) {
-        load_bytes<2>(row, w0, row_bytes, d_align, 0, dn.p);
-      } else {
-        load_bytes<1>(row, w0 / 2, row_bytes, d_align, kInt4Pad, dn.p);
-        dn.gscale = scale[(size_t)di * n_groups + w0 / group];
-      }
+      load_bytes<1>(docs + (size_t)di * row_bytes, w0 / 2, row_bytes, d_align, kInt4Pad, dn);
+      gscale = scale[(size_t)di * n_groups + w0 / group];
     } else {  // a row that does not exist is not read; it never ranks
-#pragma unroll
-      for (int v = 0; v < DocChunk<BITS>::kPacks; ++v) dn.p[v].u = make_uint4(0, 0, 0, 0);
-      dn.gscale = 0.f;
+      dn[0].u = make_uint4(0, 0, 0, 0);
+      gscale = 0.f;
     }
 #pragma unroll
     for (int i = 0; i < kQLoads; ++i) {
@@ -219,16 +226,11 @@ __global__ void __launch_bounds__(kThreads, 2) fused_topk_quantized_partial(
     }
     __syncthreads();  // every warp is done with the previous chunk
     float* drow = ds + tid * kSkew;
-    if constexpr (BITS == 8) {
 #pragma unroll
-      for (int c = 0; c < kBK; ++c) drow[c] = int8_value(dn.p[c / 16].b[c % 16]);
-    } else {
-#pragma unroll
-      for (int c = 0; c < kBK; c += 2) {
-        const uint32_t byte = dn.p[0].b[c / 2];
-        drow[c] = int4_value<kQF32>(byte & 0xFu, dn.gscale);
-        drow[c + 1] = int4_value<kQF32>(byte >> 4, dn.gscale);
-      }
+    for (int c = 0; c < kBK; c += 2) {
+      const uint32_t byte = dn[0].b[c / 2];
+      drow[c] = int4_value<kQF32>(byte & 0xFu, gscale);
+      drow[c + 1] = int4_value<kQF32>(byte >> 4, gscale);
     }
 #pragma unroll
     for (int i = 0; i < kQLoads; ++i) qs[tid + i * kThreads] = qn[i];  // column v / BQ, row v % BQ
@@ -260,13 +262,6 @@ __global__ void __launch_bounds__(kThreads, 2) fused_topk_quantized_partial(
     }
 
     if (chunk != n_chunks - 1) continue;
-    // The int8 per-doc scale, applied once after the whole row's sum.
-    float dscale[kTN];
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int id = d0 + 32 * j + lane;
-      dscale[j] = (BITS == 8 && id < n_docs) ? scale[id] : 1.f;
-    }
     // Merge this warp's rows of the finished tile into their running lists.
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -278,7 +273,7 @@ __global__ void __launch_bounds__(kThreads, 2) fused_topk_quantized_partial(
 #pragma unroll
       for (int j = 0; j < kTN; ++j) {
         const int id = d0 + 32 * j + lane;
-        const float s = BITS == 8 ? acc[i][j] * dscale[j] : acc[i][j];
+        const float s = acc[i][j];
         const bool valid = id < n_docs && (f == nullptr || f[id] != 0);
         unsigned mask = __ballot_sync(kFull, valid && precedes(s, id, rs[K - 1], ri[K - 1]));
         while (mask) {
@@ -305,14 +300,14 @@ __global__ void __launch_bounds__(kThreads, 2) fused_topk_quantized_partial(
   }
 }
 
-template <int BITS, int BQ>
+template <int BQ>
 cudaError_t launch_partial(const void* q, const void* docs, const float* scale,
                            const uint8_t* filt, long long filt_stride, int B, int n_docs, int T,
                            int row_bytes, int group, int n_groups, int K, int splits,
                            int tiles_per_split, int d_align, float* part_s, int* part_i,
                            cudaStream_t stream) {
   const size_t smem = partial_smem(BQ, K);
-  auto kernel = fused_topk_quantized_partial<BITS, BQ>;
+  auto kernel = fused_topk_quantized_partial<BQ>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -323,20 +318,19 @@ cudaError_t launch_partial(const void* q, const void* docs, const float* scale,
   return cudaGetLastError();
 }
 
-template <int BITS>
 cudaError_t launch_partial_bq(int bq, const void* q, const void* docs, const float* scale,
                               const uint8_t* filt, long long filt_stride, int B, int n_docs,
                               int T, int row_bytes, int group, int n_groups, int K, int splits,
                               int tiles_per_split, int d_align, float* part_s, int* part_i,
                               cudaStream_t stream) {
   if (bq == 32)
-    return launch_partial<BITS, 32>(q, docs, scale, filt, filt_stride, B, n_docs, T,
-                                        row_bytes, group, n_groups, K, splits, tiles_per_split,
-                                        d_align, part_s, part_i, stream);
+    return launch_partial<32>(q, docs, scale, filt, filt_stride, B, n_docs, T, row_bytes, group,
+                              n_groups, K, splits, tiles_per_split, d_align, part_s, part_i,
+                              stream);
   if (bq == 8)
-    return launch_partial<BITS, 8>(q, docs, scale, filt, filt_stride, B, n_docs, T,
-                                       row_bytes, group, n_groups, K, splits, tiles_per_split,
-                                       d_align, part_s, part_i, stream);
+    return launch_partial<8>(q, docs, scale, filt, filt_stride, B, n_docs, T, row_bytes, group,
+                             n_groups, K, splits, tiles_per_split, d_align, part_s, part_i,
+                             stream);
   return cudaErrorInvalidValue;
 }
 
@@ -371,6 +365,7 @@ struct Int8Rows {
   using Unit = uint2;
   static constexpr bool kAsync = true;  // through a ring of raw units
   static constexpr bool kRaw = true;
+  static constexpr int kSlot = 8;
   static constexpr bool kRowScale = true;
   const uint8_t* __restrict__ docs;
   const float* __restrict__ scale;  // (N, 1)
@@ -423,6 +418,7 @@ struct Int4Rows {
   };
   static constexpr bool kAsync = true;  // through a ring of raw units
   static constexpr bool kRaw = true;
+  static constexpr int kSlot = 8;       // the 4 bytes and the scale
   static constexpr bool kRowScale = false;
   const uint8_t* __restrict__ docs;
   const float* __restrict__ scale;  // (N, n_groups)
@@ -499,7 +495,7 @@ cudaError_t launch_mma_instance(const void* q, const void* docs, const float* sc
                                 int T, int row_bytes, int group, int n_groups, int depth, int K,
                                 int splits, int tiles_per_split, bool q_aligned, int d_align,
                                 float* part_s, int* part_i, cudaStream_t stream) {
-  const size_t smem = mma_smem(BQ, BN, NS, K, RING);
+  const size_t smem = mma_smem(BQ, BN, NS, K, RING ? Int8Rows::kSlot : 0);
   auto kernel = fused_topk_quantized_bf16_partial<BITS, BQ, BN, NS, RING>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -520,7 +516,7 @@ cudaError_t launch_mma(int bq, const void* q, const void* docs, const float* sca
                        int tiles_per_split, bool q_aligned, int d_align, float* part_s,
                        int* part_i, cudaStream_t stream) {
   int bn = 0, stages = 0;
-  if (!mma_shape(bq, K, kStages, &bn, &stages, true)) return cudaErrorInvalidValue;
+  if (!mma_shape(bq, K, kStages, &bn, &stages, Int8Rows::kSlot)) return cudaErrorInvalidValue;
 #define FUSED_TOPK_QUANTIZED_MMA(BQ, BN, NS, RING)                                              \
   return launch_mma_instance<BITS, BQ, BN, NS, RING>(q, docs, scale, filt, filt_stride, B,      \
                                                      n_docs, T, row_bytes, group, n_groups,     \
@@ -542,6 +538,112 @@ cudaError_t launch_mma(int bq, const void* q, const void* docs, const float* sca
   if (ring) FUSED_TOPK_QUANTIZED_MMA(8, 256, kStages, true);
   FUSED_TOPK_QUANTIZED_MMA(8, 256, kRegStages, false);
 #undef FUSED_TOPK_QUANTIZED_MMA
+}
+
+// ---------------------------------------------------------------------------
+// K4 with an f32 query over int8 rows: the tensor-core pass 1 of
+// mma_topk.cuh with the split-TF32 product type
+// (fused_topk_quantized_tf32_partial).
+// ---------------------------------------------------------------------------
+
+// int8 rows (N, T) under an f32 query: a unit is 4 bytes, the 4 columns of a
+// 16-byte f32 pack once widened; one 4-byte load where the row is at least
+// 4-byte aligned and holds all 4 (int8 rows of 300 bytes), else byte loads;
+// bytes past T, and rows that do not exist, are 0.  Each byte widens exactly
+// to f32 (as int8_value), so it is exact in tf32 too, and the sum is
+// multiplied by scale[id] once, after the whole row.
+struct Int8RowsF32 {
+  using Op = MmaTf32;
+  using Unit = uint32_t;
+  static constexpr bool kAsync = true;  // through a ring of raw units
+  static constexpr bool kRaw = true;
+  static constexpr int kSlot = 4;
+  static constexpr bool kRowScale = true;
+  const uint8_t* __restrict__ docs;
+  const float* __restrict__ scale;  // (N, 1)
+  int T, align;
+
+  __device__ __forceinline__ Unit load(int di, bool ok, int e) const {
+    const uint8_t* row = docs + (size_t)di * T;
+    if (ok && e + 4 <= T && align >= 4) return *reinterpret_cast<const uint32_t*>(row + e);
+    uint32_t u = 0;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) u |= (uint32_t)((ok && e + s < T) ? row[e + s] : 0) << (8 * s);
+    return u;
+  }
+  // The unit's bytes into a 4-byte slot by cp.async (rows 4-byte aligned):
+  // bytes past T, and rows that do not exist, zero-filled and not read.
+  __device__ __forceinline__ void copy_raw(uint32_t* slot, int di, bool ok, int e) const {
+    const int n = ok ? min(max(T - e, 0), 4) : 0;
+    cp_async4(slot, n ? docs + (size_t)di * T + e : docs, n);
+  }
+  __device__ __forceinline__ Unit read_raw(const uint32_t* slot) const { return *slot; }
+  // int8 byte c as an exact f32: 2^23 + (c ^ 0x80) - (2^23 + 128).
+  __device__ __forceinline__ uint4 widen(Unit u) const {
+    const uint32_t w = u ^ 0x80808080u;
+    return make_uint4(__float_as_uint(magic_byte(w, 0) - 8388736.0f),
+                      __float_as_uint(magic_byte(w, 1) - 8388736.0f),
+                      __float_as_uint(magic_byte(w, 2) - 8388736.0f),
+                      __float_as_uint(magic_byte(w, 3) - 8388736.0f));
+  }
+  __device__ __forceinline__ float row_scale(int id) const { return scale[id]; }
+};
+
+template <int BQ, int BN, int NS, bool RING>
+__global__ void __launch_bounds__(kThreads, 1) fused_topk_quantized_tf32_partial(
+    const float* __restrict__ q,        // (B, T)
+    const uint8_t* __restrict__ docs,   // (N, T) int8
+    const float* __restrict__ scale,    // (N, 1)
+    const uint8_t* __restrict__ filt,   // nullptr | (N,) | (B, N)
+    long long filt_stride,              // 0 for (N,), N for (B, N)
+    int B, int n_docs, int T, int depth, int K, int tiles_per_split, bool q_aligned,
+    int d_align, float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
+  const Int8RowsF32 rows{docs, scale, T, d_align};
+  mma_topk_pass1<Int8RowsF32, BQ, BN, NS, RING>(q, rows, filt, filt_stride, B, n_docs, T, depth,
+                                               K, tiles_per_split, q_aligned ? 16 : 1, part_s,
+                                               part_i);
+}
+
+template <int BQ, int BN, int NS, bool RING>
+cudaError_t launch_tf32_instance(const void* q, const void* docs, const float* scale,
+                                 const uint8_t* filt, long long filt_stride, int B, int n_docs,
+                                 int T, int depth, int K, int splits, int tiles_per_split,
+                                 bool q_aligned, int d_align, float* part_s, int* part_i,
+                                 cudaStream_t stream) {
+  const size_t smem = mma_smem(BQ, BN, NS, K, RING ? Int8RowsF32::kSlot : 0);
+  auto kernel = fused_topk_quantized_tf32_partial<BQ, BN, NS, RING>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((B + BQ - 1) / BQ, splits), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const uint8_t*>(docs), scale, filt, filt_stride,
+      B, n_docs, T, depth, K, tiles_per_split, q_aligned, d_align, part_s, part_i);
+  return cudaGetLastError();
+}
+
+// The split-TF32 pass 1 for the plan's bq; the tile and stages follow from
+// (bq, K) as in mma_plan.  The ring of 4-byte units, the faster loader at
+// every instance, takes doc rows 4-byte aligned and query rows 16-byte
+// aligned; other rows go through registers.
+cudaError_t launch_tf32(int bq, const void* q, const void* docs, const float* scale,
+                        const uint8_t* filt, long long filt_stride, int B, int n_docs, int T,
+                        int depth, int K, int splits, int tiles_per_split, bool q_aligned,
+                        int d_align, float* part_s, int* part_i, cudaStream_t stream) {
+  int bn = 0, stages = 0;
+  if (!mma_shape(bq, K, kStages, &bn, &stages, Int8RowsF32::kSlot)) return cudaErrorInvalidValue;
+#define FUSED_TOPK_QUANTIZED_TF32(BQ, BN, NS, RING)                                          \
+  return launch_tf32_instance<BQ, BN, NS, RING>(q, docs, scale, filt, filt_stride, B, n_docs, \
+                                                T, depth, K, splits, tiles_per_split,        \
+                                                q_aligned, d_align, part_s, part_i, stream)
+  const bool ring = d_align >= 4 && q_aligned;
+  if (stages == 1) FUSED_TOPK_QUANTIZED_TF32(8, 128, 1, false);
+  if (bq == 64) {
+    if (ring) FUSED_TOPK_QUANTIZED_TF32(64, 128, kStages, true);
+    FUSED_TOPK_QUANTIZED_TF32(64, 128, kRegStages, false);
+  }
+  if (ring) FUSED_TOPK_QUANTIZED_TF32(8, 256, kStages, true);
+  FUSED_TOPK_QUANTIZED_TF32(8, 256, kRegStages, false);
+#undef FUSED_TOPK_QUANTIZED_TF32
 }
 
 // ---------------------------------------------------------------------------
@@ -722,24 +824,27 @@ bool operands_ok(int qdtype, int bits, int T, int row_bytes, int group, int n_gr
 extern "C" {
 
 // K4's launch plan for a query of `qdtype` (0 f32, 1 bf16) over packed rows
-// of `bits` (8 or 4): with a bf16 query mma_plan (mma_topk.cuh) for the
-// register-staged loader; with an f32 query streaming_plan (topk_merge.cuh),
-// as K1's CUDA-core modes, with plan[4] = kBN docs a tile.
+// of `bits` (8 or 4): mma_plan (mma_topk.cuh) with a bf16 query, and with an
+// f32 one over int8 rows (the raw ring's slots of either); with an f32 query
+// over int4 rows streaming_plan (topk_merge.cuh), as K1's CUDA-core modes,
+// with plan[4] = kBN docs a tile.
 int fused_topk_quantized_plan(int qdtype, int bits, int B, int n_docs, int depth, int sm_count,
                               int* plan) {
   if ((qdtype != kQF32 && qdtype != kQBF16) || (bits != 8 && bits != 4))
     return (int)cudaErrorInvalidValue;
-  if (qdtype == kQBF16) return mma_plan(B, n_docs, depth, sm_count, kStages, plan, true);
+  if (qdtype == kQBF16) return mma_plan(B, n_docs, depth, sm_count, kStages, plan, Int8Rows::kSlot);
+  if (bits == 8) return mma_plan(B, n_docs, depth, sm_count, kStages, plan, Int8RowsF32::kSlot);
   plan[4] = kBN;
   return streaming_plan(B, n_docs, depth, sm_count, plan);
 }
 
 // Both passes of K4 on `stream`, with the plan of fused_topk_quantized_plan;
-// returns the first cudaError_t (0 = launched).  qdtype: 0 f32 (CUDA cores),
-// 1 bf16 (tensor cores).  bits 8: docs (N, T) int8, scale (N, 1); bits 4:
+// returns the first cudaError_t (0 = launched).  qdtype: 0 f32 (tensor cores
+// in two tf32 passes over int8 rows, CUDA cores over int4 ones), 1 bf16
+// (tensor cores).  bits 8: docs (N, T) int8, scale (N, 1); bits 4:
 // docs (N, row_bytes) packed, row_bytes = Tg / 2, scale (N, n_groups),
 // n_groups = Tg / group.  d_align, q_align: the byte alignment every doc /
-// query row starts at (16, 8, or less).
+// query row starts at (16, 8, 4, or less).
 int fused_topk_quantized_launch(int qdtype, int bits, int bq, const void* q, const void* docs,
                                 const void* scale, const void* filt, long long filt_stride,
                                 int B, int n_docs, int T, int row_bytes, int group,
@@ -765,11 +870,11 @@ int fused_topk_quantized_launch(int qdtype, int bits, int bq, const void* q, con
                         n_groups, depth, K, splits, tiles_per_split, q_aligned, d_align, ps, pi,
                         st);
   else if (bits == 8)
-    err = launch_partial_bq<8>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes, group,
-                               n_groups, K, splits, tiles_per_split, d_align, ps, pi, st);
+    err = launch_tf32(bq, q, docs, sc, f, filt_stride, B, n_docs, T, depth, K, splits,
+                      tiles_per_split, q_aligned, d_align, ps, pi, st);
   else
-    err = launch_partial_bq<4>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes, group,
-                               n_groups, K, splits, tiles_per_split, d_align, ps, pi, st);
+    err = launch_partial_bq(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes, group,
+                            n_groups, K, splits, tiles_per_split, d_align, ps, pi, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(ps, pi, splits, B, K, depth, out_s, out_i, st);
 }

@@ -1,18 +1,20 @@
 // The tensor-core pass 1 of the streaming fused top-k, shared by K1 classic
 // (fused_topk_bf16_partial in fused_topk.cu, bf16 rows), K1 dot
-// (fused_topk_int8_partial, same file, int8 rows) and K4 with a bf16 query
+// (fused_topk_int8_partial, same file, int8 rows), K4 with a bf16 query
 // (fused_topk_quantized_bf16_partial in fused_topk_quantized.cu, int8 or
-// packed int4 rows widened to bf16): the mma.sync / ldmatrix / cp.async
-// helpers, the two product types (MmaBf16, MmaS8), the counting merge of a
-// candidate buffer into a running list, the block's shared-memory layout and
-// launch plan (mma_smem / mma_shape / mma_plan), and the body
-// (mma_topk_pass1), templated on a doc-operand policy.
+// packed int4 rows widened to bf16) and K4 with an f32 query over int8 rows
+// (fused_topk_quantized_tf32_partial, same file, rows widened to f32): the
+// mma.sync / ldmatrix / cp.async helpers, the three product types (MmaBf16,
+// MmaS8, MmaTf32), the counting merge of a candidate buffer into a running
+// list, the block's shared-memory layout and launch plan (mma_smem /
+// mma_shape / mma_plan), and the body (mma_topk_pass1), templated on a
+// doc-operand policy.
 //
 // A policy (Rows) names its product type and says where a doc row's pack
-// (the columns of 16 staged bytes: 8 bf16 or 16 int8) comes from and what a
-// finished sum becomes:
-//   using Op;                        // MmaBf16 or MmaS8: q's element, the mma
-//                                    // instruction and its accumulator
+// (the columns of 16 staged bytes: 8 bf16, 16 int8 or 4 f32) comes from and
+// what a finished sum becomes:
+//   using Op;                        // MmaBf16, MmaS8 or MmaTf32: q's element,
+//                                    // the mma instruction and its accumulator
 //   using Unit;                      // what a thread holds of one pack in registers
 //   static constexpr bool kAsync;    // rows may go through a cp.async ring:
 //   static constexpr bool kRaw;      //   of raw units (packed rows), or straight
@@ -23,8 +25,9 @@
 //   uint4 widen(Unit) const;         // the pack as staged, exactly as the
 //                                    // reference dequantizes it
 //   float row_scale(int id) const;   // only where kRowScale
+//   static constexpr int kSlot;      // bytes of a unit's slot in the raw ring (kRaw)
 //   void copy_raw(uint32_t* slot, int di, bool ok, int e) const;  // the unit
-//   Unit read_raw(const uint32_t* slot) const;  // into / from an 8-byte slot (kRaw)
+//   Unit read_raw(const uint32_t* slot) const;  // into / from its slot (kRaw)
 //   const Op::Elem* docs;            // rows as staged (kAsync, not kRaw)
 // The query is (B, T) of Op's element type, and every column past T reads
 // as 0 on both sides, so a pack that straddles T only needs its doc values
@@ -35,10 +38,15 @@
 //     128 int8 columns), is staged in shared memory (row stride 144 bytes,
 //     so the eight rows an ldmatrix phase reads fall on distinct banks) and
 //     multiplied in four k-steps of 32 bytes by mma.sync: m16n8k16 bf16 x
-//     bf16 -> f32 (HMMA), or m16n8k32 s8 x s8 -> s32 (IMMA).  An m16n8k32
-//     .s8 fragment holds 4 bytes a register at the row and byte offsets
-//     where an m16n8k16 .bf16 one holds 2 bf16 (PTX ISA, the mma fragment
-//     figures), so ldmatrix loads both from the same addresses.  Docs are
+//     bf16 -> f32 (HMMA), m16n8k32 s8 x s8 -> s32 (IMMA), or two m16n8k8
+//     tf32 x tf32 -> f32 (HMMA) a k-step for an f32 query (below).  An
+//     m16n8k32 .s8 fragment holds 4 bytes a register, and an m16n8k8 .tf32
+//     one a whole f32, at the row and byte offsets where an m16n8k16 .bf16
+//     one holds 2 bf16 (PTX ISA, the mma fragment figures; g = lane / 4,
+//     t = lane % 4): A's a0 is row g, bytes 4t..4t + 3 of the k-step, a1 row
+//     g + 8, a2 and a3 the same rows at bytes 16 + 4t; B's b0 and b1 the
+//     same by query row; C is the same f32 16x8 tile in all three.  So
+//     ldmatrix loads all three from the same addresses.  Docs are
 //     the M side (16-row fragments of doc rows), queries the N side (8-column
 //     fragments of query rows), so one kernel serves every B: the plan takes
 //     64-query tiles above B = 8 (128 docs a tile, 8 warps as 4 x 2, each
@@ -46,7 +54,15 @@
 //     each warp 32 docs x 8 queries).  bf16 products are exact in f32; only
 //     the order of the f32 sums differs from the plain version.  int8 sums
 //     are exact int32, as the reference's, and become f32 once, at the
-//     threshold test.
+//     threshold test.  An f32 query splits, as each fragment leaves
+//     ldmatrix, into hi = q cut to tf32 and lo = (q - hi) cut to tf32 (q -
+//     hi is exact in f32; hi + lo is q to 2^-20 |q|), and each k-step issues
+//     one tf32 mma with lo and one with hi into a fragment of the chunk's
+//     own, added to the row's sum in f32 (MmaTf32 says why).  The doc
+//     operand must then be exact in tf32: an int8 value (8 significant
+//     bits) is, and each product of an 11-bit part with it is exact in f32,
+//     so only the order of the f32 sums and q's bits below 2^-20 |q| differ
+//     from the plain version (one tf32 pass would keep ~1e-3 of q).
 //   * Loads: where every row is bf16 or int8 and 16-byte aligned, a ring of
 //     stages filled by cp.async (two chunks in flight; a pack past T or a row
 //     >= n_docs / >= B is zero-filled and not read); int8 rows that are only
@@ -54,9 +70,10 @@
 //     pack.  Packed rows may take a ring of their raw units instead (two
 //     chunks in flight): each thread copies its units into slots of its own
 //     and, a barrier after the previous chunk's products, widens them into
-//     the one bf16 doc stage; a second barrier publishes it.  Other rows go
-//     through registers one chunk ahead, and the policy widens each unit to
-//     bf16 as it is stored into one of two stages.  Either way a packed row
+//     the one doc stage (bf16, or f32 for an f32 query); a second barrier
+//     publishes it.  Other rows go through registers one chunk ahead, and
+//     the policy widens each unit as it is stored into one of two stages.
+//     Either way a packed row
 //     is read once per query tile, and its dequantized chunk exists only in
 //     shared memory.
 //   * Running top-k: after a tile's last chunk every thread tests its
@@ -104,32 +121,39 @@ __host__ __device__ constexpr int cand_cap(int bn) { return bn + flush_at(bn); }
 
 // Dynamic shared memory of a pass-1 block of bq queries and bn-doc tiles
 // with `stages` staged chunks: the stages (bn doc rows, then bq query rows,
-// each 144 bytes; for a ring of raw packed rows, one bf16 doc stage,
-// then `stages` query stages and `stages` raw stages of 8 bytes a unit),
-// bq running lists of K (score, id) pairs, bq candidate buffers of
+// each 144 bytes; for a ring of raw packed rows, `slot` > 0, one widened doc
+// stage, then `stages` query stages and `stages` raw stages of `slot` bytes
+// a unit), bq running lists of K (score, id) pairs, bq candidate buffers of
 // cand_cap(bn) pairs, and each query's threshold and count.
-constexpr size_t mma_smem(int bq, int bn, int stages, int K, bool raw = false) {
-  return (raw && stages > 1
-              ? (size_t)bn * kMmaStride * 2 + (size_t)stages * (bq * kMmaStride * 2 + bn * kMmaPacks * 8)
+constexpr size_t mma_smem(int bq, int bn, int stages, int K, int slot = 0) {
+  return (slot > 0 && stages > 1
+              ? (size_t)bn * kMmaStride * 2 + (size_t)stages * (bq * kMmaStride * 2 + bn * kMmaPacks * slot)
               : (size_t)stages * (bn + bq) * kMmaStride * 2) +
          (size_t)bq * K * 8 + (size_t)bq * cand_cap(bn) * 8 + (size_t)bq * 12;
 }
 
 // The doc tile and stage count of the instance for bq queries (64 or 8) at
 // list width K, where the loader holds up to `ring` stages (kStages for a
-// cp.async ring, of rows as staged or, `raw`, of packed ones): 128 docs at 64
-// queries, 256 at 8; or, at 8 queries where the lists are too wide for
-// that, 128 docs and one register-staged stage.  False if the instance does
-// not fit in shared memory.
-inline bool mma_shape(int bq, int K, int ring, int* bn, int* stages, bool raw = false) {
+// cp.async ring, of rows as staged or, `slot` > 0, of packed units in slots
+// of that many bytes): 128 docs at 64 queries, 256 at 8; or, at 8 queries
+// where the lists are too wide for that, 128 docs and one register-staged
+// stage.  The launch takes the register loader's kRegStages for rows the
+// ring cannot take, and a raw ring of 4-byte slots is smaller than those,
+// so a tile of several stages must fit with either loader.  False if the
+// instance does not fit in shared memory.
+inline bool mma_shape(int bq, int K, int ring, int* bn, int* stages, int slot = 0) {
+  auto fits = [&](int n, int s) {
+    return mma_smem(bq, n, s, K, slot) <= kMaxSmem &&
+           (s == 1 || mma_smem(bq, n, kRegStages, K) <= kMaxSmem);
+  };
   if (bq != 64 && bq != 8) return false;
   *bn = bq == 8 ? 256 : 128;
   *stages = ring;
-  if (bq == 8 && mma_smem(8, 256, ring, K, raw) > kMaxSmem) {
+  if (bq == 8 && !fits(256, ring)) {
     *bn = 128;
     *stages = 1;
   }
-  return mma_smem(bq, *bn, *stages, K, raw) <= kMaxSmem;
+  return fits(*bn, *stages);
 }
 
 // The launch plan for B queries over n_docs rows at `depth` on sm_count SMs
@@ -140,13 +164,13 @@ inline bool mma_shape(int bq, int K, int ring, int* bn, int* stages, bool raw = 
 // blocks, at B = 256 and at B = 1 alike.  Returns cudaErrorInvalidValue if
 // no instance fits.
 inline int mma_plan(int B, int n_docs, int depth, int sm_count, int ring, int* plan,
-                    bool raw = false) {
+                    int slot = 0) {
   if (B <= 0 || n_docs <= 0 || depth <= 0 || sm_count <= 0) return (int)cudaErrorInvalidValue;
   const int K = (depth + 31) / 32 * 32;
   int bq = B > 8 ? 64 : 8, bn = 0, stages = 0;
-  if (!mma_shape(bq, K, ring, &bn, &stages, raw)) bq = 8;
-  if (!mma_shape(bq, K, ring, &bn, &stages, raw)) return (int)cudaErrorInvalidValue;
-  const size_t per_block = mma_smem(bq, bn, stages, K, raw) + kSmemPerBlock;
+  if (!mma_shape(bq, K, ring, &bn, &stages, slot)) bq = 8;
+  if (!mma_shape(bq, K, ring, &bn, &stages, slot)) return (int)cudaErrorInvalidValue;
+  const size_t per_block = mma_smem(bq, bn, stages, K, slot) + kSmemPerBlock;
   const int resident = kSmemPerSm / per_block > 1 ? (int)(kSmemPerSm / per_block) : 1;
   const int n_tiles = (n_docs + bn - 1) / bn;
   const int q_tiles = (B + bq - 1) / bq;
@@ -203,15 +227,35 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c += a (16x8, row-major) * b (8x8, column-major), tf32 in (the top 19
+// bits of each register), f32 sums.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr unsigned kTf32Bits = 0xFFFFE000u;  // the sign, exponent and 10 fraction bits of tf32
+
 // The product types of the pass 1: the element of q and of the staged rows
 // (and its score_operands.cuh mode, for the register loader of q), the
-// columns of a 128-byte chunk, the mma instruction and its accumulator.
+// columns of a 128-byte chunk, the registers of a query fragment as the mma
+// takes it (kBRegs: ldmatrix fills the first two, split the rest), the mma
+// instruction and its accumulator, and kFold: false where the mma sums onto
+// the row's accumulator, true where it sums a chunk's products from zero
+// into a fragment of their own that an f32 add then folds into the row's.
 struct MmaBf16 {
   using Elem = uint16_t;                 // bf16 bits
   using Acc = float;
   static constexpr int kMode = kBF16;
   static constexpr bool kHalves = false;  // q packs by 16-byte or element loads
   static constexpr int kCols = kMmaChunk / 2;
+  static constexpr int kBRegs = 2;
+  static constexpr bool kFold = false;
+  static __device__ __forceinline__ void split(unsigned (&)[2]) {}
   static __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
                                              const unsigned (&b)[2]) {
     mma_bf16(c, a, b);
@@ -223,11 +267,52 @@ struct MmaS8 {
   static constexpr int kMode = kI8;
   static constexpr bool kHalves = true;   // q rows of 600 bytes: 8-byte loads
   static constexpr int kCols = kMmaChunk;
+  static constexpr int kBRegs = 2;
+  static constexpr bool kFold = false;
+  static __device__ __forceinline__ void split(unsigned (&)[2]) {}
   static __device__ __forceinline__ void mma(int (&c)[4], const unsigned (&a)[4],
                                              const unsigned (&b)[2]) {
     mma_s8(c, a, b);
   }
 };
+// An f32 query against rows exact in tf32: b[0..1] as loaded become hi = q
+// cut to tf32, b[2..3] lo = (q - hi) cut to tf32 by bit masks (hi + lo is
+// q to 2^-20 |q|), once per loaded fragment; the k-step is two m16n8k8 tf32
+// mma, doc x lo and doc x hi, onto a fragment that sums the chunk's k-steps
+// from zero; an f32 add (round to nearest) folds it into the row's sum.
+// The tensor cores' own sums lose low bits: run onto the row's whole sum,
+// a 600-column row of magnitude up to 10 drifted 6.9e-5 from the plain
+// version, outside the near-tie rule (chip_smoke.py's check_quantized;
+// PERF.md §6).
+struct MmaTf32 {
+  using Elem = float;
+  using Acc = float;
+  static constexpr int kMode = kF32;
+  static constexpr bool kHalves = false;  // q packs by 16-byte or element (4-byte) loads
+  static constexpr int kCols = kMmaChunk / 4;
+  static constexpr int kBRegs = 4;
+  static constexpr bool kFold = true;
+  static __device__ __forceinline__ void split(unsigned (&b)[4]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float x = __uint_as_float(b[r]);
+      b[r] &= kTf32Bits;
+      b[2 + r] = __float_as_uint(x - __uint_as_float(b[r])) & kTf32Bits;
+    }
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                             const unsigned (&b)[4]) {
+    mma_tf32(c, a, b[2], b[3]);
+    mma_tf32(c, a, b[0], b[1]);
+  }
+};
+
+// Bytes of a unit's slot in the raw ring of policy Rows (0: no raw ring).
+template <class Rows>
+__host__ __device__ constexpr int raw_slot() {
+  if constexpr (Rows::kRaw) return Rows::kSlot;
+  else return 0;
+}
 
 // 16 bytes from device to shared memory, asynchronously; src_bytes = 0
 // writes zeros and reads nothing.
@@ -374,6 +459,7 @@ __device__ __forceinline__ void mma_topk_pass1(
   // and later widens its own units, so only the widened stage needs the
   // block's barrier) and of bf16 query chunks, and one bf16 doc stage.
   constexpr bool kRawRing = ASYNC && Rows::kRaw;
+  constexpr int kSlotWords = raw_slot<Rows>() / 4;  // 32-bit words of a raw unit's slot
   constexpr int kCap = cand_cap(BN), kFlushAt = flush_at(BN);
   static_assert(kCap % 32 == 0, "candidate buffers fill whole lanes");
   constexpr int kDLoads = BN * kMmaPacks / kThreads;
@@ -384,7 +470,7 @@ __device__ __forceinline__ void mma_topk_pass1(
   extern __shared__ __align__(16) unsigned char smem[];
   uint16_t* stages = reinterpret_cast<uint16_t*>(smem);  // NS x (BN + BQ) rows
   constexpr int kStageElems = kRawRing
-      ? BN * kMmaStride + NS * (BQ * kMmaStride + BN * kMmaPacks * 4)
+      ? BN * kMmaStride + NS * (BQ * kMmaStride + BN * kMmaPacks * kSlotWords * 2)
       : NS * (BN + BQ) * kMmaStride;
   uint16_t* raw_q = stages + BN * kMmaStride;  // the raw ring's query stages
   uint32_t* raw_d = reinterpret_cast<uint32_t*>(raw_q + NS * BQ * kMmaStride);  // and raw units
@@ -431,12 +517,12 @@ __device__ __forceinline__ void mma_topk_pass1(
     if constexpr (kRawRing) {
       const int d0 = (tile_begin + step / n_chunks) * BN;
       const int e0 = (step % n_chunks) * Op::kCols;
-      uint32_t* rd = raw_d + (step % NS) * BN * kMmaPacks * 2;
+      uint32_t* rd = raw_d + (step % NS) * BN * kMmaPacks * kSlotWords;
       uint16_t* qs = raw_q + (step % NS) * BQ * kMmaStride;
 #pragma unroll
       for (int i = 0; i < kDLoads; ++i) {
         const int v = tid + i * kThreads, di = d0 + v / kMmaPacks;
-        rows.copy_raw(rd + (i * kThreads + tid) * 2, di, di < n_docs,
+        rows.copy_raw(rd + (i * kThreads + tid) * kSlotWords, di, di < n_docs,
                       e0 + (v % kMmaPacks) * kPackCols);
       }
 #pragma unroll
@@ -467,7 +553,9 @@ __device__ __forceinline__ void mma_topk_pass1(
     }
   };
 
+  constexpr bool kFold = Op::kFold;
   Acc acc[WM][WN][4];
+  Acc part[kFold ? WM : 1][kFold ? WN : 1][4];  // a chunk's products, then folded into acc
   float rsc[Rows::kRowScale ? WM : 1][2];  // the scales of this thread's docs in the tile
   if constexpr (ASYNC) {
 #pragma unroll
@@ -509,12 +597,12 @@ __device__ __forceinline__ void mma_topk_pass1(
       // (its raw units' slots are this thread's, widened a step ago).
       cp_async_wait<NS - 2>();
       __syncthreads();
-      const uint32_t* rd = raw_d + (step % NS) * BN * kMmaPacks * 2;
+      const uint32_t* rd = raw_d + (step % NS) * BN * kMmaPacks * kSlotWords;
 #pragma unroll
       for (int i = 0; i < kDLoads; ++i) {
         const int v = tid + i * kThreads;
         *reinterpret_cast<uint4*>(ds + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8) =
-            rows.widen(rows.read_raw(rd + (i * kThreads + tid) * 2));
+            rows.widen(rows.read_raw(rd + (i * kThreads + tid) * kSlotWords));
       }
       if (step + NS - 1 < n_steps) copy_step(step + NS - 1);
       cp_async_commit();
@@ -549,14 +637,17 @@ __device__ __forceinline__ void mma_topk_pass1(
 
 #pragma unroll
     for (int ks = 0; ks < kKSteps; ++ks) {
-      unsigned a[WM][4], b[WN][2];
+      unsigned a[WM][4], b[WN][Op::kBRegs];
 #pragma unroll
       for (int mi = 0; mi < WM; ++mi)
         ldmatrix_x4(a[mi], smem_addr(ds + (wm0 + mi * 16 + (lane & 15)) * kMmaStride + ks * 16 +
                                      (lane >> 4) * 8));
       if constexpr (WN == 1) {
-        ldmatrix_x2(b[0], smem_addr(qs + (wn0 + (lane & 7)) * kMmaStride + ks * 16 +
-                                    ((lane >> 3) & 1) * 8));
+        unsigned r[2];
+        ldmatrix_x2(r, smem_addr(qs + (wn0 + (lane & 7)) * kMmaStride + ks * 16 +
+                                 ((lane >> 3) & 1) * 8));
+        b[0][0] = r[0];
+        b[0][1] = r[1];
       } else {
 #pragma unroll
         for (int nj = 0; nj < WN; nj += 2) {
@@ -570,9 +661,26 @@ __device__ __forceinline__ void mma_topk_pass1(
         }
       }
 #pragma unroll
-      for (int mi = 0; mi < WM; ++mi)
+      for (int ni = 0; ni < WN; ++ni) Op::split(b[ni]);  // once per fragment, not per mi
+      if constexpr (!kFold) {
 #pragma unroll
-        for (int ni = 0; ni < WN; ++ni) Op::mma(acc[mi][ni], a[mi], b[ni]);
+        for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < WN; ++ni) Op::mma(acc[mi][ni], a[mi], b[ni]);
+      } else {
+#pragma unroll
+        for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < WN; ++ni) {
+            if (ks == 0)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) part[mi][ni][e] = Acc(0);
+            Op::mma(part[mi][ni], a[mi], b[ni]);
+            if (ks == kKSteps - 1)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+          }
+      }
     }
 
     if (chunk != n_chunks - 1) continue;

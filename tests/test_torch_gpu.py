@@ -260,9 +260,10 @@ def test_cuda_quantized_kernel_matches_plain_version(kernel, bits, group, qdtype
 
 
 def _packed_operands(kind: str, bits: int, group: int, b: int, n: int, t: int,
-                     dev: torch.device):
-    """(bf16 query, packed store, scales) with unit scales and small integer
-    scores, exact in f32: 0/1 values ("ties"), or scores 4 * id + (0..3)
+                     dev: torch.device, qdtype: torch.dtype = torch.bfloat16):
+    """(query of ``qdtype``, packed store, scales) with unit scales and small
+    integer scores, exact in f32 (an integer f32 query is its own high tf32
+    part): 0/1 values ("ties"), or scores 4 * id + (0..3)
     minus a constant that rise ("rising") or fall ("falling") with the doc
     id, from int8 columns id // 128 - 100 and id % 128 or from the base-16
     digits of the id as int4 values."""
@@ -286,11 +287,11 @@ def _packed_operands(kind: str, bits: int, group: int, b: int, n: int, t: int,
         q[:, 4] = torch.randint(0, 2, (b,), generator=g, device=dev)
         q = q if kind == "rising" else -q
     if bits == 8:
-        return q.to(torch.bfloat16), vals.to(torch.int8), torch.ones((n, 1), device=dev)
+        return q.to(qdtype), vals.to(torch.int8), torch.ones((n, 1), device=dev)
     nib = vals + 8
     nib[:, t:] = 8  # pad columns hold the value 0, as the builder writes them
     packed = (nib[:, 0::2] | (nib[:, 1::2] << 4)).to(torch.uint8)
-    return q.to(torch.bfloat16), packed, torch.ones((n, tg // group), device=dev)
+    return q.to(qdtype), packed, torch.ones((n, tg // group), device=dev)
 
 
 @pytest.mark.gpu
@@ -324,23 +325,64 @@ def test_cuda_quantized_bf16_topk_ties_order_and_wide_lists(kind, bits, group, b
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind,b,n,t,depth", [
+    ("ties", 9, 1000, 16, 1000),        # depth = N, ties everywhere
+    ("ties", 33, 300, 300, 300),        # 64-query tile, ragged B, 4-byte rows
+    ("rising", 65, 20_000, 37, 100),    # every tile flushes; 1-byte rows: registers
+    ("falling", 65, 20_000, 300, 100),  # only the first tiles flush; the 4-byte ring
+    ("falling", 8, 20_000, 300, 100),   # 8-query tiles
+    ("rising", 1, 20_000, 600, 100),    # 8-byte rows
+    ("wide", 1, 5000, 64, 3072),        # the widest list: one stage, merge by insert
+    ("wide", 65, 5000, 300, 3072),
+    ("wide", 1, 5000, 37, 2200),        # too wide for 256-doc tiles with registers
+    ("wide", 65, 5000, 37, 2200),
+])
+def test_cuda_quantized_tf32_topk_ties_order_and_wide_lists(kind, b, n, t, depth):
+    """K4's split-TF32 pass 1 (an f32 query over int8 rows) where its running
+    top-k must be exact: integer scores make ids bit-equal to the plain
+    version's."""
+    dev = cuda_device()
+    if kind == "wide":
+        g = torch.Generator(device=dev).manual_seed(61)
+        pq = builder.quantize_postings(torch.randn((n, t), generator=g, device=dev), 8)
+        q = torch.randn((b, t), generator=g, device=dev) / t**0.5
+        docs, scale = pq.q, pq.scale
+    else:
+        q, docs, scale = _packed_operands(kind, 8, 0, b, n, t, dev, torch.float32)
+    before = fused_topk_quantized.launches
+    got = fused_topk_quantized(q, docs, scale, depth, 8, 0)
+    torch.cuda.synchronize()
+    assert fused_topk_quantized.launches == before + 1
+    want = ref.quantized_topk_ref(q, docs, scale, min(depth + 1, n), 8, 0)
+    assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=kind != "wide")
+
+
+@pytest.mark.gpu
 def test_quantized_launch_plan_fills_the_card_at_both_batch_sizes():
     cuda_device()
     n = 2_999_808
     for bits in (8, 4):
-        # bf16 query: the tensor-core plan; f32 query: the CUDA-core one
+        # a bf16 query, and an f32 one over int8 rows: the tensor-core plan;
+        # an f32 query over int4 rows: the CUDA-core one
+        f32_wide = (64, 128) if bits == 8 else (32, 256)
         for dtype, b, want in ((torch.bfloat16, 256, (64, 128)), (torch.bfloat16, 1, (8, 256)),
-                               (torch.float32, 256, (32, 256)), (torch.float32, 1, (8, 256))):
+                               (torch.float32, 256, f32_wide), (torch.float32, 1, (8, 256))):
             bq, k, splits, per, tile = quantized_plan(dtype, bits, b, n, 100, sm_count=132)
             n_tiles = -(-n // tile)
             assert (bq, tile, k) == want + (128,)
             assert -(-b // bq) * splits >= 132
             assert (splits - 1) * per < n_tiles <= splits * per  # no empty split
         # wide lists: 8-query tiles, then one stage of 128 docs, up to depth 3,136
-        assert quantized_plan(torch.bfloat16, bits, 65, 5000, 3072, 132)[0] == 8
-        assert quantized_plan(torch.bfloat16, bits, 1, 5000, 3136, 132)[1:] == (3136, 40, 1, 128)
-        with pytest.raises(ValueError, match="shared memory"):
-            quantized_plan(torch.bfloat16, bits, 1, 5000, 3137, 132)
+        for dtype in (torch.bfloat16, torch.float32) if bits == 8 else (torch.bfloat16,):
+            assert quantized_plan(dtype, bits, 65, 5000, 3072, 132)[0] == 8
+            assert quantized_plan(dtype, bits, 1, 5000, 3136, 132)[1:] == (3136, 40, 1, 128)
+            with pytest.raises(ValueError, match="shared memory"):
+                quantized_plan(dtype, bits, 1, 5000, 3137, 132)
+    # an f32 query over int8 rows: 256-doc tiles only while the register
+    # loader's two stages fit too (rows the 4-byte ring cannot take use it)
+    for depth, tile in ((2112, 256), (2144, 128), (2272, 128)):
+        bq, _, _, _, got = quantized_plan(torch.float32, 8, 65, 5000, depth, 132)
+        assert (bq, got) == (8, tile)
 
 
 @pytest.mark.gpu

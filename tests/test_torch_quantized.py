@@ -13,6 +13,13 @@ bit-exact; float cases are f32 sums taken in another order: scores to
 rtol = atol = 1e-5 and ids equal away from near-ties (``torch_parity``).
 The searches run the port on the JAX index's own arrays
 (``index_from_numpy``), so both prune and score the same data.
+
+K4 with an f32 query over int8 rows runs on the card as a split-TF32
+product (q = hi + lo, two tf32 parts); here its arithmetic is emulated in
+torch (``torch_parity.split_tf32_topk``) and held to JAX's kernel under the
+same near-tie rule (integer-valued cases bit-exact), and the emulation
+without the low part (one tf32 pass) is shown to break that rule on a
+query of wide dynamic range.
 """
 import json
 
@@ -20,7 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_topk_match, to_torch
+from torch_parity import assert_topk_match, split_tf32_topk, to_torch
 
 from repro.core import blockmax as jblockmax
 from repro.core import bruteforce as jbruteforce
@@ -178,9 +185,14 @@ def _packed_operands(kind, bits, group, n, t, seed):
 
 
 def _query(kind, dtype, b, t, seed):
+    """"float": normal / sqrt(T); "wide": |q| from 1e-3 to 1e3 with random
+    signs and mantissas; else integers (in [-20, 20], or 0 / 1 for ties)."""
     rng = np.random.default_rng(seed + 1)
     if kind == "float":
         q = rng.normal(size=(b, t)).astype(np.float32) / np.sqrt(t)
+    elif kind == "wide":
+        q = (rng.choice([-1.0, 1.0], (b, t)) * 10.0 ** rng.uniform(-3, 3, (b, t))).astype(
+            np.float32)
     else:
         lo, hi = (-20, 21) if kind == "int" else (0, 2)
         q = rng.integers(lo, hi, (b, t)).astype(np.float32)
@@ -236,6 +248,63 @@ def test_fused_topk_quantized_matches_jax(kind, bits, group, dtype, t, filt_kind
         filt=None if filt is None else jnp.asarray(filt), n_docs=n_docs)
     assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
     assert_topk_match(got, [np.asarray(a) for a in want], exact=exact)
+
+
+SPLIT_TF32_CASES = [
+    # query kind, store kind, T, filt, n_docs
+    ("float", "float", 300, None, None),      # the brute-force rows: 300 bytes
+    ("float", "float", 37, "per-query", 250),
+    ("wide", "float", 600, "shared", None),
+    ("int", "int", 300, "per-query", 270),    # integer scores: bit-exact
+]
+
+
+def _split_tf32_case(qkind, dkind, t, filt_kind, n_docs, depth=40):
+    """(split-TF32 emulation, JAX's fused_topk_quantized one rank deeper,
+    exact) for an f32 query over an int8 store."""
+    n, b = 300, 5
+    seed = 3 * t + len(qkind) + len(dkind)
+    docs, scale = _packed_operands(dkind, 8, 0, n, t, seed)
+    jq, q = _query(qkind, "f32", b, t, seed)
+    filt = _filt(filt_kind, b, n, seed)
+    exact = dkind == "int" and qkind == "int"
+    want = jkernel.fused_topk_quantized(
+        jq, jnp.asarray(docs), jnp.asarray(scale), depth if exact else depth + 1, bits=8,
+        group=0, interpret=True, bn=128, bk=128,
+        filt=None if filt is None else jnp.asarray(filt), n_docs=n_docs)
+    args = (q, torch.from_numpy(docs), torch.from_numpy(scale), depth,
+            None if filt is None else torch.from_numpy(filt), n_docs)
+    return args, [np.asarray(a) for a in want], exact
+
+
+@pytest.mark.parametrize("qkind,dkind,t,filt_kind,n_docs", SPLIT_TF32_CASES)
+def test_split_tf32_emulation_matches_jax(qkind, dkind, t, filt_kind, n_docs):
+    """K4's split-TF32 arithmetic (q split into hi and lo cut to tf32, int8
+    widened exactly, f32 sums, the scale once) against JAX's K4 with an f32
+    query over int8 postings."""
+    args, want, exact = _split_tf32_case(qkind, dkind, t, filt_kind, n_docs)
+    assert_topk_match(split_tf32_topk(*args), want, exact=exact)
+
+
+def test_hi_only_emulation_breaks_the_near_tie_rule():
+    """One tf32 pass of a query of wide dynamic range (the hi part alone)
+    is far outside the near-tie rule that the split passes."""
+    args, want, _ = _split_tf32_case("wide", "float", 300, None, None)
+    assert_topk_match(split_tf32_topk(*args), want, exact=False)
+    with pytest.raises(AssertionError):
+        assert_topk_match(split_tf32_topk(*args, lo=False), want, exact=False)
+
+
+@pytest.mark.parametrize("t,offset,want", [
+    (64, 0, 16), (600, 0, 8), (300, 0, 4), (37, 0, 1), (300, 1, 1), (64, 8, 8), (64, 4, 4),
+])
+def test_row_alignment(t, offset, want):
+    """The byte alignment every row starts at: the row length and the base
+    address both count (300-byte int8 rows take K4's 4-byte loader)."""
+    base = torch.zeros(4096, dtype=torch.int8)
+    assert base.data_ptr() % 16 == 0
+    rows = base[offset: offset + 4 * t].view(4, t)
+    assert common.row_alignment(rows) == want
 
 
 K5_CASES = [

@@ -1,5 +1,8 @@
 """Helpers shared by the ``test_torch_*`` files: moving arrays from JAX /
-numpy to torch and holding top-k results against each other."""
+numpy to torch, holding top-k results against each other, and emulating
+K4's split-TF32 arithmetic (an f32 query over int8 rows) on the CPU."""
+from typing import Optional, Tuple
+
 import numpy as np
 import pytest
 import torch
@@ -63,6 +66,39 @@ def assert_rows_close(got, want, tol: float) -> None:
                            f"{np.argwhere(bad)[0].tolist()}")
     assert not bad_rows.any(), (f"{int(bad_rows.sum())} of {bad_rows.size} rows' error norms "
                                 f"past {tol / 2} of their norms, worst by {np.nanmax(rows)}")
+
+
+def cut_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 values cut to tf32 (10 fraction bits, rounded toward zero): the
+    13 low bits cleared, as the kernel's split does."""
+    bits = x.float().contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def split_tf32_topk(q: torch.Tensor, docs: torch.Tensor, scale: torch.Tensor, depth: int,
+                    filt: Optional[torch.Tensor] = None, n_docs: Optional[int] = None,
+                    lo: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's split-TF32 arithmetic for an f32 query over int8 rows (N, T) with
+    per-row scales (N, 1), emulated in torch: q split into hi = cut_tf32(q)
+    and lo = cut_tf32(q - hi), each int8 value widened exactly, each part's
+    products summed in f32, and the sum times the row's scale once; then
+    the top ``depth`` in descending order, ties to the lowest id, masked or
+    missing slots (-inf, -1).  ``lo=False`` keeps the hi part alone (one
+    tf32 pass)."""
+    hi = cut_tf32(q)
+    d = docs.float()
+    s = hi @ d.T
+    if lo:
+        s = s + cut_tf32(q - hi) @ d.T
+    s = s * scale.T
+    keep = torch.ones_like(s, dtype=torch.bool)
+    if n_docs is not None:
+        keep[:, n_docs:] = False
+    if filt is not None:
+        keep &= filt.bool().expand_as(keep)
+    s, i = torch.sort(torch.where(keep, s, -torch.inf), dim=1, descending=True, stable=True)
+    s, i = s[:, :depth], i[:, :depth].to(torch.int32)
+    return s, torch.where(s == -torch.inf, torch.full_like(i, -1), i)
 
 
 def cuda_device() -> torch.device:
