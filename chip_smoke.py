@@ -10,8 +10,8 @@
    and the count of tensor-core instructions in each instance of the
    tensor-core pass 1 (``csrc/mma_topk.cuh``; ``cuobjdump -sass``): HMMA in
    K1 classic's and K4's with a bf16 query, IMMA in K1 dot's (int8), TF32
-   HMMA in K4's with an f32 query over int8 rows; an instance without them
-   fails the run.
+   HMMA in K4's with an f32 query over int8 and over int4 rows; an instance
+   without them fails the run.
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
    shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
@@ -31,9 +31,13 @@
    bf16 query also integer scores that rise or fall with the doc id (ids
    bit-equal), int4 at T = 600 whose last chunk reaches past the last
    group, depth 3,072 at B = 1 and 65, and a dot query; for K4 with an f32
-   query over int8 rows (split TF32) the same at T = 300, 37 and 600, and a
-   query of wide dynamic range that a copy of the kernel with only the
-   query's high tf32 part (built beside the others) must fail.
+   query (split TF32) over int8 rows and over int4 rows (groups 32 and 64)
+   the same at T = 300, 37 and 600, depth = N, 2,200 and 3,072, a query of
+   wide dynamic range that a copy of the kernel with only the query's high
+   tf32 part must fail, and for int4 integer scores over distinct
+   power-of-two group scales, bit-exact, that a copy folding every chunk
+   with its row's first group scale must fail (the copies are built beside
+   the others: PLANTED).
 5. Runs the ann-word2vec deployment (2,999,808 x 300, classic fake words,
    B = 256, depth 100, k 10) end to end through ``AnnIndex.build`` /
    ``search`` on the card, with the exact-cosine ground truth, and checks
@@ -70,10 +74,10 @@
    within 0.02 of fp32 postings reranked from the same int8 store);
    blockmax on the int4 index (K5) at 10% of the blocks, and at every block
    kept, classic and dot x int8 and int4, against the dense quantized
-   search; brute force with int8 postings (K4 with an f32 query, split TF32
-   on tensor cores) and with int4 postings (group 32, CUDA cores); a
-   torch.profiler trace of the int8 classic search at B = 256; and the
-   times of all of these (K4 at B = 256, 8 and 1).
+   search; brute force with int8 postings and with int4 postings (group
+   32), both K4 with an f32 query, split TF32 on tensor cores; torch.profiler
+   traces of the int8 classic search and of the int4 brute-force search at
+   B = 256; and the times of all of these (K4 at B = 256, 8 and 1).
 
 Exits non-zero on any failure, or when no CUDA device is available.  The
 last two lines are a JSON object of per-kernel numbers and the JSON status
@@ -86,10 +90,11 @@ signatures of that tree's own sources, and times both on the ann-word2vec
 inputs in turns (parent, this, this, parent), their results held to each
 other: K1 classic at B = 256 and B = 1, K1 f32 at B = 256, K1 dot at
 B = 256, 8 and 1 (bit for bit), K4 with a bf16 query over int8 and int4
-postings at B = 256, 8 and 1, and K4 with an f32 query over int8 postings
-at B = 256, 8 and 1.  With ``--ablate`` it times the tensor-core pass 1 (K1
-classic, K1 dot, K4 int8 and int4 with a bf16 query, K4 int8 with an f32
-one) against copies of it with the running top-k, the widening and the
+postings at B = 256, 8 and 1, and K4 with an f32 query over int8 and over
+int4 postings at B = 256, 8 and 1 (and an integer case of each bit for
+bit).  With ``--ablate`` it times the tensor-core pass 1 (K1 classic, K1
+dot, K4 int8 and int4 with a bf16 query, K4 int8 and int4 with an f32 one)
+against copies of it with the running top-k, the widening and the
 products cut out (ABLATIONS; for the f32 query also the fold, the query's
 split and its low tf32 part cut out, each also held to the plain version on
 a case with small scores in the list: TF32_ABLATIONS), and K4 against its
@@ -251,10 +256,10 @@ def compare(name, got, want, exact: bool) -> float:
 
 
 def _instance(mangled: str) -> str:
-    """``fused_topk_quantized_partial<1, 4, 32>`` from a mangled kernel name:
+    """``fused_topk_quantized_tf32_partial<4, 64, 128, 3, true>`` from a mangled kernel name:
     the kernel's name and its integer, bool and type template arguments."""
     m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_bf16_partial"
-                  r"|quantized_tf32_partial|quantized_partial|gathered_partial|bf16_partial"
+                  r"|quantized_tf32_partial|gathered_partial|bf16_partial"
                   r"|int8_partial|partial|merge)"
                   r"|dense_scores"
                   r"|flash_attention_fwd)"
@@ -305,14 +310,17 @@ def sass_count(name: str, opcode: str):
     return counts
 
 
-# The tensor-core pass 1 (mma_topk.cuh) in each library and the instruction
-# its products assemble to: K1 classic's instances and K4's with a bf16
-# query (mma.sync m16n8k16 bf16: HMMA), K1 dot's (m16n8k32 s8: IMMA), K4's
-# with an f32 query over int8 rows (m16n8k8 tf32: HMMA on TF32 operands).
+# The tensor-core pass 1 (mma_topk.cuh) in each library (the instances
+# whose names start so) and the instruction its products assemble to: K1
+# classic's instances and K4's with a bf16 query (mma.sync m16n8k16 bf16:
+# HMMA), K1 dot's (m16n8k32 s8: IMMA), K4's with an f32 query over int8 and
+# over int4 rows (m16n8k8 tf32: HMMA on TF32 operands).
 TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fused_topk", "fused_topk_int8_partial", "IMMA"),
                        ("fused_topk_quantized", "fused_topk_quantized_bf16_partial", "HMMA"),
-                       ("fused_topk_quantized", "fused_topk_quantized_tf32_partial",
+                       ("fused_topk_quantized", "fused_topk_quantized_tf32_partial<8,",
+                        r"HMMA\.\S*TF32"),
+                       ("fused_topk_quantized", "fused_topk_quantized_tf32_partial<4,",
                         r"HMMA\.\S*TF32"))
 
 
@@ -545,7 +553,9 @@ def _quantized_inputs(kind: str, bits: int, group: int, qdtype: str, b: int, n: 
     builder from term counts in [0, 50] with a 127 in every row (scale 1).
     "wide" (f32): a float store as "float" and a query of wide dynamic
     range (|q| from 1e-3 to 1e3, random signs and mantissas), where one
-    tf32 pass of the query is far outside the near-tie rule."""
+    tf32 pass of the query is far outside the near-tie rule.  "pow2" (int4):
+    every nibble, and each row's group scales distinct powers of two
+    (pow2_scales), with the integer query of "int": every sum is exact."""
     from repro_torch.core import builder
     from repro_torch.kernels.common import round_up
 
@@ -588,17 +598,28 @@ def _quantized_inputs(kind: str, bits: int, group: int, qdtype: str, b: int, n: 
         else:
             q = torch.randn((b, t), generator=gen, device=dev) / t**0.5
         return q.to(dtype), pq.q, pq.scale
-    lo, hi = (-20, 21) if kind == "int" else (0, 2)
+    lo, hi = (-20, 21) if kind in ("int", "pow2") else (0, 2)
     q = torch.randint(lo, hi, (b, t), generator=gen, device=dev).to(dtype)
     if bits == 8:
         lo, hi = (-50, 51) if kind == "int" else (0, 2)
         docs = torch.randint(lo, hi, (n, t), generator=gen, device=dev, dtype=torch.int8)
         return q, docs, torch.ones((n, 1), device=dev)
     tg = round_up(t, group)
-    lo, hi = (0, 16) if kind == "int" else (8, 10)
+    lo, hi = (0, 16) if kind in ("int", "pow2") else (8, 10)
     nib = torch.randint(lo, hi, (n, tg), generator=gen, device=dev, dtype=torch.uint8)
     nib[:, t:] = 8  # pad columns hold the value 0, as the builder writes them
-    return q, nib[:, 0::2] | (nib[:, 1::2] << 4), torch.ones((n, tg // group), device=dev)
+    scale = (pow2_scales(n, tg // group, dev) if kind == "pow2"
+             else torch.ones((n, tg // group), device=dev))
+    return q, nib[:, 0::2] | (nib[:, 1::2] << 4), scale
+
+
+def pow2_scales(n: int, n_groups: int, dev) -> torch.Tensor:
+    """(n, n_groups) int4 group scales 2^((g + row) % 7 - 3): neighbouring
+    groups of a row differ.  With integer queries in [-20, 20] and any
+    nibbles, every product and partial sum of a row of up to 20 groups of 32
+    is a multiple of 1/8 below 2^20: exact in f32, whatever the order."""
+    g = torch.arange(n_groups, device=dev)[None, :] + torch.arange(n, device=dev)[:, None]
+    return torch.exp2((g % 7 - 3).float())
 
 
 def quantized_cases():
@@ -664,6 +685,35 @@ def quantized_cases():
         ("int", 8, 0, "f32", 1, 5000, 37, 2200, None, None),
         ("float", 8, 0, "f32", 65, 5000, 37, 2200, "per-query", 4900),
         ("float", 8, 0, "f32", 1, 5000, 300, 2200, "shared", None),
+        # The split-TF32 pass 1 over int4 rows (the register loader), each
+        # chunk's sum times its group's scale: rows of 160 bytes (T = 300,
+        # g32) and 320 (T = 600, g64), T = 37 (query rows of 148 bytes, not
+        # 16-byte aligned); integer scores bit-exact, over unit scales and over
+        # distinct power-of-two group scales ("pow2", which the
+        # first-group-scale copy must fail); the wide-range query.
+        ("float", 4, 32, "f32", 70, 3000, 300, 100, None, 2999),       # 64-query tiles
+        ("float", 4, 64, "f32", 9, 2000, 37, 60, "per-query", 1999),
+        ("int", 4, 32, "f32", 66, 3000, 37, 60, "shared", None),
+        ("float", 4, 64, "f32", 40, 3000, 600, 100, "per-query", None),
+        ("float", 4, 32, "f32", 3, 2000, 600, 100, None, 1900),        # Tg 608: 19 groups
+        ("ties", 4, 32, "f32", 3, 130, 16, 130, None, None),           # depth = N
+        ("ties", 4, 64, "f32", 70, 300, 300, 300, "shared", None),     # and at 64-query tiles
+        ("ties", 4, 32, "f32", 1, 5000, 64, 3072, None, None),         # depth 3,072 at B = 1
+        ("int", 4, 32, "f32", 65, 5000, 300, 3072, None, None),        # and at B = 65
+        ("rising", 4, 32, "f32", 65, 20_000, 300, 100, None, None),    # every tile flushes
+        ("falling", 4, 64, "f32", 65, 20_000, 300, 100, "per-query", None),  # only the first
+        ("rising", 4, 32, "f32", 1, 20_000, 300, 100, None, 19_000),
+        ("falling", 4, 32, "f32", 1, 20_000, 37, 100, None, None),
+        ("pow2", 4, 32, "f32", 65, 3000, 300, 100, None, None),
+        ("pow2", 4, 64, "f32", 8, 3000, 600, 100, "shared", 2950),
+        ("pow2", 4, 32, "f32", 1, 3000, 37, 100, None, None),
+        ("wide", 4, 32, "f32", 65, 3000, 300, 100, None, None),
+        # 256-doc tiles hold lists up to depth 2,080 here (the register
+        # loader's chunk scales); 2,200 takes 128-doc tiles.
+        ("int", 4, 32, "f32", 1, 5000, 37, 2200, None, None),
+        ("float", 4, 64, "f32", 65, 5000, 37, 2200, "per-query", 4900),
+        ("float", 4, 32, "f32", 1, 5000, 300, 2080, "shared", None),
+        ("pow2", 4, 32, "f32", 65, 5000, 300, 2200, None, None),
     ]
     k5 = [
         ("float", 8, 0, "bf16", 4, 3000, 1024, 600, 32, "random", False, None),
@@ -680,23 +730,35 @@ def quantized_cases():
     return k4, k5
 
 
-# The planted fault of check_quantized: the split-TF32 product without the
-# query's low tf32 part (one tf32 pass, ~1e-3 of q kept).
+# The planted faults of check_quantized, each K4 case of the kind named
+# beside it run through a copy of K4 with it, which must fail there: the
+# split-TF32 product without the query's low tf32 part (one tf32 pass, ~1e-3
+# of q kept) on the "wide" cases; every int4 chunk folded with its row's
+# first group scale on the "pow2" ones.
 HI_ONLY = ("    mma_tf32(c, a, b[2], b[3]);\n", "")
+FIRST_GROUP_SCALE = ("scale[(size_t)di * n_groups + e0 / group]",
+                     "scale[(size_t)di * n_groups]")
+PLANTED = {"wide": ("hi-only", HI_ONLY), "pow2": ("first-group-scale", FIRST_GROUP_SCALE)}
 
 
-def build_hi_only():
-    """K4 built from a copy of this tree's sources with HI_ONLY planted
-    (``_tree_kernels``), called as ``topk(q, pq, depth)``."""
+def build_planted() -> dict:
+    """{case kind: (name, topk)}: K4 built from a copy of this tree's
+    sources with each PLANTED fault (``_tree_kernels``, the nvcc runs at
+    once), called as ``topk(q, pq, depth)``."""
     kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
-    return _tree_kernels(kdir, os.path.join(ROOT, "build", "hi_only"),
-                         names=("fused_topk_quantized",), edits=[HI_ONLY])["fused_topk_quantized"]
+    with ThreadPoolExecutor() as pool:
+        built = {kind: pool.submit(_tree_kernels, kdir, os.path.join(ROOT, "build", name),
+                                   names=("fused_topk_quantized",), edits=[edit])
+                 for kind, (name, edit) in PLANTED.items()}
+        return {kind: (PLANTED[kind][0], fut.result()["fused_topk_quantized"])
+                for kind, fut in built.items()}
 
 
-def check_quantized(dev, hi_only=None) -> dict:
-    """K4 and K5 against their plain versions on the card; on each "wide"
-    case also the hi-only copy of K4 (``hi_only``, built here if not
-    given), which must fail the same comparison."""
+def check_quantized(dev, planted=None) -> dict:
+    """K4 and K5 against their plain versions on the card; on each case of
+    a kind in PLANTED also the copy of K4 with that fault (``planted``, from
+    build_planted, built here if not given), which must fail the same
+    comparison."""
     import types
 
     from repro_torch.kernels.fused_topk import ref
@@ -707,7 +769,7 @@ def check_quantized(dev, hi_only=None) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(2)
     k4, k5 = quantized_cases()
-    hi_only = hi_only or build_hi_only()
+    planted = planted or build_planted()
     worst = {}
     for kind, bits, group, qdt, b, n, t, depth, filt_kind, n_docs in k4:
         q, docs, scale = _quantized_inputs(kind, bits, group, qdt, b, n, t, gen, dev)
@@ -727,15 +789,17 @@ def check_quantized(dev, hi_only=None) -> dict:
         key = f"K4 {kind}"
         worst[key] = max(worst.get(key, 0.0), err)
         print(f"  ok  {name}  max_abs_err={err:.3g}")
-        if kind == "wide":
-            bad = hi_only(q, types.SimpleNamespace(q=docs, scale=scale, bits=bits, group=group),
-                          depth)
+        if kind in planted:
+            copy, topk = planted[kind]
+            bad = topk(q, types.SimpleNamespace(q=docs, scale=scale, bits=bits, group=group),
+                       depth)
+            # Held to the near-tie rule even where the kernel is held bit for bit.
             try:
-                compare(f"{name}, hi-only copy", bad, want, exact=False)
+                compare(f"{name}, {copy} copy", bad, want, exact=False)
             except AssertionError as fault:
-                print(f"  ok  the hi-only copy fails: {fault}")
+                print(f"  ok  the {copy} copy fails: {fault}")
             else:
-                raise AssertionError(f"{name}: the hi-only copy passed the comparison")
+                raise AssertionError(f"{name}: the {copy} copy passed the comparison")
     for kind, bits, group, qdt, b, n, r, t, depth, how, with_filt, n_docs in k5:
         q, docs, scale = _quantized_inputs(kind, bits, group, qdt, b, n, t, gen, dev)
         ids = _row_ids(how, b, n, r, gen, dev)
@@ -956,14 +1020,14 @@ def main(argv) -> int:
         build_kernels(["fused_topk", "fused_topk_quantized"])
         ablate(dev, card)
         return 0
-    with ThreadPoolExecutor() as pool:  # the planted copy's nvcc beside the others
-        planted = pool.submit(build_hi_only)
+    with ThreadPoolExecutor() as pool:  # the planted copies' nvcc beside the others
+        planted = pool.submit(build_planted)
         build_kernels()
-        hi_only = planted.result()
+        planted = planted.result()
     check_tensor_cores()
     check_kernels(dev)
     check_gathered(dev)
-    check_quantized(dev, hi_only)
+    check_quantized(dev, planted)
     check_dense(dev)
     check_attention(dev)
     from repro_torch.configs import ann_word2vec
@@ -1133,8 +1197,11 @@ TF32_ABLATIONS = {
 TF32_ACCURACY_CASE = ("float", 40, 150, 600, 100)
 # Copies of K4 and K1 dot with another loader (whole kernels, results
 # checked): for K4 the raw-unit cp.async ring for int8 at 64-query tiles
-# too, or registers everywhere (fused_topk_quantized.cu picks per
-# instance); for K1 dot registers in place of the ring of 8-byte copies.
+# too (a bf16 query), or registers everywhere (fused_topk_quantized.cu picks
+# per instance: for an f32 query over int8 the raw ring wherever the rows
+# allow it; over int4 there is only the register loader, so both copies
+# are the kernel as it is); for K1 dot registers in place of the ring of
+# 8-byte copies.
 LOADERS = {
     "raw ring everywhere": [("    if constexpr (BITS == 4) {\n      if (ring)",
                              "    if constexpr (true) {\n      if (ring)")],
@@ -1153,10 +1220,11 @@ def ablate(dev, card: str) -> None:
     K1 dot and K4), timed in turns (full, each copy, full): K1 classic on
     random bf16 operands, K1 dot on a random [u; -u] int8 query over random
     term counts 0..127, K4 with a bf16 query on random int8 and int4
-    (group 32) stores, and K4 with an f32 query on a random int8 store at
-    the brute-force shapes (T = 300), also with TF32_ABLATIONS; K4 also
-    against its two loaders and K1 dot against registers (LOADERS, results
-    held to the kernel's)."""
+    (group 32) stores, and K4 with an f32 query on random int8 and int4
+    (group 32) stores at the brute-force shapes (T = 300), also with
+    TF32_ABLATIONS (their accuracy over both widths); K4 also against its
+    two loaders and K1 dot against registers (LOADERS, results held to the
+    kernel's)."""
     import types
 
     from repro_torch.kernels.fused_topk.kernel import fused_topk, fused_topk_quantized
@@ -1174,20 +1242,22 @@ def ablate(dev, card: str) -> None:
             range(len(copies)), copies)))
     gen = torch.Generator(device=dev).manual_seed(6)
     kind, b, n_acc, t_acc, depth = TF32_ACCURACY_CASE
-    q_acc, d_acc, s_acc = _quantized_inputs(kind, 8, 0, "f32", b, n_acc, t_acc, gen, dev)
-    pq_acc = types.SimpleNamespace(q=d_acc, scale=s_acc, bits=8, group=0)
-    want = ref.quantized_topk_ref(q_acc, d_acc, s_acc, depth + 1, 8, 0)
-    for name, fns in {"full": None, **{k: cut[k] for k in TF32_ABLATIONS}}.items():
-        got = (fused_topk_quantized(q_acc, d_acc, s_acc, depth, 8, 0) if fns is None
-               else fns["fused_topk_quantized"](q_acc, pq_acc, depth))
-        err = float((got[0] - want[0][:, :depth]).abs().max())
-        try:
-            compare(name, got, want, exact=False)
-            verdict = "inside the near-tie rule"
-        except AssertionError as fault:
-            verdict = f"outside it ({fault})"
-        print(f"split-TF32 accuracy, {name}, {kind} B={b} N={n_acc} T={t_acc} depth={depth}: "
-              f"max |score - plain| {err:.3g}, {verdict}")
+    for bits, group in ((8, 0), (4, GROUP)):
+        q_acc, d_acc, s_acc = _quantized_inputs(kind, bits, group, "f32", b, n_acc, t_acc, gen,
+                                                dev)
+        pq_acc = types.SimpleNamespace(q=d_acc, scale=s_acc, bits=bits, group=group)
+        want = ref.quantized_topk_ref(q_acc, d_acc, s_acc, depth + 1, bits, group)
+        for name, fns in {"full": None, **{k: cut[k] for k in TF32_ABLATIONS}}.items():
+            got = (fused_topk_quantized(q_acc, d_acc, s_acc, depth, bits, group) if fns is None
+                   else fns["fused_topk_quantized"](q_acc, pq_acc, depth))
+            err = float((got[0] - want[0][:, :depth]).abs().max())
+            try:
+                compare(name, got, want, exact=False)
+                verdict = "inside the near-tie rule"
+            except AssertionError as fault:
+                verdict = f"outside it ({fault})"
+            print(f"split-TF32 accuracy, {name}, {kind} int{bits} g{group} B={b} N={n_acc} "
+                  f"T={t_acc} depth={depth}: max |score - plain| {err:.3g}, {verdict}")
     n, t = 2_999_808, 600
     q = (torch.randn((256, t), generator=gen, device=dev) / t**0.5).to(torch.bfloat16)
     docs = torch.randn((n, t), generator=gen, device=dev).to(torch.bfloat16)
@@ -1209,6 +1279,11 @@ def ablate(dev, card: str) -> None:
         "K4 int8, f32 query, random bytes, T=300": (8, types.SimpleNamespace(
             bits=8, group=0, scale=torch.rand((n, 1), generator=gen, device=dev),
             q=torch.randint(-127, 128, (n, t300), generator=gen, device=dev, dtype=torch.int8))),
+        "K4 int4 g32, f32 query, random nibbles, T=300": (4, types.SimpleNamespace(
+            bits=4, group=GROUP, scale=torch.rand((n, -(-t300 // GROUP)), generator=gen,
+                                                  device=dev),
+            q=torch.randint(0, 256, (n, -(-t300 // GROUP) * GROUP // 2), generator=gen,
+                            device=dev, dtype=torch.uint8))),
     }
     for label, (bits, store) in stores.items():
         f32 = "f32 query" in label
@@ -1236,7 +1311,7 @@ def ablate(dev, card: str) -> None:
             line = [f"full {cuda_ms(full):.3f} ms"]
             line += [f"{name} {cuda_ms(fn):.3f} ms" for name, fn in runs.items()]
             line.append(f"full {cuda_ms(full):.3f} ms")
-            print(f"pass-1 ablation, {label}, B={b}, N={n}, T={store.q.shape[1] if f32 else t}, "
+            print(f"pass-1 ablation, {label}, B={b}, N={n}, T={qb.shape[1]}, "
                   f"depth 100, on {card}: " + "; ".join(line))
         del store
     print(f"ablations on {card}")
@@ -1252,9 +1327,10 @@ def pair_parent(dev, card: str, parent: str) -> None:
     (the ground truth's call) at B = 256 and K1 dot (the dot search's call)
     at B = 256, 8 and 1 over the fp32 index; K4 with a bf16 query over
     int8 and int4 (group 32) postings at B = 256, 8 and 1 (the quantized
-    classic search's call), and K4 with an f32 query over int8 postings at
-    B = 256, 8 and 1 (brute force's call), also with an integer query and
-    unit scales (bit for bit)."""
+    classic search's call), and K4 with an f32 query over int8 and over
+    int4 (group 32) postings at B = 256, 8 and 1 (brute force's call), also
+    with an integer query over unit scales (int8) or over distinct
+    power-of-two group scales (int4; ``pow2_scales``), bit for bit."""
     from repro_torch.configs import ann_word2vec
     from repro_torch.core import bruteforce, fakewords
     from repro_torch.core.index import AnnIndex
@@ -1317,6 +1393,17 @@ def pair_parent(dev, card: str, parent: str) -> None:
              (qn[:bb], bidx.index.pq), depth)
         pair(f"K4 int8 f32 integer query, unit scales B={bb}", k4_new,
              old["fused_topk_quantized"], (q_int[:bb], unit), depth, exact=True)
+    del bidx, unit
+    torch.cuda.empty_cache()
+    bidx = AnnIndex.build(x, BruteForceConfig(), primary_postings="int4", postings_group=GROUP,
+                          rerank_store="none", device=dev)
+    pq4 = bidx.index.pq
+    pow2 = dataclasses.replace(pq4, scale=pow2_scales(*pq4.scale.shape, dev))
+    for bb in (256, 8, 1):
+        pair(f"K4 int4 f32 query B={bb}", k4_new, old["fused_topk_quantized"], (qn[:bb], pq4),
+             depth)
+        pair(f"K4 int4 f32 integer query, power-of-two group scales B={bb}", k4_new,
+             old["fused_topk_quantized"], (q_int[:bb], pow2), depth, exact=True)
 
 
 def make_inputs(dev, n: int, b: int):
@@ -1614,19 +1701,30 @@ def profile_search(idx, qx, k: int, depth: int, card: str, label: str = "classic
     """A torch.profiler trace of ``runs`` back-to-back main-path searches of
     ``idx`` (``label`` names them): device time per CUDA kernel (pass 1,
     merge, the encoder's kernels) and the device's idle share between the
-    first kernel's start and the last one's end.  Where the trace holds no
-    device time, the search is timed with CUDA events instead."""
+    first kernel's start and the last one's end.  One search before them,
+    inside the trace but outside the measured span, takes the first
+    kernels after the trace starts, which the trace may drop (it kept 4 of
+    5 pass-1 kernels of the brute-force search whose pass 1 comes first).
+    Where the trace holds no device time, the search is timed with CUDA
+    events instead."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    mark = "measured searches"  # on the device's timeline too, as an annotation
     idx.search(qx, k=k, depth=depth)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            idx.search(qx, k=k, depth=depth)
+        idx.search(qx, k=k, depth=depth)
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start)
+        with record_function(mark):
+            for _ in range(runs):
+                idx.search(qx, k=k, depth=depth)
+            torch.cuda.synchronize()
+    events = prof.events()
+    t0 = min(e.time_range.start for e in events if e.name == mark)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                   if e.device_type == DeviceType.CUDA and e.name != mark
+                   and e.time_range.start >= t0 and e.time_range.end > e.time_range.start)
     if not spans:
         print(f"profile: torch.profiler recorded no device time; CUDA events on {card}: {label} "
               f"search B={qx.shape[0]} {cuda_ms(lambda: idx.search(qx, k=k, depth=depth)):.3f} ms")
@@ -1981,6 +2079,7 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
 
     # ---- times ---------------------------------------------------------------
     profile_search(quant["int8"][0], qx, k, depth, card, label="int8 quantized classic")
+    profile_search(brute["int4"][0], qx, k, depth, card, label="int4 brute-force")
     for pp, (qidx, *_) in quant.items():
         line = []
         for bb in (b, 8, 1):
@@ -2015,7 +2114,7 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
              quant["int4"][3], "torch.topk(matmul(q, dequant_int4(store).T)), whole-store dequant"),
             ("fused_topk_quantized/f32-int8", brute["int8"][1], qn, "tf32", *brute["int8"][2:],
              f"torch.topk(matmul(q, pq.q.float().T) * scale), {f32_lib}"),
-            ("fused_topk_quantized/f32-int4", brute["int4"][1], qn, "f32", *brute["int4"][2:],
+            ("fused_topk_quantized/f32-int4", brute["int4"][1], qn, "tf32", *brute["int4"][2:],
              f"torch.topk(matmul(q, dequant_int4(store).T)), whole-store dequant, {f32_lib}")):
         pq, tq = qidx_pq, qop.shape[1]
 
@@ -2035,8 +2134,8 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
                       cuda_ms(lambda: library(qb), runs=3, warmup=1),
                       *quantized_bound_ms(qb, pq.q, pq.scale, n, depth, kind,
                                           passes=2 if kind == "tf32" else 1))
-        # The split-TF32 row's bound is its two tf32 passes; the f32 FMAs of
-        # the plain product bound the CUDA-core design it replaced.
+        # The split-TF32 rows' bound is their two tf32 passes; the f32 FMAs
+        # of the plain product bound the CUDA-core designs they replaced.
         fma = ("; f32-FMA bound " + ", ".join(
             f"B={bb} {quantized_bound_ms(qop[:bb], pq.q, pq.scale, n, depth, 'f32')[0]:.3f} ms"
             for bb in at) if kind == "tf32" else "")

@@ -313,6 +313,7 @@ struct Bf16Rows {
   static constexpr bool kAsync = true;   // straight into the bf16 stages
   static constexpr bool kRaw = false;
   static constexpr bool kRowScale = false;
+  static constexpr bool kChunkScale = false;
   const uint16_t* __restrict__ docs;
   int T;
   bool aligned;  // every row 16-byte aligned
@@ -390,6 +391,7 @@ struct I8Rows {
   static constexpr bool kAsync = true;   // straight into the int8 stages
   static constexpr bool kRaw = false;
   static constexpr bool kRowScale = false;
+  static constexpr bool kChunkScale = false;
   const int8_t* __restrict__ docs;
   int T, align;  // the byte alignment every row starts at: 16, 8 or 1
 

@@ -3,9 +3,7 @@
 // ../kernel.py).
 //
 // K4 (fused_topk_quantized_bf16_partial for a bf16 query,
-// fused_topk_quantized_tf32_partial for an f32 one over int8 rows,
-// fused_topk_quantized_partial for an f32 one over int4 rows, + the shared
-// merge pass)
+// fused_topk_quantized_tf32_partial for an f32 one, + the shared merge pass)
 // replaces the TPU kernel repro/kernels/fused_topk/kernel.py::fused_topk_quantized (def 632,
 // pallas_call 689): the top-`depth` of q @ dequant(docs, scale).T, with the
 // dequantization fused into the score stage, so only the packed store and
@@ -14,15 +12,17 @@
 // replaces fused_topk_gathered_quantized (def 765, pallas_call 818): the same
 // over the rows each query kept in blockmax stage 1, read by id.
 //
-// The dequant order is the reference's, element by element:
+// The dequant order is the reference's, element by element (but for an
+// f32 query over int4 rows, below):
 //   * int8 (docs (N, T) int8, scale (N, 1) f32): the stored value widened to
 //     the query dtype (exact: |v| <= 127), the products summed in f32 over
 //     the whole row, and the sum multiplied by scale[n] ONCE.
 //   * int4 (docs (N, Tg/2) uint8, Tg = round_up(T, group), scale (N, Tg /
 //     group) f32): column 2c is the low nibble of byte c, column 2c + 1 the
 //     high one; value = (float)(nibble - 8) * scale[n, col / group] in f32,
-//     rounded once to bf16 for a bf16 query (kept in f32 for an f32 query),
-//     then multiplied with the query in f32.
+//     rounded once to bf16 for a bf16 query, then multiplied with the query
+//     in f32.  With an f32 query the scale multiplies each 32-column chunk's
+//     sum of q * (nibble - 8) instead of each (nibble - 8).
 // A bf16 x bf16 product is exact in f32, so with a bf16 query only the order
 // of the f32 sum differs from the reference.  The query has T columns: it is
 // never read past T, and the pad columns [T, Tg) count as query 0.
@@ -54,7 +54,7 @@
 // cannot copy and for int8 at 64-query tiles, where it measured faster.
 // The loads, not the products, set the pace (PERF.md: `chip_smoke.py --ablate`).
 //
-// K4 with an f32 query over int8 rows (brute force over int8 postings):
+// K4 with an f32 query (brute force over int8 or int4 postings):
 // fused_topk_quantized_tf32_partial, the same tensor-core pass 1 with the
 // split-TF32 product type (mma_topk.cuh, MmaTf32) over Int8RowsF32: a row's
 // 32-column chunk is 4-byte units (4 int8 columns, one 16-byte f32 pack
@@ -71,16 +71,19 @@
 // 495 TFLOP/s (the f32 FMAs of the plain product, 4.6e11 at 67 TFLOP/s,
 // 6.877 ms), so operations bound it there and bytes at B <= 8.
 //
-// K4 with an f32 query over int4 rows: fused_topk_quantized_partial on CUDA
-// cores (a nibble times its group scale is not exact in tf32), K1's
-// CUDA-core pass 1 (fused_topk.cu) with another doc loader: a block of 256
-// threads owns BQ queries and a range of 256-doc tiles; each thread reads
-// one doc row's 16 packed bytes for the next 32-column chunk and that
-// chunk's group scale into registers while the current chunk is multiplied,
-// then dequantizes it into shared memory as f32 words, so the dequant is
-// done once per doc and query tile and the products run in f32 FMAs.  Ids
-// ascend within a split, so a candidate that does not precede the K-th
-// entry is skipped (the strict tile skip).
+// Over packed int4 rows (Int4RowsF32) a nibble times its group scale is not
+// exact in tf32, but nibble - 8 (4 bits) is: each nibble widens to that
+// exact f32, and the scale comes out of the product.  A 32-column chunk
+// lies in one group (groups are multiples of 32), so the chunk's products,
+// summed from zero (MmaTf32's fold), are multiplied by the row's scale for
+// that group as they fold into the row's sum (kChunkScale): sum over g of
+// s_g * sum over the group of q (n - 8), where the reference sums q *
+// f32((n - 8) s_g).  The units (2 bytes, 4 nibbles) and each row's chunk
+// scale come through registers one chunk ahead: a raw ring of 16-byte
+// copies a row's chunk measured level with it on an H100 (PERF.md §6), and
+// the register loader takes every row.  Bound at the brute-force shapes
+// (group 32): the bytes N * (160 + 40) = 0.600 GB take 0.179 ms, and at
+// B = 256 the same 1.86 ms of tf32 operations bound it.
 //
 // K5 is K3's pass 1 (one query per block, a row-split plan that fills
 // the SMs at B = 1, a warp reading whole rows by id with 8 rows' loads in
@@ -92,13 +95,12 @@
 
 #include <cuda_bf16.h>
 
+#include <type_traits>
+
 #include "mma_topk.cuh"  // the tensor-core pass 1; includes topk_merge.cuh
 
 namespace {
 
-// The f32-query K4 over int4 rows takes topk_merge.cuh's streaming tile:
-// kBN = kThreads docs (one doc row per thread), kBK = 32 columns a chunk
-// (one int4 group, or half of one).
 constexpr uint8_t kInt4Pad = 0x88;  // nibble 8 in both halves: value 0
 
 enum QueryDtype { kQF32 = 0, kQBF16 = 1 };
@@ -159,182 +161,6 @@ __device__ __forceinline__ void load_bytes(const uint8_t* row, int b0, int len, 
 }
 
 // ---------------------------------------------------------------------------
-// K4 with an f32 query over int4 rows: pass 1 on CUDA cores
-// (fused_topk_quantized_partial).
-// ---------------------------------------------------------------------------
-
-template <int BQ>
-__global__ void __launch_bounds__(kThreads, 2) fused_topk_quantized_partial(
-    const float* __restrict__ q,                    // (B, T)
-    const uint8_t* __restrict__ docs,               // (N, row_bytes) packed int4
-    const float* __restrict__ scale,                // (N, n_groups)
-    const uint8_t* __restrict__ filt,               // nullptr | (N,) | (B, N)
-    long long filt_stride,                          // 0 for (N,), N for (B, N)
-    int B, int n_docs, int T, int row_bytes, int group, int n_groups, int K,
-    int tiles_per_split, int d_align,
-    float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
-  constexpr int TM = BQ / kWarps;  // query rows per warp
-  constexpr int kQLoads = BQ * kBK / kThreads;
-  static_assert(kQLoads * kThreads == BQ * kBK, "query chunk must split evenly");
-  static_assert(kBN == kThreads, "one doc row per thread");
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);   // kBK x BQ, column-major
-  float* ds = qs + kBK * BQ;                    // kBN x kSkew, row-major
-  float* ls = ds + kBN * kSkew;                 // BQ x K running scores
-  int* li = reinterpret_cast<int*>(ls + BQ * K);  // BQ x K running ids
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * BQ, split = blockIdx.y;
-  const int n_chunks = (T + kBK - 1) / kBK;
-  const int n_tiles = (n_docs + kBN - 1) / kBN;
-  const int tile_begin = split * tiles_per_split;
-  const int n_steps = max(0, min(tile_begin + tiles_per_split, n_tiles) - tile_begin) * n_chunks;
-
-  for (int e = tid; e < BQ * K; e += kThreads) { ls[e] = -INFINITY; li[e] = kBigId; }
-
-  Pack16 dn[1];  // one doc row's 16 packed bytes of the chunk
-  float gscale;  // and the chunk's group scale
-  float qn[kQLoads];
-  auto load_step = [&](int step) {
-    const int di = (tile_begin + step / n_chunks) * kBN + tid;
-    const int w0 = (step % n_chunks) * kBK;
-    if (di < n_docs) {
-      load_bytes<1>(docs + (size_t)di * row_bytes, w0 / 2, row_bytes, d_align, kInt4Pad, dn);
-      gscale = scale[(size_t)di * n_groups + w0 / group];
-    } else {  // a row that does not exist is not read; it never ranks
-      dn[0].u = make_uint4(0, 0, 0, 0);
-      gscale = 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kQLoads; ++i) {
-      const int v = tid + i * kThreads, r = v % BQ, c = w0 + v / BQ;
-      qn[i] = (q0 + r < B && c < T) ? q[(size_t)(q0 + r) * T + c] : 0.f;
-    }
-  };
-
-  float acc[TM][kTN];
-  if (n_steps > 0) load_step(0);
-  for (int step = 0; step < n_steps; ++step) {
-    const int chunk = step % n_chunks;
-    const int d0 = (tile_begin + step / n_chunks) * kBN;
-    if (chunk == 0) {
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-    }
-    __syncthreads();  // every warp is done with the previous chunk
-    float* drow = ds + tid * kSkew;
-#pragma unroll
-    for (int c = 0; c < kBK; c += 2) {
-      const uint32_t byte = dn[0].b[c / 2];
-      drow[c] = int4_value<kQF32>(byte & 0xFu, gscale);
-      drow[c + 1] = int4_value<kQF32>(byte >> 4, gscale);
-    }
-#pragma unroll
-    for (int i = 0; i < kQLoads; ++i) qs[tid + i * kThreads] = qn[i];  // column v / BQ, row v % BQ
-    __syncthreads();
-    if (step + 1 < n_steps) load_step(step + 1);  // in flight during the products
-
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[TM], b[kTN];
-      if constexpr (TM % 4 == 0) {  // one broadcast 16-byte read per 4 rows
-#pragma unroll
-        for (int g = 0; g < TM / 4; ++g) {
-          const float4 av = *reinterpret_cast<const float4*>(qs + kk * BQ + warp * TM + 4 * g);
-          a[4 * g + 0] = av.x;
-          a[4 * g + 1] = av.y;
-          a[4 * g + 2] = av.z;
-          a[4 * g + 3] = av.w;
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = qs[kk * BQ + warp * TM + i];
-      }
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) b[j] = ds[(lane + 32 * j) * kSkew + kk];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-
-    if (chunk != n_chunks - 1) continue;
-    // Merge this warp's rows of the finished tile into their running lists.
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = warp * TM + i, qi = q0 + r;
-      if (qi >= B) continue;  // warp-uniform
-      float* rs = ls + r * K;
-      int* ri = li + r * K;
-      const uint8_t* f = filt ? filt + qi * filt_stride : nullptr;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int id = d0 + 32 * j + lane;
-        const float s = acc[i][j];
-        const bool valid = id < n_docs && (f == nullptr || f[id] != 0);
-        unsigned mask = __ballot_sync(kFull, valid && precedes(s, id, rs[K - 1], ri[K - 1]));
-        while (mask) {
-          const int src = __ffs(mask) - 1;
-          mask &= mask - 1;
-          const float cs = __shfl_sync(kFull, s, src);
-          const int cid = d0 + 32 * j + src;
-          if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
-        }
-      }
-    }
-  }
-
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = warp * TM + i, qi = q0 + r;
-    if (qi >= B) continue;
-    const size_t out = ((size_t)split * B + qi) * K;
-    for (int c = lane; c < K; c += 32) {
-      part_s[out + c] = ls[r * K + c];
-      part_i[out + c] = li[r * K + c];
-    }
-  }
-}
-
-template <int BQ>
-cudaError_t launch_partial(const void* q, const void* docs, const float* scale,
-                           const uint8_t* filt, long long filt_stride, int B, int n_docs, int T,
-                           int row_bytes, int group, int n_groups, int K, int splits,
-                           int tiles_per_split, int d_align, float* part_s, int* part_i,
-                           cudaStream_t stream) {
-  const size_t smem = partial_smem(BQ, K);
-  auto kernel = fused_topk_quantized_partial<BQ>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3((B + BQ - 1) / BQ, splits), kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const uint8_t*>(docs), scale,
-      filt, filt_stride, B, n_docs, T, row_bytes, group, n_groups, K, tiles_per_split, d_align,
-      part_s, part_i);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_partial_bq(int bq, const void* q, const void* docs, const float* scale,
-                              const uint8_t* filt, long long filt_stride, int B, int n_docs,
-                              int T, int row_bytes, int group, int n_groups, int K, int splits,
-                              int tiles_per_split, int d_align, float* part_s, int* part_i,
-                              cudaStream_t stream) {
-  if (bq == 32)
-    return launch_partial<32>(q, docs, scale, filt, filt_stride, B, n_docs, T, row_bytes, group,
-                              n_groups, K, splits, tiles_per_split, d_align, part_s, part_i,
-                              stream);
-  if (bq == 8)
-    return launch_partial<8>(q, docs, scale, filt, filt_stride, B, n_docs, T, row_bytes, group,
-                             n_groups, K, splits, tiles_per_split, d_align, part_s, part_i,
-                             stream);
-  return cudaErrorInvalidValue;
-}
-
-// ---------------------------------------------------------------------------
 // K4 with a bf16 query: the tensor-core pass 1 of mma_topk.cuh over packed
 // rows (fused_topk_quantized_bf16_partial).
 // ---------------------------------------------------------------------------
@@ -367,6 +193,7 @@ struct Int8Rows {
   static constexpr bool kRaw = true;
   static constexpr int kSlot = 8;
   static constexpr bool kRowScale = true;
+  static constexpr bool kChunkScale = false;
   const uint8_t* __restrict__ docs;
   const float* __restrict__ scale;  // (N, 1)
   int T, align;
@@ -420,6 +247,7 @@ struct Int4Rows {
   static constexpr bool kRaw = true;
   static constexpr int kSlot = 8;       // the 4 bytes and the scale
   static constexpr bool kRowScale = false;
+  static constexpr bool kChunkScale = false;
   const uint8_t* __restrict__ docs;
   const float* __restrict__ scale;  // (N, n_groups)
   int row_bytes, group, n_groups, align;
@@ -541,7 +369,7 @@ cudaError_t launch_mma(int bq, const void* q, const void* docs, const float* sca
 }
 
 // ---------------------------------------------------------------------------
-// K4 with an f32 query over int8 rows: the tensor-core pass 1 of
+// K4 with an f32 query over int8 or int4 rows: the tensor-core pass 1 of
 // mma_topk.cuh with the split-TF32 product type
 // (fused_topk_quantized_tf32_partial).
 // ---------------------------------------------------------------------------
@@ -559,9 +387,10 @@ struct Int8RowsF32 {
   static constexpr bool kRaw = true;
   static constexpr int kSlot = 4;
   static constexpr bool kRowScale = true;
+  static constexpr bool kChunkScale = false;
   const uint8_t* __restrict__ docs;
   const float* __restrict__ scale;  // (N, 1)
-  int T, align;
+  int T, group, n_groups, align;    // T: the row's bytes (group, n_groups unused)
 
   __device__ __forceinline__ Unit load(int di, bool ok, int e) const {
     const uint8_t* row = docs + (size_t)di * T;
@@ -589,59 +418,119 @@ struct Int8RowsF32 {
   __device__ __forceinline__ float row_scale(int id) const { return scale[id]; }
 };
 
-template <int BQ, int BN, int NS, bool RING>
-__global__ void __launch_bounds__(kThreads, 1) fused_topk_quantized_tf32_partial(
-    const float* __restrict__ q,        // (B, T)
-    const uint8_t* __restrict__ docs,   // (N, T) int8
-    const float* __restrict__ scale,    // (N, 1)
-    const uint8_t* __restrict__ filt,   // nullptr | (N,) | (B, N)
-    long long filt_stride,              // 0 for (N,), N for (B, N)
-    int B, int n_docs, int T, int depth, int K, int tiles_per_split, bool q_aligned,
-    int d_align, float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
-  const Int8RowsF32 rows{docs, scale, T, d_align};
-  mma_topk_pass1<Int8RowsF32, BQ, BN, NS, RING>(q, rows, filt, filt_stride, B, n_docs, T, depth,
-                                               K, tiles_per_split, q_aligned ? 16 : 1, part_s,
-                                               part_i);
+// Packed int4 rows (N, row_bytes = Tg / 2) under an f32 query: a unit is 2
+// bytes (4 nibbles, the 4 columns of a 16-byte f32 pack once widened:
+// column 2c the low nibble of byte c, 2c + 1 the high one), and a row's
+// 32-column chunk is 8 units and one scale, its group's, all loaded through
+// registers (no raw ring: kAsync is false).  No byte past the row is ever
+// read: the last chunk ends by round_up(T, 32) <= Tg.  Rows that do not
+// exist are never read (their units read nibble 8 and their scale 0).
+// Each nibble widens exactly to the f32 nibble - 8, and the chunk's sum is
+// multiplied by the scale as it folds (kChunkScale).
+struct Int4RowsF32 {
+  using Op = MmaTf32;
+  using Unit = uint32_t;                 // the 2 bytes in the low half
+  static constexpr bool kAsync = false;  // through registers only
+  static constexpr bool kRaw = false;
+  static constexpr bool kRowScale = false;
+  static constexpr bool kChunkScale = true;
+  const uint8_t* __restrict__ docs;
+  const float* __restrict__ scale;  // (N, n_groups)
+  int row_bytes, group, n_groups, align;
+
+  __device__ __forceinline__ Unit load(int di, bool ok, int e) const {
+    if (!ok) return 0x8888u;
+    const uint8_t* p = docs + (size_t)di * row_bytes + e / 2;
+    if (align >= 4) return *reinterpret_cast<const uint16_t*>(p);
+    return (uint32_t)p[0] | (uint32_t)p[1] << 8;
+  }
+  // Row di's scale for the chunk at column e0 (a multiple of 32).
+  __device__ __forceinline__ float chunk_scale(int di, bool ok, int e0) const {
+    return ok ? scale[(size_t)di * n_groups + e0 / group] : 0.f;
+  }
+  // nibble n as (2^23 + n) - (2^23 + 8), exact.
+  __device__ __forceinline__ uint4 widen(Unit u) const {
+    return make_uint4(__float_as_uint(__uint_as_float(0x4B000000u | (u & 0xFu)) - 8388616.0f),
+                      __float_as_uint(__uint_as_float(0x4B000000u | (u >> 4 & 0xFu)) - 8388616.0f),
+                      __float_as_uint(__uint_as_float(0x4B000000u | (u >> 8 & 0xFu)) - 8388616.0f),
+                      __float_as_uint(__uint_as_float(0x4B000000u | (u >> 12 & 0xFu)) - 8388616.0f));
+  }
+};
+
+template <int BITS>
+using F32Rows = std::conditional_t<BITS == 8, Int8RowsF32, Int4RowsF32>;
+
+// The most stages the loader of Rows holds: the raw ring's where it has
+// one, else the register loader's.
+template <class Rows>
+constexpr int f32_stages() {
+  return Rows::kAsync ? kStages : kRegStages;
 }
 
-template <int BQ, int BN, int NS, bool RING>
+template <int BITS, int BQ, int BN, int NS, bool RING>
+__global__ void __launch_bounds__(kThreads, 1) fused_topk_quantized_tf32_partial(
+    const float* __restrict__ q,        // (B, T)
+    const uint8_t* __restrict__ docs,   // (N, row_bytes) int8 or packed int4
+    const float* __restrict__ scale,    // (N, n_groups); int8: n_groups = 1
+    const uint8_t* __restrict__ filt,   // nullptr | (N,) | (B, N)
+    long long filt_stride,              // 0 for (N,), N for (B, N)
+    int B, int n_docs, int T, int row_bytes, int group, int n_groups, int depth, int K,
+    int tiles_per_split, bool q_aligned, int d_align,
+    float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
+  const F32Rows<BITS> rows{docs, scale, row_bytes, group, n_groups, d_align};
+  mma_topk_pass1<F32Rows<BITS>, BQ, BN, NS, RING>(q, rows, filt, filt_stride, B, n_docs, T,
+                                                 depth, K, tiles_per_split, q_aligned ? 16 : 1,
+                                                 part_s, part_i);
+}
+
+template <int BITS, int BQ, int BN, int NS, bool RING>
 cudaError_t launch_tf32_instance(const void* q, const void* docs, const float* scale,
                                  const uint8_t* filt, long long filt_stride, int B, int n_docs,
-                                 int T, int depth, int K, int splits, int tiles_per_split,
-                                 bool q_aligned, int d_align, float* part_s, int* part_i,
-                                 cudaStream_t stream) {
-  const size_t smem = mma_smem(BQ, BN, NS, K, RING ? Int8RowsF32::kSlot : 0);
-  auto kernel = fused_topk_quantized_tf32_partial<BQ, BN, NS, RING>;
+                                 int T, int row_bytes, int group, int n_groups, int depth, int K,
+                                 int splits, int tiles_per_split, bool q_aligned, int d_align,
+                                 float* part_s, int* part_i, cudaStream_t stream) {
+  using Rows = F32Rows<BITS>;
+  const size_t smem =
+      mma_smem(BQ, BN, NS, K, RING ? raw_slot<Rows>() : 0, chunk_scale_bytes<Rows>());
+  auto kernel = fused_topk_quantized_tf32_partial<BITS, BQ, BN, NS, RING>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((B + BQ - 1) / BQ, splits), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const uint8_t*>(docs), scale, filt, filt_stride,
-      B, n_docs, T, depth, K, tiles_per_split, q_aligned, d_align, part_s, part_i);
+      B, n_docs, T, row_bytes, group, n_groups, depth, K, tiles_per_split, q_aligned, d_align,
+      part_s, part_i);
   return cudaGetLastError();
 }
 
 // The split-TF32 pass 1 for the plan's bq; the tile and stages follow from
-// (bq, K) as in mma_plan.  The ring of 4-byte units, the faster loader at
-// every instance, takes doc rows 4-byte aligned and query rows 16-byte
-// aligned; other rows go through registers.
+// (bq, K) as in mma_plan.  Over int8 rows the raw ring takes rows 4-byte
+// aligned (4-byte copies) and query rows 16-byte aligned, and is the faster
+// loader there at every instance; other int8 rows, and every int4 row, go
+// through registers.
+template <int BITS>
 cudaError_t launch_tf32(int bq, const void* q, const void* docs, const float* scale,
                         const uint8_t* filt, long long filt_stride, int B, int n_docs, int T,
-                        int depth, int K, int splits, int tiles_per_split, bool q_aligned,
-                        int d_align, float* part_s, int* part_i, cudaStream_t stream) {
+                        int row_bytes, int group, int n_groups, int depth, int K, int splits,
+                        int tiles_per_split, bool q_aligned, int d_align, float* part_s,
+                        int* part_i, cudaStream_t stream) {
+  using Rows = F32Rows<BITS>;
   int bn = 0, stages = 0;
-  if (!mma_shape(bq, K, kStages, &bn, &stages, Int8RowsF32::kSlot)) return cudaErrorInvalidValue;
-#define FUSED_TOPK_QUANTIZED_TF32(BQ, BN, NS, RING)                                          \
-  return launch_tf32_instance<BQ, BN, NS, RING>(q, docs, scale, filt, filt_stride, B, n_docs, \
-                                                T, depth, K, splits, tiles_per_split,        \
-                                                q_aligned, d_align, part_s, part_i, stream)
-  const bool ring = d_align >= 4 && q_aligned;
+  if (!mma_shape(bq, K, f32_stages<Rows>(), &bn, &stages, raw_slot<Rows>(),
+                 chunk_scale_bytes<Rows>()))
+    return cudaErrorInvalidValue;
+#define FUSED_TOPK_QUANTIZED_TF32(BQ, BN, NS, RING)                                             \
+  return launch_tf32_instance<BITS, BQ, BN, NS, RING>(q, docs, scale, filt, filt_stride, B,     \
+                                                      n_docs, T, row_bytes, group, n_groups,    \
+                                                      depth, K, splits, tiles_per_split,        \
+                                                      q_aligned, d_align, part_s, part_i, stream)
   if (stages == 1) FUSED_TOPK_QUANTIZED_TF32(8, 128, 1, false);
-  if (bq == 64) {
-    if (ring) FUSED_TOPK_QUANTIZED_TF32(64, 128, kStages, true);
-    FUSED_TOPK_QUANTIZED_TF32(64, 128, kRegStages, false);
+  if constexpr (Rows::kAsync) {  // int8 rows
+    const bool ring = d_align >= 4 && q_aligned;
+    if (ring && bq == 64) FUSED_TOPK_QUANTIZED_TF32(64, 128, kStages, true);
+    if (ring) FUSED_TOPK_QUANTIZED_TF32(8, 256, kStages, true);
   }
-  if (ring) FUSED_TOPK_QUANTIZED_TF32(8, 256, kStages, true);
+  if (bq == 64) FUSED_TOPK_QUANTIZED_TF32(64, 128, kRegStages, false);
   FUSED_TOPK_QUANTIZED_TF32(8, 256, kRegStages, false);
 #undef FUSED_TOPK_QUANTIZED_TF32
 }
@@ -824,24 +713,22 @@ bool operands_ok(int qdtype, int bits, int T, int row_bytes, int group, int n_gr
 extern "C" {
 
 // K4's launch plan for a query of `qdtype` (0 f32, 1 bf16) over packed rows
-// of `bits` (8 or 4): mma_plan (mma_topk.cuh) with a bf16 query, and with an
-// f32 one over int8 rows (the raw ring's slots of either); with an f32 query
-// over int4 rows streaming_plan (topk_merge.cuh), as K1's CUDA-core modes,
-// with plan[4] = kBN docs a tile.
+// of `bits` (8 or 4): mma_plan (mma_topk.cuh) with the loader of the
+// policy the launch takes.
 int fused_topk_quantized_plan(int qdtype, int bits, int B, int n_docs, int depth, int sm_count,
                               int* plan) {
   if ((qdtype != kQF32 && qdtype != kQBF16) || (bits != 8 && bits != 4))
     return (int)cudaErrorInvalidValue;
   if (qdtype == kQBF16) return mma_plan(B, n_docs, depth, sm_count, kStages, plan, Int8Rows::kSlot);
   if (bits == 8) return mma_plan(B, n_docs, depth, sm_count, kStages, plan, Int8RowsF32::kSlot);
-  plan[4] = kBN;
-  return streaming_plan(B, n_docs, depth, sm_count, plan);
+  return mma_plan(B, n_docs, depth, sm_count, f32_stages<Int4RowsF32>(), plan, 0,
+                  chunk_scale_bytes<Int4RowsF32>());
 }
 
 // Both passes of K4 on `stream`, with the plan of fused_topk_quantized_plan;
 // returns the first cudaError_t (0 = launched).  qdtype: 0 f32 (tensor cores
-// in two tf32 passes over int8 rows, CUDA cores over int4 ones), 1 bf16
-// (tensor cores).  bits 8: docs (N, T) int8, scale (N, 1); bits 4:
+// in two tf32 passes), 1 bf16 (tensor cores).  bits 8: docs (N, T) int8,
+// scale (N, 1); bits 4:
 // docs (N, row_bytes) packed, row_bytes = Tg / 2, scale (N, n_groups),
 // n_groups = Tg / group.  d_align, q_align: the byte alignment every doc /
 // query row starts at (16, 8, 4, or less).
@@ -870,11 +757,13 @@ int fused_topk_quantized_launch(int qdtype, int bits, int bq, const void* q, con
                         n_groups, depth, K, splits, tiles_per_split, q_aligned, d_align, ps, pi,
                         st);
   else if (bits == 8)
-    err = launch_tf32(bq, q, docs, sc, f, filt_stride, B, n_docs, T, depth, K, splits,
-                      tiles_per_split, q_aligned, d_align, ps, pi, st);
+    err = launch_tf32<8>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes, group,
+                         n_groups, depth, K, splits, tiles_per_split, q_aligned, d_align, ps, pi,
+                         st);
   else
-    err = launch_partial_bq(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes, group,
-                            n_groups, K, splits, tiles_per_split, d_align, ps, pi, st);
+    err = launch_tf32<4>(bq, q, docs, sc, f, filt_stride, B, n_docs, T, row_bytes, group,
+                         n_groups, depth, K, splits, tiles_per_split, q_aligned, d_align, ps, pi,
+                         st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(ps, pi, splits, B, K, depth, out_s, out_i, st);
 }

@@ -2,8 +2,9 @@
 // (fused_topk_bf16_partial in fused_topk.cu, bf16 rows), K1 dot
 // (fused_topk_int8_partial, same file, int8 rows), K4 with a bf16 query
 // (fused_topk_quantized_bf16_partial in fused_topk_quantized.cu, int8 or
-// packed int4 rows widened to bf16) and K4 with an f32 query over int8 rows
-// (fused_topk_quantized_tf32_partial, same file, rows widened to f32): the
+// packed int4 rows widened to bf16) and K4 with an f32 query over int8 or
+// packed int4 rows (fused_topk_quantized_tf32_partial, same file, rows
+// widened to f32): the
 // mma.sync / ldmatrix / cp.async helpers, the three product types (MmaBf16,
 // MmaS8, MmaTf32), the counting merge of a candidate buffer into a running
 // list, the block's shared-memory layout and launch plan (mma_smem /
@@ -20,11 +21,18 @@
 //   static constexpr bool kRaw;      //   of raw units (packed rows), or straight
 //                                    //   into the stages (bf16 or int8 rows)
 //   static constexpr bool kRowScale; // the sum is multiplied by a per-row scale
+//   static constexpr bool kChunkScale;  // each chunk's sum (Op::kFold) is multiplied
+//                                    // by the row's scale for that chunk as it
+//                                    // folds (one int4 group a chunk; the
+//                                    // register loader only, not kAsync)
 //   Unit load(int di, bool ok, int e) const;  // row di, the pack at column e;
 //                                             // !ok: a row >= n_docs, never read
 //   uint4 widen(Unit) const;         // the pack as staged, exactly as the
-//                                    // reference dequantizes it
+//                                    // reference dequantizes it (kChunkScale:
+//                                    // without the scale)
 //   float row_scale(int id) const;   // only where kRowScale
+//   float chunk_scale(int di, bool ok, int e0) const;  // row di's scale for the chunk
+//                                    // at column e0, 0 where !ok (kChunkScale)
 //   static constexpr int kSlot;      // bytes of a unit's slot in the raw ring (kRaw)
 //   void copy_raw(uint32_t* slot, int di, bool ok, int e) const;  // the unit
 //   Unit read_raw(const uint32_t* slot) const;  // into / from its slot (kRaw)
@@ -62,7 +70,11 @@
 //     operand must then be exact in tf32: an int8 value (8 significant
 //     bits) is, and each product of an 11-bit part with it is exact in f32,
 //     so only the order of the f32 sums and q's bits below 2^-20 |q| differ
-//     from the plain version (one tf32 pass would keep ~1e-3 of q).
+//     from the plain version (one tf32 pass would keep ~1e-3 of q).  Packed
+//     int4 rows widen to the exact f32 nibble - 8 (4 bits), and their group
+//     scale multiplies each chunk's sum as it folds (fmaf: one rounding), a
+//     32-column chunk lying in one group: the reference rounds each
+//     (nibble - 8) * scale to f32 instead, and sums in another order.
 //   * Loads: where every row is bf16 or int8 and 16-byte aligned, a ring of
 //     stages filled by cp.async (two chunks in flight; a pack past T or a row
 //     >= n_docs / >= B is zero-filled and not read); int8 rows that are only
@@ -123,12 +135,15 @@ __host__ __device__ constexpr int cand_cap(int bn) { return bn + flush_at(bn); }
 // with `stages` staged chunks: the stages (bn doc rows, then bq query rows,
 // each 144 bytes; for a ring of raw packed rows, `slot` > 0, one widened doc
 // stage, then `stages` query stages and `stages` raw stages of `slot` bytes
-// a unit), bq running lists of K (score, id) pairs, bq candidate buffers of
-// cand_cap(bn) pairs, and each query's threshold and count.
-constexpr size_t mma_smem(int bq, int bn, int stages, int K, int slot = 0) {
+// a unit), `cscale` bytes a doc row and stage of chunk scales (4 for the
+// register loader of a policy with kChunkScale, else 0), bq running lists
+// of K (score, id) pairs, bq candidate buffers of cand_cap(bn) pairs, and
+// each query's threshold and count.
+constexpr size_t mma_smem(int bq, int bn, int stages, int K, int slot = 0, int cscale = 0) {
   return (slot > 0 && stages > 1
               ? (size_t)bn * kMmaStride * 2 + (size_t)stages * (bq * kMmaStride * 2 + bn * kMmaPacks * slot)
               : (size_t)stages * (bn + bq) * kMmaStride * 2) +
+         (size_t)stages * bn * cscale +
          (size_t)bq * K * 8 + (size_t)bq * cand_cap(bn) * 8 + (size_t)bq * 12;
 }
 
@@ -141,10 +156,11 @@ constexpr size_t mma_smem(int bq, int bn, int stages, int K, int slot = 0) {
 // ring cannot take, and a raw ring of 4-byte slots is smaller than those,
 // so a tile of several stages must fit with either loader.  False if the
 // instance does not fit in shared memory.
-inline bool mma_shape(int bq, int K, int ring, int* bn, int* stages, int slot = 0) {
+inline bool mma_shape(int bq, int K, int ring, int* bn, int* stages, int slot = 0,
+                      int cscale = 0) {
   auto fits = [&](int n, int s) {
-    return mma_smem(bq, n, s, K, slot) <= kMaxSmem &&
-           (s == 1 || mma_smem(bq, n, kRegStages, K) <= kMaxSmem);
+    return mma_smem(bq, n, s, K, slot, cscale) <= kMaxSmem &&
+           (s == 1 || mma_smem(bq, n, kRegStages, K, 0, cscale) <= kMaxSmem);
   };
   if (bq != 64 && bq != 8) return false;
   *bn = bq == 8 ? 256 : 128;
@@ -164,13 +180,13 @@ inline bool mma_shape(int bq, int K, int ring, int* bn, int* stages, int slot = 
 // blocks, at B = 256 and at B = 1 alike.  Returns cudaErrorInvalidValue if
 // no instance fits.
 inline int mma_plan(int B, int n_docs, int depth, int sm_count, int ring, int* plan,
-                    int slot = 0) {
+                    int slot = 0, int cscale = 0) {
   if (B <= 0 || n_docs <= 0 || depth <= 0 || sm_count <= 0) return (int)cudaErrorInvalidValue;
   const int K = (depth + 31) / 32 * 32;
   int bq = B > 8 ? 64 : 8, bn = 0, stages = 0;
-  if (!mma_shape(bq, K, ring, &bn, &stages, slot)) bq = 8;
-  if (!mma_shape(bq, K, ring, &bn, &stages, slot)) return (int)cudaErrorInvalidValue;
-  const size_t per_block = mma_smem(bq, bn, stages, K, slot) + kSmemPerBlock;
+  if (!mma_shape(bq, K, ring, &bn, &stages, slot, cscale)) bq = 8;
+  if (!mma_shape(bq, K, ring, &bn, &stages, slot, cscale)) return (int)cudaErrorInvalidValue;
+  const size_t per_block = mma_smem(bq, bn, stages, K, slot, cscale) + kSmemPerBlock;
   const int resident = kSmemPerSm / per_block > 1 ? (int)(kSmemPerSm / per_block) : 1;
   const int n_tiles = (n_docs + bn - 1) / bn;
   const int q_tiles = (B + bq - 1) / bq;
@@ -312,6 +328,11 @@ template <class Rows>
 __host__ __device__ constexpr int raw_slot() {
   if constexpr (Rows::kRaw) return Rows::kSlot;
   else return 0;
+}
+// Bytes a doc row takes of each stage's chunk scales (mma_smem's cscale).
+template <class Rows>
+__host__ __device__ constexpr int chunk_scale_bytes() {
+  return Rows::kChunkScale ? 4 : 0;
 }
 
 // 16 bytes from device to shared memory, asynchronously; src_bytes = 0
@@ -457,8 +478,10 @@ __device__ __forceinline__ void mma_topk_pass1(
   static_assert(CP == 16 || !(ASYNC && Rows::kRaw), "the raw ring copies its own units");
   // ASYNC over packed rows: a ring of their raw units (each thread copies
   // and later widens its own units, so only the widened stage needs the
-  // block's barrier) and of bf16 query chunks, and one bf16 doc stage.
+  // block's barrier) and of query chunks, and one widened doc stage.
   constexpr bool kRawRing = ASYNC && Rows::kRaw;
+  constexpr bool kChunkScale = Rows::kChunkScale;
+  static_assert(!(ASYNC && kChunkScale), "chunk scales are staged by the register loader");
   constexpr int kSlotWords = raw_slot<Rows>() / 4;  // 32-bit words of a raw unit's slot
   constexpr int kCap = cand_cap(BN), kFlushAt = flush_at(BN);
   static_assert(kCap % 32 == 0, "candidate buffers fill whole lanes");
@@ -471,9 +494,11 @@ __device__ __forceinline__ void mma_topk_pass1(
   uint16_t* stages = reinterpret_cast<uint16_t*>(smem);  // NS x (BN + BQ) rows
   constexpr int kStageElems = kRawRing
       ? BN * kMmaStride + NS * (BQ * kMmaStride + BN * kMmaPacks * kSlotWords * 2)
-      : NS * (BN + BQ) * kMmaStride;
+      : NS * (BN + BQ) * kMmaStride + (kChunkScale ? NS * BN * 2 : 0);
   uint16_t* raw_q = stages + BN * kMmaStride;  // the raw ring's query stages
   uint32_t* raw_d = reinterpret_cast<uint32_t*>(raw_q + NS * BQ * kMmaStride);  // and raw units
+  // NS x BN chunk scales (kChunkScale), after the register loader's stages.
+  float* cscales = reinterpret_cast<float*>(stages + NS * (BN + BQ) * kMmaStride);
   float* ls = reinterpret_cast<float*>(stages + kStageElems);  // BQ x K
   int* li = reinterpret_cast<int*>(ls + BQ * K);
   float* cs = reinterpret_cast<float*>(li + BQ * K);  // BQ x kCap candidates
@@ -493,7 +518,9 @@ __device__ __forceinline__ void mma_topk_pass1(
   for (int e = tid; e < BQ * K; e += kThreads) { ls[e] = -INFINITY; li[e] = kBigId; }
   for (int r = tid; r < BQ; r += kThreads) { ts[r] = -INFINITY; ti[r] = kBigId; cnt[r] = 0; }
 
+  constexpr int kSLoads = (BN + kThreads - 1) / kThreads;  // chunk scales a thread loads
   typename Rows::Unit dst[kDLoads];
+  float sst[kChunkScale ? kSLoads : 1];
   uint4 qst[kQLoads];
   auto load_step = [&](int step) {
     const int d0 = (tile_begin + step / n_chunks) * BN;
@@ -502,6 +529,13 @@ __device__ __forceinline__ void mma_topk_pass1(
     for (int i = 0; i < kDLoads; ++i) {
       const int v = tid + i * kThreads, di = d0 + v / kMmaPacks;
       dst[i] = rows.load(di, di < n_docs, e0 + (v % kMmaPacks) * kPackCols);
+    }
+    if constexpr (kChunkScale) {
+#pragma unroll
+      for (int i = 0; i < kSLoads; ++i) {
+        const int r = tid + i * kThreads, di = d0 + r;
+        if (r < BN) sst[i] = rows.chunk_scale(di, di < n_docs, e0);
+      }
     }
 #pragma unroll
     for (int i = 0; i < kQLoads; ++i) {
@@ -631,10 +665,25 @@ __device__ __forceinline__ void mma_topk_pass1(
           *reinterpret_cast<uint4*>(qs + (v / kMmaPacks) * kMmaStride + (v % kMmaPacks) * 8) =
               qst[i];
       }
+      if constexpr (kChunkScale) {
+#pragma unroll
+        for (int i = 0; i < kSLoads; ++i) {
+          const int r = tid + i * kThreads;
+          if (r < BN) cscales[(step % NS) * BN + r] = sst[i];
+        }
+      }
       __syncthreads();
       if (step + 1 < n_steps) load_step(step + 1);  // in flight during the products
     }
 
+    float csc[kChunkScale ? WM : 1][2];  // the chunk scales of this thread's docs
+    if constexpr (kChunkScale) {
+      const float* sc = cscales + (step % NS) * BN;
+#pragma unroll
+      for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+        for (int g = 0; g < 2; ++g) csc[mi][g] = sc[wm0 + mi * 16 + g * 8 + (lane >> 2)];
+    }
 #pragma unroll
     for (int ks = 0; ks < kKSteps; ++ks) {
       unsigned a[WM][4], b[WN][Op::kBRegs];
@@ -678,7 +727,12 @@ __device__ __forceinline__ void mma_topk_pass1(
             Op::mma(part[mi][ni], a[mi], b[ni]);
             if (ks == kKSteps - 1)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) acc[mi][ni][e] += part[mi][ni][e];
+              for (int e = 0; e < 4; ++e) {
+                if constexpr (kChunkScale)  // part * scale + acc, rounded once
+                  acc[mi][ni][e] = fmaf(part[mi][ni][e], csc[mi][e >> 1], acc[mi][ni][e]);
+                else
+                  acc[mi][ni][e] += part[mi][ni][e];
+              }
           }
       }
     }

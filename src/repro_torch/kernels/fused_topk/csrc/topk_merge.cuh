@@ -1,8 +1,8 @@
 // What the fused top-k kernels share (fused_topk.cu: K1-K3;
-// fused_topk_quantized.cu: K4-K5): the CUDA-core streaming pass 1's tile
-// shape and both pass-1 launch plans (how N or R is split so that B = 1
-// fills the SMs; K1's bf16 pass 1 on tensor cores has its own plan, in
-// fused_topk.cu), the (score desc, id asc) order, the warp-wide sorted
+// fused_topk_quantized.cu: K4-K5): K1's CUDA-core streaming pass 1's tile
+// shape and both CUDA-core pass-1 launch plans (how N or R is split so that
+// B = 1 fills the SMs; the tensor-core pass 1 of K1 and K4 has its own plan,
+// in mma_topk.cuh), the (score desc, id asc) order, the warp-wide sorted
 // insert, the merge of two sorted lists, and pass 2 (fused_topk_merge),
 // which merges the splits' sorted partial lists of every query and writes the first
 // `depth` entries.  Each source is its own shared library, so the
@@ -24,7 +24,7 @@ constexpr int kBigId = 1 << 30;                 // id of an empty list slot
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr size_t kMaxSmem = 227 * 1024;         // opt-in dynamic shared memory per block
 
-// Streaming pass 1 (K1, K4): a block of kThreads owns BQ queries and a
+// Streaming pass 1 (K1 f32 and lsh): a block of kThreads owns BQ queries and a
 // contiguous range of kBN-doc tiles, reduced kBK 4-byte words at a time
 // (kBK and kSkew: score_operands.cuh).
 constexpr int kBN = 256;                  // docs per tile

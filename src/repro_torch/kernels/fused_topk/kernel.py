@@ -14,12 +14,10 @@ that launched on the card; each such call launches two CUDA kernels, pass 1
 for int8 ones, ``fused_topk_partial`` for f32 and lsh,
 ``fused_topk_gathered_partial``,
 ``fused_topk_quantized_bf16_partial`` for a bf16 query over packed rows,
-``fused_topk_quantized_tf32_partial`` for an f32 one over int8 rows,
-``fused_topk_quantized_partial`` for an f32 one over int4 rows, or
+``fused_topk_quantized_tf32_partial`` for an f32 one, or
 ``fused_topk_gathered_quantized_partial``) and the merge
-(``fused_topk_merge``).  K1 classic, K1 dot and K4 over int8 rows, and K4
-with a bf16 query over int4 rows, share one tensor-core pass 1
-(``csrc/mma_topk.cuh``).
+(``fused_topk_merge``).  K1 classic, K1 dot and K4 share one tensor-core
+pass 1 (``csrc/mma_topk.cuh``).
 """
 from __future__ import annotations
 
@@ -233,9 +231,9 @@ def _qlib() -> ctypes.CDLL:
 def quantized_plan(dtype: torch.dtype, bits: int, b: int, n_docs: int, depth: int,
                    sm_count: int) -> Tuple[int, int, int, int, int]:
     """K4's launch shape for a query of ``dtype`` over packed rows of
-    ``bits`` (``fused_topk_quantized_plan``; a bf16 query, and an f32 one
-    over int8 rows, take the tensor-core pass 1's plan): (queries per block,
-    running-list width K, N-splits, doc tiles per split, docs per tile)."""
+    ``bits`` (``fused_topk_quantized_plan``: the tensor-core pass 1's plan):
+    (queries per block, running-list width K, N-splits, doc tiles per split,
+    docs per tile)."""
     if dtype not in _QUERY_DTYPES:
         raise TypeError(f"q must be one of {list(_QUERY_DTYPES)}, got {dtype}")
     out = (ctypes.c_int * 5)()

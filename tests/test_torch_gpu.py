@@ -337,23 +337,25 @@ def test_cuda_quantized_bf16_topk_ties_order_and_wide_lists(kind, bits, group, b
     ("wide", 1, 5000, 37, 2200),        # too wide for 256-doc tiles with registers
     ("wide", 65, 5000, 37, 2200),
 ])
-def test_cuda_quantized_tf32_topk_ties_order_and_wide_lists(kind, b, n, t, depth):
-    """K4's split-TF32 pass 1 (an f32 query over int8 rows) where its running
-    top-k must be exact: integer scores make ids bit-equal to the plain
-    version's."""
+@pytest.mark.parametrize("bits,group", [(8, 0), (4, 32), (4, 64)])
+def test_cuda_quantized_tf32_topk_ties_order_and_wide_lists(kind, b, n, t, depth, bits, group):
+    """K4's split-TF32 pass 1 (an f32 query over int8 rows, or over int4 rows
+    at groups 32 and 64) where its running top-k must be exact: integer
+    scores make ids bit-equal to the plain version's."""
     dev = cuda_device()
     if kind == "wide":
         g = torch.Generator(device=dev).manual_seed(61)
-        pq = builder.quantize_postings(torch.randn((n, t), generator=g, device=dev), 8)
+        pq = builder.quantize_postings(torch.randn((n, t), generator=g, device=dev), bits,
+                                       group or 32)
         q = torch.randn((b, t), generator=g, device=dev) / t**0.5
         docs, scale = pq.q, pq.scale
     else:
-        q, docs, scale = _packed_operands(kind, 8, 0, b, n, t, dev, torch.float32)
+        q, docs, scale = _packed_operands(kind, bits, group, b, n, t, dev, torch.float32)
     before = fused_topk_quantized.launches
-    got = fused_topk_quantized(q, docs, scale, depth, 8, 0)
+    got = fused_topk_quantized(q, docs, scale, depth, bits, group)
     torch.cuda.synchronize()
     assert fused_topk_quantized.launches == before + 1
-    want = ref.quantized_topk_ref(q, docs, scale, min(depth + 1, n), 8, 0)
+    want = ref.quantized_topk_ref(q, docs, scale, min(depth + 1, n), bits, group)
     assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=kind != "wide")
 
 
@@ -362,26 +364,27 @@ def test_quantized_launch_plan_fills_the_card_at_both_batch_sizes():
     cuda_device()
     n = 2_999_808
     for bits in (8, 4):
-        # a bf16 query, and an f32 one over int8 rows: the tensor-core plan;
-        # an f32 query over int4 rows: the CUDA-core one
-        f32_wide = (64, 128) if bits == 8 else (32, 256)
+        # every query dtype and width: the tensor-core plan
         for dtype, b, want in ((torch.bfloat16, 256, (64, 128)), (torch.bfloat16, 1, (8, 256)),
-                               (torch.float32, 256, f32_wide), (torch.float32, 1, (8, 256))):
+                               (torch.float32, 256, (64, 128)), (torch.float32, 1, (8, 256))):
             bq, k, splits, per, tile = quantized_plan(dtype, bits, b, n, 100, sm_count=132)
             n_tiles = -(-n // tile)
             assert (bq, tile, k) == want + (128,)
             assert -(-b // bq) * splits >= 132
             assert (splits - 1) * per < n_tiles <= splits * per  # no empty split
         # wide lists: 8-query tiles, then one stage of 128 docs, up to depth 3,136
-        for dtype in (torch.bfloat16, torch.float32) if bits == 8 else (torch.bfloat16,):
+        for dtype in (torch.bfloat16, torch.float32):
             assert quantized_plan(dtype, bits, 65, 5000, 3072, 132)[0] == 8
             assert quantized_plan(dtype, bits, 1, 5000, 3136, 132)[1:] == (3136, 40, 1, 128)
             with pytest.raises(ValueError, match="shared memory"):
                 quantized_plan(dtype, bits, 1, 5000, 3137, 132)
-    # an f32 query over int8 rows: 256-doc tiles only while the register
-    # loader's two stages fit too (rows the 4-byte ring cannot take use it)
-    for depth, tile in ((2112, 256), (2144, 128), (2272, 128)):
-        bq, _, _, _, got = quantized_plan(torch.float32, 8, 65, 5000, depth, 132)
+    # an f32 query: 256-doc tiles only while the register loader's two
+    # stages fit (over int8 rows too, where the 4-byte ring is smaller: rows
+    # it cannot take use registers); over int4 rows, its only loader, with
+    # their chunk scales
+    for bits, depth, tile in ((8, 2112, 256), (8, 2144, 128), (8, 2272, 128), (4, 2080, 256),
+                              (4, 2112, 128), (4, 2272, 128)):
+        bq, _, _, _, got = quantized_plan(torch.float32, bits, 65, 5000, depth, 132)
         assert (bq, got) == (8, tile)
 
 

@@ -14,12 +14,14 @@ rtol = atol = 1e-5 and ids equal away from near-ties (``torch_parity``).
 The searches run the port on the JAX index's own arrays
 (``index_from_numpy``), so both prune and score the same data.
 
-K4 with an f32 query over int8 rows runs on the card as a split-TF32
-product (q = hi + lo, two tf32 parts); here its arithmetic is emulated in
-torch (``torch_parity.split_tf32_topk``) and held to JAX's kernel under the
-same near-tie rule (integer-valued cases bit-exact), and the emulation
-without the low part (one tf32 pass) is shown to break that rule on a
-query of wide dynamic range.
+K4 with an f32 query runs on the card as a split-TF32 product (q = hi +
+lo, two tf32 parts), over int4 rows with each 32-column chunk's sum times
+its group's scale; here its arithmetic is emulated in torch
+(``torch_parity.split_tf32_topk``) and held to JAX's kernel under the same
+near-tie rule (integer-valued cases bit-exact, over int4 also with distinct
+power-of-two group scales), and the emulation without the low part (one
+tf32 pass) on a query of wide dynamic range, or with every int4 chunk
+times its row's first group scale, is shown to break that rule.
 """
 import json
 
@@ -168,7 +170,9 @@ def test_build_quantized_arrays_bit_equal(method, pp):
 def _packed_operands(kind, bits, group, n, t, seed):
     """(packed store, scales) as numpy: "float" quantizes a random matrix;
     "int" and "ties" build integer-valued stores with unit scales (values
-    in [-50, 50] / [-8, 7], or 0 / 1)."""
+    in [-50, 50] / [-8, 7], or 0 / 1); "pow2" (int4) the nibbles of "int"
+    with group scales 2^((g + row) % 7 - 3), so that neighbouring groups
+    differ and sums with an integer query stay exact in f32."""
     rng = np.random.default_rng(seed)
     if kind == "float":
         pq = jbuilder.quantize_postings(jnp.asarray(_matrix(n, t, seed)), bits=bits,
@@ -178,9 +182,12 @@ def _packed_operands(kind, bits, group, n, t, seed):
         lo, hi = (-50, 51) if kind == "int" else (0, 2)
         return rng.integers(lo, hi, (n, t)).astype(np.int8), np.ones((n, 1), np.float32)
     tg = common.round_up(t, group)
-    nib = rng.integers(0, 16, (n, tg)) if kind == "int" else rng.integers(8, 10, (n, tg))
+    nib = rng.integers(0, 16, (n, tg)) if kind in ("int", "pow2") else rng.integers(8, 10, (n, tg))
     nib[:, t:] = 8
     packed = (nib[:, 0::2] | (nib[:, 1::2] << 4)).astype(np.uint8)
+    if kind == "pow2":
+        g = np.arange(tg // group)[None, :] + np.arange(n)[:, None]
+        return packed, np.exp2(g % 7 - 3).astype(np.float32)
     return packed, np.ones((n, tg // group), np.float32)
 
 
@@ -251,48 +258,71 @@ def test_fused_topk_quantized_matches_jax(kind, bits, group, dtype, t, filt_kind
 
 
 SPLIT_TF32_CASES = [
-    # query kind, store kind, T, filt, n_docs
+    # query kind, store kind (int8; int4 as "<kind>-int4-g<group>"), T, filt, n_docs
     ("float", "float", 300, None, None),      # the brute-force rows: 300 bytes
     ("float", "float", 37, "per-query", 250),
     ("wide", "float", 600, "shared", None),
     ("int", "int", 300, "per-query", 270),    # integer scores: bit-exact
+    ("float", "float-int4-g32", 300, None, None),    # the brute-force int4 rows: 160 bytes
+    ("float", "float-int4-g64", 37, "per-query", 250),
+    ("wide", "float-int4-g32", 600, "shared", None),
+    ("int", "int-int4-g64", 300, "per-query", 270),  # integer scores, unit scales: bit-exact
+    ("int", "pow2-int4-g32", 600, None, None),       # over power-of-two group scales too
+    ("int", "pow2-int4-g64", 300, "shared", 250),
 ]
 
 
 def _split_tf32_case(qkind, dkind, t, filt_kind, n_docs, depth=40):
-    """(split-TF32 emulation, JAX's fused_topk_quantized one rank deeper,
-    exact) for an f32 query over an int8 store."""
+    """(split-TF32 emulation's arguments, JAX's fused_topk_quantized one rank
+    deeper, exact) for an f32 query over an int8 store, or over an int4 one
+    where ``dkind`` is "<kind>-int4-g<group>"."""
     n, b = 300, 5
     seed = 3 * t + len(qkind) + len(dkind)
-    docs, scale = _packed_operands(dkind, 8, 0, n, t, seed)
+    kind, _, g = dkind.partition("-int4-g")
+    bits, group = (4, int(g)) if g else (8, 0)
+    docs, scale = _packed_operands(kind, bits, group, n, t, seed)
     jq, q = _query(qkind, "f32", b, t, seed)
     filt = _filt(filt_kind, b, n, seed)
-    exact = dkind == "int" and qkind == "int"
+    exact = kind in ("int", "pow2") and qkind == "int"
     want = jkernel.fused_topk_quantized(
-        jq, jnp.asarray(docs), jnp.asarray(scale), depth if exact else depth + 1, bits=8,
-        group=0, interpret=True, bn=128, bk=128,
+        jq, jnp.asarray(docs), jnp.asarray(scale), depth if exact else depth + 1, bits=bits,
+        group=group, interpret=True, bn=128, bk=128,
         filt=None if filt is None else jnp.asarray(filt), n_docs=n_docs)
     args = (q, torch.from_numpy(docs), torch.from_numpy(scale), depth,
             None if filt is None else torch.from_numpy(filt), n_docs)
-    return args, [np.asarray(a) for a in want], exact
+    return args, [np.asarray(a) for a in want], exact, group
 
 
 @pytest.mark.parametrize("qkind,dkind,t,filt_kind,n_docs", SPLIT_TF32_CASES)
 def test_split_tf32_emulation_matches_jax(qkind, dkind, t, filt_kind, n_docs):
     """K4's split-TF32 arithmetic (q split into hi and lo cut to tf32, int8
-    widened exactly, f32 sums, the scale once) against JAX's K4 with an f32
-    query over int8 postings."""
-    args, want, exact = _split_tf32_case(qkind, dkind, t, filt_kind, n_docs)
-    assert_topk_match(split_tf32_topk(*args), want, exact=exact)
+    or int4 widened exactly, f32 sums; the int8 scale once, an int4 group's
+    scale on each 32-column chunk's sum) against JAX's K4 with an f32 query
+    over int8 or int4 postings."""
+    args, want, exact, group = _split_tf32_case(qkind, dkind, t, filt_kind, n_docs)
+    assert_topk_match(split_tf32_topk(*args, group=group), want, exact=exact)
 
 
 def test_hi_only_emulation_breaks_the_near_tie_rule():
     """One tf32 pass of a query of wide dynamic range (the hi part alone)
     is far outside the near-tie rule that the split passes."""
-    args, want, _ = _split_tf32_case("wide", "float", 300, None, None)
+    args, want, _, _ = _split_tf32_case("wide", "float", 300, None, None)
     assert_topk_match(split_tf32_topk(*args), want, exact=False)
     with pytest.raises(AssertionError):
         assert_topk_match(split_tf32_topk(*args, lo=False), want, exact=False)
+
+
+@pytest.mark.parametrize("qkind,dkind,t", [("int", "pow2-int4-g32", 300),
+                                            ("float", "float-int4-g64", 600)])
+def test_first_group_scale_emulation_breaks_the_near_tie_rule(qkind, dkind, t):
+    """Every int4 chunk's sum times its row's first group scale (the planted
+    fault of chip_smoke.py's check_quantized) is far outside the near-tie
+    rule that the emulation with each chunk's own group scale passes."""
+    args, want, exact, group = _split_tf32_case(qkind, dkind, t, None, None)
+    assert_topk_match(split_tf32_topk(*args, group=group), want, exact=exact)
+    with pytest.raises(AssertionError):
+        assert_topk_match(split_tf32_topk(*args, group=group, first_group=True), want,
+                          exact=False)
 
 
 @pytest.mark.parametrize("t,offset,want", [

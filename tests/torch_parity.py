@@ -1,6 +1,7 @@
 """Helpers shared by the ``test_torch_*`` files: moving arrays from JAX /
 numpy to torch, holding top-k results against each other, and emulating
-K4's split-TF32 arithmetic (an f32 query over int8 rows) on the CPU."""
+K4's split-TF32 arithmetic (an f32 query over int8 or int4 rows) on the
+CPU."""
 from typing import Optional, Tuple
 
 import numpy as np
@@ -77,20 +78,41 @@ def cut_tf32(x: torch.Tensor) -> torch.Tensor:
 
 def split_tf32_topk(q: torch.Tensor, docs: torch.Tensor, scale: torch.Tensor, depth: int,
                     filt: Optional[torch.Tensor] = None, n_docs: Optional[int] = None,
-                    lo: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4's split-TF32 arithmetic for an f32 query over int8 rows (N, T) with
-    per-row scales (N, 1), emulated in torch: q split into hi = cut_tf32(q)
-    and lo = cut_tf32(q - hi), each int8 value widened exactly, each part's
-    products summed in f32, and the sum times the row's scale once; then
-    the top ``depth`` in descending order, ties to the lowest id, masked or
-    missing slots (-inf, -1).  ``lo=False`` keeps the hi part alone (one
-    tf32 pass)."""
+                    lo: bool = True, group: int = 0,
+                    first_group: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's split-TF32 arithmetic for an f32 query, emulated in torch: q split
+    into hi = cut_tf32(q) and lo = cut_tf32(q - hi).  Over int8 rows (N, T)
+    with per-row scales (N, 1) (``group`` 0): each value widened exactly,
+    each part's products summed in f32, and the sum times the row's scale
+    once.  Over packed int4 rows (N, Tg / 2) with group scales (N, Tg /
+    group): each nibble widened exactly to nibble - 8, each part's products
+    summed in f32 per 32-column chunk, and each chunk's sum times the row's
+    scale for its group plus the row's sum, rounded once to f32 as the
+    kernel's fmaf rounds it (the float64 sum is rounded to f32; it could
+    differ from fmaf only by a double rounding in a halfway case)
+    (``first_group``: the first group's scale for every chunk, a planted
+    fault).  Then the top ``depth``
+    in descending order, ties to the lowest id, masked or missing slots (-inf,
+    -1).  ``lo=False`` keeps the hi part alone (one tf32 pass)."""
     hi = cut_tf32(q)
-    d = docs.float()
-    s = hi @ d.T
-    if lo:
-        s = s + cut_tf32(q - hi) @ d.T
-    s = s * scale.T
+    parts = [hi, cut_tf32(q - hi)] if lo else [hi]
+    if group == 0:
+        d = docs.float()
+        s = parts[0] @ d.T
+        for p in parts[1:]:
+            s = s + p @ d.T
+        s = s * scale.T
+    else:
+        t = q.shape[1]
+        nib = torch.stack([docs & 15, docs >> 4], -1).reshape(docs.shape[0], -1)
+        d = nib[:, :t].float() - 8
+        s = torch.zeros((q.shape[0], docs.shape[0]))
+        for c0 in range(0, t, 32):
+            part = parts[0][:, c0:c0 + 32] @ d[:, c0:c0 + 32].T
+            for p in parts[1:]:
+                part = part + p[:, c0:c0 + 32] @ d[:, c0:c0 + 32].T
+            sc = scale[:, 0 if first_group else c0 // group].double()
+            s = (part.double() * sc + s.double()).float()
     keep = torch.ones_like(s, dtype=torch.bool)
     if n_docs is not None:
         keep[:, n_docs:] = False
