@@ -2,8 +2,8 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --pair-parent DIR   # K1 and K4 against the tree in DIR, then stop
-    python3 chip_smoke.py --ablate            # the tensor-core pass 1 with parts cut out
+    python3 chip_smoke.py --pair-parent DIR   # K1-K5 against the tree in DIR, then stop
+    python3 chip_smoke.py --ablate [DIR]      # pass 1 with parts cut out (K3 also DIR's)
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc
    (sm_90a) and prints the build time and the compiler's register report,
@@ -21,8 +21,12 @@
    range, -128 / 127 only, and a ``[u; -u]`` dot query, at T = 600 (8-byte
    rows), 256 (16-byte rows) and 37.
 3. Holds the gathered fused top-k kernel (K3) against its plain version the
-   same way, with row ids in random order and in 256-row blocks, padding
-   ids, ``filt``, and B = 1 over ~300k rows.
+   same way, with row ids in random order, in 256-row blocks and in bound
+   order (best block first), padding ids and whole 256-row splits of them,
+   ``filt``, B = 1 over ~300k rows (bf16, and 0/1 operands whose every rank
+   ties), and depth 3,000; and a copy of K3 with a strict threshold test
+   (K3_STRICT), which must fail the cases whose top score fills every
+   split's list ("ties-top").
 4. Holds the quantized kernels (K4 ``fused_topk_quantized``, K5
    ``fused_topk_gathered_quantized``) against their plain versions: int8
    and int4 (groups 32 and 64), bf16 and f32 queries, T = 600, 100 and 37,
@@ -50,9 +54,11 @@
    searches it at B = 256 on K1's lsh mode (K2), with recall.
 8. Times build, searches (classic and dot at B = 256 and 1; blockmax at 8
    and 1), and each kernel beside its bound, its plain version and a
-   library yardstick (K1 dot at B = 256, 8 and 1), with CUDA events
-   (median of 10 runs after a warm-up); traces five classic searches at
-   B = 256 with torch.profiler (device time per CUDA kernel, idle share).
+   library yardstick (K1 dot at B = 256, 8 and 1; K3 classic at B = 1, 8
+   and 256 and dot at B = 1 and 8, each with pass 1 and pass 2 apart), with
+   CUDA events (median of 10 runs after a warm-up); traces five classic
+   searches at B = 256, and five blockmax searches at B = 1, 8 and 256, with
+   torch.profiler (device time per CUDA kernel, idle share).
 9. Holds the dense score kernels (K6 ``cosine_scores``, K7 ``score_matmul``,
    K8 ``lsh_match_scores``) and the flash attention kernel (K9) against
    their plain versions: unaligned B / N / T, B = 1 and N = 1, int8 over its
@@ -92,7 +98,11 @@ other: K1 classic at B = 256 and B = 1, K1 f32 at B = 256, K1 dot at
 B = 256, 8 and 1 (bit for bit), K4 with a bf16 query over int8 and int4
 postings at B = 256, 8 and 1, and K4 with an f32 query over int8 and over
 int4 postings at B = 256, 8 and 1 (and an integer case of each bit for
-bit).  With ``--ablate`` it times the tensor-core pass 1 (K1 classic, K1
+bit), K3 (blockmax stage 2, classic and dot; each tree's pass 1 and pass
+2 apart), K1 lsh and K5.  With ``--ablate [DIR]`` it times K3 at the
+blockmax path's shape with its inserts and its products cut out
+(K3_ABLATIONS; also the K3 of the tree in DIR, e.g. the parent), each
+kernel's pass 1 and pass 2 apart, and the tensor-core pass 1 (K1 classic, K1
 dot, K4 int8 and int4 with a bf16 query, K4 int8 and int4 with an f32 one)
 against copies of it with the running top-k, the widening and the
 products cut out (ABLATIONS; for the f32 query also the fold, the query's
@@ -347,6 +357,10 @@ def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
     elif kind == "ties":  # 0/1 operands: scores tie constantly
         q = torch.randint(0, 2, (b, t), generator=gen, device=dev, dtype=torch.int8)
         d = torch.randint(0, 2, (n, t), generator=gen, device=dev, dtype=torch.int8)
+    elif kind == "ties-top":  # a query of two ones over 0/1 rows: a quarter of the rows score 2
+        q = torch.zeros((b, t), device=dev, dtype=torch.int8)
+        q[:, :2] = 1
+        d = torch.randint(0, 2, (n, t), generator=gen, device=dev, dtype=torch.int8)
     elif kind == "ties-bf16":  # 0/1 bf16 operands: small integer scores, tied constantly
         q = torch.randint(0, 2, (b, t), generator=gen, device=dev).to(torch.bfloat16)
         d = torch.randint(0, 2, (n, t), generator=gen, device=dev).to(torch.bfloat16)
@@ -487,15 +501,48 @@ def gathered_cases():
         ("ties", 2, 2048, 1024, 16, 1024, "blocks", True, None),      # ties + filt, depth = R
         ("int8", 4, 5000, 1280, 600, 100, "blocks", False, None),     # 600-byte rows: 8-byte loads
         ("bf16", 1, 400_000, 299_776, 600, 100, "blocks", False, None),  # B = 1: many splits
+        # B = 1 at the main path's R: 0/1 operands (scores 0..16, every rank
+        # tied), ids in random block order and best block first; a query
+        # whose top score fills every split's list, blocks in descending id
+        # order, so that each split's lowest ids come last (B = 1 and 8);
+        # whole 256-row splits of padding; f32 and bf16 in bound order at
+        # B = 8.
+        ("ties", 1, 400_000, 299_776, 16, 100, "blocks", False, None),
+        ("ties", 1, 400_000, 299_776, 16, 100, "bound", False, None),
+        ("ties-top", 1, 400_000, 299_776, 16, 100, "descending", False, None),
+        ("ties-top", 8, 400_000, 299_776, 16, 100, "descending", False, None),
+        ("int8", 2, 50_000, 25_600, 600, 100, "padded-blocks", False, None),
+        ("ties", 3, 50_000, 25_600, 16, 3000, "padded-blocks", False, None),
+        ("bf16", 8, 400_000, 299_776, 600, 100, "bound", False, None),
+        ("f32", 8, 100_000, 51_200, 300, 100, "bound", False, None),
     ]
     return cases
 
 
-def _row_ids(how: str, b: int, n: int, r: int, gen, dev):
+def _row_ids(how: str, b: int, n: int, r: int, gen, dev, scores=None):
     """(B, R) int32 row ids: uniform over [0, 1.125 N) with every 17th id
-    BIG_ID ("random"), whole 256-row blocks in random order ("blocks"), or
-    distinct ids of [0, N + 30) in random order ("permutation")."""
+    BIG_ID ("random"), whole 256-row blocks in random order ("blocks"), the
+    same with every third block all BIG_ID ("padded-blocks": whole splits
+    of padding where a split is 256 rows), the blocks with the best scores
+    (``scores`` (B, N), the exact bound) best first, as blockmax stage 1
+    orders them ("bound"), random blocks in descending id order
+    ("descending"), or distinct ids of [0, N + 30) in random order
+    ("permutation")."""
     from repro_torch.kernels.common import BIG_ID
+
+    if how == "bound":
+        best = scores[:, :n // BLOCK * BLOCK].reshape(b, -1, BLOCK).amax(-1)
+        blocks = torch.sort(best, dim=1, descending=True, stable=True)[1][:, :r // BLOCK]
+        offsets = torch.arange(BLOCK, device=dev)
+        return (blocks[:, :, None] * BLOCK + offsets).reshape(b, -1).to(torch.int32)
+    if how == "descending":
+        ids = _row_ids("blocks", b, n, r, gen, dev).view(b, -1, BLOCK)
+        order = torch.sort(ids[:, :, 0], dim=1, descending=True)[1]
+        return torch.gather(ids, 1, order[:, :, None].expand_as(ids)).reshape(b, -1)
+    if how == "padded-blocks":
+        ids = _row_ids("blocks", b, n, r, gen, dev).view(b, -1, BLOCK)
+        ids[:, ::3] = BIG_ID
+        return ids.reshape(b, -1)
 
     if how == "random":
         ids = torch.randint(0, n + n // 8, (b, r), generator=gen, device=dev, dtype=torch.int32)
@@ -510,17 +557,42 @@ def _row_ids(how: str, b: int, n: int, r: int, gen, dev):
     return (blocks[:, :, None] * BLOCK + offsets).reshape(b, -1).to(torch.int32)
 
 
-def check_gathered(dev) -> dict:
-    """The gathered fused top-k kernel (K3) against its plain version."""
+# K3's planted fault: a strict > at the block list's threshold, which drops
+# a row that ties the depth-th score with a lower id.  Every "ties-top"
+# case (a quarter of the rows tie at the top score, so every split's list
+# fills with them before its lowest ids, which come last) must fail with it.
+K3_STRICT = ("const bool pass = my_ok && precedes(my_s, my_id, *ts, *ti);",
+             "const bool pass = my_ok && my_s > *ts;")
+
+
+def build_planted_k3():
+    """(name, topk): K3 built from a copy of this tree's sources with
+    K3_STRICT (``_tree_kernels``), called as ``topk(q, store, row_ids,
+    depth, n_docs)``."""
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    return ("strict-threshold", _tree_kernels(kdir, os.path.join(ROOT, "build", "planted-k3"),
+                                              names=("fused_topk",),
+                                              edits=[K3_STRICT])["fused_topk_gathered"])
+
+
+def check_gathered(dev, planted=None) -> dict:
+    """The gathered fused top-k kernel (K3) against its plain version; on
+    each "ties-top" case also the copy with a planted fault
+    (``planted``, from build_planted_k3, built here if not given), which
+    must fail the same comparison."""
+    from repro_torch.kernels.common import BIG_ID
     from repro_torch.kernels.fused_topk import ref
     from repro_torch.kernels.fused_topk.kernel import fused_topk_gathered
 
     gen = torch.Generator(device=dev).manual_seed(1)
     cases = gathered_cases()
+    copy, bad_topk = planted or build_planted_k3()
     worst = {}
     for kind, b, n, r, t, depth, how, with_filt, n_docs in cases:
         q, store = _inputs(kind, b, n, t, gen, dev)
-        ids = _row_ids(how, b, n, r, gen, dev)
+        scores = ref.scores_ref(q, store) if how == "bound" else None
+        ids = _row_ids(how, b, n, r, gen, dev, scores)
+        del scores
         filt = torch.rand((b, r), generator=gen, device=dev) < 0.5 if with_filt else None
         nd = n if n_docs is None else n_docs
         mode = "lsh" if kind == "lsh" else "gemm"
@@ -531,9 +603,18 @@ def check_gathered(dev) -> dict:
         del rows
         name = (f"{kind} B={b} N={n} R={r} T={t} depth={depth} ids={how} filt={with_filt} "
                 f"n_docs={n_docs}")
-        err = compare(name, got, want, exact=kind in ("int8", "lsh", "ties"))
+        err = compare(name, got, want, exact=kind in ("int8", "lsh", "ties", "ties-top"))
         worst[kind] = max(worst.get(kind, 0.0), err)
         print(f"  ok  {name}  max_abs_err={err:.3g}")
+        if kind == "ties-top":
+            bad = bad_topk(q, store, torch.where(filt, ids, BIG_ID) if with_filt else ids,
+                           depth, nd)
+            try:
+                compare(f"{name}, {copy} copy", bad, want, exact=True)
+            except AssertionError as fault:
+                print(f"  ok  the {copy} copy fails: {fault}")
+            else:
+                raise AssertionError(f"{name}: the {copy} copy passed the comparison")
     print(f"fused_topk_gathered vs plain on the card: {len(cases)} cases, worst {worst}")
     return worst
 
@@ -1013,20 +1094,22 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     card = gpu_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if argv[:1] == ["--pair-parent"]:  # K1 against an earlier tree's, then stop
+    if argv[:1] == ["--pair-parent"]:  # K1-K5 against an earlier tree's, then stop
         pair_parent(dev, card, argv[1])
         return 0
-    if argv[:1] == ["--ablate"]:  # the tensor-core pass 1 with parts cut out, then stop
+    if argv[:1] == ["--ablate"]:  # pass 1 with parts cut out, then stop
         build_kernels(["fused_topk", "fused_topk_quantized"])
+        ablate_k3(dev, card, [("this tree", ROOT)] + [("parent", d) for d in argv[1:2]])
         ablate(dev, card)
         return 0
     with ThreadPoolExecutor() as pool:  # the planted copies' nvcc beside the others
         planted = pool.submit(build_planted)
+        planted_k3 = pool.submit(build_planted_k3)
         build_kernels()
-        planted = planted.result()
+        planted, planted_k3 = planted.result(), planted_k3.result()
     check_tensor_cores()
     check_kernels(dev)
-    check_gathered(dev)
+    check_gathered(dev, planted_k3)
     check_quantized(dev, planted)
     check_dense(dev)
     check_attention(dev)
@@ -1074,13 +1157,18 @@ def _c_entry(lib, source: str, name: str):
 
 def _tree_kernels(kdir: str, out_dir: str, names=("fused_topk", "fused_topk_quantized"),
                   edits=()) -> dict:
-    """K1 (``fused_topk``, gemm mode) and K4 (``fused_topk_quantized``),
-    no filt, built with nvcc (in parallel) from the kernels directory
-    ``kdir`` of some tree into ``out_dir`` (with the text ``edits`` applied
-    to a copy of its ``fused_topk/csrc``, in every file that holds it), and
+    """K1 (``fused_topk``: gemm mode, or lsh for uint32 operands), K3
+    (``fused_topk_gathered``, in the same library), K4
+    (``fused_topk_quantized``) and K5 (``fused_topk_gathered_quantized``,
+    in K4's library), no filt, built with nvcc (in parallel) from the
+    kernels directory ``kdir`` of some tree into ``out_dir`` (with the text
+    ``edits`` applied to a copy of its ``fused_topk/csrc``, in every file
+    that holds it; an edit that is a tuple of (old, new) pairs applies each
+    pair whose old text a file holds, and at least one must be there), and
     called through their C entry points with that tree's launch plan and
     signatures (``_c_entry``).  Returns {name: topk}: K1's ``topk(q, docs,
-    depth)``, K4's ``topk(q, pq, depth)``."""
+    depth)``, K3's ``topk(q, store, row_ids, depth, n_docs)``, K4's
+    ``topk(q, pq, depth)``, K5's ``topk(q, pq, row_ids, depth, n_docs)``."""
     import ctypes
 
     from repro_torch.kernels import common
@@ -1091,15 +1179,19 @@ def _tree_kernels(kdir: str, out_dir: str, names=("fused_topk", "fused_topk_quan
     if edits:
         copy = os.path.join(out_dir, "csrc")
         shutil.copytree(csrc, copy, dirs_exist_ok=True)
-        for old, new in edits:
-            hits = [os.path.join(copy, f) for f in sorted(os.listdir(copy))
-                    if old in open(os.path.join(copy, f)).read()]
+        for edit in edits:
+            pairs = edit if isinstance(edit[0], tuple) else (edit,)
+            hits = 0
+            for old, new in pairs:
+                for f in sorted(os.listdir(copy)):
+                    path = os.path.join(copy, f)
+                    text = open(path).read()
+                    if old in text:
+                        hits += 1
+                        with open(path, "w") as out:
+                            out.write(text.replace(old, new))
             if not hits:
-                raise ValueError(f"{csrc} has no {old!r}")
-            for path in hits:
-                text = open(path).read().replace(old, new)
-                with open(path, "w") as f:
-                    f.write(text)
+                raise ValueError(f"{csrc} has none of {[old for old, _ in pairs]!r}")
         csrc = copy
     procs = {name: subprocess.Popen(
         [common._nvcc(), *common.NVCC_FLAGS, "-I", os.path.join(kdir, "csrc"),
@@ -1110,51 +1202,68 @@ def _tree_kernels(kdir: str, out_dir: str, names=("fused_topk", "fused_topk_quan
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} of {kdir}:\n{log}")
 
-    def entry_points(name):
+    def entry_points(name, entry):
         lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
         text = open(os.path.join(csrc, f"{name}.cu")).read()
-        return _c_entry(lib, text, f"{name}_plan"), _c_entry(lib, text, f"{name}_launch")
+        return _c_entry(lib, text, f"{entry}_plan"), _c_entry(lib, text, f"{entry}_launch")
 
-    def caller(name):
-        plan_fn, launch_fn = entry_points(name)
+    def caller(name, entry, gathered):
+        plan_fn, launch_fn = entry_points(name, entry)
 
-        def run(q, docs, depth, **args):
+        def run(q, docs, depth, row_ids=None, **args):
             b, t = q.shape
-            plan = (ctypes.c_int * 5)()
-            args.update(B=b, n_docs=docs.shape[0], depth=depth, T=t, plan=plan, filt=None,
-                        filt_stride=0, q=q.data_ptr(), docs=docs.data_ptr(),
+            plan = (ctypes.c_int * 8)()
+            args.update(B=b, depth=depth, T=t, plan=plan, filt=None, filt_stride=0,
+                        q=q.data_ptr(), docs=docs.data_ptr(), store=docs.data_ptr(),
                         sm_count=torch.cuda.get_device_properties(q.device).multi_processor_count,
                         stream=torch.cuda.current_stream().cuda_stream)
+            args.setdefault("n_docs", docs.shape[0])
+            if gathered:
+                args.update(R=row_ids.shape[1], row_ids=row_ids.data_ptr())
             if plan_fn(**args) != 0:
-                raise ValueError(f"{name} of {kdir}: the plan refused the call")
-            bq, k, splits, per = plan[:4]
+                raise ValueError(f"{entry} of {kdir}: the plan refused the call")
+            if gathered:  # (K, row splits, rows per split)
+                k, splits, per = plan[:3]
+                args.update(rows_per_split=per)
+            else:  # (queries per block, K, N-splits, doc tiles per split, ...)
+                bq, k, splits, per = plan[:4]
+                args.update(bq=bq, tiles_per_split=per)
             part_s = torch.empty((splits, b, k), dtype=torch.float32, device=q.device)
             part_i = torch.empty((splits, b, k), dtype=torch.int32, device=q.device)
             out_s = torch.empty((b, depth), dtype=torch.float32, device=q.device)
             out_i = torch.empty((b, depth), dtype=torch.int32, device=q.device)
-            err = launch_fn(**args, bq=bq, K=k, splits=splits, tiles_per_split=per,
-                            part_s=part_s.data_ptr(), part_i=part_i.data_ptr(),
-                            out_s=out_s.data_ptr(), out_i=out_i.data_ptr())
+            err = launch_fn(**args, K=k, splits=splits, part_s=part_s.data_ptr(),
+                            part_i=part_i.data_ptr(), out_s=out_s.data_ptr(),
+                            out_i=out_i.data_ptr())
             if err != 0:
-                raise RuntimeError(f"{name}_launch of {kdir} failed: cudaError {err}")
+                raise RuntimeError(f"{entry}_launch of {kdir} failed: cudaError {err}")
             return out_s, out_i
 
         return run
 
     out = {}
-    codes = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint32: 3}
     if "fused_topk" in names:
-        k1 = caller("fused_topk")
+        k1 = caller("fused_topk", "fused_topk", False)
+        k3 = caller("fused_topk", "fused_topk_gathered", True)
         # A tree that reads only the 16-byte bits of `aligned` (bits 0 and 1)
         # sees 8-byte rows as unaligned, as it did before the 8-byte bits.
         out["fused_topk"] = lambda q, docs, depth: k1(
             q, docs, depth, mode=codes[q.dtype], aligned=alignment_bits(q, docs))
+        out["fused_topk_gathered"] = lambda q, store, row_ids, depth, n_docs: k3(
+            q, store, depth, row_ids=row_ids, n_docs=n_docs, mode=codes[q.dtype],
+            align=common.row_alignment(store))
     if "fused_topk_quantized" in names:
-        k4 = caller("fused_topk_quantized")
+        k4 = caller("fused_topk_quantized", "fused_topk_quantized", False)
+        k5 = caller("fused_topk_quantized", "fused_topk_gathered_quantized", True)
         out["fused_topk_quantized"] = lambda q, pq, depth: k4(
             q, pq.q, depth, qdtype=codes[q.dtype], bits=pq.bits, scale=pq.scale.data_ptr(),
             row_bytes=pq.q.shape[1], group=pq.group, n_groups=pq.scale.shape[1],
             d_align=common.row_alignment(pq.q), q_align=common.row_alignment(q))
+        out["fused_topk_gathered_quantized"] = lambda q, pq, row_ids, depth, n_docs: k5(
+            q, pq.q, depth, row_ids=row_ids, n_docs=n_docs, qdtype=codes[q.dtype], bits=pq.bits,
+            scale=pq.scale.data_ptr(), row_bytes=pq.q.shape[1], group=pq.group,
+            n_groups=pq.scale.shape[1], align=common.row_alignment(pq.q))
     return out
 
 
@@ -1317,25 +1426,102 @@ def ablate(dev, card: str) -> None:
     print(f"ablations on {card}")
 
 
+# Copies of K3 (fused_topk_gathered_partial, fused_topk.cu), for timing only
+# (their results are wrong): the scores computed and kept live but never
+# inserted into a list, and the loads alone (no products, no insert).  Each
+# edit names its text in the kernel before the block-list design and
+# after it, so that the same copies can be made of either tree.
+K3_NO_INSERT = (
+    ("    unsigned mask = __ballot_sync(kFull, my_ok && precedes(my_s, my_id, rs[K - 1], "
+     "ri[K - 1]));\n",
+     "    unsigned mask = __ballot_sync(kFull, my_ok && my_s == 1234.5f && precedes(my_s, my_id, "
+     "rs[K - 1], ri[K - 1]));\n"),
+    ("const bool pass = my_ok && precedes(my_s, my_id, *ts, *ti);",
+     "const bool pass = my_ok && my_s == 1234.5f && precedes(my_s, my_id, *ts, *ti);"))
+K3_NO_PRODUCTS = (
+    ("for (int u = 0; u < kGatherRows; ++u) acc[u] = dot_pack<M>(acc[u], qv, dv[u]);",
+     "for (int u = 0; u < kGatherRows; ++u) acc[u] += static_cast<Acc>(dv[u].x ^ dv[u].w ^ qv.x);"),
+    ("for (int u = 0; u < kK3Rows; ++u) acc[u] = dot_pack<M>(acc[u], qv, dv[u][j]);",
+     "for (int u = 0; u < kK3Rows; ++u) "
+     "acc[u] += static_cast<Acc>(dv[u][j].x ^ dv[u][j].w ^ qv.x);"))
+K3_ABLATIONS = {
+    "full": [],
+    "scores kept live, no insert": [K3_NO_INSERT],
+    "loads only": [K3_NO_INSERT, K3_NO_PRODUCTS],
+}
+
+
+def ablate_k3(dev, card: str, trees=(("this tree", ROOT),)) -> None:
+    """K3 at the blockmax main path's shape (bf16 store 2,999,808 x 600, 1171
+    kept 256-row blocks a query in random order, depth 100), built from
+    each tree's sources as it is and with parts cut out (K3_ABLATIONS),
+    timed in turns (full, each copy, full) at B = 1 and 8; the full
+    kernel's pass 1 and pass 2 apart (``kernel_split``) at B = 1, 8 and
+    256; and, given two trees (label, root), e.g. this tree and its parent,
+    their full kernels in turns (second, first, first, second) at each B."""
+    n, t, keep, depth = 2_999_808, 600, 1171, 100
+    gen = torch.Generator(device=dev).manual_seed(9)
+    store = torch.randn((n, t), generator=gen, device=dev).to(torch.bfloat16)
+    q = (torch.randn((256, t), generator=gen, device=dev) / t**0.5).to(torch.bfloat16)
+    ids = _row_ids("blocks", 256, n, keep * BLOCK, gen, dev)
+    with ThreadPoolExecutor() as pool:  # every copy's nvcc at once
+        built = {(label, name): pool.submit(
+            _tree_kernels, os.path.join(os.path.abspath(root), "src", "repro_torch", "kernels"),
+            os.path.join(ROOT, "build", "ablate-k3", f"{label}-{j}".replace(" ", "-")),
+            names=("fused_topk",), edits=K3_ABLATIONS[name])
+            for label, root in trees for j, name in enumerate(K3_ABLATIONS)}
+        cut = {}
+        for (label, name), fut in built.items():
+            cut.setdefault(label, {})[name] = fut.result()["fused_topk_gathered"]
+    for bb in (1, 8, 256):
+        args = (q[:bb], store, ids[:bb], depth, n)
+        runs = {"runs": 5, "warmup": 1} if bb > 8 else {}
+        if len(trees) > 1:
+            (first, f_fn), (second, s_fn) = ((label, cut[label]["full"]) for label, _ in trees[:2])
+            times = [cuda_ms(lambda i=i: (s_fn if i in (0, 3) else f_fn)(*args), **runs)
+                     for i in range(4)]
+            print(f"K3 in turns, random blocks, B={bb} on {card}: {second} {times[0]:.3f} ms, "
+                  f"{first} {times[1]:.3f} ms, {first} {times[2]:.3f} ms, "
+                  f"{second} {times[3]:.3f} ms")
+        for label, fns in cut.items():
+            if bb <= 8:
+                line = [f"{name} {cuda_ms(lambda fn=fn: fn(*args)):.3f} ms"
+                        for name, fn in fns.items()]
+                line.append(f"full {cuda_ms(lambda: fns['full'](*args)):.3f} ms")
+                print(f"K3 ablation ({label}), B={bb}, R={ids.shape[1]}, T={t}, depth {depth}, "
+                      f"on {card}: " + "; ".join(line))
+            print(f"K3 pass 1 / pass 2 ({label}, torch.profiler), B={bb}: "
+                  + split_line(kernel_split(lambda: fns["full"](*args), runs=3 if bb > 8 else 5)))
+
+
 def pair_parent(dev, card: str, parent: str) -> None:
-    """K1 and K4 of the tree ``parent`` (its own sources, plans and C
+    """K1-K5 of the tree ``parent`` (its own sources, plans and C
     signatures, ``_tree_kernels``) and of this tree on the same ann-word2vec
     inputs in one process, timed in turns (parent, this, this, parent;
     median of RUNS each), with the results
-    held to each other (ids equal away from near-ties; K1 dot bit for bit):
-    K1 classic (bf16, the main path's call) at B = 256 and B = 1, K1 f32
-    (the ground truth's call) at B = 256 and K1 dot (the dot search's call)
-    at B = 256, 8 and 1 over the fp32 index; K4 with a bf16 query over
-    int8 and int4 (group 32) postings at B = 256, 8 and 1 (the quantized
-    classic search's call), and K4 with an f32 query over int8 and over
+    held to each other (ids equal away from near-ties; integer scores bit
+    for bit): K1 classic (bf16, the main path's call) at B = 256 and B = 1,
+    K1 f32 (the ground truth's call) at B = 256 and K1 dot (the dot search's
+    call) at B = 256, 8 and 1 over the fp32 index; K3 (blockmax stage 2 at
+    10% of the blocks, rows in bound order) classic at B = 256, 8 and 1,
+    each tree's pass 1 and pass 2 apart (torch.profiler), and dot at B = 8
+    and 1; K1 lsh (K2) at B = 256 and 1 over the lexical-LSH signatures; K4
+    with a bf16 query over int8 and int4 (group 32) postings at B = 256, 8
+    and 1 (the quantized classic search's call), K5 over the int4 postings
+    at 10% of the blocks at B = 256, 8 and 1, and K4 with an f32 query over int8 and over
     int4 (group 32) postings at B = 256, 8 and 1 (brute force's call), also
     with an integer query over unit scales (int8) or over distinct
     power-of-two group scales (int4; ``pow2_scales``), bit for bit."""
     from repro_torch.configs import ann_word2vec
-    from repro_torch.core import bruteforce, fakewords
+    from repro_torch.core import blockmax, bruteforce, fakewords, lexical_lsh
     from repro_torch.core.index import AnnIndex
-    from repro_torch.core.types import BruteForceConfig
-    from repro_torch.kernels.fused_topk.kernel import fused_topk, fused_topk_quantized
+    from repro_torch.core.types import BruteForceConfig, LexicalLshConfig
+    from repro_torch.kernels.fused_topk.kernel import (
+        fused_topk,
+        fused_topk_gathered,
+        fused_topk_gathered_quantized,
+        fused_topk_quantized,
+    )
 
     with ThreadPoolExecutor() as pool:  # the parent's nvcc beside this tree's
         parent_build = pool.submit(
@@ -1367,7 +1553,44 @@ def pair_parent(dev, card: str, parent: str) -> None:
     for bb in (256, 8, 1):  # integer scores: bit for bit
         pair(f"K1 dot int8 B={bb}", fused_topk, old["fused_topk"], (q_dot[:bb], idx.index.tf),
              depth, exact=True)
-    del idx, qv, q_dot
+    # K3 (blockmax stage 2) at 10% of the blocks, rows in bound order:
+    # classic at B = 256, 8 and 1, with each tree's pass 1 and pass 2 apart,
+    # and dot (int8, bit for bit) at B = 8 and 1.
+    n = x.shape[0]
+    keep = int(KEEP_FRACTIONS[0] * -(-n // BLOCK))
+
+    def k3(fn):
+        return lambda q, store, rows, d: fn(q, store, rows, d, n)
+
+    bm = blockmax.build_blockmax(idx.index, BLOCK)
+    rows = blockmax.kept_rows(bm, q_tf, keep)
+    q_k3 = q_tf.to(torch.bfloat16)
+    for bb in (256, 8, 1):
+        args = (q_k3[:bb], idx.index.scored, rows[:bb])
+        pair(f"K3 classic bf16 n_keep={keep} B={bb}", k3(fused_topk_gathered),
+             k3(old["fused_topk_gathered"]), args, depth)
+        for label, fn in (("parent", old["fused_topk_gathered"]),
+                          ("this tree", fused_topk_gathered)):
+            print(f"pairing K3 classic bf16 n_keep={keep} B={bb}, passes ({label}, torch.profiler) "
+                  f"on {card}: " + split_line(kernel_split(lambda: fn(*args, depth, n),
+                                                            runs=3 if bb > 8 else 5)))
+    bm_dot = blockmax.build_blockmax(idx.index, BLOCK, mode="dot")
+    q_k3 = blockmax._stage2_operands(idx.index, bm_dot, q_tf[:8])[0].contiguous()
+    rows = blockmax.kept_rows(bm_dot, q_tf[:8], keep)
+    for bb in (8, 1):
+        pair(f"K3 dot int8 n_keep={keep} B={bb}", k3(fused_topk_gathered),
+             k3(old["fused_topk_gathered"]), (q_k3[:bb], idx.index.tf, rows[:bb]), depth,
+             exact=True)
+    del idx, qv, q_dot, bm, bm_dot, rows, q_k3
+    torch.cuda.empty_cache()
+    # K2: K1's lsh mode over the lexical-LSH signatures (b = 300, h = 1), bit for bit.
+    lcfg = LexicalLshConfig(buckets=300, hashes=1)
+    lidx = AnnIndex.build(x, lcfg, keep_vectors=False, device=dev)
+    sig_q = lexical_lsh.encode(qn, lcfg)
+    for bb in (256, 1):
+        pair(f"K1 lsh B={bb}", lambda q, sig, d: fused_topk(q, sig, d, mode="lsh"),
+             old["fused_topk"], (sig_q[:bb], lidx.index.sig), depth, exact=True)
+    del lidx, sig_q
     torch.cuda.empty_cache()
 
     def k4_new(q, pq, d):
@@ -1380,6 +1603,16 @@ def pair_parent(dev, card: str, parent: str) -> None:
         for bb in (256, 8, 1):
             pair(f"K4 {pp} bf16 query B={bb}", k4_new, old["fused_topk_quantized"],
                  (qv[:bb], qidx.index.pq), depth)
+        if pp == "int4":  # K5: blockmax stage 2 over the int4 index, 10% of the blocks
+            rows = blockmax.kept_rows(blockmax.build_blockmax(qidx.index, BLOCK), q_tf, keep)
+            q_k5 = q_tf.to(torch.bfloat16)
+            for bb in (256, 8, 1):
+                pair(f"K5 int4 bf16 query n_keep={keep} B={bb}",
+                     lambda q, pq, rws, d: fused_topk_gathered_quantized(
+                         q, pq.q, pq.scale, rws, d, n, pq.bits, pq.group),
+                     lambda q, pq, rws, d: old["fused_topk_gathered_quantized"](q, pq, rws, d, n),
+                     (q_k5[:bb], qidx.index.pq, rows[:bb]), depth)
+            del rows, q_k5
         del qidx, qv
         torch.cuda.empty_cache()
     bidx = AnnIndex.build(x, BruteForceConfig(), primary_postings="int8", rerank_store="none",
@@ -1606,6 +1839,9 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
         print(f"blockmax classic n_keep={n_keep} search: {'; '.join(line)}; "
               f"B={b} {t_256:.2f} ms (median of 3)")
     profile_search(idx, qx, k, depth, card)
+    for bb in (1, 8, b):  # K3's pass 1 and pass 2 within the blockmax search
+        profile_search(pruned[keeps[0]], qx[:bb], k, depth, card,
+                       label=f"blockmax classic n_keep={keeps[0]}")
     t_lsh = cuda_ms(lambda: lidx.search(qx, k=k, depth=depth))
     t_lsh_1 = cuda_ms(lambda: lidx.search(qx[:1], k=k, depth=depth))
     print(f"lexical LSH search: B={b} {t_lsh:.2f} ms; B=1 {t_lsh_1:.3f} ms")
@@ -1670,21 +1906,47 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
         "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
     })
 
-    # K3 alone at B = 1 and B = 8, 10% of the blocks, classic.
+    # K3 alone at B = 1, 8 and 256, 10% of the blocks, classic (and dot at
+    # B = 1 and 8), with pass 1 and pass 2 apart (torch.profiler).
     k3 = {}
-    for bb in (1, 8):
-        qb, rb = qv8[:bb], rows8[:bb]
-        ms = cuda_ms(lambda: fused_topk_gathered(qb, scored, rb, depth, n))
-        plain_ms = cuda_ms(lambda: ref.gathered_topk_ref(qb, ref.gather_rows(scored, rb, n), rb,
-                                                         depth, n))
-        lib_ms = cuda_ms(lambda: torch.topk(
+    rows_256 = blockmax.kept_rows(bm, q_tf, keep)
+    q256 = q_tf.to(torch.bfloat16)
+    for bb in (1, 8, b):
+        qb, rb = q256[:bb], rows_256[:bb]
+        wide = bb > 8  # no plain version or library call: they gather 92 GB at B = 256
+        ms = cuda_ms(lambda: fused_topk_gathered(qb, scored, rb, depth, n),
+                     **({"runs": 3, "warmup": 1} if wide else {}))
+        plain_ms = None if wide else cuda_ms(lambda: ref.gathered_topk_ref(
+            qb, ref.gather_rows(scored, rb, n), rb, depth, n))
+        lib_ms = None if wide else cuda_ms(lambda: torch.topk(
             torch.einsum("bt,brt->br", qb, scored[rb.long()]), depth))
         bound, bound_by, distinct = gathered_bound_ms(qb, scored, rb, n, depth, "bf16")
         k3[bb] = (ms, plain_ms, lib_ms, bound, bound_by)
+        split = split_line(kernel_split(lambda: fused_topk_gathered(qb, scored, rb, depth, n),
+                                        runs=3 if wide else 5))
         print(f"fused_topk_gathered (bf16, B={bb}, R={rb.shape[1]}, T={qb.shape[1]}, "
-              f"depth={depth}, {distinct} distinct rows): kernel {ms:.3f} ms, "
-              f"bound {bound:.3f} ms ({bound_by}); "
-              f"plain {plain_ms:.3f} ms; torch.topk(einsum(q, store[row_ids])) {lib_ms:.3f} ms")
+              f"depth={depth}, {distinct} distinct rows): kernel {ms:.3f} ms"
+              f"{' (median of 3)' if wide else ''}, bound {bound:.3f} ms ({bound_by}); "
+              + ("plain and torch.topk(einsum(q, store[row_ids])): none, they would gather "
+                 f"{bb * rb.shape[1] * qb.shape[1] * 2 / 1e9:.0f} GB" if wide else
+                 f"plain {plain_ms:.3f} ms; torch.topk(einsum(q, store[row_ids])) {lib_ms:.3f} ms")
+              + f"; passes (torch.profiler): {split}")
+    del rows_256, q256
+    q_dot_k3, _, _ = blockmax._stage2_operands(idx.index, bm_dot, q_tf[:8])
+    rows_dot = blockmax.kept_rows(bm_dot, q_tf[:8], keep)
+    for bb in (1, 8):
+        qb, rb = q_dot_k3[:bb].contiguous(), rows_dot[:bb]
+        ms = cuda_ms(lambda: fused_topk_gathered(qb, tf, rb, depth, n))
+        plain_ms = cuda_ms(lambda: ref.gathered_topk_ref(qb, ref.gather_rows(tf, rb, n), rb,
+                                                         depth, n))
+        lib_ms = cuda_ms(lambda: torch.topk(
+            torch.einsum("bt,brt->br", qb.float(), tf[rb.long()].float()), depth))
+        bound, bound_by, distinct = gathered_bound_ms(qb, tf, rb, n, depth, "int8")
+        split = split_line(kernel_split(lambda: fused_topk_gathered(qb, tf, rb, depth, n)))
+        print(f"fused_topk_gathered/int8 (dot, B={bb}, R={rb.shape[1]}, T={qb.shape[1]}, "
+              f"depth={depth}, {distinct} distinct rows): kernel {ms:.3f} ms, bound {bound:.3f} "
+              f"ms ({bound_by}); plain {plain_ms:.3f} ms; torch.topk(einsum(q.float(), "
+              f"tf[row_ids].float())) {lib_ms:.3f} ms; passes (torch.profiler): {split}")
     ms, plain_ms, lib_ms, bound, bound_by = k3[8]
     kernels.append({
         "name": "fused_topk_gathered", "route": "cuda",
@@ -1696,35 +1958,56 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
     return kernels, gt_i, idx, lidx
 
 
-def profile_search(idx, qx, k: int, depth: int, card: str, label: str = "classic",
-                   runs: int = 5) -> None:
-    """A torch.profiler trace of ``runs`` back-to-back main-path searches of
-    ``idx`` (``label`` names them): device time per CUDA kernel (pass 1,
-    merge, the encoder's kernels) and the device's idle share between the
-    first kernel's start and the last one's end.  One search before them,
-    inside the trace but outside the measured span, takes the first
-    kernels after the trace starts, which the trace may drop (it kept 4 of
-    5 pass-1 kernels of the brute-force search whose pass 1 comes first).
-    Where the trace holds no device time, the search is timed with CUDA
-    events instead."""
+def _traced(fn, runs: int) -> list:
+    """(start, end, name) of every CUDA kernel of ``runs`` back-to-back
+    calls of ``fn`` in a torch.profiler trace, sorted by start.  One call
+    before them, inside the trace but outside the measured span, takes the
+    first kernels after the trace starts, which the trace may drop (it kept
+    4 of 5 pass-1 kernels of the brute-force search whose pass 1 comes
+    first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    mark = "measured searches"  # on the device's timeline too, as an annotation
-    idx.search(qx, k=k, depth=depth)
+    mark = "measured calls"  # on the device's timeline too, as an annotation
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        idx.search(qx, k=k, depth=depth)
+        fn()
         torch.cuda.synchronize()
         with record_function(mark):
             for _ in range(runs):
-                idx.search(qx, k=k, depth=depth)
+                fn()
             torch.cuda.synchronize()
     events = prof.events()
     t0 = min(e.time_range.start for e in events if e.name == mark)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in events
-                   if e.device_type == DeviceType.CUDA and e.name != mark
-                   and e.time_range.start >= t0 and e.time_range.end > e.time_range.start)
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in events
+                  if e.device_type == DeviceType.CUDA and e.name != mark
+                  and e.time_range.start >= t0 and e.time_range.end > e.time_range.start)
+
+
+def kernel_split(fn, runs: int = 5) -> dict:
+    """{kernel instance: device ms per call of ``fn``} from a torch.profiler
+    trace of ``runs`` calls (``_traced``); {} where the trace holds no
+    device time.  Splits a fused top-k call into its pass 1 and pass 2."""
+    per = {}
+    for a, b, name in _traced(fn, runs):
+        key = _instance(name) if "fused_topk" in name else name[:60]
+        per[key] = per.get(key, 0.0) + (b - a) / 1e3 / runs
+    return per
+
+
+def split_line(per: dict) -> str:
+    return ", ".join(f"{name} {ms:.4f} ms" for name, ms in per.items()) or "no device time traced"
+
+
+def profile_search(idx, qx, k: int, depth: int, card: str, label: str = "classic",
+                   runs: int = 5) -> None:
+    """A torch.profiler trace of ``runs`` back-to-back searches of ``idx``
+    (``label`` names them; ``_traced``): device time per CUDA kernel (pass
+    1, merge, the encoder's kernels) and the device's idle share between
+    the first kernel's start and the last one's end.  Where the trace holds
+    no device time, the search is timed with CUDA events instead."""
+    spans = _traced(lambda: idx.search(qx, k=k, depth=depth), runs)
     if not spans:
         print(f"profile: torch.profiler recorded no device time; CUDA events on {card}: {label} "
               f"search B={qx.shape[0]} {cuda_ms(lambda: idx.search(qx, k=k, depth=depth)):.3f} ms")

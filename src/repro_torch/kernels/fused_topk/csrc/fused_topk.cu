@@ -27,11 +27,12 @@
 // (score desc, id asc), so ties keep the lowest id in any arrival order.
 // Blocks of one split are adjacent in launch order, so the re-reads of a
 // doc tile by the split's query tiles mostly hit L2.  Pass 2
-// (fused_topk_merge): one warp per query merges the splits' sorted lists
-// under the same comparator and writes the first `depth` entries, -inf
-// slots as id -1.  The tile shape of the CUDA-core pass 1, both launch
-// plans of it, the sorted insert, the list merge and pass 2 live in
-// topk_merge.cuh, shared with fused_topk_quantized.cu.
+// (fused_topk_merge): one block per query cuts the splits' sorted lists at
+// a threshold no later entry can pass, merges them as a tree under the
+// same comparator and writes the first `depth` entries, -inf slots as id
+// -1.  The tile shape of the CUDA-core pass 1, its launch plan, the sorted
+// insert, the list merge and pass 2 live in topk_merge.cuh, shared with
+// fused_topk_quantized.cu.
 //
 // classic (bf16): fused_topk_bf16_partial, on tensor cores: the pass-1 body
 // of mma_topk.cuh (shared with K4's bf16-query instances in
@@ -93,22 +94,31 @@
 // So this kernel gathers the rows itself, by id, from the stored (N, T)
 // matrix, and the (B, R, T) tensor never exists.
 //
-// Bound: a batched GEMV with no reuse across queries (each has its own
-// rows), so bytes bound it: B * R * (T * elem + 4).  At B = 8 that is
-// 2.88 GB, 0.86 ms at 3.35 TB/s; at B = 1, 0.107 ms.
+// Bound: a batched GEMV, bound by bytes.  What the card must read is each
+// distinct kept row once (a row that several queries keep is needed once),
+// the query and the ids: at the blockmax cell that is 0.108 ms at B = 1 and
+// 0.485 ms at B = 8 on an H100 (3.35 TB/s; chip_smoke.gathered_bound_ms).
+// This design shares no row between the queries that keep it, so its own
+// floor is the no-reuse bytes B * R * (T * elem + 4): 2.88 GB, 0.86 ms at
+// B = 8.  Tensor cores would buy nothing: each query has its own rows, so
+// no product is reused.
 //
-// Design: grid (B, row splits), one query per block, splits chosen so that
-// B x splits fills the SMs at B = 1 (fused_topk_gathered_plan).  The query
-// row sits in shared memory.  A warp scores 32 rows at a time, reading each
-// row whole and contiguously (lane l loads 16-byte packs l, l + 32, ...;
-// 8-byte or element loads where rows are not 16-byte aligned), with
-// kGatherRows rows' loads in flight, and reduces each row across the warp.
-// Ids arrive in any order, so the check against the K-th entry must let a
-// tied score with a lower id in (the reference's strict=False): it uses the
-// full (score desc, id asc) comparator, as K1's does.  Each warp keeps its
-// own sorted list; warp 0 merges the block's eight lists, and the K1 merge
-// pass merges the splits.  No tensor cores, no TMA, no sharing of a kept
-// block between the queries that keep it.
+// Design: grid (B, row splits), one query per block; B x splits is the
+// blocks the SMs hold at once (two each), so at small B each block walks a
+// long row range (fused_topk_gathered_plan).  The query row sits in shared
+// memory.  A warp scores 32 rows a round, reading each row whole and
+// contiguously (lane l loads 16-byte packs l, l + 32, ...; 8-byte or element
+// loads where rows are not 16-byte aligned), 4 rows at a time with every
+// pack of a 3-round load group in flight before the first product, and
+// sums the 4 rows across the warp in one transposed butterfly.  The block
+// keeps one running list: a score that precedes the list's depth-th entry
+// (the full (score desc, id asc) comparator: ids arrive in any order, so a
+// tied score with a lower id must enter) goes to a candidate buffer, which
+// the whole block merges into the list by counting (merge_buffer of
+// mma_topk.cuh) once it is past a quarter of a round, so a row that cannot
+// rank costs one compare.  Pass 2 merges the splits' lists.  No tensor
+// cores, no TMA, no sharing of a kept block between the queries that keep
+// it (PERF.md: at B = 256 pass 1 reads each query's rows, ~92 GB).
 
 #include "mma_topk.cuh"  // K1 classic's tensor-core pass 1; includes topk_merge.cuh
 
@@ -467,14 +477,21 @@ cudaError_t launch_int8(int bq, const void* q, const void* docs, const uint8_t* 
 // K3: top-`depth` over per-query gathered rows (fused_topk_gathered_partial).
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory of a gathered pass-1 block: the query row, padded to
-// whole 32-lane rounds of 16-byte packs, then one running list of K (score,
-// id) pairs per warp.
+constexpr int kK3Rows = 4;         // rows a warp scores at once
+constexpr int kK3Rounds = 3;       // 32-lane rounds of a row's 16-byte packs loaded at once
+constexpr int kK3Round = kThreads;  // rows the block scores between two threshold tests
+constexpr int kK3Cap = cand_cap(kK3Round), kK3FlushAt = flush_at(kK3Round);
+constexpr int kK3BlocksPerSm = 2;  // pass-1 blocks resident per SM (2 x 8 warps)
+constexpr int kK3Bytes = kK3Rounds * 32 * 16;  // row bytes of one load group
+
+// Dynamic shared memory of a K3 pass-1 block: the query row, padded to whole
+// load groups, then the block's running list of K (score, id) pairs, its
+// candidate buffer, and the threshold and count.
 __host__ __device__ constexpr size_t gathered_query_bytes(int t, int elem) {
-  return (size_t)((t * elem + 511) / 512) * 512;
+  return (size_t)((t * elem + kK3Bytes - 1) / kK3Bytes) * kK3Bytes;
 }
 constexpr size_t gathered_smem(int t, int elem, int K) {
-  return gathered_query_bytes(t, elem) + (size_t)kWarps * K * (sizeof(float) + sizeof(int));
+  return gathered_query_bytes(t, elem) + (size_t)(K + kK3Cap) * 8 + 16;
 }
 
 // acc + <query pack, row pack> in the mode's arithmetic: bf16 widened to f32
@@ -496,109 +513,153 @@ __device__ __forceinline__ typename Traits<M>::Acc dot_pack(typename Traits<M>::
   return acc;
 }
 
+// The warp's sums of four per-lane values at once, transposed: lane l ends
+// with the sum over all lanes of a[(l >> 3) & 3].  Six shuffles where four
+// separate sums take twenty, each step halving what a lane still carries.
+template <class A>
+__device__ __forceinline__ A warp_sum4(const A (&a)[4], int lane) {
+  const bool hi16 = (lane & 16) != 0, hi8 = (lane & 8) != 0;
+  A s0 = hi16 ? a[2] : a[0], s1 = hi16 ? a[3] : a[1];
+  s0 += __shfl_xor_sync(kFull, hi16 ? a[0] : a[2], 16);
+  s1 += __shfl_xor_sync(kFull, hi16 ? a[1] : a[3], 16);
+  A k = hi8 ? s1 : s0;
+  k += __shfl_xor_sync(kFull, hi8 ? s0 : s1, 8);
+#pragma unroll
+  for (int m = 4; m > 0; m >>= 1) k += __shfl_xor_sync(kFull, k, m);
+  return k;
+}
+
 // Grid (B, splits): block (b, split) owns rows [split * rows_per_split, ...)
-// of query b's R gathered rows.  Each warp takes 32-row groups in turn; its
-// lanes read a row together (lane l the packs l, l + 32, ...), kGatherRows
-// rows at a time, reduce each row's sum across the warp, and lane r keeps row
-// r's score.  The warp then merges its 32 candidates into its own running
-// list; at the end warp 0 merges the other warps' lists into its own and
-// writes the block's sorted list.  A row whose id is outside [0, n_docs) is
-// never read and never ranks.
+// of query b's R gathered rows and keeps one running list of K for them.
+// The block scores kK3Round rows a round, each warp 32: its lanes read
+// kK3Rows rows together (lane l the 16-byte packs l, l + 32, ... of each),
+// every pack of a load group in flight before the first product, reduce the
+// rows' sums across the warp at once (warp_sum4), and lane r keeps row r's
+// score.  A score that precedes the list's depth-th entry (the full
+// comparator: ids arrive in any order) goes to the block's candidate
+// buffer; once the buffer holds more than kK3FlushAt, or after the last
+// round, the whole block merges it into the list by counting
+// (merge_buffer) and refreshes the threshold.  A row whose id is outside
+// [0, n_docs) is never read and never ranks; an id that comes twice is
+// scored and ranked twice, as the reference ranks it.
 template <int M>
-__global__ void __launch_bounds__(kThreads, 2) fused_topk_gathered_partial(
+__global__ void __launch_bounds__(kThreads, kK3BlocksPerSm) fused_topk_gathered_partial(
     const typename Traits<M>::Raw* __restrict__ q,      // (B, T)
     const typename Traits<M>::Raw* __restrict__ store,  // (N, T)
     const int* __restrict__ row_ids,                     // (B, R)
-    int B, int R, int n_docs, int T, int K, int rows_per_split, int align,
+    int B, int R, int n_docs, int T, int depth, int K, int rows_per_split, int align,
     float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
   using Tr = Traits<M>;
   using V = Vec<M>;
   using Raw = typename Tr::Raw;
   using Acc = typename Tr::Acc;
+  static_assert(kK3Rows == 4, "warp_sum4 sums four rows");
 
   extern __shared__ __align__(16) unsigned char smem[];
   const size_t q_bytes = gathered_query_bytes(T, sizeof(Raw));
   Raw* qs = reinterpret_cast<Raw*>(smem);
-  float* ls = reinterpret_cast<float*>(smem + q_bytes);  // kWarps x K running scores
-  int* li = reinterpret_cast<int*>(ls + kWarps * K);      // kWarps x K running ids
+  float* ls = reinterpret_cast<float*>(smem + q_bytes);  // K running scores
+  int* li = reinterpret_cast<int*>(ls + K);               // K running ids
+  float* cs = reinterpret_cast<float*>(li + K);           // kK3Cap candidates
+  int* ci = reinterpret_cast<int*>(cs + kK3Cap);
+  float* ts = reinterpret_cast<float*>(ci + kK3Cap);      // the list's depth-th entry
+  int* ti = reinterpret_cast<int*>(ts + 1);
+  int* cnt = ti + 1;                                       // candidates in the buffer
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x, split = blockIdx.y;
   const int row0 = split * rows_per_split;
   const int row1 = min(R, row0 + rows_per_split);
-  const int n_groups = (max(0, row1 - row0) + 31) / 32;
-  const int n_rounds = (T + 32 * V::kElems - 1) / (32 * V::kElems);
+  const int n_rounds = (max(0, row1 - row0) + kK3Round - 1) / kK3Round;
+  const int n_packs = (T + V::kElems - 1) / V::kElems;  // 16-byte packs a row
 
   const Raw pad = pad_raw<M>(true);
   for (int e = tid; e < (int)(q_bytes / sizeof(Raw)); e += kThreads)
     qs[e] = e < T ? q[(size_t)b * T + e] : pad;
-  float* rs = ls + warp * K;
-  int* ri = li + warp * K;
-  for (int c = lane; c < K; c += 32) { rs[c] = -INFINITY; ri[c] = kBigId; }
+  for (int c = tid; c < K; c += kThreads) { ls[c] = -INFINITY; li[c] = kBigId; }
+  if (tid == 0) { *ts = -INFINITY; *ti = kBigId; *cnt = 0; }
   __syncthreads();
 
   const int* ids = row_ids + (size_t)b * R;
-  for (int g = warp; g < n_groups; g += kWarps) {
-    const int r = row0 + g * 32 + lane;
+  for (int round = 0; round < n_rounds; ++round) {
+    const int r = row0 + round * kK3Round + warp * 32 + lane;
     const int my_id = r < row1 ? ids[r] : kBigId;
     const bool my_ok = static_cast<unsigned>(my_id) < static_cast<unsigned>(n_docs);
     float my_s = -INFINITY;
 #pragma unroll 1
-    for (int u0 = 0; u0 < 32; u0 += kGatherRows) {
-      const Raw* rows[kGatherRows];
-      bool ok[kGatherRows];
-      Acc acc[kGatherRows];
+    for (int u0 = 0; u0 < 32; u0 += kK3Rows) {
+      const Raw* rows[kK3Rows];
+      bool ok[kK3Rows];
+      Acc acc[kK3Rows];
 #pragma unroll
-      for (int u = 0; u < kGatherRows; ++u) {
+      for (int u = 0; u < kK3Rows; ++u) {
         const int id = __shfl_sync(kFull, my_id, u0 + u);
         ok[u] = static_cast<unsigned>(id) < static_cast<unsigned>(n_docs);
         rows[u] = store + (size_t)(ok[u] ? id : 0) * T;  // an id out of range is never read
         acc[u] = Acc(0);
       }
-      for (int j = 0; j < n_rounds; ++j) {
-        const int e0 = (lane + 32 * j) * V::kElems;
-        if (e0 >= T) break;
-        const uint4 qv = *reinterpret_cast<const uint4*>(qs + e0);
-        uint4 dv[kGatherRows];
+      for (int p0 = 0; p0 < n_packs; p0 += 32 * kK3Rounds) {  // one load group
+        uint4 dv[kK3Rows][kK3Rounds];
 #pragma unroll
-        for (int u = 0; u < kGatherRows; ++u)
-          dv[u] = ok[u] ? load_pack<M>(rows[u], true, e0, T, align, false)
-                        : make_uint4(0, 0, 0, 0);
+        for (int j = 0; j < kK3Rounds; ++j) {
+          const int p = p0 + 32 * j + lane;
 #pragma unroll
-        for (int u = 0; u < kGatherRows; ++u) acc[u] = dot_pack<M>(acc[u], qv, dv[u]);
+          for (int u = 0; u < kK3Rows; ++u)
+            dv[u][j] = ok[u] && p < n_packs
+                           ? load_pack<M>(rows[u], true, p * V::kElems, T, align, false)
+                           : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int j = 0; j < kK3Rounds; ++j) {
+          const uint4 qv = *reinterpret_cast<const uint4*>(qs + (p0 + 32 * j + lane) * V::kElems);
+#pragma unroll
+          for (int u = 0; u < kK3Rows; ++u) acc[u] = dot_pack<M>(acc[u], qv, dv[u][j]);
+        }
       }
-#pragma unroll
-      for (int u = 0; u < kGatherRows; ++u) {
-        const Acc tot = warp_sum(acc[u]);
-        if (lane == u0 + u) my_s = static_cast<float>(tot);
+      const Acc v = __shfl_sync(kFull, warp_sum4(acc, lane), (lane & 3) << 3);
+      if ((lane >> 2) == u0 / kK3Rows) my_s = static_cast<float>(v);
+    }
+    // Ids arrive in any order, so the test against the depth-th entry uses
+    // the full comparator: a tied score with a lower id still enters.  A
+    // stale threshold only lets more in.
+    const bool pass = my_ok && precedes(my_s, my_id, *ts, *ti);
+    const unsigned m = __ballot_sync(kFull, pass);
+    bool full = false;
+    if (m != 0) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(cnt, __popc(m));
+      base = __shfl_sync(kFull, base, 0);
+      if (pass) {
+        const int c = base + __popc(m & ((1u << lane) - 1u));
+        cs[c] = my_s;
+        ci[c] = my_id;
       }
+      full = base + __popc(m) > kK3FlushAt;
     }
-    // Ids arrive in any order, so the check against the K-th entry uses the
-    // full comparator: a tied score with a lower id still enters.
-    unsigned mask = __ballot_sync(kFull, my_ok && precedes(my_s, my_id, rs[K - 1], ri[K - 1]));
-    while (mask) {
-      const int src = __ffs(mask) - 1;
-      mask &= mask - 1;
-      const float cs = __shfl_sync(kFull, my_s, src);
-      const int cid = __shfl_sync(kFull, my_id, src);
-      if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
+    // The block's buffer merges once it holds more than kK3FlushAt (or after
+    // the last round); until then it has room for the next round.
+    const bool last = round + 1 == n_rounds;
+    if (!__syncthreads_or(full) && !last) continue;
+    const int n = *cnt;
+    if (n > 0) {  // block-uniform
+      merge_buffer<kK3Cap, kThreads, true>(ls, li, K, depth, cs, ci, n, tid);
+      __syncthreads();
+      if (tid == 0) { *ts = ls[depth - 1]; *ti = li[depth - 1]; *cnt = 0; }
     }
+    __syncthreads();
   }
 
-  __syncthreads();
-  if (warp != 0) return;
-  for (int w = 1; w < kWarps; ++w) merge_sorted(rs, ri, ls + w * K, li + w * K, K, lane);
   const size_t out = ((size_t)split * B + b) * K;
-  for (int c = lane; c < K; c += 32) {
-    part_s[out + c] = rs[c];
-    part_i[out + c] = ri[c];
+  for (int c = tid; c < K; c += kThreads) {
+    part_s[out + c] = ls[c];
+    part_i[out + c] = li[c];
   }
 }
 
 template <int M>
 cudaError_t launch_gathered(const void* q, const void* store, const int* row_ids, int B, int R,
-                            int n_docs, int T, int K, int splits, int rows_per_split, int align,
-                            float* part_s, int* part_i, cudaStream_t stream) {
+                            int n_docs, int T, int depth, int K, int splits, int rows_per_split,
+                            int align, float* part_s, int* part_i, cudaStream_t stream) {
   using Raw = typename Traits<M>::Raw;
   const size_t smem = gathered_smem(T, sizeof(Raw), K);
   auto kernel = fused_topk_gathered_partial<M>;
@@ -606,9 +667,34 @@ cudaError_t launch_gathered(const void* q, const void* store, const int* row_ids
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(B, splits), kThreads, smem, stream>>>(
-      static_cast<const Raw*>(q), static_cast<const Raw*>(store), row_ids, B, R, n_docs, T, K,
-      rows_per_split, align, part_s, part_i);
+      static_cast<const Raw*>(q), static_cast<const Raw*>(store), row_ids, B, R, n_docs, T,
+      depth, K, rows_per_split, align, part_s, part_i);
   return cudaGetLastError();
+}
+
+// K3's launch plan for B queries of R gathered rows of T elements of `elem`
+// bytes at `depth`: plan[0] K (depth rounded up to 32), plan[1] row splits
+// per query, plan[2] rows per split (a multiple of 32, and at least a round
+// of kK3Round where R allows), so that B x splits is the blocks the SMs
+// hold at once (kK3BlocksPerSm each): at B = 1 each block walks its rows to
+// the end and pass 2 merges that many lists, not more; from B >=
+// kK3BlocksPerSm x sm_count, one split.  Returns cudaErrorInvalidValue if
+// the query and the list do not fit in shared memory (gathered_smem), or
+// pass 2 cannot merge lists of depth.
+inline int k3_plan(int B, int R, int T, int elem, int depth, int sm_count, int* plan) {
+  if (B <= 0 || R <= 0 || T <= 0 || depth <= 0 || depth > R || sm_count <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int K = (depth + 31) / 32 * 32;
+  if (gathered_smem(T, elem, K) > kMaxSmem || merge_lists(depth) < 2)
+    return (int)cudaErrorInvalidValue;
+  const int want = (kK3BlocksPerSm * sm_count + B - 1) / B;
+  const int most = (R + kK3Round - 1) / kK3Round;
+  const int splits = want < most ? want : most;
+  const int rows_per_split = ((R + splits - 1) / splits + 31) / 32 * 32;
+  plan[0] = K;
+  plan[1] = (R + rows_per_split - 1) / rows_per_split;  // no empty split
+  plan[2] = rows_per_split;
+  return 0;
 }
 
 int elem_size(int mode) { return mode == kBF16 ? 2 : (mode == kI8 ? 1 : 4); }
@@ -668,11 +754,10 @@ int fused_topk_launch(int mode, int bq, const void* q, const void* docs, const v
   return (int)launch_merge(ps, pi, splits, B, K, depth, out_s, out_i, st);
 }
 
-// K3's launch plan for R gathered rows of T elements in `mode`:
-// gathered_plan (topk_merge.cuh) with the query row's shared memory.
+// K3's launch plan for R gathered rows of T elements in `mode`: k3_plan.
 int fused_topk_gathered_plan(int mode, int B, int R, int T, int depth, int sm_count, int* plan) {
-  if (mode < kF32 || mode > kLSH || T <= 0) return (int)cudaErrorInvalidValue;
-  return gathered_plan(B, R, depth, gathered_query_bytes(T, elem_size(mode)), sm_count, plan);
+  if (mode < kF32 || mode > kLSH) return (int)cudaErrorInvalidValue;
+  return k3_plan(B, R, T, elem_size(mode), depth, sm_count, plan);
 }
 
 // Both passes of fused_topk_gathered on `stream`, with the plan of
@@ -693,20 +778,20 @@ int fused_topk_gathered_launch(int mode, const void* q, const void* store, const
   cudaError_t err;
   switch (mode) {
     case kF32:
-      err = launch_gathered<kF32>(q, store, rid, B, R, n_docs, T, K, splits, rows_per_split,
-                                  align, ps, pi, st);
+      err = launch_gathered<kF32>(q, store, rid, B, R, n_docs, T, depth, K, splits,
+                                  rows_per_split, align, ps, pi, st);
       break;
     case kBF16:
-      err = launch_gathered<kBF16>(q, store, rid, B, R, n_docs, T, K, splits, rows_per_split,
-                                   align, ps, pi, st);
+      err = launch_gathered<kBF16>(q, store, rid, B, R, n_docs, T, depth, K, splits,
+                                   rows_per_split, align, ps, pi, st);
       break;
     case kI8:
-      err = launch_gathered<kI8>(q, store, rid, B, R, n_docs, T, K, splits, rows_per_split,
-                                 align, ps, pi, st);
+      err = launch_gathered<kI8>(q, store, rid, B, R, n_docs, T, depth, K, splits,
+                                 rows_per_split, align, ps, pi, st);
       break;
     case kLSH:
-      err = launch_gathered<kLSH>(q, store, rid, B, R, n_docs, T, K, splits, rows_per_split,
-                                  align, ps, pi, st);
+      err = launch_gathered<kLSH>(q, store, rid, B, R, n_docs, T, depth, K, splits,
+                                  rows_per_split, align, ps, pi, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

@@ -387,44 +387,44 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// How many of the sorted entries (ls, li)[0, n) come before (s, id).
-__device__ __forceinline__ int rank_in(const float* ls, const int* li, int n, float s, int id) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (precedes(ls[mid], li[mid], s, id)) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
+// A barrier over the kLanes threads of a merge: one warp, or the block.
+template <int kLanes>
+__device__ __forceinline__ void merge_sync() {
+  static_assert(kLanes == 32 || kLanes == kThreads, "a warp or the whole block");
+  if constexpr (kLanes == 32) __syncwarp();
+  else __syncthreads();
 }
 
-// Merge the n unsorted candidates (cs, ci) (n <= 32 kCandPer) into the
-// sorted running list (rs, ri) of K <= 32 kPer entries in one pass,
+// Merge the n unsorted candidates (cs, ci) (n <= kLanes kCandPer) into the
+// sorted running list (rs, ri) of K <= kLanes kPer entries in one pass,
 // without sorting them: an entry's new slot is the number of entries of
 // both lists that come before it.  For a list entry that is its index plus
 // the candidates before it, counted in one sweep over the candidates; for
 // a candidate, the candidates before it (the same sweep) plus its rank in
-// the list (binary search).  Slots >= K drop.  No two entries share a slot,
-// as no two share an id.  All 32 lanes take part; each holds its entries
-// in registers until every slot is known.
-template <int kCandPer, int kPer>
+// the list (binary search).  Slots >= K drop.  No two entries share a slot:
+// no two share an id, or (kDup, where an id may come twice: the gathered
+// K3's row ids) a copy goes after the list's entry and after the buffer's
+// earlier copies.  The kLanes threads (one warp, or the block; `lane` is
+// the thread's index among them) take part; each holds its entries in
+// registers until every slot is known.
+template <int kCandPer, int kPer, int kLanes = 32, bool kDup = false>
 __device__ __forceinline__ void merge_counted(float* rs, int* ri, int K, const float* cs,
                                               const int* ci, int n, int lane) {
   float ls_[kPer], cs_[kCandPer];
   int li_[kPer], ci_[kCandPer], lslot[kPer], cslot[kCandPer];
 #pragma unroll
   for (int u = 0; u < kPer; ++u) {
-    const int c = lane + 32 * u;
+    const int c = lane + kLanes * u;
     lslot[u] = c < K ? c : K;
     ls_[u] = c < K ? rs[c] : -INFINITY;
     li_[u] = c < K ? ri[c] : kBigId;
   }
 #pragma unroll
   for (int u = 0; u < kCandPer; ++u) {
-    const int c = lane + 32 * u;
+    const int c = lane + kLanes * u;
     cs_[u] = c < n ? cs[c] : -INFINITY;
     ci_[u] = c < n ? ci[c] : kBigId;
-    cslot[u] = c < n ? rank_in(rs, ri, K, cs_[u], ci_[u]) : K;
+    cslot[u] = c < n ? rank_in<kDup>(rs, ri, K, cs_[u], ci_[u]) : K;
   }
   for (int j = 0; j < n; ++j) {
     const float s = cs[j];
@@ -432,16 +432,41 @@ __device__ __forceinline__ void merge_counted(float* rs, int* ri, int K, const f
 #pragma unroll
     for (int u = 0; u < kPer; ++u) lslot[u] += precedes(s, id, ls_[u], li_[u]) ? 1 : 0;
 #pragma unroll
-    for (int u = 0; u < kCandPer; ++u) cslot[u] += precedes(s, id, cs_[u], ci_[u]) ? 1 : 0;
+    for (int u = 0; u < kCandPer; ++u)
+      cslot[u] += precedes(s, id, cs_[u], ci_[u]) ||
+                          (kDup && j < lane + kLanes * u && s == cs_[u] && id == ci_[u])
+                      ? 1 : 0;
   }
-  __syncwarp();
+  merge_sync<kLanes>();
 #pragma unroll
   for (int u = 0; u < kPer; ++u)
-    if (lane + 32 * u < K && lslot[u] < K) { rs[lslot[u]] = ls_[u]; ri[lslot[u]] = li_[u]; }
+    if (lane + kLanes * u < K && lslot[u] < K) { rs[lslot[u]] = ls_[u]; ri[lslot[u]] = li_[u]; }
 #pragma unroll
   for (int u = 0; u < kCandPer; ++u)
-    if (lane + 32 * u < n && cslot[u] < K) { rs[cslot[u]] = cs_[u]; ri[cslot[u]] = ci_[u]; }
-  __syncwarp();
+    if (lane + kLanes * u < n && cslot[u] < K) { rs[cslot[u]] = cs_[u]; ri[cslot[u]] = ci_[u]; }
+  merge_sync<kLanes>();
+}
+
+// Merge a query's buffer of n candidates (cs, ci) (n <= kCap) into its
+// sorted running list (rs, ri) of K, whose first `depth` entries are then
+// its exact top-depth: by counting (merge_counted) where the list fits the
+// kLanes threads' registers (kLanes = 32: K <= 128, then K <= kRegMergeK;
+// the block: K <= 256, then K <= 1024), else the first warp inserts each
+// candidate that still ranks (warp_insert).  kDup as for merge_counted.
+template <int kCap, int kLanes = 32, bool kDup = false>
+__device__ __forceinline__ void merge_buffer(float* rs, int* ri, int K, int depth,
+                                             const float* cs, const int* ci, int n, int lane) {
+  constexpr int kCandPer = (kCap + kLanes - 1) / kLanes;
+  constexpr int kNarrow = kLanes == 32 ? 4 : 1, kWide = kLanes == 32 ? kRegMergeK / 32 : 4;
+  if (K <= kLanes * kNarrow) {
+    merge_counted<kCandPer, kNarrow, kLanes, kDup>(rs, ri, K, cs, ci, n, lane);
+  } else if (K <= kLanes * kWide) {
+    merge_counted<kCandPer, kWide, kLanes, kDup>(rs, ri, K, cs, ci, n, lane);
+  } else if (lane < 32) {  // wide lists: one sorted insert per candidate that still ranks
+    for (int j = 0; j < n; ++j)
+      if (precedes(cs[j], ci[j], rs[depth - 1], ri[depth - 1]))
+        warp_insert(rs, ri, K, cs[j], ci[j], lane);
+  }
 }
 
 // The body of a pass-1 block on a grid of (query tiles of BQ, splits): block
@@ -778,17 +803,7 @@ __device__ __forceinline__ void mma_topk_pass1(
       if (n == 0 || (n <= kFlushAt && !last)) continue;  // warp-uniform
       float* rs = ls + r * K;
       int* ri = li + r * K;
-      const float* rcs = cs + r * kCap;
-      const int* rci = ci + r * kCap;
-      if (K <= 128) {
-        merge_counted<kCap / 32, 4>(rs, ri, K, rcs, rci, n, lane);
-      } else if (K <= kRegMergeK) {
-        merge_counted<kCap / 32, kRegMergeK / 32>(rs, ri, K, rcs, rci, n, lane);
-      } else {  // wide lists: one sorted insert per candidate that still ranks
-        for (int j = 0; j < n; ++j)
-          if (precedes(rcs[j], rci[j], rs[depth - 1], ri[depth - 1]))
-            warp_insert(rs, ri, K, rcs[j], rci[j], lane);
-      }
+      merge_buffer<kCap>(rs, ri, K, depth, cs + r * kCap, ci + r * kCap, n, lane);
       if (lane == 0) { ts[r] = rs[depth - 1]; ti[r] = ri[depth - 1]; cnt[r] = 0; }
       __syncwarp();
     }

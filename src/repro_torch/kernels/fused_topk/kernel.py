@@ -16,8 +16,10 @@ for int8 ones, ``fused_topk_partial`` for f32 and lsh,
 ``fused_topk_quantized_bf16_partial`` for a bf16 query over packed rows,
 ``fused_topk_quantized_tf32_partial`` for an f32 one, or
 ``fused_topk_gathered_quantized_partial``) and the merge
-(``fused_topk_merge``).  K1 classic, K1 dot and K4 share one tensor-core
-pass 1 (``csrc/mma_topk.cuh``).
+(``fused_topk_merge``, one block per query: a threshold cut, then a tree
+merge).  K1 classic, K1 dot and K4 share one tensor-core pass 1
+(``csrc/mma_topk.cuh``); K3 keeps one running list per block and merges
+its candidates by counting, as that pass 1 does.
 """
 from __future__ import annotations
 
@@ -61,11 +63,12 @@ def gathered_plan(code: int, b: int, r: int, t: int, depth: int,
                   sm_count: int) -> Tuple[int, int, int]:
     """The source's launch shape for :func:`fused_topk_gathered`
     (``fused_topk_gathered_plan``): (running-list width K, row splits per
-    query, rows per split)."""
+    query, rows per split); B x splits is the blocks the SMs hold at once,
+    so at small B each block walks a long row range."""
     out = (ctypes.c_int * 3)()
     if _lib().fused_topk_gathered_plan(code, b, r, t, depth, sm_count, out) != 0:
-        raise ValueError(f"depth {depth}, T {t}: the query row and running lists "
-                         "do not fit in shared memory")
+        raise ValueError(f"depth {depth}, T {t}: the query row and running list, or pass 2's "
+                         "lists, do not fit in shared memory")
     return tuple(out)
 
 

@@ -10,18 +10,21 @@ ids and scores; float modes to rtol = atol = 1e-5 with ids equal away from
 near-ties (summation order differs).  ``test_torch_gpu.py`` holds the CUDA
 kernel against the plain version on a card.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_topk_match, to_torch
+from torch_parity import assert_topk_match, threshold_merge, to_torch
 
 from repro.kernels.fused_topk import ref as jref
 from repro.kernels.fused_topk.kernel import fused_topk_gathered as jgathered
+from repro_torch.kernels.common import BIG_ID
 from repro_torch.kernels.fused_topk import ops, ref
 from repro_torch.kernels.fused_topk.kernel import fused_topk_gathered
 
 SENTINEL = np.uint32(0xFFFFFFFF)
+BLOCK = 256  # the blockmax block: kept rows come in whole 256-row blocks
 
 
 def _operands(kind: str, b: int, n: int, r: int, t: int, n_docs: int, seed: int):
@@ -126,3 +129,122 @@ def test_gathered_wrapper_checks_and_reexport():
         fused_topk_gathered(q, store, ids, 3, 10, filt=torch.ones(10, dtype=torch.bool))
     with pytest.raises(ValueError, match="mode"):
         fused_topk_gathered(q, store, ids, 3, 10, mode="dense")
+
+
+def _block_rows(rng, b: int, n_docs: int, n_keep: int, scores=None) -> np.ndarray:
+    """(B, n_keep * 256) row ids: whole 256-row blocks of [0, n_docs), in
+    random order, or (``scores`` (B, n_docs)) best block first, as blockmax
+    stage 1 orders them (``blockmax.kept_rows``: by the block's bound; here
+    its true best score, an exact bound)."""
+    n_blocks = n_docs // BLOCK
+    out = []
+    for q in range(b):
+        if scores is None:
+            blocks = rng.permutation(n_blocks)[:n_keep]
+        else:
+            best = scores[q].reshape(n_blocks, BLOCK).max(1)
+            blocks = np.argsort(-best, kind="stable")[:n_keep]
+        out.append((blocks[:, None] * BLOCK + np.arange(BLOCK)).reshape(-1))
+    return np.stack(out).astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["bound-order", "depth-r", "padding-splits", "tied-depth"])
+def test_gathered_topk_matches_jax_across_many_splits(case):
+    """Sizes at which the card's plan cuts each query's rows into many
+    splits (12 of 256 rows at B = 1 and 2 on 132 SMs), so pass 2 merges
+    many lists: rows in block-bound order (the best block first), depth =
+    R, whole 256-row splits of padding ids, and 0/1 operands whose scores
+    tie across splits at the depth-th rank.  Integer operands: bit for
+    bit."""
+    rng = np.random.default_rng({"bound-order": 21, "depth-r": 22, "padding-splits": 23,
+                                 "tied-depth": 24}[case])
+    b, n_docs, t = 2, 16 * BLOCK, 16
+    lo, hi = (-50, 50) if case == "bound-order" else (0, 2)
+    q = jnp.asarray(rng.integers(lo, hi, (b, t)), jnp.int8)
+    store = jnp.asarray(rng.integers(lo, hi, (n_docs, t)), jnp.int8)
+    if case == "bound-order":
+        scores = np.asarray(q, np.int64) @ np.asarray(store, np.int64).T
+        row_ids, depth = _block_rows(rng, b, n_docs, 12, scores), 100
+    elif case == "depth-r":
+        row_ids = _block_rows(rng, b, n_docs, 3)
+        depth = row_ids.shape[1]
+    elif case == "padding-splits":
+        row_ids = _block_rows(rng, b, n_docs, 12)
+        row_ids[:, 3 * BLOCK:6 * BLOCK] = BIG_ID          # three whole splits of padding
+        row_ids[1, 8 * BLOCK:9 * BLOCK] += 2 * n_docs     # and one of ids >= n_docs
+        depth = 100
+    else:
+        row_ids, depth = _block_rows(rng, 1, n_docs, 12), 100
+        q, row_ids = q[:1], row_ids
+    (jk_s, jk_i), (jr_s, jr_i) = _jax(q, store, row_ids, depth, n_docs, "gemm")
+    got = fused_topk_gathered(to_torch(q), to_torch(store), torch.from_numpy(row_ids), depth,
+                              n_docs)
+    assert_topk_match(got, (jk_s, jk_i), exact=True)
+    assert_topk_match(got, (jr_s, jr_i), exact=True)
+    if case == "tied-depth":  # rows of several splits tie the depth-th score, past the cut too
+        last = float(got[0][0, -1])
+        scores = (np.asarray(store, np.int64)[row_ids[0]] @ np.asarray(q, np.int64)[0])
+        kept = np.isin(row_ids[0], got[1][0][got[0][0] == last].numpy())
+        assert len({p // BLOCK for p in np.flatnonzero(kept)}) > 1
+        assert (scores == last).sum() > kept.sum()
+
+
+def _partial_lists(kind: str, splits: int, b: int, depth: int, seed: int):
+    """(splits, B, K) partial lists as pass 1 writes them: each sorted by
+    (score desc, id asc), K = depth rounded up to 32, padded with (-inf,
+    BIG_ID).  "ties": scores 0..3, ids distinct across lists; "dups": an id
+    may sit in several lists, with one score (a row kept twice); "short":
+    lists with fewer than depth finite entries, one of none; "float":
+    normal scores; "skewed": the first list holds the best scores (rows in
+    block-bound order), so the threshold cuts the others short."""
+    rng = np.random.default_rng(seed)
+    k = -(-depth // 32) * 32
+    part_s = np.full((splits, b, k), -np.inf, np.float32)
+    part_i = np.full((splits, b, k), BIG_ID, np.int32)
+    for qi in range(b):
+        ids = rng.permutation(splits * k * 2)[:splits * k].reshape(splits, k)
+        by_id = rng.integers(0, 4, splits * k * 2).astype(np.float32)
+        for s in range(splits):
+            n = k
+            if kind == "short":
+                n = 0 if s == 1 else int(rng.integers(1, depth))
+            row = ids[s, :n]
+            if kind == "dups":
+                row = rng.integers(0, k, n)
+            if kind in ("float", "skewed"):
+                sc = rng.normal(size=n).astype(np.float32) - (s > 0) * 2 * (kind == "skewed")
+            else:
+                sc = by_id[row]
+            if kind == "dups":  # a list holds each row once
+                row, first = np.unique(row, return_index=True)
+                sc = sc[first]
+            order = np.lexsort((row, -sc))
+            part_s[s, qi, :len(row)], part_i[s, qi, :len(row)] = sc[order], row[order]
+    return part_s, part_i
+
+
+@pytest.mark.parametrize("kind,splits,depth,lists", [
+    ("ties", 9, 20, 9),      # one chunk of lists
+    ("ties", 30, 16, 4),     # chunks of three lists after the first four
+    ("dups", 12, 32, 5),
+    ("short", 7, 40, 3),     # lists that give no threshold
+    ("float", 20, 10, 20),
+    ("skewed", 16, 64, 6),
+])
+def test_threshold_merge_matches_top_k_over_the_lists(kind, splits, depth, lists):
+    """Pass 2's threshold rule and tree merge (``torch_parity.
+    threshold_merge``) against ``lax.top_k`` over the concatenated lists'
+    first depth entries, ordered by id first so that ties go to the lowest
+    id: the same scores and ids, bit for bit."""
+    b = 3
+    part_s, part_i = _partial_lists(kind, splits, b, depth, seed=splits * depth)
+    got = threshold_merge(torch.from_numpy(part_s), torch.from_numpy(part_i), depth, lists)
+    cat_s = part_s[:, :, :depth].transpose(1, 0, 2).reshape(b, -1)
+    cat_i = part_i[:, :, :depth].transpose(1, 0, 2).reshape(b, -1)
+    by_id = np.argsort(cat_i, axis=1, kind="stable")
+    cat_s, cat_i = np.take_along_axis(cat_s, by_id, 1), np.take_along_axis(cat_i, by_id, 1)
+    want_s, pos = jax.lax.top_k(jnp.asarray(cat_s), depth)
+    want_s = np.asarray(want_s)
+    want_i = np.where(want_s == -np.inf, -1, np.take_along_axis(cat_i, np.asarray(pos), 1))
+    np.testing.assert_array_equal(got[0].numpy(), want_s)
+    np.testing.assert_array_equal(got[1].numpy(), want_i)

@@ -201,8 +201,66 @@ def test_launch_plan_fills_the_card_at_both_batch_sizes():
         k, splits, per = gathered_plan(1, b, r, 600, 100, sm_count=132)
         assert k == 128 and per % 32 == 0 and (splits - 1) * per < r <= splits * per
         assert b * splits >= 132 and per >= 256
+    # one list a block: depth is bounded by pass 2's two lists of depth
+    assert gathered_plan(1, 1, 10_000, 600, 7255, sm_count=132)[0] == 7264
     with pytest.raises(ValueError, match="shared memory"):
-        gathered_plan(1, 1, 10_000, 600, 3700, sm_count=132)
+        gathered_plan(1, 1, 10_000, 600, 7256, sm_count=132)
+
+
+@pytest.mark.gpu
+def test_gathered_plan_walks_long_row_ranges_at_small_batch():
+    """K3's plan: B x splits is the blocks the SMs hold at once (two each),
+    so at B = 1 and 8 each block walks a long row range and pass 2 merges
+    no more lists than that; from B = 264 on, one split a query."""
+    cuda_device()
+    r = 1171 * 256
+    for b, want in ((1, 261), (8, 33), (256, 2), (264, 1), (1000, 1)):
+        k, splits, per = gathered_plan(1, b, r, 600, 100, sm_count=132)
+        assert (k, splits) == (128, want)
+        assert b * splits <= 2 * 132 or splits <= 2
+        assert per % 32 == 0 and (splits - 1) * per < r <= splits * per
+    # no split under one round of 256 rows, however few the rows
+    assert gathered_plan(1, 1, 1000, 600, 100, sm_count=132)[1:] == (4, 256)
+
+
+def _block_ids(how: str, b: int, n: int, r: int, q, d, dev):
+    """(B, R) int32 ids of whole 256-row blocks: in random order ("blocks"),
+    best block first by the plain scores ("bound"), or "blocks" with every
+    third block padding ids, BIG_ID or >= n ("padded")."""
+    g = torch.Generator(device=dev).manual_seed(61)
+    n_blocks = n // 256
+    if how == "bound":
+        best = ref.scores_ref(q, d).reshape(b, n_blocks, 256).amax(-1)
+        blocks = torch.sort(best, dim=1, descending=True, stable=True)[1][:, :r // 256]
+    else:
+        blocks = torch.stack([torch.randperm(n_blocks, generator=g, device=dev)[:r // 256]
+                              for _ in range(b)])
+    ids = (blocks[:, :, None] * 256 + torch.arange(256, device=dev)).to(torch.int32)
+    if how == "padded":
+        ids[:, ::3] = 2**30
+        ids[:, 1::6] += n
+    return ids.reshape(b, -1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,b,n,r,t,depth,how", [
+    ("ties", 1, 204_800, 102_400, 16, 100, "blocks"),   # every rank tied, many splits
+    ("ties", 1, 204_800, 102_400, 16, 100, "bound"),
+    ("ties", 3, 20_480, 7_680, 16, 100, "padded"),      # whole splits of padding ids
+    ("ties", 2, 2_048, 768, 16, 768, "blocks"),         # depth = R
+    ("ties", 2, 20_480, 7_680, 16, 2000, "padded"),     # wide lists: inserts, chunked pass 2
+    ("int8", 8, 51_200, 25_600, 600, 100, "bound"),     # 600-byte rows in bound order
+])
+def test_cuda_gathered_ties_padding_and_bound_order(kind, b, n, r, t, depth, how):
+    """K3 where its block list and pass 2 must be exact: integer scores, so
+    ids are bit-equal to the plain version's at every tie."""
+    dev = cuda_device()
+    q, d = _operands(kind, b, n, t, dev)
+    ids = _block_ids(how, b, n, r, q, d, dev)
+    got = fused_topk_gathered(q, d, ids, depth, n)
+    torch.cuda.synchronize()
+    want = ref.gathered_topk_ref(q, ref.gather_rows(d, ids, n), ids, min(depth + 1, r), n)
+    assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=True)
 
 
 @pytest.mark.gpu

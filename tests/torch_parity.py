@@ -1,7 +1,7 @@
 """Helpers shared by the ``test_torch_*`` files: moving arrays from JAX /
 numpy to torch, holding top-k results against each other, and emulating
-K4's split-TF32 arithmetic (an f32 query over int8 or int4 rows) on the
-CPU."""
+on the CPU K4's split-TF32 arithmetic (an f32 query over int8 or int4 rows)
+and the fused top-k kernels' pass 2 (the threshold rule and tree merge)."""
 from typing import Optional, Tuple
 
 import numpy as np
@@ -121,6 +121,67 @@ def split_tf32_topk(q: torch.Tensor, docs: torch.Tensor, scale: torch.Tensor, de
     s, i = torch.sort(torch.where(keep, s, -torch.inf), dim=1, descending=True, stable=True)
     s, i = s[:, :depth], i[:, :depth].to(torch.int32)
     return s, torch.where(s == -torch.inf, torch.full_like(i, -1), i)
+
+
+def _precedes(a_s, a_i, b_s, b_i):
+    """(a_s, a_i) comes before (b_s, b_i) in the output order: score desc,
+    id asc (broadcasting)."""
+    return (a_s > b_s) | ((a_s == b_s) & (a_i < b_i))
+
+
+def threshold_merge(part_s: torch.Tensor, part_i: torch.Tensor, depth: int,
+                    lists: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused top-k kernels' pass 2, emulated in torch: each query's
+    splits' sorted lists (splits, B, K) cut to their first ``depth``
+    entries; tau, the best of the lists' depth-th entries under (score
+    desc, id asc); each list cut after its last entry at or before tau;
+    then up to ``lists`` lists at a time merged as a tree (lists 2p and
+    2p + 1 into list p, an entry's slot its index plus its rank in the other
+    list, list 2p first where two entries are equal, slots >= depth
+    dropped), a later chunk with the result so far in its first slot and
+    its lists cut at the better of tau and that result's depth-th entry,
+    once it has depth entries.  Returns the first ``depth`` entries (B,
+    depth), -inf slots as id -1."""
+    splits, b, _ = part_s.shape
+    out_s = torch.full((b, depth), -torch.inf)
+    out_i = torch.full((b, depth), -1, dtype=torch.int32)
+    for qi in range(b):
+        s, i = part_s[:, qi, :depth], part_i[:, qi, :depth].long()
+        tau_s, tau_i = s[0, -1], i[0, -1]
+        for j in range(1, splits):
+            if _precedes(s[j, -1], i[j, -1], tau_s, tau_i):
+                tau_s, tau_i = s[j, -1], i[j, -1]
+        x, s0 = [], 0
+        while s0 < splits:
+            take = min(splits - s0, lists - len(x))
+            for j in range(s0, s0 + take):
+                keep = ~_precedes(tau_s, tau_i, s[j], i[j])
+                x.append((s[j][keep], i[j][keep]))
+            s0 += take
+            while len(x) > 1:
+                y = []
+                for p in range(0, len(x), 2):
+                    if p + 1 == len(x):
+                        y.append(x[p])
+                        continue
+                    (a_s, a_i), (b_s, b_i) = x[p], x[p + 1]
+                    pos_a = torch.arange(len(a_s)) + _precedes(
+                        b_s[None, :], b_i[None, :], a_s[:, None], a_i[:, None]).sum(1)
+                    pos_b = torch.arange(len(b_s)) + (~_precedes(
+                        b_s[:, None], b_i[:, None], a_s[None, :], a_i[None, :])).sum(1)
+                    n = min(depth, len(a_s) + len(b_s))
+                    m_s, m_i = torch.empty(n), torch.empty(n, dtype=torch.long)
+                    for pos, vs, vi in ((pos_a, a_s, a_i), (pos_b, b_s, b_i)):
+                        keep = pos < depth
+                        m_s[pos[keep]], m_i[pos[keep]] = vs[keep], vi[keep]
+                    y.append((m_s, m_i))
+                x = y
+            if len(x[0][0]) == depth and _precedes(x[0][0][-1], x[0][1][-1], tau_s, tau_i):
+                tau_s, tau_i = x[0][0][-1], x[0][1][-1]
+        r_s, r_i = x[0]
+        out_s[qi, :len(r_s)] = r_s
+        out_i[qi, :len(r_s)] = torch.where(r_s == -torch.inf, -1, r_i).to(torch.int32)
+    return out_s, out_i
 
 
 def cuda_device() -> torch.device:
