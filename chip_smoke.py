@@ -10,8 +10,8 @@
    and the count of tensor-core instructions in each instance of the
    tensor-core pass 1 (``csrc/mma_topk.cuh``; ``cuobjdump -sass``): HMMA in
    K1 classic's and K4's with a bf16 query, IMMA in K1 dot's (int8), TF32
-   HMMA in K4's with an f32 query over int8 and over int4 rows; an instance
-   without them fails the run.
+   HMMA in K1 f32's (split TF32 over f32 rows) and in K4's with an f32 query
+   over int8 and over int4 rows; an instance without them fails the run.
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
    shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
@@ -19,7 +19,11 @@
    doc id (every tile, or only the first, feeds the running lists; ids must
    be bit-equal), depth 3,072 at B = 1 and B = 65; for int8 also the full
    range, -128 / 127 only, and a ``[u; -u]`` dot query, at T = 600 (8-byte
-   rows), 256 (16-byte rows) and 37.
+   rows), 256 (16-byte rows) and 37; for f32 (split TF32 on tensor cores)
+   also integer-valued 0/1 operands and rising / falling scores, bit for
+   bit, depth = N and 3,072, and unit vectors at the cosine's T = 300, depth
+   10, B = 256, 8 and 1, which a copy of the kernel without the doc's low
+   tf32 part (K1_DOC_HI_ONLY) must fail.
 3. Holds the gathered fused top-k kernel (K3) against its plain version the
    same way, with row ids in random order, in 256-row blocks and in bound
    order (best block first), padding ids and whole 256-row splits of them,
@@ -46,7 +50,9 @@
    B = 256, depth 100, k 10) end to end through ``AnnIndex.build`` /
    ``search`` on the card, with the exact-cosine ground truth, and checks
    recall, the rerank identity and that the kernel carried the path; then
-   dot scoring over the same index (K1 int8, on int8 tensor cores).
+   dot scoring over the same index (K1 int8, on int8 tensor cores), and
+   brute force over fp32 postings (``BruteForceConfig``, K1 f32) at B = 256,
+   8 and 1, whose ids must equal the ground truth's.
 6. Runs blockmax pruning on that index (10% and 25% of the 256-row blocks
    kept) through the facade, with recalls, and at every block kept holds
    classic, dot and lsh blockmax against the dense searches.
@@ -54,8 +60,9 @@
    searches it at B = 256 on K1's lsh mode (K2), with recall.
 8. Times build, searches (classic and dot at B = 256 and 1; blockmax at 8
    and 1), and each kernel beside its bound, its plain version and a
-   library yardstick (K1 dot at B = 256, 8 and 1; K3 classic at B = 1, 8
-   and 256 and dot at B = 1 and 8, each with pass 1 and pass 2 apart), with
+   library yardstick (K1 classic, f32 and dot at B = 256, 8 and 1; K3
+   classic at B = 1, 8 and 256 and dot at B = 1 and 8, each with pass 1 and
+   pass 2 apart), with
    CUDA events (median of 10 runs after a warm-up); traces five classic
    searches at B = 256, and five blockmax searches at B = 1, 8 and 256, with
    torch.profiler (device time per CUDA kernel, idle share).
@@ -94,15 +101,17 @@ unpacked, e.g. by ``git archive``), it builds that tree's ``fused_topk.cu``
 and ``fused_topk_quantized.cu`` beside this one's, calls them through the C
 signatures of that tree's own sources, and times both on the ann-word2vec
 inputs in turns (parent, this, this, parent), their results held to each
-other: K1 classic at B = 256 and B = 1, K1 f32 at B = 256, K1 dot at
-B = 256, 8 and 1 (bit for bit), K4 with a bf16 query over int8 and int4
+other: K1 classic at B = 256 and B = 1, K1 f32 at B = 256, 8 and 1, K1 dot
+at B = 256, 8 and 1 (bit for bit), K4 with a bf16 query over int8 and int4
 postings at B = 256, 8 and 1, and K4 with an f32 query over int8 and over
 int4 postings at B = 256, 8 and 1 (and an integer case of each bit for
 bit), K3 (blockmax stage 2, classic and dot; each tree's pass 1 and pass
 2 apart), K1 lsh and K5.  With ``--ablate [DIR]`` it times K3 at the
 blockmax path's shape with its inserts and its products cut out
 (K3_ABLATIONS; also the K3 of the tree in DIR, e.g. the parent), each
-kernel's pass 1 and pass 2 apart, and the tensor-core pass 1 (K1 classic, K1
+kernel's pass 1 and pass 2 apart, K1 f32 at the ground truth's shape with
+its running top-k and its products cut out (K1F32_ABLATIONS; also DIR's),
+and the tensor-core pass 1 (K1 classic, K1
 dot, K4 int8 and int4 with a bf16 query, K4 int8 and int4 with an f32 one)
 against copies of it with the running top-k, the widening and the
 products cut out (ABLATIONS; for the f32 query also the fold, the query's
@@ -177,13 +186,15 @@ def _bound(nbytes: float, ops: float, kind: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bound_ms(q, docs, n_docs: int, depth: int, kind: str):
+def bound_ms(q, docs, n_docs: int, depth: int, kind: str, passes: int = 1):
     """Bound of one fused top-k call: each input read once, each output
-    written once; 2*B*N*T operations (B*N*S compares in lsh mode)."""
+    written once; ``passes`` x 2*B*N*T operations at the peak of ``kind``
+    (B*N*S compares in lsh mode; "tf32" with 3 passes for K1 f32's
+    split-TF32 product, three tf32 products per f32 one)."""
     b, t = q.shape
     nbytes = (q.numel() * q.element_size() + n_docs * t * docs.element_size()
               + b * depth * 8)
-    ops = (1.0 if kind == "int32" else 2.0) * b * n_docs * t
+    ops = passes * (1.0 if kind == "int32" else 2.0) * b * n_docs * t
     return _bound(nbytes, ops, kind)
 
 
@@ -270,7 +281,7 @@ def _instance(mangled: str) -> str:
     the kernel's name and its integer, bool and type template arguments."""
     m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_bf16_partial"
                   r"|quantized_tf32_partial|gathered_partial|bf16_partial"
-                  r"|int8_partial|partial|merge)"
+                  r"|int8_partial|f32_partial|partial|merge)"
                   r"|dense_scores"
                   r"|flash_attention_fwd)"
                   r"(?:I((?:Li-?\d+E|Lb[01]E|[ft])+)E)?",
@@ -298,35 +309,48 @@ def build_kernels(names=None) -> float:
     return seconds
 
 
-def sass_count(name: str, opcode: str):
-    """Instructions matching the regular expression ``opcode`` (HMMA: bf16
-    or tf32 tensor-core products; IMMA: int8 ones; ``HMMA\\.\\S*TF32``: tf32
-    ones) per kernel instance in the SASS of library ``name``
-    (``cuobjdump -sass``), or None where the toolkit has no cuobjdump."""
-    from repro_torch.kernels import common
-
+def sass(path: str):
+    """{kernel instance: its SASS instructions, addresses and encodings
+    stripped} of the library at ``path`` (``cuobjdump -sass``), or None
+    where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    sass = subprocess.run([tool, "-sass", str(common.library_path(name))], capture_output=True,
-                          text=True, check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                         check=True).stdout
+    code, fn = {}, None
+    for line in out.splitlines():
         if "Function :" in line:
             fn = _instance(line.split("Function :")[1])
-            counts[fn] = 0
-        elif fn is not None and re.search(opcode, line):
-            counts[fn] += 1
-    return counts
+            code[fn] = []
+        elif fn is not None:
+            ins = re.sub(r"/\*.*?\*/", "", line).strip()
+            if ins:
+                code[fn].append(ins)
+    return code
+
+
+def sass_count(name: str, opcode: str):
+    """Instructions matching the regular expression ``opcode`` (HMMA: bf16
+    or tf32 tensor-core products; IMMA: int8 ones; ``HMMA\\.\\S*TF32``: tf32
+    ones) per kernel instance in the SASS of library ``name``, or None
+    where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import common
+
+    code = sass(common.library_path(name))
+    if code is None:
+        return None
+    return {fn: sum(1 for ins in lines if re.search(opcode, ins)) for fn, lines in code.items()}
 
 
 # The tensor-core pass 1 (mma_topk.cuh) in each library (the instances
 # whose names start so) and the instruction its products assemble to: K1
 # classic's instances and K4's with a bf16 query (mma.sync m16n8k16 bf16:
-# HMMA), K1 dot's (m16n8k32 s8: IMMA), K4's with an f32 query over int8 and
-# over int4 rows (m16n8k8 tf32: HMMA on TF32 operands).
+# HMMA), K1 dot's (m16n8k32 s8: IMMA), K1 f32's and K4's with an f32 query
+# over int8 and over int4 rows (m16n8k8 tf32: HMMA on TF32 operands).
 TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fused_topk", "fused_topk_int8_partial", "IMMA"),
+                       ("fused_topk", "fused_topk_f32_partial", r"HMMA\.\S*TF32"),
                        ("fused_topk_quantized", "fused_topk_quantized_bf16_partial", "HMMA"),
                        ("fused_topk_quantized", "fused_topk_quantized_tf32_partial<8,",
                         r"HMMA\.\S*TF32"),
@@ -361,10 +385,16 @@ def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
         q = torch.zeros((b, t), device=dev, dtype=torch.int8)
         q[:, :2] = 1
         d = torch.randint(0, 2, (n, t), generator=gen, device=dev, dtype=torch.int8)
-    elif kind == "ties-bf16":  # 0/1 bf16 operands: small integer scores, tied constantly
-        q = torch.randint(0, 2, (b, t), generator=gen, device=dev).to(torch.bfloat16)
-        d = torch.randint(0, 2, (n, t), generator=gen, device=dev).to(torch.bfloat16)
-    elif kind in ("rising", "falling"):  # bf16, exact scores 4 id + (0..3): monotone in the id
+    elif kind in ("ties-bf16", "ties-f32"):  # 0/1 floats: small integer scores, tied constantly
+        dtype = torch.bfloat16 if kind == "ties-bf16" else torch.float32
+        q = torch.randint(0, 2, (b, t), generator=gen, device=dev).to(dtype)
+        d = torch.randint(0, 2, (n, t), generator=gen, device=dev).to(dtype)
+    elif kind == "unit-f32":  # unit vectors: the exact cosine's operands
+        q, d = (torch.nn.functional.normalize(torch.randn(shape, generator=gen, device=dev), dim=1)
+                for shape in ((b, t), (n, t)))
+    elif kind in ("rising", "falling", "rising-f32", "falling-f32"):
+        # bf16 or f32, exact scores 4 id + (0..3): monotone in the id; every
+        # value an integer below 2^11, so its own high tf32 part
         ids = torch.arange(n, device=dev)
         d = torch.randint(-3, 4, (n, t), generator=gen, device=dev)
         d[:, 0], d[:, 1] = ids // 256, ids % 256
@@ -372,7 +402,8 @@ def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
         q = torch.zeros((b, t), device=dev)
         q[:, 0], q[:, 1] = 1024, 4
         q[:, 2] = torch.randint(0, 2, (b,), generator=gen, device=dev)
-        q, d = (q if kind == "rising" else -q).to(torch.bfloat16), d.to(torch.bfloat16)
+        dtype = torch.float32 if kind.endswith("f32") else torch.bfloat16
+        q, d = (q if kind.startswith("rising") else -q).to(dtype), d.to(dtype)
     elif kind in ("rising-int8", "falling-int8"):
         # int8, exact scores 4 id - 51,200 + (0..3), monotone in the id (T >= 7,
         # N <= 29,184): doc columns 0-4 hold id // 128 - 100 against query
@@ -411,15 +442,36 @@ def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
 
 
 EXACT_KINDS = ("int8", "lsh", "ties", "ties-bf16", "rising", "falling", "rising-int8",
-               "falling-int8", "int8-full", "int8-extremes", "dot")  # integer scores
+               "falling-int8", "int8-full", "int8-extremes", "dot", "ties-f32", "rising-f32",
+               "falling-f32")  # integer scores
 
 
-def check_kernels(dev) -> dict:
-    """The fused top-k kernel against its plain version, every score mode."""
+# K1 f32's planted fault: the split-TF32 product over f32 rows without the
+# doc's low tf32 part (doc lo x q hi), so each doc value keeps ~1e-3 of its
+# bits.  Every "unit-f32" case (the exact cosine's operands) must fail with
+# it, which shows that those cases can see a doc cut to tf32.
+K1_DOC_HI_ONLY = ("    mma_tf32(c, lo, b[0], b[1]);  // doc lo x q hi\n", "")
+
+
+def build_planted_k1():
+    """(name, topk): K1 built from a copy of this tree's sources with
+    K1_DOC_HI_ONLY (``_tree_kernels``), called as ``topk(q, docs, depth)``."""
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    return ("doc-hi-only", _tree_kernels(kdir, os.path.join(ROOT, "build", "planted-k1"),
+                                         names=("fused_topk",),
+                                         edits=[K1_DOC_HI_ONLY])["fused_topk"])
+
+
+def check_kernels(dev, planted=None) -> dict:
+    """The fused top-k kernel against its plain version, every score mode;
+    on each "unit-f32" case also the copy with a planted fault (``planted``,
+    from build_planted_k1, built here if not given), which must fail the
+    same comparison."""
     from repro_torch.kernels.fused_topk import ref
     from repro_torch.kernels.fused_topk.kernel import fused_topk
 
     gen = torch.Generator(device=dev).manual_seed(0)
+    copy, bad_topk = planted or build_planted_k1()
     cases = []
     for kind in ("bf16", "f32", "int8", "lsh"):
         cases += [
@@ -464,6 +516,26 @@ def check_kernels(dev) -> dict:
         ("int8-extremes", 70, 20_000, 600, 100, None, 19_999),
         ("ties", 65, 600, 600, 600, None, None),           # depth = N at T = 600
         ("dot", 65, 20_000, 600, 100, None, None),
+        # The split-TF32 f32 pass 1 (K1 f32).  Integer values below 2^11 are
+        # their own high tf32 part, so the sums are exact and ids bit-equal:
+        # 0/1 operands at depth = N and 3,072, scores that rise or fall with
+        # the doc id (rows of 300 f32 take the ring, of 37 registers).  Unit
+        # vectors at the cosine's T = 300 and depth 10 at B = 256, 8 and 1,
+        # which the copy without the doc's low part (K1_DOC_HI_ONLY) must fail.
+        ("ties-f32", 3, 130, 16, 130, None, None),         # depth = N, massive ties
+        ("ties-f32", 33, 300, 16, 300, None, None),
+        ("ties-f32", 9, 1000, 16, 1000, "shared", None),
+        ("ties-f32", 65, 600, 300, 600, None, None),       # depth = N at T = 300
+        ("ties-f32", 1, 5000, 64, 3072, None, None),       # the widest lists: merge by insert
+        ("rising-f32", 65, 20_000, 300, 100, None, None),  # every tile flushes
+        ("rising-f32", 1, 20_000, 300, 100, None, 19_000),
+        ("falling-f32", 65, 20_000, 300, 100, "per-query", None),  # only the first tiles flush
+        ("falling-f32", 5, 20_000, 37, 100, None, None),
+        ("rising-f32", 65, 20_000, 37, 100, "shared", None),
+        ("f32", 1, 20_000, 300, 3072, None, None),         # depth 3,072 at B = 1
+        ("unit-f32", 256, 100_000, 300, 10, None, None),
+        ("unit-f32", 8, 100_000, 300, 10, None, None),
+        ("unit-f32", 1, 100_000, 300, 10, None, None),
     ]
     worst = {}
     for kind, b, n, t, depth, filt_kind, n_docs in cases:
@@ -482,6 +554,13 @@ def check_kernels(dev) -> dict:
         err = compare(name, got, want, exact=kind in EXACT_KINDS)
         worst[kind] = max(worst.get(kind, 0.0), err)
         print(f"  ok  {name}  max_abs_err={err:.3g}")
+        if kind == "unit-f32":
+            try:
+                compare(f"{name}, {copy} copy", bad_topk(q, d, depth), want, exact=False)
+            except AssertionError as fault:
+                print(f"  ok  the {copy} copy fails: {fault}")
+            else:
+                raise AssertionError(f"{name}: the {copy} copy passed the comparison")
     print(f"fused_topk vs plain on the card: {len(cases)} cases, worst {worst}")
     return worst
 
@@ -1099,16 +1178,20 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--ablate"]:  # pass 1 with parts cut out, then stop
         build_kernels(["fused_topk", "fused_topk_quantized"])
-        ablate_k3(dev, card, [("this tree", ROOT)] + [("parent", d) for d in argv[1:2]])
+        trees = [("this tree", ROOT)] + [("parent", d) for d in argv[1:2]]
+        ablate_k3(dev, card, trees)
+        ablate_k1_f32(dev, card, trees)
         ablate(dev, card)
         return 0
     with ThreadPoolExecutor() as pool:  # the planted copies' nvcc beside the others
         planted = pool.submit(build_planted)
+        planted_k1 = pool.submit(build_planted_k1)
         planted_k3 = pool.submit(build_planted_k3)
         build_kernels()
-        planted, planted_k3 = planted.result(), planted_k3.result()
+        planted, planted_k1, planted_k3 = (planted.result(), planted_k1.result(),
+                                           planted_k3.result())
     check_tensor_cores()
-    check_kernels(dev)
+    check_kernels(dev, planted_k1)
     check_gathered(dev, planted_k3)
     check_quantized(dev, planted)
     check_dense(dev)
@@ -1494,6 +1577,64 @@ def ablate_k3(dev, card: str, trees=(("this tree", ROOT),)) -> None:
                   + split_line(kernel_split(lambda: fns["full"](*args), runs=3 if bb > 8 else 5)))
 
 
+# Copies of K1 f32 (fused_topk in f32 mode), for timing only (their results
+# are wrong): without the running top-k, and the loads alone (no products,
+# no top-k).  Each edit names its text in the tensor-core pass 1
+# (mma_topk.cuh: the edits of ABLATIONS) and in the CUDA-core
+# fused_topk_partial that ran K1 f32 before it (whose scores stay live,
+# compared with a value they never take, and are never inserted), so that
+# the same copies can be made of either tree.
+K1F32_NO_TOPK = (_NO_TOPK, (
+    "unsigned mask = __ballot_sync(kFull, valid && precedes(s, id, rs[K - 1], ri[K - 1]));",
+    "unsigned mask = __ballot_sync(kFull, valid && s == 1234.5f && precedes(s, id, rs[K - 1], "
+    "ri[K - 1]));"))
+K1F32_NO_PRODUCTS = (_NO_PRODUCTS, ("for (int kk = 0; kk < kBK; ++kk) {",
+                                    "for (int kk = 0; kk < 0; ++kk) {"))
+K1F32_ABLATIONS = {
+    "full": [],
+    "without the running top-k": [K1F32_NO_TOPK],
+    "loads only": [K1F32_NO_TOPK, K1F32_NO_PRODUCTS],
+}
+
+
+def ablate_k1_f32(dev, card: str, trees=(("this tree", ROOT),)) -> None:
+    """K1 f32 at the ground truth's shape (2,999,808 random unit rows of 300
+    f32, unit queries, depth 10), built from each tree's sources as it is
+    and with parts cut out (K1F32_ABLATIONS), timed in turns (full, each
+    copy, full) at B = 256, 8 and 1; and, given two trees (label, root),
+    their full kernels in turns (second, first, first, second) at each B."""
+    n, t, depth = 2_999_808, 300, 10
+    gen = torch.Generator(device=dev).manual_seed(10)
+    docs = torch.nn.functional.normalize(torch.randn((n, t), generator=gen, device=dev), dim=1)
+    q = torch.nn.functional.normalize(torch.randn((256, t), generator=gen, device=dev), dim=1)
+    with ThreadPoolExecutor() as pool:  # every copy's nvcc at once
+        built = {(label, name): pool.submit(
+            _tree_kernels, os.path.join(os.path.abspath(root), "src", "repro_torch", "kernels"),
+            os.path.join(ROOT, "build", "ablate-k1f32", f"{label}-{j}".replace(" ", "-")),
+            names=("fused_topk",), edits=K1F32_ABLATIONS[name])
+            for label, root in trees for j, name in enumerate(K1F32_ABLATIONS)}
+        cut = {}
+        for (label, name), fut in built.items():
+            cut.setdefault(label, {})[name] = fut.result()["fused_topk"]
+    for bb in (256, 8, 1):
+        qb = q[:bb]
+        if len(trees) > 1:
+            (first, f_fn), (second, s_fn) = ((label, cut[label]["full"]) for label, _ in trees[:2])
+            compare(f"K1 f32 B={bb}: {first} vs {second}", f_fn(qb, docs, depth),
+                    s_fn(qb, docs, depth + 1), exact=False)
+            times = [cuda_ms(lambda i=i: (s_fn if i in (0, 3) else f_fn)(qb, docs, depth))
+                     for i in range(4)]
+            print(f"K1 f32 in turns, B={bb} on {card}: {second} {times[0]:.3f} ms, "
+                  f"{first} {times[1]:.3f} ms, {first} {times[2]:.3f} ms, "
+                  f"{second} {times[3]:.3f} ms")
+        for label, fns in cut.items():
+            line = [f"{name} {cuda_ms(lambda fn=fn: fn(qb, docs, depth)):.3f} ms"
+                    for name, fn in fns.items()]
+            line.append(f"full {cuda_ms(lambda: fns['full'](qb, docs, depth)):.3f} ms")
+            print(f"K1 f32 ablation ({label}), B={bb}, N={n}, T={t}, depth {depth}, on {card}: "
+                  + "; ".join(line))
+
+
 def pair_parent(dev, card: str, parent: str) -> None:
     """K1-K5 of the tree ``parent`` (its own sources, plans and C
     signatures, ``_tree_kernels``) and of this tree on the same ann-word2vec
@@ -1501,7 +1642,7 @@ def pair_parent(dev, card: str, parent: str) -> None:
     median of RUNS each), with the results
     held to each other (ids equal away from near-ties; integer scores bit
     for bit): K1 classic (bf16, the main path's call) at B = 256 and B = 1,
-    K1 f32 (the ground truth's call) at B = 256 and K1 dot (the dot search's
+    K1 f32 (the ground truth's call) at B = 256, 8 and 1 and K1 dot (the dot search's
     call) at B = 256, 8 and 1 over the fp32 index; K3 (blockmax stage 2 at
     10% of the blocks, rows in bound order) classic at B = 256, 8 and 1,
     each tree's pass 1 and pass 2 apart (torch.profiler), and dot at B = 8
@@ -1529,6 +1670,20 @@ def pair_parent(dev, card: str, parent: str) -> None:
             os.path.join(ROOT, "build", "pair"))
         build_kernels(["fused_topk", "fused_topk_quantized"])
         old = parent_build.result()
+    from repro_torch.kernels import common
+
+    for name in ("fused_topk", "fused_topk_quantized"):  # instances in both trees
+        new_code = sass(common.library_path(name))
+        old_code = sass(os.path.join(ROOT, "build", "pair", f"lib{name}.so"))
+        if new_code is None or old_code is None:
+            print("SASS of both trees: no cuobjdump in the CUDA toolkit")
+            break
+        both = sorted(set(new_code) & set(old_code))
+        same = [fn for fn in both if new_code[fn] == old_code[fn]]
+        print(f"SASS of {name}, this tree against the parent: {len(same)} of the {len(both)} "
+              f"instances in both identical; differing: {sorted(set(both) - set(same))}; only "
+              f"here: {sorted(set(new_code) - set(old_code))}; only in the parent: "
+              f"{sorted(set(old_code) - set(new_code))}")
     cell = ann_word2vec.ARCH.cell("ann_search")
     config = ann_word2vec.ARCH.make_model(cell)
     x, qx = make_inputs(dev, cell.get("n_docs"), cell.batch)
@@ -1547,7 +1702,9 @@ def pair_parent(dev, card: str, parent: str) -> None:
     qv = fakewords.classic_query(idx.index, q_tf)
     for name, q, docs, d in (("K1 classic bf16 B=256", qv, idx.index.scored, depth),
                              ("K1 classic bf16 B=1", qv[:1], idx.index.scored, depth),
-                             ("K1 f32 B=256", qn, idx.index.vectors, k)):
+                             ("K1 f32 B=256", qn, idx.index.vectors, k),
+                             ("K1 f32 B=8", qn[:8], idx.index.vectors, k),
+                             ("K1 f32 B=1", qn[:1], idx.index.vectors, k)):
         pair(name, fused_topk, old["fused_topk"], (q, docs), d)
     q_dot = fakewords.dot_query(idx.index, q_tf, dtype=torch.int8)
     for bb in (256, 8, 1):  # integer scores: bit for bit
@@ -1658,7 +1815,7 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
     from repro_torch.core import blockmax, bruteforce, eval as ev, fakewords, lexical_lsh
     from repro_torch.core import pipeline as pl
     from repro_torch.core.index import AnnIndex
-    from repro_torch.core.types import LexicalLshConfig
+    from repro_torch.core.types import BruteForceConfig, LexicalLshConfig
     from repro_torch.kernels.fused_topk import ops, ref
     from repro_torch.kernels.fused_topk.kernel import fused_topk, fused_topk_gathered
 
@@ -1719,6 +1876,28 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
                       ref.fused_topk_ref(q_dot[:32], tf, depth), exact=True)
     print(f"dot search (int8 tf, K1 int8): R@(10,100) {float(ev.recall_at(gt_i, dot_i)):.4f}; "
           f"fused_topk launches {dot_launches}; vs plain on 32 queries max_abs_err {err_dot:.3g}")
+
+    # ---- main path 1c: brute force over fp32 postings (K1 f32) -------------
+    # The exact cosine as a user searches it: its ids at B = 256, 8 and 1
+    # must be the ground truth's (the same kernel over the same unit rows).
+    bidx = AnnIndex.build(x, BruteForceConfig(), device=dev)
+    line = []
+    for bb in (b, 8, 1):
+        _reset_launches()
+        bf_s, bf_i = bidx.search(qx[:bb], k=k, depth=k)
+        torch.cuda.synchronize()
+        bf_launches = _only(f"brute force over fp32 postings, B={bb}", "fused_topk")
+        _checked(f"brute force fp32 B={bb}", bf_s, bf_i, bb, k, n)
+        if not torch.equal(bf_i, gt_i[:bb]):
+            raise AssertionError(f"brute force over fp32 postings, B={bb}: "
+                                 f"{int((bf_i != gt_i[:bb]).sum())} ids differ from the truth")
+        line.append(f"B={bb} {cuda_ms(lambda: bidx.search(qx[:bb], k=k, depth=k)):.3f} ms "
+                    f"({bf_launches} launch)")
+    print(f"brute force, fp32 postings ({bidx.nbytes() / 1e9:.2f} GB), k = depth = {k}: ids equal "
+          f"the ground truth's at B = {b}, 8 and 1; search (median of {RUNS}, CUDA events) on "
+          f"{card}: {'; '.join(line)}")
+    del bidx
+    torch.cuda.empty_cache()
 
     # ---- main path 2: blockmax classic ----------------------------------
     n_blocks = -(-n // BLOCK)
@@ -1846,38 +2025,44 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
     t_lsh_1 = cuda_ms(lambda: lidx.search(qx[:1], k=k, depth=depth))
     print(f"lexical LSH search: B={b} {t_lsh:.2f} ms; B=1 {t_lsh_1:.3f} ms")
 
+    def int8_library(qb):
+        """torch.topk(_int_mm(q, tf.T).float()); _int_mm takes more than 16
+        rows, so a smaller B runs on the query zero-padded to 32 rows."""
+        if qb.shape[0] > 16:
+            return lambda: torch.topk(torch._int_mm(qb, tf.T).float(), depth)
+        q_pad = torch.zeros((32, qb.shape[1]), dtype=qb.dtype, device=dev)
+        q_pad[:qb.shape[0]] = qb
+        return lambda: torch.topk(torch._int_mm(q_pad, tf.T)[:qb.shape[0]].float(), depth)
+
     kernels = []
+    f32_lib = f"torch.topk(matmul) with allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
     for name, qop, docs, d, kind, launches, err, library, lib_label in (
             ("fused_topk", qv, scored, depth, "bf16", search_launches, err_classic,
-             lambda: torch.topk(torch.matmul(qv, scored.T), depth), "torch.topk(matmul)"),
+             lambda qb: lambda: torch.topk(torch.matmul(qb, scored.T), depth),
+             "torch.topk(matmul)"),
             ("fused_topk/f32-exact", qn, vectors, k, "f32", gt_launches, err_f32,
-             lambda: torch.topk(torch.matmul(qn, vectors.T), k), "torch.topk(matmul)"),
-            ("fused_topk/int8", q_dot, tf, depth, "int8", dot_launches, err_dot,
-             lambda: torch.topk(torch._int_mm(q_dot, tf.T).float(), depth),
-             "torch.topk(torch._int_mm(q, tf.T).float())")):
-        ms = cuda_ms(lambda: fused_topk(qop, docs, d))
-        ms_1 = cuda_ms(lambda: fused_topk(qop[:1], docs, d))
-        plain_ms = cuda_ms(lambda: ref.fused_topk_ref(qop, docs, d))
-        lib_ms = cuda_ms(library)
-        bound, bound_by = bound_ms(qop, docs, n, d, kind)
-        bound_1, _ = bound_ms(qop[:1], docs, n, d, kind)
-        small = ""
-        if kind == "int8":
-            # B = 8 too.  _int_mm takes more than 16 rows, so at B = 8 and 1
-            # the yardstick runs on the query zero-padded to 32 rows.
-            q_pad = torch.zeros((32, qop.shape[1]), dtype=qop.dtype, device=dev)
-            for bb in (8, 1):
-                q_pad.zero_()
-                q_pad[:bb] = qop[:bb]
-                ms_b = cuda_ms(lambda: fused_topk(qop[:bb], docs, d))
-                lib_b = cuda_ms(lambda: torch.topk(torch._int_mm(q_pad, docs.T)[:bb].float(), d))
-                small += (f"; B={bb} kernel {ms_b:.3f} ms, bound "
-                          f"{bound_ms(qop[:bb], docs, n, d, kind)[0]:.3f} ms, {lib_label} on the "
-                          f"query zero-padded to 32 rows {lib_b:.3f} ms")
-        print(f"{name} ({kind}, B={qop.shape[0]}, N={n}, T={qop.shape[1]}, depth={d}): "
-              f"kernel {ms:.3f} ms, bound {bound:.3f} ms ({bound_by}); "
-              f"B=1 kernel {ms_1:.3f} ms, bound {bound_1:.3f} ms; "
-              f"plain {plain_ms:.3f} ms; {lib_label} {lib_ms:.3f} ms{small}")
+             lambda qb: lambda: torch.topk(torch.matmul(qb, vectors.T), k), f32_lib),
+            ("fused_topk/int8", q_dot, tf, depth, "int8", dot_launches, err_dot, int8_library,
+             "torch.topk(torch._int_mm(q, tf.T).float()), B <= 16 on the query zero-padded to "
+             "32 rows")):
+        # K1 f32 runs split TF32, three tf32 products per f32 one: its row's
+        # bound is theirs, and the f32 FMAs of the plain product (the bound of
+        # the CUDA-core design it replaced) stand beside it.
+        bkind, passes = ("tf32", 3) if kind == "f32" else (kind, 1)
+        at = {}  # B -> (kernel, plain, library, bound, bound_by) at the first B queries
+        for bb in (b, 8, 1):
+            qb = qop[:bb]
+            at[bb] = (cuda_ms(lambda: fused_topk(qb, docs, d)),
+                      cuda_ms(lambda: ref.fused_topk_ref(qb, docs, d)),
+                      cuda_ms(library(qb)), *bound_ms(qb, docs, n, d, bkind, passes))
+        fma = ("; f32-FMA bound " + ", ".join(
+            f"B={bb} {bound_ms(qop[:bb], docs, n, d, 'f32')[0]:.3f} ms" for bb in at)
+            if kind == "f32" else "")
+        print(f"{name} ({kind}, N={n}, T={qop.shape[1]}, depth={d}): "
+              + "; ".join(f"B={bb} kernel {v[0]:.3f} ms, bound {v[3]:.3f} ms ({v[4]}, {bkind}), "
+                          f"plain {v[1]:.3f} ms, library {v[2]:.3f} ms" for bb, v in at.items())
+              + f"{fma} (library: {lib_label})")
+        ms, plain_ms, lib_ms, bound, bound_by = at[b]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",

@@ -18,8 +18,10 @@
 //     it.  At B = 1 the bytes bound it alone (1.075 ms).
 //   * dot (int8): 1.8 GB of tf -> 0.537 ms; the 9.2e11 int8 operations take
 //     0.47 ms on int8 tensor cores (1,979 TOPS): bytes bound it, at B = 1 too.
-//   * f32 ground truth (T = 300): 3.6 GB, but 4.6e11 FLOP on fp32 CUDA cores
-//     (67 TFLOP/s) -> ~6.9 ms: operations bound it.
+//   * f32 ground truth (T = 300, depth 10): 3.6 GB -> 1.075 ms, and 4.6e11
+//     FLOP, which split TF32 takes as three tf32 products each: 1.38e12 at
+//     495 TFLOP/s -> 2.79 ms, so operations bound it (on fp32 CUDA cores, 67
+//     TFLOP/s, the same FLOP would take 6.877 ms).
 //
 // Pass 1 runs a grid of (query tiles x N-splits): a block owns a tile of
 // queries and a contiguous range of doc tiles, and keeps a sorted running
@@ -73,14 +75,31 @@
 // store from L2 (here through L1, cp.async.ca, at 8-byte copies), and the
 // running top-k; the products are half of K1 classic's instructions.
 //
-// f32 and lsh: fused_topk_partial, on CUDA cores.  A block of 256 threads
-// owns BQ queries and a contiguous range of 256-doc tiles, walks (tile,
-// 32-word reduce chunk) steps with the next step's loads in flight, and
-// keeps the score tile in registers (each warp BQ/8 query rows, each lane 8
-// doc columns); lsh is an equality count.  After a tile's last chunk the
-// warp merges its rows into the running lists: lanes whose candidate beats
-// the list's K-th entry raise a ballot, and the warp inserts them one at a
-// time (warp_insert).  So f32 at best reaches its operation bound.
+// f32 (the exact cosine: the ground truth and brute force over fp32
+// postings): fused_topk_f32_partial, the same body over raw f32 rows
+// (F32Rows) with the product type MmaTf32x3, which replaces a CUDA-core
+// f32 FMA pass 1 (25.3 -> 11.2 ms at the cell, B = 256; PERF.md).  A
+// chunk is 32 f32 columns in the same 128 staged bytes a row, so T = 300
+// takes 10 chunks, the staged bytes and chunk count of K1 classic at
+// T = 600.  Doc and query fragments are each split after ldmatrix into a
+// high and a low tf32 part by bit masks, and a k-step is three m16n8k8 tf32
+// mma (doc lo x q hi, doc hi x q lo, doc hi x q hi) onto the chunk's own
+// fragment, which an f32 add folds into the row's sum: a score is off by at
+// most 3 2^-20 |q| |d| (mma_topk.cuh), 2.9e-6 for the unit vectors of the
+// cosine, inside the near-tie rule.  Rows go straight into the cp.async
+// ring where every q and doc row is 16-byte aligned (T a multiple of 4),
+// else through registers; the plan and the shared memory are K1 classic's.
+// At B = 256 (`chip_smoke.py --ablate`) the loads take ~4.5 ms, the three
+// tf32 products ~5.2 and the running top-k ~1.7; at B <= 8 the loads.
+//
+// lsh: fused_topk_partial, on CUDA cores.  A block of 256 threads owns BQ
+// queries and a contiguous range of 256-doc tiles, walks (tile, 32-word
+// reduce chunk) steps with the next step's loads in flight, and keeps the
+// score tile in registers (each warp BQ/8 query rows, each lane 8 doc
+// columns) as equality counts.  After a tile's last chunk the warp merges
+// its rows into the running lists: lanes whose candidate beats the list's
+// K-th entry raise a ballot, and the warp inserts them one at a time
+// (warp_insert).
 //
 // K3, the gathered variant (fused_topk_gathered_partial + the same merge),
 // replaces repro/kernels/fused_topk/kernel.py::fused_topk_gathered (def 433,
@@ -127,8 +146,8 @@ namespace {
 // The score modes (Mode, Traits, Vec, load_pack, store_pack, mac) are in
 // score_operands.cuh, shared with the dense score kernels K6-K8.  Pass 1
 // reads its rows with 16-byte loads or element by element (load_pack<M,
-// false>): with the 8-byte branch compiled in, its f32 and lsh instances
-// spilled more at the 128-register cap and ran 1-2% slower on an H100.
+// false>): with the 8-byte branch compiled in, its instances spilled more
+// at the 128-register cap and ran 1-2% slower on an H100.
 
 // Two blocks per SM: ptxas caps a thread at 128 registers.
 template <int M, int BQ>
@@ -310,9 +329,9 @@ cudaError_t launch_partial_bq(int bq, const void* q, const void* docs, const uin
 }
 
 // ---------------------------------------------------------------------------
-// K1 classic (bf16) and dot (int8) pass 1 on tensor cores
-// (fused_topk_bf16_partial, fused_topk_int8_partial): the shared body of
-// mma_topk.cuh over bf16 or int8 rows.
+// K1 classic (bf16), dot (int8) and f32 pass 1 on tensor cores
+// (fused_topk_bf16_partial, fused_topk_int8_partial, fused_topk_f32_partial):
+// the shared body of mma_topk.cuh over bf16, int8 or f32 rows.
 // ---------------------------------------------------------------------------
 
 // bf16 rows (N, T) as they are stored: an 8-column pack is one 16-byte load
@@ -471,6 +490,83 @@ cudaError_t launch_int8(int bq, const void* q, const void* docs, const uint8_t* 
   if (ring == 8) FUSED_TOPK_INT8(8, 256, kStages, 8);
   FUSED_TOPK_INT8(8, 256, kRegStages, 0);
 #undef FUSED_TOPK_INT8
+}
+
+// f32 rows (N, T) as they are stored: a 4-column pack is one 16-byte load
+// (load_pack), or elements where rows are not 16-byte aligned.  Raw f32 is
+// not exact in tf32: the product type splits the doc fragments too.
+struct F32Rows {
+  using Op = MmaTf32x3;
+  using Unit = uint4;
+  static constexpr bool kAsync = true;   // straight into the f32 stages
+  static constexpr bool kRaw = false;
+  static constexpr bool kRowScale = false;
+  static constexpr bool kChunkScale = false;
+  const float* __restrict__ docs;
+  int T;
+  bool aligned;  // every row 16-byte aligned
+
+  __device__ __forceinline__ Unit load(int di, bool ok, int e) const {
+    return load_pack<kF32, false>(docs + (size_t)di * T, ok, e, T, aligned ? 16 : 1, false);
+  }
+  __device__ __forceinline__ uint4 widen(Unit u) const { return u; }
+  __device__ __forceinline__ float row_scale(int) const { return 1.f; }
+};
+
+template <int BQ, int BN, int NS, bool ASYNC>
+__global__ void __launch_bounds__(kThreads, 1) fused_topk_f32_partial(
+    const float* __restrict__ q,        // (B, T)
+    const float* __restrict__ docs,     // (N, T), rows >= n_docs unread
+    const uint8_t* __restrict__ filt,   // nullptr | (N,) | (B, N)
+    long long filt_stride,              // 0 for (N,), N for (B, N)
+    int B, int n_docs, int T, int depth, int K, int tiles_per_split,
+    bool q_aligned, bool d_aligned,     // rows 16-byte aligned
+    float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
+  const F32Rows rows{docs, T, d_aligned};
+  mma_topk_pass1<F32Rows, BQ, BN, NS, ASYNC>(q, rows, filt, filt_stride, B, n_docs, T, depth, K,
+                                             tiles_per_split, q_aligned ? 16 : 1, part_s, part_i);
+}
+
+template <int BQ, int BN, int NS, bool ASYNC>
+cudaError_t launch_f32_instance(const void* q, const void* docs, const uint8_t* filt,
+                                long long filt_stride, int B, int n_docs, int T, int depth,
+                                int K, int splits, int tiles_per_split, int aligned,
+                                float* part_s, int* part_i, cudaStream_t stream) {
+  const size_t smem = mma_smem(BQ, BN, NS, K);
+  auto kernel = fused_topk_f32_partial<BQ, BN, NS, ASYNC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + BQ - 1) / BQ, splits);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(docs), filt, filt_stride, B,
+      n_docs, T, depth, K, tiles_per_split, (aligned & 1) != 0, (aligned & 2) != 0, part_s,
+      part_i);
+  return cudaGetLastError();
+}
+
+// The f32 pass 1 for the plan's bq, shaped as launch_bf16 (the same staged
+// bytes, so the same tiles and stages): the ring where every q and doc row
+// is 16-byte aligned, registers otherwise.
+cudaError_t launch_f32(int bq, const void* q, const void* docs, const uint8_t* filt,
+                       long long filt_stride, int B, int n_docs, int T, int depth, int K,
+                       int splits, int tiles_per_split, int aligned, float* part_s,
+                       int* part_i, cudaStream_t stream) {
+  int bn = 0, stages = 0;
+  if (!mma_shape(bq, K, kStages, &bn, &stages)) return cudaErrorInvalidValue;
+#define FUSED_TOPK_F32(BQ, BN, NS, ASYNC)                                                    \
+  return launch_f32_instance<BQ, BN, NS, ASYNC>(q, docs, filt, filt_stride, B, n_docs, T,    \
+                                                depth, K, splits, tiles_per_split, aligned, \
+                                                part_s, part_i, stream)
+  const bool async = (aligned & 3) == 3;
+  if (stages == 1) FUSED_TOPK_F32(8, 128, 1, false);
+  if (bq == 64) {
+    if (async) FUSED_TOPK_F32(64, 128, kStages, true);
+    FUSED_TOPK_F32(64, 128, kRegStages, false);
+  }
+  if (async) FUSED_TOPK_F32(8, 256, kStages, true);
+  FUSED_TOPK_F32(8, 256, kRegStages, false);
+#undef FUSED_TOPK_F32
 }
 
 // ---------------------------------------------------------------------------
@@ -704,11 +800,11 @@ int elem_size(int mode) { return mode == kBF16 ? 2 : (mode == kI8 ? 1 : 4); }
 extern "C" {
 
 // K1's launch plan in `mode` (0 f32, 1 bf16, 2 int8, 3 lsh): mma_plan for
-// bf16 and int8 (the tensor-core pass 1), else streaming_plan
+// f32, bf16 and int8 (the tensor-core pass 1), else streaming_plan
 // (topk_merge.cuh) with plan[4] = kBN docs a tile.
 int fused_topk_plan(int mode, int B, int n_docs, int depth, int sm_count, int* plan) {
   if (mode < kF32 || mode > kLSH) return (int)cudaErrorInvalidValue;
-  if (mode == kBF16 || mode == kI8) return mma_plan(B, n_docs, depth, sm_count, kStages, plan);
+  if (mode != kLSH) return mma_plan(B, n_docs, depth, sm_count, kStages, plan);
   plan[4] = kBN;
   return streaming_plan(B, n_docs, depth, sm_count, plan);
 }
@@ -731,8 +827,8 @@ int fused_topk_launch(int mode, int bq, const void* q, const void* docs, const v
   cudaError_t err;
   switch (mode) {
     case kF32:
-      err = launch_partial_bq<kF32>(bq, q, docs, f, filt_stride, B, n_docs, T, K, splits,
-                                    tiles_per_split, aligned, ps, pi, st);
+      err = launch_f32(bq, q, docs, f, filt_stride, B, n_docs, T, depth, K, splits,
+                       tiles_per_split, aligned, ps, pi, st);
       break;
     case kBF16:
       err = launch_bf16(bq, q, docs, f, filt_stride, B, n_docs, T, depth, K, splits,

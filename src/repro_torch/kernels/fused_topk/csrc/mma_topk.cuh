@@ -1,25 +1,27 @@
 // The tensor-core pass 1 of the streaming fused top-k, shared by K1 classic
 // (fused_topk_bf16_partial in fused_topk.cu, bf16 rows), K1 dot
-// (fused_topk_int8_partial, same file, int8 rows), K4 with a bf16 query
+// (fused_topk_int8_partial, same file, int8 rows), K1 f32, the exact
+// cosine (fused_topk_f32_partial, same file, f32 rows), K4 with a bf16 query
 // (fused_topk_quantized_bf16_partial in fused_topk_quantized.cu, int8 or
 // packed int4 rows widened to bf16) and K4 with an f32 query over int8 or
 // packed int4 rows (fused_topk_quantized_tf32_partial, same file, rows
 // widened to f32): the
-// mma.sync / ldmatrix / cp.async helpers, the three product types (MmaBf16,
-// MmaS8, MmaTf32), the counting merge of a candidate buffer into a running
-// list, the block's shared-memory layout and launch plan (mma_smem /
-// mma_shape / mma_plan), and the body (mma_topk_pass1), templated on a
-// doc-operand policy.
+// mma.sync / ldmatrix / cp.async helpers, the four product types (MmaBf16,
+// MmaS8, MmaTf32, MmaTf32x3), the counting merge of a candidate buffer into
+// a running list, the block's shared-memory layout and launch plan
+// (mma_smem / mma_shape / mma_plan), and the body (mma_topk_pass1),
+// templated on a doc-operand policy.
 //
 // A policy (Rows) names its product type and says where a doc row's pack
 // (the columns of 16 staged bytes: 8 bf16, 16 int8 or 4 f32) comes from and
 // what a finished sum becomes:
-//   using Op;                        // MmaBf16, MmaS8 or MmaTf32: q's element,
-//                                    // the mma instruction and its accumulator
+//   using Op;                        // MmaBf16, MmaS8, MmaTf32 or MmaTf32x3: q's
+//                                    // element, the mma instruction and its
+//                                    // accumulator
 //   using Unit;                      // what a thread holds of one pack in registers
 //   static constexpr bool kAsync;    // rows may go through a cp.async ring:
 //   static constexpr bool kRaw;      //   of raw units (packed rows), or straight
-//                                    //   into the stages (bf16 or int8 rows)
+//                                    //   into the stages (bf16, int8 or f32 rows)
 //   static constexpr bool kRowScale; // the sum is multiplied by a per-row scale
 //   static constexpr bool kChunkScale;  // each chunk's sum (Op::kFold) is multiplied
 //                                    // by the row's scale for that chunk as it
@@ -42,12 +44,13 @@
 // to be finite.
 //
 // Design (measured on an H100 in PERF.md; K1's numbers there):
-//   * Products: a chunk of every doc and query row, 128 bytes (64 bf16 or
-//     128 int8 columns), is staged in shared memory (row stride 144 bytes,
-//     so the eight rows an ldmatrix phase reads fall on distinct banks) and
-//     multiplied in four k-steps of 32 bytes by mma.sync: m16n8k16 bf16 x
-//     bf16 -> f32 (HMMA), m16n8k32 s8 x s8 -> s32 (IMMA), or two m16n8k8
-//     tf32 x tf32 -> f32 (HMMA) a k-step for an f32 query (below).  An
+//   * Products: a chunk of every doc and query row, 128 bytes (64 bf16,
+//     128 int8 or 32 f32 columns), is staged in shared memory (row stride
+//     144 bytes, so the eight rows an ldmatrix phase reads fall on distinct
+//     banks) and multiplied in four k-steps of 32 bytes by mma.sync:
+//     m16n8k16 bf16 x bf16 -> f32 (HMMA), m16n8k32 s8 x s8 -> s32 (IMMA), or
+//     two m16n8k8 tf32 x tf32 -> f32 (HMMA) a k-step for an f32 query (three
+//     over raw f32 rows; below).  An
 //     m16n8k32 .s8 fragment holds 4 bytes a register, and an m16n8k8 .tf32
 //     one a whole f32, at the row and byte offsets where an m16n8k16 .bf16
 //     one holds 2 bf16 (PTX ISA, the mma fragment figures; g = lane / 4,
@@ -74,8 +77,16 @@
 //     int4 rows widen to the exact f32 nibble - 8 (4 bits), and their group
 //     scale multiplies each chunk's sum as it folds (fmaf: one rounding), a
 //     32-column chunk lying in one group: the reference rounds each
-//     (nibble - 8) * scale to f32 instead, and sums in another order.
-//   * Loads: where every row is bf16 or int8 and 16-byte aligned, a ring of
+//     (nibble - 8) * scale to f32 instead, and sums in another order.  Raw
+//     f32 rows (K1 f32) are not exact in tf32, so MmaTf32x3 splits the doc
+//     fragment too, once per ldmatrix, and a k-step is three tf32 mma:
+//     doc lo x q hi, doc hi x q lo, doc hi x q hi (the product lo x lo,
+//     below 2^-20 of q_i d_i, and each operand's bits below 2^-20 of it are
+//     dropped).  A product is then off by at most 3 2^-20 |q_i d_i|, a
+//     score by at most 3 2^-20 |q| |d|: 2.9e-6 for the unit vectors of the
+//     exact cosine, inside the near-tie rule's 1e-5; integer values below
+//     2^11 are their own hi part, so integer scores stay exact.
+//   * Loads: where every row is bf16, int8 or f32 and 16-byte aligned, a ring of
 //     stages filled by cp.async (two chunks in flight; a pack past T or a row
 //     >= n_docs / >= B is zero-filled and not read); int8 rows that are only
 //     8-byte aligned (600 bytes) take the same ring with two 8-byte copies a
@@ -205,9 +216,12 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// Four 8x8 matrices of 16-bit lanes (bf16, or int8 pairs) from shared
-// memory; lane l gives the address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+// Four 8x8 matrices of 16-bit lanes (bf16, int8 pairs or f32 halves) from
+// shared memory into r[0..3]; lane l gives the address of row l % 8 of
+// matrix l / 8.
+template <int N>
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[N], unsigned addr) {
+  static_assert(N >= 4, "four registers");
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr)
@@ -258,19 +272,22 @@ constexpr unsigned kTf32Bits = 0xFFFFE000u;  // the sign, exponent and 10 fracti
 
 // The product types of the pass 1: the element of q and of the staged rows
 // (and its score_operands.cuh mode, for the register loader of q), the
-// columns of a 128-byte chunk, the registers of a query fragment as the mma
-// takes it (kBRegs: ldmatrix fills the first two, split the rest), the mma
-// instruction and its accumulator, and kFold: false where the mma sums onto
-// the row's accumulator, true where it sums a chunk's products from zero
-// into a fragment of their own that an f32 add then folds into the row's.
+// columns of a 128-byte chunk, the registers of a doc fragment and of a
+// query fragment as the mma takes them (kARegs, kBRegs: ldmatrix fills the
+// first four and two, split_a and split the rest), the mma instruction and
+// its accumulator, and kFold: false where the mma sums onto the row's
+// accumulator, true where it sums a chunk's products from zero into a
+// fragment of their own that an f32 add then folds into the row's.
 struct MmaBf16 {
   using Elem = uint16_t;                 // bf16 bits
   using Acc = float;
   static constexpr int kMode = kBF16;
   static constexpr bool kHalves = false;  // q packs by 16-byte or element loads
   static constexpr int kCols = kMmaChunk / 2;
+  static constexpr int kARegs = 4;
   static constexpr int kBRegs = 2;
   static constexpr bool kFold = false;
+  static __device__ __forceinline__ void split_a(unsigned (&)[4]) {}
   static __device__ __forceinline__ void split(unsigned (&)[2]) {}
   static __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
                                              const unsigned (&b)[2]) {
@@ -283,8 +300,10 @@ struct MmaS8 {
   static constexpr int kMode = kI8;
   static constexpr bool kHalves = true;   // q rows of 600 bytes: 8-byte loads
   static constexpr int kCols = kMmaChunk;
+  static constexpr int kARegs = 4;
   static constexpr int kBRegs = 2;
   static constexpr bool kFold = false;
+  static __device__ __forceinline__ void split_a(unsigned (&)[4]) {}
   static __device__ __forceinline__ void split(unsigned (&)[2]) {}
   static __device__ __forceinline__ void mma(int (&c)[4], const unsigned (&a)[4],
                                              const unsigned (&b)[2]) {
@@ -306,8 +325,10 @@ struct MmaTf32 {
   static constexpr int kMode = kF32;
   static constexpr bool kHalves = false;  // q packs by 16-byte or element (4-byte) loads
   static constexpr int kCols = kMmaChunk / 4;
+  static constexpr int kARegs = 4;
   static constexpr int kBRegs = 4;
   static constexpr bool kFold = true;
+  static __device__ __forceinline__ void split_a(unsigned (&)[4]) {}
   static __device__ __forceinline__ void split(unsigned (&b)[4]) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -320,6 +341,30 @@ struct MmaTf32 {
                                              const unsigned (&b)[4]) {
     mma_tf32(c, a, b[2], b[3]);
     mma_tf32(c, a, b[0], b[1]);
+  }
+};
+// An f32 query against raw f32 rows (K1 f32): the query split as MmaTf32
+// splits it, and each doc fragment a[0..3] as loaded into hi = a cut to
+// tf32 and a[4..7] lo = (a - hi) cut to tf32, once per ldmatrix (a fragment
+// serves every query fragment of the warp); the k-step is three m16n8k8
+// tf32 mma, the small terms first: doc lo x q hi, doc hi x q lo, doc hi x
+// q hi, onto the chunk's own fragment, folded as MmaTf32's.
+struct MmaTf32x3 : MmaTf32 {
+  static constexpr int kARegs = 8;
+  static __device__ __forceinline__ void split_a(unsigned (&a)[8]) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float x = __uint_as_float(a[r]);
+      a[r] &= kTf32Bits;
+      a[4 + r] = __float_as_uint(x - __uint_as_float(a[r])) & kTf32Bits;
+    }
+  }
+  static __device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[8],
+                                             const unsigned (&b)[4]) {
+    const unsigned hi[4] = {a[0], a[1], a[2], a[3]}, lo[4] = {a[4], a[5], a[6], a[7]};
+    mma_tf32(c, lo, b[0], b[1]);  // doc lo x q hi
+    mma_tf32(c, hi, b[2], b[3]);
+    mma_tf32(c, hi, b[0], b[1]);
   }
 };
 
@@ -711,11 +756,13 @@ __device__ __forceinline__ void mma_topk_pass1(
     }
 #pragma unroll
     for (int ks = 0; ks < kKSteps; ++ks) {
-      unsigned a[WM][4], b[WN][Op::kBRegs];
+      unsigned a[WM][Op::kARegs], b[WN][Op::kBRegs];
 #pragma unroll
-      for (int mi = 0; mi < WM; ++mi)
+      for (int mi = 0; mi < WM; ++mi) {
         ldmatrix_x4(a[mi], smem_addr(ds + (wm0 + mi * 16 + (lane & 15)) * kMmaStride + ks * 16 +
                                      (lane >> 4) * 8));
+        Op::split_a(a[mi]);  // once per fragment, not per ni
+      }
       if constexpr (WN == 1) {
         unsigned r[2];
         ldmatrix_x2(r, smem_addr(qs + (wn0 + (lane & 7)) * kMmaStride + ks * 16 +

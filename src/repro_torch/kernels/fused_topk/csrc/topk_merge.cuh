@@ -25,7 +25,7 @@ constexpr int kBigId = 1 << 30;                 // id of an empty list slot
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr size_t kMaxSmem = 227 * 1024;         // opt-in dynamic shared memory per block
 
-// Streaming pass 1 (K1 f32 and lsh): a block of kThreads owns BQ queries and a
+// Streaming pass 1 (K1 lsh): a block of kThreads owns BQ queries and a
 // contiguous range of kBN-doc tiles, reduced kBK 4-byte words at a time
 // (kBK and kSkew: score_operands.cuh).
 constexpr int kBN = 256;                  // docs per tile

@@ -11,13 +11,14 @@ Routing follows the tensors' device: on the CPU the plain version
 stream, or the call raises.  Each wrapper's ``launches`` counts the calls
 that launched on the card; each such call launches two CUDA kernels, pass 1
 (``fused_topk_bf16_partial`` for bf16 operands, ``fused_topk_int8_partial``
-for int8 ones, ``fused_topk_partial`` for f32 and lsh,
+for int8 ones, ``fused_topk_f32_partial`` for f32 ones, ``fused_topk_partial``
+for lsh,
 ``fused_topk_gathered_partial``,
 ``fused_topk_quantized_bf16_partial`` for a bf16 query over packed rows,
 ``fused_topk_quantized_tf32_partial`` for an f32 one, or
 ``fused_topk_gathered_quantized_partial``) and the merge
 (``fused_topk_merge``, one block per query: a threshold cut, then a tree
-merge).  K1 classic, K1 dot and K4 share one tensor-core pass 1
+merge).  K1 classic, K1 dot, K1 f32 and K4 share one tensor-core pass 1
 (``csrc/mma_topk.cuh``); K3 keeps one running list per block and merges
 its candidates by counting, as that pass 1 does.
 """
@@ -50,9 +51,9 @@ def _lib() -> ctypes.CDLL:
 def plan(code: int, b: int, n_docs: int, depth: int,
          sm_count: int) -> Tuple[int, int, int, int, int]:
     """The source's launch shape in score mode ``code`` (``fused_topk_plan``;
-    bf16 and int8 have a tensor-core pass 1 of their own): (queries per
-    block, running-list width K, N-splits, doc tiles per split, docs per
-    tile)."""
+    f32, bf16 and int8 share the tensor-core pass 1's plan, lsh has its
+    own): (queries per block, running-list width K, N-splits, doc tiles per
+    split, docs per tile)."""
     out = (ctypes.c_int * 5)()
     if _lib().fused_topk_plan(code, b, n_docs, depth, sm_count, out) != 0:
         raise ValueError(f"depth {depth}: the running lists do not fit in shared memory")

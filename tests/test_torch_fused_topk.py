@@ -9,21 +9,29 @@ rtol = atol = 1e-5 with ids equal away from near-ties (summation order
 differs).  ``test_torch_gpu.py`` holds the CUDA kernel against the plain
 version on a card.
 """
+import dataclasses
+import importlib.util
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_topk_match, to_torch
+from torch_parity import assert_topk_match, sorted_topk, split_tf32x3_scores, to_torch
 
+from repro.core import bruteforce as jbruteforce
 from repro.core import fakewords as jfakewords
 from repro.core.types import FakeWordsConfig as JFakeWordsConfig
 from repro.kernels.fused_topk import ref as jref
 from repro.kernels.fused_topk.kernel import fused_topk as jfused_topk
-from repro_torch.core import fakewords
+from repro_torch.core import bruteforce, fakewords
 from repro_torch.core.index import index_from_numpy
+from repro_torch.data.embeddings import WORD2VEC_LIKE, make_corpus, make_queries
 from repro_torch.kernels import common
 from repro_torch.kernels.fused_topk import ops, ref
 from repro_torch.kernels.fused_topk.kernel import fused_topk
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
 
 
 def _operands(dtype: str, b: int, n: int, t: int, seed: int):
@@ -171,6 +179,66 @@ def test_cosine_topk_matches_jax_with_ragged_n_docs():
     assert int(got[1].max()) < 390
 
 
+@pytest.mark.parametrize("entry", ["exact_topk", "cosine_topk"])
+@pytest.mark.parametrize("b", [1, 8, 65])
+def test_exact_cosine_matches_jax_at_the_cells_width(entry, b):
+    """K1 f32 as the ground truth calls it, at the ann-word2vec cell's width
+    (T = 300, depth 10): WORD2VEC_LIKE vectors and queries drawn from them,
+    unit-normalized, against JAX's exact_topk without its kernel."""
+    corpus = make_corpus(dataclasses.replace(WORD2VEC_LIKE, n_vectors=3000))
+    queries, _ = make_queries(corpus, b, seed=1)
+    assert corpus.shape[1] == 300
+    want = jbruteforce.exact_topk(jnp.asarray(corpus), jnp.asarray(queries), 11, use_kernel=False)
+    if entry == "exact_topk":
+        got = bruteforce.exact_topk(torch.from_numpy(corpus), torch.from_numpy(queries), 10)
+    else:
+        unit = [bruteforce.l2_normalize(torch.from_numpy(a)) for a in (corpus, queries)]
+        got = ops.cosine_topk(*unit, 10)
+    assert got[1].dtype == torch.int32
+    assert_topk_match(got, want, exact=False)
+
+
+def _unit_rows(rng, n: int, t: int) -> torch.Tensor:
+    x = rng.normal(size=(n, t))
+    return torch.from_numpy((x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32))
+
+
+@pytest.mark.parametrize("doc_lo", [True, False])
+def test_split_tf32_over_f32_rows_error_budget(doc_lo):
+    """The arithmetic K1 f32's tensor-core pass 1 rests on (MmaTf32x3 in
+    csrc/mma_topk.cuh): q and doc rows split by bit masks into two tf32
+    parts, three products a 32-column chunk, each chunk's sum folded in f32.
+    On unit vectors at T = 300 every score is within 3 2^-20 |q| |d| (plus
+    the f32 sums' rounding) of the float64 truth, so inside the near-tie
+    rule (rtol = atol = 1e-5), and the top 10 keep its ids away from
+    near-ties.  Without the doc's low part (doc hi x q lo + doc hi x q hi:
+    the doc cut to tf32) the scores leave the rule."""
+    rng = np.random.default_rng(29)
+    q, d = _unit_rows(rng, 16, 300), _unit_rows(rng, 4000, 300)
+    truth = q.double() @ d.double().T
+    got = split_tf32x3_scores(q, d, doc_lo=doc_lo)
+    err = (got.double() - truth).abs()
+    inside = err <= 1e-5 + 1e-5 * truth.abs()
+    if doc_lo:
+        budget = 3 * 2.0**-20 * (q.double().abs() @ d.double().abs().T) + 1e-6
+        assert bool((err <= budget).all()) and bool(inside.all()), float(err.max())
+        assert_topk_match(sorted_topk(got, 10), sorted_topk(truth.float(), 11), exact=False)
+    else:
+        assert float(inside.double().mean()) < 0.5, float(err.max())
+        with pytest.raises(AssertionError):
+            assert_topk_match(sorted_topk(got, 10), sorted_topk(truth.float(), 11), exact=False)
+
+
+def test_split_tf32_over_integer_f32_rows_is_exact():
+    """Integer f32 values below 2^11 are their own high tf32 part (the low
+    part is 0), so K1 f32's split-TF32 sums of them are exact: the integer
+    cases of chip_smoke.py's check_kernels hold the kernel bit for bit."""
+    rng = np.random.default_rng(31)
+    q = torch.from_numpy(rng.integers(-1024, 1025, (5, 300)).astype(np.float32))
+    d = torch.from_numpy(rng.integers(-30, 31, (700, 300)).astype(np.float32))
+    assert torch.equal(split_tf32x3_scores(q, d), (q.double() @ d.double().T).float())
+
+
 def test_cpu_tensors_take_the_plain_version():
     (_, _), (tq, td) = _operands("f32", 2, 64, 8, seed=31)
     before = fused_topk.launches
@@ -198,6 +266,32 @@ def test_fused_topk_rejects_bad_arguments(kwargs, err):
         fused_topk(tq, td, depth, **kwargs)
     with pytest.raises(ValueError):
         fused_topk(tq, td[:, :7], 5)
+
+
+_EDIT_SETS = ("ABLATIONS", "TF32_ABLATIONS", "LOADERS", "PLANTED", "K1_DOC_HI_ONLY", "K3_STRICT",
+              "K3_ABLATIONS", "K1F32_ABLATIONS")
+
+
+@pytest.mark.parametrize("name", _EDIT_SETS)
+def test_chip_smoke_source_edits_match_the_sources(name):
+    """chip_smoke.py builds its planted faults and ablations by editing a
+    copy of the fused top-k sources by text (``_tree_kernels``); each edit
+    (a pair of texts, or a tuple of pairs of which one must apply) must
+    still find its text in this tree's ``csrc``."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    csrc = os.path.join(ROOT, "src", "repro_torch", "kernels", "fused_topk", "csrc")
+    text = "".join(open(os.path.join(csrc, f)).read() for f in sorted(os.listdir(csrc)))
+    edits = getattr(chip_smoke, name)
+    if name == "PLANTED":
+        edits = {kind: [edit] for kind, (_, edit) in edits.items()}
+    elif not isinstance(edits, dict):
+        edits = {name: [edits]}
+    for label, group in edits.items():
+        for edit in group:
+            pairs = edit if isinstance(edit[0], tuple) else (edit,)
+            assert any(old in text for old, _ in pairs), (label, [old for old, _ in pairs])
 
 
 def test_tiling_helpers():

@@ -78,14 +78,16 @@ def test_cuda_kernel_matches_plain_version(kernel, kind):
     assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=exact)
 
 
-def _bf16_operands(kind: str, b: int, n: int, t: int, dev: torch.device):
-    """bf16 operands whose scores are small integers, exact in f32: 0/1
-    values ("ties"), or scores 4 * id + (0..3) that rise ("rising") or fall
-    ("falling") with the doc id, so that every tile (rising) or only the
-    first (falling) sends candidates to the running lists."""
+def _float_operands(kind: str, b: int, n: int, t: int, dev: torch.device,
+                   dtype: torch.dtype = torch.bfloat16):
+    """bf16 or f32 operands whose scores are small integers, exact in f32:
+    0/1 values ("ties"), or scores 4 * id + (0..3) that rise ("rising") or
+    fall ("falling") with the doc id, so that every tile (rising) or only
+    the first (falling) sends candidates to the running lists.  Every value
+    is an integer below 2^11, its own high tf32 part."""
     g = torch.Generator(device=dev).manual_seed(47)
     if kind == "ties":
-        return tuple(torch.randint(0, 2, shape, generator=g, device=dev).to(torch.bfloat16)
+        return tuple(torch.randint(0, 2, shape, generator=g, device=dev).to(dtype)
                      for shape in ((b, t), (n, t)))
     ids = torch.arange(n, device=dev)
     d = torch.randint(-3, 4, (n, t), generator=g, device=dev)
@@ -94,7 +96,7 @@ def _bf16_operands(kind: str, b: int, n: int, t: int, dev: torch.device):
     q = torch.zeros((b, t), device=dev)
     q[:, 0], q[:, 1] = 1024, 4
     q[:, 2] = torch.randint(0, 2, (b,), generator=g, device=dev)
-    return (q if kind == "rising" else -q).to(torch.bfloat16), d.to(torch.bfloat16)
+    return (q if kind == "rising" else -q).to(dtype), d.to(dtype)
 
 
 @pytest.mark.gpu
@@ -113,11 +115,43 @@ def test_cuda_bf16_topk_ties_order_and_wide_lists(kind, b, n, t, depth):
     if kind == "wide":
         q, d = _operands("bf16", b, n, t, dev)
     else:
-        q, d = _bf16_operands(kind, b, n, t, dev)
+        q, d = _float_operands(kind, b, n, t, dev)
     got = fused_topk(q, d, depth)
     torch.cuda.synchronize()
     want = ref.fused_topk_ref(q, d, min(depth + 1, n))
     assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=kind != "wide")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,b,n,t,depth", [
+    ("ties", 9, 1000, 16, 1000),      # depth = N, ties everywhere
+    ("ties", 65, 600, 300, 600),      # depth = N at the cosine's T, 64-query tiles
+    ("rising", 65, 20_000, 300, 100),  # every tile flushes; rows through the ring
+    ("falling", 65, 20_000, 37, 100),  # rows through registers
+    ("rising", 1, 20_000, 300, 100),  # 8-query tiles
+    ("wide", 1, 5000, 64, 3072),      # the widest list: one stage, merge by insert
+    ("unit", 256, 20_000, 300, 10),   # the exact cosine's operands and depth
+    ("unit", 8, 20_000, 300, 10),
+    ("unit", 1, 20_000, 300, 10),
+])
+def test_cuda_f32_topk_ties_order_and_wide_lists(kind, b, n, t, depth):
+    """The split-TF32 f32 pass 1 (K1 f32): integer values are their own high
+    tf32 part, so integer scores and ids are bit-equal to the plain
+    version's; random and unit rows are held to the near-tie rule."""
+    dev = cuda_device()
+    if kind == "unit":
+        g = torch.Generator(device=dev).manual_seed(67)
+        q, d = (torch.nn.functional.normalize(torch.randn(shape, generator=g, device=dev), dim=1)
+                for shape in ((b, t), (n, t)))
+    elif kind == "wide":
+        q, d = _operands("f32", b, n, t, dev)
+    else:
+        q, d = _float_operands(kind, b, n, t, dev, torch.float32)
+    got = fused_topk(q, d, depth)
+    torch.cuda.synchronize()
+    want = ref.fused_topk_ref(q, d, min(depth + 1, n))
+    assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want],
+                      exact=kind not in ("wide", "unit"))
 
 
 def _int8_operands(kind: str, b: int, n: int, t: int, dev: torch.device):
@@ -177,21 +211,21 @@ def test_cuda_int8_topk_ties_order_and_wide_lists(kind, b, n, t, depth, filt):
 def test_launch_plan_fills_the_card_at_both_batch_sizes():
     cuda_device()
     n = 2_999_808
-    # f32 on CUDA cores, bf16 and int8 on tensor cores
-    for code, bq_256 in ((0, 32), (1, 64), (2, 64)):
+    # f32, bf16 and int8 on tensor cores (the mma plan), lsh on CUDA cores
+    for code, bq_256 in ((0, 64), (1, 64), (2, 64), (3, 32)):
         for b, bq_want in ((256, bq_256), (1, 8)):
             bq, k, splits, per, tile = plan(code, b, n, 100, sm_count=132)
             n_tiles = -(-n // tile)
             assert (bq, k) == (bq_want, 128)
             assert -(-b // bq) * splits >= 132
             assert (splits - 1) * per < n_tiles <= splits * per  # no empty split
-    for code in (0, 1, 2):
+    for code in (0, 1, 2, 3):
         assert plan(code, 256, 5000, 1000, 132)[0] == 8  # wide lists: 8-query blocks
         assert plan(code, 1, 5000, 3072, 132)[1] == 3072
     with pytest.raises(ValueError, match="shared memory"):
-        plan(0, 1, 5000, 3073, 132)
-    # bf16 and int8 at 8-query tiles drop to one stage of 128 docs for wide lists
-    for code in (1, 2):
+        plan(3, 1, 5000, 3073, 132)
+    # f32, bf16 and int8 at 8-query tiles drop to one stage of 128 docs for wide lists
+    for code in (0, 1, 2):
         assert plan(code, 1, 5000, 3136, 132)[1:] == (3136, 40, 1, 128)
         with pytest.raises(ValueError, match="shared memory"):
             plan(code, 1, 5000, 3137, 132)

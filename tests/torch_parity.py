@@ -1,7 +1,8 @@
 """Helpers shared by the ``test_torch_*`` files: moving arrays from JAX /
 numpy to torch, holding top-k results against each other, and emulating
-on the CPU K4's split-TF32 arithmetic (an f32 query over int8 or int4 rows)
-and the fused top-k kernels' pass 2 (the threshold rule and tree merge)."""
+on the CPU the split-TF32 arithmetic of K4 (an f32 query over int8 or int4
+rows) and of K1 f32 (over raw f32 rows), and the fused top-k kernels' pass
+2 (the threshold rule and tree merge)."""
 from typing import Optional, Tuple
 
 import numpy as np
@@ -121,6 +122,35 @@ def split_tf32_topk(q: torch.Tensor, docs: torch.Tensor, scale: torch.Tensor, de
     s, i = torch.sort(torch.where(keep, s, -torch.inf), dim=1, descending=True, stable=True)
     s, i = s[:, :depth], i[:, :depth].to(torch.int32)
     return s, torch.where(s == -torch.inf, torch.full_like(i, -1), i)
+
+
+def split_tf32x3_scores(q: torch.Tensor, docs: torch.Tensor, doc_lo: bool = True,
+                        chunk: int = 32) -> torch.Tensor:
+    """K1 f32's split-TF32 arithmetic over raw f32 rows, emulated in torch:
+    q and every doc row split by bit masks into hi = cut_tf32(x) and lo =
+    cut_tf32(x - hi); per ``chunk``-column chunk the three products doc lo x
+    q hi, doc hi x q lo and doc hi x q hi summed in f32 from zero, in that
+    order, and each chunk's sum added to the row's f32 sum (the kernel's
+    fold).  ``doc_lo=False`` drops doc lo x q hi (the planted fault: the
+    doc cut to tf32).  Returns the (B, N) f32 scores."""
+    q, docs = q.float(), docs.float()
+    q_hi, d_hi = cut_tf32(q), cut_tf32(docs)
+    q_lo, d_lo = cut_tf32(q - q_hi), cut_tf32(docs - d_hi)
+    s = torch.zeros((q.shape[0], docs.shape[0]))
+    for c0 in range(0, q.shape[1], chunk):
+        c = slice(c0, c0 + chunk)
+        part = torch.zeros_like(s)
+        if doc_lo:
+            part = part + q_hi[:, c] @ d_lo[:, c].T
+        part = part + q_lo[:, c] @ d_hi[:, c].T
+        s = s + (part + q_hi[:, c] @ d_hi[:, c].T)
+    return s
+
+
+def sorted_topk(s: torch.Tensor, depth: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top ``depth`` of scores (B, N): descending, ties to the lowest id."""
+    s, i = torch.sort(s, dim=1, descending=True, stable=True)
+    return s[:, :depth], i[:, :depth].to(torch.int32)
 
 
 def _precedes(a_s, a_i, b_s, b_i):
