@@ -2,8 +2,8 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --pair-parent DIR   # K1-K5 against the tree in DIR, then stop
-    python3 chip_smoke.py --ablate [DIR]      # pass 1 with parts cut out (K3 also DIR's)
+    python3 chip_smoke.py --pair-parent DIR   # K1-K5 and K9 against the tree in DIR, then stop
+    python3 chip_smoke.py --ablate [DIR]      # K9 and pass 1 with parts cut out (K3 also DIR's)
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc
    (sm_90a) and prints the build time and the compiler's register report,
@@ -11,7 +11,8 @@
    tensor-core pass 1 (``csrc/mma_topk.cuh``; ``cuobjdump -sass``): HMMA in
    K1 classic's and K4's with a bf16 query, IMMA in K1 dot's (int8), TF32
    HMMA in K1 f32's (split TF32 over f32 rows) and in K4's with an f32 query
-   over int8 and over int4 rows; an instance without them fails the run.
+   over int8 and over int4 rows, and HMMA in K9's bf16 attention
+   (``flash_attention_bf16``); an instance without them fails the run.
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
    shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
@@ -71,7 +72,9 @@
    their plain versions: unaligned B / N / T, B = 1 and N = 1, int8 over its
    whole range and at -128 / 127, sentinels on both sides of K8; K9 at every
    head width (32, 64, 96, 128), S = 1, 130 and 4096, f32 and bf16, MHA /
-   GQA / MQA, and deepseek-coder-33b's 56 / 8 heads at S = 4096.
+   GQA / MQA, the bf16 kernel's 64-key and 128-row tile edges (S = 63, 64,
+   65, 127, 128, 129), GQA group 7 at S = 4096, and deepseek-coder-33b's 56
+   / 8 heads at S = 4096.
 10. With the corpus and its fp32 and LSH indexes still on the card, drives
    the dense-score and attention entry points at full width: ``classic_scores`` and
    ``dot_scores`` at B = 256 (K7), ``cosine_topk`` over the raw corpus (K6),
@@ -106,7 +109,11 @@ at B = 256, 8 and 1 (bit for bit), K4 with a bf16 query over int8 and int4
 postings at B = 256, 8 and 1, and K4 with an f32 query over int8 and over
 int4 postings at B = 256, 8 and 1 (and an integer case of each bit for
 bit), K3 (blockmax stage 2, classic and dot; each tree's pass 1 and pass
-2 apart), K1 lsh and K5.  With ``--ablate [DIR]`` it times K3 at the
+2 apart), K1 lsh and K5; first, K9 of both trees (their
+``flash_attention.cu``) at both attention layers, outputs held to each
+other.  With ``--ablate [DIR]`` it first times K9's bf16 kernel at both
+attention layers against copies without the softmax, loads only, with 4
+warps and with three stages (K9_ABLATIONS, K9_VARIANTS), then K3 at the
 blockmax path's shape with its inserts and its products cut out
 (K3_ABLATIONS; also the K3 of the tree in DIR, e.g. the parent), each
 kernel's pass 1 and pass 2 apart, K1 f32 at the ground truth's shape with
@@ -283,7 +290,7 @@ def _instance(mangled: str) -> str:
                   r"|quantized_tf32_partial|gathered_partial|bf16_partial"
                   r"|int8_partial|f32_partial|partial|merge)"
                   r"|dense_scores"
-                  r"|flash_attention_fwd)"
+                  r"|flash_attention_(?:fwd|bf16))"
                   r"(?:I((?:Li-?\d+E|Lb[01]E|[ft])+)E)?",
                   mangled)
     if m is None:
@@ -330,6 +337,24 @@ def sass(path: str):
     return code
 
 
+def sass_pairing(name: str, parent_lib: str) -> None:
+    """Print which kernel instances this tree's library ``name`` and the
+    parent's library at ``parent_lib`` both build, and whether their SASS
+    is identical."""
+    from repro_torch.kernels import common
+
+    new_code, old_code = sass(common.library_path(name)), sass(parent_lib)
+    if new_code is None or old_code is None:
+        print("SASS of both trees: no cuobjdump in the CUDA toolkit")
+        return
+    both = sorted(set(new_code) & set(old_code))
+    same = [fn for fn in both if new_code[fn] == old_code[fn]]
+    print(f"SASS of {name}, this tree against the parent: {len(same)} of the {len(both)} "
+          f"instances in both identical; differing: {sorted(set(both) - set(same))}; only "
+          f"here: {sorted(set(new_code) - set(old_code))}; only in the parent: "
+          f"{sorted(set(old_code) - set(new_code))}")
+
+
 def sass_count(name: str, opcode: str):
     """Instructions matching the regular expression ``opcode`` (HMMA: bf16
     or tf32 tensor-core products; IMMA: int8 ones; ``HMMA\\.\\S*TF32``: tf32
@@ -343,11 +368,12 @@ def sass_count(name: str, opcode: str):
     return {fn: sum(1 for ins in lines if re.search(opcode, ins)) for fn, lines in code.items()}
 
 
-# The tensor-core pass 1 (mma_topk.cuh) in each library (the instances
-# whose names start so) and the instruction its products assemble to: K1
-# classic's instances and K4's with a bf16 query (mma.sync m16n8k16 bf16:
-# HMMA), K1 dot's (m16n8k32 s8: IMMA), K1 f32's and K4's with an f32 query
-# over int8 and over int4 rows (m16n8k8 tf32: HMMA on TF32 operands).
+# The tensor-core kernels in each library (the instances whose names start
+# so) and the instruction their products assemble to: the pass 1 of
+# mma_topk.cuh in K1 classic's instances and K4's with a bf16 query
+# (mma.sync m16n8k16 bf16: HMMA), K1 dot's (m16n8k32 s8: IMMA), K1 f32's and
+# K4's with an f32 query over int8 and over int4 rows (m16n8k8 tf32: HMMA on
+# TF32 operands); and K9's bf16 attention (m16n8k16 bf16: HMMA).
 TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fused_topk", "fused_topk_int8_partial", "IMMA"),
                        ("fused_topk", "fused_topk_f32_partial", r"HMMA\.\S*TF32"),
@@ -355,11 +381,12 @@ TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fused_topk_quantized", "fused_topk_quantized_tf32_partial<8,",
                         r"HMMA\.\S*TF32"),
                        ("fused_topk_quantized", "fused_topk_quantized_tf32_partial<4,",
-                        r"HMMA\.\S*TF32"))
+                        r"HMMA\.\S*TF32"),
+                       ("flash_attention", "flash_attention_bf16", "HMMA"))
 
 
 def check_tensor_cores() -> None:
-    """Every instance of the tensor-core pass 1 holds its tensor-core
+    """Every instance of the tensor-core kernels holds its tensor-core
     instructions (HMMA, IMMA, or HMMA on TF32 operands)."""
     for lib, kernel, opcode in TENSOR_CORE_KERNELS:
         counts = sass_count(lib, opcode)
@@ -1089,8 +1116,11 @@ ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 def attention_cases():
     """(dtype, B, Hq, Hkv, S, D) for check_attention: every head width at
-    S = 1, 130 and 4096 in both dtypes, MHA, GQA group 2 and MQA in turn,
-    and deepseek-coder-33b's 56 / 8 heads at S = 4096."""
+    S = 1, 130 and 4096 in both dtypes, MHA, GQA group 2 and MQA in turn;
+    the edges of the bf16 kernel's 64-key and 128-row tiles (S = 63, 64, 65,
+    127, 128, 129) in both dtypes, every head width in turn; GQA group 7
+    (deepseek-coder-33b's) on one KV head at S = 4096 in both dtypes; and
+    deepseek-coder-33b's 56 / 8 heads at S = 4096."""
     heads = ((4, 4), (4, 2), (8, 1))
     cases = []
     for d in (32, 64, 96, 128):
@@ -1098,6 +1128,11 @@ def attention_cases():
             for dtype in (torch.float32, torch.bfloat16):
                 hq, hkv = heads[len(cases) % 3]
                 cases.append((dtype, 2 if s == 130 else 1, hq, hkv, s, d))
+    for i, s in enumerate((63, 64, 65, 127, 128, 129)):
+        for dtype in (torch.float32, torch.bfloat16):
+            hq, hkv = heads[i % 3]
+            cases.append((dtype, 2, hq, hkv, s, (32, 64, 96, 128)[i % 4]))
+    cases += [(dtype, 1, 7, 1, 4096, 128) for dtype in (torch.float32, torch.bfloat16)]
     cases.append((torch.bfloat16, 1, 56, 8, 4096, 128))
     return cases
 
@@ -1173,10 +1208,12 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     card = gpu_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if argv[:1] == ["--pair-parent"]:  # K1-K5 against an earlier tree's, then stop
+    if argv[:1] == ["--pair-parent"]:  # K1-K5 and K9 against an earlier tree's, then stop
+        pair_k9(dev, card, argv[1])
         pair_parent(dev, card, argv[1])
         return 0
-    if argv[:1] == ["--ablate"]:  # pass 1 with parts cut out, then stop
+    if argv[:1] == ["--ablate"]:  # kernels with parts cut out, then stop
+        ablate_k9(dev, card)
         build_kernels(["fused_topk", "fused_topk_quantized"])
         trees = [("this tree", ROOT)] + [("parent", d) for d in argv[1:2]]
         ablate_k3(dev, card, trees)
@@ -1635,6 +1672,134 @@ def ablate_k1_f32(dev, card: str, trees=(("this tree", ROOT),)) -> None:
                   + "; ".join(line))
 
 
+def _attention_kernel(kdir: str, out_dir: str, edits=()):
+    """K9 built with nvcc from ``flash_attention.cu`` of the kernels
+    directory ``kdir`` of some tree into ``out_dir`` (with ``edits``, (old,
+    new) pairs whose old text the source holds once each, applied to a copy)
+    and called through that tree's own C signature (``_c_entry``).  Returns
+    ``attn(q, k, v)``, which raises if the launch fails."""
+    import ctypes
+
+    from repro_torch.kernels import common
+
+    text = open(os.path.join(kdir, "flash_attention", "csrc", "flash_attention.cu")).read()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"flash_attention.cu of {kdir} holds {old!r} "
+                             f"{text.count(old)} times")
+        text = text.replace(old, new)
+    os.makedirs(out_dir, exist_ok=True)
+    src, lib = (os.path.join(out_dir, f) for f in ("flash_attention.cu", "libflash_attention.so"))
+    with open(src, "w") as f:
+        f.write(text)
+    proc = subprocess.run([common._nvcc(), *common.NVCC_FLAGS, "-I", os.path.join(kdir, "csrc"),
+                           "-o", lib, src], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+    launch = _c_entry(ctypes.CDLL(lib), text, "flash_attention_launch")
+
+    def attn(q, k, v):
+        b, hq, s, d = q.shape
+        out = torch.empty_like(q)
+        err = launch(dtype={torch.float32: 0, torch.bfloat16: 1}[q.dtype], D=d, q=q.data_ptr(),
+                     k=k.data_ptr(), v=v.data_ptr(), out=out.data_ptr(), B=b, Hq=hq,
+                     Hkv=k.shape[1], S=s, stream=torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_launch of {kdir} failed: cudaError {err}")
+        return out
+
+    return attn
+
+
+def _attention_layers(dev) -> dict:
+    """{name: (q, k, v)}: random bf16 operands of each ATTENTION_LAYERS layer."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    return {name: _qkv(torch.bfloat16, 1, hq, hkv, s, d, gen, dev)
+            for name, hq, hkv, s, d in ATTENTION_LAYERS}
+
+
+def pair_k9(dev, card: str, parent: str) -> None:
+    """K9 of the tree ``parent`` (its own ``flash_attention.cu`` and C
+    signature) and of this tree at both full-width layers (ATTENTION_LAYERS,
+    bf16), timed in turns (parent, this, this, parent; median of RUNS each),
+    their outputs held to each other under the bf16 row rule; and which
+    instances the two libraries share with identical SASS."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+
+    pair_dir = os.path.join(ROOT, "build", "pair-k9")
+    with ThreadPoolExecutor() as pool:  # the parent's nvcc beside this tree's
+        old = pool.submit(_attention_kernel, os.path.join(os.path.abspath(parent), "src",
+                                                          "repro_torch", "kernels"), pair_dir)
+        build_kernels(["flash_attention"])
+        old = old.result()
+    sass_pairing("flash_attention", os.path.join(pair_dir, "libflash_attention.so"))
+    for name, (q, k, v) in _attention_layers(dev).items():
+        err = compare_dense(f"K9 {name}: this tree vs the parent", flash_attention(q, k, v),
+                            old(q, k, v), exact=False, tol=ATTN_TOL[torch.bfloat16])
+        times = [cuda_ms(lambda i=i: (old if i in (0, 3) else flash_attention)(q, k, v))
+                 for i in range(4)]
+        print(f"pairing K9 {name} (bf16, B=1, Hq={q.shape[1]}, Hkv={k.shape[1]}, "
+              f"S={q.shape[2]}, D={q.shape[3]}) on {card}: parent {times[0]:.3f} ms, this tree "
+              f"{times[1]:.3f} ms, this tree {times[2]:.3f} ms, parent {times[3]:.3f} ms; "
+              f"max |this - parent| {err:.3g}")
+
+
+# Copies of K9's bf16 kernel (flash_attention_bf16), each timed: without
+# the online softmax (P = S: no max, exponential or rescale; results wrong),
+# the loads alone (the cp.async ring, barriers and output, no products and
+# no softmax; results wrong), both also with 4 warps, and two variants whose
+# results are held to the plain version: a three-stage ring, and 4 warps
+# (64-row query tiles, the first design: twice the KV bytes from L2).
+K9_NO_SOFTMAX = ("    online_softmax(s, m, l, alpha, scale_log2);\n",
+                 "    alpha[0] = alpha[1] = 1.f;\n")
+K9_NO_PRODUCTS = [("    for (int ks = 0; ks < Tl::kKSteps; ++ks) {\n",
+                   "    for (int ks = 0; ks < 0; ++ks) {\n"),
+                  ("    for (int kk = 0; kk < kMmaBK / 16; ++kk) {\n",
+                   "    for (int kk = 0; kk < 0; ++kk) {\n")]
+K9_ABLATIONS = {
+    "without the softmax (P = S)": [K9_NO_SOFTMAX],
+    "loads only": [K9_NO_SOFTMAX, *K9_NO_PRODUCTS],
+}
+K9_FOUR_WARPS = ("constexpr int kMmaWarps = 8;", "constexpr int kMmaWarps = 4;")
+K9_VARIANTS = {
+    "3 stages": [("constexpr int kStages = 2;", "constexpr int kStages = 3;")],
+    "4 warps": [K9_FOUR_WARPS],
+}
+K9_ABLATIONS.update({f"4 warps, {name.split(' (')[0]}": [K9_FOUR_WARPS, *edits]
+                     for name, edits in list(K9_ABLATIONS.items())})
+
+
+def ablate_k9(dev, card: str) -> None:
+    """K9's bf16 kernel at both full-width layers (ATTENTION_LAYERS) against
+    copies with parts cut out (K9_ABLATIONS) and other shapes (K9_VARIANTS,
+    held to the plain version under the bf16 row rule), timed in turns
+    (full, each copy, full)."""
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    copies = {**K9_ABLATIONS, **K9_VARIANTS}
+    with ThreadPoolExecutor() as pool:  # every copy's nvcc at once
+        built = {name: pool.submit(_attention_kernel, kdir,
+                                   os.path.join(ROOT, "build", "ablate-k9", str(j)), edits)
+                 for j, (name, edits) in enumerate(copies.items())}
+        build_kernels(["flash_attention"])
+        cut = {name: fut.result() for name, fut in built.items()}
+    for name, (q, k, v) in _attention_layers(dev).items():
+        want = ref.attention_ref(q, k, v)
+        for variant in K9_VARIANTS:
+            err = compare_dense(f"K9 {name}, {variant}", cut[variant](q, k, v), want, exact=False,
+                                tol=ATTN_TOL[torch.bfloat16])
+            print(f"K9 {name}, {variant}: vs plain max_abs_err {err:.3g}")
+        del want
+        line = [f"full {cuda_ms(lambda: flash_attention(q, k, v)):.3f} ms"]
+        line += [f"{label} {cuda_ms(lambda fn=fn: fn(q, k, v)):.3f} ms"
+                 for label, fn in cut.items()]
+        line.append(f"full {cuda_ms(lambda: flash_attention(q, k, v)):.3f} ms")
+        print(f"K9 ablation, {name} (bf16, B=1, Hq={q.shape[1]}, Hkv={k.shape[1]}, "
+              f"S={q.shape[2]}, D={q.shape[3]}), on {card}: " + "; ".join(line))
+
+
 def pair_parent(dev, card: str, parent: str) -> None:
     """K1-K5 of the tree ``parent`` (its own sources, plans and C
     signatures, ``_tree_kernels``) and of this tree on the same ann-word2vec
@@ -1670,20 +1835,8 @@ def pair_parent(dev, card: str, parent: str) -> None:
             os.path.join(ROOT, "build", "pair"))
         build_kernels(["fused_topk", "fused_topk_quantized"])
         old = parent_build.result()
-    from repro_torch.kernels import common
-
     for name in ("fused_topk", "fused_topk_quantized"):  # instances in both trees
-        new_code = sass(common.library_path(name))
-        old_code = sass(os.path.join(ROOT, "build", "pair", f"lib{name}.so"))
-        if new_code is None or old_code is None:
-            print("SASS of both trees: no cuobjdump in the CUDA toolkit")
-            break
-        both = sorted(set(new_code) & set(old_code))
-        same = [fn for fn in both if new_code[fn] == old_code[fn]]
-        print(f"SASS of {name}, this tree against the parent: {len(same)} of the {len(both)} "
-              f"instances in both identical; differing: {sorted(set(both) - set(same))}; only "
-              f"here: {sorted(set(new_code) - set(old_code))}; only in the parent: "
-              f"{sorted(set(old_code) - set(new_code))}")
+        sass_pairing(name, os.path.join(ROOT, "build", "pair", f"lib{name}.so"))
     cell = ann_word2vec.ARCH.cell("ann_search")
     config = ann_word2vec.ARCH.make_model(cell)
     x, qx = make_inputs(dev, cell.get("n_docs"), cell.batch)
@@ -2281,9 +2434,7 @@ def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, conf
     q_tf = fakewords.encode_queries(qn, config, normalized=True)
     sig_q = lexical_lsh.encode(qn, lidx.config)
     index = idx.index
-    gen = torch.Generator(device=dev).manual_seed(5)
-    layers = {name: _qkv(torch.bfloat16, 1, hq, hkv, s, d, gen, dev)
-              for name, hq, hkv, s, d in ATTENTION_LAYERS}
+    layers = _attention_layers(dev)
     # The fused top-k kernels' answers to the same queries, for the checks.
     k1_classic = topk_ops.classic_topk(index, q_tf, depth)
     k1_dot = topk_ops.dot_topk(index, q_tf, depth)

@@ -5,38 +5,89 @@
 // flash_attention (def 74, pallas_call 99): out = softmax(mask(q k^T /
 // sqrt(D))) v for q (B, Hq, S, D) and k, v (B, Hkv, S, D), Hq % Hkv == 0;
 // query head h reads KV head h / (Hq / Hkv) by index, with no copy of K or
-// V.  As in the reference, the logits, the online-softmax statistics (row
-// max m, row sum l) and both products are f32, masked logits are -1e30, and
-// the output is acc / max(l, 1e-30) cast to the input dtype (f32 or bf16).
-// There is no backward: the TPU kernel has none.
+// V.  As in the reference, the logits and the online-softmax statistics (row
+// max m, row sum l) are f32, masked logits are -1e30 (finite: a row's first
+// tile always holds key 0, and -1e30 - (-1e30) is 0, where -inf would give
+// NaN), and the output is acc / max(l, 1e-30) cast to the input dtype (f32
+// or bf16, rounded to nearest even).  There is no backward: the TPU kernel
+// has none.
 //
 // Bound on an H100 SXM at deepseek-coder-33b's prefill_32k sequence (one
 // layer: Hq 56, Hkv 8, D 128, S 32,768, bf16, B 1): the causal products are
 // 4 * Hq * D * S (S + 1) / 2 = 1.54e13 operations, 15.6 ms at the bf16
-// tensor-core rate (989 TFLOP/s), far above the 0.32 ms of its bytes
-// (q, k, v and the output read or written once): operations bound it.  This
-// first kernel computes in f32 on CUDA cores (67 TFLOP/s peak), as the
-// reference's arithmetic is f32; tensor cores (wgmma, bf16 operands with
-// f32 accumulation) are the step that could approach the bound.
+// tensor-core rate of wgmma (989 TFLOP/s), far above the 0.32 ms of its
+// bytes (q, k, v and the output read or written once): operations bound it.
+// The bf16 instances below issue mma.sync, whose peak on Hopper is below
+// wgmma's (not measured here; this kernel issues its own 2.3e13 mma
+// operations at deepseek's layer, the split P's included, at ~360 TFLOP/s,
+// a floor of that peak: PERF.md), so that bound is out of their reach.
 //
-// Design: one block of 256 threads per (query head, batch, 64-row query
-// tile).  The grid's slowest axis is the query tile, walked from the last
-// (the most KV tiles) to the first, so the heaviest blocks start first, and
-// the query heads of one KV head are adjacent, so they share its tiles in
-// L2.  The query tile sits in shared memory as f32; 32-key tiles
-// of K and V stream through shared memory, and tiles wholly above the
-// diagonal are never read.  Thread (ty, tx) of a 16 x 16 grid owns query
-// rows 4 ty .. 4 ty + 3: it computes their logits against keys tx and tx + 16
-// of the tile, keeps their running (m, l) (the 16 threads of a row reduce
-// with shuffles) and their output columns tx + 16 c, c < D / 16, in
-// registers.  The probabilities pass through shared memory to the P V
-// product.  Rows of the query and key tiles are D + 1 words apart in shared
-// memory, so the column reads of the logit product are free of bank
-// conflicts.
+// bf16 (flash_attention_bf16<D>, D in {32, 64, 96, 128}): a
+// FlashAttention-2-style forward on mma.sync m16n8k16 bf16 -> f32 (HMMA).
+//   * One block of 8 warps per (query head, batch, 128-row query tile); warp
+//     w owns rows 16 w .. 16 w + 15.  The grid's slowest axis is the query
+//     tile, walked from the last (the most KV tiles) to the first, and the
+//     query heads of one KV head are adjacent, so they share its tiles in L2.
+//     128 rows a block, not 64, halve the KV bytes read from L2 (at 64 the
+//     loads alone took 45 of ~70 ms at deepseek's layer; PERF.md).
+//   * Q is copied once by 16-byte cp.async into shared memory (rows D + 8
+//     bf16 apart: the eight rows an ldmatrix phase reads fall on distinct
+//     banks) and held in registers as the A fragments of every k-step
+//     (D / 16 of them) for the whole block.
+//   * 64-key tiles of K and V stream through a ring of kStages stages by
+//     16-byte cp.async, rows past S zero-filled by the copy's source size;
+//     the next tile's copy is in flight while this one is multiplied, with
+//     one barrier a tile.  Q's staging lies in the last stage, which no tile
+//     fills before every warp holds its Q fragments.  Tiles wholly above the
+//     diagonal are never read; only the tiles across it are masked, so
+//     the others carry no compare.
+//   * S = Q K^T: K fragments by ldmatrix from K's rows (keys on N).  The
+//     products of bf16 values are exact in f32, so only the order of the
+//     f32 sums differs from the reference.
+//   * Online softmax on the accumulator fragments: each thread holds rows
+//     r and r + 8 of its warp's 16 (16 logits of each a tile); the row max
+//     takes two __shfl_xor_sync within the quad that shares a row.  The
+//     exponentials are ex2.approx (exp2f as fast math compiles it) of the
+//     logit times log2(e) / sqrt(D), the max kept in those units.  Each
+//     thread sums its own share of l from the f32 probabilities; the quad's
+//     shares, all rescaled by the same alpha, are added once at the end.
+//   * P V without shared memory: P stays in the accumulator registers,
+//     which are the A fragments of the P V mma in place (the m16n8
+//     accumulators of two adjacent key fragments are exactly an m16k16 A
+//     fragment), split into two bf16 parts: hi, P rounded to bf16, and lo,
+//     the remainder rounded to bf16, each multiplied by V (two mma, lo
+//     first).  hi alone is off by up to 2^-8 of each probability; on random
+//     data at S >= 1024 that moves whole bf16 output rows past the check's
+//     1e-2 row rule (tests/test_torch_flash_attention.py), where hi + lo,
+//     within 2^-16, stays at the f32 product's error.  V fragments come by
+//     ldmatrix.trans from V's rows.  O stays in f32 registers (16 x D a
+//     warp: 64 floats a thread at D 128), rescaled by alpha each tile, and
+//     is written as bf16 pairs.
+// Left for wgmma and TMA: a warpgroup-wide product with K and V read by the
+// tensor cores from shared memory (here each warp re-reads the whole K and V
+// tile through ldmatrix), TMA copies with mbarriers in place of the cp.async
+// ring, and a producer warp so that softmax, copies and products overlap.
+//
+// f32 (flash_attention_fwd<D, float>): the CUDA-core design of the first
+// port, kept as it was (its tolerance, 1e-4 of a row, leaves no room for a
+// bf16 P; split TF32 is queued).  One block of 256 threads per (query head,
+// batch, 64-row query tile), in the same grid order.  The query tile sits in
+// shared memory as f32; 32-key tiles of K and V stream through shared
+// memory, and tiles wholly above the diagonal are never read.  Thread (ty,
+// tx) of a 16 x 16 grid owns query rows 4 ty .. 4 ty + 3: it computes their
+// logits against keys tx and tx + 16 of the tile, keeps their running (m, l)
+// (the 16 threads of a row reduce with shuffles) and their output columns tx
+// + 16 c, c < D / 16, in registers.  The probabilities pass through shared
+// memory to the P V product.  Rows of the query and key tiles are D + 1
+// words apart in shared memory, so the column reads of the logit product
+// are free of bank conflicts.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -49,14 +100,7 @@ constexpr float kMasked = -1e30f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(uint16_t x) {  // bf16 bits: the top half of an f32
-  return __uint_as_float(static_cast<uint32_t>(x) << 16);
-}
 __device__ __forceinline__ void from_f32(float x, float* dst) { *dst = x; }
-__device__ __forceinline__ void from_f32(float x, uint16_t* dst) {  // round to nearest even
-  const uint32_t u = __float_as_uint(x);
-  *dst = (x != x) ? uint16_t(0x7FC0) : uint16_t((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -178,6 +222,219 @@ __global__ void __launch_bounds__(kThreads, 2) flash_attention_fwd(
   }
 }
 
+// ---- bf16: tensor cores ----------------------------------------------------
+
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kMmaBQ = 16 * kMmaWarps;  // query rows per block
+constexpr int kMmaBK = 64;              // keys per KV tile
+constexpr int kKeyFrags = kMmaBK / 8;   // n8 fragments of a warp's logits
+constexpr int kStages = 2;              // K, V ring: one tile in flight
+static_assert(kMmaBQ <= 2 * kMmaBK, "Q's staging fits in a stage");
+
+template <int D>
+struct Bf16Tile {
+  static constexpr int kStride = D + 8;    // staged row stride in bf16 (2 D + 16 bytes)
+  static constexpr int kPacks = D / 8;     // 16-byte packs of a row
+  static constexpr int kKSteps = D / 16;   // k-steps of Q K^T
+  static constexpr int kDFrags = D / 8;    // n8 fragments of O
+  static constexpr int kElems = kMmaBK * kStride;  // one staged K or V tile
+  static constexpr size_t kSmem = sizeof(uint16_t) * 2 * kStages * kElems;
+  static_assert(kPacks * kMmaBK % kMmaThreads == 0, "whole copy rounds");
+  static_assert(kPacks * kMmaBQ % kMmaThreads == 0, "whole copy rounds");
+};
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two f32 as bf16 (round to nearest even) in one register, the first in the
+// low half: an mma fragment's or the output's element pair.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Two probabilities a, b as the bf16 pairs hi (each rounded to bf16) and lo
+// (each remainder, exact in f32, rounded to bf16): hi + lo is each to 2^-16
+// of itself, where hi alone is off by up to 2^-8.
+__device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi, unsigned& lo) {
+  hi = pack_bf16(a, b);
+  lo = pack_bf16(a - __uint_as_float(hi << 16), b - __uint_as_float(hi & 0xFFFF0000u));
+}
+
+// Rows [r0, r0 + ROWS) of a head's (S, D) bf16 matrix into staged rows by
+// 16-byte cp.async; rows past S are zero-filled and read nothing.
+template <int D, int ROWS = kMmaBK>
+__device__ __forceinline__ void copy_tile(uint16_t* dst, const uint16_t* __restrict__ src, int r0,
+                                          int S) {
+  using Tl = Bf16Tile<D>;
+#pragma unroll
+  for (int j = 0; j < Tl::kPacks * ROWS / kMmaThreads; ++j) {
+    const int i = j * kMmaThreads + threadIdx.x;
+    const int r = i / Tl::kPacks, c = 8 * (i % Tl::kPacks);
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * Tl::kStride + c, src + (ok ? (size_t)(r0 + r) * D + c : 0), ok ? 16 : 0);
+  }
+}
+
+// The online softmax of one tile for a thread's rows r (e = 0, 1) and r + 8
+// (e = 2, 3): s[j][e] holds the logits of keys 8 j + 2 t + (e & 1), t =
+// lane % 4, and becomes their f32 probability; m (in units of log2 e /
+// sqrt(D), the scale folded into one fmaf) and this thread's share of l are
+// updated, and alpha is what the row's earlier sums must be scaled by.
+__device__ __forceinline__ void online_softmax(float (&s)[kKeyFrags][4], float (&m)[2],
+                                               float (&l)[2], float (&alpha)[2],
+                                               float scale_log2) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = s[0][2 * r];
+#pragma unroll
+    for (int j = 0; j < kKeyFrags; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m[r], mx * scale_log2);
+    alpha[r] = exp2_approx(m[r] - m_new);
+    m[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kKeyFrags; ++j) {
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        s[j][e] = exp2_approx(fmaf(s[j][e], scale_log2, -m_new));
+        sum += s[j][e];
+      }
+    }
+    l[r] = fmaf(alpha[r], l[r], sum);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) flash_attention_bf16(
+    const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+    const uint16_t* __restrict__ v, uint16_t* __restrict__ out, int Hq, int Hkv, int S,
+    float scale_log2) {
+  using Tl = Bf16Tile<D>;
+  extern __shared__ __align__(16) uint16_t staged[];  // kStages x (K tile, V tile)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kMmaBQ;  // the longest rows first
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (Hq / Hkv);
+  const size_t q_head = ((size_t)b * Hq + h) * S * D;
+  const uint16_t* kh = k + ((size_t)b * Hkv + hk) * S * D;
+  const uint16_t* vh = v + ((size_t)b * Hkv + hk) * S * D;
+  const int n_tiles = (min(q0 + kMmaBQ, S) - 1) / kMmaBK + 1;  // none wholly above the diagonal
+  const int n_unmasked = q0 / kMmaBK;  // tiles whose every key precedes every row
+
+  // Q (in the last stage) and the first kStages - 1 KV tiles, a copy group
+  // each.
+  uint16_t* qs = staged + 2 * (kStages - 1) * Tl::kElems;
+  copy_tile<D, kMmaBQ>(qs, q + q_head, q0, S);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) {
+      copy_tile<D>(staged + 2 * t * Tl::kElems, kh, t * kMmaBK, S);
+      copy_tile<D>(staged + (2 * t + 1) * Tl::kElems, vh, t * kMmaBK, S);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+  unsigned qf[Tl::kKSteps][4];  // A fragments of the warp's 16 rows
+#pragma unroll
+  for (int ks = 0; ks < Tl::kKSteps; ++ks)
+    ldmatrix_x4(qf[ks], smem_addr(qs + (16 * warp + (lane & 15)) * Tl::kStride + 16 * ks +
+                                  8 * (lane >> 4)));
+
+  float o[Tl::kDFrags][4], m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < Tl::kDFrags; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  // ldmatrix lane offsets: K (keys on N): key lane % 8 + 8 (lane / 16), column
+  // 8 ((lane / 8) % 2); V (keys on K, transposed): key lane % 16, column 8 (lane / 16).
+  const int k_lane = ((lane & 7) + 8 * (lane >> 4)) * Tl::kStride + 8 * ((lane >> 3) & 1);
+  const int v_lane = (lane & 15) * Tl::kStride + 8 * (lane >> 4);
+  const int row0 = q0 + 16 * warp + (lane >> 2);  // rows row0 and row0 + 8
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1's stage (or Q)
+    if (t + kStages - 1 < n_tiles) {
+      const int st = (t + kStages - 1) % kStages;
+      copy_tile<D>(staged + 2 * st * Tl::kElems, kh, (t + kStages - 1) * kMmaBK, S);
+      copy_tile<D>(staged + (2 * st + 1) * Tl::kElems, vh, (t + kStages - 1) * kMmaBK, S);
+    }
+    cp_async_commit();
+    const unsigned ks_addr = smem_addr(staged + 2 * (t % kStages) * Tl::kElems + k_lane);
+    const unsigned vs_addr = smem_addr(staged + (2 * (t % kStages) + 1) * Tl::kElems + v_lane);
+
+    float s[kKeyFrags][4];
+#pragma unroll
+    for (int j = 0; j < kKeyFrags; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < Tl::kKSteps; ++ks) {
+#pragma unroll
+      for (int j = 0; j < kKeyFrags; j += 2) {
+        unsigned kb[4];  // b0, b1 of key fragments j and j + 1
+        ldmatrix_x4(kb, ks_addr + 2 * (8 * j * Tl::kStride + 16 * ks));
+        const unsigned b0[2] = {kb[0], kb[1]}, b1[2] = {kb[2], kb[3]};
+        mma_bf16(s[j], qf[ks], b0);
+        mma_bf16(s[j + 1], qf[ks], b1);
+      }
+    }
+    if (t >= n_unmasked) {  // a tile across the diagonal: keys past the row are masked
+#pragma unroll
+      for (int j = 0; j < kKeyFrags; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (t * kMmaBK + 8 * j + 2 * (lane & 3) + (e & 1) > row0 + 8 * (e >> 1))
+            s[j][e] = kMasked;
+    }
+
+    float alpha[2];
+    online_softmax(s, m, l, alpha, scale_log2);
+#pragma unroll
+    for (int j = 0; j < Tl::kDFrags; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        o[j][e] *= alpha[e >> 1];
+
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+      // P of keys 16 kk .. 16 kk + 15 as two A fragments, hi and lo: rows
+      // r, r + 8 of key fragment 2 kk, then of 2 kk + 1.
+      unsigned hi[4], lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        split_bf16(s[2 * kk + (i >> 1)][2 * (i & 1)], s[2 * kk + (i >> 1)][2 * (i & 1) + 1],
+                   hi[i], lo[i]);
+#pragma unroll
+      for (int j = 0; j < Tl::kDFrags; j += 2) {
+        unsigned vb[4];  // b0, b1 of O's fragments j and j + 1
+        ldmatrix_x4_trans(vb, vs_addr + 2 * (16 * kk * Tl::kStride + 8 * j));
+        const unsigned b0[2] = {vb[0], vb[1]}, b1[2] = {vb[2], vb[3]};
+        mma_bf16(o[j], lo, b0);
+        mma_bf16(o[j + 1], lo, b1);
+        mma_bf16(o[j], hi, b0);
+        mma_bf16(o[j + 1], hi, b1);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    unsigned* dst = reinterpret_cast<unsigned*>(out + q_head + (size_t)row * D + 2 * (lane & 3));
+#pragma unroll
+    for (int j = 0; j < Tl::kDFrags; ++j)
+      dst[4 * j] = pack_bf16(o[j][2 * r] / denom, o[j][2 * r + 1] / denom);
+  }
+}
+
 template <int D, typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
                    int S, cudaStream_t stream) {
@@ -193,14 +450,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* out, int B, int Hq,
-                     int Hkv, int S, cudaStream_t stream) {
-  switch (D) {
-    case 32: return launch<32, T>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 64: return launch<64, T>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 96: return launch<96, T>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 128: return launch<128, T>(q, k, v, out, B, Hq, Hkv, S, stream);
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Hq,
+                        int Hkv, int S, cudaStream_t stream) {
+  constexpr size_t smem = Bf16Tile<D>::kSmem;
+  auto kernel = flash_attention_bf16<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hq, B, (S + kMmaBQ - 1) / kMmaBQ);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), Hq, Hkv, S,
+      (float)(1.4426950408889634 / sqrt((double)D)));
+  return cudaGetLastError();
+}
+
+cudaError_t launch_d(int dtype, int D, const void* q, const void* k, const void* v, void* out,
+                     int B, int Hq, int Hkv, int S, cudaStream_t stream) {
+  switch (dtype * 1000 + D) {
+    case 32: return launch<32, float>(q, k, v, out, B, Hq, Hkv, S, stream);
+    case 64: return launch<64, float>(q, k, v, out, B, Hq, Hkv, S, stream);
+    case 96: return launch<96, float>(q, k, v, out, B, Hq, Hkv, S, stream);
+    case 128: return launch<128, float>(q, k, v, out, B, Hq, Hkv, S, stream);
+    case 1032: return launch_bf16<32>(q, k, v, out, B, Hq, Hkv, S, stream);
+    case 1064: return launch_bf16<64>(q, k, v, out, B, Hq, Hkv, S, stream);
+    case 1096: return launch_bf16<96>(q, k, v, out, B, Hq, Hkv, S, stream);
+    case 1128: return launch_bf16<128>(q, k, v, out, B, Hq, Hkv, S, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -209,16 +485,16 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, void* o
 
 extern "C" {
 
-// dtype 0: f32, 1: bf16.
+// dtype 0: f32, 1: bf16.  The bf16 instances copy 16-byte packs: q, k and
+// v must start on 16 bytes (the wrapper's tensors do).
 int flash_attention_launch(int dtype, int D, const void* q, const void* k, const void* v,
                            void* out, int B, int Hq, int Hkv, int S, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || Hq % Hkv != 0 || B > 65535 ||
-      (S + kBQ - 1) / kBQ > 65535)
+      (S + kBQ - 1) / kBQ > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_d<float>(D, q, k, v, out, B, Hq, Hkv, S, s);
-  if (dtype == 1) return launch_d<uint16_t>(D, q, k, v, out, B, Hq, Hkv, S, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  return (int)launch_d(dtype, D, q, k, v, out, B, Hq, Hkv, S, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int err) {

@@ -6,7 +6,9 @@
 // packed int4 rows widened to bf16) and K4 with an f32 query over int8 or
 // packed int4 rows (fused_topk_quantized_tf32_partial, same file, rows
 // widened to f32): the
-// mma.sync / ldmatrix / cp.async helpers, the four product types (MmaBf16,
+// mma_s8 / mma_tf32 / 8- and 4-byte cp.async helpers (the bf16 mma, ldmatrix
+// and 16-byte cp.async are ../../csrc/mma_sync.cuh's, shared with K9), the
+// four product types (MmaBf16,
 // MmaS8, MmaTf32, MmaTf32x3), the counting merge of a candidate buffer into
 // a running list, the block's shared-memory layout and launch plan
 // (mma_smem / mma_shape / mma_plan), and the body (mma_topk_pass1),
@@ -122,6 +124,7 @@
 // ms), not the products; at B <= 8 the loads, at ~2.3 TB/s.
 #pragma once
 
+#include "mma_sync.cuh"  // the ldmatrix / mma_bf16 / cp.async wrappers
 #include "topk_merge.cuh"
 
 namespace {
@@ -210,40 +213,6 @@ inline int mma_plan(int B, int n_docs, int depth, int sm_count, int ring, int* p
   plan[3] = tiles_per_split;
   plan[4] = bn;
   return 0;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// Four 8x8 matrices of 16-bit lanes (bf16, int8 pairs or f32 halves) from
-// shared memory into r[0..3]; lane l gives the address of row l % 8 of
-// matrix l / 8.
-template <int N>
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[N], unsigned addr) {
-  static_assert(N >= 4, "four registers");
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// Two 8x8 matrices of 16-bit lanes; lanes 0-15 give the addresses.
-__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // c += a (16x32, row-major) * b (32x8, column-major), s8 in, s32 sums
@@ -380,14 +349,6 @@ __host__ __device__ constexpr int chunk_scale_bytes() {
   return Rows::kChunkScale ? 4 : 0;
 }
 
-// 16 bytes from device to shared memory, asynchronously; src_bytes = 0
-// writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
-               : "memory");
-}
 // 8 or 4 bytes, cached in L1 on the way (cp.async.ca): the first src_bytes
 // are read, the rest zero-filled.
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
@@ -422,14 +383,6 @@ __device__ __forceinline__ void copy_pack(uint16_t* dst, const E* base, int row,
       cp_async8(dst + 4 * h, base + (ok ? (size_t)row * T + e + h * kHalf : 0), ok ? 8 : 0);
     }
   }
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's newest copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // A barrier over the kLanes threads of a merge: one warp, or the block.

@@ -6,13 +6,15 @@ The same numpy inputs go to both packages.  The port runs its CPU route
 ``interpret=True`` and its ``ref.attention_ref``.  f32 outputs must agree
 within 1e-4, bf16 outputs within 1e-2, both relative to each output row's
 scale (rtol = tol, atol = tol x the largest |output| of the row).
-Interpret-mode JAX attention is slow, so S stays at most 256.
+Interpret-mode JAX attention is slow, so S stays at most 256.  The bf16
+kernel's arithmetic (64-key tiles, P split into two bf16 parts) is emulated
+here (``torch_parity.flash_bf16_emulation``) and held to both packages.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_rows_close, to_torch
+from torch_parity import assert_rows_close, flash_bf16_emulation, to_torch
 
 from repro.kernels.flash_attention.kernel import flash_attention as jflash_attention
 from repro.kernels.flash_attention.ops import causal_attention as jcausal_attention
@@ -92,3 +94,41 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(monkeypatch):
         flash_attention(x, x.bfloat16(), x)
     with pytest.raises(TypeError):
         flash_attention(*(x.half(),) * 3)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (7, 1)])  # MHA; GQA group 7 (deepseek-coder-33b's)
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("s", [130, 256])
+def test_bf16_kernel_arithmetic_matches_jax(s, d, hq, hkv):
+    """The bf16 kernel's arithmetic, emulated (f32 logits, an online softmax
+    over 64-key tiles with the -1e30 mask, P as hi + lo bf16 parts, l from
+    the f32 P, the output rounded to bf16), against JAX's Pallas kernel and
+    reference under the bf16 row rule."""
+    jq, jk, jv = _qkv(1, hq, hkv, s, d, "bf16", seed=3 * s + d + hq)
+    got = flash_bf16_emulation(to_torch(jq), to_torch(jk), to_torch(jv))
+    assert got.dtype == torch.bfloat16 and got.shape == (1, hq, s, d)
+    assert_rows_close(got, jflash_attention(jq, jk, jv, interpret=True), TOL["bf16"])
+    assert_rows_close(got, jattention_ref(jq, jk, jv), TOL["bf16"])
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (7, 1)])
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("s", [130, 256])
+def test_bf16_kernel_arithmetic_with_f32_p_is_the_plain_version(s, d, hq, hkv):
+    """With P left in f32 and the output in f32, the emulation's tiles and
+    online softmax are the port's plain version up to the order of the f32
+    sums (1e-5 of each row)."""
+    q, k, v = (to_torch(a).float() for a in _qkv(1, hq, hkv, s, d, "bf16", seed=5 * s + d))
+    got = flash_bf16_emulation(q, k, v, p="f32", out_dtype=torch.float32)
+    assert_rows_close(got, ref.attention_ref(q, k, v), 1e-5)
+
+
+def test_bf16_p_needs_its_low_part():
+    """Why the kernel splits P: P rounded once to bf16 (2^-8 of each
+    probability at most) moves whole rows of a bf16 output past the row
+    rule's 1e-2 / 2 of their norm at S = 1024, where hi + lo passes."""
+    q, k, v = (to_torch(a) for a in _qkv(1, 4, 1, 1024, 32, "bf16", seed=1))
+    want = ref.attention_ref(q, k, v)
+    assert_rows_close(flash_bf16_emulation(q, k, v), want, TOL["bf16"])
+    with pytest.raises(AssertionError, match="rows' error norms"):
+        assert_rows_close(flash_bf16_emulation(q, k, v, p="bf16"), want, TOL["bf16"])

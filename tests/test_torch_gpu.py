@@ -590,7 +590,11 @@ def test_cuda_dense_kernel_matches_plain_version(kind, b, n, t):
 @pytest.mark.gpu
 @pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hq,hkv,s", [(4, 4, 1), (4, 2, 130), (8, 1, 300)])
+@pytest.mark.parametrize("hq,hkv,s", [(4, 4, 1), (4, 2, 130), (8, 1, 300),
+                                     # the bf16 kernel's 64-key and 128-row tile edges
+                                     (4, 4, 63), (4, 2, 64), (8, 1, 65), (4, 4, 127),
+                                     (4, 2, 128), (8, 1, 129),
+                                     (7, 1, 4096)])  # GQA group 7, deepseek-coder-33b's
 def test_cuda_flash_attention_matches_plain_version(hq, hkv, s, dtype, d):
     from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -607,22 +611,39 @@ def test_cuda_flash_attention_matches_plain_version(hq, hkv, s, dtype, d):
     assert_rows_close(got, want, tol)
 
 
-# Faults planted in copies of the attention kernel that only rows past 2,048
-# see (the blocks with more than 64 KV tiles): one KV tile skipped, one
-# rescale of the running output left out, the denominator 3% off.  Each
-# changes a late row by much less than the largest |output|, which sits in
-# the first rows.
+@pytest.mark.gpu
+def test_cuda_flash_attention_takes_bf16_operands_off_16_bytes():
+    """The bf16 kernel copies 16-byte packs; operands whose data start 2
+    bytes past that are copied first, and the output is the same."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(11)
+    n = 4 * 130 * 64
+    flat = torch.randn(3 * n + 1, generator=g, device=dev).bfloat16()
+    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(1, 4, 130, 64) for i in range(3))
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    got = kernel.flash_attention(q, k, v)
+    want = kernel.flash_attention(q.clone(), k.clone(), v.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+# Faults planted in copies of the bf16 attention kernel (flash_attention_bf16)
+# that only rows past 2,048 see (the 128-row blocks with more than 32 KV
+# tiles of 64 keys): one KV tile skipped, one rescale of the running output
+# left out, the denominator 3% off.  Each changes a late row by much less
+# than the largest |output|, which sits in the first rows.
 ATTENTION_FAULTS = {
     "skip_middle_kv_tile": (
-        "    const int k0 = t * kBK;\n",
-        "    const int k0 = t * kBK;\n    if (n_tiles > 64 && t == n_tiles / 2) continue;\n"),
+        "    float s[kKeyFrags][4];\n",
+        "    if (n_tiles > 32 && t == n_tiles / 2) continue;\n    float s[kKeyFrags][4];\n"),
     "skip_one_rescale": (
-        "      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;\n",
-        "      for (int c = 0; c < kCols; ++c)\n"
-        "        acc[i][c] *= (n_tiles > 64 && t == n_tiles / 2) ? 1.f : alpha;\n"),
+        "        o[j][e] *= alpha[e >> 1];\n",
+        "        o[j][e] *= (n_tiles > 32 && t == n_tiles / 2) ? 1.f : alpha[e >> 1];\n"),
     "denominator_3pct_off": (
-        "    const float denom = fmaxf(l[i], 1e-30f);\n",
-        "    const float denom = fmaxf(l[i], 1e-30f) * (row >= 2048 ? 1.03f : 1.f);\n"),
+        "    const float denom = fmaxf(l[r], 1e-30f);\n",
+        "    const float denom = fmaxf(l[r], 1e-30f) * (row >= 2048 ? 1.03f : 1.f);\n"),
 }
 
 
@@ -631,7 +652,8 @@ def test_cuda_attention_check_catches_planted_faults(tmp_path, monkeypatch):
     """The row-scaled comparison that holds K9 to its plain version (here
     and in chip_smoke.compare_dense) passes the kernel and fails each of
     ATTENTION_FAULTS, built from a copy of the source under ``tmp_path``,
-    on a bf16 GQA layer at S = 4096."""
+    on a bf16 GQA layer at S = 4096; each copy's first 2,048 rows equal the
+    kernel's bit for bit."""
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -657,7 +679,9 @@ def test_cuda_attention_check_catches_planted_faults(tmp_path, monkeypatch):
             got = kernel.flash_attention(q, k, v)
             if name == "flash_attention":
                 assert_rows_close(got, want, 1e-2)
+                good = got
                 continue
+            assert torch.equal(got[:, :, :2048], good[:, :, :2048]), name
             with pytest.raises(AssertionError) as fault:
                 assert_rows_close(got, want, 1e-2)
             print(f"{name}: {fault.value}")

@@ -1,8 +1,8 @@
 """Helpers shared by the ``test_torch_*`` files: moving arrays from JAX /
 numpy to torch, holding top-k results against each other, and emulating
 on the CPU the split-TF32 arithmetic of K4 (an f32 query over int8 or int4
-rows) and of K1 f32 (over raw f32 rows), and the fused top-k kernels' pass
-2 (the threshold rule and tree merge)."""
+rows) and of K1 f32 (over raw f32 rows), the fused top-k kernels' pass 2
+(the threshold rule and tree merge), and K9's bf16 attention."""
 from typing import Optional, Tuple
 
 import numpy as np
@@ -212,6 +212,41 @@ def threshold_merge(part_s: torch.Tensor, part_i: torch.Tensor, depth: int,
         out_s[qi, :len(r_s)] = r_s
         out_i[qi, :len(r_s)] = torch.where(r_s == -torch.inf, -1, r_i).to(torch.int32)
     return out_s, out_i
+
+
+def flash_bf16_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p: str = "bf16x2",
+                         out_dtype: Optional[torch.dtype] = None, tile: int = 64) -> torch.Tensor:
+    """The arithmetic of K9's bf16 kernel (``flash_attention_bf16``) on the
+    CPU: q (B, Hq, S, D), k and v (B, Hkv, S, D) widened to f32, f32 logits
+    ``q k^T / sqrt(D)`` with keys past the row at -1e30, an online softmax
+    over ``tile``-key tiles (row max m, row sum l of the f32 probabilities),
+    the probabilities as the P V product takes them, and the output ``acc /
+    max(l, 1e-30)`` cast to ``out_dtype`` (default q's dtype).  ``p``:
+    "bf16x2" the kernel's split, each probability as hi = its bf16 rounding
+    plus lo = the remainder's (exact in f32 as hi + lo); "bf16" hi alone;
+    "f32" unrounded.  A tile past a row's diagonal changes nothing (its
+    probabilities are 0 and its alpha 1), so every row walks every tile."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf, vf = (torch.repeat_interleave(x.float(), group, dim=1) for x in (k, v))
+    m = torch.full((b, hq, s, 1), -1e30)
+    l = torch.zeros((b, hq, s, 1))
+    acc = torch.zeros((b, hq, s, d))
+    rows = torch.arange(s)[:, None]
+    for k0 in range(0, s, tile):
+        logits = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) / d**0.5
+        logits = torch.where(torch.arange(k0, min(k0 + tile, s)) <= rows, logits, -1e30)
+        m_new = torch.maximum(m, logits.amax(-1, keepdim=True))
+        probs = torch.exp(logits - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + probs.sum(-1, keepdim=True)
+        if p != "f32":
+            hi = probs.bfloat16().float()
+            probs = hi + (probs - hi).bfloat16().float() if p == "bf16x2" else hi
+        acc = alpha * acc + probs @ vf[:, :, k0:k0 + tile]
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)).to(out_dtype or q.dtype)
 
 
 def cuda_device() -> torch.device:
