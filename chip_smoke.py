@@ -2,8 +2,8 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --pair-parent DIR   # K1-K5 and K9 against the tree in DIR, then stop
-    python3 chip_smoke.py --ablate [DIR]      # K9 and pass 1 with parts cut out (K3 also DIR's)
+    python3 chip_smoke.py --pair-parent DIR   # K1-K5, K7 and K9 against the tree in DIR, then stop
+    python3 chip_smoke.py --ablate [DIR]      # K7, K9 and pass 1 with parts cut out (K3 also DIR's)
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc
    (sm_90a) and prints the build time and the compiler's register report,
@@ -11,8 +11,10 @@
    tensor-core pass 1 (``csrc/mma_topk.cuh``; ``cuobjdump -sass``): HMMA in
    K1 classic's and K4's with a bf16 query, IMMA in K1 dot's (int8), TF32
    HMMA in K1 f32's (split TF32 over f32 rows) and in K4's with an f32 query
-   over int8 and over int4 rows, and HMMA in K9's bf16 attention
-   (``flash_attention_bf16``); an instance without them fails the run.
+   over int8 and over int4 rows, HMMA in K7's classic score matrix
+   (``score_matmul_bf16``) and IMMA in its dot one (``score_matmul_int8``),
+   and HMMA in K9's bf16 attention (``flash_attention_bf16``); an instance
+   without them fails the run.
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
    shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
@@ -70,14 +72,23 @@
 9. Holds the dense score kernels (K6 ``cosine_scores``, K7 ``score_matmul``,
    K8 ``lsh_match_scores``) and the flash attention kernel (K9) against
    their plain versions: unaligned B / N / T, B = 1 and N = 1, int8 over its
-   whole range and at -128 / 127, sentinels on both sides of K8; K9 at every
+   whole range and at -128 / 127, sentinels on both sides of K8; K7 at the
+   edges of its 128 x 256 tile and of its 32-column bf16 / 64-column int8
+   chunks (B = 127..129 and 256, N = 127..129 and 255..257, T = 63..129
+   and 600), int8
+   rows of 600 bytes (its ring of 8-byte copies) and rows 1 byte off 16 (its
+   register loader), classic held to the 1e-5 row rule and dot, f32 or int32
+   out, bit for bit; and a copy of K7 whose ring skips the copies past T
+   instead of zero-filling them (K7_RING_SKIPS_PAST_T), which every ring case
+   whose last chunk ends inside the chunk, after more chunks than the ring
+   has stages, must fail; K9 at every
    head width (32, 64, 96, 128), S = 1, 130 and 4096, f32 and bf16, MHA /
    GQA / MQA, the bf16 kernel's 64-key and 128-row tile edges (S = 63, 64,
    65, 127, 128, 129), GQA group 7 at S = 4096, and deepseek-coder-33b's 56
    / 8 heads at S = 4096.
 10. With the corpus and its fp32 and LSH indexes still on the card, drives
    the dense-score and attention entry points at full width: ``classic_scores`` and
-   ``dot_scores`` at B = 256 (K7), ``cosine_topk`` over the raw corpus (K6),
+   ``dot_scores`` at B = 256 (K7, on tensor cores), ``cosine_topk`` over the raw corpus (K6),
    ``lsh_topk`` over the (b = 300, h = 1) signatures (K8), and
    ``causal_attention`` for one attention layer of deepseek-coder-33b
    (56 / 8 heads, D 128, bf16) at S = 32,768 and of phi3-mini (32 / 32, D
@@ -109,9 +120,21 @@ at B = 256, 8 and 1 (bit for bit), K4 with a bf16 query over int8 and int4
 postings at B = 256, 8 and 1, and K4 with an f32 query over int8 and over
 int4 postings at B = 256, 8 and 1 (and an integer case of each bit for
 bit), K3 (blockmax stage 2, classic and dot; each tree's pass 1 and pass
-2 apart), K1 lsh and K5; first, K9 of both trees (their
-``flash_attention.cu``) at both attention layers, outputs held to each
-other.  With ``--ablate [DIR]`` it first times K9's bf16 kernel at both
+2 apart), K1 lsh and K5, and K7 (that tree's ``fakewords_score.cu``, built
+against its own shared headers) in both modes at B = 256 on the index's
+``scored`` and ``tf`` (dot bit for bit, classic under the row rule); it
+prints whether the SASS of every kernel instance that both trees build is
+identical, for K1-K5, K6 and K8 (``cosine_score.cu``, ``lsh_match.cu``) and
+K9; first, K9 of both trees (their ``flash_attention.cu``) at both
+attention layers, outputs held to each other.  With ``--ablate [DIR]`` it
+first times K7 at the cell's shapes (B = 256, N = 2,999,808, T = 600, both
+modes) against copies with no stores (sums kept live), loads only (no
+``mma``, no stores), stores only and products only (K7_ABLATIONS), and
+with write-back stores, the queries streamed in place of resident, rings
+of other depths and 16 warps (K7_VARIANTS, held to the kernel's output;
+alone: ``python3 -c "import sys, torch; sys.path.insert(0, '.'); import
+chip_smoke as c; c.ablate_k7(torch.device('cuda', 0), c.gpu_line())"``),
+then K9's bf16 kernel at both
 attention layers against copies without the softmax, loads only, with 4
 warps and with three stages (K9_ABLATIONS, K9_VARIANTS), then K3 at the
 blockmax path's shape with its inserts and its products cut out
@@ -289,7 +312,7 @@ def _instance(mangled: str) -> str:
     m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_bf16_partial"
                   r"|quantized_tf32_partial|gathered_partial|bf16_partial"
                   r"|int8_partial|f32_partial|partial|merge)"
-                  r"|dense_scores"
+                  r"|dense_scores|score_matmul_(?:bf16|int8)"
                   r"|flash_attention_(?:fwd|bf16))"
                   r"(?:I((?:Li-?\d+E|Lb[01]E|[ft])+)E)?",
                   mangled)
@@ -373,7 +396,8 @@ def sass_count(name: str, opcode: str):
 # mma_topk.cuh in K1 classic's instances and K4's with a bf16 query
 # (mma.sync m16n8k16 bf16: HMMA), K1 dot's (m16n8k32 s8: IMMA), K1 f32's and
 # K4's with an f32 query over int8 and over int4 rows (m16n8k8 tf32: HMMA on
-# TF32 operands); and K9's bf16 attention (m16n8k16 bf16: HMMA).
+# TF32 operands); K7's score matrices (classic: m16n8k16 bf16, HMMA; dot:
+# m16n8k32 s8, IMMA); and K9's bf16 attention (m16n8k16 bf16: HMMA).
 TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fused_topk", "fused_topk_int8_partial", "IMMA"),
                        ("fused_topk", "fused_topk_f32_partial", r"HMMA\.\S*TF32"),
@@ -382,6 +406,8 @@ TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                         r"HMMA\.\S*TF32"),
                        ("fused_topk_quantized", "fused_topk_quantized_tf32_partial<4,",
                         r"HMMA\.\S*TF32"),
+                       ("fakewords_score", "score_matmul_bf16", "HMMA"),
+                       ("fakewords_score", "score_matmul_int8", "IMMA"),
                        ("flash_attention", "flash_attention_bf16", "HMMA"))
 
 
@@ -1041,7 +1067,17 @@ def compare_dense(name, got, want, exact: bool, tol: float = TOL) -> float:
 def dense_cases():
     """(kernel, kind, B, N, T) for check_dense: every kernel at aligned and
     unaligned B / N / T, B = 1 and N = 1, several query tiles; int8 over
-    its whole range and at its extremes; lsh with sentinels on both sides."""
+    its whole range and at its extremes; lsh with sentinels on both sides;
+    K7 at the edges of its 128-query x 256-doc tile, of its 64 x 64 warp
+    tiles and of its 128-doc halves (B = 127, 128, 129 and 256; N = 127,
+    128, 129, 255, 256, 257) and of its chunks (32 bf16 columns: T = 63,
+    64, 65, 127, 128, 129; 64 int8 columns: T = 127, 128, 129), and at T =
+    600, whose last chunk ends inside a k-step after more chunks than the
+    ring has stages (int8 rows of 600 bytes: the ring of 8-byte copies);
+    rows that the ring takes across the same edges (T a multiple of 8: the
+    edges above are rows of 1 or 2 bytes' alignment, for the register
+    loader); operands 1 byte (int8) or 2 bytes (bf16) past 16 (the register
+    loader)."""
     cases = []
     for b, n, t in ((4, 64, 32), (3, 513, 257), (8, 300, 100), (70, 1000, 600), (1, 1, 600),
                     (1, 3000, 300), (300, 2000, 64), (65, 129, 601)):
@@ -1051,12 +1087,42 @@ def dense_cases():
     cases += [("score_matmul", "int8-extremes", 5, 700, 600),
               ("score_matmul", "int8-extremes/int32", 67, 300, 603),
               ("lsh_match_scores", "lsh-sentinels", 6, 700, 300)]
+    for kinds, ts in ((("bf16",), (63, 64, 65, 127, 128, 129, 600)),
+                      (("int8", "int8/int32"), (127, 128, 129, 600))):
+        for j, t in enumerate(ts):
+            for i, b in enumerate((127, 128, 129, 256)):
+                cases += [("score_matmul", kind, b, (127, 255, 128, 256, 129, 257)[(i + j) % 6],
+                           t) for kind in kinds]
+    for kinds, ts in ((("bf16",), (56, 72, 136, 200, 328)),
+                      (("int8", "int8/int32"), (120, 136, 392, 584))):
+        for t in ts:
+            cases += [("score_matmul", kind, b, n, t) for b, n in ((129, 127), (256, 257))
+                      for kind in kinds]
+    cases += [("score_matmul", "int8-extremes", 129, 129, 600),
+              ("score_matmul", "int8-extremes/int32", 256, 128, 600),
+              ("score_matmul", "int8-unaligned", 129, 129, 600),
+              ("score_matmul", "int8-unaligned/int32", 256, 127, 600),
+              ("score_matmul", "bf16-unaligned", 129, 128, 600)]
     return cases
+
+
+def _off_16(x, offset: int):
+    """A contiguous copy of ``x`` whose data start ``offset`` bytes past 16."""
+    nbytes = x.numel() * x.element_size()
+    buf = torch.empty(nbytes + offset, dtype=torch.uint8, device=x.device)
+    y = buf[offset:].view(x.dtype).view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == offset and y.is_contiguous()
+    return y
 
 
 def _dense_inputs(kind: str, b: int, n: int, t: int, gen, dev):
     """Operands of one dense case (cosine: unit queries, raw rows and their
-    inverse norms as the third)."""
+    inverse norms as the third; "-unaligned": K7's operands off 16 bytes)."""
+    if "-unaligned" in kind:
+        q, d, _ = _dense_inputs(kind.replace("-unaligned", ""), b, n, t, gen, dev)
+        off = 1 if q.dtype == torch.int8 else 2
+        return _off_16(q, off), _off_16(d, off), None
     if kind.startswith("int8"):
         if "extremes" in kind:  # -128 and 127 everywhere: sums up to T * 2**14
             q = torch.where(torch.rand((b, t), generator=gen, device=dev) < 0.5, -128, 127)
@@ -1079,9 +1145,34 @@ def _dense_inputs(kind: str, b: int, n: int, t: int, gen, dev):
     return q, d, 1.0 / d.norm(dim=1)
 
 
-def check_dense(dev) -> dict:
+# K7's planted fault: the ring skips the copies past T instead of
+# zero-filling them, so a stage keeps there the bytes of the chunk it held
+# before.  Every ring case (q and doc rows 8-byte aligned) whose last chunk
+# ends inside the chunk after more chunks than the ring's K7_STAGES must
+# fail with it: it shows that those cases can see stale bytes in the sums
+# (the resident queries' chunks come through the same ring first).
+K7_RING_SKIPS_PAST_T = ("    const bool ok = row_ok && eh < T;\n",
+                        "    if (eh >= T) continue;\n    const bool ok = row_ok && eh < T;\n")
+K7_STAGES = 4
+K7_CHUNK_COLS = {torch.bfloat16: 32, torch.int8: 64}
+
+
+def build_planted_k7():
+    """(name, score): K7 built from a copy of this tree's source with
+    K7_RING_SKIPS_PAST_T (``_score_matmul_kernel``), called as
+    ``score(q, docs, out_dtype)``."""
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    out_dir = os.path.join(ROOT, "build", "planted-k7")
+    return ("ring-skips-past-T", _score_matmul_kernel(kdir, out_dir, [K7_RING_SKIPS_PAST_T]))
+
+
+def check_dense(dev, planted=None) -> dict:
     """K6 ``cosine_scores``, K7 ``score_matmul`` and K8 ``lsh_match_scores``
-    against their plain versions on the card."""
+    against their plain versions on the card; on each K7 case that the ring
+    takes with a partial last chunk after more than K7_STAGES chunks also
+    the copy with a planted fault (``planted``, from build_planted_k7, built
+    here if not given), which must fail the same comparison."""
+    from repro_torch.kernels import common
     from repro_torch.kernels.cosine_score import ref as cosine_ref
     from repro_torch.kernels.cosine_score.kernel import cosine_scores
     from repro_torch.kernels.fakewords_score import ref as fw_ref
@@ -1090,12 +1181,13 @@ def check_dense(dev) -> dict:
     from repro_torch.kernels.lsh_match.kernel import lsh_match_scores
 
     gen = torch.Generator(device=dev).manual_seed(3)
+    copy, bad_score = planted or build_planted_k7()
     cases = dense_cases()
-    worst = {}
+    worst, n_planted = {}, 0
     for kernel, kind, b, n, t in cases:
         q, d, inv = _dense_inputs(kind, b, n, t, gen, dev)
+        out = torch.int32 if kind.endswith("/int32") else torch.float32
         if kernel == "score_matmul":
-            out = torch.int32 if kind.endswith("/int32") else torch.float32
             got, want = score_matmul(q, d, out), fw_ref.score_matmul_ref(q, d, out)
         elif kernel == "cosine_scores":
             got, want = cosine_scores(q, d, inv), cosine_ref.cosine_scores_ref(q, d, inv)
@@ -1103,11 +1195,25 @@ def check_dense(dev) -> dict:
             got, want = lsh_match_scores(q, d), lsh_ref.lsh_match_scores_ref(q, d)
         torch.cuda.synchronize()
         name = f"{kernel} {kind} B={b} N={n} T={t}"
-        err = compare_dense(name, got, want, exact=kind not in ("bf16", "f32"))
+        exact = not kind.startswith(("bf16", "f32"))
+        err = compare_dense(name, got, want, exact=exact)
         key = f"{kernel} {kind}"
         worst[key] = max(worst.get(key, 0.0), err)
         print(f"  ok  {name}  max_abs_err={err:.3g}")
-    print(f"dense score kernels vs plain on the card: {len(cases)} cases, worst {worst}")
+        cols = K7_CHUNK_COLS.get(q.dtype)
+        if (kernel == "score_matmul" and t % cols and -(-t // cols) > K7_STAGES
+                and min(common.row_alignment(q), common.row_alignment(d)) >= 8):
+            n_planted += 1
+            try:
+                compare_dense(f"{name}, {copy} copy", bad_score(q, d, out), want, exact=exact)
+            except AssertionError as fault:
+                print(f"  ok  the {copy} copy fails: {fault}")
+            else:
+                raise AssertionError(f"{name}: the {copy} copy passed the comparison")
+    if n_planted == 0:
+        raise AssertionError("no dense case exercises K7's ring past T")
+    print(f"dense score kernels vs plain on the card: {len(cases)} cases ({n_planted} also "
+          f"failed by the {copy} copy of K7), worst {worst}")
     return worst
 
 
@@ -1208,11 +1314,12 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     card = gpu_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if argv[:1] == ["--pair-parent"]:  # K1-K5 and K9 against an earlier tree's, then stop
+    if argv[:1] == ["--pair-parent"]:  # K1-K5, K7 and K9 against an earlier tree's, then stop
         pair_k9(dev, card, argv[1])
         pair_parent(dev, card, argv[1])
         return 0
     if argv[:1] == ["--ablate"]:  # kernels with parts cut out, then stop
+        ablate_k7(dev, card)
         ablate_k9(dev, card)
         build_kernels(["fused_topk", "fused_topk_quantized"])
         trees = [("this tree", ROOT)] + [("parent", d) for d in argv[1:2]]
@@ -1224,14 +1331,15 @@ def main(argv) -> int:
         planted = pool.submit(build_planted)
         planted_k1 = pool.submit(build_planted_k1)
         planted_k3 = pool.submit(build_planted_k3)
+        planted_k7 = pool.submit(build_planted_k7)
         build_kernels()
-        planted, planted_k1, planted_k3 = (planted.result(), planted_k1.result(),
-                                           planted_k3.result())
+        planted, planted_k1, planted_k3, planted_k7 = (
+            planted.result(), planted_k1.result(), planted_k3.result(), planted_k7.result())
     check_tensor_cores()
     check_kernels(dev, planted_k1)
     check_gathered(dev, planted_k3)
     check_quantized(dev, planted)
-    check_dense(dev)
+    check_dense(dev, planted_k7)
     check_attention(dev)
     from repro_torch.configs import ann_word2vec
 
@@ -1672,31 +1780,64 @@ def ablate_k1_f32(dev, card: str, trees=(("this tree", ROOT),)) -> None:
                   + "; ".join(line))
 
 
-def _attention_kernel(kdir: str, out_dir: str, edits=()):
-    """K9 built with nvcc from ``flash_attention.cu`` of the kernels
-    directory ``kdir`` of some tree into ``out_dir`` (with ``edits``, (old,
-    new) pairs whose old text the source holds once each, applied to a copy)
-    and called through that tree's own C signature (``_c_entry``).  Returns
-    ``attn(q, k, v)``, which raises if the launch fails."""
+def _library_copy(kdir: str, name: str, out_dir: str, edits=()):
+    """(library, source text): the kernel source ``<name>/csrc/<name>.cu`` of
+    the kernels directory ``kdir`` of some tree, with ``edits`` ((old, new)
+    pairs whose old text the source holds; every occurrence replaced)
+    applied to a copy in ``out_dir``, built there with nvcc against that
+    tree's own shared headers."""
     import ctypes
 
     from repro_torch.kernels import common
 
-    text = open(os.path.join(kdir, "flash_attention", "csrc", "flash_attention.cu")).read()
+    csrc = os.path.join(kdir, name, "csrc")
+    text = open(os.path.join(csrc, f"{name}.cu")).read()
     for old, new in edits:
-        if text.count(old) != 1:
-            raise ValueError(f"flash_attention.cu of {kdir} holds {old!r} "
-                             f"{text.count(old)} times")
+        if old not in text:
+            raise ValueError(f"{name}.cu of {kdir} does not hold {old!r}")
         text = text.replace(old, new)
     os.makedirs(out_dir, exist_ok=True)
-    src, lib = (os.path.join(out_dir, f) for f in ("flash_attention.cu", "libflash_attention.so"))
+    src, lib = (os.path.join(out_dir, f) for f in (f"{name}.cu", f"lib{name}.so"))
     with open(src, "w") as f:
         f.write(text)
     proc = subprocess.run([common._nvcc(), *common.NVCC_FLAGS, "-I", os.path.join(kdir, "csrc"),
-                           "-o", lib, src], capture_output=True, text=True)
+                           "-I", csrc, "-o", lib, src], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-    launch = _c_entry(ctypes.CDLL(lib), text, "flash_attention_launch")
+    return ctypes.CDLL(lib), text
+
+
+def _score_matmul_kernel(kdir: str, out_dir: str, edits=()):
+    """K7 built from ``fakewords_score.cu`` of the kernels directory ``kdir``
+    of some tree (``_library_copy``, with ``edits``) and called through that
+    tree's own C signature (``_c_entry``).  Returns ``score(q, docs,
+    out_dtype=torch.float32)``, which raises if the launch fails."""
+    from repro_torch.kernels import common
+
+    lib, text = _library_copy(kdir, "fakewords_score", out_dir, edits)
+    launch = _c_entry(lib, text, "score_matmul_launch")
+
+    def score(q, docs, out_dtype=torch.float32):
+        out = torch.empty((q.shape[0], docs.shape[0]), dtype=out_dtype, device=q.device)
+        err = launch(mode={torch.bfloat16: 1, torch.int8: 2}[q.dtype],
+                     out_int=int(out_dtype == torch.int32), q=q.data_ptr(), docs=docs.data_ptr(),
+                     out=out.data_ptr(), B=q.shape[0], N=docs.shape[0], T=q.shape[1],
+                     q_align=common.row_alignment(q), d_align=common.row_alignment(docs),
+                     stream=torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"score_matmul_launch of {kdir} failed: cudaError {err}")
+        return out
+
+    return score
+
+
+def _attention_kernel(kdir: str, out_dir: str, edits=()):
+    """K9 built from ``flash_attention.cu`` of the kernels directory ``kdir``
+    of some tree (``_library_copy``, with ``edits``) and called through that
+    tree's own C signature (``_c_entry``).  Returns ``attn(q, k, v)``, which
+    raises if the launch fails."""
+    lib, text = _library_copy(kdir, "flash_attention", out_dir, edits)
+    launch = _c_entry(lib, text, "flash_attention_launch")
 
     def attn(q, k, v):
         b, hq, s, d = q.shape
@@ -1800,6 +1941,127 @@ def ablate_k9(dev, card: str) -> None:
               f"S={q.shape[2]}, D={q.shape[3]}), on {card}: " + "; ".join(line))
 
 
+def pair_k7(card: str, old, operands: dict) -> None:
+    """K7 of another tree (``old``, from ``_score_matmul_kernel``) and of
+    this tree on each of ``operands`` ({label: (q, docs)}: bf16 classic or
+    int8 dot, f32 out), their outputs held to each other (int8 bit for bit,
+    bf16 under the row rule) and timed in turns (parent, this, this,
+    parent; median of RUNS each)."""
+    from repro_torch.kernels.fakewords_score.kernel import score_matmul
+
+    for label, (q, docs) in operands.items():
+        err = compare_dense(f"K7 {label}: this tree vs the parent", score_matmul(q, docs),
+                            old(q, docs), exact=q.dtype == torch.int8)
+        torch.cuda.empty_cache()
+        times = [cuda_ms(lambda i=i: (old if i in (0, 3) else score_matmul)(q, docs))
+                 for i in range(4)]
+        print(f"pairing K7 {label} (N={docs.shape[0]}, T={q.shape[1]}) on {card}: parent "
+              f"{times[0]:.3f} ms, this tree {times[1]:.3f} ms, this tree {times[2]:.3f} ms, "
+              f"parent {times[3]:.3f} ms; max |this - parent| {err:.3g}")
+
+
+def _k7_cell_operands(dev) -> dict:
+    """{label: (q, docs)}: random operands of K7 at the ann-word2vec cell's
+    shapes (B = 256, N = 2,999,808, T = 600): a bf16 query against bf16 rows
+    (classic), and an int8 [u; -u] query against term counts 0..127 (dot)."""
+    n, t = 2_999_808, 600
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = (torch.randn((256, t), generator=gen, device=dev) / t**0.5).to(torch.bfloat16)
+    docs = torch.randn((n, t), generator=gen, device=dev).to(torch.bfloat16)
+    u = torch.randint(0, 128, (256, t // 2), generator=gen, device=dev)
+    tf = torch.randint(0, 128, (n, t), generator=gen, device=dev, dtype=torch.int8)
+    return {"classic bf16 B=256": (q, docs),
+            "dot int8 B=256": (torch.cat([u, -u], 1).to(torch.int8), tf)}
+
+
+# Copies of K7 (fakewords_score.cu), for timing only (their results are
+# wrong): without the stores (each pair of sums compared with a value it
+# never takes, so they stay live), the loads alone (no mma, no stores), the
+# stores alone (no chunk copied or multiplied: zeros written), and the
+# products alone (on whatever the stages hold; no copies, no stores); and
+# variants whose results are held to the kernel's: write-back stores
+# (st.global.wb) in place of the streaming ones, the queries streamed
+# through the ring beside each doc chunk in place of resident, rings of
+# other depths, and 16 warps of 64 x 32 tiles in place of 8 of 64 x 64.
+K7_NO_STORES = ("  if (d + 1 < N && (N & 1) == 0) {\n",
+                "  if (v0 != O(-1234567) || v1 != v0) return;\n"
+                "  if (d + 1 < N && (N & 1) == 0) {\n")
+K7_NO_PRODUCTS = ("for (int ks = 0; ks < kKSteps; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {")
+K7_NO_COPIES = ("  auto copy_next = [&]() {  // the next chunk into its stage of the ring\n",
+                "  auto copy_next = [&]() {  // the next chunk into its stage of the ring\n"
+                "    return;\n")
+K7_ABLATIONS = {
+    "no stores (sums kept live)": [K7_NO_STORES],
+    "loads only (no mma, no stores)": [K7_NO_STORES, K7_NO_PRODUCTS],
+    "stores only (no loads, no mma)": [K7_NO_COPIES, K7_NO_PRODUCTS],
+    "products only (no loads, no stores)": [K7_NO_COPIES, K7_NO_STORES],
+}
+K7_VARIANTS = {
+    "write-back stores": [("__stcs(", "__stwb(")],
+    "queries streamed": [("  const bool resident = smem_bytes(true, kRingStages, n_chunks) "
+                          "<= kMaxSmem;", "  const bool resident = false;")],
+    "3 stages": [("constexpr int kRingStages = 4;", "constexpr int kRingStages = 3;")],
+    "8 stages (classic's queries then streamed)": [("constexpr int kRingStages = 4;",
+                                                    "constexpr int kRingStages = 8;")],
+    "16 warps, 64 x 32 warp tiles": [("constexpr int kThreads = 256;",
+                                      "constexpr int kThreads = 512;"),
+                                     ("constexpr int kWarpsQ = 2, kWarpsD = 4;",
+                                      "constexpr int kWarpsQ = 2, kWarpsD = 8;")],
+}
+
+
+def clock_power(fn, seconds: float = 1.0) -> str:
+    """The card's median SM clock and power draw (``nvidia-smi``, every 50
+    ms) while ``fn`` runs back to back for ``seconds``."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "50"],
+                           stdout=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    smi.terminate()
+    rows = [line.split(",") for line in smi.communicate()[0].splitlines() if "," in line]
+    rows = rows[len(rows) // 4:]  # the sampler's first readings precede the load
+    if not rows:
+        return "clock not read"
+    return (f"{statistics.median(float(r[0]) for r in rows):.0f} MHz, "
+            f"{statistics.median(float(r[1]) for r in rows):.0f} W")
+
+
+def ablate_k7(dev, card: str) -> None:
+    """K7 at the cell's shapes (``_k7_cell_operands``) against copies with
+    parts cut out (K7_ABLATIONS) and other designs (K7_VARIANTS, held to the
+    kernel's output bit for bit: the same sums in the same order), timed in
+    turns (full, each copy, full), each beside the SM clock and power draw
+    it runs at (``clock_power``: the card may hold its power limit by
+    lowering the clock)."""
+    from repro_torch.kernels.fakewords_score.kernel import score_matmul
+
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    copies = {**K7_ABLATIONS, **K7_VARIANTS}
+    with ThreadPoolExecutor() as pool:  # every copy's nvcc at once
+        built = {name: pool.submit(_score_matmul_kernel, kdir,
+                                   os.path.join(ROOT, "build", "ablate-k7", str(j)), edits)
+                 for j, (name, edits) in enumerate(copies.items())}
+        build_kernels(["fakewords_score"])
+        cut = {name: fut.result() for name, fut in built.items()}
+    for label, (q, docs) in _k7_cell_operands(dev).items():
+        for variant in K7_VARIANTS:
+            compare_dense(f"K7 {label}, {variant}", cut[variant](q, docs), score_matmul(q, docs),
+                          exact=True)
+            torch.cuda.empty_cache()
+        runs = [("full", lambda: score_matmul(q, docs))]
+        runs += [(name, lambda fn=fn: fn(q, docs)) for name, fn in cut.items()]
+        runs.append(runs[0])
+        line = [f"{name} {cuda_ms(fn):.3f} ms ({clock_power(fn)})" for name, fn in runs]
+        print(f"K7 ablation, {label} (N={docs.shape[0]}, T={q.shape[1]}), on {card}: "
+              + "; ".join(line))
+
+
 def pair_parent(dev, card: str, parent: str) -> None:
     """K1-K5 of the tree ``parent`` (its own sources, plans and C
     signatures, ``_tree_kernels``) and of this tree on the same ann-word2vec
@@ -1817,7 +2079,11 @@ def pair_parent(dev, card: str, parent: str) -> None:
     at 10% of the blocks at B = 256, 8 and 1, and K4 with an f32 query over int8 and over
     int4 (group 32) postings at B = 256, 8 and 1 (brute force's call), also
     with an integer query over unit scales (int8) or over distinct
-    power-of-two group scales (int4; ``pow2_scales``), bit for bit."""
+    power-of-two group scales (int4; ``pow2_scales``), bit for bit; and K7
+    (``pair_k7``, that tree's ``fakewords_score.cu``) classic and dot at
+    B = 256 on the index's ``scored`` and ``tf``.  First it says which
+    kernel instances both trees build, and whether their SASS is identical,
+    for K1-K5, K7, and K6 and K8 (``cosine_score.cu``, ``lsh_match.cu``)."""
     from repro_torch.configs import ann_word2vec
     from repro_torch.core import blockmax, bruteforce, fakewords, lexical_lsh
     from repro_torch.core.index import AnnIndex
@@ -1829,14 +2095,23 @@ def pair_parent(dev, card: str, parent: str) -> None:
         fused_topk_quantized,
     )
 
+    pdir = os.path.join(os.path.abspath(parent), "src", "repro_torch", "kernels")
+    dense_dir = os.path.join(ROOT, "build", "pair-dense")
     with ThreadPoolExecutor() as pool:  # the parent's nvcc beside this tree's
-        parent_build = pool.submit(
-            _tree_kernels, os.path.join(os.path.abspath(parent), "src", "repro_torch", "kernels"),
-            os.path.join(ROOT, "build", "pair"))
-        build_kernels(["fused_topk", "fused_topk_quantized"])
-        old = parent_build.result()
+        parent_build = pool.submit(_tree_kernels, pdir, os.path.join(ROOT, "build", "pair"))
+        parent_k7 = pool.submit(_score_matmul_kernel, pdir,
+                                os.path.join(dense_dir, "fakewords_score"))
+        parent_dense = [pool.submit(_library_copy, pdir, name, os.path.join(dense_dir, name))
+                        for name in ("cosine_score", "lsh_match")]
+        build_kernels(["fused_topk", "fused_topk_quantized", "fakewords_score", "cosine_score",
+                       "lsh_match"])
+        old, old_k7 = parent_build.result(), parent_k7.result()
+        for fut in parent_dense:
+            fut.result()
     for name in ("fused_topk", "fused_topk_quantized"):  # instances in both trees
         sass_pairing(name, os.path.join(ROOT, "build", "pair", f"lib{name}.so"))
+    for name in ("fakewords_score", "cosine_score", "lsh_match"):
+        sass_pairing(name, os.path.join(dense_dir, name, f"lib{name}.so"))
     cell = ann_word2vec.ARCH.cell("ann_search")
     config = ann_word2vec.ARCH.make_model(cell)
     x, qx = make_inputs(dev, cell.get("n_docs"), cell.batch)
@@ -1863,6 +2138,8 @@ def pair_parent(dev, card: str, parent: str) -> None:
     for bb in (256, 8, 1):  # integer scores: bit for bit
         pair(f"K1 dot int8 B={bb}", fused_topk, old["fused_topk"], (q_dot[:bb], idx.index.tf),
              depth, exact=True)
+    pair_k7(card, old_k7, {f"classic bf16 B={qv.shape[0]}": (qv, idx.index.scored),
+                           f"dot int8 B={q_dot.shape[0]}": (q_dot, idx.index.tf)})
     # K3 (blockmax stage 2) at 10% of the blocks, rows in bound order:
     # classic at B = 256, 8 and 1, with each tree's pass 1 and pass 2 apart,
     # and dot (int8, bit for bit) at B = 8 and 1.

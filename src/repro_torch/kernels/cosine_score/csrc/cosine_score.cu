@@ -12,7 +12,7 @@
 // full f32), above the 1.99 ms of its bytes (3.60 GB in, 3.07 GB out):
 // operations bound it.  The product runs on CUDA cores in f32, the rate
 // that bound assumes; the 1,200-byte rows take 16-byte loads.  The tile is
-// the shared ../../csrc/dense_scores.cuh (K7 and K8 use it too).
+// the shared ../../csrc/dense_scores.cuh (K8 uses it too).
 
 #include "dense_scores.cuh"
 

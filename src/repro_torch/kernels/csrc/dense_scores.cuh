@@ -1,33 +1,29 @@
-// The dense (B, N) score tile shared by K6 (cosine_score.cu), K7
-// (fakewords_score.cu) and K8 (lsh_match.cu): out[b, n] = epilogue(sum over
-// the T columns of q[b, t] (*) docs[n, t]), with (*) an f32 product (f32 or
-// bf16 operands widened to f32: the products are exact), an int8 product
-// accumulated in int32 (__dp4a), or a MinHash collision count (uint32 slots
-// that are equal and not the query sentinel 0xFFFFFFFF).
+// The dense (B, N) score tile shared by K6 (cosine_score.cu) and K8
+// (lsh_match.cu): out[b, n] = epilogue(sum over the T columns of q[b, t] (*)
+// docs[n, t]), with (*) an f32 product (K6) or a MinHash collision count
+// (K8: uint32 slots that are equal and not the query sentinel 0xFFFFFFFF).
+// K7 (fakewords_score.cu) has its own tensor-core tile.
 //
 // Bound on an H100 SXM: each of these kernels writes a (B, N) matrix, 4 bytes
 // an entry (3.07 GB at B = 256 over the 2,999,808-row ann-word2vec corpus),
-// and reads the (N, T) store once; the products run on CUDA cores (no tensor
-// cores, no TMA yet), so the bf16 and int8 products, which the tensor cores
-// would finish under the byte bound, run far above it here, and the f32
-// product (cosine) and the compare (lsh) at best reach their operation
-// bounds (67 TFLOP/s f32, 16.7e12 INT32 op/s).
+// and reads the (N, T) store once; the f32 product (cosine) and the compare
+// (lsh) run on CUDA cores and at best reach their operation bounds (67
+// TFLOP/s f32, 16.7e12 INT32 op/s).
 //
 // Design (simple first): a block of 256 threads owns kBM = 64 queries and
 // kBN = 128 docs; each warp owns kTM = 8 query rows and each lane kTN = 4 doc
 // columns (lane + 32 j), so the score tile lives in registers and the
 // epilogue's stores are coalesced (a warp writes 128 consecutive bytes of a
-// row).  The T axis is walked in chunks of kBK = 32 four-byte words (f32,
-// uint32: one element a word; bf16 widened to one f32 a word; int8: four a
-// word for __dp4a); the next chunk is loaded from device memory into
-// registers while the current one, staged in shared memory, is multiplied.
-// Rows are read with the widest load their alignment allows (16 bytes, or 8
-// bytes for the 600-byte int8 rows of the fake-words tf; element loads for
-// other alignments and for the ragged end of a row).  Ragged B, N and T are
-// bounds-checked: a missing column is 0 (the sentinel on the lsh query side,
-// so it never counts), a missing row is never written.  The grid is 1-D with
-// the query tiles of one doc tile adjacent, so the B / 64 blocks that read
-// one doc tile run together and re-read it from L2.
+// row).  The T axis is walked in chunks of kBK = 32 four-byte words (one f32
+// or uint32 element a word); the next chunk is loaded from device memory
+// into registers while the current one, staged in shared memory, is
+// multiplied.  Rows are read with the widest load their alignment allows
+// (16 bytes, 8 bytes, or element loads for other alignments and for the
+// ragged end of a row).  Ragged B, N and T are bounds-checked: a missing
+// column is 0 (the sentinel on the lsh query side, so it never counts), a
+// missing row is never written.  The grid is 1-D with the query tiles of one
+// doc tile adjacent, so the B / 64 blocks that read one doc tile run
+// together and re-read it from L2.
 #pragma once
 
 #include <limits.h>
@@ -43,9 +39,9 @@ constexpr int kBM = kWarps * kTM;    // queries per block
 constexpr int kTN = 4;               // doc columns per lane
 constexpr int kBN = 32 * kTN;        // docs per block
 
-// What the epilogue writes: the sum as f32, as int32, or as f32 times the
+// What the epilogue writes: the sum as int32 (lsh), or as f32 times the
 // doc's inverse norm (cosine).
-enum Epilogue { kOutF32 = 0, kOutI32 = 1, kOutScaled = 2 };
+enum Epilogue { kOutI32 = 1, kOutScaled = 2 };
 
 template <int M, int E>
 __global__ void __launch_bounds__(kThreads) dense_scores(
@@ -150,8 +146,7 @@ __global__ void __launch_bounds__(kThreads) dense_scores(
       if (d >= N) continue;
       const size_t o = (size_t)qi * N + d;
       if constexpr (E == kOutI32) static_cast<int*>(out)[o] = static_cast<int>(acc[i][j]);
-      else if constexpr (E == kOutScaled) static_cast<float*>(out)[o] = acc[i][j] * inv[j];
-      else static_cast<float*>(out)[o] = static_cast<float>(acc[i][j]);
+      else static_cast<float*>(out)[o] = acc[i][j] * inv[j];
     }
   }
 }

@@ -1,8 +1,9 @@
 // The mma.sync toolkit shared by the tensor-core kernels: K1 and K4's pass 1
-// (../fused_topk/csrc/mma_topk.cuh) and K9's bf16 attention
+// (../fused_topk/csrc/mma_topk.cuh), K7's score matrix
+// (../fakewords_score/csrc/fakewords_score.cu) and K9's bf16 attention
 // (../flash_attention/csrc/flash_attention.cu).  PTX wrappers only: shared
-// addresses, ldmatrix (plain and transposed), the m16n8k16 bf16 mma, and
-// 16-byte cp.async copies with their groups.
+// addresses, ldmatrix (plain and transposed), the m16n8k16 bf16 and m16n8k32
+// s8 mma, and 16- and 8-byte cp.async copies with their groups.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -53,10 +54,29 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// c += a (16x32, row-major) * b (32x8, column-major), s8 in, s32 sums
+// (exact: no saturation is asked for, and |sum| < 2^31 for T < 2^17).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // 16 bytes from device to shared memory, asynchronously; src_bytes = 0
 // writes zeros and reads nothing.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 8 bytes, cached in L1 on the way (cp.async.ca): the first src_bytes are
+// read, the rest zero-filled.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                :
                : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
                : "memory");

@@ -144,7 +144,7 @@
 namespace {
 
 // The score modes (Mode, Traits, Vec, load_pack, store_pack, mac) are in
-// score_operands.cuh, shared with the dense score kernels K6-K8.  Pass 1
+// score_operands.cuh, shared with the dense score kernels K6 and K8.  Pass 1
 // reads its rows with 16-byte loads or element by element (load_pack<M,
 // false>): with the 8-byte branch compiled in, its instances spilled more
 // at the 128-register cap and ran 1-2% slower on an H100.

@@ -6,8 +6,9 @@
 // packed int4 rows widened to bf16) and K4 with an f32 query over int8 or
 // packed int4 rows (fused_topk_quantized_tf32_partial, same file, rows
 // widened to f32): the
-// mma_s8 / mma_tf32 / 8- and 4-byte cp.async helpers (the bf16 mma, ldmatrix
-// and 16-byte cp.async are ../../csrc/mma_sync.cuh's, shared with K9), the
+// mma_tf32 / 4-byte cp.async helpers (the bf16 and s8 mma, ldmatrix and
+// 16- and 8-byte cp.async are ../../csrc/mma_sync.cuh's, shared with K7 and
+// K9), the
 // four product types (MmaBf16,
 // MmaS8, MmaTf32, MmaTf32x3), the counting merge of a candidate buffer into
 // a running list, the block's shared-memory layout and launch plan
@@ -124,7 +125,7 @@
 // ms), not the products; at B <= 8 the loads, at ~2.3 TB/s.
 #pragma once
 
-#include "mma_sync.cuh"  // the ldmatrix / mma_bf16 / cp.async wrappers
+#include "mma_sync.cuh"  // the ldmatrix / mma_bf16 / mma_s8 / cp.async wrappers
 #include "topk_merge.cuh"
 
 namespace {
@@ -213,17 +214,6 @@ inline int mma_plan(int B, int n_docs, int depth, int sm_count, int ring, int* p
   plan[3] = tiles_per_split;
   plan[4] = bn;
   return 0;
-}
-
-// c += a (16x32, row-major) * b (32x8, column-major), s8 in, s32 sums
-// (exact: no saturation is asked for, and |sum| < 2^31 for T < 2^17).
-__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
-                                       const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // c += a (16x8, row-major) * b (8x8, column-major), tf32 in (the top 19
@@ -349,14 +339,8 @@ __host__ __device__ constexpr int chunk_scale_bytes() {
   return Rows::kChunkScale ? 4 : 0;
 }
 
-// 8 or 4 bytes, cached in L1 on the way (cp.async.ca): the first src_bytes
-// are read, the rest zero-filled.
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-               :
-               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
-               : "memory");
-}
+// 4 bytes, cached in L1 on the way (cp.async.ca): the first src_bytes are
+// read, the rest zero-filled (8-byte copies: cp_async8, mma_sync.cuh).
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :

@@ -14,8 +14,8 @@
 // per SM x 132 SMs x 1.98 GHz), 13.8 ms, above the 1.99 ms of its bytes
 // (3.60 GB of signatures, 3.07 GB of counts): operations bound it.  Each
 // compare is an integer equality and add on CUDA cores; no tensor-core path
-// exists for it.  The tile is the shared ../../csrc/dense_scores.cuh (K6 and
-// K7 use it too).
+// exists for it.  The tile is the shared ../../csrc/dense_scores.cuh (K6 uses
+// it too).
 
 #include "dense_scores.cuh"
 

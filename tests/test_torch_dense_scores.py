@@ -51,7 +51,10 @@ def _close(got: torch.Tensor, want, tol: float = TOL) -> None:
     assert_rows_close(got, want, tol)
 
 
-@pytest.mark.parametrize("b,n,t", [(4, 64, 32), (8, 300, 100), (3, 513, 257)])
+@pytest.mark.parametrize("b,n,t", [(4, 64, 32), (8, 300, 100), (3, 513, 257),
+                                   # the card's 128 x 256 tile and 32 / 64-column
+                                   # chunks one past their edges, and T = 600
+                                   (129, 257, 65), (129, 257, 129), (129, 257, 600)])
 @pytest.mark.parametrize("dtype", ["int8", "int8/int32", "bf16"])
 def test_score_matmul_matches_jax(b, n, t, dtype):
     rng = np.random.default_rng(b * 1000 + t)

@@ -540,12 +540,27 @@ def test_cuda_quantized_search_matches_cpu_port(method, pp):
 # ---- K6, K7, K8 (dense score matrices) and K9 (flash attention) ------------
 
 
+def _off_16(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data start ``offset`` bytes past 16."""
+    buf = torch.empty(x.numel() * x.element_size() + offset, dtype=torch.uint8, device=x.device)
+    y = buf[offset:].view(x.dtype).view(x.shape)
+    y.copy_(x)
+    assert y.data_ptr() % 16 == offset and y.is_contiguous()
+    return y
+
+
 def _dense_operands(kind: str, b: int, n: int, t: int, dev: torch.device):
     """Operands of one dense score kernel; cosine's third is the docs'
-    inverse norms."""
+    inverse norms; "-unaligned": K7's operands 1 (int8) or 2 (bf16) bytes
+    past 16, so they take its register loader."""
+    if "-unaligned" in kind:
+        q, d, _ = _dense_operands(kind.replace("-unaligned", ""), b, n, t, dev)
+        off = 1 if q.dtype == torch.int8 else 2
+        return _off_16(q, off), _off_16(d, off), None
     g = torch.Generator(device=dev).manual_seed(43)
-    if kind == "lsh":
-        q, d = _operands("lsh", b, n, t, dev)
+    if kind == "lsh":  # the queries are doc rows: at least b of them, then the first n
+        q, d = _operands("lsh", b, max(b, n), t, dev)
+        d = d[:n].clone()
         d.view(torch.int32)[:, ::3] = -1  # doc sentinels too, some where the query's are
         return q, d, None
     if kind.startswith("int8"):
@@ -559,8 +574,15 @@ def _dense_operands(kind: str, b: int, n: int, t: int, dev: torch.device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,n,t", [(37, 3000, 257), (1, 1, 600), (70, 1000, 600)])
-@pytest.mark.parametrize("kind", ["bf16", "int8", "int8/int32", "f32", "lsh"])
+@pytest.mark.parametrize("b,n,t", [(37, 3000, 257), (1, 1, 600), (70, 1000, 600),
+                                   # K7's 128-query x 256-doc tile and its chunks
+                                   # (32 bf16 / 64 int8 columns, a three-stage ring
+                                   # where rows are 8-byte aligned) at their edges
+                                   (127, 129, 63), (128, 255, 65), (129, 256, 129),
+                                   (256, 257, 600), (129, 127, 128), (129, 128, 200),
+                                   (256, 255, 392)])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int8/int32", "f32", "lsh",
+                                  "bf16-unaligned", "int8-unaligned", "int8-unaligned/int32"])
 def test_cuda_dense_kernel_matches_plain_version(kind, b, n, t):
     from repro_torch.kernels.cosine_score import kernel as cos_kernel, ref as cos_ref
     from repro_torch.kernels.fakewords_score import kernel as fw_kernel, ref as fw_ref
@@ -575,13 +597,13 @@ def test_cuda_dense_kernel_matches_plain_version(kind, b, n, t):
         fn, before = lsh_kernel.lsh_match_scores, lsh_kernel.lsh_match_scores.launches
         got, want = fn(q, d), lsh_ref.lsh_match_scores_ref(q, d)
     else:
-        out = torch.int32 if kind == "int8/int32" else torch.float32
+        out = torch.int32 if kind.endswith("/int32") else torch.float32
         fn, before = fw_kernel.score_matmul, fw_kernel.score_matmul.launches
         got, want = fn(q, d, out), fw_ref.score_matmul_ref(q, d, out)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     assert got.dtype == want.dtype and got.shape == (b, n)
-    if kind in ("bf16", "f32"):
+    if kind.startswith(("bf16", "f32")):
         assert_rows_close(got, want, 1e-5)
     else:
         assert torch.equal(got, want)
