@@ -2,8 +2,8 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --pair-parent DIR   # K1-K5, K7 and K9 against the tree in DIR, then stop
-    python3 chip_smoke.py --ablate [DIR]      # K7, K9 and pass 1 with parts cut out (K3 also DIR's)
+    python3 chip_smoke.py --pair-parent DIR   # K1-K7 and K9 against the tree in DIR, then stop
+    python3 chip_smoke.py --ablate [DIR]      # K7, K6, K9, pass 1 with parts cut out (K3 also DIR's)
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc
    (sm_90a) and prints the build time and the compiler's register report,
@@ -13,8 +13,9 @@
    HMMA in K1 f32's (split TF32 over f32 rows) and in K4's with an f32 query
    over int8 and over int4 rows, HMMA in K7's classic score matrix
    (``score_matmul_bf16``) and IMMA in its dot one (``score_matmul_int8``),
-   and HMMA in K9's bf16 attention (``flash_attention_bf16``); an instance
-   without them fails the run.
+   TF32 HMMA in K6's (``cosine_scores_tf32``, split TF32 on the same body,
+   ``kernels/csrc/score_matmul.cuh``), and HMMA in K9's bf16 attention
+   (``flash_attention_bf16``); an instance without them fails the run.
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
    shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
@@ -81,7 +82,13 @@
    out, bit for bit; and a copy of K7 whose ring skips the copies past T
    instead of zero-filling them (K7_RING_SKIPS_PAST_T), which every ring case
    whose last chunk ends inside the chunk, after more chunks than the ring
-   has stages, must fail; K9 at every
+   has stages, must fail; K6 (split TF32 on K7's body) at the edges of its
+   128 x 128 tile (B, N = 127..129, 255..257), of its 8-column k-steps and
+   16-column chunks (T = 15..17, 31..33), of its loaders (rows 4-, 8- and
+   16-byte aligned, and 4 bytes off 16) and of its resident queries (T =
+   320, 321, 384, 385, 600), and a copy of K6 without the doc's low tf32
+   part (K6_DOC_HI_ONLY), which its "unit-f32" cases (unit rows at T = 300,
+   B = 129 and 256) must fail; K9 at every
    head width (32, 64, 96, 128), S = 1, 130 and 4096, f32 and bf16, MHA /
    GQA / MQA, the bf16 kernel's 64-key and 128-row tile edges (S = 63, 64,
    65, 127, 128, 129), GQA group 7 at S = 4096, and deepseek-coder-33b's 56
@@ -92,9 +99,11 @@
    ``lsh_topk`` over the (b = 300, h = 1) signatures (K8), and
    ``causal_attention`` for one attention layer of deepseek-coder-33b
    (56 / 8 heads, D 128, bf16) at S = 32,768 and of phi3-mini (32 / 32, D
-   96) at S = 4,096, batch 1 (K9); holds their top-k against K1 / K2 and
-   the plain versions, and times each kernel beside its bound, its plain
-   version and its library yardstick.
+   96) at S = 4,096, batch 1, in bf16 and in f32 (K9); holds their top-k
+   against K1 / K2 and the plain versions, and times each kernel beside its
+   bound, its plain version and its library yardstick (K9 f32: the
+   memory-efficient SDPA backend alone), and ``cosine_topk`` whole beside
+   its ``common.stable_topk`` sort alone.
 11. Frees those indexes and runs the quantized read path on the same corpus:
    classic with int8 and with int4 (group 32) postings and the int8 rerank
    store (K4), held to the reference's recall property (reranked R@10
@@ -120,9 +129,10 @@ at B = 256, 8 and 1 (bit for bit), K4 with a bf16 query over int8 and int4
 postings at B = 256, 8 and 1, and K4 with an f32 query over int8 and over
 int4 postings at B = 256, 8 and 1 (and an integer case of each bit for
 bit), K3 (blockmax stage 2, classic and dot; each tree's pass 1 and pass
-2 apart), K1 lsh and K5, and K7 (that tree's ``fakewords_score.cu``, built
+2 apart), K1 lsh and K5, K7 (that tree's ``fakewords_score.cu``, built
 against its own shared headers) in both modes at B = 256 on the index's
-``scored`` and ``tf`` (dot bit for bit, classic under the row rule); it
+``scored`` and ``tf`` (dot bit for bit, classic under the row rule), and
+K6 (that tree's ``cosine_score.cu``) at B = 256 over the raw corpus; it
 prints whether the SASS of every kernel instance that both trees build is
 identical, for K1-K5, K6 and K8 (``cosine_score.cu``, ``lsh_match.cu``) and
 K9; first, K9 of both trees (their ``flash_attention.cu``) at both
@@ -134,7 +144,10 @@ with write-back stores, the queries streamed in place of resident, rings
 of other depths and 16 warps (K7_VARIANTS, held to the kernel's output;
 alone: ``python3 -c "import sys, torch; sys.path.insert(0, '.'); import
 chip_smoke as c; c.ablate_k7(torch.device('cuda', 0), c.gpu_line())"``),
-then K9's bf16 kernel at both
+then K6 the same way at its cell (B = 256, N = 2,999,808, T = 300) against
+K7's cuts, no fold and unmasked low parts (K6_ABLATIONS) and rings of 3 and
+8 stages and streamed queries (K6_VARIANTS; alone: ``c.ablate_k6``), then
+K9's bf16 kernel at both
 attention layers against copies without the softmax, loads only, with 4
 warps and with three stages (K9_ABLATIONS, K9_VARIANTS), then K3 at the
 blockmax path's shape with its inserts and its products cut out
@@ -312,7 +325,7 @@ def _instance(mangled: str) -> str:
     m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_bf16_partial"
                   r"|quantized_tf32_partial|gathered_partial|bf16_partial"
                   r"|int8_partial|f32_partial|partial|merge)"
-                  r"|dense_scores|score_matmul_(?:bf16|int8)"
+                  r"|dense_scores|score_matmul_(?:bf16|int8)|cosine_scores_tf32"
                   r"|flash_attention_(?:fwd|bf16))"
                   r"(?:I((?:Li-?\d+E|Lb[01]E|[ft])+)E)?",
                   mangled)
@@ -397,7 +410,8 @@ def sass_count(name: str, opcode: str):
 # (mma.sync m16n8k16 bf16: HMMA), K1 dot's (m16n8k32 s8: IMMA), K1 f32's and
 # K4's with an f32 query over int8 and over int4 rows (m16n8k8 tf32: HMMA on
 # TF32 operands); K7's score matrices (classic: m16n8k16 bf16, HMMA; dot:
-# m16n8k32 s8, IMMA); and K9's bf16 attention (m16n8k16 bf16: HMMA).
+# m16n8k32 s8, IMMA) and K6's (split TF32: m16n8k8 tf32, HMMA on TF32
+# operands); and K9's bf16 attention (m16n8k16 bf16: HMMA).
 TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fused_topk", "fused_topk_int8_partial", "IMMA"),
                        ("fused_topk", "fused_topk_f32_partial", r"HMMA\.\S*TF32"),
@@ -408,6 +422,7 @@ TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                         r"HMMA\.\S*TF32"),
                        ("fakewords_score", "score_matmul_bf16", "HMMA"),
                        ("fakewords_score", "score_matmul_int8", "IMMA"),
+                       ("cosine_score", "cosine_scores_tf32", r"HMMA\.\S*TF32"),
                        ("flash_attention", "flash_attention_bf16", "HMMA"))
 
 
@@ -1077,7 +1092,9 @@ def dense_cases():
     rows that the ring takes across the same edges (T a multiple of 8: the
     edges above are rows of 1 or 2 bytes' alignment, for the register
     loader); operands 1 byte (int8) or 2 bytes (bf16) past 16 (the register
-    loader)."""
+    loader); K6 at the edges of its 128-query x 128-doc tile, of its
+    8-column k-steps and 16-column chunks, of its loaders and of its
+    resident queries (see the comment below)."""
     cases = []
     for b, n, t in ((4, 64, 32), (3, 513, 257), (8, 300, 100), (70, 1000, 600), (1, 1, 600),
                     (1, 3000, 300), (300, 2000, 64), (65, 129, 601)):
@@ -1103,6 +1120,21 @@ def dense_cases():
               ("score_matmul", "int8-unaligned", 129, 129, 600),
               ("score_matmul", "int8-unaligned/int32", 256, 127, 600),
               ("score_matmul", "bf16-unaligned", 129, 128, 600)]
+    # K6 at the edges of its 128 x 128 tile (B, N = 127..129, 255..257) and
+    # of its 8-column k-steps and 16-column chunks (T = 15..17, 31..33), with
+    # rows 4-byte aligned (T = 257: the register loader), 8-byte (T = 258)
+    # and 16-byte (the rest: the ring, whose last chunk is partial after more
+    # chunks than it has stages at T = 300, 321, 385 and 600), the queries
+    # resident up to 384 columns (T = 320, 321, 384) and streamed past it
+    # (T = 385, 600); rows 4 bytes off 16 (the register loader); and unit
+    # rows at the cosine's T = 300 and B >= 129, which the copy without the
+    # doc's low tf32 part (K6_DOC_HI_ONLY) must fail.
+    for j, t in enumerate((15, 16, 17, 31, 32, 33, 257, 258, 300, 320, 321, 384, 385, 600)):
+        cases += [("cosine_scores", "f32", b, (127, 255, 128, 256, 129, 257)[(i + j) % 6], t)
+                  for i, b in enumerate((127, 129, 256))]
+    cases += [("cosine_scores", "f32-unaligned", b, n, t)
+              for b, n, t in ((129, 127, 16), (129, 257, 300), (256, 129, 600))]
+    cases += [("cosine_scores", "unit-f32", b, n, 300) for b, n in ((129, 1000), (256, 3000))]
     return cases
 
 
@@ -1118,11 +1150,12 @@ def _off_16(x, offset: int):
 
 def _dense_inputs(kind: str, b: int, n: int, t: int, gen, dev):
     """Operands of one dense case (cosine: unit queries, raw rows and their
-    inverse norms as the third; "-unaligned": K7's operands off 16 bytes)."""
+    inverse norms as the third, "unit-f32" unit rows; "-unaligned": the
+    operands off 16 bytes, by 1 (int8), 2 (bf16) or 4 (f32))."""
     if "-unaligned" in kind:
-        q, d, _ = _dense_inputs(kind.replace("-unaligned", ""), b, n, t, gen, dev)
-        off = 1 if q.dtype == torch.int8 else 2
-        return _off_16(q, off), _off_16(d, off), None
+        q, d, inv = _dense_inputs(kind.replace("-unaligned", ""), b, n, t, gen, dev)
+        off = q.element_size()
+        return _off_16(q, off), _off_16(d, off), inv
     if kind.startswith("int8"):
         if "extremes" in kind:  # -128 and 127 everywhere: sums up to T * 2**14
             q = torch.where(torch.rand((b, t), generator=gen, device=dev) < 0.5, -128, 127)
@@ -1138,6 +1171,9 @@ def _dense_inputs(kind: str, b: int, n: int, t: int, gen, dev):
         return q, d, None
     if kind == "bf16":
         return _inputs("bf16", b, n, t, gen, dev) + (None,)
+    if kind == "unit-f32":
+        q, d = _inputs("unit-f32", b, n, t, gen, dev)
+        return q, d, 1.0 / d.norm(dim=1)
     q = torch.randn((b, t), generator=gen, device=dev)
     q /= q.norm(dim=1, keepdim=True)
     d = torch.randn((n, t), generator=gen, device=dev)
@@ -1166,12 +1202,55 @@ def build_planted_k7():
     return ("ring-skips-past-T", _score_matmul_kernel(kdir, out_dir, [K7_RING_SKIPS_PAST_T]))
 
 
-def check_dense(dev, planted=None) -> dict:
+# K6's planted fault: the split-TF32 product over f32 rows without the
+# doc's low tf32 part (q hi x doc lo), so each doc value keeps ~1e-3 of its
+# bits.  Every "unit-f32" case of check_dense (unit rows at the cosine's T =
+# 300) must fail with it, which shows that those cases can see a doc cut to
+# tf32.
+K6_DOC_HI_ONLY = ("    mma_tf32(c, q_hi, b[2], b[3]);  // q hi x doc lo\n", "")
+
+
+def _cosine_kernel(kdir: str, out_dir: str, edits=()):
+    """K6 built from ``cosine_score.cu`` of the kernels directory ``kdir`` of
+    some tree (``_library_copy``, with ``edits``) and called through that
+    tree's own C signature (``_c_entry``).  Returns ``score(q, docs,
+    inv_norm)``, which raises if the launch fails."""
+    from repro_torch.kernels import common
+
+    lib, text = _library_copy(kdir, "cosine_score", out_dir, edits)
+    launch = _c_entry(lib, text, "cosine_scores_launch")
+
+    def score(q, docs, inv_norm):
+        out = torch.empty((q.shape[0], docs.shape[0]), dtype=torch.float32, device=q.device)
+        err = launch(q=q.data_ptr(), docs=docs.data_ptr(), inv_norm=inv_norm.data_ptr(),
+                     out=out.data_ptr(), B=q.shape[0], N=docs.shape[0], T=q.shape[1],
+                     q_align=common.row_alignment(q), d_align=common.row_alignment(docs),
+                     stream=torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"cosine_scores_launch of {kdir} failed: cudaError {err}")
+        return out
+
+    return score
+
+
+def build_planted_k6():
+    """(name, score): K6 built from a copy of this tree's sources with
+    K6_DOC_HI_ONLY (``_cosine_kernel``), called as ``score(q, docs,
+    inv_norm)``."""
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    return ("doc-hi-only", _cosine_kernel(kdir, os.path.join(ROOT, "build", "planted-k6"),
+                                          [K6_DOC_HI_ONLY]))
+
+
+def check_dense(dev, planted=None, planted_k6=None) -> dict:
     """K6 ``cosine_scores``, K7 ``score_matmul`` and K8 ``lsh_match_scores``
     against their plain versions on the card; on each K7 case that the ring
     takes with a partial last chunk after more than K7_STAGES chunks also
     the copy with a planted fault (``planted``, from build_planted_k7, built
-    here if not given), which must fail the same comparison."""
+    here if not given), and on each K6 "unit-f32" case the copy of K6
+    without the doc's low tf32 part (``planted_k6``, from
+    build_planted_k6, built here if not given), each of which must fail the
+    same comparison."""
     from repro_torch.kernels import common
     from repro_torch.kernels.cosine_score import ref as cosine_ref
     from repro_torch.kernels.cosine_score.kernel import cosine_scores
@@ -1182,8 +1261,9 @@ def check_dense(dev, planted=None) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(3)
     copy, bad_score = planted or build_planted_k7()
+    copy_k6, bad_cosine = planted_k6 or build_planted_k6()
     cases = dense_cases()
-    worst, n_planted = {}, 0
+    worst, n_planted, n_planted_k6 = {}, 0, 0
     for kernel, kind, b, n, t in cases:
         q, d, inv = _dense_inputs(kind, b, n, t, gen, dev)
         out = torch.int32 if kind.endswith("/int32") else torch.float32
@@ -1195,11 +1275,19 @@ def check_dense(dev, planted=None) -> dict:
             got, want = lsh_match_scores(q, d), lsh_ref.lsh_match_scores_ref(q, d)
         torch.cuda.synchronize()
         name = f"{kernel} {kind} B={b} N={n} T={t}"
-        exact = not kind.startswith(("bf16", "f32"))
+        exact = kernel != "cosine_scores" and not kind.startswith("bf16")
         err = compare_dense(name, got, want, exact=exact)
         key = f"{kernel} {kind}"
         worst[key] = max(worst.get(key, 0.0), err)
         print(f"  ok  {name}  max_abs_err={err:.3g}")
+        if kind == "unit-f32":
+            n_planted_k6 += 1
+            try:
+                compare_dense(f"{name}, {copy_k6} copy", bad_cosine(q, d, inv), want, exact=False)
+            except AssertionError as fault:
+                print(f"  ok  the {copy_k6} copy of K6 fails: {fault}")
+            else:
+                raise AssertionError(f"{name}: the {copy_k6} copy passed the comparison")
         cols = K7_CHUNK_COLS.get(q.dtype)
         if (kernel == "score_matmul" and t % cols and -(-t // cols) > K7_STAGES
                 and min(common.row_alignment(q), common.row_alignment(d)) >= 8):
@@ -1210,10 +1298,11 @@ def check_dense(dev, planted=None) -> dict:
                 print(f"  ok  the {copy} copy fails: {fault}")
             else:
                 raise AssertionError(f"{name}: the {copy} copy passed the comparison")
-    if n_planted == 0:
-        raise AssertionError("no dense case exercises K7's ring past T")
+    if n_planted == 0 or n_planted_k6 == 0:
+        raise AssertionError("no dense case exercises K7's ring past T or K6's doc low part")
     print(f"dense score kernels vs plain on the card: {len(cases)} cases ({n_planted} also "
-          f"failed by the {copy} copy of K7), worst {worst}")
+          f"failed by the {copy} copy of K7, {n_planted_k6} by the {copy_k6} copy of K6), "
+          f"worst {worst}")
     return worst
 
 
@@ -1320,6 +1409,7 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--ablate"]:  # kernels with parts cut out, then stop
         ablate_k7(dev, card)
+        ablate_k6(dev, card)
         ablate_k9(dev, card)
         build_kernels(["fused_topk", "fused_topk_quantized"])
         trees = [("this tree", ROOT)] + [("parent", d) for d in argv[1:2]]
@@ -1332,14 +1422,16 @@ def main(argv) -> int:
         planted_k1 = pool.submit(build_planted_k1)
         planted_k3 = pool.submit(build_planted_k3)
         planted_k7 = pool.submit(build_planted_k7)
+        planted_k6 = pool.submit(build_planted_k6)
         build_kernels()
-        planted, planted_k1, planted_k3, planted_k7 = (
-            planted.result(), planted_k1.result(), planted_k3.result(), planted_k7.result())
+        planted, planted_k1, planted_k3, planted_k7, planted_k6 = (
+            planted.result(), planted_k1.result(), planted_k3.result(), planted_k7.result(),
+            planted_k6.result())
     check_tensor_cores()
     check_kernels(dev, planted_k1)
     check_gathered(dev, planted_k3)
     check_quantized(dev, planted)
-    check_dense(dev, planted_k7)
+    check_dense(dev, planted_k7, planted_k6)
     check_attention(dev)
     from repro_torch.configs import ann_word2vec
 
@@ -1782,29 +1874,38 @@ def ablate_k1_f32(dev, card: str, trees=(("this tree", ROOT),)) -> None:
 
 def _library_copy(kdir: str, name: str, out_dir: str, edits=()):
     """(library, source text): the kernel source ``<name>/csrc/<name>.cu`` of
-    the kernels directory ``kdir`` of some tree, with ``edits`` ((old, new)
-    pairs whose old text the source holds; every occurrence replaced)
-    applied to a copy in ``out_dir``, built there with nvcc against that
-    tree's own shared headers."""
+    the kernels directory ``kdir`` of some tree, copied into ``out_dir`` with
+    that tree's shared headers (``kdir/csrc``, into ``out_dir/shared``),
+    ``edits`` ((old, new) pairs; every occurrence replaced in every one of
+    those files that holds the old text, and at least one must) applied to
+    the copies, and built there with nvcc against the copied headers."""
     import ctypes
 
     from repro_torch.kernels import common
 
     csrc = os.path.join(kdir, name, "csrc")
-    text = open(os.path.join(csrc, f"{name}.cu")).read()
-    for old, new in edits:
-        if old not in text:
-            raise ValueError(f"{name}.cu of {kdir} does not hold {old!r}")
-        text = text.replace(old, new)
+    shared = os.path.join(out_dir, "shared")
     os.makedirs(out_dir, exist_ok=True)
+    shutil.rmtree(shared, ignore_errors=True)
+    shutil.copytree(os.path.join(kdir, "csrc"), shared)
     src, lib = (os.path.join(out_dir, f) for f in (f"{name}.cu", f"lib{name}.so"))
-    with open(src, "w") as f:
-        f.write(text)
-    proc = subprocess.run([common._nvcc(), *common.NVCC_FLAGS, "-I", os.path.join(kdir, "csrc"),
-                           "-I", csrc, "-o", lib, src], capture_output=True, text=True)
+    shutil.copyfile(os.path.join(csrc, f"{name}.cu"), src)
+    files = [src] + [os.path.join(shared, f) for f in sorted(os.listdir(shared))]
+    texts = {f: open(f).read() for f in files}
+    for old, new in edits:
+        holders = [f for f, text in texts.items() if old in text]
+        if not holders:
+            raise ValueError(f"no file of {name}.cu's sources in {kdir} holds {old!r}")
+        for f in holders:
+            texts[f] = texts[f].replace(old, new)
+    for f, text in texts.items():
+        with open(f, "w") as out:
+            out.write(text)
+    proc = subprocess.run([common._nvcc(), *common.NVCC_FLAGS, "-I", shared, "-I", csrc, "-o", lib,
+                           src], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-    return ctypes.CDLL(lib), text
+    return ctypes.CDLL(lib), texts[src]
 
 
 def _score_matmul_kernel(kdir: str, out_dir: str, edits=()):
@@ -1960,6 +2061,25 @@ def pair_k7(card: str, old, operands: dict) -> None:
               f"parent {times[3]:.3f} ms; max |this - parent| {err:.3g}")
 
 
+def pair_k6(card: str, old, qn, x) -> None:
+    """K6 of another tree (``old``, from ``_cosine_kernel``) and of this tree
+    at the cell, as ``cosine_topk`` calls it (the unit queries ``qn`` against
+    the raw corpus ``x`` and its inverse norms), their outputs held to each
+    other under the row rule and timed in turns (parent, this, this,
+    parent; median of RUNS each)."""
+    from repro_torch.kernels.cosine_score.kernel import cosine_scores
+
+    inv = 1.0 / torch.clamp(torch.linalg.vector_norm(x, dim=-1), min=1e-12)
+    err = compare_dense(f"K6 B={qn.shape[0]}: this tree vs the parent", cosine_scores(qn, x, inv),
+                        old(qn, x, inv), exact=False)
+    torch.cuda.empty_cache()
+    times = [cuda_ms(lambda i=i: (old if i in (0, 3) else cosine_scores)(qn, x, inv))
+             for i in range(4)]
+    print(f"pairing K6 f32 B={qn.shape[0]} (N={x.shape[0]}, T={x.shape[1]}) on {card}: parent "
+          f"{times[0]:.3f} ms, this tree {times[1]:.3f} ms, this tree {times[2]:.3f} ms, "
+          f"parent {times[3]:.3f} ms; max |this - parent| {err:.3g}")
+
+
 def _k7_cell_operands(dev) -> dict:
     """{label: (q, docs)}: random operands of K7 at the ann-word2vec cell's
     shapes (B = 256, N = 2,999,808, T = 600): a bf16 query against bf16 rows
@@ -1998,7 +2118,7 @@ K7_ABLATIONS = {
 }
 K7_VARIANTS = {
     "write-back stores": [("__stcs(", "__stwb(")],
-    "queries streamed": [("  const bool resident = smem_bytes(true, kRingStages, n_chunks) "
+    "queries streamed": [("  const bool resident = smem_bytes<Op>(true, kRingStages, n_chunks) "
                           "<= kMaxSmem;", "  const bool resident = false;")],
     "3 stages": [("constexpr int kRingStages = 4;", "constexpr int kRingStages = 3;")],
     "8 stages (classic's queries then streamed)": [("constexpr int kRingStages = 4;",
@@ -2062,6 +2182,67 @@ def ablate_k7(dev, card: str) -> None:
               + "; ".join(line))
 
 
+def _k6_cell_operands(dev):
+    """(q, docs, inv_norm): random operands of K6 at the ann-word2vec cell's
+    shapes (B = 256, N = 2,999,808, T = 300): unit queries against raw rows
+    of norms 0.01-10, as check_dense's "f32" cases."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    return _dense_inputs("f32", 256, 2_999_808, 300, gen, dev)
+
+
+# Copies of K6 (cosine_score.cu and its shared header score_matmul.cuh), for
+# timing (each prints its largest difference from the kernel): K7's cuts
+# (no stores, loads only, stores only, products only; results wrong), the
+# products summed onto the row's sums with no fold, and the low tf32 parts
+# left unmasked (equal to the kernel's where the mma reads only a
+# register's top 19 bits); and variants whose results are held to the
+# kernel's bit for bit (the same sums in the same order): rings of 3 and 8
+# stages, and the queries streamed through the ring beside each doc chunk.
+K6_ABLATIONS = {**K7_ABLATIONS,
+                "no fold (products onto the row's sums)": [(
+                    "  static constexpr bool kFold = true;",
+                    "  static constexpr bool kFold = false;")]}
+K6_VARIANTS = {name: K7_VARIANTS[name] for name in ("3 stages", "queries streamed")}
+K6_VARIANTS["8 stages"] = K7_VARIANTS["8 stages (classic's queries then streamed)"]
+K6_ABLATIONS["low parts not masked (the mma reads 19 bits)"] = [
+    (f"{x}[{n} + r] = __float_as_uint(x - __uint_as_float({x}[r])) & kTf32Bits;",
+     f"{x}[{n} + r] = __float_as_uint(x - __uint_as_float({x}[r]));")
+    for x, n in (("a", 4), ("b", 2))]
+
+
+def ablate_k6(dev, card: str) -> None:
+    """K6 at the cell's shapes (``_k6_cell_operands``) against copies with
+    parts cut out (K6_ABLATIONS) and other designs (K6_VARIANTS, held to the
+    kernel's output bit for bit), timed in turns (full, each copy, full),
+    each beside the SM clock and power draw it runs at (``clock_power``)."""
+    from repro_torch.kernels.cosine_score.kernel import cosine_scores
+
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    copies = {**K6_ABLATIONS, **K6_VARIANTS}
+    with ThreadPoolExecutor() as pool:  # every copy's nvcc at once
+        built = {name: pool.submit(_cosine_kernel, kdir,
+                                   os.path.join(ROOT, "build", "ablate-k6", str(j)), edits)
+                 for j, (name, edits) in enumerate(copies.items())}
+        build_kernels(["cosine_score"])
+        cut = {name: fut.result() for name, fut in built.items()}
+    q, docs, inv = _k6_cell_operands(dev)
+    full = cosine_scores(q, docs, inv)
+    for name, fn in cut.items():
+        got = fn(q, docs, inv)
+        if name in K6_VARIANTS:
+            compare_dense(f"K6, {name}", got, full, exact=True)
+        print(f"K6, {name}: max |copy - kernel| {float((got - full).abs().max()):.3g}")
+        del got
+    del full
+    torch.cuda.empty_cache()
+    runs = [("full", lambda: cosine_scores(q, docs, inv))]
+    runs += [(name, lambda fn=fn: fn(q, docs, inv)) for name, fn in cut.items()]
+    runs.append(runs[0])
+    line = [f"{name} {cuda_ms(fn):.3f} ms ({clock_power(fn)})" for name, fn in runs]
+    print(f"K6 ablation, f32 B={q.shape[0]} (N={docs.shape[0]}, T={q.shape[1]}), on {card}: "
+          + "; ".join(line))
+
+
 def pair_parent(dev, card: str, parent: str) -> None:
     """K1-K5 of the tree ``parent`` (its own sources, plans and C
     signatures, ``_tree_kernels``) and of this tree on the same ann-word2vec
@@ -2101,13 +2282,13 @@ def pair_parent(dev, card: str, parent: str) -> None:
         parent_build = pool.submit(_tree_kernels, pdir, os.path.join(ROOT, "build", "pair"))
         parent_k7 = pool.submit(_score_matmul_kernel, pdir,
                                 os.path.join(dense_dir, "fakewords_score"))
-        parent_dense = [pool.submit(_library_copy, pdir, name, os.path.join(dense_dir, name))
-                        for name in ("cosine_score", "lsh_match")]
+        parent_k6 = pool.submit(_cosine_kernel, pdir, os.path.join(dense_dir, "cosine_score"))
+        parent_k8 = pool.submit(_library_copy, pdir, "lsh_match",
+                                os.path.join(dense_dir, "lsh_match"))
         build_kernels(["fused_topk", "fused_topk_quantized", "fakewords_score", "cosine_score",
                        "lsh_match"])
-        old, old_k7 = parent_build.result(), parent_k7.result()
-        for fut in parent_dense:
-            fut.result()
+        old, old_k7, old_k6 = parent_build.result(), parent_k7.result(), parent_k6.result()
+        parent_k8.result()
     for name in ("fused_topk", "fused_topk_quantized"):  # instances in both trees
         sass_pairing(name, os.path.join(ROOT, "build", "pair", f"lib{name}.so"))
     for name in ("fakewords_score", "cosine_score", "lsh_match"):
@@ -2140,6 +2321,7 @@ def pair_parent(dev, card: str, parent: str) -> None:
              depth, exact=True)
     pair_k7(card, old_k7, {f"classic bf16 B={qv.shape[0]}": (qv, idx.index.scored),
                            f"dot int8 B={q_dot.shape[0]}": (q_dot, idx.index.tf)})
+    pair_k6(card, old_k6, qn, x)
     # K3 (blockmax stage 2) at 10% of the blocks, rows in bound order:
     # classic at B = 256, 8 and 1, with each tree's pass 1 and pass 2 apart,
     # and dot (int8, bit for bit) at B = 8 and 1.
@@ -2691,8 +2873,10 @@ def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, conf
     (K7), ``cosine_score.ops.cosine_topk`` over the raw corpus (K6),
     ``lsh_match.ops.lsh_topk`` (K8), and ``flash_attention.ops.
     causal_attention`` (K9) for one attention layer of each model in
-    ATTENTION_LAYERS.  Returns the kernels' JSON entries (K7 classic and
-    dot, K6, K8, and K9 for each layer)."""
+    ATTENTION_LAYERS, and in f32 for phi3-mini's.  Returns the kernels' JSON
+    entries (K7 classic and dot, K6, K8, and K9 for each layer and for
+    phi3-mini's in f32); also times ``cosine_topk`` whole and its
+    ``common.stable_topk`` alone."""
     from repro_torch.core import bruteforce, eval as ev, fakewords, lexical_lsh
     from repro_torch.kernels.common import stable_topk
     from repro_torch.kernels.cosine_score import ops as cos_ops, ref as cos_ref
@@ -2712,6 +2896,9 @@ def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, conf
     sig_q = lexical_lsh.encode(qn, lidx.config)
     index = idx.index
     layers = _attention_layers(dev)
+    # K9 in f32 at phi3-mini's layer (the same operands, widened)
+    f32_layer = ATTENTION_LAYERS[1]
+    layers_f32 = tuple(t.float() for t in layers[f32_layer[0]])
     # The fused top-k kernels' answers to the same queries, for the checks.
     k1_classic = topk_ops.classic_topk(index, q_tf, depth)
     k1_dot = topk_ops.dot_topk(index, q_tf, depth)
@@ -2726,6 +2913,7 @@ def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, conf
     top_cos = cos_ops.cosine_topk(qx, x, k)
     top_lsh = lsh_ops.lsh_topk(lidx.index, sig_q, depth)
     attn = {name: fa_ops.causal_attention(*qkv) for name, qkv in layers.items()}
+    attn_f32 = fa_ops.causal_attention(*layers_f32)
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
     counts = _launches()
@@ -2751,18 +2939,21 @@ def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, conf
                                     fa_ref.attention_ref(*layers[name]), exact=False,
                                     tol=ATTN_TOL[torch.bfloat16])
                 for name in layers}
+    attn_err[f"{f32_layer[0]}, f32"] = compare_dense(
+        f"causal_attention {f32_layer[0]}, f32", attn_f32, fa_ref.attention_ref(*layers_f32),
+        exact=False, tol=ATTN_TOL[torch.float32])
     print(f"entry-point outputs: classic / dot top-100 equal K1's (near-tie rule / exact), "
           f"lsh_topk equals K2, cosine_topk R@10 {r_cos:.4f} against the K1 ground truth; causal_attention "
           f"vs plain max_abs_err {attn_err}")
     if r_cos < 0.99:
         raise AssertionError(f"cosine_topk R@10 {r_cos:.4f}: not the exact cosine top-10")
-    del top_classic, top_dot, top_cos, top_lsh, attn
+    del top_classic, top_dot, top_cos, top_lsh, attn, attn_f32
 
     # ---- each kernel at its main-path shape: check and times ---------------
     kernels = []
 
     def entry(name, fn, plain, library, lib_label, bound, launches, exact, source, replaces,
-              tol=TOL):
+              tol=TOL, note=""):
         got = fn()
         torch.cuda.synchronize()
         want = plain()
@@ -2774,7 +2965,7 @@ def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, conf
         print(f"{name}: kernel {ms:.3f} ms (median of {runs}), bound {bound[0]:.3f} ms "
               f"({bound[1]}); plain {plain_ms:.3f} ms (median of {plain_runs}); "
               + (f"{lib_label} {lib_ms:.3f} ms" if library is not None else f"library: {lib_label}")
-              + f"; vs plain max_abs_err {err:.3g}")
+              + f"; vs plain max_abs_err {err:.3g}{note}")
         kernels.append({
             "name": name.split(" (")[0], "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -2797,12 +2988,28 @@ def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, conf
           lambda: score_matmul(q_dot, tf), lambda: fw_ref.score_matmul_ref(q_dot, tf),
           lambda: torch._int_mm(q_dot, tf.T), "torch._int_mm(q, tf.T) (int32 out)",
           dense_bound_ms(q_dot, tf, 0, 2.0, "int8"), counts["score_matmul"], True, fw_src, fw_rep)
-    entry(f"cosine_scores (f32, B={b}, N={n}, T={x.shape[1]})",
+    # K6 runs split TF32, three tf32 products per f32 one: its row's bound is
+    # theirs, and the f32 FMAs of the plain product (the bound of the
+    # CUDA-core design it replaced) stand beside it.
+    fma = dense_bound_ms(q_unit, x, inv.numel() * 4, 2.0, "f32")
+    entry(f"cosine_scores (f32, split TF32, B={b}, N={n}, T={x.shape[1]})",
           lambda: cosine_scores(q_unit, x, inv), lambda: cos_ref.cosine_scores_ref(q_unit, x, inv),
-          lambda: torch.matmul(q_unit, x.T) * inv, "torch.matmul(q, x.T) * inv_norm",
-          dense_bound_ms(q_unit, x, inv.numel() * 4, 2.0, "f32"), counts["cosine_scores"], False,
+          lambda: torch.matmul(q_unit, x.T) * inv,
+          "torch.matmul(q, x.T) * inv_norm (allow_tf32 False)",
+          dense_bound_ms(q_unit, x, inv.numel() * 4, 6.0, "tf32"), counts["cosine_scores"], False,
           "src/repro_torch/kernels/cosine_score/csrc/cosine_score.cu",
-          "src/repro/kernels/cosine_score/kernel.py:36")
+          "src/repro/kernels/cosine_score/kernel.py:36",
+          note=f"; f32-FMA bound {fma[0]:.3f} ms ({fma[1]})")
+    # What cosine_topk spends besides K6: common.stable_topk, a full stable
+    # sort of the (B, N) scores.
+    scores = cosine_scores(q_unit, x, inv)
+    sort_ms, sort_runs = timed(lambda: stable_topk(scores, k))
+    del scores
+    whole_ms, whole_runs = timed(lambda: cos_ops.cosine_topk(qx, x, k))
+    print(f"cosine_topk (B={b}, N={n}, T={x.shape[1]}, k={k}) on {card}: whole {whole_ms:.3f} ms "
+          f"(median of {whole_runs}); common.stable_topk of the (B, N) scores alone "
+          f"{sort_ms:.3f} ms (median of {sort_runs}); K6 {kernels[-1]['ms']:.3f} ms")
+    torch.cuda.empty_cache()
     sig = lidx.index.sig
     entry(f"lsh_match_scores (uint32, B={b}, N={n}, S={sig.shape[1]})",
           lambda: lsh_match_scores(sig_q, sig), lambda: lsh_ref.lsh_match_scores_ref(sig_q, sig),
@@ -2827,6 +3034,21 @@ def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, conf
               attention_bound_ms(q, kk, vv, "bf16"), counts["flash_attention"], False,
               "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention/kernel.py:74", tol=ATTN_TOL[torch.bfloat16])
+
+    def sdpa_efficient(q, kk, vv):  # f32: the memory-efficient backend alone, which raises
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):  # where it cannot run
+            return torch.nn.functional.scaled_dot_product_attention(q, kk, vv, is_causal=True)
+
+    name, hq, hkv, s, d = f32_layer
+    q, kk, vv = layers_f32
+    entry(f"flash_attention/f32 ({name}, f32, B=1, Hq={hq}, Hkv={hkv}, S={s}, D={d})",
+          lambda: flash_attention(q, kk, vv), lambda: fa_ref.attention_ref(q, kk, vv),
+          lambda: sdpa_efficient(q, kk, vv),
+          "scaled_dot_product_attention(is_causal=True), backend that ran: "
+          f"{SDPBackend.EFFICIENT_ATTENTION.name} (f32)",
+          attention_bound_ms(q, kk, vv, "f32"), counts["flash_attention"], False,
+          "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+          "src/repro/kernels/flash_attention/kernel.py:74", tol=ATTN_TOL[torch.float32])
     print(f"times on {card}")
     return kernels
 

@@ -1,6 +1,8 @@
 """Wrapper of the dense cosine score kernel (K6): :func:`cosine_scores`
 replaces ``repro/kernels/cosine_score/kernel.py::cosine_scores``, in
-``csrc/cosine_score.cu``.
+``csrc/cosine_score.cu``: split TF32 on ``mma.sync`` tensor cores, the body
+of ``kernels/csrc/score_matmul.cuh`` that K7 runs too (its arithmetic is
+emulated by ``tests/torch_parity.split_tf32x3_scores(q, docs, chunk=16)``).
 
 Routing follows the tensors' device: on the CPU the plain version
 (:mod:`.ref`) runs; on one CUDA device the kernel launches on the current

@@ -1,14 +1,13 @@
-// The dense (B, N) score tile shared by K6 (cosine_score.cu) and K8
-// (lsh_match.cu): out[b, n] = epilogue(sum over the T columns of q[b, t] (*)
-// docs[n, t]), with (*) an f32 product (K6) or a MinHash collision count
-// (K8: uint32 slots that are equal and not the query sentinel 0xFFFFFFFF).
-// K7 (fakewords_score.cu) has its own tensor-core tile.
+// The dense (B, N) score tile of K8 (lsh_match.cu) on CUDA cores: out[b, n]
+// = sum over the T columns of q[b, t] (*) docs[n, t] as int32, with (*) a
+// MinHash collision count (uint32 slots that are equal and not the query
+// sentinel 0xFFFFFFFF).  K6 and K7 run the tensor-core tile of
+// score_matmul.cuh.
 //
-// Bound on an H100 SXM: each of these kernels writes a (B, N) matrix, 4 bytes
-// an entry (3.07 GB at B = 256 over the 2,999,808-row ann-word2vec corpus),
-// and reads the (N, T) store once; the f32 product (cosine) and the compare
-// (lsh) run on CUDA cores and at best reach their operation bounds (67
-// TFLOP/s f32, 16.7e12 INT32 op/s).
+// Bound on an H100 SXM: the kernel writes a (B, N) matrix, 4 bytes an entry
+// (3.07 GB at B = 256 over the 2,999,808-row ann-word2vec corpus), and reads
+// the (N, T) store once; the compare runs on CUDA cores and at best reaches
+// its operation bound (16.7e12 INT32 op/s).
 //
 // Design (simple first): a block of 256 threads owns kBM = 64 queries and
 // kBN = 128 docs; each warp owns kTM = 8 query rows and each lane kTN = 4 doc
@@ -21,7 +20,8 @@
 // (16 bytes, 8 bytes, or element loads for other alignments and for the
 // ragged end of a row).  Ragged B, N and T are bounds-checked: a missing
 // column is 0 (the sentinel on the lsh query side, so it never counts), a
-// missing row is never written.  The grid is 1-D with the query tiles of one
+// missing row is never written.  The tile is templated on the score mode M
+// (score_operands.cuh).  The grid is 1-D with the query tiles of one
 // doc tile adjacent, so the B / 64 blocks that read one doc tile run
 // together and re-read it from L2.
 #pragma once
@@ -39,16 +39,17 @@ constexpr int kBM = kWarps * kTM;    // queries per block
 constexpr int kTN = 4;               // doc columns per lane
 constexpr int kBN = 32 * kTN;        // docs per block
 
-// What the epilogue writes: the sum as int32 (lsh), or as f32 times the
-// doc's inverse norm (cosine).
-enum Epilogue { kOutI32 = 1, kOutScaled = 2 };
+// What the epilogue writes: the sum as int32.  E and the unused inv_norm
+// parameter keep K8's instance, its parameter layout and so its SASS as
+// they were when the tile also served K6's scaled f32 epilogue.
+enum Epilogue { kOutI32 = 1 };
 
 template <int M, int E>
 __global__ void __launch_bounds__(kThreads) dense_scores(
     const typename Traits<M>::Raw* __restrict__ q,     // (B, T)
     const typename Traits<M>::Raw* __restrict__ docs,  // (N, T)
-    const float* __restrict__ inv_norm,                 // (N,), kOutScaled only
-    void* __restrict__ out,                             // (B, N) f32 | int32
+    const float* __restrict__ inv_norm,                 // unused
+    void* __restrict__ out,                             // (B, N) int32
     int B, int N, int T, int q_align, int d_align, int q_tiles) {
   using Tr = Traits<M>;
   using V = Vec<M>;
@@ -128,14 +129,6 @@ __global__ void __launch_bounds__(kThreads) dense_scores(
     }
   }
 
-  float inv[kTN];
-  if constexpr (E == kOutScaled) {
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int d = d0 + lane + 32 * j;
-      inv[j] = d < N ? inv_norm[d] : 0.f;
-    }
-  }
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int qi = q0 + warp * kTM + i;
@@ -144,9 +137,7 @@ __global__ void __launch_bounds__(kThreads) dense_scores(
     for (int j = 0; j < kTN; ++j) {
       const int d = d0 + lane + 32 * j;
       if (d >= N) continue;
-      const size_t o = (size_t)qi * N + d;
-      if constexpr (E == kOutI32) static_cast<int*>(out)[o] = static_cast<int>(acc[i][j]);
-      else static_cast<float*>(out)[o] = acc[i][j] * inv[j];
+      static_cast<int*>(out)[(size_t)qi * N + d] = static_cast<int>(acc[i][j]);
     }
   }
 }
@@ -154,18 +145,17 @@ __global__ void __launch_bounds__(kThreads) dense_scores(
 // Launch the tile over a (B, N) output on `stream`; returns the launch's
 // error (a refused launch never runs, and a later synchronize does not
 // report it).
-template <int M, int E>
-cudaError_t launch_dense_scores(const void* q, const void* docs, const float* inv_norm,
-                                void* out, int B, int N, int T, int q_align, int d_align,
-                                cudaStream_t stream) {
+template <int M>
+cudaError_t launch_dense_scores(const void* q, const void* docs, void* out, int B, int N, int T,
+                                int q_align, int d_align, cudaStream_t stream) {
   using Raw = typename Traits<M>::Raw;
   if (B <= 0 || N <= 0 || T <= 0) return cudaErrorInvalidValue;
   const int q_tiles = (B + kBM - 1) / kBM;
   const long long blocks = (long long)q_tiles * ((N + kBN - 1) / kBN);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  dense_scores<M, E><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const Raw*>(q), static_cast<const Raw*>(docs), inv_norm, out, B, N, T,
-      q_align, d_align, q_tiles);
+  dense_scores<M, kOutI32><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<const Raw*>(q), static_cast<const Raw*>(docs), nullptr, out, B, N, T, q_align,
+      d_align, q_tiles);
   return cudaGetLastError();
 }
 

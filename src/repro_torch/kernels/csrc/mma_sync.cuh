@@ -1,9 +1,10 @@
 // The mma.sync toolkit shared by the tensor-core kernels: K1 and K4's pass 1
-// (../fused_topk/csrc/mma_topk.cuh), K7's score matrix
-// (../fakewords_score/csrc/fakewords_score.cu) and K9's bf16 attention
+// (../fused_topk/csrc/mma_topk.cuh), K6 and K7's score matrices
+// (score_matmul.cuh) and K9's bf16 attention
 // (../flash_attention/csrc/flash_attention.cu).  PTX wrappers only: shared
-// addresses, ldmatrix (plain and transposed), the m16n8k16 bf16 and m16n8k32
-// s8 mma, and 16- and 8-byte cp.async copies with their groups.
+// addresses, ldmatrix (plain and transposed), the m16n8k16 bf16, m16n8k32
+// s8 and m16n8k8 tf32 mma, and 16- and 8-byte cp.async copies with their
+// groups.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -64,6 +65,19 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+
+// c += a (16x8, row-major) * b (8x8, column-major), tf32 in (the top 19
+// bits of each register), f32 sums.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr unsigned kTf32Bits = 0xFFFFE000u;  // the sign, exponent and 10 fraction bits of tf32
 
 // 16 bytes from device to shared memory, asynchronously; src_bytes = 0
 // writes zeros and reads nothing.

@@ -1,9 +1,10 @@
 // The score operands shared by the streaming kernels: the fused top-k pass 1
 // (K1-K3, ../fused_topk/csrc/fused_topk.cu), the dense (B, N) score tile
-// (K6, K8, dense_scores.cuh) and K7's register loader (load_pack).  A score is a sum over the T columns of a query
-// row and a stored row in one of four modes: f32, bf16 (widened to f32: the
-// products are exact), int8 (four to a 32-bit word, summed in int32 by
-// __dp4a) and lsh (uint32 MinHash slots that are equal and not the query's
+// (K8, dense_scores.cuh) and the register loader of K6 and K7's tensor-core
+// tile (load_pack, score_matmul.cuh).  A score is a sum over the T columns
+// of a query row and a stored row in one of four modes: f32, bf16 (widened
+// to f32: the products are exact), int8 (four to a 32-bit word, summed in
+// int32 by __dp4a) and lsh (uint32 MinHash slots that are equal and not the query's
 // sentinel 0xFFFFFFFF).  Rows are read as 16-byte packs and staged in shared
 // memory as 32-bit words, kBK words per reduce chunk.
 #pragma once

@@ -6,8 +6,8 @@
 // packed int4 rows widened to bf16) and K4 with an f32 query over int8 or
 // packed int4 rows (fused_topk_quantized_tf32_partial, same file, rows
 // widened to f32): the
-// mma_tf32 / 4-byte cp.async helpers (the bf16 and s8 mma, ldmatrix and
-// 16- and 8-byte cp.async are ../../csrc/mma_sync.cuh's, shared with K7 and
+// 4-byte cp.async helpers (the bf16, s8 and tf32 mma, ldmatrix and 16- and
+// 8-byte cp.async are ../../csrc/mma_sync.cuh's, shared with K6, K7 and
 // K9), the
 // four product types (MmaBf16,
 // MmaS8, MmaTf32, MmaTf32x3), the counting merge of a candidate buffer into
@@ -125,7 +125,7 @@
 // ms), not the products; at B <= 8 the loads, at ~2.3 TB/s.
 #pragma once
 
-#include "mma_sync.cuh"  // the ldmatrix / mma_bf16 / mma_s8 / cp.async wrappers
+#include "mma_sync.cuh"  // the ldmatrix / mma_bf16 / mma_s8 / mma_tf32 / cp.async wrappers
 #include "topk_merge.cuh"
 
 namespace {
@@ -215,19 +215,6 @@ inline int mma_plan(int B, int n_docs, int depth, int sm_count, int ring, int* p
   plan[4] = bn;
   return 0;
 }
-
-// c += a (16x8, row-major) * b (8x8, column-major), tf32 in (the top 19
-// bits of each register), f32 sums.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-constexpr unsigned kTf32Bits = 0xFFFFE000u;  // the sign, exponent and 10 fraction bits of tf32
 
 // The product types of the pass 1: the element of q and of the staged rows
 // (and its score_operands.cuh mode, for the register loader of q), the

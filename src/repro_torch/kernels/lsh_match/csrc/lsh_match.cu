@@ -14,8 +14,7 @@
 // per SM x 132 SMs x 1.98 GHz), 13.8 ms, above the 1.99 ms of its bytes
 // (3.60 GB of signatures, 3.07 GB of counts): operations bound it.  Each
 // compare is an integer equality and add on CUDA cores; no tensor-core path
-// exists for it.  The tile is the shared ../../csrc/dense_scores.cuh (K6 uses
-// it too).
+// exists for it.  The tile is ../../csrc/dense_scores.cuh.
 
 #include "dense_scores.cuh"
 
@@ -23,8 +22,8 @@ extern "C" {
 
 int lsh_match_scores_launch(const void* sig_q, const void* sig_d, void* out, int B, int N, int S,
                             int q_align, int d_align, void* stream) {
-  return launch_dense_scores<kLSH, kOutI32>(sig_q, sig_d, nullptr, out, B, N, S, q_align, d_align,
-                                            static_cast<cudaStream_t>(stream));
+  return launch_dense_scores<kLSH>(sig_q, sig_d, out, B, N, S, q_align, d_align,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 const char* lsh_match_error_string(int err) {

@@ -17,7 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_rows_close, assert_topk_match, to_torch
+from torch_parity import assert_rows_close, assert_topk_match, split_tf32x3_scores, to_torch
 
 from repro.core import fakewords as jfakewords
 from repro.core import lexical_lsh as jlsh
@@ -107,6 +107,51 @@ def test_cosine_scores_bf16_cpu_route_matches_jax(b, n, dim):
     assert got.dtype == torch.float32 and got.shape == (b, n)
     _close(got, jcosine_scores(jq, jd, jnp.asarray(inv), interpret=True))
     _close(got, jcosine_ref(jq, jd, jnp.asarray(inv)))
+
+
+# f32 columns of a chunk of the card's K6 (cosine_score.cu: 64 bytes), whose
+# split-TF32 products are summed from zero and then folded into the row's sum.
+K6_CHUNK = 16
+K6_EMULATION_T = (300, 257, 16, 17, 321)
+
+
+def _cosine_operands(b: int, n: int, t: int, seed: int):
+    """Unit queries, raw rows of norms spread over 0.01-10 (as
+    chip_smoke._dense_inputs makes them) and the rows' inverse norms."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, t)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    docs = (rng.normal(size=(n, t)) * (10 * rng.uniform(size=(n, 1)) + 0.01)).astype(np.float32)
+    inv = (1.0 / np.linalg.norm(docs, axis=-1)).astype(np.float32)
+    return q, docs, inv
+
+
+def _cosine_emulation_vs_jax(t: int, doc_lo: bool) -> None:
+    """The card's K6 arithmetic, emulated (both sides split by bit masks
+    into two tf32 parts, three products a chunk summed from zero and folded
+    into the row's f32 sum, times the doc's inverse norm), against JAX's
+    ``cosine_scores`` under the 1e-5 row rule."""
+    q, docs, inv = _cosine_operands(9, 300, t, t)
+    got = split_tf32x3_scores(torch.from_numpy(q), torch.from_numpy(docs), doc_lo=doc_lo,
+                              chunk=K6_CHUNK) * torch.from_numpy(inv)
+    _close(got, jcosine_scores(*(jnp.asarray(a) for a in (q, docs, inv)), interpret=True))
+
+
+@pytest.mark.parametrize("t", K6_EMULATION_T)
+def test_cosine_split_tf32_emulation_matches_jax(t):
+    _cosine_emulation_vs_jax(t, doc_lo=True)
+
+
+def test_cosine_emulation_without_the_doc_low_part_fails_the_row_rule():
+    """Dropping the doc's low tf32 part (the card's planted K6_DOC_HI_ONLY)
+    fails the rule on these inputs: the rule can see a doc cut to tf32."""
+    failed = []
+    for t in K6_EMULATION_T:
+        try:
+            _cosine_emulation_vs_jax(t, doc_lo=False)
+        except AssertionError:
+            failed.append(t)
+    assert failed, "the emulation without the doc's low part passed every case"
 
 
 def _signatures(b: int, n: int, s: int, seed: int):

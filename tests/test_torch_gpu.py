@@ -551,12 +551,12 @@ def _off_16(x: torch.Tensor, offset: int) -> torch.Tensor:
 
 def _dense_operands(kind: str, b: int, n: int, t: int, dev: torch.device):
     """Operands of one dense score kernel; cosine's third is the docs'
-    inverse norms; "-unaligned": K7's operands 1 (int8) or 2 (bf16) bytes
-    past 16, so they take its register loader."""
+    inverse norms; "-unaligned": the operands 1 (int8), 2 (bf16) or 4 (f32)
+    bytes past 16, so they take the register loader."""
     if "-unaligned" in kind:
-        q, d, _ = _dense_operands(kind.replace("-unaligned", ""), b, n, t, dev)
-        off = 1 if q.dtype == torch.int8 else 2
-        return _off_16(q, off), _off_16(d, off), None
+        q, d, inv = _dense_operands(kind.replace("-unaligned", ""), b, n, t, dev)
+        off = q.element_size()
+        return _off_16(q, off), _off_16(d, off), inv
     g = torch.Generator(device=dev).manual_seed(43)
     if kind == "lsh":  # the queries are doc rows: at least b of them, then the first n
         q, d = _operands("lsh", b, max(b, n), t, dev)
@@ -607,6 +607,31 @@ def test_cuda_dense_kernel_matches_plain_version(kind, b, n, t):
         assert_rows_close(got, want, 1e-5)
     else:
         assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,t", [
+    # K6's 128-query x 128-doc tile at its edges, its 8-column k-steps and
+    # 16-column chunks (T = 15..17), the cosine's T = 300, its queries
+    # resident up to 384 columns (T = 320, 321, 384) and streamed past them
+    # (T = 385, 600)
+    (127, 129, 15), (129, 127, 16), (256, 257, 17), (129, 128, 300), (127, 255, 320),
+    (256, 256, 321), (129, 257, 384), (128, 129, 385), (256, 127, 600)])
+@pytest.mark.parametrize("kind", ["f32", "f32-unaligned"])
+def test_cuda_cosine_scores_at_tile_and_chunk_edges(kind, b, n, t):
+    """K6 (split TF32 on tensor cores) against its plain version under the
+    1e-5 row rule; "f32-unaligned": rows 4 bytes off 16, the register
+    loader."""
+    from repro_torch.kernels.cosine_score import kernel as cos_kernel, ref as cos_ref
+
+    dev = cuda_device()
+    q, d, inv = _dense_operands(kind, b, n, t, dev)
+    before = cos_kernel.cosine_scores.launches
+    got = cos_kernel.cosine_scores(q, d, inv)
+    torch.cuda.synchronize()
+    assert cos_kernel.cosine_scores.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, n)
+    assert_rows_close(got, cos_ref.cosine_scores_ref(q, d, inv), 1e-5)
 
 
 @pytest.mark.gpu
