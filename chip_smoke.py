@@ -14,8 +14,10 @@
    over int8 and over int4 rows, HMMA in K7's classic score matrix
    (``score_matmul_bf16``) and IMMA in its dot one (``score_matmul_int8``),
    TF32 HMMA in K6's (``cosine_scores_tf32``, split TF32 on the same body,
-   ``kernels/csrc/score_matmul.cuh``), and HMMA in K9's bf16 attention
-   (``flash_attention_bf16``); an instance without them fails the run.
+   ``kernels/csrc/score_matmul.cuh``), HMMA in K9's bf16 attention
+   (``flash_attention_bf16``) and TF32 HMMA in its f32 one
+   (``flash_attention_tf32``, split TF32); an instance without them fails
+   the run.
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
    shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
@@ -90,9 +92,12 @@
    part (K6_DOC_HI_ONLY), which its "unit-f32" cases (unit rows at T = 300,
    B = 129 and 256) must fail; K9 at every
    head width (32, 64, 96, 128), S = 1, 130 and 4096, f32 and bf16, MHA /
-   GQA / MQA, the bf16 kernel's 64-key and 128-row tile edges (S = 63, 64,
-   65, 127, 128, 129), GQA group 7 at S = 4096, and deepseek-coder-33b's 56
-   / 8 heads at S = 4096.
+   GQA / MQA, the kernels' 64-key and 128-row tile edges (S = 63, 64, 65,
+   127, 128, 129), GQA group 7 at S = 4096, and deepseek-coder-33b's 56 / 8
+   heads at S = 4096; and two copies of the f32 kernel, one without q hi x
+   k lo (K cut to tf32) and one without p lo x v hi (P cut to tf32)
+   (K9_F32_K_HI_ONLY, K9_F32_P_HI_ONLY), each of which must fail at least
+   one f32 case.
 10. With the corpus and its fp32 and LSH indexes still on the card, drives
    the dense-score and attention entry points at full width: ``classic_scores`` and
    ``dot_scores`` at B = 256 (K7, on tensor cores), ``cosine_topk`` over the raw corpus (K6),
@@ -101,8 +106,8 @@
    (56 / 8 heads, D 128, bf16) at S = 32,768 and of phi3-mini (32 / 32, D
    96) at S = 4,096, batch 1, in bf16 and in f32 (K9); holds their top-k
    against K1 / K2 and the plain versions, and times each kernel beside its
-   bound, its plain version and its library yardstick (K9 f32: the
-   memory-efficient SDPA backend alone), and ``cosine_topk`` whole beside
+   bound, its plain version and its library yardstick (K9 f32, split TF32:
+   the memory-efficient SDPA backend alone), and ``cosine_topk`` whole beside
    its ``common.stable_topk`` sort alone.
 11. Frees those indexes and runs the quantized read path on the same corpus:
    classic with int8 and with int4 (group 32) postings and the int8 rerank
@@ -135,8 +140,8 @@ against its own shared headers) in both modes at B = 256 on the index's
 K6 (that tree's ``cosine_score.cu``) at B = 256 over the raw corpus; it
 prints whether the SASS of every kernel instance that both trees build is
 identical, for K1-K5, K6 and K8 (``cosine_score.cu``, ``lsh_match.cu``) and
-K9; first, K9 of both trees (their ``flash_attention.cu``) at both
-attention layers, outputs held to each other.  With ``--ablate [DIR]`` it
+K9; first, K9 of both trees (their ``flash_attention.cu``) at both bf16
+attention layers and at phi3-mini's in f32, outputs held to each other.  With ``--ablate [DIR]`` it
 first times K7 at the cell's shapes (B = 256, N = 2,999,808, T = 600, both
 modes) against copies with no stores (sums kept live), loads only (no
 ``mma``, no stores), stores only and products only (K7_ABLATIONS), and
@@ -149,7 +154,10 @@ K7's cuts, no fold and unmasked low parts (K6_ABLATIONS) and rings of 3 and
 8 stages and streamed queries (K6_VARIANTS; alone: ``c.ablate_k6``), then
 K9's bf16 kernel at both
 attention layers against copies without the softmax, loads only, with 4
-warps and with three stages (K9_ABLATIONS, K9_VARIANTS), then K3 at the
+warps and with three stages (K9_ABLATIONS, K9_VARIANTS), and its f32 kernel
+at phi3-mini's layer against the same cuts and variants and without the
+fold and with Q split once into registers (K9_F32_ABLATIONS,
+K9_F32_VARIANTS), each beside the SM clock and power draw, then K3 at the
 blockmax path's shape with its inserts and its products cut out
 (K3_ABLATIONS; also the K3 of the tree in DIR, e.g. the parent), each
 kernel's pass 1 and pass 2 apart, K1 f32 at the ground truth's shape with
@@ -326,7 +334,7 @@ def _instance(mangled: str) -> str:
                   r"|quantized_tf32_partial|gathered_partial|bf16_partial"
                   r"|int8_partial|f32_partial|partial|merge)"
                   r"|dense_scores|score_matmul_(?:bf16|int8)|cosine_scores_tf32"
-                  r"|flash_attention_(?:fwd|bf16))"
+                  r"|flash_attention_(?:tf32|bf16))"
                   r"(?:I((?:Li-?\d+E|Lb[01]E|[ft])+)E)?",
                   mangled)
     if m is None:
@@ -411,7 +419,8 @@ def sass_count(name: str, opcode: str):
 # K4's with an f32 query over int8 and over int4 rows (m16n8k8 tf32: HMMA on
 # TF32 operands); K7's score matrices (classic: m16n8k16 bf16, HMMA; dot:
 # m16n8k32 s8, IMMA) and K6's (split TF32: m16n8k8 tf32, HMMA on TF32
-# operands); and K9's bf16 attention (m16n8k16 bf16: HMMA).
+# operands); and K9's attention (bf16: m16n8k16 bf16, HMMA; f32: split TF32,
+# m16n8k8 tf32, HMMA on TF32 operands).
 TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fused_topk", "fused_topk_int8_partial", "IMMA"),
                        ("fused_topk", "fused_topk_f32_partial", r"HMMA\.\S*TF32"),
@@ -423,7 +432,8 @@ TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fakewords_score", "score_matmul_bf16", "HMMA"),
                        ("fakewords_score", "score_matmul_int8", "IMMA"),
                        ("cosine_score", "cosine_scores_tf32", r"HMMA\.\S*TF32"),
-                       ("flash_attention", "flash_attention_bf16", "HMMA"))
+                       ("flash_attention", "flash_attention_bf16", "HMMA"),
+                       ("flash_attention", "flash_attention_tf32", r"HMMA\.\S*TF32"))
 
 
 def check_tensor_cores() -> None:
@@ -1309,10 +1319,33 @@ def check_dense(dev, planted=None, planted_k6=None) -> dict:
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
+# K9's planted faults: copies of the f32 kernel without q hi x k lo (each
+# key cut to tf32, ~5e-4 of its bits) and without p lo x v hi (each
+# probability cut to tf32).  Each must fail at least one f32 case of
+# check_attention, which shows that those cases can see a dropped product
+# of the split.
+K9_F32_K_HI_ONLY = (
+    "          mma_tf32(s[j + u], q_hi, kl[2 * u], kl[2 * u + 1]);  // q hi x k lo\n", "")
+K9_F32_P_HI_ONLY = ("          mma_tf32(acc[4 * c + i], p_lo, v0[i], v1[i]);  // p lo x v hi\n", "")
+
+
+def build_planted_k9() -> dict:
+    """{name: attn}: K9 built from copies of this tree's source with
+    K9_F32_K_HI_ONLY and with K9_F32_P_HI_ONLY (``_attention_kernel``),
+    called as ``attn(q, k, v)``; both nvcc at once."""
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    with ThreadPoolExecutor() as pool:
+        built = {name: pool.submit(_attention_kernel, kdir,
+                                   os.path.join(ROOT, "build", f"planted-k9-{name}"), [edit])
+                 for name, edit in (("k-hi-only", K9_F32_K_HI_ONLY),
+                                    ("p-hi-only", K9_F32_P_HI_ONLY))}
+        return {name: fut.result() for name, fut in built.items()}
+
+
 def attention_cases():
     """(dtype, B, Hq, Hkv, S, D) for check_attention: every head width at
     S = 1, 130 and 4096 in both dtypes, MHA, GQA group 2 and MQA in turn;
-    the edges of the bf16 kernel's 64-key and 128-row tiles (S = 63, 64, 65,
+    the edges of the kernels' 64-key and 128-row tiles (S = 63, 64, 65,
     127, 128, 129) in both dtypes, every head width in turn; GQA group 7
     (deepseek-coder-33b's) on one KV head at S = 4096 in both dtypes; and
     deepseek-coder-33b's 56 / 8 heads at S = 4096."""
@@ -1337,23 +1370,40 @@ def _qkv(dtype, b: int, hq: int, hkv: int, s: int, d: int, gen, dev):
                  for h in (hq, hkv, hkv))
 
 
-def check_attention(dev) -> dict:
-    """K9 ``flash_attention`` against its plain version on the card."""
+def check_attention(dev, planted=None) -> dict:
+    """K9 ``flash_attention`` against its plain version on the card; on
+    each f32 case also the copies of the f32 kernel with a planted fault
+    (``planted``, from build_planted_k9, built here if not given), each of
+    which must fail at least one f32 case."""
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.kernel import flash_attention
 
+    planted = planted or build_planted_k9()
     gen = torch.Generator(device=dev).manual_seed(4)
     cases = attention_cases()
-    worst = {}
+    worst, failed = {}, dict.fromkeys(planted, 0)
     for dtype, b, hq, hkv, s, d in cases:
         q, k, v = _qkv(dtype, b, hq, hkv, s, d, gen, dev)
         got = flash_attention(q, k, v)
         torch.cuda.synchronize()
         name = f"flash_attention {str(dtype)[6:]} B={b} Hq={hq} Hkv={hkv} S={s} D={d}"
-        err = compare_dense(name, got, ref.attention_ref(q, k, v), exact=False, tol=ATTN_TOL[dtype])
+        want = ref.attention_ref(q, k, v)
+        err = compare_dense(name, got, want, exact=False, tol=ATTN_TOL[dtype])
         worst[str(dtype)[6:]] = max(worst.get(str(dtype)[6:], 0.0), err)
         print(f"  ok  {name}  max_abs_err={err:.3g}")
-    print(f"flash_attention vs plain on the card: {len(cases)} cases, worst {worst}")
+        if dtype != torch.float32:
+            continue
+        for copy, attn in planted.items():
+            try:
+                compare_dense(f"{name}, {copy} copy", attn(q, k, v), want, exact=False,
+                              tol=ATTN_TOL[dtype])
+            except AssertionError as fault:
+                failed[copy] += 1
+                print(f"  ok  the {copy} copy of the f32 kernel fails: {fault}")
+    print(f"flash_attention vs plain on the card: {len(cases)} cases, worst {worst}; f32 cases "
+          f"failed by the planted copies: {failed}")
+    if not all(failed.values()):
+        raise AssertionError(f"a planted copy of the f32 kernel passed every f32 case: {failed}")
     return worst
 
 
@@ -1423,16 +1473,17 @@ def main(argv) -> int:
         planted_k3 = pool.submit(build_planted_k3)
         planted_k7 = pool.submit(build_planted_k7)
         planted_k6 = pool.submit(build_planted_k6)
+        planted_k9 = pool.submit(build_planted_k9)
         build_kernels()
-        planted, planted_k1, planted_k3, planted_k7, planted_k6 = (
+        planted, planted_k1, planted_k3, planted_k7, planted_k6, planted_k9 = (
             planted.result(), planted_k1.result(), planted_k3.result(), planted_k7.result(),
-            planted_k6.result())
+            planted_k6.result(), planted_k9.result())
     check_tensor_cores()
     check_kernels(dev, planted_k1)
     check_gathered(dev, planted_k3)
     check_quantized(dev, planted)
     check_dense(dev, planted_k7, planted_k6)
-    check_attention(dev)
+    check_attention(dev, planted_k9)
     from repro_torch.configs import ann_word2vec
 
     cell = ann_word2vec.ARCH.cell("ann_search")
@@ -1953,19 +2004,29 @@ def _attention_kernel(kdir: str, out_dir: str, edits=()):
     return attn
 
 
-def _attention_layers(dev) -> dict:
-    """{name: (q, k, v)}: random bf16 operands of each ATTENTION_LAYERS layer."""
+def _attention_layers(dev, f32: bool = False) -> dict:
+    """{name: (q, k, v)}: random bf16 operands of each ATTENTION_LAYERS layer;
+    with ``f32`` also phi3-mini's, widened to f32 (``F32_LAYER``)."""
     gen = torch.Generator(device=dev).manual_seed(5)
-    return {name: _qkv(torch.bfloat16, 1, hq, hkv, s, d, gen, dev)
-            for name, hq, hkv, s, d in ATTENTION_LAYERS}
+    layers = {name: _qkv(torch.bfloat16, 1, hq, hkv, s, d, gen, dev)
+              for name, hq, hkv, s, d in ATTENTION_LAYERS}
+    if f32:
+        layers[F32_LAYER] = tuple(x.float() for x in layers[ATTENTION_LAYERS[1][0]])
+    return layers
+
+
+def _layer_label(q, k) -> str:
+    return (f"{str(q.dtype)[6:]}, B={q.shape[0]}, Hq={q.shape[1]}, Hkv={k.shape[1]}, "
+            f"S={q.shape[2]}, D={q.shape[3]}")
 
 
 def pair_k9(dev, card: str, parent: str) -> None:
     """K9 of the tree ``parent`` (its own ``flash_attention.cu`` and C
     signature) and of this tree at both full-width layers (ATTENTION_LAYERS,
-    bf16), timed in turns (parent, this, this, parent; median of RUNS each),
-    their outputs held to each other under the bf16 row rule; and which
-    instances the two libraries share with identical SASS."""
+    bf16) and at phi3-mini's in f32, timed in turns (parent, this, this,
+    parent; median of RUNS each), their outputs held to each other under
+    the row rule of the dtype; and which instances the two libraries share
+    with identical SASS."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention
 
     pair_dir = os.path.join(ROOT, "build", "pair-k9")
@@ -1975,29 +2036,34 @@ def pair_k9(dev, card: str, parent: str) -> None:
         build_kernels(["flash_attention"])
         old = old.result()
     sass_pairing("flash_attention", os.path.join(pair_dir, "libflash_attention.so"))
-    for name, (q, k, v) in _attention_layers(dev).items():
+    for name, (q, k, v) in _attention_layers(dev, f32=True).items():
         err = compare_dense(f"K9 {name}: this tree vs the parent", flash_attention(q, k, v),
-                            old(q, k, v), exact=False, tol=ATTN_TOL[torch.bfloat16])
+                            old(q, k, v), exact=False, tol=ATTN_TOL[q.dtype])
         times = [cuda_ms(lambda i=i: (old if i in (0, 3) else flash_attention)(q, k, v))
                  for i in range(4)]
-        print(f"pairing K9 {name} (bf16, B=1, Hq={q.shape[1]}, Hkv={k.shape[1]}, "
-              f"S={q.shape[2]}, D={q.shape[3]}) on {card}: parent {times[0]:.3f} ms, this tree "
-              f"{times[1]:.3f} ms, this tree {times[2]:.3f} ms, parent {times[3]:.3f} ms; "
-              f"max |this - parent| {err:.3g}")
+        print(f"pairing K9 {name} ({_layer_label(q, k)}) on {card}: parent {times[0]:.3f} ms, "
+              f"this tree {times[1]:.3f} ms, this tree {times[2]:.3f} ms, parent "
+              f"{times[3]:.3f} ms; max |this - parent| {err:.3g}")
 
 
-# Copies of K9's bf16 kernel (flash_attention_bf16), each timed: without
+# Copies of K9's kernels (flash_attention_bf16 and flash_attention_tf32;
+# each edit changes both where both hold its text), each timed: without
 # the online softmax (P = S: no max, exponential or rescale; results wrong),
 # the loads alone (the cp.async ring, barriers and output, no products and
 # no softmax; results wrong), both also with 4 warps, and two variants whose
 # results are held to the plain version: a three-stage ring, and 4 warps
-# (64-row query tiles, the first design: twice the KV bytes from L2).
+# (64-row query tiles, the first design: twice the KV bytes from L2).  The
+# f32 kernel also without the fold (P V summed onto O by the tensor cores)
+# and with Q split once into registers, each also held to the plain version
+# (K9_F32_VARIANTS).
 K9_NO_SOFTMAX = ("    online_softmax(s, m, l, alpha, scale_log2);\n",
                  "    alpha[0] = alpha[1] = 1.f;\n")
 K9_NO_PRODUCTS = [("    for (int ks = 0; ks < Tl::kKSteps; ++ks) {\n",
                    "    for (int ks = 0; ks < 0; ++ks) {\n"),
                   ("    for (int kk = 0; kk < kMmaBK / 16; ++kk) {\n",
-                   "    for (int kk = 0; kk < 0; ++kk) {\n")]
+                   "    for (int kk = 0; kk < 0; ++kk) {\n"),
+                  ("    for (int j = 0; j < kKeyFrags; ++j) {\n      // P of keys 8 j",
+                   "    for (int j = 0; j < 0; ++j) {\n      // P of keys 8 j")]
 K9_ABLATIONS = {
     "without the softmax (P = S)": [K9_NO_SOFTMAX],
     "loads only": [K9_NO_SOFTMAX, *K9_NO_PRODUCTS],
@@ -2009,37 +2075,61 @@ K9_VARIANTS = {
 }
 K9_ABLATIONS.update({f"4 warps, {name.split(' (')[0]}": [K9_FOUR_WARPS, *edits]
                      for name, edits in list(K9_ABLATIONS.items())})
+K9_NO_FOLD = ("  static constexpr bool kFold = true;", "  static constexpr bool kFold = false;")
+K9_Q_REGS = ("  static constexpr bool kQRegs = false;", "  static constexpr bool kQRegs = true;")
+K9_F32_ABLATIONS = {name: K9_ABLATIONS[name] for name in ("without the softmax (P = S)",
+                                                             "loads only")}
+K9_F32_VARIANTS = {
+    "no fold (P V onto O)": [K9_NO_FOLD],
+    "Q split once into registers": [K9_Q_REGS],
+    "Q split once into registers, no fold": [K9_Q_REGS, K9_NO_FOLD],
+}
 
 
 def ablate_k9(dev, card: str) -> None:
     """K9's bf16 kernel at both full-width layers (ATTENTION_LAYERS) against
     copies with parts cut out (K9_ABLATIONS) and other shapes (K9_VARIANTS,
     held to the plain version under the bf16 row rule), timed in turns
-    (full, each copy, full)."""
+    (full, each copy, full); then its f32 kernel at phi3-mini's layer
+    against K9_F32_ABLATIONS, K9_VARIANTS (held to the plain version under
+    the f32 row rule) and K9_F32_VARIANTS (their largest error printed, and
+    whether they keep the row rule), each time beside the SM clock and power
+    draw it runs at (``clock_power``)."""
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.kernel import flash_attention
 
     kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
-    copies = {**K9_ABLATIONS, **K9_VARIANTS}
+    copies = {**K9_ABLATIONS, **K9_VARIANTS, **K9_F32_VARIANTS}
     with ThreadPoolExecutor() as pool:  # every copy's nvcc at once
         built = {name: pool.submit(_attention_kernel, kdir,
                                    os.path.join(ROOT, "build", "ablate-k9", str(j)), edits)
                  for j, (name, edits) in enumerate(copies.items())}
         build_kernels(["flash_attention"])
         cut = {name: fut.result() for name, fut in built.items()}
-    for name, (q, k, v) in _attention_layers(dev).items():
+    for name, (q, k, v) in _attention_layers(dev, f32=True).items():
+        f32 = q.dtype == torch.float32
         want = ref.attention_ref(q, k, v)
-        for variant in K9_VARIANTS:
-            err = compare_dense(f"K9 {name}, {variant}", cut[variant](q, k, v), want, exact=False,
-                                tol=ATTN_TOL[torch.bfloat16])
-            print(f"K9 {name}, {variant}: vs plain max_abs_err {err:.3g}")
+        for variant in [*K9_VARIANTS, *(K9_F32_VARIANTS if f32 else ())]:
+            got = cut[variant](q, k, v)
+            try:
+                err = compare_dense(f"K9 {name}, {variant}", got, want, exact=False,
+                                    tol=ATTN_TOL[q.dtype])
+                verdict = "within the row rule"
+            except AssertionError as fault:
+                if variant in K9_VARIANTS:
+                    raise
+                err, verdict = float((got - want).abs().max()), f"past the row rule: {fault}"
+            print(f"K9 {name}, {variant}: vs plain max_abs_err {err:.3g}, {verdict}")
+            del got
         del want
-        line = [f"full {cuda_ms(lambda: flash_attention(q, k, v)):.3f} ms"]
-        line += [f"{label} {cuda_ms(lambda fn=fn: fn(q, k, v)):.3f} ms"
-                 for label, fn in cut.items()]
-        line.append(f"full {cuda_ms(lambda: flash_attention(q, k, v)):.3f} ms")
-        print(f"K9 ablation, {name} (bf16, B=1, Hq={q.shape[1]}, Hkv={k.shape[1]}, "
-              f"S={q.shape[2]}, D={q.shape[3]}), on {card}: " + "; ".join(line))
+        labels = [*(K9_F32_ABLATIONS if f32 else K9_ABLATIONS), *K9_VARIANTS,
+                  *(K9_F32_VARIANTS if f32 else ())]
+        runs = [("full", lambda: flash_attention(q, k, v))]
+        runs += [(label, lambda fn=cut[label]: fn(q, k, v)) for label in labels]
+        runs.append(runs[0])
+        line = [f"{label} {cuda_ms(fn):.3f} ms" + (f" ({clock_power(fn)})" if f32 else "")
+                for label, fn in runs]
+        print(f"K9 ablation, {name} ({_layer_label(q, k)}), on {card}: " + "; ".join(line))
 
 
 def pair_k7(card: str, old, operands: dict) -> None:
@@ -2850,13 +2940,14 @@ def dense_bound_ms(q, docs, extra_bytes: int, ops_per_pair: float, kind: str):
     return _bound(nbytes, ops_per_pair * b * n * t, kind)
 
 
-def attention_bound_ms(q, k, v, kind: str):
+def attention_bound_ms(q, k, v, kind: str, passes: int = 1):
     """Bound of one causal attention call: q, k, v read once, the output
-    written once; 4 * D operations (two products) per unmasked (query, key)
-    pair, S (S + 1) / 2 of them per head."""
+    written once; ``passes`` x 4 * D operations (two products) per unmasked
+    (query, key) pair, S (S + 1) / 2 of them per head ("tf32" with 3 passes
+    for the f32 kernel's split TF32)."""
     b, hq, s, d = q.shape
     nbytes = 2 * q.numel() * q.element_size() + (k.numel() + v.numel()) * k.element_size()
-    return _bound(nbytes, 4.0 * b * hq * d * s * (s + 1) / 2, kind)
+    return _bound(nbytes, passes * 4.0 * b * hq * d * s * (s + 1) / 2, kind)
 
 
 # One attention layer of each model at its cell's sequence, batch cut to 1:
@@ -2864,6 +2955,7 @@ def attention_bound_ms(q, k, v, kind: str):
 # phi3_mini_3_8b}.py and the prefill_32k / train_4k cells.
 ATTENTION_LAYERS = (("deepseek-coder-33b prefill_32k", 56, 8, 32768, 128),
                     ("phi3-mini-3.8b train_4k", 32, 32, 4096, 96))
+F32_LAYER = f"{ATTENTION_LAYERS[1][0]}, f32"  # phi3-mini's layer in f32
 
 
 def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, config) -> list:
@@ -2896,7 +2988,7 @@ def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, conf
     sig_q = lexical_lsh.encode(qn, lidx.config)
     index = idx.index
     layers = _attention_layers(dev)
-    # K9 in f32 at phi3-mini's layer (the same operands, widened)
+    # K9 in f32 (split TF32) at phi3-mini's layer (the same operands, widened)
     f32_layer = ATTENTION_LAYERS[1]
     layers_f32 = tuple(t.float() for t in layers[f32_layer[0]])
     # The fused top-k kernels' answers to the same queries, for the checks.
@@ -3039,16 +3131,21 @@ def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, conf
         with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):  # where it cannot run
             return torch.nn.functional.scaled_dot_product_attention(q, kk, vv, is_causal=True)
 
+    # The f32 kernel runs split TF32, three tf32 products per f32 one: its
+    # row's bound is theirs, and the f32 FMAs of the plain products (the
+    # bound of the CUDA-core design it replaced) stand beside it.
     name, hq, hkv, s, d = f32_layer
     q, kk, vv = layers_f32
-    entry(f"flash_attention/f32 ({name}, f32, B=1, Hq={hq}, Hkv={hkv}, S={s}, D={d})",
+    fma = attention_bound_ms(q, kk, vv, "f32")
+    entry(f"flash_attention/f32 ({name}, f32, split TF32, B=1, Hq={hq}, Hkv={hkv}, S={s}, D={d})",
           lambda: flash_attention(q, kk, vv), lambda: fa_ref.attention_ref(q, kk, vv),
           lambda: sdpa_efficient(q, kk, vv),
           "scaled_dot_product_attention(is_causal=True), backend that ran: "
           f"{SDPBackend.EFFICIENT_ATTENTION.name} (f32)",
-          attention_bound_ms(q, kk, vv, "f32"), counts["flash_attention"], False,
+          attention_bound_ms(q, kk, vv, "tf32", passes=3), counts["flash_attention"], False,
           "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-          "src/repro/kernels/flash_attention/kernel.py:74", tol=ATTN_TOL[torch.float32])
+          "src/repro/kernels/flash_attention/kernel.py:74", tol=ATTN_TOL[torch.float32],
+          note=f"; f32-FMA bound {fma[0]:.3f} ms ({fma[1]})")
     print(f"times on {card}")
     return kernels
 

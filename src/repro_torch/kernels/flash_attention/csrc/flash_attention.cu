@@ -68,19 +68,52 @@
 // tile through ldmatrix), TMA copies with mbarriers in place of the cp.async
 // ring, and a producer warp so that softmax, copies and products overlap.
 //
-// f32 (flash_attention_fwd<D, float>): the CUDA-core design of the first
-// port, kept as it was (its tolerance, 1e-4 of a row, leaves no room for a
-// bf16 P; split TF32 is queued).  One block of 256 threads per (query head,
-// batch, 64-row query tile), in the same grid order.  The query tile sits in
-// shared memory as f32; 32-key tiles of K and V stream through shared
-// memory, and tiles wholly above the diagonal are never read.  Thread (ty,
-// tx) of a 16 x 16 grid owns query rows 4 ty .. 4 ty + 3: it computes their
-// logits against keys tx and tx + 16 of the tile, keeps their running (m, l)
-// (the 16 threads of a row reduce with shuffles) and their output columns tx
-// + 16 c, c < D / 16, in registers.  The probabilities pass through shared
-// memory to the P V product.  Rows of the query and key tiles are D + 1
-// words apart in shared memory, so the column reads of the logit product
-// are free of bank conflicts.
+// f32 (flash_attention_tf32<D>, D in {32, 64, 96, 128}): the same block
+// shape, grid order, ring, masking and online softmax on mma.sync m16n8k8
+// tf32 -> f32 (HMMA on TF32 operands), as split TF32.  f32 attention's 1e-4
+// row rule leaves no room for one tf32 rounding (10 fraction bits) of an
+// operand, so each f32 operand x is split by bit masks into hi, x cut to
+// tf32, and lo, the remainder cut to tf32, and a product is three tf32
+// products: a hi x b lo, a lo x b hi, a hi x b hi (small terms first; lo x
+// lo, ~2^-22 of it, is left out), as in K6 and K1 f32.
+//   Bound at phi3-mini's f32 layer (Hq = Hkv = 32, D 96, S 4,096, B 1):
+//   3 x 1.03e11 tf32 operations, 0.625 ms at the TF32 rate of wgmma (495
+//   TFLOP/s; mma.sync reaches less), far above the 0.06 ms of its bytes;
+//   the plain product's f32 FMAs alone would take 1.539 ms at 67 TFLOP/s.
+//   * Staged rows are D + 4 floats apart (16 bytes past a multiple of 128),
+//     so the eight rows an ldmatrix phase reads fall on distinct banks.  A
+//     tf32 m16n8k8 fragment sits at the bytes of a bf16 m16n8k16 one, so
+//     Q's A fragments and K's B fragments come by plain ldmatrix.  The ring
+//     takes 2 x 2 x 64 x (D + 4) floats (102 KB at D 96).  Q has a 128-row
+//     region of its own beside the ring and is read by ldmatrix and split
+//     at each k-step of every tile (kQRegs false): held split in registers
+//     for the whole block it takes D registers a thread beside O, the
+//     fold's sums and the logits, and spilled at D 96 and 128 (PERF.md).
+//   * S = Q K^T: a k-step (8 columns) is three mma a key fragment, q hi x k
+//     lo, q lo x k hi, q hi x k hi, with K's fragments split after ldmatrix.
+//   * P V with P in registers, by a permutation of the keys: the tf32 A
+//     fragment wants row r at k-columns t and t + 4 (t = lane % 4), and an
+//     8-key fragment's logits hold keys 2t and 2t + 1 of rows r and r + 8
+//     (c0..c3), so A = {c0, c2, c1, c3}, k-column t read as key 2t and t +
+//     4 as key 2t + 1.  V's B fragment follows: b0 = V[2t][n], b1 = V[2t +
+//     1][n].  ldmatrix.trans cannot transpose 32-bit elements, so V comes
+//     by 16-byte shared loads, which permute O's columns too: column n (=
+//     lane / 4) of O's fragment 4 c + i is column 32 c + 4 n + i, so one
+//     load of V[2t][32 c + 4 n ..] holds b0 of four fragments, and a thread
+//     ends with eight adjacent columns of each of its rows (two 16-byte
+//     stores).  (D + 4) % 32 = 4, so a quarter warp's loads fall on
+//     distinct banks.  P and V are split as Q and K: three mma a (key
+//     fragment, O fragment), p hi x v lo, p lo x v hi, p hi x v hi.  l is
+//     the sum of the f32 probabilities, as for bf16.
+//   * The fold (kFold): a tile's P V is summed from zero in a second set of
+//     D / 2 accumulators and added into O with the rescale that happens
+//     anyway, o = fmaf(o, alpha, tile), so that the tensor cores' own
+//     running sums span 24 products and not all 3 S / 8 of the row's:
+//     without it the worst row at phi3-mini's layer came within 2x of the
+//     1e-4 row rule (PERF.md), as K4's and K6's sums drifted.
+// Left for f32 besides wgmma and TMA: every warp splits the whole K and V
+// tile again; a split once at staging into hi and lo planes would double
+// the ring.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,138 +124,10 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBQ = 64;       // query rows per block
-constexpr int kBK = 32;       // keys per KV tile
-constexpr int kRows = 4;      // query rows per thread
-constexpr int kPStride = kBK + 1;
 constexpr float kMasked = -1e30f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void from_f32(float x, float* dst) { *dst = x; }
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)kBQ * (D + 1) + (size_t)kBK * (D + 1) + (size_t)kBK * D +
-                          (size_t)kBQ * kPStride);
-}
-
-// Rows [r0, r0 + n) of a head's (S, D) matrix into shared memory as f32,
-// row stride `stride`; rows past S read as 0.
-template <int D, typename T>
-__device__ __forceinline__ void load_rows(float* dst, int stride, const T* __restrict__ src,
-                                          int r0, int n, int S) {
-  for (int e = threadIdx.x; e < n * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    dst[r * stride + c] = r0 + r < S ? to_f32(src[(size_t)(r0 + r) * D + c]) : 0.f;
-  }
-}
-
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads, 2) flash_attention_fwd(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out, int Hq, int Hkv, int S, float scale) {
-  constexpr int kDS = D + 1;
-  constexpr int kCols = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;              // kBQ x kDS
-  float* ks = qs + kBQ * kDS;    // kBK x kDS
-  float* vs = ks + kBK * kDS;    // kBK x D
-  float* ps = vs + kBK * D;      // kBQ x kPStride
-
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBQ;  // the longest rows first
-  const int h = blockIdx.x, b = blockIdx.y, hk = h / (Hq / Hkv);
-  const size_t q_head = ((size_t)b * Hq + h) * S * D;
-  const size_t kv_head = ((size_t)b * Hkv + hk) * S * D;
-
-  load_rows<D>(qs, kDS, q + q_head, q0, kBQ, S);
-
-  float m[kRows], l[kRows], acc[kRows][kCols];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kMasked;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
-  }
-
-  const int last_row = min(q0 + kBQ, S) - 1;
-  const int n_tiles = last_row / kBK + 1;  // tiles wholly above the diagonal are skipped
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    load_rows<D>(ks, kDS, k + kv_head, k0, kBK, S);
-    load_rows<D>(vs, D, v + kv_head, k0, kBK, S);
-    __syncthreads();
-
-    float s[kRows][2];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) s[i][0] = s[i][1] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float b0 = ks[tx * kDS + d], b1 = ks[(tx + 16) * kDS + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float a = qs[(kRows * ty + i) * kDS + d];
-        s[i][0] = fmaf(a, b0, s[i][0]);
-        s[i][1] = fmaf(a, b1, s[i][1]);
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = q0 + kRows * ty + i;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = k0 + tx + 16 * j;
-        s[i][j] = (key <= row && key < S) ? scale * s[i][j] : kMasked;
-      }
-      float mx = fmaxf(s[i][0], s[i][1]);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float p0 = expf(s[i][0] - m_new), p1 = expf(s[i][1] - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(kFull, sum, off);
-      const float alpha = expf(m[i] - m_new);
-      l[i] = alpha * l[i] + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= alpha;
-      ps[(kRows * ty + i) * kPStride + tx] = p0;
-      ps[(kRows * ty + i) * kPStride + tx + 16] = p1;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float vv[kCols];
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) vv[c] = vs[kk * D + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = ps[(kRows * ty + i) * kPStride + kk];
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = q0 + kRows * ty + i;
-    if (row >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + q_head + (size_t)row * D;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) from_f32(acc[i][c] / denom, o + tx + 16 * c);
-  }
-}
-
-// ---- bf16: tensor cores ----------------------------------------------------
+// ---- the block shape of both dtypes ----------------------------------------
 
 constexpr int kMmaWarps = 8;
 constexpr int kMmaThreads = 32 * kMmaWarps;
@@ -234,12 +139,36 @@ static_assert(kMmaBQ <= 2 * kMmaBK, "Q's staging fits in a stage");
 
 template <int D>
 struct Bf16Tile {
+  using Elem = uint16_t;
+  static constexpr int kCols = D;
   static constexpr int kStride = D + 8;    // staged row stride in bf16 (2 D + 16 bytes)
   static constexpr int kPacks = D / 8;     // 16-byte packs of a row
   static constexpr int kKSteps = D / 16;   // k-steps of Q K^T
   static constexpr int kDFrags = D / 8;    // n8 fragments of O
   static constexpr int kElems = kMmaBK * kStride;  // one staged K or V tile
   static constexpr size_t kSmem = sizeof(uint16_t) * 2 * kStages * kElems;
+  static_assert(kPacks * kMmaBK % kMmaThreads == 0, "whole copy rounds");
+  static_assert(kPacks * kMmaBQ % kMmaThreads == 0, "whole copy rounds");
+};
+
+// f32 tiles for split TF32.  kFold: each tile's P V summed from zero and
+// folded into O; kQRegs: Q split once into registers for the whole block
+// (staged in the last stage), else re-read from a region of its own.
+template <int D>
+struct Tf32Tile {
+  using Elem = float;
+  static constexpr int kCols = D;
+  static constexpr int kStride = D + 4;    // staged row stride in floats (4 D + 16 bytes)
+  static constexpr int kPacks = D / 4;     // 16-byte packs of a row
+  static constexpr int kKSteps = D / 8;    // k-steps of Q K^T
+  static constexpr int kDFrags = D / 8;    // n8 fragments of O
+  static constexpr int kDGroups = D / 32;  // four O fragments a 16-byte load of V
+  static constexpr int kElems = kMmaBK * kStride;  // one staged K or V tile
+  static constexpr bool kFold = true;
+  static constexpr bool kQRegs = false;
+  static constexpr size_t kSmem =
+      sizeof(float) * (2 * kStages * kElems + (kQRegs ? 0 : kMmaBQ * kStride));
+  static_assert(D % 32 == 0, "whole 32-column groups of O");
   static_assert(kPacks * kMmaBK % kMmaThreads == 0, "whole copy rounds");
   static_assert(kPacks * kMmaBQ % kMmaThreads == 0, "whole copy rounds");
 };
@@ -265,18 +194,21 @@ __device__ __forceinline__ void split_bf16(float a, float b, unsigned& hi, unsig
   lo = pack_bf16(a - __uint_as_float(hi << 16), b - __uint_as_float(hi & 0xFFFF0000u));
 }
 
-// Rows [r0, r0 + ROWS) of a head's (S, D) bf16 matrix into staged rows by
-// 16-byte cp.async; rows past S are zero-filled and read nothing.
-template <int D, int ROWS = kMmaBK>
-__device__ __forceinline__ void copy_tile(uint16_t* dst, const uint16_t* __restrict__ src, int r0,
+// Rows [r0, r0 + ROWS) of a head's (S, D) matrix into staged rows of the
+// tile Tl (bf16 or f32) by 16-byte cp.async; rows past S are zero-filled and
+// read nothing.
+template <class Tl, int ROWS = kMmaBK>
+__device__ __forceinline__ void copy_tile(typename Tl::Elem* dst,
+                                          const typename Tl::Elem* __restrict__ src, int r0,
                                           int S) {
-  using Tl = Bf16Tile<D>;
+  constexpr int kPerPack = 16 / sizeof(typename Tl::Elem);
 #pragma unroll
   for (int j = 0; j < Tl::kPacks * ROWS / kMmaThreads; ++j) {
     const int i = j * kMmaThreads + threadIdx.x;
-    const int r = i / Tl::kPacks, c = 8 * (i % Tl::kPacks);
+    const int r = i / Tl::kPacks, c = kPerPack * (i % Tl::kPacks);
     const bool ok = r0 + r < S;
-    cp_async16(dst + r * Tl::kStride + c, src + (ok ? (size_t)(r0 + r) * D + c : 0), ok ? 16 : 0);
+    cp_async16(dst + r * Tl::kStride + c,
+               src + (ok ? (size_t)(r0 + r) * Tl::kCols + c : 0), ok ? 16 : 0);
   }
 }
 
@@ -330,12 +262,12 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_bf16(
   // Q (in the last stage) and the first kStages - 1 KV tiles, a copy group
   // each.
   uint16_t* qs = staged + 2 * (kStages - 1) * Tl::kElems;
-  copy_tile<D, kMmaBQ>(qs, q + q_head, q0, S);
+  copy_tile<Tl, kMmaBQ>(qs, q + q_head, q0, S);
 #pragma unroll
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_tiles) {
-      copy_tile<D>(staged + 2 * t * Tl::kElems, kh, t * kMmaBK, S);
-      copy_tile<D>(staged + (2 * t + 1) * Tl::kElems, vh, t * kMmaBK, S);
+      copy_tile<Tl>(staged + 2 * t * Tl::kElems, kh, t * kMmaBK, S);
+      copy_tile<Tl>(staged + (2 * t + 1) * Tl::kElems, vh, t * kMmaBK, S);
     }
     cp_async_commit();
   }
@@ -361,8 +293,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_bf16(
     __syncthreads();  // tile t is in; every warp is done with tile t - 1's stage (or Q)
     if (t + kStages - 1 < n_tiles) {
       const int st = (t + kStages - 1) % kStages;
-      copy_tile<D>(staged + 2 * st * Tl::kElems, kh, (t + kStages - 1) * kMmaBK, S);
-      copy_tile<D>(staged + (2 * st + 1) * Tl::kElems, vh, (t + kStages - 1) * kMmaBK, S);
+      copy_tile<Tl>(staged + 2 * st * Tl::kElems, kh, (t + kStages - 1) * kMmaBK, S);
+      copy_tile<Tl>(staged + (2 * st + 1) * Tl::kElems, vh, (t + kStages - 1) * kMmaBK, S);
     }
     cp_async_commit();
     const unsigned ks_addr = smem_addr(staged + 2 * (t % kStages) * Tl::kElems + k_lane);
@@ -435,19 +367,181 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_bf16(
   }
 }
 
-template <int D, typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Hq, int Hkv,
-                   int S, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_attention_fwd<D, T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(Hq, B, (S + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), Hq, Hkv, S, 1.0f / sqrtf((float)D));
-  return cudaGetLastError();
+// x (N registers of f32) split in place into tf32 hi (x's top 19 bits) and
+// lo (the remainder, exact in f32, cut to tf32): hi + lo is x to ~2^-22.
+template <int N>
+__device__ __forceinline__ void split_tf32(unsigned (&hi)[N], unsigned (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float x = __uint_as_float(hi[i]);
+    hi[i] &= kTf32Bits;
+    lo[i] = __float_as_uint(x - __uint_as_float(hi[i])) & kTf32Bits;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads) flash_attention_tf32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, int Hq, int Hkv, int S, float scale_log2) {
+  using Tl = Tf32Tile<D>;
+  extern __shared__ __align__(16) float staged_f32[];  // kStages x (K tile, V tile), then Q
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kMmaBQ;  // the longest rows first
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (Hq / Hkv);
+  const size_t q_head = ((size_t)b * Hq + h) * S * D;
+  const float* kh = k + ((size_t)b * Hkv + hk) * S * D;
+  const float* vh = v + ((size_t)b * Hkv + hk) * S * D;
+  const int n_tiles = (min(q0 + kMmaBQ, S) - 1) / kMmaBK + 1;  // none wholly above the diagonal
+  const int n_unmasked = q0 / kMmaBK;  // tiles whose every key precedes every row
+
+  // Q and the first kStages - 1 KV tiles, a copy group each (Q in the first).
+  float* qs = staged_f32 + 2 * (Tl::kQRegs ? kStages - 1 : kStages) * Tl::kElems;
+  copy_tile<Tl, kMmaBQ>(qs, q + q_head, q0, S);
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) {
+      copy_tile<Tl>(staged_f32 + 2 * t * Tl::kElems, kh, t * kMmaBK, S);
+      copy_tile<Tl>(staged_f32 + (2 * t + 1) * Tl::kElems, vh, t * kMmaBK, S);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<kStages - 2>();
+  __syncthreads();
+  // ldmatrix lane offsets: Q (rows on M) row lane % 16, column 4 (lane / 16);
+  // K (keys on N) key lane % 8 + 8 (lane / 16), column 4 ((lane / 8) % 2).
+  // V by 16-byte loads: key 2 (lane % 4), column 4 (lane / 4).
+  const unsigned q_addr =
+      smem_addr(qs + (16 * warp + (lane & 15)) * Tl::kStride + 4 * (lane >> 4));
+  const int k_lane = ((lane & 7) + 8 * (lane >> 4)) * Tl::kStride + 4 * ((lane >> 3) & 1);
+  const int v_lane = 2 * (lane & 3) * Tl::kStride + 4 * (lane >> 2);
+  const int row0 = q0 + 16 * warp + (lane >> 2);  // rows row0 and row0 + 8
+  unsigned qf_hi[Tl::kQRegs ? Tl::kKSteps : 1][4], qf_lo[Tl::kQRegs ? Tl::kKSteps : 1][4];
+  if constexpr (Tl::kQRegs) {  // Q's A fragments, split once
+#pragma unroll
+    for (int kq = 0; kq < Tl::kKSteps; ++kq) {
+      ldmatrix_x4(qf_hi[kq], q_addr + 4 * 8 * kq);
+      split_tf32(qf_hi[kq], qf_lo[kq]);
+    }
+  }
+
+  float o[Tl::kDFrags][4], m[2] = {kMasked, kMasked}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < Tl::kDFrags; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1's stage (or Q)
+    if (t + kStages - 1 < n_tiles) {
+      const int st = (t + kStages - 1) % kStages;
+      copy_tile<Tl>(staged_f32 + 2 * st * Tl::kElems, kh, (t + kStages - 1) * kMmaBK, S);
+      copy_tile<Tl>(staged_f32 + (2 * st + 1) * Tl::kElems, vh, (t + kStages - 1) * kMmaBK, S);
+    }
+    cp_async_commit();
+    const unsigned ks_addr = smem_addr(staged_f32 + 2 * (t % kStages) * Tl::kElems + k_lane);
+    const float* vs = staged_f32 + (2 * (t % kStages) + 1) * Tl::kElems + v_lane;
+
+    float s[kKeyFrags][4];
+#pragma unroll
+    for (int j = 0; j < kKeyFrags; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < Tl::kKSteps; ++ks) {
+      unsigned q_hi[4], q_lo[4];  // Q's A fragment of the k-step
+      if constexpr (Tl::kQRegs) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) q_hi[i] = qf_hi[ks][i], q_lo[i] = qf_lo[ks][i];
+      } else {
+        ldmatrix_x4(q_hi, q_addr + 4 * 8 * ks);
+        split_tf32(q_hi, q_lo);
+      }
+#pragma unroll
+      for (int j = 0; j < kKeyFrags; j += 2) {
+        unsigned kb[4], kl[4];  // b0, b1 of key fragments j and j + 1: hi, then lo
+        ldmatrix_x4(kb, ks_addr + 4 * (8 * j * Tl::kStride + 8 * ks));
+        split_tf32(kb, kl);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          mma_tf32(s[j + u], q_hi, kl[2 * u], kl[2 * u + 1]);  // q hi x k lo
+          mma_tf32(s[j + u], q_lo, kb[2 * u], kb[2 * u + 1]);  // q lo x k hi
+          mma_tf32(s[j + u], q_hi, kb[2 * u], kb[2 * u + 1]);  // q hi x k hi
+        }
+      }
+    }
+    if (t >= n_unmasked) {  // a tile across the diagonal: keys past the row are masked
+#pragma unroll
+      for (int j = 0; j < kKeyFrags; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (t * kMmaBK + 8 * j + 2 * (lane & 3) + (e & 1) > row0 + 8 * (e >> 1))
+            s[j][e] = kMasked;
+    }
+
+    float alpha[2];
+    online_softmax(s, m, l, alpha, scale_log2);
+    float pv[Tl::kDFrags][4];  // with the fold: this tile's P V
+    float(&acc)[Tl::kDFrags][4] = Tl::kFold ? pv : o;
+#pragma unroll
+    for (int j = 0; j < Tl::kDFrags; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (Tl::kFold) pv[j][e] = 0.f;
+        else o[j][e] *= alpha[e >> 1];
+      }
+
+#pragma unroll
+    for (int j = 0; j < kKeyFrags; ++j) {
+      // P of keys 8 j .. 8 j + 7 as an A fragment: k-column t is key 2t,
+      // t + 4 is key 2t + 1.
+      unsigned p_hi[4] = {__float_as_uint(s[j][0]), __float_as_uint(s[j][2]),
+                          __float_as_uint(s[j][1]), __float_as_uint(s[j][3])};
+      unsigned p_lo[4];
+      split_tf32(p_hi, p_lo);
+#pragma unroll
+      for (int c = 0; c < Tl::kDGroups; ++c) {
+        // b0 (key 2t) and b1 (key 2t + 1) of O's fragments 4 c .. 4 c + 3
+        const float4 x0 = *reinterpret_cast<const float4*>(vs + 8 * j * Tl::kStride + 32 * c);
+        const float4 x1 =
+            *reinterpret_cast<const float4*>(vs + (8 * j + 1) * Tl::kStride + 32 * c);
+        unsigned v0[4] = {__float_as_uint(x0.x), __float_as_uint(x0.y), __float_as_uint(x0.z),
+                          __float_as_uint(x0.w)};
+        unsigned v1[4] = {__float_as_uint(x1.x), __float_as_uint(x1.y), __float_as_uint(x1.z),
+                          __float_as_uint(x1.w)};
+        unsigned l0[4], l1[4];
+        split_tf32(v0, l0);
+        split_tf32(v1, l1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          mma_tf32(acc[4 * c + i], p_hi, l0[i], l1[i]);  // p hi x v lo
+          mma_tf32(acc[4 * c + i], p_lo, v0[i], v1[i]);  // p lo x v hi
+          mma_tf32(acc[4 * c + i], p_hi, v0[i], v1[i]);  // p hi x v hi
+        }
+      }
+    }
+    if (Tl::kFold) {
+#pragma unroll
+      for (int j = 0; j < Tl::kDFrags; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j][e] = fmaf(o[j][e], alpha[e >> 1], pv[j][e]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float denom = fmaxf(l[r], 1e-30f);
+    // columns 32 c + 8 t + 4 hh + i (t = lane % 4) are element 2 r + hh of
+    // O's fragment 4 c + i
+    float* dst = out + q_head + (size_t)row * D + 8 * (lane & 3);
+#pragma unroll
+    for (int c = 0; c < Tl::kDGroups; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float4*>(dst + 32 * c + 4 * hh) =
+            make_float4(o[4 * c][2 * r + hh] / denom, o[4 * c + 1][2 * r + hh] / denom,
+                        o[4 * c + 2][2 * r + hh] / denom, o[4 * c + 3][2 * r + hh] / denom);
+  }
 }
 
 template <int D>
@@ -466,13 +560,28 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
   return cudaGetLastError();
 }
 
+template <int D>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* out, int B, int Hq,
+                        int Hkv, int S, cudaStream_t stream) {
+  constexpr size_t smem = Tf32Tile<D>::kSmem;
+  auto kernel = flash_attention_tf32<D>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hq, B, (S + kMmaBQ - 1) / kMmaBQ);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), Hq, Hkv, S, (float)(1.4426950408889634 / sqrt((double)D)));
+  return cudaGetLastError();
+}
+
 cudaError_t launch_d(int dtype, int D, const void* q, const void* k, const void* v, void* out,
                      int B, int Hq, int Hkv, int S, cudaStream_t stream) {
   switch (dtype * 1000 + D) {
-    case 32: return launch<32, float>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 64: return launch<64, float>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 96: return launch<96, float>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 128: return launch<128, float>(q, k, v, out, B, Hq, Hkv, S, stream);
+    case 32: return launch_tf32<32>(q, k, v, out, B, Hq, Hkv, S, stream);
+    case 64: return launch_tf32<64>(q, k, v, out, B, Hq, Hkv, S, stream);
+    case 96: return launch_tf32<96>(q, k, v, out, B, Hq, Hkv, S, stream);
+    case 128: return launch_tf32<128>(q, k, v, out, B, Hq, Hkv, S, stream);
     case 1032: return launch_bf16<32>(q, k, v, out, B, Hq, Hkv, S, stream);
     case 1064: return launch_bf16<64>(q, k, v, out, B, Hq, Hkv, S, stream);
     case 1096: return launch_bf16<96>(q, k, v, out, B, Hq, Hkv, S, stream);
@@ -485,14 +594,15 @@ cudaError_t launch_d(int dtype, int D, const void* q, const void* k, const void*
 
 extern "C" {
 
-// dtype 0: f32, 1: bf16.  The bf16 instances copy 16-byte packs: q, k and
-// v must start on 16 bytes (the wrapper's tensors do).
+// dtype 0: f32, 1: bf16.  Both kernels copy 16-byte packs and write the
+// output by 16-byte (f32) or 4-byte (bf16) stores: q, k, v and out must
+// start on 16 bytes (the wrapper copies operands that do not).
 int flash_attention_launch(int dtype, int D, const void* q, const void* k, const void* v,
                            void* out, int B, int Hq, int Hkv, int S, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || Hq % Hkv != 0 || B > 65535 ||
-      (S + kBQ - 1) / kBQ > 65535 || (dtype != 0 && dtype != 1))
+      (S + kMmaBQ - 1) / kMmaBQ > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
     return (int)cudaErrorMisalignedAddress;
   return (int)launch_d(dtype, D, q, k, v, out, B, Hq, Hkv, S, static_cast<cudaStream_t>(stream));
 }

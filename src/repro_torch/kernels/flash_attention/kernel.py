@@ -1,6 +1,8 @@
 """Wrapper of the causal GQA flash-attention kernel (K9):
 :func:`flash_attention` replaces ``repro/kernels/flash_attention/kernel.py::
-flash_attention``, in ``csrc/flash_attention.cu``.
+flash_attention``, in ``csrc/flash_attention.cu``: ``flash_attention_bf16``
+(bf16 products on tensor cores) and ``flash_attention_tf32`` (f32 as split
+TF32 on tensor cores, three tf32 products a product).
 
 Routing follows the tensors' device: on the CPU the plain version
 (:mod:`.ref`) runs; on one CUDA device the kernel launches on the current
@@ -31,8 +33,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """Causal GQA attention, forward only: q (B, Hq, S, D), k and v
     (B, Hkv, S, D), Hq a multiple of Hkv; query head h reads KV head
     h // (Hq // Hkv).  Returns (B, Hq, S, D) in q's dtype; statistics and
-    products are f32.  The kernel takes f32 or bf16 and D in
-    :data:`HEAD_DIMS`; on the CPU the plain version takes any D and dtype."""
+    products are f32 (bf16 operands multiply exactly; f32 ones as split
+    TF32, to ~2^-22 of each product).  The kernel takes f32 or bf16 and D
+    in :data:`HEAD_DIMS`, and copies 16-byte packs: an operand whose data
+    does not start on 16 bytes is copied first.  On the CPU the plain
+    version takes any D and dtype."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"want q (B, Hq, S, D), k and v (B, Hkv, S, D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -51,8 +56,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
         raise ValueError(f"head dim {d} is not one of {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
-    if q.dtype == torch.bfloat16:  # the bf16 kernel copies 16-byte packs
-        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
+    q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
     out = torch.empty_like(q)
     common.launch(_lib(), "flash_attention_launch", q.device, _DTYPES[q.dtype], d, q.data_ptr(),
                   k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv, s)

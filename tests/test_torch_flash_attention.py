@@ -7,14 +7,18 @@ The same numpy inputs go to both packages.  The port runs its CPU route
 within 1e-4, bf16 outputs within 1e-2, both relative to each output row's
 scale (rtol = tol, atol = tol x the largest |output| of the row).
 Interpret-mode JAX attention is slow, so S stays at most 256.  The bf16
-kernel's arithmetic (64-key tiles, P split into two bf16 parts) is emulated
-here (``torch_parity.flash_bf16_emulation``) and held to both packages.
+kernel's arithmetic (64-key tiles, P split into two bf16 parts) and the f32
+kernel's (split TF32: three tf32 products for each product of Q K^T and of
+P V, each tile's P V folded into the output) are emulated here
+(``torch_parity.flash_bf16_emulation``, ``flash_tf32x3_emulation``) and
+held to both packages.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_rows_close, flash_bf16_emulation, to_torch
+from torch_parity import (assert_rows_close, flash_bf16_emulation, flash_tf32x3_emulation,
+                          to_torch)
 
 from repro.kernels.flash_attention.kernel import flash_attention as jflash_attention
 from repro.kernels.flash_attention.ops import causal_attention as jcausal_attention
@@ -132,3 +136,32 @@ def test_bf16_p_needs_its_low_part():
     assert_rows_close(flash_bf16_emulation(q, k, v), want, TOL["bf16"])
     with pytest.raises(AssertionError, match="rows' error norms"):
         assert_rows_close(flash_bf16_emulation(q, k, v, p="bf16"), want, TOL["bf16"])
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (7, 1)])  # MHA; GQA group 7
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("s", [130, 256])
+def test_tf32_kernel_arithmetic_matches_jax(s, d, hq, hkv):
+    """The f32 kernel's arithmetic, emulated (q, k, p and v split into tf32
+    hi and lo parts, three tf32 products a k-step of Q K^T and a key step of
+    P V, an online softmax over 64-key tiles with the -1e30 mask, each
+    tile's P V folded into the output), against JAX's Pallas kernel and
+    reference under the f32 row rule."""
+    jq, jk, jv = _qkv(1, hq, hkv, s, d, "f32", seed=7 * s + d + hq)
+    got = flash_tf32x3_emulation(to_torch(jq), to_torch(jk), to_torch(jv))
+    assert got.dtype == torch.float32 and got.shape == (1, hq, s, d)
+    assert_rows_close(got, jflash_attention(jq, jk, jv, interpret=True), TOL["f32"])
+    assert_rows_close(got, jattention_ref(jq, jk, jv), TOL["f32"])
+
+
+@pytest.mark.parametrize("dropped", ["k_lo", "p_lo"])
+def test_tf32_kernel_needs_each_low_part(dropped):
+    """Why each operand is split: without q hi x k lo (K cut to tf32) or
+    without p lo x v hi (P cut to tf32) the emulated f32 kernel moves whole
+    rows past the f32 row rule's 1e-4 / 2 of their norm against the port's
+    plain version, where the full split passes."""
+    q, k, v = (to_torch(a) for a in _qkv(1, 4, 1, 256, 64, "f32", seed=2))
+    want = ref.attention_ref(q, k, v)
+    assert_rows_close(flash_tf32x3_emulation(q, k, v), want, TOL["f32"])
+    with pytest.raises(AssertionError, match="past"):
+        assert_rows_close(flash_tf32x3_emulation(q, k, v, **{dropped: False}), want, TOL["f32"])

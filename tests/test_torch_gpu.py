@@ -676,31 +676,54 @@ def test_cuda_flash_attention_takes_bf16_operands_off_16_bytes():
     assert torch.equal(got, want)
 
 
-# Faults planted in copies of the bf16 attention kernel (flash_attention_bf16)
-# that only rows past 2,048 see (the 128-row blocks with more than 32 KV
-# tiles of 64 keys): one KV tile skipped, one rescale of the running output
-# left out, the denominator 3% off.  Each changes a late row by much less
-# than the largest |output|, which sits in the first rows.
+@pytest.mark.gpu
+def test_cuda_flash_attention_takes_f32_operands_off_16_bytes():
+    """The f32 kernel copies 16-byte packs too; operands whose data start 4
+    bytes past that are copied first, and the output is the same."""
+    from repro_torch.kernels.flash_attention import kernel
+
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(12)
+    n = 4 * 130 * 96
+    flat = torch.randn(3 * n + 1, generator=g, device=dev)
+    q, k, v = (flat[1 + i * n:1 + (i + 1) * n].view(1, 4, 130, 96) for i in range(3))
+    assert q.data_ptr() % 16 == 4 and q.is_contiguous()
+    got = kernel.flash_attention(q, k, v)
+    want = kernel.flash_attention(q.clone(), k.clone(), v.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+# Faults planted in copies of both attention kernels (flash_attention_bf16
+# and flash_attention_tf32; each fault's edits hit each kernel once) that
+# only rows past 2,048 see (the 128-row blocks with more than 32 KV tiles of
+# 64 keys): one KV tile skipped, one rescale of the running output left out
+# (the f32 kernel rescales in its fold), the denominator 3% off.  Each
+# changes a late row by much less than the largest |output|, which sits in
+# the first rows.
 ATTENTION_FAULTS = {
-    "skip_middle_kv_tile": (
+    "skip_middle_kv_tile": [(
         "    float s[kKeyFrags][4];\n",
-        "    if (n_tiles > 32 && t == n_tiles / 2) continue;\n    float s[kKeyFrags][4];\n"),
-    "skip_one_rescale": (
-        "        o[j][e] *= alpha[e >> 1];\n",
-        "        o[j][e] *= (n_tiles > 32 && t == n_tiles / 2) ? 1.f : alpha[e >> 1];\n"),
-    "denominator_3pct_off": (
+        "    if (n_tiles > 32 && t == n_tiles / 2) continue;\n    float s[kKeyFrags][4];\n")],
+    "skip_one_rescale": [
+        ("        o[j][e] *= alpha[e >> 1];\n",
+         "        o[j][e] *= (n_tiles > 32 && t == n_tiles / 2) ? 1.f : alpha[e >> 1];\n"),
+        ("o[j][e] = fmaf(o[j][e], alpha[e >> 1], pv[j][e]);",
+         "o[j][e] = fmaf(o[j][e], (n_tiles > 32 && t == n_tiles / 2) ? 1.f : alpha[e >> 1], "
+         "pv[j][e]);")],
+    "denominator_3pct_off": [(
         "    const float denom = fmaxf(l[r], 1e-30f);\n",
-        "    const float denom = fmaxf(l[r], 1e-30f) * (row >= 2048 ? 1.03f : 1.f);\n"),
+        "    const float denom = fmaxf(l[r], 1e-30f) * (row >= 2048 ? 1.03f : 1.f);\n")],
 }
 
 
 @pytest.mark.gpu
 def test_cuda_attention_check_catches_planted_faults(tmp_path, monkeypatch):
     """The row-scaled comparison that holds K9 to its plain version (here
-    and in chip_smoke.compare_dense) passes the kernel and fails each of
+    and in chip_smoke.compare_dense) passes the kernels and fails each of
     ATTENTION_FAULTS, built from a copy of the source under ``tmp_path``,
-    on a bf16 GQA layer at S = 4096; each copy's first 2,048 rows equal the
-    kernel's bit for bit."""
+    on a GQA layer at S = 4096 in bf16 (1e-2) and in f32 (1e-4); each
+    copy's first 2,048 rows equal the kernel's bit for bit."""
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attention import kernel, ref
 
@@ -708,30 +731,37 @@ def test_cuda_attention_check_catches_planted_faults(tmp_path, monkeypatch):
     src = common.SOURCES["flash_attention"]
     text = src.read_text()
     monkeypatch.setattr(common, "BUILD_DIR", tmp_path / "build")
-    for name, (old, new) in ATTENTION_FAULTS.items():
-        assert text.count(old) == 1, name
+    for name, edits in ATTENTION_FAULTS.items():
+        assert sum(text.count(old) for old, _ in edits) == 2, name  # once in each kernel
+        faulty = text
+        for old, new in edits:
+            faulty = faulty.replace(old, new)
         (tmp_path / name).mkdir()
-        (tmp_path / name / src.name).write_text(text.replace(old, new))
+        (tmp_path / name / src.name).write_text(faulty)
         monkeypatch.setitem(common.SOURCES, name, tmp_path / name / src.name)
     common.build(["flash_attention", *ATTENTION_FAULTS])  # one nvcc each, in parallel
     g = torch.Generator(device=dev).manual_seed(7)
-    q, k, v = (torch.randn((1, h, 4096, 128), generator=g, device=dev).bfloat16()
-               for h in (8, 2, 2))
-    want = ref.attention_ref(q, k, v)
+    layers = {}
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        qkv = tuple(torch.randn((1, h, 4096, 128), generator=g, device=dev).to(dtype)
+                    for h in (8, 2, 2))
+        layers[dtype] = (qkv, tol, ref.attention_ref(*qkv))
+    good = {}
     try:
         for name in ("flash_attention", *ATTENTION_FAULTS):
             monkeypatch.setitem(common.SOURCES, "flash_attention", common.SOURCES[name])
             common.load_library.cache_clear()
             kernel._lib.cache_clear()
-            got = kernel.flash_attention(q, k, v)
-            if name == "flash_attention":
-                assert_rows_close(got, want, 1e-2)
-                good = got
-                continue
-            assert torch.equal(got[:, :, :2048], good[:, :, :2048]), name
-            with pytest.raises(AssertionError) as fault:
-                assert_rows_close(got, want, 1e-2)
-            print(f"{name}: {fault.value}")
+            for dtype, ((q, k, v), tol, want) in layers.items():
+                got = kernel.flash_attention(q, k, v)
+                if name == "flash_attention":
+                    assert_rows_close(got, want, tol)
+                    good[dtype] = got
+                    continue
+                assert torch.equal(got[:, :, :2048], good[dtype][:, :, :2048]), (name, dtype)
+                with pytest.raises(AssertionError) as fault:
+                    assert_rows_close(got, want, tol)
+                print(f"{name}, {dtype}: {fault.value}")
     finally:  # the next call loads the unchanged library again
         common.load_library.cache_clear()
         kernel._lib.cache_clear()

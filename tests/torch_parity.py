@@ -249,6 +249,54 @@ def flash_bf16_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p: s
     return (acc / torch.clamp(l, min=1e-30)).to(out_dtype or q.dtype)
 
 
+def flash_tf32x3_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, k_lo: bool = True,
+                           p_lo: bool = True, tile: int = 64) -> torch.Tensor:
+    """The arithmetic of K9's f32 kernel (``flash_attention_tf32``) on the
+    CPU: q (B, Hq, S, D), k and v (B, Hkv, S, D) f32, each split by bit
+    masks into hi = cut_tf32(x) and lo = cut_tf32(x - hi).  The logits sum,
+    per 8-column k-step, q hi x k lo, q lo x k hi and q hi x k hi, in that
+    order; keys past the row are -1e30; an online softmax over ``tile``-key
+    tiles (row max m, row sum l of the f32 probabilities); each tile's P V
+    sums from zero, per 8-key step, p hi x v lo, p lo x v hi and p hi x v
+    hi, and is folded into the output as ``acc * alpha + tile``; the output
+    is ``acc / max(l, 1e-30)``.  ``k_lo=False`` drops q hi x k lo and
+    ``p_lo=False`` drops p lo x v hi (planted faults: K or P cut to tf32)."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf = q.float()
+    kf, vf = (torch.repeat_interleave(x.float(), group, dim=1) for x in (k, v))
+    (q_hi, q_lo), (k_hi, k_lo_part), (v_hi, v_lo) = (
+        (cut_tf32(x), cut_tf32(x - cut_tf32(x))) for x in (qf, kf, vf))
+    logits = torch.zeros((b, hq, s, s))
+    for c0 in range(0, d, 8):
+        c = slice(c0, c0 + 8)
+        if k_lo:
+            logits = logits + q_hi[..., c] @ k_lo_part[..., c].transpose(-1, -2)
+        logits = logits + q_lo[..., c] @ k_hi[..., c].transpose(-1, -2)
+        logits = logits + q_hi[..., c] @ k_hi[..., c].transpose(-1, -2)
+    logits = torch.where(torch.arange(s) <= torch.arange(s)[:, None], logits / d**0.5, -1e30)
+    m = torch.full((b, hq, s, 1), -1e30)
+    l = torch.zeros((b, hq, s, 1))
+    acc = torch.zeros((b, hq, s, d))
+    for k0 in range(0, s, tile):
+        m_new = torch.maximum(m, logits[..., k0:k0 + tile].amax(-1, keepdim=True))
+        probs = torch.exp(logits[..., k0:k0 + tile] - m_new)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + probs.sum(-1, keepdim=True)
+        p_hi = cut_tf32(probs)
+        p_lo_part = cut_tf32(probs - p_hi)
+        part = torch.zeros_like(acc)
+        for j0 in range(0, probs.shape[-1], 8):
+            j, kv = slice(j0, j0 + 8), slice(k0 + j0, k0 + j0 + 8)
+            part = part + p_hi[..., j] @ v_lo[:, :, kv]
+            if p_lo:
+                part = part + p_lo_part[..., j] @ v_hi[:, :, kv]
+            part = part + p_hi[..., j] @ v_hi[:, :, kv]
+        acc = acc * alpha + part
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)
+
+
 def cuda_device() -> torch.device:
     """The first CUDA device; skips the calling test where there is none."""
     if not torch.cuda.is_available():
