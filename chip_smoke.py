@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --pair-parent DIR   # K1-K7 and K9 against the tree in DIR, then stop
-    python3 chip_smoke.py --ablate [DIR]      # K7, K6, K9, pass 1 with parts cut out (K3 also DIR's)
+    python3 chip_smoke.py --ablate [DIR]      # K7, K6, K9, pass 1 with parts cut out (K3, K5 also DIR's)
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc
    (sm_90a) and prints the build time and the compiler's register report,
@@ -17,7 +17,8 @@
    ``kernels/csrc/score_matmul.cuh``), HMMA in K9's bf16 attention
    (``flash_attention_bf16``) and TF32 HMMA in its f32 one
    (``flash_attention_tf32``, split TF32); an instance without them fails
-   the run.
+   the run; and the SASS instructions a column in K5's inner loop
+   (``k5_columns``).
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
    shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
@@ -51,7 +52,10 @@
    tf32 part must fail, and for int4 integer scores over distinct
    power-of-two group scales, bit-exact, that a copy folding every chunk
    with its row's first group scale must fail (the copies are built beside
-   the others: PLANTED).
+   the others: PLANTED); for K5 also rows in bound order, whole splits of
+   padding at depth 100 and 3,000, depth 4,096, int8 rows aligned to 4 and
+   to 1, and "ties-top" cases at R = 299,776 that a copy with a strict
+   threshold test (K5_STRICT) must fail.
 5. Runs the ann-word2vec deployment (2,999,808 x 300, classic fake words,
    B = 256, depth 100, k 10) end to end through ``AnnIndex.build`` /
    ``search`` on the card, with the exact-cosine ground truth, and checks
@@ -141,7 +145,9 @@ K6 (that tree's ``cosine_score.cu``) at B = 256 over the raw corpus; it
 prints whether the SASS of every kernel instance that both trees build is
 identical, for K1-K5, K6 and K8 (``cosine_score.cu``, ``lsh_match.cu``) and
 K9; first, K9 of both trees (their ``flash_attention.cu``) at both bf16
-attention layers and at phi3-mini's in f32, outputs held to each other.  With ``--ablate [DIR]`` it
+attention layers and at phi3-mini's in f32, outputs held to each other.
+K5 is paired over the int4 index at B = 256, 8 and 1 and over the int8
+one at B = 8.  With ``--ablate [DIR]`` it
 first times K7 at the cell's shapes (B = 256, N = 2,999,808, T = 600, both
 modes) against copies with no stores (sums kept live), loads only (no
 ``mma``, no stores), stores only and products only (K7_ABLATIONS), and
@@ -160,7 +166,11 @@ fold and with Q split once into registers (K9_F32_ABLATIONS,
 K9_F32_VARIANTS), each beside the SM clock and power draw, then K3 at the
 blockmax path's shape with its inserts and its products cut out
 (K3_ABLATIONS; also the K3 of the tree in DIR, e.g. the parent), each
-kernel's pass 1 and pass 2 apart, K1 f32 at the ground truth's shape with
+kernel's pass 1 and pass 2 apart, K5 at the quantized blockmax path's
+shape (int4 g32) with its top-k, its dequant and its products cut out
+(K5_ABLATIONS; also DIR's), its SASS instructions a column and each
+kernel's pass 1 and pass 2 apart in random and bound order (alone:
+``c.ablate_k5``), K1 f32 at the ground truth's shape with
 its running top-k and its products cut out (K1F32_ABLATIONS; also DIR's),
 and the tensor-core pass 1 (K1 classic, K1
 dot, K4 int8 and int4 with a bf16 query, K4 int8 and int4 with an f32 one)
@@ -793,7 +803,9 @@ def _quantized_inputs(kind: str, bits: int, group: int, qdtype: str, b: int, n: 
     range (|q| from 1e-3 to 1e3, random signs and mantissas), where one
     tf32 pass of the query is far outside the near-tie rule.  "pow2" (int4):
     every nibble, and each row's group scales distinct powers of two
-    (pow2_scales), with the integer query of "int": every sum is exact."""
+    (pow2_scales), with the integer query of "int": every sum is exact.
+    "ties-top": the 0/1 rows of "ties" against a query of two ones (columns
+    0 and 1), so a quarter of the rows tie at the top score 2."""
     from repro_torch.core import builder
     from repro_torch.kernels.common import round_up
 
@@ -838,6 +850,9 @@ def _quantized_inputs(kind: str, bits: int, group: int, qdtype: str, b: int, n: 
         return q.to(dtype), pq.q, pq.scale
     lo, hi = (-20, 21) if kind in ("int", "pow2") else (0, 2)
     q = torch.randint(lo, hi, (b, t), generator=gen, device=dev).to(dtype)
+    if kind == "ties-top":
+        q = torch.zeros((b, t), device=dev, dtype=dtype)
+        q[:, :2] = 1
     if bits == 8:
         lo, hi = (-50, 51) if kind == "int" else (0, 2)
         docs = torch.randint(lo, hi, (n, t), generator=gen, device=dev, dtype=torch.int8)
@@ -964,6 +979,25 @@ def quantized_cases():
         ("ties", 4, 32, "bf16", 3, 500, 300, 64, 300, "permutation", False, None),  # depth = R
         ("ties", 8, 0, "bf16", 2, 2048, 1024, 16, 1024, "blocks", True, None),
         ("float", 4, 32, "bf16", 1, 400_000, 299_776, 600, 100, "blocks", False, None),  # B = 1
+        # One list a block: a quarter of the rows tie at the top score, blocks
+        # in descending id order, so that each split's lowest ids come last
+        # (the strict-threshold copy must fail each, B = 1 and 8); whole
+        # 256-row splits of padding at depth 100 and 3,000; blocks in bound
+        # order (best first, as stage 1 gives them); a depth past the
+        # per-warp lists' limit of the earlier design; int8 rows aligned to 4
+        # (T = 100) and to 1 (T = 37).
+        ("ties-top", 8, 0, "bf16", 1, 400_000, 299_776, 16, 100, "descending", False, None),
+        ("ties-top", 8, 0, "bf16", 8, 400_000, 299_776, 16, 100, "descending", False, None),
+        ("ties-top", 4, 32, "bf16", 1, 400_000, 299_776, 16, 100, "descending", False, None),
+        ("ties-top", 4, 32, "f32", 8, 400_000, 299_776, 16, 100, "descending", False, None),
+        ("int", 8, 0, "bf16", 2, 50_000, 25_600, 600, 100, "padded-blocks", False, None),
+        ("ties", 4, 32, "bf16", 3, 50_000, 25_600, 16, 3000, "padded-blocks", False, None),
+        ("float", 4, 32, "bf16", 8, 400_000, 299_776, 600, 100, "bound", False, None),
+        ("ties", 8, 0, "f32", 1, 20_000, 10_240, 16, 4096, "blocks", False, None),
+        ("ties", 4, 32, "bf16", 1, 20_000, 10_240, 64, 4096, "blocks", False, None),
+        ("int", 8, 0, "bf16", 3, 2000, 700, 100, 60, "random", False, 1800),
+        ("int", 8, 0, "f32", 4, 3000, 1024, 37, 50, "random", True, None),
+        ("float", 8, 0, "bf16", 3, 2000, 700, 37, 60, "blocks", False, None),
     ]
     return k4, k5
 
@@ -992,11 +1026,27 @@ def build_planted() -> dict:
                 for kind, fut in built.items()}
 
 
-def check_quantized(dev, planted=None) -> dict:
+# K5's planted fault: K3_STRICT, the same line in K5's pass 1 (a strict >
+# at the block list's threshold).  Every K5 "ties-top" case must fail with it.
+K5_STRICT = K3_STRICT
+
+
+def build_planted_k5():
+    """(name, topk): K5 built from a copy of this tree's sources with
+    K5_STRICT (``_tree_kernels``), called as ``topk(q, pq, row_ids, depth,
+    n_docs)``."""
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    return ("strict-threshold", _tree_kernels(
+        kdir, os.path.join(ROOT, "build", "planted-k5"), names=("fused_topk_quantized",),
+        edits=[K5_STRICT])["fused_topk_gathered_quantized"])
+
+
+def check_quantized(dev, planted=None, planted_k5=None) -> dict:
     """K4 and K5 against their plain versions on the card; on each case of
     a kind in PLANTED also the copy of K4 with that fault (``planted``, from
-    build_planted, built here if not given), which must fail the same
-    comparison."""
+    build_planted, built here if not given), and on each K5 "ties-top" case
+    the copy of K5 with K5_STRICT (``planted_k5``, from build_planted_k5,
+    likewise), each of which must fail the same comparison."""
     import types
 
     from repro_torch.kernels.fused_topk import ref
@@ -1008,6 +1058,7 @@ def check_quantized(dev, planted=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(2)
     k4, k5 = quantized_cases()
     planted = planted or build_planted()
+    copy_k5, strict_k5 = planted_k5 or build_planted_k5()
     worst = {}
     for kind, bits, group, qdt, b, n, t, depth, filt_kind, n_docs in k4:
         q, docs, scale = _quantized_inputs(kind, bits, group, qdt, b, n, t, gen, dev)
@@ -1040,7 +1091,9 @@ def check_quantized(dev, planted=None) -> dict:
                 raise AssertionError(f"{name}: the {copy} copy passed the comparison")
     for kind, bits, group, qdt, b, n, r, t, depth, how, with_filt, n_docs in k5:
         q, docs, scale = _quantized_inputs(kind, bits, group, qdt, b, n, t, gen, dev)
-        ids = _row_ids(how, b, n, r, gen, dev)
+        scores = ref.quantized_scores_ref(q, docs, scale, bits, group) if how == "bound" else None
+        ids = _row_ids(how, b, n, r, gen, dev, scores)
+        del scores
         filt = torch.rand((b, r), generator=gen, device=dev) < 0.5 if with_filt else None
         nd = n if n_docs is None else n_docs
         got = fused_topk_gathered_quantized(q, docs, scale, ids, depth, nd, bits, group,
@@ -1054,6 +1107,15 @@ def check_quantized(dev, planted=None) -> dict:
         key = f"K5 {kind}"
         worst[key] = max(worst.get(key, 0.0), err)
         print(f"  ok  {name}  max_abs_err={err:.3g}")
+        if kind == "ties-top":
+            bad = strict_k5(q, types.SimpleNamespace(q=docs, scale=scale, bits=bits, group=group),
+                            ids, depth, nd)
+            try:
+                compare(f"{name}, {copy_k5} copy", bad, want, exact=True)
+            except AssertionError as fault:
+                print(f"  ok  the {copy_k5} copy fails: {fault}")
+            else:
+                raise AssertionError(f"{name}: the {copy_k5} copy passed the comparison")
     print(f"quantized kernels vs plain on the card: {len(k4)} K4 and {len(k5)} K5 cases, "
           f"worst {worst}")
     return worst
@@ -1464,6 +1526,7 @@ def main(argv) -> int:
         build_kernels(["fused_topk", "fused_topk_quantized"])
         trees = [("this tree", ROOT)] + [("parent", d) for d in argv[1:2]]
         ablate_k3(dev, card, trees)
+        ablate_k5(dev, card, trees)
         ablate_k1_f32(dev, card, trees)
         ablate(dev, card)
         return 0
@@ -1471,17 +1534,19 @@ def main(argv) -> int:
         planted = pool.submit(build_planted)
         planted_k1 = pool.submit(build_planted_k1)
         planted_k3 = pool.submit(build_planted_k3)
+        planted_k5 = pool.submit(build_planted_k5)
         planted_k7 = pool.submit(build_planted_k7)
         planted_k6 = pool.submit(build_planted_k6)
         planted_k9 = pool.submit(build_planted_k9)
         build_kernels()
-        planted, planted_k1, planted_k3, planted_k7, planted_k6, planted_k9 = (
-            planted.result(), planted_k1.result(), planted_k3.result(), planted_k7.result(),
-            planted_k6.result(), planted_k9.result())
+        planted, planted_k1, planted_k3, planted_k5, planted_k7, planted_k6, planted_k9 = (
+            planted.result(), planted_k1.result(), planted_k3.result(), planted_k5.result(),
+            planted_k7.result(), planted_k6.result(), planted_k9.result())
     check_tensor_cores()
+    print_k5_columns()
     check_kernels(dev, planted_k1)
     check_gathered(dev, planted_k3)
-    check_quantized(dev, planted)
+    check_quantized(dev, planted, planted_k5)
     check_dense(dev, planted_k7, planted_k6)
     check_attention(dev, planted_k9)
     from repro_torch.configs import ann_word2vec
@@ -1863,6 +1928,167 @@ def ablate_k3(dev, card: str, trees=(("this tree", ROOT),)) -> None:
                       f"on {card}: " + "; ".join(line))
             print(f"K3 pass 1 / pass 2 ({label}, torch.profiler), B={bb}: "
                   + split_line(kernel_split(lambda: fns["full"](*args), runs=3 if bb > 8 else 5)))
+
+
+# Copies of K5's pass 1 (fused_topk_gathered_quantized_partial,
+# fused_topk_quantized.cu), for timing only (their results are wrong): the
+# scores computed and kept live but never ranked; the dequant cut out (each
+# column's product taken with a raw word of its unit, the int4 group scale
+# folded in once a unit); and the loads alone (no products, no ranking).
+# Each edit names its text in the kernel before the one-list design and
+# after it, so that the same copies can be made of either tree.
+K5_NO_TOPK = (
+    K3_NO_INSERT[0],
+    ("const bool pass = my_ok && precedes(my_s, my_id, *ts, *ti);",
+     "const bool pass = my_ok && my_s == 1234.5f && precedes(my_s, my_id, *ts, *ti);"))
+K5_NO_DEQUANT = (
+    ("              acc[u] = fmaf(qe[e], v, acc[u]);\n",
+     "              acc[u] = fmaf(qe[e], __uint_as_float(dv[u][0].u.x ^ dv[u][0].u.w) * gs[u], "
+     "acc[u]);\n"),
+    ("acc = fmaf(qv[4 * k + c], magic_byte(x, c) - 8388736.0f, acc);",
+     "acc = fmaf(qv[4 * k + c], __uint_as_float(x), acc);"),
+    ("float a = (magic_byte(lo, c) - 8388616.0f) * gs;",
+     "float a = __uint_as_float(lo) * gs;"),
+    ("float b = (magic_byte(hi, c) - 8388616.0f) * gs;",
+     "float b = __uint_as_float(hi) * gs;"),
+    ("        if constexpr (QT == kQBF16) round_bf16_pair(a, b);\n", ""))
+K5_NO_PRODUCTS = (
+    ("        for (int k4 = 0; k4 < kQuads; ++k4) {\n",
+     "        for (int u = 0; u < kGatherRows; ++u) "
+     "acc[u] += __uint_as_float(dv[u][0].u.x ^ dv[u][0].u.w) * gs[u];\n"
+     "        for (int k4 = 0; k4 < 0; ++k4) {\n"),
+    ("k5_chunk<QT, BITS>(acc, cur, qs, chunk, n_unit_rounds, lane8);",
+     "for (int h = 0; h < kRowsPerLane; ++h) for (int j = 0; j < kUnitRounds; ++j) "
+     "acc[h] += __uint_as_float(cur.unit[h][j].x ^ cur.unit[h][j].y) * cur.gs[h][j];"))
+K5_ABLATIONS = {
+    "full": [],
+    "scores kept live, no top-k": [K5_NO_TOPK],
+    "no dequant (raw words)": [K5_NO_DEQUANT],
+    "loads only": [K5_NO_TOPK, K5_NO_PRODUCTS],
+}
+
+
+def _opcode(ins: str) -> str:
+    """The mnemonic of a SASS instruction, its predicate and modifiers cut."""
+    words = ins.split()
+    word = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
+    return word.split(".")[0]
+
+
+def k5_columns(path: str) -> str:
+    """Instructions a column in the inner loop of each K5 pass-1 instance of
+    the library at ``path``: in its SASS, the longest run of products with
+    the query (FFMA, one a column) in which no two FFMA lie more than 200
+    instructions apart, from its first FFMA to its last; the instructions
+    there over its FFMAs, and the 16 most common opcodes, a column each
+    (the next chunk's loads, issued inside the run, count too)."""
+    import collections
+
+    code = sass(path)
+    if code is None:
+        return "no cuobjdump in the CUDA toolkit"
+    out = []
+    for fn, lines in sorted(code.items()):
+        if not fn.startswith("fused_topk_gathered_quantized_partial"):
+            continue
+        ops = [_opcode(ins) for ins in lines if not ins.startswith((".", "{", "}"))]
+        ffma = [i for i, op in enumerate(ops) if op == "FFMA"]
+        runs, start = [], 0
+        for k in range(1, len(ffma) + 1):
+            if k == len(ffma) or ffma[k] - ffma[k - 1] > 200:
+                runs.append(ffma[start:k])
+                start = k
+        run = max(runs, key=len, default=[])
+        if len(run) < 16:
+            out.append(f"{fn}: no run of 16 FFMA")
+            continue
+        count = collections.Counter(ops[run[0]:run[-1] + 1])
+        top = ", ".join(f"{op} {c / len(run):.3f}" for op, c in count.most_common(16))
+        out.append(f"{fn}: {sum(count.values()) / len(run):.3f} a column over {len(run)} FFMA "
+                   f"({top})")
+    return "; ".join(out)
+
+
+def print_k5_columns() -> None:
+    from repro_torch.kernels import common
+
+    print("K5 instructions a column (cuobjdump -sass): "
+          + k5_columns(common.library_path("fused_topk_quantized")))
+
+
+def no_reuse_ms(q, docs, scale, row_ids) -> float:
+    """K5's own floor: every (query, kept row) pair reads its packed row,
+    its scales and its id, B x R x (row + scales + 4) bytes at the memory
+    rate, as no row is shared between the queries that keep it."""
+    return row_ids.numel() * (_packed_row_bytes(docs, scale) + 4) / HBM_BYTES_PER_S * 1e3
+
+
+def ablate_k5(dev, card: str, trees=(("this tree", ROOT),)) -> None:
+    """K5 at the quantized blockmax main path's shape (an int4 g32 store of
+    2,999,808 x 600 random nibbles and scales, a bf16 query, 1171 kept
+    256-row blocks a query, depth 100), built from each tree's sources as it
+    is and with parts cut out (K5_ABLATIONS): each tree's instructions a
+    column (``k5_columns``); the copies timed in turns (full, each copy,
+    full) at B = 1, 8 and 256, blocks in random order; the full kernel's
+    pass 1 and pass 2 apart (``kernel_split``) at B = 1, 8 and 256, blocks in
+    random and in bound order (best block first by the plain scores); and,
+    given two trees (label, root), e.g. this tree and its parent, their full
+    kernels in turns (second, first, first, second) at each B and order."""
+    import types
+
+    from repro_torch.kernels.fused_topk import ref
+
+    n, t, keep, depth = 2_999_808, 600, 1171, 100
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n_groups = -(-t // GROUP)
+    pq = types.SimpleNamespace(
+        bits=4, group=GROUP, scale=torch.rand((n, n_groups), generator=gen, device=dev),
+        q=torch.randint(0, 256, (n, n_groups * GROUP // 2), generator=gen, device=dev,
+                        dtype=torch.uint8))
+    q = (torch.randn((256, t), generator=gen, device=dev) / t**0.5).to(torch.bfloat16)
+    scores = ref.quantized_scores_ref(q, pq.q, pq.scale, 4, GROUP)
+    orders = {"random blocks": _row_ids("blocks", 256, n, keep * BLOCK, gen, dev),
+              "bound order": _row_ids("bound", 256, n, keep * BLOCK, gen, dev, scores)}
+    del scores
+    torch.cuda.empty_cache()
+    dirs = {(label, name): os.path.join(ROOT, "build", "ablate-k5",
+                                        f"{label}-{j}".replace(" ", "-"))
+            for label, _ in trees for j, name in enumerate(K5_ABLATIONS)}
+    with ThreadPoolExecutor() as pool:  # every copy's nvcc at once
+        built = {(label, name): pool.submit(
+            _tree_kernels, os.path.join(os.path.abspath(root), "src", "repro_torch", "kernels"),
+            dirs[label, name], names=("fused_topk_quantized",), edits=K5_ABLATIONS[name])
+            for label, root in trees for name in K5_ABLATIONS}
+        cut = {}
+        for (label, name), fut in built.items():
+            cut.setdefault(label, {})[name] = fut.result()["fused_topk_gathered_quantized"]
+    for label, _ in trees:
+        path = os.path.join(dirs[label, "full"], "libfused_topk_quantized.so")
+        print(f"K5 instructions a column ({label}, cuobjdump -sass): {k5_columns(path)}")
+    for order, ids in orders.items():
+        for bb in (1, 8, 256):
+            args = (q[:bb], pq, ids[:bb], depth, n)
+            runs = {"runs": 5, "warmup": 1} if bb > 8 else {}
+            if len(trees) > 1:
+                (first, f_fn), (second, s_fn) = ((label, cut[label]["full"])
+                                                 for label, _ in trees[:2])
+                compare(f"K5 {order} B={bb}: {first} vs {second}", f_fn(*args),
+                        s_fn(q[:bb], pq, ids[:bb], depth + 1, n), exact=False)
+                times = [cuda_ms(lambda i=i: (s_fn if i in (0, 3) else f_fn)(*args), **runs)
+                         for i in range(4)]
+                print(f"K5 in turns, {order}, B={bb} on {card}: {second} {times[0]:.3f} ms, "
+                      f"{first} {times[1]:.3f} ms, {first} {times[2]:.3f} ms, "
+                      f"{second} {times[3]:.3f} ms")
+            for label, fns in cut.items():
+                if order == "random blocks":
+                    line = [f"{name} {cuda_ms(lambda fn=fn: fn(*args), **runs):.3f} ms"
+                            for name, fn in fns.items()]
+                    line.append(f"full {cuda_ms(lambda: fns['full'](*args), **runs):.3f} ms")
+                    print(f"K5 ablation ({label}), {order}, B={bb}, R={ids.shape[1]}, T={t}, "
+                          f"depth {depth}, on {card}: " + "; ".join(line))
+                print(f"K5 pass 1 / pass 2 ({label}, {order}, torch.profiler), B={bb} on {card}: "
+                      + split_line(kernel_split(lambda: fns["full"](*args),
+                                                runs=3 if bb > 8 else 5)))
 
 
 # Copies of K1 f32 (fused_topk in f32 mode), for timing only (their results
@@ -2462,17 +2688,17 @@ def pair_parent(dev, card: str, parent: str) -> None:
         for bb in (256, 8, 1):
             pair(f"K4 {pp} bf16 query B={bb}", k4_new, old["fused_topk_quantized"],
                  (qv[:bb], qidx.index.pq), depth)
-        if pp == "int4":  # K5: blockmax stage 2 over the int4 index, 10% of the blocks
-            rows = blockmax.kept_rows(blockmax.build_blockmax(qidx.index, BLOCK), q_tf, keep)
-            q_k5 = q_tf.to(torch.bfloat16)
-            for bb in (256, 8, 1):
-                pair(f"K5 int4 bf16 query n_keep={keep} B={bb}",
-                     lambda q, pq, rws, d: fused_topk_gathered_quantized(
-                         q, pq.q, pq.scale, rws, d, n, pq.bits, pq.group),
-                     lambda q, pq, rws, d: old["fused_topk_gathered_quantized"](q, pq, rws, d, n),
-                     (q_k5[:bb], qidx.index.pq, rows[:bb]), depth)
-            del rows, q_k5
-        del qidx, qv
+        # K5: blockmax stage 2 over the index, 10% of the blocks (int4 at
+        # B = 256, 8 and 1; int8 at B = 8)
+        rows = blockmax.kept_rows(blockmax.build_blockmax(qidx.index, BLOCK), q_tf, keep)
+        q_k5 = q_tf.to(torch.bfloat16)
+        for bb in ((256, 8, 1) if pp == "int4" else (8,)):
+            pair(f"K5 {pp} bf16 query n_keep={keep} B={bb}",
+                 lambda q, pq, rws, d: fused_topk_gathered_quantized(
+                     q, pq.q, pq.scale, rws, d, n, pq.bits, pq.group),
+                 lambda q, pq, rws, d: old["fused_topk_gathered_quantized"](q, pq, rws, d, n),
+                 (q_k5[:bb], qidx.index.pq, rows[:bb]), depth)
+        del qidx, qv, rows, q_k5
         torch.cuda.empty_cache()
     bidx = AnnIndex.build(x, BruteForceConfig(), primary_postings="int8", rerank_store="none",
                           device=dev)
@@ -3384,7 +3610,8 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
         k5[bb] = (ms, plain_ms, lib_ms, bound, bound_by)
         print(f"fused_topk_gathered_quantized (bf16 query, int4 g{GROUP}, B={bb}, "
               f"R={rb.shape[1]}, T={t}, depth={depth}, {distinct} distinct rows): kernel "
-              f"{ms:.3f} ms, bound {bound:.3f} ms ({bound_by}); plain {plain_ms:.3f} ms; "
+              f"{ms:.3f} ms, bound {bound:.3f} ms ({bound_by}), no-reuse floor "
+              f"{no_reuse_ms(qb, pq4.q, pq4.scale, rb):.3f} ms; plain {plain_ms:.3f} ms; "
               f"torch.topk(einsum(q, dequant_int4(store[row_ids]))) {lib_ms:.3f} ms")
     # K5 alone at the B = 256 blockmax search's shape (no plain version: its
     # gathered rows would take 23 GB packed, and more dequantized).
@@ -3395,7 +3622,8 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
     bound, bound_by, distinct = gathered_quantized_bound_ms(q256, pq4.q, pq4.scale, rows_256, n,
                                                             depth, "bf16")
     print(f"fused_topk_gathered_quantized (B={b}, R={rows_256.shape[1]}, {distinct} distinct "
-          f"rows): kernel {ms_256:.3f} ms (median of 3), bound {bound:.3f} ms ({bound_by})")
+          f"rows): kernel {ms_256:.3f} ms (median of 3), bound {bound:.3f} ms ({bound_by}), "
+          f"no-reuse floor {no_reuse_ms(q256, pq4.q, pq4.scale, rows_256):.3f} ms")
     ms, plain_ms, lib_ms, bound, bound_by = k5[8]
     kernels.append({
         "name": "fused_topk_gathered_quantized", "route": "cuda",

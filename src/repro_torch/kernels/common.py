@@ -108,8 +108,8 @@ def on_cpu(*tensors: Optional[torch.Tensor]) -> bool:
 
 def row_alignment(x: torch.Tensor) -> int:
     """The byte alignment (16, 8, 4, or 1) every row of the contiguous 2-D
-    ``x`` starts at.  Only K4's f32-query loader takes 4-byte rows; every
-    other kernel treats 4 as 1."""
+    ``x`` starts at.  Only K4's f32-query loader and K5 take 4-byte rows;
+    every other kernel treats 4 as 1."""
     row = x.shape[1] * x.element_size()
     for a in (16, 8, 4):
         if x.data_ptr() % a == 0 and row % a == 0:

@@ -575,19 +575,12 @@ cudaError_t launch_f32(int bq, const void* q, const void* docs, const uint8_t* f
 
 constexpr int kK3Rows = 4;         // rows a warp scores at once
 constexpr int kK3Rounds = 3;       // 32-lane rounds of a row's 16-byte packs loaded at once
-constexpr int kK3Round = kThreads;  // rows the block scores between two threshold tests
-constexpr int kK3Cap = cand_cap(kK3Round), kK3FlushAt = flush_at(kK3Round);
-constexpr int kK3BlocksPerSm = 2;  // pass-1 blocks resident per SM (2 x 8 warps)
 constexpr int kK3Bytes = kK3Rounds * 32 * 16;  // row bytes of one load group
 
-// Dynamic shared memory of a K3 pass-1 block: the query row, padded to whole
-// load groups, then the block's running list of K (score, id) pairs, its
-// candidate buffer, and the threshold and count.
+// The query row of a K3 pass-1 block in shared memory, padded to whole load
+// groups (the list and buffer follow it: row_block_smem, topk_merge.cuh).
 __host__ __device__ constexpr size_t gathered_query_bytes(int t, int elem) {
   return (size_t)((t * elem + kK3Bytes - 1) / kK3Bytes) * kK3Bytes;
-}
-constexpr size_t gathered_smem(int t, int elem, int K) {
-  return gathered_query_bytes(t, elem) + (size_t)(K + kK3Cap) * 8 + 16;
 }
 
 // acc + <query pack, row pack> in the mode's arithmetic: bf16 widened to f32
@@ -627,19 +620,19 @@ __device__ __forceinline__ A warp_sum4(const A (&a)[4], int lane) {
 
 // Grid (B, splits): block (b, split) owns rows [split * rows_per_split, ...)
 // of query b's R gathered rows and keeps one running list of K for them.
-// The block scores kK3Round rows a round, each warp 32: its lanes read
+// The block scores kRowRound rows a round, each warp 32: its lanes read
 // kK3Rows rows together (lane l the 16-byte packs l, l + 32, ... of each),
 // every pack of a load group in flight before the first product, reduce the
 // rows' sums across the warp at once (warp_sum4), and lane r keeps row r's
 // score.  A score that precedes the list's depth-th entry (the full
 // comparator: ids arrive in any order) goes to the block's candidate
-// buffer; once the buffer holds more than kK3FlushAt, or after the last
+// buffer; once the buffer holds more than kRowFlushAt, or after the last
 // round, the whole block merges it into the list by counting
 // (merge_buffer) and refreshes the threshold.  A row whose id is outside
 // [0, n_docs) is never read and never ranks; an id that comes twice is
 // scored and ranked twice, as the reference ranks it.
 template <int M>
-__global__ void __launch_bounds__(kThreads, kK3BlocksPerSm) fused_topk_gathered_partial(
+__global__ void __launch_bounds__(kThreads, kRowBlocksPerSm) fused_topk_gathered_partial(
     const typename Traits<M>::Raw* __restrict__ q,      // (B, T)
     const typename Traits<M>::Raw* __restrict__ store,  // (N, T)
     const int* __restrict__ row_ids,                     // (B, R)
@@ -656,9 +649,9 @@ __global__ void __launch_bounds__(kThreads, kK3BlocksPerSm) fused_topk_gathered_
   Raw* qs = reinterpret_cast<Raw*>(smem);
   float* ls = reinterpret_cast<float*>(smem + q_bytes);  // K running scores
   int* li = reinterpret_cast<int*>(ls + K);               // K running ids
-  float* cs = reinterpret_cast<float*>(li + K);           // kK3Cap candidates
-  int* ci = reinterpret_cast<int*>(cs + kK3Cap);
-  float* ts = reinterpret_cast<float*>(ci + kK3Cap);      // the list's depth-th entry
+  float* cs = reinterpret_cast<float*>(li + K);           // kRowCap candidates
+  int* ci = reinterpret_cast<int*>(cs + kRowCap);
+  float* ts = reinterpret_cast<float*>(ci + kRowCap);      // the list's depth-th entry
   int* ti = reinterpret_cast<int*>(ts + 1);
   int* cnt = ti + 1;                                       // candidates in the buffer
 
@@ -666,7 +659,7 @@ __global__ void __launch_bounds__(kThreads, kK3BlocksPerSm) fused_topk_gathered_
   const int b = blockIdx.x, split = blockIdx.y;
   const int row0 = split * rows_per_split;
   const int row1 = min(R, row0 + rows_per_split);
-  const int n_rounds = (max(0, row1 - row0) + kK3Round - 1) / kK3Round;
+  const int n_rounds = (max(0, row1 - row0) + kRowRound - 1) / kRowRound;
   const int n_packs = (T + V::kElems - 1) / V::kElems;  // 16-byte packs a row
 
   const Raw pad = pad_raw<M>(true);
@@ -678,7 +671,7 @@ __global__ void __launch_bounds__(kThreads, kK3BlocksPerSm) fused_topk_gathered_
 
   const int* ids = row_ids + (size_t)b * R;
   for (int round = 0; round < n_rounds; ++round) {
-    const int r = row0 + round * kK3Round + warp * 32 + lane;
+    const int r = row0 + round * kRowRound + warp * 32 + lane;
     const int my_id = r < row1 ? ids[r] : kBigId;
     const bool my_ok = static_cast<unsigned>(my_id) < static_cast<unsigned>(n_docs);
     float my_s = -INFINITY;
@@ -730,15 +723,15 @@ __global__ void __launch_bounds__(kThreads, kK3BlocksPerSm) fused_topk_gathered_
         cs[c] = my_s;
         ci[c] = my_id;
       }
-      full = base + __popc(m) > kK3FlushAt;
+      full = base + __popc(m) > kRowFlushAt;
     }
-    // The block's buffer merges once it holds more than kK3FlushAt (or after
+    // The block's buffer merges once it holds more than kRowFlushAt (or after
     // the last round); until then it has room for the next round.
     const bool last = round + 1 == n_rounds;
     if (!__syncthreads_or(full) && !last) continue;
     const int n = *cnt;
     if (n > 0) {  // block-uniform
-      merge_buffer<kK3Cap, kThreads, true>(ls, li, K, depth, cs, ci, n, tid);
+      merge_buffer<kRowCap, kThreads, true>(ls, li, K, depth, cs, ci, n, tid);
       __syncthreads();
       if (tid == 0) { *ts = ls[depth - 1]; *ti = li[depth - 1]; *cnt = 0; }
     }
@@ -757,7 +750,7 @@ cudaError_t launch_gathered(const void* q, const void* store, const int* row_ids
                             int n_docs, int T, int depth, int K, int splits, int rows_per_split,
                             int align, float* part_s, int* part_i, cudaStream_t stream) {
   using Raw = typename Traits<M>::Raw;
-  const size_t smem = gathered_smem(T, sizeof(Raw), K);
+  const size_t smem = row_block_smem(gathered_query_bytes(T, sizeof(Raw)), K);
   auto kernel = fused_topk_gathered_partial<M>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -766,31 +759,6 @@ cudaError_t launch_gathered(const void* q, const void* store, const int* row_ids
       static_cast<const Raw*>(q), static_cast<const Raw*>(store), row_ids, B, R, n_docs, T,
       depth, K, rows_per_split, align, part_s, part_i);
   return cudaGetLastError();
-}
-
-// K3's launch plan for B queries of R gathered rows of T elements of `elem`
-// bytes at `depth`: plan[0] K (depth rounded up to 32), plan[1] row splits
-// per query, plan[2] rows per split (a multiple of 32, and at least a round
-// of kK3Round where R allows), so that B x splits is the blocks the SMs
-// hold at once (kK3BlocksPerSm each): at B = 1 each block walks its rows to
-// the end and pass 2 merges that many lists, not more; from B >=
-// kK3BlocksPerSm x sm_count, one split.  Returns cudaErrorInvalidValue if
-// the query and the list do not fit in shared memory (gathered_smem), or
-// pass 2 cannot merge lists of depth.
-inline int k3_plan(int B, int R, int T, int elem, int depth, int sm_count, int* plan) {
-  if (B <= 0 || R <= 0 || T <= 0 || depth <= 0 || depth > R || sm_count <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int K = (depth + 31) / 32 * 32;
-  if (gathered_smem(T, elem, K) > kMaxSmem || merge_lists(depth) < 2)
-    return (int)cudaErrorInvalidValue;
-  const int want = (kK3BlocksPerSm * sm_count + B - 1) / B;
-  const int most = (R + kK3Round - 1) / kK3Round;
-  const int splits = want < most ? want : most;
-  const int rows_per_split = ((R + splits - 1) / splits + 31) / 32 * 32;
-  plan[0] = K;
-  plan[1] = (R + rows_per_split - 1) / rows_per_split;  // no empty split
-  plan[2] = rows_per_split;
-  return 0;
 }
 
 int elem_size(int mode) { return mode == kBF16 ? 2 : (mode == kI8 ? 1 : 4); }
@@ -850,10 +818,11 @@ int fused_topk_launch(int mode, int bq, const void* q, const void* docs, const v
   return (int)launch_merge(ps, pi, splits, B, K, depth, out_s, out_i, st);
 }
 
-// K3's launch plan for R gathered rows of T elements in `mode`: k3_plan.
+// K3's launch plan for R gathered rows of T elements in `mode`:
+// gathered_row_plan (topk_merge.cuh) with the query row's shared memory.
 int fused_topk_gathered_plan(int mode, int B, int R, int T, int depth, int sm_count, int* plan) {
-  if (mode < kF32 || mode > kLSH) return (int)cudaErrorInvalidValue;
-  return k3_plan(B, R, T, elem_size(mode), depth, sm_count, plan);
+  if (mode < kF32 || mode > kLSH || T <= 0) return (int)cudaErrorInvalidValue;
+  return gathered_row_plan(B, R, depth, gathered_query_bytes(T, elem_size(mode)), sm_count, plan);
 }
 
 // Both passes of fused_topk_gathered on `stream`, with the plan of

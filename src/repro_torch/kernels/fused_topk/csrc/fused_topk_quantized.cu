@@ -85,13 +85,39 @@
 // (group 32): the bytes N * (160 + 40) = 0.600 GB take 0.179 ms, and at
 // B = 256 the same 1.86 ms of tf32 operations bound it.
 //
-// K5 is K3's pass 1 (one query per block, a row-split plan that fills
-// the SMs at B = 1, a warp reading whole rows by id with 8 rows' loads in
-// flight, ids outside [0, n_docs) never read, the full comparator since ids
-// arrive in any order) over packed rows: each lane dequantizes its 16-byte
-// packs in registers against the query, held in shared memory as f32 in a
-// lane-interleaved layout (one conflict-free 16-byte read per 4 columns).
-// The sorted insert, the list merge and pass 2 are topk_merge.cuh's.
+// K5 (fused_topk_gathered_quantized_partial + the same merge) is K3's pass
+// 1 over packed rows: grid (B, row splits), one query a block, K3's
+// row-split plan (gathered_row_plan, topk_merge.cuh: two blocks a SM, so at
+// B = 1 each of 261 blocks walks ~1,150 rows), one running list a block fed
+// by a candidate buffer that the whole block merges by counting
+// (merge_buffer of mma_topk.cuh; kDup: an id that comes twice ranks twice),
+// the full comparator since ids arrive in any order, ids outside [0,
+// n_docs) never read.  A quarter-warp reads a row in 8-byte units (16 int4
+// columns or 8 int8 ones), so at T = 600 95% of the lanes work; a lane
+// scores two rows against one read of the query (f32 in shared memory: a
+// quarter's 8 lanes read 8 consecutive 16-byte words, the 4 quarters the
+// same ones), and the next chunk's loads are in flight in registers while
+// this one's units are dequantized (a cp.async ring of three chunks a lane
+// measured slower at B = 8 and 256: PERF.md §6).  The loads are 8-, 4-
+// or 1-byte ones as the rows are aligned, chosen at compile time (ALIGN; a
+// choice at run time was 1.4x slower at B = 256: PERF.md §6).  The
+// dequant gives the reference's values: an int8 byte by one PRMT into a
+// magic float and one subtract (the sign bits flipped once a word); an int4
+// nibble by one PRMT, a subtract and the multiply by its group's scale,
+// two of them rounded to bf16 by one conversion for a bf16 query.
+//
+// Bound (chip_smoke.gathered_quantized_bound_ms): each distinct kept row and
+// its scales once, the query and the ids; at the quantized blockmax cell
+// (int4 g32, T = 600, n_keep 1171: R = 299,776) 0.034 ms at B = 1, 0.154 at
+// B = 8 and 0.415 at B = 256 (3.35 TB/s).  This design shares no row
+// between the queries that keep it, so its own floor is the no-reuse bytes
+// B R (304 + 76 + 4) (chip_smoke.no_reuse_ms): 0.034 ms at B = 1, 0.275 at
+// B = 8, 8.80 at B = 256.  No tensor cores: each query reads its own rows,
+// so no product is reused.  At B = 256 the queries do share kept blocks
+// (each kept by ~26 queries on average); scoring every query that kept a
+// block from one read of it, on tensor cores, needs (block -> queries)
+// lists built on the card and a per-query merge across blocks: another
+// algorithm (PERF.md §7).
 
 #include <cuda_bf16.h>
 
@@ -112,52 +138,6 @@ template <> struct Query<kQBF16> { using Raw = uint16_t; };
 template <int QT> __device__ __forceinline__ float widen(typename Query<QT>::Raw x) {
   if constexpr (QT == kQBF16) return __uint_as_float(static_cast<uint32_t>(x) << 16);  // exact
   else return x;
-}
-
-// An int4 value in the query dtype, as an f32: (nibble - 8) * group scale in
-// f32, rounded once to bf16 for a bf16 query.  nibble - 8 comes exactly from
-// the float 2^23 + nibble.
-template <int QT> __device__ __forceinline__ float int4_value(uint32_t nib, float gscale) {
-  const float v = (__uint_as_float(0x4B000000u | nib) - 8388616.0f) * gscale;
-  if constexpr (QT == kQBF16) return __bfloat162float(__float2bfloat16_rn(v));
-  else return v;
-}
-
-// A stored int8 byte as an exact f32 (2^23 + the byte with its sign bit
-// flipped, minus 2^23 + 128).
-__device__ __forceinline__ float int8_value(uint32_t byte) {
-  return __uint_as_float(0x4B000000u | (byte ^ 0x80u)) - 8388736.0f;
-}
-
-union Pack16 { uint4 u; uint8_t b[16]; };
-
-// Bytes [b0, b0 + 16 * NV) of a row of `len` bytes: 16-byte loads where the
-// row is 16-byte aligned, 8-byte loads where it is 8-byte aligned (int8 rows
-// of 600 bytes), byte loads at the row's end or otherwise; bytes past `len`
-// are `pad`.  b0 is a multiple of 16.
-template <int NV>
-__device__ __forceinline__ void load_bytes(const uint8_t* row, int b0, int len, int align,
-                                           uint8_t pad, Pack16 (&out)[NV]) {
-  if (b0 + 16 * NV <= len && align >= 8) {
-#pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      if (align >= 16) {
-        out[v].u = *reinterpret_cast<const uint4*>(row + b0 + 16 * v);
-      } else {
-        const uint2 lo = *reinterpret_cast<const uint2*>(row + b0 + 16 * v);
-        const uint2 hi = *reinterpret_cast<const uint2*>(row + b0 + 16 * v + 8);
-        out[v].u = make_uint4(lo.x, lo.y, hi.x, hi.y);
-      }
-    }
-    return;
-  }
-#pragma unroll
-  for (int v = 0; v < NV; ++v)
-#pragma unroll
-    for (int s = 0; s < 16; ++s) {
-      const int e = b0 + 16 * v + s;
-      out[v].b[s] = e < len ? row[e] : pad;
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -235,8 +215,8 @@ struct Int8Rows {
 // scale.  A unit lies in one group (group is a multiple of 32); a group
 // index >= n_groups (the last chunk's columns past Tg) reads scale 0 and is
 // never loaded, bytes past the row read 0x88 (nibbles 8: value 0), and rows
-// that do not exist are never read.  Each nibble widens as the reference's
-// int4_value<kQBF16>: bf16(f32(nibble - 8) * scale).
+// that do not exist are never read.  Each nibble widens as the reference
+// dequantizes it: bf16(f32(nibble - 8) * scale).
 struct Int4Rows {
   using Op = MmaBf16;
   struct Unit {
@@ -378,8 +358,8 @@ cudaError_t launch_mma(int bq, const void* q, const void* docs, const float* sca
 // 16-byte f32 pack once widened; one 4-byte load where the row is at least
 // 4-byte aligned and holds all 4 (int8 rows of 300 bytes), else byte loads;
 // bytes past T, and rows that do not exist, are 0.  Each byte widens exactly
-// to f32 (as int8_value), so it is exact in tf32 too, and the sum is
-// multiplied by scale[id] once, after the whole row.
+// to f32 (2^23 + (byte ^ 0x80) - (2^23 + 128)), so it is exact in tf32 too,
+// and the sum is multiplied by scale[id] once, after the whole row.
 struct Int8RowsF32 {
   using Op = MmaTf32;
   using Unit = uint32_t;
@@ -539,162 +519,343 @@ cudaError_t launch_tf32(int bq, const void* q, const void* docs, const float* sc
 // K5: pass 1 over gathered packed rows (fused_topk_gathered_quantized_partial).
 // ---------------------------------------------------------------------------
 
-// Columns one lane's 16-byte pack covers: 16 int8 values or 32 nibbles.
-template <int BITS> constexpr int kPackCols = BITS == 8 ? 16 : 32;
+// A K5 unit is 8 bytes of a packed row: 16 int4 columns (inside one group,
+// as groups are multiples of 32 columns) or 8 int8 columns.  A quarter-warp
+// reads a row's units in turn (lane l of the quarter units l, l + 8, ...),
+// so a unit round is 8 units; a lane scores kRowsPerLane rows of its
+// quarter at once, and holds a chunk of kUnitRounds rounds of their units
+// in registers, the next chunk's loads in flight.
+__host__ __device__ constexpr int unit_cols(int bits) { return bits == 8 ? 8 : 16; }
+template <int BITS> constexpr int kUnitCols = unit_cols(BITS);
+constexpr int kRowsPerLane = 2;
+constexpr int kUnitRounds = 5;  // int4 rows up to T = 640, int8 up to 320: one chunk
 
-// The f32 query of a K5 block in shared memory, padded to whole rounds of 32
-// packs: pack p = lane + 32 * j, columns [p * kPackCols, ...).  Column
-// 4 * k4 + e of pack p sits at float4 (j * kPackCols / 4 + k4) * 32 + lane,
-// component e, so the 32 lanes read 32 consecutive float4s.
-__host__ __device__ constexpr int gathered_rounds(int t, int pack_cols) {
-  return (t + 32 * pack_cols - 1) / (32 * pack_cols);
+// Units that hold the query's T columns (an int4 row's last units past T,
+// which only padding fills, are never read), and the f32 query of a K5
+// block in shared memory, padded to whole chunks with 0: column e of unit u
+// sits at float4 ((u / 8) * kUnitCols / 4 + e / 4) * 8 + u % 8, component
+// e % 4, so the 8 lanes of a quarter read 8 consecutive float4s and the 4
+// quarters read the same ones.
+__host__ __device__ constexpr int k5_units(int t, int bits) {
+  return (t + unit_cols(bits) - 1) / unit_cols(bits);
 }
-constexpr size_t gathered_query_bytes(int t, int pack_cols) {
-  return (size_t)gathered_rounds(t, pack_cols) * 32 * pack_cols * sizeof(float);
+__host__ __device__ constexpr int k5_chunks(int t, int bits) {
+  return (k5_units(t, bits) + 8 * kUnitRounds - 1) / (8 * kUnitRounds);
+}
+__host__ __device__ constexpr size_t k5_query_bytes(int t, int bits) {
+  return (size_t)k5_chunks(t, bits) * kUnitRounds * 8 * unit_cols(bits) * sizeof(float);
+}
+
+// Bytes [b0, b0 + 8) of a row of `len` bytes that starts ALIGN-byte aligned
+// (8, 4 or 1): one 8-byte load, two 4-byte loads (an int8 row's last unit
+// may hold 4 bytes), or byte loads; bytes past `len` are 0.
+template <int ALIGN>
+__device__ __forceinline__ uint2 load_unit(const uint8_t* row, int b0, int len) {
+  if constexpr (ALIGN >= 8) {
+    return *reinterpret_cast<const uint2*>(row + b0);
+  } else if constexpr (ALIGN >= 4) {
+    return make_uint2(*reinterpret_cast<const uint32_t*>(row + b0),
+                      b0 + 4 < len ? *reinterpret_cast<const uint32_t*>(row + b0 + 4) : 0u);
+  } else {
+    union { uint2 u; uint8_t b[8]; } p;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) p.b[s] = b0 + s < len ? row[b0 + s] : 0;
+    return p.u;
+  }
+}
+
+// A lane's units of a chunk: for each of its rows and unit rounds, the
+// unit and (int4) its group's scale.  Units past the row's last, and rows
+// whose id is outside [0, n_docs), are never read: they hold 0, which
+// scores 0 against the query's zero padding.
+struct K5Chunk {
+  uint2 unit[kRowsPerLane][kUnitRounds];
+  float gs[kRowsPerLane][kUnitRounds];
+};
+
+// Where a lane's units of chunk `chunk` lie in every row: for each unit
+// round, the unit and (int4) its group's scale column.
+struct K5Cols {
+  int unit[kUnitRounds];
+  int group[kUnitRounds];
+};
+
+template <int BITS>
+__device__ __forceinline__ K5Cols k5_cols(int chunk, int lane8, int group) {
+  K5Cols c;
+#pragma unroll
+  for (int j = 0; j < kUnitRounds; ++j) {
+    c.unit[j] = (chunk * kUnitRounds + j) * 8 + lane8;
+    c.group[j] = BITS == 4 ? kUnitCols<4> * c.unit[j] / group : 0;
+  }
+  return c;
+}
+
+template <int BITS, int ALIGN>
+__device__ __forceinline__ void k5_load(K5Chunk& ch, const uint8_t* __restrict__ store,
+                                        const float* __restrict__ scale,
+                                        const int (&id)[kRowsPerLane], const K5Cols& cols,
+                                        int n_units, int n_docs, int row_bytes, int n_groups) {
+#pragma unroll
+  for (int h = 0; h < kRowsPerLane; ++h) {
+    const bool ok = static_cast<unsigned>(id[h]) < static_cast<unsigned>(n_docs);
+    const uint8_t* row = store + (size_t)(ok ? id[h] : 0) * row_bytes;
+    const float* srow = scale + (size_t)(ok ? id[h] : 0) * n_groups;
+#pragma unroll
+    for (int j = 0; j < kUnitRounds; ++j) {
+      const bool live = ok && cols.unit[j] < n_units;
+      ch.unit[h][j] = live ? load_unit<ALIGN>(row, 8 * cols.unit[j], row_bytes) : make_uint2(0, 0);
+      ch.gs[h][j] = BITS == 4 && live ? srow[cols.group[j]] : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void round_bf16_pair(float& a, float& b) {
+  const uint32_t p = bf16x2_rn(a, b);
+  a = __uint_as_float(p << 16);
+  b = __uint_as_float(p & 0xFFFF0000u);
+}
+
+// acc + the products of the query's columns of a unit (qv) with the unit's
+// values, in the reference's dequant: an int8 byte widened exactly (the sign
+// bits flipped once a word, then 2^23 + byte - (2^23 + 128)); an int4 nibble
+// as f32(nibble - 8) * gs, two of them rounded to bf16 at once for a bf16
+// query (round_bf16_pair).
+template <int QT, int BITS>
+__device__ __forceinline__ float k5_dot(float acc, const float (&qv)[kUnitCols<BITS>], uint2 unit,
+                                        float gs) {
+  const uint32_t w[2] = {unit.x, unit.y};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if constexpr (BITS == 8) {
+      const uint32_t x = w[k] ^ 0x80808080u;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc = fmaf(qv[4 * k + c], magic_byte(x, c) - 8388736.0f, acc);
+    } else {
+      const uint32_t lo = w[k] & 0x0F0F0F0Fu, hi = (w[k] >> 4) & 0x0F0F0F0Fu;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float a = (magic_byte(lo, c) - 8388616.0f) * gs;
+        float b = (magic_byte(hi, c) - 8388616.0f) * gs;
+        if constexpr (QT == kQBF16) round_bf16_pair(a, b);
+        acc = fmaf(qv[8 * k + 2 * c], a, acc);
+        acc = fmaf(qv[8 * k + 2 * c + 1], b, acc);
+      }
+    }
+  }
+  return acc;
+}
+
+// The products of a chunk: each unit round's query columns read once from
+// shared memory (kUnitCols / 4 float4s) for both rows.
+template <int QT, int BITS>
+__device__ __forceinline__ void k5_chunk(float (&acc)[kRowsPerLane], const K5Chunk& ch,
+                                         const float4* qs, int chunk, int n_rounds, int lane8) {
+  constexpr int kQuads = kUnitCols<BITS> / 4;
+#pragma unroll
+  for (int j = 0; j < kUnitRounds; ++j) {
+    const int jr = chunk * kUnitRounds + j;
+    if (jr >= n_rounds) break;
+    float qv[kUnitCols<BITS>];
+#pragma unroll
+    for (int k = 0; k < kQuads; ++k) {
+      const float4 v = qs[(jr * kQuads + k) * 8 + lane8];
+      qv[4 * k] = v.x;
+      qv[4 * k + 1] = v.y;
+      qv[4 * k + 2] = v.z;
+      qv[4 * k + 3] = v.w;
+    }
+#pragma unroll
+    for (int h = 0; h < kRowsPerLane; ++h)
+      acc[h] = k5_dot<QT, BITS>(acc[h], qv, ch.unit[h][j], ch.gs[h][j]);
+  }
 }
 
 // Grid (B, splits): block (b, split) owns rows [split * rows_per_split, ...)
-// of query b's R kept rows.  Each warp takes 32-row groups in turn; its lanes
-// read a row together (lane l the 16-byte packs l, l + 32, ...), kGatherRows
-// rows at a time, dequantize each pack in registers, reduce each row's sum
-// across the warp, and lane r keeps row r's score.  The warp merges its 32
-// candidates into its own running list; at the end warp 0 merges the other
-// warps' lists and writes the block's sorted list.  A row whose id is outside
-// [0, n_docs) is never read and never ranks.
-template <int QT, int BITS>
-__global__ void __launch_bounds__(kThreads, 2) fused_topk_gathered_quantized_partial(
+// of query b's R kept rows and keeps one running list of K for them, as K3
+// does.  The block scores kRowRound rows a round, a row a thread (lane l of
+// warp w: the warp's row l), each warp its 32 in 4 steps of 8: quarter q of
+// the warp reads rows 2q and 2q + 1 of the step, its lanes a unit of each at
+// a time, loaded a chunk ahead (ALIGN-byte loads: rows start 8-, 4- or
+// 1-byte aligned).  The quarter's sums meet in 3 shuffles, and the lane
+// that owns a row takes its score.  A score that precedes the list's
+// depth-th entry (the full comparator: ids arrive in any order) goes to the
+// block's candidate buffer; once the buffer holds more than kRowFlushAt, or
+// after the last round, the whole block merges it into the list by counting
+// (merge_buffer) and refreshes the threshold.  A row whose id is outside [0,
+// n_docs) is never read and never ranks; an id that comes twice is scored
+// and ranked twice, as the reference ranks it.
+template <int QT, int BITS, int ALIGN>
+__global__ void __launch_bounds__(kThreads, kRowBlocksPerSm) fused_topk_gathered_quantized_partial(
     const typename Query<QT>::Raw* __restrict__ q,  // (B, T)
     const uint8_t* __restrict__ store,              // (N, row_bytes)
     const float* __restrict__ scale,                // (N, n_groups)
     const int* __restrict__ row_ids,                // (B, R)
-    int B, int R, int n_docs, int T, int row_bytes, int group, int n_groups, int K,
-    int rows_per_split, int align,
-    float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
-  constexpr int kCols = kPackCols<BITS>;
-  constexpr int kQuads = kCols / 4;  // float4s of query per pack
+    int B, int R, int n_docs, int T, int row_bytes, int group, int n_groups, int depth, int K,
+    int rows_per_split, float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
+  constexpr int kCols = kUnitCols<BITS>;
+  constexpr int kQuads = kCols / 4;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  const int n_rounds = gathered_rounds(T, kCols);
-  float4* qs = reinterpret_cast<float4*>(smem);  // n_rounds x kQuads x 32
-  float* ls = reinterpret_cast<float*>(qs + n_rounds * kQuads * 32);  // kWarps x K scores
-  int* li = reinterpret_cast<int*>(ls + kWarps * K);                  // kWarps x K ids
+  const size_t q_bytes = k5_query_bytes(T, BITS);
+  const float4* qs = reinterpret_cast<const float4*>(smem);
+  float* qf = reinterpret_cast<float*>(smem);
+  float* ls = reinterpret_cast<float*>(smem + q_bytes);  // K running scores
+  int* li = reinterpret_cast<int*>(ls + K);               // K running ids
+  float* cs = reinterpret_cast<float*>(li + K);           // kRowCap candidates
+  int* ci = reinterpret_cast<int*>(cs + kRowCap);
+  float* ts = reinterpret_cast<float*>(ci + kRowCap);      // the list's depth-th entry
+  int* ti = reinterpret_cast<int*>(ts + 1);
+  int* cnt = ti + 1;                                       // candidates in the buffer
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, lane8 = lane & 7, quarter = lane >> 3;
   const int b = blockIdx.x, split = blockIdx.y;
   const int row0 = split * rows_per_split;
   const int row1 = min(R, row0 + rows_per_split);
-  const int n_groups_rows = (max(0, row1 - row0) + 31) / 32;
+  const int n_rounds = (max(0, row1 - row0) + kRowRound - 1) / kRowRound;
+  const int n_units = k5_units(T, BITS);
+  const int n_unit_rounds = (n_units + 7) / 8;
+  const int n_chunks = k5_chunks(T, BITS);
 
-  float* qf = reinterpret_cast<float*>(qs);
-  for (int col = tid; col < n_rounds * 32 * kCols; col += kThreads) {
-    const int p = col / kCols, within = col % kCols;
-    const int slot = ((p / 32) * kQuads + within / 4) * 32 + p % 32;
-    qf[slot * 4 + within % 4] = col < T ? widen<QT>(q[(size_t)b * T + col]) : 0.f;
+  for (int col = tid; col < (int)(q_bytes / 4); col += kThreads) {
+    const int u = col / kCols, e = col % kCols;
+    qf[(((u / 8) * kQuads + e / 4) * 8 + u % 8) * 4 + e % 4] =
+        col < T ? widen<QT>(q[(size_t)b * T + col]) : 0.f;
   }
-  float* rs = ls + warp * K;
-  int* ri = li + warp * K;
-  for (int c = lane; c < K; c += 32) { rs[c] = -INFINITY; ri[c] = kBigId; }
+  for (int c = tid; c < K; c += kThreads) { ls[c] = -INFINITY; li[c] = kBigId; }
+  if (tid == 0) { *ts = -INFINITY; *ti = kBigId; *cnt = 0; }
   __syncthreads();
 
+  // Thread t holds the id of row t of each round: this round's, the next
+  // one's (for the loads issued ahead) and the one after, loaded a round
+  // ahead.
   const int* ids = row_ids + (size_t)b * R;
-  for (int g = warp; g < n_groups_rows; g += kWarps) {
-    const int r = row0 + g * 32 + lane;
-    const int my_id = r < row1 ? ids[r] : kBigId;
+  const auto round_id = [&](int round) {
+    const int r = row0 + round * kRowRound + tid;
+    return round < n_rounds && r < row1 ? ids[r] : kBigId;
+  };
+  int my_id = round_id(0), next_id = round_id(1), after_id = round_id(2);
+  // The chunk the next fetch loads, (fround, fstep, fchunk): this round's or
+  // the next one's; this lane's rows of a step are the warp's rows 8 step +
+  // 2 quarter + h.  cols holds where chunk cols_chunk lies in every row.
+  int fround = 0, fstep = 0, fchunk = 0, cols_chunk = 0;
+  K5Cols cols = k5_cols<BITS>(0, lane8, group);
+  K5Chunk cur, nxt;
+  const auto fetch = [&](int round) {
+    if (fround < n_rounds) {
+      const int src = fround == round ? my_id : next_id;
+      int id[kRowsPerLane];
+#pragma unroll
+      for (int h = 0; h < kRowsPerLane; ++h)
+        id[h] = __shfl_sync(kFull, src, 8 * fstep + kRowsPerLane * quarter + h);
+      if (fchunk != cols_chunk) {
+        cols = k5_cols<BITS>(fchunk, lane8, group);
+        cols_chunk = fchunk;
+      }
+      k5_load<BITS, ALIGN>(nxt, store, scale, id, cols, n_units, n_docs, row_bytes, n_groups);
+    }
+    if (++fchunk == n_chunks) {
+      fchunk = 0;
+      if (++fstep == 4) { fstep = 0; ++fround; }
+    }
+  };
+  fetch(0);
+  cur = nxt;
+  for (int round = 0; round < n_rounds; ++round) {
     const bool my_ok = static_cast<unsigned>(my_id) < static_cast<unsigned>(n_docs);
+    const float my_scale = BITS == 8 && my_ok ? scale[my_id] : 1.f;
     float my_s = -INFINITY;
-#pragma unroll 1
-    for (int u0 = 0; u0 < 32; u0 += kGatherRows) {
-      int id[kGatherRows];
-      float acc[kGatherRows];
-#pragma unroll
-      for (int u = 0; u < kGatherRows; ++u) {
-        id[u] = __shfl_sync(kFull, my_id, u0 + u);
-        acc[u] = 0.f;
+    for (int step = 0; step < 4; ++step) {
+      float acc[kRowsPerLane] = {0.f, 0.f};
+      for (int chunk = 0; chunk < n_chunks; ++chunk) {
+        fetch(round);  // the next chunk's loads go out before this chunk's products
+        k5_chunk<QT, BITS>(acc, cur, qs, chunk, n_unit_rounds, lane8);
+        cur = nxt;
       }
-      for (int j = 0; j < n_rounds; ++j) {
-        const int e0 = (lane + 32 * j) * kCols;
-        if (e0 >= T) break;
-        Pack16 dv[kGatherRows][1];
-        float gs[kGatherRows];
-#pragma unroll
-        for (int u = 0; u < kGatherRows; ++u) {
-          const bool ok = static_cast<unsigned>(id[u]) < static_cast<unsigned>(n_docs);
-          gs[u] = 0.f;
-          if (!ok) {  // an id out of range is never read
-            dv[u][0].u = make_uint4(0, 0, 0, 0);
-          } else if constexpr (BITS == 8) {
-            load_bytes<1>(store + (size_t)id[u] * row_bytes, e0, row_bytes, align, 0, dv[u]);
-          } else {
-            load_bytes<1>(store + (size_t)id[u] * row_bytes, e0 / 2, row_bytes, align, kInt4Pad,
-                          dv[u]);
-            gs[u] = scale[(size_t)id[u] * n_groups + e0 / group];
-          }
-        }
-#pragma unroll
-        for (int k4 = 0; k4 < kQuads; ++k4) {
-          const float4 qv = qs[(j * kQuads + k4) * 32 + lane];
-          const float qe[4] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-          for (int u = 0; u < kGatherRows; ++u)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              const int c = 4 * k4 + e;
-              float v;
-              if constexpr (BITS == 8) {
-                v = int8_value(dv[u][0].b[c]);
-              } else {
-                const uint32_t byte = dv[u][0].b[c / 2];
-                v = int4_value<QT>((c & 1) ? byte >> 4 : byte & 0xFu, gs[u]);
-              }
-              acc[u] = fmaf(qe[e], v, acc[u]);
-            }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kGatherRows; ++u) {
-        const float tot = warp_sum(acc[u]);
-        if (lane == u0 + u) my_s = tot;
-      }
+      // The quarter's sums of its two rows, transposed: lanes 0-3 of the
+      // quarter end with row 2 quarter's, lanes 4-7 with row 2 quarter + 1's.
+      const bool upper = (lane & 4) != 0;
+      float s = upper ? acc[1] : acc[0];
+      s += __shfl_xor_sync(kFull, upper ? acc[0] : acc[1], 4);
+      s += __shfl_xor_sync(kFull, s, 2);
+      s += __shfl_xor_sync(kFull, s, 1);
+      const float v = __shfl_sync(kFull, s, (lane & 6) << 2 | (lane & 1) << 2);
+      if (quarter == step) my_s = v;  // lane 8 step + i owns the step's row i
     }
-    if (BITS == 8 && my_ok) my_s *= scale[my_id];  // the per-doc scale, once after the sum
-    // Ids arrive in any order, so the check against the K-th entry uses the
-    // full comparator: a tied score with a lower id still enters.
-    unsigned mask = __ballot_sync(kFull, my_ok && precedes(my_s, my_id, rs[K - 1], ri[K - 1]));
-    while (mask) {
-      const int src = __ffs(mask) - 1;
-      mask &= mask - 1;
-      const float cs = __shfl_sync(kFull, my_s, src);
-      const int cid = __shfl_sync(kFull, my_id, src);
-      if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
+    if (BITS == 8) my_s *= my_scale;  // the per-doc scale, once after the sum
+    // Ids arrive in any order, so the test against the depth-th entry uses
+    // the full comparator: a tied score with a lower id still enters.  A
+    // stale threshold only lets more in.
+    const bool pass = my_ok && precedes(my_s, my_id, *ts, *ti);
+    const unsigned m = __ballot_sync(kFull, pass);
+    bool full = false;
+    if (m != 0) {
+      int base = 0;
+      if (lane == 0) base = atomicAdd(cnt, __popc(m));
+      base = __shfl_sync(kFull, base, 0);
+      if (pass) {
+        const int c = base + __popc(m & ((1u << lane) - 1u));
+        cs[c] = my_s;
+        ci[c] = my_id;
+      }
+      full = base + __popc(m) > kRowFlushAt;
     }
+    // The block's buffer merges once it holds more than kRowFlushAt (or
+    // after the last round); until then it has room for the next round.
+    if (__syncthreads_or(full) || round + 1 == n_rounds) {
+      const int n = *cnt;
+      if (n > 0) {  // block-uniform
+        merge_buffer<kRowCap, kThreads, true>(ls, li, K, depth, cs, ci, n, tid);
+        __syncthreads();
+        if (tid == 0) { *ts = ls[depth - 1]; *ti = li[depth - 1]; *cnt = 0; }
+      }
+      __syncthreads();
+    }
+    my_id = next_id;
+    next_id = after_id;
+    after_id = round_id(round + 3);
   }
 
-  __syncthreads();
-  if (warp != 0) return;
-  for (int w = 1; w < kWarps; ++w) merge_sorted(rs, ri, ls + w * K, li + w * K, K, lane);
   const size_t out = ((size_t)split * B + b) * K;
-  for (int c = lane; c < K; c += 32) {
-    part_s[out + c] = rs[c];
-    part_i[out + c] = ri[c];
+  for (int c = tid; c < K; c += kThreads) {
+    part_s[out + c] = ls[c];
+    part_i[out + c] = li[c];
   }
 }
 
-template <int QT, int BITS>
-cudaError_t launch_gathered(const void* q, const void* store, const float* scale,
-                            const int* row_ids, int B, int R, int n_docs, int T, int row_bytes,
-                            int group, int n_groups, int K, int splits, int rows_per_split,
-                            int align, float* part_s, int* part_i, cudaStream_t stream) {
-  const size_t smem =
-      gathered_query_bytes(T, kPackCols<BITS>) + (size_t)kWarps * K * (sizeof(float) + sizeof(int));
-  auto kernel = fused_topk_gathered_quantized_partial<QT, BITS>;
+template <int QT, int BITS, int ALIGN>
+cudaError_t launch_gathered_instance(const void* q, const void* store, const float* scale,
+                                     const int* row_ids, int B, int R, int n_docs, int T,
+                                     int row_bytes, int group, int n_groups, int depth, int K,
+                                     int splits, int rows_per_split, float* part_s, int* part_i,
+                                     cudaStream_t stream) {
+  const size_t smem = row_block_smem(k5_query_bytes(T, BITS), K);
+  auto kernel = fused_topk_gathered_quantized_partial<QT, BITS, ALIGN>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(B, splits), kThreads, smem, stream>>>(
       static_cast<const typename Query<QT>::Raw*>(q), static_cast<const uint8_t*>(store), scale,
-      row_ids, B, R, n_docs, T, row_bytes, group, n_groups, K, rows_per_split, align, part_s,
+      row_ids, B, R, n_docs, T, row_bytes, group, n_groups, depth, K, rows_per_split, part_s,
       part_i);
   return cudaGetLastError();
+}
+
+// K5's pass 1 for rows that start `align`-byte aligned (16, 8, 4 or 1).
+template <int QT, int BITS>
+cudaError_t launch_gathered(const void* q, const void* store, const float* scale,
+                            const int* row_ids, int B, int R, int n_docs, int T, int row_bytes,
+                            int group, int n_groups, int depth, int K, int splits,
+                            int rows_per_split, int align, float* part_s, int* part_i,
+                            cudaStream_t stream) {
+#define FUSED_TOPK_GATHERED_QUANTIZED(ALIGN)                                                    \
+  return launch_gathered_instance<QT, BITS, ALIGN>(q, store, scale, row_ids, B, R, n_docs, T,   \
+                                                   row_bytes, group, n_groups, depth, K, splits, \
+                                                   rows_per_split, part_s, part_i, stream)
+  if (align >= 8) FUSED_TOPK_GATHERED_QUANTIZED(8);
+  if (align >= 4) FUSED_TOPK_GATHERED_QUANTIZED(4);
+  FUSED_TOPK_GATHERED_QUANTIZED(1);
+#undef FUSED_TOPK_GATHERED_QUANTIZED
 }
 
 // The operands every entry checks: a query dtype, a width, and for int4 a
@@ -768,13 +929,12 @@ int fused_topk_quantized_launch(int qdtype, int bits, int bq, const void* q, con
   return (int)launch_merge(ps, pi, splits, B, K, depth, out_s, out_i, st);
 }
 
-// K5's launch plan for R kept rows of T columns: gathered_plan
-// (topk_merge.cuh) with the f32 query's shared memory.
+// K5's launch plan for R kept rows of T columns: gathered_row_plan
+// (topk_merge.cuh, K3's) with the f32 query's shared memory.
 int fused_topk_gathered_quantized_plan(int bits, int B, int R, int T, int depth, int sm_count,
                                        int* plan) {
   if ((bits != 8 && bits != 4) || T <= 0) return (int)cudaErrorInvalidValue;
-  const size_t query_bytes = gathered_query_bytes(T, bits == 8 ? kPackCols<8> : kPackCols<4>);
-  return gathered_plan(B, R, depth, query_bytes, sm_count, plan);
+  return gathered_row_plan(B, R, depth, k5_query_bytes(T, bits), sm_count, plan);
 }
 
 // Both passes of K5 on `stream`, with the plan of
@@ -798,16 +958,16 @@ int fused_topk_gathered_quantized_launch(int qdtype, int bits, const void* q, co
   cudaError_t err;
   if (qdtype == kQBF16 && bits == 8)
     err = launch_gathered<kQBF16, 8>(q, store, sc, rid, B, R, n_docs, T, row_bytes, group,
-                                     n_groups, K, splits, rows_per_split, align, ps, pi, st);
+                                     n_groups, depth, K, splits, rows_per_split, align, ps, pi, st);
   else if (qdtype == kQBF16)
     err = launch_gathered<kQBF16, 4>(q, store, sc, rid, B, R, n_docs, T, row_bytes, group,
-                                     n_groups, K, splits, rows_per_split, align, ps, pi, st);
+                                     n_groups, depth, K, splits, rows_per_split, align, ps, pi, st);
   else if (bits == 8)
     err = launch_gathered<kQF32, 8>(q, store, sc, rid, B, R, n_docs, T, row_bytes, group,
-                                    n_groups, K, splits, rows_per_split, align, ps, pi, st);
+                                    n_groups, depth, K, splits, rows_per_split, align, ps, pi, st);
   else
     err = launch_gathered<kQF32, 4>(q, store, sc, rid, B, R, n_docs, T, row_bytes, group,
-                                    n_groups, K, splits, rows_per_split, align, ps, pi, st);
+                                    n_groups, depth, K, splits, rows_per_split, align, ps, pi, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_merge(ps, pi, splits, B, K, depth, out_s, out_i, st);
 }

@@ -140,12 +140,6 @@ constexpr int kRegStages = 2;               // stages of the register-staged loa
 constexpr size_t kSmemPerSm = 228 * 1024;   // shared memory of an SM
 constexpr size_t kSmemPerBlock = 1024;      // what the card reserves per resident block
 
-// A query's candidates wait in its buffer until more than bn / 4 have
-// gathered (or the block's last tile is done); the buffer holds that many
-// plus one tile's worth.
-__host__ __device__ constexpr int flush_at(int bn) { return bn / 4; }
-__host__ __device__ constexpr int cand_cap(int bn) { return bn + flush_at(bn); }
-
 // Dynamic shared memory of a pass-1 block of bq queries and bn-doc tiles
 // with `stages` staged chunks: the stages (bn doc rows, then bq query rows,
 // each 144 bytes; for a ring of raw packed rows, `slot` > 0, one widened doc
@@ -372,8 +366,8 @@ __device__ __forceinline__ void merge_sync() {
 // a candidate, the candidates before it (the same sweep) plus its rank in
 // the list (binary search).  Slots >= K drop.  No two entries share a slot:
 // no two share an id, or (kDup, where an id may come twice: the gathered
-// K3's row ids) a copy goes after the list's entry and after the buffer's
-// earlier copies.  The kLanes threads (one warp, or the block; `lane` is
+// K3's and K5's row ids) a copy goes after the list's entry and after the
+// buffer's earlier copies.  The kLanes threads (one warp, or the block; `lane` is
 // the thread's index among them) take part; each holds its entries in
 // registers until every slot is known.
 template <int kCandPer, int kPer, int kLanes = 32, bool kDup = false>

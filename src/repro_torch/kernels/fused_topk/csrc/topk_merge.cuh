@@ -1,12 +1,12 @@
 // What the fused top-k kernels share (fused_topk.cu: K1-K3;
 // fused_topk_quantized.cu: K4-K5): K1's CUDA-core streaming pass 1's tile
-// shape and the CUDA-core pass-1 launch plans of K1 and K5 (how N or R is
-// split so that B = 1 fills the SMs; the tensor-core pass 1 of K1 and K4
-// has its own plan, in mma_topk.cuh, and K3 its own, in fused_topk.cu), the
-// (score desc, id asc) order, the warp-wide sorted insert, the merge of two
-// sorted lists, and pass 2 (fused_topk_merge), which merges the splits'
-// sorted partial lists of every query and writes the first `depth`
-// entries.  Each source is its own shared library, so the
+// shape and launch plan, the gathered pass 1's row-split plan (K3 and K5:
+// how R is split so that B = 1 fills the SMs, each block keeping one
+// running list; the tensor-core pass 1 of K1 and K4 has its own plan, in
+// mma_topk.cuh), the candidate buffers' sizes, the (score desc, id asc)
+// order, the warp-wide sorted insert, and pass 2 (fused_topk_merge), which
+// merges the splits' sorted partial lists of every query and writes the
+// first `depth` entries.  Each source is its own shared library, so the
 // definitions live in an anonymous namespace and each library carries its
 // own copy.
 #pragma once
@@ -32,10 +32,27 @@ constexpr int kBN = 256;                  // docs per tile
 constexpr int kTN = kBN / 32;             // doc columns per lane
 constexpr size_t kWideSmem = 100 * 1024;  // above this, 32-query blocks drop to 8
 constexpr int kBlocksPerSm = 4;           // streaming pass-1 blocks to aim for per SM
-// Gathered pass 1 of K5: one query per block, each warp scoring rows by id
-// into a list of its own.
-constexpr int kGatherRows = 8;            // rows a warp scores at once (loads in flight)
-constexpr int kGatherBlocksPerSm = 2;     // gathered pass-1 blocks to aim for per SM
+
+// A query's candidates wait in its buffer until more than bn / 4 have
+// gathered (or the block's last tile or round is done); the buffer holds
+// that many plus one tile's or round's worth.
+__host__ __device__ constexpr int flush_at(int bn) { return bn / 4; }
+__host__ __device__ constexpr int cand_cap(int bn) { return bn + flush_at(bn); }
+
+// The gathered pass 1 (K3, K5): one query a block, whose kThreads threads
+// score a round of kRowRound rows (a row a thread) between two threshold
+// tests of the block's one running list; kRowBlocksPerSm blocks resident
+// per SM (2 x 8 warps).
+constexpr int kRowRound = kThreads;
+constexpr int kRowCap = cand_cap(kRowRound), kRowFlushAt = flush_at(kRowRound);
+constexpr int kRowBlocksPerSm = 2;
+
+// Dynamic shared memory of a gathered pass-1 block whose query takes
+// query_bytes: then the running list of K (score, id) pairs, the candidate
+// buffer, and the threshold and count.
+__host__ __device__ constexpr size_t row_block_smem(size_t query_bytes, int K) {
+  return query_bytes + (size_t)(K + kRowCap) * 8 + 16;
+}
 
 // Dynamic shared memory of a streaming pass-1 block: the staged query and doc
 // chunks (4-byte words) and BQ running lists of K (score, id) pairs.
@@ -63,29 +80,6 @@ inline int streaming_plan(int B, int n_docs, int depth, int sm_count, int* plan)
   plan[1] = K;
   plan[2] = (n_tiles + tiles_per_split - 1) / tiles_per_split;  // no empty split
   plan[3] = tiles_per_split;
-  return 0;
-}
-
-// K5's gathered launch plan for B queries of R rows at `depth`, with a block's
-// query taking query_bytes of shared memory: plan[0] K (depth rounded up to
-// 32), plan[1] row splits per query, plan[2] rows per split (a multiple of
-// 32), so that B x splits covers kGatherBlocksPerSm blocks per SM (at B = 1
-// as at B = 256) with no split under kThreads rows.  Returns
-// cudaErrorInvalidValue if the query and the per-warp lists do not fit in
-// shared memory.
-inline int gathered_plan(int B, int R, int depth, size_t query_bytes, int sm_count, int* plan) {
-  if (B <= 0 || R <= 0 || depth <= 0 || depth > R || sm_count <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int K = (depth + 31) / 32 * 32;
-  if (query_bytes + (size_t)kWarps * K * (sizeof(float) + sizeof(int)) > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  const int want = (kGatherBlocksPerSm * sm_count + B - 1) / B;
-  const int most = (R + kThreads - 1) / kThreads;
-  const int splits = want < most ? want : most;
-  const int rows_per_split = ((R + splits - 1) / splits + 31) / 32 * 32;
-  plan[0] = K;
-  plan[1] = (R + rows_per_split - 1) / rows_per_split;  // no empty split
-  plan[2] = rows_per_split;
   return 0;
 }
 
@@ -118,27 +112,6 @@ __device__ __forceinline__ void warp_insert(float* rs, int* ri, int K, float cs,
   __syncwarp();
 }
 
-// Merge the sorted list (ss, si) of K entries into the sorted running list
-// (rs, ri) of K entries, under (score desc, id asc).  All 32 lanes take part.
-__device__ __forceinline__ void merge_sorted(float* rs, int* ri, const float* ss, const int* si,
-                                             int K, int lane) {
-  for (int c0 = 0; c0 < K; c0 += 32) {
-    const float v = ss[c0 + lane];
-    const int vi = si[c0 + lane];
-    const unsigned pass = __ballot_sync(kFull, precedes(v, vi, rs[K - 1], ri[K - 1]));
-    unsigned mask = pass;
-    while (mask) {
-      const int src = __ffs(mask) - 1;
-      mask &= mask - 1;
-      const float cs = __shfl_sync(kFull, v, src);
-      const int cid = __shfl_sync(kFull, vi, src);
-      if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
-    }
-    // The source list is sorted: once an entry fails, every later one does.
-    if (pass != kFull) break;
-  }
-}
-
 // How many of the sorted entries (ls, li)[0, n) come before (s, id) (kDup:
 // before it or equal to it, so that a copy of an entry goes after it).
 template <bool kDup = false>
@@ -164,6 +137,33 @@ constexpr int kMergeWarps = kMergeThreads / 32;
 constexpr size_t kMergeFixed = kMergeWarps * 8;
 __host__ __device__ constexpr int merge_lists(int depth) {
   return (int)((kMaxSmem - kMergeFixed) / ((size_t)depth * 16 + 8));
+}
+
+// The gathered pass 1's launch plan (K3, K5) for B queries of R rows at
+// `depth`, a block's query taking query_bytes of shared memory: plan[0] K
+// (depth rounded up to 32), plan[1] row splits per query, plan[2] rows per
+// split (a multiple of 32, and at least a round of kRowRound where R
+// allows), so that B x splits is the blocks the SMs hold at once
+// (kRowBlocksPerSm each): at B = 1 each block walks its rows to the end and
+// pass 2 merges that many lists, not more; from B >= kRowBlocksPerSm x
+// sm_count, one split.  Returns cudaErrorInvalidValue if the query and the
+// list do not fit in shared memory (row_block_smem), or pass 2 cannot
+// merge lists of depth.
+inline int gathered_row_plan(int B, int R, int depth, size_t query_bytes, int sm_count,
+                             int* plan) {
+  if (B <= 0 || R <= 0 || depth <= 0 || depth > R || sm_count <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int K = (depth + 31) / 32 * 32;
+  if (row_block_smem(query_bytes, K) > kMaxSmem || merge_lists(depth) < 2)
+    return (int)cudaErrorInvalidValue;
+  const int want = (kRowBlocksPerSm * sm_count + B - 1) / B;
+  const int most = (R + kRowRound - 1) / kRowRound;
+  const int splits = want < most ? want : most;
+  const int rows_per_split = ((R + splits - 1) / splits + 31) / 32 * 32;
+  plan[0] = K;
+  plan[1] = (R + rows_per_split - 1) / rows_per_split;  // no empty split
+  plan[2] = rows_per_split;
+  return 0;
 }
 
 // The better of (s, i) and (bs, bi) under (score desc, id asc), into (bs, bi).

@@ -19,8 +19,9 @@ for lsh,
 ``fused_topk_gathered_quantized_partial``) and the merge
 (``fused_topk_merge``, one block per query: a threshold cut, then a tree
 merge).  K1 classic, K1 dot, K1 f32 and K4 share one tensor-core pass 1
-(``csrc/mma_topk.cuh``); K3 keeps one running list per block and merges
-its candidates by counting, as that pass 1 does.
+(``csrc/mma_topk.cuh``); K3 and K5 keep one running list per block (one
+query, a range of its rows, on the row-split plan they share) and merge its
+candidates by counting, as that pass 1 does.
 """
 from __future__ import annotations
 
@@ -249,12 +250,14 @@ def quantized_plan(dtype: torch.dtype, bits: int, b: int, n_docs: int, depth: in
 
 def gathered_quantized_plan(bits: int, b: int, r: int, t: int, depth: int,
                             sm_count: int) -> Tuple[int, int, int]:
-    """K5's launch shape (``fused_topk_gathered_quantized_plan``): (running-
-    list width K, row splits per query, rows per split)."""
+    """K5's launch shape (``fused_topk_gathered_quantized_plan``, the row-
+    split plan of :func:`gathered_plan`): (running-list width K, row splits
+    per query, rows per split); B x splits is the blocks the SMs hold at
+    once, so at small B each block walks a long row range."""
     out = (ctypes.c_int * 3)()
     if _qlib().fused_topk_gathered_quantized_plan(bits, b, r, t, depth, sm_count, out) != 0:
-        raise ValueError(f"depth {depth}, T {t}: the query row and running lists "
-                         "do not fit in shared memory")
+        raise ValueError(f"depth {depth}, T {t}: the query row and running list, or pass 2's "
+                         "lists, do not fit in shared memory")
     return tuple(out)
 
 
@@ -359,9 +362,10 @@ def fused_topk_gathered_quantized(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-query top-``depth`` of ``q[b] . dequant(store[row_ids[b, r]])``
     over r (K5, quantized blockmax stage 2), ties to the lowest GLOBAL id;
-    padding and -inf slots are (-inf, -1).  Like :func:`fused_topk_gathered`
-    it takes the whole packed store and the ids, and on the card reads each
-    row and its scales by id: no (B, R, ·) tensor exists."""
+    padding and -inf slots are (-inf, -1); an id that comes twice ranks
+    twice.  Like :func:`fused_topk_gathered` it takes the whole packed store
+    and the ids, and on the card reads each row and its scales by id (8
+    lanes a row, in 8-byte units): no (B, R, ·) tensor exists."""
     _check_packed(q, store, scale, bits, group, (store.shape[0],))
     if row_ids.dim() != 2 or row_ids.shape[0] != q.shape[0]:
         raise ValueError(f"want row_ids (B, R), got {tuple(row_ids.shape)}")

@@ -25,6 +25,7 @@ from repro_torch.kernels.fused_topk.kernel import (
     fused_topk_gathered_quantized,
     fused_topk_quantized,
     gathered_plan,
+    gathered_quantized_plan,
     plan,
     quantized_plan,
 )
@@ -257,14 +258,16 @@ def test_gathered_plan_walks_long_row_ranges_at_small_batch():
     assert gathered_plan(1, 1, 1000, 600, 100, sm_count=132)[1:] == (4, 256)
 
 
-def _block_ids(how: str, b: int, n: int, r: int, q, d, dev):
+def _block_ids(how: str, b: int, n: int, r: int, q, d, dev, scores=None):
     """(B, R) int32 ids of whole 256-row blocks: in random order ("blocks"),
-    best block first by the plain scores ("bound"), or "blocks" with every
-    third block padding ids, BIG_ID or >= n ("padded")."""
+    best block first by the plain scores ("bound"; ``scores`` (B, N) where
+    given, else those of q and d), or "blocks" with every third block
+    padding ids, BIG_ID or >= n ("padded")."""
     g = torch.Generator(device=dev).manual_seed(61)
     n_blocks = n // 256
     if how == "bound":
-        best = ref.scores_ref(q, d).reshape(b, n_blocks, 256).amax(-1)
+        scores = ref.scores_ref(q, d) if scores is None else scores
+        best = scores.reshape(b, n_blocks, 256).amax(-1)
         blocks = torch.sort(best, dim=1, descending=True, stable=True)[1][:, :r // 256]
     else:
         blocks = torch.stack([torch.randperm(n_blocks, generator=g, device=dev)[:r // 256]
@@ -449,6 +452,52 @@ def test_cuda_quantized_tf32_topk_ties_order_and_wide_lists(kind, b, n, t, depth
     assert fused_topk_quantized.launches == before + 1
     want = ref.quantized_topk_ref(q, docs, scale, min(depth + 1, n), bits, group)
     assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=kind != "wide")
+
+
+@pytest.mark.gpu
+def test_gathered_quantized_plan_walks_long_row_ranges_at_small_batch():
+    """K5's plan is K3's (one list a block): B x splits is the blocks the
+    SMs hold at once (two each), so at B = 1 and 8 each block walks a long
+    row range; from B = 264 on, one split a query.  One list a block takes
+    depth up to pass 2's limit, 7,255, over int8 and int4 rows alike."""
+    cuda_device()
+    r = 1171 * 256
+    for bits in (8, 4):
+        for b, want in ((1, 261), (8, 33), (256, 2), (264, 1)):
+            k, splits, per = gathered_quantized_plan(bits, b, r, 600, 100, sm_count=132)
+            assert (k, splits) == (128, want)
+            assert per % 32 == 0 and (splits - 1) * per < r <= splits * per
+        assert gathered_quantized_plan(bits, 1, 10_000, 600, 7255, sm_count=132)[0] == 7264
+        with pytest.raises(ValueError, match="shared memory"):
+            gathered_quantized_plan(bits, 1, 10_000, 600, 7256, sm_count=132)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,bits,group,qdtype,b,n,r,t,depth,how", [
+    ("ties", 4, 32, torch.bfloat16, 1, 204_800, 102_400, 64, 100, "blocks"),  # many splits
+    ("ties", 8, 0, torch.float32, 1, 204_800, 102_400, 16, 100, "bound"),
+    ("ties", 4, 32, torch.float32, 3, 20_480, 7_680, 64, 100, "padded"),  # splits of padding
+    ("ties", 8, 0, torch.bfloat16, 2, 2_048, 768, 37, 768, "blocks"),     # depth = R; 1-byte rows
+    ("ties", 8, 0, torch.bfloat16, 2, 20_480, 7_680, 100, 2000, "padded"),  # wide lists; 4-byte
+    ("ties", 4, 32, torch.bfloat16, 1, 20_480, 10_240, 64, 4096, "blocks"),  # past per-warp lists
+    ("rising", 4, 32, torch.bfloat16, 8, 51_200, 25_600, 600, 100, "bound"),  # int4 T = 600
+    ("falling", 8, 0, torch.bfloat16, 8, 25_600, 12_800, 600, 100, "bound"),  # 8-byte rows
+])
+def test_cuda_gathered_quantized_ties_padding_and_bound_order(kind, bits, group, qdtype, b, n,
+                                                              r, t, depth, how):
+    """K5 where its block list and pass 2 must be exact: integer-valued
+    stores with unit scales, so ids are bit-equal to the plain version's at
+    every tie, with row ids in random block order, in bound order (best
+    block first), with whole splits of padding ids, at depth = R and past
+    the per-warp lists' limit of the earlier design."""
+    dev = cuda_device()
+    q, docs, scale = _packed_operands(kind, bits, group, b, n, t, dev, qdtype)
+    scores = ref.quantized_scores_ref(q, docs, scale, bits, group) if how == "bound" else None
+    ids = _block_ids(how, b, n, r, q, docs, dev, scores)
+    got = fused_topk_gathered_quantized(q, docs, scale, ids, depth, n, bits, group)
+    torch.cuda.synchronize()
+    want = ref.quantized_gathered_topk_ref(q, docs, scale, ids, min(depth + 1, r), n, bits, group)
+    assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=True)
 
 
 @pytest.mark.gpu

@@ -49,7 +49,7 @@ from repro_torch.core import pipeline as pl
 from repro_torch.core.index import AnnIndex, index_from_numpy
 from repro_torch.core.types import BruteForceConfig, FakeWordsConfig, LexicalLshConfig
 from repro_torch.kernels import common
-from repro_torch.kernels.fused_topk import kernel
+from repro_torch.kernels.fused_topk import kernel, ref
 
 METHODS = ["classic", "dot", "bruteforce"]
 POSTINGS = ["int8", "int4"]
@@ -379,6 +379,76 @@ def test_fused_topk_gathered_quantized_matches_jax(kind, bits, group, dtype, t, 
         depth if exact else depth + 1, n_docs, bits=bits, group=group, bn=128, bk=128,
         interpret=True, filt=None if filt is None else jnp.asarray(filt))
     assert_topk_match(got, [np.asarray(a) for a in want], exact=exact)
+
+
+def _kept_blocks(rng, b, n_docs, n_keep, scores=None):
+    """(B, n_keep * 256) row ids: whole 256-row blocks of [0, n_docs) in
+    random order, or (``scores`` (B, n_docs)) best block first, as blockmax
+    stage 1 orders them."""
+    out = []
+    for qi in range(b):
+        if scores is None:
+            blocks = rng.permutation(n_docs // 256)[:n_keep]
+        else:
+            blocks = np.argsort(-scores[qi].reshape(-1, 256).max(1), kind="stable")[:n_keep]
+        out.append((blocks[:, None] * 256 + np.arange(256)).reshape(-1))
+    return np.stack(out).astype(np.int32)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("case", ["bound-order", "depth-r", "padding-splits", "tied-depth",
+                                  "repeated-ids"])
+def test_fused_topk_gathered_quantized_matches_jax_across_many_splits(case, bits):
+    """K5's yardstick on the card (the plain version) against JAX's kernel
+    at sizes where the card's plan cuts each query's rows into many splits
+    (12 blocks of 256 rows at B = 1 and 2 on 132 SMs), so pass 2 merges many
+    lists: rows in block-bound order (the best block first), depth = R,
+    whole 256-row splits of padding ids, 0/1 rows whose scores tie at the
+    depth-th rank across splits, and ids that come twice (each copy scored
+    and ranked).  Integer-valued stores with unit scales: bit for bit."""
+    seed = {"bound-order": 31, "depth-r": 32, "padding-splits": 33, "tied-depth": 34,
+            "repeated-ids": 35}[case] + bits
+    rng = np.random.default_rng(seed)
+    b, n_docs = 2, 16 * 256
+    t, group, dtype = (37, 0, "f32") if bits == 8 else (64, 32, "bf16")
+    kind = "int" if case == "bound-order" else "ties"
+    docs, scale = _packed_operands(kind, bits, group, n_docs, t, seed)
+    jq, q = _query(kind, dtype, b, t, seed)
+    depth = 100
+    if case == "bound-order":
+        scores = ref.quantized_scores_ref(q, torch.from_numpy(docs), torch.from_numpy(scale),
+                                          bits, group).numpy()
+        ids = _kept_blocks(rng, b, n_docs, 12, scores)
+    elif case == "depth-r":
+        ids = _kept_blocks(rng, b, n_docs, 3)
+        depth = ids.shape[1]
+    elif case == "padding-splits":
+        ids = _kept_blocks(rng, b, n_docs, 12)
+        ids[:, 3 * 256:6 * 256] = common.BIG_ID  # three whole splits of padding
+        ids[1, 8 * 256:9 * 256] += 2 * n_docs   # and one of ids >= n_docs
+    elif case == "tied-depth":
+        jq, q, ids = jq[:1], q[:1], _kept_blocks(rng, 1, n_docs, 12)
+    else:  # two blocks kept twice, the copies in another split
+        ids = _kept_blocks(rng, b, n_docs, 10)
+        ids = np.concatenate([ids, ids[:, 256:768]], 1)
+    got = kernel.fused_topk_gathered_quantized(
+        q, torch.from_numpy(docs), torch.from_numpy(scale), torch.from_numpy(ids), depth, n_docs,
+        bits, group)
+    safe = np.minimum(ids, n_docs - 1)  # the reference takes the rows already gathered
+    want = jkernel.fused_topk_gathered_quantized(
+        jq, jnp.asarray(docs[safe]), jnp.asarray(scale[safe]), jnp.asarray(ids), depth, n_docs,
+        bits=bits, group=group, bn=128, bk=128, interpret=True)
+    assert_topk_match(got, [np.asarray(a) for a in want], exact=True)
+    if case == "tied-depth":  # rows of several blocks tie the depth-th score, past the cut too
+        last = float(got[0][0, -1])
+        kept = np.isin(ids[0], got[1][0][got[0][0] == last].numpy())
+        assert len({p // 256 for p in np.flatnonzero(kept)}) > 1
+        every = ref.quantized_gathered_topk_ref(q, torch.from_numpy(docs),
+                                                torch.from_numpy(scale), torch.from_numpy(ids),
+                                                ids.shape[1], n_docs, bits, group)[0]
+        assert int((every == last).sum()) > int(kept.sum())
+    if case == "repeated-ids":  # a row kept twice ranks twice, in the list of its query
+        assert max(np.unique(row, return_counts=True)[1].max() for row in got[1].numpy()) == 2
 
 
 def test_quantized_wrappers_reject_bad_operands():
