@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --pair-parent DIR   # K1-K7 and K9 against the tree in DIR, then stop
-    python3 chip_smoke.py --ablate [DIR]      # K7, K6, K9, pass 1 with parts cut out (K3, K5 also DIR's)
+    python3 chip_smoke.py --ablate [DIR]      # K7, K6, K9, pass 1 with parts cut out (K2, K3, K5 also DIR's)
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc
    (sm_90a) and prints the build time and the compiler's register report,
@@ -17,8 +17,8 @@
    ``kernels/csrc/score_matmul.cuh``), HMMA in K9's bf16 attention
    (``flash_attention_bf16``) and TF32 HMMA in its f32 one
    (``flash_attention_tf32``, split TF32); an instance without them fails
-   the run; and the SASS instructions a column in K5's inner loop
-   (``k5_columns``).
+   the run; the SASS instructions a column in K5's inner loop
+   (``k5_columns``) and a compare in K2's (``k2_compare_ops``).
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
    shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
@@ -30,7 +30,11 @@
    also integer-valued 0/1 operands and rising / falling scores, bit for
    bit, depth = N and 3,072, and unit vectors at the cosine's T = 300, depth
    10, B = 256, 8 and 1, which a copy of the kernel without the doc's low
-   tf32 part (K1_DOC_HI_ONLY) must fail.
+   tf32 part (K1_DOC_HI_ONLY) must fail; for lsh (K2) also copies of 4 doc
+   rows whose depth-th count every split holds ("lsh-ties"), which a copy
+   whose pass 2 cuts at that count without its id (K2_STRICT) must fail,
+   all-sentinel queries, S = 1,500 and 37, depth 3,072 at B = 1, B = 2, 5
+   and 8, and filt and n_docs at B = 1 and 40.
 3. Holds the gathered fused top-k kernel (K3) against its plain version the
    same way, with row ids in random order, in 256-row blocks and in bound
    order (best block first), padding ids and whole 256-row splits of them,
@@ -163,7 +167,12 @@ attention layers against copies without the softmax, loads only, with 4
 warps and with three stages (K9_ABLATIONS, K9_VARIANTS), and its f32 kernel
 at phi3-mini's layer against the same cuts and variants and without the
 fold and with Q split once into registers (K9_F32_ABLATIONS,
-K9_F32_VARIANTS), each beside the SM clock and power draw, then K3 at the
+K9_F32_VARIANTS), each beside the SM clock and power draw, then K2 at the
+lexical-LSH path's shape (the (b = 300, h = 1) signatures, B = 256, 8 and 1)
+with its top-k, its sentinel test and its compares cut out (K2_ABLATIONS;
+also DIR's), its candidates a (query, split), registers, spills and SASS
+instructions a compare, and variants held bit-equal to it (K2_VARIANTS;
+alone: ``c.ablate_k2``), then K3 at the
 blockmax path's shape with its inserts and its products cut out
 (K3_ABLATIONS; also the K3 of the tree in DIR, e.g. the parent), each
 kernel's pass 1 and pass 2 apart, K5 at the quantized blockmax path's
@@ -341,7 +350,7 @@ def _instance(mangled: str) -> str:
     """``fused_topk_quantized_tf32_partial<4, 64, 128, 3, true>`` from a mangled kernel name:
     the kernel's name and its integer, bool and type template arguments."""
     m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_bf16_partial"
-                  r"|quantized_tf32_partial|gathered_partial|bf16_partial"
+                  r"|quantized_tf32_partial|gathered_partial|bf16_partial|lsh_partial"
                   r"|int8_partial|f32_partial|partial|merge)"
                   r"|dense_scores|score_matmul_(?:bf16|int8)|cosine_scores_tf32"
                   r"|flash_attention_(?:tf32|bf16))"
@@ -370,10 +379,10 @@ def build_kernels(names=None) -> float:
     return seconds
 
 
-def sass(path: str):
-    """{kernel instance: its SASS instructions, addresses and encodings
-    stripped} of the library at ``path`` (``cuobjdump -sass``), or None
-    where the toolkit has no cuobjdump."""
+def sass_addressed(path: str):
+    """{kernel instance: [(address, SASS instruction)]} of the library at
+    ``path`` (``cuobjdump -sass``, encodings stripped), or None where the
+    toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -385,10 +394,18 @@ def sass(path: str):
             fn = _instance(line.split("Function :")[1])
             code[fn] = []
         elif fn is not None:
-            ins = re.sub(r"/\*.*?\*/", "", line).strip()
-            if ins:
-                code[fn].append(ins)
+            m = re.match(r"\s*/\*([0-9a-f]+)\*/\s*(.*?)\s*;", line)
+            if m:
+                code[fn].append((int(m.group(1), 16), m.group(2)))
     return code
+
+
+def sass(path: str):
+    """{kernel instance: its SASS instructions, addresses and encodings
+    stripped} of the library at ``path``, or None where the toolkit has no
+    cuobjdump."""
+    code = sass_addressed(path)
+    return None if code is None else {fn: [ins for _, ins in items] for fn, items in code.items()}
 
 
 def sass_pairing(name: str, parent_lib: str) -> None:
@@ -522,6 +539,16 @@ def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
         q = d[torch.randint(0, n, (b,), generator=gen, device=dev)].clone()
         q[:, ::5] = -1  # sentinel slots never count
         q, d = q.view(torch.uint32), d.view(torch.uint32)
+    elif kind == "lsh-ties":  # copies of 4 rows: a few counts, each held by N / 4 docs
+        base = torch.randint(0, 7, (4, t), generator=gen, device=dev, dtype=torch.int32)
+        base[:, ::5] = -1  # sentinels on both sides: equal, and never counted
+        d = base[torch.randint(0, 4, (n,), generator=gen, device=dev)]
+        q = d[torch.randint(0, n, (b,), generator=gen, device=dev)].clone()
+        q, d = q.view(torch.uint32), d.view(torch.uint32)
+    elif kind == "lsh-empty":  # all-sentinel queries: every count 0, ids in order
+        d = torch.randint(-1, 7, (n, t), generator=gen, device=dev, dtype=torch.int32)
+        q = torch.full((b, t), -1, device=dev, dtype=torch.int32)
+        q, d = q.view(torch.uint32), d.view(torch.uint32)
     else:  # unit-scale floats: scores O(1)
         dtype = torch.bfloat16 if kind == "bf16" else torch.float32
         q = (torch.randn((b, t), generator=gen, device=dev) / t**0.5).to(dtype)
@@ -529,9 +556,9 @@ def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
     return q, d
 
 
-EXACT_KINDS = ("int8", "lsh", "ties", "ties-bf16", "rising", "falling", "rising-int8",
-               "falling-int8", "int8-full", "int8-extremes", "dot", "ties-f32", "rising-f32",
-               "falling-f32")  # integer scores
+EXACT_KINDS = ("int8", "lsh", "lsh-ties", "lsh-empty", "ties", "ties-bf16", "rising", "falling",
+               "rising-int8", "falling-int8", "int8-full", "int8-extremes", "dot", "ties-f32",
+               "rising-f32", "falling-f32")  # integer scores
 
 
 # K1 f32's planted fault: the split-TF32 product over f32 rows without the
@@ -550,16 +577,40 @@ def build_planted_k1():
                                          edits=[K1_DOC_HI_ONLY])["fused_topk"])
 
 
-def check_kernels(dev, planted=None) -> dict:
+# K2's planted fault: pass 2's threshold without its id, tau cut at (its
+# score, -1), so every entry tied with the best of the splits' depth-th
+# counts is cut.  K2's own register test needs no id (a count that ties the
+# depth-th cannot rank: ids ascend within a block), so the id of the tie
+# rule lives here.  Every "lsh-ties" case (the depth-th count held by
+# docs of every split) must fail with it.
+K2_STRICT = ("      xl[j] = rank_in<true>(xs + (size_t)j * depth, xi + (size_t)j * depth, depth, "
+             "tau_s, tau_i);",
+             "      xl[j] = rank_in<true>(xs + (size_t)j * depth, xi + (size_t)j * depth, depth, "
+             "tau_s, -1);")
+
+
+def build_planted_k2():
+    """(name, topk): K2 built from a copy of this tree's sources with
+    K2_STRICT (``_tree_kernels``), called as ``topk(q, docs, depth)``."""
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    return ("tau-without-id", _tree_kernels(kdir, os.path.join(ROOT, "build", "planted-k2"),
+                                            names=("fused_topk",),
+                                            edits=[K2_STRICT])["fused_topk"])
+
+
+def check_kernels(dev, planted=None, planted_k2=None) -> dict:
     """The fused top-k kernel against its plain version, every score mode;
     on each "unit-f32" case also the copy with a planted fault (``planted``,
-    from build_planted_k1, built here if not given), which must fail the
-    same comparison."""
+    from build_planted_k1, built here if not given), and on each "lsh-ties"
+    case the copy of K2 with K2_STRICT (``planted_k2``, from
+    build_planted_k2, likewise), each of which must fail the same
+    comparison."""
     from repro_torch.kernels.fused_topk import ref
     from repro_torch.kernels.fused_topk.kernel import fused_topk
 
     gen = torch.Generator(device=dev).manual_seed(0)
     copy, bad_topk = planted or build_planted_k1()
+    copy_k2, strict_k2 = planted_k2 or build_planted_k2()
     cases = []
     for kind in ("bf16", "f32", "int8", "lsh"):
         cases += [
@@ -624,6 +675,33 @@ def check_kernels(dev, planted=None) -> dict:
         ("unit-f32", 256, 100_000, 300, 10, None, None),
         ("unit-f32", 8, 100_000, 300, 10, None, None),
         ("unit-f32", 1, 100_000, 300, 10, None, None),
+        # K2 (lsh): copies of 4 rows, so that the depth-th count is held by
+        # docs of every split ("lsh-ties", which the copy with K2_STRICT must
+        # fail); all-sentinel queries (every count 0: ids 0..depth-1, past
+        # filt and n_docs); the paper's b = 50, h = 30 width (S = 1,500); S =
+        # 37 (4-byte copies); depth 3,072 at B = 1; the query tiles of B = 2,
+        # 5 and 8; filt and n_docs at B = 1 and 40.
+        ("lsh-ties", 1, 200_000, 300, 100, None, None),
+        ("lsh-ties", 8, 200_000, 300, 100, None, None),
+        ("lsh-ties", 256, 100_000, 300, 100, None, None),
+        ("lsh-ties", 3, 600_000, 37, 1000, None, None),    # N / 4 / splits >= depth
+        ("lsh-ties", 1, 2_000_000, 64, 3072, None, None),
+        ("lsh-empty", 1, 20_000, 300, 100, None, None),
+        ("lsh-empty", 40, 20_000, 300, 100, "shared", 19_000),
+        ("lsh-empty", 5, 20_000, 300, 100, "per-query", None),
+        ("lsh", 8, 20_000, 1500, 100, None, None),
+        ("lsh", 70, 20_000, 1500, 100, None, 19_990),
+        ("lsh", 1, 20_000, 1500, 100, None, None),
+        ("lsh", 65, 20_000, 37, 100, None, None),
+        ("lsh", 1, 20_000, 37, 100, "shared", None),
+        ("lsh", 1, 20_000, 300, 3072, None, None),
+        ("lsh", 2, 20_000, 300, 100, None, None),
+        ("lsh", 5, 20_000, 300, 100, None, None),
+        ("lsh", 8, 20_000, 300, 100, None, None),
+        ("lsh", 1, 20_000, 300, 100, "per-query", 19_000),
+        ("lsh", 1, 20_000, 300, 100, "shared", None),
+        ("lsh", 40, 20_000, 300, 100, "per-query", None),
+        ("lsh", 40, 20_000, 300, 100, "shared", 19_500),
     ]
     worst = {}
     for kind, b, n, t, depth, filt_kind, n_docs in cases:
@@ -633,7 +711,7 @@ def check_kernels(dev, planted=None) -> dict:
             filt = torch.rand((n,), generator=gen, device=dev) < 0.3
         elif filt_kind == "per-query":
             filt = torch.rand((b, n), generator=gen, device=dev) < 0.05
-        mode = "lsh" if kind == "lsh" else "gemm"
+        mode = "lsh" if kind.startswith("lsh") else "gemm"
         got = fused_topk(q, d, depth, mode=mode, filt=filt, n_docs=n_docs)
         torch.cuda.synchronize()
         nd = n if n_docs is None else n_docs
@@ -649,6 +727,13 @@ def check_kernels(dev, planted=None) -> dict:
                 print(f"  ok  the {copy} copy fails: {fault}")
             else:
                 raise AssertionError(f"{name}: the {copy} copy passed the comparison")
+        if kind == "lsh-ties":
+            try:
+                compare(f"{name}, {copy_k2} copy", strict_k2(q, d, depth), want, exact=True)
+            except AssertionError as fault:
+                print(f"  ok  the {copy_k2} copy fails: {fault}")
+            else:
+                raise AssertionError(f"{name}: the {copy_k2} copy passed the comparison")
     print(f"fused_topk vs plain on the card: {len(cases)} cases, worst {worst}")
     return worst
 
@@ -1525,6 +1610,7 @@ def main(argv) -> int:
         ablate_k9(dev, card)
         build_kernels(["fused_topk", "fused_topk_quantized"])
         trees = [("this tree", ROOT)] + [("parent", d) for d in argv[1:2]]
+        ablate_k2(dev, card, trees)
         ablate_k3(dev, card, trees)
         ablate_k5(dev, card, trees)
         ablate_k1_f32(dev, card, trees)
@@ -1533,18 +1619,21 @@ def main(argv) -> int:
     with ThreadPoolExecutor() as pool:  # the planted copies' nvcc beside the others
         planted = pool.submit(build_planted)
         planted_k1 = pool.submit(build_planted_k1)
+        planted_k2 = pool.submit(build_planted_k2)
         planted_k3 = pool.submit(build_planted_k3)
         planted_k5 = pool.submit(build_planted_k5)
         planted_k7 = pool.submit(build_planted_k7)
         planted_k6 = pool.submit(build_planted_k6)
         planted_k9 = pool.submit(build_planted_k9)
         build_kernels()
-        planted, planted_k1, planted_k3, planted_k5, planted_k7, planted_k6, planted_k9 = (
-            planted.result(), planted_k1.result(), planted_k3.result(), planted_k5.result(),
-            planted_k7.result(), planted_k6.result(), planted_k9.result())
+        planted, planted_k1, planted_k2, planted_k3, planted_k5, planted_k7, planted_k6 = (
+            planted.result(), planted_k1.result(), planted_k2.result(), planted_k3.result(),
+            planted_k5.result(), planted_k7.result(), planted_k6.result())
+        planted_k9 = planted_k9.result()
     check_tensor_cores()
     print_k5_columns()
-    check_kernels(dev, planted_k1)
+    print_k2_compare_ops()
+    check_kernels(dev, planted_k1, planted_k2)
     check_gathered(dev, planted_k3)
     check_quantized(dev, planted, planted_k5)
     check_dense(dev, planted_k7, planted_k6)
@@ -1637,6 +1726,8 @@ def _tree_kernels(kdir: str, out_dir: str, names=("fused_topk", "fused_topk_quan
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} of {kdir}:\n{log}")
+        with open(os.path.join(out_dir, f"{name}.log"), "w") as f:  # ptxas -v, for ptxas_report
+            f.write(log)
 
     def entry_points(name, entry):
         lib = ctypes.CDLL(os.path.join(out_dir, f"lib{name}.so"))
@@ -2149,6 +2240,286 @@ def ablate_k1_f32(dev, card: str, trees=(("this tree", ROOT),)) -> None:
                   + "; ".join(line))
 
 
+# Copies of K2 (K1's lsh mode, fused_topk.cu), for timing only (their
+# results are wrong): the counts accumulated and kept live (compared with a
+# value they never take) but never tested against the lists; the compare
+# without the query's sentinel test; the shared-memory slot loads at one
+# address a chunk, so that the compiler hoists them and the same slots are
+# compared again (what the compares cost without their LDS); and the loads
+# alone (no compares, no top-k).  A fourth copy, K2_COUNT, is the kernel as
+# it is plus a device counter of the candidates that reach the running
+# lists (a sorted insert in fused_topk_partial, an append to the candidate
+# buffer in fused_topk_lsh_partial), read through a C entry it adds
+# (``k2_candidates``).  Each edit names its text in both of those pass-1
+# designs, the warp-serial one of older trees and this one, so that the
+# same copies can be made of either tree.
+K2_NO_TOPK = ((K1F32_NO_TOPK[1][0], K1F32_NO_TOPK[1][1].replace("1234.5f", "-3.f")),
+              ("        if (acc[i][j] > thr[i] && id < n_docs && (f == nullptr || f[id] != 0)) {",
+               "        if (acc[i][j] == -3.f && acc[i][j] > thr[i] && id < n_docs &&\n"
+               "            (f == nullptr || f[id] != 0)) {"))
+K2_NO_SENTINEL = (("acc[i][j] = mac<M>(acc[i][j], a[i], b[j]);",
+                   "acc[i][j] += static_cast<Acc>(a[i] == b[j]);"),
+                  ("setp.eq.and.u32 p,", "setp.eq.u32 p,"),
+                  (", q;\\n @p add", ";\\n @p add"),
+                  *((f" setp.ne.u32 q, %{k}, 0xFFFFFFFF;\\n", "") for k in (8, 2, 1)))
+K2_NO_COMPARES = (K1F32_NO_PRODUCTS[1],
+                  ("    const int words = min(kBK, S - chunk * kBK);\n",
+                   "    const int words = 0;\n"))
+K2_ONE_SLOT_LOAD = (("b[j] = ds[(lane + 32 * j) * kSkew + kk];",
+                     "b[j] = ds[(lane + 32 * j) * kSkew + 0 * kk];"),
+                    ("qs + kk * BQ + warp * TM + 4 * g);", "qs + 0 * kk * BQ + warp * TM + 4 * g);"),
+                    ("(dg + L::DG * j) * kLshStride + kk);", "(dg + L::DG * j) * kLshStride + 0 * kk);"),
+                    ("(qg * L::TQ + i) * kLshStride + kk);", "(qg * L::TQ + i) * kLshStride + 0 * kk);"))
+K2_ABLATIONS = {
+    "full": [],
+    "counts kept live, no top-k": [K2_NO_TOPK],
+    "no sentinel test": [K2_NO_SENTINEL],
+    "slot loads hoisted (the same slots compared again)": [K2_ONE_SLOT_LOAD],
+    "loads only": [K2_NO_TOPK, K2_NO_COMPARES],
+}
+K2_COUNT = [
+    ('#include "mma_topk.cuh"  // K1 classic\'s tensor-core pass 1; includes topk_merge.cuh\n',
+     '#include "mma_topk.cuh"  // K1 classic\'s tensor-core pass 1; includes topk_merge.cuh\n'
+     "__device__ unsigned long long g_k2_candidates;\n"),
+    ('}  // extern "C"',
+     "unsigned long long k2_candidates() {\n  unsigned long long v = 0, z = 0;\n"
+     "  cudaMemcpyFromSymbol(&v, g_k2_candidates, sizeof(v));\n"
+     "  cudaMemcpyToSymbol(g_k2_candidates, &z, sizeof(z));\n  return v;\n}\n"
+     '}  // extern "C"'),
+    (("          if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);",
+      "          if (precedes(cs, cid, rs[K - 1], ri[K - 1])) {\n"
+      "            if (lane == 0) atomicAdd(&g_k2_candidates, 1ull);\n"
+      "            warp_insert(rs, ri, K, cs, cid, lane);\n          }"),
+     ("cs[r * kCap + c] = acc[i][j];",
+      "cs[r * kCap + c] = acc[i][j];\n          atomicAdd(&g_k2_candidates, 1ull);")),
+]
+# Copies of K2 (this tree's) held bit-equal to it and timed beside it: a
+# ring of two stages (two blocks a SM at 8 queries), the loop over a
+# chunk's 4-slot steps not unrolled, or unrolled twice (not 4 times), a flush that
+# merges only the buffers past its mark (the others wait for the next), and
+# blocks of 512 threads at 64 queries (16 warps, a thread 2 queries x 8 docs).
+_K2_UNROLL = "#pragma unroll 4\n  for (int g = 0; g < full; ++g) step(4 * g, 4);"
+K2_VARIANTS = {
+    "2 stages": [("constexpr int kLshStages = 3;", "constexpr int kLshStages = 2;")],
+    "steps not unrolled": [(_K2_UNROLL, _K2_UNROLL.replace("unroll 4", "unroll 1"))],
+    "steps unrolled 2": [(_K2_UNROLL, _K2_UNROLL.replace("unroll 4", "unroll 2"))],
+    "only buffers past BN / 4 merge at a flush": [
+        ("        if (n == 0) continue;  // warp-uniform\n        merge_buffer<kCap>(ls + r * K",
+         "        if (n == 0 || (n <= kFlushAt && !last)) continue;  // warp-uniform\n"
+         "        merge_buffer<kCap>(ls + r * K")],
+    "512 threads at 64 queries (2 x 8 a thread)": [
+        ("  static constexpr int NT = kThreads;",
+         "  static constexpr int NT = BQ == 64 ? 2 * kThreads : kThreads;"),
+        ("  static constexpr int TQ = BQ < 4 ? BQ : 4;",
+         "  static constexpr int TQ = BQ == 64 ? 2 : (BQ < 4 ? BQ : 4);")],
+}
+# The main path's lexical-LSH cell: b = 300 buckets, h = 1.
+K2_LSH = {"buckets": 300, "hashes": 1}
+
+
+def ptxas_report(log: str, prefix: str) -> str:
+    """Registers and spill bytes ptxas -v reports for each kernel instance
+    whose name (``_instance``) starts with ``prefix``, from an nvcc log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = _instance(line.split("Function properties for")[1])
+        elif fn and fn.startswith(prefix) and "spill" in line:
+            out[fn] = line.strip()
+        elif fn and fn.startswith(prefix) and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            out[fn] = f"{regs.group(1) if regs else '?'} registers, {out.get(fn, '')}"
+            fn = None
+    return "; ".join(f"{k}: {v}" for k, v in sorted(out.items())) or f"no {prefix} instance"
+
+
+# ALU-pipe SASS opcodes (64 INT32 lanes an SM on an H100); FADD, FFMA, FMUL,
+# FSEL and IMAD issue to the FP32 pipe (128 lanes), LDS to the memory pipe.
+ALU_OPCODES = {"ISETP", "IADD3", "LOP3", "SEL", "PLOP3", "SHF", "LEA", "IMNMX", "IABS", "P2R",
+               "R2P", "PRMT", "MOV", "VIADD", "VIMNMX", "FLO", "POPC", "BREV"}
+K2_INT32_MS = 13.796  # the cell's compares (2.3e11) at 16.7e12 INT32 op/s
+
+
+def k2_compare_ops(path: str, dump: str = "") -> str:
+    """SASS instructions a compare in the inner loop of each K2 pass-1
+    instance (``fused_topk_lsh_partial``, or ``fused_topk_partial`` in
+    older trees) of the library at ``path``: of the innermost loops (a backward
+    branch and its target, holding no other) with at least 16 compares
+    (ISETP.EQ or .NE between two registers: an equality of a query and a doc
+    slot), the one with the most compares; its instructions over
+    its compares, the ALU-pipe ones (ALU_OPCODES) apart with the floor they
+    imply at the cell (ALU a compare x 13.796 ms: 64 INT32 lanes an SM) and
+    the issue floor (all a compare x 13.796 / 2 ms: 128 instructions an SM a
+    clock), and the 12 most common opcodes a compare.  ``dump``: a directory
+    that gets the SASS of every innermost loop of 16 compares, a file each."""
+    import collections
+
+    code = sass_addressed(path)
+    if code is None:
+        return "no cuobjdump in the CUDA toolkit"
+    compare = re.compile(r"^(@!?P\w+\s+)?ISETP\.(EQ|NE)\S*\s+P\w+,\s*P\w+,\s*R\d+(\.reuse)?,"
+                         r"\s*R\d+(\.reuse)?,")
+    out = []
+    for fn, items in sorted(code.items()):
+        if not fn.startswith(("fused_topk_partial", "fused_topk_lsh_partial")):
+            continue
+        at = {addr: k for k, (addr, _) in enumerate(items)}
+        loops = []
+        for k, (addr, ins) in enumerate(items):
+            target = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)$", ins)
+            if target and int(target.group(1), 16) <= addr and int(target.group(1), 16) in at:
+                first = at[int(target.group(1), 16)]
+                body = [i for _, i in items[first:k + 1]]
+                n = sum(1 for i in body if compare.match(i))
+                if n >= 16:
+                    loops.append((first, k, n, body))
+        inner = [lp for lp in loops if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1]
+                                                 for o in loops)]
+        if not inner:
+            out.append(f"{fn}: no loop of 16 compares")
+            continue
+        # the innermost loop with the most compares: the unrolled steps of a
+        # whole query tile (the others: a tile with padded query rows)
+        _, _, n, body = max(inner, key=lambda lp: (lp[2], -len(lp[3])))
+        size = len(body)
+        count = collections.Counter(_opcode(i) for i in body)
+        alu = sum(c for op, c in count.items() if op in ALU_OPCODES) / n
+        total = size / n
+        top = ", ".join(f"{op} {c / n:.3f}" for op, c in count.most_common(12))
+        out.append(f"{fn}: {total:.3f} a compare over a loop of {size} instructions and {n} "
+                   f"compares, ALU {alu:.3f} (floor {alu * K2_INT32_MS:.2f} ms; issue floor "
+                   f"{total * K2_INT32_MS / 2:.2f} ms) ({top})")
+        if dump:
+            os.makedirs(dump, exist_ok=True)
+            for j, lp in enumerate(inner):
+                name = re.sub(r"[^\w]+", "_", fn) + f"-{j}.sass"
+                with open(os.path.join(dump, name), "w") as f:
+                    f.write("\n".join(lp[3]) + "\n")
+    return "; ".join(out)
+
+
+def print_k2_compare_ops() -> None:
+    from repro_torch.kernels import common
+
+    print("k2_compare_ops (cuobjdump -sass): "
+          + k2_compare_ops(common.library_path("fused_topk"),
+                           dump=os.path.join(ROOT, "build", "k2-loops")))
+
+
+def _k2_cell(dev):
+    """(signatures of the cell's 256 queries, the index's (N, 300) uint32
+    signatures): the lexical-LSH index (b = 300, h = 1) of the ann-word2vec
+    corpus, as the main path builds it."""
+    from repro_torch.configs import ann_word2vec
+    from repro_torch.core import bruteforce, lexical_lsh
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.types import LexicalLshConfig
+
+    cell = ann_word2vec.ARCH.cell("ann_search")
+    x, qx = make_inputs(dev, cell.get("n_docs"), cell.batch)
+    lcfg = LexicalLshConfig(**K2_LSH)
+    sig = AnnIndex.build(x, lcfg, keep_vectors=False, device=dev).index.sig
+    sig_q = lexical_lsh.encode(bruteforce.l2_normalize(qx), lcfg)
+    del x, qx
+    torch.cuda.empty_cache()
+    return sig_q, sig
+
+
+def ablate_k2(dev, card: str, trees=(("this tree", ROOT),), cell=None) -> None:
+    """K2 at the lexical-LSH main path's shape (the (b = 300, h = 1)
+    signatures of the ann-word2vec corpus, 2,999,808 x 300 uint32, the
+    cell's queries, depth 100), built from each tree's sources as it is and
+    with parts cut out (K2_ABLATIONS), timed in turns (full, each copy,
+    full) at B = 256, 8 and 1; the full kernel's pass 1 and pass 2 apart
+    (``kernel_split``); the candidates that reach the running lists per
+    (query, split) (K2_COUNT); each tree's registers and spills (ptxas -v)
+    and SASS instructions a compare (``k2_compare_ops``); and, given two
+    trees (label, root), e.g. this tree and its parent, their full kernels
+    in turns (second, first, first, second) at each B, results held to each
+    other bit for bit.  ``cell``: (sig_q, sig) where the caller has them."""
+    import ctypes
+
+    sig_q, sig = cell or _k2_cell(dev)
+    n, depth = sig.shape[0], 100
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    variants = {**{name: edits for name, edits in K2_ABLATIONS.items()},
+                "candidates counted": K2_COUNT}
+    dirs = {(label, name): os.path.join(ROOT, "build", "ablate-k2",
+                                        f"{label}-{j}".replace(" ", "-"))
+            for label, _ in trees for j, name in enumerate({**variants, **K2_VARIANTS})}
+    with ThreadPoolExecutor() as pool:  # every copy's nvcc at once
+        built = {(label, name): pool.submit(
+            _tree_kernels, os.path.join(os.path.abspath(root), "src", "repro_torch", "kernels"),
+            dirs[label, name], names=("fused_topk",), edits=variants[name])
+            for label, root in trees for name in variants}
+        built_v = {name: pool.submit(
+            _tree_kernels, os.path.join(ROOT, "src", "repro_torch", "kernels"),
+            dirs[trees[0][0], name], names=("fused_topk",), edits=edits)
+            for name, edits in K2_VARIANTS.items()}
+        cut = {}
+        for (label, name), fut in built.items():
+            cut.setdefault(label, {})[name] = fut.result()["fused_topk"]
+        other = {name: fut.result()["fused_topk"] for name, fut in built_v.items()}
+    counters = {}
+    for label, _ in trees:
+        path = os.path.join(dirs[label, "full"], "libfused_topk.so")
+        log = open(os.path.join(dirs[label, "full"], "fused_topk.log")).read()
+        print(f"K2 pass 1, ptxas -v ({label}): "
+              + ptxas_report(log, ("fused_topk_partial", "fused_topk_lsh_partial")))
+        print(f"k2_compare_ops ({label}, cuobjdump -sass): "
+              + k2_compare_ops(path, dump=os.path.join(ROOT, "build", f"k2-loops-{label}"
+                                                       .replace(" ", "-"))))
+        lib = ctypes.CDLL(os.path.join(dirs[label, "candidates counted"], "libfused_topk.so"))
+        lib.k2_candidates.restype = ctypes.c_ulonglong
+        lib.fused_topk_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        counters[label] = lib
+    for name in K2_VARIANTS:
+        log = open(os.path.join(dirs[trees[0][0], name], "fused_topk.log")).read()
+        print(f"K2 variant {name!r}, ptxas -v: " + ptxas_report(log, "fused_topk_lsh_partial<64"))
+    for bb in (256, 8, 1):
+        qb = sig_q[:bb]
+        runs = {"runs": 5, "warmup": 1} if bb > 8 else {}
+        if len(trees) > 1:
+            (first, f_fn), (second, s_fn) = ((label, cut[label]["full"]) for label, _ in trees[:2])
+            compare(f"K2 B={bb}: {first} vs {second}", f_fn(qb, sig, depth),
+                    s_fn(qb, sig, depth + 1), exact=True)
+            times = [cuda_ms(lambda i=i: (s_fn if i in (0, 3) else f_fn)(qb, sig, depth), **runs)
+                     for i in range(4)]
+            print(f"K2 in turns, B={bb} on {card}: {second} {times[0]:.3f} ms, "
+                  f"{first} {times[1]:.3f} ms, {first} {times[2]:.3f} ms, "
+                  f"{second} {times[3]:.3f} ms")
+        for label, fns in cut.items():
+            line = [f"{name} {cuda_ms(lambda fn=fn: fn(qb, sig, depth), **runs):.3f} ms"
+                    for name, fn in fns.items() if name != "candidates counted"]
+            line.append(f"full {cuda_ms(lambda: fns['full'](qb, sig, depth), **runs):.3f} ms")
+            print(f"K2 ablation ({label}), B={bb}, N={n}, S={sig.shape[1]}, depth {depth}, on "
+                  f"{card}: " + "; ".join(line) + "; the full kernel at "
+                  + clock_power(lambda: fns["full"](qb, sig, depth)))
+            if label == trees[0][0]:
+                full = fns["full"]
+                want = full(qb, sig, depth)
+                line = []
+                for name, fn in other.items():
+                    compare(f"K2 {name} B={bb}", fn(qb, sig, depth), want, exact=True)
+                    line.append(f"{name} {cuda_ms(lambda fn=fn: fn(qb, sig, depth), **runs):.3f}"
+                                f" ms, full {cuda_ms(lambda: full(qb, sig, depth), **runs):.3f} ms")
+                print(f"K2 variants ({label}, bit-equal to it), B={bb} on {card}: "
+                      + "; ".join(line))
+            print(f"K2 pass 1 / pass 2 ({label}, torch.profiler), B={bb} on {card}: "
+                  + split_line(kernel_split(lambda: fns["full"](qb, sig, depth),
+                                            runs=3 if bb > 8 else 5)))
+            lib = counters[label]
+            lib.k2_candidates()
+            fns["candidates counted"](qb, sig, depth)
+            torch.cuda.synchronize()
+            total = lib.k2_candidates()
+            plan = (ctypes.c_int * 8)()
+            lib.fused_topk_plan(3, bb, n, depth, sm_count, plan)
+            print(f"K2 candidates ({label}), B={bb}: {total} in all, plan (queries a block, K, "
+                  f"splits, tiles a split, docs a tile) {tuple(plan[:5])}, "
+                  f"{total / (bb * plan[2]):.1f} per (query, split)")
+
+
 def _library_copy(kdir: str, name: str, out_dir: str, edits=()):
     """(library, source text): the kernel source ``<name>/csrc/<name>.cu`` of
     the kernels directory ``kdir`` of some tree, copied into ``out_dir`` with
@@ -2570,7 +2941,7 @@ def pair_parent(dev, card: str, parent: str) -> None:
     call) at B = 256, 8 and 1 over the fp32 index; K3 (blockmax stage 2 at
     10% of the blocks, rows in bound order) classic at B = 256, 8 and 1,
     each tree's pass 1 and pass 2 apart (torch.profiler), and dot at B = 8
-    and 1; K1 lsh (K2) at B = 256 and 1 over the lexical-LSH signatures; K4
+    and 1; K1 lsh (K2) at B = 256, 8 and 1 over the lexical-LSH signatures; K4
     with a bf16 query over int8 and int4 (group 32) postings at B = 256, 8
     and 1 (the quantized classic search's call), K5 over the int4 postings
     at 10% of the blocks at B = 256, 8 and 1, and K4 with an f32 query over int8 and over
@@ -2672,7 +3043,7 @@ def pair_parent(dev, card: str, parent: str) -> None:
     lcfg = LexicalLshConfig(buckets=300, hashes=1)
     lidx = AnnIndex.build(x, lcfg, keep_vectors=False, device=dev)
     sig_q = lexical_lsh.encode(qn, lcfg)
-    for bb in (256, 1):
+    for bb in (256, 8, 1):
         pair(f"K1 lsh B={bb}", lambda q, sig, d: fused_topk(q, sig, d, mode="lsh"),
              old["fused_topk"], (sig_q[:bb], lidx.index.sig), depth, exact=True)
     del lidx, sig_q
@@ -3003,14 +3374,16 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
     # computes collision counts, so it has no library yardstick.
     sig = lidx.index.sig
     ms = cuda_ms(lambda: fused_topk(sig_q, sig, depth, mode="lsh"))
-    ms_1 = cuda_ms(lambda: fused_topk(sig_q[:1], sig, depth, mode="lsh"))
+    small = {bb: (cuda_ms(lambda: fused_topk(sig_q[:bb], sig, depth, mode="lsh")),
+                  *bound_ms(sig_q[:bb], sig, n, depth, "int32")) for bb in (8, 1)}
     plain_ms = cuda_ms(lambda: ref.fused_topk_ref(sig_q, sig, depth, mode="lsh"),
                        runs=3, warmup=1)
     bound, bound_by = bound_ms(sig_q, sig, n, depth, "int32")
-    bound_1, _ = bound_ms(sig_q[:1], sig, n, depth, "int32")
     print(f"fused_topk/lsh (uint32, B={b}, N={n}, S={sig.shape[1]}, depth={depth}): "
-          f"kernel {ms:.3f} ms, bound {bound:.3f} ms ({bound_by}); B=1 kernel {ms_1:.3f} ms, "
-          f"bound {bound_1:.3f} ms; plain {plain_ms:.3f} ms (median of 3); library: none")
+          f"kernel {ms:.3f} ms, bound {bound:.3f} ms ({bound_by}); "
+          + "; ".join(f"B={bb} kernel {v[0]:.3f} ms, bound {v[1]:.3f} ms ({v[2]})"
+                      for bb, v in small.items())
+          + f"; plain {plain_ms:.3f} ms (median of 3); library: none")
     kernels.append({
         "name": "fused_topk/lsh", "route": "cuda",
         "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",

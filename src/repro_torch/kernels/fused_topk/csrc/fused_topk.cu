@@ -32,9 +32,8 @@
 // (fused_topk_merge): one block per query cuts the splits' sorted lists at
 // a threshold no later entry can pass, merges them as a tree under the
 // same comparator and writes the first `depth` entries, -inf slots as id
-// -1.  The tile shape of the CUDA-core pass 1, its launch plan, the sorted
-// insert, the list merge and pass 2 live in topk_merge.cuh, shared with
-// fused_topk_quantized.cu.
+// -1.  The sorted insert, the order and pass 2 live in topk_merge.cuh, the
+// counting merge in mma_topk.cuh, both shared with fused_topk_quantized.cu.
 //
 // classic (bf16): fused_topk_bf16_partial, on tensor cores: the pass-1 body
 // of mma_topk.cuh (shared with K4's bf16-query instances in
@@ -92,15 +91,39 @@
 // At B = 256 (`chip_smoke.py --ablate`) the loads take ~4.5 ms, the three
 // tf32 products ~5.2 and the running top-k ~1.7; at B <= 8 the loads.
 //
-// lsh: fused_topk_partial, on CUDA cores.  A block of 256 threads owns BQ
-// queries and a contiguous range of 256-doc tiles, walks (tile, 32-word
-// reduce chunk) steps with the next step's loads in flight, and keeps the
-// score tile in registers (each warp BQ/8 query rows, each lane 8 doc
-// columns) as equality counts.  After a tile's last chunk the warp merges
-// its rows into the running lists: lanes whose candidate beats the list's
-// K-th entry raise a ballot, and the warp inserts them one at a time
-// (warp_insert).
-//
+// lsh (K2): fused_topk_lsh_partial, on CUDA cores.  Bound at the lexical-LSH
+// cell (N = 2,999,808, S = 300 slots, B = 256, depth 100): 2.3e11 compares,
+// 13.796 ms at one INT32 operation each (64 INT32 lanes an SM, 16.7e12
+// op/s); at B = 1 the 3.6 GB of signatures, 1.075 ms.  A count of 32-bit
+// equalities is not a product, and only exact equality counts, so tensor
+// cores cannot take it: any fingerprint or one-hot encoding would change
+// the results.  What the design does about the rest:
+//   * The compare (lsh_word): one ISETP a (query, doc, slot), with the
+//     query slot's sentinel test done once per query word and ANDed in as
+//     its predicate, and a predicated FADD into an f32 count (exact to
+//     2^24) on the FP32 pipe, beside the ISETPs on the INT32 one.  A thread
+//     counts 4 queries x 8 docs at 64-query tiles, so the sentinel ISETP is
+//     an eighth of one a compare: ~1.125 ALU instructions and ~2.2 issued a
+//     compare (chip_smoke.k2_compare_ops prints them), an ALU floor of
+//     ~15.5 ms at the cell.  Query and doc slots come 4 at a time by LDS.128
+//     from rows kLshStride words apart (conflict-free), no register spills.
+//   * The loads: a three-stage cp.async ring of 32-slot chunks of the tile's
+//     doc rows and the query rows (16-byte copies where every row is
+//     16-byte aligned, 4-byte ones otherwise), two chunks in flight.
+//   * The running top-k: each query's threshold, its list's depth-th score,
+//     lives in a register and is read again only after a merge; a count that
+//     beats it goes to the query's candidate buffer, and a buffer past BN / 4
+//     merges into the list by counting (merge_buffer of mma_topk.cuh, a warp
+//     a query, the whole block at one query).  Ids ascend within a block, so
+//     a count that only ties the threshold cannot rank, and the test needs
+//     no id.
+//   * The plan (lsh_plan): 64-query tiles of 128 docs from B = 9; at B <= 8
+//     the tile of 1, 2, 4 or 8 rows that holds B, of 256 docs, so padded
+//     rows run no compares; splits so that every SM holds its blocks (two a
+//     SM at B = 1).
+// PERF.md §6 has its times, the ablation (chip_smoke.py --ablate, ablate_k2)
+// and the instructions a compare.
+
 // K3, the gathered variant (fused_topk_gathered_partial + the same merge),
 // replaces repro/kernels/fused_topk/kernel.py::fused_topk_gathered (def 433,
 // pallas_call 485): per query b, the top-`depth` of score(q[b], store[id])
@@ -144,148 +167,300 @@
 namespace {
 
 // The score modes (Mode, Traits, Vec, load_pack, store_pack, mac) are in
-// score_operands.cuh, shared with the dense score kernels K6 and K8.  Pass 1
-// reads its rows with 16-byte loads or element by element (load_pack<M,
-// false>): with the 8-byte branch compiled in, its instances spilled more
-// at the 128-register cap and ran 1-2% slower on an H100.
+// score_operands.cuh, shared with the dense score kernels K6 and K8, and used
+// here by K3.  K2 has a compare of its own (lsh_word).
 
-// Two blocks per SM: ptxas caps a thread at 128 registers.
-template <int M, int BQ>
-__global__ void __launch_bounds__(kThreads, 2) fused_topk_partial(
-    const typename Traits<M>::Raw* __restrict__ q,     // (B, T)
-    const typename Traits<M>::Raw* __restrict__ docs,  // (N, T), rows >= n_docs unread
-    const uint8_t* __restrict__ filt,                   // nullptr | (N,) | (B, N)
-    long long filt_stride,                              // 0 for (N,), N for (B, N)
-    int B, int n_docs, int T, int K, int tiles_per_split,
-    bool q_aligned, bool d_aligned,                     // rows 16-byte aligned
+// ---------------------------------------------------------------------------
+// K2: K1's lsh mode (fused_topk_lsh_partial), on CUDA cores.
+// ---------------------------------------------------------------------------
+
+constexpr int kLshStride = kBK + 4;  // staged row stride in words: 16-byte rows, LDS.128 conflict-free
+constexpr int kLshStages = 3;        // cp.async ring: two chunks in flight
+
+// The thread tile of a K2 block of BQ queries (64, 8, 4, 2 or 1): each of
+// its NT threads counts TQ queries against TD docs; QG query groups x DG doc
+// groups make the block, and BN = DG x TD docs a tile.  TQ x TD is 4 x 8 at
+// 64 queries, 4 x 2 at 8, and BQ x 1 below.
+template <int BQ>
+struct LshTile {
+  static constexpr int NT = kThreads;
+  static constexpr int TQ = BQ < 4 ? BQ : 4;
+  static constexpr int QG = BQ / TQ;
+  static constexpr int DG = NT / QG;
+  static constexpr int TD = BQ == 64 ? 8 : (BQ == 8 ? 2 : 1);
+  static constexpr int BN = DG * TD;
+  static_assert(QG * TQ == BQ && QG * DG == NT, "query groups must tile the block");
+  static_assert(BQ > 1 || NT == kThreads, "one query merges with the whole block of kThreads");
+};
+
+// Docs a tile of the K2 instance for bq queries (LshTile<bq>::BN).
+__host__ __device__ constexpr int lsh_bn(int bq) { return bq == 64 ? 128 : 256; }
+
+// Dynamic shared memory of a K2 block of bq queries at list width K: the
+// ring's stages (bn doc rows, then bq query rows, kLshStride words each), bq
+// running lists of K (score, id) pairs, bq candidate buffers of
+// cand_cap(bn) pairs, and each query's threshold and count.
+constexpr size_t lsh_smem(int bq, int K) {
+  return (size_t)kLshStages * (lsh_bn(bq) + bq) * kLshStride * 4 + (size_t)bq * K * 8 +
+         (size_t)bq * cand_cap(lsh_bn(bq)) * 8 + (size_t)bq * 8;
+}
+
+// K2's launch plan for B queries over n_docs rows at `depth` on sm_count
+// SMs: plan[0] queries a block (64 from B = 9; at B <= 8 the tile of 1, 2,
+// 4 or 8 rows that holds them; smaller where the lists do not fit), plan[1]
+// K (depth rounded up to 32), plan[2] N-splits, plan[3] doc tiles per
+// split, plan[4] docs a tile (lsh_bn), so that query tiles x splits cover
+// every SM's resident blocks, at B = 256 and at B = 1 alike.  Returns
+// cudaErrorInvalidValue if no block fits in shared memory or pass 2 cannot
+// merge lists of depth.
+inline int lsh_plan(int B, int n_docs, int depth, int sm_count, int* plan) {
+  if (B <= 0 || n_docs <= 0 || depth <= 0 || sm_count <= 0) return (int)cudaErrorInvalidValue;
+  const int K = (depth + 31) / 32 * 32;
+  int bq = B >= 9 ? 64 : (B >= 5 ? 8 : (B >= 3 ? 4 : B));
+  while (bq > 1 && lsh_smem(bq, K) > kMaxSmem) bq = bq == 64 ? 8 : bq / 2;
+  if (lsh_smem(bq, K) > kMaxSmem || merge_lists(depth) < 2) return (int)cudaErrorInvalidValue;
+  const size_t per_block = lsh_smem(bq, K) + kSmemPerBlock;
+  const int resident = kSmemPerSm / per_block > 1 ? (int)(kSmemPerSm / per_block) : 1;
+  const int bn = lsh_bn(bq);
+  const int n_tiles = (n_docs + bn - 1) / bn;
+  const int q_tiles = (B + bq - 1) / bq;
+  const int want = (resident * sm_count + q_tiles - 1) / q_tiles;
+  const int splits = want < 1 ? 1 : (want < n_tiles ? want : n_tiles);
+  const int tiles_per_split = (n_tiles + splits - 1) / splits;
+  plan[0] = bq;
+  plan[1] = K;
+  plan[2] = (n_tiles + tiles_per_split - 1) / tiles_per_split;  // no empty split
+  plan[3] = tiles_per_split;
+  plan[4] = bn;
+  return 0;
+}
+
+// acc[j] += 1 where query word qw equals doc word d[j] and is not the
+// sentinel: the sentinel test once per query word, as the predicate that
+// every equality ISETP ANDs in, and a predicated FADD a compare (the FP32
+// pipe, beside the ISETPs on the INT32 one).  Counts up to 2^24 are exact in
+// f32.
+template <int TD>
+__device__ __forceinline__ void lsh_word(float (&acc)[TD], uint32_t qw, const uint32_t (&d)[TD]) {
+  if constexpr (TD == 8) {
+    asm("{\n .reg .pred q, p;\n setp.ne.u32 q, %8, 0xFFFFFFFF;\n"
+        " setp.eq.and.u32 p, %8, %9, q;\n @p add.f32 %0, %0, 0f3F800000;\n"
+        " setp.eq.and.u32 p, %8, %10, q;\n @p add.f32 %1, %1, 0f3F800000;\n"
+        " setp.eq.and.u32 p, %8, %11, q;\n @p add.f32 %2, %2, 0f3F800000;\n"
+        " setp.eq.and.u32 p, %8, %12, q;\n @p add.f32 %3, %3, 0f3F800000;\n"
+        " setp.eq.and.u32 p, %8, %13, q;\n @p add.f32 %4, %4, 0f3F800000;\n"
+        " setp.eq.and.u32 p, %8, %14, q;\n @p add.f32 %5, %5, 0f3F800000;\n"
+        " setp.eq.and.u32 p, %8, %15, q;\n @p add.f32 %6, %6, 0f3F800000;\n"
+        " setp.eq.and.u32 p, %8, %16, q;\n @p add.f32 %7, %7, 0f3F800000;\n}"
+        : "+f"(acc[0]), "+f"(acc[1]), "+f"(acc[2]), "+f"(acc[3]), "+f"(acc[4]), "+f"(acc[5]),
+          "+f"(acc[6]), "+f"(acc[7])
+        : "r"(qw), "r"(d[0]), "r"(d[1]), "r"(d[2]), "r"(d[3]), "r"(d[4]), "r"(d[5]), "r"(d[6]),
+          "r"(d[7]));
+  } else if constexpr (TD == 2) {
+    asm("{\n .reg .pred q, p;\n setp.ne.u32 q, %2, 0xFFFFFFFF;\n"
+        " setp.eq.and.u32 p, %2, %3, q;\n @p add.f32 %0, %0, 0f3F800000;\n"
+        " setp.eq.and.u32 p, %2, %4, q;\n @p add.f32 %1, %1, 0f3F800000;\n}"
+        : "+f"(acc[0]), "+f"(acc[1])
+        : "r"(qw), "r"(d[0]), "r"(d[1]));
+  } else {
+    static_assert(TD == 1, "K2 threads count 8, 2 or 1 docs");
+    asm("{\n .reg .pred q, p;\n setp.ne.u32 q, %1, 0xFFFFFFFF;\n"
+        " setp.eq.and.u32 p, %1, %2, q;\n @p add.f32 %0, %0, 0f3F800000;\n}"
+        : "+f"(acc[0])
+        : "r"(qw), "r"(d[0]));
+  }
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int w) {
+  return w == 0 ? v.x : (w == 1 ? v.y : (w == 2 ? v.z : v.w));
+}
+
+// This thread's counts of a staged chunk of `words` slots: the first
+// `rows` of its TQ queries (kAll: all of them) against its TD docs, 4 slots
+// a step (one LDS.128 a doc row and a query row), the last step cut to the
+// slots the chunk has (words % 4, the ring's zero-filled words never read).
+template <int BQ, bool kAll>
+__device__ __forceinline__ void lsh_chunk(float (&acc)[LshTile<BQ>::TQ][LshTile<BQ>::TD],
+                                          const uint32_t* ds, const uint32_t* qs, int dg, int qg,
+                                          int words, int rows) {
+  using L = LshTile<BQ>;
+  auto step = [&](int kk, int n) {
+    uint4 dv[L::TD], qv[L::TQ];
+#pragma unroll
+    for (int j = 0; j < L::TD; ++j)
+      dv[j] = *reinterpret_cast<const uint4*>(ds + (dg + L::DG * j) * kLshStride + kk);
+#pragma unroll
+    for (int i = 0; i < L::TQ; ++i)
+      if (kAll || i < rows)
+        qv[i] = *reinterpret_cast<const uint4*>(qs + (qg * L::TQ + i) * kLshStride + kk);
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      if (w >= n) break;
+      uint32_t d[L::TD];
+#pragma unroll
+      for (int j = 0; j < L::TD; ++j) d[j] = word_of(dv[j], w);
+#pragma unroll
+      for (int i = 0; i < L::TQ; ++i)
+        if (kAll || i < rows) lsh_word<L::TD>(acc[i], word_of(qv[i], w), d);
+    }
+  };
+  const int full = words / 4;
+#pragma unroll 4
+  for (int g = 0; g < full; ++g) step(4 * g, 4);
+  if (words % 4) step(4 * full, words % 4);
+}
+
+// Grid (query tiles of BQ, splits): block (x, split) owns queries [x * BQ,
+// x * BQ + BQ) and doc tiles [split * tiles_per_split, ...) of BN docs, in
+// ascending order.  Each step stages one chunk of kBK slots of the tile's
+// doc rows and of the query rows through a cp.async ring of kLshStages
+// (CP = 16: 16-byte copies, every row 16-byte aligned; CP = 4: 4-byte
+// copies; a copy past S or of a row that does not exist is zero-filled and
+// never read), and every thread adds the chunk's equalities to its TQ x TD
+// counts (lsh_chunk).  After a tile's last chunk a count that beats its
+// query's threshold goes to the query's candidate buffer (a shared-memory
+// atomicAdd on the query's count).  The threshold is the depth-th score of
+// the query's list, in a register: -inf until the list holds depth entries.
+// A count that only ties it cannot rank, since ids ascend within a block,
+// and between merges a stale threshold only lets more in.  Once a buffer
+// holds more than BN / 4 (and after the block's last tile) every buffer
+// that holds a candidate merges into its list by counting (merge_buffer: a
+// warp a query, the warps taking the queries in turn, or the whole block at
+// one query), and the thresholds are read again.  Writes each query's
+// sorted list of K to part_s / part_i (splits, B, K).
+template <int BQ, int CP>
+__global__ void __launch_bounds__(LshTile<BQ>::NT, 1) fused_topk_lsh_partial(
+    const uint32_t* __restrict__ q,     // (B, S)
+    const uint32_t* __restrict__ docs,  // (N, S), rows >= n_docs unread
+    const uint8_t* __restrict__ filt,   // nullptr | (N,) | (B, N)
+    long long filt_stride,              // 0 for (N,), N for (B, N)
+    int B, int n_docs, int S, int depth, int K, int tiles_per_split,
     float* __restrict__ part_s, int* __restrict__ part_i) {  // (splits, B, K)
-  using Tr = Traits<M>;
-  using V = Vec<M>;
-  using Word = typename Tr::Word;
-  using Acc = typename Tr::Acc;
-  constexpr int TM = BQ / kWarps;  // query rows per warp
-  constexpr int kDLoads = kBN * V::kPerRow / kThreads;
-  constexpr int kQPacks = BQ * V::kPerRow;
-  constexpr int kQLoads = (kQPacks + kThreads - 1) / kThreads;
-  static_assert(kDLoads * kThreads == kBN * V::kPerRow, "doc chunk must split evenly");
+  using L = LshTile<BQ>;
+  constexpr int BN = L::BN, TQ = L::TQ, TD = L::TD, DG = L::DG, NT = L::NT, kNWarps = NT / 32;
+  constexpr int kCap = cand_cap(BN), kFlushAt = flush_at(BN);
+  constexpr int kStage = (BN + BQ) * kLshStride;  // words
+  constexpr int kUnits = kBK * 4 / CP;            // copies a staged row and chunk
+  static_assert(BN == lsh_bn(BQ), "lsh_bn sizes the plan and the shared memory");
+  static_assert(CP == 16 || CP == 4, "16- or 4-byte copies");
 
   extern __shared__ __align__(16) unsigned char smem[];
-  Word* qs = reinterpret_cast<Word*>(smem);                // kBK x BQ, k-major
-  Word* ds = qs + kBK * BQ;                                 // kBN x kSkew, row-major
-  float* ls = reinterpret_cast<float*>(ds + kBN * kSkew);   // BQ x K running scores
-  int* li = reinterpret_cast<int*>(ls + BQ * K);            // BQ x K running ids
+  uint32_t* stages = reinterpret_cast<uint32_t*>(smem);
+  float* ls = reinterpret_cast<float*>(stages + kLshStages * kStage);  // BQ x K
+  int* li = reinterpret_cast<int*>(ls + BQ * K);
+  float* cs = reinterpret_cast<float*>(li + BQ * K);  // BQ x kCap candidates
+  int* ci = reinterpret_cast<int*>(cs + BQ * kCap);
+  float* ts = reinterpret_cast<float*>(ci + BQ * kCap);  // each list's depth-th score
+  int* cnt = reinterpret_cast<int*>(ts + BQ);            // candidates per query
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int dg = tid % DG, qg = tid / DG;
   const int q0 = blockIdx.x * BQ, split = blockIdx.y;
-  const int n_chunks = ((T + Tr::kPerWord - 1) / Tr::kPerWord + kBK - 1) / kBK;
-  const int n_tiles = (n_docs + kBN - 1) / kBN;
+  const int rows = min(TQ, B - (q0 + qg * TQ));  // this thread's queries that exist
+  const int n_chunks = (S + kBK - 1) / kBK;
+  const int n_tiles = (n_docs + BN - 1) / BN;
   const int tile_begin = split * tiles_per_split;
   const int n_steps = max(0, min(tile_begin + tiles_per_split, n_tiles) - tile_begin) * n_chunks;
 
-  for (int e = tid; e < BQ * K; e += kThreads) { ls[e] = -INFINITY; li[e] = kBigId; }
+  for (int e = tid; e < BQ * K; e += NT) { ls[e] = -INFINITY; li[e] = kBigId; }
+  for (int r = tid; r < BQ; r += NT) { ts[r] = -INFINITY; cnt[r] = 0; }
 
-  uint4 dst[kDLoads], qst[kQLoads];
-  auto load_step = [&](int step) {
-    const int d0 = (tile_begin + step / n_chunks) * kBN;
+  auto copy_step = [&](int step) {  // chunk `step` of the doc and query rows into its stage
+    uint32_t* st = stages + (step % kLshStages) * kStage;
+    const int d0 = (tile_begin + step / n_chunks) * BN;
     const int w0 = (step % n_chunks) * kBK;
-#pragma unroll
-    for (int i = 0; i < kDLoads; ++i) {
-      const int v = tid + i * kThreads, r = v / V::kPerRow, c = v % V::kPerRow;
-      const int di = d0 + r;
-      dst[i] = load_pack<M, false>(docs + (size_t)di * T, di < n_docs,
-                                   (w0 + c * V::kWords) * Tr::kPerWord, T, d_aligned ? 16 : 1,
-                                   false);
-    }
-#pragma unroll
-    for (int i = 0; i < kQLoads; ++i) {
-      const int v = tid + i * kThreads, r = v % BQ, c = v / BQ;
-      const int qi = q0 + r;
-      if (v < kQPacks)
-        qst[i] = load_pack<M, false>(q + (size_t)qi * T, qi < B,
-                                     (w0 + c * V::kWords) * Tr::kPerWord, T, q_aligned ? 16 : 1,
-                                     true);
+    for (int v = tid; v < (BN + BQ) * kUnits; v += NT) {
+      const int r = v / kUnits, e = w0 + (v % kUnits) * (CP / 4);
+      const bool is_doc = r < BN;
+      const int row = is_doc ? d0 + r : q0 + r - BN;
+      const bool ok = (is_doc ? row < n_docs : row < B) && e < S;
+      const uint32_t* src = (is_doc ? docs : q) + (ok ? (size_t)row * S + e : 0);
+      uint32_t* dst = st + r * kLshStride + (v % kUnits) * (CP / 4);
+      if constexpr (CP == 16) cp_async16(dst, src, ok ? 16 : 0);
+      else cp_async4(dst, src, ok ? 4 : 0);
     }
   };
 
-  Acc acc[TM][kTN];
-  if (n_steps > 0) load_step(0);
+  float acc[TQ][TD];
+  float thr[TQ];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) thr[i] = -INFINITY;
+#pragma unroll
+  for (int s0 = 0; s0 < kLshStages - 1; ++s0) {
+    if (s0 < n_steps) copy_step(s0);
+    cp_async_commit();
+  }
   for (int step = 0; step < n_steps; ++step) {
     const int chunk = step % n_chunks;
-    const int d0 = (tile_begin + step / n_chunks) * kBN;
     if (chunk == 0) {
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+      for (int i = 0; i < TQ; ++i)
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = Acc(0);
+        for (int j = 0; j < TD; ++j) acc[i][j] = 0.f;
     }
-    __syncthreads();  // every warp is done with the previous chunk
-#pragma unroll
-    for (int i = 0; i < kDLoads; ++i) {
-      const int v = tid + i * kThreads, r = v / V::kPerRow, c = v % V::kPerRow;
-      store_pack<M>(ds + r * kSkew + c * V::kWords, 1, dst[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < kQLoads; ++i) {
-      const int v = tid + i * kThreads, r = v % BQ, c = v / BQ;
-      if (v < kQPacks) store_pack<M>(qs + c * V::kWords * BQ + r, BQ, qst[i]);
-    }
+    // This chunk has landed; after the barrier every thread is done with the
+    // stage of the previous step, which the chunk kLshStages - 1 ahead fills.
+    cp_async_wait<kLshStages - 2>();
     __syncthreads();
-    if (step + 1 < n_steps) load_step(step + 1);  // in flight during the products
-
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      Word a[TM], b[kTN];
-      if constexpr (TM % 4 == 0) {  // one broadcast 16-byte read per 4 rows
-#pragma unroll
-        for (int g = 0; g < TM / 4; ++g) {
-          const uint4 av = *reinterpret_cast<const uint4*>(qs + kk * BQ + warp * TM + 4 * g);
-          a[4 * g + 0] = from_bits<M>(av.x);
-          a[4 * g + 1] = from_bits<M>(av.y);
-          a[4 * g + 2] = from_bits<M>(av.z);
-          a[4 * g + 3] = from_bits<M>(av.w);
-        }
-      } else {
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = qs[kk * BQ + warp * TM + i];
-      }
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) b[j] = ds[(lane + 32 * j) * kSkew + kk];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = mac<M>(acc[i][j], a[i], b[j]);
-    }
+    if (step + kLshStages - 1 < n_steps) copy_step(step + kLshStages - 1);
+    cp_async_commit();
+    const uint32_t* ds = stages + (step % kLshStages) * kStage;
+    const int words = min(kBK, S - chunk * kBK);
+    if (rows >= TQ) lsh_chunk<BQ, true>(acc, ds, ds + BN * kLshStride, dg, qg, words, TQ);
+    else if (rows > 0) lsh_chunk<BQ, false>(acc, ds, ds + BN * kLshStride, dg, qg, words, rows);
 
     if (chunk != n_chunks - 1) continue;
-    // Merge this warp's rows of the finished tile into their running lists.
+    // The tile is done: counts that beat their query's threshold go to its buffer.
+    const int d0 = (tile_begin + step / n_chunks) * BN;
+    bool full = false;  // a buffer this thread appended to holds more than kFlushAt
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int r = warp * TM + i, qi = q0 + r;
-      if (qi >= B) continue;  // warp-uniform
-      float* rs = ls + r * K;
-      int* ri = li + r * K;
-      const uint8_t* f = filt ? filt + qi * filt_stride : nullptr;
+    for (int i = 0; i < TQ; ++i) {
+      if (i >= rows) break;
+      const int r = qg * TQ + i;
+      const uint8_t* f = filt ? filt + (q0 + r) * filt_stride : nullptr;
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int id = d0 + 32 * j + lane;
-        const float s = static_cast<float>(acc[i][j]);
-        const bool valid = id < n_docs && (f == nullptr || f[id] != 0);
-        unsigned mask = __ballot_sync(kFull, valid && precedes(s, id, rs[K - 1], ri[K - 1]));
-        while (mask) {
-          const int src = __ffs(mask) - 1;
-          mask &= mask - 1;
-          const float cs = __shfl_sync(kFull, s, src);
-          const int cid = d0 + 32 * j + src;
-          if (precedes(cs, cid, rs[K - 1], ri[K - 1])) warp_insert(rs, ri, K, cs, cid, lane);
+      for (int j = 0; j < TD; ++j) {
+        const int id = d0 + dg + DG * j;
+        if (acc[i][j] > thr[i] && id < n_docs && (f == nullptr || f[id] != 0)) {
+          const int c = atomicAdd(&cnt[r], 1);
+          cs[r * kCap + c] = acc[i][j];
+          ci[r * kCap + c] = id;
+          full |= c == kFlushAt;
         }
       }
     }
+    // Once a buffer holds more than kFlushAt candidates (and after the
+    // block's last tile) every buffer that holds one merges into its list
+    // and refreshes its threshold: the flushes stop the block fewer times.
+    // Until then a buffer of at most kFlushAt has room for the next tile,
+    // and a stale threshold only lets more in.
+    const bool last = step + 1 == n_steps;
+    if (!__syncthreads_or(full) && !last) continue;
+    if constexpr (BQ == 1) {  // the whole block merges the one buffer
+      const int n = cnt[0];
+      if (n > 0) {  // block-uniform
+        merge_buffer<kCap, kThreads>(ls, li, K, depth, cs, ci, n, tid);
+        __syncthreads();
+        if (tid == 0) { ts[0] = ls[depth - 1]; cnt[0] = 0; }
+      }
+    } else {
+      for (int r = warp; r < BQ; r += kNWarps) {
+        const int n = cnt[r];
+        if (n == 0) continue;  // warp-uniform
+        merge_buffer<kCap>(ls + r * K, li + r * K, K, depth, cs + r * kCap, ci + r * kCap, n,
+                           lane);
+        if (lane == 0) { ts[r] = ls[r * K + depth - 1]; cnt[r] = 0; }
+        __syncwarp();
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TQ; ++i) thr[i] = ts[qg * TQ + i];
   }
 
   __syncthreads();
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = warp * TM + i, qi = q0 + r;
+  for (int r = warp; r < BQ; r += kNWarps) {
+    const int qi = q0 + r;
     if (qi >= B) continue;
     const size_t out = ((size_t)split * B + qi) * K;
     for (int c = lane; c < K; c += 32) {
@@ -295,37 +470,44 @@ __global__ void __launch_bounds__(kThreads, 2) fused_topk_partial(
   }
 }
 
-template <int M, int BQ>
-cudaError_t launch_partial(const void* q, const void* docs, const uint8_t* filt,
-                           long long filt_stride, int B, int n_docs, int T, int K,
-                           int splits, int tiles_per_split, int aligned, float* part_s,
-                           int* part_i, cudaStream_t stream) {
-  using Raw = typename Traits<M>::Raw;
-  static_assert(sizeof(typename Traits<M>::Word) == 4, "partial_smem counts 4-byte words");
-  const size_t smem = partial_smem(BQ, K);
-  auto kernel = fused_topk_partial<M, BQ>;
+template <int BQ, int CP>
+cudaError_t launch_lsh_instance(const void* q, const void* docs, const uint8_t* filt,
+                                long long filt_stride, int B, int n_docs, int S, int depth,
+                                int K, int splits, int tiles_per_split, float* part_s,
+                                int* part_i, cudaStream_t stream) {
+  const size_t smem = lsh_smem(BQ, K);
+  auto kernel = fused_topk_lsh_partial<BQ, CP>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + BQ - 1) / BQ, splits);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const Raw*>(q), static_cast<const Raw*>(docs), filt, filt_stride, B, n_docs,
-      T, K, tiles_per_split, (aligned & 1) != 0, (aligned & 2) != 0, part_s, part_i);
+  constexpr int threads = LshTile<BQ>::NT;
+  kernel<<<grid, threads, smem, stream>>>(
+      static_cast<const uint32_t*>(q), static_cast<const uint32_t*>(docs), filt, filt_stride, B,
+      n_docs, S, depth, K, tiles_per_split, part_s, part_i);
   return cudaGetLastError();
 }
 
-template <int M>
-cudaError_t launch_partial_bq(int bq, const void* q, const void* docs, const uint8_t* filt,
-                              long long filt_stride, int B, int n_docs, int T, int K,
-                              int splits, int tiles_per_split, int aligned, float* part_s,
-                              int* part_i, cudaStream_t stream) {
-  if (bq == 32)
-    return launch_partial<M, 32>(q, docs, filt, filt_stride, B, n_docs, T, K, splits,
-                                 tiles_per_split, aligned, part_s, part_i, stream);
-  if (bq == 8)
-    return launch_partial<M, 8>(q, docs, filt, filt_stride, B, n_docs, T, K, splits,
-                                tiles_per_split, aligned, part_s, part_i, stream);
-  return cudaErrorInvalidValue;
+// K2's pass 1 for the plan's bq: 16-byte copies where every q and doc row
+// is 16-byte aligned (aligned bits 0 and 1), else 4-byte ones.
+cudaError_t launch_lsh(int bq, const void* q, const void* docs, const uint8_t* filt,
+                       long long filt_stride, int B, int n_docs, int S, int depth, int K,
+                       int splits, int tiles_per_split, int aligned, float* part_s, int* part_i,
+                       cudaStream_t stream) {
+  if (lsh_smem(bq, K) > kMaxSmem) return cudaErrorInvalidValue;
+#define FUSED_TOPK_LSH(BQ, CP)                                                              \
+  return launch_lsh_instance<BQ, CP>(q, docs, filt, filt_stride, B, n_docs, S, depth, K,    \
+                                     splits, tiles_per_split, part_s, part_i, stream)
+  const bool wide = (aligned & 3) == 3;
+  switch (bq) {
+    case 64: if (wide) FUSED_TOPK_LSH(64, 16); FUSED_TOPK_LSH(64, 4);
+    case 8: if (wide) FUSED_TOPK_LSH(8, 16); FUSED_TOPK_LSH(8, 4);
+    case 4: if (wide) FUSED_TOPK_LSH(4, 16); FUSED_TOPK_LSH(4, 4);
+    case 2: if (wide) FUSED_TOPK_LSH(2, 16); FUSED_TOPK_LSH(2, 4);
+    case 1: if (wide) FUSED_TOPK_LSH(1, 16); FUSED_TOPK_LSH(1, 4);
+    default: return cudaErrorInvalidValue;
+  }
+#undef FUSED_TOPK_LSH
 }
 
 // ---------------------------------------------------------------------------
@@ -768,13 +950,11 @@ int elem_size(int mode) { return mode == kBF16 ? 2 : (mode == kI8 ? 1 : 4); }
 extern "C" {
 
 // K1's launch plan in `mode` (0 f32, 1 bf16, 2 int8, 3 lsh): mma_plan for
-// f32, bf16 and int8 (the tensor-core pass 1), else streaming_plan
-// (topk_merge.cuh) with plan[4] = kBN docs a tile.
+// f32, bf16 and int8 (the tensor-core pass 1), lsh_plan for lsh (K2).
 int fused_topk_plan(int mode, int B, int n_docs, int depth, int sm_count, int* plan) {
   if (mode < kF32 || mode > kLSH) return (int)cudaErrorInvalidValue;
   if (mode != kLSH) return mma_plan(B, n_docs, depth, sm_count, kStages, plan);
-  plan[4] = kBN;
-  return streaming_plan(B, n_docs, depth, sm_count, plan);
+  return lsh_plan(B, n_docs, depth, sm_count, plan);
 }
 
 // Both passes on `stream`, with the plan of fused_topk_plan in the same
@@ -808,8 +988,8 @@ int fused_topk_launch(int mode, int bq, const void* q, const void* docs, const v
                         aligned & 2 ? 16 : (aligned & 8 ? 8 : 1), ps, pi, st);
       break;
     case kLSH:
-      err = launch_partial_bq<kLSH>(bq, q, docs, f, filt_stride, B, n_docs, T, K, splits,
-                                    tiles_per_split, aligned, ps, pi, st);
+      err = launch_lsh(bq, q, docs, f, filt_stride, B, n_docs, T, depth, K, splits,
+                       tiles_per_split, aligned, ps, pi, st);
       break;
     default:
       return (int)cudaErrorInvalidValue;

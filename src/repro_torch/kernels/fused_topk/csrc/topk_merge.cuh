@@ -1,21 +1,20 @@
 // What the fused top-k kernels share (fused_topk.cu: K1-K3;
-// fused_topk_quantized.cu: K4-K5): K1's CUDA-core streaming pass 1's tile
-// shape and launch plan, the gathered pass 1's row-split plan (K3 and K5:
-// how R is split so that B = 1 fills the SMs, each block keeping one
+// fused_topk_quantized.cu: K4-K5): the gathered pass 1's row-split plan (K3
+// and K5: how R is split so that B = 1 fills the SMs, each block keeping one
 // running list; the tensor-core pass 1 of K1 and K4 has its own plan, in
-// mma_topk.cuh), the candidate buffers' sizes, the (score desc, id asc)
-// order, the warp-wide sorted insert, and pass 2 (fused_topk_merge), which
-// merges the splits' sorted partial lists of every query and writes the
-// first `depth` entries.  Each source is its own shared library, so the
-// definitions live in an anonymous namespace and each library carries its
-// own copy.
+// mma_topk.cuh, and K2's CUDA-core pass 1 its own, in fused_topk.cu), the
+// candidate buffers' sizes, the (score desc, id asc) order, the warp-wide
+// sorted insert, and pass 2 (fused_topk_merge), which merges the splits'
+// sorted partial lists of every query and writes the first `depth` entries.
+// Each source is its own shared library, so the definitions live in an
+// anonymous namespace and each library carries its own copy.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "score_operands.cuh"  // kBK, kSkew; the score modes of K1-K3
+#include "score_operands.cuh"  // kBK; the score modes of K1-K3
 
 namespace {
 
@@ -24,14 +23,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBigId = 1 << 30;                 // id of an empty list slot
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr size_t kMaxSmem = 227 * 1024;         // opt-in dynamic shared memory per block
-
-// Streaming pass 1 (K1 lsh): a block of kThreads owns BQ queries and a
-// contiguous range of kBN-doc tiles, reduced kBK 4-byte words at a time
-// (kBK and kSkew: score_operands.cuh).
-constexpr int kBN = 256;                  // docs per tile
-constexpr int kTN = kBN / 32;             // doc columns per lane
-constexpr size_t kWideSmem = 100 * 1024;  // above this, 32-query blocks drop to 8
-constexpr int kBlocksPerSm = 4;           // streaming pass-1 blocks to aim for per SM
 
 // A query's candidates wait in its buffer until more than bn / 4 have
 // gathered (or the block's last tile or round is done); the buffer holds
@@ -52,35 +43,6 @@ constexpr int kRowBlocksPerSm = 2;
 // buffer, and the threshold and count.
 __host__ __device__ constexpr size_t row_block_smem(size_t query_bytes, int K) {
   return query_bytes + (size_t)(K + kRowCap) * 8 + 16;
-}
-
-// Dynamic shared memory of a streaming pass-1 block: the staged query and doc
-// chunks (4-byte words) and BQ running lists of K (score, id) pairs.
-constexpr size_t partial_smem(int bq, int K) {
-  return (size_t)(kBK * bq + kBN * kSkew) * 4 + (size_t)bq * K * (sizeof(float) + sizeof(int));
-}
-
-// Streaming launch plan for B queries over n_docs rows at `depth` on sm_count
-// SMs: plan[0] queries per block (32, or 8 when B <= 8 or the lists are
-// wide), plan[1] running-list width K (depth rounded up to 32), plan[2]
-// N-splits, plan[3] doc tiles per split, so that query tiles x splits covers
-// kBlocksPerSm blocks per SM, at B = 256 and at B = 1 alike.  Returns
-// cudaErrorInvalidValue if the running lists do not fit in shared memory.
-inline int streaming_plan(int B, int n_docs, int depth, int sm_count, int* plan) {
-  if (B <= 0 || n_docs <= 0 || depth <= 0 || sm_count <= 0) return (int)cudaErrorInvalidValue;
-  const int K = (depth + 31) / 32 * 32;
-  const int bq = (B > 8 && partial_smem(32, K) <= kWideSmem) ? 32 : 8;
-  if (partial_smem(bq, K) > kMaxSmem) return (int)cudaErrorInvalidValue;
-  const int n_tiles = (n_docs + kBN - 1) / kBN;
-  const int q_tiles = (B + bq - 1) / bq;
-  const int want = (kBlocksPerSm * sm_count + q_tiles - 1) / q_tiles;
-  const int splits = want < 1 ? 1 : (want < n_tiles ? want : n_tiles);
-  const int tiles_per_split = (n_tiles + splits - 1) / splits;
-  plan[0] = bq;
-  plan[1] = K;
-  plan[2] = (n_tiles + tiles_per_split - 1) / tiles_per_split;  // no empty split
-  plan[3] = tiles_per_split;
-  return 0;
 }
 
 // (as, ai) comes before (bs, bi) in the output order: score desc, id asc.

@@ -11,9 +11,8 @@ Routing follows the tensors' device: on the CPU the plain version
 stream, or the call raises.  Each wrapper's ``launches`` counts the calls
 that launched on the card; each such call launches two CUDA kernels, pass 1
 (``fused_topk_bf16_partial`` for bf16 operands, ``fused_topk_int8_partial``
-for int8 ones, ``fused_topk_f32_partial`` for f32 ones, ``fused_topk_partial``
-for lsh,
-``fused_topk_gathered_partial``,
+for int8 ones, ``fused_topk_f32_partial`` for f32 ones,
+``fused_topk_lsh_partial`` for lsh, ``fused_topk_gathered_partial``,
 ``fused_topk_quantized_bf16_partial`` for a bf16 query over packed rows,
 ``fused_topk_quantized_tf32_partial`` for an f32 one, or
 ``fused_topk_gathered_quantized_partial``) and the merge
@@ -21,7 +20,8 @@ for lsh,
 merge).  K1 classic, K1 dot, K1 f32 and K4 share one tensor-core pass 1
 (``csrc/mma_topk.cuh``); K3 and K5 keep one running list per block (one
 query, a range of its rows, on the row-split plan they share) and merge its
-candidates by counting, as that pass 1 does.
+candidates by counting, as that pass 1 does; so does K2, whose CUDA-core
+pass 1 keeps each query's threshold in a register.
 """
 from __future__ import annotations
 
@@ -52,9 +52,10 @@ def _lib() -> ctypes.CDLL:
 def plan(code: int, b: int, n_docs: int, depth: int,
          sm_count: int) -> Tuple[int, int, int, int, int]:
     """The source's launch shape in score mode ``code`` (``fused_topk_plan``;
-    f32, bf16 and int8 share the tensor-core pass 1's plan, lsh has its
-    own): (queries per block, running-list width K, N-splits, doc tiles per
-    split, docs per tile)."""
+    f32, bf16 and int8 share the tensor-core pass 1's plan, ``mma_plan``;
+    lsh has its own, ``lsh_plan``, with query tiles of 1, 2, 4 or 8 rows at
+    B <= 8): (queries per block, running-list width K, N-splits, doc tiles
+    per split, docs per tile)."""
     out = (ctypes.c_int * 5)()
     if _lib().fused_topk_plan(code, b, n_docs, depth, sm_count, out) != 0:
         raise ValueError(f"depth {depth}: the running lists do not fit in shared memory")

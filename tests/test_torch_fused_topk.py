@@ -17,7 +17,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_topk_match, sorted_topk, split_tf32x3_scores, to_torch
+from torch_parity import (
+    assert_topk_match,
+    lsh_split_topk,
+    sorted_topk,
+    split_tf32x3_scores,
+    to_torch,
+)
 
 from repro.core import bruteforce as jbruteforce
 from repro.core import fakewords as jfakewords
@@ -92,6 +98,90 @@ def test_lsh_topk_matches_jax():
     assert tq.dtype == torch.uint32
     got = ops.lsh_topk(tq, td, 40)
     assert_topk_match(got, _jax_topk(jq, jd, 40, mode="lsh"), exact=True)
+
+
+def _lsh_case(case: str, seed: int):
+    """(q (B, S), docs (N, S) uint32 numpy, depth, filt, n_docs) of an lsh
+    case: "ties" copies 3 doc rows (sentinels in docs too) and takes the
+    queries from the docs, so the depth-th count is held by docs of every
+    split (~32 of each row in a split of 96 docs, depth 25); "empty" all-sentinel queries (every count 0); "n_docs",
+    "shared-filt", "per-query-filt" random signatures with rows past n_docs
+    or a keep bitmap (N,) or (B, N) (some queries keep fewer than depth
+    docs); "s37" 37 slots; "depth-n" depth = N."""
+    rng = np.random.default_rng(seed)
+    b, n, s, depth = 4, 600, 40, 100
+    filt, n_docs = None, None
+    if case == "s37":
+        s, depth = 37, 60
+    if case == "depth-n":
+        n, s, depth = 160, 24, 160
+    d = rng.integers(0, 7, (n, s)).astype(np.uint32)
+    if case == "ties":
+        base = rng.integers(0, 7, (3, s)).astype(np.uint32)
+        base[:, ::5] = 0xFFFFFFFF
+        d = base[rng.integers(0, 3, n)]
+        depth = 25
+    q = d[rng.integers(0, n, b)].copy()
+    if case != "ties":
+        q[:, ::5] = 0xFFFFFFFF
+    if case == "empty":
+        q[:] = 0xFFFFFFFF
+        d[:, ::3] = 0xFFFFFFFF
+    if case == "n_docs":
+        n_docs = 530
+    if case == "shared-filt":
+        filt = rng.random(n) < 0.3
+    if case == "per-query-filt":
+        filt = rng.random((b, n)) < 0.12
+    return q, d, depth, filt, n_docs
+
+
+_LSH_CASES = ["ties", "empty", "n_docs", "shared-filt", "per-query-filt", "s37", "depth-n"]
+
+
+@pytest.mark.parametrize("case", _LSH_CASES)
+def test_lsh_plain_version_matches_jax(case):
+    """K2's plain version (what the card's kernel is held to, bit for bit)
+    against JAX's interpret-mode ``fused_topk(mode="lsh")``: ids and scores
+    bit-equal at ties, all-zero counts, n_docs, filt, S = 37 and depth = N."""
+    q, d, depth, filt, n_docs = _lsh_case(case, seed=43)
+    jfilt = None if filt is None else jnp.asarray(filt)
+    want = _jax_topk(jnp.asarray(q), jnp.asarray(d), depth, mode="lsh", filt=jfilt,
+                     n_docs=n_docs)
+    tfilt = None if filt is None else torch.from_numpy(filt)
+    got = fused_topk(torch.from_numpy(q), torch.from_numpy(d), depth, mode="lsh", filt=tfilt,
+                     n_docs=n_docs)
+    assert_topk_match(got, want, exact=True)
+    if case == "empty":  # every count 0: the lowest ids, past the masked rows
+        assert (got[0] == 0).all() and (got[1] == torch.arange(depth)).all()
+
+
+@pytest.mark.parametrize("case", _LSH_CASES)
+def test_lsh_split_selection_matches_jax(case):
+    """K2's selection emulated on the CPU (``torch_parity.lsh_split_topk``:
+    16-doc tiles in 7 splits, a count threshold without the id that is
+    stale between merges, buffers merged by counting, then pass 2) gives
+    JAX's ids and scores bit for bit, ties across splits included."""
+    q, d, depth, filt, n_docs = _lsh_case(case, seed=47)
+    jfilt = None if filt is None else jnp.asarray(filt)
+    want = _jax_topk(jnp.asarray(q), jnp.asarray(d), depth, mode="lsh", filt=jfilt,
+                     n_docs=n_docs)
+    tfilt = None if filt is None else torch.from_numpy(filt)
+    got = lsh_split_topk(torch.from_numpy(q), torch.from_numpy(d), depth, bn=16, splits=7,
+                         filt=tfilt, n_docs=n_docs)
+    assert_topk_match(got, want, exact=True)
+
+
+def test_lsh_ties_case_sees_the_tie_rule():
+    """The "ties" case holds the depth-th count in docs of every split, so a
+    pass 2 that cuts its lists at that count without its id (chip_smoke.py's
+    planted K2_STRICT, emulated) loses ranks the reference keeps."""
+    q, d, depth, _, _ = _lsh_case("ties", seed=47)
+    want = _jax_topk(jnp.asarray(q), jnp.asarray(d), depth, mode="lsh")
+    bad = lsh_split_topk(torch.from_numpy(q), torch.from_numpy(d), depth, bn=16, splits=7,
+                         tau_id=False)
+    with pytest.raises(AssertionError):
+        assert_topk_match(bad, want, exact=True)
 
 
 def test_fused_topk_ties_at_depth_n_and_ragged_n_docs():
@@ -269,7 +359,8 @@ def test_fused_topk_rejects_bad_arguments(kwargs, err):
 
 
 _EDIT_SETS = ("ABLATIONS", "TF32_ABLATIONS", "LOADERS", "PLANTED", "K1_DOC_HI_ONLY", "K3_STRICT",
-              "K3_ABLATIONS", "K1F32_ABLATIONS")
+              "K3_ABLATIONS", "K1F32_ABLATIONS", "K2_ABLATIONS", "K2_COUNT", "K2_STRICT",
+              "K2_VARIANTS")
 
 
 @pytest.mark.parametrize("name", _EDIT_SETS)

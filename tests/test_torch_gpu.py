@@ -212,9 +212,10 @@ def test_cuda_int8_topk_ties_order_and_wide_lists(kind, b, n, t, depth, filt):
 def test_launch_plan_fills_the_card_at_both_batch_sizes():
     cuda_device()
     n = 2_999_808
-    # f32, bf16 and int8 on tensor cores (the mma plan), lsh on CUDA cores
-    for code, bq_256 in ((0, 64), (1, 64), (2, 64), (3, 32)):
-        for b, bq_want in ((256, bq_256), (1, 8)):
+    # f32, bf16 and int8 on tensor cores (the mma plan: 8-query tiles at
+    # B = 1), lsh on CUDA cores (K2's plan: a 1-query tile at B = 1)
+    for code, bq_1 in ((0, 8), (1, 8), (2, 8), (3, 1)):
+        for b, bq_want in ((256, 64), (1, bq_1)):
             bq, k, splits, per, tile = plan(code, b, n, 100, sm_count=132)
             n_tiles = -(-n // tile)
             assert (bq, k) == (bq_want, 128)
@@ -223,8 +224,17 @@ def test_launch_plan_fills_the_card_at_both_batch_sizes():
     for code in (0, 1, 2, 3):
         assert plan(code, 256, 5000, 1000, 132)[0] == 8  # wide lists: 8-query blocks
         assert plan(code, 1, 5000, 3072, 132)[1] == 3072
+    # K2: at B <= 8 the query tile of 1, 2, 4 or 8 rows that holds B, so no
+    # padded row runs a compare; 128-doc tiles at 64 queries, 256 below; at
+    # B = 1 two blocks a SM; lists up to pass 2's limit (two lists of depth)
+    for b, bq_want in ((1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (8, 8), (9, 64), (40, 64)):
+        bq, _, _, _, tile = plan(3, b, n, 100, sm_count=132)
+        assert (bq, tile) == (bq_want, 128 if bq == 64 else 256)
+    assert plan(3, 1, n, 100, 132)[2:4] == (261, 45)  # two blocks a SM: 264 wanted
+    assert plan(3, 8, n, 3072, 132)[:2] == (4, 3072)  # lists of 3,072 at 8 queries do not fit
+    assert plan(3, 1, 10_000, 7255, 132)[1] == 7264
     with pytest.raises(ValueError, match="shared memory"):
-        plan(3, 1, 5000, 3073, 132)
+        plan(3, 1, 10_000, 7256, 132)
     # f32, bf16 and int8 at 8-query tiles drop to one stage of 128 docs for wide lists
     for code in (0, 1, 2):
         assert plan(code, 1, 5000, 3136, 132)[1:] == (3136, 40, 1, 128)
@@ -240,6 +250,54 @@ def test_launch_plan_fills_the_card_at_both_batch_sizes():
     assert gathered_plan(1, 1, 10_000, 600, 7255, sm_count=132)[0] == 7264
     with pytest.raises(ValueError, match="shared memory"):
         gathered_plan(1, 1, 10_000, 600, 7256, sm_count=132)
+
+
+def _lsh_operands(kind: str, b: int, n: int, s: int, dev: torch.device):
+    """uint32 signatures: "ties" copies 4 doc rows (sentinels in docs too)
+    and takes the queries from the docs, so the depth-th count is held by
+    docs of every split; "empty" all-sentinel queries (every count 0)."""
+    g = torch.Generator(device=dev).manual_seed(67)
+    if kind == "ties":
+        base = torch.randint(0, 7, (4, s), generator=g, device=dev, dtype=torch.int32)
+        base[:, ::5] = -1
+        d = base[torch.randint(0, 4, (n,), generator=g, device=dev)]
+        q = d[torch.randint(0, n, (b,), generator=g, device=dev)].clone()
+    else:
+        d = torch.randint(-1, 7, (n, s), generator=g, device=dev, dtype=torch.int32)
+        q = torch.full((b, s), -1, device=dev, dtype=torch.int32)
+    return q.view(torch.uint32), d.view(torch.uint32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,b,n,s,depth,filt,n_docs", [
+    ("ties", 1, 200_000, 300, 100, None, None),     # 261 splits, the depth-th count in each
+    ("ties", 8, 200_000, 300, 100, None, None),
+    ("ties", 256, 100_000, 300, 100, None, None),   # 64-query tiles
+    ("ties", 3, 20_000, 37, 1000, "per-query", None),  # 4-byte copies, wide lists
+    ("ties", 40, 20_000, 1500, 100, "shared", 19_500),  # b = 50, h = 30's width
+    ("empty", 1, 20_000, 300, 100, None, None),     # every count 0: ids 0..depth-1
+    ("empty", 5, 20_000, 300, 100, "per-query", 19_000),
+    ("empty", 40, 20_000, 300, 3072, None, None),
+])
+def test_cuda_lsh_ties_empty_and_filt(kind, b, n, s, depth, filt, n_docs):
+    """K2 where its register threshold, buffer and pass 2 must be exact:
+    collision counts, so scores and ids are bit-equal to the plain
+    version's at every tie, with filt and n_docs."""
+    dev = cuda_device()
+    q, d = _lsh_operands(kind, b, n, s, dev)
+    g = torch.Generator(device=dev).manual_seed(71)
+    keep = None
+    if filt == "shared":
+        keep = torch.rand((n,), generator=g, device=dev) < 0.3
+    elif filt == "per-query":
+        keep = torch.rand((b, n), generator=g, device=dev) < 0.1
+    before = fused_topk.launches
+    got = fused_topk(q, d, depth, mode="lsh", filt=keep, n_docs=n_docs)
+    torch.cuda.synchronize()
+    assert fused_topk.launches == before + 1
+    want = ref.fused_topk_ref(q, d, min(depth + 1, n_docs or n), mode="lsh", filt=keep,
+                              n_docs=n_docs)
+    assert_topk_match([x.cpu() for x in got], [x.cpu() for x in want], exact=True)
 
 
 @pytest.mark.gpu

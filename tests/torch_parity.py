@@ -1,13 +1,16 @@
 """Helpers shared by the ``test_torch_*`` files: moving arrays from JAX /
 numpy to torch, holding top-k results against each other, and emulating
 on the CPU the split-TF32 arithmetic of K4 (an f32 query over int8 or int4
-rows) and of K1 f32 (over raw f32 rows), the fused top-k kernels' pass 2
-(the threshold rule and tree merge), and K9's bf16 attention."""
+rows) and of K1 f32 (over raw f32 rows), K2's selection (splits, a stale
+count threshold, a buffer merged by counting), the fused top-k kernels'
+pass 2 (the threshold rule and tree merge), and K9's attention."""
 from typing import Optional, Tuple
 
 import numpy as np
 import pytest
 import torch
+
+from repro_torch.kernels.fused_topk import ref as fused_ref
 
 # The suite runs several pytest workers on one host, each with JAX's own
 # thread pool; torch's default intra-op pool (one thread per core) in every
@@ -159,8 +162,82 @@ def _precedes(a_s, a_i, b_s, b_i):
     return (a_s > b_s) | ((a_s == b_s) & (a_i < b_i))
 
 
+def merge_counted(ls: torch.Tensor, li: torch.Tensor, cs: torch.Tensor, ci: torch.Tensor,
+                  width: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The counting merge of the kernels' pass 1 (``merge_buffer``): the
+    sorted list (ls, li) and the unsorted candidates (cs, ci) into one
+    sorted list of at most ``width`` entries without sorting: a list
+    entry's slot is its index plus the candidates before it, a candidate's
+    the list entries and the candidates before it; slots >= width drop.
+    Raises if two entries share a slot."""
+    slot_l = torch.arange(len(ls)) + _precedes(cs[None, :], ci[None, :], ls[:, None],
+                                               li[:, None]).sum(1)
+    slot_c = (_precedes(ls[None, :], li[None, :], cs[:, None], ci[:, None]).sum(1)
+              + _precedes(cs[None, :], ci[None, :], cs[:, None], ci[:, None]).sum(1))
+    slots = torch.cat([slot_l, slot_c])
+    if len(torch.unique(slots)) != len(slots):
+        raise AssertionError("two entries share a slot")
+    keep = slots < width
+    n = int(keep.sum())
+    out_s, out_i = torch.empty(n), torch.empty(n, dtype=torch.long)
+    out_s[slots[keep]] = torch.cat([ls, cs])[keep]
+    out_i[slots[keep]] = torch.cat([li, ci])[keep]
+    return out_s, out_i
+
+
+def lsh_split_topk(q: torch.Tensor, docs: torch.Tensor, depth: int, bn: int, splits: int,
+                   filt: Optional[torch.Tensor] = None, n_docs: Optional[int] = None,
+                   tau_id: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2's selection (``fused_topk_lsh_partial`` in csrc/fused_topk.cu and
+    pass 2), emulated on the CPU over the plain collision counts
+    (``fused_topk.ref.scores_ref``): the
+    ``n_docs`` rows cut into tiles of ``bn`` docs and ``splits`` ranges of
+    whole tiles; in each range, tile by tile in ascending id order, a count
+    that beats its query's threshold (strictly: the count of the list's
+    depth-th entry, -inf until the list holds depth entries; no id) goes to
+    a buffer, which merges into the list (width depth rounded up to 32) by
+    counting (``merge_counted``) once it holds more than bn / 4, and after
+    the range's last tile (the kernel merges it too when another query's
+    buffer passes that mark: only how stale the threshold gets differs); the
+    threshold is read again only then, so it is stale in between.  Then pass 2 (``threshold_merge``; ``tau_id=False``
+    cuts its lists at the threshold's score without its id, the planted
+    fault K2_STRICT of chip_smoke.py).  Returns (B, depth), -inf slots id
+    -1."""
+    counts = fused_ref.scores_ref(q, docs, "lsh")
+    b, n = counts.shape
+    n = n if n_docs is None else n_docs
+    width = (depth + 31) // 32 * 32
+    n_tiles = -(-n // bn)
+    per = -(-n_tiles // splits)
+    splits = -(-n_tiles // per)
+    part_s = torch.full((splits, b, width), -torch.inf)
+    part_i = torch.full((splits, b, width), 2**30, dtype=torch.int32)
+    for qi in range(b):
+        keep = torch.ones(n, dtype=torch.bool)
+        if filt is not None:
+            keep &= (filt if filt.dim() == 1 else filt[qi])[:n].bool()
+        for sp in range(splits):
+            ls, li = torch.empty(0), torch.empty(0, dtype=torch.long)
+            cs, ci = [], []
+            thr = -torch.inf
+            tiles = range(sp * per, min(n_tiles, sp * per + per))
+            for t in tiles:
+                for d in range(t * bn, min(n, t * bn + bn)):
+                    if keep[d] and counts[qi, d] > thr:
+                        cs.append(float(counts[qi, d]))
+                        ci.append(d)
+                if len(cs) > bn // 4 or t == tiles[-1]:
+                    ls, li = merge_counted(ls, li, torch.tensor(cs),
+                                           torch.tensor(ci, dtype=torch.long), width)
+                    cs, ci = [], []
+                    thr = float(ls[depth - 1]) if len(ls) >= depth else -torch.inf
+            part_s[sp, qi, :len(ls)] = ls
+            part_i[sp, qi, :len(li)] = li.to(torch.int32)
+    return threshold_merge(part_s, part_i, depth, splits, tau_id=tau_id)
+
+
 def threshold_merge(part_s: torch.Tensor, part_i: torch.Tensor, depth: int,
-                    lists: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                    lists: int, tau_id: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The fused top-k kernels' pass 2, emulated in torch: each query's
     splits' sorted lists (splits, B, K) cut to their first ``depth``
     entries; tau, the best of the lists' depth-th entries under (score
@@ -171,7 +248,8 @@ def threshold_merge(part_s: torch.Tensor, part_i: torch.Tensor, depth: int,
     dropped), a later chunk with the result so far in its first slot and
     its lists cut at the better of tau and that result's depth-th entry,
     once it has depth entries.  Returns the first ``depth`` entries (B,
-    depth), -inf slots as id -1."""
+    depth), -inf slots as id -1.  ``tau_id=False``: the lists cut at tau's
+    score with id -1, so entries tied with tau are cut (a planted fault)."""
     splits, b, _ = part_s.shape
     out_s = torch.full((b, depth), -torch.inf)
     out_i = torch.full((b, depth), -1, dtype=torch.int32)
@@ -181,6 +259,8 @@ def threshold_merge(part_s: torch.Tensor, part_i: torch.Tensor, depth: int,
         for j in range(1, splits):
             if _precedes(s[j, -1], i[j, -1], tau_s, tau_i):
                 tau_s, tau_i = s[j, -1], i[j, -1]
+        if not tau_id:
+            tau_i = torch.tensor(-1)
         x, s0 = [], 0
         while s0 < splits:
             take = min(splits - s0, lists - len(x))
