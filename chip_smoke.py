@@ -2,8 +2,8 @@
 """Drive the PyTorch port's main path on one CUDA card and check it.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --pair-parent DIR   # K1-K7 and K9 against the tree in DIR, then stop
-    python3 chip_smoke.py --ablate [DIR]      # K7, K6, K9, pass 1 with parts cut out (K2, K3, K5 also DIR's)
+    python3 chip_smoke.py --pair-parent DIR   # K1-K9 against the tree in DIR, then stop
+    python3 chip_smoke.py --ablate [DIR]      # kernels with parts cut out (K2, K8, K3, K5 also DIR's)
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc
    (sm_90a) and prints the build time and the compiler's register report,
@@ -18,7 +18,7 @@
    (``flash_attention_bf16``) and TF32 HMMA in its f32 one
    (``flash_attention_tf32``, split TF32); an instance without them fails
    the run; the SASS instructions a column in K5's inner loop
-   (``k5_columns``) and a compare in K2's (``k2_compare_ops``).
+   (``k5_columns``) and a compare in K2's and K8's (``lsh_compare_ops``).
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
    the card in all four score modes (bf16, f32, int8, lsh), with unaligned
    shapes, ragged ``n_docs``, depth = N under massive ties, and ``filt``;
@@ -83,7 +83,12 @@
 9. Holds the dense score kernels (K6 ``cosine_scores``, K7 ``score_matmul``,
    K8 ``lsh_match_scores``) and the flash attention kernel (K9) against
    their plain versions: unaligned B / N / T, B = 1 and N = 1, int8 over its
-   whole range and at -128 / 127, sentinels on both sides of K8; K7 at the
+   whole range and at -128 / 127, sentinels on both sides of K8 and a copy
+   of K8 without its sentinel test (K8_NO_SENTINEL), which that case must
+   fail; K8 at the edges of its plan (B = 1, 2, 5, 8, 9, 64, 65, 256; its
+   doc tiles and splits; N = 1), S = 1, 3, 4, 37 and 1,500, rows 4 bytes
+   off 16, queries equal to doc rows (counts up to S), all-sentinel
+   queries, and 0xFFFFFFFE on both sides (it counts); K7 at the
    edges of its 128 x 256 tile and of its 32-column bf16 / 64-column int8
    chunks (B = 127..129 and 256, N = 127..129 and 255..257, T = 63..129
    and 600), int8
@@ -115,8 +120,9 @@
    96) at S = 4,096, batch 1, in bf16 and in f32 (K9); holds their top-k
    against K1 / K2 and the plain versions, and times each kernel beside its
    bound, its plain version and its library yardstick (K9 f32, split TF32:
-   the memory-efficient SDPA backend alone), and ``cosine_topk`` whole beside
-   its ``common.stable_topk`` sort alone.
+   the memory-efficient SDPA backend alone; K8 at B = 256, 8 and 1 with its
+   plan), and ``cosine_topk`` and ``lsh_topk`` whole beside their
+   ``common.stable_topk`` sort alone.
 11. Frees those indexes and runs the quantized read path on the same corpus:
    classic with int8 and with int4 (group 32) postings and the int8 rerank
    store (K4), held to the reference's recall property (reranked R@10
@@ -144,8 +150,10 @@ int4 postings at B = 256, 8 and 1 (and an integer case of each bit for
 bit), K3 (blockmax stage 2, classic and dot; each tree's pass 1 and pass
 2 apart), K1 lsh and K5, K7 (that tree's ``fakewords_score.cu``, built
 against its own shared headers) in both modes at B = 256 on the index's
-``scored`` and ``tf`` (dot bit for bit, classic under the row rule), and
-K6 (that tree's ``cosine_score.cu``) at B = 256 over the raw corpus; it
+``scored`` and ``tf`` (dot bit for bit, classic under the row rule), K6
+(that tree's ``cosine_score.cu``) at B = 256 over the raw corpus, and K8
+(its ``lsh_match.cu``) at B = 256, 8 and 1 over the LSH signatures (bit for
+bit); it
 prints whether the SASS of every kernel instance that both trees build is
 identical, for K1-K5, K6 and K8 (``cosine_score.cu``, ``lsh_match.cu``) and
 K9; first, K9 of both trees (their ``flash_attention.cu``) at both bf16
@@ -172,7 +180,12 @@ lexical-LSH path's shape (the (b = 300, h = 1) signatures, B = 256, 8 and 1)
 with its top-k, its sentinel test and its compares cut out (K2_ABLATIONS;
 also DIR's), its candidates a (query, split), registers, spills and SASS
 instructions a compare, and variants held bit-equal to it (K2_VARIANTS;
-alone: ``c.ablate_k2``), then K3 at the
+alone: ``c.ablate_k2``), then K8 at the same signatures (B = 256, 8 and 1)
+with its stores, its sentinel test and its compares cut out (K8_ABLATIONS;
+also DIR's, and both in turns), its registers, spills and SASS
+instructions a compare, and variants held bit-equal to it (K8_VARIANTS:
+the other count of blocks a SM, other unrolls; alone: ``c.ablate_k8(d,
+card, trees=(("this tree", "."), ("parent", "build/parent")))``), then K3 at the
 blockmax path's shape with its inserts and its products cut out
 (K3_ABLATIONS; also the K3 of the tree in DIR, e.g. the parent), each
 kernel's pass 1 and pass 2 apart, K5 at the quantized blockmax path's
@@ -348,11 +361,13 @@ def compare(name, got, want, exact: bool) -> float:
 
 def _instance(mangled: str) -> str:
     """``fused_topk_quantized_tf32_partial<4, 64, 128, 3, true>`` from a mangled kernel name:
-    the kernel's name and its integer, bool and type template arguments."""
+    the kernel's name and its integer, bool and type template arguments
+    (``dense_scores``: K8's kernel in trees before PR 29, which
+    ``--pair-parent`` and ``--ablate`` build)."""
     m = re.search(r"(fused_topk_(?:gathered_quantized_partial|quantized_bf16_partial"
                   r"|quantized_tf32_partial|gathered_partial|bf16_partial|lsh_partial"
                   r"|int8_partial|f32_partial|partial|merge)"
-                  r"|dense_scores|score_matmul_(?:bf16|int8)|cosine_scores_tf32"
+                  r"|dense_scores|lsh_match_counts|score_matmul_(?:bf16|int8)|cosine_scores_tf32"
                   r"|flash_attention_(?:tf32|bf16))"
                   r"(?:I((?:Li-?\d+E|Lb[01]E|[ft])+)E)?",
                   mangled)
@@ -1292,6 +1307,30 @@ def dense_cases():
     cases += [("cosine_scores", "f32-unaligned", b, n, t)
               for b, n, t in ((129, 127, 16), (129, 257, 300), (256, 129, 600))]
     cases += [("cosine_scores", "unit-f32", b, n, 300) for b, n in ((129, 1000), (256, 3000))]
+    # K8 at the edges of its plan (lsh_match_plan, 132 SMs x 2 blocks): the
+    # query tiles of 1, 2, 4 and 8 rows at B <= 8 (B = 5: three padded rows)
+    # and of 64 from B = 9 (B = 65: one row in the second); N at the doc
+    # tiles' edges (128 docs at 64 queries, 256 below), at the splits'
+    # (B = 1 and 8: 264 splits of one tile up to N = 67,584, of two past it;
+    # B = 256: 66 splits of one tile up to N = 8,448), past them (whole
+    # splits and a partial last one) and N = 1; S of 1, 3, 4, 37 and 1,500
+    # (rows of 4 bytes, 12, 16, 148 and 6,000: 4-byte copies at S = 1, 3
+    # and 37, one 4-slot step at S = 4, 47 chunks at the paper's b = 50, h =
+    # 30); "lsh-unaligned": rows 4 bytes off 16 at S = 300 (4-byte copies);
+    # "lsh-full": queries that are doc rows without sentinels (counts reach
+    # S); "lsh-empty": all-sentinel queries (every count 0); "lsh-pad":
+    # slots of 0xFFFFFFFE on both sides (they count) beside sentinels on
+    # both sides (they do not).
+    for b, n, t in ((1, 1, 300), (1, 255, 300), (1, 257, 37), (1, 67_584, 300),
+                    (1, 67_585, 300), (1, 300_001, 4), (2, 256, 300), (2, 1, 3), (2, 513, 1),
+                    (5, 513, 300), (5, 1, 1), (5, 1_000, 1_500), (8, 67_585, 300), (8, 256, 4),
+                    (9, 127, 300), (9, 1, 37), (64, 128, 300), (64, 8_449, 3), (65, 129, 300),
+                    (65, 1, 1_500), (256, 8_448, 300), (256, 8_449, 300), (256, 1, 300),
+                    (256, 20_001, 37), (256, 3_000, 1_500)):
+        cases.append(("lsh_match_scores", "lsh", b, n, t))
+    cases += [("lsh_match_scores", kind, b, n, t)
+              for kind in ("lsh-unaligned", "lsh-full", "lsh-empty", "lsh-pad")
+              for b, n, t in ((1, 1_000, 300), (8, 513, 300), (65, 1_000, 300), (9, 300, 1_500))]
     return cases
 
 
@@ -1320,6 +1359,24 @@ def _dense_inputs(kind: str, b: int, n: int, t: int, gen, dev):
             return q.to(torch.int8), d.to(torch.int8), None
         return tuple(torch.randint(-128, 128, shape, generator=gen, device=dev, dtype=torch.int8)
                      for shape in ((b, t), (n, t))) + (None,)
+    if kind == "lsh-unaligned":  # rows 4 bytes off 16: 4-byte copies
+        q, d, _ = _dense_inputs("lsh", b, n, t, gen, dev)
+        return _off_16(q, 4), _off_16(d, 4), None
+    if kind in ("lsh-empty", "lsh-full"):
+        d = torch.randint(-1 if kind == "lsh-empty" else 0, 7, (n, t), generator=gen, device=dev,
+                          dtype=torch.int32)
+        if kind == "lsh-empty":  # all-sentinel queries: every count 0
+            q = torch.full((b, t), -1, device=dev, dtype=torch.int32)
+        else:  # doc rows without sentinels: counts up to S
+            q = d[torch.randint(0, n, (b,), generator=gen, device=dev)].clone()
+        return q.view(torch.uint32), d.view(torch.uint32), None
+    if kind == "lsh-pad":  # 0xFFFFFFFE on both sides counts; sentinels on both sides do not
+        d = torch.randint(0, 3, (n, t), generator=gen, device=dev, dtype=torch.int32)
+        d[:, ::4] = -2
+        d[:, 1::5] = -1
+        q = d[torch.randint(0, n, (b,), generator=gen, device=dev)].clone()
+        q[:, 2::7] = -1  # query-only sentinels too
+        return q.view(torch.uint32), d.view(torch.uint32), None
     if kind.startswith("lsh"):
         q, d = _inputs("lsh", b, n, t, gen, dev)
         if kind == "lsh-sentinels":  # doc sentinels, some where the query's are, and sentinel - 1
@@ -1399,15 +1456,17 @@ def build_planted_k6():
                                           [K6_DOC_HI_ONLY]))
 
 
-def check_dense(dev, planted=None, planted_k6=None) -> dict:
+def check_dense(dev, planted=None, planted_k6=None, planted_k8=None) -> dict:
     """K6 ``cosine_scores``, K7 ``score_matmul`` and K8 ``lsh_match_scores``
     against their plain versions on the card; on each K7 case that the ring
     takes with a partial last chunk after more than K7_STAGES chunks also
     the copy with a planted fault (``planted``, from build_planted_k7, built
-    here if not given), and on each K6 "unit-f32" case the copy of K6
+    here if not given), on each K6 "unit-f32" case the copy of K6
     without the doc's low tf32 part (``planted_k6``, from
-    build_planted_k6, built here if not given), each of which must fail the
-    same comparison."""
+    build_planted_k6, built here if not given), and on the K8
+    "lsh-sentinels" case the copy of K8 without the sentinel test
+    (``planted_k8``, from build_planted_k8, built here if not given), each
+    of which must fail the same comparison."""
     from repro_torch.kernels import common
     from repro_torch.kernels.cosine_score import ref as cosine_ref
     from repro_torch.kernels.cosine_score.kernel import cosine_scores
@@ -1419,8 +1478,9 @@ def check_dense(dev, planted=None, planted_k6=None) -> dict:
     gen = torch.Generator(device=dev).manual_seed(3)
     copy, bad_score = planted or build_planted_k7()
     copy_k6, bad_cosine = planted_k6 or build_planted_k6()
+    copy_k8, bad_counts = planted_k8 or build_planted_k8()
     cases = dense_cases()
-    worst, n_planted, n_planted_k6 = {}, 0, 0
+    worst, n_planted, n_planted_k6, n_planted_k8 = {}, 0, 0, 0
     for kernel, kind, b, n, t in cases:
         q, d, inv = _dense_inputs(kind, b, n, t, gen, dev)
         out = torch.int32 if kind.endswith("/int32") else torch.float32
@@ -1445,6 +1505,14 @@ def check_dense(dev, planted=None, planted_k6=None) -> dict:
                 print(f"  ok  the {copy_k6} copy of K6 fails: {fault}")
             else:
                 raise AssertionError(f"{name}: the {copy_k6} copy passed the comparison")
+        if kind == "lsh-sentinels":
+            n_planted_k8 += 1
+            try:
+                compare_dense(f"{name}, {copy_k8} copy", bad_counts(q, d), want, exact=True)
+            except AssertionError as fault:
+                print(f"  ok  the {copy_k8} copy of K8 fails: {fault}")
+            else:
+                raise AssertionError(f"{name}: the {copy_k8} copy passed the comparison")
         cols = K7_CHUNK_COLS.get(q.dtype)
         if (kernel == "score_matmul" and t % cols and -(-t // cols) > K7_STAGES
                 and min(common.row_alignment(q), common.row_alignment(d)) >= 8):
@@ -1455,11 +1523,12 @@ def check_dense(dev, planted=None, planted_k6=None) -> dict:
                 print(f"  ok  the {copy} copy fails: {fault}")
             else:
                 raise AssertionError(f"{name}: the {copy} copy passed the comparison")
-    if n_planted == 0 or n_planted_k6 == 0:
-        raise AssertionError("no dense case exercises K7's ring past T or K6's doc low part")
+    if n_planted == 0 or n_planted_k6 == 0 or n_planted_k8 == 0:
+        raise AssertionError("no dense case exercises K7's ring past T, K6's doc low part or "
+                             "K8's sentinel test")
     print(f"dense score kernels vs plain on the card: {len(cases)} cases ({n_planted} also "
-          f"failed by the {copy} copy of K7, {n_planted_k6} by the {copy_k6} copy of K6), "
-          f"worst {worst}")
+          f"failed by the {copy} copy of K7, {n_planted_k6} by the {copy_k6} copy of K6, "
+          f"{n_planted_k8} by the {copy_k8} copy of K8), worst {worst}")
     return worst
 
 
@@ -1610,7 +1679,10 @@ def main(argv) -> int:
         ablate_k9(dev, card)
         build_kernels(["fused_topk", "fused_topk_quantized"])
         trees = [("this tree", ROOT)] + [("parent", d) for d in argv[1:2]]
-        ablate_k2(dev, card, trees)
+        cell = _k2_cell(dev)
+        ablate_k2(dev, card, trees, cell)
+        ablate_k8(dev, card, trees, cell)
+        del cell
         ablate_k3(dev, card, trees)
         ablate_k5(dev, card, trees)
         ablate_k1_f32(dev, card, trees)
@@ -1625,18 +1697,19 @@ def main(argv) -> int:
         planted_k7 = pool.submit(build_planted_k7)
         planted_k6 = pool.submit(build_planted_k6)
         planted_k9 = pool.submit(build_planted_k9)
+        planted_k8 = pool.submit(build_planted_k8)
         build_kernels()
         planted, planted_k1, planted_k2, planted_k3, planted_k5, planted_k7, planted_k6 = (
             planted.result(), planted_k1.result(), planted_k2.result(), planted_k3.result(),
             planted_k5.result(), planted_k7.result(), planted_k6.result())
-        planted_k9 = planted_k9.result()
+        planted_k9, planted_k8 = planted_k9.result(), planted_k8.result()
     check_tensor_cores()
     print_k5_columns()
-    print_k2_compare_ops()
+    print_lsh_compare_ops()
     check_kernels(dev, planted_k1, planted_k2)
     check_gathered(dev, planted_k3)
     check_quantized(dev, planted, planted_k5)
-    check_dense(dev, planted_k7, planted_k6)
+    check_dense(dev, planted_k7, planted_k6, planted_k8)
     check_attention(dev, planted_k9)
     from repro_torch.configs import ann_word2vec
 
@@ -1699,27 +1772,22 @@ def _tree_kernels(kdir: str, out_dir: str, names=("fused_topk", "fused_topk_quan
     from repro_torch.kernels import common
     from repro_torch.kernels.fused_topk.kernel import alignment_bits
 
-    csrc = os.path.join(kdir, "fused_topk", "csrc")
+    csrc, shared = os.path.join(kdir, "fused_topk", "csrc"), os.path.join(kdir, "csrc")
     os.makedirs(out_dir, exist_ok=True)
-    if edits:
-        copy = os.path.join(out_dir, "csrc")
-        shutil.copytree(csrc, copy, dirs_exist_ok=True)
-        for edit in edits:
-            pairs = edit if isinstance(edit[0], tuple) else (edit,)
-            hits = 0
-            for old, new in pairs:
-                for f in sorted(os.listdir(copy)):
-                    path = os.path.join(copy, f)
-                    text = open(path).read()
-                    if old in text:
-                        hits += 1
-                        with open(path, "w") as out:
-                            out.write(text.replace(old, new))
-            if not hits:
-                raise ValueError(f"{csrc} has none of {[old for old, _ in pairs]!r}")
-        csrc = copy
+    if edits:  # copies of fused_topk/csrc and of the shared headers, edited
+        copy, shared_copy = os.path.join(out_dir, "csrc"), os.path.join(out_dir, "shared")
+        for src, dst in ((csrc, copy), (shared, shared_copy)):
+            shutil.rmtree(dst, ignore_errors=True)
+            shutil.copytree(src, dst)
+        files = [os.path.join(d, f) for d in (copy, shared_copy) for f in sorted(os.listdir(d))]
+        texts = {f: open(f).read() for f in files}
+        _apply_edits(texts, edits, f"fused_topk's sources in {kdir}")
+        for f, text in texts.items():
+            with open(f, "w") as out:
+                out.write(text)
+        csrc, shared = copy, shared_copy
     procs = {name: subprocess.Popen(
-        [common._nvcc(), *common.NVCC_FLAGS, "-I", os.path.join(kdir, "csrc"),
+        [common._nvcc(), *common.NVCC_FLAGS, "-I", shared,
          "-o", os.path.join(out_dir, f"lib{name}.so"), os.path.join(csrc, f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in names}
     for name, proc in procs.items():
@@ -2298,18 +2366,18 @@ K2_COUNT = [
 # chunk's 4-slot steps not unrolled, or unrolled twice (not 4 times), a flush that
 # merges only the buffers past its mark (the others wait for the next), and
 # blocks of 512 threads at 64 queries (16 warps, a thread 2 queries x 8 docs).
-_K2_UNROLL = "#pragma unroll 4\n  for (int g = 0; g < full; ++g) step(4 * g, 4);"
+_K2_UNROLL = "bool kAll, int kUnroll = 4>"  # lsh_chunk's default, K2's
 K2_VARIANTS = {
     "2 stages": [("constexpr int kLshStages = 3;", "constexpr int kLshStages = 2;")],
-    "steps not unrolled": [(_K2_UNROLL, _K2_UNROLL.replace("unroll 4", "unroll 1"))],
-    "steps unrolled 2": [(_K2_UNROLL, _K2_UNROLL.replace("unroll 4", "unroll 2"))],
+    "steps not unrolled": [(_K2_UNROLL, _K2_UNROLL.replace("= 4", "= 1"))],
+    "steps unrolled 2": [(_K2_UNROLL, _K2_UNROLL.replace("= 4", "= 2"))],
     "only buffers past BN / 4 merge at a flush": [
         ("        if (n == 0) continue;  // warp-uniform\n        merge_buffer<kCap>(ls + r * K",
          "        if (n == 0 || (n <= kFlushAt && !last)) continue;  // warp-uniform\n"
          "        merge_buffer<kCap>(ls + r * K")],
     "512 threads at 64 queries (2 x 8 a thread)": [
-        ("  static constexpr int NT = kThreads;",
-         "  static constexpr int NT = BQ == 64 ? 2 * kThreads : kThreads;"),
+        ("  static constexpr int NT = kLshThreads;",
+         "  static constexpr int NT = BQ == 64 ? 2 * kLshThreads : kLshThreads;"),
         ("  static constexpr int TQ = BQ < 4 ? BQ : 4;",
          "  static constexpr int TQ = BQ == 64 ? 2 : (BQ < 4 ? BQ : 4);")],
 }
@@ -2337,21 +2405,26 @@ def ptxas_report(log: str, prefix: str) -> str:
 # FSEL and IMAD issue to the FP32 pipe (128 lanes), LDS to the memory pipe.
 ALU_OPCODES = {"ISETP", "IADD3", "LOP3", "SEL", "PLOP3", "SHF", "LEA", "IMNMX", "IABS", "P2R",
                "R2P", "PRMT", "MOV", "VIADD", "VIMNMX", "FLO", "POPC", "BREV"}
-K2_INT32_MS = 13.796  # the cell's compares (2.3e11) at 16.7e12 INT32 op/s
+K2_INT32_MS = 13.796  # the cell's compares (2.3e11) at 16.7e12 INT32 op/s; K8's are the same
+# The kernels whose compare loops lsh_compare_ops reads: K2's pass 1
+# (``fused_topk_partial`` in trees before PR 28), and K8 (``dense_scores``
+# in trees before PR 29).
+K2_KERNELS = ("fused_topk_partial", "fused_topk_lsh_partial")
+K8_KERNELS = ("dense_scores", "lsh_match_counts")
 
 
-def k2_compare_ops(path: str, dump: str = "") -> str:
-    """SASS instructions a compare in the inner loop of each K2 pass-1
-    instance (``fused_topk_lsh_partial``, or ``fused_topk_partial`` in
-    older trees) of the library at ``path``: of the innermost loops (a backward
-    branch and its target, holding no other) with at least 16 compares
+def lsh_compare_ops(path: str, kernels=K2_KERNELS, dump: str = "") -> str:
+    """SASS instructions a compare in the inner loop of each instance of the
+    library at ``path`` whose name starts with one of ``kernels`` (K2's
+    pass 1, K2_KERNELS, or K8, K8_KERNELS): of the innermost loops (a backward
+    branch and its target, holding no other) with at least 8 compares
     (ISETP.EQ or .NE between two registers: an equality of a query and a doc
     slot), the one with the most compares; its instructions over
     its compares, the ALU-pipe ones (ALU_OPCODES) apart with the floor they
     imply at the cell (ALU a compare x 13.796 ms: 64 INT32 lanes an SM) and
     the issue floor (all a compare x 13.796 / 2 ms: 128 instructions an SM a
     clock), and the 12 most common opcodes a compare.  ``dump``: a directory
-    that gets the SASS of every innermost loop of 16 compares, a file each."""
+    that gets the SASS of every innermost loop of 8 compares, a file each."""
     import collections
 
     code = sass_addressed(path)
@@ -2361,7 +2434,7 @@ def k2_compare_ops(path: str, dump: str = "") -> str:
                          r"\s*R\d+(\.reuse)?,")
     out = []
     for fn, items in sorted(code.items()):
-        if not fn.startswith(("fused_topk_partial", "fused_topk_lsh_partial")):
+        if not fn.startswith(tuple(kernels)):
             continue
         at = {addr: k for k, (addr, _) in enumerate(items)}
         loops = []
@@ -2371,12 +2444,12 @@ def k2_compare_ops(path: str, dump: str = "") -> str:
                 first = at[int(target.group(1), 16)]
                 body = [i for _, i in items[first:k + 1]]
                 n = sum(1 for i in body if compare.match(i))
-                if n >= 16:
+                if n >= 8:  # K8's 1-query step unrolled twice: 8
                     loops.append((first, k, n, body))
         inner = [lp for lp in loops if not any(o is not lp and lp[0] <= o[0] and o[1] <= lp[1]
                                                  for o in loops)]
         if not inner:
-            out.append(f"{fn}: no loop of 16 compares")
+            out.append(f"{fn}: no loop of 8 compares")
             continue
         # the innermost loop with the most compares: the unrolled steps of a
         # whole query tile (the others: a tile with padded query rows)
@@ -2398,12 +2471,15 @@ def k2_compare_ops(path: str, dump: str = "") -> str:
     return "; ".join(out)
 
 
-def print_k2_compare_ops() -> None:
+def print_lsh_compare_ops() -> None:
     from repro_torch.kernels import common
 
     print("k2_compare_ops (cuobjdump -sass): "
-          + k2_compare_ops(common.library_path("fused_topk"),
-                           dump=os.path.join(ROOT, "build", "k2-loops")))
+          + lsh_compare_ops(common.library_path("fused_topk"), K2_KERNELS,
+                            dump=os.path.join(ROOT, "build", "k2-loops")))
+    print("k8_compare_ops (cuobjdump -sass): "
+          + lsh_compare_ops(common.library_path("lsh_match"), K8_KERNELS,
+                            dump=os.path.join(ROOT, "build", "k8-loops")))
 
 
 def _k2_cell(dev):
@@ -2433,7 +2509,7 @@ def ablate_k2(dev, card: str, trees=(("this tree", ROOT),), cell=None) -> None:
     full) at B = 256, 8 and 1; the full kernel's pass 1 and pass 2 apart
     (``kernel_split``); the candidates that reach the running lists per
     (query, split) (K2_COUNT); each tree's registers and spills (ptxas -v)
-    and SASS instructions a compare (``k2_compare_ops``); and, given two
+    and SASS instructions a compare (``lsh_compare_ops``); and, given two
     trees (label, root), e.g. this tree and its parent, their full kernels
     in turns (second, first, first, second) at each B, results held to each
     other bit for bit.  ``cell``: (sig_q, sig) where the caller has them."""
@@ -2467,8 +2543,8 @@ def ablate_k2(dev, card: str, trees=(("this tree", ROOT),), cell=None) -> None:
         print(f"K2 pass 1, ptxas -v ({label}): "
               + ptxas_report(log, ("fused_topk_partial", "fused_topk_lsh_partial")))
         print(f"k2_compare_ops ({label}, cuobjdump -sass): "
-              + k2_compare_ops(path, dump=os.path.join(ROOT, "build", f"k2-loops-{label}"
-                                                       .replace(" ", "-"))))
+              + lsh_compare_ops(path, K2_KERNELS, dump=os.path.join(
+                  ROOT, "build", f"k2-loops-{label}".replace(" ", "-"))))
         lib = ctypes.CDLL(os.path.join(dirs[label, "candidates counted"], "libfused_topk.so"))
         lib.k2_candidates.restype = ctypes.c_ulonglong
         lib.fused_topk_plan.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
@@ -2520,13 +2596,176 @@ def ablate_k2(dev, card: str, trees=(("this tree", ROOT),), cell=None) -> None:
                   f"{total / (bb * plan[2]):.1f} per (query, split)")
 
 
+# K8's planted fault: the compare without the query's sentinel test (the
+# edits of K2_NO_SENTINEL, which name the text of lsh_word in
+# lsh_count.cuh), so a sentinel slot that a doc holds too counts.  The
+# "lsh-sentinels" case of check_dense must fail with it.
+K8_NO_SENTINEL = K2_NO_SENTINEL
+# Copies of K8 with a part cut out, for timing only (their counts are
+# wrong): no stores (the counts kept live, compared with a value they never
+# take), no sentinel test (K2_NO_SENTINEL), and the loads alone (no
+# compares, no stores).  Each edit names its text in both the CUDA-core
+# tile that K8 ran before PR 29 (``dense_scores``) and lsh_match_counts, so
+# that the same copies can be made of either tree.  In that older tile the
+# loads-only copy loses its loads too (its staged words are never read, and
+# the compiler drops them): its time there is no load time.
+K8_NO_STORES = (("static_cast<int*>(out)[(size_t)qi * N + d] = static_cast<int>(acc[i][j]);",
+                 "if (acc[i][j] == -3) static_cast<int*>(out)[(size_t)qi * N + d] = "
+                 "static_cast<int>(acc[i][j]);"),
+                ("    store_counts<BQ>(acc, ", "    if (acc[0][0] == -3.f) store_counts<BQ>(acc, "))
+K8_NO_COMPARES = (K1F32_NO_PRODUCTS[1],
+                  ("const int words = min(kBK, S - chunk * kBK);  // slots of this chunk",
+                   "const int words = 0;  // slots of this chunk"))
+K8_ABLATIONS = {
+    "full": [],
+    "no stores (counts kept live)": [K8_NO_STORES],
+    "no sentinel test": [K8_NO_SENTINEL],
+    "loads only": [K8_NO_STORES, K8_NO_COMPARES],
+}
+# Copies of K8 (this tree's) held bit-equal to it and timed beside it: the
+# other count of resident blocks a SM (k8_blocks: __launch_bounds__ and the
+# plan; one at 64 queries, two below), one with the steps unrolled 4 times
+# (which needs more registers than two blocks leave), and a chunk's 4-slot
+# steps not unrolled.
+_K8_BLOCKS = "return bq == 64 ? 2 : 1;"
+_K8_UNROLL = "constexpr int kK8Unroll = 2;"
+K8_VARIANTS = {
+    "1 block a SM": [(_K8_BLOCKS, "return 1;")],
+    "1 block a SM, steps unrolled 4": [(_K8_BLOCKS, "return 1;"),
+                                       (_K8_UNROLL, _K8_UNROLL.replace("2", "4"))],
+    "2 blocks a SM": [(_K8_BLOCKS, "return 2;")],
+    "steps not unrolled": [(_K8_UNROLL, _K8_UNROLL.replace("2", "1"))],
+}
+
+
+def _k8_kernel(kdir: str, out_dir: str, edits=()):
+    """K8 built from ``lsh_match.cu`` of the kernels directory ``kdir`` of
+    some tree (``_library_copy``, with ``edits``) and called through that
+    tree's own C signature (``_c_entry``).  Returns ``score(sig_q,
+    sig_d)``, which raises if the launch fails."""
+    from repro_torch.kernels import common
+
+    lib, text = _library_copy(kdir, "lsh_match", out_dir, edits)
+    launch = _c_entry(lib, text, "lsh_match_scores_launch")
+
+    def score(q, docs):
+        out = torch.empty((q.shape[0], docs.shape[0]), dtype=torch.int32, device=q.device)
+        err = launch(sig_q=q.data_ptr(), sig_d=docs.data_ptr(), out=out.data_ptr(),
+                     B=q.shape[0], N=docs.shape[0], S=q.shape[1],
+                     q_align=common.row_alignment(q), d_align=common.row_alignment(docs),
+                     stream=torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"lsh_match_scores_launch of {kdir} failed: cudaError {err}")
+        return out
+
+    return score
+
+
+def build_planted_k8():
+    """(name, score): K8 built from a copy of this tree's sources with
+    K8_NO_SENTINEL (``_k8_kernel``), called as ``score(sig_q, sig_d)``."""
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    return ("no-sentinel", _k8_kernel(kdir, os.path.join(ROOT, "build", "planted-k8"),
+                                      [K8_NO_SENTINEL]))
+
+
+def ablate_k8(dev, card: str, trees=(("this tree", ROOT),), cell=None) -> None:
+    """K8 at the dense LSH cell (the main path's (b = 300, h = 1) signatures
+    of the ann-word2vec corpus, 2,999,808 x 300 uint32, against the cell's
+    queries), built from each tree's sources as it is and with parts cut out
+    (K8_ABLATIONS), timed in turns (full, each copy, full) at B = 256, 8 and
+    1, each beside the SM clock and power draw (``clock_power``); each
+    tree's registers and spills (ptxas -v) and SASS instructions a compare
+    (``lsh_compare_ops``); this tree's K8_VARIANTS (where ``trees`` holds
+    it) held bit-equal to it and timed beside it; and, given two trees
+    (label, root), e.g. this tree and its parent, their full kernels in
+    turns (second, first, first, second) at each B, counts held to each
+    other bit for bit.  ``cell``: (sig_q, sig) where the caller has them."""
+    sig_q, sig = cell or _k2_cell(dev)
+    own = [label for label, root in trees if os.path.abspath(root) == ROOT]  # the variants' tree
+    copies = {(label, name): (root, edits) for label, root in trees
+              for name, edits in K8_ABLATIONS.items()}
+    copies.update({(label, name): (ROOT, edits) for label in own
+                   for name, edits in K8_VARIANTS.items()})
+    dirs = {key: os.path.join(ROOT, "build", "ablate-k8", f"{key[0]}-{j}".replace(" ", "-"))
+            for j, key in enumerate(copies)}
+    with ThreadPoolExecutor() as pool:  # every copy's nvcc at once
+        built = {key: pool.submit(
+            _k8_kernel, os.path.join(os.path.abspath(root), "src", "repro_torch", "kernels"),
+            dirs[key], edits) for key, (root, edits) in copies.items()}
+        fns = {key: fut.result() for key, fut in built.items()}
+    for label, _ in trees:
+        full_dir = dirs[label, "full"]
+        log = open(os.path.join(full_dir, "lsh_match.log")).read()
+        print(f"K8, ptxas -v ({label}): " + ptxas_report(log, K8_KERNELS))
+        print(f"k8_compare_ops ({label}, cuobjdump -sass): "
+              + lsh_compare_ops(os.path.join(full_dir, "liblsh_match.so"), K8_KERNELS,
+                                dump=os.path.join(ROOT, "build",
+                                                  f"k8-loops-{label}".replace(" ", "-"))))
+    for label in own:
+        for name in K8_VARIANTS:
+            log = open(os.path.join(dirs[label, name], "lsh_match.log")).read()
+            print(f"K8 variant {name!r}, ptxas -v: " + ptxas_report(log, K8_KERNELS))
+    n, s = sig.shape
+    for bb in (256, 8, 1):
+        qb = sig_q[:bb]
+        runs = {"runs": 5, "warmup": 1} if bb > 8 else {}
+        if len(trees) > 1:
+            (first, f_fn), (second, s_fn) = ((label, fns[label, "full"]) for label, _ in trees[:2])
+            compare_dense(f"K8 B={bb}: {first} vs {second}", f_fn(qb, sig), s_fn(qb, sig),
+                          exact=True)
+            times = [cuda_ms(lambda i=i: (s_fn if i in (0, 3) else f_fn)(qb, sig), **runs)
+                     for i in range(4)]
+            print(f"K8 in turns, B={bb} on {card}: {second} {times[0]:.3f} ms, "
+                  f"{first} {times[1]:.3f} ms, {first} {times[2]:.3f} ms, "
+                  f"{second} {times[3]:.3f} ms")
+            torch.cuda.empty_cache()
+        for label, _ in trees:
+            full = fns[label, "full"]
+            line = [f"{name} {cuda_ms(lambda fn=fns[label, name]: fn(qb, sig), **runs):.3f} ms"
+                    for name in K8_ABLATIONS]
+            line.append(f"full {cuda_ms(lambda: full(qb, sig), **runs):.3f} ms")
+            print(f"K8 ablation ({label}), B={bb}, N={n}, S={s}, on {card}: " + "; ".join(line)
+                  + "; the full kernel at " + clock_power(lambda: full(qb, sig)))
+            if label in own:
+                want = full(qb, sig)
+                line = []
+                for name in K8_VARIANTS:
+                    fn = fns[label, name]
+                    compare_dense(f"K8 {name} B={bb}", fn(qb, sig), want, exact=True)
+                    line.append(f"{name} {cuda_ms(lambda: fn(qb, sig), **runs):.3f} ms, full "
+                                f"{cuda_ms(lambda: full(qb, sig), **runs):.3f} ms")
+                del want
+                print(f"K8 variants ({label}, bit-equal to it), B={bb} on {card}: "
+                      + "; ".join(line))
+            torch.cuda.empty_cache()
+
+
+def _apply_edits(texts: dict, edits, where: str) -> None:
+    """Apply ``edits`` to ``texts`` ({path: source text}, in place).  An edit
+    is an (old, new) pair, every occurrence of old replaced in every text
+    that holds it, or a tuple of such pairs (the same cut as it reads in
+    several trees), each applied where its old text is; at least one old
+    text of each edit must be there."""
+    for edit in edits:
+        pairs = edit if isinstance(edit[0], tuple) else (edit,)
+        hits = 0
+        for old, new in pairs:
+            for f in texts:
+                if old in texts[f]:
+                    hits += 1
+                    texts[f] = texts[f].replace(old, new)
+        if not hits:
+            raise ValueError(f"no file of {where} holds any of {[old for old, _ in pairs]!r}")
+
+
 def _library_copy(kdir: str, name: str, out_dir: str, edits=()):
     """(library, source text): the kernel source ``<name>/csrc/<name>.cu`` of
     the kernels directory ``kdir`` of some tree, copied into ``out_dir`` with
     that tree's shared headers (``kdir/csrc``, into ``out_dir/shared``),
-    ``edits`` ((old, new) pairs; every occurrence replaced in every one of
-    those files that holds the old text, and at least one must) applied to
-    the copies, and built there with nvcc against the copied headers."""
+    ``edits`` (``_apply_edits``) applied to the copies, and built there with
+    nvcc against the copied headers (its ptxas -v report in
+    ``out_dir/<name>.log``)."""
     import ctypes
 
     from repro_torch.kernels import common
@@ -2540,12 +2779,7 @@ def _library_copy(kdir: str, name: str, out_dir: str, edits=()):
     shutil.copyfile(os.path.join(csrc, f"{name}.cu"), src)
     files = [src] + [os.path.join(shared, f) for f in sorted(os.listdir(shared))]
     texts = {f: open(f).read() for f in files}
-    for old, new in edits:
-        holders = [f for f, text in texts.items() if old in text]
-        if not holders:
-            raise ValueError(f"no file of {name}.cu's sources in {kdir} holds {old!r}")
-        for f in holders:
-            texts[f] = texts[f].replace(old, new)
+    _apply_edits(texts, edits, f"{name}.cu's sources in {kdir}")
     for f, text in texts.items():
         with open(f, "w") as out:
             out.write(text)
@@ -2553,6 +2787,8 @@ def _library_copy(kdir: str, name: str, out_dir: str, edits=()):
                            src], capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
+    with open(os.path.join(out_dir, f"{name}.log"), "w") as f:  # ptxas -v, for ptxas_report
+        f.write(proc.stdout + proc.stderr)
     return ctypes.CDLL(lib), texts[src]
 
 
@@ -2746,6 +2982,24 @@ def pair_k7(card: str, old, operands: dict) -> None:
         print(f"pairing K7 {label} (N={docs.shape[0]}, T={q.shape[1]}) on {card}: parent "
               f"{times[0]:.3f} ms, this tree {times[1]:.3f} ms, this tree {times[2]:.3f} ms, "
               f"parent {times[3]:.3f} ms; max |this - parent| {err:.3g}")
+
+
+def pair_k8(card: str, old, sig_q, sig) -> None:
+    """K8 of this tree and of the parent (``old``, from ``_k8_kernel``) over
+    the lexical-LSH signatures at B = 256, 8 and 1, counts held to each
+    other bit for bit, timed in turns (parent, this, this, parent)."""
+    from repro_torch.kernels.lsh_match.kernel import lsh_match_scores
+
+    for bb in (256, 8, 1):
+        qb = sig_q[:bb]
+        compare_dense(f"K8 B={bb}: this tree vs the parent", lsh_match_scores(qb, sig),
+                      old(qb, sig), exact=True)
+        times = [cuda_ms(lambda i=i: (old if i in (0, 3) else lsh_match_scores)(qb, sig))
+                 for i in range(4)]
+        print(f"pairing K8 B={bb} (N={sig.shape[0]}, S={sig.shape[1]}) on {card}: parent "
+              f"{times[0]:.3f} ms, this tree {times[1]:.3f} ms, this tree {times[2]:.3f} ms, "
+              f"parent {times[3]:.3f} ms")
+        torch.cuda.empty_cache()
 
 
 def pair_k6(card: str, old, qn, x) -> None:
@@ -2970,12 +3224,11 @@ def pair_parent(dev, card: str, parent: str) -> None:
         parent_k7 = pool.submit(_score_matmul_kernel, pdir,
                                 os.path.join(dense_dir, "fakewords_score"))
         parent_k6 = pool.submit(_cosine_kernel, pdir, os.path.join(dense_dir, "cosine_score"))
-        parent_k8 = pool.submit(_library_copy, pdir, "lsh_match",
-                                os.path.join(dense_dir, "lsh_match"))
+        parent_k8 = pool.submit(_k8_kernel, pdir, os.path.join(dense_dir, "lsh_match"))
         build_kernels(["fused_topk", "fused_topk_quantized", "fakewords_score", "cosine_score",
                        "lsh_match"])
         old, old_k7, old_k6 = parent_build.result(), parent_k7.result(), parent_k6.result()
-        parent_k8.result()
+        old_k8 = parent_k8.result()
     for name in ("fused_topk", "fused_topk_quantized"):  # instances in both trees
         sass_pairing(name, os.path.join(ROOT, "build", "pair", f"lib{name}.so"))
     for name in ("fakewords_score", "cosine_score", "lsh_match"):
@@ -3046,6 +3299,7 @@ def pair_parent(dev, card: str, parent: str) -> None:
     for bb in (256, 8, 1):
         pair(f"K1 lsh B={bb}", lambda q, sig, d: fused_topk(q, sig, d, mode="lsh"),
              old["fused_topk"], (sig_q[:bb], lidx.index.sig), depth, exact=True)
+    pair_k8(card, old_k8, sig_q, lidx.index.sig)
     del lidx, sig_q
     torch.cuda.empty_cache()
 
@@ -3708,6 +3962,32 @@ def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, conf
           dense_bound_ms(sig_q, sig, 0, 1.0, "int32"), counts["lsh_match_scores"], True,
           "src/repro_torch/kernels/lsh_match/csrc/lsh_match.cu",
           "src/repro/kernels/lsh_match/kernel.py:41")
+    # K8 at B = 8 and 1 (the first queries), held to the plain version, and
+    # its plan at each B; then what lsh_topk spends besides K8:
+    # common.stable_topk, a full stable sort of the (B, N) counts.
+    from repro_torch.kernels.lsh_match.kernel import plan as lsh_plan
+
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    line = []
+    for bb in (b, 8, 1):
+        qb = sig_q[:bb]
+        if bb != b:
+            compare_dense(f"lsh_match_scores B={bb}", lsh_match_scores(qb, sig),
+                          lsh_ref.lsh_match_scores_ref(qb, sig), exact=True)
+        bound = dense_bound_ms(qb, sig, 0, 1.0, "int32")
+        line.append(f"B={bb} kernel {timed(lambda: lsh_match_scores(qb, sig))[0]:.3f} ms, bound "
+                    f"{bound[0]:.3f} ms ({bound[1]}), plan (queries a block, splits, tiles a "
+                    f"split, docs a tile, blocks a SM) {lsh_plan(bb, n, sig.shape[1], sm_count)}")
+    print(f"lsh_match_scores (N={n}, S={sig.shape[1]}) on {card}: " + "; ".join(line))
+    counts_f32 = lsh_match_scores(sig_q, sig).to(torch.float32)
+    sort_ms, sort_runs = timed(lambda: stable_topk(counts_f32, depth))
+    del counts_f32
+    torch.cuda.empty_cache()
+    whole_ms, whole_runs = timed(lambda: lsh_ops.lsh_topk(lidx.index, sig_q, depth))
+    print(f"lsh_topk (B={b}, N={n}, S={sig.shape[1]}, k={depth}) on {card}: whole "
+          f"{whole_ms:.3f} ms (median of {whole_runs}); common.stable_topk of the (B, N) "
+          f"counts alone {sort_ms:.3f} ms (median of {sort_runs}); K8 {kernels[-1]['ms']:.3f} ms")
+    torch.cuda.empty_cache()
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     def sdpa(q, kk, vv):  # the flash backend: it raises where it cannot run, never falls back

@@ -1,10 +1,11 @@
 // The mma.sync toolkit shared by the tensor-core kernels: K1 and K4's pass 1
 // (../fused_topk/csrc/mma_topk.cuh), K6 and K7's score matrices
 // (score_matmul.cuh) and K9's bf16 attention
-// (../flash_attention/csrc/flash_attention.cu).  PTX wrappers only: shared
-// addresses, ldmatrix (plain and transposed), the m16n8k16 bf16, m16n8k32
-// s8 and m16n8k8 tf32 mma, and 16- and 8-byte cp.async copies with their
-// groups.
+// (../flash_attention/csrc/flash_attention.cu); the CUDA-core rings of K2
+// and K8 take its cp.async copies too.  PTX wrappers only:
+// shared addresses, ldmatrix (plain and transposed), the m16n8k16 bf16,
+// m16n8k32 s8 and m16n8k8 tf32 mma, and 16-, 8- and 4-byte cp.async copies
+// with their groups.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -91,6 +92,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_b
 // read, the rest zero-filled.
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+               :
+               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes, cached in L1 on the way (cp.async.ca): the first src_bytes are
+// read, the rest zero-filled.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :
                : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
                : "memory");

@@ -1,7 +1,8 @@
 // The score operands shared by the streaming kernels: the fused top-k pass 1
-// (K1-K3, ../fused_topk/csrc/fused_topk.cu), the dense (B, N) score tile
-// (K8, dense_scores.cuh) and the register loader of K6 and K7's tensor-core
-// tile (load_pack, score_matmul.cuh).  A score is a sum over the T columns
+// (K1-K3, ../fused_topk/csrc/fused_topk.cu; K3's lsh mode counts with mac)
+// and the register loader of K6 and K7's tensor-core tile (load_pack,
+// score_matmul.cuh).  K2 and K8 count collisions with lsh_count.cuh, which
+// takes kBK from here.  A score is a sum over the T columns
 // of a query row and a stored row in one of four modes: f32, bf16 (widened
 // to f32: the products are exact), int8 (four to a 32-bit word, summed in
 // int32 by __dp4a) and lsh (uint32 MinHash slots that are equal and not the query's

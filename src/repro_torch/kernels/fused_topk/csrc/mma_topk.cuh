@@ -320,14 +320,6 @@ __host__ __device__ constexpr int chunk_scale_bytes() {
   return Rows::kChunkScale ? 4 : 0;
 }
 
-// 4 bytes, cached in L1 on the way (cp.async.ca): the first src_bytes are
-// read, the rest zero-filled (8-byte copies: cp_async8, mma_sync.cuh).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :
-               : "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
-               : "memory");
-}
 // The 16-byte pack at column e of row `row` of the (rows, T) matrix `base`
 // into `dst` of a stage, by cp.async: one 16-byte copy (CP = 16: every row
 // 16-byte aligned) or two 8-byte ones (CP = 8: 8-byte aligned, each copy

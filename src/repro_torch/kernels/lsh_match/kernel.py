@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -20,8 +21,20 @@ from repro_torch.kernels.lsh_match import ref
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return common.bind("lsh_match", lsh_match_scores_launch=[p, p, p, i, i, i, i, i, p])
+    p, i, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    return common.bind("lsh_match", lsh_match_plan=[i, i, i, i, pi],
+                       lsh_match_scores_launch=[p, p, p, i, i, i, i, i, p])
+
+
+def plan(b: int, n: int, s: int, sm_count: int) -> Tuple[int, int, int, int, int]:
+    """The kernel's launch shape for B queries over N docs of S slots
+    (``lsh_match_plan``, next to the shared-memory layout it depends on):
+    (queries a block, N-splits, doc tiles a split, docs a tile, blocks an
+    SM).  It needs the built library."""
+    out = (ctypes.c_int * 5)()
+    if _lib().lsh_match_plan(b, n, s, sm_count, out) != 0:
+        raise ValueError(f"no plan for B={b}, N={n}, S={s}: empty, or S >= 2**24")
+    return tuple(out)
 
 
 def lsh_match_scores(sig_q: torch.Tensor, sig_d: torch.Tensor) -> torch.Tensor:

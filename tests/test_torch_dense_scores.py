@@ -167,14 +167,44 @@ def _signatures(b: int, n: int, s: int, seed: int):
     return q, d
 
 
-@pytest.mark.parametrize("b,n,s", [(4, 100, 64), (2, 257, 300), (1, 1, 5)])
-def test_lsh_match_scores_matches_jax(b, n, s):
-    q, d = _signatures(b, n, s, seed=s)
+def _assert_lsh_matches_jax(q: np.ndarray, d: np.ndarray) -> np.ndarray:
+    """The port's counts of q against d, held bit for bit to JAX's
+    interpret-mode kernel and to its ``ref``; returns them."""
     got = lsh_match_scores(torch.from_numpy(q), torch.from_numpy(d))
     assert got.dtype == torch.int32
     jq, jd = jnp.asarray(q), jnp.asarray(d)
     np.testing.assert_array_equal(got.numpy(), np.asarray(jlsh_match(jq, jd, interpret=True)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(jlsh_ref(jq, jd)))
+    return got.numpy()
+
+
+# S = 1, 37 and 1,500 (the paper's b = 50, h = 30 width), and N = 1
+@pytest.mark.parametrize("b,n,s", [(4, 100, 64), (2, 257, 300), (1, 1, 5), (3, 40, 1),
+                                   (5, 33, 37), (2, 20, 1500), (6, 1, 300)])
+def test_lsh_match_scores_matches_jax(b, n, s):
+    _assert_lsh_matches_jax(*_signatures(b, n, s, seed=s))
+
+
+@pytest.mark.parametrize("kind", ["empty", "pad", "full"])
+def test_lsh_match_scores_sentinels_and_padding_match_jax(kind):
+    """All-sentinel queries count nothing ("empty"); slots of 0xFFFFFFFE
+    (the reference's doc padding) on both sides count, beside sentinels on
+    both sides, which do not ("pad"); queries that are doc rows without
+    sentinels count every slot ("full")."""
+    rng = np.random.default_rng(29)
+    b, n, s = 4, 50, 45
+    d = rng.integers(0, 3, (n, s)).astype(np.uint32)
+    if kind == "pad":
+        d[:, ::4] = SENTINEL - 1
+        d[:, 1::5] = SENTINEL
+    src = rng.choice(n, b)
+    q = np.full((b, s), SENTINEL, dtype=np.uint32) if kind == "empty" else d[src].copy()
+    got = _assert_lsh_matches_jax(q, d)
+    # against its own doc row a query counts every slot but its sentinels
+    want_own = 0 if kind == "empty" else s - (q == SENTINEL).sum(1)
+    np.testing.assert_array_equal(got[np.arange(b), src], want_own)
+    if kind == "empty":
+        assert not got.any()
 
 
 def _fakewords_pair(x: np.ndarray, scoring: str):

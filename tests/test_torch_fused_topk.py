@@ -360,20 +360,25 @@ def test_fused_topk_rejects_bad_arguments(kwargs, err):
 
 _EDIT_SETS = ("ABLATIONS", "TF32_ABLATIONS", "LOADERS", "PLANTED", "K1_DOC_HI_ONLY", "K3_STRICT",
               "K3_ABLATIONS", "K1F32_ABLATIONS", "K2_ABLATIONS", "K2_COUNT", "K2_STRICT",
-              "K2_VARIANTS")
+              "K2_VARIANTS", "K8_ABLATIONS", "K8_VARIANTS", "K8_NO_SENTINEL")
 
 
 @pytest.mark.parametrize("name", _EDIT_SETS)
 def test_chip_smoke_source_edits_match_the_sources(name):
     """chip_smoke.py builds its planted faults and ablations by editing a
-    copy of the fused top-k sources by text (``_tree_kernels``); each edit
-    (a pair of texts, or a tuple of pairs of which one must apply) must
-    still find its text in this tree's ``csrc``."""
+    copy of a kernel's sources and of the shared headers by text
+    (``_tree_kernels`` for the fused top-k sources, ``_library_copy`` for
+    K8's ``lsh_match.cu``); each edit (a pair of texts, or a tuple of pairs
+    of which one must apply) must still find its text in this tree's
+    ``csrc`` and ``kernels/csrc``."""
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
-    csrc = os.path.join(ROOT, "src", "repro_torch", "kernels", "fused_topk", "csrc")
-    text = "".join(open(os.path.join(csrc, f)).read() for f in sorted(os.listdir(csrc)))
+    kernels = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    source = "lsh_match" if name.startswith("K8") else "fused_topk"
+    text = "".join(open(os.path.join(d, f)).read()
+                   for d in (os.path.join(kernels, source, "csrc"), os.path.join(kernels, "csrc"))
+                   for f in sorted(os.listdir(d)))
     edits = getattr(chip_smoke, name)
     if name == "PLANTED":
         edits = {kind: [edit] for kind, (_, edit) in edits.items()}

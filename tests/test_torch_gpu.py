@@ -717,6 +717,51 @@ def test_cuda_dense_kernel_matches_plain_version(kind, b, n, t):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,n,s", [
+    # K8's query tiles of 1, 2, 4 and 8 rows at B <= 8 (B = 5: three padded
+    # rows) and of 64 from B = 9 (B = 65: one row in the second tile), its
+    # 256- and 128-doc tiles at their edges, S of 1, 37 and 1,500 (4-byte
+    # copies at S = 1 and 37, 47 chunks at 1,500) and N = 1
+    (1, 3000, 300), (1, 1, 1), (2, 257, 37), (5, 513, 1), (8, 1000, 1500), (9, 129, 300),
+    (65, 1000, 37), (65, 255, 1500), (65, 1, 300)])
+@pytest.mark.parametrize("kind", ["lsh", "lsh-unaligned"])
+def test_cuda_lsh_match_scores_matches_plain_version(kind, b, n, s):
+    """K8 against its plain version, bit for bit; "lsh-unaligned": rows 4
+    bytes off 16 (the ring's 4-byte copies)."""
+    from repro_torch.kernels.lsh_match import kernel as lsh_kernel, ref as lsh_ref
+
+    dev = cuda_device()
+    q, d, _ = _dense_operands(kind, b, n, s, dev)
+    before = lsh_kernel.lsh_match_scores.launches
+    got = lsh_kernel.lsh_match_scores(q, d)
+    torch.cuda.synchronize()
+    assert lsh_kernel.lsh_match_scores.launches == before + 1
+    assert torch.equal(got, lsh_ref.lsh_match_scores_ref(q, d))
+
+
+@pytest.mark.gpu
+def test_lsh_match_plan_fills_the_card():
+    """K8's plan (lsh_match_plan): the query tile of 1, 2, 4 or 8 rows that
+    holds B at B <= 8 (no padded row compares) and 64 rows from B = 9; query
+    tiles x splits fill every SM's resident blocks (two a SM at 64 queries,
+    one below) at B = 256 and at B = 1, with no empty split; S >= 2^24 is
+    refused (f32 counts)."""
+    from repro_torch.kernels.lsh_match.kernel import plan
+
+    cuda_device()
+    n = 2_999_808
+    for b, bq_want in ((1, 1), (2, 2), (3, 4), (4, 4), (5, 8), (8, 8), (9, 64), (256, 64)):
+        bq, splits, per, tile, blocks = plan(b, n, 300, 132)
+        assert (bq, tile, blocks) == (bq_want, 128 if bq == 64 else 256, 2 if bq == 64 else 1)
+        n_tiles = -(-n // tile)
+        assert (splits - 1) * per < n_tiles <= splits * per  # no empty split
+        assert 0.95 * blocks * 132 <= -(-b // bq) * splits <= blocks * 132
+    assert plan(1, 1, 1, 132)[1:3] == (1, 1)
+    with pytest.raises(ValueError):
+        plan(1, 10, 1 << 24, 132)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("b,n,t", [
     # K6's 128-query x 128-doc tile at its edges, its 8-column k-steps and
     # 16-column chunks (T = 15..17), the cosine's T = 300, its queries
