@@ -512,6 +512,15 @@ def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
     elif kind == "unit-f32":  # unit vectors: the exact cosine's operands
         q, d = (torch.nn.functional.normalize(torch.randn(shape, generator=gen, device=dev), dim=1)
                 for shape in ((b, t), (n, t)))
+    elif kind == "lifted-f32":  # the k-d tree scan's lift of points of norm <= 1, T = dims + 1
+        from repro_torch.kernels.fused_topk import ops
+
+        pq, pd = (torch.nn.functional.normalize(torch.randn(shape, generator=gen, device=dev),
+                                                dim=1)
+                  * torch.rand((shape[0], 1), generator=gen, device=dev)
+                  for shape in ((b, t - 1), (n, t - 1)))
+        q = torch.cat([2.0 * pq, torch.ones_like(pq[:, :1])], dim=1).contiguous()
+        d = ops.lift_l2(pd)
     elif kind in ("rising", "falling", "rising-f32", "falling-f32"):
         # bf16 or f32, exact scores 4 id + (0..3): monotone in the id; every
         # value an integer below 2^11, so its own high tf32 part
@@ -690,6 +699,27 @@ def check_kernels(dev, planted=None, planted_k2=None) -> dict:
         ("unit-f32", 256, 100_000, 300, 10, None, None),
         ("unit-f32", 8, 100_000, 300, 10, None, None),
         ("unit-f32", 1, 100_000, 300, 10, None, None),
+        # The k-d tree's lifted scan: T = dims + 1 = 9 and 5 (36- and 20-byte
+        # rows: the register loader; the second tf32 k-step carries 1 or 5
+        # live columns), the lift [2q; 1] x [d; -||d||^2] of points of norm
+        # <= 1 at B = 256, 8 and 1, ragged n_docs, depth 100 and = N; and
+        # 0/1 operands at those widths, bit for bit.
+        ("lifted-f32", 256, 200_000, 9, 100, None, None),
+        ("lifted-f32", 8, 200_000, 9, 100, None, None),
+        ("lifted-f32", 1, 200_000, 9, 100, None, None),
+        ("lifted-f32", 256, 200_000, 5, 100, None, None),
+        ("lifted-f32", 8, 200_000, 5, 100, None, None),
+        ("lifted-f32", 1, 200_000, 5, 100, None, None),
+        ("lifted-f32", 8, 20_000, 9, 100, None, 19_001),
+        ("lifted-f32", 1, 20_000, 5, 100, None, 19_999),
+        ("lifted-f32", 65, 20_000, 9, 100, "shared", 19_500),
+        ("lifted-f32", 3, 600, 9, 600, None, None),        # depth = N
+        ("lifted-f32", 1, 3000, 5, 3000, None, None),
+        ("ties-f32", 256, 20_000, 9, 100, None, None),
+        ("ties-f32", 8, 20_000, 5, 100, None, 19_000),
+        ("ties-f32", 1, 20_000, 9, 100, None, None),
+        ("ties-f32", 3, 130, 9, 130, None, None),          # depth = N, massive ties
+        ("ties-f32", 65, 600, 5, 600, None, None),
         # K2 (lsh): copies of 4 rows, so that the depth-th count is held by
         # docs of every split ("lsh-ties", which the copy with K2_STRICT must
         # fail); all-sentinel queries (every count 0: ids 0..depth-1, past
@@ -1712,6 +1742,7 @@ def main(argv) -> int:
     check_dense(dev, planted_k7, planted_k6, planted_k8)
     check_attention(dev, planted_k9)
     from repro_torch.configs import ann_word2vec
+    from repro_torch.core import eval as ev
 
     cell = ann_word2vec.ARCH.cell("ann_search")
     config = ann_word2vec.ARCH.make_model(cell)
@@ -1719,8 +1750,16 @@ def main(argv) -> int:
     kernels, gt_i, idx, lidx = drive(dev, card, x, qx, cell.get("depth"), cell.get("k"), config)
     kernels += drive_dense(dev, card, x, qx, gt_i, idx, lidx, cell.get("depth"), cell.get("k"),
                            config)
+    fw_recall = float(ev.recall_at(gt_i, idx.search(qx, k=cell.get("depth"),
+                                                    depth=cell.get("depth"))[1]))
     del idx, lidx
-    torch.cuda.empty_cache()  # the fp32 indexes are gone: the quantized builds get the room
+    torch.cuda.empty_cache()  # the fp32 indexes are gone: the later builds get the room
+    kd_entry, kd = drive_kdtree(dev, card, x, qx, gt_i, cell.get("depth"), cell.get("k"),
+                                fw_recall)
+    kernels.append(kd_entry)
+    drive_persistence(dev, card, x, qx, kd, config, cell.get("depth"), cell.get("k"))
+    del kd
+    torch.cuda.empty_cache()
     kernels += drive_quantized(dev, card, x, qx, gt_i, cell.get("depth"), cell.get("k"), config)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     print(card)
@@ -4027,6 +4066,221 @@ def drive_dense(dev, card: str, x, qx, gt_i, idx, lidx, depth: int, k: int, conf
           note=f"; f32-FMA bound {fma[0]:.3f} ms ({fma[1]})")
     print(f"times on {card}")
     return kernels
+
+
+KD_REDUCTIONS = ("pca", "ppa-pca-ppa")
+
+
+def plain_l2_topk(points, qr, depth: int):
+    """The k-d tree scan's search done plainly: -||q - d||^2 + ||q||^2 (the
+    scan's score) of every reduced point, from the differences, sorted
+    stably (ties to the lower id), 8 queries at a time."""
+    out_s, out_i = [], []
+    for q8 in qr.split(8):
+        s = (q8 * q8).sum(-1, keepdim=True) - ((points[None] - q8[:, None]) ** 2).sum(-1)
+        ss, ii = torch.sort(s, dim=-1, descending=True, stable=True)
+        out_s.append(ss[:, :depth])
+        out_i.append(ii[:, :depth].to(torch.int32))
+    return torch.cat(out_s), torch.cat(out_i)
+
+
+def drive_kdtree(dev, card: str, x, qx, gt_i, depth: int, k: int, fw_recall: float):
+    """The k-d tree (paper §2, third method) over the corpus ``x`` on the
+    card, for each reduction of KD_REDUCTIONS at dims 8: the fit alone, then
+    ``AnnIndex.build`` and scan searches at B = 256, 8 and 1 (K1 f32 over the
+    lifted points, T = 9), with and without rerank, their ids held to a
+    plain reduced-space brute force under the near-tie rule; then the tree
+    backend over the same points (built again by ``AnnIndex.build``, without
+    a rerank store) at B = 8, its ids held to the scan's.  Prints fit, build
+    and search times, ``nbytes()`` and recall beside fake words'
+    (``fw_recall``, R@(10,100)).  Returns the K1 f32 lifted-scan JSON entry,
+    and the "pca" tree index with its B = 8 result (for
+    :func:`drive_persistence`)."""
+    from repro_torch.core import bruteforce, eval as ev, kdtree, pca
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.types import KdTreeConfig
+    from repro_torch.kernels.common import f32_matmul
+    from repro_torch.kernels.fused_topk import ref
+    from repro_torch.kernels.fused_topk.kernel import fused_topk
+
+    n, b = x.shape[0], qx.shape[0]
+    qn = bruteforce.l2_normalize(qx)
+    scan_launches, scan_err, entry, kept = 0, 0.0, None, None
+    for reduction in KD_REDUCTIONS:
+        cfg = KdTreeConfig(dims=8, reduction=reduction)
+        xn = bruteforce.l2_normalize(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pca.fit_reduction(xn, cfg.dims, reduction, cfg.ppa_remove)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        del xn
+        t0 = time.perf_counter()
+        kidx = AnnIndex.build(x, cfg, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+
+        # ---- the main path: scan searches at B = 256, 8 and 1 -------------
+        _reset_launches()
+        res = {bb: (kidx.search(qx[:bb], k=depth, depth=depth),
+                    kidx.search(qx[:bb], k=k, depth=depth, rerank=True)) for bb in (b, 8, 1)}
+        torch.cuda.synchronize()
+        launches = _only(f"k-d tree ({reduction}) scan searches", "fused_topk")
+        scan_launches += launches
+        qr = kdtree.reduce_queries(kidx.index, qn, normalized=True)
+        for bb, ((s, i), (rs, ri)) in res.items():
+            _checked(f"kd {reduction} B={bb}", s, i, bb, depth, n)
+            _checked(f"kd {reduction} B={bb} rerank", rs, ri, bb, k, n)
+            scan_err = max(scan_err, compare(
+                f"k-d tree ({reduction}) scan B={bb} vs plain reduced-space brute force",
+                (s, i), plain_l2_topk(kidx.index.reduced, qr[:bb], depth + 1), exact=False))
+        i100, rr_i = res[b][0][1], res[b][1][1]
+        times = {bb: (cuda_ms(lambda: kidx.search(qx[:bb], k=k, depth=depth)),
+                      cuda_ms(lambda: kidx.search(qx[:bb], k=k, depth=depth, rerank=True)))
+                 for bb in (b, 8, 1)}
+        own = kidx.nbytes() - n * x.shape[1] * 4  # all but the rerank store
+        print(f"k-d tree ({reduction}, dims 8, scan on K1 f32): fit {fit_s:.3f} s (first "
+              f"call), build {build_s:.3f} s (fit, projection, lift), index "
+              f"{kidx.nbytes() / 1e9:.3f} GB (reduced + lifted + model {own / 1e6:.1f} MB, "
+              f"{own / n:.2f} B/doc); fused_topk launches "
+              f"{launches} (one a search); ids equal the plain reduced-space brute force at "
+              f"B = {b}, 8 and 1 (near-tie rule); R@(10,10) "
+              f"{float(ev.recall_at(gt_i, i100[:, :k])):.4f}  R@(10,100) "
+              f"{float(ev.recall_at(gt_i, i100)):.4f}  reranked R@10 "
+              f"{float(ev.recall_at(gt_i, rr_i)):.4f} (fake words classic R@(10,100) "
+              f"{fw_recall:.4f}); search (median of {RUNS}, CUDA events) on {card}: "
+              + "; ".join(f"B={bb} {v[0]:.3f} ms, with rerank {v[1]:.3f} ms"
+                          for bb, v in times.items()))
+
+        # ---- the tree backend over the same points at B = 8 ----------------
+        tcfg = KdTreeConfig(dims=8, reduction=reduction, backend="tree")
+        t0 = time.perf_counter()
+        tidx = AnnIndex.build(x, tcfg, keep_vectors=False, device=dev)
+        torch.cuda.synchronize()
+        tree_build_s = time.perf_counter() - t0
+        same = torch.equal(tidx.index.reduced, kidx.index.reduced)
+        tqr = kdtree.reduce_queries(tidx.index, qn[:8], normalized=True)
+        _reset_launches()
+        replays, replay = [0], torch.cuda.CUDAGraph.replay  # a replay runs the DFS's rounds
+
+        def counted(graph):
+            replays[0] += 1
+            return replay(graph)
+
+        torch.cuda.CUDAGraph.replay = counted
+        try:
+            t0 = time.perf_counter()
+            ts, ti = tidx.search(qx[:8], k=depth, depth=depth)
+            torch.cuda.synchronize()
+            tree_s = time.perf_counter() - t0
+        finally:
+            torch.cuda.CUDAGraph.replay = replay
+        rounds = 1 + replays[0] * kdtree._ROUNDS_PER_CHECK  # the first runs before capture
+        if any(_launches().values()):
+            raise AssertionError(f"the tree search launched a kernel: {_launches()}")
+        _checked(f"kd tree {reduction} B=8", ts, ti, 8, depth, n)
+        scan8 = kdtree.scan_search(tidx.index, tqr, depth + 1)
+        compare(f"k-d tree ({reduction}) tree B=8 vs the scan over its points",
+                (ts + (tqr * tqr).sum(-1, keepdim=True), ti), scan8, exact=False)
+        print(f"k-d tree ({reduction}) tree backend: build {tree_build_s:.2f} s (fit, the host "
+              f"tree of {tidx.index.perm.shape[0]} leaves of {tidx.index.perm.shape[1]}, lift), "
+              f"reduced points {'equal to' if same else 'NOT equal to'} the scan index's; "
+              f"index {tidx.nbytes() / 1e6:.1f} MB; search B=8 depth {depth} "
+              f"{tree_s * 1e3:.1f} ms (one run, host clock, plain torch in CUDA graphs of "
+              f"{kdtree._ROUNDS_PER_CHECK} rounds: no kernel of ours launched; {rounds} lock-step "
+              f"rounds, the last up to {kdtree._ROUNDS_PER_CHECK - 1} idle, "
+              f"{tree_s * 1e3 / rounds:.3f} ms a round), ids equal the scan's (near-tie rule)")
+        if reduction == "pca":
+            kept = (tidx, (ts, ti))
+            # K1 f32 at the scan's shape: the kernel, its plain version, the
+            # library call, and the bound (three tf32 products a column of T).
+            lifted = kidx.index.lifted
+            qa = torch.cat([2.0 * qr, torch.ones_like(qr[:, :1])], dim=1).contiguous()
+            err = compare("K1 f32 lifted scan B=256 vs plain", fused_topk(qa, lifted, depth),
+                          ref.fused_topk_ref(qa, lifted, depth + 1), exact=False)
+            at = {}
+            for bb in (b, 8, 1):
+                qb = qa[:bb]
+                at[bb] = (cuda_ms(lambda: fused_topk(qb, lifted, depth)),
+                          cuda_ms(lambda: ref.fused_topk_ref(qb, lifted, depth)),
+                          cuda_ms(lambda: torch.topk(f32_matmul(qb, lifted.T), depth)),
+                          *bound_ms(qb, lifted, n, depth, "tf32", 3))
+            padded = _bound(0.0, 3 * 2.0 * b * n * 16, "tf32")[0]
+            print(f"fused_topk/f32-lifted (f32, N={n}, T={qa.shape[1]}, depth={depth}): "
+                  + "; ".join(f"B={bb} kernel {v[0]:.3f} ms, bound {v[3]:.3f} ms ({v[4]}, "
+                              f"tf32), plain {v[1]:.3f} ms, library {v[2]:.3f} ms"
+                              for bb, v in at.items())
+                  + f"; at B={b} the tf32 products of 16 columns (two k-steps) would take "
+                  f"{padded:.3f} ms (library: torch.topk(f32_matmul(qa, lifted.T), {depth}), "
+                  f"allow_tf32 False); kernel vs plain max_abs_err {err:.3g}")
+            ms, plain_ms, lib_ms, bound, bound_by = at[b]
+            entry = {
+                "name": "fused_topk/f32-lifted", "route": "cuda",
+                "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",
+                "replaces": "src/repro/kernels/fused_topk/kernel.py:288",
+                "launches": 0, "max_abs_err": max(err, 0.0), "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+            }
+        else:
+            del tidx
+        del kidx, res
+        torch.cuda.empty_cache()
+    entry["launches"] = scan_launches
+    entry["max_abs_err"] = max(entry["max_abs_err"], scan_err)
+    return entry, kept
+
+
+def drive_persistence(dev, card: str, x, qx, kd, config, depth: int, k: int) -> None:
+    """``AnnIndex.save`` / ``load`` on the card: the full-N k-d tree index
+    (``kd``: the index, tree backend, no rerank store, and its tree search at
+    B = 8, which the loaded index must repeat; the scan over its points at
+    B = 256 too) and a fake-words
+    classic index of the first 100,000 rows with int8 postings and the int8
+    rerank store (B = 256, with and without rerank).  Search results after
+    load must be bit-equal to those before.  Prints the save and load
+    seconds and the saved bytes."""
+    from repro_torch.core.index import AnnIndex
+
+    root = os.path.join(ROOT, "build", "persist")
+    shutil.rmtree(root, ignore_errors=True)
+    fw = AnnIndex.build(x[:100_000], config, primary_postings="int8", rerank_store="int8",
+                        device=dev)
+    kd_idx, tree_8 = kd
+    scan_cfg = dataclasses.replace(kd_idx.config, backend="scan")
+
+    def kd_searches(idx):  # the tree at B = 8 is run once, on the loaded index
+        scan = AnnIndex(config=scan_cfg, index=idx.index)
+        tree = tree_8 if idx is kd_idx else idx.search(qx[:8], k=depth, depth=depth)
+        return [tree, scan.search(qx, k=depth, depth=depth)]
+
+    def fw_searches(idx):
+        return [idx.search(qx, k=depth, depth=depth),
+                idx.search(qx, k=k, depth=depth, rerank=True)]
+
+    for name, idx, searches in (("kd-tree.ann", kd_idx, kd_searches),
+                                ("fakewords-int8.ann", fw, fw_searches)):
+        path = os.path.join(root, name)
+        before = searches(idx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = AnnIndex.load(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if loaded.config != idx.config or loaded.nbytes() != idx.nbytes():
+            raise AssertionError(f"{name}: config or bytes differ after load")
+        for (s0, i0), (s1, i1) in zip(before, searches(loaded)):
+            if not (torch.equal(s0, s1) and torch.equal(i0, i1)):
+                raise AssertionError(f"{name}: search after load is not bit-equal")
+        disk = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        print(f"persistence {name} ({loaded.method}, {type(loaded.config).__name__}, "
+              f"N={loaded.num_docs}, {idx.nbytes() / 1e6:.1f} MB on the card, {disk / 1e6:.1f} MB "
+              f"on disk): save {save_s:.2f} s, load {load_s:.2f} s (host clock, {card}); "
+              f"searches after load bit-equal ({len(before)} of them)")
+        del loaded
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> list:

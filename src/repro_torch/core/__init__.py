@@ -4,6 +4,8 @@ from repro_torch.core.types import (  # noqa: F401
     FakeWordsConfig,
     FakeWordsIndex,
     FlatIndex,
+    KdTreeConfig,
+    KdTreeIndex,
     LexicalLshConfig,
     LshIndex,
     SearchParams,

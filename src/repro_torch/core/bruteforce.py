@@ -1,10 +1,17 @@
 """Exact cosine top-k: the paper's ground truth by brute force (port of
-``repro/core/bruteforce.py``)."""
+``repro/core/bruteforce.py``).
+
+``exact_topk`` streams the store through the fused top-k kernel (K1 f32);
+``exact_topk_tiled`` is the reference's plain running-merge form, a corpus
+tile at a time, which bounds the scores held to O(B x (tile + k)).
+"""
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+
+from repro_torch.kernels.common import f32_matmul, stable_topk
 
 
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12, dim: int = -1) -> torch.Tensor:
@@ -23,6 +30,41 @@ def exact_topk(
     c = corpus if normalized else l2_normalize(corpus)
     q = queries if normalized else l2_normalize(queries)
     return ops.cosine_topk(c.contiguous(), q.contiguous(), k)
+
+
+def _merge_topk(
+    scores_a: torch.Tensor, ids_a: torch.Tensor, scores_b: torch.Tensor, ids_b: torch.Tensor,
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The best k of the union of two (B, *) candidate sets, ties to the
+    lower position (``a`` before ``b``), as ``lax.top_k``."""
+    s = torch.cat([scores_a, scores_b], dim=-1)
+    i = torch.cat([ids_a, ids_b], dim=-1)
+    top_s, pos = stable_topk(s, k)
+    return top_s, torch.gather(i, -1, pos.long())
+
+
+def exact_topk_tiled(
+    corpus: torch.Tensor, queries: torch.Tensor, k: int, tile: int = 4096,
+    normalized: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact cosine top-k over corpus tiles with a running merge: each
+    tile's f32 product, its top ``min(k, tile)`` and a merge into the best
+    k so far.  The last tile is padded to ``tile`` with -inf scores at ids
+    past N, as the reference pads its corpus; empty slots are (-inf, -1)."""
+    n = corpus.shape[0]
+    b = queries.shape[0]
+    c = corpus if normalized else l2_normalize(corpus)
+    q = queries if normalized else l2_normalize(queries)
+    best_s = torch.full((b, k), -torch.inf, dtype=torch.float32, device=q.device)
+    best_i = torch.full((b, k), -1, dtype=torch.int32, device=q.device)
+    for start in range(0, n, tile):
+        s = f32_matmul(q, c[start:start + tile].T)
+        s = torch.nn.functional.pad(s, (0, tile - s.shape[1]), value=-torch.inf)
+        ids = torch.arange(start, start + tile, dtype=torch.int32, device=q.device)
+        local_s, pos = stable_topk(s, min(k, tile))
+        best_s, best_i = _merge_topk(best_s, best_i, local_s, ids[pos.long()], k)
+    return best_s, best_i
 
 
 def rerank_exact(

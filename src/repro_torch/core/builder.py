@@ -1,8 +1,10 @@
 """Staged index construction (port of ``repro/core/builder.py``):
 
-    normalize rows -> transform vectors (tf rows / MinHash signatures / identity)
+    normalize rows -> transform vectors (tf rows / MinHash signatures /
+                                         reduced points + model / identity)
                    -> assemble postings (index container + global stats,
-                                         optionally packed int8 / int4)
+                                         optionally packed int8 / int4;
+                                         the k-d tree's lift and tree arrays)
                    -> attach rerank store (fp32 originals / int8 + scale / none)
 
 Each stage is a frozen dataclass; :class:`BuildPipeline` runs them on the
@@ -17,20 +19,23 @@ from typing import Any, Optional, Union
 
 import torch
 
-from repro_torch.core import bruteforce, fakewords, lexical_lsh
+from repro_torch.core import bruteforce, fakewords, kdtree, lexical_lsh, pca
 from repro_torch.core.types import (
     BruteForceConfig,
     FakeWordsConfig,
     FakeWordsIndex,
     FlatIndex,
+    KdTreeConfig,
+    KdTreeIndex,
     LexicalLshConfig,
     LshIndex,
     QuantizedPostings,
     QuantizedStore,
 )
 from repro_torch.kernels import common
+from repro_torch.kernels.fused_topk import ops as fused
 
-AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, BruteForceConfig]
+AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, KdTreeConfig, BruteForceConfig]
 
 RERANK_STORES = ("exact", "int8", "none")
 PRIMARY_POSTINGS = ("fp32", "int8", "int4")
@@ -39,7 +44,9 @@ POSTINGS_GROUPS = (32, 64)
 _QUANT_POSTINGS_MSG = (
     "quantized primary postings support fake-words (classic/dot) and brute "
     "force; the LSH signature store is categorical (uint32 MinHash buckets: "
-    "scaling them is meaningless), use rerank_store='int8' for its memory knob"
+    "scaling them is meaningless) and the kd-tree reduced store is already ~8 "
+    "f32 columns with a mixed-magnitude L2-lift column; use rerank_store='int8' "
+    "for their memory knob"
 )
 
 
@@ -66,6 +73,20 @@ class MinHashTransform:
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return lexical_lsh.encode(v, self.config)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReductionTransform:
+    """k-d tree: fit PCA or PPA -> PCA -> PPA and project the rows.  Returns
+    (reduced f32 rows, fitted model): the model lands in the index, and the
+    queries project through it at search time."""
+
+    config: KdTreeConfig
+
+    def __call__(self, v: torch.Tensor):
+        model, reduced = pca.fit_reduction(v, self.config.dims, self.config.reduction,
+                                           self.config.ppa_remove)
+        return reduced.to(torch.float32), model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -196,6 +217,25 @@ class LshPostings:
 
 
 @dataclasses.dataclass(frozen=True)
+class KdTreePostings:
+    """Reduced points + the scan's lifted operand; with backend "tree" also
+    the tree arrays, built on the host (numpy) and moved to the points'
+    device."""
+
+    config: KdTreeConfig
+
+    def __call__(self, rep, v: torch.Tensor, store: dict, n_total: int) -> KdTreeIndex:
+        reduced, model = rep
+        tree = {}
+        if self.config.backend == "tree":
+            sd, sv, pm, _ = kdtree._build_arrays(reduced.cpu().numpy(), self.config.leaf_size)
+            tree = {name: torch.from_numpy(a).to(reduced.device)
+                    for name, a in (("split_dim", sd), ("split_val", sv), ("perm", pm))}
+        return KdTreeIndex(reduced=reduced, reduction=model, lifted=fused.lift_l2(reduced),
+                           **tree, **store)
+
+
+@dataclasses.dataclass(frozen=True)
 class FlatPostings:
     """Brute force: the normalized rows are the match operand and are kept
     whatever the rerank store, unless a ``quantizer`` packs them into int8 /
@@ -291,7 +331,7 @@ def make_build_pipeline(
     store = _STORES[rerank_store]
     quantizer = None
     if primary_postings != "fp32":
-        if isinstance(config, LexicalLshConfig):
+        if isinstance(config, (LexicalLshConfig, KdTreeConfig)):
             raise ValueError(_QUANT_POSTINGS_MSG)
         if postings_group not in POSTINGS_GROUPS:
             raise ValueError(
@@ -303,6 +343,8 @@ def make_build_pipeline(
                              store)
     if isinstance(config, LexicalLshConfig):
         return BuildPipeline(config, MinHashTransform(config), LshPostings(), store)
+    if isinstance(config, KdTreeConfig):
+        return BuildPipeline(config, ReductionTransform(config), KdTreePostings(config), store)
     if isinstance(config, BruteForceConfig):
         return BuildPipeline(config, IdentityTransform(), FlatPostings(quantizer), store)
     raise TypeError(f"config {type(config).__name__} is not ported yet (ROADMAP.md, queue A)")

@@ -9,13 +9,19 @@ with the best upper bounds are scored (:mod:`repro_torch.core.blockmax`).
 ``primary_postings`` / ``rerank_store`` / ``memory_budget_bytes`` choose the
 quantized read path (int8 / int4 postings, the int8 rerank store).
 
-:func:`index_from_numpy` takes the arrays and dtypes that the reference's
-``AnnIndex.save`` writes (``index.npz`` + ``config.json``), so an index the
-JAX package built searches identically here.
+Persistence: :meth:`AnnIndex.save` / :meth:`AnnIndex.load` write and read
+the reference's single-index format (``FORMAT_VERSION`` 1: ``config.json``
+with the method config and serving knobs, ``index.npz`` with every array
+under its dotted name, bf16 as a uint16 view), so an index saved by either
+package loads in the other.  :func:`index_from_numpy` is the one reader: it
+takes the arrays and dtypes of such a save.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
+import re
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -23,6 +29,7 @@ import torch
 
 from repro_torch.core import builder
 from repro_torch.core import memory_budget as mb
+from repro_torch.core import pca
 from repro_torch.core import pipeline as pl
 from repro_torch.core.blockmax import BlockMaxIndex, build_blockmax
 from repro_torch.core.types import (
@@ -30,6 +37,8 @@ from repro_torch.core.types import (
     FakeWordsConfig,
     FakeWordsIndex,
     FlatIndex,
+    KdTreeConfig,
+    KdTreeIndex,
     LexicalLshConfig,
     LshIndex,
     QuantizedPostings,
@@ -37,11 +46,19 @@ from repro_torch.core.types import (
     SearchParams,
 )
 
-AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, BruteForceConfig]
-AnyIndex = Union[FakeWordsIndex, LshIndex, FlatIndex]
+# The single-index persistence format, the reference's (``repro/core/
+# index.py``).  Its segmented commit points (``segments_N.json``, format 2)
+# are not ported.
+FORMAT_VERSION = 1
+_COMMIT_RE = re.compile(r"^segments_(\d+)\.json$")
+
+AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, KdTreeConfig, BruteForceConfig]
+AnyIndex = Union[FakeWordsIndex, LshIndex, KdTreeIndex, FlatIndex]
 
 _METHOD_BY_INDEX = {FakeWordsIndex: "fake-words", LshIndex: "lexical-lsh",
-                    FlatIndex: "bruteforce"}
+                    KdTreeIndex: "kd-tree", FlatIndex: "bruteforce"}
+_CONFIG_BY_METHOD = {"fake-words": FakeWordsConfig, "lexical-lsh": LexicalLshConfig,
+                     "kd-tree": KdTreeConfig, "bruteforce": BruteForceConfig}
 
 
 def _check_device(device) -> torch.device:
@@ -169,6 +186,107 @@ class AnnIndex:
         q = torch.as_tensor(queries, device=self.device)
         return self.pipeline.search(self.index, q, p)
 
+    # ----------------------------------------------------------------------
+    # Persistence: npz (every array) + JSON (config + serving knobs)
+    # ----------------------------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Write the index to ``path/`` (``config.json`` + ``index.npz``) in
+        the reference's format 1.  The blockmax bounds are not written: load
+        rebuilds them from the arrays.  ``use_kernel``, a knob the port does
+        not have, is written as null (the reference's default routing)."""
+        os.makedirs(path, exist_ok=True)
+        packed, dtypes = {}, {}
+        for name, t in _named_arrays(self.index).items():
+            packed[name], dtypes[name] = _to_numpy(t)
+        meta = {
+            "format_version": FORMAT_VERSION,
+            "method": self.method,
+            "config": _config_to_json(self.config),
+            "dtypes": dtypes,
+            "use_kernel": None,
+            "blockmax_keep": self.blockmax_keep,
+            "blockmax_block_size": self.blockmax_block_size,
+            "quantized_rerank": self.quantized_rerank,
+        }
+        pq = getattr(self.index, "pq", None)
+        if pq is not None:  # the packed store's static metadata
+            meta["pq"] = {"bits": pq.bits, "group": pq.group, "cols": pq.cols}
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(meta, f, indent=2)
+        np.savez_compressed(os.path.join(path, "index.npz"), **packed)
+
+    @classmethod
+    def load(cls, path: str, device="cuda", **overrides) -> "AnnIndex":
+        """Read a save of either package onto ``device`` (raises when it is
+        a CUDA device and none is available).  ``overrides`` replace the
+        saved serving knobs (``blockmax_keep``, ``blockmax_block_size``,
+        ``quantized_rerank``).  A format other than 1 raises ValueError; a
+        segmented commit point or a save with per-doc metadata raises
+        NotImplementedError (not ported yet)."""
+        meta_path = os.path.join(path, "config.json")
+        if not os.path.exists(meta_path) and os.path.isdir(path) and any(
+                _COMMIT_RE.match(name) for name in os.listdir(path)):
+            raise NotImplementedError(
+                f"{path!r} holds a segmented commit point (segments_N.json); segments are "
+                "not ported yet (ROADMAP.md, queue A item 5)")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        version = meta.get("format_version", 1)
+        if version != FORMAT_VERSION:
+            raise ValueError(
+                f"index at {path!r} has format_version {version}, but this build reads "
+                f"format_version {FORMAT_VERSION}"
+                + (" — it was written by a newer version of the code; upgrade to load it"
+                   if version > FORMAT_VERSION else ""))
+        if "metadata" in meta:
+            raise NotImplementedError(
+                "per-doc metadata (filtered search) is not ported yet (ROADMAP.md, queue A "
+                "item 4)")
+        with np.load(os.path.join(path, "index.npz")) as z:
+            arrays = {name: z[name] for name in z.files}
+        knobs = {"blockmax_keep": meta.get("blockmax_keep"),
+                 "blockmax_block_size": meta.get("blockmax_block_size", 256),
+                 "quantized_rerank": meta.get("quantized_rerank")}
+        knobs.update(overrides)
+        return index_from_numpy(meta["method"], meta["config"], arrays, meta["dtypes"],
+                                device=device, pq=meta.get("pq"), **knobs)
+
+
+# --------------------------------------------------------------------------
+# (De)serialization helpers
+# --------------------------------------------------------------------------
+
+
+def _named_arrays(obj, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Dotted name -> tensor over a (nested) index dataclass; None fields and
+    static ints (a packed store's bits / group / cols) are left out."""
+    out: Dict[str, torch.Tensor] = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            out[prefix + f.name] = v
+        elif dataclasses.is_dataclass(v):
+            out.update(_named_arrays(v, f"{prefix}{f.name}."))
+    return out
+
+
+def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """npz-safe host copy and its dtype name; bfloat16 (no numpy dtype) goes
+    as a uint16 view."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    a = t.numpy()
+    return a, a.dtype.name
+
+
+def _config_to_json(config: AnyConfig) -> dict:
+    d = dataclasses.asdict(config)
+    if isinstance(config, FakeWordsConfig):  # the numpy name, as the reference writes it
+        d["store_dtype"] = str(config.store_dtype).removeprefix("torch.")
+    return d
+
 
 def _tensor(a: np.ndarray, dtype_name: str, device: torch.device) -> torch.Tensor:
     """npz array -> tensor; bfloat16 arrives as a uint16 view."""
@@ -180,11 +298,29 @@ def _tensor(a: np.ndarray, dtype_name: str, device: torch.device) -> torch.Tenso
 
 
 _STORE_ARRAYS = ("vq.q", "vq.scale", "pq.q", "pq.scale")
+_REDUCTION_ARRAYS = {
+    "pca": ("reduction.mean", "reduction.components"),
+    "ppa-pca-ppa": ("reduction.ppa1.mean", "reduction.ppa1.top", "reduction.pca.mean",
+                    "reduction.pca.components", "reduction.ppa2.mean", "reduction.ppa2.top"),
+}
 _ARRAYS_BY_METHOD = {
     "fake-words": ("tf", "idf", "norm", "df", "scored", "vectors") + _STORE_ARRAYS,
     "lexical-lsh": ("sig", "vectors", "vq.q", "vq.scale"),
+    "kd-tree": ("reduced", "split_dim", "split_val", "perm", "lifted", "vectors", "vq.q",
+                "vq.scale") + sum(_REDUCTION_ARRAYS.values(), ()),
     "bruteforce": ("vectors",) + _STORE_ARRAYS,
 }
+
+
+def _reduction(kind: str, t: Dict[str, torch.Tensor]):
+    """The fitted reduction model of a k-d tree index from its arrays."""
+    if kind == "pca":
+        return pca.PcaModel(mean=t["reduction.mean"], components=t["reduction.components"])
+    return pca.PpaPcaPpaModel(
+        ppa1=pca.PpaModel(mean=t["reduction.ppa1.mean"], top=t["reduction.ppa1.top"]),
+        pca=pca.PcaModel(mean=t["reduction.pca.mean"],
+                         components=t["reduction.pca.components"]),
+        ppa2=pca.PpaModel(mean=t["reduction.ppa2.mean"], top=t["reduction.ppa2.top"]))
 
 
 def index_from_numpy(
@@ -204,9 +340,12 @@ def index_from_numpy(
     ``config.json`` records them: ``blockmax_keep`` / ``blockmax_block_size``
     (the block bounds are rebuilt from the arrays, as the reference's
     ``load`` does), ``pq`` (the packed store's {"bits", "group", "cols"})
-    and ``quantized_rerank``.  Covers "fake-words", "lexical-lsh" and
-    "bruteforce" with their int8 / int4 packed postings (``pq.*``) and int8
-    rerank store (``vq.*``)."""
+    and ``quantized_rerank``.  Covers "fake-words", "lexical-lsh",
+    "kd-tree" (``reduced``, the reduction model ``reduction.*``, flat PCA or
+    nested PPA / PCA / PPA, the tree arrays ``split_dim`` / ``split_val`` /
+    ``perm`` and ``lifted``) and "bruteforce", with their int8 / int4 packed
+    postings (``pq.*``) and int8 rerank store (``vq.*``).  Any other method
+    ("hnsw", the graph encoding) raises NotImplementedError."""
     dev = _check_device(device)
     if method not in _ARRAYS_BY_METHOD:
         raise NotImplementedError(f"method {method!r} is not ported yet (ROADMAP.md, queue A)")
@@ -223,16 +362,19 @@ def index_from_numpy(
             raise ValueError("packed postings arrays (pq.*) without their pq metadata")
         packed = QuantizedPostings(q=t["pq.q"], scale=t["pq.scale"], bits=int(pq["bits"]),
                                    group=int(pq["group"]), cols=int(pq["cols"]))
+    cfg = _CONFIG_BY_METHOD[method](**config)
     if method == "fake-words":
-        cfg = FakeWordsConfig(**config)
         index = FakeWordsIndex(
             tf=t.get("tf"), idf=t["idf"], norm=t["norm"], df=t["df"],
             scored=t.get("scored"), vectors=t.get("vectors"), vq=vq, pq=packed)
     elif method == "lexical-lsh":
-        cfg = LexicalLshConfig(**config)
         index = LshIndex(sig=t["sig"], vectors=t.get("vectors"), vq=vq)
+    elif method == "kd-tree":
+        index = KdTreeIndex(
+            reduced=t["reduced"], reduction=_reduction(cfg.reduction, t),
+            split_dim=t.get("split_dim"), split_val=t.get("split_val"), perm=t.get("perm"),
+            lifted=t.get("lifted"), vectors=t.get("vectors"), vq=vq)
     else:
-        cfg = BruteForceConfig(**config)
         index = FlatIndex(vectors=t.get("vectors"), vq=vq, pq=packed)
     return AnnIndex(config=cfg, index=index, blockmax_keep=blockmax_keep,
                     blockmax_block_size=blockmax_block_size, quantized_rerank=quantized_rerank)

@@ -19,7 +19,12 @@ from __future__ import annotations
 import json
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.core.types import BruteForceConfig, FakeWordsConfig, LexicalLshConfig
+from repro_torch.core.types import (
+    BruteForceConfig,
+    FakeWordsConfig,
+    KdTreeConfig,
+    LexicalLshConfig,
+)
 
 # Recall-ordered (best first) read-path configurations; keep_frac scales the
 # blockmax keep count (1.0 = no pruning).  int8 postings sit above the
@@ -60,10 +65,12 @@ def postings_bytes_per_doc(config, dim: int, primary_postings: str, group: int =
         if primary_postings == "int8":
             return dim + 4
         return _int4_bytes(dim, group)
-    if isinstance(config, LexicalLshConfig):
+    if isinstance(config, (LexicalLshConfig, KdTreeConfig)):
         if primary_postings != "fp32":
             raise ValueError(f"{type(config).__name__} has no quantized primary postings")
-        return 4 * config.hashes  # as the reference counts it (ROADMAP.md §C)
+        if isinstance(config, LexicalLshConfig):
+            return 4 * config.hashes  # as the reference counts it (ROADMAP.md §C)
+        return 4 * config.dims * 2  # reduced + lifted rows, as the reference counts them
     raise TypeError(f"unknown config {type(config)}")
 
 
@@ -121,7 +128,7 @@ def plan_for_budget(
     fits.  ``keep_frac`` cuts bytes streamed, not resident bytes: it rides
     along with the entry chosen."""
     entries = list(frontier if frontier is not None else DEFAULT_FRONTIER)
-    if isinstance(config, LexicalLshConfig):
+    if isinstance(config, (LexicalLshConfig, KdTreeConfig)):
         entries = [e for e in entries if e["primary_postings"] == "fp32"]
     candidates = [
         e for e in entries

@@ -15,16 +15,17 @@ from typing import Any, Tuple, Union
 
 import torch
 
-from repro_torch.core import blockmax, bruteforce, fakewords, lexical_lsh
+from repro_torch.core import blockmax, bruteforce, fakewords, kdtree, lexical_lsh
 from repro_torch.core.types import (
     BruteForceConfig,
     FakeWordsConfig,
+    KdTreeConfig,
     LexicalLshConfig,
     SearchParams,
 )
 from repro_torch.kernels.fused_topk import ops as fused
 
-AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, BruteForceConfig]
+AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, KdTreeConfig, BruteForceConfig]
 
 
 # --------------------------------------------------------------------------
@@ -50,6 +51,14 @@ class MinHashEncoder:
 
     def __call__(self, index, q_norm: torch.Tensor) -> torch.Tensor:
         return lexical_lsh.encode(q_norm, self.config)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReducedPointEncoder:
+    """k-d tree: project through the reduction fitted at build time."""
+
+    def __call__(self, index, q_norm: torch.Tensor) -> torch.Tensor:
+        return kdtree.reduce_queries(index, q_norm, normalized=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,6 +110,30 @@ class LshMatcher:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         d = min(depth, index.num_docs)
         return fused.lsh_topk(sig_q, index.sig, d)
+
+
+@dataclasses.dataclass(frozen=True)
+class KdScanMatcher:
+    """Exact L2 in the reduced space on K1 f32, through the [2q; 1] x
+    [d; -||d||^2] lift (the index's ``lifted``, or lifted here when a
+    loaded index lacks it)."""
+
+    def __call__(
+        self, index, q_reduced: torch.Tensor, depth: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        lifted = index.lifted if index.lifted is not None else fused.lift_l2(index.reduced)
+        return fused.scan_l2_topk(lifted, q_reduced, min(depth, index.num_docs))
+
+
+@dataclasses.dataclass(frozen=True)
+class KdTreeMatcher:
+    """The batched k-d tree DFS (the paper's data structure), plain torch on
+    the index's device."""
+
+    def __call__(
+        self, index, q_reduced: torch.Tensor, depth: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return kdtree.tree_search(index, q_reduced, min(depth, index.num_docs))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +258,8 @@ def make_encoder(config: AnyConfig):
         return TfRowEncoder(config)
     if isinstance(config, LexicalLshConfig):
         return MinHashEncoder(config)
+    if isinstance(config, KdTreeConfig):
+        return ReducedPointEncoder()
     if isinstance(config, BruteForceConfig):
         return IdentityEncoder()
     raise TypeError(f"config {type(config).__name__} is not ported yet (ROADMAP.md, queue A)")
@@ -235,6 +270,8 @@ def make_matcher(config: AnyConfig):
         return FakeWordsMatcher(scoring=config.scoring, df_max_ratio=config.df_max_ratio)
     if isinstance(config, LexicalLshConfig):
         return LshMatcher()
+    if isinstance(config, KdTreeConfig):
+        return KdTreeMatcher() if config.backend == "tree" else KdScanMatcher()
     if isinstance(config, BruteForceConfig):
         return CosineMatcher()
     raise TypeError(f"config {type(config).__name__} is not ported yet (ROADMAP.md, queue A)")

@@ -1,8 +1,8 @@
 """Typed configuration and index containers (port of ``repro/core/types.py``).
 
-Only what the fake-words, lexical-LSH and brute-force paths need, with the
-quantized stores of the read path (int8/int4 primary postings, the int8
-rerank store).  Configs are frozen dataclasses; index containers hold
+Only what the fake-words, lexical-LSH, k-d tree and brute-force paths need,
+with the quantized stores of the read path (int8/int4 primary postings, the
+int8 rerank store).  Configs are frozen dataclasses; index containers hold
 tensors on one device.
 """
 from __future__ import annotations
@@ -70,6 +70,35 @@ class LexicalLshConfig:
             raise ValueError("ngram in {1,2,3} supported")
         if self.buckets < 1 or self.hashes < 1:
             raise ValueError("buckets and hashes must be >= 1")
+
+
+@dataclasses.dataclass(frozen=True)
+class KdTreeConfig:
+    """k-d tree over dimensionality-reduced vectors (paper §2, third method).
+
+    Lucene's BKD point index handles at most 8 dimensions, so the 300-d
+    embeddings are first reduced with PCA or PPA -> PCA -> PPA
+    (:mod:`repro_torch.core.pca`).  ``backend``:
+      * "tree" - the array-encoded balanced k-d tree, searched by a batched
+                 lock-step DFS (:func:`repro_torch.core.kdtree.tree_search`);
+      * "scan" - a scan of the reduced points on K1 f32 (the [2q; 1] x
+                 [d; -||d||^2] lift): the same neighbours, exact L2 in the
+                 reduced space.
+    """
+
+    dims: int = 8
+    reduction: str = "pca"  # "pca" | "ppa-pca-ppa"
+    ppa_remove: int = 3  # top components removed by PPA (d/100 per Mu et al.)
+    backend: str = "scan"  # "tree" | "scan"
+    leaf_size: int = 32
+
+    def __post_init__(self) -> None:
+        if self.dims > 8:
+            raise ValueError("Lucene BKD supports at most 8 dims (paper constraint)")
+        if self.reduction not in ("pca", "ppa-pca-ppa"):
+            raise ValueError(f"unknown reduction {self.reduction}")
+        if self.backend not in ("tree", "scan"):
+            raise ValueError(f"unknown backend {self.backend}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,9 +172,10 @@ class QuantizedPostings:
 
 
 def _nbytes(*parts) -> int:
-    """Bytes of the given tensors and quantized stores (None skipped)."""
-    return sum(p.nbytes() if isinstance(p, (QuantizedStore, QuantizedPostings))
-               else p.numel() * p.element_size() for p in parts if p is not None)
+    """Bytes of the given tensors and of the containers that count their
+    own (quantized stores, reduction models); None skipped."""
+    return sum(p.numel() * p.element_size() if isinstance(p, torch.Tensor) else p.nbytes()
+               for p in parts if p is not None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,6 +241,45 @@ class LshIndex:
 
     def nbytes(self) -> int:
         return _nbytes(self.sig, self.vectors, self.vq)
+
+
+@dataclasses.dataclass(frozen=True)
+class KdTreeIndex:
+    """Reduced-space index.
+
+    reduced:   (N, dims) float32 reduced points (the BKD tree's points).
+    reduction: the fitted reduction model (``pca.PcaModel`` or
+               ``pca.PpaPcaPpaModel``) that projects the queries.
+    split_*:   the array-encoded balanced k-d tree (backend "tree"):
+               ``split_dim`` (n_internal,) int32, ``split_val``
+               (n_internal,) float32; ``perm`` (n_leaves, leaf_size) int32
+               maps leaf slots to doc ids (-1 = padding).
+    lifted:    (N, dims + 1) float32 ``[d; -||d||^2]``, the scan's K1 f32
+               operand, made at build time.
+    vectors:   (N, dim) float32 unit originals for exact rerank, or None.
+    vq:        int8 :class:`QuantizedStore` rerank store, or None.
+    """
+
+    reduced: torch.Tensor
+    reduction: Any
+    split_dim: Optional[torch.Tensor] = None
+    split_val: Optional[torch.Tensor] = None
+    perm: Optional[torch.Tensor] = None
+    lifted: Optional[torch.Tensor] = None
+    vectors: Optional[torch.Tensor] = None
+    vq: Optional[QuantizedStore] = None
+
+    @property
+    def num_docs(self) -> int:
+        return self.reduced.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.reduced.device
+
+    def nbytes(self) -> int:
+        return _nbytes(self.reduced, self.reduction, self.split_dim, self.split_val, self.perm,
+                       self.lifted, self.vectors, self.vq)
 
 
 @dataclasses.dataclass(frozen=True)

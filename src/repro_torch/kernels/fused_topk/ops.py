@@ -62,6 +62,25 @@ def lsh_topk(
     return fused_topk(sig_q, sig_d, depth, mode="lsh", filt=filt, n_docs=n_docs)
 
 
+def lift_l2(points: torch.Tensor) -> torch.Tensor:
+    """``[d; -||d||^2]``, the doc side of :func:`scan_l2_topk`, made once at
+    index build time (lifting at every search would copy the whole index)."""
+    d2 = (points * points).sum(dim=-1)  # (N,)
+    return torch.cat([points, -d2[:, None]], dim=-1).contiguous()
+
+
+def scan_l2_topk(
+    lifted: torch.Tensor, q_reduced: torch.Tensor, depth: int,
+    filt: Optional[torch.Tensor] = None, n_docs: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact reduced-space L2 top-depth (the k-d tree's scan backend) on K1
+    f32: -||q - d||^2 + ||q||^2 = 2 q.d - ||d||^2 is a plain product after
+    the lift q' = [2q; 1], d' = [d; -||d||^2] (``lifted``, from
+    :func:`lift_l2`), so the (B, N) distance matrix never exists."""
+    qa = torch.cat([2.0 * q_reduced, torch.ones_like(q_reduced[:, :1])], dim=-1)
+    return fused_topk(qa.contiguous(), lifted, depth, filt=filt, n_docs=n_docs)
+
+
 def postings_topk(
     pq, qv: torch.Tensor, depth: int, filt: Optional[torch.Tensor] = None,
     n_docs: Optional[int] = None,

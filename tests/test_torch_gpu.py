@@ -1,8 +1,9 @@
 """The port on a CUDA card: the fused top-k kernels (K1/K2, the gathered K3,
 and the quantized K4/K5) against their plain versions, and the searches on
-the card (dense, blockmax, lexical LSH, the quantized read path) against the
-port's CPU route.  Every test carries the ``gpu`` marker and skips without a
-card; this file imports no JAX, so it runs where only PyTorch is installed:
+the card (dense, blockmax, lexical LSH, the quantized read path, the k-d
+tree's scan and tree) against the port's CPU route, and save / load there.
+Every test carries the ``gpu`` marker and skips without a card; this file
+imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -16,7 +17,12 @@ from torch_parity import assert_rows_close, assert_topk_match, cuda_device
 from repro_torch.core import builder, bruteforce
 from repro_torch.core import eval as ev
 from repro_torch.core.index import AnnIndex
-from repro_torch.core.types import BruteForceConfig, FakeWordsConfig, LexicalLshConfig
+from repro_torch.core.types import (
+    BruteForceConfig,
+    FakeWordsConfig,
+    KdTreeConfig,
+    LexicalLshConfig,
+)
 from repro_torch.kernels.fused_topk import ref
 from repro_torch.kernels.common import round_up
 from repro_torch.kernels.fused_topk.kernel import (
@@ -956,3 +962,96 @@ def test_cuda_dense_score_and_attention_entry_points_match_cpu_port():
     got = causal_attention(*(a.to(dev).bfloat16() for a in t)).float().cpu()
     want = causal_attention(*(a.bfloat16() for a in t)).float()
     assert_rows_close(got, want, 1e-2)
+
+
+# ---- the k-d tree (the lifted scan on K1 f32, the tree DFS) and persistence ---
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", [8, 4])
+@pytest.mark.parametrize("reduction", ["pca", "ppa-pca-ppa"])
+def test_cuda_kd_scan_matches_cpu_port(reduction, dims):
+    """The scan backend on the card (K1 f32 at T = dims + 1) against the CPU
+    route over the same arrays and reduced queries, at B = 1, 8 and 256;
+    then the whole search, built on the card."""
+    from repro_torch.core import kdtree
+
+    dev = cuda_device()
+    rng = np.random.default_rng(dims)
+    x = rng.normal(size=(5000, 64)).astype(np.float32)
+    q = x[:256] + 0.05 * rng.normal(size=(256, 64)).astype(np.float32)
+    cfg = KdTreeConfig(dims=dims, reduction=reduction)
+    cpu = AnnIndex.build(x, cfg, device="cpu")
+    gpu = AnnIndex(config=cfg, index=_on(cpu.index, dev))
+    qr = kdtree.reduce_queries(cpu.index, torch.from_numpy(q))
+    for b in (1, 8, 256):
+        before = fused_topk.launches
+        got = gpu.pipeline.matcher(gpu.index, qr[:b].to(dev), 100)
+        torch.cuda.synchronize()
+        assert fused_topk.launches == before + 1
+        want = cpu.pipeline.matcher(cpu.index, qr[:b], 101)
+        assert_topk_match([a.cpu() for a in got], want, exact=False)
+    # built on the card (its own fit: eigh's signs and last bits are the
+    # card's), then searched there and, over the same arrays, on the CPU
+    built = AnnIndex.build(x, cfg)
+    assert built.device.type == "cuda" and built.index.lifted.shape == (5000, dims + 1)
+    back = AnnIndex(config=cfg, index=_on(built.index, torch.device("cpu")))
+    got = built.search(q[:24], k=10, depth=100)
+    assert_topk_match([a.cpu() for a in got], back.search(q[:24], k=11, depth=101), exact=False)
+    got = built.search(q[:24], k=10, depth=100, rerank=True)
+    want = back.search(q[:24], k=10, depth=100, rerank=True)
+    assert float(ev.overlap(want[1], got[1].cpu())) >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("reduction", ["pca", "ppa-pca-ppa"])
+def test_cuda_kd_tree_matches_scan_and_cpu(reduction):
+    """The lock-step DFS on the card: ids equal to the CPU's DFS over the
+    same arrays, and to the card's scan under the near-tie rule (the scan's
+    score is the tree's plus ||q||^2)."""
+    from repro_torch.core import kdtree
+
+    dev = cuda_device()
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(20_000, 64)).astype(np.float32)
+    cfg = KdTreeConfig(dims=8, reduction=reduction, backend="tree")
+    cpu = AnnIndex.build(x, cfg, device="cpu")
+    gpu_index = _on(cpu.index, dev)
+    qr = kdtree.reduce_queries(cpu.index, torch.from_numpy(x[:8] + 0.05))
+    for k in (10, 100):
+        s, i = kdtree.tree_search(gpu_index, qr.to(dev), k)
+        want = kdtree.tree_search(cpu.index, qr, k)
+        assert_topk_match([s.cpu(), i.cpu()], want, exact=False)
+        scan = kdtree.scan_search(gpu_index, qr.to(dev), k + 1)
+        shift = (qr * qr).sum(-1, keepdim=True)
+        assert_topk_match([s.cpu() + shift, i.cpu()], [scan[0].cpu(), scan[1].cpu()],
+                          exact=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["kdtree-tree", "kdtree-scan", "classic-int8", "lsh"])
+def test_cuda_save_and_load_round_trip(tmp_path, method):
+    dev = cuda_device()
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(3000, 64)).astype(np.float32)
+    q = x[:16] + 0.05
+    knobs = {}
+    if method.startswith("kdtree"):
+        cfg = KdTreeConfig(dims=8, backend=method.split("-")[1], reduction="ppa-pca-ppa")
+    elif method == "lsh":
+        cfg = LexicalLshConfig(buckets=64, hashes=2)
+        knobs = {"blockmax_keep": 4, "blockmax_block_size": 128}
+    else:
+        cfg = FakeWordsConfig()
+        knobs = {"primary_postings": "int8", "rerank_store": "int8"}
+    idx = AnnIndex.build(x, cfg, **knobs)
+    idx.save(str(tmp_path / "idx"))
+    loaded = AnnIndex.load(str(tmp_path / "idx"))
+    assert loaded.device == dev and loaded.config == idx.config
+    assert loaded.blockmax_keep == idx.blockmax_keep and loaded.nbytes() == idx.nbytes()
+    for rerank in (False, True):
+        s0, i0 = idx.search(q, k=10, depth=100, rerank=rerank)
+        s1, i1 = loaded.search(q, k=10, depth=100, rerank=rerank)
+        assert torch.equal(i0, i1) and torch.equal(s0, s1)
+    cpu = AnnIndex.load(str(tmp_path / "idx"), device="cpu")
+    assert cpu.device.type == "cpu" and cpu.nbytes() == idx.nbytes()

@@ -111,7 +111,7 @@ def test_index_from_numpy_rejects_unported_stores(tmp_path):
                          dict(meta["dtypes"], **{"pq.q": "int8", "pq.scale": "float32"}),
                          device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        index_from_numpy("kd-tree", {}, {}, {}, device="cpu")
+        index_from_numpy("hnsw", {}, {}, {}, device="cpu")
 
 
 def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
