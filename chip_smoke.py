@@ -133,6 +133,29 @@
    32), both K4 with an f32 query, split TF32 on tensor cores; torch.profiler
    traces of the int8 classic search and of the int4 brute-force search at
    B = 256; and the times of all of these (K4 at B = 256, 8 and 1).
+12. Filtered search on the same corpus, over the indexes the phases above
+   build (none is built again): ``DocMetadata`` on the card (``cat`` on
+   [0, 100), ``year`` on [2000, 2020), seeded) and its masks at ~1%
+   (cat = 7), ~10% and ~50% (year ranges), and one of exactly 50 docs;
+   ``AnnIndex.search(filt=)`` of fake words classic (K1 bf16), dot (K1
+   int8), lexical LSH (K2), brute force over fp32 (K1 f32), the k-d tree's
+   "pca" scan (K1 f32 at T = 9), classic over int8 and int4 postings and
+   brute force over int8 (K4) held to each plain version with the same mask
+   at B = 8 (every mask) and B = 256 (10%; not LSH), integer modes bit for
+   bit, every id kept, an all-ones mask equal to the unfiltered search bit
+   for bit; an all-zeros mask with and without rerank; filtered brute force
+   equal to an exact f32 top-k over the kept rows; (B, N) masks row by row
+   against (N,) ones (classic, dot, LSH); blockmax at every block (K3, and
+   K5 on the int4 index) against the dense filtered search, and at n_keep
+   1,171 with the 10% mask against the plain versions with ``gather_filt``'s
+   mask; ``FilterMask`` native against depth inflation (extra 1,024); the
+   tree backend's post-filter against ``mask_and_topk`` of its unfiltered
+   result; a metadata index (100,000 rows, int8 postings) through save /
+   load with bit-equal filtered searches; the times of the filtered classic
+   search (B = 256, 8, 1 per selectivity; a per-query (B, N) mask at B =
+   256), filtered blockmax and K5 with and without the mask, the mask
+   builds, filtered recall through ``eval.recall_at(filter_mask=)``, and one
+   RRF ``FusionStage`` of classic and LSH at B = 256 with its R@10.
 
 Exits non-zero on any failure, or when no CUDA device is available.  The
 last two lines are a JSON object of per-kernel numbers and the JSON status
@@ -1747,20 +1770,28 @@ def main(argv) -> int:
     cell = ann_word2vec.ARCH.cell("ann_search")
     config = ann_word2vec.ARCH.make_model(cell)
     x, qx = make_inputs(dev, cell.get("n_docs"), cell.batch)
-    kernels, gt_i, idx, lidx = drive(dev, card, x, qx, cell.get("depth"), cell.get("k"), config)
-    kernels += drive_dense(dev, card, x, qx, gt_i, idx, lidx, cell.get("depth"), cell.get("k"),
-                           config)
-    fw_recall = float(ev.recall_at(gt_i, idx.search(qx, k=cell.get("depth"),
-                                                    depth=cell.get("depth"))[1]))
-    del idx, lidx
+    depth, k = cell.get("depth"), cell.get("k")
+    kernels, gt_i, idx, lidx, bm = drive(dev, card, x, qx, depth, k, config)
+    kernels += drive_dense(dev, card, x, qx, gt_i, idx, lidx, depth, k, config)
+    md, masks = make_filters(dev, x.shape[0], card)
+    t0 = time.perf_counter()
+    drive_filtered(dev, card, x, qx, gt_i, idx, lidx, bm, md, masks, depth, k, config)
+    filtered_s = time.perf_counter() - t0
+    fw_recall = float(ev.recall_at(gt_i, idx.search(qx, k=depth, depth=depth)[1]))
+    del idx, lidx, bm
     torch.cuda.empty_cache()  # the fp32 indexes are gone: the later builds get the room
-    kd_entry, kd = drive_kdtree(dev, card, x, qx, gt_i, cell.get("depth"), cell.get("k"),
-                                fw_recall)
+    kd_entry, kd = drive_kdtree(dev, card, x, qx, gt_i, depth, k, fw_recall)
     kernels.append(kd_entry)
-    drive_persistence(dev, card, x, qx, kd, config, cell.get("depth"), cell.get("k"))
+    t0 = time.perf_counter()
+    drive_filtered_kd(card, qx, kd, masks, depth)
+    filtered_s += time.perf_counter() - t0
+    drive_persistence(dev, card, x, qx, kd, config, depth, k, md)
     del kd
     torch.cuda.empty_cache()
-    kernels += drive_quantized(dev, card, x, qx, gt_i, cell.get("depth"), cell.get("k"), config)
+    quantized, quantized_filtered_s = drive_quantized(dev, card, x, qx, gt_i, depth, k, config,
+                                                      masks)
+    kernels += quantized
+    print(f"the filtered phases took {filtered_s + quantized_filtered_s:.1f} s (host clock)")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
     print(card)
     print(json.dumps({"kernels": kernels}))
@@ -3403,7 +3434,8 @@ def make_inputs(dev, n: int, b: int):
 def drive(dev, card: str, x, qx, depth: int, k: int, config):
     """Every fp32-postings main path over the corpus ``x`` (n docs) with the
     B queries ``qx`` on ``dev``; returns the per-kernel JSON entries and the
-    exact top-k ids."""
+    exact top-k ids, both indexes and the classic block bounds (for
+    :func:`drive_filtered`)."""
     from repro_torch.core import blockmax, bruteforce, eval as ev, fakewords, lexical_lsh
     from repro_torch.core import pipeline as pl
     from repro_torch.core.index import AnnIndex
@@ -3734,7 +3766,7 @@ def drive(dev, card: str, x, qx, depth: int, k: int, config):
         "launches": k3_launches[keep], "max_abs_err": k3_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
     })
-    return kernels, gt_i, idx, lidx
+    return kernels, gt_i, idx, lidx, bm
 
 
 def _traced(fn, runs: int) -> list:
@@ -4230,21 +4262,23 @@ def drive_kdtree(dev, card: str, x, qx, gt_i, depth: int, k: int, fw_recall: flo
     return entry, kept
 
 
-def drive_persistence(dev, card: str, x, qx, kd, config, depth: int, k: int) -> None:
+def drive_persistence(dev, card: str, x, qx, kd, config, depth: int, k: int, md) -> None:
     """``AnnIndex.save`` / ``load`` on the card: the full-N k-d tree index
     (``kd``: the index, tree backend, no rerank store, and its tree search at
     B = 8, which the loaded index must repeat; the scan over its points at
     B = 256 too) and a fake-words
-    classic index of the first 100,000 rows with int8 postings and the int8
-    rerank store (B = 256, with and without rerank).  Search results after
-    load must be bit-equal to those before.  Prints the save and load
-    seconds and the saved bytes."""
+    classic index of the first 100,000 rows with int8 postings, the int8
+    rerank store and those rows' metadata from ``md`` (B = 256, with and
+    without rerank, and filtered by a mask built from the index's own
+    metadata, the loaded one's after load).  Search results after load must
+    be bit-equal to those before.  Prints the save and load seconds and the
+    saved bytes."""
     from repro_torch.core.index import AnnIndex
 
     root = os.path.join(ROOT, "build", "persist")
     shutil.rmtree(root, ignore_errors=True)
     fw = AnnIndex.build(x[:100_000], config, primary_postings="int8", rerank_store="int8",
-                        device=dev)
+                        metadata=dict(zip(md.field_names, md.values[:100_000].T)), device=dev)
     kd_idx, tree_8 = kd
     scan_cfg = dataclasses.replace(kd_idx.config, backend="scan")
 
@@ -4254,8 +4288,10 @@ def drive_persistence(dev, card: str, x, qx, kd, config, depth: int, k: int) -> 
         return [tree, scan.search(qx, k=depth, depth=depth)]
 
     def fw_searches(idx):
+        filt = idx.metadata.range_mask("year", 2005, 2007)  # the index's own (loaded) metadata
         return [idx.search(qx, k=depth, depth=depth),
-                idx.search(qx, k=k, depth=depth, rerank=True)]
+                idx.search(qx, k=k, depth=depth, rerank=True),
+                idx.search(qx, k=depth, depth=depth, filt=filt)]
 
     for name, idx, searches in (("kd-tree.ann", kd_idx, kd_searches),
                                 ("fakewords-int8.ann", fw, fw_searches)):
@@ -4283,9 +4319,11 @@ def drive_persistence(dev, card: str, x, qx, kd, config, depth: int, k: int) -> 
     shutil.rmtree(root, ignore_errors=True)
 
 
-def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> list:
+def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config, masks: dict):
     """The quantized read path over the corpus ``x`` with the queries ``qx``
-    (ground truth ``gt_i``); returns the K4 and K5 JSON entries."""
+    (ground truth ``gt_i``), then its filtered searches with ``masks``
+    (:func:`drive_filtered_quantized`); returns the K4 and K5 JSON entries
+    and the seconds the filtered searches took."""
     from repro_torch.core import blockmax, bruteforce, eval as ev, fakewords
     from repro_torch.core import memory_budget as mb
     from repro_torch.core import pipeline as pl
@@ -4539,7 +4577,377 @@ def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config) -> 
         "launches": k5_launches, "max_abs_err": k5_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
     })
-    return kernels
+    t0 = time.perf_counter()
+    drive_filtered_quantized(card, qx, quant, brute, bm4, masks, depth, k, config)
+    return kernels, time.perf_counter() - t0
+
+
+# --------------------------------------------------------------------------
+# Filtered search: DocMetadata masks through every encoding at full N.
+# --------------------------------------------------------------------------
+
+FILTER_SEED = 31  # the metadata's generator on the card
+FILTER_KEYS = ("1%", "10%", "50%", "50 docs")
+
+
+def make_filters(dev, n: int, card: str):
+    """Per-doc metadata of the corpus on the card (``cat`` uniform on [0,
+    100), ``year`` on [2000, 2020), a seeded generator) and its masks: the
+    shared keep bitmaps at ~1% (cat = 7), ~10% (year in [2005, 2007)) and
+    ~50% (year in [2000, 2010)), and one of exactly 50 docs.  Prints each
+    mask's kept count and the time to build it from the metadata."""
+    from repro_torch.core.types import DocMetadata
+
+    g = torch.Generator(device=dev).manual_seed(FILTER_SEED)
+    md = DocMetadata.from_fields({
+        "cat": torch.randint(0, 100, (n,), generator=g, device=dev),
+        "year": torch.randint(2000, 2020, (n,), generator=g, device=dev)})
+    predicates = {"1%": ("cat = 7", lambda: md.eq_mask("cat", 7)),
+                  "10%": ("year in [2005, 2007)", lambda: md.range_mask("year", 2005, 2007)),
+                  "50%": ("year in [2000, 2010)", lambda: md.range_mask("year", 2000, 2010))}
+    masks = {key: fn() for key, (_, fn) in predicates.items()}
+    fifty = torch.zeros(n, dtype=torch.bool, device=dev)
+    fifty[torch.randperm(n, generator=g, device=dev)[:50]] = True
+    masks["50 docs"] = fifty
+    print(f"filter metadata: {md.field_names} x {n} int32 ({md.nbytes() / 1e6:.1f} MB on the "
+          f"card); masks (kept docs; time to build from the metadata, median of {RUNS}, CUDA "
+          f"events, {card}): "
+          + "; ".join(f"{key} {text}: {int(masks[key].sum())} kept, {cuda_ms(fn):.4f} ms"
+                      for key, (text, fn) in predicates.items())
+          + f"; 50 docs: {int(fifty.sum())} kept")
+    return md, masks
+
+
+def _kept(name: str, ids, mask, n: int) -> None:
+    """Raises unless every id is -1 or a doc the (N,) or (B, N) mask keeps."""
+    keep = mask if mask.dim() == 2 else mask[None, :].expand(ids.shape[0], -1)
+    bits = torch.gather(keep, 1, ids.clamp(0, n - 1).long())
+    if not bool(((ids == -1) | ((ids >= 0) & (ids < n) & bits)).all()):
+        raise AssertionError(f"{name}: an id that the mask drops, or out of range")
+
+
+def check_filtered(label: str, idx, plain, masks: dict, qx, depth: int, exact: bool,
+                   b256: bool) -> float:
+    """``idx``'s filtered search against its plain version with the same
+    mask, on the card: at B = 8 with every mask and, where ``b256``, at B =
+    256 with the 10% mask (``plain(B, mask, depth)``: the plain version on
+    the same query operand); every id kept; an all-ones mask gives the
+    unfiltered search bit for bit.  Returns the largest score difference."""
+    n = idx.num_docs
+    cases = [(8, key) for key in masks] + ([(qx.shape[0], "10%")] if b256 else [])
+    err = 0.0
+    for bb, key in cases:
+        m = masks[key]
+        got = idx.search(qx[:bb], k=depth, depth=depth, filt=m)
+        _kept(f"filtered {label} {key} B={bb}", got[1], m, n)
+        err = max(err, compare(f"filtered {label}, {key} mask, B={bb}", got,
+                               plain(bb, m, depth if exact else depth + 1), exact))
+    ones = torch.ones(n, dtype=torch.bool, device=qx.device)
+    s0, i0 = idx.search(qx[:8], k=depth, depth=depth)
+    s1, i1 = idx.search(qx[:8], k=depth, depth=depth, filt=ones)
+    if not (torch.equal(s0, s1) and torch.equal(i0, i1)):
+        raise AssertionError(f"filtered {label}: an all-ones mask is not the unfiltered search")
+    return err
+
+
+def drive_filtered(dev, card: str, x, qx, gt_i, idx, lidx, bm, md, masks: dict, depth: int,
+                   k: int, config) -> int:
+    """Filtered search over the fp32 indexes the earlier phases built (no
+    index is built again): fake words classic (K1 bf16) and dot (K1 int8)
+    over ``idx``, brute force over its unit rows (K1 f32), lexical LSH over
+    ``lidx`` (K2), and blockmax over ``bm`` (K3), each held to its plain
+    version with the same mask; the all-zeros mask, exact filtered brute
+    force, per-query masks, ``FilterMask``; then times, filtered recall and
+    one RRF fusion of classic and LSH."""
+    from repro_torch.core import blockmax, bruteforce, eval as ev, fakewords, lexical_lsh
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core import plan
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.types import BruteForceConfig, FlatIndex
+    from repro_torch.kernels.common import f32_matmul, stable_topk
+    from repro_torch.kernels.fused_topk import ops, ref
+
+    n, b = x.shape[0], qx.shape[0]
+    qn = bruteforce.l2_normalize(qx)
+    q_tf = fakewords.encode_queries(qn, config, normalized=True)
+    qv = fakewords.classic_query(idx.index, q_tf)
+    q_dot = fakewords.dot_query(idx.index, q_tf, dtype=torch.int8)
+    sig_q = lexical_lsh.encode(qn, lidx.config)
+    dot = AnnIndex(config=dataclasses.replace(config, scoring="dot"), index=idx.index)
+    brute = AnnIndex(config=BruteForceConfig(), index=FlatIndex(vectors=idx.index.vectors))
+    scored, tf, sig, vectors = idx.index.scored, idx.index.tf, lidx.index.sig, idx.index.vectors
+    encodings = (  # label, index, kernel, plain version, exact, B = 256 too
+        ("classic (K1 bf16)", idx, "fused_topk",
+         lambda bb, m, d: ref.fused_topk_ref(qv[:bb], scored, d, filt=m), False, True),
+        ("dot (K1 int8)", dot, "fused_topk",
+         lambda bb, m, d: ref.fused_topk_ref(q_dot[:bb], tf, d, filt=m), True, True),
+        ("lexical LSH (K2)", lidx, "fused_topk",
+         lambda bb, m, d: ref.fused_topk_ref(sig_q[:bb], sig, d, mode="lsh", filt=m), True,
+         False),
+        ("brute force fp32 (K1 f32)", brute, "fused_topk",
+         lambda bb, m, d: ref.fused_topk_ref(qn[:bb], vectors, d, filt=m), False, True))
+    for label, index, kernel, plain, exact, b256 in encodings:
+        _reset_launches()
+        err = check_filtered(label, index, plain, masks, qx, depth, exact, b256)
+        launches = _only(f"filtered {label}", kernel)
+        print(f"filtered {label}: held to the plain version with the same mask at B = 8 "
+              f"({', '.join(masks)}){' and at B = ' + str(b) + ' (10%)' if b256 else ''}, "
+              f"{'bit for bit' if exact else 'near-tie rule'}, max_abs_err {err:.3g}; every id "
+              f"kept; all-ones = unfiltered bit for bit; {kernel} launches {launches}")
+
+    # ---- all-zeros, with and without rerank; exact filtered brute force ----
+    zeros = torch.zeros(n, dtype=torch.bool, device=dev)
+    for rerank in (False, True):
+        s, i = idx.search(qx[:8], k=k, depth=depth, rerank=rerank, filt=zeros)
+        if not (bool((i == -1).all()) and bool((s == -torch.inf).all())):
+            raise AssertionError(f"all-zeros mask (rerank={rerank}): not all (-inf, -1)")
+    for key, m in masks.items():
+        kept = m.nonzero()[:, 0].to(torch.int32)
+        es, pos = stable_topk(f32_matmul(qn[:8], vectors[kept.long()].T), k + 1)
+        want = (es, torch.where(es == -torch.inf, -1, kept[pos.long()]))
+        compare(f"filtered brute force {key}, B=8, vs the exact top-{k} of the kept rows",
+                brute.search(qx[:8], k=k, depth=k, filt=m), want, exact=False)
+    print(f"all-zeros mask: only (-inf, -1), no NaN, with and without rerank; filtered brute "
+          f"force at B = 8 equals an exact f32 top-{k} over the kept rows alone (near-tie rule), "
+          f"every mask")
+
+    # ---- per-query (B, N) masks: row r equals query r alone with its mask ----
+    md_rows = [masks["1%"], masks["10%"], masks["50%"]] + [
+        torch.roll(masks["10%"], 1000 * (r + 1)) for r in range(5)]
+    per8 = torch.stack(md_rows)
+    for label, index, exact in (("classic", idx, False), ("dot", dot, True),
+                                ("lexical LSH", lidx, True)):
+        _reset_launches()
+        got = index.search(qx[:8], k=depth, depth=depth, filt=per8)
+        _kept(f"per-query {label}", got[1], per8, n)
+        for r in range(8):
+            w = depth if exact else depth + 1
+            compare(f"per-query mask {label}, row {r}", (got[0][r:r + 1], got[1][r:r + 1]),
+                    index.search(qx[r:r + 1], k=w, depth=w, filt=md_rows[r]), exact)
+        _only(f"per-query {label}", "fused_topk")
+    print("per-query masks (8, N) at B = 8: each row equals its query searched alone with its "
+          "own (N,) mask: classic (near-tie rule), dot and LSH (bit for bit)")
+
+    # ---- blockmax: every block kept, and n_keep 1171 with the 10% mask (K3) ----
+    n_blocks = bm.num_blocks
+    every = AnnIndex(config=config, index=idx.index, blockmax_keep=n_blocks,
+                     blockmax_block_size=BLOCK, bm=bm)
+    keep = int(KEEP_FRACTIONS[0] * n_blocks)
+    pruned = AnnIndex(config=config, index=idx.index, blockmax_keep=keep,
+                      blockmax_block_size=BLOCK, bm=bm)
+    for key, m in masks.items():
+        got = every.search(qx[:8], k=depth, depth=depth, filt=m)
+        _kept(f"blockmax every block {key}", got[1], m, n)
+        want = idx.search(qx[:8], k=depth + 1, depth=depth + 1, filt=m)
+        compare(f"filtered blockmax classic, every block, {key} mask, B=8", got, want, False)
+    m10 = masks["10%"]
+    _reset_launches()
+    got = pruned.search(qx[:8], k=depth, depth=depth, filt=m10)
+    k3_launches = _only("filtered blockmax", "fused_topk_gathered")
+    rows8 = blockmax.kept_rows(bm, q_tf[:8], keep)
+    err_k3 = compare(
+        f"filtered blockmax classic n_keep={keep}, 10% mask, B=8", got,
+        ref.gathered_topk_ref(q_tf[:8].to(torch.bfloat16), ref.gather_rows(scored, rows8, n),
+                              rows8, depth + 1, n, filt=ops.gather_filt(m10, rows8, n)), False)
+    print(f"filtered blockmax classic (K3): every block kept equals the dense filtered search "
+          f"at B = 8 with every mask (near-tie rule); n_keep={keep} with the 10% mask held to "
+          f"the plain gathered version with gather_filt's mask, max_abs_err {err_k3:.3g}; "
+          f"fused_topk_gathered launches {k3_launches}")
+
+    # ---- FilterMask: native (in the kernel) against depth inflation ----
+    extra = 1024
+    fm = pl.FilterMask(inner=idx.pipeline.matcher, extra=extra)
+    m50 = masks["50%"]
+    native = fm(idx.index, q_tf[:8], depth, m50, native=True)
+    inflated = fm(idx.index, q_tf[:8], depth + 1, m50, native=False)
+    compare("FilterMask native vs inflated, 50% mask, B=8", native, inflated, False)
+    _, inner_i = idx.pipeline.matcher(idx.index, q_tf[:8], depth + extra)
+    full_rows = int((pl.lookup_filt_bits(m50, inner_i).sum(1) >= depth).sum())
+    print(f"FilterMask (classic, 50% mask, B = 8): native=True equals native=False with extra "
+          f"{extra} (near-tie rule); {full_rows} of 8 rows hold at least {depth} kept docs in "
+          f"the inflated list of {depth + extra}")
+    if full_rows != 8:
+        raise AssertionError("the inflated list lacks depth kept docs in some row")
+
+    # ---- times, filtered recall, and one RRF fusion ----
+    line = []
+    for bb in (b, 8, 1):
+        parts = [f"unfiltered {cuda_ms(lambda: idx.search(qx[:bb], k=k, depth=depth)):.3f}"]
+        for key in FILTER_KEYS[:3]:
+            m = masks[key]
+            t = cuda_ms(lambda: idx.search(qx[:bb], k=k, depth=depth, filt=m))
+            parts.append(f"{key} {t:.3f}")
+        line.append(f"B={bb} " + ", ".join(parts) + " ms")
+    # (B, N): query r keeps the years [2000 + r % 18, 2002 + r % 18), ~10% each
+    year = md.values[:, 1]
+    lo = 2000 + torch.arange(b, device=dev, dtype=torch.int32)[:, None] % 18
+    per_query = (year[None, :] >= lo) & (year[None, :] < lo + 2)
+    _reset_launches()
+    got = idx.search(qx, k=depth, depth=depth, filt=per_query)
+    _only("the per-query-mask search", "fused_topk")
+    _kept("per-query mask B=256", got[1], per_query, n)
+    compare(f"per-query mask classic B={b}, first 8 queries", (got[0][:8], got[1][:8]),
+            ref.fused_topk_ref(qv[:8], scored, depth + 1, filt=per_query[:8]), False)
+    t_shared = cuda_ms(lambda: idx.search(qx, k=k, depth=depth, filt=m10))
+    t_per = cuda_ms(lambda: idx.search(qx, k=k, depth=depth, filt=per_query))
+    splits = {label: split_line(kernel_split(lambda: idx.search(qx, k=k, depth=depth, filt=f),
+                                             runs=3))
+              for label, f in (("unfiltered", None), ("10%", m10), ("per-query", per_query))}
+    del per_query, got
+    bm_line = []
+    for bb in (1, 8):
+        t0 = cuda_ms(lambda: pruned.search(qx[:bb], k=k, depth=depth))
+        t1 = cuda_ms(lambda: pruned.search(qx[:bb], k=k, depth=depth, filt=m10))
+        bm_line.append(f"B={bb} {t1:.3f} ms (unfiltered {t0:.3f})")
+    print(f"filtered classic search (median of {RUNS}, CUDA events) on {card}: "
+          + "; ".join(line) + f"; B={b} with a per-query (B, N) mask of ~10% a row "
+          f"({b * n / 1e6:.0f} MB of bool) {t_per:.3f} ms against the shared 10% mask's "
+          f"{t_shared:.3f} ms; blockmax classic n_keep={keep} with the 10% mask: "
+          + "; ".join(bm_line))
+    print(f"filtered classic search B={b}, device time per search by kernel (torch.profiler, "
+          f"3 searches): " + "; ".join(f"{label}: {line}" for label, line in splits.items()))
+    recall = []
+    for key in FILTER_KEYS[:3]:
+        m = masks[key]
+        truth = brute.search(qx, k=k, depth=k, filt=m)[1]
+        got = idx.search(qx, k=depth, depth=depth, filt=m)[1]
+        recall.append(f"{key} R@(10,10) {float(ev.recall_at(truth, got[:, :k], m)):.4f} "
+                      f"R@(10,100) {float(ev.recall_at(truth, got, m)):.4f}")
+    print(f"filtered recall of classic against the filtered exact top-{k} (eval.recall_at with "
+          f"filter_mask, B = {b}): " + "; ".join(recall))
+
+    plans = (plan.QueryPlan(search=lambda q: idx.search(q, k=depth, depth=depth),
+                            label="classic"),
+             plan.QueryPlan(search=lambda q: lidx.search(q, k=depth, depth=depth),
+                            label="lexical LSH"))
+    stage = plan.FusionStage(plans=plans, k=k)
+    fused_s, fused_i = stage.run(qx)
+    _checked("RRF fusion", fused_s, fused_i, b, k, n)
+    r_each = [float(ev.recall_at(gt_i, p.run(qx)[1][:, :k])) for p in plans]
+    print(f"RRF FusionStage (classic + lexical LSH, each top-{depth}, k {k}) at B = {b}: "
+          f"{cuda_ms(lambda: stage.run(qx)):.3f} ms (median of {RUNS}, CUDA events, {card}); "
+          f"R@10 {float(ev.recall_at(gt_i, fused_i)):.4f} (classic {r_each[0]:.4f}, lexical "
+          f"LSH {r_each[1]:.4f})")
+    return k3_launches
+
+
+def drive_filtered_kd(card: str, qx, kd, masks: dict, depth: int) -> None:
+    """Filtered k-d tree search over the "pca" index of :func:`drive_kdtree`
+    (``kd``: the tree index and its unfiltered B = 8 result): the scan (K1
+    f32 at T = 9) held to its plain version with the same mask, and the
+    tree's post-filter at B = 8 (10% mask) equal to ``mask_and_topk`` of
+    its own unfiltered result, bit for bit."""
+    from repro_torch.core import bruteforce, kdtree
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.kernels.fused_topk import ref
+
+    tidx, (ts, ti) = kd
+    n = tidx.num_docs
+    scan = AnnIndex(config=dataclasses.replace(tidx.config, backend="scan"), index=tidx.index)
+    qr = kdtree.reduce_queries(tidx.index, bruteforce.l2_normalize(qx), normalized=True)
+    lifted = tidx.index.lifted
+    qa = torch.cat([2.0 * qr, torch.ones_like(qr[:, :1])], dim=1).contiguous()
+    _reset_launches()
+    err = check_filtered("k-d tree pca scan (K1 f32, T = 9)", scan,
+                         lambda bb, m, d: ref.fused_topk_ref(qa[:bb], lifted, d, filt=m), masks,
+                         qx, depth, False, True)
+    launches = _only("filtered k-d tree scan", "fused_topk")
+    m = masks["10%"]
+    t0 = time.perf_counter()
+    got = tidx.search(qx[:8], k=depth, depth=depth, filt=m)
+    torch.cuda.synchronize()
+    tree_s = time.perf_counter() - t0
+    keep = (ti >= 0) & pl.lookup_filt_bits(m, ti)
+    want = pl.mask_and_topk(ts, ti, keep, depth, n)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise AssertionError("filtered k-d tree: not mask_and_topk of its unfiltered result")
+    _kept("filtered k-d tree", got[1], m, n)
+    print(f"filtered k-d tree (pca): the scan held to its plain version with the same mask at "
+          f"B = 8 (every mask) and {qx.shape[0]} (10%), near-tie rule, max_abs_err {err:.3g}, "
+          f"fused_topk launches {launches}; the tree at B = 8 with the 10% mask equals "
+          f"mask_and_topk of its unfiltered result, bit for bit, and keeps "
+          f"{(got[1] >= 0).sum(1).tolist()} of {depth} docs a query (a post-filter); "
+          f"{tree_s:.2f} s (one run, host clock, {card})")
+
+
+def drive_filtered_quantized(card: str, qx, quant: dict, brute: dict, bm4, masks: dict,
+                             depth: int, k: int, config) -> None:
+    """Filtered search over the quantized indexes of :func:`drive_quantized`
+    (no index is built again): classic over int8 and int4 postings (K4 bf16
+    query) and brute force over int8 (K4 f32 query), each held to its plain
+    version with the same mask; the all-zeros mask with the int8 rerank
+    store; blockmax on the int4 index (K5) at every block against the dense
+    filtered search, and at n_keep 1171 with the 10% mask against the plain
+    version with ``gather_filt``'s mask; K5's time with and without it."""
+    from repro_torch.core import blockmax, bruteforce, fakewords
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.kernels.fused_topk import ops, ref
+    from repro_torch.kernels.fused_topk.kernel import fused_topk_gathered_quantized
+
+    qn = bruteforce.l2_normalize(qx)
+    q_tf = fakewords.encode_queries(qn, config, normalized=True)
+    bidx, bpq = brute["int8"][:2]
+    n = bidx.num_docs
+    cases = [(f"classic {pp} postings (K4 bf16 query)", quant[pp][0], quant[pp][0].index.pq,
+              quant[pp][1]) for pp in ("int8", "int4")]
+    cases.append(("brute force int8 postings (K4 f32 query)", bidx, bpq, qn))
+    for label, qidx, pq, qop in cases:
+        _reset_launches()
+        err = check_filtered(
+            label, qidx, lambda bb, m, d, pq=pq, qop=qop: ref.quantized_topk_ref(
+                qop[:bb], pq.q, pq.scale, d, pq.bits, pq.group, filt=m),
+            masks, qx, depth, False, True)
+        launches = _only(f"filtered {label}", "fused_topk_quantized")
+        print(f"filtered {label}: held to the plain version with the same mask at B = 8 (every "
+              f"mask) and {qx.shape[0]} (10%), near-tie rule, max_abs_err {err:.3g}; every id "
+              f"kept; all-ones = unfiltered bit for bit; fused_topk_quantized launches "
+              f"{launches}")
+    zeros = torch.zeros(n, dtype=torch.bool, device=qx.device)
+    for rerank in (False, True):
+        s, i = quant["int8"][0].search(qx[:8], k=k, depth=depth, rerank=rerank, filt=zeros)
+        if not (bool((i == -1).all()) and bool((s == -torch.inf).all())):
+            raise AssertionError(f"int8 all-zeros mask (rerank={rerank}): not all (-inf, -1)")
+
+    q4 = quant["int4"][0]
+    pq4 = q4.index.pq
+    n_blocks = bm4.num_blocks
+    every = AnnIndex(config=config, index=q4.index, blockmax_keep=n_blocks,
+                     blockmax_block_size=BLOCK, bm=bm4)
+    for key, m in masks.items():
+        got = every.search(qx[:8], k=depth, depth=depth, filt=m)
+        _kept(f"int4 blockmax every block {key}", got[1], m, n)
+        compare(f"filtered blockmax int4, every block, {key} mask, B=8", got,
+                q4.search(qx[:8], k=depth + 1, depth=depth + 1, filt=m), False)
+    keep = int(KEEP_FRACTIONS[0] * n_blocks)
+    pidx = AnnIndex(config=config, index=q4.index, blockmax_keep=keep, blockmax_block_size=BLOCK,
+                    bm=bm4)
+    m10 = masks["10%"]
+    _reset_launches()
+    got = pidx.search(qx[:8], k=depth, depth=depth, filt=m10)
+    k5_launches = _only("filtered int4 blockmax", "fused_topk_gathered_quantized")
+    rows8 = blockmax.kept_rows(bm4, q_tf[:8], keep)
+    qv8 = q_tf[:8].to(torch.bfloat16)
+    f8 = ops.gather_filt(m10, rows8, n)
+    err = compare(f"filtered blockmax int4 n_keep={keep}, 10% mask, B=8", got,
+                  ref.quantized_gathered_topk_ref(qv8, pq4.q, pq4.scale, rows8, depth + 1, n, 4,
+                                                  GROUP, filt=f8), False)
+    line = []
+    for bb in (1, 8):
+        qb, rb, fb = qv8[:bb], rows8[:bb], f8[:bb]
+        t0 = cuda_ms(lambda: fused_topk_gathered_quantized(qb, pq4.q, pq4.scale, rb, depth, n, 4,
+                                                           GROUP))
+        t1 = cuda_ms(lambda: fused_topk_gathered_quantized(qb, pq4.q, pq4.scale, rb, depth, n, 4,
+                                                           GROUP, filt=fb))
+        s0 = cuda_ms(lambda: pidx.search(qx[:bb], k=k, depth=depth))
+        s1 = cuda_ms(lambda: pidx.search(qx[:bb], k=k, depth=depth, filt=m10))
+        line.append(f"B={bb} K5 {t1:.3f} ms with the mask, {t0:.3f} without; the search "
+                    f"{s1:.3f} / {s0:.3f} ms")
+    print(f"filtered blockmax int4 (K5): every block kept equals the dense filtered search at "
+          f"B = 8 with every mask (near-tie rule); n_keep={keep} with the 10% mask held to the "
+          f"plain version with gather_filt's mask, max_abs_err {err:.3g}, "
+          f"fused_topk_gathered_quantized launches {k5_launches}; times (median of {RUNS}, "
+          f"CUDA events, {card}): " + "; ".join(line))
 
 
 if __name__ == "__main__":

@@ -213,11 +213,18 @@ def kept_rows(bm: BlockMaxIndex, q: torch.Tensor, n_keep: int) -> torch.Tensor:
 
 def pruned_search(
     index: AnyBlockIndex, bm: BlockMaxIndex, q: torch.Tensor, n_keep: int, depth: int,
+    filt: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-stage blockmax search: bound pass -> keep ``n_keep`` blocks ->
     exact scoring of their rows.  Returns (scores f32 (B, depth), ids int32
     (B, depth)), ties to the lowest doc id, so at n_keep = every block the
     ids equal the dense paths'.
+
+    ``filt`` ((N,) or (B, N) bool, True = keep) masks stage 2 only, through
+    the gathered (B, R) bitmap of the kept rows.  Stage 1's bounds stay
+    unfiltered: filtering only removes docs, so an unfiltered block maximum
+    is still an admissible bound, and at every block kept the filtered
+    result equals the dense filtered search.
 
     ``n_keep`` is clamped to the block count and the kernel's depth to the
     gathered row count; the output is padded back to ``depth`` with
@@ -229,10 +236,11 @@ def pruned_search(
     rows = kept_rows(bm, q, n_keep)
     if mode == "quantized":
         d_s, d_i = ops.postings_topk_gathered(mat, qv.contiguous(), rows, eff_depth,
-                                              index.num_docs)
+                                              index.num_docs, filt=filt)
     else:
         d_s, d_i = ops.fused_topk_gathered(qv.contiguous(), mat, rows, eff_depth,
-                                           index.num_docs, mode=mode)
+                                           index.num_docs, mode=mode,
+                                           filt=ops.gather_filt(filt, rows, index.num_docs))
     if eff_depth < depth:
         pad = depth - eff_depth
         d_s = torch.cat([d_s, d_s.new_full((b, pad), -torch.inf)], dim=-1)

@@ -22,6 +22,7 @@ import torch
 from repro_torch.core import bruteforce, fakewords, kdtree, lexical_lsh, pca
 from repro_torch.core.types import (
     BruteForceConfig,
+    DocMetadata,
     FakeWordsConfig,
     FakeWordsIndex,
     FlatIndex,
@@ -248,6 +249,27 @@ class FlatPostings:
         if self.quantizer is None:
             return FlatIndex(vectors=v, vq=store["vq"])
         return FlatIndex(vectors=store["vectors"], vq=store["vq"], pq=self.quantizer(v))
+
+
+# --------------------------------------------------------------------------
+# Metadata stage
+# --------------------------------------------------------------------------
+
+
+def build_metadata(metadata, n_docs: int, device=None) -> Optional[DocMetadata]:
+    """The build-time ``metadata=`` argument as a :class:`DocMetadata` on
+    ``device``: ``None`` passes through, a ``{field: (N,) ints}`` mapping
+    stacks into the (N, F) matrix, a DocMetadata is validated (and moved)."""
+    if metadata is None:
+        return None
+    if isinstance(metadata, DocMetadata):
+        md = metadata if device is None else dataclasses.replace(
+            metadata, values=metadata.values.to(device))
+    else:
+        md = DocMetadata.from_fields(metadata, device=device)
+    if md.num_docs != n_docs:
+        raise ValueError(f"metadata has {md.num_docs} rows but the corpus has {n_docs}")
+    return md
 
 
 # --------------------------------------------------------------------------

@@ -3,6 +3,11 @@
     idx = AnnIndex.build(vectors, FakeWordsConfig(quantization=50))  # on "cuda"
     scores, ids = idx.search(queries, k=10, depth=100, rerank=True)
 
+``metadata=`` at build time stores per-document fields (:class:`repro_torch.
+core.types.DocMetadata`); keep bitmaps built from them (``idx.metadata.
+eq_mask("cat", 7)``, ...) go to ``search(filt=)``, which masks the match
+stage's kernels.
+
 ``blockmax_keep`` (with ``blockmax_block_size``) turns on two-stage blockmax
 pruning for fake-words and LSH indexes: only the ``blockmax_keep`` blocks
 with the best upper bounds are scored (:mod:`repro_torch.core.blockmax`).
@@ -13,8 +18,10 @@ Persistence: :meth:`AnnIndex.save` / :meth:`AnnIndex.load` write and read
 the reference's single-index format (``FORMAT_VERSION`` 1: ``config.json``
 with the method config and serving knobs, ``index.npz`` with every array
 under its dotted name, bf16 as a uint16 view), so an index saved by either
-package loads in the other.  :func:`index_from_numpy` is the one reader: it
-takes the arrays and dtypes of such a save.
+package loads in the other; the metadata rides along (its field names in
+``config.json``, its values in the npz as ``metadata.values``).
+:func:`index_from_numpy` is the one reader: it takes the arrays and dtypes
+of such a save.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from repro_torch.core import pipeline as pl
 from repro_torch.core.blockmax import BlockMaxIndex, build_blockmax
 from repro_torch.core.types import (
     BruteForceConfig,
+    DocMetadata,
     FakeWordsConfig,
     FakeWordsIndex,
     FlatIndex,
@@ -76,7 +84,8 @@ class AnnIndex:
     (fake-words and LSH indexes); ``bm`` is built from the index when not
     given.  ``quantized_rerank`` reranks from the int8 store (``index.vq``)
     instead of the fp32 originals; None = auto: quantized iff the index
-    carries the int8 store and no originals."""
+    carries the int8 store and no originals.  ``metadata`` holds per-doc
+    fields, the source of the keep bitmaps that ``search(filt=)`` takes."""
 
     config: AnyConfig
     index: AnyIndex
@@ -84,6 +93,7 @@ class AnnIndex:
     blockmax_block_size: int = 256
     bm: Optional[BlockMaxIndex] = None
     quantized_rerank: Optional[bool] = None
+    metadata: Optional[DocMetadata] = None
 
     def __post_init__(self):
         self.pipeline: pl.SearchPipeline = pl.build_pipeline(self.config)
@@ -119,6 +129,7 @@ class AnnIndex:
         primary_postings: Optional[str] = None,
         postings_group: int = 32,
         memory_budget_bytes: Optional[int] = None,
+        metadata=None,
         device="cuda",
     ) -> "AnnIndex":
         """Build through :class:`repro_torch.core.builder.BuildPipeline` on
@@ -134,7 +145,9 @@ class AnnIndex:
         scale group (32 or 64).  ``memory_budget_bytes`` picks postings x
         rerank store x blockmax keep-fraction from the recall-ordered
         frontier (:mod:`repro_torch.core.memory_budget`); knobs given with
-        it are pinned, and it fills only the unset ones."""
+        it are pinned, and it fills only the unset ones.  ``metadata``: per-doc
+        fields for filtered search, a ``{field: (N,) ints}`` mapping or a
+        :class:`DocMetadata`, held on ``device``."""
         dev = _check_device(device)
         v = torch.as_tensor(vectors, device=dev)
         if memory_budget_bytes is not None:
@@ -154,7 +167,8 @@ class AnnIndex:
                                          postings_group)
         return cls(config=config, index=bp.build_local(v), blockmax_keep=blockmax_keep,
                    blockmax_block_size=blockmax_block_size,
-                   quantized_rerank=rerank_store == "int8")
+                   quantized_rerank=rerank_store == "int8",
+                   metadata=builder.build_metadata(metadata, v.shape[0], dev))
 
     @property
     def method(self) -> str:
@@ -178,13 +192,18 @@ class AnnIndex:
         depth: int = 100,
         rerank: bool = False,
         params: Optional[SearchParams] = None,
+        filt=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """encode -> match [-> prune] -> optional rerank.  ``params`` takes
         precedence over ``k`` / ``depth`` / ``rerank``.  ``queries`` (B, dim)
-        numpy or tensor; it is moved to the index's device."""
+        numpy or tensor; it is moved to the index's device.  ``filt`` ((N,)
+        or (B, N); bool, uint8 or int32, tensor or numpy; nonzero = keep)
+        restricts the match stage to the bitmap's docs in the same kernel
+        pass; typically built from ``self.metadata``.  A mask of another
+        shape raises ValueError."""
         p = params if params is not None else SearchParams(k=k, depth=depth, rerank=rerank)
         q = torch.as_tensor(queries, device=self.device)
-        return self.pipeline.search(self.index, q, p)
+        return self.pipeline.search(self.index, q, p, filt=filt)
 
     # ----------------------------------------------------------------------
     # Persistence: npz (every array) + JSON (config + serving knobs)
@@ -212,6 +231,9 @@ class AnnIndex:
         pq = getattr(self.index, "pq", None)
         if pq is not None:  # the packed store's static metadata
             meta["pq"] = {"bits": pq.bits, "group": pq.group, "cols": pq.cols}
+        if self.metadata is not None:  # field names in the JSON, values in the npz
+            meta["metadata"] = {"field_names": list(self.metadata.field_names)}
+            packed["metadata.values"] = self.metadata.values.cpu().numpy()
         with open(os.path.join(path, "config.json"), "w") as f:
             json.dump(meta, f, indent=2)
         np.savez_compressed(os.path.join(path, "index.npz"), **packed)
@@ -222,8 +244,8 @@ class AnnIndex:
         a CUDA device and none is available).  ``overrides`` replace the
         saved serving knobs (``blockmax_keep``, ``blockmax_block_size``,
         ``quantized_rerank``).  A format other than 1 raises ValueError; a
-        segmented commit point or a save with per-doc metadata raises
-        NotImplementedError (not ported yet)."""
+        segmented commit point raises NotImplementedError (not ported
+        yet)."""
         meta_path = os.path.join(path, "config.json")
         if not os.path.exists(meta_path) and os.path.isdir(path) and any(
                 _COMMIT_RE.match(name) for name in os.listdir(path)):
@@ -239,10 +261,6 @@ class AnnIndex:
                 f"format_version {FORMAT_VERSION}"
                 + (" — it was written by a newer version of the code; upgrade to load it"
                    if version > FORMAT_VERSION else ""))
-        if "metadata" in meta:
-            raise NotImplementedError(
-                "per-doc metadata (filtered search) is not ported yet (ROADMAP.md, queue A "
-                "item 4)")
         with np.load(os.path.join(path, "index.npz")) as z:
             arrays = {name: z[name] for name in z.files}
         knobs = {"blockmax_keep": meta.get("blockmax_keep"),
@@ -250,7 +268,8 @@ class AnnIndex:
                  "quantized_rerank": meta.get("quantized_rerank")}
         knobs.update(overrides)
         return index_from_numpy(meta["method"], meta["config"], arrays, meta["dtypes"],
-                                device=device, pq=meta.get("pq"), **knobs)
+                                device=device, pq=meta.get("pq"),
+                                metadata=meta.get("metadata"), **knobs)
 
 
 # --------------------------------------------------------------------------
@@ -333,27 +352,42 @@ def index_from_numpy(
     blockmax_block_size: int = 256,
     pq: Optional[dict] = None,
     quantized_rerank: Optional[bool] = None,
+    metadata: Optional[dict] = None,
 ) -> AnnIndex:
     """The port's index from the reference's persisted form: ``method`` and
     ``config`` as in ``config.json``, ``arrays`` the ``index.npz`` members
     (dotted names), ``dtypes`` their recorded dtype names, and the knobs as
     ``config.json`` records them: ``blockmax_keep`` / ``blockmax_block_size``
     (the block bounds are rebuilt from the arrays, as the reference's
-    ``load`` does), ``pq`` (the packed store's {"bits", "group", "cols"})
-    and ``quantized_rerank``.  Covers "fake-words", "lexical-lsh",
-    "kd-tree" (``reduced``, the reduction model ``reduction.*``, flat PCA or
-    nested PPA / PCA / PPA, the tree arrays ``split_dim`` / ``split_val`` /
-    ``perm`` and ``lifted``) and "bruteforce", with their int8 / int4 packed
-    postings (``pq.*``) and int8 rerank store (``vq.*``).  Any other method
-    ("hnsw", the graph encoding) raises NotImplementedError."""
+    ``load`` does), ``pq`` (the packed store's {"bits", "group", "cols"}),
+    ``quantized_rerank`` and ``metadata`` (``{"field_names": [...]}``; the
+    values come as the int32 array ``metadata.values``, which has no
+    ``dtypes`` entry, as the reference writes it; the names without the
+    values raise KeyError, as in the reference's ``load``).  Covers
+    "fake-words", "lexical-lsh", "kd-tree" (``reduced``, the reduction
+    model ``reduction.*``, flat PCA or nested PPA / PCA / PPA, the tree
+    arrays ``split_dim`` / ``split_val`` / ``perm`` and ``lifted``) and
+    "bruteforce", with their int8 / int4 packed postings (``pq.*``) and int8
+    rerank store (``vq.*``).  Any other method ("hnsw", the graph encoding)
+    raises NotImplementedError."""
     dev = _check_device(device)
     if method not in _ARRAYS_BY_METHOD:
         raise NotImplementedError(f"method {method!r} is not ported yet (ROADMAP.md, queue A)")
+    arrays = dict(arrays)
+    values = arrays.pop("metadata.values", None)
     unported = sorted(set(arrays) - set(_ARRAYS_BY_METHOD[method]))
     if unported:
         raise NotImplementedError(
             f"arrays {unported} belong to stores not ported yet "
-            "(ROADMAP.md, queue A: filtering and the other methods)")
+            "(ROADMAP.md, queue A: the other methods)")
+    md = None
+    if metadata is not None:
+        if values is None:
+            raise KeyError("metadata.values")
+        md = DocMetadata(values=_tensor(values, "int32", dev),
+                         field_names=tuple(metadata["field_names"]))
+    elif values is not None:
+        raise ValueError("metadata.values without the metadata field names")
     t = {name: _tensor(a, dtypes[name], dev) for name, a in arrays.items()}
     vq = QuantizedStore(q=t["vq.q"], scale=t["vq.scale"]) if "vq.q" in t else None
     packed = None
@@ -377,4 +411,5 @@ def index_from_numpy(
     else:
         index = FlatIndex(vectors=t.get("vectors"), vq=vq, pq=packed)
     return AnnIndex(config=cfg, index=index, blockmax_keep=blockmax_keep,
-                    blockmax_block_size=blockmax_block_size, quantized_rerank=quantized_rerank)
+                    blockmax_block_size=blockmax_block_size, quantized_rerank=quantized_rerank,
+                    metadata=md)

@@ -7,11 +7,19 @@ Stages are frozen dataclasses taking the index as an explicit argument.
 Every matcher streams through a fused top-k kernel (over packed int8 / int4
 postings when the index carries ``pq``): on a CUDA index the CUDA kernel, on
 a CPU index its plain version.
+
+Filtered search: every matcher takes ``filt``, a per-doc keep bitmap ((N,)
+shared or (B, N) per query), and passes it to its kernel, which masks the
+docs inside its score pass (masked slots are (-inf, -1)); the k-d tree's DFS
+masks its candidates after the search.  :class:`FilterMask` wraps a matcher
+with a mask of its own.  The caller's mask (bool, uint8 or int32; a tensor
+or a numpy array; nonzero = keep) becomes a contiguous bool tensor on the
+index's device once, in :func:`as_filter`.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple, Union
+from typing import Any, Optional, Tuple, Union
 
 import torch
 
@@ -23,6 +31,7 @@ from repro_torch.core.types import (
     LexicalLshConfig,
     SearchParams,
 )
+from repro_torch.kernels.common import stable_topk
 from repro_torch.kernels.fused_topk import ops as fused
 
 AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, KdTreeConfig, BruteForceConfig]
@@ -70,6 +79,48 @@ class IdentityEncoder:
 
 
 # --------------------------------------------------------------------------
+# Filters
+# --------------------------------------------------------------------------
+
+
+def as_filter(mask, n_docs: int, batch: int, device) -> Optional[torch.Tensor]:
+    """A caller's keep bitmap (bool, uint8 or int32; tensor or numpy array;
+    nonzero = keep) as the contiguous bool tensor on ``device`` that the
+    kernels take (a contiguous bool tensor there already is taken as it
+    is: a (B, N) mask can be large).  It must be (n_docs,) or (batch,
+    n_docs); None passes."""
+    if mask is None:
+        return None
+    m = torch.as_tensor(mask, device=device)
+    if tuple(m.shape) not in ((n_docs,), (batch, n_docs)):
+        raise ValueError(f"filter mask must be ({n_docs},) or ({batch}, {n_docs}), "
+                         f"got {tuple(m.shape)}")
+    return (m if m.dtype == torch.bool else m != 0).contiguous()
+
+
+def lookup_filt_bits(mask: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The keep bits of a per-doc bitmap ((N,) shared or (B, N) per query)
+    at the candidate ids (B, d); id -1 slots read doc 0 (callers AND with
+    ``ids >= 0``)."""
+    safe = ids.clamp_min(0).long()
+    bits = mask[safe] if mask.dim() == 1 else torch.gather(mask, 1, safe)
+    return bits != 0
+
+
+def mask_and_topk(
+    s: torch.Tensor, i: torch.Tensor, keep: torch.Tensor, depth: int, n: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mask-then-re-reduce tail of every post-hoc candidate filter: kept
+    slots keep the inner stage's (score, id), dropped ones become (-inf,
+    -1), and the survivors re-reduce to the top ``min(depth, n)``.  Equal
+    scores keep the inner stage's order (a stable sort, as ``lax.top_k``)."""
+    s = torch.where(keep, s, torch.full_like(s, -torch.inf))
+    i = torch.where(keep, i, torch.full_like(i, -1))
+    top_s, pos = stable_topk(s, min(depth, n))
+    return top_s, torch.gather(i, 1, pos.long())
+
+
+# --------------------------------------------------------------------------
 # Matchers
 # --------------------------------------------------------------------------
 
@@ -92,13 +143,13 @@ class FakeWordsMatcher:
         return fakewords.dot_query(index, q_tf, self.df_max_ratio, dtype=torch.bfloat16)
 
     def __call__(
-        self, index, q_tf: torch.Tensor, depth: int
+        self, index, q_tf: torch.Tensor, depth: int, filt: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         d = min(depth, index.num_docs)
         if index.pq is not None:
-            return fused.postings_topk(index.pq, self.quantized_query(index, q_tf), d)
+            return fused.postings_topk(index.pq, self.quantized_query(index, q_tf), d, filt=filt)
         topk = fused.classic_topk if self.scoring == "classic" else fused.dot_topk
-        return topk(index, q_tf, d, self.df_max_ratio)
+        return topk(index, q_tf, d, self.df_max_ratio, filt=filt)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,10 +157,10 @@ class LshMatcher:
     """MinHash signature-collision counting (K1's lsh mode)."""
 
     def __call__(
-        self, index, sig_q: torch.Tensor, depth: int
+        self, index, sig_q: torch.Tensor, depth: int, filt: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         d = min(depth, index.num_docs)
-        return fused.lsh_topk(sig_q, index.sig, d)
+        return fused.lsh_topk(sig_q, index.sig, d, filt=filt)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,21 +170,30 @@ class KdScanMatcher:
     loaded index lacks it)."""
 
     def __call__(
-        self, index, q_reduced: torch.Tensor, depth: int
+        self, index, q_reduced: torch.Tensor, depth: int, filt: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         lifted = index.lifted if index.lifted is not None else fused.lift_l2(index.reduced)
-        return fused.scan_l2_topk(lifted, q_reduced, min(depth, index.num_docs))
+        return fused.scan_l2_topk(lifted, q_reduced, min(depth, index.num_docs), filt=filt)
 
 
 @dataclasses.dataclass(frozen=True)
 class KdTreeMatcher:
     """The batched k-d tree DFS (the paper's data structure), plain torch on
-    the index's device."""
+    the index's device.  The DFS cannot take a bitmap into its visit order,
+    so ``filt`` masks its depth candidates after the search (a best-effort
+    post-filter, as in the reference: with a selective mask fewer than
+    ``depth`` kept docs come back; the scan backend is the exact filtered
+    path)."""
 
     def __call__(
-        self, index, q_reduced: torch.Tensor, depth: int
+        self, index, q_reduced: torch.Tensor, depth: int, filt: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return kdtree.tree_search(index, q_reduced, min(depth, index.num_docs))
+        n = index.num_docs
+        s, i = kdtree.tree_search(index, q_reduced, min(depth, n))
+        if filt is None:
+            return s, i
+        keep = (i >= 0) & lookup_filt_bits(filt, i)
+        return mask_and_topk(s, i, keep, depth, n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,12 +202,12 @@ class CosineMatcher:
     over their packed int8 / int4 postings (``pq``) with the f32 query."""
 
     def __call__(
-        self, index, q_norm: torch.Tensor, depth: int
+        self, index, q_norm: torch.Tensor, depth: int, filt: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         d = min(depth, index.num_docs)
         if index.pq is not None:
-            return fused.postings_topk(index.pq, q_norm.contiguous(), d)
-        return fused.cosine_topk(index.vectors, q_norm.contiguous(), d)
+            return fused.postings_topk(index.pq, q_norm.contiguous(), d, filt=filt)
+        return fused.cosine_topk(index.vectors, q_norm.contiguous(), d, filt=filt)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,15 +215,54 @@ class BlockMaxMatcher:
     """Two-stage blockmax pruning as a matcher stage: block-bound pass ->
     keep ``n_keep`` blocks -> exact scoring of their rows through the
     gathered fused top-k kernel.  The mode (classic / dot / lsh) travels
-    with ``bm``."""
+    with ``bm``; ``filt`` masks stage 2 (:func:`blockmax.pruned_search`)."""
 
     n_keep: int
     bm: blockmax.BlockMaxIndex
 
     def __call__(
-        self, index, q_rep: torch.Tensor, depth: int
+        self, index, q_rep: torch.Tensor, depth: int, filt: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return blockmax.pruned_search(index, self.bm, q_rep, self.n_keep, depth)
+        return blockmax.pruned_search(index, self.bm, q_rep, self.n_keep, depth, filt=filt)
+
+
+@dataclasses.dataclass(frozen=True)
+class FilterMask:
+    """Per-doc predicate masking as a match-stage wrapper: Lucene's liveDocs
+    generalised to any keep bitmap.  Masked docs come back as (-inf, -1)
+    inside the match stage, never filtered out of its output, so ``depth``
+    keeps its meaning.  Two ways, chosen per call:
+
+      * ``native=True``: the mask goes into the inner matcher's kernel (its
+        ``filt`` operand): one pass, exact at any selectivity.
+      * ``native=False`` (default): depth inflation.  The inner matcher
+        returns ``min(depth + extra, n)`` unfiltered candidates, which are
+        masked and re-reduced to the top ``depth`` (:func:`mask_and_topk`).
+        When at most ``extra`` of them are masked, every one of the best
+        ``depth`` kept docs is among them.  On the card ``depth + extra``
+        must stay within the kernel's depth limit (the call raises past it).
+
+    Equal scores keep the inner matcher's lowest-id order.  ``mask`` is
+    (N,) or (B, N), bool / uint8 / int32, tensor or numpy (nonzero = keep);
+    it is converted by :func:`as_filter`."""
+
+    inner: Any
+    extra: int = 0
+
+    def __call__(
+        self, index, q_rep: torch.Tensor, depth: int, mask, native: bool = False,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        n = index.num_docs
+        filt = as_filter(mask, n, q_rep.shape[0], index.device)
+        if native:
+            return self.inner(index, q_rep, min(depth, n), filt=filt)
+        s, i = self.inner(index, q_rep, min(depth + self.extra, n))
+        keep = (i >= 0) & lookup_filt_bits(filt, i)
+        return mask_and_topk(s, i, keep, depth, n)
+
+
+# The deletes-only name of the wrapper this generalises.
+LiveDocsMatcher = FilterMask
 
 
 # --------------------------------------------------------------------------
@@ -242,12 +341,17 @@ class SearchPipeline:
     reranker: Any = ExactCosineReranker()
 
     def search(
-        self, index, queries: torch.Tensor, params: SearchParams = SearchParams()
+        self, index, queries: torch.Tensor, params: SearchParams = SearchParams(),
+        filt=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """End-to-end staged search."""
+        """End-to-end staged search.  ``filt`` is a per-doc keep bitmap ((N,)
+        or (B, N); bool, uint8 or int32, tensor or numpy; nonzero = keep),
+        applied inside the match stage's score pass; the rerank only
+        rescores the survivors, so a masked doc never comes back."""
+        filt = as_filter(filt, index.num_docs, queries.shape[0], index.device)
         q_norm = bruteforce.l2_normalize(queries)
         q_rep = self.encoder(index, q_norm)
-        d_s, d_i = self.matcher(index, q_rep, params.depth)
+        d_s, d_i = self.matcher(index, q_rep, params.depth, filt=filt)
         if not params.rerank:
             return d_s[:, : params.k], d_i[:, : params.k]
         return self.reranker(index, q_norm, d_i, params.k)

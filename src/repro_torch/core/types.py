@@ -2,13 +2,13 @@
 
 Only what the fake-words, lexical-LSH, k-d tree and brute-force paths need,
 with the quantized stores of the read path (int8/int4 primary postings, the
-int8 rerank store).  Configs are frozen dataclasses; index containers hold
-tensors on one device.
+int8 rerank store) and the per-document metadata of filtered search.
+Configs are frozen dataclasses; index containers hold tensors on one device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Iterable, Mapping, Optional, Tuple
 
 import torch
 
@@ -24,7 +24,8 @@ class FakeWordsConfig:
     store_dtype: dtype of the stored term-frequency matrix: int8 (the
         kernel's integer operand), given as ``torch.int8`` or ``"int8"`` (as
         the reference's ``config.json`` writes it).
-    signed_store: the reference's half-width signed dot store; not ported.
+    signed_store: the reference's half-width signed dot store; refused, as
+        the reference's search of such an index raises.
     """
 
     quantization: int = 50
@@ -40,8 +41,8 @@ class FakeWordsConfig:
             raise ValueError(f"scoring must be 'classic' or 'dot', got {self.scoring}")
         if self.signed_store:
             raise NotImplementedError(
-                "signed_store is not ported yet (ROADMAP.md, queue A: "
-                "FakeWordsMatcher signed_store)"
+                "signed_store is not ported: the reference's own search raises on it "
+                "(ROADMAP.md §C, reference caveats)"
             )
         if self.store_dtype not in (torch.int8, "int8"):
             raise ValueError(f"store_dtype must be int8, got {self.store_dtype!r}")
@@ -114,6 +115,67 @@ class SearchParams:
     k: int = 10
     depth: int = 100
     rerank: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DocMetadata:
+    """Per-document structured metadata, the predicate source of filtered
+    search.
+
+    values:      (N, F) int32; column f holds field ``field_names[f]``,
+                 integer-coded by the caller (categorical codes, bucketed
+                 timestamps, ...).
+    field_names: the F field names.
+
+    The ``*_mask`` helpers return (N,) bool keep bitmaps on the values'
+    device, the ``filt`` operand of ``AnnIndex.search``; predicates compose
+    with ``&`` / ``|`` on the bitmaps.
+    """
+
+    values: torch.Tensor
+    field_names: Tuple[str, ...]
+
+    @classmethod
+    def from_fields(cls, fields: Mapping[str, Any], device=None) -> "DocMetadata":
+        """Build from a ``{field_name: (N,) ints}`` mapping (numpy arrays or
+        tensors; insertion order fixes the column order)."""
+        names = tuple(fields.keys())
+        cols = [torch.as_tensor(fields[n], device=device).to(torch.int32) for n in names]
+        return cls(values=torch.stack(cols, dim=1), field_names=names)
+
+    @property
+    def num_docs(self) -> int:
+        return self.values.shape[0]
+
+    def _col(self, field: str) -> torch.Tensor:
+        return self.values[:, self.field_names.index(field)]
+
+    def eq_mask(self, field: str, value: int) -> torch.Tensor:
+        """(N,) bool: field == value."""
+        return self._col(field) == value
+
+    def in_mask(self, field: str, values: Iterable[int]) -> torch.Tensor:
+        """(N,) bool: field in values (a small value set)."""
+        col = self._col(field)
+        out = torch.zeros(col.shape, dtype=torch.bool, device=col.device)
+        for v in values:
+            out |= col == v
+        return out
+
+    def range_mask(
+        self, field: str, lo: Optional[int] = None, hi: Optional[int] = None
+    ) -> torch.Tensor:
+        """(N,) bool: lo <= field < hi (either bound optional)."""
+        col = self._col(field)
+        out = torch.ones(col.shape, dtype=torch.bool, device=col.device)
+        if lo is not None:
+            out &= col >= lo
+        if hi is not None:
+            out &= col < hi
+        return out
+
+    def nbytes(self) -> int:
+        return self.values.numel() * self.values.element_size()
 
 
 @dataclasses.dataclass(frozen=True)

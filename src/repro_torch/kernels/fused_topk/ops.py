@@ -23,6 +23,19 @@ from repro_torch.kernels.fused_topk.kernel import (
 )
 
 
+def gather_filt(
+    filt: Optional[torch.Tensor], row_ids: torch.Tensor, n_docs: int
+) -> Optional[torch.Tensor]:
+    """A per-doc keep bitmap ((N,) shared or (B, N) per query) gathered into
+    the (B, R) bitmap aligned with ``row_ids`` that the gathered kernels
+    take.  Ids outside [0, n_docs) read a doc in range; the kernels' own
+    range check masks those rows."""
+    if filt is None:
+        return None
+    safe = row_ids.long().clamp(0, n_docs - 1)
+    return filt[safe] if filt.dim() == 1 else torch.gather(filt, 1, safe)
+
+
 def classic_topk(
     index, q_tf: torch.Tensor, depth: int, df_max_ratio: float = 1.0,
     filt: Optional[torch.Tensor] = None,
@@ -94,9 +107,11 @@ def postings_topk(
 
 def postings_topk_gathered(
     pq, qv: torch.Tensor, row_ids: torch.Tensor, depth: int, n_docs: int,
+    filt: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-depth over the rows ``row_ids`` (B, R) of a packed store
     (quantized blockmax stage 2, K5).  The whole store and the ids go to the
-    kernel, which reads each row by id; nothing is gathered here."""
+    kernel, which reads each row by id; only the per-doc ``filt`` ((N,) |
+    (B, N)) is gathered here, into the (B, R) bitmap of the rows."""
     return fused_topk_gathered_quantized(qv, pq.q, pq.scale, row_ids, depth, n_docs, pq.bits,
-                                         pq.group)
+                                         pq.group, filt=gather_filt(filt, row_ids, n_docs))

@@ -1055,3 +1055,144 @@ def test_cuda_save_and_load_round_trip(tmp_path, method):
         assert torch.equal(i0, i1) and torch.equal(s0, s1)
     cpu = AnnIndex.load(str(tmp_path / "idx"), device="cpu")
     assert cpu.device.type == "cpu" and cpu.nbytes() == idx.nbytes()
+
+
+# ---- filtered search: the facade's masks through K1-K5 and the tree DFS ----
+
+FILTERED_METHODS = {  # method -> (config, build knobs, blockmax_keep, integer scores)
+    "classic": (FakeWordsConfig(), {}, None, False),
+    "dot": (FakeWordsConfig(scoring="dot"), {}, None, True),
+    "classic-int8": (FakeWordsConfig(), {"primary_postings": "int8", "rerank_store": "int8"},
+                     None, False),
+    "classic-int4": (FakeWordsConfig(), {"primary_postings": "int4", "rerank_store": "int8"},
+                     None, False),
+    "bruteforce": (BruteForceConfig(), {}, None, False),
+    "bruteforce-int8": (BruteForceConfig(), {"primary_postings": "int8"}, None, False),
+    "lsh": (LexicalLshConfig(buckets=64, hashes=2), {}, None, True),
+    "kdtree-scan": (KdTreeConfig(dims=8), {}, None, False),
+    "kdtree-tree": (KdTreeConfig(dims=8, backend="tree"), {}, None, False),
+    "blockmax-classic": (FakeWordsConfig(), {}, 6, False),
+    "blockmax-dot": (FakeWordsConfig(scoring="dot"), {}, 6, True),
+    "blockmax-lsh": (LexicalLshConfig(buckets=64, hashes=2), {}, 6, True),
+    "blockmax-classic-int4": (FakeWordsConfig(), {"primary_postings": "int4",
+                                                  "rerank_store": "int8"}, 6, False),
+}
+
+
+def _filtered_pair(method: str, n: int = 3000):
+    """The method's index built on the CPU and the same arrays on the card,
+    and 16 queries."""
+    dev = cuda_device()
+    cfg, knobs, keep, exact = FILTERED_METHODS[method]
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(n, 64)).astype(np.float32)
+    q = x[:16] + 0.05 * rng.normal(size=(16, 64)).astype(np.float32)
+    cpu = AnnIndex.build(x, cfg, blockmax_keep=keep, blockmax_block_size=128, device="cpu",
+                         **knobs)
+    gpu = AnnIndex(config=cfg, index=_on(cpu.index, dev), blockmax_keep=keep,
+                   blockmax_block_size=128, quantized_rerank=cpu.quantized_rerank)
+    return cpu, gpu, q, exact
+
+
+def _masks(n: int, b: int):
+    """Shared masks at 1% / 10% / 50%, one of exactly 50 docs, and a (B, N)
+    one, as int32 (nonzero = keep)."""
+    g = torch.Generator().manual_seed(8)
+    out = {f"{r:.0%}": (torch.rand(n, generator=g) < r).to(torch.int32) for r in (0.01, 0.1, 0.5)}
+    fifty = torch.zeros(n, dtype=torch.int32)
+    fifty[torch.randperm(n, generator=g)[:50]] = 1
+    out["50 docs"] = fifty
+    out["per query"] = (torch.rand((b, n), generator=g) < 0.3).to(torch.int32)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", list(FILTERED_METHODS))
+def test_cuda_filtered_search_matches_cpu_port(method):
+    """Each encoding's filtered search on the card (int32 masks, shared and
+    per query, moved to the card by the facade) against the CPU route over
+    the same arrays: integer scores bit for bit, float ones under the
+    near-tie rule; every id kept; a mask of 50 docs at depth 100 gives them,
+    then (-inf, -1) (where every doc is scored: not blockmax, not the tree's
+    post-filter)."""
+    cpu, gpu, q, exact = _filtered_pair(method)
+    n = cpu.num_docs
+    tree = method == "kdtree-tree"
+    for name, m in _masks(n, q.shape[0]).items():
+        for mask in (m, m.cuda(), m.cuda() != 0):
+            got = [a.cpu() for a in gpu.search(q, k=100, depth=100, filt=mask)]
+            width = 100 if exact or tree else 101
+            want = cpu.search(q, k=width, depth=width, filt=m)
+            assert_topk_match(got, want, exact=exact)
+            keep = m if m.dim() == 2 else m.expand(q.shape[0], n)
+            ids = got[1]
+            assert bool(((ids < 0) | (torch.gather(keep, 1, ids.clamp_min(0).long()) != 0)).all())
+            assert not bool(got[0].isnan().any()), name
+        if name == "50 docs" and cpu.bm is None and not tree:
+            assert (got[1][:, :50] >= 0).all() and (got[1][:, 50:] == -1).all()
+            assert (got[0][:, 50:] == -torch.inf).all()
+    zeros = torch.zeros(n, dtype=torch.int32, device="cuda")
+    for rerank in (False, True):
+        s, i = gpu.search(q, k=10, depth=100, rerank=rerank, filt=zeros)
+        assert (i == -1).all() and (s == -torch.inf).all()
+    ones = torch.ones(n, dtype=torch.bool, device="cuda")
+    s0, i0 = gpu.search(q, k=10, depth=100)
+    s1, i1 = gpu.search(q, k=10, depth=100, filt=ones)
+    assert torch.equal(s0, s1) and torch.equal(i0, i1)
+
+
+@pytest.mark.gpu
+def test_cuda_masks_of_any_dtype_and_the_kernels_own_check():
+    """The facade takes bool, uint8 and int32 masks on the card alike and
+    refuses a wrong shape; the kernel wrappers still take only contiguous
+    bool / uint8 (their own TypeError)."""
+    cpu, gpu, q, _ = _filtered_pair("classic")
+    m = _masks(cpu.num_docs, q.shape[0])["10%"].cuda()
+    base = gpu.search(q, k=10, depth=100, filt=m)
+    for other in (m != 0, m.to(torch.uint8), m.cpu().numpy(), m[None].expand(16, -1)):
+        got = gpu.search(q, k=10, depth=100, filt=other)
+        assert torch.equal(got[0], base[0]) and torch.equal(got[1], base[1])
+    with pytest.raises(ValueError, match="filter mask"):
+        gpu.search(q, k=10, depth=100, filt=m[:-1])
+    qv = torch.randn((4, 64), device="cuda")
+    docs = torch.randn((cpu.num_docs, 64), device="cuda")
+    with pytest.raises(TypeError, match="bool or uint8"):
+        fused_topk(qv, docs, 10, filt=m)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["blockmax-classic", "blockmax-classic-int4"])
+def test_cuda_filtered_blockmax_every_block_equals_dense(method):
+    """Filtered blockmax on the card (K3 / K5 with the gathered mask) at
+    every block kept equals the card's dense filtered search, and at 3 of 24
+    blocks the CPU route's."""
+    cpu, gpu, q, _ = _filtered_pair(method)
+    n = cpu.num_docs
+    dense = AnnIndex(config=gpu.config, index=gpu.index)
+    every = AnnIndex(config=gpu.config, index=gpu.index, blockmax_keep=gpu.bm.num_blocks,
+                     blockmax_block_size=128)
+    for name, m in _masks(n, q.shape[0]).items():
+        mc = m.cuda()
+        got = [a.cpu() for a in every.search(q, k=100, depth=100, filt=mc)]
+        assert_topk_match(got, [a.cpu() for a in dense.search(q, k=101, depth=101, filt=mc)],
+                          exact=False)
+        got = [a.cpu() for a in gpu.search(q, k=100, depth=100, filt=mc)]
+        assert_topk_match(got, cpu.search(q, k=101, depth=101, filt=m), exact=False)
+
+
+@pytest.mark.gpu
+def test_cuda_filter_mask_native_equals_inflated():
+    """FilterMask on the card: the mask in the kernel (native) gives the
+    ids of depth inflation (extra = 1,024) at the 50% mask, under the
+    near-tie rule (the two calls run K1 at other depths, so other plans)."""
+    from repro_torch.core import fakewords
+    from repro_torch.core import pipeline as pl
+
+    cpu, gpu, q, _ = _filtered_pair("classic")
+    m = _masks(cpu.num_docs, q.shape[0])["50%"].cuda()
+    q_tf = fakewords.encode_queries(bruteforce.l2_normalize(torch.from_numpy(q).cuda()),
+                                    gpu.config)
+    fm = pl.FilterMask(inner=gpu.pipeline.matcher, extra=1024)
+    native = [a.cpu() for a in fm(gpu.index, q_tf, 100, m, native=True)]
+    inflated = [a.cpu() for a in fm(gpu.index, q_tf, 101, m, native=False)]
+    assert_topk_match(native, inflated, exact=False)

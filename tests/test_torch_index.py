@@ -95,15 +95,16 @@ def test_index_from_numpy_searches_a_jax_built_index_identically(tmp_path, metho
 
 
 def test_index_from_numpy_rejects_unported_stores(tmp_path):
-    """The metadata store (filtering, ROADMAP queue A item 7) is not ported;
-    the int8 / int4 stores are (test_torch_quantized.py), but packed arrays
-    need the ``pq`` metadata that ``config.json`` records."""
+    """The graph's neighbour lists (ROADMAP queue A item 7) are not ported;
+    the metadata store (item 4, test_torch_filtered.py) and the int8 / int4
+    stores (test_torch_quantized.py) are, but packed arrays need the ``pq``
+    metadata that ``config.json`` records."""
     x, _ = _data(n=300)
     _, meta, arrays = _saved(tmp_path, "classic", x)
-    extra = dict(arrays, **{"metadata.values": np.zeros((300, 2), np.int32)})
+    extra = dict(arrays, **{"neighbors": np.zeros((300, 8), np.int32)})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         index_from_numpy(meta["method"], meta["config"], extra,
-                         dict(meta["dtypes"], **{"metadata.values": "int32"}), device="cpu")
+                         dict(meta["dtypes"], **{"neighbors": "int32"}), device="cpu")
     packed = dict(arrays, **{"pq.q": np.zeros((300, 128), np.int8),
                              "pq.scale": np.ones((300, 1), np.float32)})
     with pytest.raises(ValueError, match="pq metadata"):

@@ -188,9 +188,9 @@ def test_load_refuses_what_is_not_format_1(tmp_path, fault):
         with pytest.raises(ValueError, match=f"format_version {version}") as err:
             AnnIndex.load(path, device="cpu")
         assert ("newer version" in str(err.value)) == (fault == "newer-format")
-    elif fault == "metadata":
+    elif fault == "metadata":  # names metadata fields, but the npz has no values
         _edit_meta(path, metadata={"field_names": ["year"]})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(KeyError, match="metadata.values"):
             AnnIndex.load(path, device="cpu")
     elif fault == "segments":
         commit = os.path.join(tmp_path, "seg")
