@@ -157,6 +157,36 @@
    builds, filtered recall through ``eval.recall_at(filter_mask=)``, and one
    RRF ``FusionStage`` of classic and LSH at B = 256 with its R@10.
 
+13. The segmented mutable index and the packed single launch
+   (``core/segments.py``, ``core/packed.py``) on the same corpus, after the
+   phases above have freed their indexes (``drive_segments``): classic fp32
+   in 16 flushed adds of 187,488 rows with the metadata's rows, 1% of the ids
+   deleted (a seeded generator), the packed search (one CUDA graph replay of
+   K1 over the 3,145,728-row superbuffer with the live mask), the
+   per-segment loop and ``AnnIndex.build`` of the live rows bit-equal at B =
+   256, 8 and 1 with and without rerank, and with the ~10% year predicate
+   from ``global_metadata()`` at B = 8; ``force_merge(1)`` and the default
+   ``TieredMergePolicy`` (16 adds settle at 2 segments) equal to the
+   monolithic build; dot (int8 postings + int8 rerank, K1 int8), classic
+   int4 (K4), LSH (K2), the kd scan (K1 f32 at T = 9) and brute force (K1
+   f32) in 4 segments each, packed == loop bit for bit, against the
+   monolithic build bit for bit (integer modes, classic) or by the near-tie
+   rule (f32); packed blockmax at every block (K3 over the fp32 pack, K5
+   over the int4 one) equal to the packed dense search; 10 NRT cycles of
+   1,024 LSH rows written into the pack in place, replaying one graph (no
+   new capture after the first), and 6 classic ones that repack and capture
+   anew, each equal to the loop; two commit generations of a 100,000-row
+   int8 index loaded on the card bit-equal to the writer's snapshots; the
+   loop's, the packed path's and the monolithic search's times at 1, 4 and
+   16 segments, launches and replays a search, the capture's time, the
+   stat-view, pack, append, refresh, delete, merge, commit and load times,
+   and the phase's peak device memory.  The packed search is also timed
+   eagerly (the executable cache's entries the plain callables, no CUDA
+   graph) beside its graph at 16 segments of full N and at 4 segments of
+   100,000 rows; the classic NRT cycles print the cache's entries and the
+   device memory allocated after each, which a dead pack's graphs must not
+   grow.
+
 Exits non-zero on any failure, or when no CUDA device is available.  The
 last two lines are a JSON object of per-kernel numbers and the JSON status
 line ``{"ok": true, "device": {...}}``.
@@ -227,6 +257,7 @@ loaders (LOADERS), on random operands at the cell's shapes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1791,8 +1822,11 @@ def main(argv) -> int:
     quantized, quantized_filtered_s = drive_quantized(dev, card, x, qx, gt_i, depth, k, config,
                                                       masks)
     kernels += quantized
+    torch.cuda.empty_cache()
+    before_segments = drive_segments(dev, card, x, qx, depth, k, config, md)
     print(f"the filtered phases took {filtered_s + quantized_filtered_s:.1f} s (host clock)")
-    print(f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    peak = max(before_segments, torch.cuda.max_memory_allocated())
+    print(f"peak device memory {peak / 1e9:.1f} GB (the whole run)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4193,21 +4227,9 @@ def drive_kdtree(dev, card: str, x, qx, gt_i, depth: int, k: int, fw_recall: flo
         same = torch.equal(tidx.index.reduced, kidx.index.reduced)
         tqr = kdtree.reduce_queries(tidx.index, qn[:8], normalized=True)
         _reset_launches()
-        replays, replay = [0], torch.cuda.CUDAGraph.replay  # a replay runs the DFS's rounds
-
-        def counted(graph):
-            replays[0] += 1
-            return replay(graph)
-
-        torch.cuda.CUDAGraph.replay = counted
-        try:
-            t0 = time.perf_counter()
-            ts, ti = tidx.search(qx[:8], k=depth, depth=depth)
-            torch.cuda.synchronize()
-            tree_s = time.perf_counter() - t0
-        finally:
-            torch.cuda.CUDAGraph.replay = replay
-        rounds = 1 + replays[0] * kdtree._ROUNDS_PER_CHECK  # the first runs before capture
+        ((ts, ti), tree_s), replays = _replayed(  # a replay runs the DFS's rounds
+            lambda: _sync_s(lambda: tidx.search(qx[:8], k=depth, depth=depth)))
+        rounds = 1 + replays * kdtree._ROUNDS_PER_CHECK  # the first runs before capture
         if any(_launches().values()):
             raise AssertionError(f"the tree search launched a kernel: {_launches()}")
         _checked(f"kd tree {reduction} B=8", ts, ti, 8, depth, n)
@@ -4948,6 +4970,418 @@ def drive_filtered_quantized(card: str, qx, quant: dict, brute: dict, bm4, masks
           f"plain version with gather_filt's mask, max_abs_err {err:.3g}, "
           f"fused_topk_gathered_quantized launches {k5_launches}; times (median of {RUNS}, "
           f"CUDA events, {card}): " + "; ".join(line))
+
+
+
+SEG_SEED = 23  # the deletes' generator of the segments phase
+SEG_ADDS = 16  # flushed adds of the full-N classic index: 187,488 rows each
+NRT_CYCLES, NRT_ROWS = 10, 1024
+NRT_CLASSIC_CYCLES = 6  # each a full repack and two new graphs (B = 8, and 256 with rerank)
+COMMIT_ROWS = 100_000  # savez_compressed runs at ~10 MB/s: a full-N commit would take ~15 min
+
+
+def _sync_s(fn):
+    """(fn(), host seconds with the card synchronised on both sides)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _replayed(fn):
+    """(fn(), the CUDA graph replays it made)."""
+    replays, replay = [0], torch.cuda.CUDAGraph.replay
+
+    def counted(graph):
+        replays[0] += 1
+        return replay(graph)
+
+    torch.cuda.CUDAGraph.replay = counted
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.CUDAGraph.replay = replay
+    return out, replays[0]
+
+
+def _mapped(gmap, ids):
+    """Monolithic live-corpus ids -> the segmented reader's global ids."""
+    return torch.where(ids >= 0, gmap[ids.clamp_min(0).long()], -1).to(torch.int32)
+
+
+def _seg_parity(label, reader, mono, qx, bs, depth: int, k: int, exact: bool) -> float:
+    """``reader``'s packed search equals its loop bit for bit, and both
+    equal ``mono`` (a monolithic build of its live rows; ids through
+    ``live_global_ids``) bit for bit, or under the near-tie rule where
+    ``exact`` is False, at each B of ``bs``, with and without rerank.
+    Returns the largest score difference against ``mono``."""
+    gmap = torch.from_numpy(reader.live_global_ids()).to(qx.device)
+    err = 0.0
+    for bb in bs:
+        for rerank in (False, True):
+            kk = k if rerank else depth
+            got = reader.search(qx[:bb], k=kk, depth=depth, rerank=rerank, packed=True)
+            loop = reader.search(qx[:bb], k=kk, depth=depth, rerank=rerank, packed=False)
+            compare(f"{label} packed vs loop B={bb} rerank={rerank}", got, loop, exact=True)
+            extra = 0 if exact else 1  # the near-tie rule reads one rank more
+            ms, mi = mono.search(qx[:bb], k=kk + extra, depth=depth + (extra and not rerank),
+                                 rerank=rerank)
+            err = max(err, compare(f"{label} segmented vs monolithic B={bb} rerank={rerank}",
+                                   got, (ms, _mapped(gmap, mi)), exact))
+    return err
+
+
+def _seg_writer(dev, cfg, x, adds: int, dead, md=None, **knobs):
+    """An IndexWriter (no merge policy) with ``x`` flushed in ``adds``
+    equal adds (with ``md``'s rows where given), ``dead`` deleted and a
+    refreshed reader; returns (writer, reader, flush s, (delete s, refresh
+    s))."""
+    from repro_torch.core.segments import IndexWriter
+    from repro_torch.core.types import DocMetadata
+
+    w = IndexWriter(cfg, merge_policy=knobs.pop("merge_policy", None), device=dev, **knobs)
+    per = x.shape[0] // adds
+
+    def flush_all():
+        for a in range(adds):
+            rows = slice(a * per, (a + 1) * per)
+            w.add(x[rows], metadata=None if md is None else DocMetadata(
+                values=md.values[rows], field_names=md.field_names))
+            w.flush()
+
+    _, flush_s = _sync_s(flush_all)
+    t0 = time.perf_counter()
+    if dead is not None and w.delete(dead) != len(dead):
+        raise AssertionError("delete did not flip every id")
+    delete_s = time.perf_counter() - t0
+    reader, refresh_s = _sync_s(w.refresh)
+    return w, reader, flush_s, (delete_s, refresh_s)
+
+
+def drive_segments(dev, card: str, x, qx, depth: int, k: int, config, md) -> int:
+    """The segmented mutable index and the packed single launch
+    (``repro_torch.core.segments`` / ``packed``) on the ann-word2vec corpus
+    ``x`` with the queries ``qx``, every check against the packed path, the
+    per-segment loop and a monolithic ``AnnIndex.build`` of the live rows:
+
+      * classic fp32 at full N: 16 flushed adds with ``md``'s rows, 1% of
+        the ids deleted, searches at B = 256, 8 and 1 with and without
+        rerank (packed == loop == monolithic, bit for bit); the ~10% year
+        predicate through ``global_metadata()`` at B = 8; ``force_merge(1)``;
+        the same 16 adds under the default ``TieredMergePolicy`` (2
+        segments); loop and packed times at 1, 4 and 16 segments;
+      * dot (int8 postings, int8 rerank), classic int4, LSH, the kd scan and
+        brute force at full N in 4 segments, B = 8;
+      * packed blockmax over the classic fp32 and int4 packs (K3, K5);
+      * NRT cycles: LSH appends in place replaying one CUDA graph, classic
+        repacking and capturing anew;
+      * commit and load of two generations at 100,000 rows.
+
+    Resets the device's peak memory statistic to read the phase's own peak;
+    returns the peak of the run before the phase.
+    """
+    from repro_torch.core import packed as packed_mod
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.types import (
+        BruteForceConfig, DocMetadata, FakeWordsConfig, KdTreeConfig, LexicalLshConfig)
+    import numpy as np
+
+    from repro_torch.core.segments import IndexWriter, SegmentedAnnIndex, TieredMergePolicy
+
+    t_phase = time.perf_counter()
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cache = packed_mod.EXEC_CACHE
+    cache.clear()
+    n, b = x.shape[0], qx.shape[0]
+    rng = np.random.default_rng(SEG_SEED)
+    dead = rng.choice(n, size=n // 100, replace=False)
+    live = torch.ones(n, dtype=torch.bool, device=dev)
+    live[torch.from_numpy(dead).to(dev)] = False
+
+    # ---- classic fp32, 16 segments at full N --------------------------------
+    w, reader, flush_s, (delete_s, refresh_s) = _seg_writer(dev, config, x, SEG_ADDS, dead,
+                                                              md)
+    _, views_s = _sync_s(reader._ensure_views)
+    pk, pack_s = _sync_s(reader.packed_segments)
+    mono = AnnIndex.build(x[live], config, metadata=DocMetadata(
+        values=md.values[live], field_names=md.field_names), device=dev)
+    _seg_parity("classic 16 segments", reader, mono, qx, (b, 8, 1), depth, k, exact=True)
+    pred = reader.global_metadata().range_mask("year", 2005, 2007)
+    gmap = torch.from_numpy(reader.live_global_ids()).to(dev)
+    ms, mi = mono.search(qx[:8], k=depth, depth=depth,
+                         filt=mono.metadata.range_mask("year", 2005, 2007))
+    for packed in (True, False):
+        got = reader.search(qx[:8], k=depth, depth=depth, filter_mask=pred, packed=packed)
+        _kept(f"segmented filtered packed={packed}", got[1], pred & live, n)
+        compare(f"segmented filtered (year 10%) packed={packed} vs monolithic", got,
+                (ms, _mapped(gmap, mi)), exact=True)
+    default = reader.search(qx[:8], k=k, depth=depth)  # packed=None: the packed path if it can
+    compare("segmented packed=None vs packed=True", default,
+            reader.search(qx[:8], k=k, depth=depth, packed=True), exact=True)
+    took = "packed" if reader._packed is not None else f"loop ({reader._packed_err})"
+    # the capture against the steady search; launches a search, replays
+    cache.clear()
+    _, first_s = _sync_s(lambda: reader.search(qx[:8], k=k, depth=depth, rerank=True,
+                                               packed=True))
+    steady = cuda_ms(lambda: reader.search(qx[:8], k=k, depth=depth, rerank=True, packed=True))
+    reader.search(qx[:8], k=k, depth=depth, packed=True)  # captures the entry counted below
+    _reset_launches()
+    _, loop_replays = _replayed(lambda: reader.search(qx[:8], k=k, depth=depth, packed=False))
+    loop_launches = _launches()
+    _reset_launches()
+    _, packed_replays = _replayed(lambda: reader.search(qx[:8], k=k, depth=depth, packed=True))
+    if any(_launches().values()) or packed_replays != 1 or loop_replays:
+        raise AssertionError(f"packed search: eager launches {_launches()}, replays "
+                             f"{packed_replays}; loop replays {loop_replays}")
+    captured = next(reversed(cache._entries.values())).captured
+    if loop_launches["fused_topk"] != SEG_ADDS or captured != {"fused_topk": 1}:
+        raise AssertionError(f"loop launches {loop_launches}, graph holds {captured}")
+    print(f"segments classic fp32: {SEG_ADDS} adds of {n // SEG_ADDS} rows flushed in "
+          f"{flush_s:.2f} s, {len(dead)} deletes in {delete_s:.3f} s, refresh "
+          f"{refresh_s * 1e3:.1f} ms (host clock), stat views "
+          f"{views_s * 1e3:.1f} ms, pack {pack_s * 1e3:.1f} ms (bucket {pk.bucket}); packed == "
+          f"loop == monolithic bit for bit at B = {b}, 8, 1 with and without rerank, and with "
+          f"the year predicate ({int(pred.sum())} kept) at B = 8; a search: the loop "
+          f"{loop_launches['fused_topk']} fused_topk launches, the packed path 1 graph replay "
+          f"holding {captured}; the first packed B = 8 rerank search (captures) "
+          f"{first_s * 1e3:.1f} ms host clock, steady {steady:.3f} ms (CUDA events); "
+          f"packed=None took the {took} path; {card}")
+    seg_times = {SEG_ADDS: _seg_times(reader, mono, qx, k, depth)}
+    print(f"segments classic fp32, 16 segments: the packed search's CUDA graph against the "
+          f"same search eager (median of {RUNS} each, in turns, CUDA events, k {k}, depth "
+          f"{depth}, {card}): "
+          + _graph_vs_eager(reader, qx, (b, 8, 1), k, depth, rerank=False)
+          + "; with rerank " + _graph_vs_eager(reader, qx, (8, 1), k, depth, rerank=True))
+    print(_seg_blockmax("classic fp32", reader, qx, depth, card))
+    del reader, pk
+    w._reader = None
+    cache.clear()
+    (_, merge_s) = _sync_s(lambda: w.force_merge(1))
+    one = w.refresh()
+    if one.num_segments != 1 or one.del_count:
+        raise AssertionError("force_merge(1) left more than one segment or a delete")
+    _seg_parity("classic force_merge(1)", one, mono, qx, (b, 8), depth, k, exact=True)
+    seg_times[1] = _seg_times(one, mono, qx, k, depth)
+    del w, one, mono
+    cache.clear()
+    torch.cuda.empty_cache()
+    w4, r4, _, _ = _seg_writer(dev, config, x, 4, None)
+    mono_all = AnnIndex.build(x, config, device=dev)
+    _seg_parity("classic 4 segments", r4, mono_all, qx, (8,), depth, k, exact=True)
+    seg_times[4] = _seg_times(r4, mono_all, qx, k, depth)
+    del w4, r4
+    cache.clear()
+    torch.cuda.empty_cache()
+    print(f"segments classic fp32 search times (median of {RUNS}, CUDA events, k {k}, depth "
+          f"{depth}, {card}); force_merge(1) {merge_s:.2f} s host clock: "
+          + "; ".join(f"{m} segments: " + ", ".join(
+              f"B={bb} loop {lp:.3f} / packed {pkd:.3f} / monolithic {mn:.3f} ms"
+              for bb, (lp, pkd, mn) in t.items()) for m, t in sorted(seg_times.items())))
+
+    # ---- the default TieredMergePolicy over the same 16 adds ------------------
+    wt, rt, tier_s, _ = _seg_writer(dev, config, x, SEG_ADDS, None,
+                                    merge_policy=TieredMergePolicy())
+    if rt.num_segments != 2:
+        raise AssertionError(f"tiered merging left {rt.num_segments} segments, not 2")
+    _seg_parity("classic tiered (2 segments)", rt, mono_all, qx, (8,), depth, k, exact=True)
+    print(f"segments tiered: {SEG_ADDS} adds under the default TieredMergePolicy settle at "
+          f"{rt.num_segments} segments ({[s.num_docs for s in rt.segments]}) in {tier_s:.2f} s "
+          f"host clock (merges included); equal to the monolithic build bit for bit")
+    del wt, rt, mono_all
+    cache.clear()
+    torch.cuda.empty_cache()
+
+    # ---- the other encodings, 4 segments each ----------------------------------
+    others = (("dot int8 postings + int8 rerank", FakeWordsConfig(quantization=50,
+               scoring="dot"), {"primary_postings": "int8", "rerank_store": "int8"}, True),
+              ("classic int4", config, {"primary_postings": "int4"}, True),
+              ("lexical LSH", LexicalLshConfig(buckets=300, hashes=1), {}, True),
+              ("kd scan pca", KdTreeConfig(dims=8), {}, False),
+              ("brute force fp32", BruteForceConfig(), {}, False))
+    int4_bm = ""
+    for label, cfg, knobs, exact in others:
+        w, r, _, _ = _seg_writer(dev, cfg, x, 4, dead, **dict(knobs))
+        mono = AnnIndex.build(x[live], cfg, device=dev, **knobs)
+        _reset_launches()
+        err = _seg_parity(label, r, mono, qx, (8,), depth, k, exact)
+        used = {name: v for name, v in _launches().items() if v}
+        note = ""
+        if isinstance(cfg, KdTreeConfig):
+            views, _ = r._ensure_views()
+            got = torch.cat([v.reduced for v in views])[live]
+            note = (f"; the stat views' reduced rows bit-equal to the monolithic "
+                    f"build's: {torch.equal(got, mono.index.reduced)} (max diff "
+                    f"{float((got - mono.index.reduced).abs().max()):.3g})")
+        print(f"segments {label}: 4 segments at full N, 1% deleted; packed == loop bit for bit; "
+              f"against the monolithic build {'bit for bit' if exact else 'near-tie rule'}, "
+              f"max diff {err:.3g}{note}; launches of the checks {used}")
+        if label == "classic int4":
+            int4_bm = _seg_blockmax("classic int4", r, qx, depth, card)
+        del w, r, mono
+        cache.clear()
+        torch.cuda.empty_cache()
+    print(int4_bm)
+
+    # ---- NRT cycles -------------------------------------------------------------
+    nrt_lines = []
+    for label, cfg, cycles in (("LSH", LexicalLshConfig(buckets=300, hashes=1), NRT_CYCLES),
+                               ("classic", config, NRT_CLASSIC_CYCLES)):
+        cache.clear()
+        base = n - NRT_CYCLES * NRT_ROWS
+        w = IndexWriter(cfg, merge_policy=None, device=dev)
+        w.add(x[:base])
+        r = w.refresh()
+        r.search(qx[:8], k=k, depth=depth, packed=True)
+        after_first = cache.compiles
+        times, held = [], []
+        for c in range(cycles):
+            rows = x[base + c * NRT_ROWS: base + (c + 1) * NRT_ROWS]
+            _, add_s = _sync_s(lambda: (w.add(rows), w.flush()))
+            r, refresh_s = _sync_s(w.refresh)
+            pkc = None  # the previous cycle's pack goes with its reader
+            pkc, append_s = _sync_s(r.packed_segments)
+            (got, replays) = _replayed(lambda: r.search(qx[:8], k=k, depth=depth, packed=True))
+            compare(f"NRT {label} cycle {c + 1} packed vs loop", got,
+                    r.search(qx[:8], k=k, depth=depth, packed=False), exact=True)
+            times.append((add_s, refresh_s, append_s, pkc.appends))
+            if label == "classic":
+                # and at B = 256 with rerank: the largest graph pool of the phase
+                r.search(qx, k=k, depth=depth, rerank=True, packed=True)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()  # what stays reserved is held by tensors and graphs
+                held.append((cache.stats()["entries"], torch.cuda.memory_reserved(),
+                             torch.cuda.memory_allocated()))
+                if held[-1][0] != 2:
+                    raise AssertionError(f"NRT classic cycle {c + 1}: {cache.stats()}: the "
+                                         "dead packs' graphs were not dropped")
+        if label == "LSH" and (cache.compiles != after_first or cache.hits < 8
+                               or pkc.appends != cycles):
+            raise AssertionError(f"NRT LSH: {cache.stats()}, appends {pkc.appends}")
+        if label == "classic" and cache.compiles != after_first + 2 * cycles:
+            raise AssertionError(f"NRT classic did not capture anew each cycle: {cache.stats()}")
+        nrt_lines.append(
+            f"{label} ({cycles} cycles of {NRT_ROWS} rows on {base} rows): cache "
+            f"{cache.stats()}, in-place appends {pkc.appends}, last search replays {replays}; "
+            "a cycle's add+flush / refresh / pack (append) ms: " + ", ".join(
+                f"{a * 1e3:.1f} / {f * 1e3:.1f} / {p * 1e3:.1f}" for a, f, p, _ in times)
+            + ("" if not held else "; after each cycle (B = 8 and B = 256 rerank searched) "
+               "cache entries / device memory reserved after empty_cache / allocated: "
+               + ", ".join(f"{e} / {m / 1e9:.3f} / {a / 1e9:.3f} GB" for e, m, a in held)))
+        del w, r, pkc
+        cache.clear()
+        torch.cuda.empty_cache()
+    print("segments NRT cycles (host clock, synchronised; each cycle's packed search equals "
+          f"the loop bit for bit; {card}): " + "; ".join(nrt_lines))
+
+    # ---- commit and load, cut to 100,000 rows ---------------------------------------
+    root = os.path.join(ROOT, "build", "segments")
+    shutil.rmtree(root, ignore_errors=True)
+    xc = x[:COMMIT_ROWS]
+    w = IndexWriter(config, path=root, merge_policy=None, rerank_store="int8",
+                    primary_postings="int8", device=dev)
+    for a in range(4):
+        w.add(xc[a * COMMIT_ROWS // 4:(a + 1) * COMMIT_ROWS // 4])
+        w.flush()
+    snaps, commit_s = {}, []
+    for gen in (1, 2):
+        w.delete(rng.choice(COMMIT_ROWS, size=COMMIT_ROWS // 100, replace=False))
+        r = w.refresh()
+        snaps[gen] = [r.search(qx, k=depth, depth=depth, packed=p) for p in (True, False)]
+        snaps[gen].append(r.search(qx, k=k, depth=depth, rerank=True))
+        (g, sec) = _sync_s(w.commit)
+        if g != gen:
+            raise AssertionError(f"commit wrote generation {g}, not {gen}")
+        commit_s.append(sec)
+    small = _graph_vs_eager(r, qx, (qx.shape[0], 8, 1), k, depth, rerank=True)
+    load_s = []
+    for gen in (1, 2):
+        (r, sec) = _sync_s(lambda: SegmentedAnnIndex.load(root, generation=gen, device=dev))
+        load_s.append(sec)
+        got = [r.search(qx, k=depth, depth=depth, packed=p) for p in (True, False)]
+        got.append(r.search(qx, k=k, depth=depth, rerank=True))
+        for want, have in zip(snaps[gen], got):
+            compare(f"commit generation {gen} after load", have, want, exact=True)
+    disk = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"segments commit / load (classic, int8 postings + int8 rerank, {COMMIT_ROWS} rows, "
+          f"{w.num_segments} segments with source sidecars, {disk / 1e6:.1f} MB on disk): "
+          f"commit gen 1 {commit_s[0]:.2f} s, gen 2 {commit_s[1]:.2f} s; load gen 1 "
+          f"{load_s[0]:.2f} s, gen 2 {load_s[1]:.2f} s (host clock, {card}); searches after "
+          "load bit-equal to the writer's snapshots at both generations; the packed rerank "
+          f"search's CUDA graph against the same search eager (median of {RUNS} each, in "
+          f"turns, CUDA events): {small}")
+    del w, r
+    cache.clear()
+    print(f"segments phase: {time.perf_counter() - t_phase:.1f} s, the phase's peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB (the run's before it "
+          f"{peak_before / 1e9:.1f} GB; {card})")
+    return peak_before
+
+
+@contextlib.contextmanager
+def _eager_packed():
+    """The packed search without its CUDA graph: a cache of its own whose
+    entries are the plain callables (as on the CPU route), for timing."""
+    from repro_torch.core import packed as packed_mod
+
+    saved = packed_mod.EXEC_CACHE, packed_mod._GraphEntry
+    packed_mod.EXEC_CACHE = packed_mod.ExecutableCache()
+    packed_mod._GraphEntry = lambda fn, resident, fed: (lambda res, fd: fn(*res, *fd))
+    try:
+        yield
+    finally:
+        packed_mod.EXEC_CACHE, packed_mod._GraphEntry = saved
+
+
+def _graph_vs_eager(reader, qx, bs, k: int, depth: int, rerank: bool) -> str:
+    """The packed search's graph replay against the same search run eagerly,
+    at each B of ``bs`` in turns (graph, eager, eager, graph), CUDA events:
+    each run starts on an idle card, so the host's launches count."""
+    def search(bb):
+        return reader.search(qx[:bb], k=k, depth=depth, rerank=rerank, packed=True)
+
+    out = []
+    for bb in bs:
+        got = search(bb)
+        with _eager_packed():
+            compare(f"packed eager vs graph B={bb}", search(bb), got, exact=True)
+        times = {"graph": [], "eager": []}
+        for mode in ("graph", "eager", "eager", "graph"):
+            with _eager_packed() if mode == "eager" else contextlib.nullcontext():
+                times[mode].append(cuda_ms(lambda: search(bb)))
+        out.append(f"B={bb} graph " + " / ".join(f"{t:.3f}" for t in times["graph"])
+                   + " eager " + " / ".join(f"{t:.3f}" for t in times["eager"]) + " ms")
+    return ", ".join(out)
+
+
+def _seg_times(reader, mono, qx, k: int, depth: int) -> dict:
+    """{B: (loop ms, packed ms, monolithic ms)} at B = 256, 8 and 1, in one
+    stretch."""
+    return {bb: (cuda_ms(lambda: reader.search(qx[:bb], k=k, depth=depth, packed=False)),
+                 cuda_ms(lambda: reader.search(qx[:bb], k=k, depth=depth, packed=True)),
+                 cuda_ms(lambda: mono.search(qx[:bb], k=k, depth=depth)))
+            for bb in (qx.shape[0], 8, 1)}
+
+
+def _seg_blockmax(label: str, reader, qx, depth: int, card: str) -> str:
+    """Packed blockmax over ``reader``'s pack: at every block kept equal to
+    the packed dense search (near-tie rule) at B = 8; the times at
+    n_keep 1,171 at B = 8 and 1."""
+    pk = reader.packed_segments()
+    every = pk.bucket // BLOCK
+    got = reader.search(qx[:8], k=depth, depth=depth, blockmax_keep=every)
+    err = compare(f"packed blockmax {label}, every block", got,
+                  reader.search(qx[:8], k=depth + 1, depth=depth + 1), exact=False)
+    keep = 1171
+    times = {bb: cuda_ms(lambda: reader.search(qx[:bb], k=10, depth=depth, blockmax_keep=keep))
+             for bb in (8, 1)}
+    return (f"segments packed blockmax {label}: every block ({every}) equals the packed dense "
+            f"search (near-tie rule, max diff {err:.3g}); n_keep {keep}: "
+            + ", ".join(f"B={bb} {t:.3f} ms" for bb, t in times.items())
+            + f" (median of {RUNS}, CUDA events, {card})")
 
 
 if __name__ == "__main__":

@@ -7,7 +7,7 @@ tile at a time, which bounds the scores held to O(B x (tile + k)).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -67,17 +67,45 @@ def exact_topk_tiled(
     return best_s, best_i
 
 
+def gathered_scores(
+    queries: torch.Tensor, cand: torch.Tensor, cand_ids: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """(B, d) cosine of gathered candidate rows ``cand`` (B, d, dim),
+    widened to f32, against the unit queries, times the int8 store's
+    per-candidate ``scale`` (B, d) when given; id -1 (padding) masked to
+    -inf.  Every rerank (monolithic, segmented, packed) scores through this
+    one function."""
+    scores = torch.einsum("bd,bcd->bc", queries, cand.to(torch.float32))
+    if scale is not None:
+        scores = scores * scale
+    return torch.where(cand_ids >= 0, scores, torch.full_like(scores, -torch.inf))
+
+
+def top_candidates(
+    scores: torch.Tensor, cand_ids: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top ``k`` of (B, d) candidate scores by a stable sort, so ties
+    keep the lower candidate position, like ``lax.top_k``."""
+    top_s, pos = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return top_s[:, :k], torch.gather(cand_ids, 1, pos[:, :k])
+
+
+def rerank_gathered(
+    queries: torch.Tensor, cand: torch.Tensor, cand_ids: torch.Tensor, k: int,
+    scale: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top ``k`` of the gathered candidates by :func:`gathered_scores`."""
+    return top_candidates(gathered_scores(queries, cand, cand_ids, scale), cand_ids, k)
+
+
 def rerank_exact(
     vectors: torch.Tensor, queries: torch.Tensor, cand_ids: torch.Tensor, k: int,
     normalized: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather the depth-d candidates' original vectors, exact cosine, keep
-    the top k.  ``cand_ids`` is (B, d), id -1 = padding.  Ties keep the
-    lower candidate position (a stable sort), like ``lax.top_k``."""
+    the top k (:func:`rerank_gathered`).  ``cand_ids`` is (B, d), id -1 =
+    padding."""
     v = vectors if normalized else l2_normalize(vectors)
     q = queries if normalized else l2_normalize(queries)
-    cand = v[cand_ids.clamp_min(0).long()]  # (B, d, dim)
-    scores = torch.einsum("bd,bcd->bc", q, cand)
-    scores = torch.where(cand_ids >= 0, scores, torch.full_like(scores, -torch.inf))
-    top_s, pos = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return top_s[:, :k], torch.gather(cand_ids, 1, pos[:, :k])
+    return rerank_gathered(q, v[cand_ids.clamp_min(0).long()], cand_ids, k)

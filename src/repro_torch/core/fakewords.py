@@ -11,6 +11,8 @@ terms.  The posting lists are a dense (N, 2m) int8 term-frequency matrix.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core import bruteforce
@@ -43,13 +45,18 @@ def df_prune_mask(df: torch.Tensor, num_docs: int, df_max_ratio: float) -> torch
 
 
 def classic_query(
-    index: FakeWordsIndex, q_tf: torch.Tensor, df_max_ratio: float = 1.0
+    index: FakeWordsIndex, q_tf: torch.Tensor, df_max_ratio: float = 1.0,
+    num_docs: Optional[int] = None,
 ) -> torch.Tensor:
     """bf16 classic-mode query operand with the df-prune keep-mask folded in
-    (for the bf16 ``scored`` matrix and for its packed ``pq`` store alike)."""
+    (for the bf16 ``scored`` matrix and for its packed ``pq`` store alike).
+    ``num_docs`` overrides the prune threshold's collection size: a segment
+    of a ``SegmentedAnnIndex`` masks against the collection's live count
+    (its ``df`` already holds the collection's df), not its own rows."""
     if index.scored is None and index.pq is None:
         raise ValueError("index was built with scoring='dot'")
-    keep = df_prune_mask(index.df, index.num_docs, df_max_ratio)
+    n = index.num_docs if num_docs is None else num_docs
+    keep = df_prune_mask(index.df, n, df_max_ratio)
     return (q_tf * keep).to(torch.bfloat16)
 
 
@@ -61,11 +68,12 @@ def signed_query(q_tf: torch.Tensor, dtype=torch.int32) -> torch.Tensor:
 
 def dot_query(
     index: FakeWordsIndex, q_tf: torch.Tensor, df_max_ratio: float = 1.0,
-    dtype=torch.int32,
+    dtype=torch.int32, num_docs: Optional[int] = None,
 ) -> torch.Tensor:
     """Dot-mode query operand: the [u; -u] lift with the keep-mask folded in
-    (int8 for the kernel)."""
-    keep = df_prune_mask(index.df, index.num_docs, df_max_ratio)
+    (int8 for the kernel).  ``num_docs`` as in :func:`classic_query`."""
+    n = index.num_docs if num_docs is None else num_docs
+    keep = df_prune_mask(index.df, n, df_max_ratio)
     u = signed_query(q_tf)
     return (torch.cat([u, -u], dim=-1) * keep).to(dtype)
 

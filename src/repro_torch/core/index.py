@@ -28,7 +28,6 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import re
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -55,10 +54,9 @@ from repro_torch.core.types import (
 )
 
 # The single-index persistence format, the reference's (``repro/core/
-# index.py``).  Its segmented commit points (``segments_N.json``, format 2)
-# are not ported.
+# index.py``).  Segmented commit points (``segments_N.json``, format 2) are
+# :mod:`repro_torch.core.segments`'s.
 FORMAT_VERSION = 1
-_COMMIT_RE = re.compile(r"^segments_(\d+)\.json$")
 
 AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, KdTreeConfig, BruteForceConfig]
 AnyIndex = Union[FakeWordsIndex, LshIndex, KdTreeIndex, FlatIndex]
@@ -130,6 +128,7 @@ class AnnIndex:
         postings_group: int = 32,
         memory_budget_bytes: Optional[int] = None,
         metadata=None,
+        normalized: bool = False,
         device="cuda",
     ) -> "AnnIndex":
         """Build through :class:`repro_torch.core.builder.BuildPipeline` on
@@ -147,7 +146,11 @@ class AnnIndex:
         frontier (:mod:`repro_torch.core.memory_budget`); knobs given with
         it are pinned, and it fills only the unset ones.  ``metadata``: per-doc
         fields for filtered search, a ``{field: (N,) ints}`` mapping or a
-        :class:`DocMetadata`, held on ``device``."""
+        :class:`DocMetadata`, held on ``device``.  ``normalized=True`` marks
+        the rows as unit-normalized already: a segment merge rebuilds from
+        stored unit rows, and normalizing them again could move their last
+        bit and break the segmented index's parity with a monolithic
+        build."""
         dev = _check_device(device)
         v = torch.as_tensor(vectors, device=dev)
         if memory_budget_bytes is not None:
@@ -165,7 +168,8 @@ class AnnIndex:
             rerank_store = "exact" if keep_vectors else "none"
         bp = builder.make_build_pipeline(config, rerank_store, primary_postings or "fp32",
                                          postings_group)
-        return cls(config=config, index=bp.build_local(v), blockmax_keep=blockmax_keep,
+        return cls(config=config, index=bp.build_local(v, normalized=normalized),
+                   blockmax_keep=blockmax_keep,
                    blockmax_block_size=blockmax_block_size,
                    quantized_rerank=rerank_store == "int8",
                    metadata=builder.build_metadata(metadata, v.shape[0], dev))
@@ -243,15 +247,18 @@ class AnnIndex:
         """Read a save of either package onto ``device`` (raises when it is
         a CUDA device and none is available).  ``overrides`` replace the
         saved serving knobs (``blockmax_keep``, ``blockmax_block_size``,
-        ``quantized_rerank``).  A format other than 1 raises ValueError; a
-        segmented commit point raises NotImplementedError (not ported
-        yet)."""
+        ``quantized_rerank``).  A format other than 1 raises ValueError, and
+        so does a segmented commit point, which
+        :meth:`repro_torch.core.segments.SegmentedAnnIndex.load` opens."""
         meta_path = os.path.join(path, "config.json")
-        if not os.path.exists(meta_path) and os.path.isdir(path) and any(
-                _COMMIT_RE.match(name) for name in os.listdir(path)):
-            raise NotImplementedError(
-                f"{path!r} holds a segmented commit point (segments_N.json); segments are "
-                "not ported yet (ROADMAP.md, queue A item 5)")
+        if not os.path.exists(meta_path):
+            from repro_torch.core import segments
+
+            if segments.find_commits(path):
+                raise ValueError(
+                    f"{path!r} holds a segmented commit point (segments_N.json), not a "
+                    "single-index save; open it with SegmentedAnnIndex.load / "
+                    "IndexWriter.open (repro_torch.core.segments)")
         with open(meta_path) as f:
             meta = json.load(f)
         version = meta.get("format_version", 1)

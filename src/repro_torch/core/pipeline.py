@@ -129,18 +129,24 @@ def mask_and_topk(
 class FakeWordsMatcher:
     """Classic (tf-idf, bf16 x bf16 -> f32) or dot (int8 x int8 -> int32)
     scoring over the stored matrix, df-prune keep-mask folded into the
-    query; over a packed ``pq`` store both modes take a bf16 query."""
+    query; over a packed ``pq`` store both modes take a bf16 query.
+    ``df_num_docs`` (when set) is the collection size the keep-mask
+    thresholds against instead of the index's own row count: a segmented
+    index scores every segment under the collection's statistics."""
 
     scoring: str = "classic"
     df_max_ratio: float = 1.0
+    df_num_docs: Optional[int] = None
 
     def quantized_query(self, index, q_tf: torch.Tensor) -> torch.Tensor:
         """bf16 query operand of the packed-postings path: the store is
         dequantized to the query dtype in the score stage, so the query is
         float (the dot mode's [u; -u] lift is exact in bf16)."""
         if self.scoring == "classic":
-            return fakewords.classic_query(index, q_tf, self.df_max_ratio)
-        return fakewords.dot_query(index, q_tf, self.df_max_ratio, dtype=torch.bfloat16)
+            return fakewords.classic_query(index, q_tf, self.df_max_ratio,
+                                           num_docs=self.df_num_docs)
+        return fakewords.dot_query(index, q_tf, self.df_max_ratio, dtype=torch.bfloat16,
+                                   num_docs=self.df_num_docs)
 
     def __call__(
         self, index, q_tf: torch.Tensor, depth: int, filt: Optional[torch.Tensor] = None,
@@ -149,7 +155,7 @@ class FakeWordsMatcher:
         if index.pq is not None:
             return fused.postings_topk(index.pq, self.quantized_query(index, q_tf), d, filt=filt)
         topk = fused.classic_topk if self.scoring == "classic" else fused.dot_topk
-        return topk(index, q_tf, d, self.df_max_ratio, filt=filt)
+        return topk(index, q_tf, d, self.df_max_ratio, filt=filt, num_docs=self.df_num_docs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,14 +288,13 @@ def candidate_scores(
         if index.vq is None:
             raise ValueError("quantized rerank requires the index to carry an int8 store "
                              "(build with rerank_store='int8')")
-        cand = index.vq.q[safe].to(torch.float32)  # (B, d, dim) int8 gather
-        s = torch.einsum("bd,bcd->bc", queries, cand) * index.vq.scale[safe]
-    else:
-        if index.vectors is None:
-            raise ValueError("rerank requires the index to keep original vectors "
-                             "(build with rerank_store='exact')")
-        s = torch.einsum("bd,bcd->bc", queries, index.vectors[safe])
-    return torch.where(cand_ids >= 0, s, torch.full_like(s, -torch.inf))
+        # (B, d, dim) int8 gather, one per-doc multiply
+        return bruteforce.gathered_scores(queries, index.vq.q[safe], cand_ids,
+                                          scale=index.vq.scale[safe])
+    if index.vectors is None:
+        raise ValueError("rerank requires the index to keep original vectors "
+                         "(build with rerank_store='exact')")
+    return bruteforce.gathered_scores(queries, index.vectors[safe], cand_ids)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -316,8 +321,7 @@ class QuantizedCosineReranker:
         self, index, queries: torch.Tensor, cand_ids: torch.Tensor, k: int
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         scores = candidate_scores(index, queries, cand_ids, quantized=True)
-        top_s, pos = torch.sort(scores, dim=-1, descending=True, stable=True)
-        return top_s[:, :k], torch.gather(cand_ids, 1, pos[:, :k])
+        return bruteforce.top_candidates(scores, cand_ids, k)
 
 
 def default_reranker(index):

@@ -8,9 +8,20 @@ Configs are frozen dataclasses; index containers hold tensors on one device.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, Iterable, Mapping, Optional, Tuple
 
 import torch
+
+_EPOCHS = itertools.count(1)
+
+
+def next_epoch() -> int:
+    """Process-unique, monotonically increasing index epoch: the identity of
+    a searchable snapshot.  Every ``SegmentedAnnIndex`` a writer's refresh
+    makes visible gets a new one (an unchanged refresh keeps the old), so a
+    result cache keyed on it never serves another snapshot's results."""
+    return next(_EPOCHS)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -38,24 +38,25 @@ def gather_filt(
 
 def classic_topk(
     index, q_tf: torch.Tensor, depth: int, df_max_ratio: float = 1.0,
-    filt: Optional[torch.Tensor] = None,
+    filt: Optional[torch.Tensor] = None, num_docs: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ClassicSimilarity top-depth: bf16 query against the bf16 ``scored``
-    matrix, f32 accumulate."""
+    matrix, f32 accumulate.  ``num_docs`` as in ``fakewords.classic_query``
+    (the df prune's collection size)."""
     from repro_torch.core import fakewords
 
-    qv = fakewords.classic_query(index, q_tf, df_max_ratio)
+    qv = fakewords.classic_query(index, q_tf, df_max_ratio, num_docs=num_docs)
     return fused_topk(qv, index.scored, depth, filt=filt)
 
 
 def dot_topk(
     index, q_tf: torch.Tensor, depth: int, df_max_ratio: float = 1.0,
-    filt: Optional[torch.Tensor] = None,
+    filt: Optional[torch.Tensor] = None, num_docs: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Integer-dot top-depth: int8 [u; -u] query against the int8 tf."""
     from repro_torch.core import fakewords
 
-    qv = fakewords.dot_query(index, q_tf, df_max_ratio, dtype=torch.int8)
+    qv = fakewords.dot_query(index, q_tf, df_max_ratio, dtype=torch.int8, num_docs=num_docs)
     return fused_topk(qv, index.tf, depth, filt=filt)
 
 

@@ -1196,3 +1196,202 @@ def test_cuda_filter_mask_native_equals_inflated():
     native = [a.cpu() for a in fm(gpu.index, q_tf, 100, m, native=True)]
     inflated = [a.cpu() for a in fm(gpu.index, q_tf, 101, m, native=False)]
     assert_topk_match(native, inflated, exact=False)
+
+
+# --------------------------------------------------------------------------
+# Segments and the packed single launch on the card
+# --------------------------------------------------------------------------
+
+SEGMENTED_METHODS = {  # config, writer knobs, integer scores
+    "classic": (FakeWordsConfig(quantization=50), {}, False),
+    "dot-int8": (FakeWordsConfig(quantization=50, scoring="dot"),
+                 {"primary_postings": "int8", "rerank_store": "int8"}, True),
+    "classic-int4": (FakeWordsConfig(quantization=50), {"primary_postings": "int4"}, False),
+    "lsh": (LexicalLshConfig(buckets=64, hashes=2), {}, True),
+    "kdtree-scan": (KdTreeConfig(dims=8), {}, False),
+    "bruteforce": (BruteForceConfig(), {}, False),
+}
+
+
+def _segmented(method: str, device, n_segments: int = 4, rows: int = 1500, dim: int = 64):
+    from repro_torch.core.segments import IndexWriter
+
+    cfg, knobs, _ = SEGMENTED_METHODS[method]
+    rng = np.random.default_rng(17)
+    w = IndexWriter(cfg, merge_policy=None, device=device, **knobs)
+    for _ in range(n_segments):
+        w.add(rng.normal(size=(rows, dim)).astype(np.float32))
+        w.flush()
+    w.delete(rng.choice(w.total_docs, size=w.total_docs // 100, replace=False))
+    return w, rng.normal(size=(8, dim)).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", list(SEGMENTED_METHODS))
+def test_cuda_packed_equals_loop_and_cpu_port(method):
+    """A segmented index with deletes on the card: the packed single launch
+    equals the per-segment loop bit for bit (the same rows, the same
+    kernels), with and without rerank and a predicate; both equal a
+    monolithic build of the live rows on the card (integer modes and
+    classic bit for bit, f32 under the near-tie rule) and the CPU route's
+    (integer modes bit for bit, float modes under the near-tie rule).  The
+    int4 classic store is quantized on each device from a ``scored`` whose
+    idf comes from that device's ``log``: an ulp there moves a nibble, so
+    against the CPU route it is held to 90% id overlap."""
+    dev = cuda_device()
+    gw, q = _segmented(method, dev)
+    cw, _ = _segmented(method, "cpu")
+    gpu, cpu = gw.refresh(), cw.refresh()
+    cfg, knobs, exact = SEGMENTED_METHODS[method]
+    rows = np.concatenate([s.source_rows()[torch.from_numpy(s.live).to(dev)].cpu().numpy()
+                           for s in gpu.segments])
+    mono = AnnIndex.build(rows, cfg, normalized=True, device=dev, **knobs)
+    gmap = gpu.live_global_ids()
+    pred = np.random.default_rng(3).random(gpu.max_doc) < 0.5
+    for fm in (None, pred):
+        for rerank in (False, True):
+            kw = dict(k=10, depth=100, rerank=rerank, filter_mask=fm)
+            packed = [a.cpu() for a in gpu.search(q, packed=True, **kw)]
+            loop = [a.cpu() for a in gpu.search(q, packed=False, **kw)]
+            assert torch.equal(packed[0], loop[0]) and torch.equal(packed[1], loop[1])
+            want = cpu.search(q, packed=False, **kw)
+            if method == "classic-int4":
+                assert float(ev.overlap(want[1], packed[1])) >= 0.9
+            else:
+                assert_topk_match(packed, want, exact=exact and not rerank)
+            if fm is None:
+                ms, mi = (a.cpu().numpy() for a in mono.search(q, k=10, depth=100,
+                                                               rerank=rerank))
+                mi = np.where(mi >= 0, gmap[np.maximum(mi, 0)], -1)
+                assert_topk_match(packed, (ms, mi),
+                                  exact=method not in ("kdtree-scan", "bruteforce"))
+
+
+def _replays(monkeypatch) -> list:
+    count = [0]
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(self):
+        count[0] += 1
+        return replay(self)
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", counted)
+    return count
+
+
+@pytest.mark.gpu
+def test_cuda_graph_cache_hits_across_an_in_place_append(monkeypatch):
+    """LSH (stats-static): the first packed search captures a graph; an
+    append-only refresh writes into the same buffers, so the next search
+    replays that graph (a hit, no capture) and equals the loop."""
+    from repro_torch.core import packed as packed_mod
+    from repro_torch.core.segments import IndexWriter
+
+    dev = cuda_device()
+    rng = np.random.default_rng(5)
+    cache = packed_mod.EXEC_CACHE
+    cache.clear()
+    replays = _replays(monkeypatch)
+    w = IndexWriter(LexicalLshConfig(buckets=64, hashes=2), merge_policy=None, device=dev)
+    w.add(rng.normal(size=(5000, 32)).astype(np.float32))
+    q = rng.normal(size=(8, 32)).astype(np.float32)
+    w.refresh().search(q, packed=True)
+    assert cache.compiles == 1 and replays[0] == 1
+    for cycle in range(3):
+        w.add(rng.normal(size=(100, 32)).astype(np.float32))
+        reader = w.refresh()
+        s, i = reader.search(q, packed=True)
+        assert reader.packed_segments().appends == cycle + 1
+        assert cache.compiles == 1 and cache.hits == cycle + 1 and replays[0] == cycle + 2
+        s0, i0 = reader.search(q, packed=False)
+        assert torch.equal(i.cpu(), i0.cpu()) and torch.equal(s.cpu(), s0.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["lsh-no-rung", "classic"])
+def test_cuda_full_repack_captures_anew(method, monkeypatch):
+    """A full repack (no append rung fits, or classic's new statistics)
+    allocates new buffers: the search must miss and capture a new graph,
+    never replay one over the old buffers."""
+    from repro_torch.core import packed as packed_mod
+    from repro_torch.core.segments import IndexWriter
+
+    dev = cuda_device()
+    rng = np.random.default_rng(6)
+    cache = packed_mod.EXEC_CACHE
+    cache.clear()
+    if method == "lsh-no-rung":  # 762 rows -> bucket 768: 5 more fit, no 8-row rung does
+        w = IndexWriter(LexicalLshConfig(buckets=64, hashes=2), merge_policy=None, device=dev)
+        first, more = 762, 5
+    else:
+        w = IndexWriter(FakeWordsConfig(quantization=50), merge_policy=None, device=dev)
+        first, more = 3000, 200
+    w.add(rng.normal(size=(first, 32)).astype(np.float32))
+    q = rng.normal(size=(8, 32)).astype(np.float32)
+    w.refresh().search(q, packed=True)
+    w.add(rng.normal(size=(more, 32)).astype(np.float32))
+    reader = w.refresh()
+    s, i = reader.search(q, packed=True)
+    assert reader.packed_segments().appends == 0
+    assert cache.compiles == 2 and cache.hits == 0
+    s0, i0 = reader.search(q, packed=False)
+    assert torch.equal(i.cpu(), i0.cpu()) and torch.equal(s.cpu(), s0.cpu())
+
+
+@pytest.mark.gpu
+def test_cuda_graphs_go_with_their_pack():
+    """Classic refresh cycles repack fully and capture a new graph each;
+    a dead pack's graph (with its memory pool) is freed with the pack, so
+    the cache holds the live snapshot's graph alone."""
+    import weakref
+
+    from repro_torch.core import packed as packed_mod
+    from repro_torch.core.segments import IndexWriter
+
+    dev = cuda_device()
+    rng = np.random.default_rng(8)
+    cache = packed_mod.EXEC_CACHE
+    cache.clear()
+    w = IndexWriter(FakeWordsConfig(quantization=50), merge_policy=None, device=dev)
+    w.add(rng.normal(size=(3000, 32)).astype(np.float32))
+    q = rng.normal(size=(64, 32)).astype(np.float32)
+    graphs = []
+    for _ in range(4):
+        w.add(rng.normal(size=(10, 32)).astype(np.float32))
+        reader = w.refresh()
+        reader.search(q, k=10, depth=100, rerank=True, packed=True)
+        assert cache.stats()["entries"] == 1, cache.stats()
+        graphs.append(weakref.ref(next(iter(cache._entries.values()))))
+    assert cache.compiles == 4
+    assert [g() is None for g in graphs] == [True, True, True, False]
+    del reader
+    w._reader = None
+    assert cache.stats()["entries"] == 0 and graphs[-1]() is None
+
+
+@pytest.mark.gpu
+def test_cuda_no_stale_graph_over_a_donated_prior():
+    """After an append spends the old snapshot's pack, searching the old
+    reader again repacks it into new buffers (a miss) and returns ITS
+    results, not the new snapshot's; the new reader keeps its own."""
+    from repro_torch.core.segments import IndexWriter
+
+    dev = cuda_device()
+    rng = np.random.default_rng(7)
+    w = IndexWriter(LexicalLshConfig(buckets=64, hashes=2), merge_policy=None, device=dev)
+    w.add(rng.normal(size=(4000, 32)).astype(np.float32))
+    q = rng.normal(size=(8, 32)).astype(np.float32)
+    r0 = w.refresh()
+    r0.search(q, packed=True)
+    w.add(q * 3.0)  # exact matches of every query: the new snapshot's top hits
+    r1 = w.refresh()
+    s1, i1 = r1.search(q, packed=True)
+    assert r1.packed_segments().appends == 1 and r0._packed is None
+    assert (i1[:, 0].cpu() >= 4000).all()
+    s0, i0 = r0.search(q, packed=True)
+    assert r0.packed_segments().appends == 0
+    assert (i0 < 4000).all()
+    l0 = r0.search(q, packed=False)
+    assert torch.equal(i0.cpu(), l0[1].cpu()) and torch.equal(s0.cpu(), l0[0].cpu())
+    l1 = r1.search(q, packed=False)
+    assert torch.equal(i1.cpu(), l1[1].cpu())

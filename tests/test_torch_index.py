@@ -96,8 +96,9 @@ def test_index_from_numpy_searches_a_jax_built_index_identically(tmp_path, metho
 
 def test_index_from_numpy_rejects_unported_stores(tmp_path):
     """The graph's neighbour lists (ROADMAP queue A item 7) are not ported;
-    the metadata store (item 4, test_torch_filtered.py) and the int8 / int4
-    stores (test_torch_quantized.py) are, but packed arrays need the ``pq``
+    the metadata store (item 4, test_torch_filtered.py), the int8 / int4
+    stores (test_torch_quantized.py) and the segments' per-segment saves
+    (item 5, test_torch_segments.py) are, but packed arrays need the ``pq``
     metadata that ``config.json`` records."""
     x, _ = _data(n=300)
     _, meta, arrays = _saved(tmp_path, "classic", x)

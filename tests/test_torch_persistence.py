@@ -196,7 +196,7 @@ def test_load_refuses_what_is_not_format_1(tmp_path, fault):
         commit = os.path.join(tmp_path, "seg")
         os.makedirs(commit)
         open(os.path.join(commit, "segments_3.json"), "w").write("{}")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        with pytest.raises(ValueError, match="SegmentedAnnIndex.load"):
             AnnIndex.load(commit, device="cpu")
     else:
         with pytest.raises(FileNotFoundError):
