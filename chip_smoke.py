@@ -39,9 +39,12 @@
    same way, with row ids in random order, in 256-row blocks and in bound
    order (best block first), padding ids and whole 256-row splits of them,
    ``filt``, B = 1 over ~300k rows (bf16, and 0/1 operands whose every rank
-   ties), and depth 3,000; and a copy of K3 with a strict threshold test
-   (K3_STRICT), which must fail the cases whose top score fills every
-   split's list ("ties-top").
+   ties), and depth 3,000; at the graph traversal's shapes (f32, T = 300,
+   depth = R = 4, 128 and 512, B = 1, 8 and 256, distinct scattered ids
+   with padding ids; 0/1 rows bit for bit); and a copy of K3 with a strict
+   threshold test (K3_STRICT), which must fail the cases whose top score
+   fills every split's list ("ties-top", and in f32 at T = 300, R = 1,024,
+   "ties-half-f32").
 4. Holds the quantized kernels (K4 ``fused_topk_quantized``, K5
    ``fused_topk_gathered_quantized``) against their plain versions: int8
    and int4 (groups 32 and 64), bf16 and f32 queries, T = 600, 100 and 37,
@@ -186,6 +189,28 @@
    100,000 rows; the classic NRT cycles print the cache's entries and the
    device memory allocated after each, which a dead pack's graphs must not
    grow.
+14. The proximity graph ("hnsw", ``core/graph.py``; ``drive_graph``, after
+   the k-d tree and persistence phases, before the quantized one): the
+   Vamana-style build of the whole corpus through ``AnnIndex.build(x,
+   GraphConfig())`` (its pools on K1 f32, 367 launches of 8,192 rows at
+   depth 65), each stage timed; searches at B = 256, 8 and 1, depth 100 and
+   10, with and without rerank (K3 f32, 33 launches a search, the traversal
+   one CUDA graph), R@10 and R@(10,100) against the ground truth, the
+   scored rows, the captured traversal against the eager one in turns, and
+   the same traversal with K3's plain version on the card (queries whose
+   ids differ counted); what R@10 is made of (the queries that reach their
+   own row, and the share of a row's exact neighbours in its adjacency);
+   each cached traversal's device memory; filtered search at ``GraphConfig(ef=320, beam=16)``
+   with the ~10% and ~1% masks (no masked id; recall against the filtered
+   exact top-k); K3 f32 at a traversal block and K1 f32 at a pools launch
+   (its first 256 rows held to the plain version) beside bound, plain and
+   library; the build and search of 100,000
+   integer-valued rows bit for bit against the plain versions on the card;
+   ``IndexWriter(GraphConfig(ef=192, beam=8))`` over 400,000 rows in 4
+   adds with 1% deleted (the loop at most 0.01 below the monolithic R@10,
+   both sides' scored rows printed; ``force_merge(1)`` equal to the
+   monolithic build bit for bit); and save / load of a 100,000-row graph
+   index, with its R@10.
 
 Exits non-zero on any failure, or when no CUDA device is available.  The
 last two lines are a JSON object of per-kernel numbers and the JSON status
@@ -559,6 +584,10 @@ def _inputs(kind: str, b: int, n: int, t: int, gen: torch.Generator, dev):
         q = torch.zeros((b, t), device=dev, dtype=torch.int8)
         q[:, :2] = 1
         d = torch.randint(0, 2, (n, t), generator=gen, device=dev, dtype=torch.int8)
+    elif kind == "ties-half-f32":  # f32 0/1 rows against one 1: half the rows score 1, the top
+        q = torch.zeros((b, t), device=dev)
+        q[:, 0] = 1.0
+        d = torch.randint(0, 2, (n, t), generator=gen, device=dev).float()
     elif kind in ("ties-bf16", "ties-f32"):  # 0/1 floats: small integer scores, tied constantly
         dtype = torch.bfloat16 if kind == "ties-bf16" else torch.float32
         q = torch.randint(0, 2, (b, t), generator=gen, device=dev).to(dtype)
@@ -867,6 +896,24 @@ def gathered_cases():
         ("bf16", 8, 400_000, 299_776, 600, 100, "bound", False, None),
         ("f32", 8, 100_000, 51_200, 300, 100, "bound", False, None),
     ]
+    # The graph traversal's shapes (f32, T = 300, depth = R): the entry
+    # block (R = 4) and its neighbour blocks (beam x total_degree: 128, and
+    # 512 at ef 320 / beam 16), distinct scattered ids with padding ids
+    # (n_docs) in place of the slots a traversal drops; 0/1 rows whose
+    # scores tie constantly at depth = R, held bit for bit.  At R <= 512 a
+    # split is one 256-row round (``gathered_row_plan``), so every row
+    # reaches the counting merge and K3's threshold test never decides: the
+    # K3_STRICT copy cannot fail there.  A last ties case at R = 1,024, B =
+    # 256 (two splits of two rounds), depth 100, half the rows tied at the
+    # top score and ids in descending order, holds the tie rule in f32 at
+    # T = 300, and the K3_STRICT copy must fail it.
+    for r in (4, 128, 512):
+        cases += [("unit-f32", b, 100_000, r, 300, r, "scattered", False, None)
+                  for b in (1, 8, 256)]
+    cases += [
+        ("ties-f32", 8, 100_000, 512, 300, 512, "scattered", False, None),
+        ("ties-half-f32", 256, 100_000, 1024, 300, 100, "descending-scattered", False, None),
+    ]
     return cases
 
 
@@ -878,8 +925,17 @@ def _row_ids(how: str, b: int, n: int, r: int, gen, dev, scores=None):
     (``scores`` (B, N), the exact bound) best first, as blockmax stage 1
     orders them ("bound"), random blocks in descending id order
     ("descending"), or distinct ids of [0, N + 30) in random order
-    ("permutation")."""
+    ("permutation"), or distinct ids of [0, N) with every 9th slot N (the
+    graph's padding, ``n_docs``), in random order ("scattered") or in
+    descending id order ("descending-scattered")."""
     from repro_torch.kernels.common import BIG_ID
+
+    if how in ("scattered", "descending-scattered"):
+        ids = torch.stack([torch.randperm(n, generator=gen, device=dev)[:r] for _ in range(b)])
+        if how == "descending-scattered":
+            ids = torch.sort(ids, dim=1, descending=True)[0]
+        ids[:, 1::9] = n
+        return ids.to(torch.int32)
 
     if how == "bound":
         best = scores[:, :n // BLOCK * BLOCK].reshape(b, -1, BLOCK).amax(-1)
@@ -954,10 +1010,11 @@ def check_gathered(dev, planted=None) -> dict:
         del rows
         name = (f"{kind} B={b} N={n} R={r} T={t} depth={depth} ids={how} filt={with_filt} "
                 f"n_docs={n_docs}")
-        err = compare(name, got, want, exact=kind in ("int8", "lsh", "ties", "ties-top"))
+        err = compare(name, got, want, exact=kind in ("int8", "lsh", "ties", "ties-top",
+                                                      "ties-f32", "ties-half-f32"))
         worst[kind] = max(worst.get(kind, 0.0), err)
         print(f"  ok  {name}  max_abs_err={err:.3g}")
-        if kind == "ties-top":
+        if kind in ("ties-top", "ties-half-f32"):
             bad = bad_topk(q, store, torch.where(filt, ids, BIG_ID) if with_filt else ids,
                            depth, nd)
             try:
@@ -1746,6 +1803,7 @@ def _only(path: str, kernel_name: str) -> int:
 
 
 def main(argv) -> int:
+    t_run = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1819,6 +1877,7 @@ def main(argv) -> int:
     drive_persistence(dev, card, x, qx, kd, config, depth, k, md)
     del kd
     torch.cuda.empty_cache()
+    kernels += drive_graph(dev, card, x, qx, gt_i, depth, k, masks)
     quantized, quantized_filtered_s = drive_quantized(dev, card, x, qx, gt_i, depth, k, config,
                                                       masks)
     kernels += quantized
@@ -1827,6 +1886,8 @@ def main(argv) -> int:
     print(f"the filtered phases took {filtered_s + quantized_filtered_s:.1f} s (host clock)")
     peak = max(before_segments, torch.cuda.max_memory_allocated())
     print(f"peak device memory {peak / 1e9:.1f} GB (the whole run)")
+    print(f"the whole run: {time.perf_counter() - t_run:.1f} s (host clock, the kernels' build "
+          "included)")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4341,6 +4402,501 @@ def drive_persistence(dev, card: str, x, qx, kd, config, depth: int, k: int, md)
     shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# The proximity graph ("hnsw"): the build on K1 f32, the traversal on K3
+# f32, filters inside the traversal, segments, save / load.
+# --------------------------------------------------------------------------
+
+GRAPH_SEED = 41  # the integer-valued corpus's generator
+GRAPH_ROWS = 100_000  # the bit-for-bit build and the save / load
+GRAPH_SEG_ROWS = 400_000  # the segments' corpus: a merge is another O(N^2) build
+GRAPH_SEG_ADDS = 4
+GRAPH_WIDE = dict(ef=320, beam=16)  # the reference tests' filtered operating point
+
+
+@contextlib.contextmanager
+def _plain_graph_kernels():
+    """``core/graph.py``'s K1 and K3 calls replaced by their plain versions
+    (on the card: dense scores and a stable sort; the gathered rows)."""
+    import types
+
+    from repro_torch.core import graph
+    from repro_torch.kernels.fused_topk import ref
+
+    plain = types.SimpleNamespace(
+        cosine_topk=lambda corpus, queries, depth: ref.fused_topk_ref(queries, corpus, depth),
+        fused_topk_gathered=lambda q, store, row_ids, depth, n_docs: ref.gathered_topk_ref(
+            q, ref.gather_rows(store, row_ids, n_docs), row_ids, depth, n_docs))
+    kept, graph.fused = graph.fused, plain
+    try:
+        yield
+    finally:
+        graph.fused = kept
+
+
+@contextlib.contextmanager
+def _graph_stage_times(times: dict):
+    """``graph.build_graph``'s stages timed into ``times`` (host seconds,
+    the card synchronised on both sides of each)."""
+    from repro_torch.core import graph
+
+    kept = {name: getattr(graph, name)
+            for name in ("_knn_pools", "_prune_all", "_reverse_edges", "_entry_points")}
+
+    def staged(name, fn):
+        def run(*args):
+            out, seconds = _sync_s(lambda: fn(*args))
+            times[name] = times.get(name, 0.0) + seconds
+            return out
+        return run
+
+    for name, fn in kept.items():
+        setattr(graph, name, staged(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in kept.items():
+            setattr(graph, name, fn)
+
+
+def _graph_int_parity(dev, card: str, cfg, b: int, depth: int) -> None:
+    """The integer-valued graph bit for bit: ``graph.build_graph`` and
+    ``search_graph`` over GRAPH_ROWS rows of small integers (not normalised)
+    on K1 + K3 against the same calls with their plain versions on the card:
+    adjacency, entry points, ids, scores and scored rows equal."""
+    from repro_torch.core import graph
+
+    gen = torch.Generator(device=dev).manual_seed(GRAPH_SEED)
+    xi = torch.randint(-2, 3, (GRAPH_ROWS, 300), generator=gen, device=dev).float()
+    xi[GRAPH_ROWS // 2:GRAPH_ROWS // 2 + 100] = xi[:100]  # duplicate rows: ties everywhere
+    qi = torch.randint(-2, 3, (b, 300), generator=gen, device=dev).float()
+    knobs = dict(depth=depth, ef=cfg.ef, beam=cfg.beam, iters=cfg.search_iters,
+                 n_docs=GRAPH_ROWS)
+    _reset_launches()
+    (nb, entry), kernel_s = _sync_s(lambda: graph.build_graph(xi, cfg))
+    got = graph._traverse(xi, nb, entry, qi, None, **knobs)  # op by op: one launch a block
+    launches = _launches()
+    with _plain_graph_kernels():
+        (nb_p, entry_p), plain_s = _sync_s(lambda: graph.build_graph(xi, cfg))
+        want = graph._traverse(xi, nb_p, entry_p, qi, None, **knobs)
+    if not (torch.equal(nb, nb_p) and torch.equal(entry, entry_p)):
+        n_bad = int((nb != nb_p).any(dim=1).sum())
+        raise AssertionError(f"graph (integer rows): {n_bad} adjacency rows or the entry points "
+                             "differ from the plain build")
+    for name, g, w in zip(("scores", "ids", "scored"), got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"graph (integer rows): search {name} differ from the plain "
+                                 "traversal")
+    print(f"graph bit for bit (integer-valued rows in [-2, 2], {GRAPH_ROWS} x 300, 100 "
+          f"duplicated; GraphConfig(), B={b}, depth {depth}): adjacency, entry points "
+          f"{entry.tolist()}, ids, scores and scored rows of K1 + K3 "
+          f"(launches {launches['fused_topk']} / {launches['fused_topk_gathered']}) equal the "
+          f"plain versions' on the card; build {kernel_s:.2f} s against {plain_s:.2f} s plain "
+          f"(host clock, {card})")
+
+
+def _traversal_pools() -> str:
+    """``graph.TRAVERSAL_CACHE``'s entries, each with its shape and the
+    device memory its capture reserved (the graph's private pool), and the
+    card's reserved and allocated memory."""
+    from repro_torch.core import graph
+
+    cache = graph.TRAVERSAL_CACHE
+    parts = []
+    for full_key, entry in cache._entries.items():
+        knobs = dict(full_key[1][1:])
+        q_aval, filt_aval = full_key[3]
+        mask = "no mask" if filt_aval is None else f"mask {tuple(filt_aval[0])}"
+        parts.append(f"B={q_aval[0][0]} depth {knobs['depth']} ef {knobs['ef']} beam "
+                     f"{knobs['beam']} ({mask}) {getattr(entry, 'pool_bytes', 0) / 1e6:.1f} MB")
+    return (f"{len(parts)} entries, pools {cache.stats()['pool_bytes'] / 1e9:.3f} GB in all ["
+            + "; ".join(parts) + f"]; the card: reserved {torch.cuda.memory_reserved() / 1e9:.2f} "
+            f"GB, allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+
+def _graph_recall_reading(x, qx, gt_i, ids, nb, k: int) -> None:
+    """What R@10 at full N is made of.  A query is a corpus row, so its own
+    id leads its exact list: the queries whose traversal reached their own
+    row, R@10 among them and among the rest, and the share of each query
+    row's exact nearest others (ranks 2..k) held in its own adjacency
+    row."""
+    qid = gt_i[:, 0].long()
+    own = (x[qid] == qx).all(dim=1)
+    per_q = (gt_i[:, :, None] == ids[:, None, :k]).any(dim=2).float().mean(dim=1)
+    reached = (ids == gt_i[:, :1]).any(dim=1)
+    in_adj = (gt_i[:, 1:, None] == nb[qid][:, None, :]).any(dim=2).float().mean()
+
+    def mean(mask):
+        return f"{float(per_q[mask].mean()):.4f}" if bool(mask.any()) else "none"
+
+    print(f"graph recall reading (B={qx.shape[0]}): the query's own row leads its exact list "
+          f"for {int(own.sum())}; the traversal reached its own row for {int(reached.sum())} "
+          f"queries, R@{k} {mean(reached)} among them and {mean(~reached)} among the other "
+          f"{int((~reached).sum())}; {float(in_adj):.4f} of each query row's exact ranks 2..{k} "
+          f"are in its adjacency row")
+
+
+def _graph_k3_row(card: str, gi, qn, n: int, cfg, launches: int) -> dict:
+    """K3 f32 at a traversal's shape: the (B, R = beam x total_degree)
+    block of a middle iteration at B = 256, recorded from an eager search;
+    the kernel, its plain version, the library call and the bound at B =
+    256, 8 and 1 (the first rows of the block).  Returns its JSON entry."""
+    import types
+
+    from repro_torch.core import graph
+    from repro_torch.kernels.fused_topk import ref
+    from repro_torch.kernels.fused_topk.kernel import fused_topk_gathered
+
+    blocks = []
+
+    def recording(q, store, row_ids, depth, n_docs):
+        blocks.append(row_ids.clone())
+        return fused_topk_gathered(q, store, row_ids, depth, n_docs)
+
+    kept, graph.fused = graph.fused, types.SimpleNamespace(
+        cosine_topk=graph.fused.cosine_topk, fused_topk_gathered=recording)
+    try:
+        graph._traverse(gi.vectors, gi.neighbors, gi.entry, qn, None, depth=cfg.ef, ef=cfg.ef,
+                        beam=cfg.beam, iters=cfg.search_iters, n_docs=n)
+    finally:
+        graph.fused = kept
+    rows = blocks[len(blocks) // 2]
+    r = rows.shape[1]
+    vec = gi.vectors
+    err = compare(f"K3 f32 graph block B={rows.shape[0]} R={r} vs plain",
+                  fused_topk_gathered(qn, vec, rows, r, n),
+                  ref.gathered_topk_ref(qn, ref.gather_rows(vec, rows, n), rows, r, n),
+                  exact=False)
+    at = {}
+    for bb in (qn.shape[0], 8, 1):
+        qb, rb = qn[:bb], rows[:bb]
+        at[bb] = (cuda_ms(lambda: fused_topk_gathered(qb, vec, rb, r, n)),
+                  cuda_ms(lambda: ref.gathered_topk_ref(qb, ref.gather_rows(vec, rb, n), rb, r,
+                                                        n), runs=3),
+                  cuda_ms(lambda: torch.topk(torch.einsum(
+                      "bd,bmd->bm", qb, vec[rb.clamp(0, n - 1).long()]), r), runs=3),
+                  *gathered_bound_ms(qb, vec, rb, n, r, "f32"))
+    valid = int(((rows >= 0) & (rows < n)).sum())
+    print(f"fused_topk_gathered/f32-graph (a middle iteration's block, R = beam x total_degree "
+          f"= {r}, depth {r}, T=300, {valid} of {rows.numel()} slots valid at B={qn.shape[0]}): "
+          + "; ".join(f"B={bb} kernel {v[0]:.4f} ms, bound {v[3]:.4f} ms ({v[4]}, f32, "
+                      f"{v[5]} distinct rows), plain {v[1]:.4f} ms, library {v[2]:.4f} ms"
+                      for bb, v in at.items())
+          + f" (median of {RUNS} / 3 / 3, CUDA events, {card}; library: torch.topk(torch.einsum("
+          f"'bd,bmd->bm', q, vectors[row_ids]), {r}), allow_tf32 False); kernel vs plain "
+          f"max_abs_err {err:.3g}")
+    ms, plain_ms, lib_ms, bound, bound_by, _ = at[qn.shape[0]]
+    return {"name": "fused_topk_gathered/f32-graph", "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",
+            "replaces": "src/repro/kernels/fused_topk/kernel.py:433", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def _graph_k1_row(card: str, vec, n: int, depth: int, launches: int) -> dict:
+    """K1 f32 at the shape the build's pools launch it: ``graph._POOL_ROWS``
+    rows against all N at ``depth`` (= ef_construction + 1).  The launch's
+    first 256 rows are held to the plain version on those rows (each row's
+    list is its own; the plain version of the whole launch would hold
+    (8,192, N) scores, 98 GB), and the plain version and the library call
+    are timed over the launch's rows in 256-row slices.  Returns its JSON
+    entry, every number at that launch's shape."""
+    from repro_torch.core import graph
+    from repro_torch.kernels.common import f32_matmul
+    from repro_torch.kernels.fused_topk import ref
+    from repro_torch.kernels.fused_topk.kernel import fused_topk
+
+    rows = vec[:graph._POOL_ROWS]
+    s, i = fused_topk(rows, vec, depth)
+    err = compare(f"K1 f32 pools B={rows.shape[0]} depth {depth} (its first 256 rows) vs plain",
+                  (s[:256], i[:256]), ref.fused_topk_ref(rows[:256], vec, depth + 1), exact=False)
+    del s, i
+    slices = rows.split(256)
+
+    def plain():  # each slice's lists dropped at once: they are views of its sorted scores
+        for q in slices:
+            ref.fused_topk_ref(q, vec, depth)
+
+    def library():
+        for q in slices:
+            torch.topk(f32_matmul(q, vec.T), depth)
+
+    ms = cuda_ms(lambda: fused_topk(rows, vec, depth), runs=3, warmup=1)
+    plain_ms = cuda_ms(plain, runs=3, warmup=1)
+    lib_ms = cuda_ms(library, runs=3, warmup=1)
+    bound, bound_by = bound_ms(rows, vec, n, depth, "tf32", 3)
+    print(f"fused_topk/f32-graph-pools (a build launch: B={rows.shape[0]}, N={n}, "
+          f"T={vec.shape[1]}, depth {depth}): kernel {ms:.3f} ms, bound {bound:.3f} ms "
+          f"({bound_by}, split TF32's three tf32 products), plain {plain_ms:.3f} ms and library "
+          f"{lib_ms:.3f} ms over its rows in {len(slices)} slices of 256 (library: "
+          f"torch.topk(f32_matmul(q, vectors.T), {depth}), allow_tf32 False; median of 3, CUDA "
+          f"events, {card}); its first 256 rows vs plain max_abs_err {err:.3g}")
+    return {"name": "fused_topk/f32-graph-pools", "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",
+            "replaces": "src/repro/kernels/fused_topk/kernel.py:288", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def _graph_segments(dev, card: str, x, qx, depth: int, k: int) -> None:
+    """Graph segments: ``IndexWriter(GraphConfig(ef=192, beam=8))`` over the
+    first GRAPH_SEG_ROWS rows in GRAPH_SEG_ADDS flushed adds, 1% deleted,
+    against a monolithic build of the live rows.  The per-segment loop (a
+    traversal a segment, liveDocs inside it) emits no deleted id and loses
+    no more than 0.01 of the monolithic R@10 (the reference's gate, one
+    way: each segment's own traversal visits more of its rows than one
+    traversal of the whole, so the loop may find more); after
+    ``force_merge(1)`` the one segment is the monolithic build, adjacency
+    and searches bit for bit."""
+    import numpy as np
+
+    from repro_torch.core import bruteforce, eval as ev, graph
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.types import GraphConfig
+    from repro_torch.kernels.fused_topk import ops
+
+    cfg = GraphConfig(ef=192, beam=8)
+    xs = x[:GRAPH_SEG_ROWS]
+    dead = np.random.default_rng(SEG_SEED).choice(GRAPH_SEG_ROWS, GRAPH_SEG_ROWS // 100,
+                                                  replace=False)
+    w, reader, flush_s, (delete_s, refresh_s) = _seg_writer(dev, cfg, xs, GRAPH_SEG_ADDS, dead)
+    live = torch.ones(GRAPH_SEG_ROWS, dtype=torch.bool, device=dev)
+    live[torch.from_numpy(dead).to(dev)] = False
+    gmap = torch.from_numpy(reader.live_global_ids()).to(dev)
+    mono, mono_s = _sync_s(lambda: AnnIndex.build(xs[live], cfg, device=dev))
+    _, truth = ops.cosine_topk(mono.index.vectors, bruteforce.l2_normalize(qx), k)
+    mono_res = mono.search(qx, k=k, depth=depth)
+    r_mono = float(ev.recall_at(truth, mono_res[1]))
+    (_, seg_i), loop_s = _sync_s(lambda: reader.search(qx, k=k, depth=depth))
+    if reader._packed_err is None or bool(torch.isin(seg_i, torch.from_numpy(dead).to(dev)).any()):
+        raise AssertionError("graph segments: a packed search, or a deleted id emitted")
+    r_seg = float(ev.recall_at(_mapped(gmap, truth), seg_i))
+    if r_seg < r_mono - 0.01:
+        raise AssertionError(f"graph segmented R@10 {r_seg:.4f} is more than 0.01 below the "
+                             f"monolithic {r_mono:.4f}")
+    qn = bruteforce.l2_normalize(qx)
+
+    def scored(gi):  # rows a query scored in one traversal of ``gi`` (filt does not change it)
+        return graph.search_graph(gi.vectors, gi.neighbors, gi.entry, qn, depth, ef=cfg.ef,
+                                  beam=cfg.beam, iters=cfg.search_iters, n_docs=gi.num_docs,
+                                  with_stats=True)[2].float()
+
+    per_seg = [scored(seg.ann.index) for seg in reader.segments]
+    seg_scored = sum(per_seg)
+    mono_scored = scored(mono.index)
+    loop_ms = cuda_ms(lambda: reader.search(qx[:8], k=k, depth=depth))
+    merged, merge_s = _sync_s(lambda: (w.force_merge(1), w.refresh())[1])
+    merged_res = merged.search(qx, k=k, depth=depth)
+    if not (torch.equal(merged.segments[0].ann.index.neighbors, mono.index.neighbors)
+            and all(torch.equal(a, b) for a, b in zip(merged_res, mono_res))):
+        raise AssertionError("graph force_merge(1): not the monolithic build bit for bit")
+    print(f"graph segments (GraphConfig(ef=192, beam=8), {GRAPH_SEG_ROWS} rows in "
+          f"{GRAPH_SEG_ADDS} flushed adds, {len(dead)} deleted): R@10 (depth {depth}) loop "
+          f"{r_seg:.4f} against the monolithic build of the live rows {r_mono:.4f} (gate: "
+          f"at most 0.01 below); rows a query scored: the loop {float(seg_scored.mean()):.1f} "
+          f"over {len(reader.segments)} segments (in each "
+          + ", ".join(f"{float(t.mean()):.1f}" for t in per_seg)
+          + f"), the monolithic build {float(mono_scored.mean()):.1f}; after force_merge(1) "
+          f"the monolithic build bit for bit "
+          f"(adjacency, ids, scores); no deleted id emitted; packed path refused: "
+          f"{reader._packed_err!r}; adds+flushes {flush_s:.1f} s, delete {delete_s:.3f} s, "
+          f"refresh {refresh_s:.3f} s, monolithic build {mono_s:.1f} s, force_merge(1) + refresh "
+          f"{merge_s:.1f} s, first loop search (B={qx.shape[0]}) {loop_s:.2f} s (host clock); "
+          f"loop search B=8 {loop_ms:.3f} ms (median of {RUNS}, CUDA events, {card})")
+
+
+def _graph_save_load(dev, card: str, x, qx, depth: int, k: int) -> None:
+    """``AnnIndex.save`` / ``load`` of a GRAPH_ROWS-row graph index on the
+    card: searches after load bit-equal to those before.  Also the index's
+    R@10 with rows of its own as queries, as at full N."""
+    from repro_torch.core import bruteforce, eval as ev
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.types import GraphConfig
+    from repro_torch.kernels.fused_topk import ops
+
+    path = os.path.join(ROOT, "build", "persist-graph", "graph.ann")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    idx = AnnIndex.build(x[:GRAPH_ROWS], GraphConfig(), device=dev)
+
+    def searches(i):
+        return [i.search(qx, k=depth, depth=depth), i.search(qx, k=k, depth=depth, rerank=True),
+                i.search(qx[:1], k=k, depth=k)]
+
+    before = searches(idx)
+    pick = torch.randperm(GRAPH_ROWS, generator=torch.Generator().manual_seed(GRAPH_SEED))
+    own_q = x[pick[:qx.shape[0]].to(x.device)]
+    _, truth = ops.cosine_topk(idx.index.vectors, bruteforce.l2_normalize(own_q), k)
+    r_own = float(ev.recall_at(truth, idx.search(own_q, k=k, depth=depth)[1]))
+    _, save_s = _sync_s(lambda: idx.save(path))
+    loaded, load_s = _sync_s(lambda: AnnIndex.load(path, device=dev))
+    if loaded.config != idx.config or loaded.nbytes() != idx.nbytes():
+        raise AssertionError("graph save / load: config or bytes differ")
+    for (s0, i0), (s1, i1) in zip(before, searches(loaded)):
+        if not (torch.equal(s0, s1) and torch.equal(i0, i1)):
+            raise AssertionError("graph save / load: a search after load is not bit-equal")
+    disk = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    print(f"persistence graph.ann (hnsw, N={GRAPH_ROWS}, {idx.nbytes() / 1e6:.1f} MB on the "
+          f"card, {disk / 1e6:.1f} MB on disk): save {save_s:.2f} s, load {load_s:.2f} s (host "
+          f"clock, {card}); {len(before)} searches after load bit-equal; R@{k} (depth {depth}) "
+          f"with {own_q.shape[0]} of its rows as queries {r_own:.4f}")
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+
+
+def drive_graph(dev, card: str, x, qx, gt_i, depth: int, k: int, masks: dict) -> list:
+    """The proximity graph ("hnsw") over the corpus ``x`` on the card:
+
+      * ``AnnIndex.build(x, GraphConfig())`` at full N, each stage timed:
+        the pools (K1 f32 launches counted), the prune, the reverse edges,
+        the entry points; the index's bytes;
+      * searches at B = 256, 8 and 1, depth ``depth`` and ``k``, with and
+        without rerank, R@10 and R@(10,100) against ``gt_i``, the scored
+        rows, K3's launches a search; the traversal captured against eager
+        in turns; the ids of the same traversal with K3's plain version on
+        the same adjacency (queries that differ counted); what R@10 is made
+        of (``_graph_recall_reading``); the traversal cache's entries, each
+        with its pool, and the card's memory before and after the searches
+        (``_traversal_pools``);
+      * the integer-valued graph bit for bit (``_graph_int_parity``);
+      * filtered search at ``GraphConfig(ef=320, beam=16)`` with the ~10%
+        and ~1% masks: no masked id, recall against the filtered exact top-k;
+      * K3 f32 at a traversal's block and K1 f32 at a pools launch;
+      * segments (``_graph_segments``) and save / load
+        (``_graph_save_load``).
+
+    Returns the JSON entries of K3 f32 (graph) and K1 f32 (pools)."""
+    from repro_torch.core import bruteforce, eval as ev, graph
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.types import GraphConfig
+    from repro_torch.kernels.fused_topk import ops
+
+    t_phase = time.perf_counter()
+    n, b = x.shape[0], qx.shape[0]
+    cfg = GraphConfig()
+    iters = cfg.search_iters
+    graph.TRAVERSAL_CACHE.clear()
+
+    # ---- the build at full N -------------------------------------------------
+    stages = {}
+    _reset_launches()
+    with _graph_stage_times(stages):
+        gidx, build_s = _sync_s(lambda: AnnIndex.build(x, cfg, device=dev))
+    pool_launches = _only("graph build", "fused_topk")
+    gi = gidx.index
+    nb = gi.neighbors
+    if (nb.shape != (n, cfg.total_degree) or nb.dtype != torch.int32
+            or not bool(((nb >= -1) & (nb < n)).all())
+            or bool((nb == torch.arange(n, device=dev, dtype=torch.int32)[:, None]).any())):
+        raise AssertionError("graph build: bad adjacency (shape, range or a self-loop)")
+    print(f"graph build (GraphConfig(): degree {cfg.degree} + reverse {cfg.reverse_degree}, "
+          f"ef_construction {cfg.ef_construction}, alpha {cfg.alpha}; N={n}, T={x.shape[1]}): "
+          f"{build_s:.1f} s (host clock, {card}): pools {stages['_knn_pools']:.1f} s "
+          f"({pool_launches} K1 f32 launches of {graph._POOL_ROWS} rows at depth "
+          f"{cfg.ef_construction + 1}), prune {stages['_prune_all']:.1f} s "
+          f"({-(-n // graph._PRUNE_BLOCK)} blocks x {cfg.degree} steps), reverse edges "
+          f"{stages['_reverse_edges']:.2f} s, entry points {stages['_entry_points']:.3f} s "
+          f"({gi.entry.tolist()}); index {gidx.nbytes() / 1e9:.3f} GB (vectors "
+          f"{gi.vectors.numel() * 4 / 1e9:.3f} GB, neighbors {nb.numel() * 4 / 1e9:.3f} GB); "
+          f"{float((nb < 0).sum(dim=1).float().mean()):.2f} empty slots a node, "
+          f"{int((nb < 0).all(dim=1).sum())} nodes without an edge")
+    print("graph traversal cache before the searches: " + _traversal_pools())
+
+    # ---- the main path: searches at B = 256, 8 and 1 ---------------------------
+    _reset_launches()
+    res = {bb: (gidx.search(qx[:bb], k=depth, depth=depth),
+                gidx.search(qx[:bb], k=k, depth=depth, rerank=True),
+                gidx.search(qx[:bb], k=k, depth=k)) for bb in (b, 8, 1)}
+    torch.cuda.synchronize()
+    k3_launches = _only("graph searches", "fused_topk_gathered")
+    for bb, ((s, i), (rs, ri), (ks, ki)) in res.items():
+        _checked(f"graph B={bb}", s, i, bb, depth, n)
+        _checked(f"graph B={bb} rerank", rs, ri, bb, k, n)
+        _checked(f"graph B={bb} depth {k}", ks, ki, bb, k, n)
+    print("graph traversal cache after the main path's searches: " + _traversal_pools())
+    (s, i), (_, ri), (_, ki) = res[b]
+    qn = bruteforce.l2_normalize(qx)
+    knobs = dict(ef=cfg.ef, beam=cfg.beam, iters=iters, n_docs=n)
+    _reset_launches()
+    eager = graph._traverse(gi.vectors, nb, gi.entry, qn, None, depth=depth, **knobs)
+    torch.cuda.synchronize()
+    per_search = _only("graph eager search", "fused_topk_gathered")
+    if per_search != 1 + iters:
+        raise AssertionError(f"graph: {per_search} K3 launches a search, not 1 + {iters}")
+    if not (torch.equal(eager[0], s) and torch.equal(eager[1], i)):
+        raise AssertionError("graph: the captured search differs from the eager one")
+    scored = eager[2]
+    bound = cfg.entries + iters * cfg.beam * cfg.total_degree
+    if int(scored.max()) > bound:
+        raise AssertionError(f"graph: a query scored {int(scored.max())} rows, over {bound}")
+    with _plain_graph_kernels():
+        plain = graph._traverse(gi.vectors, nb, gi.entry, qn, None, depth=depth, **knobs)
+    differ = (plain[1] != i).any(dim=1)
+    same_err = float((plain[0] - s)[~differ].abs().max()) if bool((~differ).any()) else 0.0
+    print(f"graph search (GraphConfig(): ef {cfg.ef}, beam {cfg.beam}, {iters} iterations, "
+          f"B={b}): R@10 {float(ev.recall_at(gt_i, i[:, :k])):.4f}, R@(10,100) "
+          f"{float(ev.recall_at(gt_i, i)):.4f}, reranked R@10 {float(ev.recall_at(gt_i, ri)):.4f}, "
+          f"depth {k} R@10 {float(ev.recall_at(gt_i, ki)):.4f}; scored rows a query: max "
+          f"{int(scored.max())}, mean {float(scored.float().mean()):.1f} (at most {bound}); K3 "
+          f"launches a search {per_search} (1 + {iters}), in the main path's searches "
+          f"{k3_launches} (a first search of a shape runs once before its capture and once "
+          f"into it; replays launch without counting); with K3's plain version on the same "
+          f"adjacency (B={b}): {int(differ.sum())} queries' ids differ (R@10 "
+          f"{float(ev.recall_at(gt_i, plain[1][:, :k])):.4f}), the others' scores within "
+          f"{same_err:.3g}")
+    _graph_recall_reading(x, qx, gt_i, i, nb, k)
+
+    times = {}
+    for bb in (b, 8, 1):
+        qb = qn[:bb]
+        graphed = lambda: graph.search_graph(gi.vectors, nb, gi.entry, qb, depth, **knobs)
+        op_by_op = lambda: graph._traverse(gi.vectors, nb, gi.entry, qb, None, depth=depth,
+                                           **knobs)
+        times[bb] = [cuda_ms(graphed), cuda_ms(op_by_op), cuda_ms(op_by_op), cuda_ms(graphed),
+                     cuda_ms(lambda: gidx.search(qx[:bb], k=k, depth=depth, rerank=True)),
+                     cuda_ms(lambda: gidx.search(qx[:bb], k=k, depth=k))]
+    print(f"graph search times (median of {RUNS}, CUDA events, {card}), depth {depth}, the "
+          "traversal captured / eager / eager / captured in turns, then the facade with "
+          f"rerank and at depth {k}: "
+          + "; ".join(f"B={bb} {v[0]:.3f} / {v[1]:.3f} / {v[2]:.3f} / {v[3]:.3f} ms, rerank "
+                      f"{v[4]:.3f} ms, depth {k} {v[5]:.3f} ms" for bb, v in times.items())
+          + f"; traversal cache {graph.TRAVERSAL_CACHE.stats()}")
+    print("graph traversal cache after the timings: " + _traversal_pools())
+
+    # ---- filtered search at the reference's wide operating point ---------------
+    wide_cfg = GraphConfig(**GRAPH_WIDE)
+    wide = AnnIndex(config=wide_cfg, index=gi)
+    wide_r = float(ev.recall_at(gt_i, wide.search(qx, k=k, depth=k)[1]))
+    lines = [f"unfiltered R@10 {wide_r:.4f}, B={b} "
+             f"{cuda_ms(lambda: wide.search(qx, k=k, depth=k)):.3f} ms"]
+    for key in ("10%", "1%"):
+        m = masks[key]
+        fs, fi = wide.search(qx, k=k, depth=k, filt=m)
+        _kept(f"graph filtered {key}", fi, m, n)
+        _, ft = ops.cosine_topk(gi.vectors, qn, k, filt=m)
+        f_ms = cuda_ms(lambda: wide.search(qx, k=k, depth=k, filt=m))
+        f8_ms = cuda_ms(lambda: wide.search(qx[:8], k=k, depth=k, filt=m))
+        lines.append(f"{key} ({int(m.sum())} kept): R@10 {float(ev.recall_at(ft, fi)):.4f}, "
+                     f"{int((fi < 0).sum())} empty slots, B={b} {f_ms:.3f} ms, B=8 {f8_ms:.3f} ms")
+    print(f"graph filtered (GraphConfig(ef=320, beam=16): {wide_cfg.search_iters} iterations of "
+          f"{wide_cfg.beam * cfg.total_degree}-row K3 blocks; B={b}, k {k}, recall against the "
+          f"filtered exact top-k on K1 f32; no masked id emitted): " + "; ".join(lines)
+          + f" (median of {RUNS}, CUDA events, {card})")
+    print("graph traversal cache after the filtered searches: " + _traversal_pools())
+    del wide
+
+    entries = [_graph_k3_row(card, gi, qn, n, cfg, k3_launches),
+               _graph_k1_row(card, gi.vectors, n, cfg.ef_construction + 1, pool_launches)]
+    del gidx, gi, nb, res, eager, plain
+    graph.TRAVERSAL_CACHE.clear()
+    torch.cuda.empty_cache()
+    _graph_int_parity(dev, card, cfg, b, depth)
+    _graph_segments(dev, card, x, qx, depth, k)
+    _graph_save_load(dev, card, x, qx, depth, k)
+    graph.TRAVERSAL_CACHE.clear()
+    torch.cuda.empty_cache()
+    print(f"graph phase: {time.perf_counter() - t_phase:.1f} s (host clock, {card})")
+    return entries
+
+
 def drive_quantized(dev, card: str, x, qx, gt_i, depth: int, k: int, config, masks: dict):
     """The quantized read path over the corpus ``x`` with the queries ``qx``
     (ground truth ``gt_i``), then its filtered searches with ``masks``
@@ -5327,13 +5883,15 @@ def _eager_packed():
     entries are the plain callables (as on the CPU route), for timing."""
     from repro_torch.core import packed as packed_mod
 
-    saved = packed_mod.EXEC_CACHE, packed_mod._GraphEntry
-    packed_mod.EXEC_CACHE = packed_mod.ExecutableCache()
-    packed_mod._GraphEntry = lambda fn, resident, fed: (lambda res, fd: fn(*res, *fd))
+    from repro_torch.core import executables
+
+    saved = packed_mod.EXEC_CACHE, executables._GraphEntry
+    packed_mod.EXEC_CACHE = executables.ExecutableCache()
+    executables._GraphEntry = lambda fn, resident, fed: (lambda res, fd: fn(*res, *fd))
     try:
         yield
     finally:
-        packed_mod.EXEC_CACHE, packed_mod._GraphEntry = saved
+        packed_mod.EXEC_CACHE, executables._GraphEntry = saved
 
 
 def _graph_vs_eager(reader, qx, bs, k: int, depth: int, rerank: bool) -> str:

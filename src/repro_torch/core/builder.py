@@ -4,7 +4,8 @@
                                          reduced points + model / identity)
                    -> assemble postings (index container + global stats,
                                          optionally packed int8 / int4;
-                                         the k-d tree's lift and tree arrays)
+                                         the k-d tree's lift and tree arrays;
+                                         the graph's adjacency)
                    -> attach rerank store (fp32 originals / int8 + scale / none)
 
 Each stage is a frozen dataclass; :class:`BuildPipeline` runs them on the
@@ -19,13 +20,15 @@ from typing import Any, Optional, Union
 
 import torch
 
-from repro_torch.core import bruteforce, fakewords, kdtree, lexical_lsh, pca
+from repro_torch.core import bruteforce, fakewords, graph, kdtree, lexical_lsh, pca
 from repro_torch.core.types import (
     BruteForceConfig,
     DocMetadata,
     FakeWordsConfig,
     FakeWordsIndex,
     FlatIndex,
+    GraphConfig,
+    GraphIndex,
     KdTreeConfig,
     KdTreeIndex,
     LexicalLshConfig,
@@ -36,7 +39,7 @@ from repro_torch.core.types import (
 from repro_torch.kernels import common
 from repro_torch.kernels.fused_topk import ops as fused
 
-AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, KdTreeConfig, BruteForceConfig]
+AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, KdTreeConfig, BruteForceConfig, GraphConfig]
 
 RERANK_STORES = ("exact", "int8", "none")
 PRIMARY_POSTINGS = ("fp32", "int8", "int4")
@@ -92,7 +95,7 @@ class ReductionTransform:
 
 @dataclasses.dataclass(frozen=True)
 class IdentityTransform:
-    """Brute force: the unit-normalized rows themselves."""
+    """Brute force and the graph: the unit-normalized rows themselves."""
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return v
@@ -251,6 +254,22 @@ class FlatPostings:
         return FlatIndex(vectors=store["vectors"], vq=store["vq"], pq=self.quantizer(v))
 
 
+@dataclasses.dataclass(frozen=True)
+class GraphPostings:
+    """Proximity graph: exact-kNN pools (K1 f32) -> Vamana robust prune ->
+    reverse-edge fill -> fixed-degree int32 adjacency + entry points
+    (:func:`repro_torch.core.graph.build_graph`).  The unit rows are the
+    match operand (K3 scores each neighbour block from them), so they are
+    kept whatever the rerank store, as in :class:`FlatPostings`."""
+
+    config: GraphConfig
+
+    def __call__(self, rep: torch.Tensor, v: torch.Tensor, store: dict,
+                 n_total: int) -> GraphIndex:
+        neighbors, entry = graph.build_graph(v, self.config)
+        return GraphIndex(vectors=v, neighbors=neighbors, entry=entry, vq=store["vq"])
+
+
 # --------------------------------------------------------------------------
 # Metadata stage
 # --------------------------------------------------------------------------
@@ -353,7 +372,7 @@ def make_build_pipeline(
     store = _STORES[rerank_store]
     quantizer = None
     if primary_postings != "fp32":
-        if isinstance(config, (LexicalLshConfig, KdTreeConfig)):
+        if isinstance(config, (LexicalLshConfig, KdTreeConfig, GraphConfig)):
             raise ValueError(_QUANT_POSTINGS_MSG)
         if postings_group not in POSTINGS_GROUPS:
             raise ValueError(
@@ -369,4 +388,6 @@ def make_build_pipeline(
         return BuildPipeline(config, ReductionTransform(config), KdTreePostings(config), store)
     if isinstance(config, BruteForceConfig):
         return BuildPipeline(config, IdentityTransform(), FlatPostings(quantizer), store)
-    raise TypeError(f"config {type(config).__name__} is not ported yet (ROADMAP.md, queue A)")
+    if isinstance(config, GraphConfig):
+        return BuildPipeline(config, IdentityTransform(), GraphPostings(config), store)
+    raise TypeError(f"unknown config {type(config)}")

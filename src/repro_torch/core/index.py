@@ -8,6 +8,9 @@ core.types.DocMetadata`); keep bitmaps built from them (``idx.metadata.
 eq_mask("cat", 7)``, ...) go to ``search(filt=)``, which masks the match
 stage's kernels.
 
+``AnnIndex.build(x, GraphConfig())`` builds the proximity graph ("hnsw",
+:mod:`repro_torch.core.graph`), searched by a batched beam traversal.
+
 ``blockmax_keep`` (with ``blockmax_block_size``) turns on two-stage blockmax
 pruning for fake-words and LSH indexes: only the ``blockmax_keep`` blocks
 with the best upper bounds are scored (:mod:`repro_torch.core.blockmax`).
@@ -44,6 +47,8 @@ from repro_torch.core.types import (
     FakeWordsConfig,
     FakeWordsIndex,
     FlatIndex,
+    GraphConfig,
+    GraphIndex,
     KdTreeConfig,
     KdTreeIndex,
     LexicalLshConfig,
@@ -58,13 +63,14 @@ from repro_torch.core.types import (
 # :mod:`repro_torch.core.segments`'s.
 FORMAT_VERSION = 1
 
-AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, KdTreeConfig, BruteForceConfig]
-AnyIndex = Union[FakeWordsIndex, LshIndex, KdTreeIndex, FlatIndex]
+AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, KdTreeConfig, BruteForceConfig, GraphConfig]
+AnyIndex = Union[FakeWordsIndex, LshIndex, KdTreeIndex, FlatIndex, GraphIndex]
 
 _METHOD_BY_INDEX = {FakeWordsIndex: "fake-words", LshIndex: "lexical-lsh",
-                    KdTreeIndex: "kd-tree", FlatIndex: "bruteforce"}
+                    KdTreeIndex: "kd-tree", FlatIndex: "bruteforce", GraphIndex: "hnsw"}
 _CONFIG_BY_METHOD = {"fake-words": FakeWordsConfig, "lexical-lsh": LexicalLshConfig,
-                     "kd-tree": KdTreeConfig, "bruteforce": BruteForceConfig}
+                     "kd-tree": KdTreeConfig, "bruteforce": BruteForceConfig,
+                     "hnsw": GraphConfig}
 
 
 def _check_device(device) -> torch.device:
@@ -335,6 +341,7 @@ _ARRAYS_BY_METHOD = {
     "kd-tree": ("reduced", "split_dim", "split_val", "perm", "lifted", "vectors", "vq.q",
                 "vq.scale") + sum(_REDUCTION_ARRAYS.values(), ()),
     "bruteforce": ("vectors",) + _STORE_ARRAYS,
+    "hnsw": ("vectors", "neighbors", "entry", "vq.q", "vq.scale"),
 }
 
 
@@ -375,18 +382,17 @@ def index_from_numpy(
     model ``reduction.*``, flat PCA or nested PPA / PCA / PPA, the tree
     arrays ``split_dim`` / ``split_val`` / ``perm`` and ``lifted``) and
     "bruteforce", with their int8 / int4 packed postings (``pq.*``) and int8
-    rerank store (``vq.*``).  Any other method ("hnsw", the graph encoding)
-    raises NotImplementedError."""
+    rerank store (``vq.*``), and "hnsw" (``vectors``, ``neighbors``,
+    ``entry``).  Another method, or arrays that belong to no store of the
+    method, raise ValueError."""
     dev = _check_device(device)
     if method not in _ARRAYS_BY_METHOD:
-        raise NotImplementedError(f"method {method!r} is not ported yet (ROADMAP.md, queue A)")
+        raise ValueError(f"unknown method {method!r}")
     arrays = dict(arrays)
     values = arrays.pop("metadata.values", None)
-    unported = sorted(set(arrays) - set(_ARRAYS_BY_METHOD[method]))
-    if unported:
-        raise NotImplementedError(
-            f"arrays {unported} belong to stores not ported yet "
-            "(ROADMAP.md, queue A: the other methods)")
+    stray = sorted(set(arrays) - set(_ARRAYS_BY_METHOD[method]))
+    if stray:
+        raise ValueError(f"arrays {stray} belong to no store of method {method!r}")
     md = None
     if metadata is not None:
         if values is None:
@@ -415,6 +421,9 @@ def index_from_numpy(
             reduced=t["reduced"], reduction=_reduction(cfg.reduction, t),
             split_dim=t.get("split_dim"), split_val=t.get("split_val"), perm=t.get("perm"),
             lifted=t.get("lifted"), vectors=t.get("vectors"), vq=vq)
+    elif method == "hnsw":
+        index = GraphIndex(vectors=t["vectors"], neighbors=t["neighbors"], entry=t["entry"],
+                           vq=vq)
     else:
         index = FlatIndex(vectors=t.get("vectors"), vq=vq, pq=packed)
     return AnnIndex(config=cfg, index=index, blockmax_keep=blockmax_keep,

@@ -15,13 +15,12 @@ count:
     (powers of two and their 1.5x midpoints), so buffer shapes recur across
     flush / merge / refresh cycles.  Tail rows are zeros and never rank:
     they are masked through the same ``filt`` bitmap that masks deletes.
-  * **Executable cache.**  :class:`ExecutableCache`, a bounded LRU.  On the
-    card an entry is one captured ``torch.cuda.CUDAGraph`` of the whole
-    match (+ rerank); a graph reads fixed addresses, so the key holds the
-    pack's generation and the addresses, shapes and dtypes of the buffers
-    it reads in place beside the static knobs, and a pack's entries are
-    dropped when its buffers are freed.  On the CPU an entry is the plain
-    callable.
+  * **Executable cache.**  :data:`EXEC_CACHE`, an
+    :class:`~repro_torch.core.executables.ExecutableCache`.  On the card an
+    entry is one captured ``torch.cuda.CUDAGraph`` of the whole match
+    (+ rerank), owned by the packed view whose buffers it reads, so a
+    pack's entries go when its buffers are freed.  On the CPU an entry is
+    the plain callable.
   * **Donated incremental append.**  For stats-static encodings (dot-mode
     fake words, LSH, brute force) a refresh that only appends segments
     writes the new rows into the previous snapshot's buffers in place
@@ -40,14 +39,12 @@ reference path and serves the layouts this module rejects.
 from __future__ import annotations
 
 import dataclasses
-import itertools
-import weakref
-from collections import OrderedDict
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.executables import ExecutableCache
 from repro_torch.core.types import (
     BruteForceConfig,
     FakeWordsConfig,
@@ -241,144 +238,9 @@ def _replace_paths(view, updates: Dict[Tuple[str, ...], torch.Tensor]):
 # Executable cache
 # --------------------------------------------------------------------------
 
-
-def _tensors(obj, out: List[Any]) -> List[Any]:
-    """Every tensor inside ``obj`` (dataclasses, tuples, lists; None and
-    other leaves skipped), in field order."""
-    if isinstance(obj, torch.Tensor):
-        out.append(obj)
-    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        for f in dataclasses.fields(obj):
-            _tensors(getattr(obj, f.name), out)
-    elif isinstance(obj, (tuple, list)):
-        for x in obj:
-            _tensors(x, out)
-    return out
-
-
-def _aval(x: Optional[torch.Tensor]):
-    return None if x is None else (tuple(x.shape), x.dtype, x.device)
-
-
-def _fused_launches() -> Dict[str, int]:
-    """The fused top-k wrappers' launch counts (the only kernels a packed
-    search runs)."""
-    from repro_torch.kernels.fused_topk import kernel
-
-    fns = (kernel.fused_topk, kernel.fused_topk_gathered, kernel.fused_topk_quantized,
-           kernel.fused_topk_gathered_quantized)
-    return {fn.__name__: fn.launches for fn in fns}
-
-
-class _GraphEntry:
-    """One captured CUDA graph of ``fn(*resident, *fed)``: the ``resident``
-    tensors are read where they lie (their addresses are in the cache key),
-    the ``fed`` ones are copied into static buffers before each replay, and
-    the outputs are cloned out of the graph's pool.  ``captured`` counts
-    the kernel wrappers' launches recorded into the graph (a replay runs
-    them again without moving the wrappers' counters)."""
-
-    def __init__(self, fn: Callable, resident: Tuple[Any, ...], fed: Tuple[Any, ...]):
-        dev = next(x.device for x in _tensors(fed, []))
-        self.static = tuple(None if x is None else x.clone() for x in fed)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            fn(*resident, *self.static)  # a real first run, before capture, as graphs require
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = _fused_launches()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out = fn(*resident, *self.static)
-        after = _fused_launches()
-        self.captured = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-
-    def __call__(self, resident, fed):
-        for buf, x in zip(self.static, fed):
-            if buf is not None:
-                buf.copy_(x)
-        self.graph.replay()
-        return tuple(o.clone() for o in self.out)
-
-
-class ExecutableCache:
-    """Bounded LRU of search executables, explicitly keyed.
-
-    On the card an entry is a captured CUDA graph (:class:`_GraphEntry`).
-    A graph reads the buffers it was captured over at their addresses, so
-    the key is the caller's static knobs, the generation of the pack whose
-    buffers it reads (:attr:`PackedSegments.gen`), and, for every
-    ``resident`` tensor (the packed view's leaves, the live bitmap, the
-    blockmax bounds), its address, shape and dtype, and for every ``fed``
-    tensor (copied in at each call: the query operands, the predicate
-    mask) its shape and dtype.  A hit therefore always reads the current
-    buffers: an in-place append keeps the generation and the addresses (a
-    hit), a full repack makes a new generation (a miss, a new capture),
-    even where the allocator hands it the freed addresses again.
-    :func:`pack_segments` calls :meth:`drop` when a generation's buffers
-    are freed, so no graph (with its private memory pool) outlives the
-    pack it reads.  On the CPU an entry is the plain callable under the
-    same key.  ``compiles`` counts builds (captures on the card), ``hits``
-    reuses, ``evictions`` entries dropped past ``capacity``; ``drop`` does
-    not count as an eviction."""
-
-    def __init__(self, capacity: int = 64):
-        self.capacity = capacity
-        self._entries: "OrderedDict[Any, Any]" = OrderedDict()
-        self.hits = 0
-        self.compiles = 0
-        self.evictions = 0
-
-    @staticmethod
-    def _key(key, gen, resident, fed):
-        res = tuple((x.data_ptr(),) + _aval(x) for x in _tensors(resident, []))
-        return (gen, key, res, tuple(_aval(x) if isinstance(x, torch.Tensor) else x for x in fed))
-
-    def get(self, key, gen: int, build_fn: Callable[[], Callable], resident: Tuple[Any, ...],
-            fed: Tuple[Any, ...]):
-        """The entry for ``key`` over the buffers of pack generation ``gen``
-        and the arguments' layout, built from ``build_fn()`` (a function of
-        ``*resident, *fed``) on a miss.  Call it as ``entry(resident,
-        fed)``."""
-        full_key = self._key(key, gen, resident, fed)
-        hit = self._entries.get(full_key)
-        if hit is not None:
-            self._entries.move_to_end(full_key)
-            self.hits += 1
-            return hit
-        fn = build_fn()
-        if any(x.is_cuda for x in _tensors(fed, [])):
-            entry = _GraphEntry(fn, resident, fed)
-        else:
-            def entry(res, fd):
-                return fn(*res, *fd)
-        self.compiles += 1
-        self._entries[full_key] = entry
-        while len(self._entries) > self.capacity:
-            self._entries.popitem(last=False)
-            self.evictions += 1
-        return entry
-
-    def drop(self, gen: int) -> None:
-        """Forget every entry over pack generation ``gen`` (its buffers were
-        freed)."""
-        for full_key in [fk for fk in self._entries if fk[0] == gen]:
-            del self._entries[full_key]
-
-    def clear(self) -> None:
-        self._entries.clear()
-        self.hits = self.compiles = self.evictions = 0
-
-    def stats(self) -> dict:
-        return {"entries": len(self._entries), "hits": self.hits, "compiles": self.compiles,
-                "evictions": self.evictions}
-
-
 #: Process-wide cache shared by every packed reader (snapshots of one
 #: writer land in the same rungs, so sharing is the point).
 EXEC_CACHE = ExecutableCache()
-
-_GENERATIONS = itertools.count(1)
 
 
 # --------------------------------------------------------------------------
@@ -393,12 +255,11 @@ class PackedSegments:
     ``view`` is an index view of ``bucket`` rows: rows [0, n_rows) are the
     segments' rows in global-id order, rows [n_rows, bucket) zeros.
     ``live`` is liveDocs ∧ row < n_rows, the one bitmap the kernels take.
-    ``view`` is None once an in-place append has spent the buffers.
-    ``gen`` names the buffers: a full pack makes a new one, an in-place
-    append keeps it."""
+    ``view`` is None once an in-place append has spent the buffers; the
+    view object travels with the buffers through every in-place append, and
+    a full pack makes a new one, so it owns their cache entries."""
 
     view: Any
-    gen: int
     bucket: int
     n_rows: int                    # reader.max_doc (deleted rows included)
     n_live: int                    # reader.num_docs (live rows only)
@@ -473,7 +334,7 @@ def _try_append(config, views, prior: PackedSegments, names: Tuple[str, ...],
     # stale reader repacks instead of searching them.
     prior.view = prior.live = None
     return PackedSegments(
-        view=view, gen=prior.gen, bucket=bucket, n_rows=n_rows, n_live=n_live, live=live,
+        view=view, bucket=bucket, n_rows=n_rows, n_live=n_live, live=live,
         any_deleted=n_live < n_rows, seg_names=names, seg_rows=rows,
         appends=prior.appends + 1)
 
@@ -502,12 +363,10 @@ def pack_segments(config, views: Sequence[Any], segments: Sequence[Any],
         if inc is not None:
             return inc
     view = _packed_view(config, views, bucket)
-    gen = next(_GENERATIONS)
     # The view object carries the buffers through every in-place append:
     # when it is freed, so are the graphs captured over them.
-    weakref.finalize(view, EXEC_CACHE.drop, gen)
     return PackedSegments(
-        view=view, gen=gen, bucket=bucket, n_rows=n_rows, n_live=n_live,
+        view=view, bucket=bucket, n_rows=n_rows, n_live=n_live,
         live=torch.from_numpy(live_np).to(view.device), any_deleted=n_live < n_rows,
         seg_names=names, seg_rows=rows)
 
@@ -605,4 +464,4 @@ def packed_search(
 
     key = ("search", matcher, d_eff, k_out, rerank, quantized, use_filt, n_keep)
     resident, fed = (pk.view, pk.live, bm), (q_rep, q_norm, fm_arg)
-    return EXEC_CACHE.get(key, pk.gen, build, resident, fed)(resident, fed)
+    return EXEC_CACHE.get(key, pk.view, build, resident, fed)(resident, fed)

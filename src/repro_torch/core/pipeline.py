@@ -11,7 +11,8 @@ a CPU index its plain version.
 Filtered search: every matcher takes ``filt``, a per-doc keep bitmap ((N,)
 shared or (B, N) per query), and passes it to its kernel, which masks the
 docs inside its score pass (masked slots are (-inf, -1)); the k-d tree's DFS
-masks its candidates after the search.  :class:`FilterMask` wraps a matcher
+masks its candidates after the search; the graph's traversal keeps masked
+nodes traversable and never emits them.  :class:`FilterMask` wraps a matcher
 with a mask of its own.  The caller's mask (bool, uint8 or int32; a tensor
 or a numpy array; nonzero = keep) becomes a contiguous bool tensor on the
 index's device once, in :func:`as_filter`.
@@ -23,10 +24,11 @@ from typing import Any, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.core import blockmax, bruteforce, fakewords, kdtree, lexical_lsh
+from repro_torch.core import blockmax, bruteforce, fakewords, graph, kdtree, lexical_lsh
 from repro_torch.core.types import (
     BruteForceConfig,
     FakeWordsConfig,
+    GraphConfig,
     KdTreeConfig,
     LexicalLshConfig,
     SearchParams,
@@ -34,7 +36,7 @@ from repro_torch.core.types import (
 from repro_torch.kernels.common import stable_topk
 from repro_torch.kernels.fused_topk import ops as fused
 
-AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, KdTreeConfig, BruteForceConfig]
+AnyConfig = Union[FakeWordsConfig, LexicalLshConfig, KdTreeConfig, BruteForceConfig, GraphConfig]
 
 
 # --------------------------------------------------------------------------
@@ -72,7 +74,7 @@ class ReducedPointEncoder:
 
 @dataclasses.dataclass(frozen=True)
 class IdentityEncoder:
-    """Brute force: the unit-normalized query itself."""
+    """Brute force and the graph: the unit-normalized query itself."""
 
     def __call__(self, index, q_norm: torch.Tensor) -> torch.Tensor:
         return q_norm
@@ -214,6 +216,29 @@ class CosineMatcher:
         if index.pq is not None:
             return fused.postings_topk(index.pq, q_norm.contiguous(), d, filt=filt)
         return fused.cosine_topk(index.vectors, q_norm.contiguous(), d, filt=filt)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphMatcher:
+    """Batched beam search over the proximity graph
+    (:func:`repro_torch.core.graph.search_graph`): a query scores about
+    ``iters * beam * total_degree`` rows on K3, whatever N.  ``filt``
+    (liveDocs and any predicate) is consulted inside the traversal: masked
+    nodes stay traversable and are never emitted.  On the card the
+    traversal is one CUDA graph per shape and index.  It has no blockmax
+    stage: ``AnnIndex`` refuses ``blockmax_keep`` for it."""
+
+    ef: int = 64
+    beam: int = 4
+    iters: int = 32
+
+    def __call__(
+        self, index, q_norm: torch.Tensor, depth: int, filt: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        d = min(depth, index.num_docs)
+        return graph.search_graph(index.vectors, index.neighbors, index.entry, q_norm, d,
+                                  ef=self.ef, beam=self.beam, iters=self.iters,
+                                  n_docs=index.num_docs, filt=filt)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -368,9 +393,9 @@ def make_encoder(config: AnyConfig):
         return MinHashEncoder(config)
     if isinstance(config, KdTreeConfig):
         return ReducedPointEncoder()
-    if isinstance(config, BruteForceConfig):
+    if isinstance(config, (BruteForceConfig, GraphConfig)):
         return IdentityEncoder()
-    raise TypeError(f"config {type(config).__name__} is not ported yet (ROADMAP.md, queue A)")
+    raise TypeError(f"unknown config {type(config)}")
 
 
 def make_matcher(config: AnyConfig):
@@ -382,7 +407,9 @@ def make_matcher(config: AnyConfig):
         return KdTreeMatcher() if config.backend == "tree" else KdScanMatcher()
     if isinstance(config, BruteForceConfig):
         return CosineMatcher()
-    raise TypeError(f"config {type(config).__name__} is not ported yet (ROADMAP.md, queue A)")
+    if isinstance(config, GraphConfig):
+        return GraphMatcher(ef=config.ef, beam=config.beam, iters=config.search_iters)
+    raise TypeError(f"unknown config {type(config)}")
 
 
 def build_pipeline(config: AnyConfig) -> SearchPipeline:

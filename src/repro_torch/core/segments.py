@@ -37,7 +37,10 @@ the live corpus returns:
     ``builder.classic_scored`` (row-local);
   * k-d tree: the reduction refits on the concatenated live originals and
     every segment re-projects through it;
-  * lexical LSH, brute force: signatures and unit rows carry none.
+  * lexical LSH, brute force: signatures and unit rows carry none;
+  * the graph: each segment keeps its own adjacency and is searched by its
+    own traversal (liveDocs mask its result list only), so a segmented
+    graph search is approximate in its own way, not a monolithic build's.
 
 Integer scores (dot, LSH) and classic's bf16 products are then bit-equal
 to the monolithic build's.  f32 scores (brute force, the kd scan) may
@@ -404,8 +407,9 @@ class SegmentedAnnIndex:
                 views.append(dataclasses.replace(s.ann.index, reduced=red, reduction=model,
                                                  lifted=fused.lift_l2(red)))
             return views
-        # LSH signatures and brute-force unit rows carry no collection
-        # statistics: the stored index is the view.
+        # LSH signatures, brute-force unit rows and the graph (its
+        # adjacency is the segment's own) carry no collection statistics:
+        # the stored index is the view.
         return [s.ann.index for s in segs]
 
     # -- packed single-launch path ------------------------------------------

@@ -1,7 +1,7 @@
 """Typed configuration and index containers (port of ``repro/core/types.py``).
 
-Only what the fake-words, lexical-LSH, k-d tree and brute-force paths need,
-with the quantized stores of the read path (int8/int4 primary postings, the
+The configs and containers of every encoding (fake words, lexical LSH, the
+k-d tree, brute force and the proximity graph), with the quantized stores of the read path (int8/int4 primary postings, the
 int8 rerank store) and the per-document metadata of filtered search.
 Configs are frozen dataclasses; index containers hold tensors on one device.
 """
@@ -117,6 +117,68 @@ class KdTreeConfig:
 class BruteForceConfig:
     """Exact cosine scan over the stored unit vectors (the ground truth as a
     method)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphConfig:
+    """Flat navigable-graph encoding (user-facing method name ``"hnsw"``).
+
+    A single-layer Vamana-style proximity graph, not a literal multi-layer
+    HNSW: fixed-degree int32 adjacency and a fixed-iteration batched beam
+    search keep every shape static (:mod:`repro_torch.core.graph`).  A
+    query scores about ``entries + iters * beam * total_degree`` rows,
+    sublinear in N.
+
+    degree:          forward edges per node (alpha-pruned nearest-out).
+    reverse_degree:  extra slots filled with reverse edges; total fixed
+                     degree = degree + reverse_degree; absent edges are -1.
+    ef_construction: exact-kNN candidate pool size per node at build time.
+    alpha:           Vamana robust-prune slack (1.0 = pure greedy prune).
+    ef:              search-time candidate list size.
+    beam:            nodes expanded per traversal iteration.
+    iters:           traversal iterations; 0 derives ``ceil(2 * ef / beam)``.
+    entries:         entry points seeding the search (medoid + strided).
+    build_tile:      the reference's doc tile of its exact-kNN pass; the
+                     port's pools run on K1, which tiles on its own, so it
+                     only round-trips through ``config.json``.
+    """
+
+    degree: int = 16
+    reverse_degree: int = 16
+    ef_construction: int = 64
+    alpha: float = 1.2
+    ef: int = 64
+    beam: int = 4
+    iters: int = 0
+    entries: int = 4
+    build_tile: int = 2048
+
+    def __post_init__(self) -> None:
+        if self.degree < 1:
+            raise ValueError(f"degree must be >= 1, got {self.degree}")
+        if self.reverse_degree < 0:
+            raise ValueError("reverse_degree must be >= 0")
+        if self.ef_construction < self.degree:
+            raise ValueError(
+                f"ef_construction {self.ef_construction} < degree {self.degree}")
+        if self.alpha < 1.0:
+            raise ValueError(f"alpha must be >= 1.0, got {self.alpha}")
+        if self.ef < 1 or self.beam < 1 or self.entries < 1:
+            raise ValueError("ef, beam and entries must be >= 1")
+        if self.iters < 0:
+            raise ValueError("iters must be >= 0 (0 = derive from ef/beam)")
+        if self.build_tile < 1:
+            raise ValueError("build_tile must be >= 1")
+
+    @property
+    def total_degree(self) -> int:
+        return self.degree + self.reverse_degree
+
+    @property
+    def search_iters(self) -> int:
+        if self.iters:
+            return self.iters
+        return max(1, -(-2 * self.ef // self.beam))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -376,3 +438,38 @@ class FlatIndex:
 
     def nbytes(self) -> int:
         return _nbytes(self.vectors, self.vq, self.pq)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphIndex:
+    """Flat proximity-graph index.
+
+    vectors:   (N, dim) float32 unit rows: the match operand (each
+               neighbour block is scored exactly from it by K3) and the
+               rerank store, so graph scores are exact cosines and only
+               the set of visited rows is approximate.
+    neighbors: (N, degree + reverse_degree) int32 adjacency; -1 = no edge.
+    entry:     (entries,) int32 entry points: the medoid (the row whose dot
+               with the corpus mean is largest), then strided rows.
+    vq:        int8 :class:`QuantizedStore` rerank store, or None.
+    """
+
+    vectors: torch.Tensor
+    neighbors: torch.Tensor
+    entry: torch.Tensor
+    vq: Optional[QuantizedStore] = None
+
+    @property
+    def num_docs(self) -> int:
+        return self.vectors.shape[0]
+
+    @property
+    def total_degree(self) -> int:
+        return self.neighbors.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.vectors.device
+
+    def nbytes(self) -> int:
+        return _nbytes(self.vectors, self.neighbors, self.entry, self.vq)

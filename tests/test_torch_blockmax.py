@@ -195,8 +195,8 @@ def test_index_from_numpy_keeps_blockmax_knobs(tmp_path):
 
 def test_unported_blockmax_variants_raise(tmp_path):
     """A signed store never reaches blockmax: the config refuses it; nor do
-    arrays of an unknown store: the loader refuses them (quantized blockmax
-    is in test_torch_quantized.py)."""
+    arrays of no store of the method: the loader refuses them, naming them
+    (quantized blockmax is in test_torch_quantized.py)."""
     x, _ = _data(n=300)
     with pytest.raises(NotImplementedError, match="signed_store"):
         FakeWordsConfig(scoring="dot", signed_store=True)
@@ -208,7 +208,7 @@ def test_unported_blockmax_variants_raise(tmp_path):
         arrays = {name: z[name] for name in z.files}
     arrays["pq.codes"] = np.zeros((300, 64), np.int8)
     dtypes = dict(meta["dtypes"], **{"pq.codes": "int8"})
-    with pytest.raises(NotImplementedError, match="pq.codes"):
+    with pytest.raises(ValueError, match="pq.codes"):
         index_from_numpy(meta["method"], meta["config"], arrays, dtypes, device="cpu",
                          blockmax_keep=meta["blockmax_keep"],
                          blockmax_block_size=meta["blockmax_block_size"])

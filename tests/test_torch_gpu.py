@@ -1395,3 +1395,133 @@ def test_cuda_no_stale_graph_over_a_donated_prior():
     assert torch.equal(i0.cpu(), l0[1].cpu()) and torch.equal(s0.cpu(), l0[0].cpu())
     l1 = r1.search(q, packed=False)
     assert torch.equal(i1.cpu(), l1[1].cpu())
+
+
+# -- the proximity graph ("hnsw") ----------------------------------------------
+
+
+def _graph_ints(n: int, t: int, seed: int):
+    """Integer-valued rows in {-2, ..., 2} (every f32 product and sum exact,
+    split TF32 too) with some duplicate rows, as numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2, 3, size=(n, t)).astype(np.float32)
+    dup = min(50, n // 4)
+    x[n // 2:n // 2 + dup] = x[:dup]
+    return x
+
+
+@pytest.mark.gpu
+def test_cuda_graph_integer_build_and_search_equal_cpu_route():
+    """K1's pools and K3's blocks on integer-valued rows: the build
+    (adjacency, entry points) and the search (ids, scores, scored rows, with
+    and without a mask) on the card equal the CPU route's bit for bit."""
+    from repro_torch.core import graph
+    from repro_torch.core.types import GraphConfig
+
+    dev = cuda_device()
+    x = _graph_ints(6000, 48, seed=1)
+    q = _graph_ints(40, 48, seed=2)
+    cfg = GraphConfig(ef=48, beam=4)
+    xc, xg = torch.from_numpy(x), torch.from_numpy(x).to(dev)
+    m = cfg.ef_construction
+    pools_c, pools_g = graph._knn_pools(xc, m), graph._knn_pools(xg, m)
+    for c, g in zip(pools_c, pools_g):
+        assert torch.equal(g.cpu(), c), "pools"
+    fwd_c = graph._prune_all(*pools_c, xc, cfg.degree, cfg.alpha)
+    fwd_g = graph._prune_all(*pools_g, xg, cfg.degree, cfg.alpha)
+    for c, g in zip(fwd_c, fwd_g):
+        assert torch.equal(g.cpu(), c), "prune"
+    rev_c = graph._reverse_edges(fwd_c[1], fwd_c[0], 6000, cfg.reverse_degree)
+    rev_g = graph._reverse_edges(fwd_g[1], fwd_g[0], 6000, cfg.reverse_degree)
+    assert torch.equal(rev_g.cpu(), rev_c), "reverse edges"
+    assert torch.equal(graph._entry_points(xg, cfg.entries).cpu(),
+                       graph._entry_points(xc, cfg.entries)), "entry points"
+    nb_c, e_c = graph.build_graph(xc, cfg)
+    nb_g, e_g = graph.build_graph(xg, cfg)
+    assert torch.equal(nb_g.cpu(), nb_c) and torch.equal(e_g.cpu(), e_c)
+    mask = torch.from_numpy(np.random.default_rng(3).random(6000) < 0.3)
+    for filt in (None, mask):
+        want = graph.search_graph(torch.from_numpy(x), nb_c, e_c, torch.from_numpy(q), 30,
+                                  ef=cfg.ef, beam=cfg.beam, iters=cfg.search_iters,
+                                  n_docs=6000, filt=filt, with_stats=True)
+        args = (torch.from_numpy(x).to(dev), nb_g, e_g, torch.from_numpy(q).to(dev),
+                None if filt is None else filt.to(dev))
+        knobs = dict(ef=cfg.ef, beam=cfg.beam, iters=cfg.search_iters, n_docs=6000)
+        eager = graph._traverse(*args, depth=30, **knobs)  # op by op
+        captured = graph.search_graph(*args[:4], 30, filt=args[4], with_stats=True, **knobs)
+        for got in (eager, captured):
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.gpu
+def test_cuda_graph_unit_rows_match_plain_traversal_and_capture():
+    """Unit rows at 20,000 x 300: on one adjacency, the traversal on K3
+    gives the ids of the same traversal with K3's plain version (f32 sums in
+    another order: a divergence may only come from a near tie, none here);
+    the captured traversal equals the eager one bit for bit and replays
+    without new captures; the facade's search is that traversal; its
+    entries go when the index is freed."""
+    import types
+
+    from repro_torch.core import graph
+    from repro_torch.core.types import GraphConfig
+
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.nn.functional.normalize(torch.randn((20_000, 300), generator=g, device=dev), dim=1)
+    q = torch.nn.functional.normalize(
+        x[:64] + 0.05 * torch.randn((64, 300), generator=g, device=dev), dim=1)
+    cfg = GraphConfig()
+    idx = AnnIndex.build(x, cfg, normalized=True, device=dev)
+    gi = idx.index
+    knobs = dict(ef=cfg.ef, beam=cfg.beam, iters=cfg.search_iters, n_docs=20_000)
+    eager = graph._traverse(gi.vectors, gi.neighbors, gi.entry, q, None, depth=100, **knobs)
+    plain_ops = types.SimpleNamespace(
+        cosine_topk=graph.fused.cosine_topk,
+        fused_topk_gathered=lambda q, store, row_ids, depth, n_docs: ref.gathered_topk_ref(
+            q, ref.gather_rows(store, row_ids, n_docs), row_ids, depth, n_docs))
+    kept, graph.fused = graph.fused, plain_ops
+    try:
+        plain = graph._traverse(gi.vectors, gi.neighbors, gi.entry, q, None, depth=100, **knobs)
+    finally:
+        graph.fused = kept
+    assert torch.equal(eager[1], plain[1])
+    torch.testing.assert_close(eager[0], plain[0], rtol=1e-5, atol=1e-5)
+    graph.TRAVERSAL_CACHE.clear()
+    for _ in range(3):
+        captured = graph.search_graph(gi.vectors, gi.neighbors, gi.entry, q, 100, **knobs)
+        assert torch.equal(captured[0], eager[0]) and torch.equal(captured[1], eager[1])
+    stats = graph.TRAVERSAL_CACHE.stats()
+    assert stats["compiles"] == 1 and stats["hits"] == 2, stats
+    s, i = idx.search(q, k=100, depth=100)  # normalises q once more
+    want = graph.search_graph(gi.vectors, gi.neighbors, gi.entry, bruteforce.l2_normalize(q),
+                              100, **knobs)
+    assert torch.equal(s, want[0]) and torch.equal(i, want[1])
+    del idx, gi
+    import gc
+    gc.collect()
+    assert graph.TRAVERSAL_CACHE.stats()["entries"] == 0  # freed with the adjacency
+
+
+@pytest.mark.gpu
+def test_cuda_graph_save_and_load(tmp_path):
+    """A graph index built on the card, saved, loaded on the card and on
+    the CPU: searches bit-equal on the card, ids equal on the CPU route."""
+    from repro_torch.core.types import GraphConfig
+
+    dev = cuda_device()
+    x = np.random.default_rng(7).normal(size=(5000, 64)).astype(np.float32)
+    idx = AnnIndex.build(x, GraphConfig(ef=48), rerank_store="int8", device=dev)
+    q = x[:16] + 0.01
+    want = idx.search(q, k=10, depth=50, rerank=True)
+    path = str(tmp_path / "graph.ann")
+    idx.save(path)
+    back = AnnIndex.load(path, device=dev)
+    got = back.search(q, k=10, depth=50, rerank=True)
+    assert back.method == "hnsw" and back.quantized_rerank
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cpu = AnnIndex.load(path, device="cpu")
+    assert torch.equal(cpu.index.neighbors, idx.index.neighbors.cpu())
+    assert_topk_match(cpu.search(q, k=10, depth=50), tuple(
+        t.cpu() for t in idx.search(q, k=10, depth=50)), exact=False)

@@ -95,15 +95,14 @@ def test_index_from_numpy_searches_a_jax_built_index_identically(tmp_path, metho
 
 
 def test_index_from_numpy_rejects_unported_stores(tmp_path):
-    """The graph's neighbour lists (ROADMAP queue A item 7) are not ported;
-    the metadata store (item 4, test_torch_filtered.py), the int8 / int4
-    stores (test_torch_quantized.py) and the segments' per-segment saves
-    (item 5, test_torch_segments.py) are, but packed arrays need the ``pq``
-    metadata that ``config.json`` records."""
+    """Every method is ported: "hnsw" (the graph) loads, an unknown method
+    raises ValueError as the reference's ``_rebuild_index`` does, and so do
+    arrays that belong to no store of the method (named) and packed arrays
+    without the ``pq`` metadata that ``config.json`` records."""
     x, _ = _data(n=300)
     _, meta, arrays = _saved(tmp_path, "classic", x)
     extra = dict(arrays, **{"neighbors": np.zeros((300, 8), np.int32)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="'neighbors'"):
         index_from_numpy(meta["method"], meta["config"], extra,
                          dict(meta["dtypes"], **{"neighbors": "int32"}), device="cpu")
     packed = dict(arrays, **{"pq.q": np.zeros((300, 128), np.int8),
@@ -112,8 +111,23 @@ def test_index_from_numpy_rejects_unported_stores(tmp_path):
         index_from_numpy(meta["method"], meta["config"], packed,
                          dict(meta["dtypes"], **{"pq.q": "int8", "pq.scale": "float32"}),
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        index_from_numpy("hnsw", {}, {}, {}, device="cpu")
+    with pytest.raises(ValueError, match="unknown method 'ivf'"):
+        index_from_numpy("ivf", {}, {}, {}, device="cpu")
+    v = x / np.linalg.norm(x, axis=1, keepdims=True)
+    graph_arrays = {"vectors": v, "neighbors": np.full((300, 4), -1, np.int32),
+                    "entry": np.arange(2, dtype=np.int32)}
+    graph_arrays["neighbors"][:, 0] = (np.arange(300) + 1) % 300
+    idx = index_from_numpy("hnsw", {"degree": 2, "reverse_degree": 2, "ef_construction": 4,
+                                    "entries": 2},
+                           graph_arrays, {"vectors": "float32", "neighbors": "int32",
+                                          "entry": "int32"}, device="cpu")
+    assert idx.method == "hnsw" and idx.num_docs == 300 and idx.config.total_degree == 4
+    s, i = idx.search(v[:3], k=5, depth=5)
+    assert i.shape == (3, 5) and bool((i >= 0).all()) and bool((s[:, 1:] <= s[:, :-1]).all())
+    with pytest.raises(ValueError, match="'pq.q'"):
+        index_from_numpy("hnsw", {}, dict(graph_arrays, **{"pq.q": packed["pq.q"]}),
+                         {"vectors": "float32", "neighbors": "int32", "entry": "int32",
+                          "pq.q": "int8"}, device="cpu")
 
 
 def test_default_device_is_cuda_and_raises_without_one(monkeypatch):

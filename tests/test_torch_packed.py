@@ -296,7 +296,7 @@ def test_packed_blockmax_exact_at_full_keep(rng):
 def test_cache_entries_die_with_their_pack(rng):
     """A pack's cache entries go when its buffers are freed: classic
     refresh cycles (each a full repack) leave only the live snapshot's
-    entry, an in-place append keeps its pack's generation, and dropping
+    entry, an in-place append keeps its pack's view (the entries' owner), and dropping
     the last reader empties the cache."""
     cache = packed_mod.EXEC_CACHE
     cache.clear()
@@ -315,11 +315,12 @@ def test_cache_entries_die_with_their_pack(rng):
     w = _writer(LSH, "fp32", "exact", 1, rng, seg_docs=600)
     reader = w.refresh()
     reader.search(queries, k=10, depth=50, packed=True)
-    gen = reader.packed_segments().gen
+    owner = reader.packed_segments().view
     w.add(rng.normal(size=(20, 32)).astype(np.float32))
     reader = w.refresh()
     reader.search(queries, k=10, depth=50, packed=True)
-    assert reader.packed_segments().gen == gen and reader.packed_segments().appends == 1
+    assert reader.packed_segments().view is owner and reader.packed_segments().appends == 1
+    del owner
     assert cache.stats()["entries"] == 1 and cache.hits == 1
     del reader
     w._reader = None
@@ -345,15 +346,22 @@ def test_packed_unsupported_falls_back_and_true_raises(rng):
 
 
 def test_executable_cache_lru_bounds():
+    """LRU past ``capacity``; the key holds the resident buffers' addresses
+    and the owner; an owner's entries go when it is freed (no eviction)."""
+    import gc
+
     cache = packed_mod.ExecutableCache(capacity=2)
     x = torch.zeros(3)
+    owner, other = torch.zeros(1), torch.zeros(1)
     for depth in (1, 2, 3):
-        cache.get(("k", depth), 1, lambda: (lambda a, b: a + b), (x,), (x,))
-    assert cache.stats() == {"entries": 2, "hits": 0, "compiles": 3, "evictions": 1}
-    cache.get(("k", 3), 1, lambda: None, (x,), (x,))
+        cache.get(("k", depth), owner, lambda: (lambda a, b: a + b), (x,), (x,))
+    assert cache.stats() == {"entries": 2, "hits": 0, "compiles": 3, "evictions": 1,
+                             "pool_bytes": 0}
+    cache.get(("k", 3), owner, lambda: None, (x,), (x,))
     assert cache.hits == 1
-    cache.get(("k", 3), 1, lambda: (lambda a, b: a), (torch.zeros(3),), (x,))  # other buffer
-    cache.get(("k", 3), 2, lambda: (lambda a, b: a), (x,), (x,))  # other generation
+    cache.get(("k", 3), owner, lambda: (lambda a, b: a), (torch.zeros(3),), (x,))  # other buffer
+    cache.get(("k", 3), other, lambda: (lambda a, b: a), (x,), (x,))  # other owner
     assert cache.compiles == 5
-    cache.drop(1)
+    del owner
+    gc.collect()
     assert cache.stats()["entries"] == 1 and cache.evictions == 3
