@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --pair-parent DIR   # K1-K9 against the tree in DIR, then stop
     python3 chip_smoke.py --ablate [DIR]      # kernels with parts cut out (K2, K8, K3, K5 also DIR's)
+    python3 chip_smoke.py --capture-modes     # a capture while another thread copies to the card
 
 1. Builds the CUDA kernels from ``src/repro_torch/kernels/*/csrc`` with nvcc
    (sm_90a) and prints the build time and the compiler's register report,
@@ -211,6 +212,21 @@
    both sides' scored rows printed; ``force_merge(1)`` equal to the
    monolithic build bit for bit); and save / load of a 100,000-row graph
    index, with its R@10.
+15. Serving (``serve/ann_service.py``, ``launch/serve.py``; ``drive_serve``,
+   after the filtered phase, on its classic fp32 index): 2,048 queries drawn
+   as the launcher draws them through ``AnnService`` at max_batch 1, 8, 64
+   and 256, match only bit-equal to ``AnnIndex.search`` on the same rows in
+   one batch, reranked under the near-tie rule, each batch size's p50 / p99
+   beside the facade's; the cache-hit time; the async micro-batcher in the
+   launcher's open loop (Zipf s = 1.1 over 256 queries, max_wait_s 2 ms,
+   queue_depth 256) at 1,000 QPS and near the rate the batch of 64
+   implies, search only, every result held to the sync service's; NRT
+   serving over full-N writers (LSH, classic: 90% of the rows first, then
+   32 rows, 4 deletes and a refresh every 200 requests), each starting with
+   a CUDA-graph capture forced to stand while another thread adds and
+   deletes, with zero stale cache hits, the refresh times and the captures
+   against replays; and the kd scan ("pca", in ``drive_kdtree``) and the
+   graph (in ``drive_graph``) through the sync and async service.
 
 Exits non-zero on any failure, or when no CUDA device is available.  The
 last two lines are a JSON object of per-kernel numbers and the JSON status
@@ -284,6 +300,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -292,6 +309,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -1811,6 +1829,18 @@ def main(argv) -> int:
     dev = torch.device("cuda", 0)
     card = gpu_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if argv[:1] == ["--capture-mode-trial"]:  # one trial, in a process of its own
+        print(json.dumps(capture_mode_trial(dev, argv[1])))
+        return 0
+    if argv[:1] == ["--capture-modes"]:  # what another thread's copy does to a capture
+        for mode in ("global", "thread_local"):
+            out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--capture-mode-trial", mode],
+                                 capture_output=True, text=True, timeout=300)
+            lines = out.stdout.strip().splitlines()
+            print(f"capture_error_mode={mode} (a fresh process, exit {out.returncode}; {card}): "
+                  + (lines[-1] if lines else out.stderr[-600:]))
+        return 0
     if argv[:1] == ["--pair-parent"]:  # K1-K5, K7 and K9 against an earlier tree's, then stop
         pair_k9(dev, card, argv[1])
         pair_parent(dev, card, argv[1])
@@ -1867,7 +1897,10 @@ def main(argv) -> int:
     drive_filtered(dev, card, x, qx, gt_i, idx, lidx, bm, md, masks, depth, k, config)
     filtered_s = time.perf_counter() - t0
     fw_recall = float(ev.recall_at(gt_i, idx.search(qx, k=depth, depth=depth)[1]))
-    del idx, lidx, bm
+    del lidx, bm
+    torch.cuda.empty_cache()
+    drive_serve(dev, card, x, idx, config, depth, k)
+    del idx
     torch.cuda.empty_cache()  # the fp32 indexes are gone: the later builds get the room
     kd_entry, kd = drive_kdtree(dev, card, x, qx, gt_i, depth, k, fw_recall)
     kernels.append(kd_entry)
@@ -4279,6 +4312,9 @@ def drive_kdtree(dev, card: str, x, qx, gt_i, depth: int, k: int, fw_recall: flo
               + "; ".join(f"B={bb} {v[0]:.3f} ms, with rerank {v[1]:.3f} ms"
                           for bb, v in times.items()))
 
+        if reduction == "pca":
+            serve_prebuilt(card, "kd scan (pca)", kidx, qx, depth, k, "fused_topk")
+
         # ---- the tree backend over the same points at B = 8 ----------------
         tcfg = KdTreeConfig(dims=8, reduction=reduction, backend="tree")
         t0 = time.perf_counter()
@@ -4885,6 +4921,7 @@ def drive_graph(dev, card: str, x, qx, gt_i, depth: int, k: int, masks: dict) ->
 
     entries = [_graph_k3_row(card, gi, qn, n, cfg, k3_launches),
                _graph_k1_row(card, gi.vectors, n, cfg.ef_construction + 1, pool_launches)]
+    serve_prebuilt(card, "hnsw", gidx, qx, depth, k, "fused_topk_gathered")
     del gidx, gi, nb, res, eager, plain
     graph.TRAVERSAL_CACHE.clear()
     torch.cuda.empty_cache()
@@ -5940,6 +5977,615 @@ def _seg_blockmax(label: str, reader, qx, depth: int, card: str) -> str:
             f"search (near-tie rule, max diff {err:.3g}); n_keep {keep}: "
             + ", ".join(f"B={bb} {t:.3f} ms" for bb, t in times.items())
             + f" (median of {RUNS}, CUDA events, {card})")
+
+
+# --------------------------------------------------------------------------
+# Serving (``repro_torch.serve.ann_service``, ``repro_torch.launch.serve``)
+# --------------------------------------------------------------------------
+
+SERVE_QUERIES = 2048  # the replayed stream, drawn as the launcher draws it (make_queries)
+SERVE_BATCHES = (1, 8, 64, 256)  # max_batch of the sync service; 64 is the launcher's
+SERVE_POOL = 256  # the open loop's Zipfian pool (the launcher's --query-pool)
+SERVE_ZIPF = 1.1
+SERVE_SECONDS = 10.0  # each open-loop rate, search only
+NRT_SECONDS = 5.0  # each NRT open loop (LSH, classic) at 1,000 QPS
+NRT_EVERY = 200  # requests between two mutations (the launcher's --mutate-every)
+CACHE_HITS = 20
+
+
+class _SnapshotTaggedCache(dict):
+    """A service's result cache that remembers the snapshot object each
+    entry was stored under (a weak reference) and counts the hits served
+    while another snapshot is bound (stale).  The service's key carries the
+    epoch, so this catches a snapshot that changed under an unchanged
+    epoch."""
+
+    def __init__(self, svc):
+        super().__init__()
+        self.svc, self.snaps, self.hits, self.stale = svc, {}, 0, 0
+
+    def __setitem__(self, key, value):
+        self.snaps[key] = weakref.ref(self.svc.ann)
+        super().__setitem__(key, value)
+
+    def __getitem__(self, key):
+        self.hits += 1
+        self.stale += self.snaps[key]() is not self.svc.ann
+        return super().__getitem__(key)
+
+    def move_to_end(self, key):  # the service's LRU calls: keep insertion order
+        value = super().pop(key)
+        super().__setitem__(key, value)
+
+    def popitem(self, last=True):
+        key = next(iter(self)) if not last else next(reversed(self))
+        self.snaps.pop(key, None)
+        return key, super().pop(key)
+
+
+def _service_only(fn):
+    """(fn(), launches, graph replays): the kernel wrappers' counts set to 0
+    just before ``fn`` and read just after it, and the CUDA graph replays
+    it made.  ``fn`` holds the service's own calls and nothing else: every
+    reference search runs outside it."""
+    _reset_launches()
+    out, replays = _replayed(fn)
+    return out, _launches(), replays
+
+
+def _served(path: str, kernel: str, counts: dict, replays: int = 0) -> int:
+    """Raises unless ``kernel`` alone ran in a service window: launched
+    there (a capture of the service's own counts), or, with ``replays``
+    allowed, replayed in a graph an earlier service call captured."""
+    others = {k: v for k, v in counts.items() if k != kernel and v}
+    if others or counts[kernel] + replays <= 0:
+        raise AssertionError(f"{path}: the service did not run through {kernel} alone: "
+                             f"{counts}, {replays} graph replays")
+    return counts[kernel]
+
+
+def _host_p(times_s) -> tuple:
+    """(p50, p99) in ms of host-clock samples."""
+    import numpy as np
+
+    ms = np.asarray(times_s, np.float64) * 1e3
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def _facade_wall(fn, runs: int) -> tuple:
+    """(p50, p99) ms of ``fn`` on the host clock, the card synchronised
+    before and after each call (what a caller of the facade waits)."""
+    fn()
+    times = []
+    for _ in range(runs):
+        times.append(_sync_s(fn)[1])
+    return _host_p(times)
+
+
+def _np_pair(pair):
+    import numpy as np
+
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in pair)
+
+
+def _capture_during_add(dev, svc, w, rows, victims, q) -> str:
+    """Force the async worker's first packed search (a CUDA-graph capture)
+    to stand mid-capture, held in the kernel wrapper, while this thread runs
+    ``w.add(rows)`` (a pageable copy to the card), ``w.delete(victims)`` and
+    device work of its own.  Raises unless all of it goes through: this
+    thread's stream is not capturing, the rows reach the card intact (a
+    recorded copy would not have run), the capture completes, the replayed
+    graph gives the worker's result bit for bit and the per-segment loop's
+    under the near-tie rule, and after ``refresh`` the rows are found."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import packed as packed_mod
+    from repro_torch.kernels.fused_topk import ops
+    from repro_torch.serve.ann_service import AnnService
+
+    capturing, added = threading.Event(), threading.Event()
+    real = ops.fused_topk
+
+    def held_mid_capture(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing() and not capturing.is_set():
+            capturing.set()
+            if not added.wait(300):
+                raise AssertionError("capture during add: the add never finished")
+        return real(*args, **kwargs)
+
+    cache = packed_mod.EXEC_CACHE
+    compiles = cache.compiles
+    ops.fused_topk = held_mid_capture
+    _reset_launches()  # the service's own window: up to the replay below
+    try:
+        svc.start_async()
+        fut = svc.search_async(q)
+        if not capturing.wait(300):
+            raise AssertionError("capture during add: the worker's search did not capture")
+        other_capturing = torch.cuda.is_current_stream_capturing()
+        t0 = time.perf_counter()
+        ids = w.add(rows)
+        newly = w.delete(victims)
+        on_card = w._buf[-1].cpu().numpy()
+        total = float(torch.as_tensor(rows, device=dev).double().sum())
+        add_ms = (time.perf_counter() - t0) * 1e3
+        added.set()
+        got = fut.result(timeout=300)
+        svc.stop_async()
+    finally:
+        ops.fused_topk = real
+        added.set()
+    if other_capturing or not np.array_equal(on_card, rows) or newly != len(victims) or abs(
+            total - float(rows.astype(np.float64).sum())) > 1e-6 * max(1.0, abs(total)):
+        raise AssertionError(f"capture during add: the other thread's work went wrong "
+                             f"(capturing {other_capturing}, newly deleted {newly})")
+    if cache.compiles != compiles + 1:
+        raise AssertionError(f"capture during add: {cache.compiles - compiles} captures")
+    uncached = AnnService(svc.ann, dataclasses.replace(svc.scfg, cache_size=0))
+    again, replays = _replayed(lambda: uncached.search_batch(q))  # the captured graph
+    launches = _served("capture during add", "fused_topk", _launches())
+    if replays != 1:
+        raise AssertionError(f"capture during add: {replays} graph replays, want 1")
+    if not (np.array_equal(again[0], got[0]) and np.array_equal(again[1], got[1])):
+        raise AssertionError("capture during add: the replay differs from the captured run")
+    loop = svc.ann.search(q, k=svc.scfg.k, depth=svc.scfg.depth, rerank=svc.scfg.rerank,
+                          packed=False)
+    err = compare("capture during add: the captured search vs the loop", _np_pair(got), loop,
+                  exact=False)
+    svc.refresh()
+    _, found = svc.search_batch(rows[:8])
+    if not np.array_equal(found[:, 0], ids[:8]):
+        raise AssertionError("capture during add: the added rows are not found after refresh")
+    return (f"capture during add: the worker held mid-capture while this thread added "
+            f"{rows.shape[0]} rows (pageable copy) and deleted {newly} in {add_ms:.1f} ms; this "
+            f"thread's stream not capturing; rows on the card intact; 1 capture (fused_topk "
+            f"launches {launches} in the service's window), its replay (a service without a "
+            f"result cache) bit-equal, the loop "
+            f"within {err:.3g}; the rows found after refresh")
+
+
+def _serve_sync(idx, qs, qs_dev, gt, depth: int, k: int, card: str) -> dict:
+    """The sync service over the monolithic ``idx`` at each max_batch of
+    SERVE_BATCHES, against ``AnnIndex.search`` on the same rows in one
+    batch: match only bit for bit, reranked under the near-tie rule (bit
+    equality printed); per-batch p50 / p99 beside the facade's at the same
+    B.  The kernel launches are counted around the service's own calls
+    alone.  Returns ({max_batch: per-batch p50 ms with rerank}, the
+    service's fused_topk launches)."""
+    import numpy as np
+
+    from repro_torch.core import eval as ev
+    from repro_torch.serve.ann_service import AnnService, AnnServiceConfig
+
+    p50s, lines, launched = {}, [], 0
+    for rerank in (False, True):
+        want = idx.search(qs_dev, k=k, depth=depth, rerank=rerank)
+        for mb in SERVE_BATCHES:
+            svc = AnnService(idx, AnnServiceConfig(k=k, depth=depth, rerank=rerank, max_batch=mb,
+                                                   latency_window=SERVE_QUERIES))
+            got, counts, _ = _service_only(lambda: svc.search_batch(qs))
+            launched += _served(f"serve sync max_batch={mb}", "fused_topk", counts)
+            bits = all(np.array_equal(g, w.cpu().numpy()) for g, w in zip(got, want))
+            err = compare(f"service classic max_batch={mb} rerank={rerank} vs AnnIndex.search "
+                          f"(B={len(qs)})", _np_pair(got), want, exact=not rerank)
+            if not rerank:
+                continue
+            st = svc.stats()
+            qb = qs_dev[:mb]
+            f50, f99 = _facade_wall(lambda: idx.search(qb, k=k, depth=depth, rerank=True),
+                                    min(len(qs) // mb, 64))
+            ev_ms = cuda_ms(lambda: idx.search(qb, k=k, depth=depth, rerank=True))
+            p50s[mb] = st["lat_p50_ms"]
+            lines.append(
+                f"max_batch {mb}: {st['batches']} batches, R@10 "
+                f"{float(ev.recall_at(gt, torch.from_numpy(got[1]))):.4f}, scores "
+                f"{'bit-equal' if bits else f'within {err:.3g}'}; service p50 / p99 "
+                f"{st['lat_p50_ms']:.3f} / {st['lat_p99_ms']:.3f} ms a batch, facade "
+                f"{f50:.3f} / {f99:.3f} ms (host clock, synchronised; CUDA events "
+                f"{ev_ms:.3f}): the service's own cost {st['lat_p50_ms'] - f50:.3f} ms")
+    print(f"serve sync (AnnService over the classic fp32 index with the exact rerank, "
+          f"{len(qs)} queries drawn as the launcher draws them; match only bit-equal to "
+          f"AnnIndex.search on the same rows in one batch at every max_batch, reranked under "
+          f"the near-tie rule; fused_topk launches {launched} in the service's calls; "
+          f"{card}): " + "; ".join(lines))
+    return p50s, launched
+
+
+def _serve_cache(idx, qs, depth: int, k: int, card: str, miss_p50: float) -> None:
+    import numpy as np
+
+    from repro_torch.serve.ann_service import AnnService, AnnServiceConfig
+
+    svc = AnnService(idx, AnnServiceConfig(k=k, depth=depth, rerank=True, max_batch=64,
+                                           cache_size=64))
+    first, counts, _ = _service_only(lambda: svc.search_batch(qs[:64]))
+    miss_launches = _served("serve cache, the miss", "fused_topk", counts)
+    svc.reset_latency()
+
+    def hits():
+        for _ in range(CACHE_HITS):
+            out = svc.search_batch(qs[:64])
+        return out
+
+    again, counts, replays = _service_only(hits)
+    if any(counts.values()) or replays:
+        raise AssertionError(f"serve cache: a hit ran a kernel: {counts}, {replays} replays")
+    if (svc.cache_hits, svc.cache_misses) != (CACHE_HITS, 1) or not all(
+            np.array_equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError(f"serve cache: hits {svc.cache_hits}, misses {svc.cache_misses}")
+    st = svc.stats()
+    print(f"serve cache (cache_size 64, max_batch 64, {CACHE_HITS} repeats of one batch): hits "
+          f"{svc.cache_hits} (no kernel launched), misses {svc.cache_misses} (fused_topk "
+          f"launches {miss_launches}), results bit-equal; a hit p50 / p99 "
+          f"{st['lat_p50_ms']:.3f} / {st['lat_p99_ms']:.3f} ms (encode on the card, key bytes "
+          f"copied to the host, SHA-1) against a miss p50 {miss_p50:.3f} ms (host clock, {card})")
+
+
+class _NoopService:
+    """A stand-in for the started async service whose ``search_async``
+    takes the query as the service does (a host copy) and returns a
+    resolved future: the open loop against it measures the submitting
+    thread alone."""
+
+    def search_async(self, query, filter=None):
+        import numpy as np
+        from concurrent.futures import Future
+
+        np.asarray(query).copy()
+        fut = Future()
+        fut.set_result(None)
+        return fut
+
+
+def _serve_async(idx, pool_q, depth: int, k: int, card: str, p50_64: float) -> None:
+    """The async micro-batcher over ``idx``, search only, open loop as the
+    launcher runs it, at 1,000 QPS and near the rate the sync service's
+    batch of 64 implies; every future's result held to the sync service's
+    row for its query (near-tie rule).  The kernel launches are counted
+    around each open loop alone.  Where the submitting thread's time goes:
+    the seconds it spent inside accepted and inside shed ``search_async``
+    calls, and the same loop against a no-op ``search_async``."""
+    import queue as queue_mod
+
+    import numpy as np
+
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve.ann_service import AnnService, AnnServiceConfig
+
+    scfg = AnnServiceConfig(k=k, depth=depth, rerank=True, max_batch=64, max_wait_s=0.002,
+                            queue_depth=256, latency_window=1 << 17)
+    svc = AnnService(idx, scfg)
+    table = svc.search_batch(pool_q)
+    rng = np.random.default_rng(13)
+    sample = launch.zipf_sampler(rng, len(pool_q), SERVE_ZIPF)
+    svc.reset_latency()
+    seq = launch.sequential_qps(svc, pool_q, sample(512))
+    implied = 0.9 * 64 / (p50_64 / 1e3)
+    lines = []
+    for rate in (1000.0, float(round(implied, -2))):
+        drawn, sent_idx = [], []
+        took = {"sent": 0.0, "shed": 0.0, "shed_max": 0.0}
+
+        def recorded(m):
+            r = sample(m)
+            drawn.extend(int(v) for v in r)
+            return r
+
+        submit = svc.search_async
+
+        def tracked(q, filter=None):
+            t0 = time.perf_counter()
+            try:
+                f = submit(q, filter)
+            except queue_mod.Full:
+                dt = time.perf_counter() - t0
+                took["shed"] += dt
+                took["shed_max"] = max(took["shed_max"], dt)
+                raise
+            took["sent"] += time.perf_counter() - t0
+            sent_idx.append(drawn[-1])
+            return f
+
+        svc.search_async = tracked
+        svc.reset_latency()
+        launches0, rejected0 = svc.async_launches, svc.rejected
+
+        def run():
+            svc.start_async()
+            out = launch.open_loop(svc, pool_q, recorded, rate, SERVE_SECONDS)
+            svc.stop_async()
+            return out
+
+        (futs, sent, shed, elapsed, lag), counts, replays = _service_only(run)
+        fused = _served(f"serve async at {rate:.0f} QPS", "fused_topk", counts)
+        del svc.search_async
+        got = [f.result() for f in futs]
+        rows = np.asarray(sent_idx)
+        compare(f"serve async at {rate:.0f} QPS vs the sync service",
+                _np_pair((np.concatenate([g[0] for g in got]),
+                          np.concatenate([g[1] for g in got]))),
+                _np_pair((table[0][rows], table[1][rows])), exact=False)
+        st = svc.stats()
+        launches = svc.async_launches - launches0
+        if shed != svc.rejected - rejected0 or sent != len(futs):
+            raise AssertionError("serve async: shed / sent counts disagree")
+        _, _, _, alone_s, alone_lag = launch.open_loop(_NoopService(), pool_q, sample, rate,
+                                                       min(SERVE_SECONDS, 3.0))
+        lines.append(f"offered {rate:.0f} QPS: sent {sent}, shed {shed}, the submitting "
+                     f"thread at most {lag * 1e3:.1f} ms behind its schedule, sustained "
+                     f"{len(futs) / elapsed:.1f} QPS, request p50 / p99 {st['req_p50_ms']:.3f} / "
+                     f"{st['req_p99_ms']:.3f} ms, {launches} launches, "
+                     f"{len(futs) / max(1, launches):.1f} queries a launch, batch p50 "
+                     f"{st['lat_p50_ms']:.3f} ms, fused_topk launches {fused}; the submitting "
+                     f"thread spent {took['sent']:.3f} s inside {sent} accepted search_async "
+                     f"calls and {took['shed']:.3f} s inside {shed} shed ones (the longest "
+                     f"{took['shed_max'] * 1e3:.3f} ms); the same loop against a no-op "
+                     f"search_async: {min(SERVE_SECONDS, 3.0) * rate / alone_s:.1f} arrivals/s, "
+                     f"at most {alone_lag * 1e3:.1f} ms behind")
+    print(f"serve async (search only; AnnService max_batch 64, max_wait_s 2 ms, queue_depth 256; "
+          f"open loop of {SERVE_SECONDS:.0f} s, Zipf s = {SERVE_ZIPF} over {len(pool_q)} "
+          f"queries; every result equal to the sync service's row (near-tie rule); sequential "
+          f"one query a launch {seq:.1f} QPS; the batch of 64 implies {implied:.0f} QPS; "
+          f"host clock; {card}): " + "; ".join(lines))
+
+
+def _serve_nrt(dev, card: str, label: str, cfg, x, pool_q, depth: int, k: int) -> None:
+    """NRT serving as the launcher's open loop runs it: a full-N writer with
+    90% of the rows in its first add, at 1,000 QPS for NRT_SECONDS with a
+    32-row add, 4 deletes and ``refresh()`` every NRT_EVERY requests; after
+    each refresh the added rows are searched (found at rank 1) and a fixed
+    batch twice: the second a cache hit, held bit for bit to a service with
+    no cache bound to the same snapshot.  Stale hits (an entry served while
+    another snapshot object is bound) must be zero; captures, replays and
+    refresh times printed.  The kernel launches and graph replays are
+    counted around the service's own calls alone (the open loop and its
+    mutations).  Starts with the forced capture-during-add case."""
+    import numpy as np
+
+    from repro_torch.core import packed as packed_mod
+    from repro_torch.core.segments import IndexWriter
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve.ann_service import AnnService, AnnServiceConfig
+
+    cache = packed_mod.EXEC_CACHE
+    cache.clear()
+    n = x.shape[0]
+    n0 = int(n * 0.9)
+    tail = x[n0:].cpu().numpy()
+    w = IndexWriter(cfg, device=dev)
+    w.add(x[:n0])
+    scfg = AnnServiceConfig(k=k, depth=depth, rerank=True, max_batch=64, max_wait_s=0.002,
+                            queue_depth=256, cache_size=64, latency_window=1 << 17)
+    svc, first_s = _sync_s(lambda: AnnService(writer=w, service=scfg))
+    tagged = _SnapshotTaggedCache(svc)
+    svc._cache = tagged
+    rng = np.random.default_rng(13)
+    forced = _capture_during_add(dev, svc, w, tail[:32], rng.choice(n0, 4, replace=False),
+                                 pool_q[:3])
+    plain = AnnService(svc.ann, dataclasses.replace(scfg, cache_size=0))
+    ptr = [32]
+    refresh_ms, visible_ms = [], []
+    stats0 = dict(cache.stats())
+
+    def mutate():
+        w.delete(rng.choice(n0 + ptr[0], size=4, replace=False))  # rows added before
+        new = tail[ptr[0]:ptr[0] + 32]
+        w.add(new)
+        ptr[0] += 32
+        _, took = _sync_s(svc.refresh)
+        (_, got), first = _sync_s(lambda: svc.search_batch(new[:8]))  # packs, may capture
+        # the newest live rows, in global ids (a merge may have remapped add's ids)
+        if not np.array_equal(got[:, 0], svc.ann.live_global_ids()[-32:][:8]):
+            raise AssertionError(f"NRT {label}: added rows not visible after refresh")
+        refresh_ms.append(took * 1e3)
+        visible_ms.append((took + first) * 1e3)
+        svc.search_batch(pool_q[:64])
+        hits0 = svc.cache_hits
+        hit = svc.search_batch(pool_q[:64])  # same snapshot: a hit
+        plain.set_index(svc.ann)
+        fresh = plain.search_batch(pool_q[:64])
+        if svc.cache_hits != hits0 + 1 or not all(
+                np.array_equal(a, b) for a, b in zip(hit, fresh)):
+            raise AssertionError(f"NRT {label}: after refresh {len(refresh_ms)} the cached "
+                                 f"batch differs from an uncached search of the same snapshot")
+
+    sample = launch.zipf_sampler(rng, len(pool_q), SERVE_ZIPF)
+    svc.reset_latency()
+
+    def run():
+        svc.start_async()
+        out = launch.open_loop(svc, pool_q, sample, 1000.0, NRT_SECONDS, NRT_EVERY, mutate)
+        svc.stop_async()
+        return out
+
+    (futs, sent, shed, elapsed, lag), launches, replays = _service_only(run)
+    fused = _served(f"NRT {label}", "fused_topk", launches, replays)
+    for f in futs:
+        s, i = f.result()
+        if s.shape != (1, k) or not np.isfinite(s).all() or not ((i >= 0).all()):
+            raise AssertionError(f"NRT {label}: a bad result row")
+    st = svc.stats()
+    hit = svc.search_batch(pool_q[:64])
+    plain.set_index(svc.ann)
+    fresh = plain.search_batch(pool_q[:64])
+    if not all(np.array_equal(a, b) for a, b in zip(hit, fresh)):
+        raise AssertionError(f"NRT {label}: a cached result differs from a fresh search")
+    loop = svc.ann.search(pool_q[:64], k=k, depth=depth, rerank=True, packed=False)
+    compare(f"NRT {label}: the served snapshot vs the loop", _np_pair(fresh), loop, exact=False)
+    if tagged.stale or tagged.hits < len(refresh_ms):
+        raise AssertionError(f"NRT {label}: {tagged.stale} stale hits of {tagged.hits}")
+    cs = cache.stats()
+    pk = svc.ann.packed_segments()
+    r50, r99 = _host_p(np.asarray(refresh_ms) / 1e3)
+    v50, v99 = _host_p(np.asarray(visible_ms) / 1e3)
+    print(f"serve NRT {label} ({n0} rows in the first add, its build {first_s:.1f} s; 1,000 QPS "
+          f"for {NRT_SECONDS:.0f} s, every {NRT_EVERY} requests 32 rows added, 4 deleted, "
+          f"refresh; {card}): {forced}; then {len(refresh_ms)} refresh cycles (host clock, "
+          f"synchronised): refresh (flush + snapshot) p50 / p99 / max {r50:.1f} / {r99:.1f} / "
+          f"{max(refresh_ms):.1f} ms, to visibility (the refresh and the first search, which "
+          f"packs and may capture) {v50:.1f} / {v99:.1f} / {max(visible_ms):.1f} ms; added rows "
+          f"found at rank 1 after every refresh; "
+          f"captures {cs['compiles'] - stats0['compiles']} against replays "
+          f"{cs['hits'] - stats0['hits']} in the loop ({cs}; in-place appends "
+          f"{pk.appends if pk is not None else 0}, {svc.ann.num_segments} segments); cache "
+          f"hits {tagged.hits}, stale hits {tagged.stale} (an entry tagged with another "
+          f"snapshot object than the bound one); after every refresh the cached batch equals "
+          f"an uncached search of the same snapshot bit for bit, and at the end the loop by "
+          f"the near-tie rule; sent {sent}, shed {shed} (the "
+          f"submitting thread at most {lag * 1e3:.1f} ms behind its schedule), sustained "
+          f"{len(futs) / elapsed:.1f} QPS, request p50 / p99 {st['req_p50_ms']:.3f} / "
+          f"{st['req_p99_ms']:.3f} ms; in the service's calls of the loop fused_topk "
+          f"launches {fused} outside graph replays and {replays} graph replays ({launches})")
+    tagged.svc = None  # the cache and the service refer to each other
+    del svc, plain, w, tagged
+    cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def capture_mode_trial(dev, mode: str) -> dict:
+    """One CUDA-graph capture in ``capture_error_mode=mode``, held open on
+    this thread while another thread copies 20,000 pageable host rows of
+    300 to the card (what ``IndexWriter.add`` does) and allocates a fresh
+    1 GiB; returns what each side saw: the other thread's stream capturing
+    or not, its error or whether its rows arrived, the capture's error or
+    whether its replay is right.  Run it in a process of its own: a failed
+    global-mode capture can leave the process's CUDA state unusable."""
+    import threading
+
+    import numpy as np
+
+    x = torch.randn(4096, 256, device=dev)
+    torch.cuda.synchronize()
+    started, done = threading.Event(), threading.Event()
+    res = {"mode": mode}
+
+    def other():
+        started.wait(60)
+        try:
+            res["other_capturing"] = torch.cuda.is_current_stream_capturing()
+            rows = np.random.default_rng(0).standard_normal((20000, 300)).astype(np.float32)
+            t = torch.as_tensor(rows, device=dev)
+            big = torch.ones((1 << 28,), device=dev)
+            res["other_ok"] = bool(np.array_equal(t[:5].cpu().numpy(), rows[:5])) and float(
+                big.sum().item()) == float(1 << 28)
+        except RuntimeError as e:  # recorded: the finding
+            res["other_error"] = str(e).splitlines()[0]
+        done.set()
+
+    worker = threading.Thread(target=other)
+    worker.start()
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev)
+    try:
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            y = (x @ x.T).sum(1)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        with torch.cuda.graph(graph, stream=side, capture_error_mode=mode):
+            y = (x @ x.T).sum(1)
+            started.set()
+            done.wait(60)
+            y = y * 2
+        graph.replay()
+        torch.cuda.synchronize()
+        res["capture_ok"] = bool(torch.allclose(y, (x @ x.T).sum(1) * 2))
+    except RuntimeError as e:
+        res["capture_error"] = str(e).splitlines()[0]
+    started.set()
+    worker.join(120)
+    return res
+
+
+def drive_serve(dev, card: str, x, idx, config, depth: int, k: int) -> None:
+    """The serving layer at full N over the classic fp32 index ``idx`` (the
+    ann-word2vec cell's, exact rerank): the sync service at max_batch 1, 8,
+    64 and 256 against ``AnnIndex.search`` with per-batch times beside the
+    facade's, the cache-hit time, the async micro-batcher's open loop at two
+    offered rates (search only), then NRT serving over full-N writers for
+    LSH (an in-place append a refresh) and classic (a repack and a capture
+    a refresh), each starting with a capture forced to run during an add."""
+    import numpy as np
+
+    from repro_torch.core import bruteforce
+    from repro_torch.core.types import LexicalLshConfig
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    n = x.shape[0]
+    picks = np.random.default_rng(1).choice(n, size=SERVE_QUERIES, replace=False)
+    qs_dev = x[torch.from_numpy(picks).to(dev)]
+    qs = qs_dev.cpu().numpy()
+    _, gt = bruteforce.exact_topk(idx.index.vectors, bruteforce.l2_normalize(qs_dev), k,
+                                  normalized=True)
+    gt = gt.cpu()
+    p50s, _ = _serve_sync(idx, qs, qs_dev, gt, depth, k, card)
+    _serve_cache(idx, qs, depth, k, card, p50s[64])
+    pool_q = qs[:SERVE_POOL]
+    _serve_async(idx, pool_q, depth, k, card, p50s[64])
+    for label, cfg in (("lsh", LexicalLshConfig(buckets=300, hashes=1)), ("classic", config)):
+        _serve_nrt(dev, card, label, cfg, x, pool_q, depth, k)
+    del qs_dev, gt
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - held
+    if left > 2e9:  # a writer or an index left alive holds 3.6 GB or more
+        raise AssertionError(f"serve phase: {left / 1e9:.3f} GB still allocated after it")
+    print(f"serve phase: {time.perf_counter() - t_phase:.1f} s (host clock, {card}); device "
+          f"memory allocated after it {left / 1e6:.1f} MB above before it")
+
+
+def serve_prebuilt(card: str, label: str, ann, qx, depth: int, k: int, kernel: str) -> None:
+    """A few batches of an index an earlier phase built (the kd scan, the
+    graph) through the sync and the async service: ids and scores equal
+    the facade's on the same rows (near-tie rule), and ``kernel`` carried
+    the searches.  The facade's reference runs first and its traversal
+    graphs are dropped, so the launches counted around the service's own
+    calls are its captures (and its other launches), and its graph
+    replays are counted beside them."""
+    import numpy as np
+
+    from repro_torch.core import graph
+    from repro_torch.serve.ann_service import AnnService, AnnServiceConfig
+
+    t0 = time.perf_counter()
+    q = qx[:64]
+    q_np = q.cpu().numpy()
+    want = ann.search(q, k=k, depth=depth, rerank=True)
+    graph.TRAVERSAL_CACHE.clear()
+    svcs = {mb: AnnService(ann, AnnServiceConfig(k=k, depth=depth, rerank=True, max_batch=mb,
+                                                 max_wait_s=0.002)) for mb in (64, 8)}
+
+    def served():
+        out = {}
+        for mb, svc in svcs.items():
+            svc.search_batch(q_np)  # a shape's first search captures (the graph)
+            svc.reset_latency()  # the batch p50 below is of the searches after it
+            got = svc.search_batch(q_np)
+            svc.start_async()
+            res = [f.result(timeout=300) for f in [svc.search_async(row) for row in q_np]]
+            svc.stop_async()
+            out[mb] = got, res
+        return out
+
+    out, counts, replays = _service_only(served)
+    launches = _served(f"serve {label}", kernel, counts)
+    lines = []
+    for mb, (got, res) in out.items():
+        err = compare(f"serve {label} max_batch={mb} vs AnnIndex.search", _np_pair(got), want,
+                      exact=False)
+        aerr = compare(f"serve {label} async max_batch={mb} vs AnnIndex.search", _np_pair(
+            (np.concatenate([r[0] for r in res]), np.concatenate([r[1] for r in res]))), want,
+            exact=False)
+        st = svcs[mb].stats()
+        lines.append(f"max_batch {mb}: sync within {err:.3g}, async within {aerr:.3g} "
+                     f"({st['async_launches']} launches for {len(q_np)} requests), batch p50 "
+                     f"{st['lat_p50_ms']:.3f} ms")
+    print(f"serve {label} ({len(q_np)} queries through the sync and the async service, ids "
+          f"equal to AnnIndex.search by the near-tie rule; in the service's calls {kernel} "
+          f"launches {launches} outside graph replays and {replays} graph replays; "
+          f"{time.perf_counter() - t0:.1f} s, {card}): " + "; ".join(lines))
 
 
 if __name__ == "__main__":

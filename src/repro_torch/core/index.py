@@ -56,6 +56,7 @@ from repro_torch.core.types import (
     QuantizedPostings,
     QuantizedStore,
     SearchParams,
+    next_epoch,
 )
 
 # The single-index persistence format, the reference's (``repro/core/
@@ -89,7 +90,13 @@ class AnnIndex:
     given.  ``quantized_rerank`` reranks from the int8 store (``index.vq``)
     instead of the fp32 originals; None = auto: quantized iff the index
     carries the int8 store and no originals.  ``metadata`` holds per-doc
-    fields, the source of the keep bitmaps that ``search(filt=)`` takes."""
+    fields, the source of the keep bitmaps that ``search(filt=)`` takes.
+
+    ``epoch`` is the process-unique snapshot identity
+    (:func:`repro_torch.core.types.next_epoch`), set at construction when
+    not given: the serving layer folds it into its result-cache key, so
+    swapping a service's index can never serve another index's cached
+    results.  Not persisted: a loaded copy is a distinct snapshot."""
 
     config: AnyConfig
     index: AnyIndex
@@ -98,8 +105,11 @@ class AnnIndex:
     bm: Optional[BlockMaxIndex] = None
     quantized_rerank: Optional[bool] = None
     metadata: Optional[DocMetadata] = None
+    epoch: Optional[int] = None
 
     def __post_init__(self):
+        if self.epoch is None:
+            self.epoch = next_epoch()
         self.pipeline: pl.SearchPipeline = pl.build_pipeline(self.config)
         if self.quantized_rerank is None:
             reranker = pl.default_reranker(self.index)
@@ -194,6 +204,15 @@ class AnnIndex:
 
     def nbytes(self) -> int:
         return self.index.nbytes()
+
+    def matcher_for(self, bm: Optional[BlockMaxIndex] = None, keep: Optional[int] = None):
+        """The effective match stage: blockmax pruning when a block-bound
+        structure and a keep count are given (at most ``bm.num_blocks``
+        blocks), else the method's own matcher.  The serving layer calls it
+        with its own overrides."""
+        if bm is not None and keep is not None:
+            return pl.BlockMaxMatcher(min(keep, bm.num_blocks), bm)
+        return pl.make_matcher(self.config)
 
     def search(
         self,

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bruteforce, pca
+from repro_torch.core.executables import capture
 from repro_torch.core.types import KdTreeConfig, KdTreeIndex
 from repro_torch.kernels.common import stable_topk
 
@@ -163,13 +164,8 @@ def tree_search(index: KdTreeIndex, q_reduced: torch.Tensor,
             round_()
 
     if dev.type == "cuda":
-        graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            round_()  # a real first round, run before capture as CUDA graphs require
-        torch.cuda.current_stream(dev).wait_stream(side)
-        with torch.cuda.graph(graph):
-            rounds()
+        # the first round runs for real before the capture, as CUDA graphs require
+        graph, _ = capture(dev, round_, rounds)
         rounds = graph.replay
     while bool((sp > 0).any()):
         rounds()

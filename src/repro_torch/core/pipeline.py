@@ -386,6 +386,35 @@ class SearchPipeline:
         return self.reranker(index, q_norm, d_i, params.k)
 
 
+def match_rerank(
+    matcher,
+    index,
+    q_rep: torch.Tensor,
+    queries: Optional[torch.Tensor],
+    k: int,
+    depth: int,
+    rerank: bool,
+    reranker=None,
+    filt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Match + optional rerank from an already-encoded query: the shared
+    tail of the serving layer's search (``queries`` unit-normalized when
+    reranking).  ``reranker`` defaults to the store the index carries (fp32
+    originals, else the int8 store).  ``filt`` (a bool keep bitmap on the
+    index's device, as :func:`as_filter` makes it) masks inside the match
+    stage; the rerank only rescores the survivors.  Unlike the
+    reference's, it takes no ``bm``: a :class:`BlockMaxMatcher` carries its
+    own blockmax structure."""
+    d_s, d_i = matcher(index, q_rep, depth, filt=filt)
+    if not rerank:
+        return d_s[:, :k], d_i[:, :k]
+    if queries is None:
+        raise ValueError("rerank needs the unit-normalized queries")
+    if reranker is None:
+        reranker = default_reranker(index)
+    return reranker(index, queries, d_i, k)
+
+
 def make_encoder(config: AnyConfig):
     if isinstance(config, FakeWordsConfig):
         return TfRowEncoder(config)

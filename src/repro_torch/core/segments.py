@@ -329,6 +329,10 @@ class SegmentedAnnIndex:
     # -- shape/identity ----------------------------------------------------
 
     @property
+    def method(self) -> str:
+        return _METHOD_BY_CONFIG[type(self.config)]
+
+    @property
     def num_docs(self) -> int:
         """LIVE docs (Lucene ``numDocs``); ``max_doc`` counts deleted too."""
         return self._n_live
@@ -344,6 +348,10 @@ class SegmentedAnnIndex:
     @property
     def del_count(self) -> int:
         return self.max_doc - self._n_live
+
+    def nbytes(self) -> int:
+        """The segments' index bytes plus their host liveDocs masks."""
+        return sum(s.ann.nbytes() + s.live.nbytes for s in self.segments)
 
     def live_global_ids(self) -> np.ndarray:
         """Global ids of the live docs in add order: monolithic id j of the

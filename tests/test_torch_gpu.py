@@ -20,6 +20,7 @@ from repro_torch.core.index import AnnIndex
 from repro_torch.core.types import (
     BruteForceConfig,
     FakeWordsConfig,
+    GraphConfig,
     KdTreeConfig,
     LexicalLshConfig,
 )
@@ -1525,3 +1526,201 @@ def test_cuda_graph_save_and_load(tmp_path):
     assert torch.equal(cpu.index.neighbors, idx.index.neighbors.cpu())
     assert_topk_match(cpu.search(q, k=10, depth=50), tuple(
         t.cpu() for t in idx.search(q, k=10, depth=50)), exact=False)
+
+
+# --------------------------------------------------------------------------
+# Serving on the card
+# --------------------------------------------------------------------------
+
+SERVED_METHODS = {  # config, match scores bit-equal across batch splits
+    "classic": (FakeWordsConfig(quantization=50), True),
+    "dot": (FakeWordsConfig(quantization=50, scoring="dot"), True),
+    "lsh": (LexicalLshConfig(buckets=64, hashes=2), True),
+    "kdtree-scan": (KdTreeConfig(dims=8), False),
+    "bruteforce": (BruteForceConfig(), False),
+    "hnsw": (GraphConfig(), False),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", list(SERVED_METHODS))
+def test_cuda_service_matches_facade(method):
+    """The service on the card (batches padded to 8 with zero rows) against
+    the facade's unsplit batch of 24: match-only results of the integer
+    modes and classic bit for bit, the f32 modes and every reranked result
+    under the near-tie rule; a single query padded with 7 zero rows returns
+    the facade's row, and an all-zero batch comes back finite."""
+    from repro_torch.serve.ann_service import AnnService, AnnServiceConfig
+
+    dev = cuda_device()
+    cfg, exact = SERVED_METHODS[method]
+    x = np.random.default_rng(8).normal(size=(4096, 64)).astype(np.float32)
+    ann = AnnIndex.build(x, cfg, device=dev)
+    qs = x[:24] + 0.01
+    for rerank in (False, True):
+        svc = AnnService(ann, AnnServiceConfig(k=10, depth=100, rerank=rerank, max_batch=8))
+        for q in (qs, qs[:1]):
+            want = tuple(t.cpu() for t in ann.search(q, k=10, depth=100, rerank=rerank))
+            assert_topk_match(svc.search_batch(q), want, exact=exact and not rerank)
+        s0, i0 = svc.search_batch(np.zeros((8, 64), np.float32))
+        assert np.isfinite(s0).all() and ((i0 >= 0) & (i0 < 4096)).all()
+
+
+@pytest.mark.gpu
+def test_cuda_async_matches_sync():
+    """Singles coalesced by the worker on the card equal the sync service's
+    rows bit for bit (classic, match only; every batch padded to 8)."""
+    from repro_torch.serve.ann_service import AnnService, AnnServiceConfig
+
+    dev = cuda_device()
+    x = np.random.default_rng(10).normal(size=(4096, 64)).astype(np.float32)
+    ann = AnnIndex.build(x, FakeWordsConfig(quantization=50), device=dev)
+    svc = AnnService(ann, AnnServiceConfig(k=10, depth=100, rerank=False, max_batch=8,
+                                           max_wait_s=0.05))
+    qs = x[:24] + 0.01
+    s_ref, i_ref = svc.search_batch(qs)
+    svc.start_async()
+    out = [f.result(timeout=60) for f in [svc.search_async(qs[i]) for i in range(24)]]
+    svc.stop_async()
+    np.testing.assert_array_equal(i_ref, np.concatenate([o[1] for o in out]))
+    np.testing.assert_array_equal(s_ref, np.concatenate([o[0] for o in out]))
+    assert 1 <= svc.stats()["async_launches"] < 24
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["lsh", "classic"])
+def test_cuda_capture_while_another_thread_adds(method, monkeypatch):
+    """The async worker's first packed search captures a CUDA graph; a hook
+    in the kernel wrapper holds it mid-capture while this thread runs
+    ``IndexWriter.add`` (a pageable copy to the card) and ``delete`` and
+    device work of its own.  All of it goes through: this thread's stream
+    is not capturing, the added rows reach the card intact (a recorded copy
+    would not have run), the capture completes, and the captured search
+    equals the per-segment loop; after ``refresh`` the added rows are found
+    and the deleted ones never come back."""
+    import threading
+
+    from repro_torch.core import packed as packed_mod
+    from repro_torch.core.segments import IndexWriter
+    from repro_torch.kernels.fused_topk import ops
+    from repro_torch.serve.ann_service import AnnService, AnnServiceConfig
+
+    dev = cuda_device()
+    rng = np.random.default_rng(9)
+    cfg = SERVED_METHODS[method][0]
+    w = IndexWriter(cfg, merge_policy=None, device=dev)
+    x0 = rng.normal(size=(5000, 32)).astype(np.float32)
+    w.add(x0)
+    svc = AnnService(writer=w, service=AnnServiceConfig(k=10, depth=50, rerank=True,
+                                                        max_batch=8, max_wait_s=0.01))
+    capturing, added = threading.Event(), threading.Event()
+    real = ops.fused_topk
+
+    def held_mid_capture(*args, **kwargs):
+        if torch.cuda.is_current_stream_capturing() and not capturing.is_set():
+            capturing.set()
+            assert added.wait(60)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(ops, "fused_topk", held_mid_capture)
+    packed_mod.EXEC_CACHE.clear()
+    q = rng.normal(size=(3, 32)).astype(np.float32)
+    svc.start_async()
+    futs = [svc.search_async(q)]
+    assert capturing.wait(60)
+    assert not torch.cuda.is_current_stream_capturing()
+    rows = rng.normal(size=(64, 32)).astype(np.float32)
+    ids = w.add(rows)
+    newly = w.delete([0, 1, 2, 3])
+    on_card = w._buf[-1].cpu().numpy()
+    total = float(torch.as_tensor(rows, device=dev).double().sum().item())
+    added.set()
+    s, i = futs[0].result(timeout=60)
+    svc.stop_async()
+    np.testing.assert_array_equal(on_card, rows)
+    assert newly == 4 and abs(total - float(rows.astype(np.float64).sum())) < 1e-9
+    assert packed_mod.EXEC_CACHE.compiles == 1
+    reader = svc.ann
+    loop = tuple(t.cpu() for t in reader.search(q, k=10, depth=50, rerank=True, packed=False))
+    assert_topk_match((s, i), loop, exact=False)
+    s2, i2 = svc.search_batch(q)  # the captured graph, replayed
+    assert packed_mod.EXEC_CACHE.hits >= 1
+    np.testing.assert_array_equal(i, i2)
+    np.testing.assert_array_equal(s, s2)
+    svc.refresh()
+    _, found = svc.search_batch(rows[:8])
+    np.testing.assert_array_equal(found[:, 0], ids[:8])
+    _, gone = svc.search_batch(x0[:4])
+    assert not np.isin(gone, [0, 1, 2, 3]).any()
+
+
+@pytest.mark.gpu
+def test_cuda_cache_keys_over_uint32_signatures():
+    """The LSH service on the card keys its cache on uint32 MinHash
+    signatures (hashed through their int32 bits after a copy to the host):
+    the card's key equals the key of the same signatures on the CPU, a
+    repeated batch hits and returns the same bits, another batch misses."""
+    from repro_torch.serve.ann_service import AnnService, AnnServiceConfig
+
+    dev = cuda_device()
+    x = np.random.default_rng(11).normal(size=(4096, 64)).astype(np.float32)
+    ann = AnnIndex.build(x, LexicalLshConfig(buckets=64, hashes=2), device=dev)
+    svc = AnnService(ann, AnnServiceConfig(k=10, depth=100, rerank=True, max_batch=8,
+                                           cache_size=4))
+    q = bruteforce.l2_normalize(torch.as_tensor(x[:8], device=dev))
+    sig = ann.pipeline.encoder(ann.index, q)
+    assert sig.dtype == torch.uint32 and sig.is_cuda
+    assert svc._cache_key(sig, q) == svc._cache_key(sig.cpu(), q.cpu())
+    a = svc.search_batch(x[:8])
+    b = svc.search_batch(x[:8])
+    svc.search_batch(x[8:16])
+    assert (svc.cache_hits, svc.cache_misses) == (1, 2)
+    np.testing.assert_array_equal(a[0], b[0])
+    np.testing.assert_array_equal(a[1], b[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", ["classic", "hnsw"])
+def test_cuda_one_graph_replayed_from_two_threads(method, monkeypatch):
+    """Two services over one snapshot share its captured CUDA graph (the
+    packed search, the graph traversal).  Searched from two threads at
+    once, each with its own queries, every result equals that thread's
+    single-threaded result bit for bit: a replay's inputs, run and
+    outputs are not interleaved with the other thread's."""
+    import threading
+
+    from repro_torch.core.segments import IndexWriter
+    from repro_torch.serve.ann_service import AnnService, AnnServiceConfig
+
+    dev = cuda_device()
+    rng = np.random.default_rng(23)
+    cfg = SERVED_METHODS[method][0]
+    x = rng.normal(size=(6000, 32)).astype(np.float32)
+    if method == "hnsw":
+        ann = AnnIndex.build(x, cfg, device=dev)
+    else:
+        w = IndexWriter(cfg, merge_policy=None, device=dev)
+        for part in np.split(x, 3):
+            w.add(part)
+            w.flush()
+        ann = w.refresh()
+    scfg = AnnServiceConfig(k=10, depth=50, rerank=True, max_batch=8)
+    svcs = [AnnService(ann, scfg), AnnService(ann, scfg)]
+    qs = [rng.normal(size=(8, 32)).astype(np.float32) for _ in svcs]
+    alone = [svc.search_batch(q) for svc, q in zip(svcs, qs)]
+    replays = _replays(monkeypatch)
+    start, bad = threading.Barrier(2), []
+
+    def hammer(j):
+        start.wait()
+        for _ in range(40):
+            s, i = svcs[j].search_batch(qs[j])
+            if not (np.array_equal(s, alone[j][0]) and np.array_equal(i, alone[j][1])):
+                bad.append(j)
+
+    threads = [threading.Thread(target=hammer, args=(j,)) for j in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert replays[0] >= 80 and not bad
