@@ -1916,8 +1916,10 @@ def main(argv) -> int:
     kernels += quantized
     torch.cuda.empty_cache()
     before_segments = drive_segments(dev, card, x, qx, depth, k, config, md)
+    peak_segments = max(before_segments, torch.cuda.max_memory_allocated())
+    drive_sharded(dev, card, x, qx, gt_i, depth, k, config, masks)
     print(f"the filtered phases took {filtered_s + quantized_filtered_s:.1f} s (host clock)")
-    peak = max(before_segments, torch.cuda.max_memory_allocated())
+    peak = max(peak_segments, torch.cuda.max_memory_allocated())
     print(f"peak device memory {peak / 1e9:.1f} GB (the whole run)")
     print(f"the whole run: {time.perf_counter() - t_run:.1f} s (host clock, the kernels' build "
           "included)")
@@ -6586,6 +6588,453 @@ def serve_prebuilt(card: str, label: str, ann, qx, depth: int, k: int, kernel: s
           f"equal to AnnIndex.search by the near-tie rule; in the service's calls {kernel} "
           f"launches {launches} outside graph replays and {replays} graph replays; "
           f"{time.perf_counter() - t0:.1f} s, {card}): " + "; ".join(lines))
+
+
+# --------------------------------------------------------------------------
+# The sharded build and search (core/distributed.py): a single-process mesh
+# --------------------------------------------------------------------------
+
+SHARDS = 4  # 4 x cuda:0 on one card: 749,952 rows a shard at full N
+SHARD_BATCHES = (1, 8, 256)
+SHARD_GRAPH_ROWS = 100_000  # the full-N graph build takes 134.6 s (PERF.md §5)
+SHARD_SEGMENTS = 4
+SHARD_QPS, SHARD_SECONDS = 1000.0, 5.0
+KD_SHARD_TOL = 1e-4  # the reference test's atol on sign-aligned reduced rows
+
+
+def _leaf_tensors(name: str, leaf):
+    if isinstance(leaf, torch.Tensor):
+        return [(name, leaf)]
+    return [(f"{name}.{f.name}", getattr(leaf, f.name)) for f in dataclasses.fields(leaf)
+            if isinstance(getattr(leaf, f.name), torch.Tensor)]
+
+
+def _shards_equal_mono(label: str, sharded, mono) -> list:
+    """Raises unless every leaf of every shard equals its rows of the
+    monolithic index's (doc leaves) or the whole leaf (replicated), bit for
+    bit, without gathering.  Returns the leaf names held."""
+    from repro_torch.core import distributed
+
+    held = []
+    split = distributed.shard_index(sharded.mesh, mono, sharded.axes)  # views of mono's rows
+    for leaf in distributed.index_pspec(mono):
+        for s, (shard, want) in enumerate(zip(sharded.shards, split.shards)):
+            for (name, g), (_, w) in zip(_leaf_tensors(leaf, getattr(shard, leaf)),
+                                         _leaf_tensors(leaf, getattr(want, leaf))):
+                if not torch.equal(g, w):
+                    raise AssertionError(f"sharded {label}: shard {s}'s {name} differs from "
+                                         "the monolithic build's")
+                if s == 0:
+                    held.append(name)
+    return held
+
+
+def _sharded_window(kernel: str, fn, expected: int):
+    """(fn(), launches): the wrappers' counts set to 0 just before ``fn``
+    and read just after; raises unless ``kernel`` alone launched, and
+    ``expected`` times."""
+    _reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = _launches()
+    if counts[kernel] != expected or any(v for key, v in counts.items() if key != kernel):
+        raise AssertionError(f"sharded search did not launch {kernel} {expected} times alone: "
+                             f"{counts}")
+    return out, counts[kernel]
+
+
+def _sharded_search_line(label: str, mono, sh, qx, k: int, depth: int, kernel: str,
+                         exact: bool, card: str) -> str:
+    """Match only at B = 1, 8, 256: the sharded search against the
+    monolithic one (``exact``: bit for bit, else the near-tie rule), its
+    launches counted, and both times (CUDA events)."""
+    parts = []
+    for bb in SHARD_BATCHES:
+        q = qx[:bb]
+        want = mono.search(q, k=k, depth=depth)
+        got, launches = _sharded_window(kernel, lambda: sh.search(q, k=k, depth=depth), SHARDS)
+        _checked(f"sharded {label} B={bb}", *got, q.shape[0], k, mono.num_docs)
+        err = compare(f"sharded {label} match only B={bb} vs monolithic", got, want, exact)
+        bits = torch.equal(got[0].cpu(), want[0].cpu()) and torch.equal(got[1].cpu(),
+                                                                        want[1].cpu())
+        t_mono = cuda_ms(lambda: mono.search(q, k=k, depth=depth))
+        t_sh = cuda_ms(lambda: sh.search(q, k=k, depth=depth))
+        parts.append(f"B={bb}: {'bit-equal' if bits else f'within {err:.3g}'}, {launches} "
+                     f"{kernel} launches, {t_sh:.3f} ms sharded / {t_mono:.3f} monolithic")
+    return f"sharded {label} ({SHARDS} shards; {card}): " + "; ".join(parts)
+
+
+def _plain_merge(sh, q, k: int, depth: int):
+    """The sharded reranked search done by hand: each shard's own facade
+    search (its match and exact rerank over its rows), ids moved to global
+    ones, and one stable descending sort of the concatenation."""
+    from repro_torch.core.index import AnnIndex
+
+    parts_s, parts_i = [], []
+    for s, shard in enumerate(sh.index.shards):
+        ss, ii = AnnIndex(config=sh.config, index=shard).search(q, k=k, depth=depth, rerank=True)
+        parts_s.append(ss.to(q.device))
+        parts_i.append(torch.where(ii >= 0, ii + s * sh.index.n_local, -1).to(q.device))
+    all_s, all_i = torch.cat(parts_s, 1), torch.cat(parts_i, 1)
+    order = torch.sort(all_s, dim=1, descending=True, stable=True).indices[:, :k]
+    return all_s.gather(1, order), all_i.gather(1, order)
+
+
+def _sharded_classic(dev, card: str, mesh, x, qx, gt_i, depth: int, k: int, config,
+                     masks: dict) -> None:
+    """The classic fp32 index with the exact store, built both ways: leaves,
+    match only, the rerank against a plain merge and its recall, blockmax
+    at 10% of each shard's blocks, filtered at 1% and 10%, and the sync and
+    async service over the mesh."""
+    import numpy as np
+
+    from repro_torch.core import blockmax, bruteforce, distributed
+    from repro_torch.core import eval as ev
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.kernels.fused_topk import ref
+
+    axes = ("data",)
+    mono, build_mono = _sync_s(lambda: AnnIndex.build(x, config, device=dev))
+    sh, build_sh = _sync_s(lambda: AnnIndex.build(x, config, mesh=mesh, shard_axes=axes))
+    held = _shards_equal_mono("classic", sh.index, mono.index)
+    print(f"sharded build classic fp32 + exact store: {SHARDS} shards x {sh.index.n_local} rows "
+          f"in {build_sh:.2f} s, monolithic {build_mono:.2f} s (host clock, synchronised; "
+          f"{card}); leaves bit-equal shard by shard: {', '.join(held)}; index "
+          f"{sh.nbytes() / 1e9:.2f} GB (monolithic {mono.nbytes() / 1e9:.2f})")
+    print(_sharded_search_line("classic", mono, sh, qx, k, depth, "fused_topk", True, card))
+    # Where the fan-out's time goes at B = 256: the shards' kernels one
+    # after another on the stream, and the merge.
+    profile_search(sh, qx, k, depth, card, label=f"sharded classic ({SHARDS} shards)")
+    profile_search(mono, qx, k, depth, card, label="monolithic classic")
+
+    # The rerank: S x depth candidates, each shard's own rows.
+    lines = []
+    for bb in SHARD_BATCHES:
+        q = qx[:bb]
+        got, launches = _sharded_window(
+            "fused_topk", lambda: sh.search(q, k=k, depth=depth, rerank=True), SHARDS)
+        err = compare(f"sharded classic rerank B={bb} vs the plain merge", got,
+                      _plain_merge(sh, q, k, depth), exact=False)
+        t_mono = cuda_ms(lambda: mono.search(q, k=k, depth=depth, rerank=True))
+        t_sh = cuda_ms(lambda: sh.search(q, k=k, depth=depth, rerank=True))
+        lines.append(f"B={bb}: within {err:.3g} of the plain merge, {t_sh:.3f} ms sharded / "
+                     f"{t_mono:.3f} monolithic")
+    r_sh = float(ev.recall_at(gt_i, sh.search(qx, k=k, depth=depth, rerank=True)[1]))
+    r_mono = float(ev.recall_at(gt_i, mono.search(qx, k=k, depth=depth, rerank=True)[1]))
+    if r_sh < r_mono:
+        raise AssertionError(f"sharded rerank R@10 {r_sh} below the monolithic {r_mono}")
+    print(f"sharded classic rerank ({SHARDS} x {depth} candidates against {depth}; {card}): "
+          f"R@10 {r_sh:.4f} sharded, {r_mono:.4f} monolithic; " + "; ".join(lines))
+
+    # Blockmax: each shard keeps 10% of its own blocks.
+    n_blocks_local = -(-sh.index.n_local // BLOCK)
+    keep = int(KEEP_FRACTIONS[0] * n_blocks_local)
+    bm_sh, bm_s = _sync_s(lambda: distributed.build_blockmax_sharded(mesh, sh.index, axes,
+                                                                      BLOCK))
+    mono_keep = int(KEEP_FRACTIONS[0] * (-(-mono.num_docs // BLOCK)))
+    mono_bm = AnnIndex(config=config, index=mono.index, blockmax_keep=mono_keep,
+                       blockmax_block_size=BLOCK)
+    sh_bm = AnnIndex(config=config, index=sh.index, blockmax_keep=keep,
+                     blockmax_block_size=BLOCK, bm=bm_sh)
+    qn = bruteforce.l2_normalize(qx)
+    q_tf = sh.encode_queries(qx)
+    lines = []
+    for bb in SHARD_BATCHES:
+        q = qx[:bb]
+        (s, i), launches = _sharded_window("fused_topk_gathered",
+                                           lambda: sh_bm.search(q, k=depth, depth=depth),
+                                           SHARDS)
+        _checked(f"sharded blockmax B={bb}", s, i, q.shape[0], depth, mono.num_docs)
+        t_sh = cuda_ms(lambda: sh_bm.search(q, k=depth, depth=depth))
+        t_mono = cuda_ms(lambda: mono_bm.search(q, k=depth, depth=depth))
+        lines.append(f"B={bb}: {launches} K3 launches, {t_sh:.3f} ms sharded / {t_mono:.3f} "
+                     f"monolithic (n_keep {mono_keep})")
+    s, i = sh_bm.search(qx, k=depth, depth=depth)
+    r_bm = float(ev.recall_at(gt_i, i))
+    r_mono_bm = float(ev.recall_at(gt_i, mono_bm.search(qx, k=depth, depth=depth)[1]))
+    # Shard 0's K3 call against the plain version, first 8 queries.
+    shard0, bm0 = sh.index.shards[0], bm_sh.shards[0]
+    rows = blockmax.kept_rows(bm0, q_tf[:8], keep)
+    got0 = pl.BlockMaxMatcher(keep, bm0)(shard0, q_tf[:8], depth)
+    err0 = compare("sharded blockmax shard 0 K3, first 8 queries", got0,
+                   ref.gathered_topk_ref(q_tf[:8].to(torch.bfloat16),
+                                         ref.gather_rows(shard0.scored, rows, shard0.num_docs),
+                                         rows, depth + 1, shard0.num_docs), exact=False)
+    print(f"sharded blockmax classic (n_keep {keep} of each shard's {n_blocks_local} blocks, "
+          f"{SHARDS} x {keep * BLOCK} rows a query; bounds built in {bm_s:.2f} s; {card}): "
+          f"R@(10,100) {r_bm:.4f} sharded, {r_mono_bm:.4f} monolithic at n_keep {mono_keep}; "
+          f"shard 0's K3 vs plain max_abs_err {err0:.3g}; " + "; ".join(lines))
+    del mono_bm, sh_bm, bm_sh
+
+    # Filtered, match only: the (N,) bitmap split with the rows.
+    lines = []
+    for key in ("1%", "10%"):
+        mask = masks[key]
+        for bb in (SHARD_BATCHES[-1], 8):
+            q = qx[:bb]
+            want = mono.search(q, k=k, depth=depth, filt=mask)
+            got, launches = _sharded_window(
+                "fused_topk", lambda: sh.search(q, k=k, depth=depth, filt=mask), SHARDS)
+            compare(f"sharded filtered {key} B={bb} vs monolithic", got, want, exact=True)
+            _kept(f"sharded filtered {key}", got[1], mask, mono.num_docs)
+            lines.append(f"{key} B={bb}: bit-equal, {launches} launches, "
+                         f"{cuda_ms(lambda: sh.search(q, k=k, depth=depth, filt=mask)):.3f} ms "
+                         f"sharded / "
+                         f"{cuda_ms(lambda: mono.search(q, k=k, depth=depth, filt=mask)):.3f} "
+                         "monolithic")
+    print(f"sharded filtered classic (match only; {card}): " + "; ".join(lines))
+    del mono
+    torch.cuda.empty_cache()
+    _sharded_serving(card, mesh, sh, qx, qn, depth, k)
+
+
+def _sharded_serving(card: str, mesh, sh, qx, qn, depth: int, k: int) -> None:
+    """AnnService(mesh=) over the sharded classic index: sync at max_batch
+    64 against make_sharded_search on the same rows (bit for bit), then
+    the async micro-batcher in an open loop at SHARD_QPS for
+    SHARD_SECONDS."""
+    import numpy as np
+
+    from repro_torch.core import distributed
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve.ann_service import AnnService, AnnServiceConfig
+
+    qs = qx.cpu().numpy()
+    svc = AnnService(sh, AnnServiceConfig(k=k, depth=depth, rerank=True, max_batch=64,
+                                          max_wait_s=0.002, queue_depth=256,
+                                          latency_window=1 << 16), mesh=mesh)
+    fn = distributed.make_sharded_search(mesh, sh.config, ("data",), k=k, depth=depth,
+                                         rerank=True)
+    got, counts, _ = _service_only(lambda: svc.search_batch(qs))
+    sync_launches = _served("sharded serve sync", "fused_topk", counts)
+    for i in range(0, len(qs), 64):
+        want = fn(sh.index, sh.encode_queries(qx[i:i + 64]), qn[i:i + 64])
+        compare(f"sharded service rows {i}..{i + 63} vs make_sharded_search",
+                _np_pair((got[0][i:i + 64], got[1][i:i + 64])), want, exact=True)
+    st = svc.stats()
+    rng = np.random.default_rng(13)
+    sample = launch.zipf_sampler(rng, len(qs), SERVE_ZIPF)
+    svc.reset_latency()
+
+    def run():
+        svc.start_async()
+        out = launch.open_loop(svc, qs, sample, SHARD_QPS, SHARD_SECONDS)
+        svc.stop_async()
+        return out
+
+    (futs, sent, shed, elapsed, lag), counts, _ = _service_only(run)
+    async_launches = _served("sharded serve async", "fused_topk", counts)
+    if not all(f.done() and f.exception() is None for f in futs) or sent != len(futs):
+        raise AssertionError("sharded serve async: a request did not resolve")
+    ast = svc.stats()
+    print(f"sharded serve (AnnService(mesh=), classic fp32 + exact rerank, {SHARDS} shards; "
+          f"{card}): sync max_batch 64 over {len(qs)} queries bit-equal to make_sharded_search "
+          f"on the same rows, batch p50 / p99 {st['lat_p50_ms']:.3f} / {st['lat_p99_ms']:.3f} "
+          f"ms (host clock), {sync_launches} fused_topk launches; async at {SHARD_QPS:.0f} QPS "
+          f"for {SHARD_SECONDS:.0f} s: sent {sent}, shed {shed}, every future resolved, "
+          f"sustained {len(futs) / elapsed:.1f} QPS, request p50 / p99 {ast['req_p50_ms']:.3f} "
+          f"/ {ast['req_p99_ms']:.3f} ms, {ast['async_launches']} launches "
+          f"({len(futs) / max(1, ast['async_launches']):.1f} queries a launch), "
+          f"{async_launches} fused_topk launches, the submitter at most {lag * 1e3:.1f} ms "
+          "behind")
+
+
+def _sharded_kd(dev, card: str, mesh, x, qx, gt_i, depth: int, k: int) -> None:
+    """The kd scan "pca" built both ways: the reduced rows sign-aligned
+    within KD_SHARD_TOL (the fit sums its moments over the shards), the
+    other leaves bit for bit; the sharded search over the monolithic
+    build's rows split equals the monolithic search bit for bit (f32 at T
+    = 9); R@(10,100) of each build."""
+    import numpy as np
+
+    from repro_torch.core import distributed
+    from repro_torch.core import eval as ev
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.types import KdTreeConfig
+
+    cfg = KdTreeConfig(dims=8, backend="scan")
+    mono, build_mono = _sync_s(lambda: AnnIndex.build(x, cfg, rerank_store="none", device=dev))
+    sh, build_sh = _sync_s(lambda: AnnIndex.build(x, cfg, rerank_store="none", mesh=mesh))
+    split = AnnIndex(config=cfg, index=distributed.shard_index(mesh, mono.index, ("data",)))
+    worst = 0.0
+    for mine, want in zip(sh.index.shards, split.index.shards):
+        a, b = want.reduced, mine.reduced
+        sign = torch.sign((a * b).sum(0))
+        sign[sign == 0] = 1.0
+        worst = max(worst, float((a - b * sign).abs().max()))
+    if not worst <= KD_SHARD_TOL:
+        raise AssertionError(f"sharded kd reduced rows differ by {worst} > {KD_SHARD_TOL}")
+    parts = []
+    for bb in SHARD_BATCHES:
+        q = qx[:bb]
+        got, launches = _sharded_window("fused_topk", lambda: split.search(q, k=k, depth=depth),
+                                        SHARDS)
+        err = compare(f"sharded kd scan B={bb} vs monolithic", got,
+                      mono.search(q, k=k, depth=depth), exact=False)
+        parts.append(f"B={bb}: within {err:.3g}, {launches} launches, "
+                     f"{cuda_ms(lambda: split.search(q, k=k, depth=depth)):.3f} ms sharded / "
+                     f"{cuda_ms(lambda: mono.search(q, k=k, depth=depth)):.3f} monolithic")
+    r_sh = float(ev.recall_at(gt_i, sh.search(qx, k=depth, depth=depth)[1]))
+    r_mono = float(ev.recall_at(gt_i, mono.search(qx, k=depth, depth=depth)[1]))
+    print(f"sharded kd scan pca: build {build_sh:.2f} s, monolithic {build_mono:.2f} s; reduced "
+          f"rows sign-aligned within {worst:.3g} (rule {KD_SHARD_TOL}); R@(10,100) {r_sh:.4f} "
+          f"sharded build, {r_mono:.4f} monolithic; the monolithic rows split: "
+          + "; ".join(parts) + f" ({card})")
+
+
+def _sharded_packed(dev, card: str, mesh, x, qx, depth: int, k: int, config) -> None:
+    """make_packed_segmented_search over a SHARD_SEGMENTS-segment writer of
+    the corpus.  Match only: bit-equal to the reader's loop (the merge of
+    each segment's top-depth) and to its packed single launch.  With rerank
+    (``test_packed.py:286``): overlap >= 0.95 with the loop, and the ids
+    both return with close scores (the shards' S x depth candidates are
+    not the segments', so an id one path finds and the other misses shifts
+    the ranks behind it); one K1 launch a shard."""
+    from repro_torch.core import bruteforce, distributed
+    from repro_torch.core import eval as ev
+    from repro_torch.core.segments import IndexWriter
+
+    n = x.shape[0]
+    w = IndexWriter(config, merge_policy=None, device=dev)
+    for part in x.chunk(SHARD_SEGMENTS):
+        w.add(part)
+        w.flush()
+    reader = w.refresh()
+    (fn, idx_sh, filt_sh), pack_s = _sync_s(lambda: distributed.make_packed_segmented_search(
+        mesh, reader, ("data",), k=k, depth=depth, rerank=True))
+    qn = bruteforce.l2_normalize(qx)
+    q_rep = reader.encode_queries(qx)
+    match_fn, _, _ = distributed.make_packed_segmented_search(mesh, reader, ("data",), k=k,
+                                                              depth=depth)
+    got = match_fn(idx_sh, q_rep, None, filt_sh)
+    compare("sharded packed match only vs the loop", got,
+            reader.search(qx, k=k, depth=depth, packed=False), exact=True)
+    compare("sharded packed match only vs the packed launch", got,
+            reader.search(qx, k=k, depth=depth, packed=True), exact=True)
+    (s_sh, i_sh), launches = _sharded_window("fused_topk",
+                                             lambda: fn(idx_sh, q_rep, qn, filt_sh), SHARDS)
+    s_1, i_1 = reader.search(qx, k=k, depth=depth, rerank=True, packed=False)
+    ov = float(ev.overlap(i_1, i_sh))
+    both = (i_sh[:, :, None] == i_1[:, None, :]) & (i_sh[:, :, None] >= 0)
+    s_loop = torch.where(both, s_1[:, None, :], 0.0).sum(2)  # the loop's score of each id
+    common = both.any(2)
+    close = torch.allclose(s_sh[common], s_loop[common], rtol=1e-4, atol=1e-5)
+    if ov < 0.95 or not close:
+        raise AssertionError(f"sharded packed: overlap {ov} with the loop, the common ids' "
+                             f"scores close {close}")
+    t_sh = cuda_ms(lambda: fn(idx_sh, q_rep, qn, filt_sh))
+    t_loop = cuda_ms(lambda: reader.search(qx, k=k, depth=depth, rerank=True, packed=False))
+    print(f"sharded packed segments ({SHARD_SEGMENTS} segments of {n // SHARD_SEGMENTS} rows, "
+          f"bucket {idx_sh.num_docs}, {SHARDS} shards; pack + split {pack_s:.2f} s): match "
+          f"only bit-equal to the loop and the packed launch; with rerank overlap {ov:.4f} with "
+          f"the loop, the {int(common.sum())} common ids' scores within rtol 1e-4; {launches} "
+          "fused_topk "
+          f"launches; B={qx.shape[0]} with rerank {t_sh:.3f} ms sharded / {t_loop:.3f} the "
+          f"loop ({card})")
+
+
+def _sharded_graph(dev, card: str, mesh, x) -> None:
+    """build_sharded with GraphConfig() over SHARD_GRAPH_ROWS rows: the ring
+    build's adjacency and entry points equal build_graph's on the same
+    rows."""
+    from repro_torch.core import bruteforce, distributed, graph
+    from repro_torch.core.types import GraphConfig
+
+    rows = x[:SHARD_GRAPH_ROWS]
+    cfg = GraphConfig()
+    (nb, entry), mono_s = _sync_s(lambda: graph.build_graph(bruteforce.l2_normalize(rows), cfg))
+    _reset_launches()
+    sh, sh_s = _sync_s(lambda: distributed.build_sharded(mesh, rows, cfg, ("data",)))
+    launches = _launches()["fused_topk"]
+    n_local = sh.n_local
+    for s, shard in enumerate(sh.shards):
+        if not torch.equal(shard.neighbors, nb[s * n_local:(s + 1) * n_local]):
+            raise AssertionError(f"sharded graph: shard {s}'s adjacency differs from build_graph's")
+        if not torch.equal(shard.entry, entry):
+            raise AssertionError(f"sharded graph: shard {s}'s entry points differ")
+    print(f"sharded graph build ({SHARD_GRAPH_ROWS} rows, {SHARDS} shards, ring of {SHARDS} "
+          f"pool steps on K1 f32, {launches} fused_topk launches): adjacency and entry points "
+          f"equal build_graph's; {sh_s:.2f} s sharded, {mono_s:.2f} s build_graph (host "
+          f"clock, synchronised; {card})")
+
+
+def _sharded_quantized(dev, card: str, mesh, x, qx, depth: int, k: int, config) -> None:
+    """dot, LSH (b = 300, h = 1) and classic over int8 / int4 postings with
+    the int8 rerank store, built both ways: leaves bit for bit, match only
+    bit for bit at B = 1, 8, 256, times beside the monolithic ones."""
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.types import LexicalLshConfig
+
+    dot = dataclasses.replace(config, scoring="dot")
+    for label, cfg, knobs, kernel, exact in (
+            ("dot", dot, dict(rerank_store="none"), "fused_topk", True),
+            ("lsh (300, 1)", LexicalLshConfig(buckets=300, hashes=1), dict(rerank_store="none"),
+             "fused_topk", True),
+            ("classic int8 + int8 store", config,
+             dict(primary_postings="int8", rerank_store="int8"), "fused_topk_quantized", True),
+            ("classic int4 + int8 store", config,
+             dict(primary_postings="int4", rerank_store="int8"), "fused_topk_quantized", True)):
+        mono, build_mono = _sync_s(lambda: AnnIndex.build(x, cfg, device=dev, **knobs))
+        sh, build_sh = _sync_s(lambda: AnnIndex.build(x, cfg, mesh=mesh, **knobs))
+        held = _shards_equal_mono(label, sh.index, mono.index)
+        print(f"sharded build {label}: {build_sh:.2f} s, monolithic {build_mono:.2f} s; leaves "
+              f"bit-equal shard by shard: {', '.join(held)} ({card})")
+        print(_sharded_search_line(label, mono, sh, qx, k, depth, kernel, exact, card))
+        del mono, sh
+        torch.cuda.empty_cache()
+
+
+def drive_sharded(dev, card: str, x, qx, gt_i, depth: int, k: int, config, masks: dict) -> None:
+    """The sharded build and search at full N over a mesh of SHARDS shards
+    from ``make_mesh(device="cuda")`` (round robin over the visible cards:
+    4 x cuda:0 on one card): classic, dot, LSH, int8 / int4 postings and
+    the kd scan built both ways and held leaf by leaf; match-only search
+    equal to the monolithic one; the rerank against a plain merge and
+    recall; blockmax, filtered, packed segments; the ring graph build at
+    SHARD_GRAPH_ROWS; AnnService(mesh=); ``launch.serve --shards``.
+    Frees what it builds."""
+    from repro_torch.core import distributed
+    from repro_torch.launch import serve as launch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = distributed.make_mesh((SHARDS,), ("data",), device=dev.type)
+    cards = sorted({str(d) for d in mesh.devices})
+    print(f"sharded mesh: {SHARDS} shards over {', '.join(cards)} "
+          f"({x.shape[0] // SHARDS} rows a shard; {card})")
+    _sharded_classic(dev, card, mesh, x, qx, gt_i, depth, k, config, masks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sharded_quantized(dev, card, mesh, x, qx, depth, k, config)
+    _sharded_kd(dev, card, mesh, x, qx, gt_i, depth, k)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sharded_packed(dev, card, mesh, x, qx, depth, k, config)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _sharded_graph(dev, card, mesh, x)
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    out = launch.main(["--shards", str(SHARDS), "--n-docs", str(x.shape[0]), "--device",
+                       dev.type])
+    print(f"launch.serve --shards {SHARDS} --n-docs {x.shape[0]}: R@10 {out['recall@k']}, batch "
+          f"p50 / p99 {out['p50_ms_per_batch']} / {out['p99_ms_per_batch']} ms, index "
+          f"{out['index_mb']} MB ({time.perf_counter() - t0:.1f} s with its corpus; {card})")
+    if not out["recall@k"] > 0.9:
+        raise AssertionError(f"launch.serve --shards: R@10 {out['recall@k']}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - held
+    if left > 2e9:
+        raise AssertionError(f"sharded phase: {left / 1e9:.3f} GB still allocated after it")
+    print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s (host clock, {card}); peak "
+          f"device memory {peak / 1e9:.1f} GB before the launcher; allocated after it "
+          f"{left / 1e6:.1f} MB above before it")
 
 
 if __name__ == "__main__":

@@ -12,15 +12,26 @@ Each stage is a frozen dataclass; :class:`BuildPipeline` runs them on the
 device of the vectors it is given.  The quantized arrays are bit-equal to
 the reference's: ``torch.round`` rounds half to even like ``jnp.round``,
 and every division stays a division.
+
+Every transform and postings stage takes ``axes`` / ``n_total``: with
+``axes`` set, the rows come as a list of the shards' blocks (one a shard,
+in flat order, each on its shard's device; :mod:`repro_torch.core.
+distributed`), the row-local work runs shard by shard, and the global
+statistics (fake-words df, the reduction's moments) are ``psum``-ed, so
+:meth:`BuildPipeline.build_sharded` returns a
+:class:`repro_torch.core.distributed.ShardedIndex` whose leaves equal
+:meth:`BuildPipeline.build_local`'s bit for bit (the reduction within f32
+tolerance).  No stage holds the whole corpus on a shard, except the
+graph's prune, which reads the gathered rows as the reference's does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Union
+from typing import Any, Optional, Sequence, Union
 
 import torch
 
-from repro_torch.core import bruteforce, fakewords, graph, kdtree, lexical_lsh, pca
+from repro_torch.core import bruteforce, distributed, fakewords, graph, kdtree, lexical_lsh, pca
 from repro_torch.core.types import (
     BruteForceConfig,
     DocMetadata,
@@ -53,6 +64,19 @@ _QUANT_POSTINGS_MSG = (
     "for their memory knob"
 )
 
+_TREE_BUILD_MSG = (
+    "kd-tree 'tree' backend builds host-side (numpy) and cannot shard on documents; use "
+    "backend='scan' (identical results, docs/DESIGN.md §3)"
+)
+
+
+def _per_shard(fn, *args, axes=None):
+    """``fn(*args)``, or with ``axes`` on each shard's parts (every arg a
+    list, one entry a shard) through :func:`distributed.shard_map`."""
+    if axes is None:
+        return fn(*args)
+    return distributed.shard_map(fn, [a.device for a in args[0]], *args)
+
 
 # --------------------------------------------------------------------------
 # Vector transforms
@@ -65,8 +89,9 @@ class TfTransform:
 
     config: FakeWordsConfig
 
-    def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        return fakewords.encode(v, self.config.quantization, self.config.store_dtype)
+    def __call__(self, v, axes=None, n_total=None):
+        return _per_shard(lambda x: fakewords.encode(x, self.config.quantization,
+                                                     self.config.store_dtype), v, axes=axes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,29 +100,33 @@ class MinHashTransform:
 
     config: LexicalLshConfig
 
-    def __call__(self, v: torch.Tensor) -> torch.Tensor:
-        return lexical_lsh.encode(v, self.config)
+    def __call__(self, v, axes=None, n_total=None):
+        return _per_shard(lambda x: lexical_lsh.encode(x, self.config), v, axes=axes)
 
 
 @dataclasses.dataclass(frozen=True)
 class ReductionTransform:
     """k-d tree: fit PCA or PPA -> PCA -> PPA and project the rows.  Returns
     (reduced f32 rows, fitted model): the model lands in the index, and the
-    queries project through it at search time."""
+    queries project through it at search time.  With ``axes`` the fit runs
+    from the shards' summed moments (one model, on shard 0's device) and
+    the reduced rows are a list."""
 
     config: KdTreeConfig
 
-    def __call__(self, v: torch.Tensor):
+    def __call__(self, v, axes=None, n_total=None):
         model, reduced = pca.fit_reduction(v, self.config.dims, self.config.reduction,
-                                           self.config.ppa_remove)
-        return reduced.to(torch.float32), model
+                                           self.config.ppa_remove, axes=axes, n_total=n_total)
+        if axes is None:
+            return reduced.to(torch.float32), model
+        return [r.to(torch.float32) for r in reduced], model
 
 
 @dataclasses.dataclass(frozen=True)
 class IdentityTransform:
     """Brute force and the graph: the unit-normalized rows themselves."""
 
-    def __call__(self, v: torch.Tensor) -> torch.Tensor:
+    def __call__(self, v, axes=None, n_total=None):
         return v
 
 
@@ -195,10 +224,21 @@ class FakeWordsPostings:
     config: FakeWordsConfig
     quantizer: Optional[PostingsQuantizer] = None
 
-    def __call__(self, tf: torch.Tensor, v: torch.Tensor, store: dict,
-                 n_total: int) -> FakeWordsIndex:
-        df = live_df(tf)
-        idf = idf_from_df(df, n_total)
+    def __call__(self, tf, v, store, n_total: int, axes=None):
+        if axes is None:
+            df = live_df(tf)
+            return self.assemble(tf, store, df, idf_from_df(df, n_total))
+        # df is the one global statistic: an integer sum over the shards,
+        # so idf and scored match a monolithic build bit for bit.  Shards
+        # on one device share one df and one idf.
+        df = distributed.psum(_per_shard(live_df, tf, axes=axes))
+        devices = [t.device for t in tf]
+        return _per_shard(self.assemble, tf, store, distributed.replicate(df, devices),
+                          distributed.replicate(idf_from_df(df, n_total), devices), axes=axes)
+
+    def assemble(self, tf: torch.Tensor, store: dict, df: torch.Tensor,
+                 idf: torch.Tensor) -> FakeWordsIndex:
+        """The index over ``tf``'s rows under the collection's df / idf."""
         doc_len = tf.to(torch.float32).sum(-1)
         norm = torch.rsqrt(torch.clamp_min(doc_len, 1.0))
         scored = pq = None
@@ -215,9 +255,8 @@ class FakeWordsPostings:
 class LshPostings:
     """Signatures carry their own statistics: pure container assembly."""
 
-    def __call__(self, sig: torch.Tensor, v: torch.Tensor, store: dict,
-                 n_total: int) -> LshIndex:
-        return LshIndex(sig=sig, **store)
+    def __call__(self, sig, v, store, n_total: int, axes=None):
+        return _per_shard(lambda s, st: LshIndex(sig=s, **st), sig, store, axes=axes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,8 +267,15 @@ class KdTreePostings:
 
     config: KdTreeConfig
 
-    def __call__(self, rep, v: torch.Tensor, store: dict, n_total: int) -> KdTreeIndex:
+    def __call__(self, rep, v, store, n_total: int, axes=None):
         reduced, model = rep
+        if axes is not None:
+            if self.config.backend == "tree":
+                raise ValueError(_TREE_BUILD_MSG)
+            models = distributed.replicate(model, [r.device for r in reduced])
+            return _per_shard(lambda r, m, st: KdTreeIndex(
+                reduced=r, reduction=m, lifted=fused.lift_l2(r), **st),
+                reduced, models, store, axes=axes)
         tree = {}
         if self.config.backend == "tree":
             sd, sv, pm, _ = kdtree._build_arrays(reduced.cpu().numpy(), self.config.leaf_size)
@@ -247,8 +293,10 @@ class FlatPostings:
 
     quantizer: Optional[PostingsQuantizer] = None
 
-    def __call__(self, rep: torch.Tensor, v: torch.Tensor, store: dict,
-                 n_total: int) -> FlatIndex:
+    def __call__(self, rep, v, store, n_total: int, axes=None):
+        return _per_shard(self.assemble, v, store, axes=axes)
+
+    def assemble(self, v: torch.Tensor, store: dict) -> FlatIndex:
         if self.quantizer is None:
             return FlatIndex(vectors=v, vq=store["vq"])
         return FlatIndex(vectors=store["vectors"], vq=store["vq"], pq=self.quantizer(v))
@@ -260,14 +308,21 @@ class GraphPostings:
     reverse-edge fill -> fixed-degree int32 adjacency + entry points
     (:func:`repro_torch.core.graph.build_graph`).  The unit rows are the
     match operand (K3 scores each neighbour block from them), so they are
-    kept whatever the rerank store, as in :class:`FlatPostings`."""
+    kept whatever the rerank store, as in :class:`FlatPostings`.  With
+    ``axes`` the pools circulate the shards' row blocks around the ring
+    (:func:`repro_torch.core.graph.build_graph_sharded`)."""
 
     config: GraphConfig
 
-    def __call__(self, rep: torch.Tensor, v: torch.Tensor, store: dict,
-                 n_total: int) -> GraphIndex:
-        neighbors, entry = graph.build_graph(v, self.config)
-        return GraphIndex(vectors=v, neighbors=neighbors, entry=entry, vq=store["vq"])
+    def __call__(self, rep, v, store, n_total: int, axes=None):
+        if axes is None:
+            neighbors, entry = graph.build_graph(v, self.config)
+            return GraphIndex(vectors=v, neighbors=neighbors, entry=entry, vq=store["vq"])
+        neighbors, entries = graph.build_graph_sharded(v, self.config, axes=axes,
+                                                       n_total=n_total)
+        return _per_shard(lambda x, nb, e, st: GraphIndex(vectors=x, neighbors=nb, entry=e,
+                                                          vq=st["vq"]),
+                          v, neighbors, entries, store, axes=axes)
 
 
 # --------------------------------------------------------------------------
@@ -348,10 +403,42 @@ class BuildPipeline:
     postings: Any
     store: Any = ExactRerankStore()
 
+    def _assemble(self, v, n_total: int, axes=None):
+        store = _per_shard(self.store, v, axes=axes)
+        return self.postings(self.transform(v, axes=axes, n_total=n_total), v, store, n_total,
+                             axes=axes)
+
     def build_local(self, vectors: torch.Tensor, normalized: bool = False):
         """Build on the device ``vectors`` lies on."""
         v = vectors if normalized else bruteforce.l2_normalize(vectors)
-        return self.postings(self.transform(v), v, self.store(v), v.shape[0])
+        return self._assemble(v, v.shape[0])
+
+    def build_sharded(self, mesh, vectors, axes: Sequence[str] = ("data",),
+                      normalized: bool = False) -> "distributed.ShardedIndex":
+        """Row-parallel build over ``mesh``: ``vectors`` (numpy or a tensor
+        on any device) is split by rows over ``axes``, each block copied
+        once to its shard's device (a view where it lies there already);
+        every doc leaf is computed from its shard's rows, and df and the
+        reduction's moments travel through ``psum``.  The shard count must
+        divide N."""
+        axes = tuple(axes)
+        if isinstance(self.config, KdTreeConfig) and self.config.backend == "tree":
+            raise ValueError(_TREE_BUILD_MSG)
+        n = vectors.shape[0]
+        n_shards = distributed.flat_axis_size(mesh, axes)
+        if n % n_shards:
+            raise ValueError(f"corpus size {n} not divisible by {n_shards} shards")
+        blocks = distributed.shard_rows(mesh, vectors, axes)
+        v = blocks if normalized else _per_shard(bruteforce.l2_normalize, blocks, axes=axes)
+        del blocks
+        return distributed.ShardedIndex(tuple(self._assemble(v, n, axes=axes)), mesh, axes)
+
+    def build(self, vectors, mesh=None, axes: Sequence[str] = ("data",),
+              normalized: bool = False):
+        """Local when ``mesh`` is None, else sharded."""
+        if mesh is None:
+            return self.build_local(vectors, normalized=normalized)
+        return self.build_sharded(mesh, vectors, axes, normalized=normalized)
 
 
 def make_build_pipeline(

@@ -10,7 +10,9 @@ multi-layer HNSW; every shape is static:
   sort-based reverse-edge pass that fills ``reverse_degree`` more slots
   (nearest sources first), and the entry points (the medoid, then strided
   rows).  The prune and the reverse pass are plain torch, as they are plain
-  XLA in the reference.
+  XLA in the reference.  :func:`build_graph_sharded` builds the same graph
+  over a device mesh: the pools circulate the shards' row blocks around the
+  ring, each step on K1 f32.
 
 * Search: a batched best-first beam search of a fixed number of
   iterations.  Each query keeps two fixed-size lists: the traversal list
@@ -170,6 +172,100 @@ def build_graph(v: torch.Tensor, config: GraphConfig) -> Tuple[torch.Tensor, tor
     del cand_s, cand_i
     rev = _reverse_edges(fwd_i, fwd_s, n, config.reverse_degree)
     return torch.cat([fwd_i, rev], dim=1), _entry_points(v, config.entries)
+
+
+# --------------------------------------------------------------------------
+# Build over a device mesh
+# --------------------------------------------------------------------------
+
+
+def _pool_step(rows: torch.Tensor, row_base: int, block: torch.Tensor, block_base: int,
+               run_s: torch.Tensor, run_i: torch.Tensor, m: int):
+    """Score ``rows`` (global ids from ``row_base``) against one block of
+    rows (global ids from ``block_base``) on K1 f32 and merge each row's
+    top ``m + 1`` of the block into its running top-``m`` pool, its own id
+    masked out.  The merge keeps (score desc, global id asc), the order
+    of :func:`_knn_pools` over the whole corpus, whatever the block order."""
+    n, dev = rows.shape[0], rows.device
+    out_s, out_i = torch.empty_like(run_s), torch.empty_like(run_i)
+    depth = min(m + 1, block.shape[0])
+    for r0 in range(0, n, _POOL_ROWS):
+        r1 = min(r0 + _POOL_ROWS, n)
+        s, i = fused.cosine_topk(block, rows[r0:r1], depth)
+        gid = torch.where(i >= 0, i + block_base, NO_EDGE)
+        own = gid == torch.arange(row_base + r0, row_base + r1, dtype=torch.int32,
+                                  device=dev)[:, None]
+        s = torch.where(own, -torch.inf, s)
+        gid = torch.where(own, NO_EDGE, gid)
+        cat_i, by_id = torch.sort(torch.cat([run_i[r0:r1], gid], dim=1), dim=1, stable=True)
+        cat_s = torch.gather(torch.cat([run_s[r0:r1], s], dim=1), 1, by_id)
+        top_s, pos = stable_topk(cat_s, m)
+        out_s[r0:r1] = top_s
+        out_i[r0:r1] = torch.where(top_s > -torch.inf, torch.gather(cat_i, 1, pos.long()),
+                                   NO_EDGE)
+    return out_s, out_i
+
+
+def build_graph_sharded(v_local, config: GraphConfig, axes, n_total: int):
+    """The graph build over a device mesh: ``v_local`` is the list of the
+    shards' unit rows (flat order, each on its shard's device), and the
+    result is each shard's adjacency rows (global neighbour ids) and the
+    entry points, one copy a device, both lists.
+
+    On one mesh axis the pools circulate the row blocks around the shard
+    ring (``ppermute`` with ``perm = [(i, (i - 1) % S)]``: after step s a
+    shard holds the block of shard ``flat + s``), each step a K1 f32 pass
+    of the shard's rows over the block, merged by (score desc, global id
+    asc); on several axes each shard scores its rows over the gathered
+    corpus instead.  The prune reads candidate rows from the gathered
+    corpus (the pools never need it, the prune does), and the reverse pass
+    runs on the gathered forward lists, each shard keeping its slice.  The
+    adjacency and entry points equal :func:`build_graph`'s."""
+    from repro_torch.core import distributed
+
+    n_shards = len(v_local)
+    n_local = v_local[0].shape[0]
+    devices = [x.device for x in v_local]
+    v_local = [x.to(torch.float32).contiguous() for x in v_local]
+    m = min(config.ef_construction, max(1, n_total - 1))
+
+    def empty_pools(x):
+        return (torch.full((x.shape[0], m), -torch.inf, device=x.device),
+                torch.full((x.shape[0], m), NO_EDGE, dtype=torch.int32, device=x.device))
+
+    pools = distributed.shard_map(empty_pools, devices, v_local)
+    v_all = distributed.all_gather(v_local)
+    v_alls = distributed.replicate(v_all, devices)
+    if len(axes) == 1 and n_shards > 1:
+        perm = [(i, (i - 1) % n_shards) for i in range(n_shards)]
+        blocks = list(v_local)
+        for step in range(n_shards):
+            pools = distributed.shard_map(
+                lambda rows, flat, block, pool: _pool_step(
+                    rows, flat * n_local, block, ((flat + step) % n_shards) * n_local,
+                    pool[0], pool[1], m),
+                devices, v_local, range(n_shards), blocks, pools)
+            if step + 1 < n_shards:
+                blocks = distributed.ppermute(blocks, perm)
+        del blocks
+    else:
+        pools = distributed.shard_map(
+            lambda rows, flat, corpus, pool: _pool_step(rows, flat * n_local, corpus, 0,
+                                                        pool[0], pool[1], m),
+            devices, v_local, range(n_shards), v_alls, pools)
+    fwd = distributed.shard_map(
+        lambda pool, corpus: _prune_all(pool[0], pool[1], corpus, config.degree, config.alpha),
+        devices, pools, v_alls)
+    del pools
+    fwd_i_all = distributed.all_gather([f[1] for f in fwd])
+    fwd_s_all = distributed.all_gather([f[0] for f in fwd])
+    rev_all = _reverse_edges(fwd_i_all, fwd_s_all, n_total, config.reverse_degree)
+    rev = [distributed.move(rev_all.narrow(0, s * n_local, n_local), d)
+           for s, d in enumerate(devices)]
+    neighbors = distributed.shard_map(lambda f, r: torch.cat([f[1], r], dim=1), devices, fwd,
+                                      rev)
+    entry = _entry_points(v_all, config.entries)
+    return neighbors, distributed.replicate(entry, devices)
 
 
 # --------------------------------------------------------------------------

@@ -17,6 +17,11 @@ with the best upper bounds are scored (:mod:`repro_torch.core.blockmax`).
 ``primary_postings`` / ``rerank_store`` / ``memory_budget_bytes`` choose the
 quantized read path (int8 / int4 postings, the int8 rerank store).
 
+``AnnIndex.build(x, cfg, mesh=make_mesh((4,), ("data",)))`` builds the index
+split over the mesh's shards (:mod:`repro_torch.core.distributed`): its
+``index`` is then a :class:`repro_torch.core.distributed.ShardedIndex`, and
+``search`` fans each query out to the shards and merges their lists.
+
 Persistence: :meth:`AnnIndex.save` / :meth:`AnnIndex.load` write and read
 the reference's single-index format (``FORMAT_VERSION`` 1: ``config.json``
 with the method config and serving knobs, ``index.npz`` with every array
@@ -36,7 +41,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.core import builder
+from repro_torch.core import bruteforce, builder, distributed
 from repro_torch.core import memory_budget as mb
 from repro_torch.core import pca
 from repro_torch.core import pipeline as pl
@@ -96,7 +101,13 @@ class AnnIndex:
     (:func:`repro_torch.core.types.next_epoch`), set at construction when
     not given: the serving layer folds it into its result-cache key, so
     swapping a service's index can never serve another index's cached
-    results.  Not persisted: a loaded copy is a distinct snapshot."""
+    results.  Not persisted: a loaded copy is a distinct snapshot.
+
+    ``index`` may be a :class:`repro_torch.core.distributed.ShardedIndex`
+    (``build(mesh=)``): the encoders read its replicated leaves from shard
+    0, ``search`` runs :func:`repro_torch.core.distributed.
+    make_sharded_search`, ``bm`` holds the shards' own block bounds, and
+    ``save`` writes the gathered monolithic index."""
 
     config: AnyConfig
     index: AnyIndex
@@ -111,10 +122,11 @@ class AnnIndex:
         if self.epoch is None:
             self.epoch = next_epoch()
         self.pipeline: pl.SearchPipeline = pl.build_pipeline(self.config)
+        local = distributed.first_shard(self.index)
         if self.quantized_rerank is None:
-            reranker = pl.default_reranker(self.index)
+            reranker = pl.default_reranker(local)
         elif self.quantized_rerank:
-            if self.index.vq is None:
+            if local.vq is None:
                 raise ValueError("quantized_rerank=True but the index has no int8 store "
                                  "(build with rerank_store='int8')")
             reranker = pl.QuantizedCosineReranker()
@@ -125,11 +137,16 @@ class AnnIndex:
         if self.blockmax_keep is None:
             return
         if self.bm is None:
-            if not isinstance(self.index, (FakeWordsIndex, LshIndex)):
+            if not isinstance(local, (FakeWordsIndex, LshIndex)):
                 raise ValueError(f"blockmax pruning is not supported for {self.method}")
-            self.bm = build_blockmax(self.index, self.blockmax_block_size)
-        self.pipeline = dataclasses.replace(
-            self.pipeline, matcher=pl.BlockMaxMatcher(self.blockmax_keep, self.bm))
+            if isinstance(self.index, distributed.ShardedIndex):
+                self.bm = distributed.build_blockmax_sharded(
+                    self.index.mesh, self.index, self.index.axes, self.blockmax_block_size)
+            else:
+                self.bm = build_blockmax(self.index, self.blockmax_block_size)
+        if not isinstance(self.index, distributed.ShardedIndex):
+            self.pipeline = dataclasses.replace(
+                self.pipeline, matcher=pl.BlockMaxMatcher(self.blockmax_keep, self.bm))
 
     @classmethod
     def build(
@@ -146,6 +163,8 @@ class AnnIndex:
         metadata=None,
         normalized: bool = False,
         device="cuda",
+        mesh: Optional[distributed.Mesh] = None,
+        shard_axes=("data",),
     ) -> "AnnIndex":
         """Build through :class:`repro_torch.core.builder.BuildPipeline` on
         ``device``.  ``vectors``: (N, dim) numpy array or tensor (moved to
@@ -166,9 +185,20 @@ class AnnIndex:
         the rows as unit-normalized already: a segment merge rebuilds from
         stored unit rows, and normalizing them again could move their last
         bit and break the segmented index's parity with a monolithic
-        build."""
-        dev = _check_device(device)
-        v = torch.as_tensor(vectors, device=dev)
+        build.
+
+        ``mesh`` (:func:`repro_torch.core.distributed.make_mesh`) builds row
+        by row over the mesh's ``shard_axes`` instead: each shard's rows go
+        once to its own device (``device`` is then the metadata's only) and
+        the index is a :class:`repro_torch.core.distributed.ShardedIndex`,
+        equal leaf for leaf to the monolithic build.  The shard count must
+        divide N."""
+        if mesh is None:
+            dev = _check_device(device)
+            v = torch.as_tensor(vectors, device=dev)
+        else:  # build_sharded moves each shard's rows to its own device
+            dev = distributed.shard_devices(mesh, shard_axes)[0]
+            v = torch.as_tensor(vectors)
         if memory_budget_bytes is not None:
             n, dim = v.shape
             plan = mb.plan_for_budget(
@@ -184,7 +214,7 @@ class AnnIndex:
             rerank_store = "exact" if keep_vectors else "none"
         bp = builder.make_build_pipeline(config, rerank_store, primary_postings or "fp32",
                                          postings_group)
-        return cls(config=config, index=bp.build_local(v, normalized=normalized),
+        return cls(config=config, index=bp.build(v, mesh, shard_axes, normalized=normalized),
                    blockmax_keep=blockmax_keep,
                    blockmax_block_size=blockmax_block_size,
                    quantized_rerank=rerank_store == "int8",
@@ -192,7 +222,7 @@ class AnnIndex:
 
     @property
     def method(self) -> str:
-        return _METHOD_BY_INDEX[type(self.index)]
+        return _METHOD_BY_INDEX[type(distributed.first_shard(self.index))]
 
     @property
     def device(self) -> torch.device:
@@ -204,6 +234,13 @@ class AnnIndex:
 
     def nbytes(self) -> int:
         return self.index.nbytes()
+
+    def encode_queries(self, queries) -> torch.Tensor:
+        """The method's query representation (tf row / signature / reduced
+        point / unit query), on the index's device; a sharded index's
+        encoder reads shard 0's replicated leaves."""
+        q = bruteforce.l2_normalize(torch.as_tensor(queries, device=self.device))
+        return self.pipeline.encoder(distributed.first_shard(self.index), q)
 
     def matcher_for(self, bm: Optional[BlockMaxIndex] = None, keep: Optional[int] = None):
         """The effective match stage: blockmax pruning when a block-bound
@@ -232,7 +269,27 @@ class AnnIndex:
         shape raises ValueError."""
         p = params if params is not None else SearchParams(k=k, depth=depth, rerank=rerank)
         q = torch.as_tensor(queries, device=self.device)
+        if isinstance(self.index, distributed.ShardedIndex):
+            return self._sharded_search(q, p, filt)
         return self.pipeline.search(self.index, q, p, filt=filt)
+
+    def rerank_store(self) -> str:
+        """The store the rerank reads: "int8", "exact" or "none"."""
+        if self.quantized_rerank:
+            return "int8"
+        return "exact" if distributed.first_shard(self.index).vectors is not None else "none"
+
+    def _sharded_search(self, q: torch.Tensor, p: SearchParams, filt):
+        """Fan-out and merge over the shards (a shared (N,) ``filt`` only)."""
+        pq = getattr(distributed.first_shard(self.index), "pq", None)
+        search = distributed.make_sharded_search(
+            self.index.mesh, self.config, self.index.axes, k=p.k, depth=p.depth,
+            rerank=p.rerank, blockmax_keep=self.blockmax_keep, rerank_store=self.rerank_store(),
+            postings_bits=0 if pq is None else pq.bits, filtered=filt is not None)
+        qn = bruteforce.l2_normalize(q)
+        args = (self.index,) + ((self.bm,) if self.blockmax_keep is not None else ()) + (
+            self.pipeline.encoder(distributed.first_shard(self.index), qn), qn)
+        return search(*args, *(() if filt is None else (filt,)))
 
     # ----------------------------------------------------------------------
     # Persistence: npz (every array) + JSON (config + serving knobs)
@@ -245,7 +302,10 @@ class AnnIndex:
         not have, is written as null (the reference's default routing)."""
         os.makedirs(path, exist_ok=True)
         packed, dtypes = {}, {}
-        for name, t in _named_arrays(self.index).items():
+        index = self.index
+        if isinstance(index, distributed.ShardedIndex):
+            index = distributed.gather(index)
+        for name, t in _named_arrays(index).items():
             packed[name], dtypes[name] = _to_numpy(t)
         meta = {
             "format_version": FORMAT_VERSION,
@@ -257,7 +317,7 @@ class AnnIndex:
             "blockmax_block_size": self.blockmax_block_size,
             "quantized_rerank": self.quantized_rerank,
         }
-        pq = getattr(self.index, "pq", None)
+        pq = getattr(index, "pq", None)
         if pq is not None:  # the packed store's static metadata
             meta["pq"] = {"bits": pq.bits, "group": pq.group, "cols": pq.cols}
         if self.metadata is not None:  # field names in the JSON, values in the npz

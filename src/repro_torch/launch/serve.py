@@ -8,6 +8,7 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --segments 8
     PYTHONPATH=src python -m repro_torch.launch.serve --qps 1000 --duration 10
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --n-docs 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --shards 4
 
 Builds an AnnIndex (fake words / lexical LSH / kd scan / brute force /
 hnsw) over a synthetic word2vec-like corpus on ``--device`` (default the
@@ -22,19 +23,23 @@ the service starts on the first chunk, the rest arrive between query
 rounds through ``writer.add`` + ``service.refresh()``; 10% of the corpus is
 then deleted and the index force-merged to one segment.  ``--qps`` runs an
 open-loop generator against the async micro-batcher (Zipfian reuse, mixed
-add / delete / search).  The reference's ``--shards`` (doc-sharded build
-and serving) is not ported yet.
+add / delete / search).  ``--shards N`` builds the index split over a
+mesh of N shards (:func:`repro_torch.core.distributed.make_mesh` on
+``--device``: round-robin over the visible cards, so on one card every
+shard is on it) and serves every batch by fan-out and merge; it prints the
+placement.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import queue as queue_mod
 import time
 
 import numpy as np
 import torch
 
-from repro_torch.core import bruteforce
+from repro_torch.core import bruteforce, distributed
 from repro_torch.core import eval as ev
 from repro_torch.core import plan as qplan
 from repro_torch.core.index import AnnIndex, _check_device
@@ -325,6 +330,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--rerank", action="store_true", default=True)
     ap.add_argument("--blockmax-keep", type=int, default=None)
+    ap.add_argument("--shards", type=int, default=0,
+                    help="build THROUGH the sharded BuildPipeline over a mesh of this many "
+                         "shards (round-robin over the visible cards of --device) and serve "
+                         "by fan-out + merge")
     ap.add_argument("--save-index", default=None,
                     help="save the built index here and serve from the loaded copy")
     ap.add_argument("--quantized-rerank", action="store_true",
@@ -386,6 +395,8 @@ def main(argv=None) -> dict:
         return serve_openloop(args, corpus, queries)
 
     if args.segments:
+        if args.shards:
+            raise SystemExit("--segments and --shards are mutually exclusive")
         if args.filter_ratio is not None or args.hybrid:
             raise SystemExit("--filter-ratio/--hybrid smoke modes run on the monolithic "
                              "serving path; drop --segments")
@@ -397,6 +408,18 @@ def main(argv=None) -> dict:
                              "--postings/--quantized-rerank explicitly")
         return serve_segmented(args, corpus, queries)
 
+    mesh = None
+    if args.shards:
+        if args.method == "hnsw":
+            raise SystemExit(
+                "--shards serves shard-local match + merge, which graph traversal cannot do "
+                "(adjacency edges cross shard boundaries); serve hnsw with --segments N or "
+                "single-device (the sharded BUILD is supported: distributed.build_sharded)")
+        mesh = distributed.make_mesh((args.shards,), ("data",), device=args.device)
+        placement = collections.Counter(str(d) for d in mesh.devices)
+        print(f"[serve] mesh: {args.shards} shards over {len(placement)} device(s) "
+              f"({', '.join(f'{d} x{n}' for d, n in sorted(placement.items()))})")
+
     config = make_config(args)
     rerank_store = "int8" if args.quantized_rerank else (
         None if args.memory_budget is not None else "exact")
@@ -404,9 +427,14 @@ def main(argv=None) -> dict:
     t0 = time.time()
     ann = AnnIndex.build(corpus, config, rerank_store=rerank_store,
                          primary_postings=args.postings, memory_budget_bytes=budget,
-                         device=args.device)
+                         device=args.device, mesh=mesh, shard_axes=("data",))
     _sync(args.device)
     build_s = time.time() - t0
+    if mesh is not None:
+        # One process builds every shard: on one card this is the total of
+        # the shards' builds, which run one after another.
+        print(f"[serve] sharded build: {args.shards} shards x {args.n_docs // args.shards} "
+              f"docs, build wall time {build_s:.2f}s (no full-corpus copy on a shard)")
     print(f"[serve] indexed {args.n_docs} docs ({ann.method}"
           f"{', int8 rerank store' if args.quantized_rerank else ''}) "
           f"in {build_s:.1f}s ({ann.nbytes()/1e6:.0f} MB)")
@@ -418,11 +446,13 @@ def main(argv=None) -> dict:
 
     # A budget plan may select rerank_store="none"; serving then runs
     # match-only whatever --rerank says.
-    do_rerank = args.rerank and (ann.index.vectors is not None
-                                 or getattr(ann.index, "vq", None) is not None)
+    local = distributed.first_shard(ann.index)
+    do_rerank = args.rerank and (local.vectors is not None
+                                 or getattr(local, "vq", None) is not None)
     svc = AnnService(ann, AnnServiceConfig(k=args.k, depth=args.depth, rerank=do_rerank,
                                            max_batch=args.batch,
-                                           blockmax_keep=args.blockmax_keep))
+                                           blockmax_keep=args.blockmax_keep),
+                     mesh=mesh, shard_axes=("data",) if mesh is not None else ())
 
     # Warm-up (kernel builds, graph captures), then the timed replay.
     svc.search_batch(queries[: args.batch])

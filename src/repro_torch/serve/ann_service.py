@@ -26,8 +26,12 @@ batch reaches ``max_batch`` rows or the oldest request has waited
 caller threads write to the card is safe: every capture runs in
 ``thread_local`` mode (:func:`repro_torch.core.executables.capture`).
 
-The reference's ``mesh=`` / ``shard_axes=`` (doc-sharded serving over
-``core/distributed.py``) are not ported yet: a service runs on one device.
+``mesh=`` / ``shard_axes=`` serve a monolithic ``AnnIndex`` split over a
+device mesh (:mod:`repro_torch.core.distributed`): each batch fans out to
+the shards (their match, blockmax and rerank on their own rows) and the
+coordinator merges.  An index built with ``mesh=`` is served as it is split;
+a monolithic one is split once, at bind.  The sharded path takes a shared
+(N,) filter only, and a segmented index refuses a mesh.
 """
 from __future__ import annotations
 
@@ -38,12 +42,12 @@ import queue as queue_mod
 import threading
 import time
 from concurrent.futures import Future
-from typing import Optional, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch.core import blockmax, bruteforce
+from repro_torch.core import blockmax, bruteforce, distributed
 from repro_torch.core import packed as packed_mod
 from repro_torch.core import pipeline as pl
 from repro_torch.core.index import AnnIndex, AnyConfig, AnyIndex
@@ -97,16 +101,21 @@ class AnnServiceConfig:
 
 
 class AnnService:
-    """Single-device or segmented search service over any AnnIndex /
-    SegmentedAnnIndex.  Forms: ``AnnService(ann)``, ``AnnService(ann,
-    service_cfg)``, ``AnnService(raw_index, method_config, service_cfg)``
-    and ``AnnService(writer=w, service=service_cfg)``."""
+    """Single-device, sharded or segmented search service over any
+    AnnIndex / SegmentedAnnIndex.  Forms: ``AnnService(ann)``,
+    ``AnnService(ann, service_cfg)``, ``AnnService(raw_index,
+    method_config, service_cfg)`` and ``AnnService(writer=w,
+    service=service_cfg)``; ``mesh=`` (with ``shard_axes``, by default the
+    sharded index's own axes, else every mesh axis) serves over a device
+    mesh."""
 
     def __init__(
         self,
         index: Union[AnnIndex, SegmentedAnnIndex, AnyIndex, None] = None,
         config: Optional[AnyConfig] = None,
         service: Optional[AnnServiceConfig] = None,
+        mesh: Optional[distributed.Mesh] = None,
+        shard_axes: Sequence[str] = (),
         writer: Optional[IndexWriter] = None,
     ):
         if writer is not None:
@@ -127,6 +136,8 @@ class AnnService:
         else:
             ann = AnnIndex(config=config, index=index)
         self.scfg = service if service is not None else AnnServiceConfig()
+        self.mesh = mesh
+        self.shard_axes = tuple(shard_axes)
         # One lock covers every snapshot swap (_bind) and every search: the
         # async worker thread and caller threads share this service.
         self._lock = threading.RLock()
@@ -163,12 +174,19 @@ class AnnService:
             self._bm_keep = getattr(ann, "blockmax_keep", None)
             self._bm_block = getattr(ann, "blockmax_block_size", 256)
         self._bm = None
+        self._search = self._search_filtered = None
         if self._segmented:
+            if self.mesh is not None:
+                raise ValueError("segmented serving is single-process; shard the corpus with "
+                                 "mesh= over a monolithic index instead")
             # Segmented blockmax rides the packed view, built per snapshot
             # inside its search.
             if self._bm_keep is not None and not isinstance(
                     ann.config, (FakeWordsConfig, LexicalLshConfig)):
                 raise ValueError(f"blockmax pruning is not supported for {ann.method}")
+            return
+        if self.mesh is not None:
+            self._bind_sharded(ann)
             return
         if self._bm_keep is not None:
             if not isinstance(ann.index, (FakeWordsIndex, LshIndex)):
@@ -177,6 +195,38 @@ class AnnService:
                 self._bm = ann.bm
             else:
                 self._bm = blockmax.build_blockmax(ann.index, self._bm_block)
+
+    def _bind_sharded(self, ann: AnnIndex) -> None:
+        """The sharded search over ``ann``: its own split (an index built
+        with ``mesh=``), else ``ann.index`` split once over the mesh; the
+        shards' own block bounds for blockmax; the rerank store the index
+        carries; the packed postings' bits; and the filtered variant."""
+        index = ann.index
+        if isinstance(index, distributed.ShardedIndex):
+            axes = self.shard_axes or index.axes
+            if axes != index.axes:
+                index = distributed.shard_index(self.mesh, distributed.gather(index), axes)
+        else:
+            axes = self.shard_axes or self.mesh.axis_names
+            index = distributed.shard_index(self.mesh, index, axes)
+        self.index, local = index, distributed.first_shard(index)
+        self.device = index.device
+        if self._bm_keep is not None:
+            if not isinstance(local, (FakeWordsIndex, LshIndex)):
+                raise ValueError(f"blockmax pruning is not supported for {ann.method}")
+            if (isinstance(ann.bm, distributed.ShardedIndex) and ann.index is index
+                    and ann.bm.shards[0].block_size == self._bm_block):
+                self._bm = ann.bm
+            else:
+                self._bm = distributed.build_blockmax_sharded(self.mesh, index, axes,
+                                                              self._bm_block)
+        pq = getattr(local, "pq", None)
+        knobs = dict(k=self.scfg.k, depth=self.scfg.depth, rerank=self.scfg.rerank,
+                     blockmax_keep=self._bm_keep, rerank_store=ann.rerank_store(),
+                     postings_bits=0 if pq is None else pq.bits)
+        self._search = distributed.make_sharded_search(self.mesh, ann.config, axes, **knobs)
+        self._search_filtered = distributed.make_sharded_search(
+            self.mesh, ann.config, axes, filtered=True, **knobs)
 
     # -- online index updates ----------------------------------------------
 
@@ -255,6 +305,10 @@ class AnnService:
         if pad:
             queries = _pad_rows(queries, pad)
         fm = filter
+        if fm is not None and len(fm.shape) == 2 and self.mesh is not None:
+            raise ValueError("sharded filtered serving takes a shared (N,) mask (it shards with "
+                             "the postings); per-query (B, N) masks are single-device/segmented "
+                             "only")
         if fm is not None and len(fm.shape) == 2 and pad:
             # Pad queries get all-zero mask rows; their (-inf, -1) rows are
             # trimmed with the batch below.
@@ -273,7 +327,7 @@ class AnnService:
                 q = q_rep = None
             else:
                 q = bruteforce.l2_normalize(torch.as_tensor(q_in, device=self.device))
-                q_rep = self.ann.pipeline.encoder(self.ann.index, q)
+                q_rep = self.ann.pipeline.encoder(distributed.first_shard(self.index), q)
                 key = self._cache_key(q_rep, q, fl) if use_cache else None
             if use_cache and key in self._cache:
                 self._cache.move_to_end(key)
@@ -285,6 +339,11 @@ class AnnService:
                         torch.as_tensor(q_in, device=self.device), k=self.scfg.k,
                         depth=self.scfg.depth, rerank=self.scfg.rerank, filter_mask=fl,
                         blockmax_keep=self._bm_keep, blockmax_block_size=self._bm_block)
+                elif self._search is not None:
+                    args = (self.index,) + ((self._bm,) if self._bm is not None else ()) + (
+                        q_rep, q)
+                    s, ids = (self._search(*args) if fl is None
+                              else self._search_filtered(*args, fl))
                 else:
                     filt = pl.as_filter(fl, self.ann.num_docs, q.shape[0], self.device)
                     s, ids = pl.match_rerank(

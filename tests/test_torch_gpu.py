@@ -1724,3 +1724,113 @@ def test_cuda_one_graph_replayed_from_two_threads(method, monkeypatch):
     for t in threads:
         t.join(120)
     assert replays[0] >= 80 and not bad
+
+
+# -- the sharded build and search over a single-process mesh ----------------
+
+
+SHARDED_METHODS = {
+    "classic": FakeWordsConfig(quantization=30),
+    "dot": FakeWordsConfig(quantization=30, scoring="dot"),
+    "lsh": LexicalLshConfig(buckets=300, hashes=1),
+}
+
+
+def _sharded_rows(n=20_480, dim=300, seed=7):
+    """Random rows; a corpus (n >= 1,024) repeats its first 64 rows in
+    another shard: exact ties across shards."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, dim)).astype(np.float32)
+    if n >= 1024:
+        x[n // 2:n // 2 + 64] = x[:64]
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method", list(SHARDED_METHODS))
+def test_cuda_sharded_match_only_equals_monolithic(method):
+    """4 shards on the card (4 x cuda:0 on one card): the build's leaves
+    equal the monolithic build's bit for bit, and match-only search returns
+    its ids and scores bit for bit at B = 1, 8 and 64."""
+    from repro_torch.core import distributed
+
+    dev = cuda_device()
+    cfg = SHARDED_METHODS[method]
+    x = _sharded_rows()
+    mesh = distributed.make_mesh((4,), ("data",))
+    assert all(d.type == "cuda" for d in mesh.devices)
+    mono = AnnIndex.build(x, cfg, device=dev)
+    sh = AnnIndex.build(x, cfg, mesh=mesh)
+    g = distributed.gather(sh.index, dev)
+    for f in dataclasses.fields(mono.index):
+        want = getattr(mono.index, f.name)
+        if isinstance(want, torch.Tensor):
+            assert torch.equal(getattr(g, f.name), want), f.name
+    q = torch.from_numpy(_sharded_rows(64, 300, 8)).to(dev)
+    q[:4] = torch.from_numpy(x[:4]).to(dev)
+    for b in (1, 8, 64):
+        want = mono.search(q[:b], k=10, depth=100)
+        got = sh.search(q[:b], k=10, depth=100)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0]), b
+
+
+@pytest.mark.gpu
+def test_cuda_ring_graph_build_equals_build_graph():
+    """The ring build on 4 x cuda:0 (each pool step on K1 f32) gives
+    ``build_graph``'s adjacency and entry points."""
+    from repro_torch.core import distributed, graph
+
+    dev = cuda_device()
+    x = bruteforce.l2_normalize(torch.from_numpy(_sharded_rows(8192, 64)).to(dev))
+    cfg = GraphConfig()
+    nb, entry = graph.build_graph(x, cfg)
+    mesh = distributed.make_mesh((4,), ("data",))
+    nbs, entries = graph.build_graph_sharded(distributed.shard_rows(mesh, x, ("data",)), cfg,
+                                             ("data",), x.shape[0])
+    assert torch.equal(torch.cat(nbs), nb) and torch.equal(entries[0], entry)
+
+
+@pytest.mark.gpu
+def test_cuda_service_over_mesh_equals_make_sharded_search():
+    from repro_torch.core import distributed
+    from repro_torch.serve.ann_service import AnnService, AnnServiceConfig
+
+    dev = cuda_device()
+    cfg = SHARDED_METHODS["classic"]
+    x = _sharded_rows()
+    mesh = distributed.make_mesh((4,), ("data",))
+    ann = AnnIndex.build(x, cfg, mesh=mesh)
+    qs = _sharded_rows(96, 300, 9)
+    svc = AnnService(ann, AnnServiceConfig(k=10, depth=100, max_batch=32), mesh=mesh)
+    fn = distributed.make_sharded_search(mesh, cfg, ("data",), k=10, depth=100, rerank=True)
+    qn = bruteforce.l2_normalize(torch.from_numpy(qs).to(dev))
+    got = svc.search_batch(qs)
+    for i in range(0, 96, 32):
+        s, ids = fn(ann.index, ann.encode_queries(qs[i:i + 32]), qn[i:i + 32])
+        assert np.array_equal(got[1][i:i + 32], ids.cpu().numpy())
+        assert np.array_equal(got[0][i:i + 32], s.cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_over_every_card():
+    """With more than one card, ``make_mesh`` puts one shard a card (round
+    robin) and the sharded search equals the monolithic one."""
+    from repro_torch.core import distributed
+
+    cuda_device()
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        pytest.skip("needs more than one card")
+    mesh = distributed.make_mesh((n_cards,), ("data",))
+    assert [d.index for d in mesh.devices] == list(range(n_cards))
+    cfg = SHARDED_METHODS["classic"]
+    x = _sharded_rows(4096 * n_cards)
+    mono = AnnIndex.build(x, cfg, device="cuda:0")
+    sh = AnnIndex.build(x, cfg, mesh=mesh)
+    assert [s.device.index for s in sh.index.shards] == list(range(n_cards))
+    q = torch.from_numpy(_sharded_rows(16, 300, 8)).to("cuda:0")
+    want, got = mono.search(q, k=10, depth=100), sh.search(q, k=10, depth=100)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    s1, i1 = mono.search(q, k=10, depth=100, rerank=True)
+    s2, i2 = sh.search(q, k=10, depth=100, rerank=True)
+    assert float(ev.overlap(i1, i2)) > 0.95

@@ -6,8 +6,15 @@ Both launchers draw the same corpus and queries (held bit-equal first), build
 every encoding and serve the query stream through their ``AnnService``.
 Recall@k is equal, or within 0.01 where the exact rerank's f32 near-ties can
 swap ids.  The online modes (``--segments``, ``--qps``), the filtered and
-hybrid smokes and ``--save-index`` run once each.
+hybrid smokes and ``--save-index`` run once each.  ``--shards 4`` runs
+against the JAX launcher in a subprocess with 8 fake host devices, as the
+reference's sharded tests run.
 """
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
@@ -93,3 +100,41 @@ def test_device_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(SMALL)
+
+
+def _jax_main(args):
+    """``repro.launch.serve.main(args)`` in a subprocess under 8 fake host
+    devices (its ``--shards`` needs that many); its result dict."""
+    code = ("import os, json, sys\n"
+            "os.environ['XLA_FLAGS'] = '--xla_force_host_platform_device_count=8'\n"
+            "os.environ['JAX_PLATFORMS'] = 'cpu'\n"
+            "from repro.launch import serve\n"
+            "print('RESULT ' + json.dumps(serve.main(json.loads(sys.argv[1]))))\n")
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    r = subprocess.run([sys.executable, "-c", code, json.dumps(args)], capture_output=True,
+                       text=True, timeout=600, env=dict(os.environ, PYTHONPATH=src))
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr[-3000:]}"
+    line = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")][-1]
+    return json.loads(line[len("RESULT "):])
+
+
+@pytest.mark.parametrize("method", ["fakewords", "lsh"])
+def test_shards_match_the_reference(method, capsys):
+    """``--shards 4``: the sharded build and fan-out serving give the JAX
+    launcher's recall (within 0.01 where f32 near-ties swap) and the
+    monolithic index's bytes; the placement is printed."""
+    args = SMALL + ["--shards", "4", "--method", method]
+    out = serve.main(args + CPU)
+    assert "[serve] mesh: 4 shards over 1 device(s) (cpu x4)" in capsys.readouterr().out
+    want = _jax_main(args)
+    assert out["method"] == want["method"] and out["queries"] == want["queries"] == 80
+    assert abs(out["recall@k"] - want["recall@k"]) <= RECALL_SLACK
+    assert out["index_mb"] == want["index_mb"] == serve.main(
+        SMALL + CPU + ["--method", method])["index_mb"]
+
+
+def test_shards_refuses_hnsw_and_segments():
+    with pytest.raises(SystemExit, match="adjacency edges cross shard"):
+        serve.main(SMALL + CPU + ["--shards", "4", "--method", "hnsw"])
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        serve.main(SMALL + CPU + ["--shards", "4", "--segments", "2"])
