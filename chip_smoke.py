@@ -227,6 +227,21 @@
    deletes, with zero stale cache hits, the refresh times and the captures
    against replays; and the kd scan ("pca", in ``drive_kdtree``) and the
    graph (in ``drive_graph``) through the sync and async service.
+16. The LM (``drive_lm``, the last phase): phi3-mini-3.8b at its full width
+   and depth (32 layers, 3,821,079,552 parameters drawn by ``init_params``
+   on the card from a seed) served through ``DecodeEngine``: 16 prompts
+   from ``data/lm.py`` of 512 to 3,072 tokens through 8 slots of 4,096
+   positions, 32 new tokens each.  It holds (a) K9 on layer 0's own q, k, v
+   against its plain version (1e-2 row rule), (b) a two-layer cut of the
+   model at S = 256 on the card against the CPU route (logits within 2e-2
+   of their scale), (c) every generated token against a greedy recompute
+   by ``prefill`` on the card, on the engine's own prefix (a parting only
+   at a near-tie within (b)'s tolerance), (d) 32 K9 launches a prefill and
+   no other kernel on the engine's run, (e) every request retired and
+   every slot reused; and prints the parameter, cache and peak memory, the
+   prefill time at each prompt length, the decode time a step at 8 active
+   slots, tokens a second, and K9 at the longest prefill beside
+   ``scaled_dot_product_attention(is_causal=True)``.
 
 Exits non-zero on any failure, or when no CUDA device is available.  The
 last two lines are a JSON object of per-kernel numbers and the JSON status
@@ -298,6 +313,7 @@ loaders (LOADERS), on random operands at the cell's shapes.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -1918,6 +1934,7 @@ def main(argv) -> int:
     before_segments = drive_segments(dev, card, x, qx, depth, k, config, md)
     peak_segments = max(before_segments, torch.cuda.max_memory_allocated())
     drive_sharded(dev, card, x, qx, gt_i, depth, k, config, masks)
+    kernels += drive_lm(dev, card)
     print(f"the filtered phases took {filtered_s + quantized_filtered_s:.1f} s (host clock)")
     peak = max(peak_segments, torch.cuda.max_memory_allocated())
     print(f"peak device memory {peak / 1e9:.1f} GB (the whole run)")
@@ -7035,6 +7052,274 @@ def drive_sharded(dev, card: str, x, qx, gt_i, depth: int, k: int, config, masks
     print(f"sharded phase: {time.perf_counter() - t_phase:.1f} s (host clock, {card}); peak "
           f"device memory {peak / 1e9:.1f} GB before the launcher; allocated after it "
           f"{left / 1e6:.1f} MB above before it")
+
+
+LM_SEED = 36  # the LM phase's weights and prompts
+LM_SLOTS = 8
+LM_MAX_LEN = 4096
+LM_REQUESTS = 16
+LM_PROMPTS = (512, 3072)  # prompt lengths spread evenly over this range
+LM_NEW = 32  # max_new_tokens of every request
+LM_EOS = 0  # the Zipf ranks of data/lm.py start at 1: no prompt holds token 0
+LM_CUT = (2, 256)  # hold (b): layers and sequence of the full-width cut
+LM_CHECKED = 8  # hold (c) covers at least this many tokens of every request
+LM_TOL = 2e-2  # bf16 logits, relative to their scale (tests/test_torch_transformer.py)
+
+
+def _lm_prefill_qkv(params, cfg, tokens):
+    """Layer 0's rotated q, k and its v for ``tokens`` (1, S), in K9's
+    (B, H, S, D) layout: the operands the model's first prefill layer gives
+    K9 (``transformer.attention``'s arithmetic)."""
+    from repro_torch.models import transformer as tfm
+
+    _, layer = next(tfm.iter_layers(params, cfg))
+    h = tfm.rms_norm(tfm._embed(params, tokens, cfg), layer["ln1"], cfg.norm_eps)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None]
+    return [t.transpose(1, 2).contiguous() for t in tfm.qkv(h, layer, cfg, positions)]
+
+
+def _lm_logits_gap(a, b) -> tuple:
+    """(largest |a - b| over the largest |b|, error norm over b's norm)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return (float((a - b).abs().max() / b.abs().max()),
+            float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)))
+
+
+def drive_lm(dev, card: str, cfg=None) -> list:
+    """The LM served through ``DecodeEngine`` at phi3-mini-3.8b's full width
+    and depth (32 layers; ``cfg`` overrides for a rehearsal), weights drawn
+    from LM_SEED by ``init_params`` on the card: LM_REQUESTS prompts from
+    ``data/lm.py`` with lengths spread over LM_PROMPTS, through LM_SLOTS slots
+    of LM_MAX_LEN, LM_NEW tokens each.  Holds (a) K9 on layer 0's own q, k, v
+    (the longest prompt) against its plain version, (b) a LM_CUT cut of the
+    model, same weights, card against the CPU route, (c) every request's
+    tokens against a greedy recompute by ``prefill`` on the card, (d) 32 K9
+    launches a prefill and no other kernel on the engine's run, (e) every
+    request retired and every slot reused.  Prints the memory, the prefill
+    and decode times, tokens a second and K9 against SDPA at the longest
+    prefill.  Returns K9's kernels-line entry; frees what it builds."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from repro_torch.configs import phi3_mini_3_8b
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import DecodeEngine, EngineConfig, Request
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or phi3_mini_3_8b.make_model()
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, gen, device=dev)
+    leaves = []
+    tfm.tree_map(lambda _, v: leaves.append(v), params)
+    n_params = sum(v.numel() for v in leaves)
+    param_gb = sum(v.numel() * v.element_size() for v in leaves) / 1e9
+    if n_params != cfg.param_count()[0]:
+        raise AssertionError(f"{n_params} parameters, param_count {cfg.param_count()[0]}")
+    torch.cuda.synchronize()
+    print(f"LM {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} heads of {cfg.dh}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params:,} "
+          f"parameters, {param_gb:.2f} GB in {str(cfg.param_dtype)[6:]} (init_params on the card "
+          f"{time.perf_counter() - t0:.1f} s; {card})")
+    lengths = np.linspace(*LM_PROMPTS, LM_REQUESTS).round().astype(int)
+    data = lm_data.LmDataConfig(vocab=cfg.vocab, seq_len=int(lengths.max()),
+                                global_batch=LM_REQUESTS, seed=LM_SEED)
+    toks = lm_data.batch_at(data, 0)["tokens"].numpy()
+    prompts = [toks[i, :n] for i, n in enumerate(lengths)]
+    if any((p == LM_EOS).any() for p in prompts):
+        raise AssertionError("a prompt holds the eos token")
+
+    # (a) K9 on the model's own q, k, v at layer 0 of the longest prompt
+    longest = torch.from_numpy(prompts[-1].astype(np.int64))[None].to(dev)
+    q, k, v = _lm_prefill_qkv(params, cfg, longest)
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = fa_ref.attention_ref(q, k, v)
+    err_a = compare_dense(f"LM layer 0 attention S={q.shape[2]}", got, want, exact=False,
+                          tol=ATTN_TOL[q.dtype])
+    print(f"  ok  (a) K9 on layer 0's own q, k, v (B=1, Hq={q.shape[1]}, Hkv={k.shape[1]}, "
+          f"S={q.shape[2]}, D={q.shape[3]}, {str(q.dtype)[6:]}) against its plain version: "
+          f"max_abs_err {err_a:.3g} (row rule {ATTN_TOL[q.dtype]})")
+    del got, want
+
+    # (b) a cut of the model at full width: the card against the CPU route
+    n_cut, s_cut = LM_CUT
+    cut_cfg = dc.replace(cfg, n_layers=n_cut)
+    cut = {key: ({w: t[:n_cut] for w, t in val.items()} if isinstance(val, dict) else val)
+           for key, val in params.items()}
+    cut_toks = longest[:, :s_cut]
+    _, on_card = tfm.prefill(cut, cut_toks, cut_cfg)
+    cut_cpu = tfm.tree_map(lambda _, t: t.cpu(), cut)
+    t0 = time.perf_counter()
+    _, on_cpu = tfm.prefill(cut_cpu, cut_toks.cpu(), cut_cfg)
+    cpu_s = time.perf_counter() - t0
+    del cut, cut_cpu
+    err_b, norm_b = _lm_logits_gap(on_card, on_cpu)
+    print(f"  ok  (b) {n_cut} layers of {cfg.name} at S={s_cut}, last-position logits on the "
+          f"card against the CPU route ({cpu_s:.1f} s): largest error {err_b:.4g} of the largest "
+          f"logit ({float(on_cpu.abs().max()):.4g}), error norm {norm_b:.4g} of the norm "
+          f"(tolerance {LM_TOL} / {2 * LM_TOL})")
+    if not (norm_b <= LM_TOL and err_b <= 2 * LM_TOL):
+        raise AssertionError(f"(b): the cut's logits differ by {err_b:.4g} / {norm_b:.4g}")
+    # Hold (c)'s near-tie: the bf16 tolerance (b) holds the card to.  Two bf16
+    # computations of the same logits (the engine's decode and a prefill, on
+    # one route) differ by a step or two of the largest logit (~0.5% of it);
+    # (b)'s measured error is no bound on that (it is 0 on one route).
+    near_tie = LM_TOL
+
+    # the main path: the engine serves every request
+    class TimedEngine(DecodeEngine):
+        """Times each prefill and decode step with CUDA events, and counts
+        the K9 launches of each prefill."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.prefills, self.decodes = [], []
+
+        def _prefill(self, prompt, slot):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            before = flash_attention.launches
+            start.record()
+            tok = super()._prefill(prompt, slot)
+            end.record()
+            self.prefills.append((len(prompt), slot, start, end,
+                                  flash_attention.launches - before))
+            return tok
+
+        def _decode(self, tokens, active):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = super()._decode(tokens, active)
+            end.record()
+            self.decodes.append((int(active.sum()), start, end))
+            return out
+
+    engine = TimedEngine(params, cfg, EngineConfig(batch_slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                                                   eos_id=LM_EOS), device=dev)
+    cache_gb = sum(engine.cache[key].numel() * engine.cache[key].element_size()
+                   for key in ("k", "v")) / 1e9
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=LM_NEW) for i, p in enumerate(prompts)]
+    for r in reqs:
+        engine.submit(r)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = engine.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = _launches()
+    # (d) K9 carried every prefill layer, and nothing else launched
+    per_prefill = [p[4] for p in engine.prefills]
+    if (counts["flash_attention"] != cfg.n_layers * len(reqs)
+            or any(n != cfg.n_layers for n in per_prefill)
+            or any(n for name, n in counts.items() if name != "flash_attention")):
+        raise AssertionError(f"(d): launches {counts}, a prefill's K9 launches {per_prefill}")
+    # (e) every request retired through the slots, each slot reused
+    slots = collections.Counter(p[1] for p in engine.prefills)
+    if (sorted(r.uid for r in done) != list(range(len(reqs))) or not all(r.done for r in reqs)
+            or len(slots) != LM_SLOTS or min(slots.values()) < 2):
+        raise AssertionError(f"(e): retired {sorted(r.uid for r in done)}, slots {dict(slots)}")
+    n_out = sum(len(r.out_tokens) for r in reqs)
+    print(f"  ok  (d) {counts['flash_attention']} K9 launches on the engine's run, "
+          f"{cfg.n_layers} a prefill, no other kernel; (e) {len(done)} requests retired "
+          f"through {LM_SLOTS} slots (requests a slot {sorted(slots.values())}), "
+          f"{engine.steps} steps")
+    prefill_ms = [(p[0], p[2].elapsed_time(p[3])) for p in engine.prefills]
+    full = [s.elapsed_time(e) for a, s, e in engine.decodes if a == LM_SLOTS]
+    print(f"LM engine on {card}: parameters {param_gb:.2f} GB, cache {cache_gb:.2f} GB "
+          f"({LM_SLOTS} x {LM_MAX_LEN} positions); prefill ms at each prompt length: "
+          + ", ".join(f"{n}: {ms:.2f}" for n, ms in prefill_ms)
+          + f"; decode ms a step at {LM_SLOTS} active slots: median {statistics.median(full):.2f} "
+          f"(min {min(full):.2f}, max {max(full):.2f}, {len(full)} steps); {n_out} tokens out in "
+          f"{run_s:.2f} s: {n_out / run_s:.1f} tokens/s ({sum(lengths) + n_out} tokens through "
+          f"the model: {(sum(lengths) + n_out) / run_s:.1f}/s)")
+    # where a decode step's time goes: a trace of 2 steps at LM_SLOTS active
+    ones = torch.ones(LM_SLOTS, dtype=torch.int64, device=dev)
+    spans = _traced(lambda: engine._decode(ones, ones.bool()), 2)
+    if spans:
+        per = collections.Counter()
+        for a, b, name in spans:
+            per[name[:70]] += (b - a) / 1e3 / 2
+        busy, wall = sum(per.values()), (spans[-1][1] - spans[0][0]) / 1e3 / 2
+        print(f"LM decode step trace ({LM_SLOTS} active, 2 steps; {card}): {len(spans) // 2} "
+              f"kernels a step, device busy {busy:.2f} of {wall:.2f} ms (idle "
+              f"{1 - busy / wall:.1%}); most time: "
+              + "; ".join(f"{name} {ms:.2f} ms" for name, ms in per.most_common(8)))
+    else:
+        print("LM decode step trace: torch.profiler recorded no device time")
+    engine.cache = None
+    del engine
+    torch.cuda.empty_cache()
+
+    # K9 at the engine's longest prefill beside SDPA (is_causal=True)
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                                    enable_gqa=True)
+
+    ms, runs = timed(lambda: flash_attention(q, k, v))
+    plain_ms, plain_runs = timed(lambda: fa_ref.attention_ref(q, k, v))
+    lib_ms = timed(sdpa)[0]
+    bound = attention_bound_ms(q, k, v, "bf16")
+    print(f"flash_attention/phi3-mini-engine (the engine's prefill, B=1, Hq={q.shape[1]}, "
+          f"Hkv={k.shape[1]}, S={q.shape[2]}, D={q.shape[3]}, bf16) on {card}: kernel {ms:.3f} ms "
+          f"(median of {runs}), bound {bound[0]:.3f} ms ({bound[1]}); plain {plain_ms:.3f} ms "
+          f"(median of {plain_runs}); scaled_dot_product_attention(is_causal=True), flash "
+          f"backend {lib_ms:.3f} ms; launches on the engine's run {counts['flash_attention']}")
+    entry = {"name": "flash_attention/phi3-mini-engine", "route": "cuda",
+             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention/kernel.py:74",
+             "launches": counts["flash_attention"], "max_abs_err": err_a, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": lib_ms}
+    # (c) each request's tokens against a greedy recompute by prefill on the
+    # card, on the engine's own prefix (the anchor's check up to the first
+    # step where they part; past it the engine's token must be a near-tie of
+    # the recompute's top).
+    t0 = time.perf_counter()
+    exact, parted = 0, []
+    for r in reqs:
+        n_check = min(len(r.out_tokens), LM_NEW)
+        if n_check < min(LM_CHECKED, r.max_new_tokens):
+            raise AssertionError(f"(c): request {r.uid} has {len(r.out_tokens)} tokens")
+        seq = torch.from_numpy(np.concatenate([r.prompt, r.out_tokens]).astype(np.int64)).to(dev)
+        for j in range(n_check):
+            lg = tfm.prefill(params, seq[None, :len(r.prompt) + j], cfg)[1][0].float()
+            top = int(torch.argmax(lg))
+            if top == r.out_tokens[j]:
+                exact += 1
+                continue
+            parted.append((r.uid, j, float((lg[top] - lg[r.out_tokens[j]]) / lg.abs().max())))
+    gaps = sorted(g for _, _, g in parted)
+    print(f"  (c) {exact + len(parted)} tokens of {len(reqs)} requests against a greedy "
+          f"recompute by prefill on the card: {exact} equal, {len(parted)} parted (each must be a "
+          f"near-tie within {near_tie:.4g} of the scale, (b)'s tolerance): gaps "
+          f"{[round(g, 5) for g in gaps]} at (request, token) {[(u, j) for u, j, _ in parted]} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if gaps and gaps[-1] > near_tie:
+        raise AssertionError(f"(c): {sum(g > near_tie for g in gaps)} tokens part from the "
+                             f"recompute by more than {near_tie:.4g} of the scale")
+
+    peak = torch.cuda.max_memory_allocated()
+    del q, k, v, params, leaves, reqs, done
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - held
+    if left > 1e9:
+        raise AssertionError(f"LM phase: {left / 1e9:.3f} GB still allocated after it")
+    print(f"LM phase: {time.perf_counter() - t_phase:.1f} s (host clock, {card}); peak device "
+          f"memory {peak / 1e9:.1f} GB (with the {held / 1e9:.1f} GB held before it)")
+    return [entry]
 
 
 if __name__ == "__main__":

@@ -211,11 +211,11 @@ def kept_rows(bm: BlockMaxIndex, q: torch.Tensor, n_keep: int) -> torch.Tensor:
     return rows.reshape(q.shape[0], -1).to(torch.int32)
 
 
-def pruned_search(
+def pruned_topk(
     index: AnyBlockIndex, bm: BlockMaxIndex, q: torch.Tensor, n_keep: int, depth: int,
     filt: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Two-stage blockmax search: bound pass -> keep ``n_keep`` blocks ->
+    """Two-stage blockmax search core: bound pass -> keep ``n_keep`` blocks ->
     exact scoring of their rows.  Returns (scores f32 (B, depth), ids int32
     (B, depth)), ties to the lowest doc id, so at n_keep = every block the
     ids equal the dense paths'.
@@ -246,3 +246,12 @@ def pruned_search(
         d_s = torch.cat([d_s, d_s.new_full((b, pad), -torch.inf)], dim=-1)
         d_i = torch.cat([d_i, d_i.new_full((b, pad), -1)], dim=-1)
     return d_s, d_i
+
+
+def pruned_search(
+    index: AnyBlockIndex, bm: BlockMaxIndex, q: torch.Tensor, n_keep: int, depth: int,
+    filt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The standalone form of :func:`pruned_topk` (the reference jits it;
+    here the two are one computation, kept under both names)."""
+    return pruned_topk(index, bm, q, n_keep, depth, filt=filt)

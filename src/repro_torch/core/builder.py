@@ -205,6 +205,11 @@ def idf_from_df(df: torch.Tensor, n_total: int) -> torch.Tensor:
     return 1.0 + torch.log(n_total / (df.to(torch.float32) + 1.0))
 
 
+def doc_norm(tf: torch.Tensor) -> torch.Tensor:
+    """Lucene length norm 1 / sqrt(doc_len) per row (doc_len floored at 1)."""
+    return torch.rsqrt(torch.clamp_min(tf.to(torch.float32).sum(-1), 1.0))
+
+
 def classic_scored(tf: torch.Tensor, idf: torch.Tensor, norm: torch.Tensor) -> torch.Tensor:
     """Per-(doc, term) classic scoring matrix sqrt(tf_d) * idf^2 * norm_d in
     bf16, so query scoring is one product."""
@@ -239,8 +244,7 @@ class FakeWordsPostings:
     def assemble(self, tf: torch.Tensor, store: dict, df: torch.Tensor,
                  idf: torch.Tensor) -> FakeWordsIndex:
         """The index over ``tf``'s rows under the collection's df / idf."""
-        doc_len = tf.to(torch.float32).sum(-1)
-        norm = torch.rsqrt(torch.clamp_min(doc_len, 1.0))
+        norm = doc_norm(tf)
         scored = pq = None
         if self.config.scoring == "classic":
             scored = classic_scored(tf, idf, norm)

@@ -46,9 +46,10 @@ index exists, so it has no counterpart.
 The merge's tie order is the reference's: one stable top-k over the
 gathered (B, S * d) scores (``lax.top_k`` order, shard-major), so a
 match-only sharded search returns the monolithic search's ids.  The
-fake-words df-prune threshold counts the collection's rows
-(``df_num_docs``), so it agrees with the monolithic search at any
-``df_max_ratio`` (the reference's shard compares against its local rows).
+fake-words df-prune keep mask is the reference's: each shard compares the
+collection's (psum'd) df against ``df_max_ratio`` times its OWN rows
+(``index.num_docs`` of the shard), so below ratio 1.0 a sharded search
+prunes more terms than the monolithic one, as the reference's does.
 """
 from __future__ import annotations
 
@@ -514,7 +515,7 @@ def make_sharded_search(
         raise ValueError("rerank=True needs rerank_store 'exact' or 'int8'")
     matcher = pl.make_matcher(config)
 
-    def local(shard, bm, q_rep, queries, filt, base, m):
+    def local(shard, bm, q_rep, queries, filt, base):
         if bm is not None:
             n_keep = min(blockmax_keep, bm.num_blocks)
             # Cap on gathered candidates, not n_local: a ragged shard whose
@@ -523,7 +524,7 @@ def make_sharded_search(
             loc_s, loc_i = pl.BlockMaxMatcher(n_keep, bm)(
                 shard, q_rep, min(depth, n_keep * bm.block_size), filt=filt)
         else:
-            loc_s, loc_i = m(shard, q_rep, depth, filt=filt)
+            loc_s, loc_i = matcher(shard, q_rep, depth, filt=filt)
         valid = loc_i >= 0
         if rerank:
             # Against the shard's own store: no rows cross shards; -1 slots
@@ -541,13 +542,9 @@ def make_sharded_search(
                              f"postings are {pq.bits}-bit")
         devices = index.devices
         s_count = len(devices)
-        m = matcher
-        if isinstance(matcher, pl.FakeWordsMatcher):
-            m = dataclasses.replace(matcher, df_num_docs=index.num_docs)
         b = q_rep.shape[0]
         parts = shard_map(
-            lambda shard, bm_s, q_s, qn_s, f_s, base: local(shard, bm_s, q_s, qn_s, f_s, base, m),
-            devices, index.shards,
+            local, devices, index.shards,
             bm.shards if bm is not None else [None] * s_count,
             replicate(q_rep, devices),
             replicate(queries, devices) if rerank else [None] * s_count,

@@ -25,6 +25,11 @@ def recall_at(
     return (hits.any(-1).sum(-1) / n_valid).mean()
 
 
+def recall_curve(truth_ids: torch.Tensor, retrieved_ids: torch.Tensor, depths) -> dict:
+    """R@(k,d) for several retrieval depths d from one deep retrieval."""
+    return {d: float(recall_at(truth_ids, retrieved_ids[:, :d])) for d in depths}
+
+
 def overlap(a_ids: torch.Tensor, b_ids: torch.Tensor) -> torch.Tensor:
     """Mean fraction of shared ids between two (B, k) result sets; -1
     padding in ``a_ids`` is excluded."""

@@ -11,7 +11,7 @@ terms.  The posting lists are a dense (N, 2m) int8 term-frequency matrix.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -34,6 +34,26 @@ def encode_queries(
 ) -> torch.Tensor:
     q = queries if normalized else bruteforce.l2_normalize(queries)
     return encode(q, config.quantization, torch.int32)
+
+
+def doc_stats(tf: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(df int32, idf f32, norm f32) of a term-frequency matrix,
+    Lucene-style: the statistics the build computes."""
+    from repro_torch.core import builder
+
+    df = builder.live_df(tf)
+    return df, builder.idf_from_df(df, tf.shape[0]), builder.doc_norm(tf)
+
+
+def build(vectors: torch.Tensor, config: FakeWordsConfig, keep_vectors: bool = True,
+          normalized: bool = False) -> FakeWordsIndex:
+    """Thin wrapper over :class:`repro_torch.core.builder.BuildPipeline`
+    (TfTransform -> FakeWordsPostings -> rerank store), on the device of
+    ``vectors``."""
+    from repro_torch.core import builder
+
+    bp = builder.make_build_pipeline(config, "exact" if keep_vectors else "none")
+    return bp.build_local(vectors, normalized=normalized)
 
 
 def df_prune_mask(df: torch.Tensor, num_docs: int, df_max_ratio: float) -> torch.Tensor:
@@ -90,3 +110,18 @@ def dot_scores(
 ) -> torch.Tensor:
     """Dense integer-dot scores <T_d, [u; -u]>: (B, N) float32, exact."""
     return fused_ref.scores_ref(dot_query(index, q_tf, df_max_ratio), index.tf)
+
+
+def search(
+    index: FakeWordsIndex, q_tf: torch.Tensor, queries: Optional[torch.Tensor], k: int = 10,
+    depth: int = 100, scoring: str = "classic", rerank: bool = False, df_max_ratio: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Two-phase search: match depth-d candidates on the fake-words index
+    (K1, or its plain version on the CPU), optionally rerank to k against
+    the stored originals (``queries`` unit-normalized).  Thin wrapper over
+    :class:`repro_torch.core.pipeline.FakeWordsMatcher` + the exact rerank;
+    routing follows the tensors' device."""
+    from repro_torch.core import pipeline as pl
+
+    matcher = pl.FakeWordsMatcher(scoring=scoring, df_max_ratio=df_max_ratio)
+    return pl.match_rerank(matcher, index, q_tf, queries, k, depth, rerank)

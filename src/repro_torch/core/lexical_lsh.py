@@ -15,6 +15,8 @@ finished signatures are ``torch.uint32``.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from repro_torch.core.types import LexicalLshConfig, LshIndex
@@ -111,3 +113,15 @@ def match_scores(sig_q: torch.Tensor, sig_d: torch.Tensor) -> torch.Tensor:
     """(B, N) int32 collision counts: slots where the signatures agree and
     the query's is not the sentinel (tiled over documents)."""
     return fused_ref.scores_ref(sig_q, sig_d, "lsh").to(torch.int32)
+
+
+def search(
+    index: LshIndex, sig_q: torch.Tensor, queries: Optional[torch.Tensor], k: int = 10,
+    depth: int = 100, rerank: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Signature-collision search (K2, or its plain version on the CPU),
+    optionally reranked: a thin wrapper over
+    :class:`repro_torch.core.pipeline.LshMatcher` + the exact rerank."""
+    from repro_torch.core import pipeline as pl
+
+    return pl.match_rerank(pl.LshMatcher(), index, sig_q, queries, k, depth, rerank)

@@ -246,7 +246,7 @@ class BlockMaxMatcher:
     """Two-stage blockmax pruning as a matcher stage: block-bound pass ->
     keep ``n_keep`` blocks -> exact scoring of their rows through the
     gathered fused top-k kernel.  The mode (classic / dot / lsh) travels
-    with ``bm``; ``filt`` masks stage 2 (:func:`blockmax.pruned_search`)."""
+    with ``bm``; ``filt`` masks stage 2 (:func:`blockmax.pruned_topk`)."""
 
     n_keep: int
     bm: blockmax.BlockMaxIndex
@@ -254,7 +254,7 @@ class BlockMaxMatcher:
     def __call__(
         self, index, q_rep: torch.Tensor, depth: int, filt: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return blockmax.pruned_search(index, self.bm, q_rep, self.n_keep, depth, filt=filt)
+        return blockmax.pruned_topk(index, self.bm, q_rep, self.n_keep, depth, filt=filt)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,1 +1,2 @@
-"""Seeded synthetic corpora (numpy, host side)."""
+"""Seeded synthetic data (numpy, host side): ANN corpora (``embeddings``)
+and LM token batches (``lm``)."""

@@ -127,6 +127,17 @@ for ratio in (0.01, 0.1, 0.5):
     s, i = fsearch(idx_sh, q_tf, qn, jnp.asarray(m))
     put(f"filt/{ratio}/mask", m); put(f"filt/{ratio}/s", s); put(f"filt/{ratio}/i", i)
 
+# the df-prune keep mask on a shard (ROADMAP C1): columns nonzero at rates
+# from 5% to 100%, so the global df spreads over (ratio N / S, ratio N]
+rng = np.random.default_rng(17)
+x = rng.normal(size=(1024, 32)).astype(np.float32)
+x *= (rng.random((1024, 32)) < np.linspace(0.05, 1.0, 32)).astype(np.float32)
+c1 = FakeWordsConfig(quantization=50, df_max_ratio=0.3)
+sh = distributed.build_sharded(mesh8, jnp.asarray(x), c1, ("data",))
+srch = distributed.make_sharded_search(mesh8, c1, ("data",), k=10, depth=50, rerank=False)
+s, i = srch(sh, fakewords.encode_queries(jnp.asarray(x[:8]), c1), None)
+put("c1/x", x); put("c1/df", sh.df); put("c1/s", s); put("c1/i", i)
+
 # test_builder.py:113 (red: ppa-pca-ppa over 1e-4); the leaves and searches
 rng = np.random.default_rng(0)
 vecs = jnp.asarray(rng.normal(size=(1024, 32)).astype(np.float32))
@@ -403,6 +414,35 @@ def test_sharded_filtered_all_ones_and_all_zeros():
     assert (i2 == -1).all() and not torch.isnan(s2).any()
     with pytest.raises(ValueError, match=r"shared \(N,\) mask"):
         search(idx_sh, q_tf, qn, torch.ones((8, 1024), dtype=torch.bool))
+
+
+# -- ROADMAP C1: the sharded df-prune mask counts the shard's own rows --------
+
+
+def test_sharded_df_prune_counts_local_rows(jref):
+    """At ``df_max_ratio`` 0.3 over 8 shards of 128 rows, a term is kept
+    when its collection df is at most 0.3 x 128 on each shard (the
+    reference's ``index.num_docs`` inside ``shard_map``), not 0.3 x 1024:
+    the match-only search equals the JAX sharded one bit for bit, and
+    differs from the monolithic search, which keeps more terms."""
+    x = jref["c1/x"]
+    cfg = FakeWordsConfig(quantization=50, df_max_ratio=0.3)
+    mesh = _mesh()
+    idx_sh = distributed.build_sharded(mesh, x, cfg, ("data",))
+    df = idx_sh.shards[0].df
+    assert torch.equal(df, to_torch(jref["c1/df"]))
+    bites = (df > 0.3 * 128) & (df <= 0.3 * 1024)
+    assert bites.any() and (df <= 0.3 * 128).any()  # the mask bites, and keeps some terms
+    search = distributed.make_sharded_search(mesh, cfg, ("data",), k=10, depth=50,
+                                             rerank=False)
+    q_tf = fakewords.encode_queries(torch.from_numpy(x[:8]), cfg)
+    s_sh, i_sh = search(idx_sh, q_tf, None)
+    assert torch.equal(i_sh, to_torch(jref["c1/i"]))
+    assert torch.equal(s_sh, to_torch(jref["c1/s"]))
+    mono = AnnIndex.build(x, cfg, device=CPU)
+    s_m, _ = pl.match_rerank(pl.make_matcher(cfg), mono.index, q_tf, None, k=10, depth=50,
+                             rerank=False)
+    assert not torch.equal(s_m, s_sh)
 
 
 # -- test_builder.py:113: sharded build == local build, every encoding --------

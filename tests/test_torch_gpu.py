@@ -1834,3 +1834,70 @@ def test_cuda_mesh_over_every_card():
     s1, i1 = mono.search(q, k=10, depth=100, rerank=True)
     s2, i2 = sh.search(q, k=10, depth=100, rerank=True)
     assert float(ev.overlap(i1, i2)) > 0.95
+
+
+# -- the LM and its decode engine -----------------------------------------------
+
+
+def _lm_on(cfg, dev):
+    """The same seeded weights on the CPU and on ``dev``."""
+    from repro_torch.models import transformer as tfm
+
+    cpu = tfm.init_params(cfg, torch.Generator().manual_seed(3), device="cpu")
+    return cpu, tfm.tree_map(lambda _, x: x.to(dev), cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["micro-lm", "tiny-lm"])
+def test_cuda_engine_tokens_equal_the_cpu_route_f32(arch):
+    """micro-lm (dh 32) and tiny-lm (dh 64) in f32: the engine on the card
+    (K9 f32, split TF32, in every prefill layer) gives the CPU route's
+    tokens on the same weights, 5 requests through 2 slots; and each
+    prefill launches K9 once a layer."""
+    import dataclasses as dc
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch import train
+    from repro_torch.serve.engine import DecodeEngine, EngineConfig, Request
+
+    dev = cuda_device()
+    cfg = dc.replace(train.get_model(arch), dtype=torch.float32)
+    cpu, card = _lm_on(cfg, dev)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, cfg.vocab, n).astype(np.int32) for n in (7, 19, 7, 12, 30)]
+    out = {}
+    for name, params, where in (("cpu", cpu, "cpu"), ("cuda", card, dev)):
+        eng = DecodeEngine(params, cfg, EngineConfig(batch_slots=2, max_len=64, eos_id=0),
+                           device=where)
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        before = flash_attention.launches
+        eng.run(max_steps=100)
+        launched = flash_attention.launches - before
+        assert launched == (0 if name == "cpu" else cfg.n_layers * len(prompts)), launched
+        out[name] = [r.out_tokens for r in reqs]
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_counts_one_k9_launch_a_layer_and_refuses_dh16():
+    """``prefill`` on the card: ``flash_attention.launches`` rises by the
+    layer count; a head dim K9 lacks (16) raises, with no fallback."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+
+    dev = cuda_device()
+    cfg = train.get_model("micro-lm")
+    _, params = _lm_on(cfg, dev)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=dev)
+    before = flash_attention.launches
+    cache, logits = tfm.prefill(params, toks, cfg)
+    assert flash_attention.launches - before == cfg.n_layers
+    assert logits.shape == (2, cfg.vocab) and bool(torch.isfinite(logits).all())
+    narrow = tfm.TransformerConfig(n_layers=1, d_model=32, n_heads=2, n_kv_heads=2,
+                                   head_dim=16, d_ff=64, vocab=64)
+    _, nparams = _lm_on(narrow, dev)
+    with pytest.raises(ValueError, match="head dim 16"):
+        tfm.forward(nparams, toks % 64, narrow)

@@ -4,6 +4,7 @@ on the CPU the split-TF32 arithmetic of K4 (an f32 query over int8 or int4
 rows) and of K1 f32 (over raw f32 rows), K2's selection (splits, a stale
 count threshold, a buffer merged by counting), the fused top-k kernels'
 pass 2 (the threshold rule and tree merge), and K9's attention."""
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
@@ -382,3 +383,37 @@ def cuda_device() -> torch.device:
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return torch.device("cuda", 0)
+
+
+def port_lm_config(jcfg):
+    """The port's ``TransformerConfig`` of a JAX package's one: the same
+    fields, its dtypes as torch's (the sharding fields have no
+    counterpart).  Reads the JAX config's attributes only: no JAX import."""
+    from repro_torch.models import transformer as tfm
+
+    kw = {}
+    for f in dataclasses.fields(tfm.TransformerConfig):
+        v = getattr(jcfg, f.name)
+        if f.name in ("dtype", "param_dtype"):
+            v = getattr(torch, np.dtype(v).name)
+        elif f.name == "moe" and v is not None:
+            v = tfm.MoEConfig(**dataclasses.asdict(v))
+        kw[f.name] = v
+    return tfm.TransformerConfig(**kw)
+
+
+def assert_logits_close(got, want, tol: float, what: str = "logits") -> None:
+    """Hold model outputs ``got`` to ``want`` relative to their scale: the
+    error's norm within ``tol`` of ``want``'s norm, and no element off by
+    more than 2 ``tol`` of ``want``'s largest magnitude.  (A bf16 forward
+    differs from another bf16 forward of the same model, summed in another
+    order, by ~1% of that scale, spread over most elements; a row rule
+    would hold every logit row to that noise.)"""
+    g, w = (x.detach().float().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x, np.float32) for x in (got, want))
+    assert g.shape == w.shape, (what, g.shape, w.shape)
+    err = np.linalg.norm(g - w) / np.linalg.norm(w)
+    worst = np.abs(g - w).max() / np.abs(w).max()
+    assert err <= tol and worst <= 2 * tol, (
+        f"{what}: error norm {err:.3g} of the norm (tol {tol}), worst element {worst:.3g} of "
+        f"the largest (tol {2 * tol})")
