@@ -318,6 +318,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -481,7 +482,7 @@ def _instance(mangled: str) -> str:
                   r"|quantized_tf32_partial|gathered_partial|bf16_partial|lsh_partial"
                   r"|int8_partial|f32_partial|partial|merge)"
                   r"|dense_scores|lsh_match_counts|score_matmul_(?:bf16|int8)|cosine_scores_tf32"
-                  r"|flash_attention_(?:tf32|bf16))"
+                  r"|flash_attention_(?:tf32|bf16|bwd_(?:dkdv|dq)_(?:bf16|f32)|bwd_delta))"
                   r"(?:I((?:Li-?\d+E|Lb[01]E|[ft])+)E)?",
                   mangled)
     if m is None:
@@ -575,7 +576,8 @@ def sass_count(name: str, opcode: str):
 # TF32 operands); K7's score matrices (classic: m16n8k16 bf16, HMMA; dot:
 # m16n8k32 s8, IMMA) and K6's (split TF32: m16n8k8 tf32, HMMA on TF32
 # operands); and K9's attention (bf16: m16n8k16 bf16, HMMA; f32: split TF32,
-# m16n8k8 tf32, HMMA on TF32 operands).
+# m16n8k8 tf32, HMMA on TF32 operands) and its backward's bf16 dK / dV and
+# dQ kernels (m16n8k16 bf16, HMMA).
 TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fused_topk", "fused_topk_int8_partial", "IMMA"),
                        ("fused_topk", "fused_topk_f32_partial", r"HMMA\.\S*TF32"),
@@ -588,7 +590,9 @@ TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fakewords_score", "score_matmul_int8", "IMMA"),
                        ("cosine_score", "cosine_scores_tf32", r"HMMA\.\S*TF32"),
                        ("flash_attention", "flash_attention_bf16", "HMMA"),
-                       ("flash_attention", "flash_attention_tf32", r"HMMA\.\S*TF32"))
+                       ("flash_attention", "flash_attention_tf32", r"HMMA\.\S*TF32"),
+                       ("flash_attention_bwd", "flash_attention_bwd_dkdv_bf16", "HMMA"),
+                       ("flash_attention_bwd", "flash_attention_bwd_dq_bf16", "HMMA"))
 
 
 def check_tensor_cores() -> None:
@@ -1798,6 +1802,190 @@ def check_attention(dev, planted=None) -> dict:
     return worst
 
 
+# K9's backward (flash_attention_bwd.cu) at the training shapes: phi3-mini-3.8b's
+# layer as one microbatch of the training phase gives it (B 4, S 1,024),
+# deepseek-coder-33b's GQA layer (56 / 8 heads of 128) at S 2,048, every head
+# width at S = 1,000 (not a multiple of the 64-key or 32- / 64-row tiles), and
+# f32 (CUDA-core instances) at phi3-mini's layer, S 512, and on GQA group 7.
+# (name, dtype, B, Hq, Hkv, S, D); the first is the main path's shape.
+ATTN_BWD_CASES = (("phi3-mini-3.8b train layer", torch.bfloat16, 4, 32, 32, 1024, 96),
+                  ("deepseek-coder-33b layer", torch.bfloat16, 1, 56, 8, 2048, 128),
+                  ("ragged D32", torch.bfloat16, 2, 8, 2, 1000, 32),
+                  ("ragged D64", torch.bfloat16, 2, 8, 2, 1000, 64),
+                  ("phi3-mini-3.8b layer f32", torch.float32, 1, 32, 32, 512, 96),
+                  ("ragged D32 f32", torch.float32, 2, 8, 2, 1000, 32),
+                  ("ragged D64 f32", torch.float32, 2, 8, 2, 1000, 64),
+                  ("GQA 7 D128 f32", torch.float32, 1, 7, 1, 300, 128))
+# The backward's tolerance: both sides compute the same formulas from the
+# same out and lse in f32; the kernel's P and dS enter its bf16 products split
+# into bf16 hi + lo (to 2^-16), and both round the outputs to the dtype, so
+# they sit ~1 bf16 ulp apart: K9's own row rules (ATTN_TOL) hold them.
+# lse: the forward's ex2.approx sums against torch.logsumexp, within
+# LSE_TOL (1 + |lse|) (measured 9.5e-7 in bf16, 3.3e-6 in f32).
+LSE_TOL = 2e-5
+# The planted fault: a copy of the backward whose Delta is 0 (dS = P dP).
+K9_BWD_NO_DELTA = ("  if (lane == 0) delta[row] = s;\n", "  if (lane == 0) delta[row] = 0.f;\n")
+
+
+def _attention_bwd_kernel(kdir: str, out_dir: str, edits=()):
+    """K9's backward built from ``flash_attention/csrc/flash_attention_bwd.cu``
+    of the kernels directory ``kdir`` (``_library_copy``, with ``edits``),
+    called through that tree's C signature.  Returns ``bwd(q, k, v, out,
+    lse, dout) -> (dq, dk, dv)``, which raises if the launch fails."""
+    lib, text = _library_copy(kdir, "flash_attention_bwd", out_dir, edits,
+                              package="flash_attention")
+    launch = _c_entry(lib, text, "flash_attention_bwd_launch")
+
+    def bwd(q, k, v, out, lse, dout):
+        b, hq, s, d = q.shape
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+        err = launch(dtype={torch.float32: 0, torch.bfloat16: 1}[q.dtype], D=d, q=q.data_ptr(),
+                     k=k.data_ptr(), v=v.data_ptr(), out=out.data_ptr(), dout=dout.data_ptr(),
+                     lse=lse.data_ptr(), delta=delta.data_ptr(), dq=dq.data_ptr(),
+                     dk=dk.data_ptr(), dv=dv.data_ptr(), B=b, Hq=hq, Hkv=k.shape[1], S=s,
+                     stream=torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"flash_attention_bwd_launch of {kdir} failed: cudaError {err}")
+        return dq, dk, dv
+
+    return bwd
+
+
+def build_planted_k9_bwd() -> dict:
+    """{name: bwd}: K9's backward built from a copy of this tree's source with
+    K9_BWD_NO_DELTA (``_attention_bwd_kernel``)."""
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    return {"no-delta": _attention_bwd_kernel(kdir, os.path.join(ROOT, "build", "planted-k9-bwd"),
+                                              [K9_BWD_NO_DELTA])}
+
+
+def compare_attention_grads(name, got, want, tol: float) -> float:
+    """Hold (dq, dk, dv) to the plain version's: dk and dv row by row
+    (``compare_dense``); dq too, except its row 0, which is zero in exact
+    arithmetic (query 0 attends to key 0 alone: its probability is 1 and dP
+    equals Delta), so each side gives its own rounding noise there: held
+    within ``tol`` of the largest |dq| of its (batch, head).  Returns the
+    largest difference."""
+    err = compare_dense(f"{name} dq", got[0][..., 1:, :], want[0][..., 1:, :], exact=False,
+                        tol=tol)
+    row0 = got[0][..., 0, :].float().abs().amax(dim=-1)
+    scale = want[0].float().abs().amax(dim=(-1, -2))
+    if not bool((row0 <= tol * scale).all()):
+        raise AssertionError(f"{name} dq row 0: {float(row0.max()):.3g} past {tol} of its head's "
+                             f"largest |dq|")
+    for label, g, w in (("dk", got[1], want[1]), ("dv", got[2], want[2])):
+        err = max(err, compare_dense(f"{name} {label}", g, w, exact=False, tol=tol))
+    return max(err, float(row0.max()))
+
+
+def attention_bwd_bound_ms(q, k, kind: str):
+    """Bound of one backward call: q, k, v, out, dout and lse read once, dq,
+    dk and dv written once; five products of 2 D operations per unmasked
+    (query, key) pair, 2.5 x the forward's causal operations."""
+    b, hq, s, d = q.shape
+    nbytes = (4 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * b * hq * s * 4
+    return _bound(nbytes, 2.5 * 4.0 * b * hq * d * s * (s + 1) / 2, kind)
+
+
+def _sdpa_grad_ms(q, k, v, dout) -> tuple:
+    """(forward ms, forward + backward ms) of scaled_dot_product_attention
+    (is_causal=True) with torch.autograd.grad of its output, on copies of
+    q, k, v that require gradients: the flash backend in bf16 (GQA by
+    ``enable_gqa``); in f32, which flash does not take, the memory-efficient
+    one, which takes no GQA, so there K and V are repeated to the query
+    heads inside the timed call (``repeat_interleave``, whose backward sums
+    the group's gradients)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    group = q.shape[1] // k.shape[1]
+    flash = q.dtype == torch.bfloat16
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION if flash else SDPBackend.EFFICIENT_ATTENTION):
+            if flash or group == 1:
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qg, kg, vg, is_causal=True, enable_gqa=group > 1)
+            return torch.nn.functional.scaled_dot_product_attention(
+                qg, kg.repeat_interleave(group, 1), vg.repeat_interleave(group, 1), is_causal=True)
+
+    return timed(fwd)[0], timed(lambda: torch.autograd.grad(fwd(), (qg, kg, vg), dout))[0]
+
+
+def check_attention_bwd(dev, card: str, planted=None) -> dict:
+    """K9's forward with lse and its backward at ATTN_BWD_CASES on the card:
+    the forward's output bit-equal to ``flash_attention``'s and its lse
+    within LSE_TOL of ``torch.logsumexp`` of the plain logits; dq, dk and dv
+    against ``attention_bwd_ref`` on the kernel's own out and lse
+    (``compare_attention_grads`` at ATTN_TOL), bit-equal over two launches;
+    the planted copy (``build_planted_k9_bwd``: Delta dropped) must fail
+    every case.  Times each case: the backward, its plain version, the
+    library's backward (SDPA, ``_sdpa_grad_ms``) and the bound; the forward
+    with lse, its plain version and SDPA's forward.  Returns {case name:
+    {"err", "lse_err", "ms", "plain_ms", "library_ms", "bound", "fwd_ms",
+    "fwd_plain_ms", "fwd_library_ms", "fwd_bound"}}."""
+    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention, flash_attention_bwd,
+                                                            flash_attention_fwd)
+
+    planted = planted or build_planted_k9_bwd()
+    gen = torch.Generator(device=dev).manual_seed(37)
+    rows, failed = {}, dict.fromkeys(planted, 0)
+    for name, dtype, b, hq, hkv, s, d in ATTN_BWD_CASES:
+        q, k, v = _qkv(dtype, b, hq, hkv, s, d, gen, dev)
+        dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        label = f"{name} ({_layer_label(q, k)})"
+        out, lse = flash_attention_fwd(q, k, v)
+        same = torch.equal(out, flash_attention(q, k, v))
+        _, want_lse = ref.attention_fwd_ref(q, k, v)
+        lse_err = float(((lse - want_lse).abs() / (1 + want_lse.abs())).max())
+        if not same or not lse_err <= LSE_TOL:
+            raise AssertionError(f"K9 forward with lse, {label}: output equal to the plain "
+                                 f"entry's {same}, lse off by {lse_err:.3g} (1 + |lse|)")
+        got = flash_attention_bwd(q, k, v, out, lse, dout)
+        again = flash_attention_bwd(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise AssertionError(f"K9 backward, {label}: two launches differ")
+        want = ref.attention_bwd_ref(q, k, v, out, lse, dout)
+        err = compare_attention_grads(f"K9 backward {label}", got, want, ATTN_TOL[dtype])
+        for copy, bwd in planted.items():
+            try:
+                compare_attention_grads(f"{label}, {copy} copy", bwd(q, k, v, out, lse, dout),
+                                        want, ATTN_TOL[dtype])
+            except AssertionError as fault:
+                failed[copy] += 1
+                print(f"  ok  the {copy} copy of the backward fails: {str(fault)[:160]}")
+        del got, again, want
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        ms, plain_ms = (timed(fn)[0] for fn in (
+            lambda: flash_attention_bwd(q, k, v, out, lse, dout),
+            lambda: ref.attention_bwd_ref(q, k, v, out, lse, dout)))
+        fwd_ms, fwd_plain_ms = (timed(fn)[0] for fn in (
+            lambda: flash_attention_fwd(q, k, v), lambda: ref.attention_fwd_ref(q, k, v)))
+        lib_fwd, lib_both = _sdpa_grad_ms(q, k, v, dout)
+        fwd_bound = attention_bound_ms(q, k, v, "bf16" if kind == "bf16" else "tf32",
+                                       passes=1 if kind == "bf16" else 3)
+        rows[name] = {"err": err, "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": lib_both - lib_fwd, "bound": attention_bwd_bound_ms(q, k, kind),
+                      "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "fwd_library_ms": lib_fwd,
+                      "fwd_bound": fwd_bound}
+        r = rows[name]
+        print(f"  ok  K9 backward {label}: max_abs_err {err:.3g} (row rule {ATTN_TOL[dtype]}, dq "
+              f"row 0 at its head's scale), lse within {lse_err:.3g} (1 + |lse|), bit-equal over "
+              f"two launches; on {card}: backward {ms:.3f} ms, bound {r['bound'][0]:.3f} ms "
+              f"({r['bound'][1]}), plain {plain_ms:.3f}, SDPA backward (autograd.grad minus its "
+              f"forward) {r['library_ms']:.3f}; forward with lse {fwd_ms:.3f} ms, bound "
+              f"{fwd_bound[0]:.3f} ({fwd_bound[1]}), plain {fwd_plain_ms:.3f}, SDPA forward "
+              f"{lib_fwd:.3f}")
+    print(f"K9 backward vs plain on the card: {len(ATTN_BWD_CASES)} cases; failed by the planted "
+          f"copies: {failed}")
+    if not all(n == len(ATTN_BWD_CASES) for n in failed.values()):
+        raise AssertionError(f"a planted copy of the backward passed a case: {failed}")
+    return rows
+
+
 def _checked(name: str, s, i, b: int, width: int, n: int, finite: bool = True) -> None:
     if s.shape != (b, width) or (finite and not bool(torch.isfinite(s).all())):
         raise AssertionError(f"{name}: bad shape {tuple(s.shape)} or non-finite scores")
@@ -1809,13 +1997,14 @@ def _wrappers() -> tuple:
     """Every kernel wrapper of the port (each counts its launches)."""
     from repro_torch.kernels.cosine_score.kernel import cosine_scores
     from repro_torch.kernels.fakewords_score.kernel import score_matmul
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import (flash_attention, flash_attention_bwd,
+                                                            flash_attention_fwd)
     from repro_torch.kernels.fused_topk import kernel
     from repro_torch.kernels.lsh_match.kernel import lsh_match_scores
 
     return (kernel.fused_topk, kernel.fused_topk_gathered, kernel.fused_topk_quantized,
             kernel.fused_topk_gathered_quantized, cosine_scores, score_matmul, lsh_match_scores,
-            flash_attention)
+            flash_attention, flash_attention_fwd, flash_attention_bwd)
 
 
 def _reset_launches() -> None:
@@ -1886,11 +2075,13 @@ def main(argv) -> int:
         planted_k6 = pool.submit(build_planted_k6)
         planted_k9 = pool.submit(build_planted_k9)
         planted_k8 = pool.submit(build_planted_k8)
+        planted_k9b = pool.submit(build_planted_k9_bwd)
         build_kernels()
         planted, planted_k1, planted_k2, planted_k3, planted_k5, planted_k7, planted_k6 = (
             planted.result(), planted_k1.result(), planted_k2.result(), planted_k3.result(),
             planted_k5.result(), planted_k7.result(), planted_k6.result())
         planted_k9, planted_k8 = planted_k9.result(), planted_k8.result()
+        planted_k9b = planted_k9b.result()
     check_tensor_cores()
     print_k5_columns()
     print_lsh_compare_ops()
@@ -1899,6 +2090,7 @@ def main(argv) -> int:
     check_quantized(dev, planted, planted_k5)
     check_dense(dev, planted_k7, planted_k6, planted_k8)
     check_attention(dev, planted_k9)
+    attn_bwd = check_attention_bwd(dev, card, planted_k9b)
     from repro_torch.configs import ann_word2vec
     from repro_torch.core import eval as ev
 
@@ -1935,6 +2127,7 @@ def main(argv) -> int:
     peak_segments = max(before_segments, torch.cuda.max_memory_allocated())
     drive_sharded(dev, card, x, qx, gt_i, depth, k, config, masks)
     kernels += drive_lm(dev, card)
+    kernels += drive_train(dev, card, attn_bwd)
     print(f"the filtered phases took {filtered_s + quantized_filtered_s:.1f} s (host clock)")
     peak = max(peak_segments, torch.cuda.max_memory_allocated())
     print(f"peak device memory {peak / 1e9:.1f} GB (the whole run)")
@@ -2976,8 +3169,9 @@ def _apply_edits(texts: dict, edits, where: str) -> None:
             raise ValueError(f"no file of {where} holds any of {[old for old, _ in pairs]!r}")
 
 
-def _library_copy(kdir: str, name: str, out_dir: str, edits=()):
-    """(library, source text): the kernel source ``<name>/csrc/<name>.cu`` of
+def _library_copy(kdir: str, name: str, out_dir: str, edits=(), package: str = ""):
+    """(library, source text): the kernel source ``<package>/csrc/<name>.cu``
+    (``package`` defaults to ``name``) of
     the kernels directory ``kdir`` of some tree, copied into ``out_dir`` with
     that tree's shared headers (``kdir/csrc``, into ``out_dir/shared``),
     ``edits`` (``_apply_edits``) applied to the copies, and built there with
@@ -2987,7 +3181,7 @@ def _library_copy(kdir: str, name: str, out_dir: str, edits=()):
 
     from repro_torch.kernels import common
 
-    csrc = os.path.join(kdir, name, "csrc")
+    csrc = os.path.join(kdir, package or name, "csrc")
     shared = os.path.join(out_dir, "shared")
     os.makedirs(out_dir, exist_ok=True)
     shutil.rmtree(shared, ignore_errors=True)
@@ -7321,6 +7515,296 @@ def drive_lm(dev, card: str, cfg=None) -> list:
           f"memory {peak / 1e9:.1f} GB (with the {held / 1e9:.1f} GB held before it)")
     return [entry]
 
+
+
+TRAIN_SEED = 37  # the training phase's weights and batches
+TRAIN_CUT = (2, 1, 256)  # hold (b): layers, batch and sequence of the full-width step
+TRAIN_LAYERS = 8  # (c): 1.10e9 parameters, 17.6 GB of f32 state; 32 layers would take 61.1 GB
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_KILL = 24, 12, 17  # (c): steps, checkpoint period, crash step
+# (c)'s driver flags: AdamW on a cosine schedule (lr 3e-4, warm-up 4), a global
+# batch of 8 x 1,024 tokens in 2 microbatches of 4.
+TRAIN_FLAGS = ["--steps", str(TRAIN_STEPS), "--global-batch", "8", "--seq-len", "1024",
+               "--microbatches", "2", "--lr", "3e-4", "--warmup", "4", "--ckpt-every",
+               str(TRAIN_EVERY), "--log-every", "1", "--seed", str(TRAIN_SEED)]
+# (b)'s tolerance: every leaf's gradient on the card against the CPU route,
+# relative to the leaf's scale (error norm within it, no element past twice
+# it of the largest): twice the spread of the reference's own einsum and
+# blockwise bf16 gradients (1.4% of a leaf's norm, 2% of its largest element;
+# tests/test_torch_lm_grad.py, whose bf16 tolerance this is).
+LM_GRAD_TOL = 4e-2
+RESTART_TOL = 1e-4  # the last loss of the resumed run (tests/test_train.py:91's bound)
+
+
+class _StepTimes:
+    """A Watchdog clock that also keeps each step's host seconds."""
+
+    def __init__(self):
+        from repro_torch.train.train_loop import Watchdog
+
+        self.dts = []
+        self.watchdog = Watchdog()
+        stop = self.watchdog.stop
+        self.watchdog.stop = lambda step, log=print: self.dts.append(stop(step, log)) or self.dts[-1]
+
+
+def _gap(a, b) -> tuple:
+    """(error norm over b's norm, largest |a - b| over the largest |b|)."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return (float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)),
+            float((a - b).abs().max() / b.abs().max()))
+
+
+def _train_step_grads(params, cfg, batch, dev):
+    """(loss, {leaf name: gradient}) of ``loss_fn`` on ``batch``, on ``dev``."""
+    from repro_torch.models import transformer as tfm
+
+    leaves = []
+    tfm.tree_map(lambda n, v: leaves.append((n, v.requires_grad_())), params)
+    loss = tfm.loss_fn(params, batch["tokens"].to(dev), batch["labels"].to(dev), cfg)
+    grads = torch.autograd.grad(loss, [v for _, v in leaves])
+    return float(loss), {n: g for (n, _), g in zip(leaves, grads)}
+
+
+def _train_trace(cfg, dev, card: str) -> dict:
+    """One training step of the driver's kind (``build_train_step``, AdamW,
+    2 microbatches of 4 x 1,024) on fresh parameters, after two untraced
+    ones, in a torch.profiler trace: K9's forward and backward device time
+    and launches a step, the device's busy and idle share, the costliest
+    kernels."""
+    from repro_torch.data import lm as lm_data
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import build_train_step, make_train_state
+
+    gen = torch.Generator(device=dev).manual_seed(TRAIN_SEED)
+    opt = opt_mod.adamw(lr=opt_mod.cosine_schedule(3e-4, 4, TRAIN_STEPS))
+    state = make_train_state(tfm.init_params(cfg, gen, device=dev), opt)
+    step = build_train_step(lambda p, b: tfm.loss_fn(p, b["tokens"], b["labels"], cfg), opt, 2)
+    data = lm_data.LmDataConfig(vocab=cfg.vocab, seq_len=1024, global_batch=8, seed=TRAIN_SEED)
+    batches = [{k: x.to(dev) for k, x in lm_data.batch_at(data, i).items()} for i in range(2)]
+    holder = [state]
+
+    def one():
+        holder[0], m = step(holder[0], batches[0])
+        float(m["loss"])
+
+    one()
+    spans = _traced(one, 1)
+    del holder, state
+    if not spans:
+        print("training step trace: torch.profiler recorded no device time")
+        return {}
+    per = collections.Counter()
+    count = collections.Counter()
+    for a, b, name in spans:
+        key = _instance(name) if "flash_attention" in name else name[:70]
+        per[key] += (b - a) / 1e3
+        count[key] += 1
+    busy, wall = sum(per.values()), (spans[-1][1] - spans[0][0]) / 1e3
+    fwd = {k: v for k, v in per.items() if k.startswith("flash_attention_bf16")}
+    bwd = {k: v for k, v in per.items() if k.startswith("flash_attention_bwd")}
+    print(f"training step trace ({cfg.name}, {cfg.n_layers} layers, 2 x 4 x 1,024 tokens; {card}): "
+          f"{len(spans)} kernels, device busy {busy:.1f} of {wall:.1f} ms (idle "
+          f"{1 - busy / wall:.1%}); K9 forward with lse {sum(fwd.values()):.2f} ms in "
+          f"{sum(count[k] for k in fwd)} launches, K9 backward {sum(bwd.values()):.2f} ms in "
+          f"{sum(count[k] for k in bwd)} kernels ({', '.join(f'{k} {v:.2f}' for k, v in bwd.items())})"
+          "; most time: " + "; ".join(f"{name} {ms:.1f} ms ({count[name]})"
+                                      for name, ms in per.most_common(10)))
+    return {"fwd_ms": sum(fwd.values()), "bwd_ms": sum(bwd.values()), "busy_ms": busy,
+            "wall_ms": wall}
+
+
+def drive_train(dev, card: str, attn_rows: dict, cfg=None, layers: int = TRAIN_LAYERS) -> list:
+    """Training of phi3-mini-3.8b at full width (``cfg`` overrides for a
+    rehearsal), weights drawn from TRAIN_SEED by ``init_params``.  (b) One
+    step's loss and gradients of TRAIN_CUT (2 layers, B 1, S 256) on the card
+    against the CPU route from the same parameters and batch (LM_GRAD_TOL a
+    leaf, the global norm too), with K9's forward (with lse) and backward
+    launched on every layer.  (c) ``launch.train.train`` on ``layers`` layers
+    (TRAIN_FLAGS): run A, TRAIN_STEPS steps with a checkpoint every
+    TRAIN_EVERY; run B crashed after step TRAIN_KILL (SystemExit 42) and
+    resumed, which must say "resumed from step 12" and end within
+    RESTART_TOL of A's last loss; every loss finite, A's last below its
+    first.  The counts of K9's launches are set to 0 before run A and read
+    after it: the forward with lse runs twice a layer a microbatch (the
+    checkpointed layer's recompute), the backward once.  Prints step times,
+    tokens a second, peak memory, the checkpoints' save and restore
+    seconds, a traced step (``_train_trace``).  ``attn_rows`` are
+    ``check_attention_bwd``'s timings; returns the kernels-line entries of
+    K9's forward with lse and of its backward."""
+    import dataclasses as dc
+    import io
+    import tempfile
+
+    from repro_torch.configs import phi3_mini_3_8b
+    from repro_torch.data import lm as lm_data
+    from repro_torch.launch import train as train_driver
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt_mod
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or phi3_mini_3_8b.make_model()
+
+    # (b) one step at full width, 2 layers: the card against the CPU route
+    n_cut, b_cut, s_cut = TRAIN_CUT
+    cut_cfg = dc.replace(cfg, n_layers=n_cut)
+    params = tfm.init_params(cut_cfg, torch.Generator(device=dev).manual_seed(TRAIN_SEED),
+                             device=dev)
+    params_cpu = tfm.tree_map(lambda _, x: x.detach().cpu(), params)
+    batch = lm_data.batch_at(lm_data.LmDataConfig(vocab=cfg.vocab, seq_len=s_cut,
+                                                  global_batch=b_cut, seed=TRAIN_SEED), 0)
+    _reset_launches()
+    loss_card, g_card = _train_step_grads(params, cut_cfg, batch, dev)
+    torch.cuda.synchronize()
+    counts = _launches()
+    if (counts["flash_attention_fwd"] != 2 * n_cut or counts["flash_attention_bwd"] != n_cut
+            or any(n for name, n in counts.items()
+                   if name not in ("flash_attention_fwd", "flash_attention_bwd"))):
+        raise AssertionError(f"(b): launches {counts}, want {2 * n_cut} forward with lse (the "
+                             f"checkpointed layers' recompute) and {n_cut} backward")
+    t0 = time.perf_counter()
+    loss_cpu, g_cpu = _train_step_grads(params_cpu, cut_cfg, batch, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    norm_card = float(opt_mod.global_norm(g_card))
+    norm_cpu = float(opt_mod.global_norm(g_cpu))
+    gaps = {n: _gap(g_card[n], g_cpu[n]) for n in g_cpu}
+    worst = max(gaps, key=lambda n: gaps[n][0])
+    print(f"  (b) one training step of {cfg.name} at full width, {n_cut} layers, B={b_cut}, "
+          f"S={s_cut}, the card against the CPU route ({cpu_s:.1f} s): loss {loss_card:.6f} / "
+          f"{loss_cpu:.6f}, global grad norm {norm_card:.6g} / {norm_cpu:.6g}; worst leaf {worst}: "
+          f"error norm {gaps[worst][0]:.4g} of its norm, largest error "
+          f"{max(g[1] for g in gaps.values()):.4g} of its largest (tolerance {LM_GRAD_TOL} / "
+          f"{2 * LM_GRAD_TOL}); K9 launches {counts['flash_attention_fwd']} forward with lse, "
+          f"{counts['flash_attention_bwd']} backward")
+    if not (abs(loss_card - loss_cpu) <= LM_GRAD_TOL * abs(loss_cpu)
+            and abs(norm_card - norm_cpu) <= LM_GRAD_TOL * norm_cpu
+            and all(a <= LM_GRAD_TOL and m <= 2 * LM_GRAD_TOL for a, m in gaps.values())):
+        raise AssertionError(f"(b): the card's step differs from the CPU route's: {gaps}")
+    del params, params_cpu, g_card, g_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the driver on `layers` layers at full width: run A, then B crashed and resumed
+    big = dc.replace(cfg, n_layers=layers)
+    n_params = big.param_count()[0]
+    root = tempfile.mkdtemp(prefix="train-ckpt-")
+    print(f"  (c) {big.name} at full width, {layers} of {cfg.n_layers} layers: {n_params:,} "
+          f"parameters, {n_params * 16 / 1e9:.1f} GB of f32 parameters, gradients and AdamW "
+          f"moments; checkpoints of {n_params * 12 / 1e9:.1f} GB into {root} "
+          f"({shutil.disk_usage(root).free / 1e9:.0f} GB free)")
+    io_s = collections.defaultdict(list)
+    saved = {name: getattr(ckpt, name) for name in ("save_async", "save", "restore", "_write")}
+
+    def timed_io(name):
+        def fn(*a, **kw):
+            t0 = time.perf_counter()
+            out = saved[name](*a, **kw)
+            io_s[name].append(time.perf_counter() - t0)
+            return out
+        return fn
+
+    for name in saved:
+        setattr(ckpt, name, timed_io(name))
+
+    def run(ckpt_dir, *extra):
+        args = train_driver.parser().parse_args(
+            [*TRAIN_FLAGS, "--ckpt-dir", ckpt_dir, "--device", dev.type, *extra])
+        times = _StepTimes()
+        out = io.StringIO()
+        code = 0
+        with contextlib.redirect_stdout(out):
+            try:
+                summary = train_driver.train(big, args, times.watchdog)
+            except SystemExit as crash:
+                code, summary = crash.code, None
+        text = out.getvalue()
+        losses = [float(line.split("loss ")[1].split()[0]) for line in text.splitlines()
+                  if line.startswith("[train] step ")]
+        return code, summary, text, times.dts, losses
+
+    try:
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        code_a, sum_a, text_a, dts_a, losses_a = run(os.path.join(root, "a"))
+        run_a_s = time.perf_counter() - t0
+        counts = _launches()
+        peak = torch.cuda.max_memory_allocated()
+        shutil.rmtree(os.path.join(root, "a"))
+        t0 = time.perf_counter()
+        code_b1, _, text_b1, _, losses_b1 = run(os.path.join(root, "b"), "--kill-at",
+                                                str(TRAIN_KILL))
+        code_b2, sum_b, text_b2, _, losses_b2 = run(os.path.join(root, "b"))
+        run_b_s = time.perf_counter() - t0
+    finally:
+        for name, fn in saved.items():
+            setattr(ckpt, name, fn)
+        shutil.rmtree(root, ignore_errors=True)
+    per_step = {k: counts[k] / TRAIN_STEPS for k in ("flash_attention_fwd", "flash_attention_bwd")}
+    want = {"flash_attention_fwd": 2 * 2 * layers, "flash_attention_bwd": 2 * layers}
+    if per_step != want or any(n for name, n in counts.items() if name not in want):
+        raise AssertionError(f"(c): launches {counts} over {TRAIN_STEPS} steps, want {want} a step")
+    if code_a != 0 or code_b1 != 42 or code_b2 != 0:
+        raise AssertionError(f"(c): exit codes A {code_a}, B {code_b1} then {code_b2}:\n"
+                             f"{text_a[-800:]}\n{text_b1[-800:]}\n{text_b2[-800:]}")
+    if f"resumed from step {TRAIN_EVERY}" not in text_b2:
+        raise AssertionError(f"(c): run B did not resume from step {TRAIN_EVERY}:\n{text_b2[:800]}")
+    finite = all(math.isfinite(x) for x in losses_a + losses_b1 + losses_b2)
+    gap = abs(sum_a["last_loss"] - sum_b["last_loss"])
+    step_ms = 1e3 * statistics.median(dts_a[2:])
+    tokens = 8 * 1024
+    print(f"  (c) run A: {TRAIN_STEPS} steps, losses {[round(x, 4) for x in losses_a]}; run B: "
+          f"crashed after step {TRAIN_KILL} (exit {code_b1}), resumed from step {TRAIN_EVERY}, "
+          f"losses {[round(x, 4) for x in losses_b2]}; last loss A {sum_a['last_loss']:.6f}, B "
+          f"{sum_b['last_loss']:.6f} (|A - B| {gap:.3g}, bound {RESTART_TOL}); every loss finite "
+          f"{finite}")
+    if not (finite and gap <= RESTART_TOL and sum_a["last_loss"] < sum_a["first_loss"]):
+        raise AssertionError(f"(c): finite {finite}, |A - B| {gap}, first {sum_a['first_loss']} "
+                             f"last {sum_a['last_loss']}")
+    print(f"training on {card} ({big.name}, {layers} layers, AdamW, 2 x 4 x 1,024 tokens a step): "
+          f"step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS - 1}, host clock; min "
+          f"{1e3 * min(dts_a[2:]):.1f}, max {1e3 * max(dts_a[2:]):.1f}; step 0 "
+          f"{1e3 * dts_a[0]:.1f}), {tokens / step_ms * 1e3:.0f} tokens/s; K9 launches a step "
+          f"{per_step['flash_attention_fwd']:.0f} forward with lse, "
+          f"{per_step['flash_attention_bwd']:.0f} backward; peak device memory {peak / 1e9:.1f} "
+          f"GB (with {held / 1e9:.1f} GB held before the phase); run A {run_a_s:.1f} s, run B "
+          f"(crash and resume) {run_b_s:.1f} s; checkpoints: host copy "
+          f"{[round(x, 2) for x in io_s['save_async']]} s, disk write "
+          f"{[round(x, 2) for x in io_s['_write']]} s, synchronous save "
+          f"{[round(x, 2) for x in io_s['save']]} s, restore "
+          f"{[round(x, 2) for x in io_s['restore']]} s (host clock)")
+    trace = _train_trace(big, dev, card)
+
+    r = attn_rows[ATTN_BWD_CASES[0][0]]
+    source = "src/repro_torch/kernels/flash_attention/csrc/"
+    entries = [
+        {"name": "flash_attention_fwd/phi3-mini-train", "route": "cuda",
+         "source": source + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:74",
+         "launches": counts["flash_attention_fwd"], "max_abs_err": r["lse_err"], "ms": r["fwd_ms"],
+         "plain_ms": r["fwd_plain_ms"], "bound_ms": r["fwd_bound"][0],
+         "bound_by": r["fwd_bound"][1], "library_ms": r["fwd_library_ms"]},
+        {"name": "flash_attention_bwd/phi3-mini-train", "route": "cuda",
+         "source": source + "flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:74 (its gradient; the TPU "
+                     "kernel has no backward)",
+         "launches": counts["flash_attention_bwd"], "max_abs_err": r["err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+         "library_ms": r["library_ms"]}]
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - held
+    if left > 1e9:
+        raise AssertionError(f"training phase: {left / 1e9:.3f} GB still allocated after it")
+    print(f"training phase: {time.perf_counter() - t_phase:.1f} s (host clock, {card}); K9 a "
+          f"step in the trace: forward {trace.get('fwd_ms', float('nan')):.2f} ms, backward "
+          f"{trace.get('bwd_ms', float('nan')):.2f} ms")
+    return entries
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

@@ -40,6 +40,7 @@ SOURCES: Dict[str, Path] = {
     "cosine_score": _KERNELS_DIR / "cosine_score" / "csrc" / "cosine_score.cu",
     "lsh_match": _KERNELS_DIR / "lsh_match" / "csrc" / "lsh_match.cu",
     "flash_attention": _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention.cu",
+    "flash_attention_bwd": _KERNELS_DIR / "flash_attention" / "csrc" / "flash_attention_bwd.cu",
 }
 
 # Packed int4 padding byte: nibble 8 in both halves, which dequantizes to 0.

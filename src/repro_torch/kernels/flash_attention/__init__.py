@@ -1,6 +1,8 @@
-"""Causal GQA flash attention (forward): CUDA kernel, wrapper, plain
-version, and ``causal_attention``."""
-from repro_torch.kernels.flash_attention.kernel import flash_attention
-from repro_torch.kernels.flash_attention.ops import causal_attention
+"""Causal GQA flash attention: CUDA kernels (forward, and the backward that
+the TPU kernel lacks), wrappers, plain versions, and ``causal_attention``."""
+from repro_torch.kernels.flash_attention.kernel import (flash_attention, flash_attention_bwd,
+                                                        flash_attention_fwd)
+from repro_torch.kernels.flash_attention.ops import CausalAttention, causal_attention
 
-__all__ = ["flash_attention", "causal_attention"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "causal_attention",
+           "CausalAttention"]

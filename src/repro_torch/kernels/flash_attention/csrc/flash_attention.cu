@@ -9,8 +9,11 @@
 // max m, row sum l) are f32, masked logits are -1e30 (finite: a row's first
 // tile always holds key 0, and -1e30 - (-1e30) is 0, where -inf would give
 // NaN), and the output is acc / max(l, 1e-30) cast to the input dtype (f32
-// or bf16, rounded to nearest even).  There is no backward: the TPU kernel
-// has none.
+// or bf16, rounded to nearest even).  The TPU kernel has no backward; the
+// port's is flash_attention_bwd.cu, which recomputes the probabilities from
+// the row log-sum-exp that flash_attention_lse_launch also writes: lse =
+// m ln 2 + ln l, in natural-log units of the scaled logits (m is kept in
+// log2 units, below).
 //
 // Bound on an H100 SXM at deepseek-coder-33b's prefill_32k sequence (one
 // layer: Hq 56, Hkv 8, D 128, S 32,768, bf16, B 1): the causal products are
@@ -179,6 +182,11 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
+// The row's log-sum-exp of the scaled logits, m ln 2 + ln l (m in log2 units).
+__device__ __forceinline__ void store_lse(float* lse, size_t row, float m, float l) {
+  lse[row] = fmaf(m, 0.69314718055994531f, logf(l));
+}
+
 // Two f32 as bf16 (round to nearest even) in one register, the first in the
 // low half: an mma fragment's or the output's element pair.
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -243,11 +251,11 @@ __device__ __forceinline__ void online_softmax(float (&s)[kKeyFrags][4], float (
   }
 }
 
-template <int D>
+template <int D, bool kLse = false>
 __global__ void __launch_bounds__(kMmaThreads) flash_attention_bf16(
     const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     const uint16_t* __restrict__ v, uint16_t* __restrict__ out, int Hq, int Hkv, int S,
-    float scale_log2) {
+    float scale_log2, float* __restrict__ lse) {
   using Tl = Bf16Tile<D>;
   extern __shared__ __align__(16) uint16_t staged[];  // kStages x (K tile, V tile)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -359,6 +367,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_bf16(
     l[r] += __shfl_xor_sync(kFull, l[r], 2);
     const int row = row0 + 8 * r;
     if (row >= S) continue;
+    if (kLse && (lane & 3) == 0) store_lse(lse, q_head / D + row, m[r], l[r]);
     const float denom = fmaxf(l[r], 1e-30f);
     unsigned* dst = reinterpret_cast<unsigned*>(out + q_head + (size_t)row * D + 2 * (lane & 3));
 #pragma unroll
@@ -379,10 +388,11 @@ __device__ __forceinline__ void split_tf32(unsigned (&hi)[N], unsigned (&lo)[N])
   }
 }
 
-template <int D>
+template <int D, bool kLse = false>
 __global__ void __launch_bounds__(kMmaThreads) flash_attention_tf32(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ out, int Hq, int Hkv, int S, float scale_log2) {
+    float* __restrict__ out, int Hq, int Hkv, int S, float scale_log2,
+    float* __restrict__ lse) {
   using Tl = Tf32Tile<D>;
   extern __shared__ __align__(16) float staged_f32[];  // kStages x (K tile, V tile), then Q
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -530,6 +540,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_tf32(
     l[r] += __shfl_xor_sync(kFull, l[r], 2);
     const int row = row0 + 8 * r;
     if (row >= S) continue;
+    if (kLse && (lane & 3) == 0) store_lse(lse, q_head / D + row, m[r], l[r]);
     const float denom = fmaxf(l[r], 1e-30f);
     // columns 32 c + 8 t + 4 hh + i (t = lane % 4) are element 2 r + hh of
     // O's fragment 4 c + i
@@ -544,11 +555,11 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_tf32(
   }
 }
 
-template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, int B, int Hq,
-                        int Hkv, int S, cudaStream_t stream) {
+template <int D, bool kLse>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                        int Hq, int Hkv, int S, cudaStream_t stream) {
   constexpr size_t smem = Bf16Tile<D>::kSmem;
-  auto kernel = flash_attention_bf16<D>;
+  auto kernel = flash_attention_bf16<D, kLse>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -556,38 +567,50 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* out, 
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<uint16_t*>(out), Hq, Hkv, S,
-      (float)(1.4426950408889634 / sqrt((double)D)));
+      (float)(1.4426950408889634 / sqrt((double)D)), lse);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* out, int B, int Hq,
-                        int Hkv, int S, cudaStream_t stream) {
+template <int D, bool kLse>
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                        int Hq, int Hkv, int S, cudaStream_t stream) {
   constexpr size_t smem = Tf32Tile<D>::kSmem;
-  auto kernel = flash_attention_tf32<D>;
+  auto kernel = flash_attention_tf32<D, kLse>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(Hq, B, (S + kMmaBQ - 1) / kMmaBQ);
   kernel<<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), Hq, Hkv, S, (float)(1.4426950408889634 / sqrt((double)D)));
+      static_cast<float*>(out), Hq, Hkv, S, (float)(1.4426950408889634 / sqrt((double)D)),
+      lse);
   return cudaGetLastError();
 }
 
+template <bool kLse>
 cudaError_t launch_d(int dtype, int D, const void* q, const void* k, const void* v, void* out,
-                     int B, int Hq, int Hkv, int S, cudaStream_t stream) {
+                     float* lse, int B, int Hq, int Hkv, int S, cudaStream_t stream) {
   switch (dtype * 1000 + D) {
-    case 32: return launch_tf32<32>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 64: return launch_tf32<64>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 96: return launch_tf32<96>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 128: return launch_tf32<128>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 1032: return launch_bf16<32>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 1064: return launch_bf16<64>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 1096: return launch_bf16<96>(q, k, v, out, B, Hq, Hkv, S, stream);
-    case 1128: return launch_bf16<128>(q, k, v, out, B, Hq, Hkv, S, stream);
+    case 32: return launch_tf32<32, kLse>(q, k, v, out, lse, B, Hq, Hkv, S, stream);
+    case 64: return launch_tf32<64, kLse>(q, k, v, out, lse, B, Hq, Hkv, S, stream);
+    case 96: return launch_tf32<96, kLse>(q, k, v, out, lse, B, Hq, Hkv, S, stream);
+    case 128: return launch_tf32<128, kLse>(q, k, v, out, lse, B, Hq, Hkv, S, stream);
+    case 1032: return launch_bf16<32, kLse>(q, k, v, out, lse, B, Hq, Hkv, S, stream);
+    case 1064: return launch_bf16<64, kLse>(q, k, v, out, lse, B, Hq, Hkv, S, stream);
+    case 1096: return launch_bf16<96, kLse>(q, k, v, out, lse, B, Hq, Hkv, S, stream);
+    case 1128: return launch_bf16<128, kLse>(q, k, v, out, lse, B, Hq, Hkv, S, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+int check_args(int dtype, const void* q, const void* k, const void* v, const void* out, int B,
+               int Hq, int Hkv, int S) {
+  if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || Hq % Hkv != 0 || B > 65535 ||
+      (S + kMmaBQ - 1) / kMmaBQ > 65535 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  return 0;
 }
 
 }  // namespace
@@ -599,12 +622,22 @@ extern "C" {
 // start on 16 bytes (the wrapper copies operands that do not).
 int flash_attention_launch(int dtype, int D, const void* q, const void* k, const void* v,
                            void* out, int B, int Hq, int Hkv, int S, void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || Hq % Hkv != 0 || B > 65535 ||
-      (S + kMmaBQ - 1) / kMmaBQ > 65535 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
-    return (int)cudaErrorMisalignedAddress;
-  return (int)launch_d(dtype, D, q, k, v, out, B, Hq, Hkv, S, static_cast<cudaStream_t>(stream));
+  const int err = check_args(dtype, q, k, v, out, B, Hq, Hkv, S);
+  if (err) return err;
+  return (int)launch_d<false>(dtype, D, q, k, v, out, nullptr, B, Hq, Hkv, S,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// The same, and each row's log-sum-exp of its scaled logits into lse
+// (B, Hq, S) f32: what the backward (flash_attention_bwd.cu) reads.
+int flash_attention_lse_launch(int dtype, int D, const void* q, const void* k, const void* v,
+                               void* out, float* lse, int B, int Hq, int Hkv, int S,
+                               void* stream) {
+  const int err = check_args(dtype, q, k, v, out, B, Hq, Hkv, S);
+  if (err) return err;
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_d<true>(dtype, D, q, k, v, out, lse, B, Hq, Hkv, S,
+                             static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_attention_error_string(int err) {

@@ -7,15 +7,23 @@ the reference's tree of tensors, leaf for leaf: every per-layer leaf has a
 leading ``n_blocks`` axis (``layers``; or ``moe_layers`` and, with
 ``moe.period`` 2, ``dense_layers`` of (n_blocks, period - 1, ...)), so
 :func:`params_from_numpy` carries the JAX package's parameters across
-unchanged.  The layers run in a Python loop over that axis, eagerly and
-under ``torch.no_grad`` (forward only: the gradients come with training).
+unchanged.  The layers run eagerly in a Python loop over that axis, each
+stacked leaf split once a call (``torch.unbind``), so that its gradient is
+one ``stack`` of the layers' and not a full-size add a layer.
+:func:`forward` and :func:`loss_fn` are differentiable: with gradients
+enabled each layer runs under activation checkpointing
+(``torch.utils.checkpoint``, non-reentrant), as the reference wraps each
+block in ``jax.checkpoint(..., nothing_saveable)``, so a layer keeps only
+its input and is recomputed in the backward pass.  :func:`prefill` and
+:func:`decode_step` run under ``torch.no_grad``.
 
 Attention has one route.  Prefill and :func:`forward` start at position 0,
 where causal attention is exactly what the flash-attention kernel K9
 computes, so every layer calls
 :func:`repro_torch.kernels.flash_attention.ops.causal_attention`: on the
 card the kernel (which takes head dims 32, 64, 96 and 128 and raises for
-any other), on the CPU its plain version.  The reference's einsum /
+any other), on the CPU its plain version; with gradients, K9's forward
+that keeps each row's log-sum-exp and K9's backward kernel.  The reference's einsum /
 blockwise switch (``attn_impl``, ``blockwise_q``, ``blockwise_kv``) and
 ``scan_unroll`` stay as config fields and choose nothing; its sharding
 fields have no counterpart.  K9's plain version multiplies the
@@ -43,6 +51,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.index import _check_device
 from repro_torch.kernels.common import f32_matmul, stable_topk
@@ -389,21 +398,34 @@ def _moe_layer(x, layer, cfg, positions, dropless: bool = False, kv=None):
 def iter_layers(params: Params, cfg: TransformerConfig) -> Iterator[Tuple[bool, Params]]:
     """(is MoE, the layer's leaves) in layer order: per block its
     ``dense_per_block`` dense layers, then its MoE layer; the cache's
-    layer index counts them in this order."""
+    layer index counts them in this order.  Each stacked leaf is split
+    once (``unbind``; ``dense_layers`` on both of its stacked axes): the
+    layers' leaves are views of it, and its gradient is one ``stack`` of
+    theirs (indexing it a layer at a time would add a zero tensor of the
+    whole stack's size into its gradient for every layer)."""
     if not cfg.moe:
+        per = {k: v.unbind(0) for k, v in params["layers"].items()}
         for i in range(cfg.n_layers):
-            yield False, {k: v[i] for k, v in params["layers"].items()}
+            yield False, {k: v[i] for k, v in per.items()}
         return
     dense = params.get("dense_layers")
+    dense = None if dense is None else {k: [blk.unbind(0) for blk in v.unbind(0)]
+                                        for k, v in dense.items()}
+    moe = {k: v.unbind(0) for k, v in params["moe_layers"].items()}
     for bi in range(cfg.n_blocks):
         if dense is not None:
             for j in range(cfg.dense_per_block):
-                yield False, {k: v[bi, j] for k, v in dense.items()}
-        yield True, {k: v[bi] for k, v in params["moe_layers"].items()}
+                yield False, {k: v[bi][j] for k, v in dense.items()}
+        yield True, {k: v[bi] for k, v in moe.items()}
 
 
 def _embed(params, tokens, cfg) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(cfg.dtype)
+    """The tokens' rows of ``embed`` in the compute dtype.  A gather, as the
+    reference's indexing; ``embedding``'s backward sums the rows' gradients
+    in a fixed order (indexing's, ``index_put_`` with accumulation, does
+    not on several CPU threads), so that a step's gradients repeat bit for
+    bit and a resumed run follows the uninterrupted one."""
+    return torch.nn.functional.embedding(tokens.long(), params["embed"]).to(cfg.dtype)
 
 
 def _head(params, x, cfg) -> torch.Tensor:
@@ -413,24 +435,29 @@ def _head(params, x, cfg) -> torch.Tensor:
 
 
 def _run_layers(params, x, cfg, kv=None) -> torch.Tensor:
+    """The layers in order; with gradients enabled each under activation
+    checkpointing (its input kept, its inside recomputed in the backward)."""
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    remat = torch.is_grad_enabled()
     for is_moe, layer in iter_layers(params, cfg):
-        x = (_moe_layer(x, layer, cfg, positions, kv=kv) if is_moe
-             else _dense_layer(x, layer, cfg, positions, kv=kv))
+        fn = _moe_layer if is_moe else _dense_layer
+        if remat:
+            x = checkpoint(fn, x, layer, cfg, positions, use_reentrant=False)
+        else:
+            x = fn(x, layer, cfg, positions, kv=kv)
     return x
 
 
-@torch.no_grad()
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    """tokens: (B, S) int -> logits (B, S, vocab) in f32."""
+    """tokens: (B, S) int -> logits (B, S, vocab) in f32; differentiable
+    in the parameters."""
     return _head(params, _run_layers(params, _embed(params, tokens, cfg), cfg), cfg)
 
 
-@torch.no_grad()
 def loss_fn(params: Params, tokens: torch.Tensor, labels: torch.Tensor,
             cfg: TransformerConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy (the value only)."""
+    """Mean next-token cross-entropy, differentiable in the parameters."""
     logits = forward(params, tokens, cfg)
     label_logit = logits.gather(-1, labels.long()[..., None])[..., 0]
     return (torch.logsumexp(logits, dim=-1) - label_logit).mean()

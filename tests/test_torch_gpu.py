@@ -1,7 +1,8 @@
 """The port on a CUDA card: the fused top-k kernels (K1/K2, the gathered K3,
 and the quantized K4/K5) against their plain versions, and the searches on
 the card (dense, blockmax, lexical LSH, the quantized read path, the k-d
-tree's scan and tree) against the port's CPU route, and save / load there.
+tree's scan and tree) against the port's CPU route, and save / load there;
+K9's backward and a training step of the LM on the card.
 Every test carries the ``gpu`` marker and skips without a card; this file
 imports no JAX, so it runs where only PyTorch is installed:
 
@@ -12,7 +13,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import assert_rows_close, assert_topk_match, cuda_device
+from torch_parity import (assert_attention_grads_close, assert_rows_close, assert_topk_match,
+                          cuda_device)
 
 from repro_torch.core import builder, bruteforce
 from repro_torch.core import eval as ev
@@ -1901,3 +1903,109 @@ def test_cuda_prefill_counts_one_k9_launch_a_layer_and_refuses_dh16():
     _, nparams = _lm_on(narrow, dev)
     with pytest.raises(ValueError, match="head dim 16"):
         tfm.forward(nparams, toks % 64, narrow)
+
+
+# -- training: K9's backward and a step of the LM --------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,hq,hkv,s,d", [
+    (torch.bfloat16, 2, 8, 2, 1000, 32), (torch.bfloat16, 1, 4, 4, 130, 96),
+    (torch.bfloat16, 1, 7, 1, 65, 128), (torch.bfloat16, 2, 4, 2, 257, 64),
+    (torch.float32, 1, 4, 2, 200, 96), (torch.float32, 2, 4, 4, 63, 32),
+    (torch.float32, 1, 7, 1, 129, 128)])
+def test_cuda_attention_backward_matches_plain_and_repeats(dtype, b, hq, hkv, s, d):
+    """K9's forward with lse (its output bit-equal to the plain entry's, lse
+    within 2e-5 of the plain logsumexp) and its backward against
+    ``attention_bwd_ref`` on the kernel's own out and lse: K9's row rules
+    (bf16 1e-2, f32 1e-4; dq's row 0, zero in exact arithmetic, at its
+    head's scale); two launches bit-equal."""
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    dev = cuda_device()
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                     for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, hq, s, d)))
+    before = (kernel.flash_attention_fwd.launches, kernel.flash_attention_bwd.launches)
+    out, lse = kernel.flash_attention_fwd(q, k, v)
+    assert torch.equal(out, kernel.flash_attention(q, k, v))
+    _, want_lse = ref.attention_fwd_ref(q, k, v)
+    assert float(((lse - want_lse).abs() / (1 + want_lse.abs())).max()) <= 2e-5
+    got = kernel.flash_attention_bwd(q, k, v, out, lse, dout)
+    again = kernel.flash_attention_bwd(q, k, v, out, lse, dout)
+    assert (kernel.flash_attention_fwd.launches - before[0],
+            kernel.flash_attention_bwd.launches - before[1]) == (1, 2)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert [x.dtype for x in got] == [dtype] * 3
+    want = ref.attention_bwd_ref(q, k, v, out, lse, dout)
+    assert_attention_grads_close(got, want, 1e-2 if dtype == torch.bfloat16 else 1e-4)
+
+
+@pytest.mark.gpu
+def test_cuda_attention_backward_refuses_what_the_kernel_does_not_take():
+    from repro_torch.kernels.flash_attention import kernel
+
+    dev = cuda_device()
+    x = torch.zeros((1, 2, 8, 16), device=dev)
+    lse = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="head dim 16"):
+        kernel.flash_attention_bwd(x, x, x, x, lse, x)
+    y = torch.zeros((1, 2, 8, 32), device=dev)
+    with pytest.raises(TypeError):
+        kernel.flash_attention_bwd(y, y, y, y.bfloat16(), lse, y)
+    with pytest.raises(TypeError):
+        kernel.flash_attention_bwd(y, y, y, y, lse.double(), y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_micro_lm_training_step_matches_cpu_route(dtype):
+    """micro-lm (dh 32) on the card against the CPU route from the same
+    weights and batch: every leaf's gradient of ``loss_fn`` (relative to
+    its scale: f32 1e-4, K9 f32 and the f32 backward against the plain
+    versions; bf16 4e-2, tests/test_torch_lm_grad.py's bf16 tolerance), then
+    one AdamW step in 2 microbatches: its loss, its gradient norm and the
+    parameters after the update.  K9's forward with lse runs twice a layer
+    a microbatch (the checkpointed layers' recompute), its backward once."""
+    import dataclasses as dc
+
+    from torch_parity import assert_logits_close
+
+    from repro_torch.data import lm as lm_data
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import build_train_step, make_train_state
+
+    dev = cuda_device()
+    cfg = dc.replace(train.get_model("micro-lm"), dtype=dtype)
+    cpu, card = _lm_on(cfg, dev)
+    batch = lm_data.batch_at(lm_data.LmDataConfig(vocab=cfg.vocab, seq_len=96, global_batch=4,
+                                                  seed=5), 0)
+    tol = 1e-4 if dtype == torch.float32 else 4e-2
+    grads, results = {}, {}
+    for name, params, where in (("cpu", cpu, "cpu"), ("cuda", card, dev)):
+        leaves = []
+        tfm.tree_map(lambda n, x: leaves.append((n, x.requires_grad_())), params)
+        loss = tfm.loss_fn(params, batch["tokens"].to(where), batch["labels"].to(where), cfg)
+        grads[name] = dict(zip([n for n, _ in leaves],
+                               torch.autograd.grad(loss, [x for _, x in leaves])))
+        opt = opt_mod.adamw(lr=1e-3)
+        state = make_train_state(params, opt)
+        step = build_train_step(lambda p, b: tfm.loss_fn(p, b["tokens"], b["labels"], cfg), opt, 2)
+        before = (kernel.flash_attention_fwd.launches, kernel.flash_attention_bwd.launches)
+        state, m = step(state, {k: x.to(where) for k, x in batch.items()})
+        launched = (kernel.flash_attention_fwd.launches - before[0],
+                    kernel.flash_attention_bwd.launches - before[1])
+        want = (0, 0) if name == "cpu" else (2 * 2 * cfg.n_layers, 2 * cfg.n_layers)
+        assert launched == want, (name, launched)
+        flat = []
+        tfm.tree_map(lambda n, x: flat.append((n, x)), state.params)
+        results[name] = (float(m["loss"]), float(m["grad_norm"]), dict(flat))
+    for n, g in grads["cpu"].items():
+        assert_logits_close(grads["cuda"][n], g, tol, f"gradient of {n}")
+    (lc, nc, pc), (lg, ng, pg) = results["cpu"], results["cuda"]
+    assert abs(lg - lc) <= tol * abs(lc) and abs(ng - nc) <= tol * nc, (lc, lg, nc, ng)
+    for n, x in pc.items():
+        assert_logits_close(pg[n], x, tol, f"{n} after the step")

@@ -417,3 +417,30 @@ def assert_logits_close(got, want, tol: float, what: str = "logits") -> None:
     assert err <= tol and worst <= 2 * tol, (
         f"{what}: error norm {err:.3g} of the norm (tol {tol}), worst element {worst:.3g} of "
         f"the largest (tol {2 * tol})")
+
+
+def assert_attention_grads_close(got, want, tol: float, dq_rows: bool = True) -> None:
+    """Hold attention gradients ``got`` = (dq, dk, dv) to ``want``: dk and
+    dv row by row (:func:`assert_rows_close`); dq too where ``dq_rows``,
+    except its row 0: query 0 attends to key 0 alone, so its probability is
+    1, dP equals Delta and its gradient is zero in exact arithmetic; each
+    side returns its own rounding noise there, held within ``tol`` of the
+    largest |dq| of its (batch, head).  Without ``dq_rows`` dq is held to
+    its whole scale (:func:`assert_logits_close`): a bf16 backward reads
+    the output rounded to bf16 for Delta, and in the first rows, where dq
+    is a small difference of near-equal terms, that rounding moves a row
+    by several percent of its own norm (against the reference's exact f32
+    probabilities: up to 13% at row 1, 0.2% of the tensor's norm)."""
+    dq, dq_want = (x.detach().float().cpu() if isinstance(x, torch.Tensor)
+                   else torch.from_numpy(np.array(x, np.float32)) for x in (got[0], want[0]))
+    assert dq.shape == dq_want.shape, (dq.shape, dq_want.shape)
+    if dq_rows:
+        assert_rows_close(dq[..., 1:, :], dq_want[..., 1:, :], tol)
+        scale = dq_want.abs().amax(dim=(-1, -2))
+        row0 = dq[..., 0, :].abs().amax(dim=-1)
+        assert bool((row0 <= tol * scale).all()), (f"dq row 0 {float(row0.max())} past {tol} of "
+                                                   f"{float(scale.min())}")
+    else:
+        assert_logits_close(dq, dq_want, tol, "dq")
+    for g, w in zip(got[1:], want[1:]):
+        assert_rows_close(g, w, tol)
