@@ -242,6 +242,30 @@
    prefill time at each prompt length, the decode time a step at 8 active
    slots, tokens a second, and K9 at the longest prefill beside
    ``scaled_dot_product_attention(is_causal=True)``.
+17. GraphSAGE (``drive_gnn``, after the LM's training phase and after the
+   ANN corpus is freed): 2 x 128 mean-SAGE at each cell's published graph,
+   built by ``make_graph`` on the host (Cora's 2,708 / 10,556 at d 1,433;
+   Reddit's 232,965 / 114,615,892 at d 602; ogbn-products' 2,449,029 /
+   61,859,140 at d 100) and 128 molecules of 30 nodes: forwards and AdamW
+   steps (Reddit's of the card's sampler, B 1,024, fanouts 15-10; ogbn-
+   products' full-graph, its gather-scatter over edge slices), each held to
+   the CPU route (Reddit's on 128 seeds of the card's batch; Cora's also
+   with the card's gather-scatter over 11 edge slices, forward and backward;
+   ogbn-products' too large for it), the sampler's invariants, the peak
+   memory, a traced ``embeddings_full``.
+18. The recsys towers (``drive_recsys``): FM, DeepFM, xDeepFM (33,554,432
+   x 10) and DLRM (53,687,296 x 64, 13.75 GB) at their full tables:
+   ``forward`` at serve_p99 (B 512) and serve_bulk (B 262,144; xDeepFM's CIN in
+   row slices inside ``forward``), the serve_p99 batch's logits, loss and gradients held to
+   the CPU route on the rows it reads, train_batch AdamW steps (B 65,536;
+   xDeepFM in 8 microbatches; DLRM with a dense 13.75 GB table gradient, a
+   traced step), each tower's peak; then retrieval_cand on DLRM: 64 user
+   vectors, ``retrieval_topk`` over field 0's first 10^6 rows, those rows
+   indexed by fake words (Q = 50) and searched at depth 100 with rerank (K1
+   classic), the ground truth by ``exact_topk`` (K1 f32), each held to its
+   plain version and to the CPU route on the same index, R@(10,100), and
+   both K1 calls timed beside bound, plain and library (kernels-line rows
+   ``fused_topk/retrieval_cand`` and ``fused_topk/f32-retrieval_cand``).
 
 Exits non-zero on any failure, or when no CUDA device is available.  The
 last two lines are a JSON object of per-kernel numbers and the JSON status
@@ -2128,8 +2152,15 @@ def main(argv) -> int:
     drive_sharded(dev, card, x, qx, gt_i, depth, k, config, masks)
     kernels += drive_lm(dev, card)
     kernels += drive_train(dev, card, attn_bwd)
-    print(f"the filtered phases took {filtered_s + quantized_filtered_s:.1f} s (host clock)")
     peak = max(peak_segments, torch.cuda.max_memory_allocated())
+    del x, qx, gt_i, md, masks  # the ANN corpus: the model phases get the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = max(peak, drive_gnn(dev, card))
+    rec_entries, rec_peak = drive_recsys(dev, card)
+    kernels += rec_entries
+    peak = max(peak, rec_peak)
+    print(f"the filtered phases took {filtered_s + quantized_filtered_s:.1f} s (host clock)")
     print(f"peak device memory {peak / 1e9:.1f} GB (the whole run)")
     print(f"the whole run: {time.perf_counter() - t_run:.1f} s (host clock, the kernels' build "
           "included)")
@@ -7805,6 +7836,567 @@ def drive_train(dev, card: str, attn_rows: dict, cfg=None, layers: int = TRAIN_L
           f"step in the trace: forward {trace.get('fwd_ms', float('nan')):.2f} ms, backward "
           f"{trace.get('bwd_ms', float('nan')):.2f} ms")
     return entries
+
+
+GNN_SEED = 38  # the GraphSAGE phase's weights, seeds and molecule batches
+GNN_STEPS = 3  # AdamW steps of each GraphSAGE cell
+GNN_HOLD_SEEDS = 128  # minibatch_lg's hold: the first seeds of the card's batch
+GNN_HOLD_SLICE = 1_024  # full_graph_sm's second hold: edges a gather-scatter slice
+# The card against the CPU route (logits and every leaf's gradient, relative
+# to their scale: error norm within it, no element past twice it of the
+# largest): the two routes scatter-add and multiply in another order in f32.
+MODEL_TOL = 1e-4
+
+
+def _tree_cpu(params):
+    from repro_torch.models.params import tree_map
+
+    return tree_map(lambda _, v: v.detach().cpu(), params)
+
+
+def _loss_grads(loss_fn, params):
+    """(loss, {leaf name: gradient}) of ``loss_fn(params)`` on detached
+    leaves; a leaf the loss does not use has a zero gradient, as in JAX."""
+    from repro_torch.models.params import tree_map
+
+    fresh = {}
+
+    def leaf(name, v):
+        fresh[name] = v.detach().requires_grad_()
+        return fresh[name]
+
+    loss = loss_fn(tree_map(leaf, params))
+    grads = torch.autograd.grad(loss, list(fresh.values()), allow_unused=True)
+    return float(loss.detach()), {n: torch.zeros_like(v) if g is None else g
+                                  for (n, v), g in zip(fresh.items(), grads)}
+
+
+def _hold_model(label: str, card: tuple, cpu: tuple, rows=None) -> str:
+    """Hold (logits, loss, grads) of the card against the CPU route's within
+    MODEL_TOL; ``rows`` maps the name of a table leaf to the rows of the
+    card's gradient the CPU route's (a sub-table) stands for.  Returns the
+    printed summary."""
+    (lc, loss_c, gc_), (lp, loss_p, gp) = card, cpu
+    worst = {"logits": _gap(lc, lp)}
+    for n, g in gp.items():
+        got = gc_[n] if rows is None or n not in rows else gc_[n][rows[n]]
+        # a leaf the loss does not use: zero on both sides
+        worst[f"grad {n}"] = (_gap(got, g) if bool(g.any())
+                              else (float(got.abs().max()), float(got.abs().max())))
+    bad = {n: v for n, v in worst.items() if v[0] > MODEL_TOL or v[1] > 2 * MODEL_TOL}
+    if bad or abs(loss_c - loss_p) > MODEL_TOL * abs(loss_p):
+        raise AssertionError(f"{label}: the card differs from the CPU route: loss {loss_c} / "
+                             f"{loss_p}; {bad}")
+    top = max(worst, key=lambda n: worst[n][0])
+    return (f"{label}: loss {loss_c:.6f} / {loss_p:.6f} (card / CPU route); worst {top}: error "
+            f"norm {worst[top][0]:.3g} of its norm, largest error "
+            f"{max(v[1] for v in worst.values()):.3g} of its largest (tolerance {MODEL_TOL} / "
+            f"{2 * MODEL_TOL})")
+
+
+def _train_steps(loss_fn, params, batches, n_microbatches: int = 1, trace: str = "",
+                 lr: float = 1e-2):
+    """AdamW (``lr``) steps of ``build_train_step`` over ``batches`` (a
+    callable batch is drawn at its step); returns (losses, host seconds a
+    step: each ends in a synchronize, and with ``trace`` the line of one
+    more step of the first batch in a trace, else "")."""
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import build_train_step, make_train_state
+
+    opt = opt_mod.adamw(lr=lr)
+    holder = [make_train_state(params, opt)]
+    step = build_train_step(loss_fn, opt, n_microbatches)
+    losses, dts = [], []
+
+    def one(batch):
+        holder[0], m = step(holder[0], batch() if callable(batch) else batch)
+        return float(m["loss"])
+
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(one(batch))
+        dts.append(time.perf_counter() - t0)
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite training losses {losses}")
+    line = _trace_line(trace, lambda: one(batches[0])) if trace else ""
+    del holder
+    return losses, dts, line
+
+
+def _trace_line(label: str, fn) -> str:
+    """One call of ``fn`` in a torch.profiler trace: kernels, device busy
+    and idle share, the costliest kernels."""
+    spans = _traced(fn, 1)
+    if not spans:
+        return f"{label} trace: torch.profiler recorded no device time"
+    per, count = collections.Counter(), collections.Counter()
+    for a, b, name in spans:
+        per[name[:60]] += (b - a) / 1e3
+        count[name[:60]] += 1
+    busy, wall = sum(per.values()), (spans[-1][1] - spans[0][0]) / 1e3
+    return (f"{label} trace: {len(spans)} kernels, device busy {busy:.2f} of {wall:.2f} "
+            f"ms (idle {1 - busy / wall:.1%}); most time: "
+            + "; ".join(f"{n} {ms:.2f} ms ({count[n]})" for n, ms in per.most_common(5)))
+
+
+def _ms_list(dts) -> str:
+    return "[" + ", ".join(f"{1e3 * x:.1f}" for x in dts) + "] ms"
+
+
+def drive_gnn(dev, card: str, cells=None) -> float:
+    """GraphSAGE 2 x 128 (``configs/graphsage_reddit.py``) at each cell's
+    published graph (``cells`` overrides for a rehearsal), weights drawn from
+    GNN_SEED by ``init_params`` on the card, graphs by ``make_graph`` (numpy
+    on the host, then moved; its host time printed):
+    full_graph_sm (Cora sizes) and molecule (128 graphs of 30 nodes):
+    ``forward_full`` / ``forward_batched`` timed and GNN_STEPS AdamW steps,
+    each held to the CPU route at full size (logits, loss, every gradient;
+    Cora's a second time with the card's gather-scatter over edge slices of
+    GNN_HOLD_SLICE, forward and backward, as ogbn-products' runs over
+    ``gnn._EDGE_SLICE``);
+    minibatch_lg (Reddit sizes, B 1,024, fanouts 15-10): the sampler on the
+    card (ids in range, -1 only at isolated nodes, the first seeds' samples
+    in their CSR rows), GNN_STEPS steps of sampling plus ``loss_sampled``,
+    the first GNN_HOLD_SEEDS seeds' forward and gradients held to the CPU
+    route; ogb_products: ``embeddings_full`` (unit rows) and full-graph
+    training steps, with the peak device memory (the gather-scatter over
+    edge slices, ``gnn._EDGE_SLICE``: the whole (E, d) message block would
+    take 24.7 GB at d 100, 31.7 GB at d 128).  Returns the phase's peak
+    device memory."""
+    from repro_torch.configs import graphsage_reddit
+    from repro_torch.data import graph as gdata
+    from repro_torch.models import gnn
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    peak = 0
+    for cell in cells or graphsage_reddit.CELLS:
+        torch.cuda.reset_peak_memory_stats()
+        cfg = graphsage_reddit.make_model(cell)
+        gen = torch.Generator(device=dev).manual_seed(GNN_SEED)
+        params = gnn.init_params(cfg, gen, device=dev)
+        label = f"graphsage {cell.name}"
+        if cell.kind == "molecule":
+            mb = gdata.make_molecule_batch(gen, cell.batch, cell.get("n_nodes"),
+                                           cell.get("n_edges"), cell.get("d_feat"),
+                                           cell.get("n_classes"))
+            x = (mb["feats"], mb["src"], mb["dst"])
+            y = (mb["labels"],)
+            what = f"{cell.batch} graphs of {cell.get('n_nodes')} nodes, {cell.get('n_edges')} edges"
+            fwd, loss = gnn.forward_batched, gnn.loss_batched
+        else:
+            t0 = time.perf_counter()
+            g = gdata.make_graph(gdata.GraphConfig(
+                n_nodes=cell.get("n_nodes"), n_edges=cell.get("n_edges"),
+                d_feat=cell.get("d_feat"), n_classes=cell.get("n_classes")), device=dev)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+            what = (f"{g.n_nodes:,} nodes, {g.n_edges:,} edges, d {cell.get('d_feat')}; "
+                    f"make_graph {host_s:.1f} s (host numpy, then to the card): indices "
+                    f"{g.indices.numel() * 4 / 1e6:.0f} MB, features "
+                    f"{g.feats.numel() * 4 / 1e6:.0f} MB on the card")
+        if cell.kind == "full_graph":
+            src, dst = g.edge_list()
+            x = (g.feats, src, dst)
+            y = (g.labels, torch.ones(g.n_nodes, dtype=torch.float32, device=dev))
+            fwd, loss = gnn.forward_full, gnn.loss_full
+        if cell.kind in ("full_graph", "molecule"):
+            with torch.no_grad():
+                out = (gnn.embeddings_full(params, *x, cfg) if cell.name == "ogb_products"
+                       else fwd(params, *x, cfg))
+                ms, runs = timed(lambda: (gnn.embeddings_full if cell.name == "ogb_products"
+                                          else fwd)(params, *x, cfg))
+            rows = out.shape[0]
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{label}: non-finite forward")
+            if cell.name == "ogb_products":
+                norms = torch.linalg.vector_norm(out, dim=-1)
+                if float((norms - 1).abs().max()) > 1e-4:
+                    raise AssertionError(f"{label}: embeddings not unit rows")
+                fwd_what = f"embeddings_full {tuple(out.shape)} unit rows"
+                trace = _trace_line(f"{label} embeddings_full ({card})",
+                                    lambda: gnn.embeddings_full(params, *x, cfg))
+            else:
+                fwd_what = f"forward {tuple(out.shape)}"
+                trace = ""
+            del out
+            hold = ""
+            if cell.name != "ogb_products":  # the CPU route at full size
+                pc, xc, yc = _tree_cpu(params), [t.cpu() for t in x], [t.cpu() for t in y]
+
+                def card_side():
+                    with torch.no_grad():
+                        lg = fwd(params, *x, cfg)
+                    return (lg, *_loss_grads(lambda p: loss(p, *x, *y, cfg), params))
+
+                with torch.no_grad():
+                    lg_cpu = fwd(pc, *xc, cfg)
+                cpu_side = (lg_cpu, *_loss_grads(lambda p: loss(p, *xc, *yc, cfg), pc))
+                hold = _hold_model(f"  {label} held", card_side(), cpu_side)
+                if cell.kind == "full_graph":  # the card's aggregate over many edge slices
+                    whole = gnn._EDGE_SLICE
+                    gnn._EDGE_SLICE = GNN_HOLD_SLICE
+                    try:
+                        sliced = card_side()
+                    finally:
+                        gnn._EDGE_SLICE = whole
+                    hold += "\n" + _hold_model(
+                        f"  {label} held, the card's gather-scatter over "
+                        f"{-(-x[1].shape[0] // GNN_HOLD_SLICE)} edge slices of {GNN_HOLD_SLICE:,} "
+                        f"forward and backward (the CPU route's in one)", sliced, cpu_side)
+            losses, dts, _ = _train_steps(lambda p, _: loss(p, *x, *y, cfg), params,
+                                          [{}] * (2 if cell.name == "ogb_products" else GNN_STEPS))
+            print(f"{label} ({what}) on {card}: {fwd_what} {ms:.3f} ms (median of {runs}, CUDA "
+                  f"events; {rows / ms * 1e3:,.0f} rows/s); AdamW steps {_ms_list(dts)} (host "
+                  f"clock), losses {[round(v, 4) for v in losses]}; peak device memory "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (with "
+                  f"{held / 1e9:.1f} GB held before the phase)")
+            for line in (hold, trace):
+                if line:
+                    print(line)
+        else:  # minibatch: the sampler on the card, sampled training
+            fanouts = tuple(cell.get("fanouts"))
+            b = cell.batch
+
+            def sample():
+                seeds = gdata.batch_seeds(gen, g.n_nodes, b)
+                n1, n2 = gdata.sample_two_hop(gen, g.indptr, g.indices, seeds, fanouts)
+                return seeds, n1, n2
+
+            seeds, n1, n2 = sample()
+            deg = (g.indptr[1:] - g.indptr[:-1])[seeds.long()]
+            for blk in (n1, n2):
+                if not bool(((blk >= -1) & (blk < g.n_nodes)).all()):
+                    raise AssertionError(f"{label}: sampled ids out of range")
+            if not torch.equal((n1 < 0).any(-1), deg == 0):
+                raise AssertionError(f"{label}: -1 samples at nodes with neighbours")
+            ip = g.indptr.cpu().numpy()
+            for i in range(16):  # the first seeds' samples lie in their CSR rows
+                s_i = int(seeds[i])
+                row = set(g.indices[ip[s_i]:ip[s_i + 1]].cpu().tolist())
+                if any(v >= 0 and v not in row for v in n1[i].tolist()):
+                    raise AssertionError(f"{label}: a sample outside seed {s_i}'s row")
+            sample_ms = cuda_ms(sample, runs=5, warmup=1)
+            gather_mb = n2.numel() * cfg.d_in * 4 / 1e6
+            c = GNN_HOLD_SEEDS
+            sub = (seeds[:c], n1[:c], n2[:c])
+            feats_cpu, pc = g.feats.cpu(), _tree_cpu(params)
+            with torch.no_grad():
+                lg_card = gnn.forward_sampled(params, g.feats, *sub, cfg)
+                lg_cpu = gnn.forward_sampled(pc, feats_cpu, *(t.cpu() for t in sub), cfg)
+            lab = g.labels[seeds[:c].long()]
+            hold = _hold_model(
+                f"  {label} held ({c} seeds of the card's batch)",
+                (lg_card, *_loss_grads(lambda p: gnn.loss_sampled(p, g.feats, *sub, lab, cfg),
+                                       params)),
+                (lg_cpu, *_loss_grads(lambda p: gnn.loss_sampled(
+                    p, feats_cpu, *(t.cpu() for t in sub), lab.cpu(), cfg), pc)))
+            del feats_cpu, pc
+
+            def batch():
+                s_, a_, b_ = sample()
+                return {"seeds": s_, "n1": a_, "n2": b_, "labels": g.labels[s_.long()]}
+
+            losses, dts, _ = _train_steps(
+                lambda p, bt: gnn.loss_sampled(p, g.feats, bt["seeds"], bt["n1"], bt["n2"],
+                                               bt["labels"], cfg), params, [batch] * GNN_STEPS)
+            print(f"{label} ({what}; B {b}, fanouts {fanouts}) on {card}: sampling "
+                  f"{sample_ms:.3f} ms (median of 5, CUDA events), hop-2 gather "
+                  f"{gather_mb:.0f} MB; AdamW steps of sampling plus loss_sampled "
+                  f"{_ms_list(dts)} (host clock), losses {[round(v, 4) for v in losses]}; peak "
+                  f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            print(hold)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        del params
+        if cell.kind != "minibatch":
+            del x, y
+        if cell.kind != "molecule":
+            del g
+        gc.collect()
+        torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - held
+    if left > 1e9:
+        raise AssertionError(f"GraphSAGE phase: {left / 1e9:.3f} GB still allocated after it")
+    print(f"GraphSAGE phase: {time.perf_counter() - t_phase:.1f} s (host clock, {card}); peak "
+          f"device memory {peak / 1e9:.2f} GB")
+    return peak
+
+
+
+REC_SEED = 39  # the recsys phase's weights and batches
+REC_ARCHS = ("fm", "deepfm", "xdeepfm", "dlrm-rm2")  # DLRM last: its training needs ~69 GB
+REC_TRAIN = {"fm": (3, 1), "xdeepfm": (2, 8), "dlrm-rm2": (3, 1)}  # steps, microbatches
+REC_LR = 1e-3  # AdamW's learning rate at train_batch (1e-2 sends DLRM's loss up)
+RETRIEVAL_USERS = 64  # user vectors searched through the fake-words index
+RETRIEVAL_DEPTH, RETRIEVAL_K = 100, 10
+
+
+def _sub_table_route(params, cfg, sparse):
+    """The CPU route of a full-size tower on the rows a batch reads: the
+    table leaves cut to those rows (in id order) on the CPU, every other
+    leaf copied, and a config whose one field holds them (every offset 0),
+    so ``forward`` on the remapped ids reads the same rows.  Returns
+    (cpu params, cpu config, remapped ids, the rows on the card)."""
+    import dataclasses as dc
+
+    from repro_torch.models import recsys as rec
+
+    gidx = cfg.table.globalize(sparse)
+    rows, local = torch.unique(gidx, return_inverse=True)
+    pc = {k: (v[rows].detach().cpu() if k in ("table", "linear") else _tree_cpu(v)
+              if isinstance(v, dict) else v.detach().cpu()) for k, v in params.items()}
+    one = rec.TableSpec((0,) * (cfg.n_fields - 1) + (rows.numel(),), cfg.dim)
+    return pc, dc.replace(cfg, table=one), local.to(torch.int32).cpu(), rows
+
+
+def drive_recsys(dev, card: str, tables=None) -> tuple:
+    """The four recsys towers at their published tables (``tables`` cuts
+    them for a rehearsal), weights drawn from REC_SEED by ``init_params``
+    on the card, batches from ``data/recsys.py``: ``forward`` at serve_p99
+    (B 512) and serve_bulk (B 262,144; xDeepFM's CIN in
+    ``recsys._CIN_ROWS``-row slices) timed; the serve_p99 batch's logits, loss and gradients held to
+    the CPU route on the rows it reads (``_sub_table_route``); REC_TRAIN
+    AdamW steps at train_batch (B 65,536; xDeepFM in microbatches, the
+    reference's mechanism); each tower's peak device memory.  Then
+    retrieval_cand on DLRM: ``user_tower`` of RETRIEVAL_USERS users,
+    ``retrieval_topk`` over rows [0, 10^6) of its field 0 (B 1, the cell,
+    and B 64), those rows indexed by ``FakeWordsConfig(quantization=50)``
+    and searched at depth 100 with rerank (K1 classic), the ground truth by
+    ``bruteforce.exact_topk`` (K1 f32); the match, the rerank, the truth and
+    ``retrieval_topk`` held to the CPU route on the same index and vectors
+    (near-tie rule), each kernel call to its plain version; R@(10,100) and
+    the reranked R@10.  Returns (the kernels-line entries of K1 classic and
+    K1 f32 at this cell, the phase's peak device memory)."""
+    import dataclasses as dc
+
+    from repro_torch import configs
+    from repro_torch.data import recsys as rec_data
+    from repro_torch.models import recsys as rec
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    batches = {}  # (table, cell) -> batch: FM, DeepFM and xDeepFM share one table
+
+    def batch_of(cfg, cell, step=0):
+        key = (cfg.table, cfg.n_dense, cell.name, step)
+        if key not in batches:
+            t0 = time.perf_counter()
+            batches[key] = rec_data.batch_at(rec_data.RecsysDataConfig(
+                table=cfg.table, batch=cell.batch, n_dense=cfg.n_dense, seed=REC_SEED), step,
+                device=dev)
+            batches[key]["host_s"] = time.perf_counter() - t0
+        return batches[key]
+
+    entries, peak = [], 0
+    for arch_id in REC_ARCHS:
+        spec = configs.get(arch_id)
+        cfg = spec.make_model(None)
+        if tables:
+            cfg = dc.replace(cfg, table=rec.TableSpec(rec.criteo_row_counts(
+                cfg.n_fields, tables), cfg.dim))
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = rec.init_params(cfg, torch.Generator(device=dev).manual_seed(REC_SEED),
+                                 device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        label = f"recsys {arch_id}"
+        serve = {}
+        for cell_name in ("serve_p99", "serve_bulk"):
+            cell = spec.cell(cell_name)
+            bt = batch_of(cfg, cell)
+            with torch.no_grad():
+                out = rec.forward(params, cfg, bt["sparse"], bt.get("dense"))
+                if out.shape != (cell.batch,) or not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"{label} {cell_name}: bad logits {tuple(out.shape)}")
+                ms, runs = timed(lambda: rec.forward(params, cfg, bt["sparse"], bt.get("dense")))
+            serve[cell_name] = (ms, runs, bt["host_s"])
+            del out
+        # the serve_p99 batch against the CPU route on the rows it reads
+        bt = batch_of(cfg, spec.cell("serve_p99"))
+        sp, de, lab = bt["sparse"], bt.get("dense"), bt["label"]
+        pc, cfg_c, local, rows = _sub_table_route(params, cfg, sp)
+        de_c = de.cpu() if de is not None else None
+        with torch.no_grad():
+            lg_card = rec.forward(params, cfg, sp, de)
+            lg_cpu = rec.forward(pc, cfg_c, local, de_c)
+        card_side = (lg_card, *_loss_grads(lambda p: rec.bce_loss(p, cfg, sp, lab, de), params))
+        cpu_side = (lg_cpu, *_loss_grads(lambda p: rec.bce_loss(p, cfg_c, local, lab.cpu(), de_c),
+                                         pc))
+        hold = _hold_model(f"  {label} held (serve_p99 batch; the CPU route on its "
+                           f"{rows.numel():,} rows)", card_side, cpu_side,
+                           {k: rows for k in ("table", "linear")})
+        del card_side, cpu_side, pc, lg_card, lg_cpu
+        gc.collect()
+        n_bytes = cfg.param_count() * cfg.param_dtype.itemsize
+        print(f"{label} on {card}: table {cfg.table.total_rows:,} x {cfg.dim} (field 0 "
+              f"{cfg.table.row_counts[0]:,} rows), {cfg.param_count():,} parameters, "
+              f"{n_bytes / 1e9:.2f} GB, init_params {init_s:.2f} s; forward "
+              + "; ".join(f"{c} B={spec.cell(c).batch:,} {v[0]:.3f} ms (median of {v[1]}, CUDA "
+                          f"events; {spec.cell(c).batch / v[0] * 1e3:,.0f} rows/s; batch_at "
+                          f"{v[2]:.2f} s host)" for c, v in serve.items())
+              + (f"; the CIN in {rec._CIN_ROWS:,}-row slices" if cfg.model == "xdeepfm" else ""))
+        print(hold)
+        if arch_id == "dlrm-rm2":
+            entries = _retrieval_phase(dev, card, spec, cfg, params, batch_of)
+        if arch_id in REC_TRAIN:
+            steps, micro = REC_TRAIN[arch_id]
+            cell = spec.cell("train_batch")
+            train_batches = [{k: v for k, v in batch_of(cfg, cell, i).items() if k != "host_s"}
+                             for i in range(steps)]
+            losses, dts, trace = _train_steps(
+                lambda p, b: rec.bce_loss(p, cfg, b["sparse"], b["label"], b.get("dense")),
+                params, train_batches, micro,
+                f"{label} train step ({card})" if arch_id == "dlrm-rm2" else "", lr=REC_LR)
+            print(f"  {label} train_batch (B {cell.batch:,}"
+                  f"{f', {micro} microbatches' if micro > 1 else ''}, AdamW lr {REC_LR}, dense table "
+                  f"gradient): steps {_ms_list(dts)} (host clock), losses "
+                  f"{[round(v, 5) for v in losses]}")
+            if trace:
+                print("  " + trace)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        print(f"  {label}: peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+              f"(with {held / 1e9:.1f} GB held before the phase)")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    batches.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() - held
+    if left > 1e9:
+        raise AssertionError(f"recsys phase: {left / 1e9:.3f} GB still allocated after it")
+    print(f"recsys phase: {time.perf_counter() - t_phase:.1f} s (host clock, {card}); peak "
+          f"device memory {peak / 1e9:.2f} GB")
+    return entries, peak
+
+
+def _retrieval_phase(dev, card: str, spec, cfg, params, batch_of) -> list:
+    """retrieval_cand on DLRM's field 0 (``drive_recsys``)."""
+    import dataclasses as dc
+
+    from repro_torch.core import bruteforce, fakewords
+    from repro_torch.core import eval as ev
+    from repro_torch.core import pipeline as pl
+    from repro_torch.core.types import FakeWordsConfig
+    from repro_torch.data import recsys as rec_data
+    from repro_torch.kernels.common import f32_matmul
+    from repro_torch.kernels.fused_topk import ref
+    from repro_torch.kernels.fused_topk.kernel import fused_topk
+    from repro_torch.models import recsys as rec
+
+    cell = spec.cell("retrieval_cand")
+    n = min(cell.get("n_candidates"), cfg.table.row_counts[0])
+    items = params["table"][:n].detach()  # field 0's rows [0, n): the candidates
+    ub = rec_data.batch_at(rec_data.RecsysDataConfig(
+        table=cfg.table, batch=RETRIEVAL_USERS, n_dense=cfg.n_dense, seed=REC_SEED), 10_000,
+        device=dev)
+    with torch.no_grad():
+        users = rec.user_tower(params, cfg, ub["sparse"], ub.get("dense"))
+    depth, k = RETRIEVAL_DEPTH, RETRIEVAL_K
+    items_c, users_c = items.cpu(), users.cpu()
+
+    # retrieval_topk (plain: f32 product + stable_topk) at the cell's B = 1 and at 64
+    top_s, top_i = rec.retrieval_topk(users, items, depth)
+    want = rec.retrieval_topk(users_c, items_c, depth + 1)
+    err_rt = compare("retrieval_topk, card vs CPU route", (top_s, top_i), want, exact=False)
+    rt_ms = {bb: timed(lambda: rec.retrieval_topk(users[:bb], items, depth))[0]
+             for bb in (cell.batch, RETRIEVAL_USERS)}
+
+    # the fake-words index over the candidates: the main path
+    fw = FakeWordsConfig(quantization=50)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx = fakewords.build(items, fw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    qn = bruteforce.l2_normalize(users)
+    q_tf = fakewords.encode_queries(users, fw)
+    _reset_launches()
+    s100, i100 = fakewords.search(idx, q_tf, qn, k=depth, depth=depth)
+    rr_s, rr_i = fakewords.search(idx, q_tf, qn, k=k, depth=depth, rerank=True)
+    torch.cuda.synchronize()
+    classic_launches = _only("the retrieval fake-words search", "fused_topk")
+    _reset_launches()
+    gt_s, gt_i = bruteforce.exact_topk(items, users, k)
+    torch.cuda.synchronize()
+    f32_launches = _only("the retrieval ground truth", "fused_topk")
+    b = users.shape[0]
+    for name, (sc, ids, w) in {"match": (s100, i100, depth), "rerank": (rr_s, rr_i, k),
+                               "truth": (gt_s, gt_i, k)}.items():
+        _checked(f"retrieval {name}", sc, ids, b, w, n)
+    r10_100 = float(ev.recall_at(gt_i, i100))
+    r_rr = float(ev.recall_at(gt_i, rr_i))
+
+    # each kernel call against its plain version on the card
+    qv = fakewords.classic_query(idx, q_tf)
+    cn = bruteforce.l2_normalize(items)
+    err_classic = compare("retrieval classic match vs plain", (s100, i100),
+                          ref.fused_topk_ref(qv, idx.scored, depth + 1), exact=False)
+    err_f32 = compare("retrieval f32 truth vs plain", (gt_s, gt_i),
+                      ref.fused_topk_ref(qn, cn, k + 1), exact=False)
+    # the CPU route on the same index and vectors
+    idx_c = dc.replace(idx, **{f.name: getattr(idx, f.name).cpu() for f in dc.fields(idx)
+                               if isinstance(getattr(idx, f.name), torch.Tensor)})
+    qn_c, q_tf_c = qn.cpu(), q_tf.cpu()
+    t0 = time.perf_counter()
+    compare("retrieval match, card vs CPU route", (s100, i100),
+            fakewords.search(idx_c, q_tf_c, qn_c, k=depth + 1, depth=depth + 1), exact=False)
+    compare("retrieval rerank of the card's candidates, card vs CPU route", (rr_s, rr_i),
+            pl.default_reranker(idx_c)(idx_c, qn_c, i100.cpu(), k + 1), exact=False)
+    compare("retrieval truth, card vs CPU route", (gt_s, gt_i),
+            bruteforce.exact_topk(items_c, users_c, k + 1), exact=False)
+    cpu_rr = fakewords.search(idx_c, q_tf_c, qn_c, k=k, depth=depth, rerank=True)[1]
+    route_overlap = float(ev.overlap(cpu_rr, rr_i.cpu()))
+    cpu_s = time.perf_counter() - t0
+    if route_overlap < 0.99:
+        raise AssertionError(f"retrieval: the CPU route's reranked ids overlap the card's by "
+                             f"{route_overlap}")
+    search_ms = timed(lambda: fakewords.search(idx, q_tf, qn, k=k, depth=depth, rerank=True))[0]
+    gt_ms = timed(lambda: bruteforce.exact_topk(items, users, k))[0]
+    print(f"recsys retrieval_cand (dlrm-rm2 field 0 rows [0, {n:,}), dim {cfg.dim}; "
+          f"{RETRIEVAL_USERS} users from user_tower) on {card}: retrieval_topk "
+          f"B={cell.batch} {rt_ms[cell.batch]:.3f} ms, B={RETRIEVAL_USERS} "
+          f"{rt_ms[RETRIEVAL_USERS]:.3f} ms (f32 product + stable sort; vs CPU max_abs_err "
+          f"{err_rt:.3g}); fake words Q=50: build {build_s:.2f} s (first call), index "
+          f"{idx.nbytes() / 1e6:.0f} MB; search depth {depth} + rerank {search_ms:.3f} ms, "
+          f"exact_topk {gt_ms:.3f} ms (CUDA events); R@(10,100) {r10_100:.4f}, reranked R@10 "
+          f"{r_rr:.4f}; fused_topk launches: search {classic_launches}, truth {f32_launches}; "
+          f"held to the plain versions (classic {err_classic:.3g}, f32 {err_f32:.3g}) and to the "
+          f"CPU route on the same index (match, rerank, truth; reranked overlap "
+          f"{route_overlap:.4f}; {cpu_s:.1f} s)")
+
+    entries = []
+    f32_lib = f"torch.topk(matmul) with allow_tf32={torch.backends.cuda.matmul.allow_tf32}"
+    for name, q, docs, d, kind, launches, err, lib in (
+            ("fused_topk/retrieval_cand", qv, idx.scored, depth, "bf16", classic_launches,
+             err_classic, lambda: torch.topk(torch.matmul(qv, idx.scored.T), depth)),
+            ("fused_topk/f32-retrieval_cand", qn, cn, k, "f32", f32_launches, err_f32,
+             lambda: torch.topk(f32_matmul(qn, cn.T), k))):
+        bkind, passes = ("tf32", 3) if kind == "f32" else (kind, 1)
+        ms = cuda_ms(lambda: fused_topk(q, docs, d))
+        plain_ms = cuda_ms(lambda: ref.fused_topk_ref(q, docs, d))
+        lib_ms = cuda_ms(lib)
+        bound, bound_by = bound_ms(q, docs, n, d, bkind, passes)
+        print(f"{name} ({kind}, B={q.shape[0]}, N={n}, T={q.shape[1]}, depth={d}): kernel "
+              f"{ms:.3f} ms, bound {bound:.3f} ms ({bound_by}, {bkind}), plain {plain_ms:.3f} ms, "
+              f"library {lib_ms:.3f} ms ({'torch.topk(matmul)' if kind == 'bf16' else f32_lib}); "
+              f"launches on the main path {launches}; {card}")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",
+            "replaces": "src/repro/kernels/fused_topk/kernel.py:288",
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms})
+    del idx, idx_c, cn, items_c
+    return entries
+
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv[1:]))

@@ -1,9 +1,9 @@
 """Architecture registry: ``get(arch_id)`` / ``all_ids()`` (port of
 ``repro/configs/__init__.py``).
 
-The five LM architectures and the paper's own ANN deployments (word2vec
-GoogleNews, GloVe Twitter).  The reference's GNN and recsys configs and its
-dry-run-only ``ann_web1b`` are not ported yet.
+The ten assigned architectures (five LMs, GraphSAGE, four recsys towers:
+40 cells) and the paper's own ANN deployments (word2vec GoogleNews, GloVe
+Twitter).  The reference's dry-run-only ``ann_web1b`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -18,6 +18,11 @@ _MODULES = [
     "deepseek_coder_33b",
     "phi3_5_moe_42b",
     "llama4_maverick_400b",
+    "graphsage_reddit",
+    "fm",
+    "deepfm",
+    "dlrm_rm2",
+    "xdeepfm",
     "ann_word2vec",
     "ann_glove",
 ]
@@ -33,7 +38,7 @@ def _load() -> Dict[str, ArchSpec]:
 
 ARCHES: Dict[str, ArchSpec] = _load()
 
-# The assigned (non-ANN) architectures.
+# The ten assigned architectures (the 40-cell matrix).
 ASSIGNED: List[str] = [a for a in ARCHES if not a.startswith("ann-")]
 
 

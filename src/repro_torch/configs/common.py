@@ -44,3 +44,11 @@ LM_CELLS = (
     # long_500k: O(L) decode against a length-sharded KV cache.
     Cell("long_500k", "decode", batch=1, seq=524288, extra={"long": True}),
 )
+
+# The four recsys shapes shared by all four recsys architectures.
+RECSYS_CELLS = (
+    Cell("train_batch", "train", batch=65536),
+    Cell("serve_p99", "serve", batch=512),
+    Cell("serve_bulk", "serve", batch=262144),
+    Cell("retrieval_cand", "retrieval", batch=1, extra={"n_candidates": 1_000_000}),
+)

@@ -1,2 +1,3 @@
-"""Seeded synthetic data (numpy, host side): ANN corpora (``embeddings``)
-and LM token batches (``lm``)."""
+"""Seeded synthetic data: ANN corpora (``embeddings``), LM token batches
+(``lm``) and recsys batches (``recsys``) on the host (numpy); graphs
+(``graph``: built with numpy, sampled on the device)."""

@@ -38,15 +38,16 @@ def _powf():
     return fn
 
 
-def _pow_f32(u: np.ndarray, e: float) -> np.ndarray:
+def _pow_f32(u: np.ndarray, e: float, below: float = 2.0**24) -> np.ndarray:
     """``powf(u, e)`` elementwise where its floor can matter: the power is
     taken in f64, and where it lies within a few f32 steps of an integer
-    below 2**24 (where ``powf``'s last bit can move the floor) the value
-    is ``powf``'s own."""
+    below ``below`` (where ``powf``'s last bit can move the floor; from
+    2**24 up every f32 is an integer, and ``powf``'s rounding moves the
+    value itself) the value is ``powf``'s own."""
     t = np.power(u.astype(np.float64), float(np.float32(e)))
     with np.errstate(over="ignore"):  # past the f32 range: inf, as powf gives
         out = t.astype(np.float32)
-    near = (t < 2.0**24) & (np.abs(t - np.round(t)) <= 4 * np.spacing(out))
+    near = (t < below) & (np.abs(t - np.round(t)) <= 4 * np.spacing(out))
     pf = _powf()
     out[near] = [pf(float(x), float(e)) for x in u[near]]
     return out

@@ -1,1 +1,3 @@
-"""Models: the decoder-only transformer LM (``transformer``)."""
+"""Models: the decoder-only transformer LM (``transformer``), GraphSAGE
+(``gnn``) and the recsys towers (``recsys``); ``params`` holds their
+shared parameter-tree helpers."""

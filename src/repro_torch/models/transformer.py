@@ -47,17 +47,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.index import _check_device
 from repro_torch.kernels.common import f32_matmul, stable_topk
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models.params import Params, from_numpy, tree_map
 
-Params = Dict[str, Any]
 _NEG = -1e30  # the reference's masked logit
 
 
@@ -179,13 +178,6 @@ def param_shapes(cfg: TransformerConfig) -> Params:
     return shapes
 
 
-def tree_map(fn, tree: Params, prefix: str = "") -> Params:
-    """``fn(dotted name, leaf)`` on every leaf of a nested dict, keys sorted
-    (the JAX tree's flattening order)."""
-    return {k: tree_map(fn, tree[k], f"{prefix}{k}.") if isinstance(tree[k], dict)
-            else fn(prefix + k, tree[k]) for k in sorted(tree)}
-
-
 def init_params(cfg: TransformerConfig, generator: Optional[torch.Generator] = None,
                 device="cuda") -> Params:
     """Random parameters by the reference's rule: a leaf of rank >= 2 draws
@@ -213,27 +205,7 @@ def params_from_numpy(tree: Params, cfg: TransformerConfig, device="cuda") -> Pa
     included) as the port's: the same leaves, on ``device``, in
     ``param_dtype``.  Raises unless the tree has exactly
     :func:`param_shapes`' leaves and shapes."""
-    dev = _check_device(device)
-    shapes = param_shapes(cfg)
-
-    def walk(t, s, prefix):
-        if set(t) != set(s):
-            raise ValueError(f"parameter tree {prefix or 'root'} has keys {sorted(t)}, want "
-                             f"{sorted(s)}")
-        out = {}
-        for k in sorted(s):
-            if isinstance(s[k], dict):
-                out[k] = walk(t[k], s[k], f"{prefix}{k}.")
-                continue
-            a = np.asarray(t[k])
-            x = (torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-                 if a.dtype.name == "bfloat16" else torch.from_numpy(np.array(a)))
-            if tuple(x.shape) != tuple(s[k]):
-                raise ValueError(f"{prefix}{k}: shape {tuple(x.shape)}, want {s[k]}")
-            out[k] = x.to(device=dev, dtype=cfg.param_dtype)
-        return out
-
-    return walk(tree, shapes, "")
+    return from_numpy(tree, param_shapes(cfg), _check_device(device), cfg.param_dtype)
 
 
 def params_to_numpy(params: Params) -> Params:

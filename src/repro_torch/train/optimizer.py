@@ -5,7 +5,8 @@ Parameters, gradients and optimizer state are nested dicts of tensors
 (the reference's pytrees; leaves in sorted-key order, JAX's flattening
 order).  Updates run under ``torch.no_grad`` and write the parameters and
 the state in place, leaf by leaf (a clipped gradient, a moment or an
-update exists for one leaf at a time), and return them as the reference's
+update exists for one leaf at a time; AdamW's for a slice of a leaf past
+``_CHUNK`` elements), and return them as the reference's
 functions return their new trees.  The step arithmetic is f32 tensors, as
 the reference's is: ``t``, the learning rate, ``b1 ** t`` / ``b2 ** t``
 and Adafactor's ``beta2 = 1 - t ** -decay``.
@@ -95,6 +96,14 @@ def clip_by_global_norm(tree: Tree, max_norm: float) -> Tuple[Tree, torch.Tensor
 # --------------------------------------------------------------------------
 
 
+# AdamW updates a leaf of more elements than this in slices of it (views of
+# the leaf, its gradient and moments): the update's f32 temporaries then take
+# a few slices' bytes, not several times the leaf's (a 13.7 GB embedding
+# table's would not fit beside its parameters, gradient and moments).  Every
+# element sees the same operations, so the result is the same bit for bit.
+_CHUNK = 1 << 24
+
+
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
     lr: Callable[[torch.Tensor], torch.Tensor] | float = 3e-4
@@ -132,13 +141,16 @@ def adamw_update(cfg: AdamWConfig, grads: Tree, state: Tree, params: Tree
     bc2 = 1 - torch.pow(_f32(cfg.b2).to(t.device), t)
 
     def upd(g, mu, nu, p):
-        g32 = (g * scale.to(g.dtype)).float()
-        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
-        nu.mul_(cfg.b2).add_((1 - cfg.b2) * g32 * g32)
-        u = (mu / bc1) / (torch.sqrt(nu / bc2) + cfg.eps)
-        if p.dim() >= 2:  # no decay on norms / biases
-            u = u + cfg.weight_decay * p.float()
-        p.copy_((p.float() - lr * u).to(p.dtype))
+        decay = p.dim() >= 2  # no decay on norms / biases
+        for gs, ms, vs, ps in zip(g.reshape(-1).split(_CHUNK),
+                                  *(x.view(-1).split(_CHUNK) for x in (mu, nu, p))):
+            g32 = (gs * scale.to(gs.dtype)).float()
+            ms.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+            vs.mul_(cfg.b2).add_((1 - cfg.b2) * g32 * g32)
+            u = (ms / bc1) / (torch.sqrt(vs / bc2) + cfg.eps)
+            if decay:
+                u = u + cfg.weight_decay * ps.float()
+            ps.copy_((ps.float() - lr * u).to(ps.dtype))
 
     tree_map(upd, grads, state["mu"], state["nu"], params)
     state["step"] = step

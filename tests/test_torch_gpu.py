@@ -2,7 +2,8 @@
 and the quantized K4/K5) against their plain versions, and the searches on
 the card (dense, blockmax, lexical LSH, the quantized read path, the k-d
 tree's scan and tree) against the port's CPU route, and save / load there;
-K9's backward and a training step of the LM on the card.
+K9's backward and a training step of the LM on the card; GraphSAGE's three
+paths and the four recsys towers against the CPU route.
 Every test carries the ``gpu`` marker and skips without a card; this file
 imports no JAX, so it runs where only PyTorch is installed:
 
@@ -2009,3 +2010,129 @@ def test_cuda_micro_lm_training_step_matches_cpu_route(dtype):
     assert abs(lg - lc) <= tol * abs(lc) and abs(ng - nc) <= tol * nc, (lc, lg, nc, ng)
     for n, x in pc.items():
         assert_logits_close(pg[n], x, tol, f"{n} after the step")
+
+
+def _model_grads(loss_fn, params):
+    """(loss, {leaf name: gradient}) on detached copies of ``params``' leaves
+    (a leaf the loss does not use: zeros)."""
+    from repro_torch.models.params import tree_map
+
+    fresh = {}
+
+    def leaf(name, v):
+        fresh[name] = v.detach().clone().requires_grad_()
+        return fresh[name]
+
+    loss = loss_fn(tree_map(leaf, params))
+    grads = torch.autograd.grad(loss, list(fresh.values()), allow_unused=True)
+    return float(loss.detach()), {n: torch.zeros_like(v) if g is None else g
+                                  for (n, v), g in zip(fresh.items(), grads)}
+
+
+def _hold_model_routes(fwd, loss_fn, params_cpu, dev, x, y):
+    """Logits (1e-5 of their scale), loss and every gradient (1e-4) of the
+    card against the CPU route from the same parameters and inputs."""
+    from torch_parity import assert_logits_close
+
+    from repro_torch.models.params import tree_map
+
+    card = tree_map(lambda _, v: v.to(dev), params_cpu)
+    xd = [None if t is None else t.to(dev) for t in x]
+    yd = [t.to(dev) for t in y]
+    with torch.no_grad():
+        assert_logits_close(fwd(card, *xd).cpu(), fwd(params_cpu, *x), 1e-5)
+    lc, gc_ = _model_grads(lambda p: loss_fn(p, *xd, *yd), card)
+    lp, gp = _model_grads(lambda p: loss_fn(p, *x, *y), params_cpu)
+    assert abs(lc - lp) <= 1e-5 * abs(lp), (lc, lp)
+    for n, g in gp.items():
+        if not g.any():
+            assert not gc_[n].any(), n
+            continue
+        assert_logits_close(gc_[n].cpu(), g, 1e-4, f"gradient of {n}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["fm", "deepfm", "dlrm-rm2", "xdeepfm"])
+def test_cuda_recsys_tower_matches_cpu_route(arch):
+    """Each tower at its published widths over a 65,536-row table: logits,
+    loss and gradients on the card against the CPU route; the user tower
+    and ``retrieval_topk`` (near-tie rule) too."""
+    from repro_torch import configs
+    from repro_torch.data import recsys as rec_data
+    from repro_torch.models import recsys as rec
+    from repro_torch.models.params import tree_map
+
+    dev = cuda_device()
+    full = configs.get(arch).make_model(None)
+    cfg = dataclasses.replace(full, table=rec.TableSpec(
+        rec.criteo_row_counts(full.n_fields, 1 << 16), full.dim))
+    params = rec.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    b = rec_data.batch_at(rec_data.RecsysDataConfig(table=cfg.table, batch=256,
+                                                    n_dense=cfg.n_dense, seed=2), 0, device="cpu")
+    x = (b["sparse"], b.get("dense"))
+    _hold_model_routes(lambda p, sp, de: rec.forward(p, cfg, sp, de),
+                       lambda p, sp, de, lab: rec.bce_loss(p, cfg, sp, lab, de), params, dev, x,
+                       (b["label"],))
+    card = tree_map(lambda _, v: v.to(dev), params)
+    with torch.no_grad():
+        u = rec.user_tower(params, cfg, *x)
+        u_card = rec.user_tower(card, cfg, *(None if t is None else t.to(dev) for t in x))
+    torch.testing.assert_close(u_card.cpu(), u, rtol=1e-5, atol=1e-6)
+    cand = params["table"][: cfg.table.row_counts[0]]
+    got = rec.retrieval_topk(u.to(dev), cand.to(dev), 50)
+    assert_topk_match([t.cpu() for t in got], rec.retrieval_topk(u, cand, 51), exact=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["full_graph_sm", "minibatch_lg", "molecule"])
+def test_cuda_graphsage_matches_cpu_route(cell):
+    """Each GraphSAGE path (full graph with its embeddings, sampled, batched
+    graphs) at the cell's widths on a small graph: the card against the
+    CPU route from the same parameters and inputs; the sampler on the card
+    keeps its invariants."""
+    from repro_torch import configs
+    from repro_torch.data import graph as gdata
+    from repro_torch.models import gnn
+
+    dev = cuda_device()
+    spec = configs.get("graphsage-reddit")
+    c = spec.cell(cell)
+    cfg = spec.make_model(c)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    if cell == "molecule":
+        mb = gdata.make_molecule_batch(gen, 16, c.get("n_nodes"), c.get("n_edges"),
+                                       c.get("d_feat"), c.get("n_classes"))
+        x, y = (mb["feats"], mb["src"], mb["dst"]), (mb["labels"],)
+        fwd, loss = gnn.forward_batched, gnn.loss_batched
+    else:
+        g = gdata.make_graph(gdata.GraphConfig(n_nodes=2000, n_edges=20_000,
+                                               d_feat=c.get("d_feat"),
+                                               n_classes=c.get("n_classes")), device="cpu")
+        if cell == "full_graph_sm":
+            x = (g.feats, *g.edge_list())
+            y = (g.labels, (torch.arange(2000) % 4 != 0).float())
+            fwd, loss = gnn.forward_full, gnn.loss_full
+        else:
+            seeds = gdata.batch_seeds(gen, 2000, 64)
+            n1, n2 = gdata.sample_two_hop(gen, g.indptr, g.indices, seeds, cfg.fanouts)
+            x, y = (g.feats, seeds, n1, n2), (g.labels[seeds.long()],)
+            fwd, loss = gnn.forward_sampled, gnn.loss_sampled
+            gd = gdata.make_graph(gdata.GraphConfig(n_nodes=2000, n_edges=20_000, d_feat=4),
+                                  device=dev)
+            gen_d = torch.Generator(device=dev).manual_seed(3)
+            s_d = gdata.batch_seeds(gen_d, 2000, 512)
+            a, b = gdata.sample_two_hop(gen_d, gd.indptr, gd.indices, s_d, cfg.fanouts)
+            deg = (gd.indptr[1:] - gd.indptr[:-1])[s_d.long()]
+            assert torch.equal((a < 0).any(-1), deg == 0)
+            assert bool(((b >= -1) & (b < 2000)).all()) and bool((b[a < 0] == -1).all())
+    _hold_model_routes(lambda p, *t: fwd(p, *t, cfg), lambda p, *t: loss(p, *t, cfg), params,
+                       dev, x, y)
+    if cell == "full_graph_sm":
+        from repro_torch.models.params import tree_map
+
+        card = tree_map(lambda _, v: v.to(dev), params)
+        with torch.no_grad():
+            e_card = gnn.embeddings_full(card, *(t.to(dev) for t in x), cfg)
+            e_cpu = gnn.embeddings_full(params, *x, cfg)
+        torch.testing.assert_close(e_card.cpu(), e_cpu, rtol=1e-5, atol=1e-5)

@@ -223,7 +223,8 @@ def test_param_shapes_and_counts_of_the_full_configs():
         "phi3.5-moe-42b-a6.6b": (42e9, 6.6e9),
         "llama4-maverick-400b-a17b": (400e9, 17e9),
     }
-    assert sorted(expect) == sorted(configs.ASSIGNED)
+    assert sorted(expect) == sorted(a for a in configs.ASSIGNED
+                                    if configs.get(a).family == "lm")
     for arch_id, (want_total, want_active) in expect.items():
         cfg = configs.get(arch_id).make_model(None)
         jcfg = jconfigs.get(arch_id).make_model(None)

@@ -444,3 +444,35 @@ def assert_attention_grads_close(got, want, tol: float, dq_rows: bool = True) ->
         assert_logits_close(dq, dq_want, tol, "dq")
     for g, w in zip(got[1:], want[1:]):
         assert_rows_close(g, w, tol)
+
+
+def flat_tree(tree, prefix: str = "") -> dict:
+    """{dotted name: numpy leaf} of a nested dict of JAX, numpy or torch
+    leaves (sorted keys: JAX's flattening order)."""
+    out = {}
+    for k in sorted(tree):
+        x = tree[k]
+        if isinstance(x, dict):
+            out.update(flat_tree(x, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return out
+
+
+def assert_adam_close(got: dict, want: dict, init: dict, lr: float, steps: int) -> None:
+    """Hold parameters after ``steps`` AdamW steps (dicts of numpy leaves by
+    name) to ``want`` from the same ``init``.  Adam divides a gradient by
+    the root of its running square, so an element whose gradient is a
+    cancellation (a few ulps either way in two packages that sum in another
+    order) takes a step of up to ~``lr`` in either direction.  So: each
+    leaf's update (its change from ``init``) within 1e-4 of its norm, no
+    element further apart than 2 ``lr`` a step, and at most 1% of the
+    elements apart by more than rtol 1e-5, atol 1e-6."""
+    assert got.keys() == want.keys()
+    for name, w in want.items():
+        g, w, i = (np.asarray(x, np.float64) for x in (got[name], w, init[name]))
+        diff = np.abs(g - w)
+        upd = np.linalg.norm(w - i)
+        assert np.linalg.norm(g - w) <= 1e-4 * max(upd, 1e-12), (name, np.linalg.norm(g - w), upd)
+        assert diff.max() <= 2 * lr * steps, (name, diff.max())
+        assert (diff > 1e-6 + 1e-5 * np.abs(w)).mean() <= 0.01, (name, (diff > 1e-6).sum())
