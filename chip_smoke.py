@@ -17,7 +17,8 @@
    TF32 HMMA in K6's (``cosine_scores_tf32``, split TF32 on the same body,
    ``kernels/csrc/score_matmul.cuh``), HMMA in K9's bf16 attention
    (``flash_attention_bf16``) and TF32 HMMA in its f32 one
-   (``flash_attention_tf32``, split TF32); an instance without them fails
+   (``flash_attention_tf32``, split TF32), HGMMA (wgmma) in its bf16
+   backward's dK / dV and dQ kernels; an instance without them fails
    the run; the SASS instructions a column in K5's inner loop
    (``k5_columns``) and a compare in K2's and K8's (``lsh_compare_ops``).
 2. Holds the fused top-k kernel (K1/K2) against its plain PyTorch version on
@@ -290,7 +291,12 @@ bit); it
 prints whether the SASS of every kernel instance that both trees build is
 identical, for K1-K5, K6 and K8 (``cosine_score.cu``, ``lsh_match.cu``) and
 K9; first, K9 of both trees (their ``flash_attention.cu``) at both bf16
-attention layers and at phi3-mini's in f32, outputs held to each other.
+attention layers and at phi3-mini's in f32, outputs held to each other,
+then K9's backward of both trees (their ``flash_attention_bwd.cu``, each
+through its own C signature from the same Python caller) at the four bf16
+ATTN_BWD_CASES, dq, dk and dv held to each other, beside the bound, this
+tree's wrapper and SDPA's backward (``pair_k9_bwd``; alone: ``c.pair_k9_bwd(d,
+card, DIR)``).
 K5 is paired over the int4 index at B = 256, 8 and 1 and over the int8
 one at B = 8.  With ``--ablate [DIR]`` it
 first times K7 at the cell's shapes (B = 256, N = 2,999,808, T = 600, both
@@ -308,7 +314,10 @@ attention layers against copies without the softmax, loads only, with 4
 warps and with three stages (K9_ABLATIONS, K9_VARIANTS), and its f32 kernel
 at phi3-mini's layer against the same cuts and variants and without the
 fold and with Q split once into registers (K9_F32_ABLATIONS,
-K9_F32_VARIANTS), each beside the SM clock and power draw, then K2 at the
+K9_F32_VARIANTS), each beside the SM clock and power draw, then K9's bf16
+backward at phi3-mini's training layer and deepseek-coder-33b's against a
+loads-only and a products-only copy (K9_BWD_ABLATIONS, ``ablate_k9_bwd``),
+each beside the SM clock and power draw, then K2 at the
 lexical-LSH path's shape (the (b = 300, h = 1) signatures, B = 256, 8 and 1)
 with its top-k, its sentinel test and its compares cut out (K2_ABLATIONS;
 also DIR's), its candidates a (query, split), registers, spills and SASS
@@ -506,7 +515,7 @@ def _instance(mangled: str) -> str:
                   r"|quantized_tf32_partial|gathered_partial|bf16_partial|lsh_partial"
                   r"|int8_partial|f32_partial|partial|merge)"
                   r"|dense_scores|lsh_match_counts|score_matmul_(?:bf16|int8)|cosine_scores_tf32"
-                  r"|flash_attention_(?:tf32|bf16|bwd_(?:dkdv|dq)_(?:bf16|f32)|bwd_delta))"
+                  r"|flash_attention_(?:tf32|bf16|bwd_(?:dkdv|dq)_(?:bf16|f32)|bwd_delta|bwd_sum))"
                   r"(?:I((?:Li-?\d+E|Lb[01]E|[ft])+)E)?",
                   mangled)
     if m is None:
@@ -601,7 +610,7 @@ def sass_count(name: str, opcode: str):
 # m16n8k32 s8, IMMA) and K6's (split TF32: m16n8k8 tf32, HMMA on TF32
 # operands); and K9's attention (bf16: m16n8k16 bf16, HMMA; f32: split TF32,
 # m16n8k8 tf32, HMMA on TF32 operands) and its backward's bf16 dK / dV and
-# dQ kernels (m16n8k16 bf16, HMMA).
+# dQ kernels (wgmma m64nNk16 bf16: HGMMA).
 TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fused_topk", "fused_topk_int8_partial", "IMMA"),
                        ("fused_topk", "fused_topk_f32_partial", r"HMMA\.\S*TF32"),
@@ -615,8 +624,8 @@ TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("cosine_score", "cosine_scores_tf32", r"HMMA\.\S*TF32"),
                        ("flash_attention", "flash_attention_bf16", "HMMA"),
                        ("flash_attention", "flash_attention_tf32", r"HMMA\.\S*TF32"),
-                       ("flash_attention_bwd", "flash_attention_bwd_dkdv_bf16", "HMMA"),
-                       ("flash_attention_bwd", "flash_attention_bwd_dq_bf16", "HMMA"))
+                       ("flash_attention_bwd", "flash_attention_bwd_dkdv_bf16", "HGMMA"),
+                       ("flash_attention_bwd", "flash_attention_bwd_dq_bf16", "HGMMA"))
 
 
 def check_tensor_cores() -> None:
@@ -1842,20 +1851,24 @@ ATTN_BWD_CASES = (("phi3-mini-3.8b train layer", torch.bfloat16, 4, 32, 32, 1024
                   ("GQA 7 D128 f32", torch.float32, 1, 7, 1, 300, 128))
 # The backward's tolerance: both sides compute the same formulas from the
 # same out and lse in f32; the kernel's P and dS enter its bf16 products split
-# into bf16 hi + lo (to 2^-16), and both round the outputs to the dtype, so
-# they sit ~1 bf16 ulp apart: K9's own row rules (ATTN_TOL) hold them.
+# into bf16 hi + lo (to 2^-16; rounded once, they miss the bf16 row rule: see
+# flash_attention_bwd.cu), and both round the outputs to the dtype, so they
+# sit ~1 bf16 ulp apart: K9's own row rules (ATTN_TOL) hold them.
 # lse: the forward's ex2.approx sums against torch.logsumexp, within
 # LSE_TOL (1 + |lse|) (measured 9.5e-7 in bf16, 3.3e-6 in f32).
 LSE_TOL = 2e-5
 # The planted fault: a copy of the backward whose Delta is 0 (dS = P dP).
-K9_BWD_NO_DELTA = ("  if (lane == 0) delta[row] = s;\n", "  if (lane == 0) delta[row] = 0.f;\n")
+K9_BWD_NO_DELTA = ("  const float delta = s;\n", "  const float delta = 0.f;\n")
 
 
 def _attention_bwd_kernel(kdir: str, out_dir: str, edits=()):
     """K9's backward built from ``flash_attention/csrc/flash_attention_bwd.cu``
     of the kernels directory ``kdir`` (``_library_copy``, with ``edits``),
-    called through that tree's C signature.  Returns ``bwd(q, k, v, out,
-    lse, dout) -> (dq, dk, dv)``, which raises if the launch fails."""
+    called through that tree's C signature, with this tree's plan and
+    scratch (``kernel.bwd_scratch``).  Returns ``bwd(q, k, v, out, lse,
+    dout) -> (dq, dk, dv)``, which raises if the launch fails."""
+    from repro_torch.kernels.flash_attention.kernel import bwd_scratch
+
     lib, text = _library_copy(kdir, "flash_attention_bwd", out_dir, edits,
                               package="flash_attention")
     launch = _c_entry(lib, text, "flash_attention_bwd_launch")
@@ -1863,12 +1876,15 @@ def _attention_bwd_kernel(kdir: str, out_dir: str, edits=()):
     def bwd(q, k, v, out, lse, dout):
         b, hq, s, d = q.shape
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+        # This tree's plan and scratch: stats is as large as any tree's Delta
+        # scratch (``delta`` before PR 39: (B, Hq, S) f32).
+        hpb, stats, partial = bwd_scratch(q, k)
         err = launch(dtype={torch.float32: 0, torch.bfloat16: 1}[q.dtype], D=d, q=q.data_ptr(),
                      k=k.data_ptr(), v=v.data_ptr(), out=out.data_ptr(), dout=dout.data_ptr(),
-                     lse=lse.data_ptr(), delta=delta.data_ptr(), dq=dq.data_ptr(),
+                     lse=lse.data_ptr(), delta=stats.data_ptr(), stats=stats.data_ptr(),
+                     partial=None if partial is None else partial.data_ptr(), dq=dq.data_ptr(),
                      dk=dk.data_ptr(), dv=dv.data_ptr(), B=b, Hq=hq, Hkv=k.shape[1], S=s,
-                     stream=torch.cuda.current_stream().cuda_stream)
+                     heads_per_block=hpb, stream=torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"flash_attention_bwd_launch of {kdir} failed: cudaError {err}")
         return dq, dk, dv
@@ -1912,14 +1928,17 @@ def attention_bwd_bound_ms(q, k, kind: str):
     return _bound(nbytes, 2.5 * 4.0 * b * hq * d * s * (s + 1) / 2, kind)
 
 
-def _sdpa_grad_ms(q, k, v, dout) -> tuple:
-    """(forward ms, forward + backward ms) of scaled_dot_product_attention
-    (is_causal=True) with torch.autograd.grad of its output, on copies of
-    q, k, v that require gradients: the flash backend in bf16 (GQA by
-    ``enable_gqa``); in f32, which flash does not take, the memory-efficient
-    one, which takes no GQA, so there K and V are repeated to the query
-    heads inside the timed call (``repeat_interleave``, whose backward sums
-    the group's gradients)."""
+def _sdpa_grad_ms(q, k, v, dout, subtracted: bool = False) -> tuple:
+    """(forward ms, backward ms) of scaled_dot_product_attention
+    (is_causal=True) on copies of q, k, v that require gradients: the
+    backward alone, ``torch.autograd.grad`` of one output of the forward,
+    which runs once outside the timed region (its graph retained).  The
+    flash backend in bf16 (GQA by ``enable_gqa``); in f32, which flash does
+    not take, the memory-efficient one, which takes no GQA, so there K and
+    V are repeated to the query heads in the forward (``repeat_interleave``,
+    whose backward sums the group's gradients).  With ``subtracted`` a third
+    reading, the yardstick before PR 39: forward and backward timed together
+    minus the forward."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
@@ -1934,7 +1953,12 @@ def _sdpa_grad_ms(q, k, v, dout) -> tuple:
             return torch.nn.functional.scaled_dot_product_attention(
                 qg, kg.repeat_interleave(group, 1), vg.repeat_interleave(group, 1), is_causal=True)
 
-    return timed(fwd)[0], timed(lambda: torch.autograd.grad(fwd(), (qg, kg, vg), dout))[0]
+    out = fwd()
+    bwd_ms = timed(lambda: torch.autograd.grad(out, (qg, kg, vg), dout, retain_graph=True))[0]
+    fwd_ms = timed(fwd)[0]
+    if not subtracted:
+        return fwd_ms, bwd_ms
+    return fwd_ms, bwd_ms, timed(lambda: torch.autograd.grad(fwd(), (qg, kg, vg), dout))[0] - fwd_ms
 
 
 def check_attention_bwd(dev, card: str, planted=None) -> dict:
@@ -1988,19 +2012,19 @@ def check_attention_bwd(dev, card: str, planted=None) -> dict:
             lambda: ref.attention_bwd_ref(q, k, v, out, lse, dout)))
         fwd_ms, fwd_plain_ms = (timed(fn)[0] for fn in (
             lambda: flash_attention_fwd(q, k, v), lambda: ref.attention_fwd_ref(q, k, v)))
-        lib_fwd, lib_both = _sdpa_grad_ms(q, k, v, dout)
+        lib_fwd, lib_bwd = _sdpa_grad_ms(q, k, v, dout)
         fwd_bound = attention_bound_ms(q, k, v, "bf16" if kind == "bf16" else "tf32",
                                        passes=1 if kind == "bf16" else 3)
         rows[name] = {"err": err, "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib_both - lib_fwd, "bound": attention_bwd_bound_ms(q, k, kind),
+                      "library_ms": lib_bwd, "bound": attention_bwd_bound_ms(q, k, kind),
                       "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "fwd_library_ms": lib_fwd,
                       "fwd_bound": fwd_bound}
         r = rows[name]
         print(f"  ok  K9 backward {label}: max_abs_err {err:.3g} (row rule {ATTN_TOL[dtype]}, dq "
               f"row 0 at its head's scale), lse within {lse_err:.3g} (1 + |lse|), bit-equal over "
               f"two launches; on {card}: backward {ms:.3f} ms, bound {r['bound'][0]:.3f} ms "
-              f"({r['bound'][1]}), plain {plain_ms:.3f}, SDPA backward (autograd.grad minus its "
-              f"forward) {r['library_ms']:.3f}; forward with lse {fwd_ms:.3f} ms, bound "
+              f"({r['bound'][1]}), plain {plain_ms:.3f}, SDPA backward (autograd.grad alone) "
+              f"{r['library_ms']:.3f}; forward with lse {fwd_ms:.3f} ms, bound "
               f"{fwd_bound[0]:.3f} ({fwd_bound[1]}), plain {fwd_plain_ms:.3f}, SDPA forward "
               f"{lib_fwd:.3f}")
     print(f"K9 backward vs plain on the card: {len(ATTN_BWD_CASES)} cases; failed by the planted "
@@ -2072,12 +2096,14 @@ def main(argv) -> int:
         return 0
     if argv[:1] == ["--pair-parent"]:  # K1-K5, K7 and K9 against an earlier tree's, then stop
         pair_k9(dev, card, argv[1])
+        pair_k9_bwd(dev, card, argv[1])
         pair_parent(dev, card, argv[1])
         return 0
     if argv[:1] == ["--ablate"]:  # kernels with parts cut out, then stop
         ablate_k7(dev, card)
         ablate_k6(dev, card)
         ablate_k9(dev, card)
+        ablate_k9_bwd(dev, card)
         build_kernels(["fused_topk", "fused_topk_quantized"])
         trees = [("this tree", ROOT)] + [("parent", d) for d in argv[1:2]]
         cell = _k2_cell(dev)
@@ -3321,6 +3347,109 @@ def pair_k9(dev, card: str, parent: str) -> None:
               f"{times[3]:.3f} ms; max |this - parent| {err:.3g}")
 
 
+def pair_k9_bwd(dev, card: str, parent: str) -> None:
+    """K9's backward of the tree ``parent`` and of this tree at the bf16
+    ATTN_BWD_CASES, each built from its own ``flash_attention_bwd.cu`` and
+    called through its own C signature by the same Python caller
+    (``_attention_bwd_kernel``, so that both carry the same host work),
+    timed in turns (parent, this, this, parent; median of RUNS each), the
+    two trees' dq, dk and dv held to each other under the bf16 row rule
+    (``compare_attention_grads``); beside them this tree's wrapper
+    (``flash_attention_bwd``, the main path's entry), the bound and SDPA's
+    backward, timed alone and as the subtraction that was its reading before
+    PR 39 (``_sdpa_grad_ms``); and which instances the two libraries share
+    with identical SASS."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd
+
+    pair_dir = os.path.join(ROOT, "build", "pair-k9-bwd")
+    with ThreadPoolExecutor() as pool:  # both trees' nvcc at once
+        old = pool.submit(_attention_bwd_kernel, os.path.join(os.path.abspath(parent), "src",
+                                                              "repro_torch", "kernels"), pair_dir)
+        new = pool.submit(_attention_bwd_kernel, os.path.join(ROOT, "src", "repro_torch",
+                                                              "kernels"),
+                          os.path.join(ROOT, "build", "pair-k9-bwd-this"))
+        build_kernels(["flash_attention", "flash_attention_bwd"])
+        old, new = old.result(), new.result()
+    sass_pairing("flash_attention_bwd", os.path.join(pair_dir, "libflash_attention_bwd.so"))
+    gen = torch.Generator(device=dev).manual_seed(39)
+    for name, dtype, b, hq, hkv, s, d in ATTN_BWD_CASES:
+        if dtype != torch.bfloat16:
+            continue
+        q, k, v = _qkv(dtype, b, hq, hkv, s, d, gen, dev)
+        dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        out, lse = flash_attention_fwd(q, k, v)
+        args = (q, k, v, out, lse, dout)
+        err = compare_attention_grads(f"K9 backward {name}: this tree vs the parent",
+                                      new(*args), old(*args), ATTN_TOL[dtype])
+        times = [cuda_ms(lambda i=i: (old if i in (0, 3) else new)(*args)) for i in range(4)]
+        wrapper = cuda_ms(lambda: flash_attention_bwd(*args))
+        lib_fwd, lib_bwd, lib_subtracted = _sdpa_grad_ms(q, k, v, dout, subtracted=True)
+        bound = attention_bwd_bound_ms(q, k, "bf16")
+        print(f"pairing K9 backward {name} ({_layer_label(q, k)}) on {card}: parent "
+              f"{times[0]:.3f} ms, this tree {times[1]:.3f} ms, this tree {times[2]:.3f} ms, "
+              f"parent {times[3]:.3f} ms; this tree's wrapper {wrapper:.3f} ms; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}); SDPA backward "
+              f"alone {lib_bwd:.3f} ms, forward and backward minus forward {lib_subtracted:.3f} "
+              f"(forward {lib_fwd:.3f}); max |this - parent| {err:.3g}")
+
+
+# Copies of K9's bf16 backward, each timed against the kernel: the loads
+# alone (the TMA ring and its barriers, no products and no probabilities),
+# and the products alone (the first stages' tiles loaded once and used for
+# every iteration, no further loads); both give wrong gradients.
+K9_BWD_ABLATIONS = {
+    "loads only": [("constexpr bool kProducts = true;", "constexpr bool kProducts = false;")],
+    "products only": [("constexpr bool kLoads = true;", "constexpr bool kLoads = false;")],
+}
+
+
+def ablate_k9_bwd(dev, card: str) -> None:
+    """K9's bf16 backward at the bf16 ATTN_BWD_CASES: one call timed alone
+    (``cuda_ms``, as the other K9 rows), ten calls back to back (the device
+    time a call where the host keeps ahead), the host's time to enqueue a
+    call (20 calls, no synchronisation between them) and each CUDA kernel's
+    device time a call (``kernel_split``); then, at phi3-mini's training
+    layer and deepseek-coder-33b's (the first two), against K9_BWD_ABLATIONS,
+    timed in turns (full, each copy, full), each beside the SM clock and
+    power draw it runs at (``clock_power``)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd
+
+    kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
+    with ThreadPoolExecutor() as pool:  # every copy's nvcc at once
+        built = {name: pool.submit(_attention_bwd_kernel, kdir,
+                                   os.path.join(ROOT, "build", "ablate-k9-bwd", str(j)), edits)
+                 for j, (name, edits) in enumerate(K9_BWD_ABLATIONS.items())}
+        build_kernels(["flash_attention", "flash_attention_bwd"])
+        cut = {name: fut.result() for name, fut in built.items()}
+    gen = torch.Generator(device=dev).manual_seed(39)
+    for i, (name, dtype, b, hq, hkv, s, d) in enumerate(ATTN_BWD_CASES):
+        if dtype != torch.bfloat16:
+            continue
+        q, k, v = _qkv(dtype, b, hq, hkv, s, d, gen, dev)
+        dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        args = (q, k, v, *flash_attention_fwd(q, k, v), dout)
+        single = cuda_ms(lambda: flash_attention_bwd(*args))
+        burst = cuda_ms(lambda: [flash_attention_bwd(*args) for _ in range(10)]) / 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            flash_attention_bwd(*args)
+        host_us = (time.perf_counter() - t0) / 20 * 1e6
+        torch.cuda.synchronize()
+        print(f"K9 backward {name} ({_layer_label(q, k)}) on {card}: one call {single:.3f} ms, "
+              f"ten back to back {burst:.3f} ms a call, the host {host_us:.0f} us to enqueue a "
+              f"call; device time a call: "
+              f"{split_line(kernel_split(lambda: flash_attention_bwd(*args)))}")
+        if i >= 2:
+            continue
+        runs = [("full", lambda: flash_attention_bwd(*args))]
+        runs += [(label, lambda fn=fn: fn(*args)) for label, fn in cut.items()]
+        runs.append(runs[0])
+        line = [f"{label} {cuda_ms(fn):.3f} ms ({clock_power(fn)})" for label, fn in runs]
+        print(f"K9 backward ablation, {name} ({_layer_label(q, k)}), on {card}: "
+              + "; ".join(line))
+
+
 # Copies of K9's kernels (flash_attention_bf16 and flash_attention_tf32;
 # each edit changes both where both hold its text), each timed: without
 # the online softmax (P = S: no max, exponential or rescale; results wrong),
@@ -4174,7 +4303,7 @@ def kernel_split(fn, runs: int = 5) -> dict:
     device time.  Splits a fused top-k call into its pass 1 and pass 2."""
     per = {}
     for a, b, name in _traced(fn, runs):
-        key = _instance(name) if "fused_topk" in name else name[:60]
+        key = _instance(name) if "fused_topk" in name or "flash_attention" in name else name[:60]
         per[key] = per.get(key, 0.0) + (b - a) / 1e3 / runs
     return per
 

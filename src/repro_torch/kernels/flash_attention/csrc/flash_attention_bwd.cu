@@ -12,128 +12,169 @@
 //   Delta = rowsum(dO o O) in f32;
 //   dV = P^T dO,  dS = P o (dO V^T - Delta),  dQ = scale dS K,  dK = scale dS^T Q.
 // q, dq, O and dO are (B, Hq, S, D); k, v, dk and dv (B, Hkv, S, D), query
-// head h reading KV head h / (Hq / Hkv); lse and Delta (B, Hq, S) f32.  Every
-// sum is f32 and every output is written once by one block, in a fixed
-// order, with no atomics: two launches on the same inputs give the same
-// bits.
+// head h reading KV head h / (Hq / Hkv); lse (B, Hq, S) f32.  Every sum is
+// f32 and every output is written once, in a fixed order, with no atomics:
+// two launches on the same inputs give the same bits.
 //
-// Bound on an H100 SXM at phi3-mini-3.8b's training layer (B 4, Hq = Hkv =
-// 32, D 96, S 1,024, bf16): five products of 2 D operations per unmasked
-// (query, key) pair (two recompute S and dP, three make dV, dQ, dK), 2.5x
-// the forward's 4 B Hq D S (S + 1) / 2 = 6.45e10 operations, 0.065 ms at
-// the bf16 tensor-core rate of wgmma (989 TFLOP/s), above the 0.03 ms of
-// its bytes: operations bound it.  The kernels below issue mma.sync, with
-// each bf16 operand that comes from an f32 sum (P, dS) split into two bf16
-// parts: twice the products of those three, so 1.6e11 mma operations.
+// Bound on an H100 SXM (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
+// f32 on the CUDA cores, 3.35 TB/s): five products of 2 D operations per
+// unmasked (query, key) pair (two recompute S and dP, three make dV, dQ,
+// dK), 2.5x the forward's, above the bytes (q, k, v, O, dO, lse read once,
+// dq, dk, dv written once) in every case of chip_smoke.py:
+//   phi3-mini-3.8b's training layer (B 4, 32 / 32 heads, D 96, S 1,024):
+//     6.45e10 operations, 0.065 ms (bytes 0.046 ms);
+//   deepseek-coder-33b's layer (B 1, 56 / 8 heads, D 128, S 2,048): 1.50e11,
+//     0.152 ms (bytes 0.038 ms);
+//   S 1,000 (B 2, 8 / 2 heads): D 32 2.56e9, 0.0026 ms; D 64 5.13e9, 0.0052 ms;
+//   f32 at 67 TFLOP/s: phi3-mini's layer at B 1, S 512 4.03e9, 0.060 ms; S 1,000
+//     D 32 0.038 ms, D 64 0.077 ms; GQA 7 (1 KV head, D 128, S 300) 0.0060 ms.
 //
-// (a) flash_attention_bwd_delta: one warp a row, Delta = sum dO o O in f32.
+// The bf16 kernels, and what they do about what held back their mma.sync
+// predecessor (10x its bound at phi3-mini's layer, 1.55x SDPA's backward at
+// deepseek's; PERF.md has the times of both):
 //
-// (b) flash_attention_bwd_dkdv_bf16<D>: one block of 4 warps per (KV head,
-//   batch, 64-key tile); warp w owns keys 16 w .. 16 w + 15.  The block's
-//   K and V tiles are staged once in shared memory (rows D + 8 bf16 apart, as
-//   in the forward).  It walks the group's query heads and, for each, the
-//   32-row query tiles from the diagonal down to S, Q and dO (with their
-//   lse and Delta) through a two-stage cp.async ring, one tile in flight.
-//   Per tile, on mma.sync m16n8k16 bf16 -> f32 with keys on M:
-//     S^T = K Q^T and dP^T = V dO^T (K, V A fragments by ldmatrix; Q, dO B
-//     fragments by ldmatrix, as the forward reads K), then P^T and dS^T in
-//     the accumulators (masked only on tiles across the diagonal or past S);
-//     dV += P^T dO and dK += dS^T Q with P^T / dS^T as A fragments in place
-//     (the forward's P V layout), each split into bf16 hi + lo, and dO / Q
-//     B fragments by ldmatrix.trans.  dK and dV stay in f32 registers for the
-//     whole group (the GQA sum) and are written once, dK times the scale.
+// 1. Products on wgmma (m64nNk16 bf16 -> f32, ../../csrc/wgmma.cuh), one
+//   warpgroup a block.  (b) owns 64 keys (M): S^T = K Q^T and dP^T = V dO^T
+//   read K and V (resident for the block's life) and the streamed Q and dO
+//   tiles (64 query rows) from shared memory; P^T and dS^T are formed in the
+//   accumulators (masked only on the diagonal tile) and become the register
+//   A operand of dV += P^T dO and dK += dS^T Q, whose B (dO, Q: stored
+//   query-major) is read through an MN-major descriptor.  (c) owns 64 query
+//   rows: Q and dO, resident, are taken into registers once (ldmatrix) as
+//   the A operand of S = Q K^T and dP = dO V^T; dQ += dS K with K MN-major.
+//   No other ldmatrix: the tensor cores read each shared operand themselves.
+//   P and dS enter their products split into bf16 hi + lo (to 2^-16 of
+//   each): rounded once to bf16 they move the outputs past the bf16 row rule
+//   (1e-2 of a row's elements, 5e-3 of its norm) against the plain f32
+//   formulas, P through dv's rows and dS through dq's, where the split keeps
+//   them inside (emulated at S 1,000, D 32: tests/
+//   test_torch_flash_attention.py::test_bwd_p_and_ds_need_their_low_parts).
+//   So 20 D operations a pair, as before, 2x the bound's, now at wgmma's rate.
+// 2. Loads by TMA: rank-3 tensor maps (D, S, heads) with the 64-byte
+//   swizzle, which tiles D 32, 64, 96 and 128 (the 128-byte one does not
+//   tile 96), so rows past a head's S read zeros, never the next head's.
+//   One thread issues them; each stage's arrival is counted by an mbarrier
+//   ("full") and its release by another ("empty": every thread arrives once
+//   its products are done), with no __syncthreads in the loop.  Three stages
+//   (two tiles in flight while one is used) at D <= 96; two at D 128, where
+//   a block's 98 KB leaves room for two blocks an SM only so (the two then
+//   keep two tiles in flight between them).
+// 3. Balanced GQA: a dK / dV block walks the query heads of one slice of its
+//   KV head's group, heads_per_block of them (the host's plan,
+//   kernel.py::bwd_plan, which splits a group only where its longest walk
+//   would exceed half a block slot's share of the work).  Split, each slice
+//   writes f32 partial dK and dV to the caller's scratch, and (d) sums the
+//   slices in a fixed order, applies dK's scale and rounds to bf16; one slice
+//   (MHA, or enough blocks) writes bf16 outright.  At deepseek's layer: 7 x 8
+//   x 32 blocks, the longest walking 32 query tiles of 64 rows (its
+//   predecessor's 448 of 32).
+// 4. Delta: (a), its own kernel (a few lanes a row, 16-byte loads), writes
+//   (lse log2 e, Delta) pairs padded to whole 64-row tiles (zeros past S),
+//   which (b) takes by one 512-byte bulk copy a stage and (c) reads once a row.
 //
-// (c) flash_attention_bwd_dq_bf16<D>: one block of 4 warps per (query head,
-//   batch, 64-row query tile), warp w owning rows 16 w .. 16 w + 15, the
-//   longest rows first.  Q and dO are staged once; 64-key K and V tiles
-//   stream through a two-stage cp.async ring up to the diagonal.  Per tile:
-//   S = Q K^T, dP = dO V^T (the forward's layout), P and dS in the
-//   accumulators, dQ += dS K with dS split into bf16 hi + lo as the A
-//   fragment and K by ldmatrix.trans; dQ is written once, times the scale.
+// (a) flash_attention_bwd_delta: Delta (and lse log2 e for bf16) a row.
+// (b) flash_attention_bwd_dkdv_bf16<D>: grid (B Hkv slices, 1, 64-key tiles),
+//   the first key tiles (the longest walks) first.
+// (c) flash_attention_bwd_dq_bf16<D>: grid (B Hq, 1, 64-row tiles), the
+//   longest rows first; K and V tiles stream up to the diagonal.
+// (d) flash_attention_bwd_sum: dK, dV of the slices summed (slices > 1).
+// All are launched on one stream, (a) then (b), (d), (c).
 //
-// f32 (flash_attention_bwd_dkdv_f32<D>, flash_attention_bwd_dq_f32<D>): the
-//   same blocks and loops on CUDA-core FMA over 32 x 32 tiles staged in
-//   shared memory (rows D + 1 floats apart), 256 threads; the LM trains in
-//   bf16, so these carry the gradient of f32 attention only.
-//
-// Left for a redesign: wgmma with K / V / Q read by the tensor cores from
-// shared memory, TMA copies, and one kernel for dK, dV and dQ (dQ summed
-// across key tiles, which needs atomics or a second pass).
+// f32 (flash_attention_bwd_dkdv_f32<D>, flash_attention_bwd_dq_f32<D>): one
+//   block of 256 threads a (KV head, batch, 32-key tile) walking the group's
+//   query heads, and a (query head, batch, 32-row tile), on CUDA-core FMA over
+//   32 x 32 tiles staged in shared memory (rows D + 1 floats apart); the LM
+//   trains in bf16, so these carry the gradient of f32 attention only.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_sync.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float bf16_f32(uint16_t x) { return __uint_as_float((unsigned)x << 16); }
-__device__ __forceinline__ float elem_f32(uint16_t x) { return bf16_f32(x); }
-__device__ __forceinline__ float elem_f32(float x) { return x; }
 
 // ---- (a) Delta ---------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(256) flash_attention_bwd_delta(const T* __restrict__ out,
-                                                                  const T* __restrict__ dout,
-                                                                  float* __restrict__ delta,
-                                                                  long rows, int D) {
-  const long row = (long)blockIdx.x * 8 + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // a whole warp: one row
-  const T* o = out + row * D;
-  const T* g = dout + row * D;
-  float s = 0.f;
-  for (int c = lane; c < D; c += 32) s = fmaf(elem_f32(o[c]), elem_f32(g[c]), s);
-#pragma unroll
-  for (int off = 16; off; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
-  if (lane == 0) delta[row] = s;
+// Lanes a row of (a): its packs rounded up to a power of two (4 to 32).
+__host__ __device__ __forceinline__ int delta_lanes(int packs) {
+  return packs <= 4 ? 4 : packs <= 8 ? 8 : packs <= 16 ? 16 : 32;
 }
 
-// ---- the bf16 blocks ------------------------------------------------------------
+// The dot product of two 16-byte packs: 8 bf16 or 4 f32 values each.
+__device__ __forceinline__ float dot16(uint4 x, uint4 y, float s, uint16_t) {
+  const unsigned a[4] = {x.x, x.y, x.z, x.w}, b[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    s = fmaf(__uint_as_float(a[i] << 16), __uint_as_float(b[i] << 16), s);
+    s = fmaf(__uint_as_float(a[i] & 0xFFFF0000u), __uint_as_float(b[i] & 0xFFFF0000u), s);
+  }
+  return s;
+}
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kKeys = 16 * kWarps;  // (b): keys a block
-constexpr int kQT = 32;             // (b): query rows a tile of the ring
-constexpr int kRows = 16 * kWarps;  // (c): query rows a block
-constexpr int kKT = 64;             // (c): keys a tile of the ring
+__device__ __forceinline__ float dot16(uint4 x, uint4 y, float s, float) {
+  s = fmaf(__uint_as_float(x.x), __uint_as_float(y.x), s);
+  s = fmaf(__uint_as_float(x.y), __uint_as_float(y.y), s);
+  s = fmaf(__uint_as_float(x.z), __uint_as_float(y.z), s);
+  return fmaf(__uint_as_float(x.w), __uint_as_float(y.w), s);
+}
+
+// G lanes a row (the row's 16-byte packs rounded up to a power of two),
+// over rows = B Hq S_pad rows: a warp reads whole rows in order.  f32
+// (pairs false, S_pad = S): Delta into stats as (B, Hq, S).  bf16: (lse
+// log2 e, Delta) into stats as (B, Hq, S_pad, 2), zeros in the rows past S.
+template <typename T>
+__global__ void __launch_bounds__(256) flash_attention_bwd_delta(
+    const T* __restrict__ out, const T* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ stats, long rows, int S, int S_pad, int D, bool pairs) {
+  const int packs = D * (int)sizeof(T) / 16, G = delta_lanes(packs), j = threadIdx.x % G;
+  const long row = ((long)blockIdx.x * 256 + threadIdx.x) / G;
+  const long bh = row / S_pad;
+  const int r = (int)(row % S_pad);
+  float s = 0.f;
+  if (row < rows && r < S && j < packs)
+    s = dot16(reinterpret_cast<const uint4*>(out + (bh * S + r) * D)[j],
+              reinterpret_cast<const uint4*>(dout + (bh * S + r) * D)[j], 0.f, T());
+  for (int off = G / 2; off; off >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, off);
+  const float delta = s;
+  if (row >= rows || j != 0) return;
+  if (pairs) {
+    stats[2 * row] = r < S ? lse[bh * S + r] * kLog2e : 0.f;
+    stats[2 * row + 1] = delta;
+  } else {
+    stats[row] = delta;
+  }
+}
+
+// ---- the bf16 blocks (wgmma) ------------------------------------------------------
+
+// Switches of the copies that chip_smoke.py --ablate times: both true here.
+constexpr bool kLoads = true;     // stream the tiles past the first stages
+constexpr bool kProducts = true;  // the products and the probabilities
+
+constexpr int kWg = 128;  // threads a block: one warpgroup
+constexpr int kT = 64;    // rows a tile: (b)'s keys and query stages, (c)'s rows and key stages
 
 template <int D>
-struct Bf16Rows {
-  static constexpr int kStride = D + 8;  // staged row stride in bf16 (2 D + 16 bytes)
-  static constexpr int kPacks = D / 8;   // 16-byte packs of a row
-  static constexpr int kKSteps = D / 16;
-  static constexpr int kDFrags = D / 8;  // n8 fragments of a D-wide output
+struct Tiles {
+  static constexpr int kBytes = kT * D * 2;            // one swizzled 64-row tile
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kSteps = D / 16;                // k-steps over D
+  static constexpr int kBoxes = D / 32;                // TMA boxes (32 columns x 64 rows) a tile
+  // Shared memory: two resident tiles, the stages' two tiles each, then
+  // (b) the stages' 512-byte stats, then the mbarriers (full, empty, the
+  // resident tiles'); 1,024 bytes of slack to align the start.
+  static constexpr int kStats = (2 + 2 * kStages) * kBytes;
+  static constexpr int kBars = kStats + 512 * kStages;
+  static constexpr size_t kSmem = kBars + 8 * (2 * kStages + 1) + 1024;
 };
 
-// Rows [r0, r0 + ROWS) of a head's (S, D) bf16 matrix into staged rows by
-// 16-byte cp.async; rows past S are zero-filled and read nothing.
-template <int D, int ROWS>
-__device__ __forceinline__ void copy_rows(uint16_t* dst, const uint16_t* __restrict__ src, int r0,
-                                          int S) {
-  using R = Bf16Rows<D>;
-  for (int i = threadIdx.x; i < R::kPacks * ROWS; i += kThreads) {
-    const int r = i / R::kPacks, c = 8 * (i % R::kPacks);
-    const bool ok = r0 + r < S;
-    cp_async16(dst + r * R::kStride + c, src + (ok ? (size_t)(r0 + r) * D + c : 0), ok ? 16 : 0);
-  }
-}
-
-// ROWS floats of a head's (S,) statistics from r0 (past S: zeros), by the
-// threads whose tid is in [0, ROWS).
-template <int ROWS>
-__device__ __forceinline__ void copy_stats(float* dst, const float* __restrict__ src, int r0,
-                                           int S, int tid) {
-  if (tid >= 0 && tid < ROWS) {
-    const bool ok = r0 + tid < S;
-    cp_async4(dst + tid, src + (ok ? r0 + tid : 0), ok ? 4 : 0);
-  }
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
@@ -154,257 +195,381 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// acc[j] (j < kDFrags) += A (16 rows x 16 k, the accumulators c of two
-// adjacent n8 fragments f0, f1 of an f32 product, split into bf16 hi + lo)
-// times B (16 k rows x D, row-major in shared memory at rows_addr, read by
-// ldmatrix.trans: k on rows).  rows_addr is this lane's ldmatrix address
-// (row lane % 16, column 8 (lane / 16)) of the 16 k rows.
-template <int D>
-__device__ __forceinline__ void mma_split_rows(float (&acc)[D / 8][4], const float (&f0)[4],
-                                               const float (&f1)[4], unsigned rows_addr) {
-  unsigned hi[4], lo[4];
-  split_bf16(f0[0], f0[1], hi[0], lo[0]);  // row r, k 2t..
-  split_bf16(f0[2], f0[3], hi[1], lo[1]);  // row r + 8, k 2t..
-  split_bf16(f1[0], f1[1], hi[2], lo[2]);  // row r, k 8 + 2t..
-  split_bf16(f1[2], f1[3], hi[3], lo[3]);  // row r + 8, k 8 + 2t..
+// The 64 x 64 accumulator x (element i: row 16 warp + lane / 4 + 8 ((i / 2)
+// % 2), column 8 (i / 4) + 2 (lane % 4) + i % 2) as the register A operands
+// of four k-steps over its columns, each split into bf16 hi + lo.
+__device__ __forceinline__ void split_a(const float (&x)[32], unsigned (&hi)[4][4],
+                                        unsigned (&lo)[4][4]) {
 #pragma unroll
-  for (int j = 0; j < D / 8; j += 2) {
-    unsigned b[4];  // b0, b1 of output fragments j and j + 1
-    ldmatrix_x4_trans(b, rows_addr + 2 * 8 * j);
-    const unsigned b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-    mma_bf16(acc[j], lo, b0);
-    mma_bf16(acc[j + 1], lo, b1);
-    mma_bf16(acc[j], hi, b0);
-    mma_bf16(acc[j + 1], hi, b1);
-  }
+  for (int kq = 0; kq < 4; ++kq)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_bf16(x[8 * kq + 2 * r], x[8 * kq + 2 * r + 1], hi[kq][r], lo[kq][r]);
 }
 
-// (b) dK and dV of one 64-key tile of one KV head.
+template <int N>
+__device__ __forceinline__ void zero(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) x[i] = 0.f;
+}
+
+// The kernels' operands: q, k, v and dout as tensor maps (Maps), the
+// scratch and outputs, the shapes.
+struct Bf16Args {
+  const float* stats;  // (B, Hq, S_pad, 2): (lse log2 e, Delta)
+  uint16_t* dq;
+  uint16_t* dk;
+  uint16_t* dv;
+  float* partial;  // (2, B, Hkv, slices, S, D), with slices > 1
+  int B, Hq, Hkv, S, S_pad, heads_per_block, slices;
+  float scale, scale_log2;
+};
+
+// (b) dK and dV of the 64-key tile kt of KV head hk of batch b, over the
+// query heads of one slice of its group.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_bwd_dkdv_bf16(
-    const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-    const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, uint16_t* __restrict__ dk,
-    uint16_t* __restrict__ dv, int Hq, int Hkv, int S, float scale, float scale_log2) {
-  using R = Bf16Rows<D>;
-  constexpr int kTile = kQT * R::kStride;  // one staged Q or dO tile
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* ks = smem;
-  uint16_t* vs = ks + kKeys * R::kStride;
-  uint16_t* ring = vs + kKeys * R::kStride;  // stage st: Q, then dO
-  float* stats = reinterpret_cast<float*>(ring + 4 * kTile);  // stage st: lse, then Delta
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int k0 = blockIdx.z * kKeys;  // the first key tiles have the most query tiles
-  const int hk = blockIdx.x, b = blockIdx.y, group = Hq / Hkv;
-  const size_t kv_head = ((size_t)b * Hkv + hk) * S * D;
-  const int t0 = k0 / kQT;  // the first query tile that sees a key of the block
-  const int n_qt = (S + kQT - 1) / kQT - t0;
-  const int n_iter = group * n_qt;
+__device__ __forceinline__ void dkdv_block(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                           const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                                           uint8_t* smem, const Bf16Args& a, int hk, int slice,
+                                           int b, int kt) {
+  using Tl = Tiles<D>;
+  constexpr int kStages = Tl::kStages;
+  const unsigned base = smem_addr(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tl::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_bar = empty + kStages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int Hq = a.Hq, Hkv = a.Hkv, S = a.S, S_pad = a.S_pad;
+  const int heads_per_block = a.heads_per_block, slices = a.slices, group = Hq / Hkv;
+  const float scale = a.scale, scale_log2 = a.scale_log2;
+  const float* stats = a.stats;
+  const int k0 = kt * kT;
+  const int h0 = hk * group + slice * heads_per_block;
+  const int n_qt = S_pad / kT - kt;  // query tiles from the diagonal down
+  const int n_iter = min(heads_per_block, group - slice * heads_per_block) * n_qt;
 
-  auto issue = [&](int i) {  // iteration i's Q, dO, lse and Delta into stage i % 2
-    const int st = i & 1, q0 = (t0 + i % n_qt) * kQT;
-    const size_t head = (size_t)b * Hq + hk * group + i / n_qt;
-    copy_rows<D, kQT>(ring + 2 * st * kTile, q + head * S * D, q0, S);
-    copy_rows<D, kQT>(ring + (2 * st + 1) * kTile, dout + head * S * D, q0, S);
-    copy_stats<kQT>(stats + 2 * st * kQT, lse + head * S, q0, S, (int)threadIdx.x);
-    copy_stats<kQT>(stats + (2 * st + 1) * kQT, delta + head * S, q0, S,
-                    (int)threadIdx.x - kQT);
+  auto issue = [&](int it) {  // iteration it's Q, dO and stats into stage it % kStages
+    const int s = it % kStages, bh = b * Hq + h0 + it / n_qt, q0 = (kt + it % n_qt) * kT;
+    mbar_expect_tx(&full[s], 2 * Tl::kBytes + 512);
+#pragma unroll
+    for (int c = 0; c < Tl::kBoxes; ++c) {
+      tma_load_3d(smem + (2 + s) * Tl::kBytes + c * 4096, &tm_q, &full[s], 32 * c, q0, bh);
+      tma_load_3d(smem + (2 + kStages + s) * Tl::kBytes + c * 4096, &tm_do, &full[s], 32 * c, q0,
+                  bh);
+    }
+    bulk_load(smem + Tl::kStats + 512 * s, stats + ((size_t)bh * S_pad + q0) * 2, 512, &full[s]);
   };
-  copy_rows<D, kKeys>(ks, k + kv_head, k0, S);
-  copy_rows<D, kKeys>(vs, v + kv_head, k0, S);
-  issue(0);
-  cp_async_commit();
-
-  float dka[R::kDFrags][4], dva[R::kDFrags][4];
-#pragma unroll
-  for (int j = 0; j < R::kDFrags; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-  // ldmatrix lane offsets: A (rows on M) row lane % 16, column 8 (lane / 16);
-  // B (rows on N) row lane % 8 + 8 (lane / 16), column 8 ((lane / 8) % 2);
-  // B transposed (rows on K) row lane % 16, column 8 (lane / 16).
-  const int a_lane = (16 * warp + (lane & 15)) * R::kStride + 8 * (lane >> 4);
-  const int b_lane = ((lane & 7) + 8 * (lane >> 4)) * R::kStride + 8 * ((lane >> 3) & 1);
-  const int t_lane = (lane & 15) * R::kStride + 8 * (lane >> 4);
-  const int key0 = k0 + 16 * warp + (lane >> 2);  // keys key0 and key0 + 8
-
-  for (int i = 0; i < n_iter; ++i) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile i is in; every warp is done with tile i - 1's stage
-    if (i + 1 < n_iter) issue(i + 1);
-    cp_async_commit();
-    const int st = i & 1, q0 = (t0 + i % n_qt) * kQT;
-    const uint16_t* qs = ring + 2 * st * kTile;
-    const uint16_t* dos = qs + kTile;
-    const float* ls = stats + 2 * st * kQT;
-    const float* dls = ls + kQT;
-
-    // S^T = K Q^T and dP^T = V dO^T: 16 keys x 32 queries a warp
-    float sT[kQT / 8][4], dpT[kQT / 8][4];
-#pragma unroll
-    for (int j = 0; j < kQT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sT[j][e] = dpT[j][e] = 0.f;
-#pragma unroll
-    for (int kq = 0; kq < R::kKSteps; ++kq) {
-      unsigned ka[4], va[4];
-      ldmatrix_x4(ka, smem_addr(ks + a_lane + 16 * kq));
-      ldmatrix_x4(va, smem_addr(vs + a_lane + 16 * kq));
-#pragma unroll
-      for (int j = 0; j < kQT / 8; j += 2) {
-        unsigned qb[4], ob[4];  // b0, b1 of query fragments j and j + 1
-        ldmatrix_x4(qb, smem_addr(qs + b_lane + 8 * j * R::kStride + 16 * kq));
-        ldmatrix_x4(ob, smem_addr(dos + b_lane + 8 * j * R::kStride + 16 * kq));
-        const unsigned q0b[2] = {qb[0], qb[1]}, q1b[2] = {qb[2], qb[3]};
-        const unsigned o0b[2] = {ob[0], ob[1]}, o1b[2] = {ob[2], ob[3]};
-        mma_bf16(sT[j], ka, q0b);
-        mma_bf16(sT[j + 1], ka, q1b);
-        mma_bf16(dpT[j], va, o0b);
-        mma_bf16(dpT[j + 1], va, o1b);
-      }
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWg);
     }
-    // P^T and dS^T in place: element e of fragment j is key key0 + 8 (e / 2),
-    // query q0 + 8 j + 2 (lane % 4) + e % 2.
-    const bool edge = q0 < k0 + kKeys || q0 + kQT > S;
+    mbar_init(kv_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(kv_bar, 2 * Tl::kBytes);
 #pragma unroll
-    for (int j = 0; j < kQT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = 8 * j + 2 * (lane & 3) + (e & 1);
-        float p = exp2_approx(fmaf(sT[j][e], scale_log2, -ls[qi] * kLog2e));
-        if (edge && (key0 + 8 * (e >> 1) > q0 + qi || q0 + qi >= S)) p = 0.f;
-        sT[j][e] = p;
-        dpT[j][e] = p * (dpT[j][e] - dls[qi]);
-      }
-    // dV += P^T dO, dK += dS^T Q: k = the tile's 32 queries, two k-steps
-#pragma unroll
-    for (int kk = 0; kk < kQT / 16; ++kk) {
-      mma_split_rows<D>(dva, sT[2 * kk], sT[2 * kk + 1],
-                        smem_addr(dos + t_lane + 16 * kk * R::kStride));
-      mma_split_rows<D>(dka, dpT[2 * kk], dpT[2 * kk + 1],
-                        smem_addr(qs + t_lane + 16 * kk * R::kStride));
+    for (int c = 0; c < Tl::kBoxes; ++c) {
+      tma_load_3d(smem + c * 4096, &tm_k, kv_bar, 32 * c, k0, b * Hkv + hk);
+      tma_load_3d(smem + Tl::kBytes + c * 4096, &tm_v, kv_bar, 32 * c, k0, b * Hkv + hk);
     }
+    for (int it = 0; it < min(kStages, n_iter); ++it) issue(it);
+  }
+  __syncwarp();
+
+  float dva[D / 2], dka[D / 2];
+  zero(dva);
+  zero(dka);
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = 16 * warp + g;  // this thread's keys k0 + kr and k0 + kr + 8
+  const unsigned ks = base, vs = base + Tl::kBytes;
+  mbar_wait(kv_bar, 0);
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kStages;
+    const unsigned phase = (it / kStages) & 1;
+    const unsigned qs = base + (2 + s) * Tl::kBytes, dos = base + (2 + kStages + s) * Tl::kBytes;
+    const float* st = reinterpret_cast<const float*>(smem + Tl::kStats + 512 * s);
+    if (kLoads || it < kStages) mbar_wait(&full[s], phase);
+    if (kProducts) {
+      // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 queries, in two groups
+      float sT[32], dpT[32];
+      zero(sT);
+      zero(dpT);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < Tl::kSteps; ++kk)
+        wgmma_ss_n64(sT, desc_k<kT>(ks, kk), desc_k<kT>(qs, kk));
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < Tl::kSteps; ++kk)
+        wgmma_ss_n64(dpT, desc_k<kT>(vs, kk), desc_k<kT>(dos, kk));
+      wgmma_commit();
+      wgmma_wait<1>();
+      reg_fence(sT);
+      // P^T in place: element 4 j + e is key k0 + kr + 8 (e / 2), query
+      // q0 + 8 j + 2 t + e % 2; masked on the diagonal tile alone (rows
+      // past S read zero Q, dO and stats, so they add nothing).
+      const bool diag = it % n_qt == 0;
+      float4 qst[8];  // (lse log2 e, Delta) of queries 8 j + 2 t and 8 j + 2 t + 1
+#pragma unroll
+      for (int j = 0; j < 8; ++j) qst[j] = *reinterpret_cast<const float4*>(st + 2 * (8 * j + 2 * t));
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2_approx(fmaf(sT[4 * j + e], scale_log2, (e & 1) ? -qst[j].z : -qst[j].x));
+          if (diag && kr + 8 * (e >> 1) > 8 * j + 2 * t + (e & 1)) p = 0.f;
+          sT[4 * j + e] = p;
+        }
+      wgmma_wait<0>();
+      reg_fence(dpT);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dpT[4 * j + e] = sT[4 * j + e] * (dpT[4 * j + e] - ((e & 1) ? qst[j].w : qst[j].y));
+      // dV += P^T dO, then dK += dS^T Q: k = the tile's 64 queries, four k-steps
+      unsigned ahi[4][4], alo[4][4], bhi[4][4], blo[4][4];
+      split_a(sT, ahi, alo);
+      wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        wgmma_rs<D>(dva, ahi[kq], desc_mn<kT>(dos, kq));
+        wgmma_rs<D>(dva, alo[kq], desc_mn<kT>(dos, kq));
+      }
+      wgmma_commit();
+      split_a(dpT, bhi, blo);
+      wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        wgmma_rs<D>(dka, bhi[kq], desc_mn<kT>(qs, kq));
+        wgmma_rs<D>(dka, blo[kq], desc_mn<kT>(qs, kq));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dva);
+      reg_fence(dka);
+      reg_fence(ahi);
+      reg_fence(alo);
+      reg_fence(bhi);
+      reg_fence(blo);
+    }
+    mbar_arrive(&empty[s]);
+    if (kLoads && tid == 0 && it + kStages < n_iter) {
+      mbar_wait(&empty[s], phase);  // every thread is done with the stage
+      issue(it + kStages);
+    }
+    __syncwarp();
   }
 
+  // Element 4 j + 2 r + c of dK / dV is key k0 + kr + 8 r, column 8 j + 2 t + c.
+  const size_t bkv = (size_t)b * Hkv + hk;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = key0 + 8 * r;
+    const int key = k0 + kr + 8 * r;
     if (key >= S) continue;
-    unsigned* dkr = reinterpret_cast<unsigned*>(dk + kv_head + (size_t)key * D + 2 * (lane & 3));
-    unsigned* dvr = reinterpret_cast<unsigned*>(dv + kv_head + (size_t)key * D + 2 * (lane & 3));
+    if (slices == 1) {
+      unsigned* dkr = reinterpret_cast<unsigned*>(a.dk + (bkv * S + key) * D + 2 * t);
+      unsigned* dvr = reinterpret_cast<unsigned*>(a.dv + (bkv * S + key) * D + 2 * t);
 #pragma unroll
-    for (int j = 0; j < R::kDFrags; ++j) {
-      dkr[4 * j] = pack_bf16(scale * dka[j][2 * r], scale * dka[j][2 * r + 1]);
-      dvr[4 * j] = pack_bf16(dva[j][2 * r], dva[j][2 * r + 1]);
+      for (int j = 0; j < D / 8; ++j) {
+        dkr[4 * j] = pack_bf16(scale * dka[4 * j + 2 * r], scale * dka[4 * j + 2 * r + 1]);
+        dvr[4 * j] = pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+      }
+    } else {  // partial (2, B, Hkv, slices, S, D): dK unscaled, then dV
+      const size_t off = ((bkv * slices + slice) * S + key) * D + 2 * t;
+      float2* pk = reinterpret_cast<float2*>(a.partial + off);
+      float2* pv = reinterpret_cast<float2*>(a.partial + (size_t)a.B * Hkv * slices * S * D + off);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        pk[4 * j] = make_float2(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
+        pv[4 * j] = make_float2(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+      }
     }
   }
 }
 
-// (c) dQ of one 64-row query tile of one query head.
+// (c) dQ of the 64-row tile qt of query head h of batch b.
 template <int D>
-__global__ void __launch_bounds__(kThreads) flash_attention_bwd_dq_bf16(
-    const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-    const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta, uint16_t* __restrict__ dq,
-    int Hq, int Hkv, int S, float scale, float scale_log2) {
-  using R = Bf16Rows<D>;
-  constexpr int kTile = kKT * R::kStride;  // one staged K or V tile
-  extern __shared__ __align__(16) uint16_t smem[];
-  uint16_t* qs = smem;
-  uint16_t* dos = qs + kRows * R::kStride;
-  uint16_t* ring = dos + kRows * R::kStride;  // stage st: K, then V
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kRows;  // the longest rows first
-  const int h = blockIdx.x, b = blockIdx.y, hk = h / (Hq / Hkv);
-  const size_t head = (size_t)b * Hq + h;
-  const uint16_t* kh = k + ((size_t)b * Hkv + hk) * S * D;
-  const uint16_t* vh = v + ((size_t)b * Hkv + hk) * S * D;
-  const int n_tiles = (min(q0 + kRows, S) - 1) / kKT + 1;  // none wholly above the diagonal
-  const int n_unmasked = q0 / kKT;  // tiles whose every key precedes every row
+__device__ __forceinline__ void dq_block(const CUtensorMap& tm_q, const CUtensorMap& tm_k,
+                                         const CUtensorMap& tm_v, const CUtensorMap& tm_do,
+                                         uint8_t* smem, const Bf16Args& a, int h, int b, int qt) {
+  using Tl = Tiles<D>;
+  constexpr int kStages = Tl::kStages;
+  const unsigned base = smem_addr(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + Tl::kBars);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_bar = empty + kStages;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int S = a.S, S_pad = a.S_pad, q0 = qt * kT;
+  const float scale = a.scale, scale_log2 = a.scale_log2;
+  const float* stats = a.stats;
+  const int bh = b * a.Hq + h, bkv = b * a.Hkv + h / (a.Hq / a.Hkv);
+  const int n_tiles = qt + 1;  // key tiles up to the diagonal
 
-  copy_rows<D, kRows>(qs, q + head * S * D, q0, S);
-  copy_rows<D, kRows>(dos, dout + head * S * D, q0, S);
-  copy_rows<D, kKT>(ring, kh, 0, S);
-  copy_rows<D, kKT>(ring + kTile, vh, 0, S);
-  cp_async_commit();
+  auto issue = [&](int t) {  // key tile t's K and V into stage t % kStages
+    const int s = t % kStages;
+    mbar_expect_tx(&full[s], 2 * Tl::kBytes);
+#pragma unroll
+    for (int c = 0; c < Tl::kBoxes; ++c) {
+      tma_load_3d(smem + (2 + s) * Tl::kBytes + c * 4096, &tm_k, &full[s], 32 * c, t * kT, bkv);
+      tma_load_3d(smem + (2 + kStages + s) * Tl::kBytes + c * 4096, &tm_v, &full[s], 32 * c,
+                  t * kT, bkv);
+    }
+  };
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kWg);
+    }
+    mbar_init(q_bar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(q_bar, 2 * Tl::kBytes);
+#pragma unroll
+    for (int c = 0; c < Tl::kBoxes; ++c) {
+      tma_load_3d(smem + c * 4096, &tm_q, q_bar, 32 * c, q0, bh);
+      tma_load_3d(smem + Tl::kBytes + c * 4096, &tm_do, q_bar, 32 * c, q0, bh);
+    }
+    for (int t = 0; t < min(kStages, n_tiles); ++t) issue(t);
+  }
+  __syncwarp();
 
-  const int row0 = q0 + 16 * warp + (lane >> 2);  // rows row0 and row0 + 8
+  const int g = lane >> 2, tq = lane & 3;
+  const int rr = 16 * warp + g;  // this thread's rows q0 + rr and q0 + rr + 8
   float lse2[2], dl[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const bool ok = row0 + 8 * r < S;
-    lse2[r] = ok ? lse[head * S + row0 + 8 * r] * kLog2e : 0.f;
-    dl[r] = ok ? delta[head * S + row0 + 8 * r] : 0.f;
+  for (int r = 0; r < 2; ++r) {  // past S: zeros (the padded rows of stats)
+    const float2 x = *reinterpret_cast<const float2*>(stats + ((size_t)bh * S_pad + q0 + rr + 8 * r) * 2);
+    lse2[r] = x.x;
+    dl[r] = x.y;
   }
-  float dqa[R::kDFrags][4];
+  float dqa[D / 2];
+  zero(dqa);
+  mbar_wait(q_bar, 0);
+  // Q and dO, resident for the block's life, as the register A operands of S
+  // and dP: the tensor cores then read only K and V from shared memory.
+  unsigned qa[Tl::kSteps][4], oa[Tl::kSteps][4];
 #pragma unroll
-  for (int j = 0; j < R::kDFrags; ++j) dqa[j][0] = dqa[j][1] = dqa[j][2] = dqa[j][3] = 0.f;
-  const int a_lane = (16 * warp + (lane & 15)) * R::kStride + 8 * (lane >> 4);
-  const int b_lane = ((lane & 7) + 8 * (lane >> 4)) * R::kStride + 8 * ((lane >> 3) & 1);
-  const int t_lane = (lane & 15) * R::kStride + 8 * (lane >> 4);
+  for (int kk = 0; kk < Tl::kSteps; ++kk) {
+    ldmatrix_a<kT>(qa[kk], base, warp, lane, kk);
+    ldmatrix_a<kT>(oa[kk], base + Tl::kBytes, warp, lane, kk);
+  }
 
   for (int t = 0; t < n_tiles; ++t) {
-    cp_async_wait<0>();
-    __syncthreads();  // tile t is in; every warp is done with tile t - 1's stage
-    if (t + 1 < n_tiles) {
-      const int st = (t + 1) & 1;
-      copy_rows<D, kKT>(ring + 2 * st * kTile, kh, (t + 1) * kKT, S);
-      copy_rows<D, kKT>(ring + (2 * st + 1) * kTile, vh, (t + 1) * kKT, S);
-    }
-    cp_async_commit();
-    const uint16_t* kts = ring + 2 * (t & 1) * kTile;
-    const uint16_t* vts = kts + kTile;
-
-    float s[kKT / 8][4], dp[kKT / 8][4];
+    const int s = t % kStages;
+    const unsigned phase = (t / kStages) & 1;
+    const unsigned kts = base + (2 + s) * Tl::kBytes, vts = base + (2 + kStages + s) * Tl::kBytes;
+    if (kLoads || t < kStages) mbar_wait(&full[s], phase);
+    if (kProducts) {
+      float sa[32], dp[32];  // S = Q K^T and dP = dO V^T, 64 rows x 64 keys
+      zero(sa);
+      zero(dp);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kKT / 8; ++j)
+      for (int kk = 0; kk < Tl::kSteps; ++kk) wgmma_rs<kT, 0>(sa, qa[kk], desc_k<kT>(kts, kk));
+      wgmma_commit();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+      for (int kk = 0; kk < Tl::kSteps; ++kk) wgmma_rs<kT, 0>(dp, oa[kk], desc_k<kT>(vts, kk));
+      wgmma_commit();
+      wgmma_wait<1>();
+      reg_fence(sa);
+      // P in place: element 4 j + e is row q0 + rr + 8 (e / 2), key
+      // t kT + 8 j + 2 tq + e % 2; masked on the diagonal tile alone.
+      const bool diag = t == qt;
 #pragma unroll
-    for (int kq = 0; kq < R::kKSteps; ++kq) {
-      unsigned qa[4], oa[4];
-      ldmatrix_x4(qa, smem_addr(qs + a_lane + 16 * kq));
-      ldmatrix_x4(oa, smem_addr(dos + a_lane + 16 * kq));
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < kKT / 8; j += 2) {
-        unsigned kb[4], vb[4];  // b0, b1 of key fragments j and j + 1
-        ldmatrix_x4(kb, smem_addr(kts + b_lane + 8 * j * R::kStride + 16 * kq));
-        ldmatrix_x4(vb, smem_addr(vts + b_lane + 8 * j * R::kStride + 16 * kq));
-        const unsigned k0b[2] = {kb[0], kb[1]}, k1b[2] = {kb[2], kb[3]};
-        const unsigned v0b[2] = {vb[0], vb[1]}, v1b[2] = {vb[2], vb[3]};
-        mma_bf16(s[j], qa, k0b);
-        mma_bf16(s[j + 1], qa, k1b);
-        mma_bf16(dp[j], oa, v0b);
-        mma_bf16(dp[j + 1], oa, v1b);
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2_approx(fmaf(sa[4 * j + e], scale_log2, -lse2[e >> 1]));
+          if (diag && 8 * j + 2 * tq + (e & 1) > rr + 8 * (e >> 1)) p = 0.f;
+          sa[4 * j + e] = p;
+        }
+      wgmma_wait<0>();
+      reg_fence(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = sa[i] * (dp[i] - dl[(i >> 1) & 1]);
+      // dQ += dS K: k = the tile's 64 keys, four k-steps
+      unsigned ahi[4][4], alo[4][4];
+      split_a(dp, ahi, alo);
+      wgmma_fence();
+#pragma unroll
+      for (int kq = 0; kq < 4; ++kq) {
+        wgmma_rs<D>(dqa, ahi[kq], desc_mn<kT>(kts, kq));
+        wgmma_rs<D>(dqa, alo[kq], desc_mn<kT>(kts, kq));
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(dqa);
+      reg_fence(ahi);
+      reg_fence(alo);
+      reg_fence(qa);
+      reg_fence(oa);
     }
-    // P and dS in place: element e of fragment j is row row0 + 8 (e / 2),
-    // key t kKT + 8 j + 2 (lane % 4) + e % 2.
-#pragma unroll
-    for (int j = 0; j < kKT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float p = exp2_approx(fmaf(s[j][e], scale_log2, -lse2[e >> 1]));
-        if (t >= n_unmasked && t * kKT + 8 * j + 2 * (lane & 3) + (e & 1) > row0 + 8 * (e >> 1))
-          p = 0.f;
-        dp[j][e] = p * (dp[j][e] - dl[e >> 1]);
-      }
-    // dQ += dS K: k = the tile's 64 keys, four k-steps
-#pragma unroll
-    for (int kk = 0; kk < kKT / 16; ++kk)
-      mma_split_rows<D>(dqa, dp[2 * kk], dp[2 * kk + 1],
-                        smem_addr(kts + t_lane + 16 * kk * R::kStride));
+    mbar_arrive(&empty[s]);
+    if (kLoads && tid == 0 && t + kStages < n_tiles) {
+      mbar_wait(&empty[s], phase);  // every thread is done with the stage
+      issue(t + kStages);
+    }
+    __syncwarp();
   }
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = row0 + 8 * r;
+    const int row = q0 + rr + 8 * r;
     if (row >= S) continue;
-    unsigned* dst = reinterpret_cast<unsigned*>(dq + (head * S + row) * D + 2 * (lane & 3));
+    unsigned* dst = reinterpret_cast<unsigned*>(a.dq + ((size_t)bh * S + row) * D + 2 * tq);
 #pragma unroll
-    for (int j = 0; j < R::kDFrags; ++j)
-      dst[4 * j] = pack_bf16(scale * dqa[j][2 * r], scale * dqa[j][2 * r + 1]);
+    for (int j = 0; j < D / 8; ++j)
+      dst[4 * j] = pack_bf16(scale * dqa[4 * j + 2 * r], scale * dqa[4 * j + 2 * r + 1]);
   }
+}
+
+// (b): grid (B Hkv slices, 1, S_pad / 64), the first key tiles (the longest
+// walks) first.
+template <int D>
+__global__ void __launch_bounds__(kWg, 2) flash_attention_bwd_dkdv_bf16(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ Bf16Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  const int x = blockIdx.x;
+  dkdv_block<D>(tm_q, tm_k, tm_v, tm_do, align1024(smem_raw), a, (x / a.slices) % a.Hkv,
+                x % a.slices, x / (a.slices * a.Hkv), blockIdx.z);
+}
+
+// (c): grid (B Hq, 1, S_pad / 64), the longest rows first.
+template <int D>
+__global__ void __launch_bounds__(kWg, 2) flash_attention_bwd_dq_bf16(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+    const __grid_constant__ Bf16Args a) {
+  extern __shared__ uint8_t smem_raw[];
+  dq_block<D>(tm_q, tm_k, tm_v, tm_do, align1024(smem_raw), a, blockIdx.x % a.Hq,
+              blockIdx.x / a.Hq, a.S_pad / kT - 1 - blockIdx.z);
+}
+
+// (d) dK and dV from the slices' partials (2, B Hkv, slices, S D): each
+// output four elements a thread, the slices summed in order, dK scaled.
+__global__ void __launch_bounds__(256) flash_attention_bwd_sum(
+    const float4* __restrict__ partial, uint2* __restrict__ dk, uint2* __restrict__ dv, long n4,
+    long plane4, int slices, float scale) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const float4* pk = partial + (i / plane4) * slices * plane4 + i % plane4;
+  const float4* pv = pk + n4 * slices;
+  float4 a = pk[0], c = pv[0];
+  for (int sl = 1; sl < slices; ++sl) {
+    const float4 x = pk[sl * plane4], y = pv[sl * plane4];
+    a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
+    c = make_float4(c.x + y.x, c.y + y.y, c.z + y.z, c.w + y.w);
+  }
+  dk[i] = make_uint2(pack_bf16(scale * a.x, scale * a.y), pack_bf16(scale * a.z, scale * a.w));
+  dv[i] = make_uint2(pack_bf16(c.x, c.y), pack_bf16(c.z, c.w));
 }
 
 // ---- the f32 blocks (CUDA-core FMA) -------------------------------------------
@@ -570,32 +735,82 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime (the library links no
+// libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The (S, D) bf16 rows of each of ``heads`` heads at base as a rank-3 map
+// (D, S, heads): boxes of 32 columns x 64 rows of one head, the 64-byte
+// swizzle, zeros for rows past S.
+bool rows_map(CUtensorMap* map, const void* base, int D, int S, long heads) {
+  const EncodeTiled encode = encode_tiled();
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {32, (cuuint32_t)kT, 1}, unit[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+             CUDA_SUCCESS;
+}
+
+// q, k, v and dout as the tensor maps the bf16 kernels read.
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+bool make_maps(Maps* m, const void* q, const void* k, const void* v, const void* dout, int D,
+               int B, int Hq, int Hkv, int S) {
+  return rows_map(&m->q, q, D, S, (long)B * Hq) && rows_map(&m->dout, dout, D, S, (long)B * Hq) &&
+         rows_map(&m->k, k, D, S, (long)B * Hkv) && rows_map(&m->v, v, D, S, (long)B * Hkv);
+}
+
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* dout,
-                        const float* lse, const float* delta, void* dq, void* dk, void* dv,
-                        int B, int Hq, int Hkv, int S, float scale, float scale_log2,
-                        cudaStream_t stream) {
-  using R = Bf16Rows<D>;
-  const auto* q16 = static_cast<const uint16_t*>(q);
-  const auto* k16 = static_cast<const uint16_t*>(k);
-  const auto* v16 = static_cast<const uint16_t*>(v);
-  const auto* o16 = static_cast<const uint16_t*>(dout);
-  constexpr size_t kv_smem =
-      sizeof(uint16_t) * (2 * kKeys + 4 * kQT) * R::kStride + sizeof(float) * 4 * kQT;
-  cudaError_t err = set_smem(flash_attention_bwd_dkdv_bf16<D>, kv_smem);
+cudaError_t launch_bf16(const Maps& m, const float* stats, float* partial, void* dq, void* dk,
+                        void* dv, int B, int Hq, int Hkv, int S, int heads_per_block, float scale,
+                        float scale_log2, cudaStream_t stream) {
+  using Tl = Tiles<D>;
+  const int S_pad = (S + kT - 1) / kT * kT;
+  const int slices = (Hq / Hkv + heads_per_block - 1) / heads_per_block;
+  const Bf16Args a{stats, static_cast<uint16_t*>(dq), static_cast<uint16_t*>(dk),
+                   static_cast<uint16_t*>(dv), partial, B, Hq, Hkv, S, S_pad, heads_per_block,
+                   slices, scale, scale_log2};
+  cudaError_t err = set_smem(flash_attention_bwd_dkdv_bf16<D>, Tl::kSmem);
   if (err != cudaSuccess) return err;
-  flash_attention_bwd_dkdv_bf16<D><<<dim3(Hkv, B, (S + kKeys - 1) / kKeys), kThreads, kv_smem,
-                                     stream>>>(q16, k16, v16, o16, lse, delta,
-                                               static_cast<uint16_t*>(dk),
-                                               static_cast<uint16_t*>(dv), Hq, Hkv, S, scale,
-                                               scale_log2);
+  flash_attention_bwd_dkdv_bf16<D><<<dim3(Hkv * slices * B, 1, S_pad / kT), kWg, Tl::kSmem,
+                                     stream>>>(m.q, m.k, m.v, m.dout, a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  constexpr size_t q_smem = sizeof(uint16_t) * (2 * kRows + 4 * kKT) * R::kStride;
-  if ((err = set_smem(flash_attention_bwd_dq_bf16<D>, q_smem)) != cudaSuccess) return err;
-  flash_attention_bwd_dq_bf16<D><<<dim3(Hq, B, (S + kRows - 1) / kRows), kThreads, q_smem,
-                                   stream>>>(q16, k16, v16, o16, lse, delta,
-                                             static_cast<uint16_t*>(dq), Hq, Hkv, S, scale,
-                                             scale_log2);
+  if (slices > 1) {
+    const long n4 = (long)B * Hkv * S * D / 4;
+    flash_attention_bwd_sum<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+        reinterpret_cast<const float4*>(partial), static_cast<uint2*>(dk),
+        static_cast<uint2*>(dv), n4, (long)S * D / 4, slices, scale);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  if ((err = set_smem(flash_attention_bwd_dq_bf16<D>, Tl::kSmem)) != cudaSuccess) return err;
+  flash_attention_bwd_dq_bf16<D><<<dim3(Hq * B, 1, S_pad / kT), kWg, Tl::kSmem, stream>>>(
+      m.q, m.k, m.v, m.dout, a);
   return cudaGetLastError();
 }
 
@@ -629,43 +844,57 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* 
 
 extern "C" {
 
-// dtype 0: f32, 1: bf16.  Launches (a) Delta into the caller's (B, Hq, S)
-// f32 scratch, then (b) dK and dV, then (c) dQ, on one stream.  q, k, v,
-// out, dout, dq, dk and dv must start on 16 bytes (the wrapper copies
-// operands that do not); D is 32, 64, 96 or 128.
+// dtype 0: f32, 1: bf16.  Launches (a) into the caller's f32 scratch stats
+// (B Hq S_pad 2 floats, S_pad = S rounded up to 64), then (b) dK and dV,
+// (d) where a group is split, and (c) dQ, on one stream.  heads_per_block
+// (bf16; kernel.py::bwd_plan): the query heads a (b) block walks, 1 to
+// Hq / Hkv; below Hq / Hkv, partial is the caller's f32 scratch (2, B, Hkv,
+// slices, S, D) of the slices' dK and dV.  q, k, v, out, dout, dq, dk and dv
+// must start on 16 bytes (the wrapper copies operands that do not); D is 32,
+// 64, 96 or 128.
 int flash_attention_bwd_launch(int dtype, int D, const void* q, const void* k, const void* v,
                                const void* out, const void* dout, const float* lse,
-                               float* delta, void* dq, void* dk, void* dv, int B, int Hq,
-                               int Hkv, int S, void* stream) {
+                               float* stats, float* partial, void* dq, void* dk, void* dv, int B,
+                               int Hq, int Hkv, int S, int heads_per_block, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || Hq % Hkv != 0 || B > 65535 ||
       (S + kF32Tile - 1) / kF32Tile > 65535 || (dtype != 0 && dtype != 1) || lse == nullptr ||
-      delta == nullptr)
+      stats == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && (heads_per_block < 1 || heads_per_block > Hq / Hkv ||
+                     (heads_per_block < Hq / Hkv && partial == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)dout |
        (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 16)
     return (int)cudaErrorMisalignedAddress;
   auto st = static_cast<cudaStream_t>(stream);
-  const long rows = (long)B * Hq * S;
-  const unsigned blocks = (unsigned)((rows + 7) / 8);
+  const int S_pad = dtype == 1 ? (S + kT - 1) / kT * kT : S;
+  const long rows = (long)B * Hq * S_pad;
+  const unsigned blocks = (unsigned)((rows * delta_lanes(D * (dtype == 1 ? 2 : 4) / 16) + 255) / 256);
   if (dtype == 1)
     flash_attention_bwd_delta<uint16_t><<<blocks, 256, 0, st>>>(
-        static_cast<const uint16_t*>(out), static_cast<const uint16_t*>(dout), delta, rows, D);
+        static_cast<const uint16_t*>(out), static_cast<const uint16_t*>(dout), lse, stats, rows, S,
+        S_pad, D, true);
   else
     flash_attention_bwd_delta<float><<<blocks, 256, 0, st>>>(
-        static_cast<const float*>(out), static_cast<const float*>(dout), delta, rows, D);
+        static_cast<const float*>(out), static_cast<const float*>(dout), lse, stats, rows, S,
+        S_pad, D, false);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  Maps maps;  // built while (a) runs
+  if (dtype == 1 && !make_maps(&maps, q, k, v, dout, D, B, Hq, Hkv, S))
+    return (int)cudaErrorInvalidValue;
   const float scale = (float)(1.0 / sqrt((double)D));
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  const int hpb = heads_per_block;
   switch (dtype * 1000 + D) {
-    case 32: return (int)launch_f32<32>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
-    case 64: return (int)launch_f32<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
-    case 96: return (int)launch_f32<96>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
-    case 128: return (int)launch_f32<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
-    case 1032: return (int)launch_bf16<32>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
-    case 1064: return (int)launch_bf16<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
-    case 1096: return (int)launch_bf16<96>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
-    case 1128: return (int)launch_bf16<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
+    case 32: return (int)launch_f32<32>(q, k, v, dout, lse, stats, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
+    case 64: return (int)launch_f32<64>(q, k, v, dout, lse, stats, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
+    case 96: return (int)launch_f32<96>(q, k, v, dout, lse, stats, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
+    case 128: return (int)launch_f32<128>(q, k, v, dout, lse, stats, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
+    case 1032: return (int)launch_bf16<32>(maps, stats, partial, dq, dk, dv, B, Hq, Hkv, S, hpb, scale, scale_log2, st);
+    case 1064: return (int)launch_bf16<64>(maps, stats, partial, dq, dk, dv, B, Hq, Hkv, S, hpb, scale, scale_log2, st);
+    case 1096: return (int)launch_bf16<96>(maps, stats, partial, dq, dk, dv, B, Hq, Hkv, S, hpb, scale, scale_log2, st);
+    case 1128: return (int)launch_bf16<128>(maps, stats, partial, dq, dk, dv, B, Hq, Hkv, S, hpb, scale, scale_log2, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

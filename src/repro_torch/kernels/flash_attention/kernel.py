@@ -5,9 +5,10 @@ kernel.py::flash_attention``, in ``csrc/flash_attention.cu``:
 ``flash_attention_tf32`` (f32 as split TF32 on tensor cores, three tf32
 products a product).  :func:`flash_attention_fwd` is the same kernel that
 also writes each row's log-sum-exp, and :func:`flash_attention_bwd` the
-gradient (``csrc/flash_attention_bwd.cu``, three CUDA kernels a call: Delta,
-dK and dV, dQ), which has no TPU counterpart: the reference's kernel has
-no backward (its LM differentiates einsum attention through XLA).
+gradient (``csrc/flash_attention_bwd.cu``, three or four CUDA kernels a call:
+Delta, dK and dV, their sum over a split group (:func:`bwd_plan`), dQ), which
+has no TPU counterpart: the reference's kernel has no backward (its LM
+differentiates einsum attention through XLA).
 
 Routing follows the tensors' device: on the CPU the plain versions
 (:mod:`.ref`) run; on one CUDA device the kernels launch on the current
@@ -27,6 +28,7 @@ from repro_torch.kernels.flash_attention import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 96, 128)  # the kernel's instances
+BWD_TILE = 64  # rows of the bf16 backward's tiles: keys a dK / dV block, query rows a dQ block
 
 
 @functools.lru_cache(maxsize=None)
@@ -40,7 +42,7 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     return common.bind("flash_attention_bwd",
-                       flash_attention_bwd_launch=[i, i, *[p] * 10, i, i, i, i, p])
+                       flash_attention_bwd_launch=[i, i, *[p] * 11, i, i, i, i, i, p])
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -123,6 +125,42 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 flash_attention_fwd.launches = 0  # type: ignore[attr-defined]
 
 
+def bwd_plan(b: int, hq: int, hkv: int, s: int, sms: int = 132) -> int:
+    """The query heads each dK / dV block of the bf16 backward walks: the
+    whole group of its KV head (one slice, no scratch), unless that walk,
+    from key tile 0, would exceed half of what each of the card's block
+    slots (two blocks an SM on ``sms`` SMs) does on average; then the most
+    that stay under it, evened out over the slices of consecutive query
+    heads (ceil(group / heads) of them, the last maybe shorter).  MHA: 1."""
+    group = hq // hkv
+    tiles = -(-s // BWD_TILE)
+    fits = b * hq * (tiles + 1) // (4 * 2 * sms)  # heads a block may walk: half a slot's share
+    slices = -(-group // max(1, min(group, fits)))
+    return -(-group // slices)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def bwd_scratch(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, torch.Tensor, torch.Tensor]:
+    """(heads_per_block, stats, partial): the plan (:func:`bwd_plan`, bf16;
+    f32 walks whole groups) and the f32 scratch of one backward launch:
+    stats for (lse log2 e, Delta) of every row, padded to whole tiles, and
+    partial (2, B, Hkv, slices, S, D) of a split group's dK and dV (None
+    without a split)."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    hpb = bwd_plan(b, hq, hkv, s, _sms(q.device)) if q.dtype == torch.bfloat16 else hq // hkv
+    stats = torch.empty(b * hq * common.round_up(s, BWD_TILE) * 2, dtype=torch.float32,
+                        device=q.device)
+    slices = -(-(hq // hkv) // hpb)
+    partial = (torch.empty((2, b, hkv, slices, s, d), dtype=torch.float32, device=q.device)
+               if slices > 1 else None)
+    return hpb, stats, partial
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         lse: torch.Tensor, dout: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -131,8 +169,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     ``out`` and ``lse`` (:func:`flash_attention_fwd`), each in its input's
     dtype, summed in f32 (dk and dv over the query heads of each KV head).
     On the card three CUDA kernels (Delta into an f32 scratch, dK and dV,
-    dQ), with no atomics: the same inputs give the same bits.  On the CPU
-    :func:`.ref.attention_bwd_ref`."""
+    dQ), and a fourth where :func:`bwd_plan` splits a group over blocks (the
+    slices' dK and dV summed from an f32 scratch), with no atomics: the same
+    inputs give the same bits.  On the CPU :func:`.ref.attention_bwd_ref`."""
     _check_shapes(q, k, v)
     b, hq, s, d = q.shape
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, hq, s):
@@ -146,10 +185,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     q, k, v, out, dout = _aligned(q, k, v, out, dout)
     lse = lse.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    hpb, stats, partial = bwd_scratch(q, k)
     common.launch(_bwd_lib(), "flash_attention_bwd_launch", q.device, _DTYPES[q.dtype], d,
-                  *(x.data_ptr() for x in (q, k, v, out, dout, lse, delta, dq, dk, dv)), b, hq,
-                  k.shape[1], s)
+                  *(x.data_ptr() for x in (q, k, v, out, dout, lse, stats)),
+                  None if partial is None else partial.data_ptr(),
+                  *(x.data_ptr() for x in (dq, dk, dv)), b, hq, k.shape[1], s, hpb)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 

@@ -11,20 +11,24 @@ kernel's arithmetic (64-key tiles, P split into two bf16 parts) and the f32
 kernel's (split TF32: three tf32 products for each product of Q K^T and of
 P V, each tile's P V folded into the output) are emulated here
 (``torch_parity.flash_bf16_emulation``, ``flash_tf32x3_emulation``) and
-held to both packages.
+held to both packages.  So is the bf16 backward's (P and dS split into two
+bf16 parts: ``torch_parity.flash_bwd_emulation``), held to the port's plain
+backward, which tests/test_torch_lm_grad.py holds to JAX's; and the plan
+that splits its GQA groups over blocks (``kernel.bwd_plan``).
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import (assert_rows_close, flash_bf16_emulation, flash_tf32x3_emulation,
+from torch_parity import (BWD_CUDA_CASES, assert_attention_grads_close, assert_rows_close,
+                          flash_bf16_emulation, flash_bwd_emulation, flash_tf32x3_emulation,
                           to_torch)
 
 from repro.kernels.flash_attention.kernel import flash_attention as jflash_attention
 from repro.kernels.flash_attention.ops import causal_attention as jcausal_attention
 from repro.kernels.flash_attention.ref import attention_ref as jattention_ref
 from repro_torch.kernels import common
-from repro_torch.kernels.flash_attention import causal_attention, flash_attention, ref
+from repro_torch.kernels.flash_attention import causal_attention, flash_attention, kernel, ref
 
 TOL = {"f32": 1e-4, "bf16": 1e-2}
 
@@ -165,3 +169,59 @@ def test_tf32_kernel_needs_each_low_part(dropped):
     assert_rows_close(flash_tf32x3_emulation(q, k, v), want, TOL["f32"])
     with pytest.raises(AssertionError, match="past"):
         assert_rows_close(flash_tf32x3_emulation(q, k, v, **{dropped: False}), want, TOL["f32"])
+
+
+def test_bwd_p_and_ds_need_their_low_parts():
+    """Why the bf16 backward splits P and dS: at chip_smoke.py's S = 1,000,
+    D = 32 case the emulated kernel holds to the port's plain backward under
+    the bf16 row rule with both split; P rounded once to bf16 moves dv rows
+    past the rule's 1e-2 / 2 of their norm, dS rounded once dq rows."""
+    q, k, v = (to_torch(a) for a in _qkv(2, 8, 2, 1000, 32, "bf16", seed=0))
+    dout = to_torch(_qkv(2, 8, 8, 1000, 32, "bf16", seed=1)[0])
+    out, lse = ref.attention_fwd_ref(q, k, v)
+    want = ref.attention_bwd_ref(q, k, v, out, lse, dout)
+    assert_attention_grads_close(flash_bwd_emulation(q, k, v, out, lse, dout), want, TOL["bf16"])
+    dv = flash_bwd_emulation(q, k, v, out, lse, dout, p_lo=False)[2]
+    with pytest.raises(AssertionError, match="rows' error norms"):
+        assert_rows_close(dv, want[2], TOL["bf16"])
+    dq = flash_bwd_emulation(q, k, v, out, lse, dout, ds_lo=False)[0]
+    with pytest.raises(AssertionError, match="rows' error norms"):
+        assert_rows_close(dq[..., 1:, :], want[0][..., 1:, :], TOL["bf16"])
+
+
+@pytest.mark.parametrize("sms", [132, 16])
+@pytest.mark.parametrize("b,hq,hkv,s", [
+    (4, 32, 32, 1024), (1, 56, 8, 2048), (2, 8, 2, 1000), (16, 7, 1, 1800), (8, 32, 8, 1024),
+    (1, 64, 1, 70), (64, 48, 6, 4096), (3, 12, 4, 1), (16, 8, 2, 1024)])
+def test_bwd_plan_slices_cover_each_head_once(b, hq, hkv, s, sms):
+    """The plan's slices of a group (``heads_per_block`` consecutive query
+    heads each, the last maybe shorter) take every query head of the group
+    exactly once (MHA: one slice of one head); a group is split only where
+    its longest walk (from key tile 0) would exceed half a block slot's
+    share of the work (two blocks an SM), and then no block walks more
+    query heads than keep it under that."""
+    group = hq // hkv
+    hpb = kernel.bwd_plan(b, hq, hkv, s, sms)
+    assert 1 <= hpb <= group
+    slices = -(-group // hpb)
+    heads = [h for sl in range(slices) for h in range(sl * hpb, min(group, (sl + 1) * hpb))]
+    assert heads == list(range(group))
+    tiles = -(-s // 64)
+    share = b * hq * tiles * (tiles + 1) / 2 / (2 * sms)  # query tiles a block slot walks
+    assert hpb == group or hpb * tiles <= max(tiles, share / 2)
+    if hpb < group:  # split only where the whole group's walk exceeds it
+        assert group * tiles > share / 2
+
+
+def test_bwd_cuda_cases_reach_every_split():
+    """tests/test_torch_gpu.py's bf16 backward cases reach, on a 132-SM
+    card, each kind of split the plan takes (MHA; one query head a block;
+    an even and an uneven split; the whole group of more than one head a
+    block) and, at every head width, an S off the 64-row tiles."""
+    kinds = set()
+    for b, hq, hkv, s, d in BWD_CUDA_CASES:
+        group, hpb = hq // hkv, kernel.bwd_plan(b, hq, hkv, s)
+        kinds.add("mha" if group == 1 else "whole" if hpb == group else "one" if hpb == 1
+                  else "even" if group % hpb == 0 else "uneven")
+    assert kinds == {"mha", "one", "even", "uneven", "whole"}
+    assert {d for *_, s, d in BWD_CUDA_CASES if s % 64} == {32, 64, 96, 128}

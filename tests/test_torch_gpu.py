@@ -14,8 +14,8 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import (assert_attention_grads_close, assert_rows_close, assert_topk_match,
-                          cuda_device)
+from torch_parity import (BWD_CUDA_CASES, assert_attention_grads_close, assert_rows_close,
+                          assert_topk_match, cuda_device)
 
 from repro_torch.core import builder, bruteforce
 from repro_torch.core import eval as ev
@@ -1911,8 +1911,7 @@ def test_cuda_prefill_counts_one_k9_launch_a_layer_and_refuses_dh16():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,b,hq,hkv,s,d", [
-    (torch.bfloat16, 2, 8, 2, 1000, 32), (torch.bfloat16, 1, 4, 4, 130, 96),
-    (torch.bfloat16, 1, 7, 1, 65, 128), (torch.bfloat16, 2, 4, 2, 257, 64),
+    *((torch.bfloat16, *case) for case in BWD_CUDA_CASES),
     (torch.float32, 1, 4, 2, 200, 96), (torch.float32, 2, 4, 4, 63, 32),
     (torch.float32, 1, 7, 1, 129, 128)])
 def test_cuda_attention_backward_matches_plain_and_repeats(dtype, b, hq, hkv, s, d):
@@ -1920,7 +1919,10 @@ def test_cuda_attention_backward_matches_plain_and_repeats(dtype, b, hq, hkv, s,
     within 2e-5 of the plain logsumexp) and its backward against
     ``attention_bwd_ref`` on the kernel's own out and lse: K9's row rules
     (bf16 1e-2, f32 1e-4; dq's row 0, zero in exact arithmetic, at its
-    head's scale); two launches bit-equal."""
+    head's scale); two launches bit-equal.  The bf16 cases
+    (``torch_parity.BWD_CUDA_CASES``) take every kind of split of a GQA group
+    that ``kernel.bwd_plan`` makes on a 132-SM card, and an S off the 64-row
+    tiles at every head width."""
     from repro_torch.kernels.flash_attention import kernel, ref
 
     dev = cuda_device()

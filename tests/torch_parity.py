@@ -3,7 +3,8 @@ numpy to torch, holding top-k results against each other, and emulating
 on the CPU the split-TF32 arithmetic of K4 (an f32 query over int8 or int4
 rows) and of K1 f32 (over raw f32 rows), K2's selection (splits, a stale
 count threshold, a buffer merged by counting), the fused top-k kernels'
-pass 2 (the threshold rule and tree merge), and K9's attention."""
+pass 2 (the threshold rule and tree merge), and K9's attention and its
+bf16 backward."""
 import dataclasses
 from typing import Optional, Tuple
 
@@ -476,3 +477,48 @@ def assert_adam_close(got: dict, want: dict, init: dict, lr: float, steps: int) 
         assert np.linalg.norm(g - w) <= 1e-4 * max(upd, 1e-12), (name, np.linalg.norm(g - w), upd)
         assert diff.max() <= 2 * lr * steps, (name, diff.max())
         assert (diff > 1e-6 + 1e-5 * np.abs(w)).mean() <= 0.01, (name, (diff > 1e-6).sum())
+
+
+# The bf16 shapes (B, Hq, Hkv, S, D) at which the card's tests hold K9's
+# backward (tests/test_torch_gpu.py), chosen so that on a 132-SM card
+# ``kernel.bwd_plan`` takes each kind of split (MHA; one query head a block;
+# an even and an uneven split of a group; the whole group a block) and every
+# head width meets an S off the 64-row tiles
+# (tests/test_torch_flash_attention.py::test_bwd_cuda_cases_reach_every_split).
+BWD_CUDA_CASES = ((2, 8, 2, 1000, 32), (1, 4, 4, 130, 96), (1, 7, 1, 65, 128), (2, 4, 2, 257, 64),
+                  (1, 14, 2, 777, 128), (3, 6, 3, 193, 96), (1, 16, 2, 1024, 64),
+                  (2, 8, 8, 100, 32), (16, 8, 2, 1024, 32), (16, 7, 1, 1800, 32),
+                  (8, 32, 8, 1024, 64))
+
+
+def flash_bwd_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, p_lo: bool = True,
+                        ds_lo: bool = True) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The arithmetic of K9's bf16 backward (``flash_attention_bwd_dkdv_bf16``
+    and ``flash_attention_bwd_dq_bf16``) on the CPU: f32 logits ``q k^T /
+    sqrt(D)`` from the bf16 operands, P = exp(logits - lse) (0 past the
+    row), Delta = rowsum(dout o out) in f32, dS = P o (dout v^T - Delta) in
+    f32, then P and dS as the products take them: hi = the bf16 rounding
+    plus lo = the remainder's (``p_lo`` / ``ds_lo``; without it hi alone, the
+    one bf16 rounding); dv = P^T dout, dk = scale dS^T q, dq = scale dS k,
+    summed in f32 (dk, dv over each KV head's group) and cast to the
+    operands' dtype."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf, of = q.float(), dout.float()
+    kf, vf = (torch.repeat_interleave(x.float(), group, dim=1) for x in (k, v))
+    scale = d**-0.5
+    logits = scale * (qf @ kf.transpose(-1, -2))
+    causal = torch.arange(s) <= torch.arange(s)[:, None]
+    p = torch.where(causal, torch.exp(logits - lse[..., None]), 0.0)
+    ds = p * (of @ vf.transpose(-1, -2) - (of * out.float()).sum(-1, keepdim=True))
+
+    def as_taken(x, lo):
+        hi = x.bfloat16().float()
+        return hi + (x - hi).bfloat16().float() if lo else hi
+
+    p, ds = as_taken(p, p_lo), as_taken(ds, ds_lo)
+    dq = scale * (ds @ kf)
+    dk = (scale * (ds.transpose(-1, -2) @ qf)).reshape(b, -1, group, s, d).sum(2)
+    dv = (p.transpose(-1, -2) @ of).reshape(b, -1, group, s, d).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
