@@ -293,8 +293,8 @@ identical, for K1-K5, K6 and K8 (``cosine_score.cu``, ``lsh_match.cu``) and
 K9; first, K9 of both trees (their ``flash_attention.cu``) at both bf16
 attention layers and at phi3-mini's in f32, outputs held to each other,
 then K9's backward of both trees (their ``flash_attention_bwd.cu``, each
-through its own C signature from the same Python caller) at the four bf16
-ATTN_BWD_CASES, dq, dk and dv held to each other, beside the bound, this
+through its own C signature from the same Python caller) at the eight
+ATTN_BWD_CASES (bf16 and f32), dq, dk and dv held to each other, beside the bound, this
 tree's wrapper and SDPA's backward (``pair_k9_bwd``; alone: ``c.pair_k9_bwd(d,
 card, DIR)``).
 K5 is paired over the int4 index at B = 256, 8 and 1 and over the int8
@@ -314,10 +314,13 @@ attention layers against copies without the softmax, loads only, with 4
 warps and with three stages (K9_ABLATIONS, K9_VARIANTS), and its f32 kernel
 at phi3-mini's layer against the same cuts and variants and without the
 fold and with Q split once into registers (K9_F32_ABLATIONS,
-K9_F32_VARIANTS), each beside the SM clock and power draw, then K9's bf16
-backward at phi3-mini's training layer and deepseek-coder-33b's against a
-loads-only and a products-only copy (K9_BWD_ABLATIONS, ``ablate_k9_bwd``),
-each beside the SM clock and power draw, then K2 at the
+K9_F32_VARIANTS), each beside the SM clock and power draw, then K9's
+backward at every ATTN_BWD_CASES case (one call, ten back to back, the
+host's time to enqueue, each CUDA kernel's device time), and at phi3-mini's
+training layer and deepseek-coder-33b's in bf16 and phi3-mini's layer and
+GQA 7 in f32 against a loads-only and a products-only copy
+(K9_BWD_ABLATIONS, ``ablate_k9_bwd``), each beside the SM clock and power
+draw, then K2 at the
 lexical-LSH path's shape (the (b = 300, h = 1) signatures, B = 256, 8 and 1)
 with its top-k, its sentinel test and its compares cut out (K2_ABLATIONS;
 also DIR's), its candidates a (query, split), registers, spills and SASS
@@ -609,8 +612,9 @@ def sass_count(name: str, opcode: str):
 # TF32 operands); K7's score matrices (classic: m16n8k16 bf16, HMMA; dot:
 # m16n8k32 s8, IMMA) and K6's (split TF32: m16n8k8 tf32, HMMA on TF32
 # operands); and K9's attention (bf16: m16n8k16 bf16, HMMA; f32: split TF32,
-# m16n8k8 tf32, HMMA on TF32 operands) and its backward's bf16 dK / dV and
-# dQ kernels (wgmma m64nNk16 bf16: HGMMA).
+# m16n8k8 tf32, HMMA on TF32 operands) and its backward's dK / dV and dQ
+# kernels (bf16: wgmma m64nNk16 bf16, HGMMA; f32: split TF32, m16n8k8 tf32,
+# HMMA on TF32 operands).
 TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("fused_topk", "fused_topk_int8_partial", "IMMA"),
                        ("fused_topk", "fused_topk_f32_partial", r"HMMA\.\S*TF32"),
@@ -625,7 +629,9 @@ TENSOR_CORE_KERNELS = (("fused_topk", "fused_topk_bf16_partial", "HMMA"),
                        ("flash_attention", "flash_attention_bf16", "HMMA"),
                        ("flash_attention", "flash_attention_tf32", r"HMMA\.\S*TF32"),
                        ("flash_attention_bwd", "flash_attention_bwd_dkdv_bf16", "HGMMA"),
-                       ("flash_attention_bwd", "flash_attention_bwd_dq_bf16", "HGMMA"))
+                       ("flash_attention_bwd", "flash_attention_bwd_dq_bf16", "HGMMA"),
+                       ("flash_attention_bwd", "flash_attention_bwd_dkdv_f32", r"HMMA\.\S*TF32"),
+                       ("flash_attention_bwd", "flash_attention_bwd_dq_f32", r"HMMA\.\S*TF32"))
 
 
 def check_tensor_cores() -> None:
@@ -1838,8 +1844,8 @@ def check_attention(dev, planted=None) -> dict:
 # K9's backward (flash_attention_bwd.cu) at the training shapes: phi3-mini-3.8b's
 # layer as one microbatch of the training phase gives it (B 4, S 1,024),
 # deepseek-coder-33b's GQA layer (56 / 8 heads of 128) at S 2,048, every head
-# width at S = 1,000 (not a multiple of the 64-key or 32- / 64-row tiles), and
-# f32 (CUDA-core instances) at phi3-mini's layer, S 512, and on GQA group 7.
+# width at S = 1,000 (not a multiple of the 64-key or 64-row tiles), and f32
+# (split TF32) at phi3-mini's layer, S 512, at S = 1,000 and on GQA group 7.
 # (name, dtype, B, Hq, Hkv, S, D); the first is the main path's shape.
 ATTN_BWD_CASES = (("phi3-mini-3.8b train layer", torch.bfloat16, 4, 32, 32, 1024, 96),
                   ("deepseek-coder-33b layer", torch.bfloat16, 1, 56, 8, 2048, 128),
@@ -1853,12 +1859,21 @@ ATTN_BWD_CASES = (("phi3-mini-3.8b train layer", torch.bfloat16, 4, 32, 32, 1024
 # same out and lse in f32; the kernel's P and dS enter its bf16 products split
 # into bf16 hi + lo (to 2^-16; rounded once, they miss the bf16 row rule: see
 # flash_attention_bwd.cu), and both round the outputs to the dtype, so they
-# sit ~1 bf16 ulp apart: K9's own row rules (ATTN_TOL) hold them.
+# sit ~1 bf16 ulp apart; its f32 products are split TF32 (each operand to
+# 2^-22): K9's own row rules (ATTN_TOL) hold them.
 # lse: the forward's ex2.approx sums against torch.logsumexp, within
 # LSE_TOL (1 + |lse|) (measured 9.5e-7 in bf16, 3.3e-6 in f32).
 LSE_TOL = 2e-5
-# The planted fault: a copy of the backward whose Delta is 0 (dS = P dP).
+# The planted faults: a copy of the backward whose Delta is 0 (dS = P dP),
+# which every case must catch, and one whose f32 products leave out a lo x
+# hi (each product's first operand rounded once to tf32: S's and dP's K, V
+# or Q, dO, and P and dS in the gradients), which every f32 case must catch
+# (tests/test_torch_flash_attention.py::test_bwd_tf32_kernel_needs_each_low_part
+# drops each lo term alone).
 K9_BWD_NO_DELTA = ("  const float delta = s;\n", "  const float delta = 0.f;\n")
+K9_BWD_NO_A_LO = ("  mma_tf32(small, al, bh0, bh1);  // a lo x b hi\n", "")
+K9_BWD_PLANTED = {"no-delta": ([K9_BWD_NO_DELTA], (torch.bfloat16, torch.float32)),
+                  "f32 without a lo x b hi": ([K9_BWD_NO_A_LO], (torch.float32,))}
 
 
 def _attention_bwd_kernel(kdir: str, out_dir: str, edits=()):
@@ -1893,11 +1908,15 @@ def _attention_bwd_kernel(kdir: str, out_dir: str, edits=()):
 
 
 def build_planted_k9_bwd() -> dict:
-    """{name: bwd}: K9's backward built from a copy of this tree's source with
-    K9_BWD_NO_DELTA (``_attention_bwd_kernel``)."""
+    """{name: bwd}: K9's backward built from copies of this tree's source with
+    each of K9_BWD_PLANTED's edits (``_attention_bwd_kernel``, both nvcc at
+    once)."""
     kdir = os.path.join(ROOT, "src", "repro_torch", "kernels")
-    return {"no-delta": _attention_bwd_kernel(kdir, os.path.join(ROOT, "build", "planted-k9-bwd"),
-                                              [K9_BWD_NO_DELTA])}
+    with ThreadPoolExecutor() as pool:
+        built = {name: pool.submit(_attention_bwd_kernel, kdir,
+                                   os.path.join(ROOT, "build", "planted-k9-bwd", str(j)), edits)
+                 for j, (name, (edits, _)) in enumerate(K9_BWD_PLANTED.items())}
+        return {name: fut.result() for name, fut in built.items()}
 
 
 def compare_attention_grads(name, got, want, tol: float) -> float:
@@ -1919,13 +1938,21 @@ def compare_attention_grads(name, got, want, tol: float) -> float:
     return max(err, float(row0.max()))
 
 
-def attention_bwd_bound_ms(q, k, kind: str):
+def attention_bwd_bound_ms(q, k, kind: str, passes: int = 1):
     """Bound of one backward call: q, k, v, out, dout and lse read once, dq,
-    dk and dv written once; five products of 2 D operations per unmasked
-    (query, key) pair, 2.5 x the forward's causal operations."""
+    dk and dv written once; ``passes`` x five products of 2 D operations per
+    unmasked (query, key) pair, 2.5 x the forward's causal operations
+    ("tf32" with 3 passes for the f32 kernels' split TF32; "f32" for the
+    same products as CUDA-core FMA)."""
     b, hq, s, d = q.shape
     nbytes = (4 * q.numel() + 2 * k.numel()) * q.element_size() + 4 * b * hq * s * 4
-    return _bound(nbytes, 2.5 * 4.0 * b * hq * d * s * (s + 1) / 2, kind)
+    return _bound(nbytes, passes * 2.5 * 4.0 * b * hq * d * s * (s + 1) / 2, kind)
+
+
+def _bwd_bound(q, k):
+    """The backward's bound at its own products (bf16; f32: split TF32)."""
+    return (attention_bwd_bound_ms(q, k, "bf16") if q.dtype == torch.bfloat16
+            else attention_bwd_bound_ms(q, k, "tf32", passes=3))
 
 
 def _sdpa_grad_ms(q, k, v, dout, subtracted: bool = False) -> tuple:
@@ -1967,9 +1994,10 @@ def check_attention_bwd(dev, card: str, planted=None) -> dict:
     within LSE_TOL of ``torch.logsumexp`` of the plain logits; dq, dk and dv
     against ``attention_bwd_ref`` on the kernel's own out and lse
     (``compare_attention_grads`` at ATTN_TOL), bit-equal over two launches;
-    the planted copy (``build_planted_k9_bwd``: Delta dropped) must fail
-    every case.  Times each case: the backward, its plain version, the
-    library's backward (SDPA, ``_sdpa_grad_ms``) and the bound; the forward
+    each planted copy (``build_planted_k9_bwd``) must fail every case of
+    its dtypes (K9_BWD_PLANTED).  Times each case: the backward, its plain
+    version, the library's backward (SDPA, ``_sdpa_grad_ms``) and the bound
+    (f32: split TF32, with the CUDA-core FMA bound beside it); the forward
     with lse, its plain version and SDPA's forward.  Returns {case name:
     {"err", "lse_err", "ms", "plain_ms", "library_ms", "bound", "fwd_ms",
     "fwd_plain_ms", "fwd_library_ms", "fwd_bound"}}."""
@@ -1999,6 +2027,8 @@ def check_attention_bwd(dev, card: str, planted=None) -> dict:
         want = ref.attention_bwd_ref(q, k, v, out, lse, dout)
         err = compare_attention_grads(f"K9 backward {label}", got, want, ATTN_TOL[dtype])
         for copy, bwd in planted.items():
+            if dtype not in K9_BWD_PLANTED[copy][1]:
+                continue
             try:
                 compare_attention_grads(f"{label}, {copy} copy", bwd(q, k, v, out, lse, dout),
                                         want, ATTN_TOL[dtype])
@@ -2015,22 +2045,26 @@ def check_attention_bwd(dev, card: str, planted=None) -> dict:
         lib_fwd, lib_bwd = _sdpa_grad_ms(q, k, v, dout)
         fwd_bound = attention_bound_ms(q, k, v, "bf16" if kind == "bf16" else "tf32",
                                        passes=1 if kind == "bf16" else 3)
+        fma = "" if kind == "bf16" else (
+            f", CUDA-core FMA bound {attention_bwd_bound_ms(q, k, 'f32')[0]:.4f} ms")
         rows[name] = {"err": err, "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib_bwd, "bound": attention_bwd_bound_ms(q, k, kind),
+                      "library_ms": lib_bwd, "bound": _bwd_bound(q, k),
                       "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "fwd_library_ms": lib_fwd,
                       "fwd_bound": fwd_bound}
         r = rows[name]
         print(f"  ok  K9 backward {label}: max_abs_err {err:.3g} (row rule {ATTN_TOL[dtype]}, dq "
               f"row 0 at its head's scale), lse within {lse_err:.3g} (1 + |lse|), bit-equal over "
-              f"two launches; on {card}: backward {ms:.3f} ms, bound {r['bound'][0]:.3f} ms "
-              f"({r['bound'][1]}), plain {plain_ms:.3f}, SDPA backward (autograd.grad alone) "
+              f"two launches; on {card}: backward {ms:.3f} ms, bound {r['bound'][0]:.4f} ms "
+              f"({r['bound'][1]}){fma}, plain {plain_ms:.3f}, SDPA backward (autograd.grad alone) "
               f"{r['library_ms']:.3f}; forward with lse {fwd_ms:.3f} ms, bound "
               f"{fwd_bound[0]:.3f} ({fwd_bound[1]}), plain {fwd_plain_ms:.3f}, SDPA forward "
               f"{lib_fwd:.3f}")
+    want = {copy: sum(c[1] in dtypes for c in ATTN_BWD_CASES)
+            for copy, (_, dtypes) in K9_BWD_PLANTED.items() if copy in planted}
     print(f"K9 backward vs plain on the card: {len(ATTN_BWD_CASES)} cases; failed by the planted "
-          f"copies: {failed}")
-    if not all(n == len(ATTN_BWD_CASES) for n in failed.values()):
-        raise AssertionError(f"a planted copy of the backward passed a case: {failed}")
+          f"copies: {failed} (of {want})")
+    if failed != want:
+        raise AssertionError(f"a planted copy of the backward passed a case: {failed}, want {want}")
     return rows
 
 
@@ -3348,12 +3382,12 @@ def pair_k9(dev, card: str, parent: str) -> None:
 
 
 def pair_k9_bwd(dev, card: str, parent: str) -> None:
-    """K9's backward of the tree ``parent`` and of this tree at the bf16
+    """K9's backward of the tree ``parent`` and of this tree at
     ATTN_BWD_CASES, each built from its own ``flash_attention_bwd.cu`` and
     called through its own C signature by the same Python caller
     (``_attention_bwd_kernel``, so that both carry the same host work),
     timed in turns (parent, this, this, parent; median of RUNS each), the
-    two trees' dq, dk and dv held to each other under the bf16 row rule
+    two trees' dq, dk and dv held to each other under the dtype's row rule
     (``compare_attention_grads``); beside them this tree's wrapper
     (``flash_attention_bwd``, the main path's entry), the bound and SDPA's
     backward, timed alone and as the subtraction that was its reading before
@@ -3373,8 +3407,6 @@ def pair_k9_bwd(dev, card: str, parent: str) -> None:
     sass_pairing("flash_attention_bwd", os.path.join(pair_dir, "libflash_attention_bwd.so"))
     gen = torch.Generator(device=dev).manual_seed(39)
     for name, dtype, b, hq, hkv, s, d in ATTN_BWD_CASES:
-        if dtype != torch.bfloat16:
-            continue
         q, k, v = _qkv(dtype, b, hq, hkv, s, d, gen, dev)
         dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
         out, lse = flash_attention_fwd(q, k, v)
@@ -3384,7 +3416,7 @@ def pair_k9_bwd(dev, card: str, parent: str) -> None:
         times = [cuda_ms(lambda i=i: (old if i in (0, 3) else new)(*args)) for i in range(4)]
         wrapper = cuda_ms(lambda: flash_attention_bwd(*args))
         lib_fwd, lib_bwd, lib_subtracted = _sdpa_grad_ms(q, k, v, dout, subtracted=True)
-        bound = attention_bwd_bound_ms(q, k, "bf16")
+        bound = _bwd_bound(q, k)
         print(f"pairing K9 backward {name} ({_layer_label(q, k)}) on {card}: parent "
               f"{times[0]:.3f} ms, this tree {times[1]:.3f} ms, this tree {times[2]:.3f} ms, "
               f"parent {times[3]:.3f} ms; this tree's wrapper {wrapper:.3f} ms; bound "
@@ -3393,23 +3425,30 @@ def pair_k9_bwd(dev, card: str, parent: str) -> None:
               f"(forward {lib_fwd:.3f}); max |this - parent| {err:.3g}")
 
 
-# Copies of K9's bf16 backward, each timed against the kernel: the loads
-# alone (the TMA ring and its barriers, no products and no probabilities),
-# and the products alone (the first stages' tiles loaded once and used for
-# every iteration, no further loads); both give wrong gradients.
+# Copies of K9's backward, each timed against the kernel: the loads alone
+# (bf16: the TMA ring and its barriers; f32: the cp.async ring; no products
+# and no probabilities), and the products alone (the first stages' tiles
+# loaded once and used for every iteration, no further loads); both give
+# wrong gradients.  Each edit changes the kernels of both dtypes.
 K9_BWD_ABLATIONS = {
-    "loads only": [("constexpr bool kProducts = true;", "constexpr bool kProducts = false;")],
-    "products only": [("constexpr bool kLoads = true;", "constexpr bool kLoads = false;")],
+    "loads only": [("constexpr bool kProducts = true;", "constexpr bool kProducts = false;"),
+                   ("constexpr bool kF32Products = true;", "constexpr bool kF32Products = false;")],
+    "products only": [("constexpr bool kLoads = true;", "constexpr bool kLoads = false;"),
+                      ("constexpr bool kF32Loads = true;", "constexpr bool kF32Loads = false;")],
 }
+# The cases (indexes into ATTN_BWD_CASES) timed against K9_BWD_ABLATIONS:
+# phi3-mini's training layer and deepseek-coder-33b's in bf16, phi3-mini's
+# layer and GQA 7 in f32.
+K9_BWD_ABLATED = (0, 1, 4, 7)
 
 
 def ablate_k9_bwd(dev, card: str) -> None:
-    """K9's bf16 backward at the bf16 ATTN_BWD_CASES: one call timed alone
-    (``cuda_ms``, as the other K9 rows), ten calls back to back (the device
-    time a call where the host keeps ahead), the host's time to enqueue a
-    call (20 calls, no synchronisation between them) and each CUDA kernel's
-    device time a call (``kernel_split``); then, at phi3-mini's training
-    layer and deepseek-coder-33b's (the first two), against K9_BWD_ABLATIONS,
+    """K9's backward at ATTN_BWD_CASES: one call timed alone (``cuda_ms``, as
+    the other K9 rows), ten calls back to back (the device time a call where
+    the host keeps ahead), the host's time to enqueue a call (20 calls, no
+    synchronisation between them) and each CUDA kernel's device time a call
+    (``kernel_split``), after each instance's registers and spills (ptxas
+    -v); then, at K9_BWD_ABLATED, against K9_BWD_ABLATIONS,
     timed in turns (full, each copy, full), each beside the SM clock and
     power draw it runs at (``clock_power``)."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd, flash_attention_fwd
@@ -3421,10 +3460,12 @@ def ablate_k9_bwd(dev, card: str) -> None:
                  for j, (name, edits) in enumerate(K9_BWD_ABLATIONS.items())}
         build_kernels(["flash_attention", "flash_attention_bwd"])
         cut = {name: fut.result() for name, fut in built.items()}
+    from repro_torch.kernels import common
+
+    log = common.library_path("flash_attention_bwd").with_suffix(".log").read_text()
+    print("K9 backward, ptxas -v: " + ptxas_report(log, "flash_attention_bwd_d"))
     gen = torch.Generator(device=dev).manual_seed(39)
     for i, (name, dtype, b, hq, hkv, s, d) in enumerate(ATTN_BWD_CASES):
-        if dtype != torch.bfloat16:
-            continue
         q, k, v = _qkv(dtype, b, hq, hkv, s, d, gen, dev)
         dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
         args = (q, k, v, *flash_attention_fwd(q, k, v), dout)
@@ -3440,7 +3481,7 @@ def ablate_k9_bwd(dev, card: str) -> None:
               f"ten back to back {burst:.3f} ms a call, the host {host_us:.0f} us to enqueue a "
               f"call; device time a call: "
               f"{split_line(kernel_split(lambda: flash_attention_bwd(*args)))}")
-        if i >= 2:
+        if i not in K9_BWD_ABLATED:
             continue
         runs = [("full", lambda: flash_attention_bwd(*args))]
         runs += [(label, lambda fn=fn: fn(*args)) for label, fn in cut.items()]

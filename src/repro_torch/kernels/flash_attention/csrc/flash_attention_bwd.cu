@@ -16,18 +16,21 @@
 // f32 and every output is written once, in a fixed order, with no atomics:
 // two launches on the same inputs give the same bits.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s
-// f32 on the CUDA cores, 3.35 TB/s): five products of 2 D operations per
-// unmasked (query, key) pair (two recompute S and dP, three make dV, dQ,
-// dK), 2.5x the forward's, above the bytes (q, k, v, O, dO, lse read once,
-// dq, dk, dv written once) in every case of chip_smoke.py:
+// Bound on an H100 SXM (989 TFLOP/s bf16 and 495 TFLOP/s tf32 on the tensor
+// cores, 67 TFLOP/s f32 on the CUDA cores, 3.35 TB/s): five products of 2 D
+// operations per unmasked (query, key) pair (two recompute S and dP, three
+// make dV, dQ, dK), 2.5x the forward's, above the bytes (q, k, v, O, dO, lse
+// read once, dq, dk, dv written once) in every case of chip_smoke.py:
 //   phi3-mini-3.8b's training layer (B 4, 32 / 32 heads, D 96, S 1,024):
 //     6.45e10 operations, 0.065 ms (bytes 0.046 ms);
 //   deepseek-coder-33b's layer (B 1, 56 / 8 heads, D 128, S 2,048): 1.50e11,
 //     0.152 ms (bytes 0.038 ms);
 //   S 1,000 (B 2, 8 / 2 heads): D 32 2.56e9, 0.0026 ms; D 64 5.13e9, 0.0052 ms;
-//   f32 at 67 TFLOP/s: phi3-mini's layer at B 1, S 512 4.03e9, 0.060 ms; S 1,000
-//     D 32 0.038 ms, D 64 0.077 ms; GQA 7 (1 KV head, D 128, S 300) 0.0060 ms.
+//   f32 as split TF32 (three tf32 products a product) at 495 TFLOP/s:
+//     phi3-mini's layer at B 1, S 512 (4.03e9 f32 operations) 0.0244 ms
+//     (bytes 0.011); S 1,000 D 32 0.0155 ms, D 64 0.0311; GQA 7 (1 KV head,
+//     D 128, S 300) 0.0025 ms (bytes 0.0014).  The same products as f32 FMA
+//     at 67 TFLOP/s: 0.060, 0.038, 0.077, 0.0060 ms.
 //
 // The bf16 kernels, and what they do about what held back their mma.sync
 // predecessor (10x its bound at phi3-mini's layer, 1.55x SDPA's backward at
@@ -72,19 +75,61 @@
 //   (lse log2 e, Delta) pairs padded to whole 64-row tiles (zeros past S),
 //   which (b) takes by one 512-byte bulk copy a stage and (c) reads once a row.
 //
-// (a) flash_attention_bwd_delta: Delta (and lse log2 e for bf16) a row.
-// (b) flash_attention_bwd_dkdv_bf16<D>: grid (B Hkv slices, 1, 64-key tiles),
-//   the first key tiles (the longest walks) first.
-// (c) flash_attention_bwd_dq_bf16<D>: grid (B Hq, 1, 64-row tiles), the
-//   longest rows first; K and V tiles stream up to the diagonal.
-// (d) flash_attention_bwd_sum: dK, dV of the slices summed (slices > 1).
-// All are launched on one stream, (a) then (b), (d), (c).
+// The f32 kernels (flash_attention_bwd_dkdv_f32<D>, flash_attention_bwd_dq_f32
+// <D>; every LM config with dtype float32 trains through them), and what they
+// do about what held back their CUDA-core predecessor (12-250x its FMA bound,
+// 1.6-6.5x SDPA's memory-efficient f32 backward; PERF.md):
 //
-// f32 (flash_attention_bwd_dkdv_f32<D>, flash_attention_bwd_dq_f32<D>): one
-//   block of 256 threads a (KV head, batch, 32-key tile) walking the group's
-//   query heads, and a (query head, batch, 32-row tile), on CUDA-core FMA over
-//   32 x 32 tiles staged in shared memory (rows D + 1 floats apart); the LM
-//   trains in bf16, so these carry the gradient of f32 attention only.
+// 1. Split TF32 on mma.sync m16n8k8 tf32 (HMMA on TF32 operands).  f32's 1e-4
+//   row rule leaves no room for one tf32 rounding of an operand, so each f32
+//   operand x is split into hi (x rounded to tf32, to nearest) and lo (x - hi,
+//   exact in f32, rounded the same way), hi + lo being x to 2^-22, and each
+//   of the five products keeps all three tf32 products a hi x b lo, a lo x b
+//   hi, a hi x b hi (mma_x3; a lo x b lo, below 2^-22, is left out): without
+//   any one lo term the emulation misses the row rule at S 1,000, D 32
+//   (tests/test_torch_flash_attention.py::test_bwd_tf32_kernel_needs_each_low_part),
+//   so 30 D tf32 operations a pair.  Not wgmma: it reads 32-bit operands
+//   from shared memory K-major only, and dV, dK and dQ read dO, Q and K
+//   MN-major as stored (a transposed copy of each), and it splits nothing
+//   (a lo plane of each tile); mma.sync fragments are loaded by each thread
+//   and split in registers from either layout.  S and dP take their A and B
+//   fragments by ldmatrix (a tf32 m16n8k8 fragment sits at the bytes of a
+//   bf16 m16n8k16 one); dV, dK and dQ take P^T, dS^T or dS from the
+//   accumulators as the A operand by a permutation of the k-columns (as the
+//   forward's P V) and their B rows by 16-byte loads, which permute the
+//   gradient's columns.  Accuracy where dq is a small difference of
+//   near-equal terms: dP's sums start from -Delta (so dP - Delta is summed by
+//   the tensor cores, not rounded at dP's scale first), S's and dP's small
+//   terms sum in an accumulator of their own, and each gradient's tile sum
+//   starts from zero and is added in f32 (the tensor cores' running sums span
+//   a tile, not a walk).
+// 2. 64-row tiles (BWD_TILE) fed by a two-stage cp.async ring, the next tile
+//   in flight behind the current one's products, one __syncthreads a tile;
+//   staged rows D + 4 floats apart (the padding makes the eight rows of an
+//   ldmatrix phase, and the four rows of a quarter warp's 16-byte loads,
+//   fall on distinct banks).  Eight warps a block, one block an SM at D 96
+//   and 128: (b) holds K and V, two stages of Q, dO and their pairs, and
+//   the P^T exchange, 220 KB at D 128 (a 64 x 128 f32 tile is 33.8 KB with
+//   its padding), and its threads take up to 251 registers.  (b): warp
+//   w < 4 recomputes S^T for keys 16 w .. 16 w + 15 over the tile's 64
+//   queries, forms P^T, hands it to warp w + 4 through shared memory (a
+//   named barrier of the two) and sums dV; warp w + 4 recomputes dP^T,
+//   forms dS^T and sums dK: one gradient a warp.  (c): warp w takes rows
+//   16 (w % 4) .. + 15 and keys 32 (w / 4) .. + 31 of each key tile, and
+//   the two warps of a row group add their dQ at the end.
+// 3. The GQA group split over blocks by the same plan as bf16 (kernel.py::
+//   bwd_plan); a split group's slices write f32 partials that (d) sums in a
+//   fixed order into f32 dK and dV.
+// 4. The same (lse log2 e, Delta) pairs as bf16, padded to 64-row tiles.
+//
+// (a) flash_attention_bwd_delta: (lse log2 e, Delta) a row, both dtypes.
+// (b) flash_attention_bwd_dkdv_{bf16,f32}<D>: grid (B Hkv slices, 1, 64-key
+//   tiles), the first key tiles (the longest walks) first.
+// (c) flash_attention_bwd_dq_{bf16,f32}<D>: grid (B Hq, 1, 64-row tiles), the
+//   longest rows first; K and V tiles stream up to the diagonal.
+// (d) flash_attention_bwd_sum<Out4>: dK, dV of the slices summed (slices > 1).
+// All are launched on one stream, (a) then (b), (d), (c); no atomics: two
+// launches on the same inputs give the same bits.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -124,13 +169,12 @@ __device__ __forceinline__ float dot16(uint4 x, uint4 y, float s, float) {
 }
 
 // G lanes a row (the row's 16-byte packs rounded up to a power of two),
-// over rows = B Hq S_pad rows: a warp reads whole rows in order.  f32
-// (pairs false, S_pad = S): Delta into stats as (B, Hq, S).  bf16: (lse
-// log2 e, Delta) into stats as (B, Hq, S_pad, 2), zeros in the rows past S.
+// over rows = B Hq S_pad rows: a warp reads whole rows in order.  (lse log2
+// e, Delta) into stats as (B, Hq, S_pad, 2), zeros in the rows past S.
 template <typename T>
 __global__ void __launch_bounds__(256) flash_attention_bwd_delta(
     const T* __restrict__ out, const T* __restrict__ dout, const float* __restrict__ lse,
-    float* __restrict__ stats, long rows, int S, int S_pad, int D, bool pairs) {
+    float* __restrict__ stats, long rows, int S, int S_pad, int D) {
   const int packs = D * (int)sizeof(T) / 16, G = delta_lanes(packs), j = threadIdx.x % G;
   const long row = ((long)blockIdx.x * 256 + threadIdx.x) / G;
   const long bh = row / S_pad;
@@ -142,12 +186,8 @@ __global__ void __launch_bounds__(256) flash_attention_bwd_delta(
   for (int off = G / 2; off; off >>= 1) s += __shfl_xor_sync(0xFFFFFFFFu, s, off);
   const float delta = s;
   if (row >= rows || j != 0) return;
-  if (pairs) {
-    stats[2 * row] = r < S ? lse[bh * S + r] * kLog2e : 0.f;
-    stats[2 * row + 1] = delta;
-  } else {
-    stats[row] = delta;
-  }
+  stats[2 * row] = r < S ? lse[bh * S + r] * kLog2e : 0.f;
+  stats[2 * row + 1] = delta;
 }
 
 // ---- the bf16 blocks (wgmma) ------------------------------------------------------
@@ -553,10 +593,20 @@ __global__ void __launch_bounds__(kWg, 2) flash_attention_bwd_dq_bf16(
               blockIdx.x / a.Hq, a.S_pad / kT - 1 - blockIdx.z);
 }
 
+// Four sums (scaled by s) as four outputs: bf16 (two pairs) or f32.
+__device__ __forceinline__ void store4(uint2* dst, float4 x, float s) {
+  *dst = make_uint2(pack_bf16(s * x.x, s * x.y), pack_bf16(s * x.z, s * x.w));
+}
+__device__ __forceinline__ void store4(float4* dst, float4 x, float s) {
+  *dst = make_float4(s * x.x, s * x.y, s * x.z, s * x.w);
+}
+
 // (d) dK and dV from the slices' partials (2, B Hkv, slices, S D): each
-// output four elements a thread, the slices summed in order, dK scaled.
+// output four elements a thread, the slices summed in order, dK scaled;
+// Out4 is four outputs of the dtype (uint2: bf16, float4: f32).
+template <typename Out4>
 __global__ void __launch_bounds__(256) flash_attention_bwd_sum(
-    const float4* __restrict__ partial, uint2* __restrict__ dk, uint2* __restrict__ dv, long n4,
+    const float4* __restrict__ partial, Out4* __restrict__ dk, Out4* __restrict__ dv, long n4,
     long plane4, int slices, float scale) {
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
@@ -568,163 +618,406 @@ __global__ void __launch_bounds__(256) flash_attention_bwd_sum(
     a = make_float4(a.x + x.x, a.y + x.y, a.z + x.z, a.w + x.w);
     c = make_float4(c.x + y.x, c.y + y.y, c.z + y.z, c.w + y.w);
   }
-  dk[i] = make_uint2(pack_bf16(scale * a.x, scale * a.y), pack_bf16(scale * a.z, scale * a.w));
-  dv[i] = make_uint2(pack_bf16(c.x, c.y), pack_bf16(c.z, c.w));
+  store4(dk + i, a, scale);
+  store4(dv + i, c, 1.f);
 }
 
-// ---- the f32 blocks (CUDA-core FMA) -------------------------------------------
+// The sum (d) of a split group into dk and dv of the dtype Out4 stores.
+template <typename Out4>
+cudaError_t launch_sum(const float* partial, void* dk, void* dv, int B, int Hkv, int S, int D,
+                       int slices, float scale, cudaStream_t stream) {
+  const long n4 = (long)B * Hkv * S * D / 4;
+  flash_attention_bwd_sum<Out4><<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(partial), static_cast<Out4*>(dk), static_cast<Out4*>(dv), n4,
+      (long)S * D / 4, slices, scale);
+  return cudaGetLastError();
+}
 
-constexpr int kF32Threads = 256;
-constexpr int kF32Tile = 32;  // keys a (b) block / rows a (c) block, and the tiles they walk
+// ---- the f32 blocks (split TF32 on mma.sync) ----------------------------------
 
-// Rows [r0, r0 + 32) of a head's (S, D) f32 matrix into rows D + 1 floats
-// apart (zeros past S).
+// Switches of the copies that chip_smoke.py --ablate times: both true here.
+constexpr bool kF32Loads = true;     // stream the tiles past the first stages
+constexpr bool kF32Products = true;  // the products and the probabilities
+
+constexpr int kF32Warps = 8;
+constexpr int kF32Threads = 32 * kF32Warps;
+
 template <int D>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* __restrict__ src, int r0,
-                                              int S) {
-  for (int i = threadIdx.x; i < kF32Tile * D; i += kF32Threads) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = r0 + r < S ? src[(size_t)(r0 + r) * D + c] : 0.f;
+struct F32Tiles {
+  static constexpr int kStride = D + 4;        // staged row stride in floats (4 D + 16 bytes)
+  static constexpr int kElems = kT * kStride;  // one staged 64-row tile
+  static constexpr int kStages = 2;            // one tile in flight behind the products
+  static constexpr int kSteps = D / 8;         // k-steps over D
+  static constexpr int kGroups = D / 32;       // 32-column groups of a gradient: four n8 fragments
+  static constexpr int kPacks = D / 4;         // 16-byte packs of a row
+  // (b): K and V resident, each stage's Q, dO and 64 (lse log2 e, Delta)
+  // pairs, then the P^T that each key group's S warp hands its dP warp.
+  static constexpr int kStageKV = 2 * kElems + 2 * kT;
+  static constexpr int kXch = 4 * 32 * 32;
+  static constexpr size_t kSmemKV = sizeof(float) * (2 * kElems + kStages * kStageKV + kXch);
+  // (c): Q and dO resident, each stage's K and V.
+  static constexpr size_t kSmemQ = sizeof(float) * (2 + 2 * kStages) * kElems;
+  static_assert(kPacks * kT % kF32Threads == 0, "whole copy rounds");
+  static_assert(2 * kElems * kStages >= 4 * 16 * D, "(c)'s pair sums fit in the ring");
+};
+
+// The kernels' operands, scratch and outputs (f32), and the shapes.
+struct F32Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
+  const float* stats;  // (B, Hq, S_pad, 2): (lse log2 e, Delta)
+  float* dq;
+  float* dk;
+  float* dv;
+  float* partial;  // (2, B, Hkv, slices, S, D), with slices > 1
+  int B, Hq, Hkv, S, S_pad, heads_per_block, slices;
+  float scale, scale_log2;
+};
+
+// x (N registers of f32) split in place into tf32 hi (x rounded to nearest,
+// ties away from zero: 0x1000 added to the bits, the 13 low ones cleared) and
+// lo (x - hi, exact in f32, rounded the same way): hi + lo is x to 2^-22.
+template <int N>
+__device__ __forceinline__ void split_rna(unsigned (&hi)[N], unsigned (&lo)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float x = __uint_as_float(hi[i]);
+    hi[i] = (hi[i] + 0x1000u) & kTf32Bits;
+    lo[i] = (__float_as_uint(x - __uint_as_float(hi[i])) + 0x1000u) & kTf32Bits;
   }
 }
 
-// The 32 x 32 tile of products a . b over D of rows a (this thread's row i)
-// and b (its columns j = tid % 8 + 8 u), for both pairs of matrices at once.
+// One k-step of a product a b as split TF32: small += a hi x b lo + a lo x
+// b hi, big += a hi x b hi.  The recomputed S and dP keep the small terms
+// in an accumulator of their own; the gradients' tile sums pass one
+// accumulator as both.
+__device__ __forceinline__ void mma_x3(float (&big)[4], float (&small)[4], const unsigned (&ah)[4],
+                                       const unsigned (&al)[4], unsigned bh0, unsigned bh1,
+                                       unsigned bl0, unsigned bl1) {
+  mma_tf32(small, ah, bl0, bl1);  // a hi x b lo
+  mma_tf32(small, al, bh0, bh1);  // a lo x b hi
+  mma_tf32(big, ah, bh0, bh1);    // a hi x b hi
+}
+
+// Rows [r0, r0 + 64) of a head's (S, D) f32 matrix into staged rows of
+// F32Tiles<D> by 16-byte cp.async; rows past S are zero-filled and read nothing.
 template <int D>
-__device__ __forceinline__ void tile_dots(const float* a0, const float* b0, const float* a1,
-                                          const float* b1, float (&s)[4], float (&t)[4]) {
-  const int i = threadIdx.x >> 3, jl = threadIdx.x & 7;
+__device__ __forceinline__ void copy_rows_f32(float* dst, const float* __restrict__ src, int r0,
+                                              int S) {
+  using Tl = F32Tiles<D>;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) s[u] = t[u] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    const float x = a0[i * (D + 1) + d], y = a1[i * (D + 1) + d];
+  for (int j = 0; j < Tl::kPacks * kT / kF32Threads; ++j) {
+    const int i = j * kF32Threads + threadIdx.x;
+    const int r = i / Tl::kPacks, c = 4 * (i % Tl::kPacks);
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * Tl::kStride + c, src + (ok ? (size_t)(r0 + r) * D + c : 0), ok ? 16 : 0);
+  }
+}
+
+// The 16 x (8 NF) product of a warp's 16 staged rows of a (M) and 8 NF
+// staged rows of b (N), over D, added to big (the caller's start: 0 for S,
+// -Delta for dP, so that dP - Delta, small where it cancels, is summed by
+// the tensor cores and not rounded at dP's scale first) and small, from
+// zero (mma_x3).  Fragments by ldmatrix (a tf32 m16n8k8 fragment sits at
+// the bytes of a bf16 m16n8k16 one), each split once.
+template <int D, int NF>
+__device__ __forceinline__ void recompute(const float* a, const float* b, int lane,
+                                          float (&big)[NF][4], float (&small)[NF][4]) {
+  using Tl = F32Tiles<D>;
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      s[u] = fmaf(x, b0[(jl + 8 * u) * (D + 1) + d], s[u]);
-      t[u] = fmaf(y, b1[(jl + 8 * u) * (D + 1) + d], t[u]);
+  for (int j = 0; j < NF; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) small[j][e] = 0.f;
+  // a (rows on M): row lane % 16, column 4 (lane / 16); b (rows on N): row
+  // lane % 8 + 8 (lane / 16), column 4 ((lane / 8) % 2).
+  const unsigned a_addr = smem_addr(a + (lane & 15) * Tl::kStride + 4 * (lane >> 4));
+  const unsigned b_addr =
+      smem_addr(b + ((lane & 7) + 8 * (lane >> 4)) * Tl::kStride + 4 * ((lane >> 3) & 1));
+#pragma unroll
+  for (int kk = 0; kk < Tl::kSteps; ++kk) {
+    unsigned ah[4], al[4];
+    ldmatrix_x4(ah, a_addr + 4 * 8 * kk);
+    split_rna(ah, al);
+#pragma unroll
+    for (int j = 0; j < NF; j += 2) {
+      unsigned bh[4], bl[4];  // b0, b1 of n8 fragments j and j + 1
+      ldmatrix_x4(bh, b_addr + 4 * (8 * j * Tl::kStride + 8 * kk));
+      split_rna(bh, bl);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        mma_x3(big[j + u], small[j + u], ah, al, bh[2 * u], bh[2 * u + 1], bl[2 * u],
+               bl[2 * u + 1]);
     }
   }
 }
 
-// acc[u] += sum over the 32 columns j of w[i][j] * rows[j][tid % 8 + 8 u].
-template <int D>
-__device__ __forceinline__ void tile_rows(const float* w, const float* rows, float (&acc)[D / 8]) {
-  const int i = threadIdx.x >> 3, cl = threadIdx.x & 7;
-  for (int j = 0; j < kF32Tile; ++j) {
-    const float x = w[i * (kF32Tile + 1) + j];
+// acc += x rows, for a warp's 16 rows: x the 16 x (8 NF) accumulator of
+// recompute (P^T, dS^T or dS), k = its 8 NF columns, and rows the 8 NF
+// staged rows (of dO, Q or K) that they pair with.  x's fragment j becomes
+// the A fragment of a k-step by a permutation of its columns (k-column t is
+// column 2 t, t + 4 is 2 t + 1: A = {c0, c2, c1, c3}), and b0 and b1 are
+// rows 2 t and 2 t + 1 of the step, read by 16-byte loads that also permute
+// the gradient's columns: column n (= lane / 4) of fragment 4 c + i is
+// column 32 c + 4 n + i.  Each 32-column group's sum over the 8 NF rows
+// starts from zero (the tensor cores' own running sums span 3 NF products)
+// and is added into acc in f32.
+template <int D, int NF>
+__device__ __forceinline__ void accumulate(const float (&x)[NF][4], const float* rows, int lane,
+                                           float (&acc)[D / 8][4]) {
+  using Tl = F32Tiles<D>;
+  const float* src = rows + 2 * (lane & 3) * Tl::kStride + 4 * (lane >> 2);
 #pragma unroll
-    for (int u = 0; u < D / 8; ++u) acc[u] = fmaf(x, rows[j * (D + 1) + cl + 8 * u], acc[u]);
+  for (int c = 0; c < Tl::kGroups; ++c) {
+    float part[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) part[i][0] = part[i][1] = part[i][2] = part[i][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      unsigned ah[4] = {__float_as_uint(x[j][0]), __float_as_uint(x[j][2]),
+                        __float_as_uint(x[j][1]), __float_as_uint(x[j][3])};
+      unsigned al[4];
+      split_rna(ah, al);
+      const float4 x0 = *reinterpret_cast<const float4*>(src + 8 * j * Tl::kStride + 32 * c);
+      const float4 x1 = *reinterpret_cast<const float4*>(src + (8 * j + 1) * Tl::kStride + 32 * c);
+      unsigned b0[4] = {__float_as_uint(x0.x), __float_as_uint(x0.y), __float_as_uint(x0.z),
+                        __float_as_uint(x0.w)};
+      unsigned b1[4] = {__float_as_uint(x1.x), __float_as_uint(x1.y), __float_as_uint(x1.z),
+                        __float_as_uint(x1.w)};
+      unsigned l0[4], l1[4];
+      split_rna(b0, l0);
+      split_rna(b1, l1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) mma_x3(part[i], part[i], ah, al, b0[i], b1[i], l0[i], l1[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * c + i][e] += part[i][e];
   }
 }
 
+// Rows row and row + 8 of a warp's gradient acc (scaled by s) into dst, a
+// (rows, D) f32 matrix: columns 32 c + 8 t + 4 hh + i (t = lane % 4) are
+// element 2 r + hh of fragment 4 c + i.
 template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_attention_bwd_dkdv_f32(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int Hq,
-    int Hkv, int S, float scale, float scale_log2) {
-  constexpr int kTile = kF32Tile * (D + 1);
+__device__ __forceinline__ void store_rows(float* dst, const float (&acc)[D / 8][4], int row,
+                                           int rows, int lane, float s) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= rows) continue;
+    float* out = dst + (size_t)(row + 8 * r) * D + 8 * (lane & 3);
+#pragma unroll
+    for (int c = 0; c < D / 32; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float4*>(out + 32 * c + 4 * hh) =
+            make_float4(s * acc[4 * c][2 * r + hh], s * acc[4 * c + 1][2 * r + hh],
+                        s * acc[4 * c + 2][2 * r + hh], s * acc[4 * c + 3][2 * r + hh]);
+  }
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// (b) f32: dK and dV of the 64-key tile kt of KV head hk of batch b, over
+// the query heads of one slice of its group.  Warp w < 4 (the S warp of key
+// group w: keys 16 w .. 16 w + 15) recomputes S^T = K Q^T, forms P^T and
+// sums dV += P^T dO; warp w + 4 (its dP warp) recomputes dP^T = V dO^T, takes
+// P^T from shared memory, forms dS^T and sums dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1) flash_attention_bwd_dkdv_f32(
+    const __grid_constant__ F32Args a) {
+  using Tl = F32Tiles<D>;
   extern __shared__ __align__(16) float smem_f32[];
   float* ks = smem_f32;
-  float* vs = ks + kTile;
-  float* qs = vs + kTile;
-  float* dos = qs + kTile;
-  float* ps = dos + kTile;                         // P^T (keys x queries)
-  float* dss = ps + kF32Tile * (kF32Tile + 1);     // dS^T
-  float* ls = dss + kF32Tile * (kF32Tile + 1);     // lse, then Delta
-  const int k0 = blockIdx.z * kF32Tile;
-  const int hk = blockIdx.x, b = blockIdx.y, group = Hq / Hkv;
-  const size_t kv_head = ((size_t)b * Hkv + hk) * S * D;
-  const int i = threadIdx.x >> 3, jl = threadIdx.x & 7;
-  load_rows_f32<D>(ks, k + kv_head, k0, S);
-  load_rows_f32<D>(vs, v + kv_head, k0, S);
-  float dka[D / 8], dva[D / 8];
-#pragma unroll
-  for (int u = 0; u < D / 8; ++u) dka[u] = dva[u] = 0.f;
+  float* vs = ks + Tl::kElems;
+  float* ring = vs + Tl::kElems;  // stage s: Q, dO, then the 64 pairs
+  float* xch = ring + Tl::kStages * Tl::kStageKV;
+  const int x = blockIdx.x, kt = blockIdx.z;
+  const int hk = (x / a.slices) % a.Hkv, slice = x % a.slices, b = x / (a.slices * a.Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, kg = warp & 3;
+  const bool dp_warp = warp >= 4;
+  const int group = a.Hq / a.Hkv, S = a.S, S_pad = a.S_pad, k0 = kt * kT;
+  const int h0 = hk * group + slice * a.heads_per_block;
+  const int n_qt = S_pad / kT - kt;  // query tiles from the diagonal down
+  const int n_iter = min(a.heads_per_block, group - slice * a.heads_per_block) * n_qt;
+  const size_t bkv = (size_t)b * a.Hkv + hk;
 
-  for (int g = 0; g < group; ++g) {
-    const size_t head = (size_t)b * Hq + hk * group + g;
-    for (int q0 = k0; q0 < S; q0 += kF32Tile) {
-      __syncthreads();  // the last tile's reads are done
-      load_rows_f32<D>(qs, q + head * S * D, q0, S);
-      load_rows_f32<D>(dos, dout + head * S * D, q0, S);
-      if (threadIdx.x < 2 * kF32Tile) {
-        const int r = threadIdx.x % kF32Tile;
-        const float* src = threadIdx.x < kF32Tile ? lse : delta;
-        ls[threadIdx.x] = q0 + r < S ? src[head * S + q0 + r] : 0.f;
-      }
-      __syncthreads();
-      float s[4], dp[4];
-      tile_dots<D>(ks, qs, vs, dos, s, dp);
+  auto issue = [&](int it) {  // iteration it's Q, dO and pairs into stage it % kStages
+    float* st = ring + (it % Tl::kStages) * Tl::kStageKV;
+    const size_t bh = (size_t)b * a.Hq + h0 + it / n_qt;
+    const int q0 = (kt + it % n_qt) * kT;
+    copy_rows_f32<D>(st, a.q + bh * S * D, q0, S);
+    copy_rows_f32<D>(st + Tl::kElems, a.dout + bh * S * D, q0, S);
+    if (tid < 2 * kT / 4)
+      cp_async16(st + 2 * Tl::kElems + 4 * tid, a.stats + (bh * S_pad + q0) * 2 + 4 * tid, 16);
+  };
+  copy_rows_f32<D>(ks, a.k + bkv * S * D, k0, S);
+  copy_rows_f32<D>(vs, a.v + bkv * S * D, k0, S);
+  issue(0);
+  cp_async_commit();
+
+  float acc[D / 8][4];  // dV (S warps) or dK unscaled (dP warps)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int qi = jl + 8 * u;
-        float p = exp2f(fmaf(s[u], scale_log2, -ls[qi] * kLog2e));
-        if (k0 + i > q0 + qi || q0 + qi >= S) p = 0.f;
-        ps[i * (kF32Tile + 1) + qi] = p;
-        dss[i * (kF32Tile + 1) + qi] = p * (dp[u] - ls[kF32Tile + qi]);
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const int g = lane >> 2, t = lane & 3;
+  const int kr = 16 * kg + g;  // this thread's keys k0 + kr and k0 + kr + 8
+  float* mine = xch + kg * 32 * 32 + lane;
+
+  for (int it = 0; it < n_iter; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage it is in; every warp is done with stage it - 1 and the exchange
+    if ((kF32Loads || it + 1 < Tl::kStages) && it + 1 < n_iter) issue(it + 1);
+    cp_async_commit();
+    if (!kF32Products) continue;
+    const float* qs = ring + (it % Tl::kStages) * Tl::kStageKV;
+    const float* dos = qs + Tl::kElems;
+    const float* st = qs + 2 * Tl::kElems;
+    // Element (j, e) is key k0 + kr + 8 (e / 2), query q0 + 8 j + 2 t + e % 2;
+    // the float4 at st + 2 (8 j + 2 t) holds (lse log2 e, Delta) of queries
+    // 8 j + 2 t and 8 j + 2 t + 1 (read where used: held across the
+    // products, they would cost 32 registers).
+    float big[8][4], small[8][4];  // S^T, or dP^T - Delta: 16 keys x the tile's 64 queries
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 qst = *reinterpret_cast<const float4*>(st + 2 * (8 * j + 2 * t));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) big[j][e] = dp_warp ? ((e & 1) ? -qst.w : -qst.y) : 0.f;
+    }
+    recompute<D, 8>((dp_warp ? vs : ks) + 16 * kg * Tl::kStride, dp_warp ? dos : qs, lane, big,
+                    small);
+    // Masked on the diagonal tile alone (rows past S read zero Q, dO and
+    // pairs, so they add nothing).
+    const bool diag = it % n_qt == 0;
+    if (!dp_warp) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 qst = *reinterpret_cast<const float4*>(st + 2 * (8 * j + 2 * t));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = exp2_approx(fmaf(big[j][e], a.scale_log2,
+                                     fmaf(small[j][e], a.scale_log2, (e & 1) ? -qst.z : -qst.x)));
+          if (diag && kr + 8 * (e >> 1) > 8 * j + 2 * t + (e & 1)) p = 0.f;
+          big[j][e] = p;
+          mine[(4 * j + e) * 32] = p;
+        }
       }
-      __syncthreads();
-      tile_rows<D>(ps, dos, dva);
-      tile_rows<D>(dss, qs, dka);
+      named_arrive(1 + kg, 64);  // P^T is in the exchange
+      accumulate<D, 8>(big, dos, lane, acc);
+    } else {
+      named_sync(1 + kg, 64);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) big[j][e] = mine[(4 * j + e) * 32] * (big[j][e] + small[j][e]);
+      accumulate<D, 8>(big, qs, lane, acc);
     }
   }
-  if (k0 + i < S) {
-#pragma unroll
-    for (int u = 0; u < D / 8; ++u) {
-      dk[kv_head + (size_t)(k0 + i) * D + jl + 8 * u] = scale * dka[u];
-      dv[kv_head + (size_t)(k0 + i) * D + jl + 8 * u] = dva[u];
-    }
+  cp_async_wait<0>();
+
+  if (a.slices == 1) {
+    float* dst = (dp_warp ? a.dk : a.dv) + bkv * S * D;
+    store_rows<D>(dst, acc, k0 + kr, S, lane, dp_warp ? a.scale : 1.f);
+  } else {  // partial (2, B, Hkv, slices, S, D): dK unscaled, then dV
+    const size_t plane = (size_t)a.B * a.Hkv * a.slices * S * D;
+    float* dst = a.partial + (dp_warp ? 0 : plane) + (bkv * a.slices + slice) * S * D;
+    store_rows<D>(dst, acc, k0 + kr, S, lane, 1.f);
   }
 }
 
+// (c) f32: dQ of the 64-row tile qt of query head h of batch b.  Warp w
+// takes rows 16 (w % 4) .. + 15 and keys 32 (w / 4) .. + 31 of each key
+// tile: S = Q K^T, dP = dO V^T, P, dS and dQ += dS K over its 32 keys; the
+// two warps of a row group add their sums at the end (in a fixed order).
 template <int D>
-__global__ void __launch_bounds__(kF32Threads) flash_attention_bwd_dq_f32(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dq, int Hq, int Hkv, int S,
-    float scale, float scale_log2) {
-  constexpr int kTile = kF32Tile * (D + 1);
+__global__ void __launch_bounds__(kF32Threads, 1) flash_attention_bwd_dq_f32(
+    const __grid_constant__ F32Args a) {
+  using Tl = F32Tiles<D>;
   extern __shared__ __align__(16) float smem_f32[];
   float* qs = smem_f32;
-  float* dos = qs + kTile;
-  float* ks = dos + kTile;
-  float* vs = ks + kTile;
-  float* dss = vs + kTile;  // dS (rows x keys)
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kF32Tile;  // the longest rows first
-  const int h = blockIdx.x, b = blockIdx.y, hk = h / (Hq / Hkv);
-  const size_t head = (size_t)b * Hq + h;
-  const size_t kv_head = ((size_t)b * Hkv + hk) * S * D;
-  const int i = threadIdx.x >> 3, jl = threadIdx.x & 7;
-  load_rows_f32<D>(qs, q + head * S * D, q0, S);
-  load_rows_f32<D>(dos, dout + head * S * D, q0, S);
-  const bool row_ok = q0 + i < S;
-  const float lse2 = row_ok ? lse[head * S + q0 + i] * kLog2e : 0.f;
-  const float dl = row_ok ? delta[head * S + q0 + i] : 0.f;
-  float dqa[D / 8];
-#pragma unroll
-  for (int u = 0; u < D / 8; ++u) dqa[u] = 0.f;
+  float* dos = qs + Tl::kElems;
+  float* ring = dos + Tl::kElems;  // stage s: K, V
+  const int h = blockIdx.x % a.Hq, b = blockIdx.x / a.Hq;
+  const int qt = a.S_pad / kT - 1 - blockIdx.z;  // the longest rows first
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, rg = warp & 3, kh = warp >> 2;
+  const int S = a.S, q0 = qt * kT, n_tiles = qt + 1;  // key tiles up to the diagonal
+  const size_t bh = (size_t)b * a.Hq + h, bkv = (size_t)b * a.Hkv + h / (a.Hq / a.Hkv);
 
-  for (int k0 = 0; k0 <= q0 && k0 < S; k0 += kF32Tile) {
-    __syncthreads();  // the last tile's reads are done
-    load_rows_f32<D>(ks, k + kv_head, k0, S);
-    load_rows_f32<D>(vs, v + kv_head, k0, S);
-    __syncthreads();
-    float s[4], dp[4];
-    tile_dots<D>(qs, ks, dos, vs, s, dp);
+  auto issue = [&](int t) {  // key tile t's K and V into stage t % kStages
+    float* st = ring + (t % Tl::kStages) * 2 * Tl::kElems;
+    copy_rows_f32<D>(st, a.k + bkv * S * D, t * kT, S);
+    copy_rows_f32<D>(st + Tl::kElems, a.v + bkv * S * D, t * kT, S);
+  };
+  copy_rows_f32<D>(qs, a.q + bh * S * D, q0, S);
+  copy_rows_f32<D>(dos, a.dout + bh * S * D, q0, S);
+  issue(0);
+  cp_async_commit();
+
+  const int g = lane >> 2, tq = lane & 3;
+  const int rr = 16 * rg + g;  // this thread's rows q0 + rr and q0 + rr + 8
+  float lse2[2], dl[2];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int kj = jl + 8 * u;
-      float p = exp2f(fmaf(s[u], scale_log2, -lse2));
-      if (k0 + kj > q0 + i) p = 0.f;
-      dss[i * (kF32Tile + 1) + kj] = p * (dp[u] - dl);
-    }
-    __syncthreads();
-    tile_rows<D>(dss, ks, dqa);
+  for (int r = 0; r < 2; ++r) {  // past S: zeros (the padded rows of stats)
+    const float2 x =
+        *reinterpret_cast<const float2*>(a.stats + (bh * a.S_pad + q0 + rr + 8 * r) * 2);
+    lse2[r] = x.x;
+    dl[r] = x.y;
   }
-  if (row_ok) {
+  float acc[D / 8][4];
 #pragma unroll
-    for (int u = 0; u < D / 8; ++u) dq[(head * S + q0 + i) * D + jl + 8 * u] = scale * dqa[u];
+  for (int j = 0; j < D / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1's stage
+    if ((kF32Loads || t + 1 < Tl::kStages) && t + 1 < n_tiles) issue(t + 1);
+    cp_async_commit();
+    if (!kF32Products) continue;
+    const float* kts = ring + (t % Tl::kStages) * 2 * Tl::kElems + 32 * kh * Tl::kStride;
+    const float* vts = kts + Tl::kElems;
+    // S and dP - Delta, 16 rows x 32 keys: element (j, e) is row q0 + rr + 8
+    // (e / 2), key t kT + 32 kh + 8 j + 2 tq + e % 2.
+    float s_big[4][4], s_small[4][4], p_big[4][4], p_small[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s_big[j][e] = 0.f, p_big[j][e] = -dl[e >> 1];
+    recompute<D, 4>(qs + 16 * rg * Tl::kStride, kts, lane, s_big, s_small);
+    recompute<D, 4>(dos + 16 * rg * Tl::kStride, vts, lane, p_big, p_small);
+    const bool diag = t == qt;  // masked on the diagonal tile alone
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2_approx(
+            fmaf(s_big[j][e], a.scale_log2, fmaf(s_small[j][e], a.scale_log2, -lse2[e >> 1])));
+        if (diag && 32 * kh + 8 * j + 2 * tq + (e & 1) > rr + 8 * (e >> 1)) p = 0.f;
+        s_big[j][e] = p * (p_big[j][e] + p_small[j][e]);
+      }
+    accumulate<D, 4>(s_big, kts, lane, acc);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the key halves' sums meet there
+  float* red = ring + (rg * (D / 2)) * 32 + lane;
+  if (kh == 1) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(4 * j + e) * 32] = acc[j][e];
+  }
+  __syncthreads();
+  if (kh == 0) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += red[(4 * j + e) * 32];
+    store_rows<D>(a.dq + bh * S * D, acc, q0 + rr, S, lane, a.scale);
   }
 }
 
@@ -801,13 +1094,9 @@ cudaError_t launch_bf16(const Maps& m, const float* stats, float* partial, void*
   flash_attention_bwd_dkdv_bf16<D><<<dim3(Hkv * slices * B, 1, S_pad / kT), kWg, Tl::kSmem,
                                      stream>>>(m.q, m.k, m.v, m.dout, a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (slices > 1) {
-    const long n4 = (long)B * Hkv * S * D / 4;
-    flash_attention_bwd_sum<<<(unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
-        reinterpret_cast<const float4*>(partial), static_cast<uint2*>(dk),
-        static_cast<uint2*>(dv), n4, (long)S * D / 4, slices, scale);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
+  if (slices > 1 && (err = launch_sum<uint2>(partial, dk, dv, B, Hkv, S, D, slices, scale,
+                                              stream)) != cudaSuccess)
+    return err;
   if ((err = set_smem(flash_attention_bwd_dq_bf16<D>, Tl::kSmem)) != cudaSuccess) return err;
   flash_attention_bwd_dq_bf16<D><<<dim3(Hq * B, 1, S_pad / kT), kWg, Tl::kSmem, stream>>>(
       m.q, m.k, m.v, m.dout, a);
@@ -816,27 +1105,27 @@ cudaError_t launch_bf16(const Maps& m, const float* stats, float* partial, void*
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* dout,
-                       const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
-                       int Hq, int Hkv, int S, float scale, float scale_log2,
+                       const float* stats, float* partial, void* dq, void* dk, void* dv, int B,
+                       int Hq, int Hkv, int S, int heads_per_block, float scale, float scale_log2,
                        cudaStream_t stream) {
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* of = static_cast<const float*>(dout);
-  const dim3 grid_kv(Hkv, B, (S + kF32Tile - 1) / kF32Tile);
-  const dim3 grid_q(Hq, B, (S + kF32Tile - 1) / kF32Tile);
-  constexpr size_t kv_smem =
-      sizeof(float) * (4 * kF32Tile * (D + 1) + 2 * kF32Tile * (kF32Tile + 1) + 2 * kF32Tile);
-  cudaError_t err = set_smem(flash_attention_bwd_dkdv_f32<D>, kv_smem);
+  using Tl = F32Tiles<D>;
+  const int S_pad = (S + kT - 1) / kT * kT;
+  const int slices = (Hq / Hkv + heads_per_block - 1) / heads_per_block;
+  const F32Args a{static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<const float*>(dout), stats,
+                  static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv),
+                  partial, B, Hq, Hkv, S, S_pad, heads_per_block, slices, scale, scale_log2};
+  cudaError_t err = set_smem(flash_attention_bwd_dkdv_f32<D>, Tl::kSmemKV);
   if (err != cudaSuccess) return err;
-  flash_attention_bwd_dkdv_f32<D><<<grid_kv, kF32Threads, kv_smem, stream>>>(
-      qf, kf, vf, of, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), Hq, Hkv, S,
-      scale, scale_log2);
+  flash_attention_bwd_dkdv_f32<D><<<dim3(Hkv * slices * B, 1, S_pad / kT), kF32Threads,
+                                    Tl::kSmemKV, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  constexpr size_t q_smem = sizeof(float) * (4 * kF32Tile * (D + 1) + kF32Tile * (kF32Tile + 1));
-  if ((err = set_smem(flash_attention_bwd_dq_f32<D>, q_smem)) != cudaSuccess) return err;
-  flash_attention_bwd_dq_f32<D><<<grid_q, kF32Threads, q_smem, stream>>>(
-      qf, kf, vf, of, lse, delta, static_cast<float*>(dq), Hq, Hkv, S, scale, scale_log2);
+  if (slices > 1 && (err = launch_sum<float4>(partial, dk, dv, B, Hkv, S, D, slices, scale,
+                                               stream)) != cudaSuccess)
+    return err;
+  if ((err = set_smem(flash_attention_bwd_dq_f32<D>, Tl::kSmemQ)) != cudaSuccess) return err;
+  flash_attention_bwd_dq_f32<D><<<dim3(Hq * B, 1, S_pad / kT), kF32Threads, Tl::kSmemQ,
+                                  stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -847,37 +1136,35 @@ extern "C" {
 // dtype 0: f32, 1: bf16.  Launches (a) into the caller's f32 scratch stats
 // (B Hq S_pad 2 floats, S_pad = S rounded up to 64), then (b) dK and dV,
 // (d) where a group is split, and (c) dQ, on one stream.  heads_per_block
-// (bf16; kernel.py::bwd_plan): the query heads a (b) block walks, 1 to
-// Hq / Hkv; below Hq / Hkv, partial is the caller's f32 scratch (2, B, Hkv,
-// slices, S, D) of the slices' dK and dV.  q, k, v, out, dout, dq, dk and dv
-// must start on 16 bytes (the wrapper copies operands that do not); D is 32,
-// 64, 96 or 128.
+// (kernel.py::bwd_plan): the query heads a (b) block walks, 1 to Hq / Hkv;
+// below Hq / Hkv, partial is the caller's f32 scratch (2, B, Hkv, slices,
+// S, D) of the slices' dK and dV.  q, k, v, out, dout, dq, dk and dv must
+// start on 16 bytes (the wrapper copies operands that do not); D is 32, 64,
+// 96 or 128.
 int flash_attention_bwd_launch(int dtype, int D, const void* q, const void* k, const void* v,
                                const void* out, const void* dout, const float* lse,
                                float* stats, float* partial, void* dq, void* dk, void* dv, int B,
                                int Hq, int Hkv, int S, int heads_per_block, void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || S <= 0 || Hq % Hkv != 0 || B > 65535 ||
-      (S + kF32Tile - 1) / kF32Tile > 65535 || (dtype != 0 && dtype != 1) || lse == nullptr ||
-      stats == nullptr)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 1 && (heads_per_block < 1 || heads_per_block > Hq / Hkv ||
-                     (heads_per_block < Hq / Hkv && partial == nullptr)))
+      (S + kT - 1) / kT > 65535 || (dtype != 0 && dtype != 1) || lse == nullptr ||
+      stats == nullptr || heads_per_block < 1 || heads_per_block > Hq / Hkv ||
+      (heads_per_block < Hq / Hkv && partial == nullptr))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)dout |
        (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 16)
     return (int)cudaErrorMisalignedAddress;
   auto st = static_cast<cudaStream_t>(stream);
-  const int S_pad = dtype == 1 ? (S + kT - 1) / kT * kT : S;
+  const int S_pad = (S + kT - 1) / kT * kT;
   const long rows = (long)B * Hq * S_pad;
   const unsigned blocks = (unsigned)((rows * delta_lanes(D * (dtype == 1 ? 2 : 4) / 16) + 255) / 256);
   if (dtype == 1)
     flash_attention_bwd_delta<uint16_t><<<blocks, 256, 0, st>>>(
         static_cast<const uint16_t*>(out), static_cast<const uint16_t*>(dout), lse, stats, rows, S,
-        S_pad, D, true);
+        S_pad, D);
   else
     flash_attention_bwd_delta<float><<<blocks, 256, 0, st>>>(
         static_cast<const float*>(out), static_cast<const float*>(dout), lse, stats, rows, S,
-        S_pad, D, false);
+        S_pad, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   Maps maps;  // built while (a) runs
@@ -887,10 +1174,10 @@ int flash_attention_bwd_launch(int dtype, int D, const void* q, const void* k, c
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
   const int hpb = heads_per_block;
   switch (dtype * 1000 + D) {
-    case 32: return (int)launch_f32<32>(q, k, v, dout, lse, stats, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
-    case 64: return (int)launch_f32<64>(q, k, v, dout, lse, stats, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
-    case 96: return (int)launch_f32<96>(q, k, v, dout, lse, stats, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
-    case 128: return (int)launch_f32<128>(q, k, v, dout, lse, stats, dq, dk, dv, B, Hq, Hkv, S, scale, scale_log2, st);
+    case 32: return (int)launch_f32<32>(q, k, v, dout, stats, partial, dq, dk, dv, B, Hq, Hkv, S, hpb, scale, scale_log2, st);
+    case 64: return (int)launch_f32<64>(q, k, v, dout, stats, partial, dq, dk, dv, B, Hq, Hkv, S, hpb, scale, scale_log2, st);
+    case 96: return (int)launch_f32<96>(q, k, v, dout, stats, partial, dq, dk, dv, B, Hq, Hkv, S, hpb, scale, scale_log2, st);
+    case 128: return (int)launch_f32<128>(q, k, v, dout, stats, partial, dq, dk, dv, B, Hq, Hkv, S, hpb, scale, scale_log2, st);
     case 1032: return (int)launch_bf16<32>(maps, stats, partial, dq, dk, dv, B, Hq, Hkv, S, hpb, scale, scale_log2, st);
     case 1064: return (int)launch_bf16<64>(maps, stats, partial, dq, dk, dv, B, Hq, Hkv, S, hpb, scale, scale_log2, st);
     case 1096: return (int)launch_bf16<96>(maps, stats, partial, dq, dk, dv, B, Hq, Hkv, S, hpb, scale, scale_log2, st);

@@ -6,8 +6,9 @@ kernel.py::flash_attention``, in ``csrc/flash_attention.cu``:
 products a product).  :func:`flash_attention_fwd` is the same kernel that
 also writes each row's log-sum-exp, and :func:`flash_attention_bwd` the
 gradient (``csrc/flash_attention_bwd.cu``, three or four CUDA kernels a call:
-Delta, dK and dV, their sum over a split group (:func:`bwd_plan`), dQ), which
-has no TPU counterpart: the reference's kernel has no backward (its LM
+Delta, dK and dV, their sum over a split group (:func:`bwd_plan`), dQ; bf16
+products on wgmma, f32 ones as split TF32 on mma.sync), which has no TPU
+counterpart: the reference's kernel has no backward (its LM
 differentiates einsum attention through XLA).
 
 Routing follows the tensors' device: on the CPU the plain versions
@@ -28,7 +29,7 @@ from repro_torch.kernels.flash_attention import ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 96, 128)  # the kernel's instances
-BWD_TILE = 64  # rows of the bf16 backward's tiles: keys a dK / dV block, query rows a dQ block
+BWD_TILE = 64  # rows of the backward's tiles: keys a dK / dV block, query rows a dQ block
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,7 +127,7 @@ flash_attention_fwd.launches = 0  # type: ignore[attr-defined]
 
 
 def bwd_plan(b: int, hq: int, hkv: int, s: int, sms: int = 132) -> int:
-    """The query heads each dK / dV block of the bf16 backward walks: the
+    """The query heads each dK / dV block of the backward walks: the
     whole group of its KV head (one slice, no scratch), unless that walk,
     from key tile 0, would exceed half of what each of the card's block
     slots (two blocks an SM on ``sms`` SMs) does on average; then the most
@@ -145,14 +146,13 @@ def _sms(device: torch.device) -> int:
 
 
 def bwd_scratch(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, torch.Tensor, torch.Tensor]:
-    """(heads_per_block, stats, partial): the plan (:func:`bwd_plan`, bf16;
-    f32 walks whole groups) and the f32 scratch of one backward launch:
-    stats for (lse log2 e, Delta) of every row, padded to whole tiles, and
-    partial (2, B, Hkv, slices, S, D) of a split group's dK and dV (None
-    without a split)."""
+    """(heads_per_block, stats, partial): the plan (:func:`bwd_plan`, both
+    dtypes) and the f32 scratch of one backward launch: stats for (lse log2
+    e, Delta) of every row, padded to whole tiles, and partial (2, B, Hkv,
+    slices, S, D) of a split group's dK and dV (None without a split)."""
     b, hq, s, d = q.shape
     hkv = k.shape[1]
-    hpb = bwd_plan(b, hq, hkv, s, _sms(q.device)) if q.dtype == torch.bfloat16 else hq // hkv
+    hpb = bwd_plan(b, hq, hkv, s, _sms(q.device))
     stats = torch.empty(b * hq * common.round_up(s, BWD_TILE) * 2, dtype=torch.float32,
                         device=q.device)
     slices = -(-(hq // hkv) // hpb)
@@ -171,7 +171,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     On the card three CUDA kernels (Delta into an f32 scratch, dK and dV,
     dQ), and a fourth where :func:`bwd_plan` splits a group over blocks (the
     slices' dK and dV summed from an f32 scratch), with no atomics: the same
-    inputs give the same bits.  On the CPU :func:`.ref.attention_bwd_ref`."""
+    inputs give the same bits.  bf16 multiplies on wgmma; f32 as split TF32
+    (three tf32 products a product, each operand rounded to tf32 hi and lo
+    parts) on mma.sync.  On the CPU :func:`.ref.attention_bwd_ref`."""
     _check_shapes(q, k, v)
     b, hq, s, d = q.shape
     if out.shape != q.shape or dout.shape != q.shape or lse.shape != (b, hq, s):

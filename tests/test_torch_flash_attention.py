@@ -13,16 +13,20 @@ P V, each tile's P V folded into the output) are emulated here
 (``torch_parity.flash_bf16_emulation``, ``flash_tf32x3_emulation``) and
 held to both packages.  So is the bf16 backward's (P and dS split into two
 bf16 parts: ``torch_parity.flash_bwd_emulation``), held to the port's plain
-backward, which tests/test_torch_lm_grad.py holds to JAX's; and the plan
-that splits its GQA groups over blocks (``kernel.bwd_plan``).
+backward, which tests/test_torch_lm_grad.py holds to JAX's; the f32
+backward's (split TF32: three tf32 products for each of its five products,
+``torch_parity.flash_bwd_tf32x3_emulation``), held to JAX's gradient and to
+the port's plain backward; and the plan that splits the GQA groups of both
+over blocks (``kernel.bwd_plan``).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity import (BWD_CUDA_CASES, assert_attention_grads_close, assert_rows_close,
-                          flash_bf16_emulation, flash_bwd_emulation, flash_tf32x3_emulation,
-                          to_torch)
+from torch_parity import (BWD_CUDA_DTYPE_CASES, BWD_TF32_LO_TERMS, assert_attention_grads_close,
+                          assert_rows_close, flash_bf16_emulation, flash_bwd_emulation,
+                          flash_bwd_tf32x3_emulation, flash_tf32x3_emulation, to_torch)
 
 from repro.kernels.flash_attention.kernel import flash_attention as jflash_attention
 from repro.kernels.flash_attention.ops import causal_attention as jcausal_attention
@@ -189,6 +193,84 @@ def test_bwd_p_and_ds_need_their_low_parts():
         assert_rows_close(dq[..., 1:, :], want[0][..., 1:, :], TOL["bf16"])
 
 
+def _bwd_inputs(b, hq, hkv, s, d, seed):
+    """f32 q, k, v, dout (torch) and the plain forward's out and lse."""
+    q, k, v = (to_torch(a) for a in _qkv(b, hq, hkv, s, d, "f32", seed=seed))
+    dout = to_torch(_qkv(b, hq, hq, s, d, "f32", seed=seed + 1)[0])
+    return (q, k, v, *ref.attention_fwd_ref(q, k, v), dout)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (7, 1)])  # MHA; GQA group 7
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [130, 256])
+def test_bwd_tf32_kernel_arithmetic_matches_jax(s, d, hq, hkv):
+    """The f32 backward's arithmetic, emulated (each of S, dP, dv, dk and dq
+    as three tf32 products of split operands), against the JAX package's
+    gradient of its f32 ``attention_ref`` (``jax.vjp``): dk and dv under the
+    f32 row rule, dq within it of its tensor's scale.  dq's first rows are
+    small differences of near-equal terms (a query that attends almost all
+    to one key), which f32 rounding moves by a large part of their own
+    norm: at S 256, D 128, GQA 7 the port's own plain backward (f32
+    products) misses dq's row rule against JAX's gradient
+    (``test_plain_f32_backward_misses_dq_rows_against_jax``).  The next
+    test holds dq by rows against the plain backward."""
+    q, k, v, out, lse, dout = _bwd_inputs(1, hq, hkv, s, d, seed=11 * s + d + hq)
+    got = flash_bwd_tf32x3_emulation(q, k, v, out, lse, dout)
+    assert [x.dtype for x in got] == [torch.float32] * 3
+    _, vjp = jax.vjp(jattention_ref, *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    assert_attention_grads_close(got, vjp(jnp.asarray(dout.numpy())), TOL["f32"], dq_rows=False)
+
+
+def test_plain_f32_backward_misses_dq_rows_against_jax():
+    """Why the f32 comparisons with JAX hold dq at its tensor's scale: the
+    port's plain backward (f32 products, as JAX's) at the S 256, D 128, GQA
+    7 case of ``test_bwd_tf32_kernel_arithmetic_matches_jax`` keeps dk and
+    dv by rows and dq at its scale, but misses dq's row rule in a first row,
+    a small difference of near-equal terms."""
+    q, k, v, out, lse, dout = _bwd_inputs(1, 7, 1, 256, 128, seed=11 * 256 + 128 + 7)
+    plain = ref.attention_bwd_ref(q, k, v, out, lse, dout)
+    _, vjp = jax.vjp(jattention_ref, *(jnp.asarray(x.numpy()) for x in (q, k, v)))
+    want = vjp(jnp.asarray(dout.numpy()))
+    assert_attention_grads_close(plain, want, TOL["f32"], dq_rows=False)
+    with pytest.raises(AssertionError, match="rows' error norms"):
+        assert_attention_grads_close(plain, want, TOL["f32"])
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d", [(2, 8, 2, 1000, 32), (1, 7, 1, 300, 128)])
+def test_bwd_tf32_kernel_arithmetic_matches_plain_version(b, hq, hkv, s, d):
+    """The same emulation at chip_smoke.py's f32 S = 1,000, D = 32 case and
+    its GQA 7 case, against the port's plain backward (``attention_bwd_ref``,
+    f32 products) under the f32 row rule, dq's row 0 at its head's scale."""
+    args = _bwd_inputs(b, hq, hkv, s, d, seed=s + d)
+    assert_attention_grads_close(flash_bwd_tf32x3_emulation(*args),
+                                 ref.attention_bwd_ref(*args), TOL["f32"])
+
+
+@pytest.fixture(scope="module")
+def bwd_f32_case():
+    """S = 1,000, D = 32 (the bf16 split test's shape) and its plain backward."""
+    args = _bwd_inputs(2, 8, 2, 1000, 32, seed=0)
+    return args, ref.attention_bwd_ref(*args)
+
+
+def test_bwd_tf32_kernel_keeps_the_row_rule(bwd_f32_case):
+    args, want = bwd_f32_case
+    assert_attention_grads_close(flash_bwd_tf32x3_emulation(*args), want, TOL["f32"])
+
+
+@pytest.mark.parametrize("term", BWD_TF32_LO_TERMS)
+def test_bwd_tf32_kernel_needs_each_low_part(term, bwd_f32_case):
+    """Why the f32 backward keeps all three tf32 products of each of its
+    five products: without any one lo term (that product's operand rounded
+    once to tf32, 2^-11 of itself) the emulation misses the f32 row rule
+    against the plain backward, where the full split keeps it
+    (``test_bwd_tf32_kernel_keeps_the_row_rule``)."""
+    args, want = bwd_f32_case
+    with pytest.raises(AssertionError, match="past"):
+        assert_attention_grads_close(flash_bwd_tf32x3_emulation(*args, drop=(term,)), want,
+                                     TOL["f32"])
+
+
 @pytest.mark.parametrize("sms", [132, 16])
 @pytest.mark.parametrize("b,hq,hkv,s", [
     (4, 32, 32, 1024), (1, 56, 8, 2048), (2, 8, 2, 1000), (16, 7, 1, 1800), (8, 32, 8, 1024),
@@ -214,14 +296,17 @@ def test_bwd_plan_slices_cover_each_head_once(b, hq, hkv, s, sms):
 
 
 def test_bwd_cuda_cases_reach_every_split():
-    """tests/test_torch_gpu.py's bf16 backward cases reach, on a 132-SM
-    card, each kind of split the plan takes (MHA; one query head a block;
-    an even and an uneven split; the whole group of more than one head a
-    block) and, at every head width, an S off the 64-row tiles."""
-    kinds = set()
-    for b, hq, hkv, s, d in BWD_CUDA_CASES:
-        group, hpb = hq // hkv, kernel.bwd_plan(b, hq, hkv, s)
-        kinds.add("mha" if group == 1 else "whole" if hpb == group else "one" if hpb == 1
-                  else "even" if group % hpb == 0 else "uneven")
-    assert kinds == {"mha", "one", "even", "uneven", "whole"}
-    assert {d for *_, s, d in BWD_CUDA_CASES if s % 64} == {32, 64, 96, 128}
+    """tests/test_torch_gpu.py's backward cases of each dtype (bf16 and f32)
+    reach, on a 132-SM card, each kind of split the plan takes (MHA; one
+    query head a block; an even and an uneven split; the whole group of
+    more than one head a block) and, at every head width, an S off the
+    64-row tiles."""
+    for dtype in (torch.bfloat16, torch.float32):
+        cases = [c for dt, *c in BWD_CUDA_DTYPE_CASES if dt == dtype]
+        kinds = set()
+        for b, hq, hkv, s, d in cases:
+            group, hpb = hq // hkv, kernel.bwd_plan(b, hq, hkv, s)
+            kinds.add("mha" if group == 1 else "whole" if hpb == group else "one" if hpb == 1
+                      else "even" if group % hpb == 0 else "uneven")
+        assert kinds == {"mha", "one", "even", "uneven", "whole"}, dtype
+        assert {d for *_, s, d in cases if s % 64} == {32, 64, 96, 128}, dtype

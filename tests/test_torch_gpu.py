@@ -14,8 +14,9 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch_parity import (BWD_CUDA_CASES, assert_attention_grads_close, assert_rows_close,
-                          assert_topk_match, cuda_device)
+from torch_parity import (BWD_CUDA_DTYPE_CASES, BWD_CUDA_F32_ROW_CASES,
+                          assert_attention_grads_close, assert_rows_close, assert_topk_match,
+                          cuda_device)
 
 from repro_torch.core import builder, bruteforce
 from repro_torch.core import eval as ev
@@ -1910,19 +1911,21 @@ def test_cuda_prefill_counts_one_k9_launch_a_layer_and_refuses_dh16():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,b,hq,hkv,s,d", [
-    *((torch.bfloat16, *case) for case in BWD_CUDA_CASES),
-    (torch.float32, 1, 4, 2, 200, 96), (torch.float32, 2, 4, 4, 63, 32),
-    (torch.float32, 1, 7, 1, 129, 128)])
+@pytest.mark.parametrize("dtype,b,hq,hkv,s,d", BWD_CUDA_DTYPE_CASES)
 def test_cuda_attention_backward_matches_plain_and_repeats(dtype, b, hq, hkv, s, d):
     """K9's forward with lse (its output bit-equal to the plain entry's, lse
     within 2e-5 of the plain logsumexp) and its backward against
     ``attention_bwd_ref`` on the kernel's own out and lse: K9's row rules
     (bf16 1e-2, f32 1e-4; dq's row 0, zero in exact arithmetic, at its
-    head's scale); two launches bit-equal.  The bf16 cases
-    (``torch_parity.BWD_CUDA_CASES``) take every kind of split of a GQA group
-    that ``kernel.bwd_plan`` makes on a 132-SM card, and an S off the 64-row
-    tiles at every head width."""
+    head's scale); two launches bit-equal.  ``torch_parity.BWD_CUDA_CASES``,
+    in both dtypes, take every kind of split of a GQA group that
+    ``kernel.bwd_plan`` makes on a 132-SM card, and an S off the 64-row
+    tiles at every head width.  In f32 these hold dq within the rule of its
+    tensor's scale, and ``BWD_CUDA_F32_ROW_CASES`` hold it by rows: dq's
+    first rows are small differences of near-equal terms, which f32
+    rounding moves by a large part of their own norm, the plain backward's
+    too (tests/test_torch_flash_attention.py::
+    test_plain_f32_backward_misses_dq_rows_against_jax)."""
     from repro_torch.kernels.flash_attention import kernel, ref
 
     dev = cuda_device()
@@ -1941,7 +1944,9 @@ def test_cuda_attention_backward_matches_plain_and_repeats(dtype, b, hq, hkv, s,
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     assert [x.dtype for x in got] == [dtype] * 3
     want = ref.attention_bwd_ref(q, k, v, out, lse, dout)
-    assert_attention_grads_close(got, want, 1e-2 if dtype == torch.bfloat16 else 1e-4)
+    dq_rows = dtype == torch.bfloat16 or (b, hq, hkv, s, d) in BWD_CUDA_F32_ROW_CASES
+    assert_attention_grads_close(got, want, 1e-2 if dtype == torch.bfloat16 else 1e-4,
+                                 dq_rows=dq_rows)
 
 
 @pytest.mark.gpu

@@ -82,6 +82,15 @@ def cut_tf32(x: torch.Tensor) -> torch.Tensor:
     return (bits & -0x2000).view(torch.float32)
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to tf32 (10 fraction bits, to nearest, ties away
+    from zero): 0x1000 added to the bits (the sign is apart, so this rounds
+    the magnitude) and the 13 low bits cleared, as K9's f32 backward's
+    split does (``cvt.rna.tf32.f32``'s rounding)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
 def split_tf32_topk(q: torch.Tensor, docs: torch.Tensor, scale: torch.Tensor, depth: int,
                     filt: Optional[torch.Tensor] = None, n_docs: Optional[int] = None,
                     lo: bool = True, group: int = 0,
@@ -479,8 +488,8 @@ def assert_adam_close(got: dict, want: dict, init: dict, lr: float, steps: int) 
         assert (diff > 1e-6 + 1e-5 * np.abs(w)).mean() <= 0.01, (name, (diff > 1e-6).sum())
 
 
-# The bf16 shapes (B, Hq, Hkv, S, D) at which the card's tests hold K9's
-# backward (tests/test_torch_gpu.py), chosen so that on a 132-SM card
+# The shapes (B, Hq, Hkv, S, D) at which the card's tests hold K9's
+# backward in bf16 and in f32 (tests/test_torch_gpu.py), chosen so that on a 132-SM card
 # ``kernel.bwd_plan`` takes each kind of split (MHA; one query head a block;
 # an even and an uneven split of a group; the whole group a block) and every
 # head width meets an S off the 64-row tiles
@@ -489,6 +498,14 @@ BWD_CUDA_CASES = ((2, 8, 2, 1000, 32), (1, 4, 4, 130, 96), (1, 7, 1, 65, 128), (
                   (1, 14, 2, 777, 128), (3, 6, 3, 193, 96), (1, 16, 2, 1024, 64),
                   (2, 8, 8, 100, 32), (16, 8, 2, 1024, 32), (16, 7, 1, 1800, 32),
                   (8, 32, 8, 1024, 64))
+# f32 cases that the card's tests hold with dq by rows (the f32 row rule,
+# as before the split-TF32 backward), beside BWD_CUDA_CASES in f32.
+BWD_CUDA_F32_ROW_CASES = ((1, 4, 2, 200, 96), (2, 4, 4, 63, 32), (1, 7, 1, 129, 128))
+# (dtype, B, Hq, Hkv, S, D) of tests/test_torch_gpu.py's backward test:
+# BWD_CUDA_CASES in bf16, BWD_CUDA_F32_ROW_CASES, then BWD_CUDA_CASES in f32.
+BWD_CUDA_DTYPE_CASES = (*((torch.bfloat16, *c) for c in BWD_CUDA_CASES),
+                        *((torch.float32, *c) for c in BWD_CUDA_F32_ROW_CASES),
+                        *((torch.float32, *c) for c in BWD_CUDA_CASES))
 
 
 def flash_bwd_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
@@ -522,3 +539,56 @@ def flash_bwd_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     dk = (scale * (ds.transpose(-1, -2) @ qf)).reshape(b, -1, group, s, d).sum(2)
     dv = (p.transpose(-1, -2) @ of).reshape(b, -1, group, s, d).sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# The lo terms of K9's f32 backward, by product and operand: "s:k" is q hi x
+# k lo in S = q k^T, "dv:p" is p lo x dout hi in dv = P^T dout, and so on
+# (``flash_bwd_tf32x3_emulation``'s ``drop``).
+BWD_TF32_LO_TERMS = ("s:q", "s:k", "dp:do", "dp:v", "dv:p", "dv:do", "dk:ds", "dk:q", "dq:ds",
+                     "dq:k")
+
+
+def flash_bwd_tf32x3_emulation(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                               drop: Tuple[str, ...] = ()
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The arithmetic of K9's f32 backward (``flash_attention_bwd_dkdv_f32``
+    and ``flash_attention_bwd_dq_f32``) on the CPU: each of its five
+    products ``a b`` as split TF32, every operand split into hi =
+    round_tf32(x) and lo = round_tf32(x - hi) (x - hi is exact in f32;
+    hi + lo is x to 2^-22), and the product the sum of the three tf32
+    products a hi x b lo, a lo x b hi and a hi x b hi (a lo x b lo, below
+    2^-22 of it, left out), summed in f64 (tf32 products are exact there)
+    from its start and rounded once to f32: S = q k^T from 0; dP - Delta =
+    dout v^T from -Delta (Delta = rowsum(dout o out) in f32), as the kernel
+    starts dP's sums; P = exp(S / sqrt(D) - lse) (0 past the row); dS = P o
+    (dP - Delta); then dv = P^T dout, dk = scale dS^T q, dq = scale dS k
+    (dk, dv summed over each KV head's group).  ``drop`` names lo terms to
+    leave out (``BWD_TF32_LO_TERMS``: "s:k" drops q hi x k lo, the
+    product's operand k rounded once to tf32)."""
+    assert set(drop) <= set(BWD_TF32_LO_TERMS), drop
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    qf, of = q.float(), dout.float()
+    kf, vf = (torch.repeat_interleave(x.float(), group, dim=1) for x in (k, v))
+
+    def x3(name, a, a_name, c, c_name, start=0.0):  # a @ c as the kernel's three tf32 products
+        a_hi, c_hi = round_tf32(a), round_tf32(c)
+        a_lo, c_lo = round_tf32(a - a_hi), round_tf32(c - c_hi)
+        acc = a_hi.double() @ c_hi.double() + start
+        if f"{name}:{c_name}" not in drop:
+            acc = acc + a_hi.double() @ c_lo.double()
+        if f"{name}:{a_name}" not in drop:
+            acc = acc + a_lo.double() @ c_hi.double()
+        return acc.float()
+
+    scale = d**-0.5
+    logits = scale * x3("s", qf, "q", kf.transpose(-1, -2), "k")
+    causal = torch.arange(s) <= torch.arange(s)[:, None]
+    p = torch.where(causal, torch.exp(logits - lse[..., None]), 0.0)
+    delta = (of * out.float()).sum(-1, keepdim=True)
+    ds = p * x3("dp", of, "do", vf.transpose(-1, -2), "v", start=-delta.double())
+    dq = scale * x3("dq", ds, "ds", kf, "k")
+    dk = (scale * x3("dk", ds.transpose(-1, -2), "ds", qf, "q")).reshape(b, -1, group, s, d).sum(2)
+    dv = x3("dv", p.transpose(-1, -2), "p", of, "do").reshape(b, -1, group, s, d).sum(2)
+    return dq, dk, dv
