@@ -243,6 +243,31 @@
    prefill time at each prompt length, the decode time a step at 8 active
    slots, tokens a second, and K9 at the longest prefill beside
    ``scaled_dot_product_attention(is_causal=True)``.
+16a. Sharded training (``drive_sharded_train``, after the LM's training
+   phase, ``drive_train``, whose crash-and-resume run takes 12 steps):
+   phi3-mini-3.8b at full width on the port's one-process mesh.  (a) Data
+   parallel over ``make_mesh((4,), ("data",))`` (4 x cuda:0): 4 layers,
+   8 x 1,024 tokens split by ``shard_rows``, each shard's loss and
+   gradients from ``loss_fn``; the mean loss within 2e-4 of the whole
+   batch's, ``psum`` / 4 of the gradients within LM_GRAD_TOL of the whole
+   batch's, and ``compressed_psum`` twice (the mean within half a grid
+   step, the residual g32 - q scale bit for bit, the error-feedback
+   identity); host times and ``wire_bytes``.  (b) GPipe over
+   ``make_mesh((4,), ("pipe",))``: 8 layers, 4 microbatches of 1 x 1,024
+   embedded tokens, the output bit-equal to the layers run one microbatch
+   at a time, the gradients of the layers and the input within
+   LM_GRAD_TOL, K9's launches 2 x 8 x 4 forward with lse and 8 x 4
+   backward.  K9 at each path's shapes is held and timed (kernels-line
+   rows ``flash_attention_{fwd,bwd}/phi3-mini-{data-parallel,gpipe}``).
+   ``check_f32_matmul`` (after ``check_attention_bwd``) holds
+   ``f32_matmul`` to f32's rule under ``fp32_precision = "tf32"`` and under
+   ``allow_tf32`` in two threads.
+16b. The kNN-LM example (``drive_knn_lm``): ``examples/knn_lm_torch.py``'s
+   ``main`` at the reference's 200 steps on the card, every NLL finite and
+   lambda 0 the LM's own, K9 and K1 launched; K1 classic at its datastore
+   (B 512, N 8,192, T 256, depth 64) and K9 at the micro LM's training
+   shape held and timed (rows ``fused_topk/knn-lm``,
+   ``flash_attention_{fwd,bwd}/knn-lm-micro-train``).
 17. GraphSAGE (``drive_gnn``, after the LM's training phase and after the
    ANN corpus is freed): 2 x 128 mean-SAGE at each cell's published graph,
    built by ``make_graph`` on the host (Cora's 2,708 / 10,556 at d 1,433;
@@ -353,6 +378,7 @@ import collections
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -361,6 +387,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
@@ -1988,23 +2015,75 @@ def _sdpa_grad_ms(q, k, v, dout, subtracted: bool = False) -> tuple:
     return fwd_ms, bwd_ms, timed(lambda: torch.autograd.grad(fwd(), (qg, kg, vg), dout))[0] - fwd_ms
 
 
-def check_attention_bwd(dev, card: str, planted=None) -> dict:
-    """K9's forward with lse and its backward at ATTN_BWD_CASES on the card:
-    the forward's output bit-equal to ``flash_attention``'s and its lse
-    within LSE_TOL of ``torch.logsumexp`` of the plain logits; dq, dk and dv
-    against ``attention_bwd_ref`` on the kernel's own out and lse
-    (``compare_attention_grads`` at ATTN_TOL), bit-equal over two launches;
-    each planted copy (``build_planted_k9_bwd``) must fail every case of
-    its dtypes (K9_BWD_PLANTED).  Times each case: the backward, its plain
-    version, the library's backward (SDPA, ``_sdpa_grad_ms``) and the bound
-    (f32: split TF32, with the CUDA-core FMA bound beside it); the forward
-    with lse, its plain version and SDPA's forward.  Returns {case name:
-    {"err", "lse_err", "ms", "plain_ms", "library_ms", "bound", "fwd_ms",
-    "fwd_plain_ms", "fwd_library_ms", "fwd_bound"}}."""
+def attention_bwd_row(q, k, v, dout, label: str, card: str, extra=None) -> dict:
+    """K9's forward with lse and its backward on q, k, v, dout (on the card)
+    held and timed: the forward's output against ``attention_fwd_ref``'s
+    (``compare_dense`` at ATTN_TOL) and bit-equal to ``flash_attention``'s,
+    its lse within LSE_TOL of the plain version's;
+    dq, dk and dv against ``attention_bwd_ref`` on the kernel's own out and
+    lse (``compare_attention_grads`` at ATTN_TOL), bit-equal over two
+    launches; ``extra(out, lse, want)`` then runs on them (the planted
+    copies).  Times the backward, its plain version, the library's backward
+    (SDPA, ``_sdpa_grad_ms``) and the bound (f32: split TF32, with the
+    CUDA-core FMA bound beside it); the forward with lse, its plain version
+    and SDPA's forward.  Returns {"err", "fwd_err", "lse_err", "ms", "plain_ms",
+    "library_ms", "bound", "fwd_ms", "fwd_plain_ms", "fwd_library_ms",
+    "fwd_bound"}."""
     from repro_torch.kernels.flash_attention import ref
     from repro_torch.kernels.flash_attention.kernel import (flash_attention, flash_attention_bwd,
                                                             flash_attention_fwd)
 
+    dtype = q.dtype
+    out, lse = flash_attention_fwd(q, k, v)
+    same = torch.equal(out, flash_attention(q, k, v))
+    want_out, want_lse = ref.attention_fwd_ref(q, k, v)
+    fwd_err = compare_dense(f"K9 forward with lse {label}", out, want_out, exact=False,
+                            tol=ATTN_TOL[dtype])
+    lse_err = float(((lse - want_lse).abs() / (1 + want_lse.abs())).max())
+    del want_out, want_lse
+    if not same or not lse_err <= LSE_TOL:
+        raise AssertionError(f"K9 forward with lse, {label}: output equal to the plain "
+                             f"entry's {same}, lse off by {lse_err:.3g} (1 + |lse|)")
+    got = flash_attention_bwd(q, k, v, out, lse, dout)
+    again = flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, c) for a, c in zip(got, again)):
+        raise AssertionError(f"K9 backward, {label}: two launches differ")
+    want = ref.attention_bwd_ref(q, k, v, out, lse, dout)
+    err = compare_attention_grads(f"K9 backward {label}", got, want, ATTN_TOL[dtype])
+    if extra is not None:
+        extra(out, lse, want)
+    del got, again, want
+    kind = "bf16" if dtype == torch.bfloat16 else "f32"
+    ms, plain_ms = (timed(fn)[0] for fn in (
+        lambda: flash_attention_bwd(q, k, v, out, lse, dout),
+        lambda: ref.attention_bwd_ref(q, k, v, out, lse, dout)))
+    fwd_ms, fwd_plain_ms = (timed(fn)[0] for fn in (
+        lambda: flash_attention_fwd(q, k, v), lambda: ref.attention_fwd_ref(q, k, v)))
+    lib_fwd, lib_bwd = _sdpa_grad_ms(q, k, v, dout)
+    fwd_bound = attention_bound_ms(q, k, v, "bf16" if kind == "bf16" else "tf32",
+                                   passes=1 if kind == "bf16" else 3)
+    fma = "" if kind == "bf16" else (
+        f", CUDA-core FMA bound {attention_bwd_bound_ms(q, k, 'f32')[0]:.4f} ms")
+    r = {"err": err, "fwd_err": fwd_err, "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms,
+         "library_ms": lib_bwd, "bound": _bwd_bound(q, k), "fwd_ms": fwd_ms,
+         "fwd_plain_ms": fwd_plain_ms, "fwd_library_ms": lib_fwd, "fwd_bound": fwd_bound}
+    print(f"  ok  K9 backward {label}: max_abs_err {err:.3g} (row rule {ATTN_TOL[dtype]}, dq "
+          f"row 0 at its head's scale), forward output max_abs_err {fwd_err:.3g} against the "
+          f"plain version's, lse within {lse_err:.3g} (1 + |lse|), bit-equal over "
+          f"two launches; on {card}: backward {ms:.3f} ms, bound {r['bound'][0]:.4f} ms "
+          f"({r['bound'][1]}){fma}, plain {plain_ms:.3f}, SDPA backward (autograd.grad alone) "
+          f"{r['library_ms']:.3f}; forward with lse {fwd_ms:.3f} ms, bound "
+          f"{fwd_bound[0]:.3f} ({fwd_bound[1]}), plain {fwd_plain_ms:.3f}, SDPA forward "
+          f"{lib_fwd:.3f}")
+    return r
+
+
+def check_attention_bwd(dev, card: str, planted=None) -> dict:
+    """K9's forward with lse and its backward at ATTN_BWD_CASES on the card
+    (``attention_bwd_row``); each planted copy (``build_planted_k9_bwd``)
+    must fail every case of its dtypes (K9_BWD_PLANTED).  Returns {case
+    name: ``attention_bwd_row``'s row}."""
     planted = planted or build_planted_k9_bwd()
     gen = torch.Generator(device=dev).manual_seed(37)
     rows, failed = {}, dict.fromkeys(planted, 0)
@@ -2012,53 +2091,19 @@ def check_attention_bwd(dev, card: str, planted=None) -> dict:
         q, k, v = _qkv(dtype, b, hq, hkv, s, d, gen, dev)
         dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
         label = f"{name} ({_layer_label(q, k)})"
-        out, lse = flash_attention_fwd(q, k, v)
-        same = torch.equal(out, flash_attention(q, k, v))
-        _, want_lse = ref.attention_fwd_ref(q, k, v)
-        lse_err = float(((lse - want_lse).abs() / (1 + want_lse.abs())).max())
-        if not same or not lse_err <= LSE_TOL:
-            raise AssertionError(f"K9 forward with lse, {label}: output equal to the plain "
-                                 f"entry's {same}, lse off by {lse_err:.3g} (1 + |lse|)")
-        got = flash_attention_bwd(q, k, v, out, lse, dout)
-        again = flash_attention_bwd(q, k, v, out, lse, dout)
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, c) for a, c in zip(got, again)):
-            raise AssertionError(f"K9 backward, {label}: two launches differ")
-        want = ref.attention_bwd_ref(q, k, v, out, lse, dout)
-        err = compare_attention_grads(f"K9 backward {label}", got, want, ATTN_TOL[dtype])
-        for copy, bwd in planted.items():
-            if dtype not in K9_BWD_PLANTED[copy][1]:
-                continue
-            try:
-                compare_attention_grads(f"{label}, {copy} copy", bwd(q, k, v, out, lse, dout),
-                                        want, ATTN_TOL[dtype])
-            except AssertionError as fault:
-                failed[copy] += 1
-                print(f"  ok  the {copy} copy of the backward fails: {str(fault)[:160]}")
-        del got, again, want
-        kind = "bf16" if dtype == torch.bfloat16 else "f32"
-        ms, plain_ms = (timed(fn)[0] for fn in (
-            lambda: flash_attention_bwd(q, k, v, out, lse, dout),
-            lambda: ref.attention_bwd_ref(q, k, v, out, lse, dout)))
-        fwd_ms, fwd_plain_ms = (timed(fn)[0] for fn in (
-            lambda: flash_attention_fwd(q, k, v), lambda: ref.attention_fwd_ref(q, k, v)))
-        lib_fwd, lib_bwd = _sdpa_grad_ms(q, k, v, dout)
-        fwd_bound = attention_bound_ms(q, k, v, "bf16" if kind == "bf16" else "tf32",
-                                       passes=1 if kind == "bf16" else 3)
-        fma = "" if kind == "bf16" else (
-            f", CUDA-core FMA bound {attention_bwd_bound_ms(q, k, 'f32')[0]:.4f} ms")
-        rows[name] = {"err": err, "lse_err": lse_err, "ms": ms, "plain_ms": plain_ms,
-                      "library_ms": lib_bwd, "bound": _bwd_bound(q, k),
-                      "fwd_ms": fwd_ms, "fwd_plain_ms": fwd_plain_ms, "fwd_library_ms": lib_fwd,
-                      "fwd_bound": fwd_bound}
-        r = rows[name]
-        print(f"  ok  K9 backward {label}: max_abs_err {err:.3g} (row rule {ATTN_TOL[dtype]}, dq "
-              f"row 0 at its head's scale), lse within {lse_err:.3g} (1 + |lse|), bit-equal over "
-              f"two launches; on {card}: backward {ms:.3f} ms, bound {r['bound'][0]:.4f} ms "
-              f"({r['bound'][1]}){fma}, plain {plain_ms:.3f}, SDPA backward (autograd.grad alone) "
-              f"{r['library_ms']:.3f}; forward with lse {fwd_ms:.3f} ms, bound "
-              f"{fwd_bound[0]:.3f} ({fwd_bound[1]}), plain {fwd_plain_ms:.3f}, SDPA forward "
-              f"{lib_fwd:.3f}")
+
+        def planted_fail(out, lse, want):
+            for copy, bwd in planted.items():
+                if dtype not in K9_BWD_PLANTED[copy][1]:
+                    continue
+                try:
+                    compare_attention_grads(f"{label}, {copy} copy", bwd(q, k, v, out, lse, dout),
+                                            want, ATTN_TOL[dtype])
+                except AssertionError as fault:
+                    failed[copy] += 1
+                    print(f"  ok  the {copy} copy of the backward fails: {str(fault)[:160]}")
+
+        rows[name] = attention_bwd_row(q, k, v, dout, label, card, planted_fail)
     want = {copy: sum(c[1] in dtypes for c in ATTN_BWD_CASES)
             for copy, (_, dtypes) in K9_BWD_PLANTED.items() if copy in planted}
     print(f"K9 backward vs plain on the card: {len(ATTN_BWD_CASES)} cases; failed by the planted "
@@ -2175,6 +2220,7 @@ def main(argv) -> int:
     check_dense(dev, planted_k7, planted_k6, planted_k8)
     check_attention(dev, planted_k9)
     attn_bwd = check_attention_bwd(dev, card, planted_k9b)
+    check_f32_matmul(dev, card)
     from repro_torch.configs import ann_word2vec
     from repro_torch.core import eval as ev
 
@@ -2212,6 +2258,8 @@ def main(argv) -> int:
     drive_sharded(dev, card, x, qx, gt_i, depth, k, config, masks)
     kernels += drive_lm(dev, card)
     kernels += drive_train(dev, card, attn_bwd)
+    kernels += drive_sharded_train(dev, card)
+    kernels += drive_knn_lm(dev, card)
     peak = max(peak_segments, torch.cuda.max_memory_allocated())
     del x, qx, gt_i, md, masks  # the ANN corpus: the model phases get the card
     gc.collect()
@@ -7721,7 +7769,11 @@ def drive_lm(dev, card: str, cfg=None) -> list:
 TRAIN_SEED = 37  # the training phase's weights and batches
 TRAIN_CUT = (2, 1, 256)  # hold (b): layers, batch and sequence of the full-width step
 TRAIN_LAYERS = 8  # (c): 1.10e9 parameters, 17.6 GB of f32 state; 32 layers would take 61.1 GB
-TRAIN_STEPS, TRAIN_EVERY, TRAIN_KILL = 24, 12, 17  # (c): steps, checkpoint period, crash step
+# (c): steps, checkpoint period, crash step.  10 steps, not a multiple of 6: run
+# A saves at step 6 and at its end, run B at step 6 before its crash and at its
+# end (the crash and resume took 113-133 s at 24 steps, and each 13.2 GB save
+# costs 10-17 s of host copy and disk write)
+TRAIN_STEPS, TRAIN_EVERY, TRAIN_KILL = 10, 6, 8
 # (c)'s driver flags: AdamW on a cosine schedule (lr 3e-4, warm-up 4), a global
 # batch of 8 x 1,024 tokens in 2 microbatches of 4.
 TRAIN_FLAGS = ["--steps", str(TRAIN_STEPS), "--global-batch", "8", "--seq-len", "1024",
@@ -7815,6 +7867,28 @@ def _train_trace(cfg, dev, card: str) -> dict:
             "wall_ms": wall}
 
 
+def k9_entries(r: dict, path: str, counts: dict) -> list:
+    """The kernels-line entries of K9's forward with lse and of its backward
+    on ``path``: ``attention_bwd_row``'s row ``r`` at the path's shape and
+    the path's launch ``counts``."""
+    source = "src/repro_torch/kernels/flash_attention/csrc/"
+    return [
+        {"name": f"flash_attention_fwd/{path}", "route": "cuda",
+         "source": source + "flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:74",
+         "launches": counts["flash_attention_fwd"], "max_abs_err": r["fwd_err"],
+         "ms": r["fwd_ms"],
+         "plain_ms": r["fwd_plain_ms"], "bound_ms": r["fwd_bound"][0],
+         "bound_by": r["fwd_bound"][1], "library_ms": r["fwd_library_ms"]},
+        {"name": f"flash_attention_bwd/{path}", "route": "cuda",
+         "source": source + "flash_attention_bwd.cu",
+         "replaces": "src/repro/kernels/flash_attention/kernel.py:74 (its gradient; the TPU "
+                     "kernel has no backward)",
+         "launches": counts["flash_attention_bwd"], "max_abs_err": r["err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+         "library_ms": r["library_ms"]}]
+
+
 def drive_train(dev, card: str, attn_rows: dict, cfg=None, layers: int = TRAIN_LAYERS) -> list:
     """Training of phi3-mini-3.8b at full width (``cfg`` overrides for a
     rehearsal), weights drawn from TRAIN_SEED by ``init_params``.  (b) One
@@ -7824,7 +7898,7 @@ def drive_train(dev, card: str, attn_rows: dict, cfg=None, layers: int = TRAIN_L
     launched on every layer.  (c) ``launch.train.train`` on ``layers`` layers
     (TRAIN_FLAGS): run A, TRAIN_STEPS steps with a checkpoint every
     TRAIN_EVERY; run B crashed after step TRAIN_KILL (SystemExit 42) and
-    resumed, which must say "resumed from step 12" and end within
+    resumed, which must say "resumed from step TRAIN_EVERY" and end within
     RESTART_TOL of A's last loss; every loss finite, A's last below its
     first.  The counts of K9's launches are set to 0 before run A and read
     after it: the forward with lse runs twice a layer a microbatch (the
@@ -7834,7 +7908,6 @@ def drive_train(dev, card: str, attn_rows: dict, cfg=None, layers: int = TRAIN_L
     ``check_attention_bwd``'s timings; returns the kernels-line entries of
     K9's forward with lse and of its backward."""
     import dataclasses as dc
-    import io
     import tempfile
 
     from repro_torch.configs import phi3_mini_3_8b
@@ -7981,22 +8054,7 @@ def drive_train(dev, card: str, attn_rows: dict, cfg=None, layers: int = TRAIN_L
           f"{[round(x, 2) for x in io_s['restore']]} s (host clock)")
     trace = _train_trace(big, dev, card)
 
-    r = attn_rows[ATTN_BWD_CASES[0][0]]
-    source = "src/repro_torch/kernels/flash_attention/csrc/"
-    entries = [
-        {"name": "flash_attention_fwd/phi3-mini-train", "route": "cuda",
-         "source": source + "flash_attention.cu",
-         "replaces": "src/repro/kernels/flash_attention/kernel.py:74",
-         "launches": counts["flash_attention_fwd"], "max_abs_err": r["lse_err"], "ms": r["fwd_ms"],
-         "plain_ms": r["fwd_plain_ms"], "bound_ms": r["fwd_bound"][0],
-         "bound_by": r["fwd_bound"][1], "library_ms": r["fwd_library_ms"]},
-        {"name": "flash_attention_bwd/phi3-mini-train", "route": "cuda",
-         "source": source + "flash_attention_bwd.cu",
-         "replaces": "src/repro/kernels/flash_attention/kernel.py:74 (its gradient; the TPU "
-                     "kernel has no backward)",
-         "launches": counts["flash_attention_bwd"], "max_abs_err": r["err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-         "library_ms": r["library_ms"]}]
+    entries = k9_entries(attn_rows[ATTN_BWD_CASES[0][0]], "phi3-mini-train", counts)
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated() - held
@@ -8005,6 +8063,440 @@ def drive_train(dev, card: str, attn_rows: dict, cfg=None, layers: int = TRAIN_L
     print(f"training phase: {time.perf_counter() - t_phase:.1f} s (host clock, {card}); K9 a "
           f"step in the trace: forward {trace.get('fwd_ms', float('nan')):.2f} ms, backward "
           f"{trace.get('bwd_ms', float('nan')):.2f} ms")
+    return entries
+
+
+# --------------------------------------------------------------------------
+# C3: f32_matmul under the caller's TF32 settings
+# --------------------------------------------------------------------------
+
+F32_RULE = 2.0**-20  # of sum |a| |b|: 16 f32 ulps of it; a TF32 product misses it by far
+F32_THREAD_CALLS = 50
+
+
+def _f32_rule(a, b, c) -> bool:
+    """``c`` within F32_RULE of sum |a| |b| of each element from the float64
+    product of f32 ``a`` and ``b``."""
+    want = a.double() @ b.double()
+    return bool(((c.double() - want).abs() <= F32_RULE * (a.double().abs() @ b.double().abs()))
+                .all())
+
+
+def check_f32_matmul(dev, card: str) -> None:
+    """``common.f32_matmul`` keeps TF32 out of its product whatever the
+    caller set: (1) with ``fp32_precision = "tf32"`` (where torch has it),
+    which makes a read of ``allow_tf32`` raise; (2) with ``allow_tf32 =
+    True``, in two threads at once, F32_THREAD_CALLS products each.  Each
+    product is held to f32's rule (``_f32_rule``) and a plain product under
+    the same setting must miss it; the caller's setting must read the same
+    after.  The settings are restored as they were."""
+    from repro_torch.kernels.common import f32_matmul
+
+    matmul = torch.backends.cuda.matmul
+    gen = torch.Generator(device=dev).manual_seed(41)
+    a, b = (torch.randn(shape, generator=gen, device=dev) for shape in ((256, 1024), (1024, 256)))
+    pairs = [tuple(torch.randn(shape, generator=gen, device=dev)
+                   for shape in ((128, 1024), (1024, 128))) for _ in range(2)]
+    prev = matmul.allow_tf32  # main set it through this flag
+    lines = []
+    try:
+        if hasattr(matmul, "fp32_precision"):
+            matmul.fp32_precision = "tf32"
+            plain, kept = _f32_rule(a, b, a @ b), _f32_rule(a, b, f32_matmul(a, b))
+            after = matmul.fp32_precision
+            if plain or not kept or after != "tf32":
+                raise AssertionError(f"C3, fp32_precision 'tf32': plain product within f32's rule "
+                                     f"{plain}, f32_matmul within it {kept}, setting after {after}")
+            lines.append("fp32_precision 'tf32': f32_matmul within f32's rule, a plain product "
+                         "outside it, the setting 'tf32' after")
+        else:
+            lines.append(f"torch {torch.__version__} has no fp32_precision: that case not run")
+        matmul.allow_tf32 = True
+        results = [[] for _ in pairs]
+
+        def work(i):
+            x, y = pairs[i]
+            for _ in range(F32_THREAD_CALLS):
+                results[i].append(_f32_rule(x, y, f32_matmul(x, y)))
+
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(pairs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        plain = _f32_rule(*pairs[0], pairs[0][0] @ pairs[0][1])
+        if (any(t.is_alive() for t in threads) or plain or matmul.allow_tf32 is not True
+                or [sum(r) for r in results] != [F32_THREAD_CALLS] * len(pairs)):
+            raise AssertionError(f"C3, allow_tf32 True in two threads: products within f32's "
+                                 f"rule {[sum(r) for r in results]} of {F32_THREAD_CALLS} each, "
+                                 f"plain within it {plain}, flag after {matmul.allow_tf32}")
+        lines.append(f"allow_tf32 True, two threads x {F32_THREAD_CALLS} products: every one "
+                     "within f32's rule, a plain product outside it, the flag True after")
+    finally:
+        matmul.allow_tf32 = prev
+    print(f"C3 (f32_matmul's precision switch) on {card}, torch {torch.__version__}: "
+          + "; ".join(lines) + f" (rule: {F32_RULE:.3g} of sum |a| |b| from the float64 product)")
+
+
+# --------------------------------------------------------------------------
+# Sharded training: data parallel (psum and compressed_psum) and GPipe
+# --------------------------------------------------------------------------
+
+SHARD_TRAIN_SEED = 41  # the sharded phase's weights, batches and cotangents
+DP_SHARDS, DP_LAYERS, DP_BATCH, DP_SEQ = 4, 4, 8, 1024  # (a): 4 x cuda:0, 2 x 1,024 a shard
+PP_STAGES, PP_LAYERS, PP_MICRO, PP_SEQ = 4, 8, 4, 1024  # (b): two layers a stage, M 4 of 1 x 1,024
+DP_LOSS_RTOL = 2e-4  # tests/test_distributed.py:191's
+# compressed_psum's holds: the mean within half a grid step plus f32 rounding
+# (the exact mean's sum and the dequantization: a few hundred ulps of the
+# step's 127), the feedback identity within 16 ulps of its terms' magnitude
+CP_GRID_SLACK = 2.0**-14
+CP_FEEDBACK_ULPS = 2.0**-20
+
+
+def _named_leaves(params) -> list:
+    from repro_torch.models import transformer as tfm
+
+    leaves = []
+    tfm.tree_map(lambda n, v: leaves.append((n, v)), params)
+    return leaves
+
+
+def _sync_s(fn):
+    """(fn(), host seconds to its end on the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _hold_compressed(names, g1, r1, out1, g2, r2, out2, n: int) -> tuple:
+    """compressed_psum's holds leaf by leaf (the first call from a zero
+    residual, so its g32 is the gradient): (1) the first mean within half a
+    grid step of the exact mean; (2) the first residual within half a grid
+    step of 0 and bit-equal to g - q scale rounded once to f32, with q =
+    clip(round(g / scale), -127, 127) written out here from the definition
+    (not through ``compression``'s own functions); (3) over both
+    calls, n (out1 + out2) + sum_s r2 equal to sum_s (g1 + g2) within
+    CP_FEEDBACK_ULPS of the terms' magnitude.  Returns (the largest first
+    error in grid steps, the largest feedback gap in ulps of the
+    magnitude)."""
+    from repro_torch.core import distributed
+
+    worst_step, worst_fb = 0.0, 0.0
+    for name in names:
+        gs = [g[name].float() for g in g1]
+        scale = torch.clamp_min(distributed.pmax([x.abs().max() for x in gs]), 1e-12) / 127.0
+        exact = distributed.psum(gs) / n
+        err = float((out1[0][name] - exact).abs().max())
+        if err > float(scale) * (0.5 + CP_GRID_SLACK):
+            raise AssertionError(f"compressed_psum {name}: mean off by {err:.4g}, past half the "
+                                 f"grid step {float(scale):.4g}")
+        worst_step = max(worst_step, err / float(scale))
+        for s, x in enumerate(gs):
+            q = torch.clamp(torch.round(x / scale), -127, 127).double()
+            want = (x.double() - q * scale.double()).float()
+            half = float(r1[s][name].abs().max()) / float(scale)
+            if not torch.equal(r1[s][name], want) or half > 0.5 + CP_GRID_SLACK:
+                raise AssertionError(f"compressed_psum {name}: shard {s}'s residual is not "
+                                     f"g32 - q scale (largest |r| {half:.4g} grid steps)")
+            del q, want
+        del exact, gs
+        lhs = n * (out1[0][name].double() + out2[0][name].double())
+        mag = n * (out1[0][name].double().abs() + out2[0][name].double().abs())
+        rhs = torch.zeros_like(lhs)
+        for s in range(n):
+            lhs += r2[s][name].double()
+            rhs += g1[s][name].double() + g2[s][name].double()
+            mag += (r2[s][name].double().abs() + r1[s][name].double().abs()
+                    + g1[s][name].double().abs() + g2[s][name].double().abs())
+        gap = float(((lhs - rhs).abs() / mag.clamp_min(1e-30)).max())
+        if gap > CP_FEEDBACK_ULPS:
+            raise AssertionError(f"compressed_psum {name}: error feedback off by {gap:.3g} of the "
+                                 f"terms' magnitude (bound {CP_FEEDBACK_ULPS:.3g})")
+        worst_fb = max(worst_fb, gap)
+        del lhs, rhs, mag
+    return worst_step, worst_fb
+
+
+def _data_parallel(dev, card: str, cfg) -> list:
+    """(a) of ``drive_sharded_train``; returns its K9 kernels-line entries."""
+    import dataclasses as dc
+
+    from repro_torch.core import distributed
+    from repro_torch.data import lm as lm_data
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import compression
+
+    dcfg = dc.replace(cfg, n_layers=DP_LAYERS)
+    params = tfm.init_params(dcfg, torch.Generator(device=dev).manual_seed(SHARD_TRAIN_SEED),
+                             device=dev)
+    leaves = [(n, v.requires_grad_()) for n, v in _named_leaves(params)]
+    names = [n for n, _ in leaves]
+    batch = lm_data.batch_at(lm_data.LmDataConfig(vocab=cfg.vocab, seq_len=DP_SEQ,
+                                                  global_batch=DP_BATCH, seed=SHARD_TRAIN_SEED), 0)
+    mesh = distributed.make_mesh((DP_SHARDS,), ("data",), device=dev)
+    toks, labels = (distributed.shard_rows(mesh, batch[k], ("data",)) for k in ("tokens", "labels"))
+
+    def shard_grads(t, y):
+        loss = tfm.loss_fn(params, t, y, dcfg)
+        return loss.detach(), dict(zip(names, torch.autograd.grad(loss, [v for _, v in leaves])))
+
+    _reset_launches()
+    shards = [_sync_s(lambda: shard_grads(t, y)) for t, y in zip(toks, labels)]
+    counts = _launches()
+    want = {"flash_attention_fwd": 2 * DP_LAYERS * DP_SHARDS,
+            "flash_attention_bwd": DP_LAYERS * DP_SHARDS}
+    if any(counts[k] != want.get(k, 0) for k in counts):
+        raise AssertionError(f"(a): launches {counts}, want {want} (the checkpointed layers' "
+                             "recompute: two forwards with lse a layer a shard)")
+    losses = [loss for (loss, _), _ in shards]
+    g1 = [g for (_, g), _ in shards]
+    grad_ms = [1e3 * dt for _, dt in shards]
+    del shards
+    mean, psum_s = _sync_s(lambda: {n: distributed.psum([g[n] for g in g1]) / DP_SHARDS
+                                    for n in names})
+    (loss_all, g_all), whole_s = _sync_s(lambda: shard_grads(batch["tokens"].to(dev),
+                                                             batch["labels"].to(dev)))
+    loss_dp = float(distributed.psum(losses) / DP_SHARDS)
+    gaps = {n: _gap(mean[n], g_all[n]) for n in names}
+    worst = max(gaps, key=lambda n: gaps[n][0])
+    if not (abs(loss_dp - float(loss_all)) <= DP_LOSS_RTOL * abs(float(loss_all))
+            and all(a <= LM_GRAD_TOL and m <= 2 * LM_GRAD_TOL for a, m in gaps.values())):
+        raise AssertionError(f"(a): loss {loss_dp} against the whole batch's {float(loss_all)}, "
+                             f"gradient gaps {gaps}")
+    del mean, g_all
+
+    zero = [compression.init_residual(g) for g in g1]
+    (out1, r1), cp1_s = _sync_s(lambda: compression.compressed_psum(g1, zero, mesh, "data"))
+    del zero
+    g2 = [g1[(s + 1) % DP_SHARDS] for s in range(DP_SHARDS)]  # other gradients, no new memory
+    (out2, r2), cp2_s = _sync_s(lambda: compression.compressed_psum(g2, r1, mesh, "data"))
+    step, fb = _hold_compressed(names, g1, r1, out1, g2, r2, out2, DP_SHARDS)
+    n_params = sum(v.numel() for _, v in leaves)
+    wire_f32, wire_int8 = (compression.wire_bytes(params, c) for c in (False, True))
+    print(f"  (a) data parallel, {dcfg.name} at full width, {DP_LAYERS} layers ({n_params:,} "
+          f"parameters), {DP_BATCH} x {DP_SEQ} tokens over {DP_SHARDS} shards on one card "
+          f"(make_mesh(({DP_SHARDS},), ('data',)): the shards run one after another): mean of the "
+          f"shards' losses {loss_dp:.6f}, the whole batch's {float(loss_all):.6f} (rtol "
+          f"{DP_LOSS_RTOL}); psum / {DP_SHARDS} of the shards' gradients against the whole batch's: "
+          f"worst leaf {worst} error norm {gaps[worst][0]:.4g} of its norm, largest error "
+          f"{max(g[1] for g in gaps.values()):.4g} of its largest (tolerance {LM_GRAD_TOL} / "
+          f"{2 * LM_GRAD_TOL}); compressed_psum: first mean within {step:.4f} grid steps of the "
+          f"exact mean (bound 0.5), residuals g32 - q scale bit for bit (q written out from its "
+          f"definition) and within half a grid step, error feedback over two reductions"
+          f" within {fb:.3g} of the terms' magnitude (bound {CP_FEEDBACK_ULPS:.3g}); "
+          f"K9 launches {counts['flash_attention_fwd']} forward with lse, "
+          f"{counts['flash_attention_bwd']} backward")
+    print(f"  (a) on {card}, host clock: each shard's loss and gradients "
+          f"{[round(x, 1) for x in grad_ms]} ms, the whole batch's {1e3 * whole_s:.1f} ms; psum / "
+          f"{DP_SHARDS} {1e3 * psum_s:.1f} ms, compressed_psum {1e3 * cp1_s:.1f} ms (from a zero "
+          f"residual), {1e3 * cp2_s:.1f} ms (with feedback); wire_bytes a hop: f32 {wire_f32:,}, "
+          f"compressed {wire_int8:,} (the reference's count, 1 byte a parameter; the payload is "
+          f"summed as int32, {4 * n_params:,} bytes)")
+    del g1, g2, out1, out2, r1, r2, params, leaves
+    gen = torch.Generator(device=dev).manual_seed(SHARD_TRAIN_SEED)
+    b = DP_BATCH // DP_SHARDS
+    q, k, v = _qkv(torch.bfloat16, b, cfg.n_heads, cfg.n_kv_heads, DP_SEQ, cfg.dh, gen, dev)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    row = attention_bwd_row(q, k, v, dout, f"data-parallel shard ({_layer_label(q, k)})", card)
+    return k9_entries(row, "phi3-mini-data-parallel", counts)
+
+
+def _gpipe(dev, card: str, cfg) -> list:
+    """(b) of ``drive_sharded_train``; returns its K9 kernels-line entries."""
+    import dataclasses as dc
+
+    from repro_torch.core import distributed
+    from repro_torch.data import lm as lm_data
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import pipeline
+
+    pcfg = dc.replace(cfg, n_layers=PP_LAYERS)
+    gen = torch.Generator(device=dev).manual_seed(SHARD_TRAIN_SEED)
+    params = tfm.init_params(pcfg, gen, device=dev)
+    tokens = lm_data.batch_at(lm_data.LmDataConfig(
+        vocab=cfg.vocab, seq_len=PP_SEQ, global_batch=PP_MICRO, seed=SHARD_TRAIN_SEED), 1)[
+        "tokens"].to(dev).reshape(PP_MICRO, 1, PP_SEQ)
+    with torch.no_grad():
+        x = tfm._embed(params, tokens, pcfg)  # (M, 1, S, d) in bf16
+    layers = params["layers"]
+    del params
+    leaves = [(n, v.requires_grad_()) for n, v in _named_leaves(layers)]
+    x.requires_grad_()
+    wrt = [v for _, v in leaves] + [x]
+    dout = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+    positions = torch.arange(PP_SEQ, device=dev).expand(1, PP_SEQ)
+    mesh = distributed.make_mesh((PP_STAGES,), ("pipe",), device=dev)
+    gpipe = pipeline.build_gpipe_fn(
+        mesh, lambda h, layer: tfm._dense_layer(h, layer, pcfg, positions), PP_STAGES)
+
+    def pipelined():
+        out = gpipe(layers, x)
+        return out.detach(), torch.autograd.grad(out, wrt, dout)
+
+    def sequential():  # the same layers, one microbatch at a time, in order
+        out = torch.stack([tfm._run_layers({"layers": layers}, x[j], pcfg)
+                           for j in range(PP_MICRO)])
+        return out.detach(), torch.autograd.grad(out, wrt, dout)
+
+    _reset_launches()
+    (out, grads), _ = _sync_s(pipelined)
+    counts = _launches()
+    want = {"flash_attention_fwd": 2 * PP_LAYERS * PP_MICRO,
+            "flash_attention_bwd": PP_LAYERS * PP_MICRO}
+    if any(counts[k] != want.get(k, 0) for k in counts):
+        raise AssertionError(f"(b): launches {counts}, want {want} (inactive ticks skipped: each "
+                             "stage's layers M times forward, again in the recompute, M times "
+                             "backward)")
+    seq_out, seq_grads = sequential()
+    same = torch.equal(out, seq_out)
+    gaps = {n: _gap(g, w) for n, g, w in zip([n for n, _ in leaves] + ["input"], grads,
+                                               seq_grads)}
+    worst = max(gaps, key=lambda n: gaps[n][0])
+    if not same or not all(a <= LM_GRAD_TOL and m <= 2 * LM_GRAD_TOL for a, m in gaps.values()):
+        raise AssertionError(f"(b): output bit-equal to the sequential run's {same}, gradient "
+                             f"gaps {gaps}")
+    del grads, seq_grads, out, seq_out
+    times = {}
+    for name, fn in 2 * (("sequential", sequential), ("gpipe", pipelined), ("gpipe", pipelined),
+                         ("sequential", sequential)):
+        times.setdefault(name, []).append(1e3 * _sync_s(fn)[1])
+    med = {name: statistics.median(t) for name, t in times.items()}
+    print(f"  (b) GPipe, {pcfg.name} at full width, {PP_LAYERS} layers over {PP_STAGES} stages "
+          f"(make_mesh(({PP_STAGES},), ('pipe',)), two layers a stage), M = {PP_MICRO} "
+          f"microbatches of 1 x {PP_SEQ} embedded tokens: output bit-equal to the layers run one "
+          f"microbatch at a time ({same}); gradients of the layers and the input against that "
+          f"run's: worst {worst} error norm {gaps[worst][0]:.4g} of its norm, largest error "
+          f"{max(g[1] for g in gaps.values()):.4g} of its largest (tolerance {LM_GRAD_TOL} / "
+          f"{2 * LM_GRAD_TOL}); K9 launches {counts['flash_attention_fwd']} forward with lse, "
+          f"{counts['flash_attention_bwd']} backward (inactive ticks skipped)")
+    print(f"  (b) on {card}, host clock, forward and backward in turns (both run once "
+          f"before): GPipe {[round(t, 1) for t in times['gpipe']]} ms (median "
+          f"{med['gpipe']:.1f}), sequential {[round(t, 1) for t in times['sequential']]} ms "
+          f"(median {med['sequential']:.1f}); bubble_fraction({PP_STAGES}, "
+          f"{PP_MICRO}) = {pipeline.bubble_fraction(PP_STAGES, PP_MICRO):.4f}; on one card the "
+          "stages run one after another, so no speed-up is expected")
+    del layers, leaves, x, wrt
+    q, k, v = _qkv(torch.bfloat16, 1, cfg.n_heads, cfg.n_kv_heads, PP_SEQ, cfg.dh, gen, dev)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    row = attention_bwd_row(q, k, v, dout, f"GPipe microbatch ({_layer_label(q, k)})", card)
+    return k9_entries(row, "phi3-mini-gpipe", counts)
+
+
+def drive_sharded_train(dev, card: str, cfg=None) -> list:
+    """Sharded training of phi3-mini-3.8b at full width (``cfg`` overrides
+    for a rehearsal), weights drawn from SHARD_TRAIN_SEED by
+    ``init_params``, batches from ``data/lm.py``.  (a) Data parallel on
+    ``make_mesh((DP_SHARDS,), ("data",))``: ``shard_rows`` splits DP_BATCH
+    x DP_SEQ tokens, each shard's loss and gradients come from ``loss_fn``
+    (DP_LAYERS layers); the mean of the losses against the whole batch's
+    (DP_LOSS_RTOL), ``psum`` / S of the gradients against the whole
+    batch's (LM_GRAD_TOL a leaf), and ``compressed_psum`` twice, with error
+    feedback (``_hold_compressed``).  (b) GPipe on ``make_mesh((PP_STAGES,),
+    ("pipe",))``: PP_LAYERS layers, PP_MICRO microbatches of 1 x PP_SEQ
+    embedded tokens; the output bit-equal to the layers run one microbatch
+    at a time, the gradients of the layers and the input within
+    LM_GRAD_TOL.  K9's launches are counted on each path.  Returns the
+    kernels-line entries of K9's forward with lse and backward at each
+    path's shapes."""
+    from repro_torch.configs import phi3_mini_3_8b
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = cfg or phi3_mini_3_8b.make_model()
+    entries = _data_parallel(dev, card, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entries += _gpipe(dev, card, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    left = torch.cuda.memory_allocated() - held
+    if left > 1e9:
+        raise AssertionError(f"sharded training phase: {left / 1e9:.3f} GB still allocated after it")
+    print(f"sharded training phase: {time.perf_counter() - t_phase:.1f} s (host clock, {card}); "
+          f"peak device memory {peak / 1e9:.1f} GB (with {held / 1e9:.1f} GB held before it)")
+    return entries
+
+
+# --------------------------------------------------------------------------
+# The kNN-LM example
+# --------------------------------------------------------------------------
+
+KNN_DEPTH = 64  # the example's match depth (examples/knn_lm_torch.py)
+
+
+def drive_knn_lm(dev, card: str, argv=("--device", "cuda")) -> list:
+    """``examples/knn_lm_torch.py``'s ``main`` (the reference's 200 steps
+    of the micro LM, the datastore of 8,192 hidden states, the fake-words
+    search at depth 64 with rerank, the NLL at three lambdas): every NLL
+    finite, lambda 0 the LM's own cross-entropy (1e-5), K9 (forward with
+    lse, backward, the plain forward) and K1 launched on its run.  Then K9
+    at the micro LM's training shape and K1 classic at the datastore's
+    (the index and queries of the run's search) against their plain
+    versions and timed.  Returns their kernels-line entries."""
+    import importlib.util
+
+    from repro_torch.core import fakewords
+    from repro_torch.kernels.fused_topk import ref
+    from repro_torch.kernels.fused_topk.kernel import fused_topk
+    from repro_torch.launch.train import micro_lm_config
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "knn_lm_torch", os.path.join(ROOT, "examples", "knn_lm_torch.py"))
+    knn = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(knn)
+    _reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = knn.main(list(argv))
+    torch.cuda.synchronize()
+    counts = _launches()
+    run_s = time.perf_counter() - t_phase
+    print("\n".join("  | " + line for line in out.getvalue().splitlines()))
+    nlls = res["nll"]
+    ran = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention", "fused_topk")
+    if (not all(math.isfinite(x) for x in nlls.values())
+            or abs(nlls[0.0] - res["lm_nll"]) > 1e-5 * res["lm_nll"]
+            or any(counts[k] <= 0 for k in ran) or any(counts[k] for k in counts if k not in ran)):
+        raise AssertionError(f"kNN-LM: NLLs {nlls}, the LM's own {res['lm_nll']}, launches "
+                             f"{counts}")
+    index, q_tf = res["index"], res["q_tf"]
+    qv = fakewords.classic_query(index, q_tf)
+    docs, n = index.scored, index.scored.shape[0]
+    err = compare("kNN-LM K1 classic vs plain", fused_topk(qv, docs, KNN_DEPTH),
+                  ref.fused_topk_ref(qv, docs, KNN_DEPTH + 1), exact=False)
+    ms = cuda_ms(lambda: fused_topk(qv, docs, KNN_DEPTH))
+    plain_ms = cuda_ms(lambda: ref.fused_topk_ref(qv, docs, KNN_DEPTH))
+    lib_ms = cuda_ms(lambda: torch.topk(torch.matmul(qv, docs.T), KNN_DEPTH))
+    bound, bound_by = bound_ms(qv, docs, n, KNN_DEPTH, "bf16")
+    print(f"fused_topk/knn-lm (bf16, B={qv.shape[0]}, N={n}, T={qv.shape[1]}, depth={KNN_DEPTH}): "
+          f"kernel {ms:.4f} ms, bound {bound:.4f} ms ({bound_by}, bf16), plain {plain_ms:.4f} ms, "
+          f"library {lib_ms:.4f} ms (torch.topk(matmul)); max_abs_err {err:.3g}; launches on "
+          f"the example's run {counts['fused_topk']}; {card}")
+    cfg = micro_lm_config()
+    gen = torch.Generator(device=dev).manual_seed(SHARD_TRAIN_SEED)
+    q, k, v = _qkv(torch.bfloat16, 8, cfg.n_heads, cfg.n_kv_heads, 64, cfg.dh, gen, dev)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    row = attention_bwd_row(q, k, v, dout, f"kNN-LM micro LM step ({_layer_label(q, k)})", card)
+    entries = k9_entries(row, "knn-lm-micro-train", counts)
+    entries.append({
+        "name": "fused_topk/knn-lm", "route": "cuda",
+        "source": "src/repro_torch/kernels/fused_topk/csrc/fused_topk.cu",
+        "replaces": "src/repro/kernels/fused_topk/kernel.py:288",
+        "launches": counts["fused_topk"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms})
+    print(f"kNN-LM phase: {time.perf_counter() - t_phase:.1f} s (host clock, {card}; the "
+          f"example's run {run_s:.1f} s); NLL at lambda "
+          + ", ".join(f"{lam}: {x:.4f}" for lam, x in nlls.items())
+          + f" (the LM's own {res['lm_nll']:.4f}); launches on the run: K9 forward with lse "
+          f"{counts['flash_attention_fwd']}, backward {counts['flash_attention_bwd']}, plain "
+          f"forward {counts['flash_attention']}, K1 {counts['fused_topk']}")
     return entries
 
 

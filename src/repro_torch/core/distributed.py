@@ -24,11 +24,12 @@ single-controller: one process holds the mesh, and ``build_sharded`` /
 repeat), and a sharded value is a list with one tensor per shard, in flat
 order, each on its shard's device.  ``shard_map`` becomes
 :func:`shard_map`, a loop that calls the per-shard function on each
-shard's device; :func:`psum`, :func:`all_gather` and :func:`ppermute` are
-plain functions over such lists, and a move between two shards on one card
-is no copy.  :func:`make_mesh` places the shards round-robin over the
-visible cards: on one H100, 4 shards are 4 x ``cuda:0`` and run one after
-another on its stream; on a host with more cards, one shard a card.  A
+shard's device; :func:`psum`, :func:`pmax`, :func:`all_gather` and
+:func:`ppermute` are plain functions over such lists, and a move between
+two shards on one card is no copy.  :func:`make_mesh` places the shards
+round-robin over the visible cards: on one H100, 4 shards are 4 x
+``cuda:0`` and run one after another on its stream; on a host with more
+cards, one shard a card.  A
 process group would need a rank a shard, and NCCL puts no two ranks on one
 card.  Multi-host meshes are not ported.
 
@@ -160,20 +161,27 @@ def flat_axis_index(mesh: Mesh, axes: Sequence[str], coords: Dict[str, int]) -> 
     return idx
 
 
-def shard_devices(mesh: Mesh, axes: Sequence[str]) -> List[torch.device]:
+def device_at(mesh: Mesh, coords: Dict[str, int]) -> torch.device:
+    """The device at mesh position ``coords`` (axis name -> index; an axis
+    left out is at index 0)."""
+    pos = 0
+    for name in mesh.axis_names:
+        pos = pos * mesh.shape[name] + coords.get(name, 0)
+    return mesh.devices[pos]
+
+
+def shard_devices(mesh: Mesh, axes: Sequence[str], at: Optional[Dict[str, int]] = None
+                  ) -> List[torch.device]:
     """The device of each shard over ``axes``, in flat order.  Mesh axes
-    outside ``axes`` are replicas; the shards run on the first replica (at
-    index 0 of each such axis)."""
+    outside ``axes`` are replicas; the shards run on the replica at ``at``
+    (axis name -> index; index 0 of each axis it leaves out)."""
     axes = tuple(axes)
     out = []
     for flat in range(flat_axis_size(mesh, axes)):
-        coords = dict.fromkeys(mesh.axis_names, 0)
+        coords = dict(at or {})
         for name in reversed(axes):
             flat, coords[name] = divmod(flat, mesh.shape[name])
-        pos = 0
-        for name in mesh.axis_names:
-            pos = pos * mesh.shape[name] + coords[name]
-        out.append(mesh.devices[pos])
+        out.append(device_at(mesh, coords))
     return out
 
 
@@ -229,6 +237,14 @@ def psum(xs: Sequence):
     for x in xs[1:]:
         total = total + (_to(x, total.device) if isinstance(x, torch.Tensor) else x)
     return total
+
+
+def pmax(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The elementwise max over the shards, on shard 0's device."""
+    out = xs[0]
+    for x in xs[1:]:
+        out = torch.maximum(out, _to(x, out.device))
+    return out
 
 
 def all_gather(xs: Sequence[torch.Tensor], axis: int = 0, tiled: bool = True) -> torch.Tensor:

@@ -14,12 +14,14 @@ unchanged one is reused within a checkout.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Any, Dict, Iterable, Optional, Sequence, Tuple
 
@@ -118,18 +120,39 @@ def row_alignment(x: torch.Tensor) -> int:
     return 1
 
 
+# Held over the switch of cuBLAS's f32 precision and the product under it:
+# the setting is process-wide, and another thread's product (the serving
+# batcher's, say) must not run between the switch and its restore.
+_F32_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _full_f32():
+    """cuBLAS's f32 products in full f32 (no TF32) inside, the caller's own
+    setting restored after.  Where torch has ``fp32_precision`` it reads and
+    sets that alone (reading ``allow_tf32`` raises once a caller has set the
+    new setting); else ``allow_tf32``."""
+    matmul = torch.backends.cuda.matmul
+    name, full = (("fp32_precision", "ieee") if hasattr(matmul, "fp32_precision")
+                  else ("allow_tf32", False))
+    with _F32_LOCK:
+        prev = getattr(matmul, name)
+        setattr(matmul, name, full)
+        try:
+            yield
+        finally:
+            setattr(matmul, name, prev)
+
+
 def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` (batched or not) with both operands widened to f32, in full
-    f32: on the card TF32 is switched off for this product only (the
-    caller's setting is restored)."""
+    f32: on the card under :func:`_full_f32`, so TF32 never enters it; on
+    the CPU no setting is read."""
     a, b = a.float(), b.float()
-    if not (a.is_cuda and torch.backends.cuda.matmul.allow_tf32):
+    if not a.is_cuda:
         return a @ b
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with _full_f32():
         return a @ b
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = True
 
 
 def stable_topk(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

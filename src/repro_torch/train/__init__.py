@@ -1,2 +1,3 @@
-"""Training: optimizers, the train step, checkpoints (port of
-``repro/train/``: ``optimizer``, ``train_loop``, ``checkpoint``)."""
+"""Training: optimizers, the train step, checkpoints, gradient compression
+and GPipe (port of ``repro/train/``: ``optimizer``, ``train_loop``,
+``checkpoint``, ``compression``, ``pipeline``)."""

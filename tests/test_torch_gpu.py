@@ -3,13 +3,15 @@ and the quantized K4/K5) against their plain versions, and the searches on
 the card (dense, blockmax, lexical LSH, the quantized read path, the k-d
 tree's scan and tree) against the port's CPU route, and save / load there;
 K9's backward and a training step of the LM on the card; GraphSAGE's three
-paths and the four recsys towers against the CPU route.
+paths and the four recsys towers against the CPU route; ``f32_matmul``
+under TF32 settings, ``compressed_psum`` and GPipe on 4 x cuda:0.
 Every test carries the ``gpu`` marker and skips without a card; this file
 imports no JAX, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -2143,3 +2145,122 @@ def test_cuda_graphsage_matches_cpu_route(cell):
             e_card = gnn.embeddings_full(card, *(t.to(dev) for t in x), cfg)
             e_cpu = gnn.embeddings_full(params, *x, cfg)
         torch.testing.assert_close(e_card.cpu(), e_cpu, rtol=1e-5, atol=1e-5)
+
+
+def _f32_rule(a, b, c):
+    """Hold the product ``c`` of f32 ``a`` and ``b`` to f32's rule: within
+    2^-20 of sum |a| |b| of each element from the float64 product (16 f32
+    ulps of it; a TF32 product, 10 bits, misses it by far)."""
+    want = a.double() @ b.double()
+    bound = 2.0**-20 * (a.double().abs() @ b.double().abs())
+    return bool(((c.double() - want).abs() <= bound).all())
+
+
+@pytest.mark.gpu
+def test_cuda_f32_matmul_full_f32_under_the_new_precision_setting():
+    """With ``fp32_precision = "tf32"`` set by the caller, ``f32_matmul``
+    keeps f32's rule (a plain product misses it) and leaves the setting
+    as it found it."""
+    from repro_torch.kernels.common import f32_matmul
+
+    dev = cuda_device()
+    matmul = torch.backends.cuda.matmul
+    if not hasattr(matmul, "fp32_precision"):
+        pytest.skip(f"torch {torch.__version__} has no fp32_precision")
+    g = torch.Generator(device=dev).manual_seed(3)
+    a, b = (torch.randn(shape, generator=g, device=dev) for shape in ((256, 1024), (1024, 256)))
+    prev = matmul.fp32_precision
+    try:
+        matmul.fp32_precision = "tf32"
+        assert not _f32_rule(a, b, a @ b)  # TF32 is on for a plain product
+        assert _f32_rule(a, b, f32_matmul(a, b))
+        assert matmul.fp32_precision == "tf32"
+    finally:
+        matmul.fp32_precision = prev
+
+
+@pytest.mark.gpu
+def test_cuda_f32_matmul_in_two_threads_under_tf32():
+    """With ``allow_tf32 = True``, two threads' ``f32_matmul`` products all
+    keep f32's rule (each thread's restore cannot switch TF32 on under the
+    other's product), and the flag is True after."""
+    from repro_torch.kernels.common import f32_matmul
+
+    dev = cuda_device()
+    matmul = torch.backends.cuda.matmul
+    g = torch.Generator(device=dev).manual_seed(4)
+    pairs = [tuple(torch.randn(shape, generator=g, device=dev)
+                   for shape in ((128, 1024), (1024, 128))) for _ in range(2)]
+    results = [[] for _ in pairs]
+
+    def work(i):
+        a, b = pairs[i]
+        for _ in range(50):
+            results[i].append(_f32_rule(a, b, f32_matmul(a, b)))
+
+    prev = matmul.allow_tf32
+    try:
+        matmul.allow_tf32 = True
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        assert [len(r) for r in results] == [50, 50] and all(all(r) for r in results)
+        assert matmul.allow_tf32 is True
+    finally:
+        matmul.allow_tf32 = prev
+
+
+@pytest.mark.gpu
+def test_cuda_compressed_psum_and_gpipe_match_cpu_route():
+    """On 4 x cuda:0: ``compressed_psum`` over two calls bit-equal to the
+    same calls on 4 x cpu (elementwise IEEE operations and an integer sum);
+    GPipe's tanh stack bit-equal to its layers run one microbatch at a time
+    on the card, and within 1e-5 of the CPU route, output and gradients."""
+    from repro_torch.core import distributed
+    from repro_torch.train import compression, pipeline
+
+    dev = cuda_device()
+    gen = torch.Generator().manual_seed(6)
+
+    def trees(scale):
+        return [{"w": scale * torch.randn(4, 16, generator=gen),
+                 "b": (scale * torch.randn(32, generator=gen)).to(torch.bfloat16)}
+                for _ in range(4)]
+
+    calls = [trees(1.0), trees(3.0)]
+    out = {}
+    for where in ("cpu", dev):
+        mesh = distributed.make_mesh((4,), ("data",), device=where)
+        r = [compression.init_residual({k: v.to(where) for k, v in t.items()})
+             for t in calls[0]]
+        got = []
+        for grads in calls:
+            o, r = compression.compressed_psum(
+                [{k: v.to(where) for k, v in t.items()} for t in grads], r, mesh, "data")
+            got.append((o, r))
+        out[str(where)] = got
+    for (oc, rc), (og, rg) in zip(out["cpu"], out[str(dev)]):
+        for s in range(4):
+            for k in ("w", "b"):
+                assert torch.equal(og[s][k].cpu(), oc[s][k]) and torch.equal(rg[s][k].cpu(),
+                                                                              rc[s][k])
+
+    ws = (torch.randn(8, 16, 16, generator=gen) / 4).requires_grad_()
+    x = torch.randn(4, 2, 16, generator=gen)
+    cot = torch.randn(4, 2, 16, generator=gen)
+    res = {}
+    for where in ("cpu", dev):
+        w = ws.detach().to(where).requires_grad_()
+        mesh = distributed.make_mesh((4,), ("pipe",), device=where)
+        y = pipeline.build_gpipe_fn(mesh, lambda h, layer: torch.tanh(h @ layer), 4)(
+            w, x.to(where))
+        seq = x.to(where)
+        for layer in w.detach().unbind(0):
+            seq = torch.tanh(seq @ layer)
+        assert torch.equal(y.detach(), seq)
+        res[str(where)] = (y.detach(), *torch.autograd.grad(y, w, cot.to(where)))
+    for c, g in zip(res["cpu"], res[str(dev)]):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), atol=1e-5)
